@@ -1,0 +1,76 @@
+"""paddle_tpu_torch stands alone: importing it loads no JAX and nothing of
+``paddle_tpu``, its sources import neither, and its entry points run on the
+CUDA card unless told otherwise (raising when there is none)."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "paddle_tpu_torch"
+CFG = dict(vocab_size=61, max_len=64, d_model=32, n_heads=2, n_layers=2,
+           d_ff=64)
+
+
+def test_import_loads_no_jax_and_no_paddle_tpu():
+    src = (
+        "import sys\n"
+        "import paddle_tpu_torch, paddle_tpu_torch.serving.decode\n"
+        "import paddle_tpu_torch.ops.paged_attention\n"
+        "from paddle_tpu_torch.ops import _build\n"
+        "print('LOADED', sorted(_build._loaded))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", src], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+    assert "LOADED []" in proc.stdout, proc.stdout   # nothing built at import
+
+
+def test_sources_import_neither_jax_nor_paddle_tpu():
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|paddle_tpu)\b(?!_torch)"
+        r"|from\s+(jax|paddle_tpu)(\.|\s)(?!_torch))", re.M)
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_entry_points_default_to_cuda():
+    from paddle_tpu_torch import ContinuousDecodeEngine, resolve_device
+    from paddle_tpu_torch.models import init_lm_params
+
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    params = init_lm_params(0, **CFG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousDecodeEngine(params, **CFG)
+    eng = ContinuousDecodeEngine(params, device="cpu", **CFG)
+    assert eng.pool.k.device.type == "cpu"
+    assert eng.model.prm["tok_emb"].device.type == "cpu"
+    assert np.isfinite(eng.prefill(np.array([3, 4, 5], np.int32),
+                                   eng._trash_table())).all()
+
+
+def test_kernel_library_is_keyed_by_source():
+    """The library name carries a hash of the source and the nvcc flags,
+    under the checkout's build/ directory (which .gitignore lists)."""
+    from paddle_tpu_torch.ops import _build
+
+    target = _build._target(_build.CSRC / "paged_attention.cu")
+    assert target.parent == REPO / "build" / "paddle_tpu_torch"
+    assert re.fullmatch(r"paged_attention-[0-9a-f]{16}\.so", target.name)
+    assert "build/" in (REPO / ".gitignore").read_text().split()
