@@ -1,5 +1,6 @@
-"""Decoder-only Transformer LM: the serving block math (PyTorch port of the
-``_srv_*`` section of ``paddle_tpu/models/transformer.py``).
+"""Decoder-only Transformer LM (PyTorch port of
+``paddle_tpu/models/transformer.py``): the training graph ``build_lm`` over
+the Program API, and the serving block math (the ``_srv_*`` section).
 
 Parameters keep the JAX names (``tok_emb``, ``blk0.q.w``, ...) and live in a
 plain ``dict[str, Tensor]`` (``nn.ParameterDict`` refuses keys with dots).
@@ -24,7 +25,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import layers
 from .. import ops as _ops
+from ..core.program import Variable
+from ..initializer import Normal
+from ..layers.helper import LayerHelper
+from ..param_attr import ParamAttr
 
 Params = Dict[str, torch.Tensor]
 
@@ -70,6 +76,138 @@ def init_lm_params(seed: int, vocab_size: int, max_len: int, d_model: int = 512,
         else:
             params[n] = (rng.randn(*shape) * init_std).astype("float32")
     return params
+
+
+# ------------------------------------------------------------- training graph
+
+
+def attention_core(q, k, v, causal: bool, n_heads: int, use_sp: bool,
+                   sp_strategy: str = "ring"):
+    """[N, T, H*D] q/k/v -> attention output [N, T, H*D], one op that runs
+    ``ops.flash_attention`` (the hand-written kernels on the card).
+    Sequence parallelism (``use_sp``) is ROADMAP A.9 and raises."""
+    if use_sp:
+        raise NotImplementedError(
+            "use_sp (ring / Ulysses sequence parallelism) is not ported yet: "
+            "parallelism is ROADMAP A.9")
+    if sp_strategy not in ("ring", "ring_striped", "ulysses"):
+        raise ValueError(f"unknown sp_strategy {sp_strategy!r}: "
+                         f"ring | ring_striped | ulysses")
+    helper = LayerHelper("attention")
+
+    def fn(ctx, qv, kv, vv, causal, n_heads, use_sp, sp_strategy):
+        N, T, HD = qv.shape
+        D = HD // n_heads
+
+        def heads(z):
+            return z.reshape(N, z.shape[1], n_heads, D).transpose(1, 2)
+
+        out = _ops.flash_attention(heads(qv), heads(kv), heads(vv),
+                                   causal=causal)
+        return out.transpose(1, 2).reshape(N, T, HD)
+
+    return helper.append_op(fn, {"Q": [q], "K": [k], "V": [v]},
+                            attrs={"causal": causal, "n_heads": n_heads,
+                                   "use_sp": use_sp, "sp_strategy": sp_strategy})
+
+
+def transformer_block(x, d_model: int, n_heads: int, d_ff: int, causal=True,
+                      dropout=0.0, use_tp=False, use_sp=False,
+                      sp_strategy="ring", name=""):
+    """Pre-LN block with deterministic parameter names (``{name}.q.w``,
+    ...), the names ``lm_param_shapes`` lists."""
+    if use_tp:
+        raise NotImplementedError(
+            "use_tp (Megatron tensor parallelism) is not ported yet: "
+            "parallelism is ROADMAP A.9")
+    if dropout > 0:
+        raise NotImplementedError(
+            "dropout > 0 is not ported yet: dropout with its generator is "
+            "ROADMAP A.6")
+
+    def pa(suffix):
+        return ParamAttr(name=f"{name}.{suffix}")
+
+    h = layers.layer_norm(x, begin_norm_axis=2, param_attr=pa("ln1.g"),
+                          bias_attr=pa("ln1.b"))
+    q = layers.fc(h, d_model, num_flatten_dims=2, bias_attr=False,
+                  name=f"{name}.q", param_attr=pa("q.w"))
+    k = layers.fc(h, d_model, num_flatten_dims=2, bias_attr=False,
+                  name=f"{name}.k", param_attr=pa("k.w"))
+    v = layers.fc(h, d_model, num_flatten_dims=2, bias_attr=False,
+                  name=f"{name}.v", param_attr=pa("v.w"))
+    att = attention_core(q, k, v, causal, n_heads, use_sp, sp_strategy)
+    att = layers.fc(att, d_model, num_flatten_dims=2, name=f"{name}.o",
+                    param_attr=pa("o.w"), bias_attr=pa("o.b"))
+    x = layers.elementwise_add(x, att)
+    h2 = layers.layer_norm(x, begin_norm_axis=2, param_attr=pa("ln2.g"),
+                           bias_attr=pa("ln2.b"))
+    f = layers.fc(h2, d_ff, num_flatten_dims=2, act="gelu", name=f"{name}.ff1",
+                  param_attr=pa("ff1.w"), bias_attr=pa("ff1.b"))
+    f = layers.fc(f, d_model, num_flatten_dims=2, name=f"{name}.ff2",
+                  param_attr=pa("ff2.w"), bias_attr=pa("ff2.b"))
+    return layers.elementwise_add(x, f)
+
+
+def build_lm(
+    tokens: Variable,
+    labels: Variable,
+    vocab_size: int,
+    max_len: int,
+    d_model: int = 512,
+    n_heads: int = 8,
+    n_layers: int = 6,
+    d_ff: int = 2048,
+    dropout: float = 0.0,
+    use_tp: bool = False,
+    use_sp: bool = False,
+    sp_strategy: str = "ring",
+    tie_embeddings: bool = True,
+    remat: bool = False,
+):
+    """Decoder-only LM training graph (the Transformer-base flagship).
+    tokens/labels: [N, T] / [N, T, 1] int32.  Returns (loss, logits).
+    ``remat``, ``dropout > 0``, ``use_tp`` and ``use_sp`` are not ported
+    yet and raise (ROADMAP A.6 recompute and dropout, A.9 parallelism)."""
+    if remat:
+        raise NotImplementedError(
+            "remat=True (layers.recompute) is not ported yet: recompute is "
+            "ROADMAP A.6")
+    if dropout > 0:
+        raise NotImplementedError(
+            "dropout > 0 is not ported yet: dropout with its generator is "
+            "ROADMAP A.6")
+    if use_tp or use_sp:
+        raise NotImplementedError(
+            "use_tp / use_sp are not ported yet: parallelism is ROADMAP A.9")
+    emb_attr = ParamAttr(name="tok_emb", initializer=Normal(0.0, 0.02))
+    x = layers.embedding(tokens, [vocab_size, d_model], param_attr=emb_attr)
+    pos_attr = ParamAttr(name="pos_emb", initializer=Normal(0.0, 0.02))
+    helper = LayerHelper("pos_embed")
+    pos_w = helper.create_parameter(pos_attr, [max_len, d_model], x.dtype)
+
+    def add_pos(ctx, h, pw):
+        return h + pw[None, : h.shape[1]]
+
+    x = helper.append_op(add_pos, {"X": [x], "Pos": [pos_w]})
+    for i in range(n_layers):
+        x = transformer_block(x, d_model, n_heads, d_ff, causal=True,
+                              sp_strategy=sp_strategy, name=f"blk{i}")
+    x = layers.layer_norm(x, begin_norm_axis=2, param_attr=ParamAttr(name="lnf.g"),
+                          bias_attr=ParamAttr(name="lnf.b"))
+    if tie_embeddings:
+        helper2 = LayerHelper("lm_head")
+
+        def head(ctx, h, w):
+            return torch.matmul(h, w.t())
+
+        logits = helper2.append_op(head, {"X": [x], "W": [helper.block.var("tok_emb")]})
+    else:
+        logits = layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False,
+                           param_attr=ParamAttr(name="lm_head.w"))
+    ce = layers.softmax_with_cross_entropy(logits, labels)
+    loss = layers.mean(ce)
+    return loss, logits
 
 
 # ----------------------------------------------------------------- block math

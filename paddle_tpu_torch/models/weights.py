@@ -1,6 +1,7 @@
-"""Carry LM weights into the port: a numpy dict under the JAX names (from a
+"""Carry weights into the port: a numpy dict under the JAX names (from a
 checkpoint, a trained scope, or ``init_lm_params`` of either package) becomes
-the port's cast parameter dict on a device."""
+the port's cast parameter dict on a device (serving), or the persistable
+state of a program's scope (training)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -48,3 +49,33 @@ def from_jax_params(params: Dict[str, np.ndarray], *, vocab_size: int,
                              f"expected {tuple(shape)}")
         out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
     return _srv_cast_params(out, torch_dtype(dtype))
+
+
+def load_scope(arrays: Dict[str, np.ndarray], program, scope,
+               device=None) -> None:
+    """Put numpy arrays into ``scope`` as tensors on ``device`` (the CUDA card
+    unless given) under their names, after checking each against the
+    program's persistable variables: the name must be one, and its shape
+    and dtype must match the declaration.  The JAX package's
+    ``init_lm_params`` output, or a JAX scope read back with ``np.asarray``,
+    loads this way into a ``build_lm`` program."""
+    from ..core.types import numpy_dtype
+
+    dev = resolve_device(device)
+    persist = {v.name: v for v in program.persistable_vars()}
+    unknown = sorted(set(arrays) - set(persist))
+    if unknown:
+        raise ValueError(f"not persistable variables of the program: "
+                         f"{unknown}")
+    for name, arr in arrays.items():
+        var = persist[name]
+        arr = np.asarray(arr)
+        if arr.shape != tuple(var.shape):
+            raise ValueError(f"{name} has shape {arr.shape}, the program "
+                             f"declares {tuple(var.shape)}")
+        if arr.dtype != numpy_dtype(var.dtype):
+            raise ValueError(f"{name} has dtype {arr.dtype}, the program "
+                             f"declares {var.dtype}")
+    for name, arr in arrays.items():
+        # a copy: the scope's tensors never share memory with the caller's
+        scope.set_var(name, torch.from_numpy(np.array(arr)).to(dev))

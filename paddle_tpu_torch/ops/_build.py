@@ -55,29 +55,38 @@ def _target(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
+def build_library(source_name: str) -> Path:
+    """Compile ``ops/csrc/<source_name>`` if its hashed library is missing;
+    returns the library's path.  Compiler failures raise with nvcc's
+    output.  Takes no lock, so that ``chip_smoke.py`` can run one nvcc per
+    source at once (it must build every source within its time limit); the
+    library is written under a temporary name and renamed into place."""
+    source = CSRC / source_name
+    so_path = _target(source)
+    if not so_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so_path.with_suffix(
+            f".{os.getpid()}-{threading.get_ident()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed building {source_name} "
+                f"(rc={proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so_path)  # atomic: a reader never sees half
+        build_seconds[source_name] = time.perf_counter() - t0
+    return so_path
+
+
 def load_kernel_library(source_name: str) -> ctypes.CDLL:
-    """Compile ``ops/csrc/<source_name>`` if its hashed library is missing,
-    then load it.  Compiler failures raise with nvcc's output."""
+    """Build ``ops/csrc/<source_name>`` if needed (see
+    :func:`build_library`), then load it, once per process."""
     with _lock:
         lib = _loaded.get(source_name)
-        if lib is not None:
-            return lib
-        source = CSRC / source_name
-        so_path = _target(source)
-        if not so_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  check=False)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed building {source_name} "
-                    f"(rc={proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, so_path)  # atomic: a reader never sees half
-            build_seconds[source_name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so_path))
-        _loaded[source_name] = lib
+        if lib is None:
+            lib = _loaded[source_name] = ctypes.CDLL(
+                str(build_library(source_name)))
         return lib

@@ -22,6 +22,7 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.serving.decode\n"
         "import paddle_tpu_torch.ops.paged_attention\n"
+        "import paddle_tpu_torch.tools.train_profile\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -47,11 +48,13 @@ def test_sources_import_neither_jax_nor_paddle_tpu():
 
 
 def test_entry_points_default_to_cuda():
+    import paddle_tpu_torch as fluid
     from paddle_tpu_torch import ContinuousDecodeEngine, resolve_device
     from paddle_tpu_torch.models import init_lm_params
 
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
+        assert fluid.Executor().device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
@@ -64,13 +67,33 @@ def test_entry_points_default_to_cuda():
     assert np.isfinite(eng.prefill(np.array([3, 4, 5], np.int32),
                                    eng._trash_table())).all()
 
+    # the training slice: Executor() is the card, CPUPlace() the host, and
+    # load_scope puts weights on the card unless told otherwise
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.Executor()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        toks = fluid.layers.data("toks", [8], dtype="int32")
+        labs = fluid.layers.data("labs", [8, 1], dtype="int32")
+        fluid.models.build_lm(toks, labs, **dict(CFG, max_len=8))
+    scope = fluid.Scope()
+    weights = init_lm_params(0, **dict(CFG, max_len=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.load_scope(weights, main, scope)
+    assert scope.var_names() == []
+    exe = fluid.Executor(fluid.CPUPlace())
+    assert exe.device.type == "cpu"
+    fluid.load_scope(weights, main, scope, device="cpu")
+    assert {t.device.type for _, t in scope.items()} == {"cpu"}
+
 
 def test_kernel_library_is_keyed_by_source():
     """The library name carries a hash of the source and the nvcc flags,
     under the checkout's build/ directory (which .gitignore lists)."""
     from paddle_tpu_torch.ops import _build
 
-    target = _build._target(_build.CSRC / "paged_attention.cu")
-    assert target.parent == REPO / "build" / "paddle_tpu_torch"
-    assert re.fullmatch(r"paged_attention-[0-9a-f]{16}\.so", target.name)
+    for stem in ("paged_attention", "flash_attention"):
+        target = _build._target(_build.CSRC / f"{stem}.cu")
+        assert target.parent == REPO / "build" / "paddle_tpu_torch"
+        assert re.fullmatch(stem + r"-[0-9a-f]{16}\.so", target.name)
     assert "build/" in (REPO / ".gitignore").read_text().split()
