@@ -12,9 +12,12 @@ Phases (any failure exits non-zero, before the final line):
   3. kernels - hold each kernel against its plain PyTorch version on the
                card (paged attention at the serving shapes; the three flash
                kernels at the training shape in float32 and bfloat16, a
-               rectangular non-causal and a ragged causal case), and time
-               kernel, plain version and the library yardstick
-               (scaled_dot_product_attention, which the port never calls);
+               rectangular non-causal and a ragged causal case; the LSTM
+               forward and reverse kernels at text_lstm's full width, with
+               peepholes, and through dynamic_lstm(is_reverse=True) on
+               lengths {1, T, 0}), and time kernel, plain version and the
+               library yardstick (scaled_dot_product_attention, cuDNN's
+               LSTM; the port never calls either);
   4. serve   - the Transformer-base LM (V=32000, d=512, 8 heads, 6 layers,
                d_ff=2048, tied embeddings, float32, random weights from
                seed 0) served by ContinuousScheduler over a paged pool
@@ -31,7 +34,15 @@ Phases (any failure exits non-zero, before the final line):
                and every gradient compared; then 5 steps on a fixed 8 x 1024
                batch with the flash launch counts set to 0 before and read
                after (each must be n_layers x steps), losses finite and
-               falling, ms per step and tokens/s.
+               falling, ms per step and tokens/s;
+  6. lstm train - the text classifier (vocab 10000, emb 128, 2 x LSTM-512,
+               2 classes, seq_len 100, float32, weights from seed 0) through
+               Program / Executor with Adam(1e-3): one step on 16 sequences
+               on the card and on the CPU from the same weights, loss and
+               every gradient compared; then 5 steps on a fixed batch of 128
+               with the LSTM launch counts set to 0 before and read after
+               (2 layers x 5 steps each), losses finite and falling, ms per
+               step and sequences/s.
 The line before the card line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -60,7 +71,7 @@ TOLERANCE = {  # (atol, rtol); float32 sums run in another order
     "bfloat16": (2e-2, 2e-2),
     "int8": (2e-5, 1e-5),
 }
-KERNEL_SOURCES = ("paged_attention.cu", "flash_attention.cu")
+KERNEL_SOURCES = ("paged_attention.cu", "flash_attention.cu", "lstm.cu")
 # flash kernels against their plain versions.  float32: the JAX package's
 # own tolerances for its Pallas kernels (tests/test_pallas_ops.py:34,215):
 # o and lse atol 2e-5, gradients 2e-4 of max |grad|, over the tensor.
@@ -86,6 +97,13 @@ FLASH_CASES = [("train", 64, 1024, 1024, 64, True),
                ("rectangular", 8, 50, 70, 16, False),
                ("ragged", 8, 37, 37, 16, True)]
 FLASH_KERNELS = ("fwd", "bwd_dkdv", "bwd_dq")
+# LSTM kernels against their plain versions: the repo's float32 kernel
+# tolerances, hs and c_final atol 2e-5, dxw / du / dpeep within 2e-4 of each
+# gradient's max |g|
+LSTM_FWD_ATOL = 2e-5
+LSTM_BWD_REL = 2e-4
+LSTM_KERNELS = ("fwd", "bwd")
+LSTM_ACTS = ("sigmoid", "tanh", "tanh")
 
 
 def fail(msg: str) -> None:
@@ -445,6 +463,224 @@ def phase_flash_kernels(card: str) -> dict:
     return records
 
 
+def _lstm_bound(kernel: str, T: int, B: int, H: int, n_valid: int,
+                whole: bool = True) -> tuple:
+    """(bound_ms, bound_by) for one call at this run's shape.  Operations:
+    the recurrent product's multiply-adds over the (step, row) pairs the
+    mask keeps (``n_valid``; padded steps need none), 2 * n_valid * H * 4H,
+    and for the whole backward as much again for du = sum_t h^T dxw.
+    Bytes: each input read once and each output written once, float32 --
+    forward xw, U, peep, mask in, hs, the carried state hc and cc
+    [T+1, B, H], the gates and c_new out (the training path writes them
+    for the backward); backward g_hs, g_c, U, peep, mask, gates, c_new, cc
+    (and hc for du) in, dxw (and du, dpeep) out."""
+    tbh, bh, u = T * B * H, B * H, H * 4 * H
+    mask = T * B
+    product = 2.0 * n_valid * H * 4 * H
+    if kernel == "fwd":
+        ops = product
+        elems = (4 * tbh + u + 3 * H + mask
+                 + tbh + 2 * (tbh + bh) + 4 * tbh + tbh)
+    else:
+        ops = product * (2 if whole else 1)
+        elems = (tbh + bh + u + 3 * H + mask + 4 * tbh + tbh + (tbh + bh)
+                 + 4 * tbh)
+        if whole:
+            elems += (tbh + bh) + u + 3 * H
+    t_bytes = 4.0 * elems / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _lstm_inputs(T, B, H, lengths, dev, seed):
+    """xw N(0, 1), U N(0, 1/H) (gate pre-activations spread around O(1)),
+    peep N(0, 0.5^2), the mask of ``lengths`` and cotangents N(0, 1)."""
+    rng = np.random.RandomState(seed)
+
+    def mk(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev)
+
+    mask = torch.from_numpy((np.arange(T)[:, None] < np.asarray(lengths)[
+        None, :]).astype(np.float32)).to(dev)
+    return (mk((T, B, 4 * H)), mk((H, 4 * H), H ** -0.5), mk((3, H), 0.5),
+            mask, mk((T, B, H)), mk((B, H)))
+
+
+def _lstm_case(label, T, B, H, lengths, peep_on, dev, card, timed) -> dict:
+    """The forward kernel against ``_lstm_scan`` and the backward
+    (reverse-recurrence kernel, then du and the peephole sums) against
+    ``_lstm_scan_vjp``, on the same inputs on the card; with ``timed`` the
+    times, bounds and cuDNN's LSTM beside them.  Returns the records."""
+    from paddle_tpu_torch.ops import lstm as TL
+
+    xw, u, peep, mask, g_hs, g_c = _lstm_inputs(T, B, H, lengths, dev,
+                                                 T + B + H)
+    args = (H, peep_on, LSTM_ACTS)
+    name = f"lstm {label} T={T} B={B} H={H} peepholes={peep_on}"
+    hs, hc, cc, gates, cnew = TL.lstm_fwd_kernel(xw, u, peep, mask, *args,
+                                                 True)
+    torch.cuda.synchronize()
+    rhs, rc = TL._lstm_scan(xw, u, peep, mask, *args)
+    err_f = max(_abs(hs, rhs), _abs(cc[-1], rc))
+    ok = (err_f <= LSTM_FWD_ATOL and bool(torch.isfinite(hs).all())
+          and bool(torch.isfinite(cc[-1]).all()))
+    print(f"kernel {name}: fwd hs, c_final max|d|={err_f:.3e} (atol "
+          f"{LSTM_FWD_ATOL}) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{name}: forward kernel disagrees with _lstm_scan: {err_f}")
+
+    got = TL.lstm_bwd_cuda(g_hs, g_c, u, peep, mask, hc, cc, gates, cnew,
+                           *args)
+    torch.cuda.synchronize()
+    want = TL._lstm_scan_vjp(xw, u, peep, mask, *args, g_hs, g_c)
+    rel, err_b = {}, 0.0
+    for n, a, b in zip(("dxw", "du", "dpeep"), got, want):
+        check(bool(torch.isfinite(a).all()), f"{name}: non-finite {n}")
+        top = float(b.abs().max())
+        rel[n] = _abs(a, b) / max(top, 1e-30)
+        err_b = max(err_b, _abs(a, b))
+    ok = all(r <= LSTM_BWD_REL for r in rel.values())
+    print(f"kernel {name}: bwd max|d|/max|g| " + ", ".join(
+        f"{n} {r:.3e}" for n, r in rel.items())
+        + f" (limit {LSTM_BWD_REL}) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{name}: backward disagrees with _lstm_scan_vjp: {rel}")
+    if not timed:
+        return {}
+
+    ms = {"fwd": cuda_ms(lambda i: TL.lstm_fwd_kernel(xw, u, peep, mask,
+                                                      *args, True)),
+          "bwd": cuda_ms(lambda i: TL.lstm_bwd_cuda(
+              g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, *args))}
+    bwd_kernel_ms = cuda_ms(lambda i: TL.lstm_bwd_kernel(
+        g_hs, g_c, u, peep, mask, gates, cnew, cc, *args))
+    plain = {"fwd": cuda_ms(lambda i: TL._lstm_scan(xw, u, peep, mask, *args),
+                            iters=5, warmup=1),
+             "bwd": cuda_ms(lambda i: TL._lstm_scan_vjp(
+                 xw, u, peep, mask, *args, g_hs, g_c), iters=3, warmup=1)}
+    # the yardstick: cuDNN's LSTM at the same T, B, H, full length, no
+    # peepholes, input width H (text_lstm's second layer), float32 (TF32
+    # off); it includes the input projection, so the kernel is shown with
+    # that projection's matmul beside it
+    torch.backends.cudnn.allow_tf32 = False
+    lib = torch.nn.LSTM(H, H).to(dev)
+    x = torch.randn(T, B, H, device=dev)
+    xr = x.clone().requires_grad_(True)
+    gy = torch.randn(T, B, H, device=dev)
+    wx = torch.randn(H, 4 * H, device=dev) * H ** -0.5
+    leaves = [xr] + list(lib.parameters())
+
+    def lib_fwd(i):
+        with torch.no_grad():
+            lib(x)
+
+    def lib_train_fwd(i):
+        lib(xr)
+
+    def lib_fwd_bwd(i):
+        torch.autograd.grad(lib(xr)[0], leaves, gy)
+
+    lib_ms = cuda_ms(lib_fwd)
+    lib_bwd_ms = cuda_ms(lib_fwd_bwd, iters=10) - cuda_ms(lib_train_fwd)
+    proj_ms = cuda_ms(lambda i: x.reshape(T * B, H) @ wx)
+    n_valid = int(mask.sum())
+    recs = {}
+    for kern in LSTM_KERNELS:
+        bound_ms, bound_by = _lstm_bound(kern, T, B, H, n_valid)
+        library_ms = lib_ms if kern == "fwd" else lib_bwd_ms
+        recs[kern] = {"max_abs_err": err_f if kern == "fwd" else err_b,
+                      "ms": ms[kern], "plain_ms": plain[kern],
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+        print(f"kernel lstm {kern} {label} shape: {ms[kern]:.4f} ms, plain "
+              f"{plain[kern]:.4f} ms, cudnn {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {n_valid} of {T * B} steps "
+              f"valid) on {card}")
+    kb_ms, kb_by = _lstm_bound("bwd", T, B, H, n_valid, whole=False)
+    print(f"kernel lstm {label} shape: the reverse-recurrence kernel alone "
+          f"{bwd_kernel_ms:.4f} ms (bound {kb_ms:.4f} ms, {kb_by}), du "
+          f"matmul and peephole sums the rest of the backward; input "
+          f"projection [{T * B}, {H}] x [{H}, {4 * H}] {proj_ms:.4f} ms, "
+          f"projection + forward kernel {proj_ms + ms['fwd']:.4f} ms vs "
+          f"cudnn forward {lib_ms:.4f} ms (full length, no mask); cudnn "
+          f"backward is forward + backward less forward, with grad-enabled "
+          f"weights, on {card}")
+    return recs
+
+
+def _lstm_layer_case(card) -> None:
+    """dynamic_lstm(is_reverse=True, use_peepholes=True) after an fc, in a
+    program run by the card's Executor (kernels) and the CPU's (plain
+    versions) from the same weights, on lengths {1, T, 0}: hidden, last
+    cell and the three weight gradients compared; the card run launches
+    each LSTM kernel once."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import fused_lstm
+
+    T, D, H = 37, 24, 40
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        x = L.data("x", [T, D])
+        lengths = L.data("lengths", [-1], dtype="int32",
+                         append_batch_size=False)
+        proj = L.fc(x, 4 * H, num_flatten_dims=2, bias_attr=False)
+        hs, c = L.dynamic_lstm(proj, lengths, H, use_peepholes=True,
+                               is_reverse=True)
+        loss = L.sums([L.mean(L.square(hs)), L.mean(c)])
+        pg = fluid.backward.append_backward(loss)
+    rng = np.random.RandomState(5)
+    weights = {"fc_w_0": rng.standard_normal((D, 4 * H)) / np.sqrt(D),
+               "dynamic_lstm_w_0": rng.standard_normal((H, 4 * H))
+               / np.sqrt(H),
+               "dynamic_lstm_b_0": rng.standard_normal(7 * H) * 0.5}
+    weights = {k: v.astype(np.float32) for k, v in weights.items()}
+    feed = {"x": rng.standard_normal((3, T, D)).astype(np.float32),
+            "lengths": np.array([1, T, 0], np.int32)}
+    fetch = [hs, c] + [g for _, g in pg]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        fluid.load_scope(weights, main, scope, device=dev)
+        before = dict(fused_lstm.launches)
+        outs[dev] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        ran = {k: fused_lstm.launches[k] - before[k] for k in before}
+        want = {"fwd": 1, "bwd": 1} if dev == "cuda" else {"fwd": 0, "bwd": 0}
+        check(ran == want, f"lstm layer case on {dev}: launches {ran}, "
+                           f"expected {want}")
+    name = f"lstm layer dynamic_lstm(is_reverse) T={T} B=3 H={H} lengths 1,T,0"
+    errs = []
+    for i, (v, a, b) in enumerate(zip(fetch, outs["cuda"], outs["cpu"])):
+        check(np.isfinite(a).all(), f"{name}: non-finite {v.name}")
+        d = float(np.abs(a - b).max())
+        lim = LSTM_FWD_ATOL if i < 2 else LSTM_BWD_REL * float(
+            np.abs(b).max())
+        errs.append((v.name, d, lim))
+    ok = all(d <= lim for _, d, lim in errs)
+    print(f"kernel {name}: card vs CPU " + ", ".join(
+        f"{n} {d:.3e} (limit {lim:.1e})" for n, d, lim in errs)
+        + f" {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{name}: card and CPU disagree: {errs}")
+    check(np.all(outs["cuda"][0][2] == 0) and np.all(
+        outs["cuda"][0][0][1:] == 0), f"{name}: padded steps not zero")
+
+
+def phase_lstm_kernels(card: str) -> dict:
+    """The LSTM cases; returns the full-width records by kernel for the
+    JSON line."""
+    from paddle_tpu_torch import resolve_device
+
+    dev = resolve_device()         # float32 matmuls in full float32
+    T, B, H = 100, 128, 512
+    lengths = np.random.RandomState(0).randint(T // 2, T + 1, B)
+    recs = _lstm_case("train", T, B, H, lengths, False, dev, card, True)
+    _lstm_case("peepholes", T, B, H, lengths, True, dev, card, False)
+    _lstm_layer_case(card)
+    return recs
+
+
 def _ttft(handles) -> tuple:
     t = np.array([h.t_first_token - h.t_submit for h in handles]) * 1e3
     return float(np.percentile(t, 50)), float(np.percentile(t, 99))
@@ -662,6 +898,85 @@ def phase_train(card: str) -> dict:
     return {"launches": launches, "losses": losses, "median_ms": med}
 
 
+def phase_lstm_train(card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import fused_lstm
+    from paddle_tpu_torch.tools.train_profile import (
+        TEXT_LSTM_BATCH, TEXT_LSTM_CFG, TEXT_LSTM_SEQ, TRAIN_STEPS,
+        build_text_lstm_program, text_lstm_batch, text_lstm_params,
+        train_scope)
+
+    # the program, weights and batch of tools/train_profile.py --model
+    # text_lstm
+    loss, main, startup = build_text_lstm_program()
+    params = text_lstm_params(0)
+    grad_names = [f"{n}@GRAD" for n in params]
+    exe = fluid.Executor()
+    exe_cpu = fluid.Executor(fluid.CPUPlace())
+
+    # parity step: the card (kernels) and the CPU (plain versions) from the
+    # same weights on the same 16 sequences
+    feed = text_lstm_batch(1, 16)
+    t0 = time.perf_counter()
+    got = exe.run(main, feed=feed, fetch_list=[loss] + grad_names,
+                  scope=train_scope(exe, startup, main, params))
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = exe_cpu.run(main, feed=feed, fetch_list=[loss] + grad_names,
+                       scope=train_scope(exe_cpu, startup, main, params,
+                                         "cpu"))
+    t_cpu = time.perf_counter() - t0
+    l_gpu, l_cpu = float(got[0]), float(want[0])
+    check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"lstm parity step: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    worst, worst_name = 0.0, None
+    for name, a, b in zip(grad_names, got[1:], want[1:]):
+        check(np.isfinite(a).all(), f"lstm parity step: non-finite {name}")
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    print(f"lstm train parity: loss {l_gpu:.6f} card, {l_cpu:.6f} CPU (rtol "
+          f"1e-4); {len(grad_names)} gradients, worst max|d|/max|g| "
+          f"{worst:.3e} ({worst_name}; limit 1e-3); step {t_gpu:.2f} s card "
+          f"(first), {t_cpu:.2f} s CPU")
+    check(worst <= 1e-3, f"lstm parity step: {worst_name} differs by "
+                         f"{worst} of its max |g|")
+
+    # training pass: the counts are this pass's own
+    scope = train_scope(exe, startup, main, params)
+    feed = text_lstm_batch(0)
+    torch.cuda.synchronize()
+    for kern in LSTM_KERNELS:
+        fused_lstm.launches[kern] = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        e1.record()
+        torch.cuda.synchronize()
+        losses.append(float(out))
+        step_ms.append(e0.elapsed_time(e1))
+    launches = dict(fused_lstm.launches)
+    n_layers = TEXT_LSTM_CFG["num_layers"]
+    check(all(np.isfinite(losses)), f"lstm train: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"lstm train: loss did not fall: {losses}")
+    check(all(launches[k] == n_layers * TRAIN_STEPS for k in LSTM_KERNELS),
+          f"lstm train: launches {launches}, expected {n_layers} x "
+          f"{TRAIN_STEPS} each")
+    med = float(np.median(step_ms[1:]))
+    print(f"lstm train: {TRAIN_STEPS} Adam steps on {TEXT_LSTM_BATCH} x "
+          f"{TEXT_LSTM_SEQ} (lengths 50-100, {int(feed['lengths'].sum())} "
+          f"valid tokens), losses {', '.join(f'{x:.5f}' for x in losses)}; "
+          f"step ms {', '.join(f'{x:.1f}' for x in step_ms)}; median of "
+          f"steps 2-{TRAIN_STEPS} {med:.2f} ms = "
+          f"{TEXT_LSTM_BATCH / med * 1e3:.0f} sequences/s; lstm launches "
+          f"{launches} = {n_layers} layers x {TRAIN_STEPS} steps (each call "
+          f"{TEXT_LSTM_SEQ} device launches); on {card}")
+    return {"launches": launches, "losses": losses, "median_ms": med}
+
+
 def main() -> int:
     check(torch.cuda.is_available(),
           "torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
@@ -669,8 +984,10 @@ def main() -> int:
     phase_build()
     rec = phase_kernels(card)
     flash = phase_flash_kernels(card)
+    lstm = phase_lstm_kernels(card)
     paths = phase_serve(card)
     train = phase_train(card)
+    lstm_train = phase_lstm_train(card)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
@@ -692,6 +1009,21 @@ def main() -> int:
             "case": "float32, N=B*H=64, T=1024, D=64, causal",
             # launches: the training pass's own count (5 steps x 6 layers)
             "launches": train["launches"][kern], **flash[kern],
+        })
+    replaces = {"fwd": "paddle_tpu/ops/lstm.py:35",
+                "bwd": "paddle_tpu/ops/lstm.py:153"}
+    for kern in LSTM_KERNELS:
+        kernels.append({
+            "name": f"fused_lstm_{kern}", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/lstm.cu",
+            "replaces": replaces[kern],
+            "case": ("float32, T=100, B=128, H=512, no peepholes, lengths "
+                     "50-100" + ("" if kern == "fwd" else
+                                 "; the whole backward: reverse-recurrence "
+                                 "kernel, du matmul, peephole sums")),
+            # launches: the lstm training pass's own count (5 steps x 2
+            # layers), one call per layer per step, each call T launches
+            "launches": lstm_train["launches"][kern], **lstm[kern],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,11 @@
 """paddle_tpu_torch: the PyTorch / CUDA port of paddle_tpu for NVIDIA Hopper.
 
-Two slices of the Transformer LM run here:
+Three slices run here:
 
-* training: ``build_lm`` through the Program / Executor API with Adam and
-  global-norm clipping, on hand-written CUDA flash-attention forward and
-  backward kernels (``ops/csrc/flash_attention.cu``)::
+* training the Transformer LM: ``build_lm`` through the Program / Executor
+  API with Adam and global-norm clipping, on hand-written CUDA
+  flash-attention forward and backward kernels
+  (``ops/csrc/flash_attention.cu``)::
 
       import paddle_tpu_torch as fluid
 
@@ -16,8 +17,13 @@ Two slices of the Transformer LM run here:
       exe.run(fluid.default_startup_program())
       out, = exe.run(feed={...}, fetch_list=[loss])
 
-* serving: continuous batching over a paged KV pool, with a hand-written
-  CUDA paged decode-attention kernel (``ops/csrc/paged_attention.cu``).
+* training the LSTM text classifier: ``models.text_lstm.build`` (2 x
+  ``dynamic_lstm``) the same way, on hand-written CUDA LSTM forward and
+  reverse-recurrence kernels (``ops/csrc/lstm.cu``);
+
+* serving the LM: continuous batching over a paged KV pool, with a
+  hand-written CUDA paged decode-attention kernel
+  (``ops/csrc/paged_attention.cu``).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``CPUPlace()``, ``device="cpu"``); with no card and no device given they

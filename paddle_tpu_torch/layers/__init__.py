@@ -1,9 +1,12 @@
 """Layer library (PyTorch port of the ``paddle_tpu/layers`` subset the
-training slice uses).  The rest of the JAX package's layers (sequence,
-control flow, detection, nested, beam, misc) and the Variable operator sugar
-are ROADMAP A.6."""
-from . import io, nn, ops, tensor
+training slices use).  Of ``sequence``, the pooling and ``dynamic_lstm``
+are ported; the rest of it (ROADMAP A.7) and the JAX package's other layers
+(control flow, detection, nested, beam, misc) and the Variable operator
+sugar are ROADMAP A.6."""
+from . import io, nn, ops, sequence, tensor
 from .io import data  # noqa: F401
+from .sequence import (dynamic_lstm, sequence_first_step,  # noqa: F401
+                       sequence_last_step, sequence_pool)
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403

@@ -1,6 +1,6 @@
 """Neural-network layers (PyTorch port of the ``paddle_tpu/layers/nn.py``
-subset the training slice uses): fc, embedding, layer_norm and
-softmax_with_cross_entropy.
+subset the training slices use): fc, embedding, layer_norm,
+softmax_with_cross_entropy, cross_entropy and accuracy.
 
 Numerics follow the JAX package: layer_norm takes float32 statistics with
 ``var = max(E[x^2] - mu^2, 0)`` (not the serving layer norm's population
@@ -176,4 +176,44 @@ def softmax_with_cross_entropy(logits: Variable, label: Variable, soft_label: bo
     return outs
 
 
-__all__ = ["embedding", "fc", "layer_norm", "softmax_with_cross_entropy"]
+def cross_entropy(input: Variable, label: Variable, soft_label: bool = False,
+                  name=None):
+    """Cross entropy on probabilities (not logits): ``-log(p + 1e-8)`` at
+    the label, shape [batch, 1]; hard labels are int ids, gathered as
+    int64."""
+    helper = LayerHelper("cross_entropy", name=name)
+
+    def fn(ctx, p, lab, soft_label):
+        eps = 1e-8
+        if soft_label:
+            return -torch.sum(lab * torch.log(p + eps), dim=-1, keepdim=True)
+        ids = lab.squeeze(-1) if lab.dim() == p.dim() else lab
+        picked = torch.gather(p, -1, ids[..., None].long())
+        return -torch.log(picked + eps)
+
+    return helper.append_op(fn, {"X": [input], "Label": [label]},
+                            attrs={"soft_label": soft_label})
+
+
+# --------------------------------------------------------------------------- metrics
+
+
+def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
+    """Top-k accuracy of a batch, a [1] float32.  ``jax.lax.top_k`` puts
+    the lower index first among equal values; ``torch.topk`` leaves the
+    order of ties unspecified, so the top k come from a stable descending
+    sort, which keeps JAX's order."""
+    helper = LayerHelper("accuracy", name=name)
+
+    def fn(ctx, p, lab, k):
+        topi = torch.sort(p, dim=-1, descending=True, stable=True).indices
+        ids = lab.squeeze(-1) if lab.dim() == p.dim() else lab
+        correct = torch.any(topi[..., :k] == ids[..., None].long(), dim=-1)
+        return torch.mean(correct.to(torch.float32))[None]
+
+    return helper.append_op(fn, {"Out": [input], "Label": [label]},
+                            attrs={"k": k})
+
+
+__all__ = ["accuracy", "cross_entropy", "embedding", "fc", "layer_norm",
+           "softmax_with_cross_entropy"]

@@ -1,6 +1,7 @@
 """Activations (PyTorch port of the activation table of
-``paddle_tpu/layers/ops.py``): each is a torch one-liner wrapped into a
-Program op.  ``gelu`` is the tanh form, as ``jax.nn.gelu``'s default."""
+``paddle_tpu/layers/ops.py``, with ``softmax`` and ``log_softmax``): each is
+a torch one-liner wrapped into a Program op, so ``fc(act="softmax")``
+resolves here.  ``gelu`` is the tanh form, as ``jax.nn.gelu``'s default."""
 from __future__ import annotations
 
 import torch
@@ -49,4 +50,20 @@ _g = globals()
 for _name, _fn in _UNARY.items():
     _g[_name] = _make_unary(_name, _fn)
 
-__all__ = sorted(_UNARY)
+
+def softmax(x, axis=-1, **kwargs):
+    """Softmax over ``axis`` (the last by default)."""
+    helper = LayerHelper("softmax", **kwargs)
+    return helper.append_op(
+        lambda ctx, a, axis: torch.softmax(a, dim=axis), {"X": [x]},
+        attrs={"axis": axis})
+
+
+def log_softmax(x, axis=-1):
+    helper = LayerHelper("log_softmax")
+    return helper.append_op(
+        lambda ctx, a, axis: torch.log_softmax(a, dim=axis), {"X": [x]},
+        attrs={"axis": axis})
+
+
+__all__ = sorted(list(_UNARY) + ["log_softmax", "softmax"])
