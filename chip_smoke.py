@@ -8,7 +8,8 @@ Phases (any failure exits non-zero, before the final line):
   1. device  - require CUDA; print the card's name and power limit and the
                torch / CUDA versions;
   2. build   - build the hand-written kernels from ops/csrc with nvcc, one
-               nvcc per source, all started together;
+               nvcc per source, all started together, and print ptxas's
+               registers and spills for each kernel;
   3. kernels - hold each kernel against its plain PyTorch version on the
                card (paged attention at the serving shapes; the three flash
                kernels at the training shape in float32 and bfloat16, a
@@ -17,7 +18,10 @@ Phases (any failure exits non-zero, before the final line):
                peepholes, and through dynamic_lstm(is_reverse=True) on
                lengths {1, T, 0}), and time kernel, plain version and the
                library yardstick (scaled_dot_product_attention, cuDNN's
-               LSTM; the port never calls either);
+               LSTM; the port never calls either), each as the event-timed
+               call (host cost included) and as device time (the kernels
+               the calls enqueue, read by torch.profiler; the phase fails
+               if the profiler shows none);
   4. serve   - the Transformer-base LM (V=32000, d=512, 8 heads, 6 layers,
                d_ff=2048, tied embeddings, float32, random weights from
                seed 0) served by ContinuousScheduler over a paged pool
@@ -132,6 +136,50 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn(i)``, as torch.profiler reads
+    the device kernels and copies that ``iters`` calls enqueue, after
+    ``warmup`` calls.  These are the calls ``cuda_ms`` times, made again
+    under the profiler (whose host cost would inflate the event-timed ms).
+    In a long process the profiler now and then handed a window's last
+    records to the next window (one window read nothing, another 12% too
+    much).  So a train of marker kernels (``torch.cuda._sleep``, not
+    counted) follows the timed calls to push their records out before the
+    window closes, the window is padded by 20 ms on each side, and each
+    kernel counts at its mean duration times the whole number of times a
+    call runs it (its count over ``iters``, rounded): a record lost or
+    carried over moves the sum by at most its own share, and a stray
+    record of another window's kernel counts for nothing.  Fails when the
+    profiler shows no device time: there is no fallback to the events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.tools.decode_profile import _kernel_us
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        for i in range(iters):
+            fn(i)
+        for _ in range(64):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    # microseconds a call: each kernel's mean times its launches a call
+    us = sum(_kernel_us(evt) / evt.count * round(evt.count / iters)
+             for evt in prof.key_averages()
+             if _kernel_us(evt) > 0 and "spin_kernel" not in evt.key)
+    check(us > 0, "torch.profiler shows no device time for a timed call")
+    return us / 1e3
+
+
+def both_ms(fn, iters: int = 30, warmup: int = 3) -> tuple:
+    """(event-timed ms, device ms) per call of ``fn(i)``."""
+    return (cuda_ms(fn, iters, warmup), device_ms(fn, iters, warmup))
+
+
 # ----------------------------------------------------------------- phases
 
 
@@ -162,7 +210,41 @@ def phase_build() -> None:
         print(f"build: {src} "
               + (f"compiled in {secs:.2f} s" if secs is not None
                  else "loaded from an earlier build"))
+        for name, regs, spill in _ptxas_report(_build.build_logs.get(src,
+                                                                     "")):
+            print(f"build:   {name}: {regs} registers, {spill} bytes "
+                  f"spilled")
     print(f"build: all sources ready in {time.perf_counter() - t0:.2f} s")
+
+
+def _ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes) per entry function of an
+    ``nvcc -Xptxas -v`` log; the mangled name is cut to the kernel's name
+    and the first characters of its template arguments."""
+    import re
+
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            name, spill = hit.group(1), 0
+            continue
+        hit = re.search(r"(\d+) bytes spill stores", line)
+        if hit and name:
+            spill = int(hit.group(1))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            short, pos = name[:40], 3          # past "_ZN"
+            while (num := re.match(r"\d+", name[pos:])) is not None:
+                start = pos + num.end()
+                ident = name[start:start + int(num.group())]
+                if ident.endswith("kernel"):
+                    short = ident + name[start + len(ident):][:12]
+                    break
+                pos = start + len(ident)
+            rows.append((short, int(hit.group(1)), spill))
+            name = None
+    return rows
 
 
 def _kernel_inputs(kind: str, W: int, dev, rng):
@@ -276,18 +358,22 @@ def phase_kernels(card: str) -> dict:
                 F.scaled_dot_product_attention(qh, kc[i % KL], vc[i % KL],
                                                attn_mask=mask)
 
-            ms = cuda_ms(run_kernel)
-            plain_ms = cuda_ms(run_plain)
-            library_ms = cuda_ms(run_library)
+            ms, dev_ms = both_ms(run_kernel)
+            plain_ms, plain_dev = both_ms(run_plain)
+            library_ms, library_dev = both_ms(run_library)
             bound_ms, bound_by = _bound(kind, W, q, lengths)
-            print(f"kernel paged_attention {kind} W={W}: {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) on {card}")
+            print(f"kernel paged_attention {kind} W={W}: {ms:.4f} ms (device "
+                  f"{dev_ms:.4f}), plain {plain_ms:.4f} ms (device "
+                  f"{plain_dev:.4f}), sdpa {library_ms:.4f} ms (device "
+                  f"{library_dev:.4f}), bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"device time {bound_ms / dev_ms:.3f} of it) on {card}")
             del kc, vc
             if kind == "float32" and W == 1:
-                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                record = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                          "plain_ms": plain_ms, "plain_device_ms": plain_dev,
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms}
+                          "library_ms": library_ms,
+                          "library_device_ms": library_dev}
     return record
 
 
@@ -399,16 +485,17 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
     # each backward kernel against its own plain version
     delta = (ro.float() * g.float()).sum(dim=-1).contiguous()
     bwd_args = (q, k, v, g, rlse, delta, scale, True)
-    ms = {"fwd": cuda_ms(lambda i: TA.flash_fwd_kernel(q, k, v, scale, True)),
-          "bwd_dkdv": cuda_ms(lambda i: TA.flash_bwd_dkdv_kernel(*bwd_args)),
-          "bwd_dq": cuda_ms(lambda i: TA.flash_bwd_dq_kernel(*bwd_args))}
-    plain = {
-        "fwd": cuda_ms(lambda i: TA._fwd_reference(q, k, v, scale, True),
-                       iters=10),
-        "bwd_dkdv": cuda_ms(lambda i: TA._bwd_dkdv_blockwise(*bwd_args, 128),
-                            iters=10),
-        "bwd_dq": cuda_ms(lambda i: TA._bwd_dq_blockwise(*bwd_args, 128),
-                          iters=10)}
+    kern_fn = {"fwd": lambda i: TA.flash_fwd_kernel(q, k, v, scale, True),
+               "bwd_dkdv": lambda i: TA.flash_bwd_dkdv_kernel(*bwd_args),
+               "bwd_dq": lambda i: TA.flash_bwd_dq_kernel(*bwd_args)}
+    plain_fn = {
+        "fwd": lambda i: TA._fwd_reference(q, k, v, scale, True),
+        "bwd_dkdv": lambda i: TA._bwd_dkdv_blockwise(*bwd_args, 128),
+        "bwd_dq": lambda i: TA._bwd_dq_blockwise(*bwd_args, 128)}
+    ms, dev_ms, plain, plain_dev = {}, {}, {}, {}
+    for kern in FLASH_KERNELS:
+        ms[kern], dev_ms[kern] = both_ms(kern_fn[kern])
+        plain[kern], plain_dev[kern] = both_ms(plain_fn[kern], iters=10)
     B, H = 8, N // 8
     qh, kh, vh, gh = (t.view(B, H, -1, D) for t in (q, k, v, g))
     qr, kr, vr = (t.detach().clone().requires_grad_(True)
@@ -425,8 +512,10 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
         out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
         torch.autograd.grad(out, (qr, kr, vr), gh)
 
-    lib_fwd = cuda_ms(sdpa_fwd)
-    lib_bwd = cuda_ms(sdpa_fwd_bwd, iters=10) - cuda_ms(sdpa_train_fwd)
+    lib_fwd, lib_fwd_dev = both_ms(sdpa_fwd)
+    both, both_dev = both_ms(sdpa_fwd_bwd, iters=10)
+    train_fwd, train_fwd_dev = both_ms(sdpa_train_fwd)
+    lib_bwd, lib_bwd_dev = both - train_fwd, both_dev - train_fwd_dev
     recs = {}
     for kern in FLASH_KERNELS:
         bound_ms, bound_by = _flash_bound(kern, N, Tq, Tk, D, causal, dtype)
@@ -434,19 +523,24 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
         # kernels have no library time of their own (the pair's is below)
         recs[kern] = {
             "max_abs_err": errs[kern], "ms": ms[kern],
-            "plain_ms": plain[kern], "bound_ms": bound_ms,
+            "device_ms": dev_ms[kern], "plain_ms": plain[kern],
+            "plain_device_ms": plain_dev[kern], "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": lib_fwd if kern == "fwd" else None}
-        lib = (f"sdpa {lib_fwd:.4f} ms" if kern == "fwd"
-               else "no library call of its own")
-        print(f"kernel flash {kern} {kind} train shape: {ms[kern]:.4f} ms, "
-              f"plain {plain[kern]:.4f} ms, {lib}, bound {bound_ms:.4f} ms "
-              f"({bound_by}) on {card}")
+            "library_ms": lib_fwd if kern == "fwd" else None,
+            "library_device_ms": lib_fwd_dev if kern == "fwd" else None}
+        lib = (f"sdpa {lib_fwd:.4f} ms (device {lib_fwd_dev:.4f})"
+               if kern == "fwd" else "no library call of its own")
+        print(f"kernel flash {kern} {kind} train shape: {ms[kern]:.4f} ms "
+              f"(device {dev_ms[kern]:.4f}), plain {plain[kern]:.4f} ms "
+              f"(device {plain_dev[kern]:.4f}), {lib}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; device time "
+              f"{bound_ms / dev_ms[kern]:.3f} of it) on {card}")
     print(f"kernel flash {kind} train shape: the two backward kernels "
-          f"together {ms['bwd_dkdv'] + ms['bwd_dq']:.4f} ms, their plain "
+          f"together {ms['bwd_dkdv'] + ms['bwd_dq']:.4f} ms (device "
+          f"{dev_ms['bwd_dkdv'] + dev_ms['bwd_dq']:.4f}), their plain "
           f"versions {plain['bwd_dkdv'] + plain['bwd_dq']:.4f} ms, sdpa "
           f"backward (dq, dk and dv; forward + backward less forward) "
-          f"{lib_bwd:.4f} ms on {card}")
+          f"{lib_bwd:.4f} ms (device {lib_bwd_dev:.4f}) on {card}")
     return recs
 
 
@@ -548,16 +642,18 @@ def _lstm_case(label, T, B, H, lengths, peep_on, dev, card, timed) -> dict:
     if not timed:
         return {}
 
-    ms = {"fwd": cuda_ms(lambda i: TL.lstm_fwd_kernel(xw, u, peep, mask,
-                                                      *args, True)),
-          "bwd": cuda_ms(lambda i: TL.lstm_bwd_cuda(
-              g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, *args))}
-    bwd_kernel_ms = cuda_ms(lambda i: TL.lstm_bwd_kernel(
+    ms, dev_ms = {}, {}
+    ms["fwd"], dev_ms["fwd"] = both_ms(lambda i: TL.lstm_fwd_kernel(
+        xw, u, peep, mask, *args, True))
+    ms["bwd"], dev_ms["bwd"] = both_ms(lambda i: TL.lstm_bwd_cuda(
+        g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, *args))
+    bwd_kernel_ms, bwd_kernel_dev = both_ms(lambda i: TL.lstm_bwd_kernel(
         g_hs, g_c, u, peep, mask, gates, cnew, cc, *args))
-    plain = {"fwd": cuda_ms(lambda i: TL._lstm_scan(xw, u, peep, mask, *args),
-                            iters=5, warmup=1),
-             "bwd": cuda_ms(lambda i: TL._lstm_scan_vjp(
-                 xw, u, peep, mask, *args, g_hs, g_c), iters=3, warmup=1)}
+    plain, plain_dev = {}, {}
+    plain["fwd"], plain_dev["fwd"] = both_ms(
+        lambda i: TL._lstm_scan(xw, u, peep, mask, *args), iters=5, warmup=1)
+    plain["bwd"], plain_dev["bwd"] = both_ms(lambda i: TL._lstm_scan_vjp(
+        xw, u, peep, mask, *args, g_hs, g_c), iters=3, warmup=1)
     # the yardstick: cuDNN's LSTM at the same T, B, H, full length, no
     # peepholes, input width H (text_lstm's second layer), float32 (TF32
     # off); it includes the input projection, so the kernel is shown with
@@ -580,31 +676,38 @@ def _lstm_case(label, T, B, H, lengths, peep_on, dev, card, timed) -> dict:
     def lib_fwd_bwd(i):
         torch.autograd.grad(lib(xr)[0], leaves, gy)
 
-    lib_ms = cuda_ms(lib_fwd)
-    lib_bwd_ms = cuda_ms(lib_fwd_bwd, iters=10) - cuda_ms(lib_train_fwd)
+    lib_ms, lib_dev = both_ms(lib_fwd)
+    both, both_dev = both_ms(lib_fwd_bwd, iters=10)
+    train_fwd, train_fwd_dev = both_ms(lib_train_fwd)
+    lib_bwd_ms, lib_bwd_dev = both - train_fwd, both_dev - train_fwd_dev
     proj_ms = cuda_ms(lambda i: x.reshape(T * B, H) @ wx)
     n_valid = int(mask.sum())
     recs = {}
     for kern in LSTM_KERNELS:
         bound_ms, bound_by = _lstm_bound(kern, T, B, H, n_valid)
-        library_ms = lib_ms if kern == "fwd" else lib_bwd_ms
+        library_ms, library_dev = ((lib_ms, lib_dev) if kern == "fwd"
+                                   else (lib_bwd_ms, lib_bwd_dev))
         recs[kern] = {"max_abs_err": err_f if kern == "fwd" else err_b,
-                      "ms": ms[kern], "plain_ms": plain[kern],
+                      "ms": ms[kern], "device_ms": dev_ms[kern],
+                      "plain_ms": plain[kern],
+                      "plain_device_ms": plain_dev[kern],
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
-        print(f"kernel lstm {kern} {label} shape: {ms[kern]:.4f} ms, plain "
-              f"{plain[kern]:.4f} ms, cudnn {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {n_valid} of {T * B} steps "
-              f"valid) on {card}")
+                      "library_ms": library_ms,
+                      "library_device_ms": library_dev}
+        print(f"kernel lstm {kern} {label} shape: {ms[kern]:.4f} ms (device "
+              f"{dev_ms[kern]:.4f}), plain {plain[kern]:.4f} ms (device "
+              f"{plain_dev[kern]:.4f}), cudnn {library_ms:.4f} ms (device "
+              f"{library_dev:.4f}), bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{n_valid} of {T * B} steps valid) on {card}")
     kb_ms, kb_by = _lstm_bound("bwd", T, B, H, n_valid, whole=False)
     print(f"kernel lstm {label} shape: the reverse-recurrence kernel alone "
-          f"{bwd_kernel_ms:.4f} ms (bound {kb_ms:.4f} ms, {kb_by}), du "
-          f"matmul and peephole sums the rest of the backward; input "
-          f"projection [{T * B}, {H}] x [{H}, {4 * H}] {proj_ms:.4f} ms, "
-          f"projection + forward kernel {proj_ms + ms['fwd']:.4f} ms vs "
-          f"cudnn forward {lib_ms:.4f} ms (full length, no mask); cudnn "
-          f"backward is forward + backward less forward, with grad-enabled "
-          f"weights, on {card}")
+          f"{bwd_kernel_ms:.4f} ms (device {bwd_kernel_dev:.4f}; bound "
+          f"{kb_ms:.4f} ms, {kb_by}), du matmul and peephole sums the rest "
+          f"of the backward; input projection [{T * B}, {H}] x [{H}, "
+          f"{4 * H}] {proj_ms:.4f} ms, projection + forward kernel "
+          f"{proj_ms + ms['fwd']:.4f} ms vs cudnn forward {lib_ms:.4f} ms "
+          f"(full length, no mask); cudnn backward is forward + backward "
+          f"less forward, with grad-enabled weights, on {card}")
     return recs
 
 

@@ -17,18 +17,30 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# seconds spent compiling, per library name, for the smoke script's report
+# seconds spent compiling and ptxas's report (registers, spills) of each
+# kernel, per source name, for the smoke script's report
 build_seconds: Dict[str, float] = {}
+build_logs: Dict[str, str] = {}
+# ctypes signatures of the C entry points, by source and function name:
+# (restype, argtypes), declared by the wrappers when they are imported and
+# set once, when the library loads
+_signatures: Dict[str, Dict[str, Tuple[type, List[type]]]] = {}
+
+
+def declare(source_name: str, name: str, restype, argtypes) -> None:
+    """Record the ctypes signature of entry point ``name`` of
+    ``ops/csrc/<source_name>``; it is set when the library loads."""
+    _signatures.setdefault(source_name, {})[name] = (restype, list(argtypes))
 
 
 def find_nvcc() -> str:
@@ -78,15 +90,21 @@ def build_library(source_name: str) -> Path:
                 f"(rc={proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so_path)  # atomic: a reader never sees half
         build_seconds[source_name] = time.perf_counter() - t0
+        build_logs[source_name] = proc.stdout + proc.stderr
     return so_path
 
 
 def load_kernel_library(source_name: str) -> ctypes.CDLL:
     """Build ``ops/csrc/<source_name>`` if needed (see
-    :func:`build_library`), then load it, once per process."""
+    :func:`build_library`), then load it, once per process, with the
+    signatures :func:`declare` recorded for it."""
     with _lock:
         lib = _loaded.get(source_name)
         if lib is None:
-            lib = _loaded[source_name] = ctypes.CDLL(
-                str(build_library(source_name)))
+            lib = ctypes.CDLL(str(build_library(source_name)))
+            for name, (restype, argtypes) in _signatures.get(
+                    source_name, {}).items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
+            _loaded[source_name] = lib
         return lib

@@ -313,13 +313,20 @@ def _check_stats(q, *stats) -> None:
                              f"[N, Tq] = {tuple(q.shape[:2])} on {q.device}")
 
 
-def _flash_entry(name: str, n_ptr: int):
-    fn = getattr(_build.load_kernel_library("flash_attention.cu"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    return fn
+# each entry point: its pointers, then N, Tq, Tk, D, scale, causal, dtype,
+# stream
+_FLASH_TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]
+_build.declare("flash_attention.cu", "flash_fwd_launch", ctypes.c_int,
+               [ctypes.c_void_p] * 5 + _FLASH_TAIL)
+_build.declare("flash_attention.cu", "flash_bwd_dkdv_launch", ctypes.c_int,
+               [ctypes.c_void_p] * 8 + _FLASH_TAIL)
+_build.declare("flash_attention.cu", "flash_bwd_dq_launch", ctypes.c_int,
+               [ctypes.c_void_p] * 7 + _FLASH_TAIL)
+
+
+def _flash_entry(name: str):
+    return getattr(_build.load_kernel_library("flash_attention.cu"), name)
 
 
 def _launch(fn, ptrs, q, k, scale, causal) -> None:
@@ -338,7 +345,7 @@ def flash_fwd_kernel(q, k, v, scale: float, causal: bool):
     _check_flash_operands(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch(_flash_entry("flash_fwd_launch", 5),
+    _launch(_flash_entry("flash_fwd_launch"),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr()), q, k, scale, causal)
     flash_attention.launches["fwd"] += 1
@@ -352,7 +359,7 @@ def flash_bwd_dkdv_kernel(q, k, v, g, lse, delta, scale: float,
     _check_flash_operands(q, k, v, g)
     _check_stats(q, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_flash_entry("flash_bwd_dkdv_launch", 8),
+    _launch(_flash_entry("flash_bwd_dkdv_launch"),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k, scale, causal)
@@ -365,7 +372,7 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale: float, causal: bool):
     _check_flash_operands(q, k, v, g)
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q)
-    _launch(_flash_entry("flash_bwd_dq_launch", 7),
+    _launch(_flash_entry("flash_bwd_dq_launch"),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
             q, k, scale, causal)
@@ -415,7 +422,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 128) -> torch.Tensor:
     """Attention over [batch, heads, T, head_dim] (or [N, T, D]) operands,
     differentiable.  CUDA tensors run the kernels (which pick their own
-    64 x 64 tiles) or raise; CPU tensors run the plain versions, where
+    tiles) or raise; CPU tensors run the plain versions, where
     ``block_k`` is the backward's K block (the JAX signature's ``block_q``
     only sized the TPU kernel's grid and has no counterpart here); meta
     tensors give an empty output of the right shape and dtype and launch

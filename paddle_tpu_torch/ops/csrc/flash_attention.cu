@@ -1,7 +1,8 @@
 // Flash attention, forward and backward, for Hopper (sm_90a), written by hand.
 //
 // Replaces three Pallas TPU kernels of paddle_tpu/ops/attention.py:
-//   flash_fwd_kernel       <- _fwd_kernel       (via _fwd_pallas)
+//   flash_fwd_f32_kernel,  <- _fwd_kernel       (via _fwd_pallas)
+//   flash_fwd_bf16_kernel
 //   flash_bwd_dkdv_kernel  <- _bwd_kernel_dkdv  (via _bwd_pallas)
 //   flash_bwd_dq_kernel    <- _bwd_kernel_dq    (via _bwd_pallas)
 //
@@ -27,37 +28,63 @@
 // 4.3 GFLOP; the forward does two (0.128 ms at 67 TFLOP/s of float32 FMA),
 // dK/dV four (0.256 ms) and dQ three (0.192 ms), against 0.02 ms for their
 // bytes.  float32 inputs run on the CUDA cores in full float32 (the JAX
-// package's Precision.HIGHEST), so the design keeps every operand of the
-// inner loops in shared memory and registers:
-//   * the TPU kernels carry (m, l, acc) or (dk, dv) or dq in VMEM across a
-//     sequential grid axis; Hopper blocks run in no order, so one block per
-//     (row of N, Q tile) loops over its K tiles itself (forward, dQ) and one
-//     block per (row of N, K tile) loops over its Q tiles (dK/dV).  No
-//     atomics: every output element has one writer, so results repeat
-//     exactly from run to run;
-//   * 64 x 64 tiles; 256 threads as 16 x 16, each owning a 4 x 4 patch of
-//     the score tile and 4 rows x D/16 columns of its accumulators; row
-//     statistics are reduced with shuffles over the 16 lanes of a row;
-//   * K (and V in the backward) sit transposed in shared memory for the
-//     score products, rows are padded by one float against bank conflicts;
-//     the forward and dQ walk Q tiles from the last, so the longest causal
-//     rows start first; tiles above the causal diagonal are skipped;
-//   * dynamic shared memory (66-183 KB by D) is taken above 48 KB by opt-in.
-// The kernel picks its own tiles (64 x 64): the block_k of the plain
-// backward does not reach it.  D must be 16, 32, 64 or 128.
+// package's Precision.HIGHEST: neither TF32 nor 3xTF32).  In all three
+// kernels the TPU kernels' carry of (m, l, acc) or (dk, dv) or dq in VMEM
+// across a sequential grid axis becomes a loop inside one block: one block
+// per (row of N, Q tile) loops over its K tiles (forward, dQ), one block
+// per (row of N, K tile) over its Q tiles (dK/dV).  No atomics: every
+// output element has one writer, so results repeat exactly from run to
+// run.  Tiles above the causal diagonal are skipped, and the forward and
+// dQ start the longest causal rows first.
 //
-// Later work, not done here: wgmma / mma.sync tiles (bf16 at tensor-core
-// rate), TMA or cp.async double-buffered tile loads, warp specialisation.
+// The float32 forward (flash_fwd_f32_kernel) is bound by how fast shared
+// memory feeds the FMAs: 128 B a clock against 128 FMAs a clock per SM, so
+// an inner loop needs 4 FMAs per shared word to keep both busy.
+//   * 128 x 64 tiles (64 x 64 at D = 128), 128 threads as 16 x 8; each
+//     thread owns an 8 x 8 patch of scores (rows ty + 16 i, keys tx + 8 j)
+//     and 8 rows x D/8 columns of o, filled by 128-bit shared loads along D
+//     (scores) and along the keys (p . v): 4 FMAs per shared word in both
+//     products.  Row statistics reduce over the 8 lanes of a row;
+//   * K, V and Q stay row-major in shared memory, padded by 4 floats a row
+//     so the 8 rows of one load hit 8 bank groups, and cp.async fills them
+//     16 bytes at a time with no transpose and no register round trip.  K
+//     and V have one buffer each and alternate: K(t+1) loads during the
+//     softmax and p . v of tile t, V(t+1) during the scores of tile t + 1;
+//   * p goes through shared memory (rows 8 banks apart) from the score
+//     patch to the p . v patch; 104 KB a block at D = 64, two blocks an SM.
+// The bfloat16 forward (flash_fwd_bf16_kernel) runs both products on the
+// tensor cores with mma.sync.m16n8k16 (bf16 in, f32 accumulate), the
+// FlashAttention-2 layout: four warps each own 16 query rows of a 64-row
+// tile, q stays in registers as A fragments, K and V tiles of 64 keys
+// come through a two-stage cp.async ring and reach the mma by ldmatrix
+// (.trans for V), the row statistics live in the accumulator fragments
+// (4 lanes a row), and p, rounded to bf16, is the A operand of p . v
+// straight from the score fragments.
+// The backward kernels: 64 x 64 tiles; 256 threads as 16 x 16, each owning
+// a 4 x 4 patch of the score tile and 4 rows x D/16 columns of its
+// accumulators; K and V sit transposed in shared memory for the score
+// products, rows padded by one float; dynamic shared memory (66-183 KB by
+// D) is taken above 48 KB by opt-in.  The kernels pick their own tiles:
+// the block_k of the plain backward does not reach them.  D must be 16,
+// 32, 64 or 128.
+//
+// Later work, not done here: wgmma and TMA for the bf16 forward (Hopper's
+// full tensor-core rate; mma.sync reaches a part of it), warp
+// specialisation; the float32 forward's remaining distance to its FMA
+// bound (shared loads still share the issue slots with the FMAs); the
+// register-tiled, cp.async-fed design for the two backward kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kB = 64;           // rows of a Q tile and of a K/V tile
-constexpr int kThreads = 256;    // 16 x 16
+constexpr int kB = 64;           // backward: rows of a Q and a K/V tile
+constexpr int kThreads = 256;    // backward: 16 x 16
 constexpr float kNegInf = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -82,21 +109,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
-}
-
-// max / sum over the 16 lanes that share a score row (xor offsets < 16 stay
-// inside one half-warp)
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // rows [row0, row0 + kB) of a [rows, D] matrix into dst[r][d] (leading
@@ -131,10 +143,6 @@ __device__ void load_stats(float* lse_s, float* dl_s, const float* lse,
 }
 
 template <int D>
-constexpr int fwd_smem_floats() {
-  return 2 * kB * (D + 1) + D * (kB + 1) + kB * (kB + 1);
-}
-template <int D>
 constexpr int dkdv_smem_floats() {
   return 2 * D * (kB + 1) + 2 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB;
 }
@@ -145,119 +153,509 @@ constexpr int dq_smem_floats() {
 
 // ------------------------------------------------------------------ forward
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int Tq, int Tk, float scale,
-                     int causal, int n_qt) {
-  constexpr int CW = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // [kB][D + 1]
-  float* kt_s = q_s + kB * (D + 1);    // [D][kB + 1]
-  float* v_s = kt_s + D * (kB + 1);    // [kB][D + 1]
-  float* p_s = v_s + kB * (D + 1);     // [kB][kB + 1]
+constexpr int kFwdThreads = 128;  // four warps
 
-  const int n = blockIdx.x / n_qt;
-  const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
-  const int q0 = qt * kB;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qn = q + (int64_t)n * Tq * D;
-  const T* kn = k + (int64_t)n * Tk * D;
-  const T* vn = v + (int64_t)n * Tk * D;
+// 16 bytes from global to shared memory without a register round trip;
+// zero-filled (and the source not read) when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  load_tile<T, D>(q_s, qn, q0, Tq);
+// rows [row0, row0 + ROWS) of a [rows, D] matrix into dst (leading
+// dimension LD elements) by cp.async, zero past `rows`; not committed
+template <typename T, int D, int ROWS, int LD>
+__device__ __forceinline__ void async_tile(T* dst, const T* src, int row0,
+                                           int rows) {
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  constexpr int kChunks = D / kPer;  // copies per row (a power of two)
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kFwdThreads) {
+    const int r = c / kChunks, x = (c % kChunks) * kPer;
+    const int gr = row0 + r;
+    const bool ok = gr < rows;
+    cp_async16(dst + r * LD + x, src + (int64_t)(ok ? gr : 0) * D + x, ok);
+  }
+}
 
-  float m[4], l[4], acc[4][CW];
+// max / sum over the 8 lanes that share a score row in the float32
+// forward (xor offsets < 8 stay inside them)
+__device__ __forceinline__ float row_max8(float v) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int o = 4; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum8(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// float32 forward tiles: 128 threads as 16 (rows) x 8 (keys / columns);
+// thread (ty, tx) owns score rows ty + 16 i and keys tx + 8 j, and o
+// columns col(tx, c) (float4 groups 32 apart, or one float2 at D = 16)
+template <int D>
+struct FwdF32 {
+  static constexpr int BQ = D == 128 ? 64 : 128;  // query rows of a block
+  static constexpr int BK = 64;                   // keys of a K/V tile
+  static constexpr int TM = BQ / 16;              // score rows per thread
+  static constexpr int TN = BK / 8;               // keys per thread
+  static constexpr int CW = D / 8;                // o columns per thread
+  // leading dimensions: rows 16-byte aligned for cp.async and float4
+  // loads, 4 banks apart so the 8 key rows of a load hit 8 bank groups;
+  // p rows 8 banks apart so the scalar p stores of a warp do not collide
+  static constexpr int LQ = D + 4, LK = D + 4, LP = BK + 8;
+  static constexpr int kSmemFloats = BQ * LQ + 2 * BK * LK + BQ * LP;
+};
+
+template <int CW>
+__device__ __forceinline__ void load_cols(const float* row, int tx,
+                                          float (&x)[CW]) {
+  if constexpr (CW >= 4) {
+#pragma unroll
+    for (int c = 0; c < CW / 4; ++c) {
+      const float4 t = *reinterpret_cast<const float4*>(row + tx * 4 + 32 * c);
+      x[4 * c] = t.x;
+      x[4 * c + 1] = t.y;
+      x[4 * c + 2] = t.z;
+      x[4 * c + 3] = t.w;
+    }
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(row + tx * 2);
+    x[0] = t.x;
+    x[1] = t.y;
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void store_cols(float* row, int tx,
+                                           const float (&x)[CW]) {
+  if constexpr (CW >= 4) {
+#pragma unroll
+    for (int c = 0; c < CW / 4; ++c)
+      *reinterpret_cast<float4*>(row + tx * 4 + 32 * c) =
+          make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
+  } else {
+    *reinterpret_cast<float2*>(row + tx * 2) = make_float2(x[0], x[1]);
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// The three products of one K/V tile in the float32 forward, for score
+// rows ty + 16 i with i >= I0: at I0 = TM / 2 the first half of the Q tile
+// lies wholly above the causal diagonal of the tile (every p is 0) and is
+// skipped.  s = q . k^T: 4 TM + 4 TN shared words feed 4 TM TN
+// multiply-adds.
+template <int D, int I0>
+__device__ __forceinline__ void f32_scores(
+    const float* q_s, const float* k_s, int tx, int ty,
+    float (&s)[FwdF32<D>::TM][FwdF32<D>::TN]) {
+  using G = FwdF32<D>;
+  constexpr int TM = G::TM, TN = G::TN;
+#pragma unroll
+  for (int i = I0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[TM];
+#pragma unroll
+    for (int i = I0; i < TM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * G::LQ + d);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float4 b =
+          *reinterpret_cast<const float4*>(k_s + (tx + 8 * j) * G::LK + d);
+#pragma unroll
+      for (int i = I0; i < TM; ++i) {
+        s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
+      }
+    }
+  }
+}
+
+// mask and online softmax of the tile's scores; p into shared memory
+template <int D, int I0>
+__device__ __forceinline__ void f32_softmax(
+    float (&s)[FwdF32<D>::TM][FwdF32<D>::TN], float* p_s,
+    float (&m)[FwdF32<D>::TM], float (&l)[FwdF32<D>::TM],
+    float (&acc)[FwdF32<D>::TM][FwdF32<D>::CW], int q0, int k0, int Tk,
+    int causal, float scale, int tx, int ty) {
+  using G = FwdF32<D>;
+  constexpr int TM = G::TM, TN = G::TN;
+#pragma unroll
+  for (int i = I0; i < TM; ++i) {
+    const int r = ty + 16 * i, qp = q0 + r;
+    bool ok[TN];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int kp = k0 + tx + 8 * j;
+      ok[j] = kp < Tk && (!causal || qp >= kp);
+      s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = row_max8(mx);
+    const float m_new = fmaxf(m[i], mx);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float p = ok[j] ? __expf(s[i][j] - m_new) : 0.f;
+      rs += p;
+      p_s[r * G::LP + tx + 8 * j] = p;
+    }
+    rs = row_sum8(rs);
+    const float alpha = __expf(m[i] - m_new);
+    l[i] = l[i] * alpha + rs;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < G::CW; ++c) acc[i][c] *= alpha;
+  }
+}
+
+// o += p . v: 4 TM + 4 CW shared words feed 4 TM CW multiply-adds
+template <int D, int I0>
+__device__ __forceinline__ void f32_pv(
+    const float* p_s, const float* v_s,
+    float (&acc)[FwdF32<D>::TM][FwdF32<D>::CW], int tx, int ty) {
+  using G = FwdF32<D>;
+  constexpr int TM = G::TM, CW = G::CW;
+#pragma unroll 2
+  for (int kk = 0; kk < G::BK; kk += 4) {
+    float4 pv[TM];
+#pragma unroll
+    for (int i = I0; i < TM; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * G::LP + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float vv[CW];
+      load_cols<CW>(v_s + (kk + u) * G::LK, tx, vv);
+#pragma unroll
+      for (int i = I0; i < TM; ++i) {
+        const float p = lane_of(pv[i], u);
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 2) flash_fwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int N, int Tq, int Tk, float scale, int causal,
+    int n_qt) {
+  using G = FwdF32<D>;
+  constexpr int BQ = G::BQ, BK = G::BK, TM = G::TM, TN = G::TN, CW = G::CW;
+  constexpr int LQ = G::LQ, LK = G::LK;
+  extern __shared__ float smem[];
+  float* q_s = smem;               // [BQ][LQ]
+  float* k_s = q_s + BQ * LQ;      // [BK][LK], one K tile
+  float* v_s = k_s + BK * LK;      // [BK][LK], one V tile
+  float* p_s = v_s + BK * LK;      // [BQ][LP]
+
+  // longest causal rows first: every row of N's last Q tile, then the
+  // tiles before it
+  const int qt = n_qt - 1 - (int)(blockIdx.x / N);
+  const int n = (int)(blockIdx.x % N);
+  const int q0 = qt * BQ;
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const float* qn = q + (int64_t)n * Tq * D;
+  const float* kn = k + (int64_t)n * Tk * D;
+  const float* vn = v + (int64_t)n * Tk * D;
+
+  int n_kt = (Tk + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (min(q0 + BQ, Tq) - 1) / BK + 1);
+
+  // K and V alternate in one buffer each: K(kt+1) loads during the
+  // softmax and p.v of tile kt, V(kt+1) during the scores of tile kt+1
+  async_tile<float, D, BQ, LQ>(q_s, qn, q0, Tq);
+  async_tile<float, D, BK, LK>(k_s, kn, 0, Tk);
+  cp_async_commit();
+  async_tile<float, D, BK, LK>(v_s, vn, 0, Tk);
+  cp_async_commit();
+
+  float m[TM], l[TM], acc[TM][CW], s[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
   }
 
-  int n_kt = (Tk + kB - 1) / kB;
-  if (causal) n_kt = min(n_kt, qt + 1);  // skip tiles above the diagonal
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_t<T, D>(kt_s, kn, k0, Tk);
-    load_tile<T, D>(v_s, vn, k0, Tk);
+    const int k0 = kt * BK;
+    // the first half of the Q tile precedes every key of this tile
+    const bool half = causal && q0 + BQ / 2 <= k0;
+    cp_async_wait<1>();  // Q and K(kt) are in; V(kt) may be in flight
     __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_s[(ty * 4 + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = kt_s[d * (kB + 1) + tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    if (half)
+      f32_scores<D, TM / 2>(q_s, k_s, tx, ty, s);
+    else
+      f32_scores<D, 0>(q_s, k_s, tx, ty, s);
+    __syncthreads();  // every thread is done with K(kt)
+    if (kt + 1 < n_kt) {
+      async_tile<float, D, BK, LK>(k_s, kn, k0 + BK, Tk);
+      cp_async_commit();
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
-        ok[j] = kp < Tk && (!causal || qp >= kp);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max16(mx);
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        p_s[(ty * 4 + i) * (kB + 1) + tx * 4 + j] = round_to<T>(p);
-      }
-      rs = row_sum16(rs);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kB; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty * 4 + i) * (kB + 1) + kk];
-#pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        const float vv = v_s[kk * (D + 1) + tx * CW + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
+    if (half)
+      f32_softmax<D, TM / 2>(s, p_s, m, l, acc, q0, k0, Tk, causal, scale,
+                             tx, ty);
+    else
+      f32_softmax<D, 0>(s, p_s, m, l, acc, q0, k0, Tk, causal, scale, tx,
+                        ty);
+    if (kt + 1 < n_kt)
+      cp_async_wait<1>();  // V(kt) is in; K(kt+1) may be in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // p and V(kt) visible to all
+    if (half)
+      f32_pv<D, TM / 2>(p_s, v_s, acc, tx, ty);
+    else
+      f32_pv<D, 0>(p_s, v_s, acc, tx, ty);
+    __syncthreads();  // every thread is done with V(kt) and p
+    if (kt + 1 < n_kt) {
+      async_tile<float, D, BK, LK>(v_s, vn, k0 + BK, Tk);
+      cp_async_commit();
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
+  for (int i = 0; i < TM; ++i) {
+    const int qp = q0 + ty + 16 * i;
     if (qp < Tq) {
       const float safe = l[i] == 0.f ? 1.f : l[i];
-      T* orow = o + ((int64_t)n * Tq + qp) * D;
+      float out[CW];
 #pragma unroll
-      for (int c = 0; c < CW; ++c)
-        orow[tx * CW + c] = from_f32<T>(acc[i][c] / safe);
+      for (int c = 0; c < CW; ++c) out[c] = acc[i][c] / safe;
+      store_cols<CW>(o + ((int64_t)n * Tq + qp) * D, tx, out);
       if (tx == 0) lse[(int64_t)n * Tq + qp] = m[i] + logf(safe);
+    }
+  }
+}
+
+// bfloat16 forward on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate): four warps, each owning 16 query rows of a 64-row Q tile;
+// K/V tiles of 64 keys in a two-stage cp.async ring; operands come from
+// shared memory by ldmatrix.  Scores and o accumulate in the mma
+// fragments: lane (g = lane / 4, t = lane % 4) holds rows g and g + 8,
+// columns 8 j + 2 t and 8 j + 2 t + 1 of every 8-column tile j, so a row's
+// statistics reduce over the 4 lanes of its quad.
+template <int D>
+struct FwdBF16 {
+  static constexpr int BQ = 64, BK = 64;
+  // leading dimension: rows 16-byte aligned, 8 rows on 8 bank groups
+  static constexpr int LD = D + 8;
+  static constexpr int kSmemElems = BQ * LD + 4 * BK * LD;  // Q, 2 x (K, V)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// c += a . b for one 16 x 8 tile, k = 16
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats rounded to bfloat16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads) flash_fwd_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int N, int Tq, int Tk, float scale, int causal,
+    int n_qt) {
+  using G = FwdBF16<D>;
+  constexpr int BQ = G::BQ, BK = G::BK, LD = G::LD;
+  constexpr int KS = D / 16;  // k-steps of q . k^T
+  constexpr int NT = D / 8;   // 8-column tiles of o
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
+  __nv_bfloat16* k_s = q_s + BQ * LD;      // [2][BK][LD]
+  __nv_bfloat16* v_s = k_s + 2 * BK * LD;  // [2][BK][LD]
+
+  const int qt = n_qt - 1 - (int)(blockIdx.x / N);
+  const int n = (int)(blockIdx.x % N);
+  const int q0 = qt * BQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* qn = q + (int64_t)n * Tq * D;
+  const __nv_bfloat16* kn = k + (int64_t)n * Tk * D;
+  const __nv_bfloat16* vn = v + (int64_t)n * Tk * D;
+
+  int n_kt = (Tk + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (min(q0 + BQ, Tq) - 1) / BK + 1);
+
+  async_tile<__nv_bfloat16, D, BQ, LD>(q_s, qn, q0, Tq);
+  async_tile<__nv_bfloat16, D, BK, LD>(k_s, kn, 0, Tk);
+  async_tile<__nv_bfloat16, D, BK, LD>(v_s, vn, 0, Tk);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];  // this warp's 16 query rows as A fragments
+  float oacc[NT][4], m[2], l[2];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[t][e] = 0.f;
+  m[0] = m[1] = kNegInf;
+  l[0] = l[1] = 0.f;
+  const int r0 = q0 + warp * 16 + g;  // rows r0 and r0 + 8
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < n_kt) {  // the other stage was freed at the end of kt - 1
+      const int st = (kt + 1) & 1;
+      async_tile<__nv_bfloat16, D, BK, LD>(k_s + st * BK * LD, kn, k0 + BK,
+                                           Tk);
+      async_tile<__nv_bfloat16, D, BK, LD>(v_s + st * BK * LD, vn, k0 + BK,
+                                           Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldmatrix_x4(qf[ks], q_s + (warp * 16 + (lane & 15)) * LD + ks * 16 +
+                                (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kb = k_s + (kt & 1) * BK * LD;
+    const __nv_bfloat16* vb = v_s + (kt & 1) * BK * LD;
+
+    // s = q . k^T over 8 tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kb + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                           ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    // mask and online softmax for rows r0 (h = 0) and r0 + 8 (h = 1)
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qp = r0 + 8 * h;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * j + 2 * t4 + e;
+          const bool ok = kp < Tk && (!causal || qp >= kp);
+          float& x = s[j][2 * h + e];
+          x = ok ? x * scale : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][2 * h + e];
+          x = x == kNegInf ? 0.f : __expf(x - m_new);
+          rs += x;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      alpha[h] = __expf(m[h] - m_new);
+      l[h] = l[h] * alpha[h] + rs;
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      oacc[t][0] *= alpha[0];
+      oacc[t][1] *= alpha[0];
+      oacc[t][2] *= alpha[1];
+      oacc[t][3] *= alpha[1];
+    }
+
+    // o += p . v: p, rounded to bfloat16, is the A operand straight from
+    // the score fragments (the JAX dtype rule for bf16 inputs)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int tp = 0; tp < NT / 2; ++tp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vb + (kk * 16 + (lane & 15)) * LD + tp * 16 +
+                                 (lane >> 4) * 8);
+        mma_bf16(oacc[2 * tp], a, b[0], b[1]);
+        mma_bf16(oacc[2 * tp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // stage kt & 1 is free for tile kt + 2
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = r0 + 8 * h;
+    if (qp < Tq) {
+      const float safe = l[h] == 0.f ? 1.f : l[h];
+      __nv_bfloat16* orow = o + ((int64_t)n * Tq + qp) * D;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * t + 2 * t4) =
+            __floats2bfloat162_rn(oacc[t][2 * h] / safe,
+                                  oacc[t][2 * h + 1] / safe);
+      if (t4 == 0) lse[(int64_t)n * Tq + qp] = m[h] + logf(safe);
     }
   }
 }
@@ -489,19 +887,40 @@ int prepare(K kern, size_t smem) {
   return 0;
 }
 
+template <typename T, typename K>
+int launch_fwd(K kern, size_t smem, int bq, const void* q, const void* k,
+               const void* v, void* o, float* lse, int N, int Tq, int Tk,
+               float scale, int causal, cudaStream_t st) {
+  int rc = prepare(kern, smem);
+  if (rc != 0) return rc;
+  // the largest shared-memory carveout, so that two float32 blocks (104 KB
+  // each at D = 64) share an SM
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = (Tq + bq - 1) / bq;
+  kern<<<(unsigned)(N * n_qt), kFwdThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, N, Tq, Tk, scale,
+      causal, n_qt);
+  return (int)cudaGetLastError();
+}
+
+// float32 inputs run flash_fwd_f32_kernel, bfloat16 ones the tensor-core
+// flash_fwd_bf16_kernel
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         int N, int Tq, int Tk, float scale, int causal, cudaStream_t st) {
-  auto kern = flash_fwd_kernel<T, D>;
-  const size_t smem = sizeof(float) * fwd_smem_floats<D>();
-  int rc = prepare(kern, smem);
-  if (rc != 0) return rc;
-  const int n_qt = (Tq + kB - 1) / kB;
-  kern<<<(unsigned)(N * n_qt), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Tq, Tk, scale,
-      causal, n_qt);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value)
+    return launch_fwd<T>(flash_fwd_f32_kernel<D>,
+                         sizeof(float) * FwdF32<D>::kSmemFloats,
+                         FwdF32<D>::BQ, q, k, v, o, lse, N, Tq, Tk, scale,
+                         causal, st);
+  else
+    return launch_fwd<T>(flash_fwd_bf16_kernel<D>,
+                         sizeof(T) * FwdBF16<D>::kSmemElems, FwdBF16<D>::BQ,
+                         q, k, v, o, lse, N, Tq, Tk, scale, causal, st);
 }
 
 template <typename T, int D>

@@ -8,8 +8,11 @@ version ``paged_attention_reference`` (gather with ``paged_gather_kv``, then
 ``paged_decode_attention[_single]``).  There is no fallback from the kernel
 to the plain version.
 
-``paged_attention.launches`` counts kernel launches (never plain-version
-calls), so a run can show that its decode steps went through the kernel.
+``paged_attention.launches`` counts the calls that launch the kernel (never
+plain-version calls), so a run can show that its decode steps went through
+the kernel.  It counts one per call, also when the call enqueues two device
+launches (the split kernel and the combine of the splits), as the LSTM
+counters count one per call of T launches.
 """
 from __future__ import annotations
 
@@ -23,11 +26,23 @@ from .attention import (paged_decode_attention, paged_decode_attention_single,
                         paged_gather_kv, pool_arena)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# kMaxW and kRedSlots of csrc/paged_attention.cu: the shared-memory size
-# below is computed from them, so they change together (a test pins both)
+# constants of csrc/paged_attention.cu (kMaxW, the head dims it dispatches
+# with kMaxDh the largest, kWarps, kPartExtra, kMaxSplits, kColChunk): they
+# change together, and tests/test_torch_ops.py pins them
 MAX_WINDOW = 8
-_RED_SLOTS = 32
-MAX_SHARED_BYTES = 232448    # what one Hopper block may use (227 KB)
+HEAD_DIMS = (16, 32, 64, 128)
+SPLIT_WARPS = 4
+_PART_EXTRA = 2              # m and l after each row's Dh partial sums
+MAX_SPLITS = 64
+COL_CHUNK = 32               # table columns a split block stages at once
+# how the wrapper splits T: about BLOCKS_PER_SM split blocks for each SM
+BLOCKS_PER_SM = 4
+
+_sm_counts: dict = {}
+
+_build.declare("paged_attention.cu", "paged_attention_launch", ctypes.c_int,
+               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+               + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _normalise(q, lengths, scale):
@@ -61,23 +76,30 @@ def paged_attention_reference(q: torch.Tensor, k_pool, v_pool, layer: int,
                                   out_dtype=out_dtype)
 
 
-def _kernel_geometry(W: int, T: int, Dh: int):
-    """(threads per block, dynamic shared bytes) for one launch; raises on a
-    shape the kernel does not take."""
+def _kernel_geometry(S: int, W: int, H: int, n_tbl: int, Dh: int,
+                     n_sm: int):
+    """(columns per split, splits) for one launch on a card of ``n_sm``
+    SMs: enough splits that splits x heads x slots gives about
+    BLOCKS_PER_SM blocks an SM, and at most MAX_SPLITS of them (long
+    tables take longer splits).  Raises on a shape the kernel does not
+    take."""
     if not 1 <= W <= MAX_WINDOW:
         raise ValueError(f"paged_attention kernel takes windows of 1.."
                          f"{MAX_WINDOW} rows, got W={W}")
-    nthreads = 256
-    if Dh > nthreads or nthreads % Dh:
-        raise ValueError(f"paged_attention kernel needs a head dim dividing "
-                         f"{nthreads}, got Dh={Dh}")
-    groups = nthreads // Dh
-    smem = 4 * (W * Dh + W * T + groups * W * Dh + _RED_SLOTS)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"paged_attention kernel needs {smem} bytes of shared memory "
-            f"(W={W}, T={T}), over the {MAX_SHARED_BYTES} a block may use")
-    return nthreads, smem
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got Dh={Dh}")
+    want = -(-BLOCKS_PER_SM * n_sm // (S * H))
+    cols = max(-(-n_tbl // want), -(-n_tbl // MAX_SPLITS))
+    return cols, -(-n_tbl // cols)
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _sm_counts.get(dev.index)
+    if n is None:
+        n = _sm_counts[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def _launch_kernel(q, k_pool, v_pool, layer, tables, lengths, scale,
@@ -105,6 +127,8 @@ def _launch_kernel(q, k_pool, v_pool, layer, tables, lengths, scale,
         raise ValueError(f"layer {layer} out of range for L={L}")
     if not (k_arena.is_contiguous() and v_arena.is_contiguous()):
         raise ValueError("paged_attention needs contiguous arenas")
+    if k_arena.data_ptr() % 16 or v_arena.data_ptr() % 16:
+        raise ValueError("paged_attention needs 16-byte aligned arenas")
     if quantized:
         if k_arena.dtype != torch.int8 or v_arena.dtype != torch.int8:
             raise ValueError("a quantized pool holds int8 payloads")
@@ -125,28 +149,33 @@ def _launch_kernel(q, k_pool, v_pool, layer, tables, lengths, scale,
     n_tbl = tables.shape[1]
     if tables.shape[0] != S:
         raise ValueError(f"tables has {tables.shape[0]} rows for {S} slots")
-    nthreads, smem = _kernel_geometry(W, n_tbl * Bs, Dh)
+    cols, n_splits = _kernel_geometry(S, W, H, n_tbl, Dh, _sm_count(dev))
 
-    lib = _build.load_kernel_library("paged_attention.cu")
-    fn = lib.paged_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong, ctypes.c_void_p])
-
-    q = q.contiguous()
-    tables = tables.to(torch.int32).contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if tables.dtype != torch.int32 or not tables.is_contiguous():
+        tables = tables.to(torch.int32).contiguous()
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((S, W, H, Dh), dtype=out_dtype, device=dev)
-    ks = k_pool[1].data_ptr() if quantized else None
-    vs = v_pool[1].data_ptr() if quantized else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), ks, vs,
-                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                S, W, H, Dh, Bs, n_tbl, NB, L, int(layer), scale,
-                _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype],
-                _DTYPE_CODE[out_dtype], nthreads, smem, stream)
+    part = (torch.empty(S * H * n_splits * W * (Dh + _PART_EXTRA),
+                        dtype=torch.float32, device=dev)
+            if n_splits > 1 else None)
+    fn = _build.load_kernel_library("paged_attention.cu").paged_attention_launch
+    args = (q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+            k_pool[1].data_ptr() if quantized else None,
+            v_pool[1].data_ptr() if quantized else None,
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            S, W, H, Dh, Bs, n_tbl, NB, L, layer, scale,
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_arena.dtype],
+            _DTYPE_CODE[out_dtype], cols, n_splits,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")

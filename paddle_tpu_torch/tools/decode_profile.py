@@ -31,7 +31,7 @@ LM_CFG = dict(vocab_size=32000, max_len=1024, d_model=512, n_heads=8,
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
-    if "paged_decode_kernel" in low:
+    if "paged_split_kernel" in low or "paged_combine_kernel" in low:
         return "paged_attention"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "matmul", "gemv")):
         return "matmul"

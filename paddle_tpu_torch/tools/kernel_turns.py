@@ -1,0 +1,88 @@
+"""Time the paged decode-attention and flash-forward kernels of one checkout
+of the port, so that two versions can be compared in turns on one card.
+
+    python3 paddle_tpu_torch/tools/kernel_turns.py --tree DIR [--label L]
+
+Imports ``paddle_tpu_torch`` from the checkout ``DIR`` (another version of
+this package: only ``paged_attention``, ``quantize_kv`` and
+``flash_fwd_kernel`` are called, with the signatures every version so far
+has), builds its kernels there, and runs ``chip_smoke.py``'s kernel cases
+from the checkout this script lies in: paged attention for float32,
+bfloat16 and int8 arenas at W=1 and W=4 (8 slots, 8 heads, Dh 64, block 16,
+T 1024), and the flash forward at N=64, T=1024, D=64, causal, in float32
+and bfloat16.  Each case: the largest difference from the plain version,
+the event-timed call and the device time (``chip_smoke.both_ms``).  Prints
+one JSON line.  Run it for the old and the new checkout in turns, in one
+call on one card (old, new, new, old): the card's power limit and its
+neighbours differ between calls.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]   # the checkout holding chip_smoke
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", required=True,
+                    help="checkout whose paddle_tpu_torch is timed")
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    sys.path.insert(1, str(HERE))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import paddle_tpu_torch
+    from paddle_tpu_torch.ops import attention as TA
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_reference)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_turns needs a CUDA card")
+    dev = torch.device("cuda")
+    res = {"label": args.label or args.tree,
+           "package": str(Path(paddle_tpu_torch.__file__).parent),
+           "card": paddle_tpu_torch.card_info(0), "paged": {}, "flash": {}}
+    rng = np.random.RandomState(0)
+    for kind in ("float32", "bfloat16", "int8"):
+        for W in (1, 4):
+            q, kp, vp, tables, lengths = cs._kernel_inputs(kind, W, dev, rng)
+            qq = q[:, 0] if W == 1 else q
+            ll = lengths[:, 0] if W == 1 else lengths
+            got = paged_attention(qq, kp, vp, cs.KLAYER, tables, ll)
+            want = paged_attention_reference(qq, kp, vp, cs.KLAYER, tables,
+                                             ll, out_dtype=q.dtype)
+            ms, dev_ms = cs.both_ms(lambda i: paged_attention(
+                qq, kp, vp, i % cs.KL, tables, ll))
+            res["paged"][f"{kind} W={W}"] = {
+                "max_abs_err": float((got.float() - want.float()).abs()
+                                     .max()),
+                "ms": ms, "device_ms": dev_ms,
+                "bound_ms": cs._bound(kind, W, q, lengths)[0]}
+    N, T, D = 64, 1024, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        frng = np.random.RandomState(1)
+        q, k, v = (torch.from_numpy(frng.standard_normal((N, T, D)).astype(
+            np.float32)).to(dev, dtype) for _ in range(3))
+        scale = D ** -0.5
+        o, lse = TA.flash_fwd_kernel(q, k, v, scale, True)
+        ro, rlse = TA._fwd_reference(q, k, v, scale, True)
+        ms, dev_ms = cs.both_ms(lambda i: TA.flash_fwd_kernel(q, k, v, scale,
+                                                            True))
+        res["flash"][str(dtype).replace("torch.", "")] = {
+            "o_max_abs_err": float((o.float() - ro.float()).abs().max()),
+            "lse_max_abs_err": float((lse - rlse).abs().max()),
+            "ms": ms, "device_ms": dev_ms,
+            "bound_ms": cs._flash_bound("fwd", N, T, T, D, True, dtype)[0]}
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -195,3 +195,113 @@ def test_head_dims_match_cuda_source():
     for ty in ("float", "__nv_bfloat16"):
         dims = re.findall(r"case (\d+): return FN<" + ty + r", \1>", src)
         assert tuple(int(d) for d in dims) == TA.FLASH_HEAD_DIMS
+
+
+# ------------------------------------------- the forward kernels' arithmetic
+
+
+def _fwd_tiles(dtype, D: int):
+    """(query rows of a block, keys of a K/V tile) of the forward kernel
+    that ``dtype`` inputs run: FwdF32<D> or FwdBF16<D> of
+    csrc/flash_attention.cu (test_forward_tiles_match_cuda_source pins
+    them)."""
+    if dtype == torch.float32:
+        return (64 if D == 128 else 128), 64
+    return 64, 64
+
+
+def _fwd_kernel_transcribed(q, k, v, scale, causal):
+    """flash_fwd_f32_kernel / flash_fwd_bf16_kernel transcribed: Q tiles
+    and K/V tiles of :func:`_fwd_tiles`, the causal tile skip (and the float32
+    kernel's skip of the first half of the Q tile where it precedes every
+    key of the K tile), the masked fill, the online softmax per K tile
+    (bfloat16 inputs round the running, unnormalised p before p . v), and
+    o = acc / l, lse = m + log l with l == 0 taken as 1.  Returns (o in
+    q's dtype, lse float32)."""
+    N, Tq, D = q.shape
+    Tk = k.shape[1]
+    bq, bk = _fwd_tiles(q.dtype, D)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o = torch.zeros(N, Tq, D)
+    lse = torch.zeros(N, Tq)
+    for q0 in range(0, Tq, bq):
+        rows = torch.arange(q0, min(q0 + bq, Tq))
+        n_kt = -(-Tk // bk)
+        if causal:
+            n_kt = min(n_kt, (min(q0 + bq, Tq) - 1) // bk + 1)
+        m = torch.full((N, rows.numel()), TA.NEG_INF)
+        l = torch.zeros(N, rows.numel())
+        acc = torch.zeros(N, rows.numel(), D)
+        for kt in range(n_kt):
+            keys = torch.arange(kt * bk, min(kt * bk + bk, Tk))
+            half = (q.dtype == torch.float32 and causal
+                    and q0 + bq // 2 <= kt * bk)
+            sub = slice(bq // 2 if half else 0, None)    # rows computed
+            s = torch.full((N, rows.numel(), keys.numel()), TA.NEG_INF)
+            s[:, sub] = torch.einsum("nqd,nkd->nqk", qf[:, rows[sub]],
+                                     kf[:, keys]) * scale
+            ok = torch.ones(rows.numel(), keys.numel(), dtype=torch.bool)
+            if causal:
+                ok = rows[:, None] >= keys[None, :]
+            s = torch.where(ok, s, TA.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            if q.dtype == torch.bfloat16:
+                p = p.to(torch.bfloat16).float()
+            acc = acc * alpha[..., None] + torch.einsum("nqk,nkd->nqd", p,
+                                                        vf[:, keys])
+            m = m_new
+        safe = torch.where(l == 0, 1.0, l)
+        o[:, rows] = acc / safe[..., None]
+        lse[:, rows] = m + torch.log(safe)
+    return o.to(q.dtype), lse
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,Tq,Tk,D,causal", [
+    (2, 200, 200, 16, True),     # ragged: no multiple of any tile
+    (1, 150, 90, 64, False),     # rectangular, Tk < one Q tile
+    (1, 90, 150, 64, True),      # rectangular, causal, top-left aligned
+    (2, 130, 130, 128, True),    # the 64-row float32 tiles of D = 128
+    (1, 70, 200, 128, False),
+])
+def test_forward_kernel_arithmetic_matches_plain_version(N, Tq, Tk, D,
+                                                         causal, dt):
+    """The forward kernels' tiling and online softmax, transcribed, against
+    ``_fwd_reference`` on the same inputs: lse atol 2e-5; o atol 2e-5 in
+    float32 and, in bfloat16, within chip_smoke.py's element-wise limit
+    2u (sum_k p_k |v_k| + |o|) + 2e-5, u = 2^-8."""
+    q, k, v = (_t(a) for a in _qkv(Tq + Tk + D, (N, Tq, D), (N, Tk, D)))
+    tdt = torch.float32 if dt == "float32" else torch.bfloat16
+    q, k, v = q.to(tdt), k.to(tdt), v.to(tdt)
+    scale = D ** -0.5
+    o, lse = _fwd_kernel_transcribed(q, k, v, scale, causal)
+    ro, rlse = TA._fwd_reference(q, k, v, scale, causal)
+    assert o.dtype == tdt and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), rlse.numpy(), atol=FWD_ATOL,
+                               rtol=0)
+    d = (o.float() - ro.float()).abs()
+    if dt == "float32":
+        assert float(d.max()) <= FWD_ATOL
+    else:
+        a_sum = TA._fwd_reference(q.float(), k.float(), v.float().abs(),
+                                  scale, causal)[0]
+        limit = 2 * 2.0 ** -8 * (a_sum + ro.float().abs()) + FWD_ATOL
+        assert bool((d <= limit).all()), float((d / limit).max())
+
+
+def test_forward_tiles_match_cuda_source():
+    """:func:`_fwd_tiles` gives the tiles FwdF32<D> and FwdBF16<D>
+    declare."""
+    src = (Path(TA.__file__).parent / "csrc" / "flash_attention.cu"
+           ).read_text()
+    f32 = re.search(r"struct FwdF32 \{.*?BQ = D == 128 \? (\d+) : (\d+);.*?"
+                    r"BK = (\d+);", src, re.S).groups()
+    bf16 = re.search(r"struct FwdBF16 \{.*?BQ = (\d+), BK = (\d+);", src,
+                     re.S).groups()
+    assert _fwd_tiles(torch.float32, 128) == (int(f32[0]), int(f32[2]))
+    assert _fwd_tiles(torch.float32, 64) == (int(f32[1]), int(f32[2]))
+    for D in TA.FLASH_HEAD_DIMS:
+        assert _fwd_tiles(torch.bfloat16, D) == tuple(int(x) for x in bf16)

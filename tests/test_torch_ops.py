@@ -3,6 +3,9 @@
 paged-attention kernel against the Pallas kernel run by its interpreter,
 and per-slot token selection.  Inputs come from numpy seeds and go through
 both packages."""
+import importlib
+import re
+
 import numpy as np
 import pytest
 
@@ -17,6 +20,9 @@ from paddle_tpu_torch.ops import sampling as TS
 from paddle_tpu_torch.ops.paged_attention import (_kernel_geometry,
                                                   paged_attention,
                                                   paged_attention_reference)
+
+# the package rebinds the name to the function; fetch the module
+PA = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
 
 # the plain version against the TPU kernel: float32 sums in another order
 ATTN_ATOL = 1e-5
@@ -216,32 +222,246 @@ def test_plain_version_counts_no_launch_and_other_devices_raise():
 @pytest.mark.parametrize("W,T,Dh,ok", [
     (1, 1024, 64, True), (4, 1024, 64, True), (8, 4096, 64, True),
     (9, 64, 64, False),            # window beyond the kernel's rows
-    (4, 1024, 48, False),          # head dim must divide the block
-    (8, 8192, 64, False),          # scores past 227 KB of shared memory
+    (4, 1024, 48, False),          # head dim the kernel does not take
+    (8, 8192, 64, True),           # long T: no score row caps it any more
 ])
 def test_kernel_geometry_limits(W, T, Dh, ok):
-    if ok:
-        nthreads, smem = _kernel_geometry(W, T, Dh)
-        assert nthreads % Dh == 0 and smem >= 4 * W * T
-    else:
+    """The split of T at the serving shape (8 slots, 8 heads, block 16) on
+    132 SMs: the splits cover every column once, there are at most
+    MAX_SPLITS of them, and splits x heads x slots fills the SMs."""
+    S, H, Bs, n_sm = 8, 8, 16, 132
+    if not ok:
         with pytest.raises(ValueError):
-            _kernel_geometry(W, T, Dh)
+            _kernel_geometry(S, W, H, T // Bs, Dh, n_sm)
+        return
+    cols, n_splits = _kernel_geometry(S, W, H, T // Bs, Dh, n_sm)
+    assert cols >= 1 and n_splits <= PA.MAX_SPLITS
+    assert n_splits == -(-(T // Bs) // cols)
+    assert n_splits * S * H >= n_sm
 
 
 def test_kernel_limits_match_cuda_source():
-    """The wrapper sizes shared memory from its copies of the kernel's
-    window and reduction limits; they must equal the .cu constants."""
-    import importlib
-    import re
+    """The wrapper's copies of the kernel's constants (window, head dims,
+    warps of a split block, the stats after each partial row, the most
+    splits, the columns staged at once) must equal the .cu's."""
     from pathlib import Path
 
-    # the package rebinds the name to the function; fetch the module
-    PA = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
     src = (Path(PA.__file__).parent / "csrc" / "paged_attention.cu"
            ).read_text()
     const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(const["kMaxW"]) == PA.MAX_WINDOW
-    assert int(const["kRedSlots"]) == PA._RED_SLOTS
+    assert int(const["kMaxDh"]) == max(PA.HEAD_DIMS)
+    assert int(const["kWarps"]) == PA.SPLIT_WARPS
+    assert int(const["kPartExtra"]) == PA._PART_EXTRA
+    assert int(const["kMaxSplits"]) == PA.MAX_SPLITS
+    assert int(const["kColChunk"]) == PA.COL_CHUNK
+    dims = re.search(r"\(Dh != (\d+) && Dh != (\d+) && Dh != (\d+) && "
+                     r"Dh != kMaxDh\)", src).groups()
+    assert tuple(int(d) for d in dims) + (int(const["kMaxDh"]),) == \
+        PA.HEAD_DIMS
+
+
+def _lane_geometry(kv_dtype, W: int, Dh: int):
+    """How a split block's lanes take positions, as elems_per_lane and
+    unroll of csrc/paged_attention.cu give it: (values a lane loads at
+    once, lanes per position, positions per load instruction, positions per
+    lane group per pass), for the window bucket (1, 2, 4 or 8) that holds
+    W."""
+    wb = 1 if W <= 1 else 2 if W <= 2 else 4 if W <= 4 else 8
+    itemsize = torch.empty((), dtype=kv_dtype).element_size()
+    elems = {4: 4, 2: 8, 1: 16 if wb <= 4 else 8}[itemsize]
+    lanes = Dh // elems
+    unroll = (1 if elems == 16 else
+              2 if wb == 8 or (elems == 8 and wb == 4) else 4)
+    return elems, lanes, 32 // lanes, unroll
+
+
+def _split_kernel_transcribed(q, k_pool, v_pool, layer, tables, lengths,
+                              scale, out_dtype, cols):
+    """csrc/paged_attention.cu transcribed: paged_split_kernel over a grid
+    of (split, head, slot), the split's columns staged COL_CHUNK at a time,
+    its lane groups' online softmax streams, their butterfly merge, the
+    warps' merge and the partials or the direct write, then
+    paged_combine_kernel's weights and sums.  q [S, W, H, Dh], lengths
+    [S, W]."""
+    quantized = isinstance(k_pool, tuple)
+    ka, va = TA.pool_arena(k_pool), TA.pool_arena(v_pool)
+    S, W, H, Dh = q.shape
+    NB, _, _, Bs, _ = ka.shape
+    n_tbl = tables.shape[1]
+    n_splits = -(-n_tbl // cols)
+    _, _, NG, U = _lane_geometry(ka.dtype, W, Dh)
+    warps = PA.SPLIT_WARPS
+    round_p = out_dtype == torch.bfloat16
+    ninf = float("-inf")
+    qf = q.float()
+    out = torch.zeros(S, W, H, Dh)
+
+    def row(arena, planes, blk, r, h):
+        x = arena[blk, layer, h, r].float()
+        return x, (planes[1][blk, layer, h, r] if quantized else 1.0)
+
+    def merge(a, b):
+        (ma, la, aa), (mb, lb, ab) = a, b
+        mn = torch.maximum(ma, mb)
+        wa = torch.where(ma == ninf, 0.0, torch.exp(ma - mn))
+        wb = torch.where(mb == ninf, 0.0, torch.exp(mb - mn))
+        return mn, la * wa + lb * wb, aa * wa[:, None] + ab * wb[:, None]
+
+    for s in range(S):
+        lens = lengths[s]
+        n_live = (n_tbl if int(lens.min()) <= 0 else
+                  min(n_tbl, -(-int(lens.max()) // Bs)))
+        live_splits = -(-n_live // cols)
+        parts = []
+        for h in range(H):
+            for sp in range(n_splits):
+                c0 = sp * cols
+                if c0 >= n_live:
+                    continue                    # wholly past every row
+                c_end = min(c0 + cols, n_live)
+                passes = [(base, cc * Bs, min(cc + PA.COL_CHUNK, c_end) * Bs)
+                          for cc in range(c0, c_end, PA.COL_CHUNK)
+                          for base in range(cc * Bs, min(cc + PA.COL_CHUNK,
+                                                         c_end) * Bs,
+                                            warps * NG * U)]
+                per_warp = []
+                for warp in range(warps):
+                    streams = []
+                    for g in range(NG):
+                        m = torch.full((W,), ninf)
+                        l, acc = torch.zeros(W), torch.zeros(W, Dh)
+                        for base0, _, t_end in passes:
+                            base = base0 + warp * NG * U
+                            if base >= t_end:
+                                continue
+                            sc = torch.full((U, W), ninf)
+                            pr_v = []
+                            for u in range(U):
+                                t = base + u * NG + g
+                                if t >= t_end:
+                                    pr_v.append((torch.zeros(Dh), 0.0))
+                                    continue
+                                blk = min(max(int(tables[s, t // Bs]), 0),
+                                          NB - 1)
+                                k, ks = row(ka, k_pool, blk, t % Bs, h)
+                                v, vs = row(va, v_pool, blk, t % Bs, h)
+                                d = (qf[s, :, h] * k).sum(-1) * scale * ks
+                                sc[u] = torch.where(t < lens, d,
+                                                    torch.tensor(-1e9))
+                                pr_v.append((v, vs))
+                            m_new = torch.maximum(m, sc.max(0).values)
+                            any_ = m_new != ninf
+                            alpha = torch.where(any_, torch.exp(m - m_new),
+                                                1.0)
+                            p = torch.where(any_, torch.exp(sc - m_new), 0.0)
+                            l = l * alpha + p.sum(0)
+                            if round_p:
+                                p = p.to(torch.bfloat16).float()
+                            acc = acc * alpha[:, None]
+                            for u, (v, vs) in enumerate(pr_v):
+                                acc = acc + (p[u] * vs)[:, None] * v
+                            m = m_new
+                        streams.append((m, l, acc))
+                    off = 1
+                    while off < NG:             # butterfly over the groups
+                        streams = [merge(streams[g], streams[g ^ off])
+                                   for g in range(NG)]
+                        off *= 2
+                    per_warp.append(streams[0])
+                M = torch.stack([w[0] for w in per_warp]).max(0).values
+                num, den = torch.zeros(W, Dh), torch.zeros(W)
+                for mk, lk, ak in per_warp:
+                    wk = torch.where(mk == ninf, 0.0, torch.exp(mk - M))
+                    num = num + wk[:, None] * ak
+                    den = den + wk * lk
+                if live_splits == 1:
+                    out[s, :, h] = num / den[:, None]
+                else:
+                    parts.append((h, sp, M, den, num))
+        for h in range(H):
+            mine = [p for p in parts if p[0] == h]    # in split order
+            if not mine:
+                continue
+            M = torch.stack([p[2] for p in mine]).max(0).values
+            e = [torch.exp(mj - M) for _, _, mj, _, _ in mine]
+            den = sum(ej * p[3] for ej, p in zip(e, mine))
+            o = torch.zeros(W, Dh)
+            for ej, (_, _, _, _, nj) in zip(e, mine):
+                o = o + (ej / den)[:, None] * nj
+            out[s, :, h] = o
+    return out.to(out_dtype)
+
+
+def _split_case(kind, W, Dh):
+    """Pools of `kind` with a poisoned trash block; slot 0 runs nearly to
+    the end of its table, slot 1 has a row of length 0 (every column
+    counts), slot 2 is short (the later splits lie wholly past its rows)
+    and holds out-of-range table entries the kernel clamps."""
+    S, H, Bs, n_tbl, L = 3, 2, 4, 6, 2
+    nb = S * n_tbl
+    rng = np.random.RandomState(W * 7 + Dh)
+    shape = (nb + 1, L, H, Bs, Dh)
+    kf = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    vf = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    kf[nb] = vf[nb] = 30.0
+    if kind == "int8":
+        kp, vp = TA.quantize_kv(kf), TA.quantize_kv(vf)
+        qdt = torch.float32
+    else:
+        qdt = torch.float32 if kind == "float32" else torch.bfloat16
+        kp, vp = kf.to(qdt), vf.to(qdt)
+    top = np.array([n_tbl * Bs - 1, 9, 5])
+    lengths = (top[:, None] - np.arange(W)[::-1][None, :]).astype(np.int32)
+    lengths[1, 0] = 0
+    tables = rng.permutation(nb)[:S * n_tbl].reshape(S, n_tbl)
+    tables = tables.astype(np.int32)
+    tables[2, 1] = -3                   # clamped to block 0
+    tables[2, 2:] = nb + 40             # clamped to the trash block
+    q = torch.from_numpy(rng.standard_normal((S, W, H, Dh)).astype(
+        np.float32)).to(qdt)
+    return q, kp, vp, torch.from_numpy(tables), torch.from_numpy(lengths)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("W,Dh", [(1, 64), (4, 16), (8, 32)])
+@pytest.mark.parametrize("cols", [1, 2, 4, 6])
+def test_split_kernel_arithmetic_matches_plain_version(kind, W, Dh, cols):
+    """The split kernel's partials and their combine, transcribed, against
+    ``paged_attention_reference`` on the clamped tables, at split lengths
+    from one column to the whole table (one split, written directly):
+    float32 and int8 atol 2e-5 rtol 1e-5, bfloat16 outputs 2e-2 (they round
+    probabilities per stream, before the rescaling)."""
+    q, kp, vp, tables, lengths = _split_case(kind, W, Dh)
+    nb = TA.pool_arena(kp).shape[0]
+    out_dtype = q.dtype
+    got = _split_kernel_transcribed(q, kp, vp, 1, tables, lengths,
+                                    Dh ** -0.5, out_dtype, cols)
+    want = paged_attention_reference(q, kp, vp, 1,
+                                     tables.clamp(0, nb - 1), lengths,
+                                     out_dtype=out_dtype)
+    atol, rtol = (2e-2, 2e-2) if kind == "bfloat16" else (2e-5, 1e-5)
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_split_kernel_column_chunks_match_plain_version(monkeypatch, kind):
+    """A split longer than the columns a block stages at once walks them
+    chunk by chunk (here 2 columns a chunk, so one split of 6 columns takes
+    3), against ``paged_attention_reference``, as above."""
+    monkeypatch.setattr(PA, "COL_CHUNK", 2)
+    q, kp, vp, tables, lengths = _split_case(kind, 4, 16)
+    nb = TA.pool_arena(kp).shape[0]
+    got = _split_kernel_transcribed(q, kp, vp, 1, tables, lengths, 0.25,
+                                    q.dtype, 6)
+    want = paged_attention_reference(q, kp, vp, 1,
+                                     tables.clamp(0, nb - 1), lengths,
+                                     scale=0.25, out_dtype=q.dtype)
+    atol, rtol = (2e-2, 2e-2) if kind == "bfloat16" else (2e-5, 1e-5)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=atol, rtol=rtol)
 
 
 # ------------------------------------------------------- token selection
