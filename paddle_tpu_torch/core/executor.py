@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..ops.attention import check_flash_head_dim
 from .program import (
     Op,
     OpContext,
@@ -150,6 +151,7 @@ class Executor:
         return_numpy: bool = True,
     ):
         program = program or default_main_program()
+        check_kernel_shapes(program, self.device)
         feed = feed or {}
         fetch_list = list(fetch_list or [])
         scope = scope or global_scope()
@@ -202,6 +204,7 @@ class Executor:
         ``step_fn(state, feed, step) -> (fetches, new_state)`` and the
         current persistable state, for harnesses that drive the step
         themselves (benchmarks, entry points)."""
+        check_kernel_shapes(program, self.device)
         feed_stub = {n: None for n in feed_names}
         state_names = sorted(self._state_in_names(program, scope, feed_stub,
                                                   fetch_names))
@@ -247,6 +250,26 @@ class Executor:
             return fetches, new_state
 
         return step
+
+
+# --------------------------------------------------------------------------- kernel shapes
+
+
+def check_kernel_shapes(program: Program, device: torch.device) -> None:
+    """On a CUDA device, raise on an op whose kernel would refuse its shape:
+    the flash attention op (``attention``, from ``models.attention_core``)
+    with a head dim outside the kernels' ``FLASH_HEAD_DIMS``.  The check
+    lives here and not in ``build_lm``: a program is built without knowing
+    where it will run, and the CPU runs every head dim on the plain
+    versions.  ``Executor.run`` calls it before the step's first op, so a
+    refused program changes no parameter or optimizer state."""
+    if device.type != "cuda":
+        return
+    block = program.global_block
+    for op in program.list_ops():
+        if op.type == "attention":
+            hd = block.vars[op.inputs["Q"][0]].shape[-1]
+            check_flash_head_dim(hd // op.attrs["n_heads"])
 
 
 # --------------------------------------------------------------------------- backward

@@ -268,6 +268,15 @@ def _bwd_blockwise(q, k, v, o, lse, g, scale: float, causal: bool,
     return dq, dk, dv
 
 
+def check_flash_head_dim(D: int) -> None:
+    """Raise on a head dim the CUDA kernels do not take: the wrappers call
+    this at every launch, and ``Executor.run`` before a program's first
+    step on a card."""
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash kernels take head dims "
+                         f"{FLASH_HEAD_DIMS}, got D={D}")
+
+
 def _check_flash_operands(q, k, v, *rest) -> None:
     """Raise on anything the CUDA kernels do not take: q/k/v (and g) on one
     CUDA device, contiguous, float32 or bfloat16 alike, q [N, Tq, D] and
@@ -293,9 +302,7 @@ def _check_flash_operands(q, k, v, *rest) -> None:
         raise ValueError(f"flash kernels need q [N, Tq, D] and k/v "
                          f"[N, Tk, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[2] not in FLASH_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head dims "
-                         f"{FLASH_HEAD_DIMS}, got D={q.shape[2]}")
+    check_flash_head_dim(q.shape[2])
     if min(q.shape) < 1 or k.shape[1] < 1:
         raise ValueError("flash operands must not be empty")
     for t in rest:

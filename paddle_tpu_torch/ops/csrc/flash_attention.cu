@@ -1,10 +1,12 @@
 // Flash attention, forward and backward, for Hopper (sm_90a), written by hand.
 //
 // Replaces three Pallas TPU kernels of paddle_tpu/ops/attention.py:
-//   flash_fwd_f32_kernel,  <- _fwd_kernel       (via _fwd_pallas)
+//   flash_fwd_f32_kernel,       <- _fwd_kernel       (via _fwd_pallas)
 //   flash_fwd_bf16_kernel
-//   flash_bwd_dkdv_kernel  <- _bwd_kernel_dkdv  (via _bwd_pallas)
-//   flash_bwd_dq_kernel    <- _bwd_kernel_dq    (via _bwd_pallas)
+//   flash_bwd_dkdv_f32_kernel,  <- _bwd_kernel_dkdv  (via _bwd_pallas)
+//   flash_bwd_dkdv_kernel (bf16)
+//   flash_bwd_dq_f32_kernel,    <- _bwd_kernel_dq    (via _bwd_pallas)
+//   flash_bwd_dq_kernel (bf16)
 //
 // What they compute, for each row n of q [N, Tq, D], k/v [N, Tk, D]:
 //   s = mask(q . k^T * scale), mask = kpos < Tk && (!causal || qpos >= kpos)
@@ -35,7 +37,8 @@
 // per (row of N, K tile) over its Q tiles (dK/dV).  No atomics: every
 // output element has one writer, so results repeat exactly from run to
 // run.  Tiles above the causal diagonal are skipped, and the forward and
-// dQ start the longest causal rows first.
+// dQ start the longest causal rows first (the float32 dK/dV the longest
+// columns).
 //
 // The float32 forward (flash_fwd_f32_kernel) is bound by how fast shared
 // memory feeds the FMAs: 128 B a clock against 128 FMAs a clock per SM, so
@@ -60,19 +63,44 @@
 // (.trans for V), the row statistics live in the accumulator fragments
 // (4 lanes a row), and p, rounded to bf16, is the A operand of p . v
 // straight from the score fragments.
-// The backward kernels: 64 x 64 tiles; 256 threads as 16 x 16, each owning
-// a 4 x 4 patch of the score tile and 4 rows x D/16 columns of its
-// accumulators; K and V sit transposed in shared memory for the score
-// products, rows padded by one float; dynamic shared memory (66-183 KB by
-// D) is taken above 48 KB by opt-in.  The kernels pick their own tiles:
-// the block_k of the plain backward does not reach them.  D must be 16,
-// 32, 64 or 128.
+// The float32 backward kernels reuse the float32 forward's machinery: 128
+// threads as 16 x 8, register patches fed by 128-bit shared loads
+// (patch_dot for the score products, patch_acc for the products that
+// reduce over keys or queries), row-major tiles padded by 4 floats and
+// filled by cp.async, and one buffer for each streamed operand, the two
+// alternating so that one loads while the other is read.  Their tiles are
+// 64 x 64, so a thread's patches are 4 x 8 (2.7 FMAs a shared word, not
+// the forward's 4): with 128-row tiles and 8 x 8 patches a block took
+// more than half of an SM's shared memory, and dK/dV spilled, and both
+// ran slower than two 64-row blocks an SM.
+//   * dQ (flash_bwd_dq_f32_kernel): one block per (row of N, Q tile),
+//     longest causal rows first, holding Q, G, lse and delta; per K/V
+//     tile, dP = g . v^T waits in shared memory while s = q . k^T is
+//     computed, dS = p (dP - delta) scale replaces it, and dq += dS . k
+//     accumulates in registers.  V(t+1) loads during the scores, dS and
+//     dS . k of tile t, K(t+1) during dP of tile t+1.  89 KB of shared
+//     memory at D = 64;
+//   * dK/dV (flash_bwd_dkdv_f32_kernel), in FlashAttention-2's transposed
+//     frame: one block per (row of N, K tile), keys as the patches' rows,
+//     holding K and V, with dk and dv in registers; per Q tile,
+//     s^T = k . q^T gives p^T (kept in shared memory), dP^T = v . g^T gives
+//     dS^T, then dk += dS^T . q and dv += p^T . g; lse and delta are per
+//     column and load with the Q tile.  Q(t+1) loads during dv of tile t,
+//     G(t+1) during s^T of tile t+1.  107 KB at D = 64.
+// Both skip the tiles above the causal diagonal.  The bfloat16 backward
+// kernels (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel) keep the first
+// design: 64 x 64 tiles; 256 threads as 16 x 16, each owning a 4 x 4
+// patch of the score tile and 4 rows x D/16 columns of its accumulators;
+// K and V sit transposed in shared memory for the score products, rows
+// padded by one float; dynamic shared memory (66-183 KB by D) is taken
+// above 48 KB by opt-in.  The kernels pick their own tiles: the block_k of
+// the plain backward does not reach them.  D must be 16, 32, 64 or 128.
 //
 // Later work, not done here: wgmma and TMA for the bf16 forward (Hopper's
 // full tensor-core rate; mma.sync reaches a part of it), warp
-// specialisation; the float32 forward's remaining distance to its FMA
-// bound (shared loads still share the issue slots with the FMAs); the
-// register-tiled, cp.async-fed design for the two backward kernels.
+// specialisation; the float32 kernels' remaining distance to their FMA
+// bound (shared loads still take instruction slots from the FMAs); the
+// bf16 backward on the tensor cores, which mixed-precision training needs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,8 +111,8 @@
 
 namespace {
 
-constexpr int kB = 64;           // backward: rows of a Q and a K/V tile
-constexpr int kThreads = 256;    // backward: 16 x 16
+constexpr int kB = 64;           // bf16 backward: rows of a Q and a K/V tile
+constexpr int kThreads = 256;    // bf16 backward: 16 x 16
 constexpr float kNegInf = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -153,7 +181,7 @@ constexpr int dq_smem_floats() {
 
 // ------------------------------------------------------------------ forward
 
-constexpr int kFwdThreads = 128;  // four warps
+constexpr int kFwdThreads = 128;  // four warps; also the f32 backward's
 
 // 16 bytes from global to shared memory without a register round trip;
 // zero-filled (and the source not read) when !valid
@@ -255,33 +283,31 @@ __device__ __forceinline__ float lane_of(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// The three products of one K/V tile in the float32 forward, for score
-// rows ty + 16 i with i >= I0: at I0 = TM / 2 the first half of the Q tile
-// lies wholly above the causal diagonal of the tile (every p is 0) and is
-// skipped.  s = q . k^T: 4 TM + 4 TN shared words feed 4 TM TN
-// multiply-adds.
-template <int D, int I0>
-__device__ __forceinline__ void f32_scores(
-    const float* q_s, const float* k_s, int tx, int ty,
-    float (&s)[FwdF32<D>::TM][FwdF32<D>::TN]) {
-  using G = FwdF32<D>;
-  constexpr int TM = G::TM, TN = G::TN;
+// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 8 j][d] for patch rows
+// I0 <= i < I1: a [.][LA] and b [.][LB] row-major in shared memory, read
+// 128 bits at a time along d, so 4 (I1 - I0) + 4 TN shared words feed
+// 4 (I1 - I0) TN multiply-adds.  The float32 forward's q . k^T and the
+// float32 backward's four score products.
+template <int D, int TM, int TN, int LA, int LB, int I0, int I1>
+__device__ __forceinline__ void patch_dot(const float* a_s, const float* b_s,
+                                          int tx, int ty,
+                                          float (&s)[TM][TN]) {
 #pragma unroll
-  for (int i = I0; i < TM; ++i)
+  for (int i = I0; i < I1; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float4 a[TM];
 #pragma unroll
-    for (int i = I0; i < TM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * G::LQ + d);
+    for (int i = I0; i < I1; ++i)
+      a[i] = *reinterpret_cast<const float4*>(a_s + (ty + 16 * i) * LA + d);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const float4 b =
-          *reinterpret_cast<const float4*>(k_s + (tx + 8 * j) * G::LK + d);
+          *reinterpret_cast<const float4*>(b_s + (tx + 8 * j) * LB + d);
 #pragma unroll
-      for (int i = I0; i < TM; ++i) {
+      for (int i = I0; i < I1; ++i) {
         s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
         s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
         s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
@@ -289,6 +315,47 @@ __device__ __forceinline__ void f32_scores(
       }
     }
   }
+}
+
+// acc[i][c] += sum_kk p[ty + 16 i][kk] * v[kk][col(tx, c)] over KN values
+// of kk, for patch rows I0 <= i < I1: p [.][LP] read 128 bits at a time
+// along kk, v [KN][LV] along its columns, so 4 (I1 - I0) + 4 CW shared
+// words feed 4 (I1 - I0) CW multiply-adds.  The float32 forward's p . v
+// and the float32 backward's dS . K, P^T . G and dS^T . Q.
+template <int KN, int TM, int CW, int LP, int LV, int I0, int I1>
+__device__ __forceinline__ void patch_acc(const float* p_s, const float* v_s,
+                                          float (&acc)[TM][CW], int tx,
+                                          int ty) {
+#pragma unroll 2
+  for (int kk = 0; kk < KN; kk += 4) {
+    float4 pv[TM];
+#pragma unroll
+    for (int i = I0; i < I1; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * LP + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float vv[CW];
+      load_cols<CW>(v_s + (kk + u) * LV, tx, vv);
+#pragma unroll
+      for (int i = I0; i < I1; ++i) {
+        const float p = lane_of(pv[i], u);
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+// The three products of one K/V tile in the float32 forward, for score
+// rows ty + 16 i with i >= I0: at I0 = TM / 2 the first half of the Q tile
+// lies wholly above the causal diagonal of the tile (every p is 0) and is
+// skipped.  s = q . k^T
+template <int D, int I0>
+__device__ __forceinline__ void f32_scores(
+    const float* q_s, const float* k_s, int tx, int ty,
+    float (&s)[FwdF32<D>::TM][FwdF32<D>::TN]) {
+  using G = FwdF32<D>;
+  patch_dot<D, G::TM, G::TN, G::LQ, G::LK, I0, G::TM>(q_s, k_s, tx, ty, s);
 }
 
 // mask and online softmax of the tile's scores; p into shared memory
@@ -330,31 +397,14 @@ __device__ __forceinline__ void f32_softmax(
   }
 }
 
-// o += p . v: 4 TM + 4 CW shared words feed 4 TM CW multiply-adds
+// o += p . v
 template <int D, int I0>
 __device__ __forceinline__ void f32_pv(
     const float* p_s, const float* v_s,
     float (&acc)[FwdF32<D>::TM][FwdF32<D>::CW], int tx, int ty) {
   using G = FwdF32<D>;
-  constexpr int TM = G::TM, CW = G::CW;
-#pragma unroll 2
-  for (int kk = 0; kk < G::BK; kk += 4) {
-    float4 pv[TM];
-#pragma unroll
-    for (int i = I0; i < TM; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * G::LP + kk);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float vv[CW];
-      load_cols<CW>(v_s + (kk + u) * G::LK, tx, vv);
-#pragma unroll
-      for (int i = I0; i < TM; ++i) {
-        const float p = lane_of(pv[i], u);
-#pragma unroll
-        for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
+  patch_acc<G::BK, G::TM, G::CW, G::LP, G::LK, I0, G::TM>(p_s, v_s, acc, tx,
+                                                          ty);
 }
 
 template <int D>
@@ -875,6 +925,332 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
+// ------------------------------------------------------ float32 backward
+
+// 4 bytes from global to shared memory by cp.async (4-byte alignment is
+// enough); zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// lse and delta of rows [row0, row0 + ROWS) into lse_s / dl_s by cp.async,
+// zero past `rows`; not committed
+template <int ROWS>
+__device__ __forceinline__ void async_stats(float* lse_s, float* dl_s,
+                                            const float* lse,
+                                            const float* delta, int row0,
+                                            int rows) {
+  for (int c = threadIdx.x; c < 2 * ROWS; c += kFwdThreads) {
+    const int r = c % ROWS, gr = row0 + r;
+    const bool ok = gr < rows;
+    const float* src = (c < ROWS ? lse : delta) + (ok ? gr : 0);
+    cp_async4((c < ROWS ? lse_s : dl_s) + r, src, ok);
+  }
+}
+
+// float32 dQ tiles: the forward's 128 threads as 16 x 8; thread (ty, tx)
+// owns rows ty + 16 i of the Q tile, keys tx + 8 j of a K/V tile and dq
+// columns col(tx, c)
+template <int D>
+struct BwdDqF32 {
+  static constexpr int BQ = 64;  // query rows of a block
+  static constexpr int BK = 64;  // keys of a K/V tile
+  static constexpr int TM = BQ / 16, TN = BK / 8, CW = D / 8;
+  // rows as in FwdF32: 16-byte aligned, 4 banks apart; dS rows 8 apart
+  static constexpr int LQ = D + 4, LK = D + 4, LS = BK + 8;
+  // Q, G [BQ][LQ]; one K and one V tile [BK][LK]; dS [BQ][LS]; lse and
+  // delta [BQ]
+  static constexpr int kSmemFloats =
+      2 * BQ * LQ + 2 * BK * LK + BQ * LS + 2 * BQ;
+};
+
+// dS of one (Q tile, K tile) pair from the scores s = q . k^T and dP,
+// which waits in ds_s: p = exp(s scale - lse), 0 where masked (padded
+// rows and keys too), dS = p (dP - delta) scale into ds_s, in place (each
+// thread rewrites its own entries)
+template <int D>
+__device__ __forceinline__ void dq_f32_ds(
+    const float (&s)[BwdDqF32<D>::TM][BwdDqF32<D>::TN], float* ds_s,
+    const float* lse_s, const float* dl_s, int q0, int k0, int Tq, int Tk,
+    int causal, float scale, int tx, int ty) {
+  using G = BwdDqF32<D>;
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i) {
+    const int r = ty + 16 * i, qp = q0 + r;
+    const float ls = lse_s[r], dl = dl_s[r];
+#pragma unroll
+    for (int j = 0; j < G::TN; ++j) {
+      const int kp = k0 + tx + 8 * j;
+      const bool ok = qp < Tq && kp < Tk && (!causal || qp >= kp);
+      const float p = ok ? __expf(s[i][j] * scale - ls) : 0.f;
+      float& e = ds_s[r * G::LS + tx + 8 * j];
+      e = p * (e - dl) * scale;
+    }
+  }
+}
+
+// dP = g . v^T, parked in ds_s for dq_f32_ds
+template <int D>
+__device__ __forceinline__ void dq_f32_dp(
+    const float* g_s, const float* v_s, float* ds_s, int tx, int ty,
+    float (&s)[BwdDqF32<D>::TM][BwdDqF32<D>::TN]) {
+  using G = BwdDqF32<D>;
+  patch_dot<D, G::TM, G::TN, G::LQ, G::LK, 0, G::TM>(g_s, v_s, tx, ty, s);
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < G::TN; ++j)
+      ds_s[(ty + 16 * i) * G::LS + tx + 8 * j] = s[i][j];
+}
+
+// One K/V tile of the float32 dQ pass: dP (parked), the scores, dS, then
+// dq += dS . K, with V(kt + 1) loading from the end of dP on; K(kt + 1)
+// starts loading after the return, when K(kt) is free.
+template <int D>
+__device__ __forceinline__ void dq_f32_tile(
+    const float* q_s, const float* g_s, const float* k_s, float* v_s,
+    float* ds_s, const float* lse_s, const float* dl_s, const float* vn,
+    float (&acc)[BwdDqF32<D>::TM][BwdDqF32<D>::CW], int q0, int k0,
+    bool more, int Tq, int Tk, int causal, float scale, int tx, int ty) {
+  using G = BwdDqF32<D>;
+  float s[G::TM][G::TN];
+  dq_f32_dp<D>(g_s, v_s, ds_s, tx, ty, s);
+  __syncthreads();  // every thread is done with V(kt)
+  if (more) {
+    async_tile<float, D, G::BK, G::LK>(v_s, vn, k0 + G::BK, Tk);
+    cp_async_commit();
+    cp_async_wait<1>();  // K(kt) is in; V(kt + 1) may be in flight
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();  // K(kt) visible to all
+  patch_dot<D, G::TM, G::TN, G::LQ, G::LK, 0, G::TM>(q_s, k_s, tx, ty, s);
+  dq_f32_ds<D>(s, ds_s, lse_s, dl_s, q0, k0, Tq, Tk, causal, scale, tx, ty);
+  __syncthreads();  // dS visible to all
+  patch_acc<G::BK, G::TM, G::CW, G::LS, G::LK, 0, G::TM>(ds_s, k_s, acc, tx,
+                                                         ty);
+}
+
+// float32 dQ: one block per (row of N, Q tile), longest causal rows first,
+// looping over its K/V tiles.  Q, G, lse and delta stay; K and V have one
+// buffer each and alternate: V(kt + 1) loads during the scores, dS and
+// dS . K of tile kt, K(kt + 1) during dP of tile kt + 1.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_bwd_dq_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int N, int Tq, int Tk, float scale, int causal,
+    int n_qt) {
+  using G = BwdDqF32<D>;
+  constexpr int BQ = G::BQ, BK = G::BK, TM = G::TM, CW = G::CW;
+  extern __shared__ float smem[];
+  float* q_s = smem;                // [BQ][LQ]
+  float* g_s = q_s + BQ * G::LQ;    // [BQ][LQ]
+  float* k_s = g_s + BQ * G::LQ;    // [BK][LK]
+  float* v_s = k_s + BK * G::LK;    // [BK][LK]
+  float* ds_s = v_s + BK * G::LK;   // [BQ][LS]
+  float* lse_s = ds_s + BQ * G::LS; // [BQ]
+  float* dl_s = lse_s + BQ;         // [BQ]
+
+  const int qt = n_qt - 1 - (int)(blockIdx.x / N);
+  const int n = (int)(blockIdx.x % N);
+  const int q0 = qt * BQ;
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const float* kn = k + (int64_t)n * Tk * D;
+  const float* vn = v + (int64_t)n * Tk * D;
+
+  int n_kt = (Tk + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (min(q0 + BQ, Tq) - 1) / BK + 1);
+
+  async_tile<float, D, BQ, G::LQ>(q_s, q + (int64_t)n * Tq * D, q0, Tq);
+  async_tile<float, D, BQ, G::LQ>(g_s, g + (int64_t)n * Tq * D, q0, Tq);
+  async_stats<BQ>(lse_s, dl_s, lse + (int64_t)n * Tq,
+                  delta + (int64_t)n * Tq, q0, Tq);
+  async_tile<float, D, BK, G::LK>(v_s, vn, 0, Tk);
+  cp_async_commit();
+  async_tile<float, D, BK, G::LK>(k_s, kn, 0, Tk);
+  cp_async_commit();
+
+  float acc[TM][CW];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    const bool more = kt + 1 < n_kt;
+    cp_async_wait<1>();  // Q, G, the stats and V(kt) are in
+    __syncthreads();
+    dq_f32_tile<D>(q_s, g_s, k_s, v_s, ds_s, lse_s, dl_s, vn, acc, q0, k0,
+                   more, Tq, Tk, causal, scale, tx, ty);
+    __syncthreads();  // every thread is done with K(kt) and dS
+    if (more) {
+      async_tile<float, D, BK, G::LK>(k_s, kn, k0 + BK, Tk);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    if (qp < Tq) store_cols<CW>(dq + ((int64_t)n * Tq + qp) * D, tx, acc[i]);
+  }
+}
+
+// float32 dK/dV tiles, in the transposed frame (FlashAttention-2): a
+// block owns BK keys, which are the rows of its patches; thread (ty, tx)
+// owns keys ty + 16 i, queries tx + 8 j of a Q tile, and dk / dv columns
+// col(tx, c)
+template <int D>
+struct BwdDkdvF32 {
+  static constexpr int BK = 64;  // keys of a block
+  static constexpr int BQ = 64;  // queries of a Q tile
+  static constexpr int TM = BK / 16, TN = BQ / 8, CW = D / 8;
+  static constexpr int LK = D + 4, LQ = D + 4, LP = BQ + 8;
+  // K, V [BK][LK]; one Q and one G tile [BQ][LQ]; P^T, dS^T [BK][LP];
+  // lse and delta of the Q tile [BQ]
+  static constexpr int kSmemFloats =
+      2 * BK * LK + 2 * BQ * LQ + 2 * BK * LP + 2 * BQ;
+};
+
+// One Q tile of the float32 dK/dV pass: S^T = K . Q^T and P^T, parked in
+// p_s; dP^T = V . G^T and dS^T = P^T (dP^T - delta) scale into ds_s;
+// dk += dS^T . Q; then, with Q(qt + 1) loading, dv += P^T . G.  G(qt + 1)
+// starts loading after the return, when G is free.
+template <int D>
+__device__ __forceinline__ void dkdv_f32_tile(
+    const float* k_s, const float* v_s, float* q_s, const float* g_s,
+    float* p_s, float* ds_s, float* lse_s, float* dl_s, const float* qn,
+    const float* lsen, const float* dln,
+    float (&dka)[BwdDkdvF32<D>::TM][BwdDkdvF32<D>::CW],
+    float (&dva)[BwdDkdvF32<D>::TM][BwdDkdvF32<D>::CW], int q0, int k0,
+    bool more, int Tq, int Tk, int causal, float scale, int tx, int ty) {
+  using G = BwdDkdvF32<D>;
+  constexpr int TM = G::TM, TN = G::TN, BQ = G::BQ;
+  float s[TM][TN];
+  patch_dot<D, TM, TN, G::LK, G::LQ, 0, TM>(k_s, q_s, tx, ty, s);
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int c = tx + 8 * j, qp = q0 + c;
+    const float ls = lse_s[c];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int kp = k0 + ty + 16 * i;
+      const bool ok = qp < Tq && kp < Tk && (!causal || qp >= kp);
+      p_s[(ty + 16 * i) * G::LP + c] =
+          ok ? __expf(s[i][j] * scale - ls) : 0.f;
+    }
+  }
+  cp_async_wait<0>();  // G(qt) is in
+  __syncthreads();
+  patch_dot<D, TM, TN, G::LK, G::LQ, 0, TM>(v_s, g_s, tx, ty, s);
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int c = tx + 8 * j;
+    const float dl = dl_s[c];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int e = (ty + 16 * i) * G::LP + c;
+      ds_s[e] = p_s[e] * (s[i][j] - dl) * scale;
+    }
+  }
+  __syncthreads();  // P^T and dS^T visible to all
+  patch_acc<BQ, TM, G::CW, G::LP, G::LQ, 0, TM>(ds_s, q_s, dka, tx, ty);
+  __syncthreads();  // every thread is done with Q(qt) and the stats
+  if (more) {
+    async_tile<float, D, BQ, G::LQ>(q_s, qn, q0 + BQ, Tq);
+    async_stats<BQ>(lse_s, dl_s, lsen, dln, q0 + BQ, Tq);
+    cp_async_commit();
+  }
+  patch_acc<BQ, TM, G::CW, G::LP, G::LQ, 0, TM>(p_s, g_s, dva, tx, ty);
+}
+
+// float32 dK/dV: one block per (row of N, K tile), the first K tiles (the
+// longest causal columns) first, looping over the Q tiles from the causal
+// diagonal on.  K and V stay; Q (with its lse and delta) and G have one
+// buffer each and alternate: Q(qt + 1) loads during dv += P^T . G of
+// tile qt, G(qt + 1) during S^T of tile qt + 1.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_bwd_dkdv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int N, int Tq, int Tk,
+    float scale, int causal, int n_kt) {
+  using G = BwdDkdvF32<D>;
+  constexpr int BK = G::BK, BQ = G::BQ, TM = G::TM, CW = G::CW;
+  extern __shared__ float smem[];
+  float* k_s = smem;                 // [BK][LK]
+  float* v_s = k_s + BK * G::LK;     // [BK][LK]
+  float* q_s = v_s + BK * G::LK;     // [BQ][LQ]
+  float* g_s = q_s + BQ * G::LQ;     // [BQ][LQ]
+  float* p_s = g_s + BQ * G::LQ;     // [BK][LP]
+  float* ds_s = p_s + BK * G::LP;    // [BK][LP]
+  float* lse_s = ds_s + BK * G::LP;  // [BQ]
+  float* dl_s = lse_s + BQ;          // [BQ]
+
+  const int kt = (int)(blockIdx.x / N);
+  const int n = (int)(blockIdx.x % N);
+  const int k0 = kt * BK;
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const float* qn = q + (int64_t)n * Tq * D;
+  const float* gn = g + (int64_t)n * Tq * D;
+  const float* lsen = lse + (int64_t)n * Tq;
+  const float* dln = delta + (int64_t)n * Tq;
+
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  // causal: Q tiles wholly above this K tile (q0 + BQ - 1 < k0) see
+  // p == 0, so start at the tile holding query k0
+  const int qt0 = causal ? k0 / BQ : 0;
+
+  async_tile<float, D, BK, G::LK>(k_s, k + (int64_t)n * Tk * D, k0, Tk);
+  async_tile<float, D, BK, G::LK>(v_s, v + (int64_t)n * Tk * D, k0, Tk);
+  async_tile<float, D, BQ, G::LQ>(q_s, qn, qt0 * BQ, Tq);
+  async_stats<BQ>(lse_s, dl_s, lsen, dln, qt0 * BQ, Tq);
+  cp_async_commit();
+  async_tile<float, D, BQ, G::LQ>(g_s, gn, qt0 * BQ, Tq);
+  cp_async_commit();
+
+  float dka[TM][CW], dva[TM][CW];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * BQ;
+    const bool more = qt + 1 < n_qt;
+    cp_async_wait<1>();  // K, V, Q(qt) and its stats are in
+    __syncthreads();
+    dkdv_f32_tile<D>(k_s, v_s, q_s, g_s, p_s, ds_s, lse_s, dl_s, qn, lsen,
+                     dln, dka, dva, q0, k0, more, Tq, Tk, causal, scale, tx,
+                     ty);
+    __syncthreads();  // every thread is done with G(qt), P^T and dS^T
+    if (more) {
+      async_tile<float, D, BQ, G::LQ>(g_s, gn, q0 + BQ, Tq);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (no Q tile at all
+                       // when a causal K tile starts past Tq)
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int kp = k0 + ty + 16 * i;
+    if (kp < Tk) {
+      const int64_t row = ((int64_t)n * Tk + kp) * D;
+      store_cols<CW>(dk + row, tx, dka[i]);
+      store_cols<CW>(dv + row, tx, dva[i]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 template <typename K>
@@ -887,18 +1263,24 @@ int prepare(K kern, size_t smem) {
   return 0;
 }
 
+// prepare() and the largest shared-memory carveout, so that two float32
+// forward blocks (104 KB each at D = 64), or two float32 dQ (89 KB) or
+// dK/dV (107 KB) blocks, share an SM
+template <typename K>
+int prepare_carveout(K kern, size_t smem) {
+  int rc = prepare(kern, smem);
+  if (rc != 0) return rc;
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+}
+
 template <typename T, typename K>
 int launch_fwd(K kern, size_t smem, int bq, const void* q, const void* k,
                const void* v, void* o, float* lse, int N, int Tq, int Tk,
                float scale, int causal, cudaStream_t st) {
-  int rc = prepare(kern, smem);
+  int rc = prepare_carveout(kern, smem);
   if (rc != 0) return rc;
-  // the largest shared-memory carveout, so that two float32 blocks (104 KB
-  // each at D = 64) share an SM
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
   const int n_qt = (Tq + bq - 1) / bq;
   kern<<<(unsigned)(N * n_qt), kFwdThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -923,36 +1305,70 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                          q, k, v, o, lse, N, Tq, Tk, scale, causal, st);
 }
 
+// float32 inputs run flash_bwd_dkdv_f32_kernel, bfloat16 ones
+// flash_bwd_dkdv_kernel
 template <typename T, int D>
 int dkdv(const void* q, const void* k, const void* v, const void* g,
          const float* lse, const float* delta, void* dk, void* dv, int N,
          int Tq, int Tk, float scale, int causal, cudaStream_t st) {
-  auto kern = flash_bwd_dkdv_kernel<T, D>;
-  const size_t smem = sizeof(float) * dkdv_smem_floats<D>();
-  int rc = prepare(kern, smem);
-  if (rc != 0) return rc;
-  const int n_kt = (Tk + kB - 1) / kB;
-  kern<<<(unsigned)(N * n_kt), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, scale, causal, n_kt);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value) {
+    using G = BwdDkdvF32<D>;
+    auto kern = flash_bwd_dkdv_f32_kernel<D>;
+    const size_t smem = sizeof(float) * G::kSmemFloats;
+    int rc = prepare_carveout(kern, smem);
+    if (rc != 0) return rc;
+    const int n_kt = (Tk + G::BK - 1) / G::BK;
+    kern<<<(unsigned)(N * n_kt), kFwdThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(g), lse,
+        delta, static_cast<float*>(dk), static_cast<float*>(dv), N, Tq, Tk,
+        scale, causal, n_kt);
+    return (int)cudaGetLastError();
+  } else {
+    auto kern = flash_bwd_dkdv_kernel<T, D>;
+    const size_t smem = sizeof(float) * dkdv_smem_floats<D>();
+    int rc = prepare(kern, smem);
+    if (rc != 0) return rc;
+    const int n_kt = (Tk + kB - 1) / kB;
+    kern<<<(unsigned)(N * n_kt), kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, scale, causal,
+        n_kt);
+    return (int)cudaGetLastError();
+  }
 }
 
+// float32 inputs run flash_bwd_dq_f32_kernel, bfloat16 ones
+// flash_bwd_dq_kernel
 template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* g,
        const float* lse, const float* delta, void* dqp, int N, int Tq, int Tk,
        float scale, int causal, cudaStream_t st) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = sizeof(float) * dq_smem_floats<D>();
-  int rc = prepare(kern, smem);
-  if (rc != 0) return rc;
-  const int n_qt = (Tq + kB - 1) / kB;
-  kern<<<(unsigned)(N * n_qt), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-      static_cast<T*>(dqp), Tq, Tk, scale, causal, n_qt);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value) {
+    using G = BwdDqF32<D>;
+    auto kern = flash_bwd_dq_f32_kernel<D>;
+    const size_t smem = sizeof(float) * G::kSmemFloats;
+    int rc = prepare_carveout(kern, smem);
+    if (rc != 0) return rc;
+    const int n_qt = (Tq + G::BQ - 1) / G::BQ;
+    kern<<<(unsigned)(N * n_qt), kFwdThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(g), lse,
+        delta, static_cast<float*>(dqp), N, Tq, Tk, scale, causal, n_qt);
+    return (int)cudaGetLastError();
+  } else {
+    auto kern = flash_bwd_dq_kernel<T, D>;
+    const size_t smem = sizeof(float) * dq_smem_floats<D>();
+    int rc = prepare(kern, smem);
+    if (rc != 0) return rc;
+    const int n_qt = (Tq + kB - 1) / kB;
+    kern<<<(unsigned)(N * n_qt), kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
+        static_cast<T*>(dqp), Tq, Tk, scale, causal, n_qt);
+    return (int)cudaGetLastError();
+  }
 }
 
 // return FN<T, D>(...) for the (dtype, D) of the enclosing entry point

@@ -76,6 +76,18 @@ def paged_attention_reference(q: torch.Tensor, k_pool, v_pool, layer: int,
                                   out_dtype=out_dtype)
 
 
+def check_kernel_shape(W: int, Dh: int) -> None:
+    """Raise on a window width or head dim the kernel does not take: the
+    wrapper calls this at every launch, and ``ContinuousDecodeEngine``
+    when it is made on a card, before it allocates its pool."""
+    if not 1 <= W <= MAX_WINDOW:
+        raise ValueError(f"paged_attention kernel takes windows of 1.."
+                         f"{MAX_WINDOW} rows, got W={W}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got Dh={Dh}")
+
+
 def _kernel_geometry(S: int, W: int, H: int, n_tbl: int, Dh: int,
                      n_sm: int):
     """(columns per split, splits) for one launch on a card of ``n_sm``
@@ -83,12 +95,7 @@ def _kernel_geometry(S: int, W: int, H: int, n_tbl: int, Dh: int,
     BLOCKS_PER_SM blocks an SM, and at most MAX_SPLITS of them (long
     tables take longer splits).  Raises on a shape the kernel does not
     take."""
-    if not 1 <= W <= MAX_WINDOW:
-        raise ValueError(f"paged_attention kernel takes windows of 1.."
-                         f"{MAX_WINDOW} rows, got W={W}")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"paged_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got Dh={Dh}")
+    check_kernel_shape(W, Dh)
     want = -(-BLOCKS_PER_SM * n_sm // (S * H))
     cols = max(-(-n_tbl // want), -(-n_tbl // MAX_SPLITS))
     return cols, -(-n_tbl // cols)

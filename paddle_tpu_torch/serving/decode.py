@@ -36,6 +36,7 @@ from .._device import resolve_device
 from ..models.transformer import TransformerLM
 from ..models.weights import from_jax_params, torch_dtype
 from ..ops import attention as _attn
+from ..ops.paged_attention import check_kernel_shape
 from ..ops.sampling import masked_select_tokens
 from ..resilience import DeadlineExceeded
 from .batcher import (AdmissionShed, DecodeAdmissionQueue,
@@ -203,7 +204,10 @@ class ContinuousDecodeEngine:
 
     ``params`` is a numpy dict under the JAX names (``init_lm_params`` of
     either package, or a checkpoint).  ``device`` defaults to the CUDA card
-    and raises when there is none; the CPU tests pass ``device="cpu"``.
+    and raises when there is none; the CPU tests pass ``device="cpu"``.  On
+    a card it raises at once, before it allocates the pool, on a window
+    (``spec_window``) or head dim the paged kernel does not take; the CPU
+    runs every shape on the plain versions.
     ``step_dispatches`` counts decode-step calls by window width W (each
     runs the paged attention kernel once per layer on the card)."""
 
@@ -229,6 +233,10 @@ class ContinuousDecodeEngine:
             # a preempt-resumed history can grow to any length < max_len and
             # must tier somewhere
             self.prompt_buckets.append(self.max_len)
+        if self.device.type == "cuda":
+            # the paged kernel's limits, checked before the pool exists:
+            # the widest window a step dispatches and the head dim
+            check_kernel_shape(max(1, self.spec_window), self.Dh)
         if n_blocks is None:
             n_blocks = self.n_slots * self.n_tbl  # dense-equivalent capacity
         self.pool = PagedKVPool(n_blocks, n_layers, n_heads, self.block_size,

@@ -1,20 +1,25 @@
-"""Time the paged decode-attention and flash-forward kernels of one checkout
-of the port, so that two versions can be compared in turns on one card.
+"""Time the paged decode-attention, flash-forward and flash-backward kernels
+of one checkout of the port, so that two versions can be compared in turns
+on one card.
 
     python3 paddle_tpu_torch/tools/kernel_turns.py --tree DIR [--label L]
 
 Imports ``paddle_tpu_torch`` from the checkout ``DIR`` (another version of
-this package: only ``paged_attention``, ``quantize_kv`` and
-``flash_fwd_kernel`` are called, with the signatures every version so far
-has), builds its kernels there, and runs ``chip_smoke.py``'s kernel cases
-from the checkout this script lies in: paged attention for float32,
-bfloat16 and int8 arenas at W=1 and W=4 (8 slots, 8 heads, Dh 64, block 16,
-T 1024), and the flash forward at N=64, T=1024, D=64, causal, in float32
-and bfloat16.  Each case: the largest difference from the plain version,
-the event-timed call and the device time (``chip_smoke.both_ms``).  Prints
-one JSON line.  Run it for the old and the new checkout in turns, in one
-call on one card (old, new, new, old): the card's power limit and its
-neighbours differ between calls.
+this package: only ``paged_attention``, ``quantize_kv``,
+``flash_fwd_kernel``, ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``
+and the plain versions beside them are called, with the signatures every
+version so far has), builds its kernels there, and runs ``chip_smoke.py``'s
+kernel cases from the checkout this script lies in: paged attention for
+float32, bfloat16 and int8 arenas at W=1 and W=4 (8 slots, 8 heads, Dh 64,
+block 16, T 1024), and the flash forward, dK/dV and dQ kernels at N=64,
+T=1024, D=64, causal, in float32 and bfloat16.  Each case: the largest
+difference from the plain version (for the backward also over the
+gradient's max |g|), the event-timed call and the device time
+(``chip_smoke.both_ms``), and the bound; the flash kernels' registers and
+spills as ptxas reported them when this run built them.  Prints one JSON
+line.  Run it for the old and the new checkout in turns, in one call on
+one card (old, new, new, old): the card's power limit and its neighbours
+differ between calls.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ def main(argv=None) -> int:
 
     import chip_smoke as cs
     import paddle_tpu_torch
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import attention as TA
     from paddle_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
@@ -80,6 +86,32 @@ def main(argv=None) -> int:
             "lse_max_abs_err": float((lse - rlse).abs().max()),
             "ms": ms, "device_ms": dev_ms,
             "bound_ms": cs._flash_bound("fwd", N, T, T, D, True, dtype)[0]}
+        # the backward pair on the forward's (o, lse) and a cotangent g
+        g = torch.from_numpy(frng.standard_normal((N, T, D)).astype(
+            np.float32)).to(dev, dtype)
+        delta = (ro.float() * g.float()).sum(dim=-1).contiguous()
+        args = (q, k, v, g, rlse, delta, scale, True)
+        for kern, fn, plain in (
+                ("bwd_dkdv", TA.flash_bwd_dkdv_kernel,
+                 TA._bwd_dkdv_blockwise),
+                ("bwd_dq", TA.flash_bwd_dq_kernel, TA._bwd_dq_blockwise)):
+            got, want = fn(*args), plain(*args, 128)
+            if kern == "bwd_dq":
+                got, want = (got,), (want,)
+            diffs = [float((a.float() - b.float()).abs().max())
+                     for a, b in zip(got, want)]
+            rels = [d / float(b.float().abs().max())
+                    for d, b in zip(diffs, want)]
+            ms, dev_ms = cs.both_ms(lambda i, fn=fn: fn(*args))
+            res["flash"][f"{kern} {str(dtype).replace('torch.', '')}"] = {
+                "max_abs_err": max(diffs), "max_rel_err": max(rels),
+                "ms": ms, "device_ms": dev_ms,
+                "bound_ms": cs._flash_bound(kern, N, T, T, D, True,
+                                            dtype)[0]}
+    res["ptxas"] = [
+        {"kernel": name, "registers": regs, "spill_bytes": spill}
+        for name, regs, spill in cs._ptxas_report(
+            _build.build_logs.get("flash_attention.cu", ""))]
     print(json.dumps(res))
     return 0
 

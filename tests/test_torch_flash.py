@@ -305,3 +305,140 @@ def test_forward_tiles_match_cuda_source():
     assert _fwd_tiles(torch.float32, 64) == (int(f32[1]), int(f32[2]))
     for D in TA.FLASH_HEAD_DIMS:
         assert _fwd_tiles(torch.bfloat16, D) == tuple(int(x) for x in bf16)
+
+
+# ------------------------------------ the float32 backward kernels' tiling
+
+
+def _bwd_f32_tiles(D: int) -> dict:
+    """The tiles of the float32 backward kernels: dQ's (query rows of a
+    block, keys of a K/V tile), BwdDqF32<D>, and dK/dV's (keys of a block,
+    queries of a Q tile), BwdDkdvF32<D>, of csrc/flash_attention.cu
+    (test_backward_tiles_match_cuda_source pins them; the same at every
+    D)."""
+    return {"dq": (64, 64), "dkdv": (64, 64)}
+
+
+def _tile(x, r0: int, rows: int):
+    """Rows [r0, r0 + rows) of x [N, T, ...], zero past T (cp.async's
+    zero fill)."""
+    out = x.new_zeros((x.shape[0], rows) + tuple(x.shape[2:]))
+    take = x[:, r0:r0 + rows]
+    out[:, :take.shape[1]] = take
+    return out
+
+
+def _dq_f32_kernel_transcribed(q, k, v, g, lse, delta, scale, causal):
+    """flash_bwd_dq_f32_kernel transcribed: a block per (row of N, Q tile)
+    loops over its K/V tiles up to the causal limit; zero-filled tiles;
+    dP = G . V^T, then S = Q . K^T, p = exp(s scale - lse) masked to
+    exactly 0 (also on padded rows and keys), dS = p (dP - delta) scale,
+    dq += dS . K."""
+    N, Tq, D = q.shape
+    Tk = k.shape[1]
+    bq, bk = _bwd_f32_tiles(D)["dq"]
+    dq = torch.zeros(N, Tq, D)
+    for qt in reversed(range(-(-Tq // bq))):     # longest rows first
+        q0 = qt * bq
+        rows = torch.arange(q0, q0 + bq)
+        qs, gs = _tile(q, q0, bq), _tile(g, q0, bq)
+        ls, dl = _tile(lse, q0, bq), _tile(delta, q0, bq)
+        n_kt = -(-Tk // bk)
+        if causal:
+            n_kt = min(n_kt, (min(q0 + bq, Tq) - 1) // bk + 1)
+        acc = torch.zeros(N, bq, D)
+        for kt in range(n_kt):
+            k0 = kt * bk
+            keys = torch.arange(k0, k0 + bk)
+            ks, vs = _tile(k, k0, bk), _tile(v, k0, bk)
+            dp = torch.einsum("nqd,nkd->nqk", gs, vs)
+            s = torch.einsum("nqd,nkd->nqk", qs, ks)
+            ok = (rows[:, None] < Tq) & (keys[None, :] < Tk)
+            if causal:
+                ok = ok & (rows[:, None] >= keys[None, :])
+            p = torch.where(ok, torch.exp(s * scale - ls[..., None]), 0.0)
+            ds = p * (dp - dl[..., None]) * scale
+            acc += torch.einsum("nqk,nkd->nqd", ds, ks)
+        dq[:, q0:q0 + bq] = acc[:, :min(bq, Tq - q0)]
+    return dq
+
+
+def _dkdv_f32_kernel_transcribed(q, k, v, g, lse, delta, scale, causal):
+    """flash_bwd_dkdv_f32_kernel transcribed, in the transposed frame: a
+    block per (row of N, K tile) holds its K and V tiles (keys are the
+    rows of its patches) and loops over Q tiles from the causal diagonal;
+    lse and delta are per column, loaded with each Q tile; S^T = K . Q^T, P^T masked to exactly 0, dP^T = V . G^T, dS^T = P^T
+    (dP^T - delta) scale, dk += dS^T . Q, dv += P^T . G."""
+    N, Tq, D = q.shape
+    Tk = k.shape[1]
+    bk, bq = _bwd_f32_tiles(D)["dkdv"]
+    dk, dv = torch.zeros(N, Tk, D), torch.zeros(N, Tk, D)
+    for kt in range(-(-Tk // bk)):               # longest columns first
+        k0 = kt * bk
+        keys = torch.arange(k0, k0 + bk)
+        ks, vs = _tile(k, k0, bk), _tile(v, k0, bk)
+        dka, dva = torch.zeros(N, bk, D), torch.zeros(N, bk, D)
+        # causal: Q tiles wholly above this K tile see p == 0
+        for qt in range(k0 // bq if causal else 0, -(-Tq // bq)):
+            q0 = qt * bq
+            cols = torch.arange(q0, q0 + bq)
+            qs, gs = _tile(q, q0, bq), _tile(g, q0, bq)
+            ls, dl = _tile(lse, q0, bq), _tile(delta, q0, bq)
+            st = torch.einsum("nkd,nqd->nkq", ks, qs)
+            ok = (keys[:, None] < Tk) & (cols[None, :] < Tq)
+            if causal:
+                ok = ok & (cols[None, :] >= keys[:, None])
+            pt = torch.where(ok, torch.exp(st * scale - ls[:, None, :]),
+                             0.0)
+            dpt = torch.einsum("nkd,nqd->nkq", vs, gs)
+            dst = pt * (dpt - dl[:, None, :]) * scale
+            dka += torch.einsum("nkq,nqd->nkd", dst, qs)
+            dva += torch.einsum("nkq,nqd->nkd", pt, gs)
+        dk[:, k0:k0 + bk] = dka[:, :min(bk, Tk - k0)]
+        dv[:, k0:k0 + bk] = dva[:, :min(bk, Tk - k0)]
+    return dk, dv
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("Tq,Tk,causal", [
+    (37, 37, True),      # one ragged tile
+    (50, 70, False),     # rectangular
+    (70, 50, True),      # rectangular, causal, top-left aligned
+    (130, 130, True),    # several tiles, the causal tile limits
+])
+def test_backward_f32_kernel_tiling_matches_plain_version(Tq, Tk, causal,
+                                                          D):
+    """The float32 backward kernels' tiling, transcribed, against
+    ``_bwd_dq_blockwise`` / ``_bwd_dkdv_blockwise`` on the same (q, k, v,
+    g, lse, delta): within 2e-4 of each gradient's max |g| (the tolerance
+    chip_smoke.py holds the kernels to)."""
+    N = 2
+    q, k, v = (_t(a) for a in _qkv(Tq + 3 * Tk + D, (N, Tq, D), (N, Tk, D)))
+    g = _t(np.random.RandomState(Tq + D).randn(N, Tq, D))
+    scale = D ** -0.5
+    o, lse = TA._fwd_reference(q, k, v, scale, causal)
+    delta = (o * g).sum(-1)
+    args = (q, k, v, g, lse, delta, scale, causal)
+    got = (_dq_f32_kernel_transcribed(*args),
+           *_dkdv_f32_kernel_transcribed(*args))
+    want = (TA._bwd_dq_blockwise(*args, 128),
+            *TA._bwd_dkdv_blockwise(*args, 128))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err < BWD_F32_REL, (name, Tq, Tk, causal, D, err)
+
+
+def test_backward_tiles_match_cuda_source():
+    """:func:`_bwd_f32_tiles` gives the tiles BwdDqF32<D> and
+    BwdDkdvF32<D> declare."""
+    src = (Path(TA.__file__).parent / "csrc" / "flash_attention.cu"
+           ).read_text()
+    dq = re.search(r"struct BwdDqF32 \{\s+static constexpr int BQ = (\d+);"
+                   r"[^\n]*\n\s+static constexpr int BK = (\d+);", src)
+    dkdv = re.search(r"struct BwdDkdvF32 \{\s+static constexpr int BK = "
+                     r"(\d+);[^\n]*\n\s+static constexpr int BQ = (\d+);",
+                     src)
+    for D in TA.FLASH_HEAD_DIMS:
+        assert _bwd_f32_tiles(D)["dq"] == tuple(int(x) for x in dq.groups())
+        assert _bwd_f32_tiles(D)["dkdv"] == tuple(int(x)
+                                                  for x in dkdv.groups())

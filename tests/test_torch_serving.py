@@ -307,3 +307,39 @@ def test_admission_queue_tiering_and_aging():
     dead = _Req(4, deadline=Deadline(0.0))
     q.push(dead)
     assert q.shed_expired() == [dead] and len(q) == 1
+
+
+# ----------------------------------------------------- the card's limits
+
+
+@pytest.mark.parametrize("W,Dh,ok", [(1, 64, True), (8, 128, True),
+                                     (9, 64, False), (4, 48, False)])
+def test_paged_kernel_shape_check(W, Dh, ok):
+    """``check_kernel_shape``, which the engine calls on a card before it
+    allocates its pool and the kernel's wrapper at every launch."""
+    from paddle_tpu_torch.ops.paged_attention import check_kernel_shape
+
+    if ok:
+        check_kernel_shape(W, Dh)
+        return
+    with pytest.raises(ValueError, match=f"got (W={W}|Dh={Dh})"):
+        check_kernel_shape(W, Dh)
+
+
+@pytest.mark.parametrize("eng_kw,cfg_kw,match", [
+    (dict(spec_window=9), {}, "windows of 1..8 rows, got W=9"),
+    ({}, dict(d_model=96), r"head dims \(16, 32, 64, 128\), got Dh=48")])
+def test_card_engine_refuses_kernel_shapes_before_its_pool(params, eng_kw,
+                                                           cfg_kw, match):
+    """On a CUDA device the engine raises in its constructor, before it
+    allocates the pool or loads weights (so no card is needed to see it);
+    on the CPU the same engine builds and serves on the plain versions."""
+    cfg, eng = dict(CFG, **cfg_kw), dict(ENG, **eng_kw)
+    p = jtf.init_lm_params(7, **cfg) if cfg_kw else params
+    with pytest.raises(ValueError, match=match):
+        ContinuousDecodeEngine(p, device="cuda", **eng, **cfg)
+    te = ContinuousDecodeEngine(p, device="cpu", **eng, **cfg)
+    sched, outs = _serve(ContinuousScheduler, te, _requests(9, n=4),
+                         stagger=1)
+    assert all(o.size >= 1 for o in outs)
+    assert sched.check_block_accounting()["leaked"] == 0

@@ -321,3 +321,47 @@ def test_optimizer_options_not_ported_raise():
         tfluid.optimizer.Adam(1e-3, regularization=object())
     with pytest.raises(NotImplementedError, match="A.9"):
         tfluid.Executor(CPU, strategy=object())
+
+
+@pytest.mark.parametrize("n_heads,ok", [(2, True), (4, True), (1, False)])
+def test_flash_head_dim_refused_on_card_before_first_step(n_heads, ok):
+    """Head dims 32 and 16 (d_model 64) pass ``check_kernel_shapes`` for a
+    CUDA place; 48 (d_model 48, one head) is refused with the kernels' own
+    message before the step's first op, and the CPU place runs it on the
+    plain versions.  No card is needed: the check comes before any feed or
+    state moves to the device."""
+    from paddle_tpu_torch.core.executor import check_kernel_shapes
+
+    d_model = {2: 64, 4: 64, 1: 48}[n_heads]
+    loss = _build_lm(tfluid, d_model=d_model, n_heads=n_heads)
+    main = tfluid.default_main_program()
+    check_kernel_shapes(main, torch.device("cpu"))
+    if ok:
+        check_kernel_shapes(main, torch.device("cuda"))
+        return
+    with pytest.raises(ValueError, match=r"flash kernels take head dims "
+                                         r"\(16, 32, 64, 128\), got D=48"):
+        check_kernel_shapes(main, torch.device("cuda"))
+
+    exe = tfluid.Executor(CPU)
+    exe.run(tfluid.default_startup_program())
+    before = {n: v.clone() for n, v in tfluid.global_scope().items()}
+    steps = tfluid.global_scope().step_counter
+    rng = np.random.RandomState(3)
+    V, T = TINY["vocab_size"], TINY["max_len"]
+    feed = {"toks": rng.randint(0, V, (2, T)).astype(np.int32),
+            "labs": rng.randint(0, V, (2, T, 1)).astype(np.int32)}
+    # an Executor for the card: refused before its first op, so the step
+    # counter, the parameters and the moments stay as they were
+    card = tfluid.Executor(CPU)
+    card.device = torch.device("cuda")
+    with pytest.raises(ValueError, match="got D=48"):
+        card.run(feed=feed, fetch_list=[loss])
+    assert tfluid.global_scope().step_counter == steps
+    for n, v in tfluid.global_scope().items():
+        assert torch.equal(v, before[n]), n
+    # the CPU runs the same program
+    out, = exe.run(feed=feed, fetch_list=[loss])
+    assert np.isfinite(out).all()
+    assert any(not torch.equal(v, before[n])
+               for n, v in tfluid.global_scope().items())
