@@ -46,7 +46,25 @@ Phases (any failure exits non-zero, before the final line):
                every gradient compared; then 5 steps on a fixed batch of 128
                with the LSTM launch counts set to 0 before and read after
                (2 layers x 5 steps each), losses finite and falling, ms per
-               step and sequences/s.
+               step and sequences/s;
+  7. bn kernels - the batch-norm backward kernels (reduction, dx) against
+               their plain versions in float32 and bfloat16 at ResNet-50's
+               shapes ([256,64,56,56], [256,128,28,28], [256,256,56,56]
+               (benchmark/bn_probe.py's), [256,2048,7,7]) and a ragged one,
+               each with a constant channel; timed at [256,256,56,56] beside
+               the plain versions and native_batch_norm_backward;
+  8. resnet train - ResNet-50 (1000 classes, 224x224, weights from seed 0)
+               as bench.py trains it, Program / Executor with Momentum(0.1,
+               0.9): one float32 step (TF32 off) on 4 images on the card and
+               on the CPU from the same weights, loss and every running
+               statistic compared, and every gradient against the CPU's own
+               spread under a 1e-7 change of the images (two more CPU
+               steps; the gradients are chaotic at float32's resolution at
+               this initialisation); then 5 steps in each arm,
+               amp at bs=256 and float32 at bs=256, on a batch that stays on
+               the card, with the batch-norm launch counts set to 0 before
+               and read after (53 layers x 5 steps each), losses finite and
+               printed, images/s from the median of steps 2-5, peak memory.
 The line before the card line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -75,7 +93,8 @@ TOLERANCE = {  # (atol, rtol); float32 sums run in another order
     "bfloat16": (2e-2, 2e-2),
     "int8": (2e-5, 1e-5),
 }
-KERNEL_SOURCES = ("paged_attention.cu", "flash_attention.cu", "lstm.cu")
+KERNEL_SOURCES = ("paged_attention.cu", "flash_attention.cu", "lstm.cu",
+                  "batch_norm.cu")
 # flash kernels against their plain versions.  float32: the JAX package's
 # own tolerances for its Pallas kernels (tests/test_pallas_ops.py:34,215):
 # o and lse atol 2e-5, gradients 2e-4 of max |grad|, over the tensor.
@@ -108,6 +127,26 @@ LSTM_FWD_ATOL = 2e-5
 LSTM_BWD_REL = 2e-4
 LSTM_KERNELS = ("fwd", "bwd")
 LSTM_ACTS = ("sigmoid", "tanh", "tanh")
+# batch-norm backward kernels against their plain versions: dbeta and
+# dgamma (float32 sums in another order) within BN_SUM_REL of sum |dy| and
+# sum |dy x-hat| per channel, in both dtypes (the kernel and the plain
+# version read the same values and add in float32); float32 dx within
+# BN_DX_REL of max |dx|; bfloat16 dx element by element within 2u |dx| +
+# BN_BF16_SUM_REL max |dx| (each side rounds once to bfloat16)
+BN_SUM_REL = 1e-5
+BN_DX_REL = 2e-5
+BN_BF16_SUM_REL = 1e-3
+BN_KERNELS = ("reduce", "dx")
+# (label, N, C, H, W); "probe" is benchmark/bn_probe.py's shape, timed
+BN_CASES = [("stage1", 256, 64, 56, 56), ("stage2", 256, 128, 28, 28),
+            ("probe", 256, 256, 56, 56), ("stage4", 256, 2048, 7, 7),
+            ("ragged", 3, 5, 7, 9)]
+BN_EPS = 1e-5
+RESNET_PARITY_BATCH = 4
+RESNET_BN_LAYERS = 53
+# the ResNet-50 parity step's gradients against the CPU's own float32
+# floor (see _resnet_parity)
+RESNET_FLOOR_FACTOR = 3
 
 
 def fail(msg: str) -> None:
@@ -1080,6 +1119,325 @@ def phase_lstm_train(card: str) -> dict:
     return {"launches": launches, "losses": losses, "median_ms": med}
 
 
+def _bn_bound(kernel: str, n: int, c: int, hw: int, dtype) -> tuple:
+    """(bound_ms, bound_by) for one call: each input read once and each
+    output written once (reduction: dy and x in, mean and rstd in, dbeta
+    and dgamma out; dx: dy and x in, five per-channel vectors in, dx out);
+    operations, float32 on the CUDA cores: 3 an element in the reduction
+    (add, subtract, multiply-add), 4 in dx."""
+    it = torch.empty((), dtype=dtype).element_size()
+    elems = n * c * hw
+    nbytes = ({"reduce": 2, "dx": 3}[kernel] * elems * it
+              + {"reduce": 4, "dx": 5}[kernel] * c * 4)
+    ops = {"reduce": 3, "dx": 4}[kernel] * elems
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bn_inputs(n, c, h, w, dtype, dev, seed):
+    """dy N(0, 1) and x N(0.5, 2^2) in ``dtype`` on the card (channel c // 2
+    constant), their batch mean and rstd in float32, gamma in [0.5, 1.5)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((n, c, h, w), generator=gen, device=dev) * 2 + 0.5
+    x[:, c // 2] = 1.25
+    dy = torch.randn((n, c, h, w), generator=gen, device=dev)
+    x, dy = x.to(dtype), dy.to(dtype)
+    x32 = x.float()
+    mean = x32.mean((0, 2, 3))
+    var = torch.clamp_min(x32.square().mean((0, 2, 3)) - mean.square(), 0.0)
+    del x32
+    rstd = torch.rsqrt(var + BN_EPS)
+    gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+    return dy, x, mean, rstd, gamma
+
+
+def _bn_case(label, n, c, h, w, dtype, dev, card) -> dict:
+    """Both kernels against their plain versions on the same inputs; for
+    the probe's shape also the times.  Returns the records by kernel."""
+    from paddle_tpu_torch.ops import batch_norm as TB
+
+    kind = "float32" if dtype == torch.float32 else "bfloat16"
+    name = f"bn {label} [{n},{c},{h},{w}] {kind}"
+    dy, x, mean, rstd, gamma = _bn_inputs(n, c, h, w, dtype, dev,
+                                          n + c + h * w)
+    kb, kg = TB.bn_bwd_reduce_kernel(dy, x, mean, rstd)
+    torch.cuda.synchronize()
+    pb, pg = TB.bn_bwd_reduce_reference(dy, x, mean, rstd)
+    dyf = dy.float()
+    abs_dy = dyf.abs().sum((0, 2, 3))
+    xhat = (x.float() - mean[None, :, None, None]) * rstd[None, :, None, None]
+    abs_dg = (dyf * xhat).abs().sum((0, 2, 3))
+    del dyf, xhat
+    w_red = max(float(((kb - pb).abs() / (BN_SUM_REL * abs_dy + 1e-30)).max()),
+                float(((kg - pg).abs() / (BN_SUM_REL * abs_dg + 1e-30)).max()))
+    ok = w_red <= 1.0 and bool(torch.isfinite(kb).all()
+                               and torch.isfinite(kg).all())
+    err_red = max(_abs(kb, pb), _abs(kg, pg))
+    print(f"kernel {name}: reduce max|d|={err_red:.3e}, worst |d|/limit "
+          f"{w_red:.3f} (limit {BN_SUM_REL} sum |dy|, sum |dy xhat| per "
+          f"channel) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{name}: reduction kernel disagrees with its plain version "
+              f"({w_red} of its limit)")
+
+    # both dx versions from the plain reduction's dbeta, dgamma
+    kdx = TB.bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, pb, pg)
+    torch.cuda.synchronize()
+    pdx = TB.bn_bwd_dx_reference(dy, x, mean, rstd, gamma, pb, pg)
+    check(kdx.dtype == dtype and kdx.shape == dy.shape,
+          f"{name}: dx kernel returned {kdx.dtype} {tuple(kdx.shape)}")
+    check(bool(torch.isfinite(kdx.float()).all()), f"{name}: non-finite dx")
+    top = float(pdx.float().abs().max())
+    err_dx = _abs(kdx, pdx)
+    if kind == "float32":
+        w_dx, lim = err_dx / (BN_DX_REL * top), f"{BN_DX_REL} max|dx|"
+    else:
+        w_dx = _worst(kdx, pdx, 2 * BF16_U * pdx.float().abs()
+                      + BN_BF16_SUM_REL * top)
+        lim = f"2u |dx| + {BN_BF16_SUM_REL} max|dx| per element"
+    ok = w_dx <= 1.0
+    print(f"kernel {name}: dx max|d|={err_dx:.3e} ({err_dx / top:.3e} of "
+          f"max|dx|), worst |d|/limit {w_dx:.3f} (limit {lim}) "
+          f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{name}: dx kernel disagrees with its plain version "
+              f"({w_dx} of its limit)")
+    if label != "probe":
+        return {}
+
+    # times at the probe's shape (dy and x are 411 MB each in bf16, far
+    # past the 50 MB L2: every call streams them from device memory)
+    kern_fn = {"reduce": lambda i: TB.bn_bwd_reduce_kernel(dy, x, mean,
+                                                           rstd),
+               "dx": lambda i: TB.bn_bwd_dx_kernel(dy, x, mean, rstd, gamma,
+                                                   pb, pg)}
+    plain_fn = {"reduce": lambda i: TB.bn_bwd_reduce_reference(dy, x, mean,
+                                                               rstd),
+                "dx": lambda i: TB.bn_bwd_dx_reference(dy, x, mean, rstd,
+                                                       gamma, pb, pg)}
+    ms, dev_ms, plain, plain_dev = {}, {}, {}, {}
+    for kern in BN_KERNELS:
+        ms[kern], dev_ms[kern] = both_ms(kern_fn[kern])
+        plain[kern], plain_dev[kern] = both_ms(plain_fn[kern], iters=10)
+
+    # the library yardstick for the pair: dx, dgamma and dbeta in one call
+    def library(i):
+        torch.ops.aten.native_batch_norm_backward(
+            dy, x, gamma, None, None, mean, rstd, True, BN_EPS,
+            [True, True, True])
+
+    lib_ms, lib_dev = both_ms(library)
+    lx, lg, lb = torch.ops.aten.native_batch_norm_backward(
+        dy, x, gamma, None, None, mean, rstd, True, BN_EPS, [True, True, True])
+    print(f"kernel {name}: native_batch_norm_backward against the plain "
+          f"versions: dx {_abs(lx, pdx) / top:.3e} of max|dx|, dgamma "
+          f"{_abs(lg, pg):.3e}, dbeta {_abs(lb, pb):.3e}")
+    del lx, lg, lb
+    recs = {}
+    for kern in BN_KERNELS:
+        bound_ms, bound_by = _bn_bound(kern, n, c, h * w, dtype)
+        recs[kern] = {
+            "max_abs_err": err_red if kern == "reduce" else err_dx,
+            "ms": ms[kern], "device_ms": dev_ms[kern],
+            "plain_ms": plain[kern], "plain_device_ms": plain_dev[kern],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no PyTorch call computes the reduction alone or dx alone: the
+            # pair's yardstick stands beside each
+            "library_ms": lib_ms, "library_device_ms": lib_dev,
+            "library": "native_batch_norm_backward (dx, dgamma and dbeta)"}
+        print(f"kernel bn {kern} {kind} probe shape: {ms[kern]:.4f} ms "
+              f"(device {dev_ms[kern]:.4f}), plain {plain[kern]:.4f} ms "
+              f"(device {plain_dev[kern]:.4f}), bound {bound_ms:.4f} ms "
+              f"({bound_by}; device time {bound_ms / dev_ms[kern]:.3f} of "
+              f"it) on {card}")
+    print(f"kernel bn {kind} probe shape: the pair {ms['reduce'] + ms['dx']:.4f}"
+          f" ms (device {dev_ms['reduce'] + dev_ms['dx']:.4f}), "
+          f"native_batch_norm_backward {lib_ms:.4f} ms (device "
+          f"{lib_dev:.4f}) on {card}")
+    return recs
+
+
+def phase_bn_kernels(card: str) -> dict:
+    """Every batch-norm case in float32 and bfloat16; returns the
+    probe-shape records by dtype and kernel for the JSON line."""
+    dev = torch.device("cuda")
+    records = {}
+    for label, n, c, h, w in BN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            recs = _bn_case(label, n, c, h, w, dtype, dev, card)
+            if recs:
+                records["float32" if dtype == torch.float32
+                        else "bfloat16"] = recs
+            torch.cuda.empty_cache()
+    return records
+
+
+def _rel(a, b) -> float:
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _rel_l2(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _resnet_parity(card: str) -> None:
+    """One float32 step (TF32 off) of ResNet-50 on RESNET_PARITY_BATCH
+    images on the card and on the CPU from the same weights: the loss
+    within rtol 1e-4 and every running statistic after the step within
+    1e-3 of its max |.|.
+
+    The gradients of this network at its random initialisation are
+    chaotic at float32's resolution: a float32 rounding flips a ReLU here
+    and there (about 100 of them in the forward), and each batch norm
+    spreads a flipped element's gradient over its whole channel (196
+    values a channel at the last stage).  On the CPU alone, multiplying
+    the images by (1 + 1e-7 N(0, 1)) moves 159 of the 161 gradients by
+    more than 1e-3 of their max |.| (up to 0.19), and by 2.3% in L2 each
+    (median).  So each gradient is held, in relative L2, within max(1e-3,
+    RESNET_FLOOR_FACTOR x its floor), and all of them together within
+    RESNET_FLOOR_FACTOR x the floor of all of them, where a floor is the
+    larger spread of two such CPU steps (noise seeds 5 and 6) from the
+    unperturbed one, measured in this run.  Six more CPU draws reached at
+    most 1.32 x a floor of two."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (build_resnet_program,
+                                                      resnet_batch,
+                                                      resnet_params,
+                                                      train_scope)
+
+    loss, main, startup = build_resnet_program(amp=False)
+    params = resnet_params(0)
+    grad_names = [f"{n}@GRAD" for n in params]
+    stat_names = sorted(v.name for v in main.persistable_vars()
+                        if v.name.endswith((".w_mean", ".w_var")))
+    check(len(stat_names) == 2 * RESNET_BN_LAYERS,
+          f"resnet: {len(stat_names)} running statistics")
+    feed = resnet_batch(1, RESNET_PARITY_BATCH, "cpu")
+
+    def step(dev, images):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        check(dev == "cpu" or not torch.backends.cudnn.allow_tf32,
+              "cuDNN TF32 is on: the float32 contract needs it off")
+        scope = train_scope(exe, startup, main, params,
+                            None if dev == "cuda" else "cpu")
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=dict(feed, img=images),
+                      fetch_list=[loss] + grad_names, scope=scope)
+        secs = time.perf_counter() - t0
+        return (float(out[0]), out[1:],
+                [scope.find_var(n).cpu().numpy() for n in stat_names], secs)
+
+    l_gpu, g_gpu, s_gpu, t_gpu = step("cuda", feed["img"])
+    l_cpu, g_cpu, s_cpu, t_cpu = step("cpu", feed["img"])
+    check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"resnet parity step: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    worst_s, worst_s_name = max((_rel(a, b), n) for n, a, b in
+                                zip(stat_names, s_gpu, s_cpu))
+    check(worst_s <= 1e-3, f"resnet parity step: running statistic "
+                           f"{worst_s_name} differs by {worst_s} of its max")
+    for name, a in zip(grad_names, g_gpu):
+        check(np.isfinite(a).all(), f"resnet parity step: non-finite {name}")
+    flat = lambda gs: np.concatenate([g.ravel() for g in gs])  # noqa: E731
+    floor, floor_max, floor_all = np.zeros(len(grad_names)), 0.0, 0.0
+    for seed in (5, 6):
+        noise = torch.from_numpy(np.random.RandomState(seed).standard_normal(
+            tuple(feed["img"].shape)).astype(np.float32))
+        _, g_p, _, _ = step("cpu", feed["img"] * (1 + 1e-7 * noise))
+        floor = np.maximum(floor, [_rel_l2(a, b) for a, b in zip(g_p, g_cpu)])
+        floor_max = max(floor_max, max(_rel(a, b) for a, b in zip(g_p, g_cpu)))
+        floor_all = max(floor_all, _rel_l2(flat(g_p), flat(g_cpu)))
+    ratios = np.array([_rel_l2(a, b) for a, b in zip(g_gpu, g_cpu)]) \
+        / np.maximum(1e-3, RESNET_FLOOR_FACTOR * floor)
+    worst, worst_name = float(ratios.max()), grad_names[int(ratios.argmax())]
+    all_l2 = _rel_l2(flat(g_gpu), flat(g_cpu))
+    worst_max = max(_rel(a, b) for a, b in zip(g_gpu, g_cpu))
+    print(f"resnet train parity (float32, TF32 off, {RESNET_PARITY_BATCH} "
+          f"images): loss {l_gpu:.6f} card, {l_cpu:.6f} CPU (rtol 1e-4); "
+          f"{len(stat_names)} running statistics, worst {worst_s:.3e} of "
+          f"max ({worst_s_name}; limit 1e-3); {len(grad_names)} gradients, "
+          f"relative L2: the CPU's floor under a 1e-7 change of the images "
+          f"median {np.median(floor):.3e} (max |d|/max up to "
+          f"{floor_max:.3e}), card vs CPU worst {worst:.3f} of its limit "
+          f"({worst_name}; max(1e-3, {RESNET_FLOOR_FACTOR} x floor)), "
+          f"max |d|/max up to {worst_max:.3e}; all together {all_l2:.3e}, "
+          f"floor {floor_all:.3e} (limit {RESNET_FLOOR_FACTOR} x); step "
+          f"{t_gpu:.2f} s card (first), {t_cpu:.2f} s CPU")
+    check(worst <= 1.0, f"resnet parity step: {worst_name} differs beyond "
+                        f"its limit ({worst})")
+    check(all_l2 <= RESNET_FLOOR_FACTOR * floor_all,
+          f"resnet parity step: the gradients differ by {all_l2} in L2, "
+          f"limit {RESNET_FLOOR_FACTOR * floor_all}")
+
+
+def _resnet_arm(amp: bool, card: str) -> dict:
+    """TRAIN_STEPS steps of one arm on a fixed batch that stays on the card;
+    the batch-norm counts are this pass's own."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import batch_norm_train
+    from paddle_tpu_torch.tools.train_profile import (
+        RESNET_BATCH, RESNET_FP32_BATCH, TRAIN_STEPS, build_resnet_program,
+        resnet_batch, resnet_params, train_scope)
+
+    arm = "amp" if amp else "float32"
+    n = RESNET_BATCH if amp else RESNET_FP32_BATCH
+    loss, main, startup = build_resnet_program(amp)
+    exe = fluid.Executor()
+    scope = train_scope(exe, startup, main, resnet_params(0))
+    feed = resnet_batch(0, n, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in BN_KERNELS:
+        batch_norm_train.launches[kern] = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        e1.record()
+        torch.cuda.synchronize()
+        losses.append(float(out))
+        step_ms.append(e0.elapsed_time(e1))
+    launches = dict(batch_norm_train.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"resnet {arm}: non-finite losses "
+                                    f"{losses}")
+    want = RESNET_BN_LAYERS * TRAIN_STEPS
+    check(all(launches[k] == want for k in BN_KERNELS),
+          f"resnet {arm}: batch-norm launches {launches}, expected "
+          f"{RESNET_BN_LAYERS} x {TRAIN_STEPS} each")
+    if amp:
+        dtypes = {str(v.dtype) for _, v in scope.items()}
+        check(dtypes <= {"torch.float32", "torch.int32"},
+              f"resnet amp: master state not float32: {dtypes}")
+    med = float(np.median(step_ms[1:]))
+    cut = "" if n == RESNET_BATCH else f" (cut from {RESNET_BATCH} to fit)"
+    print(f"resnet train {arm}: {TRAIN_STEPS} Momentum steps on {n} images"
+          f"{cut}, losses {', '.join(f'{x:.5f}' for x in losses)}; step ms "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)}; median of steps 2-"
+          f"{TRAIN_STEPS} {med:.2f} ms = {n / med * 1e3:.1f} images/s; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
+          f"batch-norm launches {launches} = {RESNET_BN_LAYERS} layers x "
+          f"{TRAIN_STEPS} steps; on {card}")
+    return {"launches": launches, "losses": losses, "median_ms": med,
+            "images_per_s": n / med * 1e3, "batch": n,
+            "peak_memory_bytes": peak}
+
+
+def phase_resnet_train(card: str) -> dict:
+    # float32 convolutions in full float32: cuDNN's TF32 default is on (the
+    # port's Executor turns it off on the card too)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _resnet_parity(card)
+    arms = {}
+    for amp in (True, False):
+        arms["amp" if amp else "float32"] = _resnet_arm(amp, card)
+        torch.cuda.empty_cache()
+    return arms
+
+
 def main() -> int:
     check(torch.cuda.is_available(),
           "torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
@@ -1091,6 +1449,8 @@ def main() -> int:
     paths = phase_serve(card)
     train = phase_train(card)
     lstm_train = phase_lstm_train(card)
+    bn = phase_bn_kernels(card)
+    resnet = phase_resnet_train(card)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
@@ -1127,6 +1487,22 @@ def main() -> int:
             # launches: the lstm training pass's own count (5 steps x 2
             # layers), one call per layer per step, each call T launches
             "launches": lstm_train["launches"][kern], **lstm[kern],
+        })
+    replaces = {"reduce": "benchmark/bn_probe.py:84",
+                "dx": "benchmark/bn_probe.py:126"}
+    for kern in BN_KERNELS:
+        kernels.append({
+            "name": f"bn_bwd_{kern}", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/batch_norm.cu",
+            "replaces": replaces[kern],
+            "case": "bfloat16 (the probe's and amp's), N=256, C=256, 56x56",
+            # launches: the amp arm's own count (bench.py's recipe, 53
+            # batch norms x 5 steps); each arm's in launches_by_path
+            "launches": resnet["amp"]["launches"][kern],
+            **bn["bfloat16"][kern],
+            "launches_by_path": {a: r["launches"][kern]
+                                 for a, r in resnet.items()},
+            "float32": bn["float32"][kern],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,7 +30,7 @@ Entry points run on the CUDA card unless the caller asks for the CPU
 raise.  The package imports torch and numpy, never jax and nothing of
 ``paddle_tpu``.
 """
-from . import backward, clip, initializer, layers, models, optimizer
+from . import amp, backward, clip, initializer, layers, models, optimizer
 from ._device import card_info, resolve_device
 from .core import (CPUPlace, Executor, Place, Program, Scope,
                    Variable, default_main_program, default_startup_program,
@@ -43,7 +43,7 @@ from .serving import (AdmissionShed, ContinuousDecodeEngine,
                       ContinuousScheduler, DecodeRequest, PagedKVPool,
                       SamplingParams)
 
-__all__ = ["AdmissionShed", "CPUPlace", "ContinuousDecodeEngine",
+__all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
            "ContinuousScheduler", "Deadline", "DeadlineExceeded",
            "DecodeRequest", "Executor", "PagedKVPool", "ParamAttr", "Place",
            "Program", "SamplingParams", "Scope", "TransformerLM", "Variable",

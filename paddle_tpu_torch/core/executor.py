@@ -11,7 +11,9 @@ with the trainable parameters as leaf tensors that require grad; the
 ``backward`` op calls ``torch.autograd.grad`` on the (scaled, summed) loss,
 and every op after it runs under ``torch.no_grad()``.  The new state is
 detached.  Updated parameters and moments are new tensors: the scope's old
-tensors are replaced, not written in place.
+tensors are replaced, not written in place.  A program with an amp policy
+(``amp.enable``) has each op's inputs cast by it before the op runs
+(``Op.apply``).
 
 Nothing compiles per shape in torch, so there is no executable cache, no
 persistent compile cache, no ``warm`` and no dispatch sampling.
@@ -213,10 +215,10 @@ class Executor:
         return fn, state
 
     def _build_step(self, program: Program, state_names, fetch_names):
-        for attr in ("amp_policy", "anomaly_guard"):
-            if getattr(program, attr, None) is not None:
-                raise NotImplementedError(
-                    f"program.{attr} is not ported yet (ROADMAP A.6)")
+        if getattr(program, "anomaly_guard", None) is not None:
+            raise NotImplementedError(
+                "program.anomaly_guard is not ported yet (ROADMAP A.6)")
+        amp = getattr(program, "amp_policy", None)
         ops = program.list_ops()
         out_names = state_out_names(program, state_names)
         bops = [i for i, op in enumerate(ops) if op.special == "backward"]
@@ -227,7 +229,7 @@ class Executor:
         seed = program.random_seed or 0
 
         def step(state, feed, step_index: int):
-            ctx = OpContext(seed, step_index, device)
+            ctx = OpContext(seed, step_index, device, amp)
             env: Dict[str, Any] = {}
             env.update(state)
             env.update(feed)

@@ -70,13 +70,15 @@ def _mix64(x: int) -> int:
 
 
 class OpContext:
-    """Runtime context handed to op closures: the step's device and the
-    seed material for ``rng``."""
+    """Runtime context handed to op closures: the step's device, the seed
+    material for ``rng`` and the program's amp policy
+    (``paddle_tpu_torch.amp.Bf16Policy``, or None)."""
 
-    def __init__(self, seed: int = 0, step: int = 0, device=None):
+    def __init__(self, seed: int = 0, step: int = 0, device=None, amp=None):
         self.seed = int(seed)
         self.step = int(step)
         self.device = torch.device(device if device is not None else "cpu")
+        self.amp = amp
 
     def rng(self, tag: int) -> torch.Generator:
         """A generator on the step's device, seeded deterministically from
@@ -111,6 +113,8 @@ class Op:
         ins = {
             slot: [env[n] for n in names] for slot, names in self.inputs.items()
         }
+        if ctx.amp is not None:
+            ins = ctx.amp.cast_ins(self.type, self.attrs, ins)
         outs = self.fn(ins, self.attrs, ctx)
         for slot, names in self.outputs.items():
             vals = outs.get(slot, [])
@@ -179,6 +183,7 @@ class Program:
         self._parameters: Dict[str, Variable] = {}
         self.random_seed: int = 0
         self._rng_tag = 0
+        self.amp_policy = None   # set by amp.enable
 
     @property
     def global_block(self) -> Block:

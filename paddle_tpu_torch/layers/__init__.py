@@ -1,8 +1,9 @@
 """Layer library (PyTorch port of the ``paddle_tpu/layers`` subset the
 training slices use).  Of ``sequence``, the pooling and ``dynamic_lstm``
-are ported; the rest of it (ROADMAP A.7) and the JAX package's other layers
-(control flow, detection, nested, beam, misc) and the Variable operator
-sugar are ROADMAP A.6."""
+are ported; the rest of it (ROADMAP A.7), the image layers beyond
+``conv2d``, ``pool2d`` and ``batch_norm`` (A.11), the JAX package's other
+layers (control flow, detection, nested, beam, misc) and the Variable
+operator sugar (A.12) are not ported yet."""
 from . import io, nn, ops, sequence, tensor
 from .io import data  # noqa: F401
 from .sequence import (dynamic_lstm, sequence_first_step,  # noqa: F401

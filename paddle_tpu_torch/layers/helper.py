@@ -36,6 +36,13 @@ class LayerHelper:
         self.startup_program: Program = default_startup_program()
 
     @property
+    def name(self) -> str:
+        """The layer's ``name`` argument, or a fresh unique name on each read
+        (as in the JAX package, whose batch_norm reads it twice)."""
+        n = self.kwargs.get("name")
+        return n or unique_name.generate(self.layer_type)
+
+    @property
     def block(self) -> Block:
         return self.main_program.global_block
 

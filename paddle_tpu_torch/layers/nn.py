@@ -1,11 +1,16 @@
 """Neural-network layers (PyTorch port of the ``paddle_tpu/layers/nn.py``
-subset the training slices use): fc, embedding, layer_norm,
-softmax_with_cross_entropy, cross_entropy and accuracy.
+subset the training slices use): fc, embedding, conv2d, pool2d,
+batch_norm, layer_norm, softmax_with_cross_entropy, cross_entropy and
+accuracy.
 
-Numerics follow the JAX package: layer_norm takes float32 statistics with
-``var = max(E[x^2] - mu^2, 0)`` (not the serving layer norm's population
-variance); gathers convert int32 ids to int64 at the gather, since feeds
-keep their declared int32.
+Numerics follow the JAX package: layer_norm and batch_norm take float32
+statistics with ``var = max(E[x^2] - mu^2, 0)`` (not the serving layer
+norm's population variance, and not ``torch.nn.BatchNorm2d``'s unbiased
+running variance or its reversed momentum); gathers convert int32 ids to
+int64 at the gather, since feeds keep their declared int32.  Convolutions
+and pooling are NCHW, as in the JAX package, and run as the plain torch
+ops (cuDNN on the card): the JAX package leaves them to XLA, outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -15,9 +20,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.program import Variable
+from ..core.program import Op, Variable
 from ..initializer import Constant, Normal
+from ..ops.batch_norm import batch_norm_train
 from .helper import LayerHelper
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
 
 # --------------------------------------------------------------------------- fc
 
@@ -101,6 +111,214 @@ def embedding(
     return helper.append_op(fn, {"Ids": [input], "W": [table]},
                             attrs={"padding_idx": padding_idx,
                                    "is_sparse": bool(is_sparse)})
+
+
+# --------------------------------------------------------------------------- conv
+
+
+def conv2d(
+    input: Variable,
+    num_filters: int,
+    filter_size,
+    stride=1,
+    padding=0,
+    dilation=1,
+    groups: int = 1,
+    param_attr=None,
+    bias_attr=None,
+    act: Optional[str] = None,
+    use_cudnn: bool = True,
+    name: Optional[str] = None,
+):
+    """2-D convolution, NCHW input and OIHW filter, with symmetric padding,
+    dilation and groups.  The filter defaults to Normal(0, sqrt(2 /
+    fan_in)); the bias, unless ``bias_attr`` is False, is an
+    ``elementwise_add`` op of its own, as in the JAX package.
+    ``use_cudnn`` is accepted for API parity."""
+    helper = LayerHelper("conv2d", name=name)
+    kh, kw = _pair(filter_size)
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    in_channels = input.shape[1]
+    filt_shape = [num_filters, in_channels // groups, kh, kw]
+    fan_in = (in_channels // groups) * kh * kw
+    std = (2.0 / fan_in) ** 0.5
+    w = helper.create_parameter(param_attr, filt_shape, input.dtype,
+                                default_initializer=Normal(0.0, std))
+
+    def fn(ctx, a, wv, strides, padding, dilation, groups):
+        return F.conv2d(a, wv, None, strides, padding, dilation, groups)
+
+    out = helper.append_op(
+        fn, {"Input": [input], "Filter": [w]},
+        attrs={"strides": (sh, sw), "padding": (ph, pw),
+               "dilation": (dh, dw), "groups": groups},
+    )
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], out.dtype,
+                                    is_bias=True)
+        out = helper.append_op(
+            lambda ctx, a, bv: a + bv.reshape(1, -1, 1, 1),
+            {"X": [out], "B": [b]}, op_type="elementwise_add")
+    return helper.append_activation(out, act)
+
+
+# --------------------------------------------------------------------------- pooling
+
+
+def _pool2d(a, pool_type, ksize, strides, padding, exclusive):
+    """Max or average pooling of NCHW ``a`` as ``jax.lax.reduce_window``
+    computes it: max pads with -inf; average sums with zero padding and
+    divides by the window size, or, when ``exclusive`` and there is
+    padding, by the count of real cells.  torch's pools take padding of at
+    most half the window; past that the padding is applied first."""
+    (kh, kw), (ph, pw) = ksize, padding
+    by_count = bool(exclusive and (ph or pw))
+    if 2 * ph <= kh and 2 * pw <= kw:
+        if pool_type == "max":
+            return F.max_pool2d(a, ksize, strides, padding)
+        return F.avg_pool2d(a, ksize, strides, padding,
+                            count_include_pad=not by_count)
+    pads = (pw, pw, ph, ph)
+    if pool_type == "max":
+        return F.max_pool2d(F.pad(a, pads, value=float("-inf")), ksize,
+                            strides)
+    s = F.avg_pool2d(F.pad(a, pads), ksize, strides)
+    if not by_count:
+        return s
+    ones = F.pad(torch.ones_like(a[:1, :1]), pads)
+    return s / F.avg_pool2d(ones, ksize, strides)
+
+
+def pool2d(
+    input: Variable,
+    pool_size,
+    pool_type: str = "max",
+    pool_stride=1,
+    pool_padding=0,
+    global_pooling: bool = False,
+    ceil_mode: bool = False,
+    exclusive: bool = True,
+    name: Optional[str] = None,
+):
+    """Max pooling (``pool_type="max"``) or average pooling (any other
+    type), NCHW.  ``global_pooling`` pools each whole plane.  ``ceil_mode``
+    is accepted and ignored, as the JAX package ignores it (output sizes
+    round down)."""
+    helper = LayerHelper("pool2d", name=name)
+    kh, kw = _pair(pool_size)
+    sh, sw = _pair(pool_stride)
+    ph, pw = _pair(pool_padding)
+
+    def fn(ctx, a, pool_type, ksize, strides, padding, global_pooling,
+           exclusive):
+        if global_pooling:
+            ksize = (a.shape[2], a.shape[3])
+            strides = ksize
+            padding = (0, 0)
+        return _pool2d(a, pool_type, tuple(ksize), tuple(strides),
+                       tuple(padding), exclusive)
+
+    return helper.append_op(
+        fn, {"X": [input]},
+        attrs={"pool_type": pool_type, "ksize": (kh, kw),
+               "strides": (sh, sw), "padding": (ph, pw),
+               "global_pooling": global_pooling, "exclusive": exclusive},
+    )
+
+
+# --------------------------------------------------------------------------- batch_norm
+
+
+def batch_norm(
+    input: Variable,
+    act: Optional[str] = None,
+    is_test: bool = False,
+    momentum: float = 0.9,
+    epsilon: float = 1e-5,
+    param_attr=None,
+    bias_attr=None,
+    data_layout: str = "NCHW",
+    moving_mean_name: Optional[str] = None,
+    moving_variance_name: Optional[str] = None,
+    name: Optional[str] = None,
+):
+    """Batch normalisation over every dim but the channel's (dim 1 for
+    NCHW, the last for NHWC).
+
+    The running mean and variance are persistable non-trainable variables
+    (``<name>.w_mean`` / ``<name>.w_var``; zeros and ones from the startup
+    program), and the op's second and third outputs are rewired onto them,
+    so each step returns them as new state: ``momentum * old + (1 -
+    momentum) * batch``, without gradient.  In training the op runs
+    ``ops.batch_norm.batch_norm_train`` (float32 statistics, the output in
+    the input's dtype, the backward on the CUDA kernels on the card); with
+    ``is_test`` it normalises with the running statistics.  Under amp the
+    op is PASSTHROUGH: a bfloat16 activation stays bfloat16 while the
+    parameters and statistics stay float32."""
+    helper = LayerHelper("batch_norm", name=name)
+    ch_axis = 1 if data_layout == "NCHW" else -1
+    channels = input.shape[ch_axis]
+    scale = helper.create_parameter(param_attr, [channels], input.dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [channels], input.dtype,
+                                   is_bias=True)
+
+    block = helper.block
+    # two reads of helper.name: two fresh names without a name argument,
+    # as the JAX package gives them
+    mean_name = moving_mean_name or (helper.name + ".w_mean")
+    var_name = moving_variance_name or (helper.name + ".w_var")
+    mean_v = block.create_var(mean_name, [channels], input.dtype,
+                              persistable=True)
+    var_v = block.create_var(var_name, [channels], input.dtype,
+                             persistable=True)
+    sblock = helper.startup_program.global_block
+    if not sblock.has_var(mean_name):
+        sblock.create_var(mean_name, [channels], input.dtype, persistable=True)
+        sblock.create_var(var_name, [channels], input.dtype, persistable=True)
+        cshape, cdt = (int(channels),), input.dtype
+
+        def init_fn(ins, attrs, ctx, _fill):
+            return {"Out": [torch.full(cshape, _fill, dtype=cdt,
+                                       device=ctx.device)]}
+
+        sblock.append_op(Op("init", {}, {"Out": [mean_name]}, {},
+                            lambda i, a, c: init_fn(i, a, c, 0.0)))
+        sblock.append_op(Op("init", {}, {"Out": [var_name]}, {},
+                            lambda i, a, c: init_fn(i, a, c, 1.0)))
+
+    def fn(ctx, a, sc, bs, mu, var, is_test, momentum, epsilon, ch_axis):
+        axis = ch_axis % a.dim()
+        if is_test:
+            bshape = [1] * a.dim()
+            bshape[axis] = -1
+            scale_eff = sc.to(torch.float32) * torch.rsqrt(
+                var.to(torch.float32) + epsilon)
+            bias_eff = bs.to(torch.float32) - mu.to(torch.float32) * scale_eff
+            out = (a * scale_eff.to(a.dtype).reshape(bshape)
+                   + bias_eff.to(a.dtype).reshape(bshape))
+            return out, mu, var
+        out, bmean, bvar = batch_norm_train(
+            a if axis == 1 else a.movedim(axis, 1), sc, bs, epsilon)
+        new_mu = momentum * mu + (1 - momentum) * bmean.to(mu.dtype)
+        new_var = momentum * var + (1 - momentum) * bvar.to(var.dtype)
+        return (out if axis == 1 else out.movedim(1, axis), new_mu.detach(),
+                new_var.detach())
+
+    out, _, _ = helper.append_op(
+        fn,
+        {"X": [input], "Scale": [scale], "Bias": [bias], "Mean": [mean_v],
+         "Variance": [var_v]},
+        attrs={"is_test": is_test, "momentum": momentum, "epsilon": epsilon,
+               "ch_axis": ch_axis},
+        n_outputs=3,
+    )
+    # rewire the stat outputs onto the persistable names so the scope
+    # advances
+    helper.block.ops[-1].outputs["Out"] = [out.name, mean_name, var_name]
+    return helper.append_activation(out, act)
 
 
 # --------------------------------------------------------------------------- layer_norm
@@ -215,5 +433,5 @@ def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
                             attrs={"k": k})
 
 
-__all__ = ["accuracy", "cross_entropy", "embedding", "fc", "layer_norm",
-           "softmax_with_cross_entropy"]
+__all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy", "embedding",
+           "fc", "layer_norm", "pool2d", "softmax_with_cross_entropy"]

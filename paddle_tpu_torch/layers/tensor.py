@@ -1,6 +1,6 @@
 """Dense-math layers (PyTorch port of the ``paddle_tpu/layers/tensor.py``
-subset the training slice uses): ``elementwise_add`` with Fluid's ``axis``
-mid-broadcast, ``mean`` and ``sums``."""
+subset the training slices use): ``elementwise_add`` with Fluid's ``axis``
+mid-broadcast, ``mean``, ``sums`` and ``reshape``."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -65,4 +65,15 @@ def sums(inputs: Sequence[Variable], name=None):
     return helper.append_op(fn, {"X": list(inputs)}, op_type="sum")
 
 
-__all__ = ["elementwise_add", "mean", "sums"]
+def reshape(x: Variable, shape: Sequence[int], name=None, **_ignored):
+    """Reshape to ``shape``; as in the JAX package, EVERY 0 in ``shape``
+    stands for the input's first (batch) dim, not for the dim at its own
+    position, and -1 is inferred."""
+    helper = LayerHelper("reshape", name=name)
+    return helper.append_op(
+        lambda ctx, a, shape: a.reshape([a.shape[0] if d == 0 else d
+                                         for d in shape]),
+        {"X": [x]}, attrs={"shape": tuple(shape)})
+
+
+__all__ = ["elementwise_add", "mean", "reshape", "sums"]

@@ -1,7 +1,7 @@
 """Optimizers as in-program update ops (PyTorch port of the
-``paddle_tpu/optimizer.py`` subset the training slice uses: the base class
-with ``minimize`` on the ``accumulate_steps == 1`` path, ``SGD`` and
-``Adam``).
+``paddle_tpu/optimizer.py`` subset the training slices use: the base class
+with ``minimize`` on the ``accumulate_steps == 1`` path, ``SGD``,
+``Momentum`` and ``Adam``).
 
 The optimizer is part of the program: after the backward op come the
 ``grad_clip`` op (when a clipper is given), one update op per parameter and
@@ -160,6 +160,27 @@ class SGD(Optimizer):
 
     def _update(self, p, g, a, lr, t):
         return p - lr * g, a
+
+
+class Momentum(Optimizer):
+    """ref: paddle/operators/momentum_op.cc.  The JAX package's rule, one
+    ``velocity`` accumulator: v = m * v + g; p -= lr * v, or with Nesterov
+    p -= lr * (g + m * v) (``torch.optim.SGD``'s dampening and Nesterov
+    forms are not used)."""
+
+    _accum_defaults = {"velocity": 0.0}
+
+    def __init__(self, learning_rate, momentum: float = 0.9,
+                 use_nesterov: bool = False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _update(self, p, g, a, lr, t):
+        v = self._momentum * a["velocity"] + g
+        if self._nesterov:
+            return p - lr * (g + self._momentum * v), {"velocity": v}
+        return p - lr * v, {"velocity": v}
 
 
 class Adam(Optimizer):

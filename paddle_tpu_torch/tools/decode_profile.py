@@ -39,9 +39,11 @@ def _kernel_class(name: str) -> str:
 
 
 def _kernel_us(evt) -> float:
-    """Device microseconds of a kernel row; 0 for CPU-op rows, whose device
-    time repeats that of the kernels they launched."""
-    if "CUDA" not in str(getattr(evt, "device_type", "")):
+    """Device microseconds of a kernel row; 0 for CPU-op rows and for the
+    device rows of ``record_function`` ranges, whose device time repeats
+    that of the kernels they enclose."""
+    if "CUDA" not in str(getattr(evt, "device_type", "")) \
+            or getattr(evt, "is_user_annotation", False):
         return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):

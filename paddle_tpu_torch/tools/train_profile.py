@@ -1,6 +1,6 @@
 """Where the time of one training step goes, on the CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm] [--out F]
+    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|resnet50] [--out F]
 
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
@@ -10,19 +10,30 @@ the LSTM text classifier at the width of ``benchmark/text_lstm.py`` (vocab
 10000, emb 128, 2 x LSTM-512, 2 classes, seq_len 100, float32, weights
 ``init_text_lstm_params(0)``) with Adam(1e-3), on a fixed batch of 128
 sequences with lengths drawn from [50, 100] (that file's
-``synthetic_feed``).  Either way: two warm-up steps, then, 3 times over, 5
-``Executor.run`` steps on the host clock and 5 more under
+``synthetic_feed``).  ``--model resnet50`` builds ResNet-50 as ``bench.py``
+trains it (``models.resnet.build``, 1000 classes, Momentum(0.1, 0.9),
+weights ``init_resnet_params(0)``) on a fixed batch of 224x224 images that
+stays on the card, in two arms: amp (bf16 compute, bs=256) and float32
+(TF32 off, bs=``RESNET_FP32_BATCH``).  Either way: two warm-up steps, then,
+3 times over, 5 ``Executor.run`` steps on the host clock and 5 more under
 ``torch.profiler``.  Prints per step: host wall ms (unprofiled windows)
 and device busy ms (the sum of kernel times, profiled windows), each as
 the median with the least and the most of the repeats, the device idle
-share of the medians, device ms by kernel class (flash attention / lstm /
-matmul / other) and the top kernels, both from the median-busy window.
-``--out`` also writes the numbers as JSON.
+share of the medians, device ms by kernel class and the top kernels, both
+from the median-busy window.  The classes are flash attention / lstm /
+matmul / other by kernel name; for ResNet they are cuDNN convolution
+(forward, data gradient, weight gradient, other backward), the batch-norm
+backward kernels, the batch-norm forward's plain ops, the rest of the
+batch-norm backward, pooling, the optimizer and other, by the op or
+autograd node that launched each kernel (the profiled windows wrap each op
+in a ``record_function`` range; the unprofiled ones run the program as
+it is).  ``--out`` also writes the numbers as JSON.
 
 The programs, weights and batches are the ones ``chip_smoke.py``'s train
 phases run (:func:`build_train_program`, :func:`build_text_lstm_program`,
-:func:`train_scope`, :func:`train_batch`, :func:`text_lstm_params`,
-:func:`text_lstm_batch`), so the profiled step is the smoke-checked step.
+:func:`build_resnet_program`, :func:`train_scope`, :func:`train_batch`,
+:func:`text_lstm_params`, :func:`text_lstm_batch`, :func:`resnet_params`,
+:func:`resnet_batch`), so the profiled step is the smoke-checked step.
 """
 from __future__ import annotations
 
@@ -44,6 +55,11 @@ TEXT_LSTM_CFG = dict(vocab_size=10000, emb_dim=128, hidden=512, num_layers=2,
                      class_dim=2)
 TEXT_LSTM_SEQ = 100
 TEXT_LSTM_BATCH = 128
+# bench.py's ResNet-50 recipe: bs=256, Momentum(0.1, 0.9), amp by default
+RESNET_CFG = dict(depth=50, class_dim=1000)
+RESNET_IMAGE = (3, 224, 224)
+RESNET_BATCH = 256
+RESNET_FP32_BATCH = 256
 
 
 def build_train_program():
@@ -78,6 +94,41 @@ def build_text_lstm_program():
                                               **TEXT_LSTM_CFG)
     fluid.optimizer.Adam(1e-3).minimize(loss)
     return loss, fluid.default_main_program(), fluid.default_startup_program()
+
+
+def build_resnet_program(amp: bool):
+    """``models.resnet.build`` at RESNET_CFG (ResNet-50, 1000 classes) over
+    NCHW float32 images with Momentum(0.1, 0.9), then ``amp.enable()`` when
+    ``amp``, as ``bench.py`` builds it, in fresh default programs; returns
+    (loss, main, startup)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    img = fluid.layers.data("img", list(RESNET_IMAGE))
+    label = fluid.layers.data("label", [1], dtype="int32")
+    loss, _, _ = fluid.models.resnet.build(img, label, **RESNET_CFG)
+    fluid.optimizer.Momentum(0.1, momentum=0.9).minimize(loss)
+    if amp:
+        fluid.amp.enable()
+    return loss, fluid.default_main_program(), fluid.default_startup_program()
+
+
+def resnet_params(seed: int = 0) -> dict:
+    """ResNet-50's parameters as numpy arrays, from ``seed``."""
+    from ..models import init_resnet_params
+
+    return init_resnet_params(seed, **RESNET_CFG)
+
+
+def resnet_batch(seed: int, n: int, device) -> dict:
+    """``n`` images N(0, 1) and labels in [0, class_dim) from
+    ``RandomState(seed)``, as tensors on ``device``: a synthetic batch that
+    stays there, as ``bench.py``'s does."""
+    rng = np.random.RandomState(seed)
+    img = rng.standard_normal((n,) + RESNET_IMAGE).astype(np.float32)
+    label = rng.randint(0, RESNET_CFG["class_dim"], (n, 1)).astype(np.int32)
+    return {"img": torch.from_numpy(img).to(device),
+            "label": torch.from_numpy(label).to(device)}
 
 
 def text_lstm_params(seed: int = 0) -> dict:
@@ -128,7 +179,80 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _recipe(model: str):
+# ResNet kernel classes: by the op (record_function range "op::<type>")
+# or autograd node that launched each kernel, then by the kernel's name
+RESNET_CLASSES = ("conv_fwd", "conv_dgrad", "conv_wgrad", "conv_bwd_other",
+                  "bn_bwd_kernels", "bn_fwd_plain", "bn_bwd_other", "pool",
+                  "optimizer", "other")
+_OP_CLASS = {"conv2d": "conv_fwd", "batch_norm": "bn_fwd_plain",
+             "pool2d": "pool", "momentum": "optimizer",
+             "increment": "optimizer"}
+_NODE = "autograd::engine::evaluate_function: "
+
+
+def _resnet_class(kernel: str, ancestors) -> str:
+    """The class of a kernel launched under ``ancestors`` (the names of the
+    enclosing host ranges, innermost first)."""
+    low = kernel.lower()
+    if "bn_bwd_" in low:
+        return "bn_bwd_kernels"
+    for a in ancestors:
+        if a.startswith("op::"):
+            return _OP_CLASS.get(a[4:], "other")
+        if a.startswith(_NODE):
+            node = a[len(_NODE):]
+            if "Convolution" in node:
+                return ("conv_wgrad" if "wgrad" in low else
+                        "conv_dgrad" if "dgrad" in low else "conv_bwd_other")
+            if "BatchNormTrain" in node:
+                return "bn_bwd_other"
+            if "Pool" in node:
+                return "pool"
+            return "other"
+    return "other"
+
+
+def _classes_by_origin(prof, classes, classify) -> dict:
+    """Device microseconds by class: each host event's kernels, classified
+    by ``classify(kernel name, enclosing host range names)``."""
+    out = {k: 0.0 for k in classes}
+    for evt in prof.events():
+        kernels = getattr(evt, "kernels", None) or []
+        if not kernels:
+            continue
+        names, parent = [evt.name], evt.cpu_parent
+        while parent is not None:
+            names.append(parent.name)
+            parent = parent.cpu_parent
+        for k in kernels:
+            out[classify(k.name, names)] += float(k.duration)
+    return out
+
+
+class _OpRanges:
+    """While entered, each op of ``program`` runs inside a
+    ``record_function("op::<type>")`` range, so a profile can tell which op
+    launched a kernel."""
+
+    def __init__(self, program):
+        self.ops = program.list_ops()
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        for op in self.ops:
+            def apply(env, ctx, _op=op, _apply=op.apply):
+                with record_function(f"op::{_op.type}"):
+                    _apply(env, ctx)
+            op.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        for op in self.ops:
+            del op.apply          # back to the class's method
+
+
+def _recipe(model: str, amp: bool = True):
     """(loss, main, startup, weights, feed, items per step, item unit)."""
     import paddle_tpu_torch as fluid
 
@@ -138,10 +262,16 @@ def _recipe(model: str):
     if model == "text_lstm":
         return (*build_text_lstm_program(), text_lstm_params(0),
                 text_lstm_batch(0), TEXT_LSTM_BATCH, "sequences")
-    raise ValueError(f"unknown model {model!r}: lm | text_lstm")
+    if model == "resnet50":
+        n = RESNET_BATCH if amp else RESNET_FP32_BATCH
+        return (*build_resnet_program(amp), resnet_params(0),
+                resnet_batch(0, n, "cuda"), n, "images")
+    raise ValueError(f"unknown model {model!r}: lm | text_lstm | resnet50")
 
 
-def profile(model: str = "lm") -> dict:
+def profile(model: str = "lm", amp: bool = True) -> dict:
+    """The profile of ``model``'s training step (for ``resnet50`` the amp
+    arm, or with ``amp=False`` the float32 arm)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -150,9 +280,10 @@ def profile(model: str = "lm") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("train_profile needs a CUDA card")
     steps, repeats = TRAIN_STEPS, REPEATS
-    loss, main, startup, weights, feed, items, unit = _recipe(model)
-    exe = fluid.Executor()
+    exe = fluid.Executor()            # TF32 off for float32 matmuls and convs
+    loss, main, startup, weights, feed, items, unit = _recipe(model, amp)
     scope = train_scope(exe, startup, main, weights)
+    resnet = model == "resnet50"
 
     def run(n):
         for _ in range(n):
@@ -168,7 +299,11 @@ def profile(model: str = "lm") -> dict:
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
-            run(steps)
+            if resnet:
+                with _OpRanges(main):
+                    run(steps)
+            else:
+                run(steps)
             torch.cuda.synchronize()
         by_class = {"flash_attention": 0.0, "lstm": 0.0, "matmul": 0.0,
                     "other": 0.0}
@@ -180,14 +315,21 @@ def profile(model: str = "lm") -> dict:
             kernels.append((us, evt.key, evt.count))
             by_class[_kernel_class(evt.key)] += us
         kernels.sort(reverse=True)
-        windows.append((sum(by_class.values()) / 1e3 / steps, by_class,
-                        kernels))
+        busy_us = sum(by_class.values())
+        if resnet:
+            by_class = _classes_by_origin(prof, RESNET_CLASSES,
+                                          _resnet_class)
+            # kernels the event tree did not reach count as other
+            by_class["other"] += busy_us - sum(by_class.values())
+        windows.append((busy_us / 1e3 / steps, by_class, kernels))
     busy = [w[0] for w in windows]
     wall_ms, busy_ms = float(np.median(walls)), float(np.median(busy))
     _, by_class, kernels = sorted(windows, key=lambda w: w[0])[
         (repeats - 1) // 2]
     return {
         "card": fluid.card_info(0), "model": model, "steps": steps,
+        "arm": ("amp" if amp else "float32") if resnet else "float32",
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "repeats": repeats, "unit": unit, f"{unit}_per_step": items,
         "wall_ms_per_step": _spread(walls),
         "device_busy_ms_per_step": _spread(busy),
@@ -203,29 +345,39 @@ def profile(model: str = "lm") -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="lm", choices=("lm", "text_lstm"),
-                    help="the training step to profile")
+    ap.add_argument("--model", default="lm",
+                    choices=("lm", "text_lstm", "resnet50"),
+                    help="the training step to profile (resnet50: both "
+                         "arms, amp then float32)")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args(argv)
-    res = profile(args.model)
-    wall, busy = res["wall_ms_per_step"], res["device_busy_ms_per_step"]
-    unit = res["unit"]
-    print(f"{res['model']} train step on {res['card']}: "
-          f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats of "
-          f"{res['steps']} steps; wall median {wall['median']:.3f} ms/step "
-          f"(min {wall['min']:.3f}, max {wall['max']:.3f}) = "
-          f"{res[unit + '_per_s']:.0f} {unit}/s, device "
-          f"busy median {busy['median']:.3f} ms/step (min {busy['min']:.3f}, "
-          f"max {busy['max']:.3f}), idle share "
-          f"{res['device_idle_share']:.3f}")
-    for k, v in res["device_ms_per_step_by_class"].items():
-        print(f"  {k:16s} {v:.4f} ms/step")
-    for k in res["top_kernels"]:
-        print(f"  {k['ms_per_step']:.4f} ms/step x{k['calls_per_step']:7.1f} "
-              f"{k['name']}")
+    arms = (True, False) if args.model == "resnet50" else (True,)
+    results = []
+    for amp in arms:
+        torch.cuda.reset_peak_memory_stats()
+        res = profile(args.model, amp)
+        results.append(res)
+        wall, busy = res["wall_ms_per_step"], res["device_busy_ms_per_step"]
+        unit = res["unit"]
+        arm = f" ({res['arm']})" if args.model == "resnet50" else ""
+        print(f"{res['model']}{arm} train step on {res['card']}: "
+              f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "
+              f"of {res['steps']} steps; wall median {wall['median']:.3f} "
+              f"ms/step (min {wall['min']:.3f}, max {wall['max']:.3f}) = "
+              f"{res[unit + '_per_s']:.1f} {unit}/s, device busy median "
+              f"{busy['median']:.3f} ms/step (min {busy['min']:.3f}, max "
+              f"{busy['max']:.3f}), idle share "
+              f"{res['device_idle_share']:.3f}, peak memory "
+              f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+        for k, v in res["device_ms_per_step_by_class"].items():
+            print(f"  {k:16s} {v:.4f} ms/step")
+        for k in res["top_kernels"]:
+            print(f"  {k['ms_per_step']:.4f} ms/step "
+                  f"x{k['calls_per_step']:7.1f} {k['name']}")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(res, f, indent=1)
+            json.dump(results if len(results) > 1 else results[0], f,
+                      indent=1)
     return 0
 
 

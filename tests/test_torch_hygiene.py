@@ -25,6 +25,8 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.tools.train_profile\n"
         "import paddle_tpu_torch.ops.lstm, paddle_tpu_torch.layers.sequence\n"
         "import paddle_tpu_torch.models.text_lstm\n"
+        "import paddle_tpu_torch.models.resnet, paddle_tpu_torch.amp\n"
+        "import paddle_tpu_torch.ops.batch_norm\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -94,7 +96,7 @@ def test_kernel_library_is_keyed_by_source():
     under the checkout's build/ directory (which .gitignore lists)."""
     from paddle_tpu_torch.ops import _build
 
-    for stem in ("paged_attention", "flash_attention", "lstm"):
+    for stem in ("paged_attention", "flash_attention", "lstm", "batch_norm"):
         target = _build._target(_build.CSRC / f"{stem}.cu")
         assert target.parent == REPO / "build" / "paddle_tpu_torch"
         assert re.fullmatch(stem + r"-[0-9a-f]{16}\.so", target.name)
