@@ -64,9 +64,32 @@ Phases (any failure exits non-zero, before the final line):
                amp at bs=256 and float32 at bs=256, on a batch that stays on
                the card, with the batch-norm launch counts set to 0 before
                and read after (53 layers x 5 steps each), losses finite and
-               printed, images/s from the median of steps 2-5, peak memory.
-The line before the card line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+               printed, images/s from the median of steps 2-5, peak memory;
+  9. conv kernels - the 3x3 implicit-GEMM kernels (plain and fused with the
+               folded batch norm and ReLU) against their plain versions in
+               float32 and bfloat16 at ResNet-50's stride-1 shapes
+               ([256,56,56,64]x64 and [256,28,28,128]x128, which are
+               benchmark/conv_probe.py's, [256,14,14,256]x256,
+               [256,7,7,512]x512) and two ragged ones ([3,13,9,3]x40 on the
+               element-wise path, [3,13,9,16]x24 on the 16-byte one); timed at
+               the probe's two shapes beside the plain versions and cuDNN
+               (F.conv2d, then the batch norm's scale and shift and the ReLU
+               as separate passes, on the same NHWC tensor as a channels_last
+               view and on an NCHW copy);
+ 10. resnet infer - the is_test program benchmark/resnet.py's infer configs
+               prune to (build, 1000 classes, 224x224, weights and running
+               statistics from seed 0), through Program.prune and
+               Executor.run with its 3x3 stride-1 convolutions routed onto
+               the kernels: ResNet-50 on 4 images on the card and on the CPU
+               from the same arrays, in float32 (TF32 off) and under amp,
+               logits compared; then 5 steps in each arm, ResNet-50 amp and
+               float32 and ResNet-18 amp at bs=256 on images that stay on
+               the card, with the conv launch counts set to 0 before and
+               read after (fused 13 x 5 on ResNet-50; fused 5 x 5 and plain
+               8 x 5 on ResNet-18), images/s from the median of steps 2-5,
+               peak memory.
+Each phase prints its seconds.  The line before the card line is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -94,7 +117,7 @@ TOLERANCE = {  # (atol, rtol); float32 sums run in another order
     "int8": (2e-5, 1e-5),
 }
 KERNEL_SOURCES = ("paged_attention.cu", "flash_attention.cu", "lstm.cu",
-                  "batch_norm.cu")
+                  "batch_norm.cu", "conv.cu")
 # flash kernels against their plain versions.  float32: the JAX package's
 # own tolerances for its Pallas kernels (tests/test_pallas_ops.py:34,215):
 # o and lse atol 2e-5, gradients 2e-4 of max |grad|, over the tensor.
@@ -147,6 +170,29 @@ RESNET_BN_LAYERS = 53
 # the ResNet-50 parity step's gradients against the CPU's own float32
 # floor (see _resnet_parity)
 RESNET_FLOOR_FACTOR = 3
+# conv kernels against their plain versions: float32 within CONV_F32_REL
+# of max |out| (float32 sums in another order); bfloat16 element by element
+# within 2u |out| + CONV_BF16_SUM_REL max |out| (each side rounds once to
+# bfloat16 from float32 sums that differ in their last bits)
+CONV_F32_REL = 2e-5
+CONV_BF16_SUM_REL = 1e-3
+CONV_KERNELS = ("igemm", "fused")
+# (label, N, H, W, C, O); "c56" and "c28" are benchmark/conv_probe.py's
+# shapes, timed; the ragged ones leave a part-filled last pixel tile and
+# output-channel tile, "ragged" on the element-wise path (C = 3),
+# "ragged16" on the 16-byte one
+CONV_CASES = [("c56", 256, 56, 56, 64, 64), ("c28", 256, 28, 28, 128, 128),
+              ("c14", 256, 14, 14, 256, 256), ("c7", 256, 7, 7, 512, 512),
+              ("ragged", 3, 13, 9, 3, 40), ("ragged16", 3, 13, 9, 16, 24)]
+# ResNet inference: card against CPU on INFER_PARITY_BATCH images, float32
+# logits within INFER_F32_REL of max |.| (float32 sums in another order
+# through 50 layers), bfloat16 logits element by element within 2u |.| +
+# CONV_BF16_SUM_REL max |.|; the timed arms' launches a step by depth
+INFER_PARITY_BATCH = 4
+INFER_F32_REL = 1e-4
+INFER_LAUNCHES = {50: {"igemm": 0, "fused": 13}, 18: {"igemm": 8, "fused": 5}}
+INFER_ARMS = (("resnet50-infer", 50, True), ("resnet50-infer", 50, False),
+              ("resnet18-infer", 18, True))
 
 
 def fail(msg: str) -> None:
@@ -1438,19 +1484,333 @@ def phase_resnet_train(card: str) -> dict:
     return arms
 
 
+def _conv_bound(kernel: str, n, h, w, c, o, dtype) -> tuple:
+    """(bound_ms, bound_by) for one call: x, w (and a, b) read once and the
+    output written once; operations are the 2 N H W 9 C O of the nine taps
+    at the dtype's peak (bfloat16 on the tensor cores, float32 on the CUDA
+    cores), plus, fused, 3 float32 operations an output (scale, shift,
+    ReLU)."""
+    it = torch.empty((), dtype=dtype).element_size()
+    fused = kernel == "fused"
+    nbytes = (n * h * w * c + 9 * c * o + n * h * w * o) * it \
+        + (2 * o * 4 if fused else 0)
+    t_ops = 2.0 * n * h * w * 9 * c * o / PEAK_OPS_PER_S[dtype] \
+        + (3.0 * n * h * w * o / PEAK_OPS_PER_S[torch.float32] if fused
+           else 0.0)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
+    """Both kernels against their plain versions on the same inputs; at the
+    probe's shapes also the times.  Returns the records by kernel."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import conv as TC
+
+    kind = "float32" if dtype == torch.float32 else "bfloat16"
+    name = f"conv {label} [{n},{h},{w},{c}]x{o} {kind}"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + h * w + c + o)
+    x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dtype)
+    wt = (torch.randn((3, 3, c, o), generator=gen, device=dev)
+          / (9 * c) ** 0.5).to(dtype)
+    a = torch.rand(o, generator=gen, device=dev) + 0.5
+    b = torch.randn(o, generator=gen, device=dev) * 0.3
+    kern = {"igemm": lambda i: TC.igemm_conv_kernel(x, wt),
+            "fused": lambda i: TC.igemm_conv_fused_kernel(x, wt, a, b)}
+    plain = {"igemm": lambda i: TC.igemm_conv_reference(x, wt),
+             "fused": lambda i: TC.igemm_conv_fused_reference(x, wt, a, b)}
+    errs = {}
+    for k in CONV_KERNELS:
+        got = kern[k](0)
+        torch.cuda.synchronize()
+        want = plain[k](0)
+        check(got.dtype == dtype and got.shape == (n, h, w, o),
+              f"{name} {k}: kernel returned {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{name} {k}: non-finite kernel output")
+        top = float(want.float().abs().max())
+        errs[k] = _abs(got, want)
+        if kind == "float32":
+            worst = errs[k] / (CONV_F32_REL * top)
+            lim = f"{CONV_F32_REL} max|out|"
+        else:
+            worst = _worst(got, want, 2 * BF16_U * want.float().abs()
+                           + CONV_BF16_SUM_REL * top)
+            lim = f"2u |out| + {CONV_BF16_SUM_REL} max|out| per element"
+        print(f"kernel {name} {k}: max|d|={errs[k]:.3e} ({errs[k] / top:.3e} "
+              f"of max|out|), worst |d|/limit {worst:.3f} (limit {lim}) "
+              f"{'ok' if worst <= 1.0 else 'MISMATCH'}")
+        check(worst <= 1.0, f"{name}: {k} kernel disagrees with its plain "
+                            f"version ({worst} of its limit)")
+        del got, want
+    if label not in ("c56", "c28"):
+        return {}
+
+    # the yardstick: cuDNN on the same NHWC tensor, seen as a channels_last
+    # NCHW view, and on an NCHW copy; the fused form's batch-norm scale and
+    # shift and ReLU as separate passes, in the dtype, as the probe's XLA
+    # yardstick computes them
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+    x_cl = x.permute(0, 3, 1, 2)
+    x_nchw = x_cl.contiguous()
+    a_r, b_r = a.to(dtype).view(1, -1, 1, 1), b.to(dtype).view(1, -1, 1, 1)
+    lib = {
+        ("igemm", "channels_last"): lambda i: F.conv2d(x_cl, w_oihw,
+                                                       padding=1),
+        ("igemm", "nchw"): lambda i: F.conv2d(x_nchw, w_oihw, padding=1),
+        ("fused", "channels_last"): lambda i: torch.relu(
+            F.conv2d(x_cl, w_oihw, padding=1) * a_r + b_r),
+        ("fused", "nchw"): lambda i: torch.relu(
+            F.conv2d(x_nchw, w_oihw, padding=1) * a_r + b_r)}
+    recs = {}
+    for k in CONV_KERNELS:
+        ms, dev_ms = both_ms(kern[k])
+        pl_ms, pl_dev = both_ms(plain[k], iters=5, warmup=1)
+        lib_t = {lay: both_ms(lib[(k, lay)]) for lay in ("channels_last",
+                                                         "nchw")}
+        want = plain[k](0).float()
+        lib_err = _abs(lib[(k, "channels_last")](0).permute(0, 2, 3, 1),
+                       want) / float(want.abs().max())
+        bound_ms, bound_by = _conv_bound(k, n, h, w, c, o, dtype)
+        recs[k] = {
+            "max_abs_err": errs[k], "ms": ms, "device_ms": dev_ms,
+            "plain_ms": pl_ms, "plain_device_ms": pl_dev,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_t["channels_last"][0],
+            "library_device_ms": lib_t["channels_last"][1],
+            "library_nchw_ms": lib_t["nchw"][0],
+            "library_nchw_device_ms": lib_t["nchw"][1],
+            "library": ("F.conv2d (cuDNN)" if k == "igemm" else
+                        "F.conv2d (cuDNN), then * a + b and relu as "
+                        "separate passes") + " on the channels_last view"}
+        print(f"kernel {name} {k}: {ms:.4f} ms (device {dev_ms:.4f}), plain "
+              f"{pl_ms:.4f} ms (device {pl_dev:.4f}), cuDNN channels_last "
+              f"{lib_t['channels_last'][0]:.4f} ms (device "
+              f"{lib_t['channels_last'][1]:.4f}), NCHW "
+              f"{lib_t['nchw'][0]:.4f} ms (device {lib_t['nchw'][1]:.4f}; "
+              f"its error {lib_err:.3e} of max|out|), bound {bound_ms:.4f} "
+              f"ms ({bound_by}; device time {bound_ms / dev_ms:.3f} of it) "
+              f"on {card}")
+    return recs
+
+
+def phase_conv_kernels(card: str) -> dict:
+    """Every conv case in float32 and bfloat16; returns the timed records
+    by dtype, shape and kernel for the JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
+    torch.backends.cudnn.allow_tf32 = False         # the yardstick
+    dev = torch.device("cuda")
+    records = {}
+    for label, n, h, w, c, o in CONV_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            recs = _conv_case(label, n, h, w, c, o, dtype, dev, card)
+            if recs:
+                records.setdefault("float32" if dtype == torch.float32
+                                   else "bfloat16", {})[label] = recs
+            torch.cuda.empty_cache()
+    return records
+
+
+def _softmax_input(program, pred_name: str) -> str:
+    (sm,) = [op for op in program.list_ops() if op.type == "softmax"
+             and op.outputs["Out"] == [pred_name]]
+    return sm.inputs["X"][0]
+
+
+def _infer_parity(card: str) -> None:
+    """ResNet-50's pruned, routed program on INFER_PARITY_BATCH images on
+    the card and on the CPU (the plain versions) from the same weights and
+    running statistics.  float32 (TF32 off): the fc's pre-softmax logits
+    within INFER_F32_REL of max |.|, and the same top-1 class wherever the
+    top two are further apart than twice the largest difference (the
+    margins are printed).  The card's running statistics are left bitwise
+    as loaded.
+
+    amp: a one-rounding element-wise bound (2u |.| + CONV_BF16_SUM_REL
+    max |.|) does not hold through 50 bfloat16 layers even for the CPU
+    against itself: float32 sums in another order, or images times (1 +
+    1e-7 N(0, 1)), flip a bfloat16 rounding here and there, and the flips
+    compound (on the CPU alone, such a draw moved the logits by 32, one
+    bfloat16 ulp at their largest values and 0.7% of their max, as far as
+    the card is from the CPU).  So the bfloat16 logits are held,
+    like the ResNet-50 training gradients (_resnet_parity), to the CPU's
+    own spread under that change of the images, measured in this run: in
+    max |.| and in relative L2 within RESNET_FLOOR_FACTOR x the larger
+    spread of two draws (noise seeds 5 and 6), unless they are within the
+    element-wise bound anyway."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (build_infer_program,
+                                                      infer_arrays,
+                                                      infer_batch,
+                                                      train_scope)
+
+    arrays = infer_arrays(50)
+    feed = infer_batch(INFER_PARITY_BATCH, "cpu")
+    stats = sorted(n for n in arrays if n.endswith((".w_mean", ".w_var")))
+    ref32 = None   # the CPU's float32 logits, from the first arm
+    for amp in (False, True):
+        arm = "amp" if amp else "float32"
+        pred, program, startup = build_infer_program(50, amp)
+        logits = _softmax_input(program, pred.name)
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+            scope = train_scope(exe, startup, program, arrays,
+                                None if dev == "cuda" else "cpu")
+            t0 = time.perf_counter()
+            out[dev] = exe.run(program, feed=feed, fetch_list=[logits],
+                               scope=scope)[0]
+            secs[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                for n in stats:
+                    check(np.array_equal(scope.find_var(n).cpu().numpy(),
+                                         arrays[n]),
+                          f"resnet infer {arm}: running statistic {n} "
+                          f"changed")
+        floor_max = floor_l2 = 0.0
+        if amp:   # the CPU's own spread (see above); exe, scope: the CPU's
+            for seed in (5, 6):
+                noise = torch.from_numpy(np.random.RandomState(
+                    seed).standard_normal(tuple(feed["img"].shape)).astype(
+                    np.float32))
+                moved = exe.run(program, fetch_list=[logits], scope=scope,
+                                feed={"img": feed["img"] * (1 + 1e-7 * noise)}
+                                )[0]
+                floor_max = max(floor_max,
+                                float(np.abs(moved - out["cpu"]).max()))
+                floor_l2 = max(floor_l2, _rel_l2(moved, out["cpu"]))
+        got, want = out["cuda"], out["cpu"]
+        check(got.shape == (INFER_PARITY_BATCH, 1000)
+              and np.isfinite(got).all(),
+              f"resnet infer parity {arm}: logits {got.shape}, finite "
+              f"{np.isfinite(got).all()}")
+        top = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        if amp:
+            worst = float((np.abs(got - want) / (2 * BF16_U * np.abs(want)
+                                                 + CONV_BF16_SUM_REL * top)
+                           ).max())
+            l2 = _rel_l2(got, want)
+            floor_ok = (err <= RESNET_FLOOR_FACTOR * floor_max
+                        and l2 <= RESNET_FLOOR_FACTOR * floor_l2)
+            lim = (f"2u |.| + {CONV_BF16_SUM_REL} max|.| per element; or "
+                   f"{RESNET_FLOOR_FACTOR} x the CPU's floor under a 1e-7 "
+                   f"change of the images: max|d| {floor_max:.3e}, relative "
+                   f"L2 {floor_l2:.3e}, card vs CPU relative L2 {l2:.3e}, "
+                   f"within it: {floor_ok}; amp against float32 on the CPU "
+                   f"{_rel(want, ref32):.3e} of max")
+            ok = worst <= 1.0 or floor_ok
+        else:
+            worst = err / (INFER_F32_REL * top)
+            lim = f"{INFER_F32_REL} max|.|"
+            ok = worst <= 1.0
+            ref32 = want
+        srt = np.sort(want, axis=1)
+        margins = srt[:, -1] - srt[:, -2]
+        clear = margins > 2 * err
+        same = got.argmax(1) == want.argmax(1)
+        print(f"resnet infer parity ({arm}{', TF32 off' if not amp else ''}, "
+              f"{INFER_PARITY_BATCH} images): logits max|d| {err:.3e} "
+              f"({err / top:.3e} of max), worst |d|/limit {worst:.3f} (limit "
+              f"{lim}); top-1 equal {same.tolist()}, top-two margins "
+              f"{', '.join(f'{m:.3e}' for m in margins)}; step "
+              f"{secs['cuda']:.2f} s card (first), {secs['cpu']:.2f} s CPU")
+        check(ok, f"resnet infer parity {arm}: logits differ beyond their "
+                  f"limit ({worst} of the element-wise bound)")
+        if not amp:
+            check(bool(same[clear].all()),
+                  f"resnet infer parity float32: top-1 differs where the "
+                  f"margin exceeds twice the difference: {same}, {margins}")
+
+
+def _infer_arm(model: str, depth: int, amp: bool, card: str) -> dict:
+    """TRAIN_STEPS inference steps of one arm on a batch that stays on the
+    card, fetch included; the conv counts are this pass's own."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import conv
+    from paddle_tpu_torch.tools.train_profile import (
+        INFER_BATCH, TRAIN_STEPS, build_infer_program, infer_arrays,
+        infer_batch, train_scope)
+
+    arm = f"{model} {'amp' if amp else 'float32'}"
+    pred, program, startup = build_infer_program(depth, amp)
+    exe = fluid.Executor()
+    scope = train_scope(exe, startup, program, infer_arrays(depth))
+    feed = infer_batch(INFER_BATCH, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in CONV_KERNELS:
+        conv.launches[k] = 0
+    outs, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out, = exe.run(program, feed=feed, fetch_list=[pred], scope=scope)
+        e1.record()
+        torch.cuda.synchronize()
+        outs.append(out)
+        step_ms.append(e0.elapsed_time(e1))
+    launches = dict(conv.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * TRAIN_STEPS for k, v in INFER_LAUNCHES[depth].items()}
+    check(launches == want, f"resnet infer {arm}: conv launches {launches}, "
+                            f"expected {want}")
+    last = outs[-1]
+    check(last.shape == (INFER_BATCH, 1000) and np.isfinite(last).all()
+          and np.allclose(last.sum(1), 1.0, atol=1e-2),
+          f"resnet infer {arm}: predictions {last.shape}, finite "
+          f"{np.isfinite(last).all()}, row sums {last.sum(1)[:4]}")
+    med = float(np.median(step_ms[1:]))
+    print(f"resnet infer {arm}: {TRAIN_STEPS} steps on {INFER_BATCH} images, "
+          f"step ms {', '.join(f'{x:.2f}' for x in step_ms)}; median of "
+          f"steps 2-{TRAIN_STEPS} {med:.3f} ms = {INFER_BATCH / med * 1e3:.1f}"
+          f" images/s; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated); conv launches {launches}; steps agree "
+          f"bitwise: {all(np.array_equal(o, last) for o in outs)}; top-1 of "
+          f"the first images {last.argmax(1)[:4].tolist()}; on {card}")
+    return {"launches": launches, "median_ms": med,
+            "images_per_s": INFER_BATCH / med * 1e3, "batch": INFER_BATCH,
+            "peak_memory_bytes": peak}
+
+
+def phase_resnet_infer(card: str) -> dict:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _infer_parity(card)
+    arms = {}
+    for model, depth, amp in INFER_ARMS:
+        arms[f"{model} {'amp' if amp else 'float32'}"] = _infer_arm(
+            model, depth, amp, card)
+        torch.cuda.empty_cache()
+    return arms
+
+
+def _timed(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     check(torch.cuda.is_available(),
           "torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
-    card = phase_device()
-    phase_build()
-    rec = phase_kernels(card)
-    flash = phase_flash_kernels(card)
-    lstm = phase_lstm_kernels(card)
-    paths = phase_serve(card)
-    train = phase_train(card)
-    lstm_train = phase_lstm_train(card)
-    bn = phase_bn_kernels(card)
-    resnet = phase_resnet_train(card)
+    card = _timed("device", phase_device)
+    _timed("build", phase_build)
+    rec = _timed("kernels", phase_kernels, card)
+    flash = _timed("flash kernels", phase_flash_kernels, card)
+    lstm = _timed("lstm kernels", phase_lstm_kernels, card)
+    paths = _timed("serve", phase_serve, card)
+    train = _timed("train", phase_train, card)
+    lstm_train = _timed("lstm train", phase_lstm_train, card)
+    bn = _timed("bn kernels", phase_bn_kernels, card)
+    resnet = _timed("resnet train", phase_resnet_train, card)
+    convk = _timed("conv kernels", phase_conv_kernels, card)
+    infer = _timed("resnet infer", phase_resnet_infer, card)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
@@ -1503,6 +1863,27 @@ def main() -> int:
             "launches_by_path": {a: r["launches"][kern]
                                  for a, r in resnet.items()},
             "float32": bn["float32"][kern],
+        })
+    replaces = {"igemm": "benchmark/conv_probe.py:62",
+                "fused": "benchmark/conv_probe.py:68"}
+    main_arm = {"igemm": "resnet18-infer amp", "fused": "resnet50-infer amp"}
+    for kern in CONV_KERNELS:
+        kernels.append({
+            "name": "conv_igemm" if kern == "igemm" else "conv_igemm_fused",
+            "route": "cuda", "source": "paddle_tpu_torch/ops/csrc/conv.cu",
+            "replaces": replaces[kern],
+            "case": "bfloat16 (amp's), N=256, 56x56, C=O=64 (the probe's "
+                    "c56)",
+            # launches: the main arm's own count (resnet18-infer for the
+            # plain kernel, resnet50-infer amp for the fused one); each
+            # arm's in launches_by_path
+            "launches": infer[main_arm[kern]]["launches"][kern],
+            **convk["bfloat16"]["c56"][kern],
+            "launches_by_path": {a: r["launches"][kern]
+                                 for a, r in infer.items()},
+            "c28": convk["bfloat16"]["c28"][kern],
+            "float32": convk["float32"]["c56"][kern],
+            "float32_c28": convk["float32"]["c28"][kern],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,6 @@
 """paddle_tpu_torch: the PyTorch / CUDA port of paddle_tpu for NVIDIA Hopper.
 
-Three slices run here:
+Five slices run here:
 
 * training the Transformer LM: ``build_lm`` through the Program / Executor
   API with Adam and global-norm clipping, on hand-written CUDA
@@ -24,6 +24,14 @@ Three slices run here:
 * serving the LM: continuous batching over a paged KV pool, with a
   hand-written CUDA paged decode-attention kernel
   (``ops/csrc/paged_attention.cu``).
+
+* training ResNet (``models.resnet.build``, Momentum, amp), with
+  hand-written CUDA batch-norm backward kernels (``ops/csrc/batch_norm.cu``);
+
+* ResNet inference: ``Program.prune`` gives the ``is_test`` program, and
+  ``Executor.run`` routes its 3x3 stride-1 convolutions onto hand-written
+  CUDA implicit-GEMM kernels, conv + folded batch norm + ReLU fused
+  (``ops/csrc/conv.cu``, ``core/fusion.py``).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``CPUPlace()``, ``device="cpu"``); with no card and no device given they

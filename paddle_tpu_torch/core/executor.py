@@ -13,7 +13,9 @@ and every op after it runs under ``torch.no_grad()``.  The new state is
 detached.  Updated parameters and moments are new tensors: the scope's old
 tensors are replaced, not written in place.  A program with an amp policy
 (``amp.enable``) has each op's inputs cast by it before the op runs
-(``Op.apply``).
+(``Op.apply``).  A program with no backward op (an inference program, such
+as ``Program.prune``'s) runs with its 3x3 stride-1 convolutions routed onto
+the implicit-GEMM kernels (``core/fusion.py``).
 
 Nothing compiles per shape in torch, so there is no executable cache, no
 persistent compile cache, no ``warm`` and no dispatch sampling.
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import check_flash_head_dim
+from .fusion import channels_last_feed, route_inference
 from .program import (
     Op,
     OpContext,
@@ -225,11 +228,16 @@ class Executor:
         if len(bops) > 1:
             raise NotImplementedError(
                 "more than one backward op in a program is not ported")
+        routed = None if bops else route_inference(program, fetch_names, amp)
+        if routed is not None:
+            ops = routed
         device = self.device
         seed = program.random_seed or 0
 
         def step(state, feed, step_index: int):
             ctx = OpContext(seed, step_index, device, amp)
+            if routed is not None:
+                feed = channels_last_feed(feed)
             env: Dict[str, Any] = {}
             env.update(state)
             env.update(feed)

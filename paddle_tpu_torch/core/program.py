@@ -9,6 +9,7 @@ declared, by running the op's function on ``device="meta"`` tensors
 from __future__ import annotations
 
 import contextlib
+import copy
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -94,7 +95,10 @@ class OpContext:
 @dataclass
 class Op:
     """One recorded operation.  ``fn(ins, attrs, ctx) -> outs`` where
-    ins/outs map slot names to lists of tensors."""
+    ins/outs map slot names to lists of tensors.  Under amp the inputs are
+    cast as the policy casts an op of ``type``, or, where ``amp_types``
+    names an op type for a slot (an op that stands for a chain of ops,
+    ``core/fusion.py``), that slot as the policy casts that type."""
 
     type: str
     inputs: Dict[str, List[str]]
@@ -102,6 +106,7 @@ class Op:
     attrs: Dict[str, Any]
     fn: Optional[Callable] = None
     special: Optional[str] = None  # 'backward' is interpreted by the Executor
+    amp_types: Optional[Dict[str, str]] = None
 
     def input_names(self) -> List[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -113,8 +118,12 @@ class Op:
         ins = {
             slot: [env[n] for n in names] for slot, names in self.inputs.items()
         }
-        if ctx.amp is not None:
+        if ctx.amp is not None and self.amp_types is None:
             ins = ctx.amp.cast_ins(self.type, self.attrs, ins)
+        elif ctx.amp is not None:
+            ins = {slot: ctx.amp.cast_ins(self.amp_types[slot], self.attrs,
+                                          {slot: vals})[slot]
+                   for slot, vals in ins.items()}
         outs = self.fn(ins, self.attrs, ctx)
         for slot, names in self.outputs.items():
             vals = outs.get(slot, [])
@@ -125,6 +134,11 @@ class Op:
                 )
             for name, val in zip(names, vals):
                 env[name] = val
+
+
+def _op_key(op: Op):
+    return (op.type, tuple(sorted((k, tuple(v))
+                                  for k, v in op.outputs.items())))
 
 
 # --------------------------------------------------------------------------- Block
@@ -202,6 +216,63 @@ class Program:
 
     def list_ops(self) -> List[Op]:
         return list(self.global_block.ops)
+
+    # ---- cloning (ref: fluid Program.clone; used for the test/eval program)
+    def clone(self, for_test: bool = False) -> "Program":
+        """A copy with its own variables and ops.  The ops share their
+        closures with this program's, so an attr the closure reads at run
+        time (``is_test``) is the clone's own.  ``for_test`` sets
+        ``is_test`` on every op that has it and drops the backward and
+        optimizer ops; the amp policy carries over."""
+        p = Program.__new__(Program)
+        p.blocks = [Block(p, 0)]
+        p._parameters = {}
+        p.random_seed = self.random_seed
+        p._rng_tag = self._rng_tag
+        p.amp_policy = self.amp_policy
+        blk = p.global_block
+        for name, v in self.global_block.vars.items():
+            nv = copy.copy(v)
+            nv.block = blk
+            blk.vars[name] = nv
+            if name in self._parameters:
+                p._parameters[name] = nv
+        for op in self.global_block.ops:
+            nop = Op(
+                type=op.type,
+                inputs={k: list(vs) for k, vs in op.inputs.items()},
+                outputs={k: list(vs) for k, vs in op.outputs.items()},
+                attrs=dict(op.attrs),
+                fn=op.fn,
+                special=op.special,
+                amp_types=op.amp_types,
+            )
+            if for_test and "is_test" in nop.attrs:
+                nop.attrs["is_test"] = True
+            blk.ops.append(nop)
+        if for_test:
+            # drop backward/optimize ops: the eval program is forward-only
+            blk.ops = [o for o in blk.ops if o.special != "backward"
+                       and not o.attrs.get("is_optimizer_op")]
+        return p
+
+    def prune(self, targets: Sequence[Variable]) -> "Program":
+        """The test clone with only the ops that ``targets`` reach, found in
+        reverse order (ref: paddle/framework/prune.cc); kept ops are
+        matched by (type, outputs), as in the JAX package."""
+        needed = {t.name for t in targets}
+        kept_rev: List[Op] = []
+        for op in reversed(self.global_block.ops):
+            if op.special == "backward" or op.attrs.get("is_optimizer_op"):
+                continue
+            if needed & set(op.output_names()):
+                kept_rev.append(op)
+                needed |= set(op.input_names())
+        p = self.clone(for_test=True)
+        keyset = {_op_key(o) for o in kept_rev}
+        p.global_block.ops = [o for o in p.global_block.ops
+                              if _op_key(o) in keyset]
+        return p
 
 
 # --------------------------------------------------------------------------- defaults

@@ -8,8 +8,9 @@ the JAX package, so parameters and running statistics get the same names
 (``conv2d_w_<i>``, ``batch_norm_w_<i>`` / ``batch_norm_b_<i>``,
 ``batch_norm_<2i>.w_mean`` / ``batch_norm_<2i+1>.w_var``, ``fc_w_0``,
 ``fc_b_0``) and ``load_scope`` carries JAX arrays across unchanged.
-``resnet_param_shapes`` lists the parameters and ``init_resnet_params``
-draws them with numpy from a seed.
+``resnet_param_shapes`` lists the parameters, ``init_resnet_params``
+draws them with numpy from a seed, and ``init_resnet_stats`` draws running
+statistics for the inference (``is_test``) program.
 """
 from __future__ import annotations
 
@@ -92,11 +93,9 @@ def build_cifar(img, label, depth: int = 32, class_dim: int = 10):
     return loss, acc, prediction
 
 
-def resnet_param_shapes(depth: int = 50, class_dim: int = 1000,
-                        cifar: bool = False) -> Dict[str, Tuple[int, ...]]:
-    """Parameter name -> shape of a freshly named ``build`` (or, with
-    ``cifar``, ``build_cifar``) program, in declaration order: the program
-    is declared on meta tensors in programs and names of its own."""
+def _declared(depth: int, class_dim: int, cifar: bool):
+    """A freshly named ``build`` (or, with ``cifar``, ``build_cifar``)
+    program, declared on meta tensors in programs and names of its own."""
     from ..core import Program, program_guard, unique_name
 
     main = Program()
@@ -107,6 +106,14 @@ def resnet_param_shapes(depth: int = 50, class_dim: int = 1000,
             build_cifar(img, label, depth=depth, class_dim=class_dim)
         else:
             build(img, label, class_dim=class_dim, depth=depth)
+    return main
+
+
+def resnet_param_shapes(depth: int = 50, class_dim: int = 1000,
+                        cifar: bool = False) -> Dict[str, Tuple[int, ...]]:
+    """Parameter name -> shape of a freshly named ``build`` (or, with
+    ``cifar``, ``build_cifar``) program, in declaration order."""
+    main = _declared(depth, class_dim, cifar)
     return {p.name: tuple(p.shape) for p in main.parameters()}
 
 
@@ -116,7 +123,8 @@ def init_resnet_params(seed: int, depth: int = 50, class_dim: int = 1000,
     layers' own initializers draw them: convolution filters N(0, 2 /
     fan_in), batch-norm scales 1 and biases 0, the classifier's weight
     N(0, 1 / fan_in) and bias 0.  The running statistics are not
-    parameters: the startup program sets them (zeros, ones)."""
+    parameters: the startup program sets them (zeros, ones), and
+    :func:`init_resnet_stats` draws others."""
     rng = np.random.RandomState(seed)
     out = {}
     for name, shape in resnet_param_shapes(depth, class_dim, cifar).items():
@@ -130,4 +138,24 @@ def init_resnet_params(seed: int, depth: int = 50, class_dim: int = 1000,
         else:
             arr = np.zeros(shape)
         out[name] = arr.astype(np.float32)
+    return out
+
+
+def init_resnet_stats(seed: int, depth: int = 50, class_dim: int = 1000,
+                      cifar: bool = False) -> Dict[str, np.ndarray]:
+    """float32 running statistics from ``np.random.RandomState(seed)``, the
+    batch norms taken in declaration order: each one's ``<bn>.w_mean`` from
+    N(0, 0.1^2), then its ``<bn>.w_var`` from U(0.5, 1.5), per channel.
+    The startup program's zeros and ones would fold an inference batch norm
+    into nearly the identity; these make its scale and shift matter."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for v in _declared(depth, class_dim, cifar).persistable_vars():
+        if v.name.endswith(".w_mean"):
+            arr = rng.normal(0.0, 0.1, tuple(v.shape))
+        elif v.name.endswith(".w_var"):
+            arr = rng.uniform(0.5, 1.5, tuple(v.shape))
+        else:
+            continue
+        out[v.name] = arr.astype(np.float32)
     return out

@@ -1,6 +1,6 @@
 """Where the time of one training step goes, on the CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|resnet50] [--out F]
+    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|resnet50|resnet50-infer|resnet18-infer] [--out F]
 
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
@@ -14,7 +14,15 @@ sequences with lengths drawn from [50, 100] (that file's
 trains it (``models.resnet.build``, 1000 classes, Momentum(0.1, 0.9),
 weights ``init_resnet_params(0)``) on a fixed batch of 224x224 images that
 stays on the card, in two arms: amp (bf16 compute, bs=256) and float32
-(TF32 off, bs=``RESNET_FP32_BATCH``).  Either way: two warm-up steps, then,
+(TF32 off, bs=``RESNET_FP32_BATCH``).  ``--model resnet50-infer`` and
+``--model resnet18-infer`` profile the inference step instead: the
+``is_test`` program that ``benchmark/resnet.py``'s infer configs prune to
+(``build`` at depth 50 or 18, 1000 classes, ``Program.prune`` to the
+prediction), weights ``init_resnet_params(0)`` and running statistics
+``init_resnet_stats(0)``, ``INFER_BATCH`` images from ``rand`` of numpy
+seed 0 (``benchmark/_common.py``'s draw) that stay on the card, the
+prediction fetched each step; ResNet-50 in the amp and the float32 arm,
+ResNet-18 under amp.  Either way: two warm-up steps, then,
 3 times over, 5 ``Executor.run`` steps on the host clock and 5 more under
 ``torch.profiler``.  Prints per step: host wall ms (unprofiled windows)
 and device busy ms (the sum of kernel times, profiled windows), each as
@@ -27,18 +35,24 @@ backward kernels, the batch-norm forward's plain ops, the rest of the
 batch-norm backward, pooling, the optimizer and other, by the op or
 autograd node that launched each kernel (the profiled windows wrap each op
 in a ``record_function`` range; the unprofiled ones run the program as
-it is).  ``--out`` also writes the numbers as JSON.
+it is); for the inference step they are the fused conv + BN + ReLU kernel,
+the plain implicit-GEMM kernel, the routed ops' filter layout and BN
+folding, cuDNN convolution, the batch norms that stay plain ops, pooling
+and other.  ``--out`` also writes the numbers as JSON.
 
 The programs, weights and batches are the ones ``chip_smoke.py``'s train
-phases run (:func:`build_train_program`, :func:`build_text_lstm_program`,
-:func:`build_resnet_program`, :func:`train_scope`, :func:`train_batch`,
+and resnet infer phases run (:func:`build_train_program`,
+:func:`build_text_lstm_program`, :func:`build_resnet_program`,
+:func:`build_infer_program`, :func:`train_scope`, :func:`train_batch`,
 :func:`text_lstm_params`, :func:`text_lstm_batch`, :func:`resnet_params`,
-:func:`resnet_batch`), so the profiled step is the smoke-checked step.
+:func:`resnet_batch`, :func:`infer_arrays`, :func:`infer_batch`), so the
+profiled step is the smoke-checked step.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 
@@ -60,6 +74,10 @@ RESNET_CFG = dict(depth=50, class_dim=1000)
 RESNET_IMAGE = (3, 224, 224)
 RESNET_BATCH = 256
 RESNET_FP32_BATCH = 256
+# benchmark/resnet.py's infer configs at the bs=256 of its docstring's
+# command: model name -> depth
+INFER_DEPTH = {"resnet50-infer": 50, "resnet18-infer": 18}
+INFER_BATCH = 256
 
 
 def build_train_program():
@@ -111,6 +129,42 @@ def build_resnet_program(amp: bool):
     if amp:
         fluid.amp.enable()
     return loss, fluid.default_main_program(), fluid.default_startup_program()
+
+
+def build_infer_program(depth: int, amp: bool):
+    """``models.resnet.build`` at ``depth`` (1000 classes) over NCHW float32
+    224x224 images, ``amp.enable()`` when ``amp``, pruned to the prediction
+    as ``benchmark/resnet.py``'s infer configs are, in fresh default
+    programs; returns (prediction, pruned program, startup)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    img = fluid.layers.data("img", list(RESNET_IMAGE))
+    label = fluid.layers.data("label", [1], dtype="int32")
+    _, _, pred = fluid.models.resnet.build(
+        img, label, class_dim=RESNET_CFG["class_dim"], depth=depth)
+    if amp:
+        fluid.amp.enable()
+    return (pred, fluid.default_main_program().prune([pred]),
+            fluid.default_startup_program())
+
+
+def infer_arrays(depth: int, seed: int = 0) -> dict:
+    """ResNet's parameters and running statistics at ``depth`` as numpy
+    arrays, from ``seed``."""
+    from ..models import init_resnet_params, init_resnet_stats
+
+    out = init_resnet_params(seed, depth, RESNET_CFG["class_dim"])
+    out.update(init_resnet_stats(seed, depth, RESNET_CFG["class_dim"]))
+    return out
+
+
+def infer_batch(n: int, device, seed: int = 0) -> dict:
+    """``n`` images as ``benchmark/_common.py`` draws them (``rand`` of
+    ``RandomState(seed)``), as a tensor on ``device``."""
+    rng = np.random.RandomState(seed)
+    img = rng.rand(n, *RESNET_IMAGE).astype(np.float32)
+    return {"img": torch.from_numpy(img).to(device)}
 
 
 def resnet_params(seed: int = 0) -> dict:
@@ -212,6 +266,40 @@ def _resnet_class(kernel: str, ancestors) -> str:
     return "other"
 
 
+# ResNet inference kernel classes: the hand-written conv kernels by name,
+# then by the op that launched each kernel; the routed ops' own small
+# kernels (filter to HWIO, the folded BN's a and b) are "conv_prep"
+INFER_CLASSES = ("fused_kernel", "igemm_kernel", "conv_prep", "conv_cudnn",
+                 "bn_plain", "pool", "other")
+
+
+def _igemm_class(kernel: str):
+    """"fused_kernel" or "igemm_kernel" for an ``igemm_kernel<T, kFused,
+    V>`` instance of ``ops/csrc/conv.cu`` by its name, else None."""
+    m = re.search(r"igemm_kernel<[^,<>]+, (true|false)", kernel)
+    if m is None:
+        return None
+    return "fused_kernel" if m.group(1) == "true" else "igemm_kernel"
+
+
+def _infer_class(kernel: str, ancestors) -> str:
+    low = kernel.lower()
+    mine = _igemm_class(kernel)
+    if mine is not None:
+        return mine
+    for a in ancestors:
+        if not a.startswith("op::"):
+            continue
+        op = a[4:]
+        if op == "conv2d_bn_relu":
+            return "conv_prep"
+        if op == "conv2d":
+            return ("conv_prep" if "copy" in low or "elementwise" in low
+                    else "conv_cudnn")
+        return {"batch_norm": "bn_plain", "pool2d": "pool"}.get(op, "other")
+    return "other"
+
+
 def _classes_by_origin(prof, classes, classify) -> dict:
     """Device microseconds by class: each host event's kernels, classified
     by ``classify(kernel name, enclosing host range names)``."""
@@ -230,30 +318,31 @@ def _classes_by_origin(prof, classes, classify) -> dict:
 
 
 class _OpRanges:
-    """While entered, each op of ``program`` runs inside a
-    ``record_function("op::<type>")`` range, so a profile can tell which op
-    launched a kernel."""
-
-    def __init__(self, program):
-        self.ops = program.list_ops()
+    """While entered, every op (the routed ops of an inference step too)
+    runs inside a ``record_function("op::<type>")`` range, so a profile can
+    tell which op launched a kernel."""
 
     def __enter__(self):
         from torch.profiler import record_function
 
-        for op in self.ops:
-            def apply(env, ctx, _op=op, _apply=op.apply):
-                with record_function(f"op::{_op.type}"):
-                    _apply(env, ctx)
-            op.apply = apply
+        from ..core.program import Op
+
+        self._apply = Op.apply
+
+        def apply(op, env, ctx, _apply=self._apply):
+            with record_function(f"op::{op.type}"):
+                _apply(op, env, ctx)
+        Op.apply = apply
         return self
 
     def __exit__(self, *exc):
-        for op in self.ops:
-            del op.apply          # back to the class's method
+        from ..core.program import Op
+
+        Op.apply = self._apply
 
 
 def _recipe(model: str, amp: bool = True):
-    """(loss, main, startup, weights, feed, items per step, item unit)."""
+    """(fetch, main, startup, weights, feed, items per step, item unit)."""
     import paddle_tpu_torch as fluid
 
     if model == "lm":
@@ -266,12 +355,17 @@ def _recipe(model: str, amp: bool = True):
         n = RESNET_BATCH if amp else RESNET_FP32_BATCH
         return (*build_resnet_program(amp), resnet_params(0),
                 resnet_batch(0, n, "cuda"), n, "images")
-    raise ValueError(f"unknown model {model!r}: lm | text_lstm | resnet50")
+    if model in INFER_DEPTH:
+        depth = INFER_DEPTH[model]
+        return (*build_infer_program(depth, amp), infer_arrays(depth),
+                infer_batch(INFER_BATCH, "cuda"), INFER_BATCH, "images")
+    raise ValueError(f"unknown model {model!r}: lm | text_lstm | resnet50 | "
+                     f"{' | '.join(INFER_DEPTH)}")
 
 
 def profile(model: str = "lm", amp: bool = True) -> dict:
-    """The profile of ``model``'s training step (for ``resnet50`` the amp
-    arm, or with ``amp=False`` the float32 arm)."""
+    """The profile of ``model``'s step (for the ResNets the amp arm, or with
+    ``amp=False`` the float32 arm)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -281,13 +375,13 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
         raise RuntimeError("train_profile needs a CUDA card")
     steps, repeats = TRAIN_STEPS, REPEATS
     exe = fluid.Executor()            # TF32 off for float32 matmuls and convs
-    loss, main, startup, weights, feed, items, unit = _recipe(model, amp)
+    fetch, main, startup, weights, feed, items, unit = _recipe(model, amp)
     scope = train_scope(exe, startup, main, weights)
-    resnet = model == "resnet50"
+    resnet = model == "resnet50" or model in INFER_DEPTH
 
     def run(n):
         for _ in range(n):
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            exe.run(main, feed=feed, fetch_list=[fetch], scope=scope)
 
     run(2)
     walls, windows = [], []
@@ -300,7 +394,7 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             if resnet:
-                with _OpRanges(main):
+                with _OpRanges():
                     run(steps)
             else:
                 run(steps)
@@ -317,8 +411,16 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
         kernels.sort(reverse=True)
         busy_us = sum(by_class.values())
         if resnet:
-            by_class = _classes_by_origin(prof, RESNET_CLASSES,
-                                          _resnet_class)
+            infer = model in INFER_DEPTH
+            by_class = _classes_by_origin(
+                prof, INFER_CLASSES if infer else RESNET_CLASSES,
+                _infer_class if infer else _resnet_class)
+            if infer:
+                # a ctypes launch has no host event above its kernel: the
+                # conv kernels are counted by name
+                for cls in ("fused_kernel", "igemm_kernel"):
+                    by_class[cls] = sum(us for us, name, _ in kernels
+                                        if _igemm_class(name) == cls)
             # kernels the event tree did not reach count as other
             by_class["other"] += busy_us - sum(by_class.values())
         windows.append((busy_us / 1e3 / steps, by_class, kernels))
@@ -346,12 +448,15 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="lm",
-                    choices=("lm", "text_lstm", "resnet50"),
+                    choices=("lm", "text_lstm", "resnet50", *INFER_DEPTH),
                     help="the training step to profile (resnet50: both "
-                         "arms, amp then float32)")
+                         "arms, amp then float32), or the ResNet inference "
+                         "step (resnet50-infer: both arms; resnet18-infer: "
+                         "amp)")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args(argv)
-    arms = (True, False) if args.model == "resnet50" else (True,)
+    arms = ((True, False) if args.model in ("resnet50", "resnet50-infer")
+            else (True,))
     results = []
     for amp in arms:
         torch.cuda.reset_peak_memory_stats()
@@ -359,8 +464,9 @@ def main(argv=None) -> int:
         results.append(res)
         wall, busy = res["wall_ms_per_step"], res["device_busy_ms_per_step"]
         unit = res["unit"]
-        arm = f" ({res['arm']})" if args.model == "resnet50" else ""
-        print(f"{res['model']}{arm} train step on {res['card']}: "
+        arm = f" ({res['arm']})" if args.model.startswith("resnet") else ""
+        what = "inference" if args.model in INFER_DEPTH else "train"
+        print(f"{res['model']}{arm} {what} step on {res['card']}: "
               f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "
               f"of {res['steps']} steps; wall median {wall['median']:.3f} "
               f"ms/step (min {wall['min']:.3f}, max {wall['max']:.3f}) = "
