@@ -71,11 +71,14 @@ Phases (any failure exits non-zero, before the final line):
                ([256,56,56,64]x64 and [256,28,28,128]x128, which are
                benchmark/conv_probe.py's, [256,14,14,256]x256,
                [256,7,7,512]x512) and two ragged ones ([3,13,9,3]x40 on the
-               element-wise path, [3,13,9,16]x24 on the 16-byte one); timed at
-               the probe's two shapes beside the plain versions and cuDNN
-               (F.conv2d, then the batch norm's scale and shift and the ReLU
-               as separate passes, on the same NHWC tensor as a channels_last
-               view and on an NCHW copy);
+               element-wise path, [3,13,9,16]x24 on the 16-byte one), each
+               case on the route ops/conv.py::conv_route gives it (bfloat16
+               ResNet shapes on the halo kernel, the rest on the gather
+               kernel), checked by the route counts; timed, bfloat16 at the
+               four ResNet shapes and float32 at the probe's two, beside the
+               plain versions and cuDNN (F.conv2d, then the batch norm's
+               scale and shift and the ReLU as separate passes, on the same
+               NHWC tensor as a channels_last view and on an NCHW copy);
  10. resnet infer - the is_test program benchmark/resnet.py's infer configs
                prune to (build, 1000 classes, 224x224, weights and running
                statistics from seed 0), through Program.prune and
@@ -86,8 +89,9 @@ Phases (any failure exits non-zero, before the final line):
                float32 and ResNet-18 amp at bs=256 on images that stay on
                the card, with the conv launch counts set to 0 before and
                read after (fused 13 x 5 on ResNet-50; fused 5 x 5 and plain
-               8 x 5 on ResNet-18), images/s from the median of steps 2-5,
-               peak memory.
+               8 x 5 on ResNet-18; under amp every one on the halo route,
+               in float32 every one on the gather route), images/s from the
+               median of steps 2-5, peak memory.
 Each phase prints its seconds.  The line before the card line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -184,6 +188,10 @@ CONV_KERNELS = ("igemm", "fused")
 CONV_CASES = [("c56", 256, 56, 56, 64, 64), ("c28", 256, 28, 28, 128, 128),
               ("c14", 256, 14, 14, 256, 256), ("c7", 256, 7, 7, 512, 512),
               ("ragged", 3, 13, 9, 3, 40), ("ragged16", 3, 13, 9, 16, 24)]
+# ResNet's four stride-1 shapes: on the halo route in bfloat16, and timed
+# there; float32 is timed at the probe's two
+CONV_RESNET = ("c56", "c28", "c14", "c7")
+CONV_TIMED = {torch.bfloat16: CONV_RESNET, torch.float32: ("c56", "c28")}
 # ResNet inference: card against CPU on INFER_PARITY_BATCH images, float32
 # logits within INFER_F32_REL of max |.| (float32 sums in another order
 # through 50 layers), bfloat16 logits element by element within 2u |.| +
@@ -1503,8 +1511,10 @@ def _conv_bound(kernel: str, n, h, w, c, o, dtype) -> tuple:
 
 
 def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
-    """Both kernels against their plain versions on the same inputs; at the
-    probe's shapes also the times.  Returns the records by kernel."""
+    """Both kernels against their plain versions on the same inputs, each
+    on its route (the route counts must show the route conv_route gives;
+    bfloat16 ResNet shapes must take the halo kernel); at the CONV_TIMED
+    shapes also the times.  Returns the records by kernel."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import conv as TC
@@ -1522,10 +1532,19 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
             "fused": lambda i: TC.igemm_conv_fused_kernel(x, wt, a, b)}
     plain = {"igemm": lambda i: TC.igemm_conv_reference(x, wt),
              "fused": lambda i: TC.igemm_conv_fused_reference(x, wt, a, b)}
+    route = TC.conv_route(dtype, n, h, w, c, o, True)
+    check(route == ("halo" if kind == "bfloat16" and label in CONV_RESNET
+                    else "gather"),
+          f"{name}: conv_route gives the {route} route")
     errs = {}
     for k in CONV_KERNELS:
+        before = dict(TC.route_launches)
         got = kern[k](0)
         torch.cuda.synchronize()
+        took = {r: TC.route_launches[r] - before[r] for r in before}
+        check(took == {r: int(r == route) for r in took},
+              f"{name} {k}: route launches {took}, expected the {route} "
+              f"route")
         want = plain[k](0)
         check(got.dtype == dtype and got.shape == (n, h, w, o),
               f"{name} {k}: kernel returned {got.dtype} {tuple(got.shape)}")
@@ -1540,13 +1559,14 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
             worst = _worst(got, want, 2 * BF16_U * want.float().abs()
                            + CONV_BF16_SUM_REL * top)
             lim = f"2u |out| + {CONV_BF16_SUM_REL} max|out| per element"
-        print(f"kernel {name} {k}: max|d|={errs[k]:.3e} ({errs[k] / top:.3e} "
-              f"of max|out|), worst |d|/limit {worst:.3f} (limit {lim}) "
+        print(f"kernel {name} {k} ({route} route): max|d|={errs[k]:.3e} "
+              f"({errs[k] / top:.3e} of max|out|), worst |d|/limit "
+              f"{worst:.3f} (limit {lim}) "
               f"{'ok' if worst <= 1.0 else 'MISMATCH'}")
         check(worst <= 1.0, f"{name}: {k} kernel disagrees with its plain "
                             f"version ({worst} of its limit)")
         del got, want
-    if label not in ("c56", "c28"):
+    if label not in CONV_TIMED[dtype]:
         return {}
 
     # the yardstick: cuDNN on the same NHWC tensor, seen as a channels_last
@@ -1576,6 +1596,7 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
                        want) / float(want.abs().max())
         bound_ms, bound_by = _conv_bound(k, n, h, w, c, o, dtype)
         recs[k] = {
+            "conv_route": route,
             "max_abs_err": errs[k], "ms": ms, "device_ms": dev_ms,
             "plain_ms": pl_ms, "plain_device_ms": pl_dev,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1586,7 +1607,8 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
             "library": ("F.conv2d (cuDNN)" if k == "igemm" else
                         "F.conv2d (cuDNN), then * a + b and relu as "
                         "separate passes") + " on the channels_last view"}
-        print(f"kernel {name} {k}: {ms:.4f} ms (device {dev_ms:.4f}), plain "
+        print(f"kernel {name} {k} ({route} route): {ms:.4f} ms (device "
+              f"{dev_ms:.4f}), plain "
               f"{pl_ms:.4f} ms (device {pl_dev:.4f}), cuDNN channels_last "
               f"{lib_t['channels_last'][0]:.4f} ms (device "
               f"{lib_t['channels_last'][1]:.4f}), NCHW "
@@ -1744,6 +1766,8 @@ def _infer_arm(model: str, depth: int, amp: bool, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for k in CONV_KERNELS:
         conv.launches[k] = 0
+    for r in conv.route_launches:
+        conv.route_launches[r] = 0
     outs, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1755,10 +1779,17 @@ def _infer_arm(model: str, depth: int, amp: bool, card: str) -> dict:
         outs.append(out)
         step_ms.append(e0.elapsed_time(e1))
     launches = dict(conv.launches)
+    routes = dict(conv.route_launches)
     peak = torch.cuda.max_memory_allocated()
     want = {k: v * TRAIN_STEPS for k, v in INFER_LAUNCHES[depth].items()}
     check(launches == want, f"resnet infer {arm}: conv launches {launches}, "
                             f"expected {want}")
+    # every bfloat16 ResNet conv on the halo kernel, every float32 one on
+    # the gather kernel
+    total = sum(want.values())
+    want_routes = {"halo": total if amp else 0, "gather": 0 if amp else total}
+    check(routes == want_routes, f"resnet infer {arm}: route launches "
+                                 f"{routes}, expected {want_routes}")
     last = outs[-1]
     check(last.shape == (INFER_BATCH, 1000) and np.isfinite(last).all()
           and np.allclose(last.sum(1), 1.0, atol=1e-2),
@@ -1769,12 +1800,13 @@ def _infer_arm(model: str, depth: int, amp: bool, card: str) -> dict:
           f"step ms {', '.join(f'{x:.2f}' for x in step_ms)}; median of "
           f"steps 2-{TRAIN_STEPS} {med:.3f} ms = {INFER_BATCH / med * 1e3:.1f}"
           f" images/s; peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(max_memory_allocated); conv launches {launches}; steps agree "
+          f"(max_memory_allocated); conv launches {launches}, by route "
+          f"{routes}; steps agree "
           f"bitwise: {all(np.array_equal(o, last) for o in outs)}; top-1 of "
           f"the first images {last.argmax(1)[:4].tolist()}; on {card}")
-    return {"launches": launches, "median_ms": med,
-            "images_per_s": INFER_BATCH / med * 1e3, "batch": INFER_BATCH,
-            "peak_memory_bytes": peak}
+    return {"launches": launches, "route_launches": routes,
+            "median_ms": med, "images_per_s": INFER_BATCH / med * 1e3,
+            "batch": INFER_BATCH, "peak_memory_bytes": peak}
 
 
 def phase_resnet_infer(card: str) -> dict:
@@ -1881,7 +1913,11 @@ def main() -> int:
             **convk["bfloat16"]["c56"][kern],
             "launches_by_path": {a: r["launches"][kern]
                                  for a, r in infer.items()},
+            "route_launches_by_path": {a: r["route_launches"]
+                                       for a, r in infer.items()},
             "c28": convk["bfloat16"]["c28"][kern],
+            "c14": convk["bfloat16"]["c14"][kern],
+            "c7": convk["bfloat16"]["c7"][kern],
             "float32": convk["float32"]["c56"][kern],
             "float32_c28": convk["float32"]["c28"][kern],
         })

@@ -12,6 +12,13 @@ vectors of any float dtype, used in float32.
 * On CUDA tensors they launch the kernels of ``csrc/conv.cu`` (the ports
   of the probe's Pallas ``_igemm_kernel`` and ``_igemm_fused_kernel``), or
   raise: there is no fallback.  float32 and bfloat16, any N, H, W, C, O.
+  :func:`conv_route` picks the kernel by shape before the launch: the halo
+  route (``halo_kernel``, wgmma over a halo tile) for bfloat16 with C and O
+  multiples of 64, 16-byte aligned pointers and W + 2 <= 256, which is
+  every ResNet 3x3 stride-1 conv; the gather route (``igemm_kernel``) for
+  everything else.  Both are hand kernels; a launch that fails on either
+  raises.  A halo-route call enqueues two kernels: ``halo_pack_w`` packs w
+  into a scratch tensor in the kernel's stage layout, then ``halo_kernel``.
 * On CPU tensors they run the plain versions,
   :func:`igemm_conv_reference` and :func:`igemm_conv_fused_reference`,
   which transcribe the probe's ``_igemm_accumulate`` and epilogue: nine
@@ -20,7 +27,8 @@ vectors of any float dtype, used in float32.
   and ``max(., 0)`` in float32, and one rounding to x's dtype.
 
 ``launches`` counts kernel calls, one per call of each wrapper:
-``{"igemm": n, "fused": n}``.  Plain-version calls never count.
+``{"igemm": n, "fused": n}``; ``route_launches`` the same calls by route,
+``{"halo": n, "gather": n}``.  Plain-version calls never count.
 """
 from __future__ import annotations
 
@@ -34,10 +42,36 @@ from . import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"igemm": 0, "fused": 0}
+route_launches = {"halo": 0, "gather": 0}
+
+# ``Halo::kMaxPitch`` of csrc/conv.cu: the widest W + 2 the halo route takes
+HALO_MAX_PITCH = 256
+# the halo route's tile rows (``Halo::BM``): grid points up to the last
+# tile's halo are ints in the kernel
+_HALO_BM = 256
 
 _build.declare("conv.cu", "igemm_conv_launch", ctypes.c_int,
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                + [ctypes.c_void_p])
+_build.declare("conv.cu", "conv_halo_launch", ctypes.c_int,
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+               + [ctypes.c_void_p])
+
+
+def conv_route(dtype: torch.dtype, n: int, h: int, w: int, c: int, o: int,
+               aligned: bool) -> str:
+    """The kernel a launch takes: ``"halo"`` for bfloat16 with C and O
+    multiples of 64, x, w and out 16-byte aligned (``aligned``), W + 2 <=
+    ``HALO_MAX_PITCH`` and the grid of pitch W + 2 within int range;
+    ``"gather"`` otherwise (float32, the CIFAR stem's C = 3, ragged
+    channels)."""
+    pitch = w + 2
+    if (dtype == torch.bfloat16 and c % 64 == 0 and o % 64 == 0 and aligned
+            and pitch <= HALO_MAX_PITCH
+            and (n * (h + 1) - 1) * pitch + 2 * pitch + 2 * _HALO_BM
+            < 2 ** 31 - 1):
+        return "halo"
+    return "gather"
 
 
 # ------------------------------------------------------------ plain versions
@@ -110,19 +144,30 @@ def _check(x: torch.Tensor, w: torch.Tensor):
 def _launch(x, w, a, b, fused: bool) -> torch.Tensor:
     n, h, wd, c, o = _check(x, w)
     out = torch.empty((n, h, wd, o), dtype=x.dtype, device=x.device)
-    per = 16 // x.element_size()
-    vec = int(c % per == 0 and o % per == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, w, out)))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
+    route = conv_route(x.dtype, n, h, wd, c, o, aligned)
     lib = _build.load_kernel_library("conv.cu")
-    args = (x.data_ptr(), w.data_ptr(),
+    ptrs = (x.data_ptr(), w.data_ptr(),
             a.data_ptr() if fused else None, b.data_ptr() if fused else None,
-            out.data_ptr(), n, h, wd, c, o, _DTYPE_CODE[x.dtype], int(fused),
-            vec)
+            out.data_ptr())
     with torch.cuda.device(x.device):
-        rc = lib.igemm_conv_launch(
-            *args, torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "halo":
+            # scratch for w in the kernel's stage layout
+            wp = torch.empty_like(w)
+            name = "conv_halo_launch"
+            rc = lib.conv_halo_launch(*ptrs, wp.data_ptr(), n, h, wd, c, o,
+                                      int(fused), stream)
+        else:
+            per = 16 // x.element_size()
+            vec = int(c % per == 0 and o % per == 0 and aligned)
+            name = "igemm_conv_launch"
+            rc = lib.igemm_conv_launch(*ptrs, n, h, wd, c, o,
+                                       _DTYPE_CODE[x.dtype], int(fused), vec,
+                                       stream)
     if rc != 0:
-        raise RuntimeError(f"igemm_conv_launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+    route_launches[route] += 1
     return out
 
 

@@ -2,9 +2,12 @@
 // written by hand; optionally with a folded batch norm and a ReLU in its
 // epilogue.
 //
-// Replaces the two Pallas TPU kernels of benchmark/conv_probe.py:
-//   igemm_kernel<T, false, V>  <- _igemm_kernel        (via igemm_conv)
-//   igemm_kernel<T, true, V>   <- _igemm_fused_kernel  (via igemm_conv_fused)
+// Replaces the two Pallas TPU kernels of benchmark/conv_probe.py, each by
+// two routes (below):
+//   halo_kernel<false>, igemm_kernel<T, false, V>  <- _igemm_kernel
+//                                                      (via igemm_conv)
+//   halo_kernel<true>,  igemm_kernel<T, true, V>   <- _igemm_fused_kernel
+//                                                      (via igemm_conv_fused)
 //
 // What they compute, for x [N, H, W, C] (NHWC, un-padded) and w [3, 3, C, O]
 // (HWIO), with x read as zero outside the image (SAME padding of 1):
@@ -49,14 +52,52 @@
 // and stores (V = false).  One writer per output element and no atomics:
 // results repeat exactly from run to run.
 //
+// Two routes, chosen by shape in ops/conv.py::conv_route, each a hand
+// kernel (no fallback: the route is fixed before the launch):
+//   * the halo route, halo_kernel<kFused>: bfloat16 with C and O multiples
+//     of 64, aligned pointers and W + 2 <= 256, which is every ResNet 3x3
+//     stride-1 conv (C = O in {64, 128, 256, 512});
+//   * the gather route, igemm_kernel<T, kFused, V> above: everything else
+//     (float32, the CIFAR stem's C = 3, ragged channels).
+//
 // What bounds them on the H100 at ResNet-50's shapes (bs = 256): bfloat16
 // is on the line between bytes and operations (56x56x64: 59.2 GFLOP, 0.060
 // ms at 989 TFLOP/s, against 205.5 MB of x and output, 0.061 ms at 3.35
-// TB/s); float32 is bound by operations (0.883 ms at 67 TFLOP/s).  This is
-// the simple first kernel: mma.sync reaches a part of the tensor cores'
-// rate, and the two-stage ring, 16-byte bf16x2 epilogue stores and 128 x 64
-// tiles are not tuned.  Later work: wgmma fed by TMA, a deeper ring, a
-// shared-memory staged epilogue, tiles chosen by shape.
+// TB/s: bytes by a hair; 28x28x128: operations, 0.060 ms); float32 is bound
+// by operations (0.883 ms at 67 TFLOP/s).
+//
+// The gather route is the first kernel: each tap re-gathers its A slice,
+// so x crosses L2 nine times (925 MB at 56x56x64) and every 128-pixel block
+// reads all of w (462 MB more); mma.sync caps the rate; the short two-stage
+// ring waits on every 32-channel slice.  The halo route answers each:
+//   * x about once: a tile is 256 consecutive points of one grid of pitch
+//     W + 2 over all images (a zero column each side of a row, one zero row
+//     between images), so tap (dy, dx) is one constant shift of a halo
+//     buffer of 256 + 2 (W + 2) + 2 points, loaded once per 16 channels,
+//     zero where a point holds no pixel (a zero-filling cp.async, no padded
+//     copy of x): x crosses L2 1.46x at 56x56, 1.24x at 28x28.  The pitch
+//     columns and zero rows are computed and dropped: 5% of the rows at
+//     56x56, 10% at 28x28, 18% at 14x14, 32% at 7x7;
+//   * w once per 256-pixel tile, not once per 128-pixel block, and by the
+//     bulk-copy engine: a small kernel packs w into the stages' layout, so
+//     a stage's w (9 taps x 16 channels x 64 outputs, 18 KB) is one
+//     cp.async.bulk counted on an mbarrier, where 1,152 16-byte cp.async
+//     cost the kernel about a third of its time (PERF.md);
+//   * wgmma.m64n64k16 from shared memory: two warpgroups of 128 rows, the
+//     halo in the no-swizzle K-major core-matrix layout ([8-channel group]
+//     [point][8 channels]), so each tap's A is the same buffer at a start
+//     16 (dy (W + 2) + dx) bytes on; w MN-major with the transpose bit;
+//   * a three-stage ring (16 channels x 9 taps a stage), one barrier a
+//     stage, the next stage's copies issued while the products run; about
+//     91 KB at 56x56, so two blocks share an SM;
+//   * the epilogue staged through shared memory and stored as 128-byte
+//     rows, 16 bytes a thread.
+// Tried and dropped (PERF.md): multicasting w across a cluster of 2
+// or 4 (the cross-block release each stage cost more than the L2 reads it
+// saved), a warp of its own for the copies, a persistent grid, 512-row
+// and 64 x 128 tiles, a four-stage ring (one block an SM).  Later work:
+// the halo by TMA (a tile of whole image rows, so that a tensor map
+// zero-fills and lays out the halo), which needs a new tiling.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -426,6 +467,351 @@ int dispatch(const void* x, const void* w, const float* fa, const float* fb,
              : launch<T, false, false>(x, w, fa, fb, out, M, H, W, C, O, st);
 }
 
+// ------------------------------------------------------------ halo route
+//
+// bfloat16 with C and O multiples of 64, 16-byte aligned pointers and
+// W + 2 <= kMaxPitch.  The images lie on one grid of pitch G = W + 2: row
+// 0 is zeros, then image 0's H rows, a zero row, image 1's rows, ..., a
+// last zero row; each grid row is a zero pixel, the image row's W pixels
+// and a zero pixel.  Grid point g = R G + c' holds x[n, h, w] for R = n (H
+// + 1) + 1 + h, c' = 1 + w.  An output pixel at grid point q reads tap
+// (dy, dx) at q + (dy - 1) G + (dx - 1), so on this grid a tap is one
+// constant shift.  A tile is BM consecutive grid points from q0 = G + t BM
+// (the pitch columns, zero rows and points past the last image among them
+// are computed and dropped); its halo is the NP = BM + 2 G + 2 points from
+// q0 - G - 1, and output row r reads tap (dy, dx) at halo point r + dy G +
+// dx.  The block walks K in steps of KC channels: each step brings the
+// halo's KC channels and w's [9 taps][KC][BN] into one stage of the ring,
+// and runs the nine taps as products of the same halo buffer at nine start
+// points.
+struct Halo {
+  static constexpr int BM = 256, BN = 64, KC = 16, kStages = 3,
+                       kThreads = 256, kMinBlocks = 2, kMaxPitch = 256;
+};
+// bytes of one tap's [KC][BN] w slice and of a stage's nine
+constexpr int kHaloWTap = Halo::KC * Halo::BN * 2;
+constexpr int kHaloWBytes = 9 * kHaloWTap;
+// the output tile staged for the stores: [BM][kHaloLDO] bf16 (8 pad
+// columns keep the accumulator writes off one bank)
+constexpr int kHaloLDO = Halo::BN + 8;
+
+// Halo points of a tile, and the stride between the halo's two 8-channel
+// groups in points: NP rounded to 4 mod 8, so that the two groups a warp
+// writes fall on different banks.
+__host__ __device__ __forceinline__ int halo_points(int G) {
+  return Halo::BM + 2 * G + 2;
+}
+__host__ __device__ __forceinline__ int halo_group_stride(int G) {
+  return (halo_points(G) + 3) / 8 * 8 + 4;
+}
+// one stage: w [9][BN/8][KC][8] then the halo [KC/8][group stride][8]
+__host__ __device__ __forceinline__ int halo_stage_bytes(int G) {
+  const int b = kHaloWBytes + halo_group_stride(G) * Halo::KC * 2;
+  return (b + 127) / 128 * 128;
+}
+// the ring, then the w stages' barriers, then the halo's pixel table
+__host__ __device__ __forceinline__ int halo_smem_bytes(int G) {
+  return Halo::kStages * halo_stage_bytes(G) + 8 * Halo::kStages +
+         halo_points(G) * 4;
+}
+
+// A wgmma shared-memory descriptor, no swizzle (the INTERLEAVE core-matrix
+// layout: 8 rows of 16 bytes, 128 contiguous bytes a core matrix): start
+// address, LBO = the stride between core matrices along K, SBO = along M
+// (or N), each in 16-byte units.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+__device__ __forceinline__ void gmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void gmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void gmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators as written by an asm after the wait: nothing reads them
+// before the products are done
+__device__ __forceinline__ void gmma_hold(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// cp.async's copies are generic-proxy writes; wgmma reads through the
+// async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers (shared::cta addresses)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// wait for the phase of the given parity to complete; a wait that never
+// ends traps (a launch error) rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (int spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1 << 22)) __trap();
+  }
+}
+// `bytes` from global memory into shared memory by the bulk-copy engine,
+// counted on the barrier at `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// d += A . B for a 64 x 64 tile, k = 16: A K-major (a 64 x 16 slice of the
+// halo), B MN-major (w's [16][64], output channels contiguous: the
+// transpose bit)
+__device__ __forceinline__ void gmma_m64n64k16(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The output pixel (n H + h) W + w of grid point q, or -1 for a pitch
+// column, a zero row or a point past the last image.
+__device__ __forceinline__ int grid_pixel(int q, int N, int H, int W,
+                                          int G) {
+  if (q < 0) return -1;
+  const int R = q / G, c = q - R * G;
+  const int n = R / (H + 1), r = R - n * (H + 1);
+  if (n >= N || r < 1 || c < 1 || c > W) return -1;
+  return (n * H + r - 1) * W + c - 1;
+}
+
+// w [9C, O] (row-major) into the stages' layout: wp [O / BN][C / KC][tap]
+// [BN / 8][KC][8], so that the w of one (output-channel tile, step) is
+// kHaloWBytes contiguous bytes, one bulk copy.  One thread a 16-byte row.
+__global__ void halo_pack_w(const uint4* __restrict__ w,
+                            uint4* __restrict__ wp, int C, int O) {
+  constexpr int BN = Halo::BN, KC = Halo::KC;
+  const int64_t rows = (int64_t)9 * C * (O / 8);
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < rows;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t kr = i / (O / 8);
+    const int oc = (int)(i - kr * (O / 8));
+    const int tap = (int)(kr / C), c = (int)(kr - (int64_t)tap * C);
+    const int64_t dst =
+        ((((int64_t)(oc / (BN / 8)) * (C / KC) + c / KC) * 9 + tap) *
+             (BN / 8) + oc % (BN / 8)) * KC + c % KC;
+    wp[dst] = w[i];
+  }
+}
+
+// One block: the BM grid points from q0 x BN output channels from o0.
+// Two warpgroups, each 128 rows as two m64 products.
+template <bool kFused>
+__global__ void __launch_bounds__(Halo::kThreads, Halo::kMinBlocks)
+    halo_kernel(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ wp,
+                const float* __restrict__ fa, const float* __restrict__ fb,
+                __nv_bfloat16* __restrict__ out, int N, int H, int W, int C,
+                int O, int n_ot) {
+  constexpr int BM = Halo::BM, BN = Halo::BN, KC = Halo::KC,
+                S = Halo::kStages, NT = Halo::kThreads;
+  static_assert(BN == 64 && KC == 16 && BM % 128 == 0 && NT == BM,
+                "the copy maps and the m64n64k16 products are written for "
+                "these tiles, a warpgroup of 128 threads for 128 rows");
+  static_assert(BM * kHaloLDO * 2 <= S * kHaloWBytes,
+                "the staged output tile fits the ring");
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int G = W + 2;
+  const int NP = halo_points(G), GS = halo_group_stride(G);
+  const int stage_bytes = halo_stage_bytes(G);
+  const uint32_t base = smem_u32(smem);
+  // full[st]: the stage's w has landed
+  const uint32_t full = base + S * stage_bytes;
+  int* s_src = reinterpret_cast<int*>(smem + S * stage_bytes + 8 * S);
+
+  const int q0 = G + (int)(blockIdx.x / n_ot) * BM;
+  const int o0 = (int)(blockIdx.x % n_ot) * BN;
+  const int n_steps = C / KC;
+  const __nv_bfloat16* w_tile = wp + (int64_t)(o0 / BN) * n_steps *
+                                         (kHaloWBytes / 2);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) mbar_init(full + 8 * st, 1);
+    // the barriers are set before the bulk-copy engine reaches them
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // each halo point's pixel in x, decoded once a tile
+  for (int p = threadIdx.x; p < NP; p += NT)
+    s_src[p] = grid_pixel(q0 - G - 1 + p, N, H, W, G);
+  __syncthreads();
+
+  // step s (channels s KC on) into stage st.  w, by thread 0: one bulk copy
+  // of kHaloWBytes, counted on the stage's full barrier.  The halo:
+  // [group][point][8], zero where a point holds no pixel, by 16-byte
+  // cp.async (lanes on consecutive points, so each quarter-warp writes 128
+  // contiguous bytes).
+  auto load_step = [&](int s, int st) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full + 8 * st, kHaloWBytes);
+      bulk_copy(base + st * stage_bytes,
+                w_tile + (int64_t)s * (kHaloWBytes / 2), kHaloWBytes,
+                full + 8 * st);
+    }
+    uint8_t* hb = smem + st * stage_bytes + kHaloWBytes;
+    const int c0 = s * KC;
+    for (int i = threadIdx.x; i < NP * (KC / 8); i += NT) {
+      const int grp = i % (KC / 8), p = i / (KC / 8);
+      const int pix = s_src[p];
+      const __nv_bfloat16* src =
+          pix >= 0 ? x + (int64_t)pix * C + c0 + grp * 8 : x;
+      cp_async16(hb + (grp * GS + p) * 16, src, pix >= 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n_steps) load_step(s, s);
+    cp_async_commit();
+  }
+
+  const int wg = threadIdx.x >> 7;
+  float acc[2][32];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mi][i] = 0.f;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<S - 2>();   // this thread's copies of step s are in
+    fence_proxy_async();
+    __syncthreads();          // everyone's; and step s - 1's products done
+    mbar_wait(full + 8 * (s % S), (s / S) & 1);   // step s's w is in
+    const uint32_t wb = base + (s % S) * stage_bytes;
+    const uint32_t hb = wb + kHaloWBytes;
+    gmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * G + tap % 3;
+      const uint64_t db = gmma_desc(wb + tap * kHaloWTap, 128, KC * 16);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        gmma_m64n64k16(acc[mi],
+                       gmma_desc(hb + (wg * 128 + mi * 64 + shift) * 16,
+                                 GS * 16, 128),
+                       db);
+    }
+    gmma_commit();
+    // the stage step s - 1 used is free: refill it while the products run
+    if (s + S - 1 < n_steps) load_step(s + S - 1, (s + S - 1) % S);
+    cp_async_commit();
+    gmma_wait<0>();
+    gmma_hold(acc[0]);
+    gmma_hold(acc[1]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every product has read its stage: reuse the ring
+
+  // the epilogue into a [BM][kHaloLDO] tile: warp wq of the warpgroup holds
+  // rows 16 wq + lane / 4 (+ 8) of each m64 product, channels 8 j + 2
+  // (lane % 4) (+ 1) in d[4 j + 2 h + e]
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    const float a0 = kFused ? fa[o0 + c] : 1.f, a1 = kFused ? fa[o0 + c + 1] : 1.f;
+    const float b0 = kFused ? fb[o0 + c] : 0.f, b1 = kFused ? fb[o0 + c + 1] : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wg * 128 + mi * 64 + wq * 16 + (lane >> 2) + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(os + r * kHaloLDO + c) =
+            __floats2bfloat162_rn(
+                epilogue<kFused>(acc[mi][4 * j + 2 * h], a0, b0),
+                epilogue<kFused>(acc[mi][4 * j + 2 * h + 1], a1, b1));
+      }
+  }
+  __syncthreads();
+  // the pixels' rows, 16 bytes a thread, eight threads a 128-byte row;
+  // pitch columns, zero rows and points past the images are dropped
+  for (int i = threadIdx.x; i < BM * (BN / 8); i += NT) {
+    const int r = i >> 3, ch = i & 7;
+    const int pix = grid_pixel(q0 + r, N, H, W, G);
+    if (pix < 0) continue;
+    *reinterpret_cast<uint4*>(out + (int64_t)pix * O + o0 + ch * 8) =
+        *reinterpret_cast<const uint4*>(os + r * kHaloLDO + ch * 8);
+  }
+}
+
+template <bool kFused>
+int launch_halo(const void* x, const void* w, const float* fa,
+                const float* fb, void* out, void* wp, int N, int H, int W,
+                int C, int O, cudaStream_t st) {
+  constexpr int BM = Halo::BM;
+  const int G = W + 2;
+  // grid points up to the last tile's halo must fit an int
+  const int64_t L = ((int64_t)N * (H + 1) - 1) * G;
+  if (L + 2 * (int64_t)G + 2 * BM >= 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  static bool sized = false;   // the attribute, once per instantiation
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        halo_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        halo_smem_bytes(Halo::kMaxPitch));
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const int64_t n_mt = (L + BM - 1) / BM;
+  const int n_ot = O / Halo::BN;
+  const int64_t blocks = n_mt * n_ot;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  const int64_t w_rows = (int64_t)9 * C * (O / 8);
+  halo_pack_w<<<(unsigned)((w_rows + 255) / 256), 256, 0, st>>>(
+      static_cast<const uint4*>(w), static_cast<uint4*>(wp), C, O);
+  halo_kernel<kFused><<<(unsigned)blocks, Halo::kThreads, halo_smem_bytes(G),
+                        st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(wp), fa, fb,
+      static_cast<__nv_bfloat16*>(out), N, H, W, C, O, n_ot);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One launch of the convolution on `stream`: x [N, H, W, C] and w [3, 3, C,
@@ -451,4 +837,31 @@ extern "C" int igemm_conv_launch(const void* x, const void* w, const float* a,
     return dispatch<__nv_bfloat16>(x, w, a, b, out, M, H, W, C, O, fused, vec,
                                    st);
   return (int)cudaErrorInvalidValue;
+}
+
+// One launch of the halo route on `stream`: bfloat16 x [N, H, W, C] and w
+// [3, 3, C, O], out [N, H, W, O]; with `fused`, a and b are float32 [O];
+// wp is scratch of w's size, which takes w in the stages' layout (a small
+// packing kernel runs first, on the same stream).
+// The caller routes here only when C and O are multiples of 64, W + 2 <=
+// 256 and x, w and out are 16-byte aligned (ops/conv.py::conv_route);
+// anything else returns cudaErrorInvalidValue.  Returns the CUDA error of
+// the launch (0 when it was accepted).
+extern "C" int conv_halo_launch(const void* x, const void* w, const float* a,
+                                const float* b, void* out, void* wp, int N,
+                                int H, int W, int C, int O, int fused,
+                                void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1)
+    return (int)cudaErrorInvalidValue;
+  if (C % 64 != 0 || O % 64 != 0 || W + 2 > Halo::kMaxPitch)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out | (uintptr_t)wp) % 16 !=
+      0)
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)N * H * W > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (fused && (a == nullptr || b == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return fused ? launch_halo<true>(x, w, a, b, out, wp, N, H, W, C, O, st)
+               : launch_halo<false>(x, w, a, b, out, wp, N, H, W, C, O, st);
 }

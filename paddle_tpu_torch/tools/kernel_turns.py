@@ -1,8 +1,9 @@
 """Time the paged decode-attention, flash-forward and flash-backward kernels
-of one checkout of the port, so that two versions can be compared in turns
-on one card.
+of one checkout of the port, or (``--conv``) its 3x3 conv kernels, so that
+two versions can be compared in turns on one card.
 
     python3 paddle_tpu_torch/tools/kernel_turns.py --tree DIR [--label L]
+    python3 paddle_tpu_torch/tools/kernel_turns.py --tree DIR --conv
 
 Imports ``paddle_tpu_torch`` from the checkout ``DIR`` (another version of
 this package: only ``paged_attention``, ``quantize_kv``,
@@ -17,9 +18,14 @@ difference from the plain version (for the backward also over the
 gradient's max |g|), the event-timed call and the device time
 (``chip_smoke.both_ms``), and the bound; the flash kernels' registers and
 spills as ptxas reported them when this run built them.  Prints one JSON
-line.  Run it for the old and the new checkout in turns, in one call on
-one card (old, new, new, old): the card's power limit and its neighbours
-differ between calls.
+line.  With ``--conv`` the cases are instead ``igemm_conv_kernel`` and
+``igemm_conv_fused_kernel`` (the signatures every version since the conv
+kernels came has) at ``chip_smoke.py``'s four ResNet stride-1 shapes
+(c56, c28, c14, c7) in bfloat16 and at c56 in float32, each with its worst
+error over ``chip_smoke``'s limit against the plain version, the two
+times and the bound, and ptxas's report for ``conv.cu``.  Run it for the
+old and the new checkout in turns, in one call on one card (old, new, new,
+old): the card's power limit and its neighbours differ between calls.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", required=True,
                     help="checkout whose paddle_tpu_torch is timed")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--conv", action="store_true",
+                    help="time the conv kernels instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     sys.path.insert(1, str(HERE))
@@ -52,6 +60,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns needs a CUDA card")
     dev = torch.device("cuda")
+    if args.conv:
+        print(json.dumps({"label": args.label or args.tree,
+                          "package": str(Path(paddle_tpu_torch.__file__)
+                                         .parent),
+                          "card": paddle_tpu_torch.card_info(0),
+                          **_conv_turn(cs, dev)}))
+        return 0
     res = {"label": args.label or args.tree,
            "package": str(Path(paddle_tpu_torch.__file__).parent),
            "card": paddle_tpu_torch.card_info(0), "paged": {}, "flash": {}}
@@ -114,6 +129,59 @@ def main(argv=None) -> int:
             _build.build_logs.get("flash_attention.cu", ""))]
     print(json.dumps(res))
     return 0
+
+
+def _conv_turn(cs, dev) -> dict:
+    """The conv cases (see the module note): {"conv": {case: record},
+    "ptxas": [...]}."""
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import conv as TC
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
+    shapes = {label: dims for label, *dims in cs.CONV_CASES}
+    out = {}
+    for dtype, labels in ((torch.bfloat16, ("c56", "c28", "c14", "c7")),
+                          (torch.float32, ("c56",))):
+        kind = str(dtype).replace("torch.", "")
+        for label in labels:
+            n, h, w, c, o = shapes[label]
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(n + h * w + c + o)
+            x = torch.randn((n, h, w, c), generator=gen,
+                            device=dev).to(dtype)
+            wt = (torch.randn((3, 3, c, o), generator=gen, device=dev)
+                  / (9 * c) ** 0.5).to(dtype)
+            a = torch.rand(o, generator=gen, device=dev) + 0.5
+            b = torch.randn(o, generator=gen, device=dev) * 0.3
+            for kern, fn, plain in (
+                    ("igemm", lambda i: TC.igemm_conv_kernel(x, wt),
+                     lambda: TC.igemm_conv_reference(x, wt)),
+                    ("fused", lambda i: TC.igemm_conv_fused_kernel(
+                        x, wt, a, b),
+                     lambda: TC.igemm_conv_fused_reference(x, wt, a, b))):
+                got, want = fn(0), plain()
+                top = float(want.float().abs().max())
+                if dtype == torch.float32:
+                    worst = cs._abs(got, want) / (cs.CONV_F32_REL * top)
+                else:
+                    worst = cs._worst(got, want,
+                                      2 * cs.BF16_U * want.float().abs()
+                                      + cs.CONV_BF16_SUM_REL * top)
+                del got, want
+                ms, dev_ms = cs.both_ms(fn)
+                out[f"{kern} {label} {kind}"] = {
+                    "worst_over_limit": worst, "ms": ms,
+                    "device_ms": dev_ms,
+                    "bound_ms": cs._conv_bound(kern, n, h, w, c, o,
+                                               dtype)[0]}
+            del x, wt
+            torch.cuda.empty_cache()
+    return {"conv": out, "ptxas": [
+        {"kernel": name, "registers": regs, "spill_bytes": spill}
+        for name, regs, spill in cs._ptxas_report(
+            _build.build_logs.get("conv.cu", ""))]}
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ slices of one tap and BK channels, each pixel's taps gathered from NHWC x
 by a pixel offset, zeros outside the image, w read as the row-major [9C, O]
 matrix) is transcribed with the slice depths read from the source and held
 against the plain version, since the kernels run only on the card, where
-``chip_smoke.py`` holds them against the plain versions."""
+``chip_smoke.py`` holds them against the plain versions.  This walk is
+the gather route's (``igemm_kernel``); ``tests/test_torch_conv_halo.py``
+transcribes the halo route's."""
 import importlib.util
 import re
 from pathlib import Path
@@ -181,12 +183,17 @@ def test_kernel_walk_matches_plain_version(shape, kind):
 
 
 def test_tiles_and_dtype_codes_match_source():
-    """The tiles the kernel comments describe (128 x 64; BK 32 in bf16 on
-    four warps, 16 in float32 on 256 threads) and the dtype codes the
-    wrapper sends."""
+    """The tiles the kernel comments describe: the gather route's 128 x 64
+    (BK 32 in bf16 on four warps, 16 in float32 on 256 threads), the halo
+    route's 256 grid points x 64 channels, 16 channels a stage in a
+    three-stage ring, two warpgroups, rows up to 256 points; and the dtype
+    codes the wrapper sends."""
     assert _tiles() == {"bfloat16": (128, 64, 32, 128),
                         "float32": (128, 64, 16, 256)}
     src = CU.read_text()
+    assert ("struct Halo {\n  static constexpr int BM = 256, BN = 64, "
+            "KC = 16, kStages = 3,\n                       kThreads = 256, "
+            "kMinBlocks = 2, kMaxPitch = 256;\n};") in src
     assert "enum DType { kF32 = 0, kBF16 = 1 };" in src
     assert TC._DTYPE_CODE == {torch.float32: 0, torch.bfloat16: 1}
 
