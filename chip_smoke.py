@@ -72,13 +72,14 @@ Phases (any failure exits non-zero, before the final line):
                benchmark/conv_probe.py's, [256,14,14,256]x256,
                [256,7,7,512]x512) and two ragged ones ([3,13,9,3]x40 on the
                element-wise path, [3,13,9,16]x24 on the 16-byte one), each
-               case on the route ops/conv.py::conv_route gives it (bfloat16
-               ResNet shapes on the halo kernel, the rest on the gather
-               kernel), checked by the route counts; timed, bfloat16 at the
-               four ResNet shapes and float32 at the probe's two, beside the
-               plain versions and cuDNN (F.conv2d, then the batch norm's
-               scale and shift and the ReLU as separate passes, on the same
-               NHWC tensor as a channels_last view and on an NCHW copy);
+               case on the route ops/conv.py::conv_route gives it (ResNet
+               shapes on the halo kernel in bfloat16 and on the halo_f32
+               kernel, three TF32 passes, in float32; the ragged ones on the
+               gather kernel), checked by the route counts; timed in both
+               dtypes at the four ResNet shapes, beside the plain versions
+               and cuDNN (F.conv2d, then the batch norm's scale and shift
+               and the ReLU as separate passes, on the same NHWC tensor as
+               a channels_last view and on an NCHW copy);
  10. resnet infer - the is_test program benchmark/resnet.py's infer configs
                prune to (build, 1000 classes, 224x224, weights and running
                statistics from seed 0), through Program.prune and
@@ -90,7 +91,7 @@ Phases (any failure exits non-zero, before the final line):
                the card, with the conv launch counts set to 0 before and
                read after (fused 13 x 5 on ResNet-50; fused 5 x 5 and plain
                8 x 5 on ResNet-18; under amp every one on the halo route,
-               in float32 every one on the gather route), images/s from the
+               in float32 every one on the halo_f32 route), images/s from the
                median of steps 2-5, peak memory.
 Each phase prints its seconds.  The line before the card line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -108,6 +109,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12,     # CUDA-core float32
                   torch.bfloat16: 989e12,   # dense tensor-core bf16
                   torch.int8: 1979e12}      # dense tensor-core int8
+# dense tensor-core TF32; a float32-accurate product on the tensor cores is
+# TF32_PASSES TF32 products (hi and lo parts of each operand)
+TF32_OPS_PER_S = 495e12
+TF32_PASSES = 3
 
 LM_CFG = dict(vocab_size=32000, max_len=1024, d_model=512, n_heads=8,
               n_layers=6, d_ff=2048)
@@ -182,16 +187,18 @@ CONV_F32_REL = 2e-5
 CONV_BF16_SUM_REL = 1e-3
 CONV_KERNELS = ("igemm", "fused")
 # (label, N, H, W, C, O); "c56" and "c28" are benchmark/conv_probe.py's
-# shapes, timed; the ragged ones leave a part-filled last pixel tile and
+# shapes; the ragged ones leave a part-filled last pixel tile and
 # output-channel tile, "ragged" on the element-wise path (C = 3),
 # "ragged16" on the 16-byte one
 CONV_CASES = [("c56", 256, 56, 56, 64, 64), ("c28", 256, 28, 28, 128, 128),
               ("c14", 256, 14, 14, 256, 256), ("c7", 256, 7, 7, 512, 512),
               ("ragged", 3, 13, 9, 3, 40), ("ragged16", 3, 13, 9, 16, 24)]
-# ResNet's four stride-1 shapes: on the halo route in bfloat16, and timed
-# there; float32 is timed at the probe's two
+# ResNet's four stride-1 shapes: on the halo route in bfloat16 and the
+# halo_f32 route in float32 (the ragged ones on the gather route), timed in
+# both dtypes
 CONV_RESNET = ("c56", "c28", "c14", "c7")
-CONV_TIMED = {torch.bfloat16: CONV_RESNET, torch.float32: ("c56", "c28")}
+CONV_ROUTE = {torch.bfloat16: "halo", torch.float32: "halo_f32"}
+CONV_TIMED = {torch.bfloat16: CONV_RESNET, torch.float32: CONV_RESNET}
 # ResNet inference: card against CPU on INFER_PARITY_BATCH images, float32
 # logits within INFER_F32_REL of max |.| (float32 sums in another order
 # through 50 layers), bfloat16 logits element by element within 2u |.| +
@@ -1492,17 +1499,20 @@ def phase_resnet_train(card: str) -> dict:
     return arms
 
 
-def _conv_bound(kernel: str, n, h, w, c, o, dtype) -> tuple:
+def _conv_bound(kernel: str, n, h, w, c, o, dtype, ffma=False) -> tuple:
     """(bound_ms, bound_by) for one call: x, w (and a, b) read once and the
     output written once; operations are the 2 N H W 9 C O of the nine taps
-    at the dtype's peak (bfloat16 on the tensor cores, float32 on the CUDA
-    cores), plus, fused, 3 float32 operations an output (scale, shift,
-    ReLU)."""
+    on the tensor cores (bfloat16 at its peak; float32 as TF32_PASSES TF32
+    products, the least that gives a float32-accurate product there, or,
+    with ``ffma``, at the CUDA cores' float32 peak), plus, fused, 3 float32
+    operations an output (scale, shift, ReLU) on the CUDA cores."""
     it = torch.empty((), dtype=dtype).element_size()
     fused = kernel == "fused"
     nbytes = (n * h * w * c + 9 * c * o + n * h * w * o) * it \
         + (2 * o * 4 if fused else 0)
-    t_ops = 2.0 * n * h * w * 9 * c * o / PEAK_OPS_PER_S[dtype] \
+    rate = (PEAK_OPS_PER_S[dtype] if dtype != torch.float32 or ffma
+            else TF32_OPS_PER_S / TF32_PASSES)
+    t_ops = 2.0 * n * h * w * 9 * c * o / rate \
         + (3.0 * n * h * w * o / PEAK_OPS_PER_S[torch.float32] if fused
            else 0.0)
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1513,8 +1523,9 @@ def _conv_bound(kernel: str, n, h, w, c, o, dtype) -> tuple:
 def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
     """Both kernels against their plain versions on the same inputs, each
     on its route (the route counts must show the route conv_route gives;
-    bfloat16 ResNet shapes must take the halo kernel); at the CONV_TIMED
-    shapes also the times.  Returns the records by kernel."""
+    ResNet shapes must take the halo kernel in bfloat16 and the halo_f32
+    kernel in float32, the ragged ones the gather kernel); at the
+    CONV_TIMED shapes also the times.  Returns the records by kernel."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import conv as TC
@@ -1533,7 +1544,7 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
     plain = {"igemm": lambda i: TC.igemm_conv_reference(x, wt),
              "fused": lambda i: TC.igemm_conv_fused_reference(x, wt, a, b)}
     route = TC.conv_route(dtype, n, h, w, c, o, True)
-    check(route == ("halo" if kind == "bfloat16" and label in CONV_RESNET
+    check(route == (CONV_ROUTE[dtype] if label in CONV_RESNET
                     else "gather"),
           f"{name}: conv_route gives the {route} route")
     errs = {}
@@ -1607,6 +1618,12 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
             "library": ("F.conv2d (cuDNN)" if k == "igemm" else
                         "F.conv2d (cuDNN), then * a + b and relu as "
                         "separate passes") + " on the channels_last view"}
+        ffma = ""
+        if dtype == torch.float32:   # the CUDA cores' FFMA bound beside it
+            recs[k]["bound_ffma_ms"] = _conv_bound(k, n, h, w, c, o, dtype,
+                                                   ffma=True)[0]
+            ffma = (f"; FFMA bound {recs[k]['bound_ffma_ms']:.4f} ms, "
+                    f"{recs[k]['bound_ffma_ms'] / dev_ms:.3f} of it")
         print(f"kernel {name} {k} ({route} route): {ms:.4f} ms (device "
               f"{dev_ms:.4f}), plain "
               f"{pl_ms:.4f} ms (device {pl_dev:.4f}), cuDNN channels_last "
@@ -1614,8 +1631,8 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
               f"{lib_t['channels_last'][1]:.4f}), NCHW "
               f"{lib_t['nchw'][0]:.4f} ms (device {lib_t['nchw'][1]:.4f}; "
               f"its error {lib_err:.3e} of max|out|), bound {bound_ms:.4f} "
-              f"ms ({bound_by}; device time {bound_ms / dev_ms:.3f} of it) "
-              f"on {card}")
+              f"ms ({bound_by}; device time {bound_ms / dev_ms:.3f} of it"
+              f"{ffma}) on {card}")
     return recs
 
 
@@ -1785,9 +1802,10 @@ def _infer_arm(model: str, depth: int, amp: bool, card: str) -> dict:
     check(launches == want, f"resnet infer {arm}: conv launches {launches}, "
                             f"expected {want}")
     # every bfloat16 ResNet conv on the halo kernel, every float32 one on
-    # the gather kernel
+    # the halo_f32 kernel
     total = sum(want.values())
-    want_routes = {"halo": total if amp else 0, "gather": 0 if amp else total}
+    want_routes = {"halo": total if amp else 0,
+                   "halo_f32": 0 if amp else total, "gather": 0}
     check(routes == want_routes, f"resnet infer {arm}: route launches "
                                  f"{routes}, expected {want_routes}")
     last = outs[-1]
@@ -1918,9 +1936,28 @@ def main() -> int:
             "c28": convk["bfloat16"]["c28"][kern],
             "c14": convk["bfloat16"]["c14"][kern],
             "c7": convk["bfloat16"]["c7"][kern],
+            # float32 on the halo_f32 route (each record's conv_route)
             "float32": convk["float32"]["c56"][kern],
             "float32_c28": convk["float32"]["c28"][kern],
+            "float32_c14": convk["float32"]["c14"][kern],
+            "float32_c7": convk["float32"]["c7"][kern],
         })
+    # the float32 fused kernel, on the main path of ResNet-50 float32
+    # inference
+    kernels.append({
+        "name": "conv_igemm_fused_f32", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/conv.cu",
+        "replaces": replaces["fused"],
+        "case": "float32, N=256, 56x56, C=O=64 (the probe's c56), on the "
+                "halo_f32 route (three TF32 wgmma passes)",
+        # launches: the resnet50-infer float32 arm's own count
+        "launches": infer["resnet50-infer float32"]["launches"]["fused"],
+        **convk["float32"]["c56"]["fused"],
+        "route_launches": infer["resnet50-infer float32"]["route_launches"],
+        "c28": convk["float32"]["c28"]["fused"],
+        "c14": convk["float32"]["c14"]["fused"],
+        "c7": convk["float32"]["c7"]["fused"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,15 @@ vectors of any float dtype, used in float32.
   :func:`conv_route` picks the kernel by shape before the launch: the halo
   route (``halo_kernel``, wgmma over a halo tile) for bfloat16 with C and O
   multiples of 64, 16-byte aligned pointers and W + 2 <= 256, which is
-  every ResNet 3x3 stride-1 conv; the gather route (``igemm_kernel``) for
-  everything else.  Both are hand kernels; a launch that fails on either
-  raises.  A halo-route call enqueues two kernels: ``halo_pack_w`` packs w
-  into a scratch tensor in the kernel's stage layout, then ``halo_kernel``.
+  every ResNet 3x3 stride-1 conv; the halo_f32 route (``halo_f32_kernel``,
+  the same halo tile with float32 products as three TF32 wgmma passes) for
+  float32 with the same channels and pointers and W + 2 <= 184; the gather
+  route (``igemm_kernel``) for everything else.  All are hand kernels; a
+  launch that fails on any raises.  A halo-route call enqueues two kernels:
+  ``halo_pack_w`` packs w into a scratch tensor in the kernel's stage
+  layout, then ``halo_kernel``; a halo_f32 call likewise
+  ``halo_f32_pack_w`` (w split into its TF32 hi and lo parts, scratch of
+  twice w's size), then ``halo_f32_kernel``.
 * On CPU tensors they run the plain versions,
   :func:`igemm_conv_reference` and :func:`igemm_conv_fused_reference`,
   which transcribe the probe's ``_igemm_accumulate`` and epilogue: nine
@@ -28,7 +33,7 @@ vectors of any float dtype, used in float32.
 
 ``launches`` counts kernel calls, one per call of each wrapper:
 ``{"igemm": n, "fused": n}``; ``route_launches`` the same calls by route,
-``{"halo": n, "gather": n}``.  Plain-version calls never count.
+``{"halo": n, "halo_f32": n, "gather": n}``.  Plain-version calls never count.
 """
 from __future__ import annotations
 
@@ -42,35 +47,40 @@ from . import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"igemm": 0, "fused": 0}
-route_launches = {"halo": 0, "gather": 0}
+route_launches = {"halo": 0, "halo_f32": 0, "gather": 0}
 
 # ``Halo::kMaxPitch`` of csrc/conv.cu: the widest W + 2 the halo route takes
 HALO_MAX_PITCH = 256
-# the halo route's tile rows (``Halo::BM``): grid points up to the last
-# tile's halo are ints in the kernel
+# ``HaloF32::kMaxPitch``: the widest W + 2 (to 8 points) whose two-stage
+# ring fits the block's shared memory on the halo_f32 route
+HALO_F32_MAX_PITCH = 184
+# the halo routes' tile rows (``Halo::BM``, ``HaloF32::BM``): grid points
+# up to the last tile's halo are ints in the kernels
 _HALO_BM = 256
 
 _build.declare("conv.cu", "igemm_conv_launch", ctypes.c_int,
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                + [ctypes.c_void_p])
 _build.declare("conv.cu", "conv_halo_launch", ctypes.c_int,
-               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                + [ctypes.c_void_p])
 
 
 def conv_route(dtype: torch.dtype, n: int, h: int, w: int, c: int, o: int,
                aligned: bool) -> str:
-    """The kernel a launch takes: ``"halo"`` for bfloat16 with C and O
-    multiples of 64, x, w and out 16-byte aligned (``aligned``), W + 2 <=
-    ``HALO_MAX_PITCH`` and the grid of pitch W + 2 within int range;
-    ``"gather"`` otherwise (float32, the CIFAR stem's C = 3, ragged
-    channels)."""
+    """The kernel a launch takes: with C and O multiples of 64, x, w and
+    out 16-byte aligned (``aligned``) and the grid of pitch W + 2 within int
+    range, ``"halo"`` for bfloat16 with W + 2 <= ``HALO_MAX_PITCH`` and
+    ``"halo_f32"`` for float32 with W + 2 <= ``HALO_F32_MAX_PITCH``;
+    ``"gather"`` otherwise (the CIFAR stem's C = 3, ragged channels,
+    misaligned pointers, rows too wide)."""
     pitch = w + 2
-    if (dtype == torch.bfloat16 and c % 64 == 0 and o % 64 == 0 and aligned
-            and pitch <= HALO_MAX_PITCH
+    limit = {torch.bfloat16: HALO_MAX_PITCH,
+             torch.float32: HALO_F32_MAX_PITCH}.get(dtype, 0)
+    if (c % 64 == 0 and o % 64 == 0 and aligned and pitch <= limit
             and (n * (h + 1) - 1) * pitch + 2 * pitch + 2 * _HALO_BM
             < 2 ** 31 - 1):
-        return "halo"
+        return "halo" if dtype == torch.bfloat16 else "halo_f32"
     return "gather"
 
 
@@ -152,12 +162,15 @@ def _launch(x, w, a, b, fused: bool) -> torch.Tensor:
             out.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "halo":
-            # scratch for w in the kernel's stage layout
-            wp = torch.empty_like(w)
+        if route in ("halo", "halo_f32"):
+            # scratch for w in the kernel's stage layout (float32: its TF32
+            # hi and lo parts, twice w's size)
+            wp = torch.empty(w.numel() * (2 if route == "halo_f32" else 1),
+                             dtype=w.dtype, device=w.device)
             name = "conv_halo_launch"
             rc = lib.conv_halo_launch(*ptrs, wp.data_ptr(), n, h, wd, c, o,
-                                      int(fused), stream)
+                                      _DTYPE_CODE[x.dtype], int(fused),
+                                      stream)
         else:
             per = 16 // x.element_size()
             vec = int(c % per == 0 and o % per == 0 and aligned)

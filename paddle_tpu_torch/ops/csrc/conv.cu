@@ -3,11 +3,11 @@
 // epilogue.
 //
 // Replaces the two Pallas TPU kernels of benchmark/conv_probe.py, each by
-// two routes (below):
-//   halo_kernel<false>, igemm_kernel<T, false, V>  <- _igemm_kernel
-//                                                      (via igemm_conv)
-//   halo_kernel<true>,  igemm_kernel<T, true, V>   <- _igemm_fused_kernel
-//                                                      (via igemm_conv_fused)
+// three routes (below):
+//   halo_kernel<false>, halo_f32_kernel<false>,  <- _igemm_kernel
+//   igemm_kernel<T, false, V>                       (via igemm_conv)
+//   halo_kernel<true>, halo_f32_kernel<true>,    <- _igemm_fused_kernel
+//   igemm_kernel<T, true, V>                        (via igemm_conv_fused)
 //
 // What they compute, for x [N, H, W, C] (NHWC, un-padded) and w [3, 3, C, O]
 // (HWIO), with x read as zero outside the image (SAME padding of 1):
@@ -52,19 +52,24 @@
 // and stores (V = false).  One writer per output element and no atomics:
 // results repeat exactly from run to run.
 //
-// Two routes, chosen by shape in ops/conv.py::conv_route, each a hand
+// Three routes, chosen by shape in ops/conv.py::conv_route, each a hand
 // kernel (no fallback: the route is fixed before the launch):
 //   * the halo route, halo_kernel<kFused>: bfloat16 with C and O multiples
 //     of 64, aligned pointers and W + 2 <= 256, which is every ResNet 3x3
 //     stride-1 conv (C = O in {64, 128, 256, 512});
+//   * the halo_f32 route, halo_f32_kernel<kFused>: float32 with the same
+//     channels and pointers and W + 2 <= 184, every ResNet 3x3 stride-1
+//     conv in float32;
 //   * the gather route, igemm_kernel<T, kFused, V> above: everything else
-//     (float32, the CIFAR stem's C = 3, ragged channels).
+//     (the CIFAR stem's C = 3, ragged channels, misaligned pointers).
 //
 // What bounds them on the H100 at ResNet-50's shapes (bs = 256): bfloat16
 // is on the line between bytes and operations (56x56x64: 59.2 GFLOP, 0.060
 // ms at 989 TFLOP/s, against 205.5 MB of x and output, 0.061 ms at 3.35
 // TB/s: bytes by a hair; 28x28x128: operations, 0.060 ms); float32 is bound
-// by operations (0.883 ms at 67 TFLOP/s).
+// by operations: 0.883 ms at the CUDA cores' 67 TFLOP/s (the gather
+// route's FFMA), 0.359 ms as three TF32 passes at 495 TFLOP/s (the
+// halo_f32 route), against 411 MB of x and output, 0.123 ms.
 //
 // The gather route is the first kernel: each tap re-gathers its A slice,
 // so x crosses L2 nine times (925 MB at 56x56x64) and every 128-pixel block
@@ -98,6 +103,46 @@
 // and 64 x 128 tiles, a four-stage ring (one block an SM).  Later work:
 // the halo by TMA (a tile of whole image rows, so that a tensor map
 // zero-fills and lays out the halo), which needs a new tiling.
+//
+// The halo_f32 route replaces the gather route's float32 FFMA: the CUDA
+// cores' 67 TFLOP/s bound it at 0.883 ms (56x56x64), and cuDNN's float32
+// (TF32 off) is already past that at 28x28.  It keeps float32's accuracy
+// on the tensor cores by splitting each operand v into two TF32 values,
+// hi = rna_tf32(v) and lo = rna_tf32(v - hi) (cvt.rna.tf32.f32: 10 stored
+// mantissa bits, unit roundoff u = 2^-11), and summing three products,
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, in that order.  The error: |v - hi|
+// <= u |v|, and v - hi is exact in float32, so v = hi + lo + e with |e| <=
+// u |v - hi| <= u^2 |v|; then a b - (a_lo b_hi + a_hi b_lo + a_hi b_hi) =
+// a_lo b_lo + (terms in e_a, e_b), at most 3 u^2 (1 + O(u)) |a b| = 7.2e-7
+// |a b| a product, so at most 7.2e-7 sum |a b| over a sum of products.
+// With random data at ResNet's shapes sum |a b| is about (2 / pi) sqrt(K)
+// / 5 max |out|, 3 (K = 576) to 9 (K = 4608), so the split costs at most
+// 2.2e-6 to 6.5e-6 of max |out|, inside chip_smoke's 2e-5.  Each TF32 product is exact in
+// float32 (11 x 11 significant bits).  Three passes at 495 TFLOP/s bound the route
+// by operations at 0.359 ms at each ResNet shape (59.2 GFLOP); the bytes
+// (x and the output, 411 MB at 56x56x64) take 0.123 ms.  The design:
+//   * the halo route's grid of pitch W + 2 and 256-point tiles, the halo
+//     raw float32 by cp.async ([4-channel group][point][4]), each tap one
+//     shift; A from registers: each thread loads its fragment of the
+//     shifted halo and splits it there, so the halo is stored once;
+//   * w split and packed per call (halo_f32_pack_w) into the stages'
+//     layout, K-major (TF32 wgmma takes no transpose), hi and lo a stage's
+//     one bulk copy;
+//   * wgmma.m64n64k8 TF32, two warpgroups of 128 rows; 16 channels a step
+//     in a two-stage ring (about 193 KB at 56x56, one block an SM);
+//   * the tensor cores' float32 accumulation is not rounded to nearest:
+//     summed in one accumulator over K = 9 C products, the error grew with
+//     K and passed 2e-5 of max |out| at 7x7x512 (PERF.md).  So each step's
+//     products (9 taps x 16 channels, three passes) go into a fresh
+//     accumulator that is then added into the float32 sum by a rounded
+//     add, which keeps the worst error near 0.06 of the limit.
+// What holds it at 0.40-0.50 of its bound (PERF.md): the product stream
+// itself, one batch of m64n64k8 products a tap: with no fragment loads,
+// barriers or drains the same products reach only 0.54-0.68 of it; the
+// per-step barriers and drains add about 0.1 ms, the fragment loads and
+// splits 0.08-0.15 ms.  No better: a three-stage ring of 8 channels,
+// batches of three taps, two batches in flight, products issued pass by
+// pass, m64n128 products, A from shared memory (the same stream).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -812,6 +857,325 @@ int launch_halo(const void* x, const void* w, const float* fa,
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------------------- halo_f32 route
+//
+// float32 with C and O multiples of 64, 16-byte aligned pointers and W + 2
+// <= kMaxPitch: the halo route's grid and tiles (above), a ring of
+// kStages, with the products as three TF32 passes.  Each operand v is
+// split into hi = rna_tf32(v) and lo = rna_tf32(v - hi) (see the note at
+// the head), and part += a_lo b_hi + a_hi b_lo + a_hi b_hi, each a
+// wgmma.m64n64k8 TF32 product; acc += part at each step's end.  wgmma
+// takes TF32 operands K-major only, so:
+//   * w is packed with its input channels contiguous for each output
+//     channel, hi and lo: a stage is [hi, lo][9 taps][KC / 4][BN][4], one
+//     bulk copy; B's core matrices are 8 output channels x 4 channels;
+//   * A comes from registers: the halo is [KC / 4 group][point][4 floats]
+//     (raw float32, by cp.async), and each thread reads its m64 x k8
+//     fragment of the shifted halo (rows 16 wq + lane / 4 (+ 8), channels
+//     lane % 4 (+ 4)), four conflict-free 32-bit loads (a warp reads 8
+//     consecutive points x 16 bytes), splits them in registers and issues
+//     the A-from-registers form.  The halo is stored once, not split.
+struct HaloF32 {
+  static constexpr int BM = 256, BN = 64, KC = 16, kStages = 2,
+                       kThreads = 256, kMaxPitch = 184;
+};
+// bytes of one tap's [KC / 4][BN][4] w slice (hi or lo), of a stage's nine
+// (hi or lo), and of a stage's w
+constexpr int kF32WTap = HaloF32::KC * HaloF32::BN * 4;
+constexpr int kF32WHalf = 9 * kF32WTap;
+constexpr int kF32WBytes = 2 * kF32WHalf;
+// the output tile staged for the stores: [BM][kF32LDO] float32 (8 pad
+// columns: a half-warp's float2 writes fall on 32 different banks)
+constexpr int kF32LDO = HaloF32::BN + 8;
+
+// halo_f32 points and group stride are halo_points / halo_group_stride;
+// one stage: w then the halo [KC / 4][group stride][4]
+static_assert(HaloF32::BM == Halo::BM, "halo_points counts Halo::BM rows");
+__host__ __device__ __forceinline__ int halo_f32_stage_bytes(int G) {
+  const int b = kF32WBytes + halo_group_stride(G) * HaloF32::KC * 4;
+  return (b + 127) / 128 * 128;
+}
+// the ring, then the w stages' barriers, then the halo's pixel table
+__host__ __device__ __forceinline__ int halo_f32_smem_bytes(int G) {
+  return HaloF32::kStages * halo_f32_stage_bytes(G) + 8 * HaloF32::kStages +
+         halo_points(G) * 4;
+}
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero; the low 13 bits of the result are zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = hi + lo + e, |e| <= 2^-22 |v|: hi and lo each exact in TF32
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// d = A . B + (scale_d ? d : 0) for a 64 x 64 tile, k = 8: A from
+// registers (this thread's fragment of the warpgroup's m64 x k8 slice), B
+// K-major from shared memory
+__device__ __forceinline__ void gmma_m64n64k8_tf32(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// w [9C, O] (row-major float32) split into hi and lo and packed into the
+// stages' layout: wp [O / BN][C / KC][hi, lo][tap][KC / 4][BN][4] (each 4
+// consecutive input channels of one output channel in 16 bytes), so that
+// the w of one (output-channel tile, step) is kF32WBytes contiguous bytes,
+// one bulk copy.  One thread a (4 channels, output channel) unit: neighbours
+// read neighbouring output channels.
+__global__ void halo_f32_pack_w(const float* __restrict__ w,
+                                float4* __restrict__ wp, int C, int O) {
+  constexpr int BN = HaloF32::BN, KC = HaloF32::KC;
+  const int64_t units = (int64_t)9 * (C / 4) * O;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < units;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int o = (int)(i % O);
+    const int64_t kq = i / O;                  // tap * C / 4 + c / 4
+    const int tap = (int)(kq / (C / 4));
+    const int c = 4 * (int)(kq - (int64_t)tap * (C / 4));
+    const float* src = w + ((int64_t)tap * C + c) * O + o;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tf32_split(src[(int64_t)j * O], hi[j], lo[j]);
+    const int64_t dst =
+        ((((int64_t)(o / BN) * (C / KC) + c / KC) * 2 * 9 + tap) *
+             (KC / 4) + (c % KC) / 4) * BN + o % BN;
+    wp[dst] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                          __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+    wp[dst + 9 * (KC / 4) * BN] =
+        make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                    __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+  }
+}
+
+// One block: the BM grid points from q0 x BN output channels from o0.
+// Two warpgroups, each 128 rows as two m64 products.
+template <bool kFused>
+__global__ void __launch_bounds__(HaloF32::kThreads, 1)
+    halo_f32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+                    const float* __restrict__ fa, const float* __restrict__ fb,
+                    float* __restrict__ out, int N, int H, int W, int C, int O,
+                    int n_ot) {
+  constexpr int BM = HaloF32::BM, BN = HaloF32::BN, KC = HaloF32::KC,
+                S = HaloF32::kStages, NT = HaloF32::kThreads;
+  static_assert(BN == 64 && KC % 8 == 0 && BM % 128 == 0 && NT == BM,
+                "the copy maps and the m64n64k8 products are written for "
+                "these tiles, a warpgroup of 128 threads for 128 rows");
+  static_assert(BM * kF32LDO * 4 <= S * kF32WBytes,
+                "the staged output tile fits the ring");
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int G = W + 2;
+  const int NP = halo_points(G), GS = halo_group_stride(G);
+  const int stage_bytes = halo_f32_stage_bytes(G);
+  const uint32_t base = smem_u32(smem);
+  // full[st]: the stage's w has landed
+  const uint32_t full = base + S * stage_bytes;
+  int* s_src = reinterpret_cast<int*>(smem + S * stage_bytes + 8 * S);
+
+  const int q0 = G + (int)(blockIdx.x / n_ot) * BM;
+  const int o0 = (int)(blockIdx.x % n_ot) * BN;
+  const int n_steps = C / KC;
+  const float* w_tile = wp + (int64_t)(o0 / BN) * n_steps * (kF32WBytes / 4);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) mbar_init(full + 8 * st, 1);
+    // the barriers are set before the bulk-copy engine reaches them
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // each halo point's pixel in x, decoded once a tile
+  for (int p = threadIdx.x; p < NP; p += NT)
+    s_src[p] = grid_pixel(q0 - G - 1 + p, N, H, W, G);
+  __syncthreads();
+
+  // step s (channels s KC on) into stage st.  w, by thread 0: one bulk copy
+  // of kF32WBytes, counted on the stage's full barrier.  The halo:
+  // [group][point][4], zero where a point holds no pixel, by 16-byte
+  // cp.async.
+  auto load_step = [&](int s, int st) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full + 8 * st, kF32WBytes);
+      bulk_copy(base + st * stage_bytes,
+                w_tile + (int64_t)s * (kF32WBytes / 4), kF32WBytes,
+                full + 8 * st);
+    }
+    uint8_t* hb = smem + st * stage_bytes + kF32WBytes;
+    const int c0 = s * KC;
+    for (int i = threadIdx.x; i < NP * (KC / 4); i += NT) {
+      const int grp = i % (KC / 4), p = i / (KC / 4);
+      const int pix = s_src[p];
+      const float* src = pix >= 0 ? x + (int64_t)pix * C + c0 + grp * 4 : x;
+      cp_async16(hb + (grp * GS + p) * 16, src, pix >= 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n_steps) load_step(s, s);
+    cp_async_commit();
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+  // this thread's fragment: rows r0 + mi 64 (+ 8) of the tile, channels
+  // lane % 4 (+ 4) of the step
+  const int r0 = wg * 128 + wq * 16 + (lane >> 2);
+  const int t4 = lane & 3;
+  constexpr int KS = KC / 8;   // k8 slices a tap
+  // part: the wgmma accumulator of one step, added into acc by a rounded
+  // float32 add at the step's end (see the note at the head)
+  float acc[2][32], part[2][32];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mi][i] = part[mi][i] = 0.f;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<S - 2>();   // this thread's copies of step s are in
+    __syncthreads();          // everyone's; and step s - 1's products done
+    mbar_wait(full + 8 * (s % S), (s / S) & 1);   // step s's w is in
+    const uint32_t wb = base + (s % S) * stage_bytes;
+    const float* hs =
+        reinterpret_cast<const float*>(smem + (s % S) * stage_bytes +
+                                       kF32WBytes);
+    // one tap a batch: its fragments are loaded and split while the tap
+    // before runs, then wgmma.fence, 2 x KS x 3 products, commit
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      // [mi][k8 slice][register]; slice ks is the halo's 4-channel groups
+      // 2 ks and 2 ks + 1
+      uint32_t ah[2][KS][4], al[2][KS][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const int p = r0 + mi * 64 + (tap / 3) * G + tap % 3;
+          const float* g0 = hs + (2 * ks * GS + p) * 4 + t4;
+          const float* g1 = g0 + GS * 4;
+          const float v[4] = {g0[0], g0[32], g1[0], g1[32]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tf32_split(v[e], ah[mi][ks][e], al[mi][ks][e]);
+        }
+      gmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t wt = wb + tap * kF32WTap + ks * 2 * BN * 16;
+        const uint64_t bh = gmma_desc(wt, BN * 16, 128);
+        const uint64_t bl = gmma_desc(wt + kF32WHalf, BN * 16, 128);
+        // the step's first products start part afresh
+        const int keep = tap > 0 || ks > 0;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          gmma_m64n64k8_tf32(part[mi], al[mi][ks], bh, keep);
+          gmma_m64n64k8_tf32(part[mi], ah[mi][ks], bl, 1);
+          gmma_m64n64k8_tf32(part[mi], ah[mi][ks], bh, 1);
+        }
+      }
+      gmma_commit();
+      if (tap == 0) {
+        // the stage step s - 1 used is free: refill it while the products
+        // run
+        if (s + S - 1 < n_steps) load_step(s + S - 1, (s + S - 1) % S);
+        cp_async_commit();
+      } else {
+        gmma_wait<1>();   // the tap before is done: its registers free
+      }
+    }
+    gmma_wait<0>();
+    gmma_hold(part[0]);
+    gmma_hold(part[1]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[mi][i] = __fadd_rn(acc[mi][i], part[mi][i]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every product has read its stage: reuse the ring
+
+  // the epilogue into a [BM][kF32LDO] tile: warp wq of the warpgroup holds
+  // rows 16 wq + lane / 4 (+ 8) of each m64 product, channels 8 j + 2
+  // (lane % 4) (+ 1) in d[4 j + 2 h + e]
+  float* os = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    const float a0 = kFused ? fa[o0 + c] : 1.f, a1 = kFused ? fa[o0 + c + 1] : 1.f;
+    const float b0 = kFused ? fb[o0 + c] : 0.f, b1 = kFused ? fb[o0 + c + 1] : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + mi * 64 + 8 * h;
+        *reinterpret_cast<float2*>(os + r * kF32LDO + c) =
+            make_float2(epilogue<kFused>(acc[mi][4 * j + 2 * h], a0, b0),
+                        epilogue<kFused>(acc[mi][4 * j + 2 * h + 1], a1, b1));
+      }
+  }
+  __syncthreads();
+  // the pixels' rows, 16 bytes a thread, sixteen threads a 256-byte row;
+  // pitch columns, zero rows and points past the images are dropped
+  for (int i = threadIdx.x; i < BM * (BN / 4); i += NT) {
+    const int r = i >> 4, ch = i & 15;
+    const int pix = grid_pixel(q0 + r, N, H, W, G);
+    if (pix < 0) continue;
+    *reinterpret_cast<float4*>(out + (int64_t)pix * O + o0 + ch * 4) =
+        *reinterpret_cast<const float4*>(os + r * kF32LDO + ch * 4);
+  }
+}
+
+template <bool kFused>
+int launch_halo_f32(const void* x, const void* w, const float* fa,
+                    const float* fb, void* out, void* wp, int N, int H, int W,
+                    int C, int O, cudaStream_t st) {
+  constexpr int BM = HaloF32::BM;
+  const int G = W + 2;
+  // grid points up to the last tile's halo must fit an int
+  const int64_t L = ((int64_t)N * (H + 1) - 1) * G;
+  if (L + 2 * (int64_t)G + 2 * BM >= 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  static bool sized = false;   // the attribute, once per instantiation
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        halo_f32_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        halo_f32_smem_bytes(HaloF32::kMaxPitch));
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const int64_t n_mt = (L + BM - 1) / BM;
+  const int n_ot = O / HaloF32::BN;
+  const int64_t blocks = n_mt * n_ot;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  const int64_t units = (int64_t)9 * (C / 4) * O;
+  halo_f32_pack_w<<<(unsigned)((units + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(w), static_cast<float4*>(wp), C, O);
+  halo_f32_kernel<kFused><<<(unsigned)blocks, HaloF32::kThreads,
+                            halo_f32_smem_bytes(G), st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wp), fa, fb,
+      static_cast<float*>(out), N, H, W, C, O, n_ot);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One launch of the convolution on `stream`: x [N, H, W, C] and w [3, 3, C,
@@ -839,21 +1203,26 @@ extern "C" int igemm_conv_launch(const void* x, const void* w, const float* a,
   return (int)cudaErrorInvalidValue;
 }
 
-// One launch of the halo route on `stream`: bfloat16 x [N, H, W, C] and w
-// [3, 3, C, O], out [N, H, W, O]; with `fused`, a and b are float32 [O];
-// wp is scratch of w's size, which takes w in the stages' layout (a small
-// packing kernel runs first, on the same stream).
-// The caller routes here only when C and O are multiples of 64, W + 2 <=
-// 256 and x, w and out are 16-byte aligned (ops/conv.py::conv_route);
-// anything else returns cudaErrorInvalidValue.  Returns the CUDA error of
-// the launch (0 when it was accepted).
+// One launch of a halo route on `stream`: x [N, H, W, C] and w [3, 3, C,
+// O] of `dtype` (1 bfloat16: the halo route; 0 float32: the halo_f32
+// route), out [N, H, W, O] of the same type; with `fused`, a and b are
+// float32 [O].  wp is scratch that takes w in the stages' layout (a small
+// packing kernel runs first, on the same stream): w's size in bfloat16,
+// twice w's size in float32 (its TF32 hi and lo parts).  The caller routes
+// here only when C and O are multiples of 64, W + 2 <= 256 (bfloat16) or
+// 184 (float32) and x, w and out are 16-byte aligned
+// (ops/conv.py::conv_route); anything else returns cudaErrorInvalidValue.
+// Returns the CUDA error of the launch (0 when it was accepted).
 extern "C" int conv_halo_launch(const void* x, const void* w, const float* a,
                                 const float* b, void* out, void* wp, int N,
-                                int H, int W, int C, int O, int fused,
-                                void* stream) {
+                                int H, int W, int C, int O, int dtype,
+                                int fused, void* stream) {
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1)
     return (int)cudaErrorInvalidValue;
-  if (C % 64 != 0 || O % 64 != 0 || W + 2 > Halo::kMaxPitch)
+  const int max_pitch = dtype == kBF16  ? Halo::kMaxPitch
+                        : dtype == kF32 ? HaloF32::kMaxPitch
+                                        : 0;
+  if (C % 64 != 0 || O % 64 != 0 || W + 2 > max_pitch)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out | (uintptr_t)wp) % 16 !=
       0)
@@ -862,6 +1231,11 @@ extern "C" int conv_halo_launch(const void* x, const void* w, const float* a,
   if (fused && (a == nullptr || b == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return fused
+               ? launch_halo_f32<true>(x, w, a, b, out, wp, N, H, W, C, O, st)
+               : launch_halo_f32<false>(x, w, a, b, out, wp, N, H, W, C, O,
+                                        st);
   return fused ? launch_halo<true>(x, w, a, b, out, wp, N, H, W, C, O, st)
                : launch_halo<false>(x, w, a, b, out, wp, N, H, W, C, O, st);
 }

@@ -21,7 +21,7 @@ spills as ptxas reported them when this run built them.  Prints one JSON
 line.  With ``--conv`` the cases are instead ``igemm_conv_kernel`` and
 ``igemm_conv_fused_kernel`` (the signatures every version since the conv
 kernels came has) at ``chip_smoke.py``'s four ResNet stride-1 shapes
-(c56, c28, c14, c7) in bfloat16 and at c56 in float32, each with its worst
+(c56, c28, c14, c7) in bfloat16 and in float32, each with its worst
 error over ``chip_smoke``'s limit against the plain version, the two
 times and the bound, and ptxas's report for ``conv.cu``.  Run it for the
 old and the new checkout in turns, in one call on one card (old, new, new,
@@ -143,7 +143,7 @@ def _conv_turn(cs, dev) -> dict:
     shapes = {label: dims for label, *dims in cs.CONV_CASES}
     out = {}
     for dtype, labels in ((torch.bfloat16, ("c56", "c28", "c14", "c7")),
-                          (torch.float32, ("c56",))):
+                          (torch.float32, ("c56", "c28", "c14", "c7"))):
         kind = str(dtype).replace("torch.", "")
         for label in labels:
             n, h, w, c, o = shapes[label]

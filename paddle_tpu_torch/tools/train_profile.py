@@ -268,7 +268,7 @@ def _resnet_class(kernel: str, ancestors) -> str:
 
 # ResNet inference kernel classes: the hand-written conv kernels by name,
 # then by the op that launched each kernel; the routed ops' own small
-# kernels (filter to HWIO, the folded BN's a and b, the halo route's
+# kernels (filter to HWIO, the folded BN's a and b, the halo routes'
 # packing of w) are "conv_prep"
 INFER_CLASSES = ("fused_kernel", "igemm_kernel", "conv_prep", "conv_cudnn",
                  "bn_plain", "pool", "other")
@@ -276,13 +276,20 @@ INFER_CLASSES = ("fused_kernel", "igemm_kernel", "conv_prep", "conv_cudnn",
 
 def _igemm_class(kernel: str):
     """"fused_kernel" or "igemm_kernel" for an ``igemm_kernel<T, kFused,
-    V>`` or ``halo_kernel<kFused>`` instance of ``ops/csrc/conv.cu`` (the
-    gather and the halo route) by its name, else None."""
-    m = re.search(r"(?:igemm_kernel<[^,<>]+, |halo_kernel<)(true|false)",
-                  kernel)
+    V>``, ``halo_kernel<kFused>`` or ``halo_f32_kernel<kFused>`` instance
+    of ``ops/csrc/conv.cu`` (the gather, halo and halo_f32 routes) by its
+    name, else None."""
+    m = re.search(r"(?:igemm_kernel<[^,<>]+, |halo_kernel<|halo_f32_kernel<)"
+                  r"(true|false)", kernel)
     if m is None:
         return None
     return "fused_kernel" if m.group(1) == "true" else "igemm_kernel"
+
+
+def _conv_pack_kernel(kernel: str) -> bool:
+    """Whether ``kernel`` is a halo route's packing of w (``halo_pack_w``,
+    ``halo_f32_pack_w``), counted as conv prep by its name."""
+    return re.search(r"\bhalo(?:_f32)?_pack_w\b", kernel) is not None
 
 
 def _infer_class(kernel: str, ancestors) -> str:
@@ -421,12 +428,12 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
             if infer:
                 # a ctypes launch has no host event above its kernel: the
                 # conv kernels are counted by name, and so is the halo
-                # route's packing of w (conv prep)
+                # routes' packing of w (conv prep)
                 for cls in ("fused_kernel", "igemm_kernel"):
                     by_class[cls] = sum(us for us, name, _ in kernels
                                         if _igemm_class(name) == cls)
                 by_class["conv_prep"] += sum(us for us, name, _ in kernels
-                                             if "halo_pack_w" in name)
+                                             if _conv_pack_kernel(name))
             # kernels the event tree did not reach count as other
             by_class["other"] += busy_us - sum(by_class.values())
         windows.append((busy_us / 1e3 / steps, by_class, kernels))

@@ -262,10 +262,19 @@ RESNET = [(256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
     (("bfloat16", 3, 13, 9, 16, 24, True), "gather"),        # ragged, 16 B
     (("bfloat16", 4, 8, 8, 64, 96, True), "gather"),         # O % 64
     (("bfloat16", 4, 8, 8, 96, 64, True), "gather"),         # C % 64
-    (("float32", 256, 56, 56, 64, 64, True), "gather"),      # float32
+    (("float32", 256, 56, 56, 64, 64, True), "halo_f32"),    # float32
     (("bfloat16", 256, 56, 56, 64, 64, False), "gather"),    # misaligned
     (("bfloat16", 1, 4, 254, 64, 64, True), "halo"),         # widest row
     (("bfloat16", 1, 4, 255, 64, 64, True), "gather"),       # too wide
+    *[(("float32", *s, True), "halo_f32") for s in RESNET[1:]],
+    (("float32", 256, 32, 32, 3, 16, True), "gather"),       # CIFAR stem
+    (("float32", 3, 13, 9, 3, 40, True), "gather"),          # ragged
+    (("float32", 3, 13, 9, 16, 24, True), "gather"),         # ragged, 16 B
+    (("float32", 4, 8, 8, 96, 64, True), "gather"),          # C % 64
+    (("float32", 256, 56, 56, 64, 64, False), "gather"),     # misaligned
+    (("float32", 1, 4, 182, 64, 64, True), "halo_f32"),      # widest row
+    (("float32", 1, 4, 183, 64, 64, True), "gather"),        # too wide
+    (("float16", 4, 8, 8, 64, 64, True), "gather"),          # other dtype
 ], ids=lambda v: v if isinstance(v, str) else "-".join(map(str, v)))
 def test_conv_route(case, want):
     dtype, n, h, w, c, o, aligned = case
@@ -274,20 +283,24 @@ def test_conv_route(case, want):
 
 
 def test_plain_calls_count_no_route():
-    """CPU tensors run the plain versions: no route counts a launch."""
-    x = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16)
-    w = torch.zeros(3, 3, 64, 64, dtype=torch.bfloat16)
+    """CPU tensors run the plain versions: no route counts a launch, in
+    either dtype."""
     before = dict(TC.route_launches)
-    TC.igemm_conv(x, w)
-    TC.igemm_conv_fused(x, w, torch.ones(64), torch.zeros(64))
-    assert TC.route_launches == before == {"halo": 0, "gather": 0}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros(1, 4, 4, 64, dtype=dtype)
+        w = torch.zeros(3, 3, 64, 64, dtype=dtype)
+        TC.igemm_conv(x, w)
+        TC.igemm_conv_fused(x, w, torch.ones(64), torch.zeros(64))
+    assert TC.route_launches == before == {"halo": 0, "halo_f32": 0,
+                                           "gather": 0}
 
 
 def test_profile_classes_both_routes_by_name():
     """``train_profile`` counts each route's kernel under the fused or the
     plain conv class by its name (a ctypes launch has no host event above
-    its kernel); the packing of w is neither."""
-    from paddle_tpu_torch.tools.train_profile import _igemm_class
+    its kernel); the packing of w, on either halo route, is conv prep."""
+    from paddle_tpu_torch.tools.train_profile import (_conv_pack_kernel,
+                                                      _igemm_class)
 
     ns = "void (anonymous namespace)::"
     assert _igemm_class(ns + "halo_kernel<true>(const __nv_bfloat16 *)") \
@@ -297,5 +310,17 @@ def test_profile_classes_both_routes_by_name():
     assert _igemm_class(
         ns + "igemm_kernel<__nv_bfloat16, true, true>(const int *)") \
         == "fused_kernel"
+    assert _igemm_class(ns + "halo_f32_kernel<true>(const float *)") \
+        == "fused_kernel"
+    assert _igemm_class(ns + "halo_f32_kernel<false>(const float *)") \
+        == "igemm_kernel"
+    assert _igemm_class(ns + "igemm_kernel<float, false, true>(const int *)") \
+        == "igemm_kernel"
     assert _igemm_class(ns + "halo_pack_w(const uint4 *, uint4 *)") is None
+    assert _igemm_class(ns + "halo_f32_pack_w(const float *, float4 *)") \
+        is None
     assert _igemm_class("sm90_xmma_fprop_implicit_gemm") is None
+    for name in ("halo_pack_w(const uint4 *, uint4 *)",
+                 "halo_f32_pack_w(const float *, float4 *)"):
+        assert _conv_pack_kernel(ns + name)
+    assert not _conv_pack_kernel(ns + "halo_f32_kernel<true>(const float *)")
