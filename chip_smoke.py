@@ -16,7 +16,9 @@ Phases (any failure exits non-zero, before the final line):
                rectangular non-causal and a ragged causal case; the LSTM
                forward and reverse kernels at text_lstm's full width, with
                peepholes, and through dynamic_lstm(is_reverse=True) on
-               lengths {1, T, 0}), and time kernel, plain version and the
+               lengths {1, T, 0}, all on the persistent route, and at
+               B=256 on the step route, each case's route checked by the
+               route counts), and time kernel, plain version and the
                library yardstick (scaled_dot_product_attention, cuDNN's
                LSTM; the port never calls either), each as the event-timed
                call (host cost included) and as device time (the kernels
@@ -45,8 +47,9 @@ Phases (any failure exits non-zero, before the final line):
                on the card and on the CPU from the same weights, loss and
                every gradient compared; then 5 steps on a fixed batch of 128
                with the LSTM launch counts set to 0 before and read after
-               (2 layers x 5 steps each), losses finite and falling, ms per
-               step and sequences/s;
+               (2 layers x 5 steps each, every call on the persistent
+               route), losses finite and falling, ms per step and
+               sequences/s;
   7. bn kernels - the batch-norm backward kernels (reduction, dx) against
                their plain versions in float32 and bfloat16 at ResNet-50's
                shapes ([256,64,56,56], [256,128,28,28], [256,256,56,56]
@@ -159,6 +162,11 @@ LSTM_FWD_ATOL = 2e-5
 LSTM_BWD_REL = 2e-4
 LSTM_KERNELS = ("fwd", "bwd")
 LSTM_ACTS = ("sigmoid", "tanh", "tanh")
+# text_lstm's layer shape (benchmark/text_lstm.py: seq_len 100, bs 128,
+# hidden 512; lengths 50-100), on the persistent route; B=256 takes the
+# step route (32 x 8 blocks do not fit 132 SMs at one block an SM)
+LSTM_SHAPE = (100, 128, 512)
+LSTM_STEP_BATCH = 256
 # batch-norm backward kernels against their plain versions: dbeta and
 # dgamma (float32 sums in another order) within BN_SUM_REL of sum |dy| and
 # sum |dy x-hat| per channel, in both dtypes (the kernel and the plain
@@ -341,6 +349,8 @@ def _ptxas_report(log: str) -> list:
                 if ident.endswith("kernel"):
                     short = ident + name[start + len(ident):][:12]
                     break
+                if not ident.startswith("_GLOBAL__N"):
+                    short = ident     # a kernel named otherwise (lstm.cu)
                 pos = start + len(ident)
             rows.append((short, int(hit.group(1)), spill))
             name = None
@@ -702,17 +712,21 @@ def _lstm_inputs(T, B, H, lengths, dev, seed):
             mask, mk((T, B, H)), mk((B, H)))
 
 
-def _lstm_case(label, T, B, H, lengths, peep_on, dev, card, timed) -> dict:
+def _lstm_case(label, T, B, H, lengths, peep_on, dev, card, timed,
+               route) -> dict:
     """The forward kernel against ``_lstm_scan`` and the backward
     (reverse-recurrence kernel, then du and the peephole sums) against
-    ``_lstm_scan_vjp``, on the same inputs on the card; with ``timed`` the
-    times, bounds and cuDNN's LSTM beside them.  Returns the records."""
+    ``_lstm_scan_vjp``, on the same inputs on the card, both calls on
+    ``route`` (checked by the route counts); with ``timed`` the times,
+    bounds and cuDNN's LSTM beside them.  Returns the records."""
+    from paddle_tpu_torch.ops import fused_lstm
     from paddle_tpu_torch.ops import lstm as TL
 
     xw, u, peep, mask, g_hs, g_c = _lstm_inputs(T, B, H, lengths, dev,
                                                  T + B + H)
     args = (H, peep_on, LSTM_ACTS)
     name = f"lstm {label} T={T} B={B} H={H} peepholes={peep_on}"
+    before = dict(fused_lstm.route_launches)
     hs, hc, cc, gates, cnew = TL.lstm_fwd_kernel(xw, u, peep, mask, *args,
                                                  True)
     torch.cuda.synchronize()
@@ -727,6 +741,11 @@ def _lstm_case(label, T, B, H, lengths, peep_on, dev, card, timed) -> dict:
     got = TL.lstm_bwd_cuda(g_hs, g_c, u, peep, mask, hc, cc, gates, cnew,
                            *args)
     torch.cuda.synchronize()
+    ran = {k: fused_lstm.route_launches[k] - before[k] for k in before}
+    want_ran = {k: 2 if k == route else 0 for k in before}
+    print(f"kernel {name}: route launches {ran} (expected {want_ran})")
+    check(ran == want_ran, f"{name}: route launches {ran}, expected "
+                           f"{want_ran}")
     want = TL._lstm_scan_vjp(xw, u, peep, mask, *args, g_hs, g_c)
     rel, err_b = {}, 0.0
     for n, a, b in zip(("dxw", "du", "dpeep"), got, want):
@@ -788,21 +807,24 @@ def _lstm_case(label, T, B, H, lengths, peep_on, dev, card, timed) -> dict:
         library_ms, library_dev = ((lib_ms, lib_dev) if kern == "fwd"
                                    else (lib_bwd_ms, lib_bwd_dev))
         recs[kern] = {"max_abs_err": err_f if kern == "fwd" else err_b,
+                      "lstm_route": route,
                       "ms": ms[kern], "device_ms": dev_ms[kern],
                       "plain_ms": plain[kern],
                       "plain_device_ms": plain_dev[kern],
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": library_ms,
                       "library_device_ms": library_dev}
-        print(f"kernel lstm {kern} {label} shape: {ms[kern]:.4f} ms (device "
-              f"{dev_ms[kern]:.4f}), plain {plain[kern]:.4f} ms (device "
-              f"{plain_dev[kern]:.4f}), cudnn {library_ms:.4f} ms (device "
-              f"{library_dev:.4f}), bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{n_valid} of {T * B} steps valid) on {card}")
+        print(f"kernel lstm {kern} {label} shape ({route}): {ms[kern]:.4f} ms "
+              f"(device {dev_ms[kern]:.4f}), plain {plain[kern]:.4f} ms "
+              f"(device {plain_dev[kern]:.4f}), cudnn {library_ms:.4f} ms "
+              f"(device {library_dev:.4f}), bound {bound_ms:.4f} ms "
+              f"({bound_by}; share {bound_ms / dev_ms[kern]:.3f} of the "
+              f"device time; {n_valid} of {T * B} steps valid) on {card}")
     kb_ms, kb_by = _lstm_bound("bwd", T, B, H, n_valid, whole=False)
     print(f"kernel lstm {label} shape: the reverse-recurrence kernel alone "
           f"{bwd_kernel_ms:.4f} ms (device {bwd_kernel_dev:.4f}; bound "
-          f"{kb_ms:.4f} ms, {kb_by}), du matmul and peephole sums the rest "
+          f"{kb_ms:.4f} ms, {kb_by}, share {kb_ms / bwd_kernel_dev:.3f}), "
+          f"du matmul and peephole sums the rest "
           f"of the backward; input projection [{T * B}, {H}] x [{H}, "
           f"{4 * H}] {proj_ms:.4f} ms, projection + forward kernel "
           f"{proj_ms + ms['fwd']:.4f} ms vs cudnn forward {lib_ms:.4f} ms "
@@ -816,7 +838,7 @@ def _lstm_layer_case(card) -> None:
     program run by the card's Executor (kernels) and the CPU's (plain
     versions) from the same weights, on lengths {1, T, 0}: hidden, last
     cell and the three weight gradients compared; the card run launches
-    each LSTM kernel once."""
+    each LSTM kernel once, on the persistent route."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import fused_lstm
 
@@ -847,12 +869,16 @@ def _lstm_layer_case(card) -> None:
         scope = fluid.Scope()
         exe.run(startup, scope=scope)
         fluid.load_scope(weights, main, scope, device=dev)
-        before = dict(fused_lstm.launches)
+        before = dict(fused_lstm.launches), dict(fused_lstm.route_launches)
         outs[dev] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
-        ran = {k: fused_lstm.launches[k] - before[k] for k in before}
-        want = {"fwd": 1, "bwd": 1} if dev == "cuda" else {"fwd": 0, "bwd": 0}
-        check(ran == want, f"lstm layer case on {dev}: launches {ran}, "
-                           f"expected {want}")
+        ran = ({k: fused_lstm.launches[k] - before[0][k] for k in before[0]},
+               {k: fused_lstm.route_launches[k] - before[1][k]
+                for k in before[1]})
+        want = (({"fwd": 1, "bwd": 1}, {"persistent": 2, "step": 0})
+                if dev == "cuda" else
+                ({"fwd": 0, "bwd": 0}, {"persistent": 0, "step": 0}))
+        check(ran == want, f"lstm layer case on {dev}: launches and route "
+                           f"launches {ran}, expected {want}")
     name = f"lstm layer dynamic_lstm(is_reverse) T={T} B=3 H={H} lengths 1,T,0"
     errs = []
     for i, (v, a, b) in enumerate(zip(fetch, outs["cuda"], outs["cpu"])):
@@ -876,11 +902,17 @@ def phase_lstm_kernels(card: str) -> dict:
     from paddle_tpu_torch import resolve_device
 
     dev = resolve_device()         # float32 matmuls in full float32
-    T, B, H = 100, 128, 512
+    T, B, H = LSTM_SHAPE
     lengths = np.random.RandomState(0).randint(T // 2, T + 1, B)
-    recs = _lstm_case("train", T, B, H, lengths, False, dev, card, True)
-    _lstm_case("peepholes", T, B, H, lengths, True, dev, card, False)
+    recs = _lstm_case("train", T, B, H, lengths, False, dev, card, True,
+                      "persistent")
+    _lstm_case("peepholes", T, B, H, lengths, True, dev, card, False,
+               "persistent")
     _lstm_layer_case(card)
+    lengths = np.random.RandomState(1).randint(T // 2, T + 1,
+                                               LSTM_STEP_BATCH)
+    _lstm_case("step", T, LSTM_STEP_BATCH, H, lengths, False, dev, card,
+               False, "step")
     return recs
 
 
@@ -1151,6 +1183,8 @@ def phase_lstm_train(card: str) -> dict:
     torch.cuda.synchronize()
     for kern in LSTM_KERNELS:
         fused_lstm.launches[kern] = 0
+    for route in fused_lstm.route_launches:
+        fused_lstm.route_launches[route] = 0
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1162,12 +1196,17 @@ def phase_lstm_train(card: str) -> dict:
         losses.append(float(out))
         step_ms.append(e0.elapsed_time(e1))
     launches = dict(fused_lstm.launches)
+    routes = dict(fused_lstm.route_launches)
     n_layers = TEXT_LSTM_CFG["num_layers"]
     check(all(np.isfinite(losses)), f"lstm train: non-finite losses {losses}")
     check(losses[-1] < losses[0], f"lstm train: loss did not fall: {losses}")
     check(all(launches[k] == n_layers * TRAIN_STEPS for k in LSTM_KERNELS),
           f"lstm train: launches {launches}, expected {n_layers} x "
           f"{TRAIN_STEPS} each")
+    check(routes == {"persistent": len(LSTM_KERNELS) * n_layers * TRAIN_STEPS,
+                     "step": 0},
+          f"lstm train: route launches {routes}, expected every call of "
+          f"each kernel on the persistent route")
     med = float(np.median(step_ms[1:]))
     print(f"lstm train: {TRAIN_STEPS} Adam steps on {TEXT_LSTM_BATCH} x "
           f"{TEXT_LSTM_SEQ} (lengths 50-100, {int(feed['lengths'].sum())} "
@@ -1175,9 +1214,10 @@ def phase_lstm_train(card: str) -> dict:
           f"step ms {', '.join(f'{x:.1f}' for x in step_ms)}; median of "
           f"steps 2-{TRAIN_STEPS} {med:.2f} ms = "
           f"{TEXT_LSTM_BATCH / med * 1e3:.0f} sequences/s; lstm launches "
-          f"{launches} = {n_layers} layers x {TRAIN_STEPS} steps (each call "
-          f"{TEXT_LSTM_SEQ} device launches); on {card}")
-    return {"launches": launches, "losses": losses, "median_ms": med}
+          f"{launches} = {n_layers} layers x {TRAIN_STEPS} steps, by route "
+          f"{routes} (each persistent call one device launch); on {card}")
+    return {"launches": launches, "route_launches": routes, "losses": losses,
+            "median_ms": med}
 
 
 def _bn_bound(kernel: str, n: int, c: int, hw: int, dtype) -> tuple:
@@ -1895,8 +1935,10 @@ def main() -> int:
                                  "; the whole backward: reverse-recurrence "
                                  "kernel, du matmul, peephole sums")),
             # launches: the lstm training pass's own count (5 steps x 2
-            # layers), one call per layer per step, each call T launches
+            # layers), one call per layer per step, each call one device
+            # launch on the persistent route; the pass's calls by route
             "launches": lstm_train["launches"][kern], **lstm[kern],
+            "route_launches": lstm_train["route_launches"],
         })
     replaces = {"reduce": "benchmark/bn_probe.py:84",
                 "dx": "benchmark/bn_probe.py:126"}

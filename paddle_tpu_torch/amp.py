@@ -68,6 +68,14 @@ class Bf16Policy:
             return torch.bfloat16
         return torch.float32
 
+    def input_dtype(self, op_type: str, attrs,
+                    dtype: torch.dtype) -> torch.dtype:
+        """The dtype an input of ``dtype`` has when an op of ``op_type``
+        runs: the compute dtype for a float32 or bfloat16 input, ``dtype``
+        itself for any other (float16 and integers are not cast)."""
+        want = self.compute_dtype(op_type, attrs)
+        return want if want is not None and dtype in _FLOATS else dtype
+
     def cast_ins(self, op_type: str, attrs, ins):
         """``ins`` (slot -> list of tensors) with every float32 or bfloat16
         tensor cast to the op's compute dtype; integer tensors and anything

@@ -27,8 +27,10 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..ops.attention import check_flash_head_dim
-from .fusion import channels_last_feed, route_inference
+from ..ops.attention import check_flash_dtype, check_flash_head_dim
+from ..ops.batch_norm import check_bn_dtype
+from ..ops.lstm import check_lstm_dtype
+from .fusion import channels_last_feed, compute_dtype, route_inference
 from .program import (
     Op,
     OpContext,
@@ -266,20 +268,46 @@ class Executor:
 
 
 def check_kernel_shapes(program: Program, device: torch.device) -> None:
-    """On a CUDA device, raise on an op whose kernel would refuse its shape:
-    the flash attention op (``attention``, from ``models.attention_core``)
-    with a head dim outside the kernels' ``FLASH_HEAD_DIMS``.  The check
-    lives here and not in ``build_lm``: a program is built without knowing
-    where it will run, and the CPU runs every head dim on the plain
+    """On a CUDA device, raise on an op whose kernel would refuse its shape
+    or its dtype, with the kernel's own message:
+
+    * the flash attention op (``attention``, from
+      ``models.attention_core``) with a head dim outside the kernels'
+      ``FLASH_HEAD_DIMS``, or a compute dtype other than float32 or
+      bfloat16;
+    * a training ``batch_norm`` (not ``is_test``) in a program with a
+      backward op, whose backward runs the batch-norm kernels, in anything
+      but float32 or bfloat16;
+    * ``dynamic_lstm`` in anything but float32.
+
+    A compute dtype is the input's declared dtype as the program's amp
+    policy casts it for that op.  The conv kernels' dtypes need no check:
+    ``core/fusion.py`` routes only the convs they take.  The check lives
+    here and not in the layers: a program is built without knowing where
+    it will run, and the CPU runs every shape and dtype on the plain
     versions.  ``Executor.run`` calls it before the step's first op, so a
     refused program changes no parameter or optimizer state."""
     if device.type != "cuda":
         return
     block = program.global_block
-    for op in program.list_ops():
+    amp = getattr(program, "amp_policy", None)
+    ops = program.list_ops()
+    has_backward = any(op.special == "backward" for op in ops)
+
+    def dtype_of(op, slot):
+        return compute_dtype(program, op.inputs[slot][0], op.type, op.attrs,
+                             amp)
+
+    for op in ops:
         if op.type == "attention":
             hd = block.vars[op.inputs["Q"][0]].shape[-1]
             check_flash_head_dim(hd // op.attrs["n_heads"])
+            check_flash_dtype(dtype_of(op, "Q"))
+        elif (op.type == "batch_norm" and has_backward
+              and not op.attrs.get("is_test")):
+            check_bn_dtype(dtype_of(op, "X"))
+        elif op.type == "dynamic_lstm":
+            check_lstm_dtype(dtype_of(op, "Input"))
 
 
 # --------------------------------------------------------------------------- backward

@@ -21,8 +21,10 @@ every device (the CPU runs the same routed ops on the plain versions):
   the chain unfused;
 * **plain conv**: any other conv2d of that geometry keeps its type and
   runs ``igemm_conv``;
-* everything else (the stem's 7x7, the 1x1s, the stride-2 3x3s) stays on
-  ``F.conv2d``, as the JAX package leaves those convolutions to XLA.
+* everything else (the stem's 7x7, the 1x1s, the stride-2 3x3s, and any
+  conv whose compute dtype, after the amp policy, is neither float32 nor
+  bfloat16, which the kernels do not take) stays on ``F.conv2d``, as the
+  JAX package leaves those convolutions to XLA.
 
 The model is NCHW and the kernels NHWC: an NCHW tensor in
 ``torch.channels_last`` memory format is an NHWC tensor, so the step puts
@@ -70,17 +72,33 @@ def _fused_fn(ins, attrs, ctx):
     return {"Out": [y.permute(0, 3, 1, 2)]}
 
 
-def is_igemm_conv(op: Op, program: Program) -> bool:
+# the dtypes the conv kernels take (ops/conv.py)
+KERNEL_CONV_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def compute_dtype(program: Program, name: str, op_type: str, attrs,
+                  amp=None) -> torch.dtype:
+    """The dtype variable ``name`` has when an op of ``op_type`` reads it:
+    its declared dtype, cast as the amp policy casts that op's inputs."""
+    dtype = program.global_block.vars[name].dtype
+    return dtype if amp is None else amp.input_dtype(op_type, attrs, dtype)
+
+
+def is_igemm_conv(op: Op, program: Program, amp=None) -> bool:
     """Whether ``op`` is a conv2d the kernels compute: 3x3 filter, stride
-    1, padding 1, dilation 1, groups 1."""
+    1, padding 1, dilation 1, groups 1, and input and filter of one compute
+    dtype (after ``amp``) that the kernels take."""
     if op.type != "conv2d":
         return False
     at = op.attrs
     if (tuple(at["strides"]), tuple(at["padding"]), tuple(at["dilation"]),
             at["groups"]) != ((1, 1), (1, 1), (1, 1), 1):
         return False
-    filt = program.global_block.vars[op.inputs["Filter"][0]]
-    return tuple(filt.shape[2:]) == (3, 3)
+    (x,), (w,) = op.inputs["Input"], op.inputs["Filter"]
+    dx, dw = (compute_dtype(program, n, "conv2d", at, amp) for n in (x, w))
+    if dx != dw or dx not in KERNEL_CONV_DTYPES:
+        return False
+    return tuple(program.global_block.vars[w].shape[2:]) == (3, 3)
 
 
 def _fused_chain(i, ops, readers, fetched, amp) -> Optional[tuple]:
@@ -135,7 +153,7 @@ def route_inference(program: Program, fetch_names: Sequence[str],
     routed: List[Optional[Op]] = list(ops)
     changed = False
     for i, op in enumerate(ops):
-        if not is_igemm_conv(op, program):
+        if not is_igemm_conv(op, program, amp):
             continue
         changed = True
         chain = _fused_chain(i, ops, readers, fetched, amp)

@@ -277,6 +277,15 @@ def check_flash_head_dim(D: int) -> None:
                          f"{FLASH_HEAD_DIMS}, got D={D}")
 
 
+def check_flash_dtype(dtype: torch.dtype) -> None:
+    """Raise on a dtype the CUDA kernels do not take: the wrappers call this
+    at every launch, and ``Executor.run`` before a program's first step on
+    a card."""
+    if dtype not in _FLASH_DTYPE_CODE:
+        raise ValueError(f"the flash kernels take float32 or bfloat16, got "
+                         f"{dtype}")
+
+
 def _check_flash_operands(q, k, v, *rest) -> None:
     """Raise on anything the CUDA kernels do not take: q/k/v (and g) on one
     CUDA device, contiguous, float32 or bfloat16 alike, q [N, Tq, D] and
@@ -291,9 +300,7 @@ def _check_flash_operands(q, k, v, *rest) -> None:
         if t.dtype != q.dtype:
             raise ValueError(f"flash operands must share one dtype, got "
                              f"{q.dtype} and {t.dtype}")
-    if q.dtype not in _FLASH_DTYPE_CODE:
-        raise ValueError(f"the flash kernels take float32 or bfloat16, got "
-                         f"{q.dtype}")
+    check_flash_dtype(q.dtype)
     for t in (q, k, v) + rest:
         if not t.is_contiguous():
             raise ValueError("the flash kernels need contiguous operands")

@@ -122,6 +122,15 @@ def n_splits(n: int, c: int, hw_vectors: int, n_sm: int) -> int:
     return max(1, min(want, cap, MAX_SPLITS))
 
 
+def check_bn_dtype(dtype: torch.dtype) -> None:
+    """Raise on a dtype the backward kernels do not take: ``_geometry``
+    calls this at every launch, and ``Executor.run`` before the first step
+    of a training program on a card."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the batch-norm kernels take float32 or bfloat16 "
+                         f"dy and x of one dtype, got {dtype}")
+
+
 def _geometry(dy, x, vectors):
     """(N, C, HW, splits, vec, dtype code) of a launch; raises on what the
     kernels do not take.  ``vectors`` are the operands read and written
@@ -132,7 +141,8 @@ def _geometry(dy, x, vectors):
     if x.device != dy.device:
         raise ValueError(f"dy and x must lie on one device: {dy.device}, "
                          f"{x.device}")
-    if dy.dtype not in _DTYPE_CODE or x.dtype != dy.dtype:
+    check_bn_dtype(dy.dtype)
+    if x.dtype != dy.dtype:
         raise ValueError(f"the batch-norm kernels take float32 or bfloat16 "
                          f"dy and x of one dtype, got {dy.dtype}, {x.dtype}")
     if dy.shape != x.shape or dy.dim() < 2:

@@ -14,8 +14,13 @@ update) is the recurrence.  ``fused_lstm`` is a ``torch.autograd.Function``:
 * meta tensors give outputs of the right shapes and launch nothing, so a
   program is built without the card.
 
-``fused_lstm.launches`` counts kernel-library calls (each enqueues one
-launch per step); plain-version calls never count.
+Each kernel call takes one of two routes, chosen by shape before the launch
+(:func:`lstm_route`): ``"persistent"``, one cooperative launch for the whole
+sequence with each block's U slice resident in shared memory, or
+``"step"``, one launch per step.  ``fused_lstm.launches`` counts
+kernel-library calls by kernel (``fwd``, ``bwd``) and
+``fused_lstm.route_launches`` the same calls by route; plain-version calls
+never count.
 """
 from __future__ import annotations
 
@@ -29,6 +34,56 @@ _ACT = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu,
         "identity": lambda v: v}
 # the activation codes of csrc/lstm.cu (a test pins them to the source)
 ACT_CODE = {"sigmoid": 0, "tanh": 1, "relu": 2, "identity": 3}
+
+# the persistent route's tile and shared memory (csrc/lstm.cu; a test pins
+# them to the source): a block owns P_ROWS batch rows x P_UNITS hidden units
+# with P_THREADS threads in P_WARPS warps, each warp one range of the depth
+P_ROWS, P_UNITS, P_THREADS = 32, 16, 256
+P_WARPS = P_THREADS // 32
+FWD_DEPTH_ALIGN = 64
+BWD_CHUNK, BWD_STAGES, BWD_PITCH, BWD_LANE_PARTS = 32, 2, 40, 4
+
+
+def fwd_warp_depth(H: int) -> int:
+    """Depth of h_{t-1} and U a warp of the persistent forward takes."""
+    return 8 * -(-H // FWD_DEPTH_ALIGN)
+
+
+def bwd_warp_depth(H: int) -> int:
+    """Depth of dgates_{t+1} and U a warp of the persistent reverse takes,
+    a whole number of ring chunks."""
+    return BWD_CHUNK * -(-H // 64)
+
+
+def fwd_smem_bytes(H: int) -> int:
+    """Shared memory of a persistent forward block: U [Hp][16][4] resident,
+    then h_{t-1} [32][Hp + 4], whose space the warps' partial sums take."""
+    hp = P_WARPS * fwd_warp_depth(H)
+    red = P_WARPS * P_ROWS * P_UNITS * 4
+    return 4 * (hp * P_UNITS * 4 + max(P_ROWS * (hp + 4), red))
+
+
+def bwd_smem_bytes(H: int) -> int:
+    """Shared memory of a persistent reverse block: the tile's 16 rows of U
+    over the padded depth, then each warp's ring (the partial sums reuse
+    it)."""
+    ring = P_WARPS * BWD_STAGES * P_ROWS * BWD_PITCH
+    return 4 * (P_WARPS * bwd_warp_depth(H) * P_UNITS + ring)
+
+
+def lstm_route(T: int, B: int, H: int, n_sm: int, smem_optin: int) -> str:
+    """The route both kernels of a call take on a card with ``n_sm`` SMs and
+    ``smem_optin`` bytes of opt-in shared memory a block: ``"persistent"``
+    when H is a multiple of 4 (16-byte copies of h and dgates), both
+    kernels' tiles fit the shared memory and the grid of ceil(H/16) x
+    ceil(B/32) blocks fits one block an SM, so that every block is resident
+    at once; ``"step"`` otherwise.  T does not change the route."""
+    del T
+    grid = -(-H // P_UNITS) * -(-B // P_ROWS)
+    if (H % 4 == 0 and max(fwd_smem_bytes(H), bwd_smem_bytes(H)) <= smem_optin
+            and grid <= n_sm):
+        return "persistent"
+    return "step"
 
 
 # ------------------------------------------------------------ plain versions
@@ -78,6 +133,14 @@ def _lstm_scan_vjp(xw, u, peep, mask, size: int, use_peepholes: bool, acts,
 # ------------------------------------------------------------------ kernels
 
 
+def check_lstm_dtype(dtype: torch.dtype) -> None:
+    """Raise on a dtype the CUDA kernels do not take: the wrappers call this
+    at every launch, and ``Executor.run`` before a program's first step on
+    a card."""
+    if dtype != torch.float32:
+        raise ValueError(f"the LSTM kernels take float32, got {dtype}")
+
+
 def _check_operands(xw, u, peep, mask, size: int) -> None:
     """Raise on anything the CUDA kernels do not take: every operand a
     contiguous float32 tensor on one CUDA device, xw [T, B, 4H], u [H, 4H],
@@ -89,8 +152,7 @@ def _check_operands(xw, u, peep, mask, size: int) -> None:
         if t.device != xw.device:
             raise ValueError(f"LSTM operands must all lie on {xw.device}, "
                              f"found one on {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"the LSTM kernels take float32, got {t.dtype}")
+        check_lstm_dtype(t.dtype)
         if not t.is_contiguous():
             raise ValueError("the LSTM kernels need contiguous operands")
     H = int(size)
@@ -116,6 +178,35 @@ def _entry(name: str, n_ptr: int):
     return fn
 
 
+_limits = {}
+
+
+def device_limits(dev: torch.device) -> tuple:
+    """(SM count, opt-in shared memory a block in bytes) of CUDA device
+    ``dev``, from the CUDA runtime, read once per device."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _limits:
+        fn = _build.load_kernel_library("lstm.cu").lstm_device_limits
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        n_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = fn(ctypes.byref(n_sm), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"lstm_device_limits failed: CUDA error {rc}")
+        _limits[index] = (n_sm.value, smem.value)
+    return _limits[index]
+
+
+def _route(dev, T: int, B: int, H: int) -> str:
+    return lstm_route(T, B, H, *device_limits(dev))
+
+
+def _sync(dev, B: int) -> torch.Tensor:
+    """The persistent route's arrival counters, one per row group, zero."""
+    return torch.zeros(-(-B // P_ROWS), dtype=torch.int32, device=dev)
+
+
 def _launch(fn, ptrs, dev, T: int, B: int, H: int, codes) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -126,13 +217,15 @@ def _launch(fn, ptrs, dev, T: int, B: int, H: int, codes) -> None:
 
 def lstm_fwd_kernel(xw, u, peep, mask, size: int, use_peepholes: bool, acts,
                     residuals: bool):
-    """One call of the forward kernel (T launches).  Returns (hs, hc, cc,
-    gates, cnew): hs [T, B, H]; the carried state hc, cc [T + 1, B, H] with
-    the zero initial state in slot 0 (c_final is cc[T]); with
+    """One call of the forward kernel on the route :func:`lstm_route` gives
+    (one device launch persistent, T on the step route).  Returns (hs, hc,
+    cc, gates, cnew): hs [T, B, H]; the carried state hc, cc [T + 1, B, H]
+    with the zero initial state in slot 0 (c_final is cc[T]); with
     ``residuals`` the activated gates [T, B, 4H] and c_new [T, B, H] for
     the backward, else None for both."""
     _check_operands(xw, u, peep, mask, size)
     T, B, H = xw.shape[0], xw.shape[1], int(size)
+    route = _route(xw.device, T, B, H)
     hs = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
     hc = torch.empty((T + 1, B, H), dtype=xw.dtype, device=xw.device)
     cc = torch.empty_like(hc)
@@ -142,21 +235,28 @@ def lstm_fwd_kernel(xw, u, peep, mask, size: int, use_peepholes: bool, acts,
     if residuals:
         gates = torch.empty_like(xw)
         cnew = torch.empty_like(hs)
-    _launch(_entry("lstm_fwd_launch", 9),
-            (xw.data_ptr(), u.data_ptr(), peep.data_ptr(), mask.data_ptr(),
-             hs.data_ptr(), hc.data_ptr(), cc.data_ptr(),
-             0 if gates is None else gates.data_ptr(),
-             0 if cnew is None else cnew.data_ptr()),
-            xw.device, T, B, H, _act_codes(use_peepholes, acts))
+    ptrs = (xw.data_ptr(), u.data_ptr(), peep.data_ptr(), mask.data_ptr(),
+            hs.data_ptr(), hc.data_ptr(), cc.data_ptr(),
+            0 if gates is None else gates.data_ptr(),
+            0 if cnew is None else cnew.data_ptr())
+    if route == "persistent":
+        _launch(_entry("lstm_fwd_persistent_launch", 10),
+                ptrs + (_sync(xw.device, B).data_ptr(),), xw.device, T, B, H,
+                _act_codes(use_peepholes, acts))
+    else:
+        _launch(_entry("lstm_fwd_launch", 9), ptrs, xw.device, T, B, H,
+                _act_codes(use_peepholes, acts))
     fused_lstm.launches["fwd"] += 1
+    fused_lstm.route_launches[route] += 1
     return hs, hc, cc, gates, cnew
 
 
 def lstm_bwd_kernel(g_hs, g_c, u, peep, mask, gates, cnew, cc, size: int,
                     use_peepholes: bool, acts):
-    """One call of the reverse-recurrence kernel (T launches): the gate
-    gradients dxw [T, B, 4H] from the cotangents g_hs [T, B, H] and g_c
-    [B, H] and the forward's residuals."""
+    """One call of the reverse-recurrence kernel on the route
+    :func:`lstm_route` gives (one device launch persistent, T on the step
+    route): the gate gradients dxw [T, B, 4H] from the cotangents g_hs
+    [T, B, H] and g_c [B, H] and the forward's residuals."""
     _check_operands(gates, u, peep, mask, size)
     T, B, H = gates.shape[0], gates.shape[1], int(size)
     for name, t, want in (("g_hs", g_hs, (T, B, H)), ("g_c", g_c, (B, H)),
@@ -165,15 +265,22 @@ def lstm_bwd_kernel(g_hs, g_c, u, peep, mask, gates, cnew, cc, size: int,
                 or t.device != gates.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 {want} on "
                              f"{gates.device}")
+    route = _route(gates.device, T, B, H)
     dh = torch.empty((B, H), dtype=torch.float32, device=gates.device)
     dc = g_c.clone()
     dxw = torch.empty_like(gates)
-    _launch(_entry("lstm_bwd_launch", 10),
-            (g_hs.data_ptr(), u.data_ptr(), peep.data_ptr(), mask.data_ptr(),
-             gates.data_ptr(), cnew.data_ptr(), cc.data_ptr(), dh.data_ptr(),
-             dc.data_ptr(), dxw.data_ptr()),
-            gates.device, T, B, H, _act_codes(use_peepholes, acts))
+    ptrs = (g_hs.data_ptr(), u.data_ptr(), peep.data_ptr(), mask.data_ptr(),
+            gates.data_ptr(), cnew.data_ptr(), cc.data_ptr(), dh.data_ptr(),
+            dc.data_ptr(), dxw.data_ptr())
+    if route == "persistent":
+        _launch(_entry("lstm_bwd_persistent_launch", 11),
+                ptrs + (_sync(gates.device, B).data_ptr(),), gates.device, T,
+                B, H, _act_codes(use_peepholes, acts))
+    else:
+        _launch(_entry("lstm_bwd_launch", 10), ptrs, gates.device, T, B, H,
+                _act_codes(use_peepholes, acts))
     fused_lstm.launches["bwd"] += 1
+    fused_lstm.route_launches[route] += 1
     return dxw
 
 
@@ -278,3 +385,4 @@ def fused_lstm(xw: torch.Tensor, u: torch.Tensor, peep: torch.Tensor,
 
 
 fused_lstm.launches = {"fwd": 0, "bwd": 0}
+fused_lstm.route_launches = {"persistent": 0, "step": 0}

@@ -1,9 +1,11 @@
 """Time the paged decode-attention, flash-forward and flash-backward kernels
-of one checkout of the port, or (``--conv``) its 3x3 conv kernels, so that
-two versions can be compared in turns on one card.
+of one checkout of the port, or (``--conv``) its 3x3 conv kernels, or
+(``--lstm``) its LSTM kernels, so that two versions can be compared in
+turns on one card.
 
     python3 paddle_tpu_torch/tools/kernel_turns.py --tree DIR [--label L]
     python3 paddle_tpu_torch/tools/kernel_turns.py --tree DIR --conv
+    python3 paddle_tpu_torch/tools/kernel_turns.py --tree DIR --lstm
 
 Imports ``paddle_tpu_torch`` from the checkout ``DIR`` (another version of
 this package: only ``paged_attention``, ``quantize_kv``,
@@ -23,9 +25,18 @@ line.  With ``--conv`` the cases are instead ``igemm_conv_kernel`` and
 kernels came has) at ``chip_smoke.py``'s four ResNet stride-1 shapes
 (c56, c28, c14, c7) in bfloat16 and in float32, each with its worst
 error over ``chip_smoke``'s limit against the plain version, the two
-times and the bound, and ptxas's report for ``conv.cu``.  Run it for the
-old and the new checkout in turns, in one call on one card (old, new, new,
-old): the card's power limit and its neighbours differ between calls.
+times and the bound, and ptxas's report for ``conv.cu``.  With ``--lstm``
+they are the LSTM kernels at ``chip_smoke.py``'s text_lstm case (T=100,
+B=128, H=512, float32, no peepholes, lengths 50-100): ``lstm_fwd_kernel``
+with the backward's residuals (as training calls it), ``lstm_bwd_kernel``
+(the reverse recurrence alone) and ``lstm_bwd_cuda`` (the whole backward:
+the kernel, the du matmul and the peephole sums), the signatures every
+version since the LSTM kernels came has; each with its error against the
+plain version (the backward's over each gradient's max |g|), the two times
+and the bound, the route counts where the version has them, and ptxas's
+report for ``lstm.cu``.  Run it for the old and the new checkout in turns,
+in one call on one card (old, new, new, old): the card's power limit and
+its neighbours differ between calls.
 """
 from __future__ import annotations
 
@@ -44,6 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--conv", action="store_true",
                     help="time the conv kernels instead")
+    ap.add_argument("--lstm", action="store_true",
+                    help="time the LSTM kernels instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     sys.path.insert(1, str(HERE))
@@ -60,12 +73,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns needs a CUDA card")
     dev = torch.device("cuda")
-    if args.conv:
+    if args.conv or args.lstm:
+        turn = _conv_turn if args.conv else _lstm_turn
         print(json.dumps({"label": args.label or args.tree,
                           "package": str(Path(paddle_tpu_torch.__file__)
                                          .parent),
                           "card": paddle_tpu_torch.card_info(0),
-                          **_conv_turn(cs, dev)}))
+                          **turn(cs, dev)}))
         return 0
     res = {"label": args.label or args.tree,
            "package": str(Path(paddle_tpu_torch.__file__).parent),
@@ -182,6 +196,55 @@ def _conv_turn(cs, dev) -> dict:
         {"kernel": name, "registers": regs, "spill_bytes": spill}
         for name, regs, spill in cs._ptxas_report(
             _build.build_logs.get("conv.cu", ""))]}
+
+
+def _lstm_turn(cs, dev) -> dict:
+    """The LSTM cases (see the module note): {"lstm": {kernel: record},
+    "route_launches": ..., "ptxas": [...]}."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import _build, fused_lstm
+    from paddle_tpu_torch.ops import lstm as TL
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
+    T, B, H = cs.LSTM_SHAPE
+    lengths = np.random.RandomState(0).randint(T // 2, T + 1, B)
+    xw, u, peep, mask, g_hs, g_c = cs._lstm_inputs(T, B, H, lengths, dev,
+                                                    T + B + H)
+    args = (H, False, cs.LSTM_ACTS)
+    routes = dict(getattr(fused_lstm, "route_launches", {}))
+    hs, hc, cc, gates, cnew = TL.lstm_fwd_kernel(xw, u, peep, mask, *args,
+                                                 True)
+    rhs, rc = TL._lstm_scan(xw, u, peep, mask, *args)
+    got = TL.lstm_bwd_cuda(g_hs, g_c, u, peep, mask, hc, cc, gates, cnew,
+                           *args)
+    want = TL._lstm_scan_vjp(xw, u, peep, mask, *args, g_hs, g_c)
+    routes = {k: v - routes[k]
+              for k, v in getattr(fused_lstm, "route_launches", {}).items()}
+    err_b = {n: cs._abs(a, b) / max(float(b.abs().max()), 1e-30)
+             for n, a, b in zip(("dxw", "du", "dpeep"), got, want)}
+    n_valid = int(mask.sum())
+    out = {}
+    for kern, fn, err, bound in (
+            ("fwd", lambda i: TL.lstm_fwd_kernel(xw, u, peep, mask, *args,
+                                                 True),
+             {"hs, c_final": max(cs._abs(hs, rhs), cs._abs(cc[-1], rc))},
+             cs._lstm_bound("fwd", T, B, H, n_valid)),
+            ("bwd_kernel", lambda i: TL.lstm_bwd_kernel(
+                g_hs, g_c, u, peep, mask, gates, cnew, cc, *args),
+             {"dxw": err_b["dxw"]},
+             cs._lstm_bound("bwd", T, B, H, n_valid, whole=False)),
+            ("bwd", lambda i: TL.lstm_bwd_cuda(
+                g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, *args),
+             err_b, cs._lstm_bound("bwd", T, B, H, n_valid))):
+        ms, dev_ms = cs.both_ms(fn)
+        out[kern] = {"err": err, "ms": ms, "device_ms": dev_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+    return {"lstm": out, "route_launches": routes, "ptxas": [
+        {"kernel": name, "registers": regs, "spill_bytes": spill}
+        for name, regs, spill in cs._ptxas_report(
+            _build.build_logs.get("lstm.cu", ""))]}
 
 
 if __name__ == "__main__":
