@@ -12,8 +12,11 @@ Phases (any failure exits non-zero, before the final line):
                registers and spills for each kernel;
   3. kernels - hold each kernel against its plain PyTorch version on the
                card (paged attention at the serving shapes; the three flash
-               kernels at the training shape in float32 and bfloat16, a
-               rectangular non-causal and a ragged causal case; the LSTM
+               kernels at the training shape in float32 and bfloat16
+               (bfloat16 backward: the tensor-core pair, also against its
+               arithmetic in float64), a rectangular non-causal and a
+               ragged causal case at D=16, a ragged non-causal one with
+               Tq < Tk at D=128 and a causal one at D=32; the LSTM
                forward and reverse kernels at text_lstm's full width, with
                peepholes, and through dynamic_lstm(is_reverse=True) on
                lengths {1, T, 0}, all on the persistent route, and at
@@ -41,7 +44,18 @@ Phases (any failure exits non-zero, before the final line):
                batch with the flash launch counts set to 0 before and read
                after (each must be n_layers x steps), losses finite and
                falling, ms per step and tokens/s;
-  6. lstm train - the text classifier (vocab 10000, emb 128, 2 x LSTM-512,
+  6. lm amp train - the same program and weights under amp with attention
+               in bfloat16 (build_train_program(amp=True): the default
+               bf16 list plus the attention op, so the bf16 flash kernels
+               run): one step on 2 x 1024 tokens on the card and on the CPU,
+               loss and every gradient held to 3 x the CPU's own spread
+               (its amp step's distance from the train phase's float32
+               CPU step, same weights and tokens; never tighter than the
+               float32 limit 1e-3); then 5 steps on the 8 x 1024 batch
+               with the flash counts set to 0 before and read after (each
+               n_layers x steps, and every launch bfloat16), losses finite
+               and falling, ms per step, tokens/s, peak memory;
+  7. lstm train - the text classifier (vocab 10000, emb 128, 2 x LSTM-512,
                2 classes, seq_len 100, float32, weights from seed 0) through
                Program / Executor with Adam(1e-3): one step on 16 sequences
                on the card and on the CPU from the same weights, loss and
@@ -50,13 +64,13 @@ Phases (any failure exits non-zero, before the final line):
                (2 layers x 5 steps each, every call on the persistent
                route), losses finite and falling, ms per step and
                sequences/s;
-  7. bn kernels - the batch-norm backward kernels (reduction, dx) against
+  8. bn kernels - the batch-norm backward kernels (reduction, dx) against
                their plain versions in float32 and bfloat16 at ResNet-50's
                shapes ([256,64,56,56], [256,128,28,28], [256,256,56,56]
                (benchmark/bn_probe.py's), [256,2048,7,7]) and a ragged one,
                each with a constant channel; timed at [256,256,56,56] beside
                the plain versions and native_batch_norm_backward;
-  8. resnet train - ResNet-50 (1000 classes, 224x224, weights from seed 0)
+  9. resnet train - ResNet-50 (1000 classes, 224x224, weights from seed 0)
                as bench.py trains it, Program / Executor with Momentum(0.1,
                0.9): one float32 step (TF32 off) on 4 images on the card and
                on the CPU from the same weights, loss and every running
@@ -68,7 +82,7 @@ Phases (any failure exits non-zero, before the final line):
                the card, with the batch-norm launch counts set to 0 before
                and read after (53 layers x 5 steps each), losses finite and
                printed, images/s from the median of steps 2-5, peak memory;
-  9. conv kernels - the 3x3 implicit-GEMM kernels (plain and fused with the
+ 10. conv kernels - the 3x3 implicit-GEMM kernels (plain and fused with the
                folded batch norm and ReLU) against their plain versions in
                float32 and bfloat16 at ResNet-50's stride-1 shapes
                ([256,56,56,64]x64 and [256,28,28,128]x128, which are
@@ -83,7 +97,7 @@ Phases (any failure exits non-zero, before the final line):
                and cuDNN (F.conv2d, then the batch norm's scale and shift
                and the ReLU as separate passes, on the same NHWC tensor as
                a channels_last view and on an NCHW copy);
- 10. resnet infer - the is_test program benchmark/resnet.py's infer configs
+ 11. resnet infer - the is_test program benchmark/resnet.py's infer configs
                prune to (build, 1000 classes, 224x224, weights and running
                statistics from seed 0), through Program.prune and
                Executor.run with its 3x3 stride-1 convolutions routed onto
@@ -153,8 +167,19 @@ FLASH_BWD_BF16_SUM_REL = 1e-3
 # (label, N = B*H, Tq, Tk, D, causal); the first is the training shape
 FLASH_CASES = [("train", 64, 1024, 1024, 64, True),
                ("rectangular", 8, 50, 70, 16, False),
-               ("ragged", 8, 37, 37, 16, True)]
+               ("ragged", 8, 37, 37, 16, True),
+               ("wide", 4, 130, 200, 128, False),
+               ("d32", 4, 200, 200, 32, True)]
 FLASH_KERNELS = ("fwd", "bwd_dkdv", "bwd_dq")
+# the LM's amp parity step (attention in bf16), card against CPU: an
+# element-wise bound does not hold through six bf16 layers, so each
+# gradient (relative L2, and max |d| over max |g|), all of them together,
+# and the loss are held to AMP_SPREAD_FACTOR x the CPU's own spread, its
+# amp step's distance from its float32 step on the same weights and tokens
+# (bf16's whole effect on the step), measured in the same run; never
+# tighter than AMP_FLOOR, the float32 step's limit (PERF.md section 2)
+AMP_SPREAD_FACTOR = 3.0
+AMP_FLOOR = 1e-3
 # LSTM kernels against their plain versions: the repo's float32 kernel
 # tolerances, hs and c_final atol 2e-5, dxw / du / dpeep within 2e-4 of each
 # gradient's max |g|
@@ -522,6 +547,48 @@ def _worst(got, want, tol) -> float:
     return float(((got.float() - want.float()).abs() / tol).max())
 
 
+def _flash_inputs(N, Tq, Tk, D, dtype, dev) -> tuple:
+    """q, k, v, g of a flash case, N(0, 1) from a seed the shape gives."""
+    rng = np.random.RandomState(N + Tq + 7 * Tk + D)
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    return mk(N, Tq, D), mk(N, Tk, D), mk(N, Tk, D), mk(N, Tq, D)
+
+
+def _bwd_f64(q, k, v, g, lse, delta, scale: float, causal: bool) -> tuple:
+    """The bfloat16 backward's arithmetic in float64, a second witness
+    beside the plain versions: s, p, dP and dS from the same (q, k, v, g,
+    lse, delta), p and dS rounded to bfloat16 where the kernels and the
+    plain versions round them, the three products in float64 and not
+    rounded.  Returns (dq, dk, dv), float64.  A rounding of p or dS that
+    falls the other way in one side moves that side from this as far as
+    from the other side; a wrong product moves it further."""
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+    s = torch.einsum("nqd,nkd->nqk", qd, kd) * scale
+    p = torch.exp(s - lse.double()[..., None])
+    if causal:
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        p = p.masked_fill(qpos < kpos, 0.0)
+    dp = torch.einsum("nqd,nkd->nqk", gd, vd)
+    ds = p * (dp - delta.double()[..., None]) * scale
+    p, ds = p.to(q.dtype).double(), ds.to(q.dtype).double()
+    return (torch.einsum("nqk,nkd->nqd", ds, kd),
+            torch.einsum("nqk,nqd->nkd", ds, qd),
+            torch.einsum("nqk,nqd->nkd", p, gd))
+
+
+def _bf16_bwd_worst(got, want) -> float:
+    """max |got - want| over the bfloat16 backward's element-wise limit
+    2u |want| + FLASH_BWD_BF16_SUM_REL max |want|."""
+    w = want.float()
+    return _worst(got, w, 2 * BF16_U * w.abs()
+                  + FLASH_BWD_BF16_SUM_REL * float(w.abs().max()) + 1e-30)
+
+
 def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
     """One case: forward (o, lse) and backward (dq, dk, dv) of the kernels
     against the plain versions on the same inputs; at the training shape
@@ -531,13 +598,7 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
     from paddle_tpu_torch.ops import attention as TA
 
     kind = "float32" if dtype == torch.float32 else "bfloat16"
-    rng = np.random.RandomState(N + Tq + 7 * Tk + D)
-
-    def mk(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(dev, dtype)
-
-    q, k, v, g = mk(N, Tq, D), mk(N, Tk, D), mk(N, Tk, D), mk(N, Tq, D)
+    q, k, v, g = _flash_inputs(N, Tq, Tk, D, dtype, dev)
     scale = D ** -0.5
     name = f"flash {label} N={N} Tq={Tq} Tk={Tk} D={D} causal={causal} {kind}"
 
@@ -569,13 +630,9 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
     worst = {}
     for n, got, want in (("dq", kq, pq), ("dk", kk, pk), ("dv", kv, pv)):
         top = float(want.float().abs().max())
-        if kind == "float32":
-            tol = FLASH_BWD_REL * top
-        else:
-            tol = (2 * BF16_U * want.float().abs()
-                   + FLASH_BWD_BF16_SUM_REL * top)
         worst[n] = (_abs(got, want) / max(top, 1e-30),
-                    _worst(got, want, tol + 1e-30))
+                    _worst(got, want, FLASH_BWD_REL * top + 1e-30)
+                    if kind == "float32" else _bf16_bwd_worst(got, want))
     lim = (f"{FLASH_BWD_REL} max|g|" if kind == "float32" else
            f"2u |g| + {FLASH_BWD_BF16_SUM_REL} max|g| per element")
     ok = all(w <= 1.0 for _, w in worst.values()) and all(
@@ -583,6 +640,18 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
     print(f"kernel {name}: bwd max|d|/max|g| (worst |d|/limit) " + ", ".join(
         f"{n} {r:.3e} ({w:.3f})" for n, (r, w) in worst.items())
         + f" (limit {lim}) {'ok' if ok else 'MISMATCH'}")
+    if kind == "bfloat16":
+        # the second witness: both sides against the float64 arithmetic,
+        # under the same limit (recorded, not a check)
+        delta = (ro.float() * g.float()).sum(dim=-1)
+        ref = _bwd_f64(q, k, v, g, rlse, delta, scale, causal)
+        print(f"kernel {name}: bwd against float64 (worst |d|/limit), "
+              f"kernel / plain: " + ", ".join(
+                  f"{n} {_bf16_bwd_worst(a, r):.3f} / "
+                  f"{_bf16_bwd_worst(b, r):.3f}"
+                  for n, a, b, r in zip(("dq", "dk", "dv"), (kq, kk, kv),
+                                        (pq, pk, pv), ref)))
+        del ref
     check(ok, f"{name}: backward kernels disagree with _bwd_blockwise: "
               f"{worst}")
     errs = {"fwd": err_o, "bwd_dkdv": max(_abs(kk, pk), _abs(kv, pv)),
@@ -630,7 +699,9 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
     for kern in FLASH_KERNELS:
         bound_ms, bound_by = _flash_bound(kern, N, Tq, Tk, D, causal, dtype)
         # no PyTorch call computes dk/dv alone or dq alone: the backward
-        # kernels have no library time of their own (the pair's is below)
+        # kernels have no library time of their own; the pair's, SDPA's
+        # whole backward, stands beside the pair's own times on the dK/dV
+        # record
         recs[kern] = {
             "max_abs_err": errs[kern], "ms": ms[kern],
             "device_ms": dev_ms[kern], "plain_ms": plain[kern],
@@ -638,6 +709,12 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
             "bound_by": bound_by,
             "library_ms": lib_fwd if kern == "fwd" else None,
             "library_device_ms": lib_fwd_dev if kern == "fwd" else None}
+        if kern == "bwd_dkdv":   # the pair's times, once
+            recs[kern].update({
+                "pair_ms": ms["bwd_dkdv"] + ms["bwd_dq"],
+                "pair_device_ms": dev_ms["bwd_dkdv"] + dev_ms["bwd_dq"],
+                "library_pair_ms": lib_bwd,
+                "library_pair_device_ms": lib_bwd_dev})
         lib = (f"sdpa {lib_fwd:.4f} ms (device {lib_fwd_dev:.4f})"
                if kern == "fwd" else "no library call of its own")
         print(f"kernel flash {kern} {kind} train shape: {ms[kern]:.4f} ms "
@@ -655,15 +732,16 @@ def _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card) -> dict:
 
 
 def phase_flash_kernels(card: str) -> dict:
-    """Every flash case in float32 and bfloat16; returns the float32
-    training-shape records by kernel for the JSON line."""
+    """Every flash case in float32 and bfloat16; returns the
+    training-shape records by dtype ("float32", "bfloat16") and kernel for
+    the JSON line."""
     dev = torch.device("cuda")
     records = {}
     for label, N, Tq, Tk, D, causal in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             recs = _flash_case(label, N, Tq, Tk, D, causal, dtype, dev, card)
-            if label == "train" and dtype == torch.float32:
-                records = recs
+            if label == "train":
+                records[str(dtype).replace("torch.", "")] = recs
     return records
 
 
@@ -1056,9 +1134,39 @@ def phase_serve(card: str) -> dict:
     return paths
 
 
+def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
+    """TRAIN_STEPS Executor steps on ``feed``, with every flash launch
+    count set to 0 just before and read just after: losses, CUDA-event ms
+    per step (fetch included), the counts (all, and by dtype), peak
+    memory."""
+    from paddle_tpu_torch.ops import flash_attention
+    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS
+
+    torch.cuda.synchronize()
+    for kern in FLASH_KERNELS:
+        flash_attention.launches[kern] = 0
+        for counts in flash_attention.dtype_launches.values():
+            counts[kern] = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        e1.record()
+        torch.cuda.synchronize()
+        losses.append(float(out))
+        step_ms.append(e0.elapsed_time(e1))
+    return {"losses": losses, "step_ms": step_ms,
+            "launches": dict(flash_attention.launches),
+            "dtype_launches": {dt: dict(c) for dt, c in
+                               flash_attention.dtype_launches.items()},
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
 def phase_train(card: str) -> dict:
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import flash_attention
     from paddle_tpu_torch.tools.train_profile import (
         TRAIN_BATCH, TRAIN_STEPS, build_train_program, train_batch,
         train_scope)
@@ -1099,22 +1207,10 @@ def phase_train(card: str) -> dict:
                          f"its max |g|")
 
     # training pass: the counts are this pass's own
-    scope = train_scope(exe, startup, main, params)
-    feed = train_batch(3)
-    torch.cuda.synchronize()
-    for kern in FLASH_KERNELS:
-        flash_attention.launches[kern] = 0
-    losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        e1.record()
-        torch.cuda.synchronize()
-        losses.append(float(out))
-        step_ms.append(e0.elapsed_time(e1))
-    launches = dict(flash_attention.launches)
+    run = _lm_train_pass(exe, main, loss,
+                         train_scope(exe, startup, main, params),
+                         train_batch(3))
+    losses, step_ms, launches = run["losses"], run["step_ms"], run["launches"]
     n_layers = LM_CFG["n_layers"]
     check(all(np.isfinite(losses)), f"train: non-finite losses {losses}")
     check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
@@ -1130,7 +1226,165 @@ def phase_train(card: str) -> dict:
           f"{TRAIN_STEPS} {med:.2f} ms = {tokens / med * 1e3:.0f} tokens/s; "
           f"flash launches {launches} = {n_layers} layers x {TRAIN_STEPS} "
           f"steps; on {card}")
-    return {"launches": launches, "losses": losses, "median_ms": med}
+    # the float32 parity step, the CPU's and the card's: the amp phase
+    # measures the CPU's spread against the one and runs the other through
+    # its comparisons as a control
+    return {"launches": launches, "losses": losses, "median_ms": med,
+            "cpu_parity": want, "card_parity": got}
+
+
+def _spread_ratio(a, b, ref, dist) -> tuple:
+    """(dist(a, b), the CPU's spread dist(b, ref), dist(a, b) over its
+    limit max(AMP_FLOOR, AMP_SPREAD_FACTOR x spread)), each relative to
+    the CPU amp value's own norm: a the card's amp value, b the CPU's, ref
+    the CPU's float32 value."""
+    norm = max(dist(b, np.zeros_like(b)), 1e-30)
+    d, spread = dist(a, b) / norm, dist(b, ref) / norm
+    return d, spread, d / max(AMP_FLOOR, AMP_SPREAD_FACTOR * spread)
+
+
+def phase_lm_amp_train(card: str, f32_cpu: list, f32_card: list) -> dict:
+    """The LM train step under amp with attention in bf16 (train_profile's
+    program, amp=True): a parity step against the CPU's amp step,
+    held to the CPU's own spread (its amp step's distance from its float32
+    step, ``f32_cpu``: the train phase's CPU step on the same weights and
+    tokens), and at least a third of that spread away from the float32
+    step, with the train phase's float32 card step ``f32_card`` as the
+    control that must fail; then 5 steps, every flash launch bf16."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (
+        TRAIN_BATCH, TRAIN_STEPS, build_train_program, train_batch,
+        train_scope)
+
+    loss, main, startup = build_train_program(amp=True)
+    params = fluid.init_lm_params(0, **LM_CFG)
+    grad_names = [f"{n}@GRAD" for n in params]
+    exe = fluid.Executor()
+    exe_cpu = fluid.Executor(fluid.CPUPlace())
+
+    # parity step: card (kernels) and CPU (plain versions), the train
+    # phase's weights and 2 x 1024 tokens
+    feed = train_batch(2, 2)
+    t0 = time.perf_counter()
+    got = exe.run(main, feed=feed, fetch_list=[loss] + grad_names,
+                  scope=train_scope(exe, startup, main, params))
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = exe_cpu.run(main, feed=feed, fetch_list=[loss] + grad_names,
+                       scope=train_scope(exe_cpu, startup, main, params,
+                                         "cpu"))
+    t_cpu = time.perf_counter() - t0
+    l_gpu, l_cpu, l_f32 = float(got[0]), float(want[0]), float(f32_cpu[0])
+    l_lim = max(1e-4 * abs(l_cpu), AMP_SPREAD_FACTOR * abs(l_cpu - l_f32))
+    print(f"lm amp parity: loss {l_gpu:.6f} card, {l_cpu:.6f} CPU amp, "
+          f"{l_f32:.6f} CPU float32; |d| {abs(l_gpu - l_cpu):.3e} (limit "
+          f"{l_lim:.3e}: max(1e-4 |loss|, {AMP_SPREAD_FACTOR:g} x the CPU's "
+          f"amp - float32 distance)); step {t_gpu:.2f} s card (first), "
+          f"{t_cpu:.2f} s CPU")
+    check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= l_lim,
+          f"lm amp parity: loss {l_gpu} on the card, {l_cpu} on the CPU, "
+          f"limit {l_lim}")
+
+    def l2(a, b):
+        return float(np.linalg.norm((a - b).ravel()))
+
+    def mx(a, b):
+        return float(np.abs(a - b).max())
+
+    worst, worst_name, rows = -1.0, None, []
+    for name, a, b, c in zip(grad_names, got[1:], want[1:], f32_cpu[1:]):
+        check(np.isfinite(a).all(), f"lm amp parity: non-finite {name}")
+        a, b, c = (np.asarray(x, np.float32) for x in (a, b, c))
+        r_l2, r_mx = _spread_ratio(a, b, c, l2), _spread_ratio(a, b, c, mx)
+        rows.append((name, r_l2, r_mx))
+        w = max(r_l2[2], r_mx[2])
+        if w > worst:
+            worst, worst_name = w, name
+    def flat(xs):
+        return np.concatenate([np.asarray(x, np.float32).ravel() for x in xs])
+
+    cat = [flat(xs) for xs in (got[1:], want[1:], f32_cpu[1:])]
+    together = _spread_ratio(*cat, l2)
+    spreads = sorted(r[1][1] for r in rows)
+    print(f"lm amp parity: {len(grad_names)} gradients; the CPU's spread "
+          f"(amp - float32) in relative L2 median {np.median(spreads):.3e}, "
+          f"{spreads[0]:.3e} to {spreads[-1]:.3e}; card vs CPU worst "
+          f"{worst:.3f} of its limit ({worst_name}; relative L2 and max "
+          f"|d|/max, each within max({AMP_FLOOR:g}, {AMP_SPREAD_FACTOR:g} x "
+          f"the spread)); all together relative L2 {together[0]:.3e}, "
+          f"spread {together[1]:.3e} ({together[2]:.3f} of its limit)")
+    for name, r_l2, r_mx in sorted(rows, key=lambda r: -max(r[1][2],
+                                                             r[2][2]))[:3]:
+        print(f"lm amp parity:   {name}: relative L2 {r_l2[0]:.3e} (spread "
+              f"{r_l2[1]:.3e}), max |d|/max {r_mx[0]:.3e} (spread "
+              f"{r_mx[1]:.3e})")
+    check(worst <= 1.0 and together[2] <= 1.0,
+          f"lm amp parity: {worst_name} at {worst} of its limit, all "
+          f"together at {together[2]}")
+
+    # the bound above holds a float32 step too (it lies one spread from the
+    # CPU's amp step, a third of the limit), so the step must also lie at
+    # least 1 / AMP_SPREAD_FACTOR of the CPU's spread from the CPU's
+    # float32 step, in relative L2, each gradient and all together: a step
+    # whose bf16 casts were dropped sits within float32's 1e-3 of it.  The
+    # train phase's float32 card step is the control: it must fail this.
+    def away(xs):
+        """(each gradient's, all together) distance of the step ``xs``
+        from the CPU's float32 step over the CPU's spread."""
+        each = [l2(flat([a]), flat([c])) / max(l2(flat([b]), flat([c])),
+                                                1e-30)
+                for a, b, c in zip(xs, want[1:], f32_cpu[1:])]
+        return each, l2(flat(xs), cat[2]) / max(l2(cat[1], cat[2]), 1e-30)
+
+    floor = 1.0 / AMP_SPREAD_FACTOR
+    each, all_ = away(got[1:])
+    c_each, c_all = away(f32_card[1:])
+    c_par = _spread_ratio(flat(f32_card[1:]), cat[1], cat[2], l2)[2]
+    print(f"lm amp parity: distance from the CPU's float32 step over the "
+          f"CPU's spread (floor {floor:.3f}): amp step least "
+          f"{min(each):.3f} ({grad_names[int(np.argmin(each))]}), all "
+          f"together {all_:.3f}; control (the float32 card step): all "
+          f"together {c_all:.3e}, greatest {max(c_each):.3e}, and "
+          f"{c_par:.3f} of the parity limit above")
+    check(min(each) >= floor and all_ >= floor,
+          f"lm amp parity: the amp step lies {min(each)} (least gradient) "
+          f"and {all_} (all together) of the CPU's spread from float32, "
+          f"floor {floor}: bf16 did not run")
+    check(c_all < floor, f"lm amp parity: the float32 control lies {c_all} "
+                         f"of the CPU's spread from float32, floor {floor}:"
+                         f" the comparison cannot tell float32 from amp")
+
+    # training pass: every flash launch of it bf16
+    run = _lm_train_pass(exe, main, loss,
+                         train_scope(exe, startup, main, params),
+                         train_batch(3))
+    losses, step_ms = run["losses"], run["step_ms"]
+    bf16, f32 = run["dtype_launches"]["bfloat16"], run["dtype_launches"][
+        "float32"]
+    n_layers = LM_CFG["n_layers"]
+    want_n = n_layers * TRAIN_STEPS
+    check(all(np.isfinite(losses)), f"lm amp train: non-finite losses "
+                                    f"{losses}")
+    check(losses[-1] < losses[0], f"lm amp train: loss did not fall: "
+                                  f"{losses}")
+    check(all(run["launches"][k] == want_n and bf16[k] == want_n
+              and f32[k] == 0 for k in FLASH_KERNELS),
+          f"lm amp train: flash launches {run['launches']}, by dtype "
+          f"{run['dtype_launches']}; expected {n_layers} x {TRAIN_STEPS} "
+          f"each, all bfloat16")
+    med = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * LM_CFG["max_len"]
+    print(f"lm amp train: {TRAIN_STEPS} Adam steps on {TRAIN_BATCH} x "
+          f"{LM_CFG['max_len']} tokens, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)}; median of steps 2-"
+          f"{TRAIN_STEPS} {med:.2f} ms = {tokens / med * 1e3:.0f} tokens/s; "
+          f"peak memory {run['peak_bytes'] / 2 ** 30:.2f} GiB; bf16 flash "
+          f"launches {bf16} = {n_layers} layers x {TRAIN_STEPS} steps "
+          f"(float32 {f32}); on {card}")
+    return {"launches": bf16, "losses": losses, "median_ms": med,
+            "tokens_per_s": tokens / med * 1e3,
+            "peak_bytes": run["peak_bytes"]}
 
 
 def phase_lstm_train(card: str) -> dict:
@@ -1896,6 +2150,8 @@ def main() -> int:
     lstm = _timed("lstm kernels", phase_lstm_kernels, card)
     paths = _timed("serve", phase_serve, card)
     train = _timed("train", phase_train, card)
+    lm_amp = _timed("lm amp train", phase_lm_amp_train, card,
+                    train["cpu_parity"], train["card_parity"])
     lstm_train = _timed("lstm train", phase_lstm_train, card)
     bn = _timed("bn kernels", phase_bn_kernels, card)
     resnet = _timed("resnet train", phase_resnet_train, card)
@@ -1921,7 +2177,17 @@ def main() -> int:
             "replaces": replaces[kern],
             "case": "float32, N=B*H=64, T=1024, D=64, causal",
             # launches: the training pass's own count (5 steps x 6 layers)
-            "launches": train["launches"][kern], **flash[kern],
+            "launches": train["launches"][kern], **flash["float32"][kern],
+        })
+    for kern in FLASH_KERNELS:
+        kernels.append({
+            "name": f"flash_{kern}_bf16", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces[kern],
+            "case": "bfloat16, N=B*H=64, T=1024, D=64, causal",
+            # launches: the lm amp training pass's own bf16 count (5 steps
+            # x 6 layers)
+            "launches": lm_amp["launches"][kern], **flash["bfloat16"][kern],
         })
     replaces = {"fwd": "paddle_tpu/ops/lstm.py:35",
                 "bwd": "paddle_tpu/ops/lstm.py:153"}

@@ -176,7 +176,9 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # passes) or raises: there is no fallback to the plain versions.  On meta
 # tensors it only gives the output's shape and dtype, so a program can be
 # built without the card.  ``flash_attention.launches`` counts kernel
-# launches per kernel; plain-version calls never count.
+# launches per kernel, and ``flash_attention.dtype_launches`` the same
+# launches by the operands' dtype ("float32", "bfloat16"); plain-version
+# calls never count.
 
 NEG_INF = -1e30
 FLASH_HEAD_DIMS = (16, 32, 64, 128)   # the head dims the CUDA kernels take
@@ -343,6 +345,12 @@ def _flash_entry(name: str):
     return getattr(_build.load_kernel_library("flash_attention.cu"), name)
 
 
+def _count(kernel: str, dtype: torch.dtype) -> None:
+    flash_attention.launches[kernel] += 1
+    flash_attention.dtype_launches[str(dtype).replace("torch.", "")][
+        kernel] += 1
+
+
 def _launch(fn, ptrs, q, k, scale, causal) -> None:
     N, Tq, D = q.shape
     with torch.cuda.device(q.device):
@@ -362,7 +370,7 @@ def flash_fwd_kernel(q, k, v, scale: float, causal: bool):
     _launch(_flash_entry("flash_fwd_launch"),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr()), q, k, scale, causal)
-    flash_attention.launches["fwd"] += 1
+    _count("fwd", q.dtype)
     return o, lse
 
 
@@ -377,7 +385,7 @@ def flash_bwd_dkdv_kernel(q, k, v, g, lse, delta, scale: float,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k, scale, causal)
-    flash_attention.launches["bwd_dkdv"] += 1
+    _count("bwd_dkdv", q.dtype)
     return dk, dv
 
 
@@ -390,7 +398,7 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale: float, causal: bool):
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
             q, k, scale, causal)
-    flash_attention.launches["bwd_dq"] += 1
+    _count("bwd_dq", q.dtype)
     return dq
 
 
@@ -463,3 +471,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = {"fwd": 0, "bwd_dkdv": 0, "bwd_dq": 0}
+flash_attention.dtype_launches = {
+    dt: {"fwd": 0, "bwd_dkdv": 0, "bwd_dq": 0}
+    for dt in ("float32", "bfloat16")}

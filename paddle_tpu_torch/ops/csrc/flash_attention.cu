@@ -4,9 +4,9 @@
 //   flash_fwd_f32_kernel,       <- _fwd_kernel       (via _fwd_pallas)
 //   flash_fwd_bf16_kernel
 //   flash_bwd_dkdv_f32_kernel,  <- _bwd_kernel_dkdv  (via _bwd_pallas)
-//   flash_bwd_dkdv_kernel (bf16)
+//   flash_bwd_dkdv_bf16_kernel
 //   flash_bwd_dq_f32_kernel,    <- _bwd_kernel_dq    (via _bwd_pallas)
-//   flash_bwd_dq_kernel (bf16)
+//   flash_bwd_dq_bf16_kernel
 //
 // What they compute, for each row n of q [N, Tq, D], k/v [N, Tk, D]:
 //   s = mask(q . k^T * scale), mask = kpos < Tk && (!causal || qpos >= kpos)
@@ -87,20 +87,49 @@
 //     dS^T, then dk += dS^T . q and dv += p^T . g; lse and delta are per
 //     column and load with the Q tile.  Q(t+1) loads during dv of tile t,
 //     G(t+1) during s^T of tile t+1.  107 KB at D = 64.
-// Both skip the tiles above the causal diagonal.  The bfloat16 backward
-// kernels (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel) keep the first
-// design: 64 x 64 tiles; 256 threads as 16 x 16, each owning a 4 x 4
-// patch of the score tile and 4 rows x D/16 columns of its accumulators;
-// K and V sit transposed in shared memory for the score products, rows
-// padded by one float; dynamic shared memory (66-183 KB by D) is taken
-// above 48 KB by opt-in.  The kernels pick their own tiles: the block_k of
-// the plain backward does not reach them.  D must be 16, 32, 64 or 128.
+// Both skip the tiles above the causal diagonal.
 //
-// Later work, not done here: wgmma and TMA for the bf16 forward (Hopper's
-// full tensor-core rate; mma.sync reaches a part of it), warp
-// specialisation; the float32 kernels' remaining distance to their FMA
-// bound (shared loads still take instruction slots from the FMAs); the
-// bf16 backward on the tensor cores, which mixed-precision training needs.
+// The bfloat16 backward kernels (flash_bwd_dkdv_bf16_kernel,
+// flash_bwd_dq_bf16_kernel) are bound by tensor-core operations: at the
+// training shape in bfloat16, dK/dV's four masked products take 0.0174 ms
+// and dQ's three 0.0130 ms at 989 TFLOP/s, against 0.0152 and 0.0127 ms
+// for their bytes.  Their design is FlashAttention-2's backward on
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate), the bfloat16 forward's
+// machinery: 128 threads as four warps of 16 rows, row-major bf16 tiles
+// padded by 8 elements (the 8 rows of an ldmatrix phase on 8 bank groups)
+// and filled by cp.async through a two-stage ring, operands by ldmatrix,
+// and the scores, p and dS kept in the accumulator fragments, p as
+// 2^(s scale log2(e) - lse log2(e)) (one FMA and one ex2.approx.ftz an
+// entry; __expf of s scale - lse took 17-20% longer):
+//   * dK/dV, in the transposed frame: a block owns 64 keys; per Q tile,
+//     s^T = k . q^T and dP^T = v . g^T (A: K and V; B: Q and G, both
+//     ldmatrix), p^T and dS^T in the fragments with lse and delta per
+//     column, then dv += p^T . g and dk += dS^T . q with p^T and dS^T
+//     rounded to bf16 as A fragments straight from registers (the C
+//     fragment of two m16n8 tiles is the A fragment of one m16n8k16 step)
+//     and G and Q by ldmatrix .trans.  Q tiles of 64 queries (32 at
+//     D = 128, where dk and dv take 64 floats each a thread);
+//   * dQ: a block owns 64 queries with q and g as A fragments in
+//     registers; per K/V tile, s = q . k^T, dP = g . v^T, dS in the
+//     fragments, dq += dS . k with K by ldmatrix .trans.  K/V tiles of 64
+//     keys (32 at D = 128).
+// The same schedule as the float32 pair: dK/dV starts the first K tiles
+// (the longest causal columns) first, dQ the last Q tiles; one writer per
+// output element, no atomics.  55 KB of shared memory a block at D = 64
+// (69-70 KB at D = 128), taken above 48 KB by opt-in.  D must be 16, 32,
+// 64 or 128.
+//
+// Later work, not done here: wgmma and TMA for the bf16 kernels (Hopper's
+// full tensor-core rate; mma.sync reaches a part of it) and warp
+// specialisation; in the bf16 backward, the ldmatrix traffic (one 512-byte
+// load for every two mma), dK/dV's occupancy (two blocks an SM at 228
+// registers) and the exp and mask work in the fragments (dQ without it
+// took two thirds of the time, PERF.md section 6).  Tried and not kept,
+// each within 3% either way: masking only the tiles at the ragged edge
+// and the diagonal, K and V held in registers as A fragments, a cap of
+// 168 registers for three dK/dV blocks an SM.  The float32 kernels'
+// remaining distance to their FMA bound (shared loads still take
+// instruction slots from the FMAs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,73 +140,9 @@
 
 namespace {
 
-constexpr int kB = 64;           // bf16 backward: rows of a Q and a K/V tile
-constexpr int kThreads = 256;    // bf16 backward: 16 x 16
 constexpr float kNegInf = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded through the input type: the identity for float32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// rows [row0, row0 + kB) of a [rows, D] matrix into dst[r][d] (leading
-// dimension D + 1), zero past `rows`
-template <typename T, int D>
-__device__ void load_tile(float* dst, const T* src, int row0, int rows) {
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    const int gr = row0 + r;
-    dst[r * (D + 1) + d] = gr < rows ? to_f32(src[(int64_t)gr * D + d]) : 0.f;
-  }
-}
-
-// the same rows transposed: dst[d][r] (leading dimension kB + 1)
-template <typename T, int D>
-__device__ void load_tile_t(float* dst, const T* src, int row0, int rows) {
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    const int gr = row0 + r;
-    dst[d * (kB + 1) + r] = gr < rows ? to_f32(src[(int64_t)gr * D + d]) : 0.f;
-  }
-}
-
-// lse and delta of rows [row0, row0 + kB), zero past `rows`
-__device__ void load_stats(float* lse_s, float* dl_s, const float* lse,
-                           const float* delta, int row0, int rows) {
-  for (int r = threadIdx.x; r < kB; r += kThreads) {
-    const int gr = row0 + r;
-    lse_s[r] = gr < rows ? lse[gr] : 0.f;
-    dl_s[r] = gr < rows ? delta[gr] : 0.f;
-  }
-}
-
-template <int D>
-constexpr int dkdv_smem_floats() {
-  return 2 * D * (kB + 1) + 2 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB;
-}
-template <int D>
-constexpr int dq_smem_floats() {
-  return 3 * kB * (D + 1) + 2 * D * (kB + 1) + kB * (kB + 1) + 2 * kB;
-}
 
 // ------------------------------------------------------------------ forward
 
@@ -549,6 +514,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// ldmatrix addresses, for a lane of a warp reading a row-major tile with
+// leading dimension LD (elements):
+//   a_frag: the A fragment of rows [r0, r0 + 16), columns [c0, c0 + 16);
+//           with ldmatrix .trans, the same addresses give the B fragments
+//           of two 8-column tiles [c0, c0 + 16) of a [k][n] tile, k-rows
+//           [r0, r0 + 16) (regs 0-1 the first n-tile's, 2-3 the second's);
+//   b_pair: B fragments of two 8-row tiles [r0, r0 + 16) of a [n][k] tile
+//           (B = its transpose), k-columns [c0, c0 + 16).
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* a_frag(
+    const __nv_bfloat16* s, int r0, int c0, int lane) {
+  return s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
+}
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* b_pair(
+    const __nv_bfloat16* s, int r0, int c0, int lane) {
+  return s + (r0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+
+// The A fragment of k-step kk from the C fragments of 8-column tiles 2 kk
+// and 2 kk + 1, rounded to bfloat16
+template <int NT>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4],
+                                       const float (&c)[NT][4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads) flash_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -608,8 +604,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_bf16_kernel(
     if (kt == 0) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        ldmatrix_x4(qf[ks], q_s + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                                (lane >> 4) * 8);
+        ldmatrix_x4(qf[ks], a_frag<LD>(q_s, warp * 16, ks * 16, lane));
     }
     const __nv_bfloat16* kb = k_s + (kt & 1) * BK * LD;
     const __nv_bfloat16* vb = v_s + (kt & 1) * BK * LD;
@@ -625,8 +620,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_bf16_kernel(
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t b[4];
-        ldmatrix_x4(b, kb + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                           ks * 16 + ((lane >> 3) & 1) * 8);
+        ldmatrix_x4(b, b_pair<LD>(kb, jp * 16, ks * 16, lane));
         mma_bf16(s[2 * jp], qf[ks], b[0], b[1]);
         mma_bf16(s[2 * jp + 1], qf[ks], b[2], b[3]);
       }
@@ -678,15 +672,12 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_bf16_kernel(
     // the score fragments (the JAX dtype rule for bf16 inputs)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[4];
+      c_to_a<8>(a, s, kk);
 #pragma unroll
       for (int tp = 0; tp < NT / 2; ++tp) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, vb + (kk * 16 + (lane & 15)) * LD + tp * 16 +
-                                 (lane >> 4) * 8);
+        ldmatrix_x4_trans(b, a_frag<LD>(vb, kk * 16, tp * 16, lane));
         mma_bf16(oacc[2 * tp], a, b[0], b[1]);
         mma_bf16(oacc[2 * tp + 1], a, b[2], b[3]);
       }
@@ -706,221 +697,6 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_bf16_kernel(
             __floats2bfloat162_rn(oacc[t][2 * h] / safe,
                                   oacc[t][2 * h + 1] / safe);
       if (t4 == 0) lse[(int64_t)n * Tq + qp] = m[h] + logf(safe);
-    }
-  }
-}
-
-// ------------------------------------------------------------- backward math
-
-// One (Q tile, K tile) pair: the score and g . v^T products, then p and ds
-// rounded through T into p_s / ds_s ([q][k], leading dimension kB + 1).
-// p_s may be null (the dQ pass needs ds only).
-template <typename T, int D>
-__device__ __forceinline__ void recompute_p_ds(
-    const float* q_s, const float* g_s, const float* kt_s, const float* vt_s,
-    const float* lse_s, const float* dl_s, float* p_s, float* ds_s, int q0,
-    int k0, int Tq, int Tk, float scale, int causal) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], ga[4], b[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = q_s[(ty * 4 + i) * (D + 1) + d];
-      ga[i] = g_s[(ty * 4 + i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j] = kt_s[d * (kB + 1) + tx * 4 + j];
-      bv[j] = vt_s[d * (kB + 1) + tx * 4 + j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i], b[j], s[i][j]);
-        dp[i][j] = fmaf(ga[i], bv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int qp = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kp = k0 + tx * 4 + j;
-      // padded Q rows and K columns past Tk are masked explicitly
-      const bool ok = qp < Tq && kp < Tk && (!causal || qp >= kp);
-      const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-      const float ds = p * (dp[i][j] - dl_s[r]) * scale;
-      if (p_s != nullptr) p_s[r * (kB + 1) + tx * 4 + j] = round_to<T>(p);
-      ds_s[r * (kB + 1) + tx * 4 + j] = round_to<T>(ds);
-    }
-  }
-}
-
-// --------------------------------------------------------------- dK / dV
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int Tq, int Tk, float scale, int causal, int n_kt) {
-  constexpr int CW = D / 16;
-  extern __shared__ float smem[];
-  float* kt_s = smem;                   // [D][kB + 1]
-  float* vt_s = kt_s + D * (kB + 1);    // [D][kB + 1]
-  float* q_s = vt_s + D * (kB + 1);     // [kB][D + 1]
-  float* g_s = q_s + kB * (D + 1);      // [kB][D + 1]
-  float* p_s = g_s + kB * (D + 1);      // [kB][kB + 1]
-  float* ds_s = p_s + kB * (kB + 1);    // [kB][kB + 1]
-  float* lse_s = ds_s + kB * (kB + 1);  // [kB]
-  float* dl_s = lse_s + kB;             // [kB]
-
-  const int n = blockIdx.x / n_kt;
-  const int kt = blockIdx.x % n_kt;
-  const int k0 = kt * kB;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qn = q + (int64_t)n * Tq * D;
-  const T* gn = g + (int64_t)n * Tq * D;
-  const T* kn = k + (int64_t)n * Tk * D;
-  const T* vn = v + (int64_t)n * Tk * D;
-  const float* lsen = lse + (int64_t)n * Tq;
-  const float* dln = delta + (int64_t)n * Tq;
-
-  load_tile_t<T, D>(kt_s, kn, k0, Tk);
-  load_tile_t<T, D>(vt_s, vn, k0, Tk);
-
-  float dka[4][CW], dva[4][CW];  // rows k0 + ty*4 + i, columns tx*CW + c
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CW; ++c) dka[i][c] = dva[i][c] = 0.f;
-
-  const int n_qt = (Tq + kB - 1) / kB;
-  // causal: Q tiles wholly above this K tile see p == 0 (q_start + kB - 1
-  // < k_start), so start at the diagonal tile
-  for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kB;
-    __syncthreads();
-    load_tile<T, D>(q_s, qn, q0, Tq);
-    load_tile<T, D>(g_s, gn, q0, Tq);
-    load_stats(lse_s, dl_s, lsen, dln, q0, Tq);
-    __syncthreads();
-    recompute_p_ds<T, D>(q_s, g_s, kt_s, vt_s, lse_s, dl_s, p_s, ds_s, q0, k0,
-                         Tq, Tk, scale, causal);
-    __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < kB; ++qq) {
-      float pk[4], dsk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = p_s[qq * (kB + 1) + ty * 4 + i];
-        dsk[i] = ds_s[qq * (kB + 1) + ty * 4 + i];
-      }
-#pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        const float gv = g_s[qq * (D + 1) + tx * CW + c];
-        const float qv = q_s[qq * (D + 1) + tx * CW + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dva[i][c] = fmaf(pk[i], gv, dva[i][c]);
-          dka[i][c] = fmaf(dsk[i], qv, dka[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty * 4 + i;
-    if (kp < Tk) {
-      const int64_t row = ((int64_t)n * Tk + kp) * D;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        dk[row + tx * CW + c] = from_f32<T>(dka[i][c]);
-        dv[row + tx * CW + c] = from_f32<T>(dva[i][c]);
-      }
-    }
-  }
-}
-
-// -------------------------------------------------------------------- dQ
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int Tq, int Tk,
-    float scale, int causal, int n_qt) {
-  constexpr int CW = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;                    // [kB][D + 1]
-  float* g_s = q_s + kB * (D + 1);      // [kB][D + 1]
-  float* k_s = g_s + kB * (D + 1);      // [kB][D + 1]
-  float* kt_s = k_s + kB * (D + 1);     // [D][kB + 1]
-  float* vt_s = kt_s + D * (kB + 1);    // [D][kB + 1]
-  float* ds_s = vt_s + D * (kB + 1);    // [kB][kB + 1]
-  float* lse_s = ds_s + kB * (kB + 1);  // [kB]
-  float* dl_s = lse_s + kB;             // [kB]
-
-  const int n = blockIdx.x / n_qt;
-  const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
-  const int q0 = qt * kB;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* kn = k + (int64_t)n * Tk * D;
-  const T* vn = v + (int64_t)n * Tk * D;
-
-  load_tile<T, D>(q_s, q + (int64_t)n * Tq * D, q0, Tq);
-  load_tile<T, D>(g_s, g + (int64_t)n * Tq * D, q0, Tq);
-  load_stats(lse_s, dl_s, lse + (int64_t)n * Tq, delta + (int64_t)n * Tq, q0,
-             Tq);
-
-  float dqa[4][CW];  // rows q0 + ty*4 + i, columns tx*CW + c
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CW; ++c) dqa[i][c] = 0.f;
-
-  int n_kt = (Tk + kB - 1) / kB;
-  if (causal) n_kt = min(n_kt, qt + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();
-    load_tile<T, D>(k_s, kn, k0, Tk);
-    load_tile_t<T, D>(kt_s, kn, k0, Tk);
-    load_tile_t<T, D>(vt_s, vn, k0, Tk);
-    __syncthreads();
-    recompute_p_ds<T, D>(q_s, g_s, kt_s, vt_s, lse_s, dl_s, nullptr, ds_s, q0,
-                         k0, Tq, Tk, scale, causal);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kB; ++kk) {
-      float dsq[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsq[i] = ds_s[(ty * 4 + i) * (kB + 1) + kk];
-#pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        const float kv = k_s[kk * (D + 1) + tx * CW + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dqa[i][c] = fmaf(dsq[i], kv, dqa[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp < Tq) {
-      const int64_t row = ((int64_t)n * Tq + qp) * D;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) dq[row + tx * CW + c] = from_f32<T>(dqa[i][c]);
     }
   }
 }
@@ -1251,6 +1027,357 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_bwd_dkdv_f32_kernel(
   }
 }
 
+// ----------------------------------------------------- bfloat16 backward
+//
+// Both kernels run their four (dK/dV) or three (dQ) products on the tensor
+// cores with mma.sync.m16n8k16 (bf16 in, f32 accumulate), as the bfloat16
+// forward does: four warps of 16 rows each, operands from row-major tiles
+// in shared memory by ldmatrix, and p and dS, rounded to bfloat16 in the
+// accumulator fragments, reused straight from registers as the A operand
+// of the next product (the C fragment of an m16n8 tile pair is the A
+// fragment of one m16n8k16 step).  In a C fragment lane (g = lane / 4,
+// t = lane % 4) holds rows g and g + 8, columns 8 j + 2 t and 8 j + 2 t + 1
+// of every 8-column tile j.
+
+// 2^x by the special-function unit, denormal results flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dK/dV tiles, in the transposed frame: a block owns BK keys (warp w the
+// 16 keys 16 w ...), streams Q tiles of BQ queries through a two-stage
+// cp.async ring; at D = 128 a narrower Q tile keeps dk, dv (64 floats each
+// a thread) and the two score tiles in registers
+template <int D>
+struct BwdDkdvBF16 {
+  static constexpr int BK = 64;                  // keys of a block
+  static constexpr int BQ = D == 128 ? 32 : 64;  // queries of a Q tile
+  // leading dimension: rows 16-byte aligned, the 8 rows of an ldmatrix
+  // phase on 8 bank groups
+  static constexpr int LD = D + 8;
+  // K, V [BK][LD]; two stages of Q, G [BQ][LD] (bf16), then two stages of
+  // lse and delta [BQ] (float32)
+  static constexpr int kSmemBytes =
+      2 * (2 * BK * LD + 4 * BQ * LD) + 4 * (4 * BQ);
+};
+
+// dQ tiles: a block owns BQ queries (warp w the 16 rows 16 w ...), with
+// its q and g fragments in registers, and streams K/V tiles of BK keys
+// through a two-stage ring; narrower K/V tiles at D = 128, as above
+template <int D>
+struct BwdDqBF16 {
+  static constexpr int BQ = 64;                  // queries of a block
+  static constexpr int BK = D == 128 ? 32 : 64;  // keys of a K/V tile
+  static constexpr int LD = D + 8;
+  // Q, G [BQ][LD]; two stages of K, V [BK][LD] (bf16)
+  static constexpr int kSmemBytes = 2 * (2 * BQ * LD + 4 * BK * LD);
+};
+
+// bfloat16 dK/dV: one block per (row of N, K tile), the first K tiles
+// (the longest causal columns) first, looping over the Q tiles from the
+// causal diagonal on.  Per Q tile, warp w computes, for its 16 keys,
+// s^T = k . q^T and dP^T = v . g^T (A: K and V by ldmatrix; B: Q and G by
+// ldmatrix), then p^T = exp(s^T scale - lse) and dS^T = p^T (dP^T - delta)
+// scale in the fragments (lse and delta per column, i.e. per query), and
+// dv += p^T . g, dk += dS^T . q with p^T and dS^T as bf16 A fragments from
+// registers and G and Q by ldmatrix .trans.  The Q tile after the current
+// one (Q, G, lse, delta) loads during its products.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads) flash_bwd_dkdv_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N,
+    int Tq, int Tk, float scale, int causal, int n_kt) {
+  using G = BwdDkdvBF16<D>;
+  constexpr int BK = G::BK, BQ = G::BQ, LD = G::LD;
+  constexpr int KS = D / 16;   // k-steps of the score products (over d)
+  constexpr int NQ = BQ / 8;   // 8-query tiles of s^T and dP^T
+  constexpr int QS = BQ / 16;  // k-steps of dv and dk (over queries)
+  constexpr int ND = D / 8;    // 8-column tiles of dk and dv
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + BK * LD;      // [BK][LD]
+  __nv_bfloat16* q_s = v_s + BK * LD;      // [2][BQ][LD]
+  __nv_bfloat16* g_s = q_s + 2 * BQ * LD;  // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(g_s + 2 * BQ * LD);  // [2][BQ]
+  float* dl_s = lse_s + 2 * BQ;                                // [2][BQ]
+
+  const int kt = (int)(blockIdx.x / N);
+  const int n = (int)(blockIdx.x % N);
+  const int k0 = kt * BK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t4 = lane & 3;
+  const int kr = warp * 16 + (lane >> 2);  // key rows kr and kr + 8
+  const __nv_bfloat16* qn = q + (int64_t)n * Tq * D;
+  const __nv_bfloat16* gn = g + (int64_t)n * Tq * D;
+  const float* lsen = lse + (int64_t)n * Tq;
+  const float* dln = delta + (int64_t)n * Tq;
+
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  // causal: Q tiles wholly above this K tile (q0 + BQ - 1 < k0) see
+  // p == 0, so start at the tile holding query k0
+  const int qt0 = causal ? k0 / BQ : 0;
+
+  async_tile<__nv_bfloat16, D, BK, LD>(k_s, k + (int64_t)n * Tk * D, k0, Tk);
+  async_tile<__nv_bfloat16, D, BK, LD>(v_s, v + (int64_t)n * Tk * D, k0, Tk);
+  async_tile<__nv_bfloat16, D, BQ, LD>(q_s, qn, qt0 * BQ, Tq);
+  async_tile<__nv_bfloat16, D, BQ, LD>(g_s, gn, qt0 * BQ, Tq);
+  async_stats<BQ>(lse_s, dl_s, lsen, dln, qt0 * BQ, Tq);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int t = 0; t < ND; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
+  const float sl2 = scale * kLog2e;  // p = 2^(s sl2 - lse log2(e))
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int st = (qt - qt0) & 1;
+    if (qt + 1 < n_qt) {  // the other stage was freed at the end of qt - 1
+      const int nx = st ^ 1, q1 = (qt + 1) * BQ;
+      async_tile<__nv_bfloat16, D, BQ, LD>(q_s + nx * BQ * LD, qn, q1, Tq);
+      async_tile<__nv_bfloat16, D, BQ, LD>(g_s + nx * BQ * LD, gn, q1, Tq);
+      async_stats<BQ>(lse_s + nx * BQ, dl_s + nx * BQ, lsen, dln, q1, Tq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* qb = q_s + st * BQ * LD;
+    const __nv_bfloat16* gb = g_s + st * BQ * LD;
+    const float* lb = lse_s + st * BQ;
+    const float* db = dl_s + st * BQ;
+    const int q0 = qt * BQ;
+
+    // s^T = k . q^T and dP^T = v . g^T, 16 keys x BQ queries a warp
+    float sT[NQ][4], dpT[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, a_frag<LD>(k_s, warp * 16, ks * 16, lane));
+      ldmatrix_x4(va, a_frag<LD>(v_s, warp * 16, ks * 16, lane));
+#pragma unroll
+      for (int jp = 0; jp < NQ / 2; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_pair<LD>(qb, jp * 16, ks * 16, lane));
+        mma_bf16(sT[2 * jp], ka, b[0], b[1]);
+        mma_bf16(sT[2 * jp + 1], ka, b[2], b[3]);
+        ldmatrix_x4(b, b_pair<LD>(gb, jp * 16, ks * 16, lane));
+        mma_bf16(dpT[2 * jp], va, b[0], b[1]);
+        mma_bf16(dpT[2 * jp + 1], va, b[2], b[3]);
+      }
+    }
+
+    // p^T and dS^T in place; padded queries and keys are masked too
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t4 + e, qp = q0 + c;
+        const float ls2 = lb[c] * kLog2e, dl = db[c];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kp = k0 + kr + 8 * h;
+          const bool ok = qp < Tq && kp < Tk && (!causal || qp >= kp);
+          const float p = ok ? ex2(fmaf(sT[j][2 * h + e], sl2, -ls2)) : 0.f;
+          sT[j][2 * h + e] = p;
+          dpT[j][2 * h + e] = p * (dpT[j][2 * h + e] - dl) * scale;
+        }
+      }
+
+    // dv += p^T . g and dk += dS^T . q, p^T and dS^T rounded to bfloat16
+#pragma unroll
+    for (int kk = 0; kk < QS; ++kk) {
+      uint32_t pa[4], da[4];
+      c_to_a<NQ>(pa, sT, kk);
+      c_to_a<NQ>(da, dpT, kk);
+#pragma unroll
+      for (int tp = 0; tp < ND / 2; ++tp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, a_frag<LD>(gb, kk * 16, tp * 16, lane));
+        mma_bf16(dva[2 * tp], pa, b[0], b[1]);
+        mma_bf16(dva[2 * tp + 1], pa, b[2], b[3]);
+        ldmatrix_x4_trans(b, a_frag<LD>(qb, kk * 16, tp * 16, lane));
+        mma_bf16(dka[2 * tp], da, b[0], b[1]);
+        mma_bf16(dka[2 * tp + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // stage st is free for Q tile qt + 2
+  }
+  cp_async_wait<0>();  // no copy outlives the block (no Q tile at all
+                       // when a causal K tile starts past Tq)
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kp = k0 + kr + 8 * h;
+    if (kp < Tk) {
+      const int64_t row = ((int64_t)n * Tk + kp) * D + 2 * t4;
+#pragma unroll
+      for (int t = 0; t < ND; ++t) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * t) =
+            __floats2bfloat162_rn(dka[t][2 * h], dka[t][2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * t) =
+            __floats2bfloat162_rn(dva[t][2 * h], dva[t][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// bfloat16 dQ: one block per (row of N, Q tile), longest causal rows
+// first, looping over its K/V tiles up to the causal limit.  Warp w holds
+// its 16 rows of q and g as A fragments; per K/V tile, s = q . k^T and
+// dP = g . v^T (B: K and V by ldmatrix), dS = p (dP - delta) scale in the
+// fragments (lse and delta per row), and dq += dS . k with dS as a bf16 A
+// fragment from registers and K by ldmatrix .trans.  The next K/V tile
+// loads during the current one's products.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int N, int Tq, int Tk, float scale,
+    int causal, int n_qt) {
+  using G = BwdDqBF16<D>;
+  constexpr int BQ = G::BQ, BK = G::BK, LD = G::LD;
+  constexpr int KS = D / 16;   // k-steps of the score products (over d)
+  constexpr int NK = BK / 8;   // 8-key tiles of s and dP
+  constexpr int KK = BK / 16;  // k-steps of dq (over keys)
+  constexpr int ND = D / 8;    // 8-column tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* g_s = q_s + BQ * LD;      // [BQ][LD]
+  __nv_bfloat16* k_s = g_s + BQ * LD;      // [2][BK][LD]
+  __nv_bfloat16* v_s = k_s + 2 * BK * LD;  // [2][BK][LD]
+
+  const int qt = n_qt - 1 - (int)(blockIdx.x / N);
+  const int n = (int)(blockIdx.x % N);
+  const int q0 = qt * BQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t4 = lane & 3;
+  const int r0 = q0 + warp * 16 + (lane >> 2);  // rows r0 and r0 + 8
+  const __nv_bfloat16* kn = k + (int64_t)n * Tk * D;
+  const __nv_bfloat16* vn = v + (int64_t)n * Tk * D;
+
+  int n_kt = (Tk + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (min(q0 + BQ, Tq) - 1) / BK + 1);
+
+  async_tile<__nv_bfloat16, D, BQ, LD>(q_s, q + (int64_t)n * Tq * D, q0, Tq);
+  async_tile<__nv_bfloat16, D, BQ, LD>(g_s, g + (int64_t)n * Tq * D, q0, Tq);
+  async_tile<__nv_bfloat16, D, BK, LD>(k_s, kn, 0, Tk);
+  async_tile<__nv_bfloat16, D, BK, LD>(v_s, vn, 0, Tk);
+  cp_async_commit();
+
+  // p = 2^(s sl2 - ls2), ls2 = lse log2(e)
+  const float sl2 = scale * kLog2e;
+  float ls2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    ls2[h] = r < Tq ? lse[(int64_t)n * Tq + r] * kLog2e : 0.f;
+    dl[h] = r < Tq ? delta[(int64_t)n * Tq + r] : 0.f;
+  }
+  uint32_t qf[KS][4], gf[KS][4];
+  float dqa[ND][4];
+#pragma unroll
+  for (int t = 0; t < ND; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[t][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < n_kt) {  // the other stage was freed at the end of kt - 1
+      const int nx = (kt + 1) & 1;
+      async_tile<__nv_bfloat16, D, BK, LD>(k_s + nx * BK * LD, kn, k0 + BK,
+                                           Tk);
+      async_tile<__nv_bfloat16, D, BK, LD>(v_s + nx * BK * LD, vn, k0 + BK,
+                                           Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        ldmatrix_x4(qf[ks], a_frag<LD>(q_s, warp * 16, ks * 16, lane));
+        ldmatrix_x4(gf[ks], a_frag<LD>(g_s, warp * 16, ks * 16, lane));
+      }
+    }
+    const __nv_bfloat16* kb = k_s + (kt & 1) * BK * LD;
+    const __nv_bfloat16* vb = v_s + (kt & 1) * BK * LD;
+
+    // s = q . k^T and dP = g . v^T, 16 rows x BK keys a warp
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int jp = 0; jp < NK / 2; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_pair<LD>(kb, jp * 16, ks * 16, lane));
+        mma_bf16(s[2 * jp], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qf[ks], b[2], b[3]);
+        ldmatrix_x4(b, b_pair<LD>(vb, jp * 16, ks * 16, lane));
+        mma_bf16(dp[2 * jp], gf[ks], b[0], b[1]);
+        mma_bf16(dp[2 * jp + 1], gf[ks], b[2], b[3]);
+      }
+
+    // dS in place of dP; padded rows and keys are masked too
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qp = r0 + 8 * h, kp = k0 + 8 * j + 2 * t4 + e;
+          const bool ok = qp < Tq && kp < Tk && (!causal || qp >= kp);
+          const float p = ok ? ex2(fmaf(s[j][2 * h + e], sl2, -ls2[h])) : 0.f;
+          dp[j][2 * h + e] = p * (dp[j][2 * h + e] - dl[h]) * scale;
+        }
+
+    // dq += dS . k, dS rounded to bfloat16
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t da[4];
+      c_to_a<NK>(da, dp, kk);
+#pragma unroll
+      for (int tp = 0; tp < ND / 2; ++tp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, a_frag<LD>(kb, kk * 16, tp * 16, lane));
+        mma_bf16(dqa[2 * tp], da, b[0], b[1]);
+        mma_bf16(dqa[2 * tp + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // stage kt & 1 is free for K/V tile kt + 2
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = r0 + 8 * h;
+    if (qp < Tq) {
+      __nv_bfloat16* row = dq + ((int64_t)n * Tq + qp) * D + 2 * t4;
+#pragma unroll
+      for (int t = 0; t < ND; ++t)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * t) =
+            __floats2bfloat162_rn(dqa[t][2 * h], dqa[t][2 * h + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 template <typename K>
@@ -1265,7 +1392,8 @@ int prepare(K kern, size_t smem) {
 
 // prepare() and the largest shared-memory carveout, so that two float32
 // forward blocks (104 KB each at D = 64), or two float32 dQ (89 KB) or
-// dK/dV (107 KB) blocks, share an SM
+// dK/dV (107 KB) blocks, or three bfloat16 backward blocks (55 KB), share
+// an SM
 template <typename K>
 int prepare_carveout(K kern, size_t smem) {
   int rc = prepare(kern, smem);
@@ -1306,7 +1434,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // float32 inputs run flash_bwd_dkdv_f32_kernel, bfloat16 ones
-// flash_bwd_dkdv_kernel
+// flash_bwd_dkdv_bf16_kernel
 template <typename T, int D>
 int dkdv(const void* q, const void* k, const void* v, const void* g,
          const float* lse, const float* delta, void* dk, void* dv, int N,
@@ -1325,22 +1453,22 @@ int dkdv(const void* q, const void* k, const void* v, const void* g,
         scale, causal, n_kt);
     return (int)cudaGetLastError();
   } else {
-    auto kern = flash_bwd_dkdv_kernel<T, D>;
-    const size_t smem = sizeof(float) * dkdv_smem_floats<D>();
-    int rc = prepare(kern, smem);
+    using G = BwdDkdvBF16<D>;
+    auto kern = flash_bwd_dkdv_bf16_kernel<D>;
+    int rc = prepare_carveout(kern, G::kSmemBytes);
     if (rc != 0) return rc;
-    const int n_kt = (Tk + kB - 1) / kB;
-    kern<<<(unsigned)(N * n_kt), kThreads, smem, st>>>(
+    const int n_kt = (Tk + G::BK - 1) / G::BK;
+    kern<<<(unsigned)(N * n_kt), kFwdThreads, G::kSmemBytes, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, scale, causal,
+        static_cast<T*>(dk), static_cast<T*>(dv), N, Tq, Tk, scale, causal,
         n_kt);
     return (int)cudaGetLastError();
   }
 }
 
 // float32 inputs run flash_bwd_dq_f32_kernel, bfloat16 ones
-// flash_bwd_dq_kernel
+// flash_bwd_dq_bf16_kernel
 template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* g,
        const float* lse, const float* delta, void* dqp, int N, int Tq, int Tk,
@@ -1358,15 +1486,15 @@ int dq(const void* q, const void* k, const void* v, const void* g,
         delta, static_cast<float*>(dqp), N, Tq, Tk, scale, causal, n_qt);
     return (int)cudaGetLastError();
   } else {
-    auto kern = flash_bwd_dq_kernel<T, D>;
-    const size_t smem = sizeof(float) * dq_smem_floats<D>();
-    int rc = prepare(kern, smem);
+    using G = BwdDqBF16<D>;
+    auto kern = flash_bwd_dq_bf16_kernel<D>;
+    int rc = prepare_carveout(kern, G::kSmemBytes);
     if (rc != 0) return rc;
-    const int n_qt = (Tq + kB - 1) / kB;
-    kern<<<(unsigned)(N * n_qt), kThreads, smem, st>>>(
+    const int n_qt = (Tq + G::BQ - 1) / G::BQ;
+    kern<<<(unsigned)(N * n_qt), kFwdThreads, G::kSmemBytes, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-        static_cast<T*>(dqp), Tq, Tk, scale, causal, n_qt);
+        static_cast<T*>(dqp), N, Tq, Tk, scale, causal, n_qt);
     return (int)cudaGetLastError();
   }
 }

@@ -34,7 +34,14 @@ the kernel, the du matmul and the peephole sums), the signatures every
 version since the LSTM kernels came has; each with its error against the
 plain version (the backward's over each gradient's max |g|), the two times
 and the bound, the route counts where the version has them, and ptxas's
-report for ``lstm.cu``.  Run it for the old and the new checkout in turns,
+report for ``lstm.cu``.  With ``--bf16-cases`` they are the bfloat16
+backward pair at the shapes of ``BF16_CASES`` (D in {16, 32, 64, 128},
+causal or not, ragged, Tq != Tk; inputs from ``chip_smoke._flash_inputs``):
+each case run twice, with the worst error over ``chip_smoke.py``'s
+element-wise limit against the plain versions and, on the same limit,
+both the kernels' and the plain versions' against the float64 arithmetic
+(``chip_smoke._bwd_f64``), and whether the second run repeats the first
+bit for bit.  Run it for the old and the new checkout in turns,
 in one call on one card (old, new, new, old): the card's power limit and
 its neighbours differ between calls.
 """
@@ -57,6 +64,8 @@ def main(argv=None) -> int:
                     help="time the conv kernels instead")
     ap.add_argument("--lstm", action="store_true",
                     help="time the LSTM kernels instead")
+    ap.add_argument("--bf16-cases", action="store_true",
+                    help="check the bf16 backward pair at BF16_CASES instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     sys.path.insert(1, str(HERE))
@@ -73,8 +82,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns needs a CUDA card")
     dev = torch.device("cuda")
-    if args.conv or args.lstm:
-        turn = _conv_turn if args.conv else _lstm_turn
+    if args.conv or args.lstm or args.bf16_cases:
+        turn = (_conv_turn if args.conv else
+                _lstm_turn if args.lstm else _bf16_cases_turn)
         print(json.dumps({"label": args.label or args.tree,
                           "package": str(Path(paddle_tpu_torch.__file__)
                                          .parent),
@@ -143,6 +153,50 @@ def main(argv=None) -> int:
             _build.build_logs.get("flash_attention.cu", ""))]
     print(json.dumps(res))
     return 0
+
+
+# (N = B*H, Tq, Tk, D, causal) of --bf16-cases
+BF16_CASES = [(64, 1024, 1024, 64, True), (8, 50, 70, 16, False),
+              (8, 37, 37, 16, True), (4, 200, 200, 32, True),
+              (4, 200, 130, 128, True), (4, 130, 200, 128, False),
+              (4, 300, 300, 64, False), (2, 70, 50, 64, True),
+              (4, 257, 257, 128, True), (3, 129, 129, 16, False)]
+
+
+def _bf16_cases_turn(cs, dev) -> dict:
+    """The bf16 backward cases (see the module note): {"cases": [...],
+    "ptxas": [...]}."""
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import attention as TA
+
+    out = []
+    for N, Tq, Tk, D, causal in BF16_CASES:
+        q, k, v, g = cs._flash_inputs(N, Tq, Tk, D, torch.bfloat16, dev)
+        scale = D ** -0.5
+        ro, rlse = TA._fwd_reference(q, k, v, scale, causal)
+        runs = [TA.flash_bwd_kernels(q, k, v, ro, rlse, g, scale, causal)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        plain = TA._bwd_blockwise(q, k, v, ro, rlse, g, scale, causal, 128)
+        delta = (ro.float() * g.float()).sum(dim=-1)
+        ref = cs._bwd_f64(q, k, v, g, rlse, delta, scale, causal)
+        rec = {"case": [N, Tq, Tk, D, causal],
+               "repeats": all(bool(torch.equal(a, b))
+                              for a, b in zip(*runs)),
+               "finite": all(bool(torch.isfinite(t.float()).all())
+                             for t in runs[0])}
+        for n, got, want, r in zip(("dq", "dk", "dv"), runs[0], plain, ref):
+            rec[n] = {"vs_plain": cs._bf16_bwd_worst(got, want),
+                      "kernel_vs_f64": cs._bf16_bwd_worst(got, r),
+                      "plain_vs_f64": cs._bf16_bwd_worst(want, r)}
+        out.append(rec)
+        del runs, plain, ref
+    return {"cases": out, "ptxas": [
+        {"kernel": name, "registers": regs, "spill_bytes": spill}
+        for name, regs, spill in cs._ptxas_report(
+            _build.build_logs.get("flash_attention.cu", ""))]}
 
 
 def _conv_turn(cs, dev) -> dict:

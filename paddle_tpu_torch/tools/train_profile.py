@@ -5,7 +5,9 @@
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
 ``init_lm_params(0)``) with ``build_lm``, Adam(1e-3) and global-norm
-clipping (1.0), on a fixed 8 x 1024 batch.  ``--model text_lstm`` builds
+clipping (1.0), on a fixed 8 x 1024 batch, in two arms: float32, then amp
+(``amp.enable`` with the default bf16 list plus attention, so the bf16
+flash kernels run).  ``--model text_lstm`` builds
 the LSTM text classifier at the width of ``benchmark/text_lstm.py`` (vocab
 10000, emb 128, 2 x LSTM-512, 2 classes, seq_len 100, float32, weights
 ``init_text_lstm_params(0)``) with Adam(1e-3), on a fixed batch of 128
@@ -28,8 +30,9 @@ ResNet-18 under amp.  Either way: two warm-up steps, then,
 and device busy ms (the sum of kernel times, profiled windows), each as
 the median with the least and the most of the repeats, the device idle
 share of the medians, device ms by kernel class and the top kernels, both
-from the median-busy window.  The classes are flash attention / lstm /
-matmul / other by kernel name; for ResNet they are cuDNN convolution
+from the median-busy window.  The classes are flash attention (float32
+and bf16 kernels apart) / lstm / matmul / other by kernel name; for
+ResNet they are cuDNN convolution
 (forward, data gradient, weight gradient, other backward), the batch-norm
 backward kernels, the batch-norm forward's plain ops, the rest of the
 batch-norm backward, pooling, the optimizer and other, by the op or
@@ -80,10 +83,13 @@ INFER_DEPTH = {"resnet50-infer": 50, "resnet18-infer": 18}
 INFER_BATCH = 256
 
 
-def build_train_program():
+def build_train_program(amp: bool = False):
     """``build_lm`` at LM_CFG's width with Adam(1e-3) and global-norm
-    clipping (1.0), in fresh default programs; returns (loss, main,
-    startup)."""
+    clipping (1.0), in fresh default programs; with ``amp``, then
+    ``amp.enable`` with the default bf16 list plus the ``attention`` op
+    (the list names ``flash_attention``, not the LM's op), so that
+    attention runs the bf16 flash kernels, the JAX package's knob for its
+    own; returns (loss, main, startup)."""
     import paddle_tpu_torch as fluid
 
     T = LM_CFG["max_len"]
@@ -94,7 +100,11 @@ def build_train_program():
     fluid.optimizer.Adam(
         1e-3, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)).minimize(
         loss)
-    return loss, fluid.default_main_program(), fluid.default_startup_program()
+    main = fluid.default_main_program()
+    if amp:
+        fluid.amp.enable(main,
+                         fluid.amp.Bf16Policy(extra_bf16=("attention",)))
+    return loss, main, fluid.default_startup_program()
 
 
 def build_text_lstm_program():
@@ -222,13 +232,22 @@ def train_batch(seed: int, n: int = TRAIN_BATCH) -> dict:
             "labs": rng.randint(0, V, (n, T, 1)).astype(np.int32)}
 
 
+# kernel classes of the LM and LSTM steps; the flash kernels by their
+# operands' dtype, which their names carry (``flash_*_bf16_kernel``, or a
+# template argument ``__nv_bfloat16``)
+STEP_CLASSES = ("flash_attention_f32", "flash_attention_bf16", "lstm",
+                "matmul", "other")
+
+
 def _kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_" in low:
-        return "flash_attention"
+        bf16 = "bf16" in low or "bfloat16" in low
+        return "flash_attention_bf16" if bf16 else "flash_attention_f32"
     if "lstm_" in low:
         return "lstm"
-    if any(k in low for k in ("gemm", "xmma", "cutlass", "matmul", "gemv")):
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "matmul", "gemv",
+                              "nvjet")):
         return "matmul"
     return "other"
 
@@ -356,7 +375,7 @@ def _recipe(model: str, amp: bool = True):
     import paddle_tpu_torch as fluid
 
     if model == "lm":
-        return (*build_train_program(), fluid.init_lm_params(0, **LM_CFG),
+        return (*build_train_program(amp), fluid.init_lm_params(0, **LM_CFG),
                 train_batch(3), TRAIN_BATCH * LM_CFG["max_len"], "tokens")
     if model == "text_lstm":
         return (*build_text_lstm_program(), text_lstm_params(0),
@@ -374,8 +393,9 @@ def _recipe(model: str, amp: bool = True):
 
 
 def profile(model: str = "lm", amp: bool = True) -> dict:
-    """The profile of ``model``'s step (for the ResNets the amp arm, or with
-    ``amp=False`` the float32 arm)."""
+    """The profile of ``model``'s step: for the LM and the ResNets the amp
+    arm, or with ``amp=False`` the float32 arm (text_lstm has only the
+    float32 one)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -409,8 +429,7 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
             else:
                 run(steps)
             torch.cuda.synchronize()
-        by_class = {"flash_attention": 0.0, "lstm": 0.0, "matmul": 0.0,
-                    "other": 0.0}
+        by_class = {k: 0.0 for k in STEP_CLASSES}
         kernels = []
         for evt in prof.key_averages():
             us = _kernel_us(evt)
@@ -443,7 +462,7 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
         (repeats - 1) // 2]
     return {
         "card": fluid.card_info(0), "model": model, "steps": steps,
-        "arm": ("amp" if amp else "float32") if resnet else "float32",
+        "arm": "amp" if amp and model != "text_lstm" else "float32",
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "repeats": repeats, "unit": unit, f"{unit}_per_step": items,
         "wall_ms_per_step": _spread(walls),
@@ -462,14 +481,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="lm",
                     choices=("lm", "text_lstm", "resnet50", *INFER_DEPTH),
-                    help="the training step to profile (resnet50: both "
-                         "arms, amp then float32), or the ResNet inference "
-                         "step (resnet50-infer: both arms; resnet18-infer: "
-                         "amp)")
+                    help="the training step to profile (lm: both arms, "
+                         "float32 then amp; resnet50: both arms, amp then "
+                         "float32), or the ResNet inference step "
+                         "(resnet50-infer: both arms; resnet18-infer: amp)")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args(argv)
-    arms = ((True, False) if args.model in ("resnet50", "resnet50-infer")
-            else (True,))
+    arms = {"lm": (False, True), "text_lstm": (False,),
+            "resnet18-infer": (True,)}.get(args.model, (True, False))
     results = []
     for amp in arms:
         torch.cuda.reset_peak_memory_stats()
@@ -477,7 +496,7 @@ def main(argv=None) -> int:
         results.append(res)
         wall, busy = res["wall_ms_per_step"], res["device_busy_ms_per_step"]
         unit = res["unit"]
-        arm = f" ({res['arm']})" if args.model.startswith("resnet") else ""
+        arm = f" ({res['arm']})" if args.model != "text_lstm" else ""
         what = "inference" if args.model in INFER_DEPTH else "train"
         print(f"{res['model']}{arm} {what} step on {res['card']}: "
               f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "
