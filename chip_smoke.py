@@ -30,12 +30,19 @@ Phases (any failure exits non-zero, before the final line):
   4. serve   - the Transformer-base LM (V=32000, d=512, 8 heads, 6 layers,
                d_ff=2048, tied embeddings, float32, random weights from
                seed 0) served by ContinuousScheduler over a paged pool
-               (max_len 1024, block 16, 8 slots): 16 mixed greedy/sampled
-               requests, then a speculative (W=4) pass on repetitive
-               prompts.  Checks completion, zero leaked blocks, kernel
-               launches == n_layers x step dispatches, teacher-forced
-               agreement >= 0.98 against the dense lm_forward oracle, and
-               sampled-stream determinism;
+               (max_len 1024, block 16, 8 slots): ContinuousDecodeEngine.warm
+               captures one CUDA graph per signature (12: prefill at 8
+               prompt buckets, the W=1 and W=4 steps greedy and with a
+               policy), then 16 mixed greedy/sampled requests, then a
+               speculative (W=4) pass on repetitive prompts.  Checks
+               completion, zero leaked blocks, every prefill and step
+               dispatch a graph replay, kernel launches (counted at replay)
+               == n_layers x step dispatches, teacher-forced agreement >=
+               0.98 against the dense lm_forward oracle, sampled-stream
+               determinism, a replay bitwise equal to the step's body run
+               eagerly on the same buffers (W=1 and W=4, greedy and policy,
+               logits, tokens and arenas), and no signature prepared after
+               warm;
   5. train   - the same LM built by build_lm through Program / Executor with
                Adam(1e-3) and global-norm clipping (1.0), weights from
                init_lm_params(0): one step on 2 x 1024 tokens on the card
@@ -1018,15 +1025,18 @@ def _teacher_forced(eng, handles) -> tuple:
 def _serve(eng, reqs, spec: bool):
     """One scheduler pass over ``reqs`` [(prompt, max_gen, SamplingParams)];
     returns (handles, scheduler, wall seconds, kernel launches, step
-    dispatches by window width).  Both counts are set to 0 just before the
-    pass and read just after it, so they are this pass's own."""
+    dispatches by window width).  The kernel's count and the engine's
+    dispatch and replay counts are set to 0 just before the pass and read
+    just after it, so they are this pass's own."""
     from paddle_tpu_torch import ContinuousScheduler
     from paddle_tpu_torch.ops.paged_attention import paged_attention
 
     sched = ContinuousScheduler(eng, spec=spec)
     torch.cuda.synchronize()
     paged_attention.launches = 0
-    eng.step_dispatches.clear()
+    for counter in (eng.step_dispatches, eng.prefill_dispatches,
+                    eng.replays):
+        counter.clear()
     t0 = time.perf_counter()
     handles = [sched.submit(p, g, sampling=sp) for p, g, sp in reqs]
     sched.run_until_idle()
@@ -1050,18 +1060,37 @@ def _check_pass(name, eng, handles, sched, launches, dispatches):
     check(launches == n_layers * n_disp and n_disp > 0,
           f"{name}: {launches} kernel launches for {n_disp} step "
           f"dispatches x {n_layers} layers")
+    # every dispatch a graph replay: steps by window, prefills by bucket
+    replayed = {}
+    for key, n in eng.replays.items():
+        replayed[key[:2]] = replayed.get(key[:2], 0) + n
+    want = {("step", w): n for w, n in dispatches.items()}
+    want.update({("prefill", pb): n
+                 for pb, n in eng.prefill_dispatches.items()})
+    check(replayed == want and sum(eng.prefill_dispatches.values())
+          >= sched.counters["prefill_inserts"] > 0,
+          f"{name}: graph replays {replayed} != dispatches {want}")
+    return sum(eng.replays.values())
 
 
 def phase_serve(card: str) -> dict:
     from paddle_tpu_torch import (ContinuousDecodeEngine, SamplingParams,
                                   init_lm_params)
 
-    V =LM_CFG["vocab_size"]
+    V = LM_CFG["vocab_size"]
     params = init_lm_params(0, **LM_CFG)
     eng = ContinuousDecodeEngine(params, **ENGINE_CFG, **LM_CFG)
     greedy = SamplingParams()
-    # warm-up (cuBLAS handles, allocator): one short request, not reported
-    _serve(eng, [(np.arange(2, 18, dtype=np.int32), 4, greedy)], spec=False)
+    windows = sorted({1, ENGINE_CFG["spec_window"]})
+    t0 = time.perf_counter()
+    n_sig = eng.warm()
+    warm_s = time.perf_counter() - t0
+    traces = eng.trace_count()
+    print(f"serve warm: {n_sig} signatures prepared as CUDA graphs in "
+          f"{warm_s:.1f} s: prefill at prompt buckets {eng.prompt_buckets}, "
+          f"the step at W in {windows} greedy and with a policy")
+    check(n_sig == traces == len(eng.prompt_buckets) + 2 * len(windows),
+          f"warm prepared {n_sig} signatures (trace count {traces})")
 
     # the W=1 path: its counts are this pass's alone (see _serve)
     rng = np.random.RandomState(1)
@@ -1074,11 +1103,13 @@ def phase_serve(card: str) -> dict:
               if i in sampled_idx else greedy)
         reqs.append((p, g, sp))
     handles, sched, wall, launches, dispatches = _serve(eng, reqs, False)
-    _check_pass("mixed pass", eng, handles, sched, launches, dispatches)
+    replays = _check_pass("mixed pass", eng, handles, sched, launches,
+                          dispatches)
     check(set(dispatches) == {1},
           f"mixed pass dispatched windows {dispatches}, expected W=1 only")
     paths = {"w1_mixed_pass": {"launches": launches,
-                               "dispatches_by_window": dispatches}}
+                               "dispatches_by_window": dispatches,
+                               "graph_replays": replays}}
     greedy_h = [h for i, h in enumerate(handles) if i not in sampled_idx]
     agree, total = _teacher_forced(eng, greedy_h)
     rate = agree / total
@@ -1090,7 +1121,9 @@ def phase_serve(card: str) -> dict:
           f"step {wall / steps * 1e3:.2f} ms, TTFT p50 {p50:.1f} ms p99 "
           f"{p99:.1f} ms, preemptions {sched.counters['preemptions']}, "
           f"kernel launches {launches} = {eng.model.n_layers} x "
-          f"{sum(dispatches.values())} dispatches {dispatches}, on {card}")
+          f"{sum(dispatches.values())} dispatches {dispatches}, "
+          f"{replays} graph replays = step and prefill dispatches, on "
+          f"{card}")
     print(f"serve mixed: teacher-forced agreement {agree}/{total} = "
           f"{rate:.4f} (floor 0.98)")
     check(rate >= 0.98, f"teacher-forced agreement {rate} < 0.98")
@@ -1113,25 +1146,85 @@ def phase_serve(card: str) -> dict:
         p = np.tile(motif, -(-int(rng.randint(64, 257)) // motif.size))
         sreqs.append((p.astype(np.int32), int(rng.randint(32, 65)), greedy))
     handles, sched, wall, launches, dispatches = _serve(eng, sreqs, True)
-    _check_pass("spec pass", eng, handles, sched, launches, dispatches)
+    replays = _check_pass("spec pass", eng, handles, sched, launches,
+                          dispatches)
     W = ENGINE_CFG["spec_window"]
     check(sched.counters["spec_proposed"] > 0 and dispatches.get(W, 0) > 0,
           f"speculative pass dispatched {dispatches}: the W={W} path did not "
           f"run")
     paths["w4_spec_pass"] = {"launches": launches,
-                             "dispatches_by_window": dispatches}
+                             "dispatches_by_window": dispatches,
+                             "graph_replays": replays}
     agree_s, total_s = _teacher_forced(eng, handles)
     rate_s = agree_s / total_s
     tokens_s = sum(len(h.tokens) for h in handles)
     steps_s = sched.counters["steps"]
+    p50, p99 = _ttft(handles)
     print(f"serve spec W=4: {len(handles)} requests, {tokens_s} tokens in "
           f"{wall:.3f} s = {tokens_s / wall:.1f} tok/s, {steps_s} steps, "
-          f"accepted {sched.counters['spec_accepted']}/"
+          f"mean step {wall / steps_s * 1e3:.2f} ms, TTFT p50 {p50:.1f} ms "
+          f"p99 {p99:.1f} ms, accepted {sched.counters['spec_accepted']}/"
           f"{sched.counters['spec_proposed']} drafts, kernel launches "
           f"{launches} = {eng.model.n_layers} x {sum(dispatches.values())} "
-          f"dispatches {dispatches}, teacher-forced {agree_s}/{total_s} = {rate_s:.4f}, on {card}")
+          f"dispatches {dispatches}, {replays} graph replays, "
+          f"teacher-forced {agree_s}/{total_s} = {rate_s:.4f}, on {card}")
     check(rate_s >= 0.98, f"spec teacher-forced agreement {rate_s} < 0.98")
+
+    # a replay against the step's body run eagerly on the same staged
+    # buffers, on the arena the passes populated (restored between the
+    # two): the graph runs the same kernels on the same inputs
+    for w in windows:
+        for policy in (False, True):
+            _graph_against_body(eng, w, policy, rng)
+    check(eng.trace_count() == traces,
+          f"serving prepared {eng.trace_count() - traces} signatures after "
+          f"warm")
     return paths
+
+
+def _graph_against_body(eng, W: int, policy: bool, rng) -> None:
+    """Stage one step with real tables (every slot its own blocks, limits
+    past the window, so no write lands in the trash block), replay its
+    graph, restore the arenas, run its body eagerly on the same buffers:
+    the logits, the tokens and both arenas must be bitwise equal."""
+    S, Bs, V = eng.n_slots, eng.block_size, eng.vocab_size
+    pos0 = rng.randint(Bs, 500, S).astype(np.int32)
+    limits = (pos0 + W + 1).astype(np.int32)
+    tables = np.tile(eng._trash_table(), (S, 1))
+    blocks = iter(rng.permutation(eng.pool.n_blocks))
+    for s in range(S):
+        n = eng.pool.blocks_for(int(limits[s]))
+        tables[s, :n] = [next(blocks) for _ in range(n)]
+    toks = rng.randint(2, V, (S, W)).astype(np.int32)
+    samp = None
+    if policy:
+        samp = eng.make_samp()
+        for s in range(0, S, 2):
+            mask = np.zeros(V, np.float32)
+            mask[rng.randint(0, V, 100)] = -1e9
+            eng.set_samp_row(samp, s, (1000 + s, s, 0.8, 50 * (s % 4), 0.9,
+                                       mask if s == 2 else None))
+    sig = eng._stage_step(toks, pos0, tables, limits, samp)
+    check(sig.graph is not None, f"W={W} has no captured graph")
+    k0, v0 = eng.pool.k.clone(), eng.pool.v.clone()
+    eng._dispatch(sig)
+    torch.cuda.synchronize()
+    replayed = [t.clone() for t in (sig.logits, sig.res, eng.pool.k,
+                                    eng.pool.v)]
+    eng.pool.k.copy_(k0)
+    eng.pool.v.copy_(v0)
+    sig.body(sig)
+    torch.cuda.synchronize()
+    eager = (sig.logits, sig.res, eng.pool.k, eng.pool.v)
+    names = ("logits", "tokens", "k arena", "v arena")
+    diffs = {n: float((a.double() - b.double()).abs().max())
+             for n, a, b in zip(names, replayed, eager)}
+    moved = bool((eng.pool.k != k0).any())
+    label = f"W={W} {'policy' if policy else 'greedy'}"
+    print(f"serve graph vs body {label}: largest differences {diffs}, "
+          f"arena written {moved}")
+    check(moved and all(torch.equal(a, b) for a, b in zip(replayed, eager)),
+          f"{label}: the replay differs from the body run eagerly: {diffs}")
 
 
 def _lm_train_pass(exe, main, loss, scope, feed) -> dict:

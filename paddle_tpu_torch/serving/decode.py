@@ -7,17 +7,20 @@ list) and waiting requests JOIN (length-tiered admission + prefill-insert
 into a free slot).  ``ContinuousDecodeEngine`` holds the model, the paged
 pool and the two device functions the loop calls:
 
-  * ``prefill`` — one dense causal forward over a request's history
-    (``lm_forward``), its K/V scattered into the slot's blocks, and the
-    first next-token logits;
+  * prefill-insert — one dense causal forward over a request's history
+    padded to its prompt bucket (``lm_forward``), its K/V scattered into
+    the slot's blocks, and the next-token logits at the true length;
   * the windowed decode step — ``lm_paged_decode_window`` over every slot
     (inactive slots ride along with all-trash tables) followed by the
     per-slot token selection ``masked_select_tokens``.  Each layer of the
     step runs the paged decode-attention kernel once.
 
-PyTorch runs eagerly, so nothing is compiled per shape: prefill runs at the
-history's exact length (the prompt-bucket ladder only tiers admission), and
-the arenas are written in place.  A speculative arm (``spec=True``) proposes
+Each call shape (a prefill at one prompt bucket, a step at one window width,
+greedy or with a sampling policy) is a SIGNATURE with static input and
+output tensors.  On the card a signature is one CUDA graph, captured once
+(``warm()``, or lazily at its first call) and replayed every call: the
+counterpart of the reference's one compiled executable per signature.  The
+arenas are written in place.  A speculative arm (``spec=True``) proposes
 n-gram prompt-lookup drafts and verifies them greedily in one W-window step:
 the token streams are those of the plain loop, in fewer steps.
 """
@@ -36,7 +39,8 @@ from .._device import resolve_device
 from ..models.transformer import TransformerLM
 from ..models.weights import from_jax_params, torch_dtype
 from ..ops import attention as _attn
-from ..ops.paged_attention import check_kernel_shape
+from ..ops.paged_attention import (check_kernel_shape,
+                                   paged_attention as _paged_kernel)
 from ..ops.sampling import masked_select_tokens
 from ..resilience import DeadlineExceeded
 from .batcher import (AdmissionShed, DecodeAdmissionQueue,
@@ -198,6 +202,65 @@ class _Slot:
         self.seq = seq
 
 
+class WarmError(RuntimeError):
+    """Preparing a signature failed: its first run, or on the card its CUDA
+    graph capture.  The engine cannot serve that call shape, so the
+    scheduler stops serving instead of failing only the request that
+    reached the shape first."""
+
+
+class _Staged:
+    """Named int32 / uint32 / float32 fields packed into ONE int32 tensor
+    on the engine's device, filled from numpy through one host tensor:
+    pinned on the card, so that the whole upload is one asynchronous copy;
+    on the CPU the host tensor is the device tensor itself.
+
+    ``t[name]`` is a field's device view (int32 for both integer kinds:
+    ``masked_select_tokens`` reads seeds through ``& 0xFFFFFFFF``), and
+    ``np[name]`` its numpy view in the host tensor."""
+
+    def __init__(self, fields, device: torch.device):
+        sizes = [int(np.prod(shape)) for _, shape, _ in fields]
+        self.dev = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
+        self.host = (self.dev if device.type == "cpu" else
+                     torch.zeros(sum(sizes), dtype=torch.int32,
+                                 pin_memory=True))
+        host_np = self.host.numpy()
+        self.t, self.np = {}, {}
+        o = 0
+        for (name, shape, dt), size in zip(fields, sizes):
+            d, h = self.dev[o:o + size], host_np[o:o + size].view(dt)
+            if dt == np.float32:
+                d = d.view(torch.float32)
+            self.t[name], self.np[name] = d.view(shape), h.reshape(shape)
+            o += size
+
+    def upload(self) -> None:
+        """Enqueue the host tensor's copy to the device on the current
+        stream.  Every engine call ends in a read back that waits for that
+        stream, so the host tensor is free again when the call returns."""
+        if self.host is not self.dev:
+            self.dev.copy_(self.host, non_blocking=True)
+
+
+class _Signature:
+    """One call shape of the engine: ``key`` is ``("prefill", pb)`` or
+    ``("step", W, policy)``.  ``ins`` (and ``mask``, policy steps only)
+    hold the static inputs, ``logits`` and ``res`` the static outputs
+    (``res`` [S, W + 1] int32: the argmax of each window row, then the
+    chosen token), ``body`` the device function run on them.  On the card
+    ``graph`` is its captured CUDA graph and ``launches`` the paged-kernel
+    calls one replay makes."""
+
+    __slots__ = ("key", "body", "ins", "mask", "logits", "res", "graph",
+                 "launches")
+
+    def __init__(self, key, body, ins, mask, logits, res):
+        self.key, self.body, self.ins, self.mask = key, body, ins, mask
+        self.logits, self.res = logits, res
+        self.graph, self.launches = None, 0
+
+
 class ContinuousDecodeEngine:
     """The device half of continuous decode: prefill-insert and the windowed
     paged decode step over a fixed slot count.
@@ -208,8 +271,22 @@ class ContinuousDecodeEngine:
     a card it raises at once, before it allocates the pool, on a window
     (``spec_window``) or head dim the paged kernel does not take; the CPU
     runs every shape on the plain versions.
-    ``step_dispatches`` counts decode-step calls by window width W (each
-    runs the paged attention kernel once per layer on the card)."""
+
+    Every call runs a signature (see the module docstring): prefill per
+    prompt bucket, the decode step per window width W in {1, spec_window},
+    each W greedy (every row argmax) or with a sampling policy.
+    ``warm()`` prepares them all; one not warmed is prepared at its first
+    call.  On the card each is a CUDA graph, and a call fills its static
+    inputs and replays it: a failed capture or replay raises, and nothing
+    runs the steps op by op in its place.  Warm before ``start()``ing a
+    scheduler's thread: a capture fails if another thread uses the card
+    meanwhile.
+
+    Counters, per call: ``step_dispatches`` (decode steps by W),
+    ``prefill_dispatches`` (by prompt bucket), and on the card ``replays``
+    (graph replays by signature key).  A replay adds its graph's
+    paged-kernel calls to ``paged_attention.launches``, so that counter
+    keeps counting the calls that ran the kernel on the device."""
 
     def __init__(self, params: Dict, *, vocab_size: int, max_len: int,
                  d_model: int = 512, n_heads: int = 8, n_layers: int = 6,
@@ -252,35 +329,202 @@ class ContinuousDecodeEngine:
             n_heads=n_heads, n_layers=n_layers,
             tie_embeddings=tie_embeddings)
         self.step_dispatches = collections.Counter()
+        self.prefill_dispatches = collections.Counter()
+        self.replays = collections.Counter()
         self._samp0 = None
+        self._sigs: Dict[tuple, _Signature] = {}
+        self._traces = 0
+        self._graph_pool = None
 
-    # ------------------------------------------------------------- helpers
+    # ---------------------------------------------------------- signatures
     def _trash_table(self) -> np.ndarray:
         return np.full(self.n_tbl, self.pool.trash, np.int32)
 
-    def _t(self, a, dtype=torch.int64) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+    def warm(self) -> int:
+        """Prepare every signature the loop can hit, as the reference's
+        ``warm`` (``paddle_tpu/serving/decode.py:1029``) compiles them:
+        prefill per prompt bucket (``true_len`` = the bucket) and the decode
+        step per W in {1, max(1, spec_window)}, against all-trash tables and
+        zero limits, so warming writes only the trash block.  On the card
+        each signature's body runs once eagerly on a side stream (the
+        kernel library builds, cuBLAS loads), then is captured as a CUDA
+        graph, all graphs in one memory pool: the engine replays one graph
+        at a time, and a graph keeps nothing in the pool from one replay
+        to the next (its inputs and outputs are static tensors outside
+        it).  On the CPU each body runs once.
 
-    # ------------------------------------------------------------- prefill
-    def prefill(self, history: np.ndarray, table: np.ndarray) -> np.ndarray:
-        """One request's prefill-insert: a dense causal forward over
-        ``history``, its per-layer K/V scattered through ``table`` into the
-        arena (positions past the allocated blocks hit trash via the table).
-        Returns the first next-token logits [V] float32."""
-        tl = int(history.size)
-        bucket_for(self.prompt_buckets, tl, what="prompt length")
-        x, kvs = self.model(self._t(history)[None, :], collect_kv=True)
-        tbl = self._t(table)
-        t = torch.arange(tl, device=self.device)
-        blk = tbl[torch.clamp(t // self.block_size, max=self.n_tbl - 1)]
+        Returns the signatures prepared by this call: ``len(prompt_buckets)
+        + 2 x len({1, spec_window})``.  The reference returns
+        ``len(prompt_buckets) + len({1, spec_window})``: its step always
+        runs the policy pass, where this engine keeps a greedy signature
+        (argmax only) beside the policy one for each W."""
+        before = self._traces
+        for pb in self.prompt_buckets:
+            self._signature(("prefill", pb))
+        for w in sorted({1, max(1, self.spec_window)}):
+            for policy in (False, True):
+                self._signature(("step", w, policy))
+        return self._traces - before
+
+    def trace_count(self) -> int:
+        """Signatures prepared so far (graphs captured on the card, first
+        runs on the CPU).  Serving after ``warm()`` never adds one."""
+        return self._traces
+
+    def _signature(self, key) -> _Signature:
+        sig = self._sigs.get(key)
+        return sig if sig is not None else self._prepare(key)
+
+    def _prepare(self, key) -> _Signature:
+        """Allocate ``key``'s buffers, fill them with its warm inputs and run
+        its body once (CPU) or capture it (card).  Raises ``WarmError``."""
+        S, V, trash = self.n_slots, self.vocab_size, self.pool.trash
+        dev = self.device
+        if key[0] == "prefill":
+            pb = key[1]
+            ins = _Staged([("tokens", (1, pb), np.int32),
+                           ("true_len", (1,), np.int32),
+                           ("table", (self.n_tbl,), np.int32)], dev)
+            ins.np["true_len"][0] = pb
+            ins.np["table"][:] = trash
+            sig = _Signature(key, self._prefill_body, ins, None,
+                             torch.zeros(V, dtype=torch.float32, device=dev),
+                             None)
+        else:
+            _, W, policy = key
+            fields = [("toks", (S, W), np.int32), ("pos0", (S,), np.int32),
+                      ("tables", (S, self.n_tbl), np.int32),
+                      ("limits", (S,), np.int32)]
+            if policy:
+                fields += [("seeds", (S,), np.uint32),
+                           ("subs", (S,), np.int32),
+                           ("temps", (S,), np.float32),
+                           ("topks", (S,), np.int32),
+                           ("topps", (S,), np.float32)]
+            ins = _Staged(fields, dev)
+            ins.np["tables"][:] = trash
+            mask = None
+            if policy:
+                ins.np["topps"][:] = 1.0
+                mask = _Staged([("mask", (S, V), np.float32)], dev)
+            sig = _Signature(key, self._step_body, ins, mask,
+                             torch.zeros((S, W, V), dtype=torch.float32,
+                                         device=dev),
+                             torch.zeros((S, W + 1), dtype=torch.int32,
+                                         device=dev))
+        try:
+            ins.upload()
+            if dev.type == "cuda":
+                self._capture(sig)
+            else:
+                sig.body(sig)
+        except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
+            raise WarmError(f"preparing signature {key} failed: "
+                            f"{exc}") from exc
+        self._traces += 1
+        self._sigs[key] = sig
+        return sig
+
+    def _capture(self, sig: _Signature) -> None:
+        """Run ``sig``'s body once eagerly on a side stream (first-use work
+        such as building the kernel library or creating cuBLAS handles may
+        not happen inside a capture), then capture it into a CUDA graph in
+        the engine's pool.  The capture launches nothing, so the paged
+        kernel's counter is restored and the capture's count kept in
+        ``sig.launches`` for the replays to add."""
+        dev = self.device
+        with torch.cuda.device(dev):
+            cur = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                sig.body(sig)
+            cur.wait_stream(side)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            before = _paged_kernel.launches
+            try:
+                with torch.cuda.graph(graph, pool=self._graph_pool):
+                    sig.body(sig)
+            finally:
+                sig.launches = _paged_kernel.launches - before
+                _paged_kernel.launches = before
+        sig.graph = graph
+
+    def _dispatch(self, sig: _Signature) -> None:
+        """Run ``sig`` on its staged inputs: upload them, then replay its
+        graph (card) or run its body (CPU)."""
+        sig.ins.upload()
+        if sig.key[0] == "prefill":
+            self.prefill_dispatches[sig.key[1]] += 1
+        else:
+            self.step_dispatches[sig.key[1]] += 1
+        if sig.graph is None:
+            sig.body(sig)
+            return
+        sig.graph.replay()
+        _paged_kernel.launches += sig.launches
+        self.replays[sig.key] += 1
+
+    # ------------------------------------------------------------- bodies
+    @torch.no_grad()
+    def _prefill_body(self, sig: _Signature) -> None:
+        """Prefill-insert on ``sig``'s buffers: a dense causal forward over
+        the bucket-padded tokens, the K/V of all pb positions scattered
+        through the table (positions past the allocated blocks hit trash
+        via the table), then the logits at ``true_len - 1``.  Padding sits
+        after every real position, so causality keeps it out of them."""
+        a = sig.ins.t
+        x, kvs = self.model(a["tokens"], collect_kv=True)
+        t = torch.arange(a["tokens"].shape[1], device=self.device)
+        blk = a["table"][torch.clamp(t // self.block_size,
+                                     max=self.n_tbl - 1)]
         off = t % self.block_size
         for i, (kh, vh) in enumerate(kvs):
-            # kh/vh [1, H, T, Dh] -> window form [T, H, Dh]
+            # kh/vh [1, H, pb, Dh] -> window form [pb, H, Dh]
             _attn.paged_cache_set_window(self.pool.k, i, blk, off,
                                          kh[0].transpose(0, 1))
             _attn.paged_cache_set_window(self.pool.v, i, blk, off,
                                          vh[0].transpose(0, 1))
-        return self.model.logits(x[0, tl - 1]).cpu().numpy()
+        last = x[0].index_select(0, a["true_len"] - 1)
+        sig.logits.copy_(self.model.logits(last)[0])
+
+    @torch.no_grad()
+    def _step_body(self, sig: _Signature) -> None:
+        """One windowed decode step over ALL slots on ``sig``'s buffers:
+        the logits [S, W, V], their argmax per window row, and the token
+        chosen from the first row (the policy pass, or the argmax)."""
+        a = sig.ins.t
+        logits, _, _ = self.model.decode_window(
+            a["toks"], a["pos0"], a["tables"], a["limits"], self.pool.k,
+            self.pool.v, block_size=self.block_size)
+        top = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sig.mask is None:
+            chosen = top[:, 0]  # all-greedy rows: the policy ladder's argmax
+        else:
+            chosen = masked_select_tokens(
+                logits[:, 0, :], a["seeds"], a["subs"], a["temps"],
+                a["topks"], a["topps"], sig.mask.t["mask"])
+        sig.logits.copy_(logits)
+        sig.res[:, :-1].copy_(top)
+        sig.res[:, -1].copy_(chosen)
+
+    # ------------------------------------------------------------- prefill
+    def prefill(self, history: np.ndarray, table: np.ndarray) -> np.ndarray:
+        """One request's prefill-insert: ``history`` padded to its prompt
+        bucket, its per-layer K/V scattered through ``table`` into the
+        arena.  Returns the first next-token logits [V] float32."""
+        tl = int(history.size)
+        pb = bucket_for(self.prompt_buckets, tl, what="prompt length")
+        sig = self._signature(("prefill", pb))
+        f = sig.ins.np
+        f["tokens"][0, :tl] = history
+        f["tokens"][0, tl:] = 0
+        f["true_len"][0] = tl
+        f["table"][:] = table
+        self._dispatch(sig)
+        return sig.logits.to("cpu", copy=True).numpy()
 
     # ------------------------------------------------------- sampling args
     def default_samp(self):
@@ -312,42 +556,49 @@ class ContinuousDecodeEngine:
             samp[5][i] = mask
 
     # ---------------------------------------------------------- decode step
-    @torch.no_grad()
-    def _window(self, toks, pos0, tables, limits, samp):
-        """One windowed decode step over ALL slots on the device: returns
-        (logits [S, W, V] float32, chosen [S] int32) as device tensors."""
-        logits, _, _ = self.model.decode_window(
-            self._t(toks), self._t(pos0), self._t(tables), self._t(limits),
-            self.pool.k, self.pool.v, block_size=self.block_size)
-        self.step_dispatches[int(toks.shape[1])] += 1
-        first = logits[:, 0, :]
-        if samp is None or samp is self._samp0:
-            # all-greedy rows: the policy ladder reduces to this argmax
-            chosen = torch.argmax(first, dim=-1).to(torch.int32)
-        else:
+    def _stage_step(self, toks, pos0, tables, limits, samp) -> _Signature:
+        """The signature for this step (greedy when ``samp`` is None or the
+        default arrays, else the policy one), with its inputs staged.  The
+        [S, V] mask is uploaded only when it differs from the last one."""
+        policy = samp is not None and samp is not self._samp0
+        sig = self._signature(("step", int(toks.shape[1]), policy))
+        f = sig.ins.np
+        f["toks"][...] = toks
+        f["pos0"][...] = pos0
+        f["tables"][...] = tables
+        f["limits"][...] = limits
+        if policy:
             seeds, subs, temps, topks, topps, mask = samp
-            chosen = masked_select_tokens(
-                first, self._t(seeds.astype(np.int64)), self._t(subs),
-                self._t(temps, torch.float32), self._t(topks),
-                self._t(topps, torch.float32), self._t(mask, torch.float32))
-        return logits, chosen
+            f["seeds"][...] = seeds
+            f["subs"][...] = subs
+            f["temps"][...] = temps
+            f["topks"][...] = topks
+            f["topps"][...] = topps
+            staged = sig.mask.np["mask"]
+            if not np.array_equal(staged, mask):
+                staged[...] = mask
+                sig.mask.upload()
+        return sig
 
     def step_full(self, toks: np.ndarray, pos0: np.ndarray,
                   tables: np.ndarray, limits: np.ndarray, samp=None):
         """One windowed decode step; returns ``(logits [S, W, V], chosen
         [S])`` as numpy — the raw logits plus the per-slot policy selection
         over the window's first position."""
-        logits, chosen = self._window(toks, pos0, tables, limits, samp)
-        return logits.cpu().numpy(), chosen.cpu().numpy()
+        sig = self._stage_step(toks, pos0, tables, limits, samp)
+        self._dispatch(sig)
+        return (sig.logits.to("cpu", copy=True).numpy(),
+                sig.res[:, -1].to("cpu", copy=True).numpy())
 
     def step_tokens(self, toks: np.ndarray, pos0: np.ndarray,
                     tables: np.ndarray, limits: np.ndarray, samp=None):
         """One windowed decode step returning only what the scheduler reads:
-        ``(argmax [S, W] int32, chosen [S] int32)`` — the logits stay on
-        the device."""
-        logits, chosen = self._window(toks, pos0, tables, limits, samp)
-        out = torch.argmax(logits, dim=-1).to(torch.int32)
-        return out.cpu().numpy(), chosen.cpu().numpy()
+        ``(argmax [S, W] int32, chosen [S] int32)`` in one read back — the
+        logits stay on the device."""
+        sig = self._stage_step(toks, pos0, tables, limits, samp)
+        self._dispatch(sig)
+        res = sig.res.to("cpu", copy=True).numpy()
+        return res[:, :-1], res[:, -1]
 
     def step(self, toks: np.ndarray, pos0: np.ndarray, tables: np.ndarray,
              limits: np.ndarray) -> np.ndarray:
@@ -663,6 +914,12 @@ class ContinuousScheduler:
                 tok = self.eng.prefill_tail(
                     history[-1:], history.size - 1, table, limit,
                     samp_row=self._samp_row_for(req, history))
+        except WarmError:
+            # the engine cannot run this shape at all: back to the queue,
+            # and step() aborts the scheduler, failing every waiter
+            pool.free(blocks)
+            self.queue.requeue(req)
+            raise
         except Exception as exc:  # noqa: BLE001 — this request's problem
             # a poisoned request costs its owner, never the loop: blocks go
             # straight back, the submitter sees ITS error

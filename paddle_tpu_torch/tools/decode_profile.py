@@ -5,15 +5,20 @@
 
 Serves the Transformer-base LM (V=32000, d=512, 8 heads, 6 layers,
 d_ff=2048, float32, random weights from seed 0; max_len 1024, block 16,
-8 slots) with all 8 slots busy, then, ``--repeats`` times over, records
-``--steps`` scheduler steps (each one W=1 decode dispatch) on the host
-clock and ``--steps`` more under ``torch.profiler`` (whose own host cost
-would inflate the wall time).  Prints, per step: host wall ms (unprofiled
-windows) and device busy ms (the sum of kernel times, profiled windows),
-each as the median with the least and the most of the repeats, the device
-idle share of the medians, device ms by kernel class (paged attention /
-matmul / other) and the top kernels, both from the median-busy window.
-``--out`` also writes the numbers as JSON.
+8 slots), warmed first (``ContinuousDecodeEngine.warm``: every step and
+prefill is a CUDA graph replay), with all 8 slots busy, then,
+``--repeats`` times over, records ``--steps`` scheduler steps (each one
+W=1 decode dispatch) on the host clock and ``--steps`` more under
+``torch.profiler`` (whose own host cost would inflate the wall time).
+Prints the signatures warmed and, per step: host wall ms (unprofiled
+windows), split into the engine call (staging the inputs, the replay and
+the wait for its read back) and the scheduler's own host work around it,
+and device busy ms (the sum of kernel times, profiled windows), each as the
+median with the least and the most of the repeats, the device idle share of
+the medians, device ms by kernel class (paged attention / matmul / other)
+and the top kernels, both from the median-busy window.  Raises when the
+profiler sees no kernel under the replays, rather than report an idle
+share of 1.  ``--out`` also writes the numbers as JSON.
 """
 from __future__ import annotations
 
@@ -67,7 +72,22 @@ def profile(steps: int = 20, prompt_len: int = 256, repeats: int = 5) -> dict:
         raise RuntimeError("decode_profile needs a CUDA card")
     eng = ContinuousDecodeEngine(init_lm_params(0, **LM_CFG), n_slots=8,
                                  block_size=16, dtype="float32", **LM_CFG)
+    t0 = time.perf_counter()
+    n_sig = eng.warm()
+    warm_s = time.perf_counter() - t0
     sched = ContinuousScheduler(eng)
+    # the engine call of each step, timed apart from the scheduler's host
+    # work around it
+    engine_s = [0.0]
+    step_tokens = eng.step_tokens
+
+    def timed_step_tokens(*args, **kwargs):
+        t = time.perf_counter()
+        out = step_tokens(*args, **kwargs)
+        engine_s[0] += time.perf_counter() - t
+        return out
+
+    eng.step_tokens = timed_step_tokens
     rng = np.random.RandomState(2)
     budget = 2 * steps * repeats + 16
     for _ in range(eng.n_slots):
@@ -76,14 +96,17 @@ def profile(steps: int = 20, prompt_len: int = 256, repeats: int = 5) -> dict:
     for _ in range(8):           # admit everyone, then settle
         sched.step()
     active = sum(1 for s in sched._slots if s is not None)
-    walls, windows = [], []
+    traces = eng.trace_count()
+    walls, engine_ms, windows = [], [], []
     for _ in range(repeats):
         torch.cuda.synchronize()
+        engine_s[0] = 0.0
         t0 = time.perf_counter()
         for _ in range(steps):
             sched.step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
+        engine_ms.append(engine_s[0] * 1e3 / steps)
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
@@ -97,11 +120,16 @@ def profile(steps: int = 20, prompt_len: int = 256, repeats: int = 5) -> dict:
                 continue
             kernels.append((us, evt.key, evt.count))
             by_class[_kernel_class(evt.key)] += us
+        if not kernels:
+            raise RuntimeError("torch.profiler saw no kernel in the replayed "
+                               "steps: device busy time not measured")
         kernels.sort(reverse=True)
         windows.append((sum(by_class.values()) / 1e3 / steps, by_class,
                         kernels))
     if any(s is None for s in sched._slots):
         raise RuntimeError("a slot retired inside the measured windows")
+    if eng.trace_count() != traces or not eng.replays:
+        raise RuntimeError("the measured steps were not all graph replays")
     busy = [w[0] for w in windows]
     wall_ms, busy_ms = float(np.median(walls)), float(np.median(busy))
     _, by_class, kernels = sorted(windows, key=lambda w: w[0])[
@@ -109,7 +137,11 @@ def profile(steps: int = 20, prompt_len: int = 256, repeats: int = 5) -> dict:
     return {
         "card": card_info(0), "steps": steps, "repeats": repeats,
         "active_slots": active, "prompt_len": prompt_len,
+        "signatures_warmed": n_sig, "warm_s": warm_s,
         "wall_ms_per_step": _spread(walls),
+        "engine_call_ms_per_step": _spread(engine_ms),
+        "scheduler_host_ms_per_step": _spread(
+            [w - e for w, e in zip(walls, engine_ms)]),
         "device_busy_ms_per_step": _spread(busy),
         "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
         "device_ms_per_step_by_class": {k: v / 1e3 / steps
@@ -127,12 +159,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     res = profile(args.steps, repeats=args.repeats)
     wall, busy = res["wall_ms_per_step"], res["device_busy_ms_per_step"]
-    print(f"decode step on {res['card']}: {res['active_slots']} active "
+    eng, host = (res["engine_call_ms_per_step"],
+                 res["scheduler_host_ms_per_step"])
+    print(f"decode step on {res['card']}: {res['signatures_warmed']} "
+          f"signatures warmed as CUDA graphs in {res['warm_s']:.1f} s; "
+          f"{res['active_slots']} active "
           f"slots, {res['repeats']} repeats of {res['steps']} steps; wall "
           f"median {wall['median']:.3f} ms/step (min {wall['min']:.3f}, max "
           f"{wall['max']:.3f}), device busy median {busy['median']:.3f} "
           f"ms/step (min {busy['min']:.3f}, max {busy['max']:.3f}), idle "
-          f"share {res['device_idle_share']:.3f}")
+          f"share {res['device_idle_share']:.3f}; of the wall, the engine "
+          f"call (stage, replay, read back) median {eng['median']:.3f} "
+          f"ms/step, the scheduler's host work {host['median']:.3f}")
     for k, v in res["device_ms_per_step_by_class"].items():
         print(f"  {k:16s} {v:.4f} ms/step")
     for k in res["top_kernels"]:
