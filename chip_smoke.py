@@ -45,23 +45,32 @@ Phases (any failure exits non-zero, before the final line):
                warm;
   5. train   - the same LM built by build_lm through Program / Executor with
                Adam(1e-3) and global-norm clipping (1.0), weights from
-               init_lm_params(0): one step on 2 x 1024 tokens on the card
-               and on the CPU (plain versions) from the same weights, loss
-               and every gradient compared; then 5 steps on a fixed 8 x 1024
-               batch with the flash launch counts set to 0 before and read
-               after (each must be n_layers x steps), losses finite and
-               falling, ms per step and tokens/s;
+               init_lm_params(0), every step a replay of its signature's
+               CUDA graph (Executor.warm): the 2 x 1024 parity signature
+               warmed ("compiled", then "cached"), one replay against the
+               same step run eagerly by an Executor that did not warm, from
+               the same weights (the loss, every gradient, parameter,
+               moment and optimizer step and the step counter bitwise
+               equal), and against the CPU (plain versions), loss and every
+               gradient compared; then the 8 x 1024 signature warmed and 5
+               replays on a fixed batch with the flash launch counts set to
+               0 before and read after (counted at replay: each must be
+               n_layers x steps), replays = steps, compiles unmoved, losses
+               finite and falling, warm seconds, ms per step, tokens/s,
+               peak memory (allocated, and reserved with the graph pool);
   6. lm amp train - the same program and weights under amp with attention
                in bfloat16 (build_train_program(amp=True): the default
                bf16 list plus the attention op, so the bf16 flash kernels
-               run): one step on 2 x 1024 tokens on the card and on the CPU,
-               loss and every gradient held to 3 x the CPU's own spread
+               run), warmed as in phase 5: the replay bitwise against the
+               eager step, then held against the CPU's amp step: loss and
+               every gradient held to 3 x the CPU's own spread
                (its amp step's distance from the train phase's float32
                CPU step, same weights and tokens; never tighter than the
-               float32 limit 1e-3); then 5 steps on the 8 x 1024 batch
+               float32 limit 1e-3); then 5 replays on the 8 x 1024 batch
                with the flash counts set to 0 before and read after (each
-               n_layers x steps, and every launch bfloat16), losses finite
-               and falling, ms per step, tokens/s, peak memory;
+               n_layers x steps, and every launch bfloat16), replays =
+               steps, compiles unmoved, losses finite and falling, ms per
+               step, tokens/s, peak memory;
   7. lstm train - the text classifier (vocab 10000, emb 128, 2 x LSTM-512,
                2 classes, seq_len 100, float32, weights from seed 0) through
                Program / Executor with Adam(1e-3): one step on 16 sequences
@@ -1205,7 +1214,7 @@ def _graph_against_body(eng, W: int, policy: bool, rng) -> None:
             eng.set_samp_row(samp, s, (1000 + s, s, 0.8, 50 * (s % 4), 0.9,
                                        mask if s == 2 else None))
     sig = eng._stage_step(toks, pos0, tables, limits, samp)
-    check(sig.graph is not None, f"W={W} has no captured graph")
+    check(sig.run.captured, f"W={W} has no captured graph")
     k0, v0 = eng.pool.k.clone(), eng.pool.v.clone()
     eng._dispatch(sig)
     torch.cuda.synchronize()
@@ -1227,19 +1236,119 @@ def _graph_against_body(eng, W: int, policy: bool, rng) -> None:
           f"{label}: the replay differs from the body run eagerly: {diffs}")
 
 
+def _release() -> None:
+    """Free what the last phase left: its Executors' graphs and their pool
+    go with the Executors, and the cached blocks with ``empty_cache``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _replay_against_eager(label, exe, main, startup, params, feed,
+                          fetch) -> tuple:
+    """Warm the parity signature (``feed``, ``fetch``) on a new train scope
+    of ``exe``, replay it once, and run the same step eagerly by a second
+    Executor that did not warm, from the same weights: the fetches (the
+    loss and every gradient), every parameter, moment and optimizer step
+    and the step counter must be bitwise equal, the same kernels on the
+    same inputs.  Then the same eager step once more by a third Executor
+    with every update op run on its own (the per-op rule): its parameters,
+    moments and optimizer step must be bitwise equal to the grouped
+    step's (``torch._foreach_*``).  Returns (the replay's fetches, warm
+    seconds)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.tools.train_profile import feed_sig, train_scope
+
+    scope = train_scope(exe, startup, main, params)
+    compiles = exe.compiles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    how = exe.warm(main, feed_sig(feed), fetch, scope=scope)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    again = exe.warm(main, feed_sig(feed), fetch, scope=scope)
+    check(how == "compiled" and again == "cached"
+          and exe.compiles == compiles + 1,
+          f"{label}: warm gave {how!r} then {again!r}, compiles "
+          f"{compiles} -> {exe.compiles}")
+    replays = exe.replays
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    check(exe.replays == replays + 1, f"{label}: the warmed step did not "
+                                      f"replay")
+    eager = fluid.Executor()
+    eager_scope = train_scope(eager, startup, main, params)
+    want = eager.run(main, feed=feed, fetch_list=fetch, scope=eager_scope)
+    check(eager.replays == eager.compiles == 0,
+          f"{label}: the eager Executor replayed")
+    diffs = {}
+    for name, a, b in zip([f if isinstance(f, str) else f.name
+                           for f in fetch], got, want):
+        diffs[name] = (a.tobytes() == b.tobytes(),
+                       float(np.abs(a.astype(np.float64) - b).max()))
+    for name in eager_scope.var_names():
+        a, b = scope.find_var(name), eager_scope.find_var(name)
+        diffs[name] = (torch.equal(a, b),
+                       float((a.double() - b.double()).abs().max()))
+    n_param = len(params)
+    n_mom = sum(n.endswith((".moment1", ".moment2")) for n in diffs)
+    bad = {n: d for n, (eq, d) in diffs.items() if not eq}
+    print(f"{label} replay vs eager: the loss, {len(fetch) - 1} gradients, "
+          f"{n_param} parameters, {n_mom} moments, "
+          f"{len(diffs) - len(fetch) - n_param - n_mom} optimizer step(s) "
+          f"and the step counter ({scope.step_counter} and "
+          f"{eager_scope.step_counter}): {len(bad)} differ"
+          + (f", largest {max(bad.values()):.3e} ({max(bad, key=bad.get)})"
+             if bad else " (bitwise equal)"))
+    check(not bad and scope.step_counter == eager_scope.step_counter,
+          f"{label}: the replay differs from the eager step: "
+          f"{dict(list(bad.items())[:5])}")
+
+    per_op = fluid.Executor()
+    per_op_scope = train_scope(per_op, startup, main, params)
+    grouped = executor_mod._grouped
+    executor_mod._grouped = list  # each update op its own unit
+    try:
+        per_op.run(main, feed=feed, fetch_list=fetch, scope=per_op_scope)
+    finally:
+        executor_mod._grouped = grouped
+    diffs = {name: (torch.equal(a, per_op_scope.find_var(name)),
+                    float((a.double() - per_op_scope.find_var(name).double())
+                          .abs().max()))
+             for name, a in eager_scope.items()}
+    bad = {n: d for n, (eq, d) in diffs.items() if not eq}
+    print(f"{label} grouped vs per-op updates on the card: {len(diffs)} "
+          f"state tensors, {len(bad)} differ"
+          + (f", largest {max(bad.values()):.3e} ({max(bad, key=bad.get)})"
+             if bad else " (bitwise equal)"))
+    check(not bad, f"{label}: the grouped updates differ from the per-op "
+                   f"rule: {dict(list(bad.items())[:5])}")
+    return got, t_warm
+
+
 def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
-    """TRAIN_STEPS Executor steps on ``feed``, with every flash launch
-    count set to 0 just before and read just after: losses, CUDA-event ms
-    per step (fetch included), the counts (all, and by dtype), peak
-    memory."""
+    """Warm the training signature (``feed``) on ``scope``, then
+    TRAIN_STEPS replays, with every flash launch count set to 0 just before
+    and read just after (counted at replay): losses, CUDA-event ms per
+    step (fetch included), the counts (all, and by dtype), warm seconds,
+    replays and compiles, peak memory (allocated, and reserved: a graph's
+    activations live in its pool, reserved while it replays)."""
     from paddle_tpu_torch.ops import flash_attention
-    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS
+    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS, feed_sig
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    how = exe.warm(main, feed_sig(feed), [loss], scope=scope)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(how == "compiled", f"training signature: warm gave {how!r}")
+    compiles, replays = exe.compiles, exe.replays
     for kern in FLASH_KERNELS:
         flash_attention.launches[kern] = 0
         for counts in flash_attention.dtype_launches.values():
             counts[kern] = 0
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
@@ -1251,11 +1360,25 @@ def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
         torch.cuda.synchronize()
         losses.append(float(out))
         step_ms.append(e0.elapsed_time(e1))
+    check(exe.replays - replays == TRAIN_STEPS and exe.compiles == compiles,
+          f"training pass: {exe.replays - replays} replays for "
+          f"{TRAIN_STEPS} steps, compiles {compiles} -> {exe.compiles}")
     return {"losses": losses, "step_ms": step_ms,
             "launches": dict(flash_attention.launches),
             "dtype_launches": {dt: dict(c) for dt, c in
                                flash_attention.dtype_launches.items()},
-            "peak_bytes": torch.cuda.max_memory_allocated()}
+            "warm_s": warm_s, "compiles": exe.compiles,
+            "replays": exe.replays - replays,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved": torch.cuda.max_memory_reserved()}
+
+
+def _pass_line(run) -> str:
+    return (f"warmed in {run['warm_s']:.2f} s (compiles {run['compiles']}), "
+            f"{run['replays']} replays; peak memory "
+            f"{run['peak_bytes'] / 2 ** 30:.2f} GiB allocated, "
+            f"{run['peak_reserved'] / 2 ** 30:.2f} GiB reserved (the graph "
+            f"pool included)")
 
 
 def phase_train(card: str) -> dict:
@@ -1271,15 +1394,15 @@ def phase_train(card: str) -> dict:
     exe = fluid.Executor()
     exe_cpu = fluid.Executor(fluid.CPUPlace())
 
-    # parity step: the card (kernels) and the CPU (plain versions) from the
-    # same weights on the same 2 x 1024 tokens
+    # parity step: the card (kernels, the warmed replay) and the CPU (plain
+    # versions) from the same weights on the same 2 x 1024 tokens; the
+    # replay also against the same step run eagerly on the card
     feed = train_batch(2, 2)
+    fetch = [loss] + grad_names
+    got, t_warm = _replay_against_eager("train", exe, main, startup, params,
+                                        feed, fetch)
     t0 = time.perf_counter()
-    got = exe.run(main, feed=feed, fetch_list=[loss] + grad_names,
-                  scope=train_scope(exe, startup, main, params))
-    t_gpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    want = exe_cpu.run(main, feed=feed, fetch_list=[loss] + grad_names,
+    want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
                        scope=train_scope(exe_cpu, startup, main, params,
                                          "cpu"))
     t_cpu = time.perf_counter() - t0
@@ -1292,10 +1415,10 @@ def phase_train(card: str) -> dict:
         rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
         if rel > worst:
             worst, worst_name = rel, name
-    print(f"train parity: loss {l_gpu:.6f} card, {l_cpu:.6f} CPU (rtol "
-          f"1e-4); {len(grad_names)} gradients, worst max|d|/max|g| "
-          f"{worst:.3e} ({worst_name}; limit 1e-3); step {t_gpu:.2f} s card "
-          f"(first), {t_cpu:.2f} s CPU")
+    print(f"train parity: loss {l_gpu:.6f} card (the warmed replay), "
+          f"{l_cpu:.6f} CPU (rtol 1e-4); {len(grad_names)} gradients, worst "
+          f"max|d|/max|g| {worst:.3e} ({worst_name}; limit 1e-3); warm "
+          f"{t_warm:.2f} s card, step {t_cpu:.2f} s CPU")
     check(worst <= 1e-3, f"parity step: {worst_name} differs by {worst} of "
                          f"its max |g|")
 
@@ -1317,12 +1440,14 @@ def phase_train(card: str) -> dict:
           f"tokens, losses {', '.join(f'{x:.4f}' for x in losses)}; step ms "
           f"{', '.join(f'{x:.1f}' for x in step_ms)}; median of steps 2-"
           f"{TRAIN_STEPS} {med:.2f} ms = {tokens / med * 1e3:.0f} tokens/s; "
-          f"flash launches {launches} = {n_layers} layers x {TRAIN_STEPS} "
-          f"steps; on {card}")
+          f"{_pass_line(run)}; flash launches (counted at replay) "
+          f"{launches} = {n_layers} layers x {TRAIN_STEPS} steps; on {card}")
     # the float32 parity step, the CPU's and the card's: the amp phase
     # measures the CPU's spread against the one and runs the other through
     # its comparisons as a control
     return {"launches": launches, "losses": losses, "median_ms": med,
+            "tokens_per_s": tokens / med * 1e3, "warm_s": run["warm_s"],
+            "parity_warm_s": t_warm, "peak_reserved": run["peak_reserved"],
             "cpu_parity": want, "card_parity": got}
 
 
@@ -1355,15 +1480,15 @@ def phase_lm_amp_train(card: str, f32_cpu: list, f32_card: list) -> dict:
     exe = fluid.Executor()
     exe_cpu = fluid.Executor(fluid.CPUPlace())
 
-    # parity step: card (kernels) and CPU (plain versions), the train
-    # phase's weights and 2 x 1024 tokens
+    # parity step: card (kernels, the warmed replay) and CPU (plain
+    # versions), the train phase's weights and 2 x 1024 tokens; the replay
+    # also against the same step run eagerly on the card
     feed = train_batch(2, 2)
+    fetch = [loss] + grad_names
+    got, t_warm = _replay_against_eager("lm amp train", exe, main, startup,
+                                        params, feed, fetch)
     t0 = time.perf_counter()
-    got = exe.run(main, feed=feed, fetch_list=[loss] + grad_names,
-                  scope=train_scope(exe, startup, main, params))
-    t_gpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    want = exe_cpu.run(main, feed=feed, fetch_list=[loss] + grad_names,
+    want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
                        scope=train_scope(exe_cpu, startup, main, params,
                                          "cpu"))
     t_cpu = time.perf_counter() - t0
@@ -1372,7 +1497,7 @@ def phase_lm_amp_train(card: str, f32_cpu: list, f32_card: list) -> dict:
     print(f"lm amp parity: loss {l_gpu:.6f} card, {l_cpu:.6f} CPU amp, "
           f"{l_f32:.6f} CPU float32; |d| {abs(l_gpu - l_cpu):.3e} (limit "
           f"{l_lim:.3e}: max(1e-4 |loss|, {AMP_SPREAD_FACTOR:g} x the CPU's "
-          f"amp - float32 distance)); step {t_gpu:.2f} s card (first), "
+          f"amp - float32 distance)); warm {t_warm:.2f} s card, step "
           f"{t_cpu:.2f} s CPU")
     check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= l_lim,
           f"lm amp parity: loss {l_gpu} on the card, {l_cpu} on the CPU, "
@@ -1472,12 +1597,13 @@ def phase_lm_amp_train(card: str, f32_cpu: list, f32_card: list) -> dict:
           f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
           f"{', '.join(f'{x:.1f}' for x in step_ms)}; median of steps 2-"
           f"{TRAIN_STEPS} {med:.2f} ms = {tokens / med * 1e3:.0f} tokens/s; "
-          f"peak memory {run['peak_bytes'] / 2 ** 30:.2f} GiB; bf16 flash "
-          f"launches {bf16} = {n_layers} layers x {TRAIN_STEPS} steps "
-          f"(float32 {f32}); on {card}")
+          f"{_pass_line(run)}; bf16 flash launches (counted at replay) "
+          f"{bf16} = {n_layers} layers x {TRAIN_STEPS} steps (float32 "
+          f"{f32}); on {card}")
     return {"launches": bf16, "losses": losses, "median_ms": med,
-            "tokens_per_s": tokens / med * 1e3,
-            "peak_bytes": run["peak_bytes"]}
+            "tokens_per_s": tokens / med * 1e3, "warm_s": run["warm_s"],
+            "parity_warm_s": t_warm, "peak_bytes": run["peak_bytes"],
+            "peak_reserved": run["peak_reserved"]}
 
 
 def phase_lstm_train(card: str) -> dict:
@@ -2243,8 +2369,10 @@ def main() -> int:
     lstm = _timed("lstm kernels", phase_lstm_kernels, card)
     paths = _timed("serve", phase_serve, card)
     train = _timed("train", phase_train, card)
+    _release()
     lm_amp = _timed("lm amp train", phase_lm_amp_train, card,
                     train["cpu_parity"], train["card_parity"])
+    _release()
     lstm_train = _timed("lstm train", phase_lstm_train, card)
     bn = _timed("bn kernels", phase_bn_kernels, card)
     resnet = _timed("resnet train", phase_resnet_train, card)

@@ -94,9 +94,11 @@ def enable(program: Optional[Program] = None,
     """Turn on bfloat16 amp for ``program`` (the default main program)."""
     program = program or default_main_program()
     program.amp_policy = policy or Bf16Policy()
+    program._version += 1  # a warmed step froze the old policy: re-key it
     return program.amp_policy
 
 
 def disable(program: Optional[Program] = None) -> None:
     program = program or default_main_program()
     program.amp_policy = None
+    program._version += 1

@@ -46,6 +46,7 @@ def append_backward(
             attrs={
                 "loss": loss.name,
                 "params": params,
+                "fwd_op_count": len(block.ops),   # as the reference records
                 "loss_scale": loss_scale,
             },
             fn=None,

@@ -39,6 +39,10 @@ class GradientClipByGlobalNorm(BaseGradientClip):
         self.clip_norm = clip_norm
 
     def transform(self, grads):
+        # the norm as the reference takes it: each gradient's sum of
+        # squares, added in the program's order; the scaling is one
+        # multi-tensor multiply
         gn = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
         scale = self.clip_norm / torch.clamp_min(gn, self.clip_norm)
-        return {k: g * scale for k, g in grads.items()}
+        return dict(zip(grads, torch._foreach_mul(list(grads.values()),
+                                                  scale)))

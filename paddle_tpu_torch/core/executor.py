@@ -10,18 +10,43 @@ and relies on XLA's CSE to run it once.  Here the forward ops run once,
 with the trainable parameters as leaf tensors that require grad; the
 ``backward`` op calls ``torch.autograd.grad`` on the (scaled, summed) loss,
 and every op after it runs under ``torch.no_grad()``.  The new state is
-detached.  Updated parameters and moments are new tensors: the scope's old
-tensors are replaced, not written in place.  A program with an amp policy
-(``amp.enable``) has each op's inputs cast by it before the op runs
-(``Op.apply``).  A program with no backward op (an inference program, such
+detached.  In an eager run, updated parameters and moments are new
+tensors: the scope's old tensors are replaced, not written in place.  A
+warmed signature's state tensors (below) are its static buffers, which the
+scope holds and every replay updates in place: a tensor taken with
+``find_var`` before such a run changes with it (clone it to keep it), as
+it never does with the JAX scope or an eager run.  A program with an amp
+policy (``amp.enable``) has each op's inputs cast by it before the op
+runs (``Op.apply``).  A program with no backward op (an inference program, such
 as ``Program.prune``'s) runs with its 3x3 stride-1 convolutions routed onto
-the implicit-GEMM kernels (``core/fusion.py``).
+the implicit-GEMM kernels (``core/fusion.py``).  Each run of consecutive
+optimizer update ops of one group runs as one grouped call
+(``Optimizer.apply_group``: multi-tensor kernels).
 
-Nothing compiles per shape in torch, so there is no executable cache, no
-persistent compile cache, no ``warm`` and no dispatch sampling.
+``Executor.warm`` prepares one signature, ``(program, program.version,
+scope, state names, feeds (name, shape, dtype), fetch names)``, as the
+reference's ``warm`` (``paddle_tpu/core/executor.py:443``) compiles one
+executable: static state buffers (clones of the scope's tensors, which the
+scope then holds), static feed buffers (``core.graphs.Staged``) and, on the
+card, the whole step (forward, ``torch.autograd.grad``, clip, updates, the
+step increment) captured as ONE CUDA graph that ends by copying the new
+state into the static buffers; on the CPU the step body re-run on those
+buffers.  Every later ``run()`` of that signature stages its feeds and
+replays the graph.  ``append_op``, ``amp.enable`` and ``amp.disable`` bump
+``program.version`` (the graph holds the ops and the amp policy it was
+captured with), so after them ``run()`` finds no warmed signature.
+Unlike the reference's key, the signature holds the scope: a graph is
+bound to one scope's buffers.  And unlike the
+reference's ``run()``, which compiles every new signature, ``run()`` of a
+signature not warmed runs eagerly and prepares nothing, since a capture
+pins a scope's state into static buffers: the port captures only when
+asked, as the reference's Trainer asks (``paddle_tpu/trainer.py:179``).
+``compiles`` counts the signatures prepared.  No persistent compile cache
+(the ``compile/`` store is ROADMAP A.10) and no dispatch sampling.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -31,6 +56,7 @@ from ..ops.attention import check_flash_dtype, check_flash_head_dim
 from ..ops.batch_norm import check_bn_dtype
 from ..ops.lstm import check_lstm_dtype
 from .fusion import channels_last_feed, compute_dtype, route_inference
+from .graphs import Graphs, Staged, WarmError
 from .program import (
     Op,
     OpContext,
@@ -38,7 +64,7 @@ from .program import (
     Variable,
     default_main_program,
 )
-from .types import Place
+from .types import Place, convert_dtype, dtype_name
 
 # --------------------------------------------------------------------------- Scope
 
@@ -109,9 +135,10 @@ def _check_feed_shape(shape, var: Variable):
                 f"{want} (declared shape {declared}, fed shape {tuple(shape)})")
 
 
-def _as_feed_array(value, var: Optional[Variable], device: torch.device):
-    """A feed as a tensor on ``device``, shape-checked and cast to the
-    declared dtype (int32 ids stay int32: ops that gather convert them)."""
+def _as_feed_array(value, var: Optional[Variable]):
+    """A feed as a tensor where it lies (the host for numpy), shape-checked
+    and cast to the declared dtype (int32 ids stay int32: ops that gather
+    convert them)."""
     if isinstance(value, torch.Tensor):
         t = value
     else:
@@ -120,7 +147,7 @@ def _as_feed_array(value, var: Optional[Variable], device: torch.device):
         _check_feed_shape(tuple(t.shape), var)
         if t.dtype != var.dtype:
             t = t.to(var.dtype)
-    return t.to(device)
+    return t
 
 
 def _fetch_name(f: Union[str, Variable]) -> str:
@@ -137,9 +164,42 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 # --------------------------------------------------------------------------- Executor
 
 
+class _Warmed:
+    """One warmed signature: ``state`` the static state buffers by name,
+    ``feeds`` the staged feeds, ``run`` the step on them prepared
+    (``core.graphs.Prepared``: on the card its CUDA graph; its fetches
+    land in ``outs["fetches"]``).  The step holds no reference to this
+    object or the Executor, so that dropping an Executor frees its graphs
+    and their pool."""
+
+    __slots__ = ("what", "state", "feeds", "outs", "run")
+
+    def __init__(self, what, state, feeds, outs):
+        self.what, self.state, self.feeds = what, state, feeds
+        self.outs, self.run = outs, None
+
+
+def _warmed_body(step, state, feeds, outs) -> None:
+    """The step on the static buffers: it ends by copying each new state
+    tensor into its static buffer (one multi-tensor copy)."""
+    fetches, new_state = step(state, feeds, 0)
+    dst, src = [], []
+    for n, v in new_state.items():
+        if v.data_ptr() != state[n].data_ptr():
+            dst.append(state[n])
+            src.append(v)
+    if dst:
+        torch._foreach_copy_(dst, src)
+    outs["fetches"] = fetches
+
+
 class Executor:
     """Runs Programs on one device: ``Executor()`` is the CUDA card (and
-    raises when there is none), ``Executor(CPUPlace())`` the host."""
+    raises when there is none), ``Executor(CPUPlace())`` the host.
+
+    ``compiles`` counts the signatures ``warm`` prepared and ``replays``
+    the runs of warmed signatures (graph replays on the card, body runs on
+    the CPU)."""
 
     def __init__(self, place: Optional[Place] = None, strategy=None):
         if strategy is not None:
@@ -148,6 +208,10 @@ class Executor:
                 "strategies are ROADMAP A.9")
         self.place = place or Place("gpu", 0)
         self.device = self.place.torch_device()
+        self._cache: Dict[tuple, _Warmed] = {}
+        self._graphs = Graphs(self.device)
+        self.compiles = 0
+        self.replays = 0
 
     def run(
         self,
@@ -164,12 +228,19 @@ class Executor:
         scope = scope or global_scope()
 
         block = program.global_block
-        feed_vals = {name: _as_feed_array(value, block.vars.get(name),
-                                          self.device)
+        feed_vals = {name: _as_feed_array(value, block.vars.get(name))
                      for name, value in feed.items()}
         fetch_names = [_fetch_name(f) for f in fetch_list]
         state_in_names = sorted(self._state_in_names(program, scope,
                                                      feed_vals, fetch_names))
+        if self._cache:
+            feed_sig = tuple(sorted((n, tuple(v.shape), dtype_name(v.dtype))
+                                    for n, v in feed_vals.items()))
+            sig = self._cache.get(self._cache_key(
+                program, scope, state_in_names, feed_sig, fetch_names))
+            if sig is not None:
+                return self._replay(sig, scope, feed_vals, return_numpy)
+        feed_vals = {n: v.to(self.device) for n, v in feed_vals.items()}
         step = self._build_step(program, state_in_names, fetch_names)
         state = {n: scope.find_var(n) for n in state_in_names}
         fetches, new_state = step(state, feed_vals, scope.step_counter)
@@ -179,6 +250,131 @@ class Executor:
         if return_numpy:
             fetches = [_to_numpy(v) for v in fetches]
         return fetches
+
+    @staticmethod
+    def _cache_key(program, scope, state_names, feed_sig, fetch_names):
+        """The one signature key, shared by ``run()`` and ``warm()``.
+        ``feed_sig``: sorted (name, shape, dtype name).  Program and scope
+        by reference: a collected object's id cannot alias a new one."""
+        return (program, program.version, scope, tuple(sorted(state_names)),
+                tuple(feed_sig), tuple(fetch_names))
+
+    def warm(self, program: Program, feed_sig, fetch_names,
+             scope: Optional[Scope] = None, store=None) -> str:
+        """Prepare the signature of ``program`` run on ``scope`` with feeds
+        ``feed_sig`` (an iterable of (name, shape, dtype)) and fetches
+        ``fetch_names``, before its first batch: ``"cached"`` when this
+        Executor has it already, else ``"compiled"`` (the reference's
+        ``warm``, ``paddle_tpu/core/executor.py:443``, without its store).
+
+        Allocates static state buffers, clones of the scope's tensors, and
+        static feed buffers; on the card runs the step once eagerly on a
+        side stream and captures it as one CUDA graph (on the CPU runs it
+        once); then copies the scope's values back into the static buffers
+        and points the scope's names at them.  So warm changes no state and
+        not ``step_counter``; but from then on the scope's state tensors of
+        this signature are its static buffers, and every ``run()`` of it
+        writes the new state into them in place (clone a ``find_var``
+        result to keep it).  Raises ``WarmError``, naming the signature,
+        when the first run or the capture fails."""
+        if store is not None:
+            raise NotImplementedError(
+                "Executor.warm(store=...) is not ported yet: the compile/ "
+                "store is ROADMAP A.10")
+        scope = scope or global_scope()
+        check_kernel_shapes(program, self.device)
+        block = program.global_block
+        sig_feeds = []
+        for n, shape, dtype in feed_sig:
+            shape, dtype = tuple(int(d) for d in shape), convert_dtype(dtype)
+            var = block.vars.get(n)
+            if var is not None:
+                _check_feed_shape(shape, var)
+                if dtype != var.dtype:
+                    raise ValueError(
+                        f"warm: feed {n!r} is {dtype_name(dtype)} but the "
+                        f"variable declares {dtype_name(var.dtype)}; run() "
+                        f"casts every feed to the declared dtype")
+            sig_feeds.append((n, shape, dtype_name(dtype)))
+        feed_sig = tuple(sorted(sig_feeds))
+        fetch_names = [_fetch_name(f) for f in fetch_names]
+        state_names = sorted(self._state_in_names(
+            program, scope, {n: None for n, _, _ in feed_sig}, fetch_names))
+        key = self._cache_key(program, scope, state_names, feed_sig,
+                              fetch_names)
+        if key in self._cache:
+            return "cached"
+        self._cache[key] = self._prepare(program, scope, state_names,
+                                         feed_sig, fetch_names)
+        self.compiles += 1
+        return "compiled"
+
+    def _prepare(self, program, scope, state_names, feed_sig, fetch_names):
+        what = (f"signature of program version {program.version}, feeds "
+                f"{list(feed_sig)}, fetches {fetch_names}, "
+                f"{len(state_names)} state tensors")
+        missing = sorted(set(state_out_names(program, state_names))
+                         - set(state_names))
+        if missing:
+            raise WarmError(
+                f"warming the {what} failed: the step writes persistable "
+                f"variables the scope does not hold ({missing[:4]}); run "
+                f"the startup program first")
+        dev = self.device
+        state = {}
+        for n in state_names:
+            v = torch.as_tensor(scope.find_var(n))
+            state[n] = torch.empty_like(v, device=dev).copy_(v)
+        feeds = Staged([(n, shape, convert_dtype(dt))
+                        for n, shape, dt in feed_sig], dev)
+        outs: Dict[str, Any] = {}
+        body = functools.partial(
+            _warmed_body,
+            self._build_step(program, state_names, fetch_names, warmed=True),
+            state, feeds.t, outs)
+        sig = _Warmed(what, state, feeds, outs)
+        try:
+            sig.run = self._graphs.prepare(body)
+        except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
+            raise WarmError(f"warming the {what} failed: {exc}") from exc
+        # the first run moved the static buffers: back to the scope's values
+        with torch.no_grad():
+            for n, buf in state.items():
+                buf.copy_(torch.as_tensor(scope.find_var(n)))
+        for n, buf in state.items():
+            scope.set_var(n, buf)
+        return sig
+
+    def _replay(self, sig: _Warmed, scope: Scope, feed_vals,
+                return_numpy: bool):
+        """Run a warmed signature: copy in any state the scope no longer
+        holds in its static buffer (a ``set_var`` since the last run, such
+        as a checkpoint load), stage the feeds, replay (card) or run the
+        body (CPU), and fetch copies, which the next replay leaves alone."""
+        with torch.no_grad():
+            for n, buf in sig.state.items():
+                cur = scope.find_var(n)
+                if cur is not buf:
+                    cur = torch.as_tensor(cur)
+                    if tuple(cur.shape) != tuple(buf.shape):
+                        raise ValueError(
+                            f"scope variable {n!r} has shape "
+                            f"{tuple(cur.shape)}, its warmed signature "
+                            f"{tuple(buf.shape)}")
+                    buf.copy_(cur)
+                    scope.set_var(n, buf)
+        try:
+            sig.feeds.stage(feed_vals)
+            sig.run.replay()
+        except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
+            raise WarmError(f"replaying the {sig.what} failed: "
+                            f"{exc}") from exc
+        self.replays += 1
+        scope.step_counter += 1
+        fetches = sig.outs["fetches"]
+        if return_numpy:
+            return [_to_numpy(v) for v in fetches]
+        return [v.clone() for v in fetches]
 
     def _state_in_names(self, program, scope, feed_vals, fetch_names):
         referenced, produced, read_first = set(), set(), set()
@@ -219,7 +415,8 @@ class Executor:
         state = {n: scope.find_var(n) for n in state_names}
         return fn, state
 
-    def _build_step(self, program: Program, state_names, fetch_names):
+    def _build_step(self, program: Program, state_names, fetch_names,
+                    warmed: bool = False):
         if getattr(program, "anomaly_guard", None) is not None:
             raise NotImplementedError(
                 "program.anomaly_guard is not ported yet (ROADMAP A.6)")
@@ -235,9 +432,11 @@ class Executor:
             ops = routed
         device = self.device
         seed = program.random_seed or 0
+        head = ops[:bops[0] + 1] if bops else ops
+        tail = _grouped(ops[bops[0] + 1:]) if bops else []
 
         def step(state, feed, step_index: int):
-            ctx = OpContext(seed, step_index, device, amp)
+            ctx = OpContext(seed, step_index, device, amp, warmed)
             if routed is not None:
                 feed = channels_last_feed(feed)
             env: Dict[str, Any] = {}
@@ -248,20 +447,37 @@ class Executor:
                 for p in ops[bops[0]].attrs["params"]:
                     env[p] = env[p].detach().requires_grad_(True)
             with torch.enable_grad() if bops else torch.no_grad():
-                for op in ops:
+                for op in head:
                     if op.special == "backward":
                         _apply_backward(op, env)
-                        break
-                    op.apply(env, ctx)
-            if bops:
-                with torch.no_grad():
-                    for op in ops[bops[0] + 1:]:
+                    else:
                         op.apply(env, ctx)
+            with torch.no_grad():
+                for unit in tail:
+                    if isinstance(unit, Op):
+                        unit.apply(env, ctx)
+                    else:
+                        unit[0].apply_group(unit[1], env, ctx)
             new_state = {n: env[n].detach() for n in out_names if n in env}
             fetches = tuple(env[n].detach() for n in fetch_names)
             return fetches, new_state
 
         return step
+
+
+def _grouped(ops: Sequence[Op]) -> list:
+    """``ops`` with each run of consecutive update ops of one group as one
+    ``(group, [ops])`` unit, the other ops as they are."""
+    units: list = []
+    for op in ops:
+        if op.group is None:
+            units.append(op)
+        elif units and isinstance(units[-1], tuple) \
+                and units[-1][0] is op.group:
+            units[-1][1].append(op)
+        else:
+            units.append((op.group, [op]))
+    return units
 
 
 # --------------------------------------------------------------------------- kernel shapes

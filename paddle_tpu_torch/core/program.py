@@ -2,9 +2,12 @@
 ``paddle_tpu/core/program.py``).
 
 A Program is an inspectable record of op closures over torch tensors; the
-Executor runs it op by op, eagerly.  Shapes are inferred when a layer is
-declared, by running the op's function on ``device="meta"`` tensors
-(layers/helper.py).
+Executor runs it op by op, eagerly, or replays it as a CUDA graph once
+warmed (core/executor.py).  Shapes are inferred when a layer is declared,
+by running the op's function on ``device="meta"`` tensors
+(layers/helper.py).  ``version`` counts the ops appended, so that a cached
+step of an older version is never run; ``to_string`` prints the program as
+the reference does.
 """
 from __future__ import annotations
 
@@ -15,8 +18,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from . import unique_name
-from .types import convert_dtype, normalize_shape
+from . import op_info, unique_name
+from .types import convert_dtype, dtype_name, normalize_shape
 
 # --------------------------------------------------------------------------- Variable
 
@@ -73,18 +76,28 @@ def _mix64(x: int) -> int:
 class OpContext:
     """Runtime context handed to op closures: the step's device, the seed
     material for ``rng`` and the program's amp policy
-    (``paddle_tpu_torch.amp.Bf16Policy``, or None)."""
+    (``paddle_tpu_torch.amp.Bf16Policy``, or None).  ``warmed`` marks the
+    body of a warmed step (``Executor.warm``), which every later call
+    replays."""
 
-    def __init__(self, seed: int = 0, step: int = 0, device=None, amp=None):
+    def __init__(self, seed: int = 0, step: int = 0, device=None, amp=None,
+                 warmed: bool = False):
         self.seed = int(seed)
         self.step = int(step)
         self.device = torch.device(device if device is not None else "cpu")
         self.amp = amp
+        self.warmed = warmed
 
     def rng(self, tag: int) -> torch.Generator:
         """A generator on the step's device, seeded deterministically from
         (program seed, step counter, tag): the same program, step and tag
-        draw the same numbers.  It cannot give JAX's bits."""
+        draw the same numbers.  It cannot give JAX's bits.  Raises in a
+        warmed step: every replay would repeat the draws of its capture."""
+        if self.warmed:
+            raise RuntimeError(
+                "an op draws from ctx.rng inside a warmed step: every replay "
+                "would repeat the same draws; run this program unwarmed (a "
+                "device-side generator for dropout is ROADMAP A.6)")
         dev = self.device if self.device.type != "meta" else "cpu"
         gen = torch.Generator(device=dev)
         gen.manual_seed(_mix64(_mix64(_mix64(self.seed) + self.step)
@@ -98,7 +111,10 @@ class Op:
     ins/outs map slot names to lists of tensors.  Under amp the inputs are
     cast as the policy casts an op of ``type``, or, where ``amp_types``
     names an op type for a slot (an op that stands for a chain of ops,
-    ``core/fusion.py``), that slot as the policy casts that type."""
+    ``core/fusion.py``), that slot as the policy casts that type.  An
+    optimizer's update op names its ``group``, the optimizer that made it:
+    the Executor runs each run of consecutive update ops of one group as
+    one grouped call (``Optimizer.apply_group``)."""
 
     type: str
     inputs: Dict[str, List[str]]
@@ -107,6 +123,7 @@ class Op:
     fn: Optional[Callable] = None
     special: Optional[str] = None  # 'backward' is interpreted by the Executor
     amp_types: Optional[Dict[str, str]] = None
+    group: Any = None
 
     def input_names(self) -> List[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -115,6 +132,10 @@ class Op:
         return [n for ns in self.outputs.values() for n in ns]
 
     def apply(self, env: Dict[str, Any], ctx: OpContext) -> None:
+        self.write(env, self.fn(self.read(env, ctx), self.attrs, ctx))
+
+    def read(self, env: Dict[str, Any], ctx: OpContext):
+        """The op's inputs from ``env`` by slot, cast by the amp policy."""
         ins = {
             slot: [env[n] for n in names] for slot, names in self.inputs.items()
         }
@@ -124,7 +145,10 @@ class Op:
             ins = {slot: ctx.amp.cast_ins(self.amp_types[slot], self.attrs,
                                           {slot: vals})[slot]
                    for slot, vals in ins.items()}
-        outs = self.fn(ins, self.attrs, ctx)
+        return ins
+
+    def write(self, env: Dict[str, Any], outs) -> None:
+        """Put the op's outputs ``outs`` (slot -> list) into ``env``."""
         for slot, names in self.outputs.items():
             vals = outs.get(slot, [])
             if len(vals) != len(names):
@@ -181,6 +205,8 @@ class Block:
 
     def append_op(self, op: Op) -> Op:
         self.ops.append(op)
+        self.program._version += 1
+        op_info.observe(op)  # keep the OpInfoMap introspectable
         return op
 
 
@@ -195,6 +221,7 @@ class Program:
     def __init__(self):
         self.blocks = [Block(self, 0)]
         self._parameters: Dict[str, Variable] = {}
+        self._version = 0
         self.random_seed: int = 0
         self._rng_tag = 0
         self.amp_policy = None   # set by amp.enable
@@ -202,6 +229,13 @@ class Program:
     @property
     def global_block(self) -> Block:
         return self.blocks[0]
+
+    @property
+    def version(self) -> int:
+        """Ops appended so far (``Block.append_op``); part of the
+        Executor's signature, so a step warmed on an older version is
+        not replayed."""
+        return self._version
 
     def parameters(self) -> List[Variable]:
         return list(self._parameters.values())
@@ -227,6 +261,7 @@ class Program:
         p = Program.__new__(Program)
         p.blocks = [Block(p, 0)]
         p._parameters = {}
+        p._version = self._version
         p.random_seed = self.random_seed
         p._rng_tag = self._rng_tag
         p.amp_policy = self.amp_policy
@@ -246,6 +281,7 @@ class Program:
                 fn=op.fn,
                 special=op.special,
                 amp_types=op.amp_types,
+                group=op.group,
             )
             if for_test and "is_test" in nop.attrs:
                 nop.attrs["is_test"] = True
@@ -273,6 +309,30 @@ class Program:
         p.global_block.ops = [o for o in p.global_block.ops
                               if _op_key(o) in keyset]
         return p
+
+    def to_string(self) -> str:
+        """The program as text, line for line as the reference's
+        ``Program.to_string``: the version, each variable (``P`` when
+        persistable) with its shape and dtype by its numpy name, each op
+        with its non-empty slots, then its attrs typed by ``op_info``
+        (callables skipped)."""
+        lines = [f"Program(version={self._version})"]
+        for v in self.global_block.vars.values():
+            flag = "P" if v.persistable else " "
+            lines.append(f"  var[{flag}] {v.name}: {v.shape} "
+                         f"{dtype_name(v.dtype)}")
+        for op in self.global_block.ops:
+            ins = {k: v for k, v in op.inputs.items() if v}
+            outs = {k: v for k, v in op.outputs.items() if v}
+            lines.append(f"  op {op.type}: {ins} -> {outs}")
+            for k, v in op.attrs.items():
+                if callable(v):
+                    continue
+                t = op_info.attr_type(op.type, k) or op_info._attr_type(v)
+                lines.append(f"    attr {k}: {t} = {v!r}")
+        return "\n".join(lines)
+
+    __str__ = to_string
 
 
 # --------------------------------------------------------------------------- defaults

@@ -50,6 +50,12 @@ def convert_dtype(dtype: Any) -> torch.dtype:
         raise TypeError(f"unsupported dtype {dtype!r}") from None
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype by its numpy name (``float32``, ``int32``; ``bfloat16``
+    as JAX names it)."""
+    return str(dtype).replace("torch.", "")
+
+
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype of a torch dtype (bfloat16 has none and raises)."""
     return torch.empty((), dtype=dtype).numpy().dtype

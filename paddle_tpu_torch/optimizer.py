@@ -9,13 +9,21 @@ the ``increment`` of the step counter.  Accumulators (moments, the step) are
 persistable scope vars initialised by the startup program.  Update ops
 return new tensors; the Executor puts them in the scope in place of the old.
 
+Each update op names its group, the optimizer that made it (``Op.group``).
+The Executor runs each run of consecutive update ops of one group as one
+call of ``apply_group``: the same rule over lists of tensors
+(``_update_group``, written with ``torch._foreach_*`` in ``_update``'s
+expression order, so that on the CPU it is bitwise equal to the per-op
+rule), a few multi-tensor kernels in place of one chain of elementwise
+kernels per parameter.
+
 Not ported yet, and refused: ``accumulate_steps > 1`` (ROADMAP A.6,
 gradient accumulation), regularization (A.6, regularizers) and parameter
 update hooks (A.6, hooks).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -40,6 +48,7 @@ class Optimizer:
         self._grad_clip = grad_clip
         self._name = name or unique_name.generate(type(self).__name__.lower())
         self._step_name = f"{self._name}.step"
+        self._lr_mults: Dict[str, float] = {}  # parameter -> lr multiplier
         if int(accumulate_steps) != accumulate_steps or accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be a positive integer, "
                              f"got {accumulate_steps!r}")
@@ -85,6 +94,40 @@ class Optimizer:
         """Return (new_param, new_accums).  Subclasses implement."""
         raise NotImplementedError
 
+    def _update_group(self, params: List[torch.Tensor],
+                      grads: List[torch.Tensor],
+                      accums: Dict[str, List[torch.Tensor]], lr, t):
+        """``_update`` over lists (parameters of one dtype and learning-rate
+        multiplier), in its expression order: return (new_params,
+        new_accums).  Subclasses implement."""
+        raise NotImplementedError
+
+    def apply_group(self, ops: Sequence[Op], env: Dict[str, Any],
+                    ctx) -> None:
+        """Run ``ops``, consecutive update ops of this optimizer, on
+        ``env``: one ``_update_group`` call per (dtype, device,
+        learning-rate multiplier) of their parameters, each op's inputs
+        read (and cast by the amp policy) as ``Op.apply`` reads them."""
+        keys = list(self._accum_defaults)
+        parts: Dict[tuple, list] = {}
+        for op in ops:
+            ins = op.read(env, ctx)
+            p = ins["Param"][0]
+            mult = self._lr_mults[op.inputs["Param"][0]]
+            parts.setdefault((p.dtype, p.device, mult), []).append((op, ins))
+        for (dtype, _, mult), members in parts.items():
+            step = members[0][1]["Step"][0][0]
+            lr = self._lr_value(step) * mult
+            t = (step + 1).to(dtype)
+            new_ps, new_accs = self._update_group(
+                [ins["Param"][0] for _, ins in members],
+                [ins["Grad"][0] for _, ins in members],
+                {k: [ins["Accums"][i] for _, ins in members]
+                 for i, k in enumerate(keys)}, lr, t)
+            for j, (op, _) in enumerate(members):
+                op.write(env, {"Out": [new_ps[j]]
+                               + [new_accs[k][j] for k in keys]})
+
     # ------------------------------------------------------------------ minimize
     def minimize(
         self,
@@ -121,6 +164,7 @@ class Optimizer:
         for p, g in params_grads:
             accums = self._accumulators_for(p)
             lr_mult = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+            self._lr_mults[p.name] = lr_mult
             acc_names = [v.name for _, v in accums]
             acc_keys = [k for k, _ in accums]
 
@@ -140,7 +184,7 @@ class Optimizer:
                     "Step": [step_var.name]},
                    {"Out": [p.name] + acc_names},
                    {"is_optimizer_op": True},
-                   upd_fn)
+                   upd_fn, group=self)
             )
 
         # --- advance the step counter
@@ -160,6 +204,9 @@ class SGD(Optimizer):
 
     def _update(self, p, g, a, lr, t):
         return p - lr * g, a
+
+    def _update_group(self, ps, gs, a, lr, t):
+        return torch._foreach_sub(ps, torch._foreach_mul(gs, lr)), a
 
 
 class Momentum(Optimizer):
@@ -182,6 +229,14 @@ class Momentum(Optimizer):
             return p - lr * (g + self._momentum * v), {"velocity": v}
         return p - lr * v, {"velocity": v}
 
+    def _update_group(self, ps, gs, a, lr, t):
+        mu = self._momentum
+        v = torch._foreach_add(torch._foreach_mul(a["velocity"], mu), gs)
+        d = torch._foreach_add(gs, torch._foreach_mul(v, mu)) \
+            if self._nesterov else v
+        return torch._foreach_sub(ps, torch._foreach_mul(d, lr)), \
+            {"velocity": v}
+
 
 class Adam(Optimizer):
     """ref: paddle/operators/adam_op.cc.  The JAX package's rule: epsilon is
@@ -200,4 +255,19 @@ class Adam(Optimizer):
         mhat = m / (1 - torch.pow(self._b1, t))
         vhat = v / (1 - torch.pow(self._b2, t))
         return p - lr * mhat / (torch.sqrt(vhat) + self._eps), {"moment1": m, "moment2": v}
+
+    def _update_group(self, ps, gs, a, lr, t):
+        b1, b2 = self._b1, self._b2
+        m = torch._foreach_add(torch._foreach_mul(a["moment1"], b1),
+                               torch._foreach_mul(gs, 1 - b1))
+        # square(g) is g * g, bit for bit
+        v = torch._foreach_add(torch._foreach_mul(a["moment2"], b2),
+                               torch._foreach_mul(torch._foreach_mul(gs, gs),
+                                                  1 - b2))
+        mhat = torch._foreach_div(m, 1 - torch.pow(b1, t))
+        vhat = torch._foreach_div(v, 1 - torch.pow(b2, t))
+        denom = torch._foreach_add(torch._foreach_sqrt(vhat), self._eps)
+        new_p = torch._foreach_sub(
+            ps, torch._foreach_div(torch._foreach_mul(mhat, lr), denom))
+        return new_p, {"moment1": m, "moment2": v}
 

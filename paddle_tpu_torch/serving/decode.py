@@ -36,11 +36,11 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..core.graphs import Graphs, Staged, WarmError
 from ..models.transformer import TransformerLM
 from ..models.weights import from_jax_params, torch_dtype
 from ..ops import attention as _attn
-from ..ops.paged_attention import (check_kernel_shape,
-                                   paged_attention as _paged_kernel)
+from ..ops.paged_attention import check_kernel_shape
 from ..ops.sampling import masked_select_tokens
 from ..resilience import DeadlineExceeded
 from .batcher import (AdmissionShed, DecodeAdmissionQueue,
@@ -202,63 +202,20 @@ class _Slot:
         self.seq = seq
 
 
-class WarmError(RuntimeError):
-    """Preparing a signature failed: its first run, or on the card its CUDA
-    graph capture.  The engine cannot serve that call shape, so the
-    scheduler stops serving instead of failing only the request that
-    reached the shape first."""
-
-
-class _Staged:
-    """Named int32 / uint32 / float32 fields packed into ONE int32 tensor
-    on the engine's device, filled from numpy through one host tensor:
-    pinned on the card, so that the whole upload is one asynchronous copy;
-    on the CPU the host tensor is the device tensor itself.
-
-    ``t[name]`` is a field's device view (int32 for both integer kinds:
-    ``masked_select_tokens`` reads seeds through ``& 0xFFFFFFFF``), and
-    ``np[name]`` its numpy view in the host tensor."""
-
-    def __init__(self, fields, device: torch.device):
-        sizes = [int(np.prod(shape)) for _, shape, _ in fields]
-        self.dev = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
-        self.host = (self.dev if device.type == "cpu" else
-                     torch.zeros(sum(sizes), dtype=torch.int32,
-                                 pin_memory=True))
-        host_np = self.host.numpy()
-        self.t, self.np = {}, {}
-        o = 0
-        for (name, shape, dt), size in zip(fields, sizes):
-            d, h = self.dev[o:o + size], host_np[o:o + size].view(dt)
-            if dt == np.float32:
-                d = d.view(torch.float32)
-            self.t[name], self.np[name] = d.view(shape), h.reshape(shape)
-            o += size
-
-    def upload(self) -> None:
-        """Enqueue the host tensor's copy to the device on the current
-        stream.  Every engine call ends in a read back that waits for that
-        stream, so the host tensor is free again when the call returns."""
-        if self.host is not self.dev:
-            self.dev.copy_(self.host, non_blocking=True)
-
-
 class _Signature:
     """One call shape of the engine: ``key`` is ``("prefill", pb)`` or
     ``("step", W, policy)``.  ``ins`` (and ``mask``, policy steps only)
     hold the static inputs, ``logits`` and ``res`` the static outputs
     (``res`` [S, W + 1] int32: the argmax of each window row, then the
-    chosen token), ``body`` the device function run on them.  On the card
-    ``graph`` is its captured CUDA graph and ``launches`` the paged-kernel
-    calls one replay makes."""
+    chosen token), ``body`` the device function run on them, ``run`` that
+    body prepared (``core.graphs.Prepared``: on the card its CUDA graph)."""
 
-    __slots__ = ("key", "body", "ins", "mask", "logits", "res", "graph",
-                 "launches")
+    __slots__ = ("key", "body", "ins", "mask", "logits", "res", "run")
 
     def __init__(self, key, body, ins, mask, logits, res):
         self.key, self.body, self.ins, self.mask = key, body, ins, mask
         self.logits, self.res = logits, res
-        self.graph, self.launches = None, 0
+        self.run = None
 
 
 class ContinuousDecodeEngine:
@@ -334,7 +291,7 @@ class ContinuousDecodeEngine:
         self._samp0 = None
         self._sigs: Dict[tuple, _Signature] = {}
         self._traces = 0
-        self._graph_pool = None
+        self._graphs = Graphs(self.device)
 
     # ---------------------------------------------------------- signatures
     def _trash_table(self) -> np.ndarray:
@@ -382,7 +339,7 @@ class ContinuousDecodeEngine:
         dev = self.device
         if key[0] == "prefill":
             pb = key[1]
-            ins = _Staged([("tokens", (1, pb), np.int32),
+            ins = Staged([("tokens", (1, pb), np.int32),
                            ("true_len", (1,), np.int32),
                            ("table", (self.n_tbl,), np.int32)], dev)
             ins.np["true_len"][0] = pb
@@ -401,12 +358,12 @@ class ContinuousDecodeEngine:
                            ("temps", (S,), np.float32),
                            ("topks", (S,), np.int32),
                            ("topps", (S,), np.float32)]
-            ins = _Staged(fields, dev)
+            ins = Staged(fields, dev)
             ins.np["tables"][:] = trash
             mask = None
             if policy:
                 ins.np["topps"][:] = 1.0
-                mask = _Staged([("mask", (S, V), np.float32)], dev)
+                mask = Staged([("mask", (S, V), np.float32)], dev)
             sig = _Signature(key, self._step_body, ins, mask,
                              torch.zeros((S, W, V), dtype=torch.float32,
                                          device=dev),
@@ -414,43 +371,13 @@ class ContinuousDecodeEngine:
                                          device=dev))
         try:
             ins.upload()
-            if dev.type == "cuda":
-                self._capture(sig)
-            else:
-                sig.body(sig)
+            sig.run = self._graphs.prepare(lambda: sig.body(sig))
         except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
             raise WarmError(f"preparing signature {key} failed: "
                             f"{exc}") from exc
         self._traces += 1
         self._sigs[key] = sig
         return sig
-
-    def _capture(self, sig: _Signature) -> None:
-        """Run ``sig``'s body once eagerly on a side stream (first-use work
-        such as building the kernel library or creating cuBLAS handles may
-        not happen inside a capture), then capture it into a CUDA graph in
-        the engine's pool.  The capture launches nothing, so the paged
-        kernel's counter is restored and the capture's count kept in
-        ``sig.launches`` for the replays to add."""
-        dev = self.device
-        with torch.cuda.device(dev):
-            cur = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                sig.body(sig)
-            cur.wait_stream(side)
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            before = _paged_kernel.launches
-            try:
-                with torch.cuda.graph(graph, pool=self._graph_pool):
-                    sig.body(sig)
-            finally:
-                sig.launches = _paged_kernel.launches - before
-                _paged_kernel.launches = before
-        sig.graph = graph
 
     def _dispatch(self, sig: _Signature) -> None:
         """Run ``sig`` on its staged inputs: upload them, then replay its
@@ -460,12 +387,9 @@ class ContinuousDecodeEngine:
             self.prefill_dispatches[sig.key[1]] += 1
         else:
             self.step_dispatches[sig.key[1]] += 1
-        if sig.graph is None:
-            sig.body(sig)
-            return
-        sig.graph.replay()
-        _paged_kernel.launches += sig.launches
-        self.replays[sig.key] += 1
+        sig.run.replay()
+        if sig.run.captured:
+            self.replays[sig.key] += 1
 
     # ------------------------------------------------------------- bodies
     @torch.no_grad()

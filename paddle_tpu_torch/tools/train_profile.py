@@ -7,7 +7,8 @@ T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
 ``init_lm_params(0)``) with ``build_lm``, Adam(1e-3) and global-norm
 clipping (1.0), on a fixed 8 x 1024 batch, in two arms: float32, then amp
 (``amp.enable`` with the default bf16 list plus attention, so the bf16
-flash kernels run).  ``--model text_lstm`` builds
+flash kernels run); each arm ``Executor.warm``s its signature first, so
+every profiled step is a replay of one CUDA graph.  ``--model text_lstm`` builds
 the LSTM text classifier at the width of ``benchmark/text_lstm.py`` (vocab
 10000, emb 128, 2 x LSTM-512, 2 classes, seq_len 100, float32, weights
 ``init_text_lstm_params(0)``) with Adam(1e-3), on a fixed batch of 128
@@ -24,15 +25,17 @@ prediction), weights ``init_resnet_params(0)`` and running statistics
 ``init_resnet_stats(0)``, ``INFER_BATCH`` images from ``rand`` of numpy
 seed 0 (``benchmark/_common.py``'s draw) that stay on the card, the
 prediction fetched each step; ResNet-50 in the amp and the float32 arm,
-ResNet-18 under amp.  Either way: two warm-up steps, then,
+ResNet-18 under amp; these steps run op by op.  Either way: two warm-up
+steps, then,
 3 times over, 5 ``Executor.run`` steps on the host clock and 5 more under
 ``torch.profiler``.  Prints per step: host wall ms (unprofiled windows)
 and device busy ms (the sum of kernel times, profiled windows), each as
 the median with the least and the most of the repeats, the device idle
 share of the medians, device ms by kernel class and the top kernels, both
 from the median-busy window.  The classes are flash attention (float32
-and bf16 kernels apart) / lstm / matmul / other by kernel name; for
-ResNet they are cuDNN convolution
+and bf16 kernels apart) / lstm / matmul / optimizer (the multi-tensor
+kernels of the grouped updates and the clip's scaling) / other by kernel
+name; for ResNet they are cuDNN convolution
 (forward, data gradient, weight gradient, other backward), the batch-norm
 backward kernels, the batch-norm forward's plain ops, the rest of the
 batch-norm backward, pooling, the optimizer and other, by the op or
@@ -54,6 +57,7 @@ profiled step is the smoke-checked step.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import sys
@@ -224,6 +228,12 @@ def train_scope(exe, startup, main, params, device=None):
     return scope
 
 
+def feed_sig(feed: dict) -> list:
+    """The (name, shape, dtype) signature of a numpy feed, for
+    ``Executor.warm``."""
+    return [(n, v.shape, v.dtype.name) for n, v in feed.items()]
+
+
 def train_batch(seed: int, n: int = TRAIN_BATCH) -> dict:
     """``n`` sequences of random tokens and labels from ``seed``."""
     rng = np.random.RandomState(seed)
@@ -234,9 +244,12 @@ def train_batch(seed: int, n: int = TRAIN_BATCH) -> dict:
 
 # kernel classes of the LM and LSTM steps; the flash kernels by their
 # operands' dtype, which their names carry (``flash_*_bf16_kernel``, or a
-# template argument ``__nv_bfloat16``)
+# template argument ``__nv_bfloat16``); the optimizer by the multi-tensor
+# kernels ``torch._foreach_*`` launches (``multi_tensor_apply_kernel``):
+# the grouped updates and the clip's scaling, while the clip's norm and the
+# per-op updates' scalar work stay in other
 STEP_CLASSES = ("flash_attention_f32", "flash_attention_bf16", "lstm",
-                "matmul", "other")
+                "matmul", "optimizer", "other")
 
 
 def _kernel_class(name: str) -> str:
@@ -249,6 +262,8 @@ def _kernel_class(name: str) -> str:
     if any(k in low for k in ("gemm", "xmma", "cutlass", "matmul", "gemv",
                               "nvjet")):
         return "matmul"
+    if "multi_tensor_apply" in low:
+        return "optimizer"
     return "other"
 
 
@@ -347,27 +362,34 @@ def _classes_by_origin(prof, classes, classify) -> dict:
 
 
 class _OpRanges:
-    """While entered, every op (the routed ops of an inference step too)
-    runs inside a ``record_function("op::<type>")`` range, so a profile can
-    tell which op launched a kernel."""
+    """While entered, every op (the routed ops of an inference step too, and
+    each grouped call of update ops, by their type) runs inside a
+    ``record_function("op::<type>")`` range, so a profile can tell which op
+    launched a kernel."""
 
     def __enter__(self):
         from torch.profiler import record_function
 
         from ..core.program import Op
+        from ..optimizer import Optimizer
 
-        self._apply = Op.apply
+        self._apply, self._group = Op.apply, Optimizer.apply_group
 
         def apply(op, env, ctx, _apply=self._apply):
             with record_function(f"op::{op.type}"):
                 _apply(op, env, ctx)
-        Op.apply = apply
+
+        def apply_group(opt, ops, env, ctx, _apply=self._group):
+            with record_function(f"op::{ops[0].type}"):
+                _apply(opt, ops, env, ctx)
+        Op.apply, Optimizer.apply_group = apply, apply_group
         return self
 
     def __exit__(self, *exc):
         from ..core.program import Op
+        from ..optimizer import Optimizer
 
-        Op.apply = self._apply
+        Op.apply, Optimizer.apply_group = self._apply, self._group
 
 
 def _recipe(model: str, amp: bool = True):
@@ -408,6 +430,12 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
     fetch, main, startup, weights, feed, items, unit = _recipe(model, amp)
     scope = train_scope(exe, startup, main, weights)
     resnet = model == "resnet50" or model in INFER_DEPTH
+    warm_s = None
+    if model == "lm":
+        t0 = time.perf_counter()
+        exe.warm(main, feed_sig(feed), [fetch], scope=scope)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
 
     def run(n):
         for _ in range(n):
@@ -460,10 +488,17 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
     wall_ms, busy_ms = float(np.median(walls)), float(np.median(busy))
     _, by_class, kernels = sorted(windows, key=lambda w: w[0])[
         (repeats - 1) // 2]
+    if warm_s is not None and exe.replays != 2 + 2 * repeats * steps:
+        raise RuntimeError(f"{exe.replays} replays for "
+                           f"{2 + 2 * repeats * steps} warmed steps")
     return {
         "card": fluid.card_info(0), "model": model, "steps": steps,
         "arm": "amp" if amp and model != "text_lstm" else "float32",
+        "warm_s": warm_s, "replays": exe.replays,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        # the graph pool's activations are reserved, not allocated, while
+        # a graph replays
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
         "repeats": repeats, "unit": unit, f"{unit}_per_step": items,
         "wall_ms_per_step": _spread(walls),
         "device_busy_ms_per_step": _spread(busy),
@@ -491,6 +526,8 @@ def main(argv=None) -> int:
             "resnet18-infer": (True,)}.get(args.model, (True, False))
     results = []
     for amp in arms:
+        gc.collect()                  # the last arm's graphs and their pool
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         res = profile(args.model, amp)
         results.append(res)
@@ -506,7 +543,10 @@ def main(argv=None) -> int:
               f"{busy['median']:.3f} ms/step (min {busy['min']:.3f}, max "
               f"{busy['max']:.3f}), idle share "
               f"{res['device_idle_share']:.3f}, peak memory "
-              f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+              f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB allocated, "
+              f"{res['peak_reserved_bytes'] / 2 ** 30:.2f} GiB reserved"
+              + (f"; warmed in {res['warm_s']:.2f} s, every step one graph "
+                 f"replay ({res['replays']})" if res["warm_s"] else ""))
         for k, v in res["device_ms_per_step_by_class"].items():
             print(f"  {k:16s} {v:.4f} ms/step")
         for k in res["top_kernels"]:
