@@ -27,7 +27,15 @@ Phases (any failure exits non-zero, before the final line):
                call (host cost included) and as device time (the kernels
                the calls enqueue, read by torch.profiler; the phase fails
                if the profiler shows none);
-  4. serve   - the Transformer-base LM (V=32000, d=512, 8 heads, 6 layers,
+  4. dropout kernels - the threefry dropout kernels (forward, backward)
+               against their plain version on the card, bitwise (the mask,
+               y and dx), at the LM's [8, 1024, 512] and a ragged
+               [1000, 37], float32 and bfloat16, p 0.1 and 0.5, step words
+               0, 1, 2^31 + 5 and 2^32 - 1 (immediate and staged), tags 1
+               and 13, the kept fraction within 6 sigma of 1 - p; ptxas's
+               registers and spills; both timed at [8, 1024, 512] beside
+               the plain version and F.dropout (another mask: a yardstick);
+  5. serve   - the Transformer-base LM (V=32000, d=512, 8 heads, 6 layers,
                d_ff=2048, tied embeddings, float32, random weights from
                seed 0) served by ContinuousScheduler over a paged pool
                (max_len 1024, block 16, 8 slots): ContinuousDecodeEngine.warm
@@ -43,7 +51,7 @@ Phases (any failure exits non-zero, before the final line):
                eagerly on the same buffers (W=1 and W=4, greedy and policy,
                logits, tokens and arenas), and no signature prepared after
                warm;
-  5. train   - the same LM built by build_lm through Program / Executor with
+  6. train   - the same LM built by build_lm through Program / Executor with
                Adam(1e-3) and global-norm clipping (1.0), weights from
                init_lm_params(0), every step a replay of its signature's
                CUDA graph (Executor.warm): the 2 x 1024 parity signature
@@ -58,10 +66,10 @@ Phases (any failure exits non-zero, before the final line):
                n_layers x steps), replays = steps, compiles unmoved, losses
                finite and falling, warm seconds, ms per step, tokens/s,
                peak memory (allocated, and reserved with the graph pool);
-  6. lm amp train - the same program and weights under amp with attention
+  7. lm amp train - the same program and weights under amp with attention
                in bfloat16 (build_train_program(amp=True): the default
                bf16 list plus the attention op, so the bf16 flash kernels
-               run), warmed as in phase 5: the replay bitwise against the
+               run), warmed as in phase 6: the replay bitwise against the
                eager step, then held against the CPU's amp step: loss and
                every gradient held to 3 x the CPU's own spread
                (its amp step's distance from the train phase's float32
@@ -71,7 +79,28 @@ Phases (any failure exits non-zero, before the final line):
                n_layers x steps, and every launch bfloat16), replays =
                steps, compiles unmoved, losses finite and falling, ms per
                step, tokens/s, peak memory;
-  7. lstm train - the text classifier (vocab 10000, emb 128, 2 x LSTM-512,
+  8. lm dropout train - the LM with dropout 0.1 and Transformer-base's
+               optimizer (Adam(0.9, 0.98, 1e-9) on noam_decay(512, 4000),
+               clip 1.0, resumed at the optimizer step 4000), step counter
+               2^31 - 1: the float32 + remat step warmed at 2 x 1024, its
+               replay bitwise against the eager step (and grouped against
+               per-op updates), replays of the same state at s + 1 (its
+               loss differs: the graph reads the live counter) and at s
+               (bitwise the first), the card against the CPU (loss rtol
+               1e-4, gradients 1e-3 of max |g|), remat against no remat
+               (loss bitwise, gradients 1e-5 of max |g|); then the arms
+               float32, float32 + remat and amp + remat: an eager step's
+               own peak memory, then warmed at 8 x 1024 and 5 replays with
+               the flash and dropout counts set to 0 before and read after
+               (a step: dropout 13 forward, 19 with remat, and 13
+               backward; flash 6, 12 with remat, forward and 6 + 6
+               backward; under amp all bf16), losses finite, ms per step,
+               tokens/s, peak memory;
+  9. optimizers - each of the eight new optimizers (noam_decay, L2Decay)
+               on a 2-layer LM at d = 128: two eager steps with grouped
+               updates and two with the per-op rule, every parameter and
+               accumulator bitwise equal;
+ 10. lstm train - the text classifier (vocab 10000, emb 128, 2 x LSTM-512,
                2 classes, seq_len 100, float32, weights from seed 0) through
                Program / Executor with Adam(1e-3): one step on 16 sequences
                on the card and on the CPU from the same weights, loss and
@@ -80,13 +109,13 @@ Phases (any failure exits non-zero, before the final line):
                (2 layers x 5 steps each, every call on the persistent
                route), losses finite and falling, ms per step and
                sequences/s;
-  8. bn kernels - the batch-norm backward kernels (reduction, dx) against
+ 11. bn kernels - the batch-norm backward kernels (reduction, dx) against
                their plain versions in float32 and bfloat16 at ResNet-50's
                shapes ([256,64,56,56], [256,128,28,28], [256,256,56,56]
                (benchmark/bn_probe.py's), [256,2048,7,7]) and a ragged one,
                each with a constant channel; timed at [256,256,56,56] beside
                the plain versions and native_batch_norm_backward;
-  9. resnet train - ResNet-50 (1000 classes, 224x224, weights from seed 0)
+ 12. resnet train - ResNet-50 (1000 classes, 224x224, weights from seed 0)
                as bench.py trains it, Program / Executor with Momentum(0.1,
                0.9): one float32 step (TF32 off) on 4 images on the card and
                on the CPU from the same weights, loss and every running
@@ -98,7 +127,7 @@ Phases (any failure exits non-zero, before the final line):
                the card, with the batch-norm launch counts set to 0 before
                and read after (53 layers x 5 steps each), losses finite and
                printed, images/s from the median of steps 2-5, peak memory;
- 10. conv kernels - the 3x3 implicit-GEMM kernels (plain and fused with the
+ 13. conv kernels - the 3x3 implicit-GEMM kernels (plain and fused with the
                folded batch norm and ReLU) against their plain versions in
                float32 and bfloat16 at ResNet-50's stride-1 shapes
                ([256,56,56,64]x64 and [256,28,28,128]x128, which are
@@ -113,7 +142,7 @@ Phases (any failure exits non-zero, before the final line):
                and cuDNN (F.conv2d, then the batch norm's scale and shift
                and the ReLU as separate passes, on the same NHWC tensor as
                a channels_last view and on an NCHW copy);
- 11. resnet infer - the is_test program benchmark/resnet.py's infer configs
+ 14. resnet infer - the is_test program benchmark/resnet.py's infer configs
                prune to (build, 1000 classes, 224x224, weights and running
                statistics from seed 0), through Program.prune and
                Executor.run with its 3x3 stride-1 convolutions routed onto
@@ -159,7 +188,7 @@ TOLERANCE = {  # (atol, rtol); float32 sums run in another order
     "int8": (2e-5, 1e-5),
 }
 KERNEL_SOURCES = ("paged_attention.cu", "flash_attention.cu", "lstm.cu",
-                  "batch_norm.cu", "conv.cu")
+                  "batch_norm.cu", "conv.cu", "dropout.cu")
 # flash kernels against their plain versions.  float32: the JAX package's
 # own tolerances for its Pallas kernels (tests/test_pallas_ops.py:34,215):
 # o and lse atol 2e-5, gradients 2e-4 of max |grad|, over the tensor.
@@ -255,6 +284,44 @@ CONV_TIMED = {torch.bfloat16: CONV_RESNET, torch.float32: CONV_RESNET}
 INFER_PARITY_BATCH = 4
 INFER_F32_REL = 1e-4
 INFER_LAUNCHES = {50: {"igemm": 0, "fused": 13}, 18: {"igemm": 8, "fused": 5}}
+# dropout kernels against their plain versions, bitwise (the same integer
+# arithmetic; a multiply by 0 or 1 is exact): the LM's activation shape
+# (timed) and a ragged one, p, step words (0, 1, past 2^31, the last
+# uint32) and tags; seed 0, the LM program's.  Bound: DROPOUT_INT_OPS
+# integer operations an element, counted from csrc/dropout.cu
+# (threefry2x32: two adds of the counter, 20 rounds of add, funnel shift
+# and xor, 5 key injections of two adds; then the xor of the halves, the
+# shift and the or that make the float), at the H100 SXM's instruction
+# issue rate, INT_ISSUE_PER_S: 132 SMs x 4 schedulers x one 32-lane warp
+# instruction a clock at the 1.98 GHz boost clock.  nvcc issues integer
+# adds as IMAD on the FMA pipe beside the INT32 pipe's shifts and logic
+# ops, so the 64 INT32 lanes an SM are not the ceiling (at 64 lanes the
+# bound would be 0.0188 ms, above the 0.0179 ms the kernel takes on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+INT_ISSUE_PER_S = 132 * 128 * 1.98e9
+DROPOUT_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
+DROPOUT_CASES = ((8, 1024, 512), (1000, 37))
+DROPOUT_PS = (0.1, 0.5)
+DROPOUT_STEPS = (0, 1, 2 ** 31 + 5, 2 ** 32 - 1)
+DROPOUT_TAGS = (1, 13)
+DROPOUT_SEED = 0
+DROPOUT_KERNELS = ("fwd", "bwd")
+# the lm dropout train phase: Transformer-base's P_drop; the step counter
+# of its parity and replay checks (int32's largest: the check at s + 1
+# stages 2^31, past the edge of the int32 word that carries it)
+LM_DROPOUT = 0.1
+LM_DROPOUT_STEP = 2 ** 31 - 1
+# (label, amp, remat); the float32 + remat arm is the slice's main path
+LM_DROPOUT_ARMS = (("float32", False, False), ("float32 remat", False, True),
+                   ("amp remat", True, True))
+# remat against no remat, float32: each gradient within this share of its
+# max |g| (the backward may add a residual's two contributions in another
+# order; the forward is the same kernels, the loss bitwise)
+REMAT_GRAD_REL = 1e-5
+# the optimizers phase: a 2-layer LM at d = 128, each new optimizer with
+# noam_decay(128, 10) (a tensor lr, about 3e-3 at step 1) and L2Decay(1e-4)
+OPT_LM_CFG = dict(vocab_size=512, max_len=128, d_model=128, n_heads=2,
+                  n_layers=2, d_ff=256)
 INFER_ARMS = (("resnet50-infer", 50, True), ("resnet50-infer", 50, False),
               ("resnet18-infer", 18, True))
 
@@ -1010,6 +1077,120 @@ def phase_lstm_kernels(card: str) -> dict:
     return recs
 
 
+
+def _dropout_bound(n: int, dtype) -> tuple:
+    """(bound_ms, bound_by) for one dropout launch over n elements: x read
+    and y written once, against DROPOUT_INT_OPS integer operations an
+    element at INT_ISSUE_PER_S."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    t_bytes = 2 * n * itemsize / HBM_BYTES_PER_S
+    t_ops = n * DROPOUT_INT_OPS / INT_ISSUE_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _dropout_case(shape, dtype, p: float, step: int, tag: int, dev) -> int:
+    """The forward and backward kernels against their plain versions at one
+    (shape, dtype, p, step word, tag), bitwise: the mask (the forward of
+    ones), y and dx, with the step given as an immediate and as the staged
+    int32 device word; the kept fraction of the mask within 6 sigma of
+    1 - p.  Returns the elements kept."""
+    from paddle_tpu_torch.ops import dropout as dmod
+
+    gen = torch.Generator().manual_seed(step % 1000 + tag)
+    x = torch.randn(shape, generator=gen).to(dev, dtype)
+    dy = torch.randn(shape, generator=gen).to(dev, dtype)
+    ones = torch.ones(shape, dtype=dtype, device=dev)
+    word = torch.from_numpy(np.array([step & 0xFFFFFFFF], np.uint32)
+                            .view(np.int32)).to(dev)
+    label = (f"dropout {tuple(shape)} {str(dtype)[6:]} p={p} step={step} "
+             f"tag={tag}")
+    for how, s in (("immediate", step), ("staged", word)):
+        key = dmod.ThreefryKey(DROPOUT_SEED, s, tag)
+        mask = dmod.dropout_fwd_kernel(ones, key, p)
+        y = dmod.dropout_fwd_kernel(x, key, p)
+        dx = dmod.dropout_bwd_kernel(dy, key, p)
+        torch.cuda.synchronize()
+        want_mask = dmod.keep_mask(key, shape, p, dev).to(dtype)
+        for name, got, want in (
+                ("mask", mask, want_mask),
+                ("y", y, dmod.dropout_reference(x, key, p)),
+                ("dx", dx, dmod.dropout_reference(dy, key, p))):
+            check(got.dtype == want.dtype and torch.equal(
+                got.view(torch.int16 if dtype == torch.bfloat16
+                         else torch.int32),
+                want.view(torch.int16 if dtype == torch.bfloat16
+                          else torch.int32)),
+                  f"{label} ({how} step): the kernel's {name} differs from "
+                  f"the plain version's")
+    n = int(np.prod(shape))
+    kept = int(mask.float().sum())
+    sigma = (p * (1 - p) / n) ** 0.5
+    check(abs(kept / n - (1 - p)) <= 6 * sigma,
+          f"{label}: kept fraction {kept / n} against {1 - p} (6 sigma "
+          f"{6 * sigma:.2e})")
+    return kept
+
+
+def phase_dropout_kernels(card: str) -> dict:
+    """The dropout kernels against their plain versions, bitwise, over
+    DROPOUT_CASES x p x step words x tags; then both kernels timed at the
+    LM's [8, 1024, 512] in float32 and bfloat16 (p = 0.1), beside the plain
+    version and F.dropout (a yardstick only: Philox, another mask, scaled
+    by 1 / (1 - p)); returns the records by dtype and kernel."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import dropout as dmod
+
+    dev = torch.device("cuda")
+    n_cases = 0
+    for shape in DROPOUT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for p in DROPOUT_PS:
+                for step in DROPOUT_STEPS:
+                    for tag in DROPOUT_TAGS:
+                        _dropout_case(shape, dtype, p, step, tag, dev)
+                        n_cases += 1
+    regs = [f"{name} {r} registers, {sp} bytes spilled" for name, r, sp in
+            _ptxas_report(_build.build_logs.get("dropout.cu", ""))]
+    print(f"kernel dropout: {n_cases} cases (shapes {DROPOUT_CASES}, "
+          f"float32 and bfloat16, p {DROPOUT_PS}, step words "
+          f"{DROPOUT_STEPS}, tags {DROPOUT_TAGS}, seed {DROPOUT_SEED}; each "
+          f"with the step immediate and staged): mask, y and dx bitwise "
+          f"equal to the plain version, kept fractions within 6 sigma; "
+          f"ptxas: {'; '.join(regs) or 'not built in this process'}")
+    shape, p = DROPOUT_CASES[0], DROPOUT_PS[0]
+    n = int(np.prod(shape))
+    key = dmod.ThreefryKey(DROPOUT_SEED, 3, 5)
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, device=dev).to(dtype)
+        fns = {"fwd": lambda i: dmod.dropout_fwd_kernel(x, key, p),
+               "bwd": lambda i: dmod.dropout_bwd_kernel(x, key, p)}
+        plain, plain_dev = both_ms(
+            lambda i: dmod.dropout_reference(x, key, p), iters=5)
+        lib, lib_dev = both_ms(lambda i: F.dropout(x, p, training=True))
+        bound_ms, bound_by = _dropout_bound(n, dtype)
+        kind = str(dtype).replace("torch.", "")
+        records[kind] = {}
+        for kern, fn in fns.items():
+            ms, dev_ms = both_ms(fn)
+            records[kind][kern] = {
+                "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain, "plain_device_ms": plain_dev,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib, "library_device_ms": lib_dev,
+                "library": "F.dropout (Philox, another mask, rescaled by "
+                           "1 / (1 - p)): a yardstick only"}
+            print(f"kernel dropout {kern} {kind} {tuple(shape)} p={p}: "
+                  f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain:.4f} ms "
+                  f"(device {plain_dev:.4f}), F.dropout {lib:.4f} ms "
+                  f"(device {lib_dev:.4f}; another mask), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; device time "
+                  f"{bound_ms / dev_ms:.3f} of it) on {card}")
+    return records
+
 def _ttft(handles) -> tuple:
     t = np.array([h.t_first_token - h.t_submit for h in handles]) * 1e3
     return float(np.percentile(t, 50)), float(np.percentile(t, 99))
@@ -1246,7 +1427,7 @@ def _release() -> None:
 
 
 def _replay_against_eager(label, exe, main, startup, params, feed,
-                          fetch) -> tuple:
+                          fetch, prep=None) -> tuple:
     """Warm the parity signature (``feed``, ``fetch``) on a new train scope
     of ``exe``, replay it once, and run the same step eagerly by a second
     Executor that did not warm, from the same weights: the fetches (the
@@ -1255,13 +1436,21 @@ def _replay_against_eager(label, exe, main, startup, params, feed,
     same inputs.  Then the same eager step once more by a third Executor
     with every update op run on its own (the per-op rule): its parameters,
     moments and optimizer step must be bitwise equal to the grouped
-    step's (``torch._foreach_*``).  Returns (the replay's fetches, warm
-    seconds)."""
+    step's (``torch._foreach_*``).  ``prep(scope)``, when given, readies
+    each new scope after its weights are loaded (the optimizer step, the
+    step counter).  Returns (the replay's fetches, warm seconds, the
+    warmed scope)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import executor as executor_mod
     from paddle_tpu_torch.tools.train_profile import feed_sig, train_scope
 
-    scope = train_scope(exe, startup, main, params)
+    def new_scope(executor):
+        sc = train_scope(executor, startup, main, params)
+        if prep is not None:
+            prep(sc)
+        return sc
+
+    scope = new_scope(exe)
     compiles = exe.compiles
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1278,7 +1467,7 @@ def _replay_against_eager(label, exe, main, startup, params, feed,
     check(exe.replays == replays + 1, f"{label}: the warmed step did not "
                                       f"replay")
     eager = fluid.Executor()
-    eager_scope = train_scope(eager, startup, main, params)
+    eager_scope = new_scope(eager)
     want = eager.run(main, feed=feed, fetch_list=fetch, scope=eager_scope)
     check(eager.replays == eager.compiles == 0,
           f"{label}: the eager Executor replayed")
@@ -1306,7 +1495,7 @@ def _replay_against_eager(label, exe, main, startup, params, feed,
           f"{dict(list(bad.items())[:5])}")
 
     per_op = fluid.Executor()
-    per_op_scope = train_scope(per_op, startup, main, params)
+    per_op_scope = new_scope(per_op)
     grouped = executor_mod._grouped
     executor_mod._grouped = list  # each update op its own unit
     try:
@@ -1324,17 +1513,18 @@ def _replay_against_eager(label, exe, main, startup, params, feed,
              if bad else " (bitwise equal)"))
     check(not bad, f"{label}: the grouped updates differ from the per-op "
                    f"rule: {dict(list(bad.items())[:5])}")
-    return got, t_warm
+    return got, t_warm, scope
 
 
 def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
     """Warm the training signature (``feed``) on ``scope``, then
-    TRAIN_STEPS replays, with every flash launch count set to 0 just before
-    and read just after (counted at replay): losses, CUDA-event ms per
-    step (fetch included), the counts (all, and by dtype), warm seconds,
+    TRAIN_STEPS replays, with every flash and dropout launch count set to 0
+    just before and read just after (counted at replay): losses,
+    CUDA-event ms per step (fetch included), the counts (all, and by
+    dtype), warm seconds,
     replays and compiles, peak memory (allocated, and reserved: a graph's
     activations live in its pool, reserved while it replays)."""
-    from paddle_tpu_torch.ops import flash_attention
+    from paddle_tpu_torch.ops import flash_attention, threefry_dropout
     from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS, feed_sig
 
     torch.cuda.synchronize()
@@ -1347,6 +1537,10 @@ def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
     for kern in FLASH_KERNELS:
         flash_attention.launches[kern] = 0
         for counts in flash_attention.dtype_launches.values():
+            counts[kern] = 0
+    for kern in DROPOUT_KERNELS:
+        threefry_dropout.launches[kern] = 0
+        for counts in threefry_dropout.dtype_launches.values():
             counts[kern] = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1367,6 +1561,10 @@ def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
             "launches": dict(flash_attention.launches),
             "dtype_launches": {dt: dict(c) for dt, c in
                                flash_attention.dtype_launches.items()},
+            "dropout_launches": dict(threefry_dropout.launches),
+            "dropout_dtype_launches": {
+                dt: dict(c) for dt, c in
+                threefry_dropout.dtype_launches.items()},
             "warm_s": warm_s, "compiles": exe.compiles,
             "replays": exe.replays - replays,
             "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -1399,8 +1597,8 @@ def phase_train(card: str) -> dict:
     # replay also against the same step run eagerly on the card
     feed = train_batch(2, 2)
     fetch = [loss] + grad_names
-    got, t_warm = _replay_against_eager("train", exe, main, startup, params,
-                                        feed, fetch)
+    got, t_warm, _ = _replay_against_eager("train", exe, main, startup,
+                                           params, feed, fetch)
     t0 = time.perf_counter()
     want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
                        scope=train_scope(exe_cpu, startup, main, params,
@@ -1485,8 +1683,8 @@ def phase_lm_amp_train(card: str, f32_cpu: list, f32_card: list) -> dict:
     # also against the same step run eagerly on the card
     feed = train_batch(2, 2)
     fetch = [loss] + grad_names
-    got, t_warm = _replay_against_eager("lm amp train", exe, main, startup,
-                                        params, feed, fetch)
+    got, t_warm, _ = _replay_against_eager("lm amp train", exe, main,
+                                           startup, params, feed, fetch)
     t0 = time.perf_counter()
     want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
                        scope=train_scope(exe_cpu, startup, main, params,
@@ -1605,6 +1803,259 @@ def phase_lm_amp_train(card: str, f32_cpu: list, f32_card: list) -> dict:
             "parity_warm_s": t_warm, "peak_bytes": run["peak_bytes"],
             "peak_reserved": run["peak_reserved"]}
 
+
+
+def _dropout_arm_scope(exe, startup, main, params, device=None):
+    """A train scope of the dropout program with Transformer-base's
+    optimizer resumed at the peak of warm-up and the step counter at
+    LM_DROPOUT_STEP."""
+    from paddle_tpu_torch.tools.train_profile import (resume_at_warmup,
+                                                      train_scope)
+
+    scope = train_scope(exe, startup, main, params, device)
+    resume_at_warmup(scope, main)
+    scope.step_counter = LM_DROPOUT_STEP
+    return scope
+
+
+def phase_lm_dropout_train(card: str) -> dict:
+    """Transformer-base with dropout 0.1 and its optimizer (PERF.md §2):
+    the float32 + remat step warmed at the 2 x 1024 parity signature, its
+    replay against the eager step (and grouped against per-op updates), the
+    live step counter (replays at s + 1 and s from the same state), the
+    card against the CPU, remat against no remat; then each arm of
+    LM_DROPOUT_ARMS warmed at 8 x 1024 tokens and 5 replays with the
+    flash and dropout counts set to 0 just before and read just after."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (
+        TRAIN_BATCH, TRAIN_STEPS, build_train_program, resume_at_warmup,
+        train_batch)
+
+    params = fluid.init_lm_params(0, **LM_CFG)
+    grad_names = [f"{n}@GRAD" for n in params]
+    feed = train_batch(2, 2)
+    s0 = LM_DROPOUT_STEP
+    progs = {label: build_train_program(amp, LM_DROPOUT, remat)
+             for label, amp, remat in LM_DROPOUT_ARMS}
+
+    # the main path's program: parity signature, replay against eager
+    loss, main, startup = progs["float32 remat"]
+    fetch = [loss] + grad_names
+    exe = fluid.Executor()
+
+    def prep(scope):
+        resume_at_warmup(scope, main)
+        scope.step_counter = s0
+
+    got, t_warm, scope = _replay_against_eager(
+        "lm dropout train (float32 remat)", exe, main, startup, params,
+        feed, fetch, prep=prep)
+
+    # the live counter: the same state replayed at s + 1 and at s
+    fresh = _dropout_arm_scope(fluid.Executor(), startup, main, params)
+    losses, replays = {}, exe.replays
+    for s in (s0 + 1, s0):
+        for n in scope.var_names():
+            scope.set_var(n, fresh.find_var(n).clone())
+        scope.step_counter = s
+        losses[s] = exe.run(main, feed=feed, fetch_list=fetch,
+                            scope=scope)[0]
+    print(f"lm dropout train live counter: loss {float(got[0]):.7f} at "
+          f"step {s0}, {float(losses[s0 + 1]):.7f} at {s0 + 1} (staged as "
+          f"int32 {np.array(s0 + 1, np.uint32).view(np.int32)}), "
+          f"{float(losses[s0]):.7f} at {s0} again, the same state")
+    check(exe.replays == replays + 2, "lm dropout train: the live counter "
+                                      "runs did not replay")
+    check(losses[s0].tobytes() == got[0].tobytes(),
+          "lm dropout train: the replay at the same step is not bitwise "
+          "the first")
+    check(losses[s0 + 1].tobytes() != got[0].tobytes(),
+          "lm dropout train: the replay at s + 1 drew the masks of s: the "
+          "graph does not read the live step counter")
+
+    # the card against the CPU, same weights, step counter and tokens
+    t0 = time.perf_counter()
+    exe_cpu = fluid.Executor(fluid.CPUPlace())
+    want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
+                       scope=_dropout_arm_scope(exe_cpu, startup, main,
+                                                params, "cpu"))
+    t_cpu = time.perf_counter() - t0
+    l_gpu, l_cpu = float(got[0]), float(want[0])
+    worst, worst_name = 0.0, None
+    for name, a, b in zip(grad_names, got[1:], want[1:]):
+        check(np.isfinite(a).all(), f"lm dropout parity: non-finite {name}")
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"lm dropout parity (float32 remat, dropout {LM_DROPOUT}, step "
+          f"{s0}): loss {l_gpu:.6f} card (the warmed replay), {l_cpu:.6f} "
+          f"CPU (rtol 1e-4); {len(grad_names)} gradients, worst "
+          f"max|d|/max|g| {worst:.3e} ({worst_name}; limit 1e-3); warm "
+          f"{t_warm:.2f} s card, step {t_cpu:.2f} s CPU")
+    check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"lm dropout parity: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    check(worst <= 1e-3, f"lm dropout parity: {worst_name} differs by "
+                         f"{worst} of its max |g|")
+
+    # remat against no remat, float32, eager on the card
+    loss_n, main_n, startup_n = progs["float32"]
+    plain = fluid.Executor()
+    ref = plain.run(main_n, feed=feed, fetch_list=[loss_n] + grad_names,
+                    scope=_dropout_arm_scope(plain, startup_n, main_n,
+                                             params))
+    worst, worst_name = 0.0, None
+    for name, a, b in zip(grad_names, got[1:], ref[1:]):
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    same = got[0].tobytes() == ref[0].tobytes()
+    print(f"lm dropout remat vs no remat (float32, step {s0}): loss "
+          f"{float(got[0]):.7f} and {float(ref[0]):.7f} ("
+          f"{'bitwise equal' if same else 'DIFFER'}); worst gradient "
+          f"max|d|/max|g| {worst:.3e} ({worst_name}; limit "
+          f"{REMAT_GRAD_REL:g})")
+    check(same,
+          "lm dropout: the remat loss is not bitwise the plain build's")
+    check(worst <= REMAT_GRAD_REL,
+          f"lm dropout: remat gradient {worst_name} at {worst} of max |g|")
+    del exe, plain, exe_cpu, scope, fresh
+    _release()
+
+    # the training passes
+    n_layers = LM_CFG["n_layers"]
+    sites = 1 + 2 * n_layers
+    runs = {}
+    for label, amp, remat in LM_DROPOUT_ARMS:
+        loss, main, startup = progs[label]
+        exe = fluid.Executor()
+        # the eager step's own peak (activations, gradients, new state)
+        # above what its scope holds, on a scope of its own: what remat
+        # trades (a warmed step's activations live in its graph's pool,
+        # which counts as reserved)
+        probe = _dropout_arm_scope(exe, startup, main, params)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        exe.run(main, feed=train_batch(3), fetch_list=[loss], scope=probe)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - held
+        del probe
+        run = _lm_train_pass(exe, main, loss,
+                             _dropout_arm_scope(exe, startup, main, params),
+                             train_batch(3))
+        losses, step_ms = run["losses"], run["step_ms"]
+        check(all(np.isfinite(losses)),
+              f"lm dropout train {label}: non-finite losses {losses}")
+        want_fl = {"fwd": n_layers * (2 if remat else 1), "bwd_dkdv":
+                   n_layers, "bwd_dq": n_layers}
+        # remat: torch.utils.checkpoint stops a block's recompute once the
+        # last activation its backward needs is rebuilt (ff2's input), so
+        # the attention's dropout is drawn again and the FFN's is not
+        want_dr = {"fwd": sites + (n_layers if remat else 0), "bwd": sites}
+        fl, dr = run["launches"], run["dropout_launches"]
+        check(all(fl[k] == want_fl[k] * TRAIN_STEPS for k in FLASH_KERNELS)
+              and all(dr[k] == want_dr[k] * TRAIN_STEPS
+                      for k in DROPOUT_KERNELS),
+              f"lm dropout train {label}: flash launches {fl}, dropout "
+              f"{dr}; expected {want_fl} and {want_dr} x {TRAIN_STEPS}")
+        # the dtype amp hands each kernel: flash bf16 under the attention
+        # policy; dropout is in BF16_OPS
+        dt_fl = "bfloat16" if amp else "float32"
+        dt_dr = str(main.amp_policy.input_dtype("dropout", {},
+                                                torch.float32)
+                    if amp else torch.float32).replace("torch.", "")
+        check(run["dtype_launches"][dt_fl] == fl
+              and run["dropout_dtype_launches"][dt_dr] == dr,
+              f"lm dropout train {label}: launches by dtype "
+              f"{run['dtype_launches']}, {run['dropout_dtype_launches']}; "
+              f"expected all flash {dt_fl}, all dropout {dt_dr}")
+        med = float(np.median(step_ms[1:]))
+        tokens = TRAIN_BATCH * LM_CFG["max_len"]
+        print(f"lm dropout train {label}: {TRAIN_STEPS} steps on "
+              f"{TRAIN_BATCH} x {LM_CFG['max_len']} tokens, losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
+              f"{', '.join(f'{x:.1f}' for x in step_ms)}; median of steps "
+              f"2-{TRAIN_STEPS} {med:.2f} ms = {tokens / med * 1e3:.0f} "
+              f"tokens/s; {_pass_line(run)}; an eager step's own peak "
+              f"{eager_peak / 2 ** 30:.2f} GiB; launches a step (counted at "
+              f"replay): dropout {want_dr} in {dt_dr}, flash {want_fl} in "
+              f"{dt_fl}; on {card}")
+        runs[label] = {"launches": dr, "flash_launches": fl,
+                       "dropout_dtype": dt_dr, "losses": losses,
+                       "median_ms": med,
+                       "tokens_per_s": tokens / med * 1e3,
+                       "warm_s": run["warm_s"],
+                       "peak_bytes": run["peak_bytes"],
+                       "peak_reserved": run["peak_reserved"],
+                       "eager_step_peak_bytes": eager_peak}
+        del exe
+        _release()
+    return runs
+
+
+def phase_optimizers(card: str) -> dict:
+    """Each new optimizer's grouped update against its per-op rule on the
+    card: a 2-layer LM at d = 128 with the optimizer on noam_decay and
+    L2Decay, one eager step grouped and one with ``executor._grouped``
+    patched to ``list``, from the same weights and tokens; every parameter
+    and accumulator bitwise equal."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as executor_mod
+    from paddle_tpu_torch.tools.train_profile import train_scope
+
+    O = fluid.optimizer
+    rules = {"Adagrad": (O.Adagrad, {}), "Adamax": (O.Adamax, {}),
+             "Adadelta": (O.Adadelta, {}),
+             "RMSProp": (O.RMSProp, {"momentum": 0.9}),
+             "DecayedAdagrad": (O.DecayedAdagrad, {}),
+             "Ftrl": (O.Ftrl, {"l1": 1e-4, "l2": 1e-4}),
+             "ProximalGD": (O.ProximalGD, {"l1": 1e-4, "l2": 1e-4}),
+             "ProximalAdagrad": (O.ProximalAdagrad, {"l1": 1e-4,
+                                                     "l2": 1e-4})}
+    cfg = OPT_LM_CFG
+    T, V = cfg["max_len"], cfg["vocab_size"]
+    rng = np.random.RandomState(5)
+    feed = {"toks": rng.randint(0, V, (4, T)).astype(np.int32),
+            "labs": rng.randint(0, V, (4, T, 1)).astype(np.int32)}
+    params = fluid.init_lm_params(1, **cfg)
+    out = {}
+    for name, (cls, kw) in rules.items():
+        fluid.reset_default_programs()
+        toks = fluid.layers.data("toks", [T], dtype="int32")
+        labs = fluid.layers.data("labs", [T, 1], dtype="int32")
+        loss, _ = fluid.models.build_lm(toks, labs, **cfg)
+        cls(fluid.learning_rate_decay.noam_decay(cfg["d_model"], 10),
+            regularization=fluid.regularizer.L2Decay(1e-4),
+            **kw).minimize(loss)
+        main = fluid.default_main_program()
+        startup = fluid.default_startup_program()
+        scopes = []
+        for grouped in (True, False):
+            exe = fluid.Executor()
+            scope = train_scope(exe, startup, main, params)
+            saved = executor_mod._grouped
+            if not grouped:
+                executor_mod._grouped = list
+            try:
+                for _ in range(2):
+                    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            finally:
+                executor_mod._grouped = saved
+            scopes.append(scope)
+        a, b = scopes
+        bad = [n for n in a.var_names()
+               if not torch.equal(a.find_var(n), b.find_var(n))]
+        n_acc = len(a.var_names()) - len(params) - 1
+        print(f"optimizers: {name} (noam_decay, L2Decay(1e-4)"
+              f"{', ' + str(kw) if kw else ''}), two eager steps grouped "
+              f"and per-op: {len(params)} parameters, {n_acc} accumulators "
+              f"and the step: {len(bad)} differ"
+              + (f" ({bad[:4]})" if bad else " (bitwise equal)"))
+        check(not bad, f"optimizers: {name}'s grouped update differs from "
+                       f"its per-op rule on the card: {bad[:4]}")
+        out[name] = len(a.var_names())
+    return out
 
 def phase_lstm_train(card: str) -> dict:
     import paddle_tpu_torch as fluid
@@ -2367,11 +2818,16 @@ def main() -> int:
     rec = _timed("kernels", phase_kernels, card)
     flash = _timed("flash kernels", phase_flash_kernels, card)
     lstm = _timed("lstm kernels", phase_lstm_kernels, card)
+    drop = _timed("dropout kernels", phase_dropout_kernels, card)
     paths = _timed("serve", phase_serve, card)
     train = _timed("train", phase_train, card)
     _release()
     lm_amp = _timed("lm amp train", phase_lm_amp_train, card,
                     train["cpu_parity"], train["card_parity"])
+    _release()
+    lm_drop = _timed("lm dropout train", phase_lm_dropout_train, card)
+    _release()
+    _timed("optimizers", phase_optimizers, card)
     _release()
     lstm_train = _timed("lstm train", phase_lstm_train, card)
     bn = _timed("bn kernels", phase_bn_kernels, card)
@@ -2487,6 +2943,22 @@ def main() -> int:
         "c14": convk["float32"]["c14"]["fused"],
         "c7": convk["float32"]["c7"]["fused"],
     })
+    for kern in DROPOUT_KERNELS:
+        kernels.append({
+            "name": f"dropout_{kern}", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/dropout.cu",
+            "replaces": "paddle_tpu/layers/nn.py:458 (jax.random.bernoulli; "
+                        "XLA-fused on the TPU, no Pallas kernel)",
+            "case": "float32, [8, 1024, 512], p=0.1",
+            # launches: the main path's own count, the float32 + remat arm
+            # of the lm dropout train phase (5 steps); each arm's in
+            # launches_by_path
+            "launches": lm_drop["float32 remat"]["launches"][kern],
+            **drop["float32"][kern],
+            "launches_by_path": {a: r["launches"][kern]
+                                 for a, r in lm_drop.items()},
+            "bfloat16": drop["bfloat16"][kern],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

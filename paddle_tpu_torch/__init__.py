@@ -38,7 +38,8 @@ Entry points run on the CUDA card unless the caller asks for the CPU
 raise.  The package imports torch and numpy, never jax and nothing of
 ``paddle_tpu``.
 """
-from . import amp, backward, clip, initializer, layers, models, optimizer
+from . import (amp, backward, clip, hooks, initializer, layers,
+               learning_rate_decay, models, optimizer, regularizer)
 from ._device import card_info, resolve_device
 from .core import (CPUPlace, Executor, Place, Program, Scope,
                    Variable, default_main_program, default_startup_program,
@@ -57,6 +58,7 @@ __all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
            "Program", "SamplingParams", "Scope", "TransformerLM", "Variable",
            "backward", "card_info", "clip", "default_main_program",
            "default_startup_program", "from_jax_params", "global_scope",
-           "init_lm_params", "initializer", "layers", "load_scope", "models",
-           "optimizer", "program_guard", "reset_default_programs",
+           "hooks", "init_lm_params", "initializer", "layers",
+           "learning_rate_decay", "load_scope", "models", "optimizer",
+           "program_guard", "regularizer", "reset_default_programs",
            "reset_global_scope", "resolve_device"]

@@ -21,7 +21,10 @@ runs (``Op.apply``).  A program with no backward op (an inference program, such
 as ``Program.prune``'s) runs with its 3x3 stride-1 convolutions routed onto
 the implicit-GEMM kernels (``core/fusion.py``).  Each run of consecutive
 optimizer update ops of one group runs as one grouped call
-(``Optimizer.apply_group``: multi-tensor kernels).
+(``Optimizer.apply_group``: multi-tensor kernels).  A program that names an
+``anomaly_guard`` (its loss) keeps its old state on a step whose loss or
+any gradient is not finite, and fetches a NaN loss (the reference's
+``core/executor.py:364-398``), with ``torch.where`` on the device.
 
 ``Executor.warm`` prepares one signature, ``(program, program.version,
 scope, state names, feeds (name, shape, dtype), fetch names)``, as the
@@ -32,6 +35,8 @@ card, the whole step (forward, ``torch.autograd.grad``, clip, updates, the
 step increment) captured as ONE CUDA graph that ends by copying the new
 state into the static buffers; on the CPU the step body re-run on those
 buffers.  Every later ``run()`` of that signature stages its feeds and
+the step counter's low 32 bits (``STEP_FIELD``, one upload), from which
+the step's random ops draw their keys (``OpContext.rng_key``), and
 replays the graph.  ``append_op``, ``amp.enable`` and ``amp.disable`` bump
 ``program.version`` (the graph holds the ops and the amp policy it was
 captured with), so after them ``run()`` finds no warmed signature.
@@ -54,8 +59,9 @@ import torch
 
 from ..ops.attention import check_flash_dtype, check_flash_head_dim
 from ..ops.batch_norm import check_bn_dtype
+from ..ops.dropout import check_dropout_dtype
 from ..ops.lstm import check_lstm_dtype
-from .fusion import channels_last_feed, compute_dtype, route_inference
+from .fusion import channels_last_feed, route_inference
 from .graphs import Graphs, Staged, WarmError
 from .program import (
     Op,
@@ -179,10 +185,18 @@ class _Warmed:
         self.outs, self.run = outs, None
 
 
+# the staged field that carries the step counter's uint32 bits into a
+# warmed step (a name no variable can have)
+STEP_FIELD = "@step_counter"
+
+
 def _warmed_body(step, state, feeds, outs) -> None:
-    """The step on the static buffers: it ends by copying each new state
-    tensor into its static buffer (one multi-tensor copy)."""
-    fetches, new_state = step(state, feeds, 0)
+    """The step on the static buffers, its step counter read from the
+    staged STEP_FIELD: it ends by copying each new state tensor into its
+    static buffer (one multi-tensor copy)."""
+    fetches, new_state = step(
+        state, {n: v for n, v in feeds.items() if n != STEP_FIELD},
+        feeds[STEP_FIELD])
     dst, src = [], []
     for n, v in new_state.items():
         if v.data_ptr() != state[n].data_ptr():
@@ -326,7 +340,8 @@ class Executor:
             v = torch.as_tensor(scope.find_var(n))
             state[n] = torch.empty_like(v, device=dev).copy_(v)
         feeds = Staged([(n, shape, convert_dtype(dt))
-                        for n, shape, dt in feed_sig], dev)
+                        for n, shape, dt in feed_sig]
+                       + [(STEP_FIELD, (), np.uint32)], dev)
         outs: Dict[str, Any] = {}
         body = functools.partial(
             _warmed_body,
@@ -349,8 +364,10 @@ class Executor:
                 return_numpy: bool):
         """Run a warmed signature: copy in any state the scope no longer
         holds in its static buffer (a ``set_var`` since the last run, such
-        as a checkpoint load), stage the feeds, replay (card) or run the
-        body (CPU), and fetch copies, which the next replay leaves alone."""
+        as a checkpoint load), stage the feeds with the step counter (its
+        low 32 bits, the reference's ``np.uint32(step_counter)``; one
+        upload), replay (card) or run the body (CPU), and fetch copies,
+        which the next replay leaves alone."""
         with torch.no_grad():
             for n, buf in sig.state.items():
                 cur = scope.find_var(n)
@@ -364,7 +381,8 @@ class Executor:
                     buf.copy_(cur)
                     scope.set_var(n, buf)
         try:
-            sig.feeds.stage(feed_vals)
+            sig.feeds.stage({**feed_vals, STEP_FIELD: np.array(
+                scope.step_counter & 0xFFFFFFFF, np.uint32).view(np.int32)})
             sig.run.replay()
         except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
             raise WarmError(f"replaying the {sig.what} failed: "
@@ -417,10 +435,13 @@ class Executor:
 
     def _build_step(self, program: Program, state_names, fetch_names,
                     warmed: bool = False):
-        if getattr(program, "anomaly_guard", None) is not None:
-            raise NotImplementedError(
-                "program.anomaly_guard is not ported yet (ROADMAP A.6)")
         amp = getattr(program, "amp_policy", None)
+        # the anomaly guard (the reference's, paddle_tpu/core/executor.py:
+        # 364-398): when the program names a guard loss, a step whose loss
+        # or any gradient is not finite keeps the old state and its fetched
+        # loss reads NaN, all on the device (torch.where), so it lives in a
+        # warmed step's graph too
+        guard = getattr(program, "anomaly_guard", None)
         ops = program.list_ops()
         out_names = state_out_names(program, state_names)
         bops = [i for i, op in enumerate(ops) if op.special == "backward"]
@@ -435,7 +456,7 @@ class Executor:
         head = ops[:bops[0] + 1] if bops else ops
         tail = _grouped(ops[bops[0] + 1:]) if bops else []
 
-        def step(state, feed, step_index: int):
+        def step(state, feed, step_index):
             ctx = OpContext(seed, step_index, device, amp, warmed)
             if routed is not None:
                 feed = channels_last_feed(feed)
@@ -459,10 +480,29 @@ class Executor:
                     else:
                         unit[0].apply_group(unit[1], env, ctx)
             new_state = {n: env[n].detach() for n in out_names if n in env}
+            if guard is not None and guard in env \
+                    and env[guard].is_floating_point():
+                with torch.no_grad():
+                    new_state = _guarded(env, guard, state, new_state)
             fetches = tuple(env[n].detach() for n in fetch_names)
             return fetches, new_state
 
         return step
+
+
+def _guarded(env, guard: str, state, new_state):
+    """The anomaly guard: ``ok`` is all(isfinite) over the guard loss and
+    every gradient (not isfinite of a sum, which a large finite loss could
+    overflow); where not ``ok``, ``env[guard]`` becomes NaN and each state
+    tensor the step read keeps its old value.  Returns the new state."""
+    ok = torch.isfinite(env[guard]).all()
+    for n, v in env.items():
+        if n.endswith("@GRAD"):
+            ok = ok & torch.isfinite(v).all()
+    env[guard] = torch.where(ok, env[guard],
+                             torch.full_like(env[guard], float("nan")))
+    return {n: (torch.where(ok, v, state[n]) if n in state else v)
+            for n, v in new_state.items()}
 
 
 def _grouped(ops: Sequence[Op]) -> list:
@@ -494,8 +534,11 @@ def check_kernel_shapes(program: Program, device: torch.device) -> None:
     * a training ``batch_norm`` (not ``is_test``) in a program with a
       backward op, whose backward runs the batch-norm kernels, in anything
       but float32 or bfloat16;
-    * ``dynamic_lstm`` in anything but float32.
+    * ``dynamic_lstm`` in anything but float32;
+    * a training ``dropout`` (not ``is_test``) in anything but float32 or
+      bfloat16.
 
+    Ops inside an op's sub-block (``layers.recompute``) are checked too.
     A compute dtype is the input's declared dtype as the program's amp
     policy casts it for that op.  The conv kernels' dtypes need no check:
     ``core/fusion.py`` routes only the convs they take.  The check lives
@@ -505,25 +548,31 @@ def check_kernel_shapes(program: Program, device: torch.device) -> None:
     refused program changes no parameter or optimizer state."""
     if device.type != "cuda":
         return
-    block = program.global_block
     amp = getattr(program, "amp_policy", None)
-    ops = program.list_ops()
-    has_backward = any(op.special == "backward" for op in ops)
+    has_backward = any(op.special == "backward"
+                       for op in program.list_ops())
 
-    def dtype_of(op, slot):
-        return compute_dtype(program, op.inputs[slot][0], op.type, op.attrs,
-                             amp)
+    for block, op in program.all_ops():
+        def var_of(slot):
+            name = op.inputs[slot][0]
+            return block.vars.get(name) or program.global_block.vars[name]
 
-    for op in ops:
+        def dtype_of(slot):
+            dtype = var_of(slot).dtype
+            return dtype if amp is None else amp.input_dtype(
+                op.type, op.attrs, dtype)
+
         if op.type == "attention":
-            hd = block.vars[op.inputs["Q"][0]].shape[-1]
+            hd = var_of("Q").shape[-1]
             check_flash_head_dim(hd // op.attrs["n_heads"])
-            check_flash_dtype(dtype_of(op, "Q"))
+            check_flash_dtype(dtype_of("Q"))
         elif (op.type == "batch_norm" and has_backward
               and not op.attrs.get("is_test")):
-            check_bn_dtype(dtype_of(op, "X"))
+            check_bn_dtype(dtype_of("X"))
         elif op.type == "dynamic_lstm":
-            check_lstm_dtype(dtype_of(op, "Input"))
+            check_lstm_dtype(dtype_of("Input"))
+        elif op.type == "dropout" and not op.attrs.get("is_test"):
+            check_dropout_dtype(dtype_of("X"))
 
 
 # --------------------------------------------------------------------------- backward

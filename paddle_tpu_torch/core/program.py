@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from ..ops.dropout import ThreefryKey
 from . import op_info, unique_name
 from .types import convert_dtype, dtype_name, normalize_shape
 
@@ -75,32 +76,45 @@ def _mix64(x: int) -> int:
 
 class OpContext:
     """Runtime context handed to op closures: the step's device, the seed
-    material for ``rng`` and the program's amp policy
-    (``paddle_tpu_torch.amp.Bf16Policy``, or None).  ``warmed`` marks the
-    body of a warmed step (``Executor.warm``), which every later call
-    replays."""
+    material for ``rng_key`` and ``rng`` and the program's amp policy
+    (``paddle_tpu_torch.amp.Bf16Policy``, or None).  ``step`` is the step
+    counter: an int in an eager step; in a warmed step (``warmed``, the
+    body of ``Executor.warm`` that every later call replays) the 0-d
+    int32 tensor into which the Executor stages the counter's uint32 bits
+    before each replay."""
 
-    def __init__(self, seed: int = 0, step: int = 0, device=None, amp=None,
+    def __init__(self, seed: int = 0, step=0, device=None, amp=None,
                  warmed: bool = False):
         self.seed = int(seed)
-        self.step = int(step)
+        self.step = step
         self.device = torch.device(device if device is not None else "cpu")
         self.amp = amp
         self.warmed = warmed
 
+    def rng_key(self, tag: int) -> ThreefryKey:
+        """The threefry key of the random op ``tag`` in this step, the
+        reference's ``fold_in(fold_in(key(seed), step), tag)``
+        (``paddle_tpu/core/executor.py:265``, ``core/program.py:149``):
+        its two uint32 words are ``rng_key(tag).words()``.  Dropout draws
+        its mask from it (``ops/dropout.py``), bit for bit as JAX does, in
+        an eager step and in every replay of a warmed one."""
+        return ThreefryKey(self.seed, self.step, tag)
+
     def rng(self, tag: int) -> torch.Generator:
-        """A generator on the step's device, seeded deterministically from
-        (program seed, step counter, tag): the same program, step and tag
-        draw the same numbers.  It cannot give JAX's bits.  Raises in a
-        warmed step: every replay would repeat the draws of its capture."""
+        """A ``torch.Generator`` on the step's device, seeded from (program
+        seed, step counter, tag), for host-side draws: the initializers of
+        a startup program.  It cannot give JAX's bits (dropout uses
+        ``rng_key``).  Raises in a warmed step: every replay would repeat
+        the draws of its capture."""
         if self.warmed:
             raise RuntimeError(
                 "an op draws from ctx.rng inside a warmed step: every replay "
-                "would repeat the same draws; run this program unwarmed (a "
-                "device-side generator for dropout is ROADMAP A.6)")
+                "would repeat the same draws; ctx.rng is for host-side draws "
+                "(initializers), and a random op of a step draws from "
+                "ctx.rng_key, as dropout does")
         dev = self.device if self.device.type != "meta" else "cpu"
         gen = torch.Generator(device=dev)
-        gen.manual_seed(_mix64(_mix64(_mix64(self.seed) + self.step)
+        gen.manual_seed(_mix64(_mix64(_mix64(self.seed) + int(self.step))
                                + int(tag)))
         return gen
 
@@ -114,7 +128,9 @@ class Op:
     ``core/fusion.py``), that slot as the policy casts that type.  An
     optimizer's update op names its ``group``, the optimizer that made it:
     the Executor runs each run of consecutive update ops of one group as
-    one grouped call (``Optimizer.apply_group``)."""
+    one grouped call (``Optimizer.apply_group``).  ``sub_block`` is the
+    block an op runs inside its closure (``layers.recompute``'s), for the
+    checks that walk every op of a program (``Program.all_ops``)."""
 
     type: str
     inputs: Dict[str, List[str]]
@@ -124,6 +140,7 @@ class Op:
     special: Optional[str] = None  # 'backward' is interpreted by the Executor
     amp_types: Optional[Dict[str, str]] = None
     group: Any = None
+    sub_block: Optional["Block"] = None
 
     def input_names(self) -> List[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -251,6 +268,16 @@ class Program:
     def list_ops(self) -> List[Op]:
         return list(self.global_block.ops)
 
+    def all_ops(self):
+        """(block, op) for every op of the program, the ops of each op's
+        ``sub_block`` after the op."""
+        def walk(block):
+            for op in block.ops:
+                yield block, op
+                if op.sub_block is not None:
+                    yield from walk(op.sub_block)
+        return list(walk(self.global_block))
+
     # ---- cloning (ref: fluid Program.clone; used for the test/eval program)
     def clone(self, for_test: bool = False) -> "Program":
         """A copy with its own variables and ops.  The ops share their
@@ -282,6 +309,7 @@ class Program:
                 special=op.special,
                 amp_types=op.amp_types,
                 group=op.group,
+                sub_block=op.sub_block,
             )
             if for_test and "is_test" in nop.attrs:
                 nop.attrs["is_test"] = True

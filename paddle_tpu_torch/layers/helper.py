@@ -60,10 +60,6 @@ class LayerHelper:
             raise NotImplementedError(
                 "ParamAttr(sharding=...) is not ported yet: parallel layouts "
                 "are ROADMAP A.9")
-        if attr.update_hook is not None:
-            raise NotImplementedError(
-                "ParamAttr(update_hook=...) is not ported yet: hooks are "
-                "ROADMAP A.6")
         name = attr.name or unique_name.generate(f"{self.layer_type}_{'b' if is_bias else 'w'}")
         init = attr.initializer or default_initializer or (Constant(0.0) if is_bias else Xavier())
         shape = tuple(int(s) for s in shape)
@@ -91,6 +87,30 @@ class LayerHelper:
             return {"Out": [_init(_shape, _dt, ctx.rng(_tag))]}
 
         sblock.append_op(Op("init", {}, {"Out": [name]}, {"shape": shape}, init_fn))
+
+        if attr.update_hook is not None:
+            # static pruning (hooks.py): the startup program computes the
+            # persistable mask from the freshly initialised value and zeroes
+            # the pruned weights; Optimizer.minimize finds the hook on the
+            # parameter and masks its gradient every step
+            from ..hooks import mask_name
+
+            hook = attr.update_hook
+            mname = mask_name(name)
+            param.update_hook = hook
+            self.block.create_var(mname, shape, dtype, persistable=True,
+                                  trainable=False)
+            sblock.create_var(mname, shape, dtype, persistable=True,
+                              trainable=False)
+
+            def hook_fn(ins, attrs, ctx, _hook=hook):
+                value = ins["Param"][0]
+                mask = _hook.mask_for(value)
+                return {"Out": [mask, value * mask]}
+
+            sblock.append_op(Op("update_hook_init",
+                                {"Param": [name]}, {"Out": [mname, name]},
+                                {"hook": repr(hook)}, hook_fn))
         return param
 
     # ------------------------------------------------------------- op append

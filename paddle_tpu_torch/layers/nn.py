@@ -1,7 +1,7 @@
 """Neural-network layers (PyTorch port of the ``paddle_tpu/layers/nn.py``
 subset the training slices use): fc, embedding, conv2d, pool2d,
-batch_norm, layer_norm, softmax_with_cross_entropy, cross_entropy and
-accuracy.
+batch_norm, layer_norm, dropout, softmax_with_cross_entropy,
+cross_entropy and accuracy.
 
 Numerics follow the JAX package: layer_norm and batch_norm take float32
 statistics with ``var = max(E[x^2] - mu^2, 0)`` (not the serving layer
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from ..core.program import Op, Variable
 from ..initializer import Constant, Normal
 from ..ops.batch_norm import batch_norm_train
+from ..ops.dropout import threefry_dropout
 from .helper import LayerHelper
 
 
@@ -413,6 +414,34 @@ def cross_entropy(input: Variable, label: Variable, soft_label: bool = False,
                             attrs={"soft_label": soft_label})
 
 
+# --------------------------------------------------------------------------- dropout
+
+
+def dropout(x: Variable, dropout_prob: float, is_test: bool = False,
+            seed=None, name=None):
+    """The reference's 'downgrade_in_infer' dropout
+    (``paddle_tpu/layers/nn.py:449``): training keeps ``x * mask`` with no
+    1 / (1 - p) rescale, ``is_test`` gives ``x * (1 - p)``.  The mask is
+    JAX's bernoulli for the op's key, ``ctx.rng_key(tag)``, the tag drawn
+    from the program at build time, bit for bit (``ops/dropout.py``; the
+    hand-written kernel on the card).  ``seed`` is taken and unused, as in
+    the reference.  ``is_test`` scales by 1 - p rounded to x's dtype, as
+    JAX's weakly typed scalar is."""
+    helper = LayerHelper("dropout", name=name)
+    tag = helper.main_program.next_rng_tag()
+
+    def fn(ctx, a, dropout_prob, is_test, _tag):
+        if is_test:
+            scale = torch.tensor(1.0 - dropout_prob,
+                                 dtype=torch.float64).to(a.dtype).item()
+            return a * scale
+        return threefry_dropout(a, ctx.rng_key(_tag), dropout_prob)
+
+    return helper.append_op(fn, {"X": [x]},
+                            attrs={"dropout_prob": dropout_prob,
+                                   "is_test": is_test, "_tag": tag})
+
+
 # --------------------------------------------------------------------------- metrics
 
 
@@ -433,5 +462,6 @@ def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
                             attrs={"k": k})
 
 
-__all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy", "embedding",
-           "fc", "layer_norm", "pool2d", "softmax_with_cross_entropy"]
+__all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy", "dropout",
+           "embedding", "fc", "layer_norm", "pool2d",
+           "softmax_with_cross_entropy"]

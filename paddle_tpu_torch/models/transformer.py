@@ -115,15 +115,13 @@ def transformer_block(x, d_model: int, n_heads: int, d_ff: int, causal=True,
                       dropout=0.0, use_tp=False, use_sp=False,
                       sp_strategy="ring", name=""):
     """Pre-LN block with deterministic parameter names (``{name}.q.w``,
-    ...), the names ``lm_param_shapes`` lists."""
+    ...), the names ``lm_param_shapes`` lists.  With ``dropout > 0``, a
+    dropout after the attention's output projection and one after ff2, as
+    in the reference."""
     if use_tp:
         raise NotImplementedError(
             "use_tp (Megatron tensor parallelism) is not ported yet: "
             "parallelism is ROADMAP A.9")
-    if dropout > 0:
-        raise NotImplementedError(
-            "dropout > 0 is not ported yet: dropout with its generator is "
-            "ROADMAP A.6")
 
     def pa(suffix):
         return ParamAttr(name=f"{name}.{suffix}")
@@ -139,6 +137,8 @@ def transformer_block(x, d_model: int, n_heads: int, d_ff: int, causal=True,
     att = attention_core(q, k, v, causal, n_heads, use_sp, sp_strategy)
     att = layers.fc(att, d_model, num_flatten_dims=2, name=f"{name}.o",
                     param_attr=pa("o.w"), bias_attr=pa("o.b"))
+    if dropout > 0:
+        att = layers.dropout(att, dropout)
     x = layers.elementwise_add(x, att)
     h2 = layers.layer_norm(x, begin_norm_axis=2, param_attr=pa("ln2.g"),
                            bias_attr=pa("ln2.b"))
@@ -146,6 +146,8 @@ def transformer_block(x, d_model: int, n_heads: int, d_ff: int, causal=True,
                   param_attr=pa("ff1.w"), bias_attr=pa("ff1.b"))
     f = layers.fc(f, d_model, num_flatten_dims=2, name=f"{name}.ff2",
                   param_attr=pa("ff2.w"), bias_attr=pa("ff2.b"))
+    if dropout > 0:
+        f = layers.dropout(f, dropout)
     return layers.elementwise_add(x, f)
 
 
@@ -167,16 +169,14 @@ def build_lm(
 ):
     """Decoder-only LM training graph (the Transformer-base flagship).
     tokens/labels: [N, T] / [N, T, 1] int32.  Returns (loss, logits).
-    ``remat``, ``dropout > 0``, ``use_tp`` and ``use_sp`` are not ported
-    yet and raise (ROADMAP A.6 recompute and dropout, A.9 parallelism)."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True (layers.recompute) is not ported yet: recompute is "
-            "ROADMAP A.6")
-    if dropout > 0:
-        raise NotImplementedError(
-            "dropout > 0 is not ported yet: dropout with its generator is "
-            "ROADMAP A.6")
+
+    ``dropout > 0`` puts a dropout after the positional add and two in each
+    block (1 + 2 x n_layers sites, Transformer-base's P_drop); its masks
+    are JAX's, bit for bit.  ``remat=True`` wraps each block in
+    ``layers.recompute``: each block's activations are recomputed in the
+    backward instead of kept, with the same masks, so the step computes
+    what the plain build computes.  ``use_tp`` and ``use_sp`` are not
+    ported yet and raise (ROADMAP A.9 parallelism)."""
     if use_tp or use_sp:
         raise NotImplementedError(
             "use_tp / use_sp are not ported yet: parallelism is ROADMAP A.9")
@@ -190,9 +190,15 @@ def build_lm(
         return h + pw[None, : h.shape[1]]
 
     x = helper.append_op(add_pos, {"X": [x], "Pos": [pos_w]})
+    if dropout > 0:
+        x = layers.dropout(x, dropout)
     for i in range(n_layers):
-        x = transformer_block(x, d_model, n_heads, d_ff, causal=True,
-                              sp_strategy=sp_strategy, name=f"blk{i}")
+        def blk(x=x, i=i):
+            return transformer_block(x, d_model, n_heads, d_ff, causal=True,
+                                     dropout=dropout,
+                                     sp_strategy=sp_strategy, name=f"blk{i}")
+
+        x = layers.recompute(blk) if remat else blk()
     x = layers.layer_norm(x, begin_norm_axis=2, param_attr=ParamAttr(name="lnf.g"),
                           bias_attr=ParamAttr(name="lnf.b"))
     if tie_embeddings:

@@ -18,6 +18,7 @@ from typing import Any, Dict
 from . import conv
 from .attention import flash_attention
 from .batch_norm import batch_norm_train
+from .dropout import threefry_dropout
 from .lstm import fused_lstm
 from .paged_attention import paged_attention
 
@@ -31,6 +32,8 @@ COUNTERS = {
     "batch_norm_train.launches": (batch_norm_train, "launches"),
     "conv.launches": (conv, "launches"),
     "conv.route_launches": (conv, "route_launches"),
+    "threefry_dropout.launches": (threefry_dropout, "launches"),
+    "threefry_dropout.dtype_launches": (threefry_dropout, "dtype_launches"),
 }
 
 

@@ -1,7 +1,8 @@
 """ParamAttr: per-parameter configuration (PyTorch port of
-``paddle_tpu/param_attr.py``).  ``sharding`` and ``update_hook`` keep their
-places in the record; the LayerHelper refuses them until parallel layouts
-(ROADMAP A.9) and hooks (A.6) are ported."""
+``paddle_tpu/param_attr.py``): name, initializer, learning-rate multiplier,
+regularizer (``regularizer.py``), trainability and update hook
+(``hooks.py``).  ``sharding`` keeps its place in the record; the
+LayerHelper refuses it until parallel layouts (ROADMAP A.9) are ported."""
 from __future__ import annotations
 
 from dataclasses import dataclass

@@ -1,6 +1,6 @@
 """Where the time of one training step goes, on the CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|resnet50|resnet50-infer|resnet18-infer] [--out F]
+    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|resnet50|resnet50-infer|resnet18-infer] [--dropout P] [--remat] [--out F]
 
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
@@ -8,8 +8,12 @@ T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
 clipping (1.0), on a fixed 8 x 1024 batch, in two arms: float32, then amp
 (``amp.enable`` with the default bf16 list plus attention, so the bf16
 flash kernels run); each arm ``Executor.warm``s its signature first, so
-every profiled step is a replay of one CUDA graph.  ``--model text_lstm`` builds
-the LSTM text classifier at the width of ``benchmark/text_lstm.py`` (vocab
+every profiled step is a replay of one CUDA graph.  ``--dropout P`` and
+``--remat`` are ``build_lm``'s arguments; with dropout the optimizer is
+Transformer-base's (Adam(0.9, 0.98, 1e-9) on ``noam_decay(512, 4000)``,
+clip 1.0), resumed at the optimizer step 4000, the peak of warm-up.
+``--model text_lstm`` builds the LSTM text classifier at the width of
+``benchmark/text_lstm.py`` (vocab
 10000, emb 128, 2 x LSTM-512, 2 classes, seq_len 100, float32, weights
 ``init_text_lstm_params(0)``) with Adam(1e-3), on a fixed batch of 128
 sequences with lengths drawn from [50, 100] (that file's
@@ -34,8 +38,9 @@ the median with the least and the most of the repeats, the device idle
 share of the medians, device ms by kernel class and the top kernels, both
 from the median-busy window.  The classes are flash attention (float32
 and bf16 kernels apart) / lstm / matmul / optimizer (the multi-tensor
-kernels of the grouped updates and the clip's scaling) / other by kernel
-name; for ResNet they are cuDNN convolution
+kernels of the grouped updates and the clip's scaling) / dropout (the
+threefry kernels) / other by kernel name; for ResNet they are cuDNN
+convolution
 (forward, data gradient, weight gradient, other backward), the batch-norm
 backward kernels, the batch-norm forward's plain ops, the rest of the
 batch-norm backward, pooling, the optimizer and other, by the op or
@@ -85,25 +90,41 @@ RESNET_FP32_BATCH = 256
 # command: model name -> depth
 INFER_DEPTH = {"resnet50-infer": 50, "resnet18-infer": 18}
 INFER_BATCH = 256
+# Transformer-base's optimizer (Vaswani et al. 2017, section 5.3), for
+# the programs with dropout: Adam(0.9, 0.98, 1e-9) on noam_decay(d_model,
+# BASE_WARMUP), resumed at the optimizer step BASE_WARMUP (the peak of
+# warm-up; the first steps' rate is about 1e-7)
+BASE_WARMUP = 4000
 
 
-def build_train_program(amp: bool = False):
-    """``build_lm`` at LM_CFG's width with Adam(1e-3) and global-norm
-    clipping (1.0), in fresh default programs; with ``amp``, then
-    ``amp.enable`` with the default bf16 list plus the ``attention`` op
-    (the list names ``flash_attention``, not the LM's op), so that
-    attention runs the bf16 flash kernels, the JAX package's knob for its
-    own; returns (loss, main, startup)."""
+def build_train_program(amp: bool = False, dropout: float = 0.0,
+                        remat: bool = False):
+    """``build_lm`` at LM_CFG's width (with ``dropout`` and ``remat``) with
+    Adam(1e-3) and global-norm clipping (1.0), in fresh default programs;
+    with dropout, Transformer-base's optimizer instead (Adam(0.9, 0.98,
+    1e-9) on ``noam_decay(d_model, BASE_WARMUP)``, clip 1.0; see
+    :func:`resume_at_warmup`).  With ``amp``, then ``amp.enable`` with the
+    default bf16 list plus the ``attention`` op (the list names
+    ``flash_attention``, not the LM's op), so that attention runs the bf16
+    flash kernels, the JAX package's knob for its own; returns (loss,
+    main, startup)."""
     import paddle_tpu_torch as fluid
 
     T = LM_CFG["max_len"]
     fluid.reset_default_programs()
     toks = fluid.layers.data("toks", [T], dtype="int32")
     labs = fluid.layers.data("labs", [T, 1], dtype="int32")
-    loss, _ = fluid.models.build_lm(toks, labs, **LM_CFG)
-    fluid.optimizer.Adam(
-        1e-3, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)).minimize(
-        loss)
+    loss, _ = fluid.models.build_lm(toks, labs, dropout=dropout,
+                                    remat=remat, **LM_CFG)
+    clip = fluid.clip.GradientClipByGlobalNorm(1.0)
+    if dropout > 0:
+        fluid.optimizer.Adam(
+            fluid.learning_rate_decay.noam_decay(LM_CFG["d_model"],
+                                                 BASE_WARMUP),
+            beta1=0.9, beta2=0.98, epsilon=1e-9, grad_clip=clip).minimize(
+            loss)
+    else:
+        fluid.optimizer.Adam(1e-3, grad_clip=clip).minimize(loss)
     main = fluid.default_main_program()
     if amp:
         fluid.amp.enable(main,
@@ -228,6 +249,15 @@ def train_scope(exe, startup, main, params, device=None):
     return scope
 
 
+def resume_at_warmup(scope, main) -> None:
+    """Set every optimizer step of ``main`` in ``scope`` to BASE_WARMUP, as
+    a run resumed at the peak of noam's warm-up would hold it."""
+    for v in main.persistable_vars():
+        if v.name.endswith(".step"):
+            cur = scope.find_var(v.name)
+            scope.set_var(v.name, torch.full_like(cur, BASE_WARMUP))
+
+
 def feed_sig(feed: dict) -> list:
     """The (name, shape, dtype) signature of a numpy feed, for
     ``Executor.warm``."""
@@ -249,11 +279,13 @@ def train_batch(seed: int, n: int = TRAIN_BATCH) -> dict:
 # the grouped updates and the clip's scaling, while the clip's norm and the
 # per-op updates' scalar work stay in other
 STEP_CLASSES = ("flash_attention_f32", "flash_attention_bf16", "lstm",
-                "matmul", "optimizer", "other")
+                "dropout", "matmul", "optimizer", "other")
 
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
+    if "dropout_mask_kernel" in low:
+        return "dropout"
     if "flash_" in low:
         bf16 = "bf16" in low or "bfloat16" in low
         return "flash_attention_bf16" if bf16 else "flash_attention_f32"
@@ -392,12 +424,14 @@ class _OpRanges:
         Op.apply, Optimizer.apply_group = self._apply, self._group
 
 
-def _recipe(model: str, amp: bool = True):
+def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
+            remat: bool = False):
     """(fetch, main, startup, weights, feed, items per step, item unit)."""
     import paddle_tpu_torch as fluid
 
     if model == "lm":
-        return (*build_train_program(amp), fluid.init_lm_params(0, **LM_CFG),
+        return (*build_train_program(amp, dropout, remat),
+                fluid.init_lm_params(0, **LM_CFG),
                 train_batch(3), TRAIN_BATCH * LM_CFG["max_len"], "tokens")
     if model == "text_lstm":
         return (*build_text_lstm_program(), text_lstm_params(0),
@@ -414,10 +448,11 @@ def _recipe(model: str, amp: bool = True):
                      f"{' | '.join(INFER_DEPTH)}")
 
 
-def profile(model: str = "lm", amp: bool = True) -> dict:
+def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
+            remat: bool = False) -> dict:
     """The profile of ``model``'s step: for the LM and the ResNets the amp
     arm, or with ``amp=False`` the float32 arm (text_lstm has only the
-    float32 one)."""
+    float32 one); the LM with ``dropout`` and ``remat``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -427,8 +462,11 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
         raise RuntimeError("train_profile needs a CUDA card")
     steps, repeats = TRAIN_STEPS, REPEATS
     exe = fluid.Executor()            # TF32 off for float32 matmuls and convs
-    fetch, main, startup, weights, feed, items, unit = _recipe(model, amp)
+    fetch, main, startup, weights, feed, items, unit = _recipe(
+        model, amp, dropout, remat)
     scope = train_scope(exe, startup, main, weights)
+    if dropout > 0:
+        resume_at_warmup(scope, main)
     resnet = model == "resnet50" or model in INFER_DEPTH
     warm_s = None
     if model == "lm":
@@ -493,6 +531,7 @@ def profile(model: str = "lm", amp: bool = True) -> dict:
                            f"{2 + 2 * repeats * steps} warmed steps")
     return {
         "card": fluid.card_info(0), "model": model, "steps": steps,
+        "dropout": dropout, "remat": remat,
         "arm": "amp" if amp and model != "text_lstm" else "float32",
         "warm_s": warm_s, "replays": exe.replays,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -520,8 +559,16 @@ def main(argv=None) -> int:
                          "float32 then amp; resnet50: both arms, amp then "
                          "float32), or the ResNet inference step "
                          "(resnet50-infer: both arms; resnet18-infer: amp)")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="lm: build_lm's dropout (with Transformer-base's "
+                         "optimizer, resumed at the peak of warm-up)")
+    ap.add_argument("--remat", action="store_true",
+                    help="lm: build_lm's remat (each block recomputed in "
+                         "the backward)")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args(argv)
+    if args.model != "lm" and (args.dropout or args.remat):
+        ap.error("--dropout and --remat are build_lm's: --model lm")
     arms = {"lm": (False, True), "text_lstm": (False,),
             "resnet18-infer": (True,)}.get(args.model, (True, False))
     results = []
@@ -529,11 +576,14 @@ def main(argv=None) -> int:
         gc.collect()                  # the last arm's graphs and their pool
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        res = profile(args.model, amp)
+        res = profile(args.model, amp, args.dropout, args.remat)
         results.append(res)
         wall, busy = res["wall_ms_per_step"], res["device_busy_ms_per_step"]
         unit = res["unit"]
         arm = f" ({res['arm']})" if args.model != "text_lstm" else ""
+        if args.dropout or args.remat:
+            arm += (f" (dropout {args.dropout:g}"
+                    f"{', remat' if args.remat else ''})")
         what = "inference" if args.model in INFER_DEPTH else "train"
         print(f"{res['model']}{arm} {what} step on {res['card']}: "
               f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "

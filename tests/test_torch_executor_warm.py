@@ -401,7 +401,8 @@ def test_counter_registry_round_trip():
         "paged_attention.launches", "flash_attention.launches",
         "flash_attention.dtype_launches", "fused_lstm.launches",
         "fused_lstm.route_launches", "batch_norm_train.launches",
-        "conv.launches", "conv.route_launches"}
+        "conv.launches", "conv.route_launches",
+        "threefry_dropout.launches", "threefry_dropout.dtype_launches"}
     before = _counters.snapshot()
     fwd = flash_attention.launches
     try:

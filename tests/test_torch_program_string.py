@@ -141,3 +141,50 @@ def test_to_string_of_bf16_and_amp_program():
     assert "  var[ ] h16: (None, 4) bfloat16" in prog.to_string()
     assert str(torch.bfloat16).replace("torch.", "") == \
         np.dtype(jfluid.core.types.convert_dtype("bfloat16")).name
+
+
+def _build_training_surface(fl, accumulate):
+    """dropout, a recomputed block, an L1Decay on a pruned parameter over a
+    global L2Decay, and Adam on noam_decay, with ``accumulate`` steps."""
+    L = fl.layers
+    x = L.data("x", [8])
+    lab = L.data("lab", [1], dtype="int32")
+    h = L.dropout(L.fc(x, 16, act="relu", param_attr=fl.ParamAttr(
+        name="w0", regularizer=fl.regularizer.L1Decay(1e-3),
+        update_hook=fl.hooks.StaticPruningHook(0.5))), 0.1)
+    h = L.recompute(lambda: L.dropout(L.fc(h, 16, act="relu"), 0.2))
+    loss = L.mean(L.softmax_with_cross_entropy(L.fc(h, 4), lab))
+    fl.optimizer.Adam(fl.learning_rate_decay.noam_decay(16, 4),
+                      regularization=fl.regularizer.L2Decay(1e-4),
+                      accumulate_steps=accumulate).minimize(loss)
+    return fl.default_main_program(), fl.default_startup_program()
+
+
+@pytest.mark.parametrize("accumulate", [1, 4])
+def test_to_string_of_training_surface_matches_jax(accumulate):
+    """The ops of this slice print line for line as the reference's:
+    ``dropout`` (its tag), ``recompute`` (one op over the block's captured
+    variables; its sub-block is not printed, as in the reference),
+    ``update_hook`` (and ``update_hook_init`` in the startup program),
+    ``regularize``, and under accumulation ``grad_accumulate`` and
+    ``grad_eff``; ``op_info`` types their attrs alike."""
+    jprog, jstart = _build_training_surface(jfluid, accumulate)
+    tprog, tstart = _build_training_surface(tfluid, accumulate)
+    for j, t in ((jprog, tprog), (jstart, tstart)):
+        assert _without_dict_attrs(t.to_string()) == \
+            _without_dict_attrs(j.to_string())
+    types = [o.type for o in tprog.list_ops()]
+    want = {"dropout", "recompute", "update_hook", "regularize"}
+    if accumulate > 1:
+        want |= {"grad_accumulate", "grad_eff"}
+    assert want <= set(types)
+    assert "update_hook_init" in [o.type for o in tstart.list_ops()]
+    for jop, top in zip(jprog.list_ops(), tprog.list_ops()):
+        for k, v in top.attrs.items():
+            if not callable(v):
+                assert t_op_info.attr_type(top.type, k) == \
+                    j_op_info.attr_type(jop.type, k), (top.type, k)
+    text = tprog.to_string()
+    assert "    attr _tag: int = 1" in text and \
+        "    attr dropout_prob: float = 0.1" in text
+    assert "dropout_prob: float = 0.2" not in text   # inside the block

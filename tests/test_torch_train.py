@@ -172,8 +172,19 @@ def test_build_lm_program_matches_jax():
     (dict(remat=True), "recompute"), (dict(dropout=0.1), "dropout"),
     (dict(use_tp=True), "A.9"), (dict(use_sp=True), "A.9")])
 def test_build_lm_options_not_ported_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _build_lm(tfluid, **kw)
+    """``use_tp`` and ``use_sp`` are not ported and raise (A.9).  ``remat``
+    and ``dropout`` are ported (A.6): the build holds their op, and with
+    ``use_tp`` beside them it still raises A.9."""
+    if match == "A.9":
+        with pytest.raises(NotImplementedError, match=match):
+            _build_lm(tfluid, **kw)
+        return
+    _build_lm(tfluid, **kw)
+    assert match in {op.type for op in
+                     tfluid.default_main_program().list_ops()}
+    tfluid.reset_default_programs()
+    with pytest.raises(NotImplementedError, match="A.9"):
+        _build_lm(tfluid, use_tp=True, **kw)
 
 
 # ------------------------------------------------------------ training steps
@@ -315,10 +326,16 @@ def test_unique_names_match_jax():
 
 
 def test_optimizer_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tfluid.optimizer.Adam(1e-3, accumulate_steps=2)
-    with pytest.raises(NotImplementedError, match="regularizers"):
-        tfluid.optimizer.Adam(1e-3, regularization=object())
+    """Parallel strategies are not ported and raise (A.9).  Accumulation
+    and regularization are ported (A.6): they construct, and a count that
+    is not a positive integer raises as in the reference."""
+    assert tfluid.optimizer.Adam(1e-3, accumulate_steps=2)._accumulate == 2
+    reg = tfluid.regularizer.L2Decay(1e-4)
+    assert tfluid.optimizer.Adam(1e-3, regularization=reg)._regularization \
+        is reg
+    for bad in (0, 1.5):
+        with pytest.raises(ValueError, match="positive integer"):
+            tfluid.optimizer.Adam(1e-3, accumulate_steps=bad)
     with pytest.raises(NotImplementedError, match="A.9"):
         tfluid.Executor(CPU, strategy=object())
 
