@@ -108,7 +108,34 @@ Phases (any failure exits non-zero, before the final line):
                with the LSTM launch counts set to 0 before and read after
                (2 layers x 5 steps each, every call on the persistent
                route), losses finite and falling, ms per step and
-               sequences/s;
+               sequences/s; then the same 128-sequence signature warmed
+               (Executor.warm: one CUDA graph, the persistent kernels'
+               cooperative launches captured), a replay bitwise against
+               the eager step (and grouped against per-op updates), 5
+               replays with the LSTM counts set to 0 before and read after
+               (counted at replay: 2 x 5 each, all persistent), the warmed
+               ms per step beside the eager one;
+ 10a. seq2seq train - seq2seq + attention (train_net's widths, emb 256,
+               hidden 512, 30000 words a side, weights from the port's
+               startup program on the CPU, seed 0) with Adam(1e-3) and clip
+               1.0: the B = 8 signature warmed ("compiled", then "cached"),
+               one replay bitwise against an unwarmed Executor's eager step
+               (the loss, every gradient, parameter, moment, the optimizer
+               step, the step counter) and grouped against per-op updates,
+               card against CPU (loss rtol 1e-4; each gradient within 1e-3
+               of its max |g|, one that is rounding noise, below 1e-6 of
+               the step's largest, within 1e-3 of that); then the B = 64
+               signature (pairs padded to 50, lengths 10-50) warmed and 5
+               replays (losses finite and falling, replays 5, compiles
+               unmoved), ms per step, target and source tokens/s, peak
+               memory, and 3 eager steps' ms in the same run;
+ 10b. seq2seq beam - beam_search_decoder (beam 4, max_len 32) on 64
+               sources, warmed as one graph over the fixed 32-step loop:
+               a replay bitwise equal to the eager run (tokens, scores,
+               lens), the replay's first 4 rows against the CPU's run on
+               those 4 sources (scores within 1e-4 relative, tokens equal
+               in >= 0.98 of positions), ms per
+               decode and emitted tokens/s, warmed and eager;
  11. bn kernels - the batch-norm backward kernels (reduction, dx) against
                their plain versions in float32 and bfloat16 at ResNet-50's
                shapes ([256,64,56,56], [256,128,28,28], [256,256,56,56]
@@ -324,6 +351,21 @@ OPT_LM_CFG = dict(vocab_size=512, max_len=128, d_model=128, n_heads=2,
                   n_layers=2, d_ff=256)
 INFER_ARMS = (("resnet50-infer", 50, True), ("resnet50-infer", 50, False),
               ("resnet18-infer", 18, True))
+# seq2seq: the beam decode's card-against-CPU sources (the train parity
+# signature's batch and feed seed are tools/seq2seq_parity.py's)
+SEQ2SEQ_BEAM_PARITY = 4
+# the seq2seq parity step, card against CPU: each gradient within 1e-3 of
+# its max |g| (the float32 train limit), except one that is float32
+# rounding noise, max |g| below this share of the step's largest: that one
+# within 1e-3 of the step's largest max |g|.  At this initialisation the
+# attention projection's gradient (fc_w_4) is the remainder of a score
+# shift that the softmax cancels, 2.5e-11 against 3.9e-2; the CPU moves it
+# by 1.05-1.11e-3 of itself under a relative 1e-7 change of the weights,
+# and TF32 by 1.14e-3, so no limit on its own max |g| tells float32 from
+# a lower precision (tools/seq2seq_parity.py, PERF.md section 2); the next
+# smallest, fc_w_2, is 3.8e-6 of the largest.  The CPU tests use the same
+# share (tests/test_torch_seq2seq.py)
+SEQ2SEQ_NOISE_SHARE = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -1518,13 +1560,14 @@ def _replay_against_eager(label, exe, main, startup, params, feed,
 
 def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
     """Warm the training signature (``feed``) on ``scope``, then
-    TRAIN_STEPS replays, with every flash and dropout launch count set to 0
-    just before and read just after (counted at replay): losses,
+    TRAIN_STEPS replays, with every flash, dropout and LSTM launch count
+    set to 0 just before and read just after (counted at replay): losses,
     CUDA-event ms per step (fetch included), the counts (all, and by
     dtype), warm seconds,
     replays and compiles, peak memory (allocated, and reserved: a graph's
     activations live in its pool, reserved while it replays)."""
-    from paddle_tpu_torch.ops import flash_attention, threefry_dropout
+    from paddle_tpu_torch.ops import (flash_attention, fused_lstm,
+                                      threefry_dropout)
     from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS, feed_sig
 
     torch.cuda.synchronize()
@@ -1542,6 +1585,9 @@ def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
         threefry_dropout.launches[kern] = 0
         for counts in threefry_dropout.dtype_launches.values():
             counts[kern] = 0
+    for counts in (fused_lstm.launches, fused_lstm.route_launches):
+        for k in counts:
+            counts[k] = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
@@ -1561,6 +1607,8 @@ def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
             "launches": dict(flash_attention.launches),
             "dtype_launches": {dt: dict(c) for dt, c in
                                flash_attention.dtype_launches.items()},
+            "lstm_launches": dict(fused_lstm.launches),
+            "lstm_route_launches": dict(fused_lstm.route_launches),
             "dropout_launches": dict(threefry_dropout.launches),
             "dropout_dtype_launches": {
                 dt: dict(c) for dt, c in
@@ -2140,8 +2188,230 @@ def phase_lstm_train(card: str) -> dict:
           f"{TEXT_LSTM_BATCH / med * 1e3:.0f} sequences/s; lstm launches "
           f"{launches} = {n_layers} layers x {TRAIN_STEPS} steps, by route "
           f"{routes} (each persistent call one device launch); on {card}")
+
+    # warmed: the 128-sequence signature as one CUDA graph (the persistent
+    # kernels' cooperative launches captured), a replay bitwise against
+    # the eager step, then TRAIN_STEPS replays counted at replay
+    _replay_against_eager("lstm train", exe, main, startup, params, feed,
+                          [loss] + grad_names)
+    run = _lm_train_pass(exe, main, loss,
+                         train_scope(exe, startup, main, params), feed)
+    w_launches, w_routes = run["lstm_launches"], run["lstm_route_launches"]
+    check(all(np.isfinite(run["losses"])) and
+          run["losses"][-1] < run["losses"][0],
+          f"lstm train (warmed): losses {run['losses']}")
+    check(all(w_launches[k] == n_layers * TRAIN_STEPS for k in LSTM_KERNELS),
+          f"lstm train (warmed): launches counted at replay {w_launches}, "
+          f"expected {n_layers} x {TRAIN_STEPS} each")
+    check(w_routes == {"persistent":
+                       len(LSTM_KERNELS) * n_layers * TRAIN_STEPS, "step": 0},
+          f"lstm train (warmed): route launches {w_routes}, expected every "
+          f"call on the persistent route")
+    w_med = float(np.median(run["step_ms"][1:]))
+    print(f"lstm train (warmed): {TRAIN_STEPS} replays, losses "
+          f"{', '.join(f'{x:.5f}' for x in run['losses'])}; step ms "
+          f"{', '.join(f'{x:.2f}' for x in run['step_ms'])}; median of "
+          f"steps 2-{TRAIN_STEPS} {w_med:.3f} ms = "
+          f"{TEXT_LSTM_BATCH / w_med * 1e3:.0f} sequences/s (eager "
+          f"{med:.3f} ms = {TEXT_LSTM_BATCH / med * 1e3:.0f}); "
+          f"{_pass_line(run)}; lstm launches counted at replay {w_launches}, "
+          f"by route {w_routes}; on {card}")
     return {"launches": launches, "route_launches": routes, "losses": losses,
-            "median_ms": med}
+            "median_ms": med, "warmed_launches": w_launches,
+            "warmed_route_launches": w_routes, "warmed_median_ms": w_med}
+
+
+def _card_cpu_grads(label, got, want, grad_names) -> None:
+    """The float32 train limit, card against CPU: the loss within rtol
+    1e-4, every gradient within 1e-3 of its max |g|, or, where that max is
+    below SEQ2SEQ_NOISE_SHARE of the step's largest (rounding noise; at
+    most one such, printed with its magnitude), within 1e-3 of the step's
+    largest."""
+    l_gpu, l_cpu = float(got[0]), float(want[0])
+    check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"{label} parity step: loss {l_gpu} on the card, {l_cpu} on the "
+          f"CPU")
+    top = max(float(np.abs(b).max()) for b in want[1:])
+    worst, worst_name, noise = 0.0, None, []
+    for name, a, b in zip(grad_names, got[1:], want[1:]):
+        check(np.isfinite(a).all(), f"{label} parity step: non-finite {name}")
+        scale = float(np.abs(b).max())
+        d = float(np.abs(a - b).max())
+        if scale < SEQ2SEQ_NOISE_SHARE * top:
+            noise.append(f"{name} (max |g| {scale:.3e}, max |d| {d:.3e} = "
+                         f"{d / max(scale, 1e-30):.3e} of it, "
+                         f"{d / top:.3e} of the largest)")
+            scale = top
+        if d / scale >= worst:
+            worst, worst_name = d / scale, name
+    print(f"{label} parity: loss {l_gpu:.6f} card (the warmed replay), "
+          f"{l_cpu:.6f} CPU (rtol 1e-4); {len(grad_names)} gradients, worst "
+          f"max|d|/max|g| {worst:.3e} ({worst_name}; limit 1e-3); largest "
+          f"max |g| {top:.3e}; rounding noise (below "
+          f"{SEQ2SEQ_NOISE_SHARE:g} of it, held to 1e-3 of it): "
+          f"{'; '.join(noise) or 'none'}")
+    check(len(noise) <= 1, f"{label} parity step: {len(noise)} gradients "
+                           f"below {SEQ2SEQ_NOISE_SHARE} of the largest")
+    check(worst <= 1e-3, f"{label} parity step: {worst_name} differs by "
+                         f"{worst} of its limit's scale (limit 1e-3)")
+
+
+def _event_ms(fn, n: int) -> list:
+    """CUDA-event ms of each of ``n`` calls of ``fn`` (host cost and any
+    fetch included)."""
+    out = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def phase_seq2seq_train(card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.seq2seq_parity import (
+        PARITY_BATCH, PARITY_FEED_SEED)
+    from paddle_tpu_torch.tools.train_profile import (
+        TRAIN_STEPS, build_seq2seq_program, seq2seq_batch, startup_params,
+        train_scope)
+
+    # the program, weights and batch of tools/train_profile.py --model
+    # seq2seq: train_net's widths, 30000 words a side, weights from the
+    # port's startup program on the CPU, seed 0
+    loss, main, startup = build_seq2seq_program()
+    params = startup_params(main, startup, 0)
+    grad_names = [f"{n}@GRAD" for n in params]
+    exe = fluid.Executor()
+    exe_cpu = fluid.Executor(fluid.CPUPlace())
+
+    # parity: the B = 8 signature warmed, one replay against an unwarmed
+    # Executor's eager step (bitwise) and against the CPU
+    feed = seq2seq_batch(PARITY_FEED_SEED, PARITY_BATCH)
+    fetch = [loss] + grad_names
+    got, t_warm, _ = _replay_against_eager("seq2seq train", exe, main,
+                                           startup, params, feed, fetch)
+    t0 = time.perf_counter()
+    want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
+                       scope=train_scope(exe_cpu, startup, main, params,
+                                         "cpu"))
+    t_cpu = time.perf_counter() - t0
+    _card_cpu_grads("seq2seq train", got, want, grad_names)
+    print(f"seq2seq train parity: warm {t_warm:.2f} s card, step "
+          f"{t_cpu:.2f} s CPU")
+    del got, want
+    _release()
+
+    # the B = 64 signature warmed, TRAIN_STEPS replays on a fixed batch
+    feed = seq2seq_batch(0)
+    run = _lm_train_pass(exe, main, loss,
+                         train_scope(exe, startup, main, params), feed)
+    losses = run["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"seq2seq train: losses {losses}, expected finite and falling")
+    med = float(np.median(run["step_ms"][1:]))
+    # the eager step in the same run: an Executor that did not warm
+    eager = fluid.Executor()
+    eager_scope = train_scope(eager, startup, main, params)
+    eager_ms = _event_ms(lambda: eager.run(main, feed=feed,
+                                           fetch_list=[loss],
+                                           scope=eager_scope), 3)
+    check(eager.replays == 0, "seq2seq train: the eager Executor replayed")
+    e_med = float(np.median(eager_ms[1:]))
+    tgt, src = int(feed["tlen"].sum()), int(feed["slen"].sum())
+    print(f"seq2seq train: {TRAIN_STEPS} Adam steps on "
+          f"{feed['src'].shape[0]} pairs x {feed['src'].shape[1]} "
+          f"({src} source, {tgt} target tokens), losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; step ms "
+          f"{', '.join(f'{x:.2f}' for x in run['step_ms'])}; median of "
+          f"steps 2-{TRAIN_STEPS} {med:.3f} ms = {tgt / med * 1e3:.0f} "
+          f"target tokens/s, {src / med * 1e3:.0f} source tokens/s; eager "
+          f"step {', '.join(f'{x:.2f}' for x in eager_ms)} ms, median of 2-3 "
+          f"{e_med:.3f} ms ({tgt / e_med * 1e3:.0f} target tokens/s); "
+          f"{_pass_line(run)}; on {card}")
+    return {"median_ms": med, "eager_median_ms": e_med,
+            "target_tokens_per_s": tgt / med * 1e3,
+            "source_tokens_per_s": src / med * 1e3,
+            "warm_s": run["warm_s"], "parity_warm_s": t_warm,
+            "peak_bytes": run["peak_bytes"],
+            "peak_reserved": run["peak_reserved"]}
+
+
+def phase_seq2seq_beam(card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (
+        build_beam_program, emitted_tokens, feed_sig, seq2seq_batch,
+        startup_params, train_scope)
+
+    # beam_search_decoder at its own widths (beam 4, max_len 32) on 64
+    # sources, weights from the port's startup program on the CPU, seed 0
+    fetch, main, startup = build_beam_program()
+    fetch = list(fetch)
+    params = startup_params(main, startup, 0)
+    feed = seq2seq_batch(0, train=False)
+    exe = fluid.Executor()
+    scope = train_scope(exe, startup, main, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    how = exe.warm(main, feed_sig(feed), fetch, scope=scope)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    again = exe.warm(main, feed_sig(feed), fetch, scope=scope)
+    check(how == "compiled" and again == "cached" and exe.compiles == 1,
+          f"seq2seq beam: warm gave {how!r} then {again!r}")
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    check(exe.replays == 1, "seq2seq beam: the warmed decode did not replay")
+    eager = fluid.Executor()
+    eager_scope = train_scope(eager, startup, main, params)
+    want = eager.run(main, feed=feed, fetch_list=fetch, scope=eager_scope)
+    same = [a.tobytes() == b.tobytes() for a, b in zip(got, want)]
+    print(f"seq2seq beam replay vs eager: tokens, scores, lens bitwise "
+          f"equal {same}")
+    check(all(same), "seq2seq beam: the replay differs from the eager run")
+
+    # card against CPU on SEQ2SEQ_BEAM_PARITY sources: rows decode on
+    # their own, so the warmed replay's first rows against the CPU's run
+    # on those sources alone
+    few = {k: v[:SEQ2SEQ_BEAM_PARITY] for k, v in feed.items()}
+    c_tok, c_sc = (a[:SEQ2SEQ_BEAM_PARITY] for a in got[:2])
+    exe_cpu = fluid.Executor(fluid.CPUPlace())
+    h_tok, h_sc, _ = exe_cpu.run(main, feed=few, fetch_list=fetch,
+                                 scope=train_scope(exe_cpu, startup, main,
+                                                   params, "cpu"))
+    rel = float((np.abs(c_sc - h_sc) / np.maximum(np.abs(h_sc), 1e-30))
+                .max())
+    equal = int((c_tok == h_tok).sum())
+    print(f"seq2seq beam card (the warmed replay's first "
+          f"{SEQ2SEQ_BEAM_PARITY} rows) vs CPU on those sources: "
+          f"worst score difference {rel:.3e} relative (limit 1e-4); tokens "
+          f"equal in {equal} of {c_tok.size} positions (limit 0.98)")
+    check(np.isfinite(c_sc).all() and rel <= 1e-4,
+          f"seq2seq beam: scores differ by {rel} relative")
+    check(equal >= 0.98 * c_tok.size,
+          f"seq2seq beam: tokens equal in only {equal} of {c_tok.size}")
+
+    # timing: warmed replays against eager runs, in this run
+    n_tok = emitted_tokens(got[2])
+    replays = exe.replays
+    w_ms = _event_ms(lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                                     scope=scope), 5)
+    check(exe.replays - replays == 5, "seq2seq beam: a timed decode did not "
+                                      "replay")
+    e_ms = _event_ms(lambda: eager.run(main, feed=feed, fetch_list=fetch,
+                                       scope=eager_scope), 3)
+    w_med, e_med = float(np.median(w_ms[1:])), float(np.median(e_ms[1:]))
+    print(f"seq2seq beam: {feed['src'].shape[0]} sources, beam "
+          f"{got[0].shape[1]}, {got[0].shape[2]} steps, {n_tok} emitted "
+          f"tokens (the best hypotheses' lengths); warmed in {warm_s:.2f} s; "
+          f"decode ms {', '.join(f'{x:.2f}' for x in w_ms)}, median of 2-5 "
+          f"{w_med:.3f} ms = {n_tok / w_med * 1e3:.0f} emitted tokens/s; "
+          f"eager {', '.join(f'{x:.2f}' for x in e_ms)}, median of 2-3 "
+          f"{e_med:.3f} ms = {n_tok / e_med * 1e3:.0f}; on {card}")
+    return {"median_ms": w_med, "eager_median_ms": e_med,
+            "emitted_tokens": n_tok, "warm_s": warm_s}
 
 
 def _bn_bound(kernel: str, n: int, c: int, hw: int, dtype) -> tuple:
@@ -2830,6 +3100,11 @@ def main() -> int:
     _timed("optimizers", phase_optimizers, card)
     _release()
     lstm_train = _timed("lstm train", phase_lstm_train, card)
+    _release()
+    _timed("seq2seq train", phase_seq2seq_train, card)
+    _release()
+    _timed("seq2seq beam", phase_seq2seq_beam, card)
+    _release()
     bn = _timed("bn kernels", phase_bn_kernels, card)
     resnet = _timed("resnet train", phase_resnet_train, card)
     convk = _timed("conv kernels", phase_conv_kernels, card)
@@ -2879,9 +3154,13 @@ def main() -> int:
                                  "kernel, du matmul, peephole sums")),
             # launches: the lstm training pass's own count (5 steps x 2
             # layers), one call per layer per step, each call one device
-            # launch on the persistent route; the pass's calls by route
+            # launch on the persistent route; the pass's calls by route;
+            # the warmed pass's, counted at replay, in launches_by_path
             "launches": lstm_train["launches"][kern], **lstm[kern],
             "route_launches": lstm_train["route_launches"],
+            "launches_by_path": {
+                "lstm train": lstm_train["launches"][kern],
+                "lstm train warmed": lstm_train["warmed_launches"][kern]},
         })
     replaces = {"reduce": "benchmark/bn_probe.py:84",
                 "dx": "benchmark/bn_probe.py:126"}

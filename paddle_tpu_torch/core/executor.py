@@ -538,7 +538,8 @@ def check_kernel_shapes(program: Program, device: torch.device) -> None:
     * a training ``dropout`` (not ``is_test``) in anything but float32 or
       bfloat16.
 
-    Ops inside an op's sub-block (``layers.recompute``) are checked too.
+    Ops inside an op's sub-block (``layers.recompute``'s, and the body of
+    a ``static_rnn`` op, ``StaticRNN`` / ``DynamicRNN``) are checked too.
     A compute dtype is the input's declared dtype as the program's amp
     policy casts it for that op.  The conv kernels' dtypes need no check:
     ``core/fusion.py`` routes only the convs they take.  The check lives

@@ -1,23 +1,29 @@
 """Control flow (PyTorch port of the ``paddle_tpu/layers/control_flow.py``
-subset the training slices use): ``recompute`` with the helpers it needs
-(``_hoist_parameters``, ``_exec_sub``, ``_captured_names``).  StaticRNN,
-DynamicRNN, ``cond`` and the while loops are ROADMAP A.7.
+subset the training slices use): ``StaticRNN`` and ``DynamicRNN``, and
+``recompute``, with the helpers they share (``_hoist_parameters``,
+``_exec_sub``, ``_captured_names``).  ``cond``, ``while_loop`` and
+``IfElse`` are ROADMAP A.7.
 
 A construct's body is recorded into a sub-Program; the construct becomes
-ONE op in the outer program whose closure runs the body's ops.
+ONE op in the outer program whose closure runs the body's ops (the op's
+``sub_block``, which the checks that walk a program's ops read).
 Parameters created inside the body are hoisted to the outer program so
-that the Executor threads them as state, under their own names.
+that the Executor threads them as state, under their own names.  The JAX
+package runs an RNN body under ``lax.scan``; here it runs once per step in
+a Python loop, which autograd records and ``Executor.warm`` captures with
+the rest of the step.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import unique_name
-from ..core.program import (Op, OpContext, Program, default_main_program,
-                            program_guard)
+from ..core.program import (Op, OpContext, Program, Variable,
+                            default_main_program, program_guard)
 from .helper import LayerHelper
 
 
@@ -64,6 +70,180 @@ def _captured_names(ops: List[Op], out_names: Sequence[str], outer: Program):
         if n not in produced and n not in needed:
             needed.append(n)
     return [n for n in needed if outer.global_block.has_var(n)]
+
+
+class StaticRNN:
+    """RNN over a fixed max length (ref ``control_flow.py:75``;
+    recurrent_op.cc).  Usage::
+
+        rnn = StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)            # x: [batch, T, d] -> xt: [batch, d]
+            h = rnn.memory(shape=[hidden], batch_ref=xt)
+            nh = fluid.layers.fc([xt, h], hidden, act='tanh')
+            rnn.update_memory(h, nh)
+            rnn.step_output(nh)
+        out, = rnn()                           # [batch, T, hidden]
+
+    Called with ``lengths``, a padded step (t >= length) holds every
+    memory and emits zero outputs."""
+
+    def __init__(self, name: Optional[str] = None):
+        self.name = name or unique_name.generate("static_rnn")
+        self.sub_program = Program()
+        self.outer_program = default_main_program()
+        self._seq_inputs: List[tuple] = []     # (outer var, inner var)
+        self._static_inputs: List[tuple] = []  # whole at every step
+        self._memories: List[dict] = []
+        self._outputs: List[Variable] = []
+        self._recorded = False
+
+    @contextlib.contextmanager
+    def step(self):
+        with program_guard(self.sub_program):
+            yield
+        self._recorded = True
+
+    # ---- body-building API
+    def step_input(self, x: Variable) -> Variable:
+        inner = self.sub_program.global_block.create_var(
+            unique_name.generate(f"{self.name}.x"),
+            (x.shape[0],) + tuple(x.shape[2:]), x.dtype)
+        self._seq_inputs.append((x, inner))
+        return inner
+
+    def static_input(self, x: Variable) -> Variable:
+        """A non-sequence input seen whole at every step (the encoder states
+        of an attention decoder)."""
+        inner = self.sub_program.global_block.create_var(
+            unique_name.generate(f"{self.name}.static"), x.shape, x.dtype)
+        self._static_inputs.append((x, inner))
+        return inner
+
+    def memory(self, init: Optional[Variable] = None,
+               shape: Optional[Sequence[int]] = None, value: float = 0.0,
+               batch_ref: Optional[Variable] = None,
+               dtype="float32") -> Variable:
+        """A carried state: ``init`` (a Variable [batch, ...]) or ``shape``
+        (without the batch dim) filled with ``value``; ``batch_ref`` is
+        accepted for the reference's signature (the batch comes from the
+        step inputs)."""
+        del batch_ref
+        if init is not None:
+            inner_shape, inner_dtype = init.shape, init.dtype
+        else:
+            if shape is None:
+                raise ValueError("memory needs init= or shape=")
+            inner_shape, inner_dtype = (None,) + tuple(shape), dtype
+        inner = self.sub_program.global_block.create_var(
+            unique_name.generate(f"{self.name}.mem"), inner_shape,
+            inner_dtype)
+        self._memories.append({"inner": inner, "init": init, "shape": shape,
+                               "value": value, "updated": None})
+        return inner
+
+    def update_memory(self, mem: Variable, new: Variable):
+        for m in self._memories:
+            if m["inner"] is mem:
+                m["updated"] = new
+                return
+        raise ValueError("update_memory: unknown memory variable")
+
+    def step_output(self, o: Variable):
+        self._outputs.append(o)
+
+    def output(self, *outputs):
+        for o in outputs:
+            self.step_output(o)
+
+    # ---- finalize: append one op to the outer program
+    def __call__(self, lengths: Optional[Variable] = None):
+        if not (self._recorded and self._outputs):
+            raise ValueError(f"{type(self).__name__}: record a step with "
+                             f"outputs first")
+        if any(m["updated"] is None for m in self._memories):
+            raise ValueError("every memory needs update_memory")
+        helper = LayerHelper("static_rnn")
+        _hoist_parameters(self.sub_program, self.outer_program)
+
+        sub_ops = list(self.sub_program.global_block.ops)
+        seq_in_names = [iv.name for _, iv in self._seq_inputs]
+        static_names = [iv.name for _, iv in self._static_inputs]
+        mem_specs = [
+            {"inner": m["inner"].name,
+             "shape": tuple(m["shape"]) if m["init"] is None else None,
+             "value": m["value"], "dtype": m["inner"].dtype}
+            for m in self._memories]
+        updated_names = [m["updated"].name for m in self._memories]
+        out_names = [o.name for o in self._outputs]
+        param_names = sorted(
+            set(self.sub_program._parameters)
+            | {v.name for v in self.sub_program.global_block.vars.values()
+               if v.persistable})
+        outer_inputs: Dict[str, List[str]] = {
+            "X": [ov.name for ov, _ in self._seq_inputs],
+            "Static": [ov.name for ov, _ in self._static_inputs],
+            "Params": param_names,
+            "MemInit": [m["init"].name for m in self._memories
+                        if m["init"] is not None],
+        }
+        if lengths is not None:
+            outer_inputs["Length"] = [lengths.name]
+
+        def fn(ins, attrs, ctx):
+            xs = ins["X"]
+            consts = dict(zip(param_names, ins["Params"]))
+            consts.update(zip(static_names, ins.get("Static", [])))
+            inits = iter(ins.get("MemInit", []))
+            B, T = xs[0].shape[0], xs[0].shape[1]
+            carry = [next(inits) if spec["shape"] is None else
+                     torch.full((B,) + spec["shape"], spec["value"],
+                                dtype=spec["dtype"], device=xs[0].device)
+                     for spec in mem_specs]
+            ln = ins.get("Length", [None])[0]
+            if ln is not None:
+                mask = (torch.arange(T, device=ln.device)[None, :]
+                        < ln[:, None]).to(xs[0].dtype).t()   # [T, B]
+            else:
+                mask = torch.ones((T, B), dtype=xs[0].dtype,
+                                  device=xs[0].device)
+            steps = [[] for _ in out_names]
+            for t in range(T):
+                env = dict(consts)
+                env.update((n, x[:, t]) for n, x in zip(seq_in_names, xs))
+                env.update((spec["inner"], c)
+                           for spec, c in zip(mem_specs, carry))
+                _exec_sub(sub_ops, env, ctx)
+                mt = mask[t]
+                new = []
+                for uname, c in zip(updated_names, carry):
+                    nc = env[uname]
+                    m = mt.reshape((-1,) + (1,) * (nc.dim() - 1))
+                    new.append(nc * m + c * (1 - m))
+                carry = new
+                # outputs at padded steps are zero, as dynamic_lstm's
+                for acc, n in zip(steps, out_names):
+                    o = env[n]
+                    acc.append(o * mt.reshape((-1,) + (1,) * (o.dim() - 1)))
+            return {"Out": [torch.stack(acc, 1) for acc in steps]}
+
+        t_dim = self._seq_inputs[0][0].shape[1] if self._seq_inputs else None
+        block = helper.block
+        out_vars = [block.create_var(unique_name.generate(f"{self.name}.out"),
+                                     (None, t_dim) + tuple(o.shape[1:]),
+                                     o.dtype)
+                    for o in self._outputs]
+        block.append_op(Op("static_rnn", outer_inputs,
+                           {"Out": [v.name for v in out_vars]}, {}, fn,
+                           sub_block=self.sub_program.global_block))
+        return out_vars  # always a list; unpack with `out, = rnn()`
+
+
+class DynamicRNN(StaticRNN):
+    """Length-aware RNN (ref ``control_flow.py:249``; the reference's
+    LoDTensorArray and rank table become the masked loop): the same API,
+    called with ``lengths``; padded steps hold the memories and emit
+    zeros."""
 
 
 def recompute(fn: Callable, name=None):
@@ -127,4 +307,4 @@ def recompute(fn: Callable, name=None):
     return out_vars if len(out_vars) > 1 else out_vars[0]
 
 
-__all__ = ["recompute"]
+__all__ = ["DynamicRNN", "StaticRNN", "recompute"]

@@ -1,10 +1,11 @@
 """Dense-math layers (PyTorch port of the ``paddle_tpu/layers/tensor.py``
 subset the training slices use): ``elementwise_add`` with Fluid's ``axis``
-mid-broadcast, ``mean``, ``sums`` and ``reshape``."""
+mid-broadcast, ``mean``, ``sums``, ``reshape``, ``concat`` and ``assign``."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..core.program import Variable
@@ -76,4 +77,36 @@ def reshape(x: Variable, shape: Sequence[int], name=None, **_ignored):
         {"X": [x]}, attrs={"shape": tuple(shape)})
 
 
-__all__ = ["elementwise_add", "mean", "reshape", "sums"]
+def concat(inputs: Sequence[Variable], axis: int = 0, name=None):
+    helper = LayerHelper("concat", name=name)
+    return helper.append_op(
+        lambda ctx, *arrs, axis: torch.cat(arrs, dim=axis),
+        {"X": list(inputs)}, attrs={"axis": axis})
+
+
+def assign(x):
+    """A copy of a Variable, or a constant from a numpy array (ref:
+    paddle/operators/assign_op.cc).  A constant is moved to a device once,
+    at the first step there, and kept: a step captured into a CUDA graph
+    copies nothing from the host."""
+    helper = LayerHelper("assign")
+    if isinstance(x, Variable):
+        return helper.append_op(lambda ctx, a: a, {"X": [x]})
+    arr = np.array(x)
+    # JAX's 32-bit mode: 64-bit constants come in as 32-bit ones
+    arr = arr.astype({np.dtype(np.float64): np.float32,
+                      np.dtype(np.int64): np.int32}.get(arr.dtype, arr.dtype))
+    const = torch.from_numpy(arr)
+    on_device = {}
+
+    def fn(ctx):
+        if ctx.device.type == "meta":
+            return torch.empty(const.shape, dtype=const.dtype, device="meta")
+        if ctx.device not in on_device:
+            on_device[ctx.device] = const.to(ctx.device)
+        return on_device[ctx.device]
+
+    return helper.append_op(fn, {})
+
+
+__all__ = ["assign", "concat", "elementwise_add", "mean", "reshape", "sums"]

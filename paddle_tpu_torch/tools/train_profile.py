@@ -1,6 +1,6 @@
 """Where the time of one training step goes, on the CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|resnet50|resnet50-infer|resnet18-infer] [--dropout P] [--remat] [--out F]
+    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|resnet50|resnet50-infer|resnet18-infer] [--dropout P] [--remat] [--eager] [--out F]
 
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
@@ -17,7 +17,23 @@ clip 1.0), resumed at the optimizer step 4000, the peak of warm-up.
 10000, emb 128, 2 x LSTM-512, 2 classes, seq_len 100, float32, weights
 ``init_text_lstm_params(0)``) with Adam(1e-3), on a fixed batch of 128
 sequences with lengths drawn from [50, 100] (that file's
-``synthetic_feed``).  ``--model resnet50`` builds ResNet-50 as ``bench.py``
+``synthetic_feed``).  ``--model seq2seq`` builds ``models.seq2seq.
+train_net`` at its own widths (emb 256, hidden 512) with the 30000-word
+WMT14 dictionary on each side, Adam(1e-3) and clip 1.0, on 64 sentence
+pairs padded to 50 tokens (lengths 10-50, numpy seed 0), weights from the
+port's startup program on the CPU (seed 0); ``--model seq2seq-beam`` its
+``beam_search_decoder`` (beam 4, max_len 32) on those 64 sources, the
+emitted tokens counted as the best hypotheses' lengths.  lm, text_lstm and
+both seq2seq models ``Executor.warm`` their signature first, so every
+profiled step is a replay of one CUDA graph (``--eager``: op by op); for
+seq2seq the device ms by class come from two more eager steps of the same
+program on a second scope (a replay has no op ranges): the output
+projection and cross-entropy, the GRU recurrences, the attention step, the
+optimizer and other, by the op that launched each kernel or, in the
+backward, by the forward op whose autograd node launched it; for the beam
+decode the encoder (by op), and inside the beam op by kernel name the
+beam selection (top_k), matmul, softmax and other.  ``--model resnet50``
+builds ResNet-50 as ``bench.py``
 trains it (``models.resnet.build``, 1000 classes, Momentum(0.1, 0.9),
 weights ``init_resnet_params(0)``) on a fixed batch of 224x224 images that
 stays on the card, in two arms: amp (bf16 compute, bs=256) and float32
@@ -90,6 +106,16 @@ RESNET_FP32_BATCH = 256
 # command: model name -> depth
 INFER_DEPTH = {"resnet50-infer": 50, "resnet18-infer": 18}
 INFER_BATCH = 256
+# seq2seq + attention (BASELINE.json configs[2]) at train_net's and
+# beam_search_decoder's own widths, with the 30000-word WMT14 dictionary
+# of the Paddle book's machine-translation chapter on each side; ids 0, 1
+# and 2 are <s>, <e> and <unk> (the reference's wmt14 dictionary layout)
+SEQ2SEQ_CFG = dict(src_vocab=30000, tgt_vocab=30000, emb_dim=256,
+                   hidden=512)
+SEQ2SEQ_LEN = 50              # sentence pairs padded to 50 tokens
+SEQ2SEQ_BATCH = 64
+SEQ2SEQ_LENGTHS = (10, 50)    # source and target lengths, uniform
+SEQ2SEQ_BEAM = dict(bos_id=0, eos_id=1, beam_size=4, max_len=32)
 # Transformer-base's optimizer (Vaswani et al. 2017, section 5.3), for
 # the programs with dropout: Adam(0.9, 0.98, 1e-9) on noam_decay(d_model,
 # BASE_WARMUP), resumed at the optimizer step BASE_WARMUP (the peak of
@@ -147,6 +173,90 @@ def build_text_lstm_program():
                                               **TEXT_LSTM_CFG)
     fluid.optimizer.Adam(1e-3).minimize(loss)
     return loss, fluid.default_main_program(), fluid.default_startup_program()
+
+
+def _seq2seq_data(fluid):
+    T = SEQ2SEQ_LEN
+    src = fluid.layers.data("src", [T], dtype="int32")
+    slen = fluid.layers.data("slen", [-1], dtype="int32",
+                             append_batch_size=False)
+    return src, slen
+
+
+def build_seq2seq_program():
+    """``models.seq2seq.train_net`` at SEQ2SEQ_CFG's width over pairs padded
+    to SEQ2SEQ_LEN tokens, with Adam(1e-3) and global-norm clipping (1.0),
+    in fresh default programs; returns (loss, main, startup)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    T = SEQ2SEQ_LEN
+    src, slen = _seq2seq_data(fluid)
+    tgt = fluid.layers.data("tgt", [T], dtype="int32")
+    tlen = fluid.layers.data("tlen", [-1], dtype="int32",
+                             append_batch_size=False)
+    lab = fluid.layers.data("lab", [T, 1], dtype="int32")
+    loss = fluid.models.seq2seq.train_net(src, slen, tgt, tlen, lab,
+                                          **SEQ2SEQ_CFG)
+    fluid.optimizer.Adam(
+        1e-3, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)).minimize(
+        loss)
+    return loss, fluid.default_main_program(), fluid.default_startup_program()
+
+
+def build_beam_program():
+    """``models.seq2seq.beam_search_decoder`` at SEQ2SEQ_CFG's width and
+    SEQ2SEQ_BEAM, in fresh default programs; returns ((tokens, scores,
+    lens), main, startup): lens is the ``beam_search`` op's third output,
+    each beam's length before <e>."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    src, slen = _seq2seq_data(fluid)
+    toks, scores = fluid.models.seq2seq.beam_search_decoder(
+        src, slen, SEQ2SEQ_CFG["src_vocab"], SEQ2SEQ_CFG["tgt_vocab"],
+        emb_dim=SEQ2SEQ_CFG["emb_dim"], hidden=SEQ2SEQ_CFG["hidden"],
+        **SEQ2SEQ_BEAM)
+    main = fluid.default_main_program()
+    op = next(o for o in main.list_ops() if o.type == "beam_search")
+    lens = main.global_block.var(op.outputs["Out"][2])
+    return (toks, scores, lens), main, fluid.default_startup_program()
+
+
+def startup_params(main, startup, seed: int = 0) -> dict:
+    """The parameters of ``main`` as numpy arrays, as the port's startup
+    program draws them on the CPU with program seed ``seed``."""
+    import paddle_tpu_torch as fluid
+
+    scope = fluid.Scope()
+    startup.random_seed = seed
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    return {p.name: scope.find_var(p.name).numpy()
+            for p in main.parameters()}
+
+
+def seq2seq_batch(seed: int, n: int = SEQ2SEQ_BATCH, train: bool = True):
+    """``n`` sentence pairs from ``RandomState(seed)``: source and target
+    lengths uniform in SEQ2SEQ_LENGTHS, words uniform in [3, V), each
+    target ending in <e>, padding <e>; the decoder reads <s> and the
+    target shifted right, the labels are the target.  ``train=False``
+    gives the sources alone."""
+    rng = np.random.RandomState(seed)
+    T, V = SEQ2SEQ_LEN, SEQ2SEQ_CFG["src_vocab"]
+    lo, hi = SEQ2SEQ_LENGTHS
+    slen = rng.randint(lo, hi + 1, (n,)).astype(np.int32)
+    tlen = rng.randint(lo, hi + 1, (n,)).astype(np.int32)
+    src = rng.randint(3, V, (n, T)).astype(np.int32)
+    y = rng.randint(3, SEQ2SEQ_CFG["tgt_vocab"], (n, T)).astype(np.int32)
+    pos = np.arange(T)[None, :]
+    eos, bos = SEQ2SEQ_BEAM["eos_id"], SEQ2SEQ_BEAM["bos_id"]
+    src[pos >= slen[:, None]] = eos
+    y[pos >= tlen[:, None] - 1] = eos
+    if not train:
+        return {"src": src, "slen": slen}
+    tgt = np.concatenate([np.full((n, 1), bos, np.int32), y[:, :-1]], 1)
+    return {"src": src, "slen": slen, "tgt": tgt, "tlen": tlen,
+            "lab": y[..., None]}
 
 
 def build_resnet_program(amp: bool):
@@ -376,28 +486,36 @@ def _infer_class(kernel: str, ancestors) -> str:
     return "other"
 
 
-def _classes_by_origin(prof, classes, classify) -> dict:
+def _chain(evt):
+    while evt is not None:
+        yield evt
+        evt = evt.cpu_parent
+
+
+def _classes_by_origin(prof, classes, classify, name=None) -> dict:
     """Device microseconds by class: each host event's kernels, classified
-    by ``classify(kernel name, enclosing host range names)``."""
+    by ``classify(kernel name, enclosing host range names)``, innermost
+    first; ``name(event)`` names each range (default its own name)."""
+    name = name or (lambda evt: evt.name)
     out = {k: 0.0 for k in classes}
     for evt in prof.events():
         kernels = getattr(evt, "kernels", None) or []
         if not kernels:
             continue
-        names, parent = [evt.name], evt.cpu_parent
-        while parent is not None:
-            names.append(parent.name)
-            parent = parent.cpu_parent
+        names = [name(a) for a in _chain(evt)]
         for k in kernels:
             out[classify(k.name, names)] += float(k.duration)
     return out
 
 
 class _OpRanges:
-    """While entered, every op (the routed ops of an inference step too, and
-    each grouped call of update ops, by their type) runs inside a
-    ``record_function("op::<type>")`` range, so a profile can tell which op
-    launched a kernel."""
+    """While entered, every op (the routed ops of an inference step too)
+    runs inside a ``record_function(label(op))`` range, ``op::<type>`` by
+    default, and each grouped call of update ops inside its first op's,
+    so a profile can tell which op launched a kernel."""
+
+    def __init__(self, label=None):
+        self.label = label or (lambda op: f"op::{op.type}")
 
     def __enter__(self):
         from torch.profiler import record_function
@@ -406,13 +524,14 @@ class _OpRanges:
         from ..optimizer import Optimizer
 
         self._apply, self._group = Op.apply, Optimizer.apply_group
+        label = self.label
 
         def apply(op, env, ctx, _apply=self._apply):
-            with record_function(f"op::{op.type}"):
+            with record_function(label(op)):
                 _apply(op, env, ctx)
 
         def apply_group(opt, ops, env, ctx, _apply=self._group):
-            with record_function(f"op::{ops[0].type}"):
+            with record_function(label(ops[0])):
                 _apply(opt, ops, env, ctx)
         Op.apply, Optimizer.apply_group = apply, apply_group
         return self
@@ -424,35 +543,184 @@ class _OpRanges:
         Op.apply, Optimizer.apply_group = self._apply, self._group
 
 
+# seq2seq kernel classes, by the op that launched each kernel (the
+# profiled eager step runs each op in a "s2s::<class>" range, see
+# :func:`seq2seq_op_classes`) or, in the backward, by the forward op that
+# made the autograd node (its sequence number); the beam decode's by name
+# inside the beam_search op, and its encoder by op
+SEQ2SEQ_CLASSES = ("output_ce", "gru", "attention", "optimizer", "other")
+BEAM_CLASSES = ("encoder", "beam_select", "matmul", "softmax", "other")
+_S2S = "s2s::"
+
+
+def seq2seq_op_classes(program) -> dict:
+    """id(op) -> class for every op of a seq2seq program (the sub-block of
+    its ``static_rnn`` op too): the decoder's attention projection and
+    score ``attention``; the GRUs (``dynamic_gru``, the decoder's
+    ``static_rnn`` op with its other body ops) ``gru``; the ops between
+    the decoder and the backward (logits, cross-entropy, the masked mean)
+    ``output_ce``; the ops after the backward ``optimizer``; the
+    ``beam_search`` op ``beam``; the rest (embeddings, input projections,
+    concat, pooling) ``other``."""
+    ops = program.list_ops()
+    out, after_rnn, after_bwd = {}, False, False
+    for op in ops:
+        if op.special == "backward":
+            after_bwd = True
+            continue
+        if op.type == "static_rnn":
+            out[id(op)] = "gru"
+            body = op.sub_block.ops
+            att = next(o for o in body if o.type == "attention_score")
+            dp = att.inputs["Dp"][0]
+            for o in body:
+                out[id(o)] = ("attention" if o is att or dp in o.output_names()
+                              else "gru")
+            after_rnn = True
+            continue
+        out[id(op)] = ("optimizer" if after_bwd else
+                       "output_ce" if after_rnn else
+                       "gru" if op.type == "dynamic_gru" else
+                       "beam" if op.type == "beam_search" else "other")
+    return out
+
+
+def seq2seq_range_names(events):
+    """``name(event)`` for :func:`_classes_by_origin` over a step run under
+    ``s2s::<class>`` op ranges: an autograd node's ``evaluate_function``
+    (the backward) is named as the innermost ``s2s::`` range above the
+    forward op whose autograd op made it, found by its sequence number
+    (``s2s::other`` if none), every other event by its own name."""
+    forward = {}
+    for evt in events:
+        nr = getattr(evt, "sequence_nr", -1)
+        if nr is None or nr < 0 or evt.name.startswith(_NODE):
+            continue
+        for a in _chain(evt):
+            if a.name.startswith(_S2S):
+                forward.setdefault(nr, a.name)
+                break
+
+    def name(evt):
+        if evt.name.startswith(_NODE):
+            return forward.get(getattr(evt, "sequence_nr", -1),
+                               _S2S + "other")
+        return evt.name
+    return name
+
+
+def _s2s_class(ancestors) -> str:
+    return next((a[len(_S2S):] for a in ancestors if a.startswith(_S2S)),
+                "other")
+
+
+def _seq2seq_class(kernel: str, ancestors) -> str:
+    if "multi_tensor_apply" in kernel:
+        return "optimizer"
+    return _s2s_class(ancestors)
+
+
+def _beam_class(name: str, ancestors) -> str:
+    if _s2s_class(ancestors) != "beam":
+        return "encoder"
+    low = name.lower()
+    if any(k in low for k in ("topk", "sort", "radix")):
+        return "beam_select"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "matmul", "gemv",
+                              "nvjet")):
+        return "matmul"
+    if "softmax" in low:
+        return "softmax"
+    return "other"
+
+
+def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
+    """Device ms by class of ``steps`` eager steps of a seq2seq model (the
+    same kernels a replay runs), each op in its class's range; and the
+    eager step's host wall ms (median of ``steps``, unprofiled, after one
+    warm-up step)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    classes = seq2seq_op_classes(main)
+    exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    walls = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        with _OpRanges(lambda op: _S2S + classes.get(id(op), "other")):
+            for _ in range(steps):
+                exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+    beam = model == "seq2seq-beam"
+    out = _classes_by_origin(
+        prof, BEAM_CLASSES if beam else SEQ2SEQ_CLASSES,
+        _beam_class if beam else _seq2seq_class,
+        seq2seq_range_names(prof.events()))
+    out = {k: v / 1e3 / steps for k, v in out.items()}
+    return out, float(np.median(walls))
+
+
+# the models whose profiled steps are replays of a warmed signature
+WARMED = ("lm", "text_lstm", "seq2seq", "seq2seq-beam")
+SEQ2SEQ = ("seq2seq", "seq2seq-beam")
+
+
 def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
             remat: bool = False):
-    """(fetch, main, startup, weights, feed, items per step, item unit)."""
+    """(fetch list, main, startup, weights, feed, items per step or None
+    (counted from the first run's fetches), item unit)."""
     import paddle_tpu_torch as fluid
 
     if model == "lm":
-        return (*build_train_program(amp, dropout, remat),
-                fluid.init_lm_params(0, **LM_CFG),
+        loss, main, startup = build_train_program(amp, dropout, remat)
+        return ([loss], main, startup, fluid.init_lm_params(0, **LM_CFG),
                 train_batch(3), TRAIN_BATCH * LM_CFG["max_len"], "tokens")
     if model == "text_lstm":
-        return (*build_text_lstm_program(), text_lstm_params(0),
+        loss, main, startup = build_text_lstm_program()
+        return ([loss], main, startup, text_lstm_params(0),
                 text_lstm_batch(0), TEXT_LSTM_BATCH, "sequences")
+    if model == "seq2seq":
+        loss, main, startup = build_seq2seq_program()
+        feed = seq2seq_batch(0)
+        return ([loss], main, startup, startup_params(main, startup), feed,
+                int(feed["tlen"].sum()), "target_tokens")
+    if model == "seq2seq-beam":
+        fetch, main, startup = build_beam_program()
+        return (list(fetch), main, startup, startup_params(main, startup),
+                seq2seq_batch(0, train=False), None, "emitted_tokens")
     if model == "resnet50":
+        loss, main, startup = build_resnet_program(amp)
         n = RESNET_BATCH if amp else RESNET_FP32_BATCH
-        return (*build_resnet_program(amp), resnet_params(0),
+        return ([loss], main, startup, resnet_params(0),
                 resnet_batch(0, n, "cuda"), n, "images")
     if model in INFER_DEPTH:
         depth = INFER_DEPTH[model]
-        return (*build_infer_program(depth, amp), infer_arrays(depth),
+        pred, main, startup = build_infer_program(depth, amp)
+        return ([pred], main, startup, infer_arrays(depth),
                 infer_batch(INFER_BATCH, "cuda"), INFER_BATCH, "images")
-    raise ValueError(f"unknown model {model!r}: lm | text_lstm | resnet50 | "
-                     f"{' | '.join(INFER_DEPTH)}")
+    raise ValueError(f"unknown model {model!r}: lm | text_lstm | seq2seq | "
+                     f"seq2seq-beam | resnet50 | {' | '.join(INFER_DEPTH)}")
+
+
+def emitted_tokens(lens) -> int:
+    """The best hypothesis's length summed over the batch (beams come
+    best-first)."""
+    return int(np.asarray(lens)[:, 0].sum())
 
 
 def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
-            remat: bool = False) -> dict:
+            remat: bool = False, eager: bool = False) -> dict:
     """The profile of ``model``'s step: for the LM and the ResNets the amp
-    arm, or with ``amp=False`` the float32 arm (text_lstm has only the
-    float32 one); the LM with ``dropout`` and ``remat``."""
+    arm, or with ``amp=False`` the float32 arm (text_lstm and seq2seq have
+    only the float32 one); the LM with ``dropout`` and ``remat``.  The
+    models of WARMED are warmed first, so that every profiled step is a
+    replay of one CUDA graph, unless ``eager``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -469,17 +737,21 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
         resume_at_warmup(scope, main)
     resnet = model == "resnet50" or model in INFER_DEPTH
     warm_s = None
-    if model == "lm":
+    if model in WARMED and not eager:
         t0 = time.perf_counter()
-        exe.warm(main, feed_sig(feed), [fetch], scope=scope)
+        exe.warm(main, feed_sig(feed), fetch, scope=scope)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
 
     def run(n):
+        out = None
         for _ in range(n):
-            exe.run(main, feed=feed, fetch_list=[fetch], scope=scope)
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        return out
 
-    run(2)
+    first = run(2)
+    if items is None:
+        items = emitted_tokens(first[2])
     walls, windows = [], []
     for _ in range(repeats):
         torch.cuda.synchronize()
@@ -529,22 +801,38 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
     if warm_s is not None and exe.replays != 2 + 2 * repeats * steps:
         raise RuntimeError(f"{exe.replays} replays for "
                            f"{2 + 2 * repeats * steps} warmed steps")
+    by_class = {k: v / 1e3 / steps for k, v in by_class.items()}
+    peak, peak_reserved = (torch.cuda.max_memory_allocated(),
+                           torch.cuda.max_memory_reserved())
+    eager_ms, by_name = None, None
+    if model in SEQ2SEQ:
+        by_name = by_class
+        # the replayed graph has no op ranges: the classes come from eager
+        # steps of the same program on a second scope
+        eager_exe = fluid.Executor()
+        by_class, eager_ms = _eager_classes(
+            model, eager_exe, main,
+            train_scope(eager_exe, startup, main, weights), feed, fetch)
     return {
         "card": fluid.card_info(0), "model": model, "steps": steps,
         "dropout": dropout, "remat": remat,
-        "arm": "amp" if amp and model != "text_lstm" else "float32",
+        "arm": "amp" if amp and model not in ("text_lstm",) + SEQ2SEQ
+        else "float32",
         "warm_s": warm_s, "replays": exe.replays,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "peak_memory_bytes": peak,
         # the graph pool's activations are reserved, not allocated, while
         # a graph replays
-        "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "peak_reserved_bytes": peak_reserved,
         "repeats": repeats, "unit": unit, f"{unit}_per_step": items,
         "wall_ms_per_step": _spread(walls),
         "device_busy_ms_per_step": _spread(busy),
         "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
         f"{unit}_per_s": items / wall_ms * 1e3,
-        "device_ms_per_step_by_class": {k: v / 1e3 / steps
-                                        for k, v in by_class.items()},
+        "device_ms_per_step_by_class": by_class,
+        # seq2seq: the replays' kernels by name (STEP_CLASSES) beside the
+        # classes by origin
+        "device_ms_per_step_by_kernel_name": by_name,
+        "eager_wall_ms_per_step": eager_ms,
         "top_kernels": [{"name": n[:120], "ms_per_step": us / 1e3 / steps,
                          "calls_per_step": c / steps}
                         for us, n, c in kernels[:15]],
@@ -554,37 +842,44 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="lm",
-                    choices=("lm", "text_lstm", "resnet50", *INFER_DEPTH),
+                    choices=("lm", "text_lstm", *SEQ2SEQ, "resnet50",
+                             *INFER_DEPTH),
                     help="the training step to profile (lm: both arms, "
                          "float32 then amp; resnet50: both arms, amp then "
-                         "float32), or the ResNet inference step "
-                         "(resnet50-infer: both arms; resnet18-infer: amp)")
+                         "float32), the seq2seq beam decode, or the ResNet "
+                         "inference step (resnet50-infer: both arms; "
+                         "resnet18-infer: amp)")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="lm: build_lm's dropout (with Transformer-base's "
                          "optimizer, resumed at the peak of warm-up)")
     ap.add_argument("--remat", action="store_true",
                     help="lm: build_lm's remat (each block recomputed in "
                          "the backward)")
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the step op by op, not warmed "
+                         f"({', '.join(WARMED)})")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args(argv)
     if args.model != "lm" and (args.dropout or args.remat):
         ap.error("--dropout and --remat are build_lm's: --model lm")
-    arms = {"lm": (False, True), "text_lstm": (False,),
-            "resnet18-infer": (True,)}.get(args.model, (True, False))
+    float32_only = ("text_lstm",) + SEQ2SEQ
+    arms = {"lm": (False, True), "resnet18-infer": (True,)}.get(
+        args.model, (False,) if args.model in float32_only else (True, False))
     results = []
     for amp in arms:
         gc.collect()                  # the last arm's graphs and their pool
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        res = profile(args.model, amp, args.dropout, args.remat)
+        res = profile(args.model, amp, args.dropout, args.remat, args.eager)
         results.append(res)
         wall, busy = res["wall_ms_per_step"], res["device_busy_ms_per_step"]
         unit = res["unit"]
-        arm = f" ({res['arm']})" if args.model != "text_lstm" else ""
+        arm = f" ({res['arm']})" if args.model not in float32_only else ""
         if args.dropout or args.remat:
             arm += (f" (dropout {args.dropout:g}"
                     f"{', remat' if args.remat else ''})")
-        what = "inference" if args.model in INFER_DEPTH else "train"
+        what = ("inference" if args.model in INFER_DEPTH else
+                "decode" if args.model == "seq2seq-beam" else "train")
         print(f"{res['model']}{arm} {what} step on {res['card']}: "
               f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "
               f"of {res['steps']} steps; wall median {wall['median']:.3f} "
@@ -596,9 +891,15 @@ def main(argv=None) -> int:
               f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB allocated, "
               f"{res['peak_reserved_bytes'] / 2 ** 30:.2f} GiB reserved"
               + (f"; warmed in {res['warm_s']:.2f} s, every step one graph "
-                 f"replay ({res['replays']})" if res["warm_s"] else ""))
+                 f"replay ({res['replays']})" if res["warm_s"] else
+                 "; op by op")
+              + (f"; eager step {res['eager_wall_ms_per_step']:.3f} ms "
+                 f"(classes below from eager steps)"
+                 if res["eager_wall_ms_per_step"] else ""))
         for k, v in res["device_ms_per_step_by_class"].items():
             print(f"  {k:16s} {v:.4f} ms/step")
+        for k, v in (res["device_ms_per_step_by_kernel_name"] or {}).items():
+            print(f"  by name {k:16s} {v:.4f} ms/step")
         for k in res["top_kernels"]:
             print(f"  {k['ms_per_step']:.4f} ms/step "
                   f"x{k['calls_per_step']:7.1f} {k['name']}")

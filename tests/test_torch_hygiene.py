@@ -23,10 +23,13 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch, paddle_tpu_torch.serving.decode\n"
         "import paddle_tpu_torch.ops.paged_attention\n"
         "import paddle_tpu_torch.tools.train_profile\n"
+        "import paddle_tpu_torch.tools.seq2seq_parity\n"
         "import paddle_tpu_torch.ops.lstm, paddle_tpu_torch.layers.sequence\n"
         "import paddle_tpu_torch.models.text_lstm\n"
         "import paddle_tpu_torch.models.resnet, paddle_tpu_torch.amp\n"
         "import paddle_tpu_torch.ops.batch_norm\n"
+        "import paddle_tpu_torch.layers.beam, paddle_tpu_torch.layers.control_flow\n"
+        "import paddle_tpu_torch.models.seq2seq\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
         "bad = sorted(m for m in sys.modules\n"
