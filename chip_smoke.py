@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving and training paths on one CUDA card and
-check them.
+"""Drive paddle_tpu_torch's serving, training and decoding paths on one CUDA
+card and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -20,13 +20,17 @@ Phases (any failure exits non-zero, before the final line):
                forward and reverse kernels at text_lstm's full width, with
                peepholes, and through dynamic_lstm(is_reverse=True) on
                lengths {1, T, 0}, all on the persistent route, and at
-               B=256 on the step route, each case's route checked by the
-               route counts), and time kernel, plain version and the
+               B=256 on the step route, and at SRL's T=32, B=64, H=128 with
+               peepholes, forward and reverse direction, on lengths 1..T,
+               persistent, each case's route checked by the route counts),
+               and time kernel, plain version and the
                library yardstick (scaled_dot_product_attention, cuDNN's
                LSTM; the port never calls either), each as the event-timed
                call (host cost included) and as device time (the kernels
                the calls enqueue, read by torch.profiler; the phase fails
-               if the profiler shows none);
+               if the profiler shows none); first, the paged kernel's
+               device time at the float32 W=1 shape, read again at the end
+               of the script (ROADMAP C.2: a record, not a check);
   4. dropout kernels - the threefry dropout kernels (forward, backward)
                against their plain version on the card, bitwise (the mask,
                y and dx), at the LM's [8, 1024, 512] and a ragged
@@ -136,6 +140,29 @@ Phases (any failure exits non-zero, before the final line):
                those 4 sources (scores within 1e-4 relative, tokens equal
                in >= 0.98 of positions), ms per
                decode and emitted tokens/s, warmed and eager;
+ 10c. srl    - the Paddle book's SRL model (db_lstm: word_dim 32, mark_dim
+               5, 8 LSTM-128 layers of alternating direction, CRF; the
+               conll05 dictionaries; weights from the port's startup program
+               on the CPU, seed 0) with the chapter's SGD on
+               exponential_decay: check_kernel_shapes accepts the program;
+               the B = 8 signature warmed, one replay bitwise against an
+               unwarmed Executor's eager step and grouped against per-op
+               updates, card against CPU (loss rtol 1e-4, each gradient
+               within 1e-3 of its max |g|); then 64 sentences of the
+               synthetic conll05 reader padded to 32 warmed and 5 replays
+               (losses finite and falling, LSTM launches counted at replay
+               8 x 5 each, all persistent), ms per step and tokens/s beside
+               3 eager steps; then the program pruned to the Viterbi tags,
+               warmed: a replay bitwise against eager, the card's tags
+               against the CPU's (>= 0.98 of valid positions, a row that
+               differs held by its float64 path score within 1e-5
+               relative), chunk_eval's counts on the card, 5 replays (LSTM
+               forward launches 8 x 5, persistent), ms and tokens/s warmed
+               and eager;
+ 10d. sequence ops - warpctc (loss and gradients through an fc),
+               ctc_greedy_decoder, crf_decoding and edit_distance on small
+               ragged inputs (zero-length and repeated labels), card against
+               CPU from the same weights;
  11. bn kernels - the batch-norm backward kernels (reduction, dx) against
                their plain versions in float32 and bfloat16 at ResNet-50's
                shapes ([256,64,56,56], [256,128,28,28], [256,256,56,56]
@@ -264,6 +291,26 @@ LSTM_ACTS = ("sigmoid", "tanh", "tanh")
 # step route (32 x 8 blocks do not fit 132 SMs at one block an SM)
 LSTM_SHAPE = (100, 128, 512)
 LSTM_STEP_BATCH = 256
+# the SRL layer shape (db_lstm at the label_semantic_roles chapter's width:
+# 64 sentences padded to 32 tokens, hidden 128, peepholes): the persistent
+# route (8 x 2 blocks), the forward direction timed and the reverse one
+# (leading padding, as dynamic_lstm(is_reverse=True) feeds it) checked, on
+# ragged lengths with 1 and T
+LSTM_SRL_SHAPE = (32, 64, 128)
+# the srl phase: the parity signature's batch; the decode's tags, card
+# against CPU, equal in at least SRL_TAG_SHARE of the valid positions, and
+# every row that differs held by its path score (float64, from the CPU's
+# emissions and the transition) within SRL_PATH_REL of the CPU path's: a
+# flip only at a near-tie (ROADMAP C.5)
+SRL_PARITY_BATCH = 8
+SRL_TAG_SHARE = 0.98
+SRL_PATH_REL = 1e-5
+# the sequence ops phase, card against CPU on small ragged inputs: the CTC
+# loss within rtol SEQ_OPS_LOSS_REL and each gradient within
+# SEQ_OPS_GRAD_REL of its max |g| (float32 sums in another order); the
+# Viterbi tags, greedy CTC ids and edit distances equal
+SEQ_OPS_LOSS_REL = 1e-5
+SEQ_OPS_GRAD_REL = 1e-4
 # batch-norm backward kernels against their plain versions: dbeta and
 # dgamma (float32 sums in another order) within BN_SUM_REL of sum |dy| and
 # sum |dy x-hat| per channel, in both dtypes (the kernel and the plain
@@ -354,10 +401,13 @@ INFER_ARMS = (("resnet50-infer", 50, True), ("resnet50-infer", 50, False),
 # seq2seq: the beam decode's card-against-CPU sources (the train parity
 # signature's batch and feed seed are tools/seq2seq_parity.py's)
 SEQ2SEQ_BEAM_PARITY = 4
-# the seq2seq parity step, card against CPU: each gradient within 1e-3 of
-# its max |g| (the float32 train limit), except one that is float32
-# rounding noise, max |g| below this share of the step's largest: that one
-# within 1e-3 of the step's largest max |g|.  At this initialisation the
+# the seq2seq and srl parity steps, card against CPU: each gradient within
+# 1e-3 of its max |g| (the float32 train limit), except one that is float32
+# rounding noise, max |g| below this share of the step's largest and
+# failing its own scale: that one within 1e-3 of the step's largest max
+# |g|.  (The srl step's LSTM and fc weights' gradients lie at 2.6e-6 to
+# 1.3e-5 against the CRF transition's 13, below the share; they hold on
+# their own scale, 2.9-6.3e-7 of it.)  At seq2seq's initialisation the
 # attention projection's gradient (fc_w_4) is the remainder of a score
 # shift that the softmax cancels, 2.5e-11 against 3.9e-2; the CPU moves it
 # by 1.05-1.11e-3 of itself under a relative 1e-7 change of the weights,
@@ -407,30 +457,45 @@ def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     kernel counts at its mean duration times the whole number of times a
     call runs it (its count over ``iters``, rounded): a record lost or
     carried over moves the sum by at most its own share, and a stray
-    record of another window's kernel counts for nothing.  Fails when the
-    profiler shows no device time: there is no fallback to the events."""
+    record of another window's kernel counts for nothing.  A window that
+    reads no device time at all is measured again in a new window, up to
+    EMPTY_WINDOW_RETRIES times, each one printed and counted in
+    ``empty_windows`` (ROADMAP C.2: a whole run once lost one window's
+    records, late in the conv phase).  Fails when the profiler shows no
+    device time in any of them: there is no fallback to the events."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.tools.decode_profile import _kernel_us
 
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.02)
-        for i in range(iters):
+    for attempt in range(EMPTY_WINDOW_RETRIES + 1):
+        for i in range(warmup):
             fn(i)
-        for _ in range(64):
-            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        time.sleep(0.02)
-    # microseconds a call: each kernel's mean times its launches a call
-    us = sum(_kernel_us(evt) / evt.count * round(evt.count / iters)
-             for evt in prof.key_averages()
-             if _kernel_us(evt) > 0 and "spin_kernel" not in evt.key)
-    check(us > 0, "torch.profiler shows no device time for a timed call")
-    return us / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for i in range(iters):
+                fn(i)
+            for _ in range(64):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        # microseconds a call: each kernel's mean times its launches a call
+        us = sum(_kernel_us(evt) / evt.count * round(evt.count / iters)
+                 for evt in prof.key_averages()
+                 if _kernel_us(evt) > 0 and "spin_kernel" not in evt.key)
+        if us > 0:
+            return us / 1e3
+        empty_windows.append(attempt)
+        print(f"device_ms: a profiler window read no device time (attempt "
+              f"{attempt + 1}; {len(empty_windows)} in this run so far)",
+              flush=True)
+    fail("torch.profiler shows no device time for a timed call")
+
+
+# the empty profiler windows of this run, each a re-measured window
+EMPTY_WINDOW_RETRIES = 2
+empty_windows: list = []
 
 
 def both_ms(fn, iters: int = 30, warmup: int = 3) -> tuple:
@@ -564,15 +629,34 @@ def _bound(kind: str, W: int, q, lengths) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_probe() -> float:
+    """Device ms a call of the paged kernel at the float32 W=1 shape (one
+    fixed draw), timed by ``device_ms``: at the start of the kernels phase
+    and again at the end of the script, in one process, to see whether
+    torch.profiler's windows keep their records over a long process
+    (ROADMAP C.2).  A record, not a check."""
+    from paddle_tpu_torch.ops.paged_attention import paged_attention
+
+    q, kp, vp, tables, lengths = _kernel_inputs(
+        "float32", 1, torch.device("cuda"), np.random.RandomState(7))
+    qq, ll = q[:, 0], lengths[:, 0]
+    return device_ms(lambda i: paged_attention(qq, kp, vp, i % KL, tables,
+                                               ll))
+
+
 def phase_kernels(card: str) -> dict:
     """Kernel against plain version for float32 / bfloat16 / int8 arenas at
-    W=1 and W=4; returns the float32 W=1 record for the JSON line."""
+    W=1 and W=4; returns the float32 W=1 record for the JSON line, with
+    the first ``paged_probe`` reading."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import paged_gather_kv
     from paddle_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
 
+    probe = paged_probe()
+    print(f"C.2 probe, start of the kernels phase: paged_attention float32 "
+          f"W=1 device {probe:.4f} ms on {card}")
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     record = None
@@ -629,7 +713,8 @@ def phase_kernels(card: str) -> dict:
                   f"device time {bound_ms / dev_ms:.3f} of it) on {card}")
             del kc, vc
             if kind == "float32" and W == 1:
-                record = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                record = {"c2_probe_start_device_ms": probe,
+                          "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                           "plain_ms": plain_ms, "plain_device_ms": plain_dev,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": library_ms,
@@ -916,19 +1001,24 @@ def _lstm_inputs(T, B, H, lengths, dev, seed):
 
 
 def _lstm_case(label, T, B, H, lengths, peep_on, dev, card, timed,
-               route) -> dict:
+               route, reverse=False) -> dict:
     """The forward kernel against ``_lstm_scan`` and the backward
     (reverse-recurrence kernel, then du and the peephole sums) against
     ``_lstm_scan_vjp``, on the same inputs on the card, both calls on
-    ``route`` (checked by the route counts); with ``timed`` the times,
-    bounds and cuDNN's LSTM beside them.  Returns the records."""
+    ``route`` (checked by the route counts); with ``reverse`` the mask
+    flipped along T, as ``dynamic_lstm(is_reverse=True)`` hands it over
+    (each row's padding first); with ``timed`` the times, bounds and
+    cuDNN's LSTM beside them.  Returns the records."""
     from paddle_tpu_torch.ops import fused_lstm
     from paddle_tpu_torch.ops import lstm as TL
 
     xw, u, peep, mask, g_hs, g_c = _lstm_inputs(T, B, H, lengths, dev,
                                                  T + B + H)
+    if reverse:
+        mask = mask.flip(0).contiguous()
     args = (H, peep_on, LSTM_ACTS)
-    name = f"lstm {label} T={T} B={B} H={H} peepholes={peep_on}"
+    name = (f"lstm {label} T={T} B={B} H={H} peepholes={peep_on}"
+            + (" reverse" if reverse else ""))
     before = dict(fused_lstm.route_launches)
     hs, hc, cc, gates, cnew = TL.lstm_fwd_kernel(xw, u, peep, mask, *args,
                                                  True)
@@ -1099,9 +1189,9 @@ def _lstm_layer_case(card) -> None:
         outs["cuda"][0][0][1:] == 0), f"{name}: padded steps not zero")
 
 
-def phase_lstm_kernels(card: str) -> dict:
+def phase_lstm_kernels(card: str) -> tuple:
     """The LSTM cases; returns the full-width records by kernel for the
-    JSON line."""
+    JSON line, and the SRL shape's."""
     from paddle_tpu_torch import resolve_device
 
     dev = resolve_device()         # float32 matmuls in full float32
@@ -1116,7 +1206,14 @@ def phase_lstm_kernels(card: str) -> dict:
                                                LSTM_STEP_BATCH)
     _lstm_case("step", T, LSTM_STEP_BATCH, H, lengths, False, dev, card,
                False, "step")
-    return recs
+    T, B, H = LSTM_SRL_SHAPE
+    lengths = np.random.RandomState(2).randint(1, T + 1, B)
+    lengths[:2] = (1, T)
+    srl = _lstm_case("srl", T, B, H, lengths, True, dev, card, True,
+                     "persistent")
+    _lstm_case("srl", T, B, H, lengths, True, dev, card, False,
+               "persistent", reverse=True)
+    return recs, srl
 
 
 
@@ -2223,35 +2320,40 @@ def phase_lstm_train(card: str) -> dict:
 
 def _card_cpu_grads(label, got, want, grad_names) -> None:
     """The float32 train limit, card against CPU: the loss within rtol
-    1e-4, every gradient within 1e-3 of its max |g|, or, where that max is
-    below SEQ2SEQ_NOISE_SHARE of the step's largest (rounding noise; at
-    most one such, printed with its magnitude), within 1e-3 of the step's
-    largest."""
+    1e-4, every gradient within 1e-3 of its max |g|; a gradient that fails
+    that but whose max is below SEQ2SEQ_NOISE_SHARE of the step's largest
+    is rounding noise (at most one such, printed with its magnitude) and is
+    held within 1e-3 of the step's largest instead.  Gradients below the
+    share that hold on their own scale are listed too."""
     l_gpu, l_cpu = float(got[0]), float(want[0])
     check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
           f"{label} parity step: loss {l_gpu} on the card, {l_cpu} on the "
           f"CPU")
     top = max(float(np.abs(b).max()) for b in want[1:])
-    worst, worst_name, noise = 0.0, None, []
+    worst, worst_name, noise, small = 0.0, None, [], []
     for name, a, b in zip(grad_names, got[1:], want[1:]):
         check(np.isfinite(a).all(), f"{label} parity step: non-finite {name}")
         scale = float(np.abs(b).max())
         d = float(np.abs(a - b).max())
         if scale < SEQ2SEQ_NOISE_SHARE * top:
-            noise.append(f"{name} (max |g| {scale:.3e}, max |d| {d:.3e} = "
-                         f"{d / max(scale, 1e-30):.3e} of it, "
-                         f"{d / top:.3e} of the largest)")
-            scale = top
+            if d > 1e-3 * scale:
+                noise.append(f"{name} (max |g| {scale:.3e}, max |d| "
+                             f"{d:.3e} = {d / max(scale, 1e-30):.3e} of it, "
+                             f"{d / top:.3e} of the largest)")
+                scale = top
+            else:
+                small.append(name)
         if d / scale >= worst:
             worst, worst_name = d / scale, name
     print(f"{label} parity: loss {l_gpu:.6f} card (the warmed replay), "
           f"{l_cpu:.6f} CPU (rtol 1e-4); {len(grad_names)} gradients, worst "
           f"max|d|/max|g| {worst:.3e} ({worst_name}; limit 1e-3); largest "
-          f"max |g| {top:.3e}; rounding noise (below "
-          f"{SEQ2SEQ_NOISE_SHARE:g} of it, held to 1e-3 of it): "
-          f"{'; '.join(noise) or 'none'}")
+          f"max |g| {top:.3e}; below {SEQ2SEQ_NOISE_SHARE:g} of it and held "
+          f"on their own scale: {len(small)}; rounding noise (held to 1e-3 "
+          f"of the largest): {'; '.join(noise) or 'none'}")
     check(len(noise) <= 1, f"{label} parity step: {len(noise)} gradients "
-                           f"below {SEQ2SEQ_NOISE_SHARE} of the largest")
+                           f"below {SEQ2SEQ_NOISE_SHARE} of the largest fail "
+                           f"their own scale")
     check(worst <= 1e-3, f"{label} parity step: {worst_name} differs by "
                          f"{worst} of its limit's scale (limit 1e-3)")
 
@@ -2412,6 +2514,262 @@ def phase_seq2seq_beam(card: str) -> dict:
           f"{e_med:.3f} ms = {n_tok / e_med * 1e3:.0f}; on {card}")
     return {"median_ms": w_med, "eager_median_ms": e_med,
             "emitted_tokens": n_tok, "warm_s": warm_s}
+
+
+def _crf_path_score(emis, trans, tags, n: int) -> float:
+    """The CRF score of tag path ``tags`` over the first ``n`` steps of
+    emissions ``emis`` [T, N], in float64: start, emissions, transitions,
+    end (the layout of ``layers.linear_chain_crf``'s transition)."""
+    emis, trans = emis.astype(np.float64), trans.astype(np.float64)
+    start, end, trs = trans[0], trans[1], trans[2:]
+    s = start[tags[0]] + emis[0, tags[0]]
+    for t in range(1, n):
+        s += trs[tags[t - 1], tags[t]] + emis[t, tags[t]]
+    return float(s + end[tags[n - 1]])
+
+
+def phase_srl(card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import check_kernel_shapes
+    from paddle_tpu_torch.ops import fused_lstm
+    from paddle_tpu_torch.tools.train_profile import (
+        SRL_BATCH, SRL_CFG, SRL_LEN, TRAIN_STEPS, build_srl_program,
+        feed_sig, srl_batch, startup_params, train_scope)
+
+    # the program, weights and batch of tools/train_profile.py --model
+    # srl: db_lstm at the label_semantic_roles chapter's width, the
+    # chapter's SGD, weights from the port's startup program on the CPU,
+    # seed 0
+    (loss, decoded), main, startup = build_srl_program()
+    params = startup_params(main, startup, 0)
+    grad_names = [f"{n}@GRAD" for n in params]
+    exe = fluid.Executor()
+    exe_cpu = fluid.Executor(fluid.CPUPlace())
+    check_kernel_shapes(main, exe.device)
+    depth = SRL_CFG["depth"]
+    print(f"srl: check_kernel_shapes accepts the train program "
+          f"({depth} dynamic_lstm ops, float32) on the card")
+
+    # parity: the B = 8 signature warmed, one replay against an unwarmed
+    # Executor's eager step (bitwise) and against the CPU
+    feed = srl_batch(1, SRL_PARITY_BATCH)
+    fetch = [loss] + grad_names
+    got, t_warm, _ = _replay_against_eager("srl train", exe, main, startup,
+                                           params, feed, fetch)
+    want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
+                       scope=train_scope(exe_cpu, startup, main, params,
+                                         "cpu"))
+    _card_cpu_grads("srl train", got, want, grad_names)
+    del got, want
+
+    # the B = 64 signature warmed, TRAIN_STEPS replays on a fixed batch,
+    # the LSTM launches counted at replay
+    feed = srl_batch(0)
+    tokens = int(feed["length"].sum())
+    run = _lm_train_pass(exe, main, loss,
+                         train_scope(exe, startup, main, params), feed)
+    losses, launches = run["losses"], run["lstm_launches"]
+    routes = run["lstm_route_launches"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"srl train: losses {losses}, expected finite and falling")
+    check(launches == {"fwd": depth * TRAIN_STEPS, "bwd": depth * TRAIN_STEPS},
+          f"srl train: lstm launches counted at replay {launches}, expected "
+          f"{depth} x {TRAIN_STEPS} each")
+    check(routes == {"persistent": 2 * depth * TRAIN_STEPS, "step": 0},
+          f"srl train: route launches {routes}, expected every call on the "
+          f"persistent route")
+    med = float(np.median(run["step_ms"][1:]))
+    eager = fluid.Executor()
+    eager_scope = train_scope(eager, startup, main, params)
+    eager_ms = _event_ms(lambda: eager.run(main, feed=feed,
+                                           fetch_list=[loss],
+                                           scope=eager_scope), 3)
+    check(eager.replays == 0, "srl train: the eager Executor replayed")
+    e_med = float(np.median(eager_ms[1:]))
+    print(f"srl train: {TRAIN_STEPS} SGD steps on {SRL_BATCH} sentences x "
+          f"{SRL_LEN} ({tokens} tokens), losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
+          f"{', '.join(f'{x:.2f}' for x in run['step_ms'])}; median of steps "
+          f"2-{TRAIN_STEPS} {med:.3f} ms = {tokens / med * 1e3:.0f} tokens/s; "
+          f"eager {', '.join(f'{x:.2f}' for x in eager_ms)} ms, median of "
+          f"2-3 {e_med:.3f} ms ({tokens / e_med * 1e3:.0f} tokens/s); "
+          f"{_pass_line(run)}; lstm launches counted at replay {launches}, "
+          f"by route {routes}; on {card}")
+    _release()
+
+    # decode: the program pruned to the Viterbi tags, its own signature
+    dmain = main.prune([decoded])
+    op = next(o for o in dmain.list_ops() if o.type == "crf_decoding")
+    emission = op.inputs["Emission"][0]
+    dfetch = [decoded, emission]
+    dfeed = srl_batch(0, train=False)
+    dscope = train_scope(exe, startup, dmain, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    how = exe.warm(dmain, feed_sig(dfeed), dfetch, scope=dscope)
+    torch.cuda.synchronize()
+    d_warm = time.perf_counter() - t0
+    check(how == "compiled", f"srl decode: warm gave {how!r}")
+    replays = exe.replays
+    d_got = exe.run(dmain, feed=dfeed, fetch_list=dfetch, scope=dscope)
+    check(exe.replays == replays + 1, "srl decode: the warmed decode did not "
+                                      "replay")
+    d_eager = fluid.Executor()
+    d_eager_scope = train_scope(d_eager, startup, dmain, params)
+    d_want = d_eager.run(dmain, feed=dfeed, fetch_list=dfetch,
+                         scope=d_eager_scope)
+    same = [a.tobytes() == b.tobytes() for a, b in zip(d_got, d_want)]
+    print(f"srl decode replay vs eager: tags, emissions bitwise equal {same}")
+    check(all(same), "srl decode: the replay differs from the eager run")
+
+    # card against CPU: tags at the valid positions; a row that differs is
+    # held by its path score against the CPU path's
+    tags, _ = d_got
+    h_tags, h_emis = exe_cpu.run(dmain, feed=dfeed, fetch_list=dfetch,
+                                 scope=train_scope(exe_cpu, startup, dmain,
+                                                   params, "cpu"))
+    ln = dfeed["length"]
+    valid = np.arange(SRL_LEN)[None, :] < ln[:, None]
+    equal = int(((tags == h_tags) & valid).sum())
+    n_valid = int(valid.sum())
+    trans = params["srl_crf_transition"]
+    worst, rows = 0.0, []
+    for b in np.nonzero(((tags != h_tags) & valid).any(1))[0]:
+        n = int(ln[b])
+        mine = _crf_path_score(h_emis[b], trans, tags[b], n)
+        ref = _crf_path_score(h_emis[b], trans, h_tags[b], n)
+        rel = abs(mine - ref) / max(abs(ref), 1e-30)
+        worst = max(worst, rel)
+        rows.append(int(b))
+    print(f"srl decode card (the warmed replay) vs CPU: tags equal in "
+          f"{equal} of {n_valid} valid positions (limit {SRL_TAG_SHARE}); "
+          f"rows that differ {rows or 'none'}, worst path score difference "
+          f"{worst:.3e} relative (limit {SRL_PATH_REL})")
+    check(equal >= SRL_TAG_SHARE * n_valid,
+          f"srl decode: tags equal in only {equal} of {n_valid}")
+    check(worst <= SRL_PATH_REL,
+          f"srl decode: rows {rows} differ by {worst} in path score")
+
+    # chunk_eval's counts on the card's tags against the labels
+    cmain, cstart = fluid.Program(), fluid.Program()
+    with fluid.program_guard(cmain, cstart):
+        L = fluid.layers
+        counts = L.chunk_eval(
+            L.data("p", [SRL_LEN], dtype="int32"),
+            L.data("g", [SRL_LEN], dtype="int32"),
+            L.data("n", [-1], dtype="int32", append_batch_size=False))
+    c, = exe.run(cmain, feed={"p": tags, "g": srl_batch(0)["label"],
+                              "n": ln}, fetch_list=[counts])
+    print(f"srl decode chunk_eval on the card: correct {c[0]:.0f}, "
+          f"predicted {c[1]:.0f}, labelled {c[2]:.0f} chunks (random "
+          f"weights)")
+
+    # timing: warmed replays against eager runs, the LSTM forward launches
+    # counted at replay
+    for counts in (fused_lstm.launches, fused_lstm.route_launches):
+        for k in counts:
+            counts[k] = 0
+    replays = exe.replays
+    w_ms = _event_ms(lambda: exe.run(dmain, feed=dfeed, fetch_list=dfetch,
+                                     scope=dscope), TRAIN_STEPS)
+    d_launches = dict(fused_lstm.launches)
+    d_routes = dict(fused_lstm.route_launches)
+    check(exe.replays - replays == TRAIN_STEPS,
+          "srl decode: a timed decode did not replay")
+    check(d_launches == {"fwd": depth * TRAIN_STEPS, "bwd": 0}
+          and d_routes == {"persistent": depth * TRAIN_STEPS, "step": 0},
+          f"srl decode: lstm launches {d_launches}, by route {d_routes}, "
+          f"expected {depth} x {TRAIN_STEPS} forward, all persistent")
+    de_ms = _event_ms(lambda: d_eager.run(dmain, feed=dfeed,
+                                          fetch_list=dfetch,
+                                          scope=d_eager_scope), 3)
+    w_med, de_med = float(np.median(w_ms[1:])), float(np.median(de_ms[1:]))
+    print(f"srl decode: {SRL_BATCH} sentences ({tokens} tokens), warmed in "
+          f"{d_warm:.2f} s; decode ms {', '.join(f'{x:.2f}' for x in w_ms)}, "
+          f"median of 2-{TRAIN_STEPS} {w_med:.3f} ms = "
+          f"{tokens / w_med * 1e3:.0f} tokens/s; eager "
+          f"{', '.join(f'{x:.2f}' for x in de_ms)}, median of 2-3 "
+          f"{de_med:.3f} ms = {tokens / de_med * 1e3:.0f}; lstm launches "
+          f"counted at replay {d_launches}; on {card}")
+    return {"launches": launches, "route_launches": routes,
+            "decode_launches": d_launches, "median_ms": med,
+            "eager_median_ms": e_med, "tokens_per_s": tokens / med * 1e3,
+            "decode_median_ms": w_med, "decode_eager_median_ms": de_med,
+            "decode_tokens_per_s": tokens / w_med * 1e3,
+            "warm_s": run["warm_s"], "parity_warm_s": t_warm,
+            "decode_warm_s": d_warm, "peak_bytes": run["peak_bytes"],
+            "peak_reserved": run["peak_reserved"]}
+
+
+def phase_sequence_ops(card: str) -> None:
+    """warpctc (loss and gradients, through an fc), crf_decoding,
+    ctc_greedy_decoder and edit_distance on small ragged inputs, the card
+    against the CPU from the same weights."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (startup_params,
+                                                      train_scope)
+
+    B, T, D, C, LAB, N, H, R = 6, 20, 8, 7, 5, 6, 9, 8
+    rng = np.random.RandomState(11)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+
+        def lengths(name):
+            return L.data(name, [-1], dtype="int32", append_batch_size=False)
+        x = L.data("x", [T, D])
+        logits = L.fc(x, C, num_flatten_dims=2)
+        lab = L.data("lab", [LAB], dtype="int32")
+        ll = lengths("ll")
+        nll = L.warpctc(logits, lab, ll, lengths("tl"))
+        loss = L.reduce_mean(nll)
+        pg = fluid.backward.append_backward(loss)
+        ids, n_ids = L.ctc_greedy_decoder(logits, ll)
+        emis = L.data("e", [T, N])
+        tags = L.crf_decoding(emis, lengths("el"))
+        dist = L.edit_distance(L.data("h", [H], dtype="int32"),
+                               lengths("hl"),
+                               L.data("r", [R], dtype="int32"),
+                               lengths("rl"), normalized=True)
+    feed = {"x": rng.standard_normal((B, T, D)).astype(np.float32),
+            "lab": rng.randint(1, C, (B, LAB)).astype(np.int32),
+            "ll": np.array([T, 12, 7, T, 9, 15], np.int32),
+            "tl": np.array([LAB, 0, 2, 3, 1, LAB], np.int32),
+            "e": rng.standard_normal((B, T, N)).astype(np.float32),
+            "el": np.array([1, T, 5, 11, T, 2], np.int32),
+            "h": rng.randint(0, 4, (B, H)).astype(np.int32),
+            "hl": np.array([0, H, 3, 5, 1, H], np.int32),
+            "r": rng.randint(0, 4, (B, R)).astype(np.int32),
+            "rl": np.array([R, 1, 4, 0, 6, R], np.int32)}
+    feed["lab"][0, :3] = (2, 2, 4)              # repeated labels
+    params = startup_params(main, startup, 0)
+    fetch = [nll, ids, n_ids, tags, dist] + [g for _, g in pg]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        outs[dev] = exe.run(main, feed=feed, fetch_list=fetch,
+                            scope=train_scope(exe, startup, main, params,
+                                              dev))
+    (c_nll, c_ids, c_n, c_tags, c_d, *c_g), (h_nll, h_ids, h_n, h_tags,
+                                             h_d, *h_g) = (outs["cuda"],
+                                                           outs["cpu"])
+    check(np.isfinite(c_nll).all(), "sequence ops: non-finite CTC loss")
+    nll_rel = float((np.abs(c_nll - h_nll) / np.abs(h_nll)).max())
+    grad_rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                   for a, b in zip(c_g, h_g))
+    same = {"ctc_greedy_decoder": np.array_equal(c_ids, h_ids)
+            and np.array_equal(c_n, h_n),
+            "crf_decoding": np.array_equal(c_tags, h_tags),
+            "edit_distance": np.array_equal(c_d, h_d)}
+    print(f"sequence ops card vs CPU: warpctc loss {nll_rel:.3e} relative "
+          f"(limit {SEQ_OPS_LOSS_REL}), {len(c_g)} gradients worst "
+          f"max|d|/max|g| {grad_rel:.3e} (limit {SEQ_OPS_GRAD_REL}); equal "
+          f"{same}; on {card}")
+    check(nll_rel <= SEQ_OPS_LOSS_REL, f"sequence ops: warpctc loss differs "
+                                       f"by {nll_rel} relative")
+    check(grad_rel <= SEQ_OPS_GRAD_REL, f"sequence ops: warpctc gradients "
+                                        f"differ by {grad_rel}")
+    check(all(same.values()), f"sequence ops: card and CPU differ: {same}")
 
 
 def _bn_bound(kernel: str, n: int, c: int, hw: int, dtype) -> tuple:
@@ -3087,7 +3445,7 @@ def main() -> int:
     _timed("build", phase_build)
     rec = _timed("kernels", phase_kernels, card)
     flash = _timed("flash kernels", phase_flash_kernels, card)
-    lstm = _timed("lstm kernels", phase_lstm_kernels, card)
+    lstm, lstm_srl = _timed("lstm kernels", phase_lstm_kernels, card)
     drop = _timed("dropout kernels", phase_dropout_kernels, card)
     paths = _timed("serve", phase_serve, card)
     train = _timed("train", phase_train, card)
@@ -3105,10 +3463,20 @@ def main() -> int:
     _release()
     _timed("seq2seq beam", phase_seq2seq_beam, card)
     _release()
+    srl = _timed("srl", phase_srl, card)
+    _release()
+    _timed("sequence ops", phase_sequence_ops, card)
     bn = _timed("bn kernels", phase_bn_kernels, card)
     resnet = _timed("resnet train", phase_resnet_train, card)
     convk = _timed("conv kernels", phase_conv_kernels, card)
     infer = _timed("resnet infer", phase_resnet_infer, card)
+    probe_end = paged_probe()
+    print(f"C.2 probe: paged_attention float32 W=1 device "
+          f"{rec['c2_probe_start_device_ms']:.4f} ms at the start of the "
+          f"kernels phase, {probe_end:.4f} ms at the end of the script "
+          f"(end / start {probe_end / rec['c2_probe_start_device_ms']:.4f}; "
+          f"a record, not a check); profiler windows that read no device "
+          f"time and were re-measured: {len(empty_windows)}; on {card}")
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
@@ -3117,6 +3485,8 @@ def main() -> int:
         # launches: the W=1 main path's (mixed pass) own count; each path's
         # count, taken over its own pass alone, is in launches_by_path
         "launches": paths["w1_mixed_pass"]["launches"], **rec,
+        "c2_probe_end_device_ms": probe_end,
+        "c2_empty_profiler_windows": len(empty_windows),
         "launches_by_path": paths,
     }]
     replaces = {"fwd": "paddle_tpu/ops/attention.py:39",
@@ -3160,7 +3530,12 @@ def main() -> int:
             "route_launches": lstm_train["route_launches"],
             "launches_by_path": {
                 "lstm train": lstm_train["launches"][kern],
-                "lstm train warmed": lstm_train["warmed_launches"][kern]},
+                "lstm train warmed": lstm_train["warmed_launches"][kern],
+                "srl train warmed": srl["launches"][kern],
+                "srl decode warmed": srl["decode_launches"][kern]},
+            # the SRL layer shape: T=32, B=64, H=128, peepholes, lengths
+            # 1-32, persistent route (PERF.md section 6 rows 5 and 5b)
+            "srl_h128": lstm_srl[kern],
         })
     replaces = {"reduce": "benchmark/bn_probe.py:84",
                 "dx": "benchmark/bn_probe.py:126"}

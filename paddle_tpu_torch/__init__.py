@@ -1,6 +1,6 @@
 """paddle_tpu_torch: the PyTorch / CUDA port of paddle_tpu for NVIDIA Hopper.
 
-Five slices run here:
+These paths run here (seq2seq among them, ``models.seq2seq``):
 
 * training the Transformer LM: ``build_lm`` through the Program / Executor
   API with Adam and global-norm clipping, on hand-written CUDA
@@ -33,12 +33,17 @@ Five slices run here:
   CUDA implicit-GEMM kernels, conv + folded batch norm + ReLU fused
   (``ops/csrc/conv.cu``, ``core/fusion.py``).
 
+* semantic role labelling (``models.srl.db_lstm``: eight embeddings, stacked
+  LSTMs of alternating direction on the LSTM kernels, a linear-chain CRF),
+  trained by the CRF's NLL and Viterbi-decoded, on ``datasets.conll05``'s
+  synthetic reader.
+
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``CPUPlace()``, ``device="cpu"``); with no card and no device given they
 raise.  The package imports torch and numpy, never jax and nothing of
 ``paddle_tpu``.
 """
-from . import (amp, backward, clip, hooks, initializer, layers,
+from . import (amp, backward, clip, datasets, hooks, initializer, layers,
                learning_rate_decay, models, optimizer, regularizer)
 from ._device import card_info, resolve_device
 from .core import (CPUPlace, Executor, Place, Program, Scope,
@@ -56,7 +61,7 @@ __all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
            "ContinuousScheduler", "Deadline", "DeadlineExceeded",
            "DecodeRequest", "Executor", "PagedKVPool", "ParamAttr", "Place",
            "Program", "SamplingParams", "Scope", "TransformerLM", "Variable",
-           "backward", "card_info", "clip", "default_main_program",
+           "backward", "card_info", "clip", "datasets", "default_main_program",
            "default_startup_program", "from_jax_params", "global_scope",
            "hooks", "init_lm_params", "initializer", "layers",
            "learning_rate_decay", "load_scope", "models", "optimizer",

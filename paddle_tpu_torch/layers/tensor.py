@@ -1,6 +1,7 @@
 """Dense-math layers (PyTorch port of the ``paddle_tpu/layers/tensor.py``
 subset the training slices use): ``elementwise_add`` with Fluid's ``axis``
-mid-broadcast, ``mean``, ``sums``, ``reshape``, ``concat`` and ``assign``."""
+mid-broadcast, ``mean``, ``sums``, ``reshape``, ``concat``, ``assign`` and
+the reductions ``reduce_sum`` / ``mean`` / ``max`` / ``min`` / ``prod``."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -45,6 +46,53 @@ def _elementwise(name, tfn):
 
 
 elementwise_add = _elementwise("elementwise_add", torch.add)
+
+
+def _prod(a, axis, keep_dim):
+    """``torch.prod`` over ``axis`` (None for all): it takes one dim at a
+    time, so each in turn, highest first so the others keep their index."""
+    for d in sorted((d % a.dim() for d in (range(a.dim()) if axis is None
+                                           else axis)), reverse=True):
+        a = torch.prod(a, d, keep_dim)
+    return a
+
+
+_REDUCE = {
+    "reduce_sum": lambda a, axis, keep: torch.sum(a, dim=axis, keepdim=keep),
+    "reduce_mean": lambda a, axis, keep: torch.mean(a, dim=axis, keepdim=keep),
+    # amax / amin: a tie's gradient splits among the tied elements, as
+    # jnp.max's does (torch.max(dim) sends it all to one)
+    "reduce_max": lambda a, axis, keep: torch.amax(
+        a, dim=() if axis is None else axis, keepdim=keep),
+    "reduce_min": lambda a, axis, keep: torch.amin(
+        a, dim=() if axis is None else axis, keepdim=keep),
+    "reduce_prod": _prod,
+}
+
+
+def _reduce(op_type):
+    tfn = _REDUCE[op_type]
+
+    def layer(x: Variable, dim=None, keep_dim: bool = False, name=None):
+        """Reduce over ``dim`` (an int, a list of ints, or None for every
+        axis), keeping the reduced axes as size 1 when ``keep_dim``."""
+        helper = LayerHelper(op_type, name=name)
+        axis = (tuple(dim) if isinstance(dim, (list, tuple))
+                else None if dim is None else (dim,))
+        return helper.append_op(
+            lambda ctx, a, axis, keep_dim: tfn(a, axis, keep_dim),
+            {"X": [x]}, attrs={"axis": axis, "keep_dim": keep_dim},
+            op_type=op_type)
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce("reduce_sum")
+reduce_mean = _reduce("reduce_mean")
+reduce_max = _reduce("reduce_max")
+reduce_min = _reduce("reduce_min")
+reduce_prod = _reduce("reduce_prod")
 
 
 def mean(x: Variable, name=None):
@@ -109,4 +157,6 @@ def assign(x):
     return helper.append_op(fn, {})
 
 
-__all__ = ["assign", "concat", "elementwise_add", "mean", "reshape", "sums"]
+__all__ = ["assign", "concat", "elementwise_add", "mean", "reduce_max",
+           "reduce_mean", "reduce_min", "reduce_prod", "reduce_sum",
+           "reshape", "sums"]

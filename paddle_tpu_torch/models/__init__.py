@@ -1,7 +1,8 @@
 """The port's models: the decoder-only Transformer LM's training graph and
-serving math, the LSTM text classifier's training graph, ResNet's, and
-seq2seq with attention (training and beam generation)."""
-from . import resnet, seq2seq, text_lstm, transformer
+serving math, the LSTM text classifier's training graph, ResNet's,
+seq2seq with attention (training and beam generation), and semantic role
+labelling (db_lstm with a CRF, trained and Viterbi-decoded)."""
+from . import resnet, seq2seq, srl, text_lstm, transformer
 from .resnet import (init_resnet_params, init_resnet_stats,
                      resnet_param_shapes)
 from .text_lstm import init_text_lstm_params, text_lstm_param_shapes
@@ -13,5 +14,5 @@ from .weights import from_jax_params, load_scope
 __all__ = ["TransformerLM", "build_lm", "from_jax_params", "init_lm_params",
            "init_resnet_params", "init_resnet_stats", "init_text_lstm_params",
            "lm_forward", "lm_head_logits", "lm_paged_decode_window", "lm_param_shapes",
-           "load_scope", "resnet", "resnet_param_shapes", "seq2seq", "text_lstm",
-           "text_lstm_param_shapes", "transformer"]
+           "load_scope", "resnet", "resnet_param_shapes", "seq2seq", "srl",
+           "text_lstm", "text_lstm_param_shapes", "transformer"]

@@ -1,6 +1,6 @@
 """Where the time of one training step goes, on the CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|resnet50|resnet50-infer|resnet18-infer] [--dropout P] [--remat] [--eager] [--out F]
+    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|srl|srl-decode|resnet50|resnet50-infer|resnet18-infer] [--dropout P] [--remat] [--eager] [--out F]
 
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
@@ -32,7 +32,19 @@ projection and cross-entropy, the GRU recurrences, the attention step, the
 optimizer and other, by the op that launched each kernel or, in the
 backward, by the forward op whose autograd node launched it; for the beam
 decode the encoder (by op), and inside the beam op by kernel name the
-beam selection (top_k), matmul, softmax and other.  ``--model resnet50``
+beam selection (top_k), matmul, softmax and other.  ``--model srl``
+builds the Paddle book's label_semantic_roles model (``models.srl.db_lstm``
+at word_dim 32, mark_dim 5, hidden 128, depth 8, the conll05 dictionaries)
+with the chapter's SGD on ``exponential_decay(0.01, 100000, 0.5,
+staircase=True)``, on 64 sentences of ``datasets.conll05.train()`` padded
+to 32 tokens, weights from the port's startup program on the CPU (seed 0);
+``--model srl-decode`` the same program pruned to the Viterbi tags, on
+the same sentences; both warmed, tokens counted as the sum of lengths;
+their device ms by class, from two more eager steps as for seq2seq: the
+LSTMs (the kernels by name, the rest of ``dynamic_lstm`` by origin), the
+CRF's forward algorithm and gold path (``linear_chain_crf``), Viterbi
+(``crf_decoding``), matmul (the fc ops), embedding, optimizer and other.
+``--model resnet50``
 builds ResNet-50 as ``bench.py``
 trains it (``models.resnet.build``, 1000 classes, Momentum(0.1, 0.9),
 weights ``init_resnet_params(0)``) on a fixed batch of 224x224 images that
@@ -72,8 +84,9 @@ and resnet infer phases run (:func:`build_train_program`,
 :func:`build_text_lstm_program`, :func:`build_resnet_program`,
 :func:`build_infer_program`, :func:`train_scope`, :func:`train_batch`,
 :func:`text_lstm_params`, :func:`text_lstm_batch`, :func:`resnet_params`,
-:func:`resnet_batch`, :func:`infer_arrays`, :func:`infer_batch`), so the
-profiled step is the smoke-checked step.
+:func:`resnet_batch`, :func:`infer_arrays`, :func:`infer_batch`,
+:func:`build_srl_program`, :func:`srl_batch`), so the profiled step is the
+smoke-checked step.
 """
 from __future__ import annotations
 
@@ -116,6 +129,15 @@ SEQ2SEQ_LEN = 50              # sentence pairs padded to 50 tokens
 SEQ2SEQ_BATCH = 64
 SEQ2SEQ_LENGTHS = (10, 50)    # source and target lengths, uniform
 SEQ2SEQ_BEAM = dict(bos_id=0, eos_id=1, beam_size=4, max_len=32)
+# the Paddle book's label_semantic_roles chapter (fluid/tests/book/
+# test_label_semantic_roles.py): word_dim 32, mark_dim 5, depth 8, an fc
+# width of 512 = 4 x the LSTM's own width, and the conll05 dictionaries
+SRL_CFG = dict(word_dict_len=7477, pred_dict_len=3162, label_dict_len=59,
+               word_dim=32, mark_dim=5, hidden_dim=128, depth=8)
+SRL_LEN = 32                  # sentences (5-29 tokens) padded to 32
+SRL_BATCH = 64
+SRL_SLOTS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
+             "verb", "mark")
 # Transformer-base's optimizer (Vaswani et al. 2017, section 5.3), for
 # the programs with dropout: Adam(0.9, 0.98, 1e-9) on noam_decay(d_model,
 # BASE_WARMUP), resumed at the optimizer step BASE_WARMUP (the peak of
@@ -221,6 +243,46 @@ def build_beam_program():
     op = next(o for o in main.list_ops() if o.type == "beam_search")
     lens = main.global_block.var(op.outputs["Out"][2])
     return (toks, scores, lens), main, fluid.default_startup_program()
+
+
+def build_srl_program():
+    """``models.srl.db_lstm`` at SRL_CFG's width over SRL_LEN-token slots,
+    with the chapter's SGD on ``exponential_decay(0.01, 100000, 0.5,
+    staircase=True)``, in fresh default programs; returns ((loss,
+    decoded), main, startup)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    slots = [fluid.layers.data(n, [SRL_LEN], dtype="int32")
+             for n in SRL_SLOTS]
+    label = fluid.layers.data("label", [SRL_LEN], dtype="int32")
+    length = fluid.layers.data("length", [-1], dtype="int32",
+                               append_batch_size=False)
+    loss, decoded, _ = fluid.models.srl.db_lstm(*slots, length, label=label,
+                                                **SRL_CFG)
+    fluid.optimizer.SGD(fluid.learning_rate_decay.exponential_decay(
+        0.01, 100000, 0.5, staircase=True)).minimize(loss)
+    return ((loss, decoded), fluid.default_main_program(),
+            fluid.default_startup_program())
+
+
+def srl_batch(seed: int = 0, n: int = SRL_BATCH, train: bool = True):
+    """``n`` sentences of ``datasets.conll05.train()`` from the
+    ``seed * n``-th on, padded by ``models.srl.batch_from_dataset``; the
+    feed of SRL_SLOTS, ``label`` and ``length`` (``train=False``: no
+    label)."""
+    from itertools import islice
+
+    from ..datasets import conll05
+    from ..models import srl
+
+    samples = list(islice(conll05.train((seed + 1) * n)(), seed * n, None))
+    slots, tags, length = srl.batch_from_dataset(samples, SRL_LEN)
+    feed = dict(zip(SRL_SLOTS, slots))
+    if train:
+        feed["label"] = tags
+    feed["length"] = length
+    return feed
 
 
 def startup_params(main, startup, seed: int = 0) -> dict:
@@ -634,15 +696,49 @@ def _beam_class(name: str, ancestors) -> str:
     return "other"
 
 
+# SRL kernel classes, by origin as for seq2seq (each op in an
+# "s2s::<class>" range): the LSTM kernels by name (a ctypes launch has no
+# host event above its kernel; the rest of dynamic_lstm, the bias add,
+# transposes and flips, by origin), the CRF's forward algorithm and gold
+# path, Viterbi, the fc ops, the embeddings, the optimizer, the rest
+SRL_CLASSES = ("lstm", "crf", "viterbi", "matmul", "embedding", "optimizer",
+               "other")
+_SRL_OP = {"dynamic_lstm": "lstm", "linear_chain_crf": "crf",
+           "crf_decoding": "viterbi", "mul": "matmul",
+           "elementwise_add": "matmul", "embedding": "embedding"}
+_LSTM_BY_NAME = "lstm_by_name"
+
+
+def srl_op_classes(program) -> dict:
+    """id(op) -> class for every op of an SRL program: by op type
+    (_SRL_OP), the ops after the backward ``optimizer``, the rest
+    (concat, the loss's mean, the learning-rate schedule) ``other``."""
+    out, after_bwd = {}, False
+    for op in program.list_ops():
+        if op.special == "backward":
+            after_bwd = True
+            continue
+        out[id(op)] = ("optimizer" if after_bwd
+                       else _SRL_OP.get(op.type, "other"))
+    return out
+
+
+def _srl_class(kernel: str, ancestors) -> str:
+    if _kernel_class(kernel) == "lstm":
+        return _LSTM_BY_NAME        # counted by name, see _eager_classes
+    return _seq2seq_class(kernel, ancestors)
+
+
 def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
-    """Device ms by class of ``steps`` eager steps of a seq2seq model (the
-    same kernels a replay runs), each op in its class's range; and the
-    eager step's host wall ms (median of ``steps``, unprofiled, after one
-    warm-up step)."""
+    """Device ms by class of ``steps`` eager steps of a seq2seq or SRL
+    model (the same kernels a replay runs), each op in its class's range;
+    and the eager step's host wall ms (median of ``steps``, unprofiled,
+    after one warm-up step)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    classes = seq2seq_op_classes(main)
+    srl = model in SRL
+    classes = (srl_op_classes if srl else seq2seq_op_classes)(main)
     exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     walls = []
     for _ in range(steps):
@@ -658,17 +754,29 @@ def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
                 exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         torch.cuda.synchronize()
     beam = model == "seq2seq-beam"
-    out = _classes_by_origin(
-        prof, BEAM_CLASSES if beam else SEQ2SEQ_CLASSES,
-        _beam_class if beam else _seq2seq_class,
-        seq2seq_range_names(prof.events()))
+    names = seq2seq_range_names(prof.events())
+    if srl:
+        out = _classes_by_origin(prof, SRL_CLASSES + (_LSTM_BY_NAME,),
+                                 _srl_class, names)
+        del out[_LSTM_BY_NAME]
+        kernels = [(evt.key, _kernel_us(evt)) for evt in prof.key_averages()
+                   if _kernel_us(evt) > 0]
+        out["lstm"] += sum(us for k, us in kernels
+                           if _kernel_class(k) == "lstm")
+        # kernels the event tree did not reach count as other
+        out["other"] += sum(us for _, us in kernels) - sum(out.values())
+    else:
+        out = _classes_by_origin(
+            prof, BEAM_CLASSES if beam else SEQ2SEQ_CLASSES,
+            _beam_class if beam else _seq2seq_class, names)
     out = {k: v / 1e3 / steps for k, v in out.items()}
     return out, float(np.median(walls))
 
 
 # the models whose profiled steps are replays of a warmed signature
-WARMED = ("lm", "text_lstm", "seq2seq", "seq2seq-beam")
+WARMED = ("lm", "text_lstm", "seq2seq", "seq2seq-beam", "srl", "srl-decode")
 SEQ2SEQ = ("seq2seq", "seq2seq-beam")
+SRL = ("srl", "srl-decode")
 
 
 def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
@@ -694,6 +802,16 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
         fetch, main, startup = build_beam_program()
         return (list(fetch), main, startup, startup_params(main, startup),
                 seq2seq_batch(0, train=False), None, "emitted_tokens")
+    if model in SRL:
+        (loss, decoded), main, startup = build_srl_program()
+        params = startup_params(main, startup)
+        feed = srl_batch(0, train=model == "srl")
+        if model == "srl-decode":
+            main, fetch = main.prune([decoded]), [decoded]
+        else:
+            fetch = [loss]
+        return (fetch, main, startup, params, feed,
+                int(feed["length"].sum()), "tokens")
     if model == "resnet50":
         loss, main, startup = build_resnet_program(amp)
         n = RESNET_BATCH if amp else RESNET_FP32_BATCH
@@ -705,7 +823,8 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
         return ([pred], main, startup, infer_arrays(depth),
                 infer_batch(INFER_BATCH, "cuda"), INFER_BATCH, "images")
     raise ValueError(f"unknown model {model!r}: lm | text_lstm | seq2seq | "
-                     f"seq2seq-beam | resnet50 | {' | '.join(INFER_DEPTH)}")
+                     f"seq2seq-beam | srl | srl-decode | resnet50 | "
+                     f"{' | '.join(INFER_DEPTH)}")
 
 
 def emitted_tokens(lens) -> int:
@@ -805,7 +924,7 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
     peak, peak_reserved = (torch.cuda.max_memory_allocated(),
                            torch.cuda.max_memory_reserved())
     eager_ms, by_name = None, None
-    if model in SEQ2SEQ:
+    if model in SEQ2SEQ + SRL:
         by_name = by_class
         # the replayed graph has no op ranges: the classes come from eager
         # steps of the same program on a second scope
@@ -816,7 +935,7 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
     return {
         "card": fluid.card_info(0), "model": model, "steps": steps,
         "dropout": dropout, "remat": remat,
-        "arm": "amp" if amp and model not in ("text_lstm",) + SEQ2SEQ
+        "arm": "amp" if amp and model not in ("text_lstm",) + SEQ2SEQ + SRL
         else "float32",
         "warm_s": warm_s, "replays": exe.replays,
         "peak_memory_bytes": peak,
@@ -842,12 +961,13 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="lm",
-                    choices=("lm", "text_lstm", *SEQ2SEQ, "resnet50",
+                    choices=("lm", "text_lstm", *SEQ2SEQ, *SRL, "resnet50",
                              *INFER_DEPTH),
                     help="the training step to profile (lm: both arms, "
                          "float32 then amp; resnet50: both arms, amp then "
-                         "float32), the seq2seq beam decode, or the ResNet "
-                         "inference step (resnet50-infer: both arms; "
+                         "float32), the seq2seq beam or SRL Viterbi "
+                         "decode, or the ResNet inference step "
+                         "(resnet50-infer: both arms; "
                          "resnet18-infer: amp)")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="lm: build_lm's dropout (with Transformer-base's "
@@ -862,7 +982,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.model != "lm" and (args.dropout or args.remat):
         ap.error("--dropout and --remat are build_lm's: --model lm")
-    float32_only = ("text_lstm",) + SEQ2SEQ
+    float32_only = ("text_lstm",) + SEQ2SEQ + SRL
     arms = {"lm": (False, True), "resnet18-infer": (True,)}.get(
         args.model, (False,) if args.model in float32_only else (True, False))
     results = []
@@ -879,7 +999,8 @@ def main(argv=None) -> int:
             arm += (f" (dropout {args.dropout:g}"
                     f"{', remat' if args.remat else ''})")
         what = ("inference" if args.model in INFER_DEPTH else
-                "decode" if args.model == "seq2seq-beam" else "train")
+                "decode" if args.model in ("seq2seq-beam", "srl-decode")
+                else "train")
         print(f"{res['model']}{arm} {what} step on {res['card']}: "
               f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "
               f"of {res['steps']} steps; wall median {wall['median']:.3f} "
