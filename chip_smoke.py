@@ -163,6 +163,33 @@ Phases (any failure exits non-zero, before the final line):
                ctc_greedy_decoder, crf_decoding and edit_distance on small
                ragged inputs (zero-length and repeated labels), card against
                CPU from the same weights;
+ 10e. hier_text - the nested-sequence document classifier
+               (models.hier_text.build at its defaults, emb 64, word GRU 64,
+               sentence RNN 64, 2 classes, IMDB's 5147 words; documents of 8
+               sentences of 32 words by the JAX test's rule; Adam(3e-3);
+               weights from the startup program on the CPU, seed 0): the B =
+               8 signature warmed, a replay bitwise against an unwarmed
+               eager step (loss, gradients, parameters, moments, step,
+               counter) and grouped against per-op updates, card against
+               CPU (loss rtol 1e-4, each gradient within 1e-3 of its max
+               |g|); then 64 documents warmed and 5 replays (losses finite
+               and falling), ms per step and tokens/s beside 3 eager steps;
+               then the program pruned to the prediction, warmed: a replay
+               bitwise against eager, probabilities card against CPU within
+               1e-4 of their max and the class equal wherever the top two
+               are further apart than twice the largest difference, ms and
+               documents/s warmed and eager;
+ 10f. control flow - cond (each branch an fc) with both predicates, an
+               eager step card against CPU, the untaken branch's gradients
+               exact zeros on both; Executor.warm of it refused before any
+               capture, run() afterwards eager on the card; the bounded
+               while_loop and IfElse, each in a small Adam-trained program,
+               card against CPU and warmed (a replay bitwise against eager,
+               grouped against per-op); the unbounded while_loop card
+               against CPU; md_lstm at [32, 8, 32, 32] -> 64 in the four
+               sweep directions card against CPU (hidden states within 1e-4
+               of their max, each gradient within 1e-3 of its max |g|), and
+               a warmed md_lstm step bitwise against eager;
  11. bn kernels - the batch-norm backward kernels (reduction, dx) against
                their plain versions in float32 and bfloat16 at ResNet-50's
                shapes ([256,64,56,56], [256,128,28,28], [256,256,56,56]
@@ -416,6 +443,21 @@ SEQ2SEQ_BEAM_PARITY = 4
 # smallest, fc_w_2, is 3.8e-6 of the largest.  The CPU tests use the same
 # share (tests/test_torch_seq2seq.py)
 SEQ2SEQ_NOISE_SHARE = 1e-6
+# the hier_text phase: the parity signature's batch; served probabilities,
+# card against CPU, within HIER_PROB_REL of their max abs (float32 sums in
+# another order through 8 x 32 GRU steps), and the class equal wherever the
+# top two probabilities are further apart than twice the largest difference
+# (the ResNet inference rule)
+HIER_PARITY_BATCH = 8
+HIER_PROB_REL = 1e-4
+# the control flow phase: md_lstm at an OCR line's size ([N, H, W, D] to
+# MDLSTM_SIZE), card against CPU in all four sweep directions: the hidden
+# states within MDLSTM_FWD_REL of their max abs, each gradient within
+# MDLSTM_GRAD_REL of its max abs (the float32 train limit)
+MDLSTM_SHAPE = (32, 8, 32, 32)
+MDLSTM_SIZE = 64
+MDLSTM_FWD_REL = 1e-4
+MDLSTM_GRAD_REL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -2318,8 +2360,10 @@ def phase_lstm_train(card: str) -> dict:
             "warmed_route_launches": w_routes, "warmed_median_ms": w_med}
 
 
-def _card_cpu_grads(label, got, want, grad_names) -> None:
-    """The float32 train limit, card against CPU: the loss within rtol
+def _card_cpu_grads(label, got, want, grad_names,
+                    what: str = "the warmed replay") -> None:
+    """The float32 train limit, card against CPU (``what`` names the card's
+    step in the printed line): the loss within rtol
     1e-4, every gradient within 1e-3 of its max |g|; a gradient that fails
     that but whose max is below SEQ2SEQ_NOISE_SHARE of the step's largest
     is rounding noise (at most one such, printed with its magnitude) and is
@@ -2345,7 +2389,7 @@ def _card_cpu_grads(label, got, want, grad_names) -> None:
                 small.append(name)
         if d / scale >= worst:
             worst, worst_name = d / scale, name
-    print(f"{label} parity: loss {l_gpu:.6f} card (the warmed replay), "
+    print(f"{label} parity: loss {l_gpu:.6f} card ({what}), "
           f"{l_cpu:.6f} CPU (rtol 1e-4); {len(grad_names)} gradients, worst "
           f"max|d|/max|g| {worst:.3e} ({worst_name}; limit 1e-3); largest "
           f"max |g| {top:.3e}; below {SEQ2SEQ_NOISE_SHARE:g} of it and held "
@@ -2770,6 +2814,301 @@ def phase_sequence_ops(card: str) -> None:
     check(grad_rel <= SEQ_OPS_GRAD_REL, f"sequence ops: warpctc gradients "
                                         f"differ by {grad_rel}")
     check(all(same.values()), f"sequence ops: card and CPU differ: {same}")
+
+
+def phase_hier_text(card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (
+        HIER_BATCH, HIER_S, HIER_W, TRAIN_STEPS, build_hier_text_program,
+        feed_sig, hier_text_batch, startup_params, train_scope)
+
+    # the program, weights and batch of tools/train_profile.py --model
+    # hier_text: build's defaults over IMDB's dictionary, Adam(3e-3),
+    # weights from the port's startup program on the CPU, seed 0
+    (loss, _, pred), main, startup = build_hier_text_program()
+    params = startup_params(main, startup, 0)
+    grad_names = [f"{n}@GRAD" for n in params]
+    exe = fluid.Executor()
+    exe_cpu = fluid.Executor(fluid.CPUPlace())
+
+    # parity: the B = 8 signature warmed, one replay against an unwarmed
+    # Executor's eager step (bitwise) and against the CPU
+    feed = hier_text_batch(1, HIER_PARITY_BATCH)
+    fetch = [loss] + grad_names
+    got, t_warm, _ = _replay_against_eager("hier_text train", exe, main,
+                                           startup, params, feed, fetch)
+    want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
+                       scope=train_scope(exe_cpu, startup, main, params,
+                                         "cpu"))
+    _card_cpu_grads("hier_text train", got, want, grad_names)
+    del got, want
+
+    # the B = 64 signature warmed, TRAIN_STEPS replays on a fixed batch
+    feed = hier_text_batch(0)
+    tokens = int(feed["sub_len"].sum())
+    run = _lm_train_pass(exe, main, loss,
+                         train_scope(exe, startup, main, params), feed)
+    losses = run["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"hier_text train: losses {losses}, expected finite and falling")
+    med = float(np.median(run["step_ms"][1:]))
+    eager = fluid.Executor()
+    eager_scope = train_scope(eager, startup, main, params)
+    eager_ms = _event_ms(lambda: eager.run(main, feed=feed,
+                                           fetch_list=[loss],
+                                           scope=eager_scope), 3)
+    check(eager.replays == 0, "hier_text train: the eager Executor replayed")
+    e_med = float(np.median(eager_ms[1:]))
+    print(f"hier_text train: {TRAIN_STEPS} Adam steps on {HIER_BATCH} "
+          f"documents x {HIER_S} sentences x {HIER_W} words ({tokens} "
+          f"tokens), losses {', '.join(f'{x:.5f}' for x in losses)}; step "
+          f"ms {', '.join(f'{x:.2f}' for x in run['step_ms'])}; median of "
+          f"steps 2-{TRAIN_STEPS} {med:.3f} ms = {tokens / med * 1e3:.0f} "
+          f"tokens/s; eager {', '.join(f'{x:.2f}' for x in eager_ms)} ms, "
+          f"median of 2-3 {e_med:.3f} ms ({tokens / e_med * 1e3:.0f} "
+          f"tokens/s); {_pass_line(run)}; on {card}")
+    _release()
+
+    # serve: the program pruned to the prediction, its own signature
+    smain = main.prune([pred])
+    sfeed = hier_text_batch(0, train=False)
+    sscope = train_scope(exe, startup, smain, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    how = exe.warm(smain, feed_sig(sfeed), [pred], scope=sscope)
+    torch.cuda.synchronize()
+    s_warm = time.perf_counter() - t0
+    check(how == "compiled", f"hier_text serve: warm gave {how!r}")
+    replays = exe.replays
+    s_got, = exe.run(smain, feed=sfeed, fetch_list=[pred], scope=sscope)
+    check(exe.replays == replays + 1, "hier_text serve: the warmed step did "
+                                      "not replay")
+    s_eager = fluid.Executor()
+    s_eager_scope = train_scope(s_eager, startup, smain, params)
+    s_want, = s_eager.run(smain, feed=sfeed, fetch_list=[pred],
+                          scope=s_eager_scope)
+    same = s_got.tobytes() == s_want.tobytes()
+    print(f"hier_text serve replay vs eager: probabilities bitwise equal "
+          f"{same}")
+    check(same, "hier_text serve: the replay differs from the eager run")
+    h_probs, = exe_cpu.run(smain, feed=sfeed, fetch_list=[pred],
+                           scope=train_scope(exe_cpu, startup, smain, params,
+                                             "cpu"))
+    check(s_got.shape == (HIER_BATCH, 2) and np.isfinite(s_got).all(),
+          f"hier_text serve: probabilities {s_got.shape}, finite "
+          f"{np.isfinite(s_got).all()}")
+    top = float(np.abs(h_probs).max())
+    err = float(np.abs(s_got - h_probs).max())
+    srt = np.sort(h_probs, axis=1)
+    margins = srt[:, -1] - srt[:, -2]
+    clear = margins > 2 * err
+    equal = s_got.argmax(1) == h_probs.argmax(1)
+    print(f"hier_text serve card (the warmed replay) vs CPU: probabilities "
+          f"max|d| {err:.3e} ({err / top:.3e} of max, limit "
+          f"{HIER_PROB_REL}); class equal in {int(equal.sum())} of "
+          f"{HIER_BATCH}, {int(clear.sum())} with a top-two margin over "
+          f"twice the difference (smallest margin {margins.min():.3e})")
+    check(err <= HIER_PROB_REL * top, f"hier_text serve: probabilities "
+                                      f"differ by {err / top} of max")
+    check(bool(equal[clear].all()), "hier_text serve: the class differs "
+                                    "where the margin exceeds twice the "
+                                    "difference")
+    w_ms = _event_ms(lambda: exe.run(smain, feed=sfeed, fetch_list=[pred],
+                                     scope=sscope), TRAIN_STEPS)
+    check(exe.replays == replays + 1 + TRAIN_STEPS,
+          "hier_text serve: a timed step did not replay")
+    se_ms = _event_ms(lambda: s_eager.run(smain, feed=sfeed,
+                                          fetch_list=[pred],
+                                          scope=s_eager_scope), 3)
+    w_med, se_med = float(np.median(w_ms[1:])), float(np.median(se_ms[1:]))
+    print(f"hier_text serve: {HIER_BATCH} documents ({tokens} tokens), "
+          f"warmed in {s_warm:.2f} s; ms {', '.join(f'{x:.2f}' for x in w_ms)},"
+          f" median of 2-{TRAIN_STEPS} {w_med:.3f} ms = "
+          f"{HIER_BATCH / w_med * 1e3:.0f} documents/s; eager "
+          f"{', '.join(f'{x:.2f}' for x in se_ms)}, median of 2-3 "
+          f"{se_med:.3f} ms = {HIER_BATCH / se_med * 1e3:.0f} documents/s; "
+          f"on {card}")
+    return {"median_ms": med, "eager_median_ms": e_med,
+            "tokens_per_s": tokens / med * 1e3, "warm_s": run["warm_s"],
+            "parity_warm_s": t_warm, "peak_bytes": run["peak_bytes"],
+            "peak_reserved": run["peak_reserved"],
+            "serve_median_ms": w_med, "serve_eager_median_ms": se_med,
+            "documents_per_s": HIER_BATCH / w_med * 1e3,
+            "serve_warm_s": s_warm}
+
+
+def _small_train(build, n=16, d=16, seed=13):
+    """A small trained program: ``build(L, x, feed, rng)`` maps the feed
+    x [n, d] to a hidden [n, k] (adding any feed it declares to ``feed``);
+    an fc to 1, the squared error against y, its mean and Adam(1e-2), in
+    new programs.  Returns (loss, main, startup, params as the port's
+    startup draws them, feed)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import startup_params
+
+    rng = np.random.RandomState(seed)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        x = L.data("x", [d])
+        feed = {"x": rng.standard_normal((n, d)).astype(np.float32),
+                "y": rng.standard_normal((n, 1)).astype(np.float32)}
+        h = build(L, x, feed, rng)
+        loss = L.mean(L.square_error_cost(L.fc(h, 1), L.data("y", [1])))
+        fluid.optimizer.Adam(1e-2).minimize(loss)
+    return loss, main, startup, startup_params(main, startup, 0), feed
+
+
+def _step_card_cpu(label, loss, main, startup, params, feed, zero=()):
+    """One eager step on the card and on the CPU from the same weights:
+    the gradients named in ``zero`` exact zeros on both; the rest under
+    the float32 train limit (``_card_cpu_grads``).  Returns the card
+    Executor and scope."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import train_scope
+
+    grads = [f"{n}@GRAD" for n in params]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        scope = train_scope(exe, startup, main, params,
+                            None if dev == "cuda" else "cpu")
+        out[dev] = exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                           scope=scope)
+        if dev == "cuda":
+            on_card = (exe, scope)
+    for dev, vals in out.items():
+        for g, v in zip(grads, vals[1:]):
+            check((not v.any()) == (g[:-len("@GRAD")] in zero),
+                  f"{label}: {g} on {dev} {'not ' if v.any() else ''}zero")
+    keep = [i for i, g in enumerate(grads) if g[:-len("@GRAD")] not in zero]
+    _card_cpu_grads(label, [out["cuda"][0]] + [out["cuda"][1 + i]
+                                               for i in keep],
+                    [out["cpu"][0]] + [out["cpu"][1 + i] for i in keep],
+                    [grads[i] for i in keep], what="an eager step")
+    return on_card
+
+
+def phase_control_flow(card: str) -> None:
+    """cond (both predicates), the bounded and the unbounded while_loop,
+    IfElse and md_lstm on the card against the CPU; warm refuses cond
+    before any capture and run() then runs it eagerly; the bounded loop,
+    IfElse and an md_lstm step warmed, each replay bitwise equal to the
+    eager step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.graphs import WarmError
+    from paddle_tpu_torch.tools.train_profile import (feed_sig,
+                                                      startup_params,
+                                                      train_scope)
+
+    # cond: each branch its own fc; the untaken one's gradients zero
+    def cond_build(L, x, feed, rng):
+        p = L.data("p", [-1], dtype="bool", append_batch_size=False)
+        return L.cond(p, lambda: L.fc(x, 32, act="tanh"),
+                      lambda: L.fc(x, 32))
+    loss, main, startup, params, feed = _small_train(cond_build)
+    op = next(o for o in main.list_ops() if o.type == "cond")
+    for pred in (True, False):
+        feed["p"] = np.array([pred])
+        untaken = set((op.else_block if pred else op.sub_block)
+                      .program._parameters)
+        exe, scope = _step_card_cpu(f"cond ({pred})", loss, main, startup,
+                                    params, feed, zero=untaken)
+    compiles, refused = exe.compiles, None
+    try:
+        exe.warm(main, feed_sig(feed), [loss], scope=scope)
+    except WarmError as err:
+        refused = str(err)
+    check(refused is not None and exe.compiles == compiles,
+          "control flow: Executor.warm did not refuse the cond program")
+    l_run, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    check(np.isfinite(l_run) and exe.replays == 0,
+          "control flow: run() after the refused warm failed")
+    print(f"control flow cond: warm refused before any capture "
+          f"({refused[:60]}...); run() afterwards eager on the card, loss "
+          f"{float(l_run):.6f}")
+
+    # the bounded and the unbounded loop, three trips of s * 0.5 + tanh(s)
+    # over an fc's output
+    def while_build(max_trip_count):
+        def build(L, x, feed, rng):
+            i0 = L.fill_constant([1], "int32", 0)
+            h = L.fc(x, 32, act="tanh")
+            return L.while_loop(lambda i, s: (i < 3)[0],
+                                lambda i, s: (i + 1, s * 0.5 + torch.tanh(s)),
+                                [i0, h], max_trip_count=max_trip_count)[1]
+        return build
+
+    def ifelse_build(L, x, feed, rng):
+        m = L.data("m", [1], dtype="bool")
+        feed["m"] = rng.rand(feed["x"].shape[0], 1) > 0.5
+        ie = L.IfElse(m)
+        with ie.true_block():
+            ie.output(L.fc(ie.input(x), 32, act="tanh"))
+        with ie.false_block():
+            ie.output(L.fc(ie.input(x), 32))
+        h, = ie()
+        return h
+
+    warmed = fluid.Executor()
+    for label, build in (("while_loop bounded", while_build(4)),
+                         ("IfElse", ifelse_build)):
+        loss, main, startup, params, feed = _small_train(build)
+        _step_card_cpu(label, loss, main, startup, params, feed)
+        _replay_against_eager(label, warmed, main, startup, params, feed,
+                              [loss] + [f"{n}@GRAD" for n in params])
+    loss, main, startup, params, feed = _small_train(while_build(None))
+    _step_card_cpu("while_loop unbounded", loss, main, startup, params, feed)
+
+    # md_lstm in the four sweep directions, card against CPU
+    N, H, W, D = MDLSTM_SHAPE
+    rng = np.random.RandomState(17)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        x = L.data("x", [H, W, D])
+        outs = [L.md_lstm(x, MDLSTM_SIZE, reverse_h=rh, reverse_w=rw)
+                for rh in (False, True) for rw in (False, True)]
+        total = L.sums([L.mean(o) for o in outs])
+        pg = fluid.backward.append_backward(total)
+    params = startup_params(main, startup, 0)
+    feed = {"x": rng.standard_normal((N, H, W, D)).astype(np.float32)}
+    fetch = outs + [g for _, g in pg]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        t0 = time.perf_counter()
+        res[dev] = exe.run(main, feed=feed, fetch_list=fetch,
+                           scope=train_scope(exe, startup, main, params,
+                                             None if dev == "cuda"
+                                             else "cpu"))
+        res[dev + " s"] = time.perf_counter() - t0
+    fwd = max(_rel(a, b) for a, b in zip(res["cuda"][:4], res["cpu"][:4]))
+    grad = max(_rel(a, b) for a, b in zip(res["cuda"][4:], res["cpu"][4:]))
+    print(f"control flow md_lstm [{N}, {H}, {W}, {D}] -> {MDLSTM_SIZE}, four "
+          f"directions, card vs CPU: hidden states worst max|d|/max|.| "
+          f"{fwd:.3e} (limit {MDLSTM_FWD_REL}), {len(pg)} gradients worst "
+          f"{grad:.3e} (limit {MDLSTM_GRAD_REL}); step {res['cuda s']:.2f} s "
+          f"card (first, eager), {res['cpu s']:.2f} s CPU")
+    check(all(np.isfinite(a).all() for a in res["cuda"]),
+          "control flow md_lstm: non-finite values on the card")
+    check(fwd <= MDLSTM_FWD_REL, f"control flow md_lstm: hidden states "
+                                 f"differ by {fwd} of max")
+    check(grad <= MDLSTM_GRAD_REL, f"control flow md_lstm: gradients differ "
+                                   f"by {grad} of max")
+
+    # a warmed md_lstm -> mean step at the same size, bitwise against eager
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        loss = fluid.layers.mean(fluid.layers.md_lstm(
+            fluid.layers.data("x", [H, W, D]), MDLSTM_SIZE, reverse_w=True))
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    params = startup_params(main, startup, 0)
+    _replay_against_eager("md_lstm train", warmed, main, startup, params,
+                          feed, [loss] + [f"{n}@GRAD" for n in params])
+    print(f"control flow: warmed bounded while_loop, IfElse and md_lstm "
+          f"steps, replays {warmed.replays}, compiles {warmed.compiles}; "
+          f"on {card}")
 
 
 def _bn_bound(kernel: str, n: int, c: int, hw: int, dtype) -> tuple:
@@ -3466,6 +3805,10 @@ def main() -> int:
     srl = _timed("srl", phase_srl, card)
     _release()
     _timed("sequence ops", phase_sequence_ops, card)
+    _timed("hier_text", phase_hier_text, card)
+    _release()
+    _timed("control flow", phase_control_flow, card)
+    _release()
     bn = _timed("bn kernels", phase_bn_kernels, card)
     resnet = _timed("resnet train", phase_resnet_train, card)
     convk = _timed("conv kernels", phase_conv_kernels, card)

@@ -38,6 +38,12 @@ These paths run here (seq2seq among them, ``models.seq2seq``):
   trained by the CRF's NLL and Viterbi-decoded, on ``datasets.conll05``'s
   synthetic reader.
 
+* the nested-sequence document classifier (``models.hier_text.build``: a
+  word GRU inside each sentence under ``layers.NestedDynamicRNN``, a
+  sentence RNN over the document), trained and served; with
+  ``layers.cond``, ``while_loop``, ``IfElse``, the ``layers.nested``
+  functions and ``layers.md_lstm``.
+
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``CPUPlace()``, ``device="cpu"``); with no card and no device given they
 raise.  The package imports torch and numpy, never jax and nothing of

@@ -290,11 +290,15 @@ class Executor:
         this signature are its static buffers, and every ``run()`` of it
         writes the new state into them in place (clone a ``find_var``
         result to keep it).  Raises ``WarmError``, naming the signature,
-        when the first run or the capture fails."""
+        when the first run or the capture fails, and before any of it for
+        a program that reads a device value on the host
+        (:func:`check_capturable`), which the reference's ``warm``
+        compiles and a CUDA graph cannot hold."""
         if store is not None:
             raise NotImplementedError(
                 "Executor.warm(store=...) is not ported yet: the compile/ "
                 "store is ROADMAP A.10")
+        check_capturable(program)
         scope = scope or global_scope()
         check_kernel_shapes(program, self.device)
         block = program.global_block
@@ -518,6 +522,29 @@ def _grouped(ops: Sequence[Op]) -> list:
         else:
             units.append((op.group, [op]))
     return units
+
+
+# --------------------------------------------------------------------------- capture
+
+
+def check_capturable(program: Program) -> None:
+    """Raise ``WarmError`` if an op of ``program`` (sub-blocks included)
+    reads its predicate on the host every run: a ``cond`` op, or a
+    ``while_loop`` without ``max_trip_count``.  A CUDA graph replays one
+    fixed path, so such a step cannot be captured; ``run()`` runs it
+    eagerly.  ``while_loop(max_trip_count=N)`` and ``IfElse`` compute
+    both ways on the device and capture."""
+    for _, op in program.all_ops():
+        if op.type == "cond" or (op.type == "while_loop"
+                                 and op.attrs.get("max_trip_count") is None):
+            what = ("a cond op" if op.type == "cond"
+                    else "a while_loop op with no max_trip_count")
+            raise WarmError(
+                f"warm: the program holds {what} (outputs "
+                f"{op.output_names()[:2]}), which reads its predicate on "
+                f"the host every run, and a CUDA graph cannot branch on the "
+                f"device; run() runs such a program eagerly.  "
+                f"while_loop(max_trip_count=N) and IfElse capture")
 
 
 # --------------------------------------------------------------------------- kernel shapes

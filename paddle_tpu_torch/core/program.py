@@ -129,8 +129,10 @@ class Op:
     optimizer's update op names its ``group``, the optimizer that made it:
     the Executor runs each run of consecutive update ops of one group as
     one grouped call (``Optimizer.apply_group``).  ``sub_block`` is the
-    block an op runs inside its closure (``layers.recompute``'s), for the
-    checks that walk every op of a program (``Program.all_ops``)."""
+    block an op runs inside its closure (``layers.recompute``'s, an RNN's
+    body, the true branch of ``cond`` / ``IfElse``) and ``else_block`` the
+    false branch of ``cond`` / ``IfElse``, for the checks that walk every
+    op of a program (``Program.all_ops``)."""
 
     type: str
     inputs: Dict[str, List[str]]
@@ -141,6 +143,7 @@ class Op:
     amp_types: Optional[Dict[str, str]] = None
     group: Any = None
     sub_block: Optional["Block"] = None
+    else_block: Optional["Block"] = None
 
     def input_names(self) -> List[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -270,12 +273,13 @@ class Program:
 
     def all_ops(self):
         """(block, op) for every op of the program, the ops of each op's
-        ``sub_block`` after the op."""
+        ``sub_block`` and then its ``else_block`` after the op."""
         def walk(block):
             for op in block.ops:
                 yield block, op
-                if op.sub_block is not None:
-                    yield from walk(op.sub_block)
+                for sub in (op.sub_block, op.else_block):
+                    if sub is not None:
+                        yield from walk(sub)
         return list(walk(self.global_block))
 
     # ---- cloning (ref: fluid Program.clone; used for the test/eval program)
@@ -310,6 +314,7 @@ class Program:
                 amp_types=op.amp_types,
                 group=op.group,
                 sub_block=op.sub_block,
+                else_block=op.else_block,
             )
             if for_test and "is_test" in nop.attrs:
                 nop.attrs["is_test"] = True

@@ -121,10 +121,12 @@ class LayerHelper:
         attrs: Optional[Dict[str, Any]] = None,
         n_outputs: int = 1,
         op_type: Optional[str] = None,
+        out_names: Optional[Sequence[str]] = None,
     ) -> Union[Variable, List[Variable]]:
         """Append an op whose closure maps positional tensors to a tensor or
         a tuple of tensors: ``fn(ctx, *tensors, **attrs)``, plain PyTorch.
-        Output shapes and dtypes come from running it on meta tensors."""
+        Output shapes and dtypes come from running it on meta tensors.
+        ``out_names`` names the outputs (default: fresh unique names)."""
         attrs = dict(attrs or {})
         op_type = op_type or self.layer_type
         in_vars: List[Variable] = []
@@ -144,9 +146,10 @@ class LayerHelper:
 
         out_vars: List[Variable] = []
         lod = in_vars[0].lod_level if in_vars else 0
-        for t in res:
+        for i, t in enumerate(res):
             shape = tuple(None if d == _BATCH_SENTINEL else d for d in t.shape)
-            name = unique_name.generate(f"{op_type}.out")
+            name = (out_names[i] if out_names
+                    else unique_name.generate(f"{op_type}.out"))
             ov = self.block.create_var(name, shape, t.dtype, lod_level=lod)
             out_vars.append(ov)
 

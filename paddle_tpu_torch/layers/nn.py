@@ -414,6 +414,14 @@ def cross_entropy(input: Variable, label: Variable, soft_label: bool = False,
                             attrs={"soft_label": soft_label})
 
 
+def square_error_cost(input: Variable, label: Variable, name=None):
+    """Element-wise ``(input - label)^2`` (ref:
+    paddle/operators/squared_l2_distance_op.cc via fluid layers)."""
+    helper = LayerHelper("square_error_cost", name=name)
+    return helper.append_op(lambda ctx, a, b: torch.square(a - b),
+                            {"X": [input], "Label": [label]})
+
+
 # --------------------------------------------------------------------------- dropout
 
 
@@ -464,4 +472,4 @@ def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
 
 __all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy", "dropout",
            "embedding", "fc", "layer_norm", "pool2d",
-           "softmax_with_cross_entropy"]
+           "softmax_with_cross_entropy", "square_error_cost"]

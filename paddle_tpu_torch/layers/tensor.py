@@ -1,7 +1,9 @@
 """Dense-math layers (PyTorch port of the ``paddle_tpu/layers/tensor.py``
 subset the training slices use): ``elementwise_add`` with Fluid's ``axis``
-mid-broadcast, ``mean``, ``sums``, ``reshape``, ``concat``, ``assign`` and
-the reductions ``reduce_sum`` / ``mean`` / ``max`` / ``min`` / ``prod``."""
+mid-broadcast, ``mean``, ``sums``, ``reshape``, ``concat``, ``assign``,
+the reductions ``reduce_sum`` / ``mean`` / ``max`` / ``min`` / ``prod``,
+``cast``, ``scale``, ``fill_constant`` and
+``fill_constant_batch_size_like``."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -10,6 +12,7 @@ import numpy as np
 import torch
 
 from ..core.program import Variable
+from ..core.types import convert_dtype
 from .helper import LayerHelper
 
 
@@ -157,6 +160,62 @@ def assign(x):
     return helper.append_op(fn, {})
 
 
-__all__ = ["assign", "concat", "elementwise_add", "mean", "reduce_max",
-           "reduce_mean", "reduce_min", "reduce_prod", "reduce_sum",
-           "reshape", "sums"]
+def cast(x: Variable, dtype):
+    helper = LayerHelper("cast")
+    dt = convert_dtype(dtype)
+    return helper.append_op(lambda ctx, a: a.to(dt), {"X": [x]},
+                            op_type="cast")
+
+
+def scale(x: Variable, scale: float = 1.0, bias: float = 0.0,
+          bias_after_scale: bool = True, name=None):
+    """``x * scale + bias``, or ``(x + bias) * scale`` when not
+    ``bias_after_scale`` (ref: paddle/operators/scale_op.cc)."""
+    helper = LayerHelper("scale", name=name)
+
+    def fn(ctx, a, scale, bias, bias_after_scale):
+        return a * scale + bias if bias_after_scale else (a + bias) * scale
+
+    return helper.append_op(
+        fn, {"X": [x]}, attrs={"scale": scale, "bias": bias,
+                               "bias_after_scale": bias_after_scale})
+
+
+def fill_constant(shape: Sequence[int], dtype, value, name=None):
+    """A tensor of ``shape`` filled with ``value`` (ref:
+    paddle/operators/fill_constant_op.cc): a ``torch.full`` on the step's
+    device, inside the step, so a captured step copies nothing from the
+    host."""
+    helper = LayerHelper("fill_constant", name=name)
+    dt = convert_dtype(dtype)
+    shape = tuple(shape)
+    return helper.append_op(
+        lambda ctx: torch.full(shape, value, dtype=dt, device=ctx.device),
+        {}, out_names=[name] if name else None)
+
+
+def fill_constant_batch_size_like(input: Variable, shape, dtype, value,
+                                  input_dim_idx: int = 0,
+                                  output_dim_idx: int = 0):
+    """``fill_constant`` whose dim ``output_dim_idx`` is ``input``'s dim
+    ``input_dim_idx`` (ref:
+    paddle/operators/fill_constant_batch_size_like_op.cc)."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    dt = convert_dtype(dtype)
+
+    def fn(ctx, a, shape, value, input_dim_idx, output_dim_idx):
+        s = list(shape)
+        s[output_dim_idx] = a.shape[input_dim_idx]
+        return torch.full(tuple(s), value, dtype=dt, device=a.device)
+
+    return helper.append_op(
+        fn, {"Input": [input]},
+        attrs={"shape": tuple(shape), "value": value,
+               "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
+
+
+__all__ = ["assign", "cast", "concat", "elementwise_add",
+           "fill_constant", "fill_constant_batch_size_like", "mean",
+           "reduce_max", "reduce_mean", "reduce_min", "reduce_prod",
+           "reduce_sum", "reshape", "scale", "sums"]

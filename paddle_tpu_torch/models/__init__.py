@@ -1,8 +1,9 @@
 """The port's models: the decoder-only Transformer LM's training graph and
 serving math, the LSTM text classifier's training graph, ResNet's,
-seq2seq with attention (training and beam generation), and semantic role
-labelling (db_lstm with a CRF, trained and Viterbi-decoded)."""
-from . import resnet, seq2seq, srl, text_lstm, transformer
+seq2seq with attention (training and beam generation), semantic role
+labelling (db_lstm with a CRF, trained and Viterbi-decoded), and the
+nested-sequence document classifier (hier_text)."""
+from . import hier_text, resnet, seq2seq, srl, text_lstm, transformer
 from .resnet import (init_resnet_params, init_resnet_stats,
                      resnet_param_shapes)
 from .text_lstm import init_text_lstm_params, text_lstm_param_shapes
@@ -11,7 +12,8 @@ from .transformer import (TransformerLM, build_lm, init_lm_params, lm_forward,
                           lm_param_shapes)
 from .weights import from_jax_params, load_scope
 
-__all__ = ["TransformerLM", "build_lm", "from_jax_params", "init_lm_params",
+__all__ = ["TransformerLM", "build_lm", "from_jax_params", "hier_text",
+           "init_lm_params",
            "init_resnet_params", "init_resnet_stats", "init_text_lstm_params",
            "lm_forward", "lm_head_logits", "lm_paged_decode_window", "lm_param_shapes",
            "load_scope", "resnet", "resnet_param_shapes", "seq2seq", "srl",

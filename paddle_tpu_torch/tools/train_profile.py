@@ -1,6 +1,6 @@
 """Where the time of one training step goes, on the CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|srl|srl-decode|resnet50|resnet50-infer|resnet18-infer] [--dropout P] [--remat] [--eager] [--out F]
+    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|srl|srl-decode|hier_text|hier_text-infer|resnet50|resnet50-infer|resnet18-infer] [--dropout P] [--remat] [--eager] [--out F]
 
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
@@ -44,6 +44,17 @@ their device ms by class, from two more eager steps as for seq2seq: the
 LSTMs (the kernels by name, the rest of ``dynamic_lstm`` by origin), the
 CRF's forward algorithm and gold path (``linear_chain_crf``), Viterbi
 (``crf_decoding``), matmul (the fc ops), embedding, optimizer and other.
+``--model hier_text`` builds the nested-sequence document classifier
+(``models.hier_text.build`` at its defaults: emb 64, word GRU 64,
+sentence RNN 64, 2 classes) over IMDB's 5147-word dictionary with
+Adam(3e-3), on 64 documents padded to 8 sentences of 32 words
+(:func:`hier_text_batch`, numpy seed 0), weights from the port's startup
+program on the CPU (seed 0); ``--model hier_text-infer`` the program
+pruned to the prediction, on the same documents; both warmed, tokens
+counted as the sum of ``sub_len`` (documents for the inference step);
+device ms by class from two more eager steps as for seq2seq: the word GRU
+(``dynamic_gru`` and its input projection), the rest of the sentence
+step, embedding, matmul (the classifier's fc), optimizer and other.
 ``--model resnet50``
 builds ResNet-50 as ``bench.py``
 trains it (``models.resnet.build``, 1000 classes, Momentum(0.1, 0.9),
@@ -85,8 +96,9 @@ and resnet infer phases run (:func:`build_train_program`,
 :func:`build_infer_program`, :func:`train_scope`, :func:`train_batch`,
 :func:`text_lstm_params`, :func:`text_lstm_batch`, :func:`resnet_params`,
 :func:`resnet_batch`, :func:`infer_arrays`, :func:`infer_batch`,
-:func:`build_srl_program`, :func:`srl_batch`), so the profiled step is the
-smoke-checked step.
+:func:`build_srl_program`, :func:`srl_batch`,
+:func:`build_hier_text_program`, :func:`hier_text_batch`), so the profiled
+step is the smoke-checked step.
 """
 from __future__ import annotations
 
@@ -138,6 +150,15 @@ SRL_LEN = 32                  # sentences (5-29 tokens) padded to 32
 SRL_BATCH = 64
 SRL_SLOTS = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
              "verb", "mark")
+# the nested-sequence document classifier (models/hier_text.py) at
+# build's defaults, over IMDB's dictionary (paddle_tpu/datasets/imdb.py:15,
+# the document corpus the repo carries): 64 documents padded to 8
+# sentences of 32 words, drawn by the JAX test's rule
+# (tests/test_nested.py:175-186)
+HIER_CFG = dict(vocab_size=5147, emb_dim=64, word_hidden=64, sent_hidden=64,
+                class_dim=2)
+HIER_S, HIER_W = 8, 32
+HIER_BATCH = 64
 # Transformer-base's optimizer (Vaswani et al. 2017, section 5.3), for
 # the programs with dropout: Adam(0.9, 0.98, 1e-9) on noam_decay(d_model,
 # BASE_WARMUP), resumed at the optimizer step BASE_WARMUP (the peak of
@@ -282,6 +303,48 @@ def srl_batch(seed: int = 0, n: int = SRL_BATCH, train: bool = True):
     if train:
         feed["label"] = tags
     feed["length"] = length
+    return feed
+
+
+def build_hier_text_program():
+    """``models.hier_text.build`` at HIER_CFG over documents of HIER_S
+    sentences of HIER_W words, with Adam(3e-3), in fresh default programs;
+    returns ((loss, acc, prediction), main, startup)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    L = fluid.layers
+    toks = L.data("toks", [HIER_S, HIER_W], dtype="int32")
+    n_sub = L.data("n_sub", [-1], dtype="int32", append_batch_size=False)
+    sub_len = L.data("sub_len", [HIER_S], dtype="int32")
+    label = L.data("label", [1], dtype="int32")
+    outs = fluid.models.hier_text.build(toks, n_sub, sub_len, label,
+                                        **HIER_CFG)
+    fluid.optimizer.Adam(3e-3).minimize(outs[0])
+    return outs, fluid.default_main_program(), fluid.default_startup_program()
+
+
+def hier_text_batch(seed: int = 0, n: int = HIER_BATCH, S: int = HIER_S,
+                    W: int = HIER_W, vocab_size: int = None,
+                    train: bool = True) -> dict:
+    """``n`` documents from ``RandomState(seed)`` by the JAX test's rule
+    (``tests/test_nested.py:175-186``): a label, tokens from the label's
+    half of the vocabulary ([1, V/2) or [V/2, V)), 1..S sentences, each of
+    1..W words, ``sub_len`` zero past ``n_sub``.  ``train=False``: no
+    label.  ``vocab_size`` defaults to HIER_CFG's."""
+    rng = np.random.RandomState(seed)
+    V = vocab_size or HIER_CFG["vocab_size"]
+    y = rng.randint(0, 2, (n, 1)).astype(np.int32)
+    lo = np.where(y[:, 0] == 0, 1, V // 2)[:, None, None]
+    hi = np.where(y[:, 0] == 0, V // 2, V)[:, None, None]
+    toks = (rng.randint(0, 10 ** 6, (n, S, W)) % (hi - lo) + lo).astype(
+        np.int32)
+    n_sub = rng.randint(1, S + 1, (n,)).astype(np.int32)
+    sub_len = rng.randint(1, W + 1, (n, S)).astype(np.int32)
+    sub_len[np.arange(S)[None, :] >= n_sub[:, None]] = 0
+    feed = {"toks": toks, "n_sub": n_sub, "sub_len": sub_len}
+    if train:
+        feed["label"] = y
     return feed
 
 
@@ -729,16 +792,51 @@ def _srl_class(kernel: str, ancestors) -> str:
     return _seq2seq_class(kernel, ancestors)
 
 
+# hier_text kernel classes, by origin as for seq2seq: the word GRU (the
+# dynamic_gru op and its input projection, in the static_rnn op's body),
+# the rest of the sentence step (the body's pooling and fc, the outer
+# loop's masks and stacking), the embedding, the classifier's fc ops, the
+# optimizer, the rest
+HIER_CLASSES = ("word_gru", "sentence_step", "embedding", "matmul",
+                "optimizer", "other")
+
+
+def hier_text_op_classes(program) -> dict:
+    """id(op) -> class for every op of a hier_text program (the sub-block
+    of its ``static_rnn`` op too)."""
+    out, after_bwd = {}, False
+    for op in program.list_ops():
+        if op.special == "backward":
+            after_bwd = True
+            continue
+        if op.type == "static_rnn":
+            out[id(op)] = "sentence_step"
+            body = op.sub_block.ops
+            gru = next(o for o in body if o.type == "dynamic_gru")
+            proj = gru.inputs["Input"][0]
+            for o in body:
+                out[id(o)] = ("word_gru" if o is gru
+                              or proj in o.output_names()
+                              else "sentence_step")
+            continue
+        out[id(op)] = ("optimizer" if after_bwd else
+                       "embedding" if op.type == "embedding" else
+                       "matmul" if op.type in ("mul", "elementwise_add")
+                       else "other")
+    return out
+
+
 def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
-    """Device ms by class of ``steps`` eager steps of a seq2seq or SRL
-    model (the same kernels a replay runs), each op in its class's range;
-    and the eager step's host wall ms (median of ``steps``, unprofiled,
-    after one warm-up step)."""
+    """Device ms by class of ``steps`` eager steps of a seq2seq, SRL or
+    hier_text model (the same kernels a replay runs), each op in its
+    class's range; and the eager step's host wall ms (median of
+    ``steps``, unprofiled, after one warm-up step)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    srl = model in SRL
-    classes = (srl_op_classes if srl else seq2seq_op_classes)(main)
+    srl, hier = model in SRL, model in HIER
+    classes = (srl_op_classes if srl else hier_text_op_classes if hier
+               else seq2seq_op_classes)(main)
     exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     walls = []
     for _ in range(steps):
@@ -767,16 +865,21 @@ def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
         out["other"] += sum(us for _, us in kernels) - sum(out.values())
     else:
         out = _classes_by_origin(
-            prof, BEAM_CLASSES if beam else SEQ2SEQ_CLASSES,
+            prof, (BEAM_CLASSES if beam else HIER_CLASSES if hier
+                   else SEQ2SEQ_CLASSES),
             _beam_class if beam else _seq2seq_class, names)
     out = {k: v / 1e3 / steps for k, v in out.items()}
     return out, float(np.median(walls))
 
 
 # the models whose profiled steps are replays of a warmed signature
-WARMED = ("lm", "text_lstm", "seq2seq", "seq2seq-beam", "srl", "srl-decode")
+WARMED = ("lm", "text_lstm", "seq2seq", "seq2seq-beam", "srl", "srl-decode",
+          "hier_text", "hier_text-infer")
 SEQ2SEQ = ("seq2seq", "seq2seq-beam")
 SRL = ("srl", "srl-decode")
+HIER = ("hier_text", "hier_text-infer")
+# the models with only a float32 arm
+FLOAT32_ONLY = ("text_lstm",) + SEQ2SEQ + SRL + HIER
 
 
 def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
@@ -812,6 +915,15 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
             fetch = [loss]
         return (fetch, main, startup, params, feed,
                 int(feed["length"].sum()), "tokens")
+    if model in HIER:
+        (loss, _, pred), main, startup = build_hier_text_program()
+        params = startup_params(main, startup)
+        feed = hier_text_batch(0, train=model == "hier_text")
+        if model == "hier_text":
+            return ([loss], main, startup, params, feed,
+                    int(feed["sub_len"].sum()), "tokens")
+        return ([pred], main.prune([pred]), startup, params, feed,
+                HIER_BATCH, "documents")
     if model == "resnet50":
         loss, main, startup = build_resnet_program(amp)
         n = RESNET_BATCH if amp else RESNET_FP32_BATCH
@@ -823,7 +935,8 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
         return ([pred], main, startup, infer_arrays(depth),
                 infer_batch(INFER_BATCH, "cuda"), INFER_BATCH, "images")
     raise ValueError(f"unknown model {model!r}: lm | text_lstm | seq2seq | "
-                     f"seq2seq-beam | srl | srl-decode | resnet50 | "
+                     f"seq2seq-beam | srl | srl-decode | hier_text | "
+                     f"hier_text-infer | resnet50 | "
                      f"{' | '.join(INFER_DEPTH)}")
 
 
@@ -836,8 +949,8 @@ def emitted_tokens(lens) -> int:
 def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
             remat: bool = False, eager: bool = False) -> dict:
     """The profile of ``model``'s step: for the LM and the ResNets the amp
-    arm, or with ``amp=False`` the float32 arm (text_lstm and seq2seq have
-    only the float32 one); the LM with ``dropout`` and ``remat``.  The
+    arm, or with ``amp=False`` the float32 arm (the models of FLOAT32_ONLY
+    have only the float32 one); the LM with ``dropout`` and ``remat``.  The
     models of WARMED are warmed first, so that every profiled step is a
     replay of one CUDA graph, unless ``eager``."""
     from torch.profiler import ProfilerActivity
@@ -924,7 +1037,7 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
     peak, peak_reserved = (torch.cuda.max_memory_allocated(),
                            torch.cuda.max_memory_reserved())
     eager_ms, by_name = None, None
-    if model in SEQ2SEQ + SRL:
+    if model in SEQ2SEQ + SRL + HIER:
         by_name = by_class
         # the replayed graph has no op ranges: the classes come from eager
         # steps of the same program on a second scope
@@ -935,8 +1048,7 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
     return {
         "card": fluid.card_info(0), "model": model, "steps": steps,
         "dropout": dropout, "remat": remat,
-        "arm": "amp" if amp and model not in ("text_lstm",) + SEQ2SEQ + SRL
-        else "float32",
+        "arm": "amp" if amp and model not in FLOAT32_ONLY else "float32",
         "warm_s": warm_s, "replays": exe.replays,
         "peak_memory_bytes": peak,
         # the graph pool's activations are reserved, not allocated, while
@@ -961,14 +1073,14 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="lm",
-                    choices=("lm", "text_lstm", *SEQ2SEQ, *SRL, "resnet50",
-                             *INFER_DEPTH),
+                    choices=("lm", "text_lstm", *SEQ2SEQ, *SRL, *HIER,
+                             "resnet50", *INFER_DEPTH),
                     help="the training step to profile (lm: both arms, "
                          "float32 then amp; resnet50: both arms, amp then "
                          "float32), the seq2seq beam or SRL Viterbi "
-                         "decode, or the ResNet inference step "
-                         "(resnet50-infer: both arms; "
-                         "resnet18-infer: amp)")
+                         "decode, the hier_text inference step, or the "
+                         "ResNet inference step (resnet50-infer: both "
+                         "arms; resnet18-infer: amp)")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="lm: build_lm's dropout (with Transformer-base's "
                          "optimizer, resumed at the peak of warm-up)")
@@ -982,9 +1094,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.model != "lm" and (args.dropout or args.remat):
         ap.error("--dropout and --remat are build_lm's: --model lm")
-    float32_only = ("text_lstm",) + SEQ2SEQ + SRL
     arms = {"lm": (False, True), "resnet18-infer": (True,)}.get(
-        args.model, (False,) if args.model in float32_only else (True, False))
+        args.model, (False,) if args.model in FLOAT32_ONLY else (True, False))
     results = []
     for amp in arms:
         gc.collect()                  # the last arm's graphs and their pool
@@ -994,12 +1105,12 @@ def main(argv=None) -> int:
         results.append(res)
         wall, busy = res["wall_ms_per_step"], res["device_busy_ms_per_step"]
         unit = res["unit"]
-        arm = f" ({res['arm']})" if args.model not in float32_only else ""
+        arm = f" ({res['arm']})" if args.model not in FLOAT32_ONLY else ""
         if args.dropout or args.remat:
             arm += (f" (dropout {args.dropout:g}"
                     f"{', remat' if args.remat else ''})")
-        what = ("inference" if args.model in INFER_DEPTH else
-                "decode" if args.model in ("seq2seq-beam", "srl-decode")
+        what = ("inference" if args.model in (*INFER_DEPTH, "hier_text-infer")
+                else "decode" if args.model in ("seq2seq-beam", "srl-decode")
                 else "train")
         print(f"{res['model']}{arm} {what} step on {res['card']}: "
               f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "

@@ -30,6 +30,8 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.ops.batch_norm\n"
         "import paddle_tpu_torch.layers.beam, paddle_tpu_torch.layers.control_flow\n"
         "import paddle_tpu_torch.models.seq2seq\n"
+        "import paddle_tpu_torch.layers.nested, paddle_tpu_torch.layers.mdlstm\n"
+        "import paddle_tpu_torch.models.hier_text\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
         "bad = sorted(m for m in sys.modules\n"
