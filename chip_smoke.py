@@ -214,7 +214,12 @@ Phases (any failure exits non-zero, before the final line):
                ([256,56,56,64]x64 and [256,28,28,128]x128, which are
                benchmark/conv_probe.py's, [256,14,14,256]x256,
                [256,7,7,512]x512) and two ragged ones ([3,13,9,3]x40 on the
-               element-wise path, [3,13,9,16]x24 on the 16-byte one), each
+               element-wise path, [3,13,9,16]x24 on the 16-byte one), and
+               the plain kernel at the routed shapes of the image and
+               ocr_ctc inference programs (CONV_MODEL_CASES: VGG-19's 224
+               stem and 64 -> 64 convs and its 112 conv, AlexNet's 12 x 12,
+               GoogLeNet's ragged inception widths, ocr_ctc's C = 1 and 16,
+               each in its dtypes, timed beside cuDNN), each
                case on the route ops/conv.py::conv_route gives it (ResNet
                shapes on the halo kernel in bfloat16 and on the halo_f32
                kernel, three TF32 passes, in float32; the ragged ones on the
@@ -235,7 +240,44 @@ Phases (any failure exits non-zero, before the final line):
                read after (fused 13 x 5 on ResNet-50; fused 5 x 5 and plain
                8 x 5 on ResNet-18; under amp every one on the halo route,
                in float32 every one on the halo_f32 route), images/s from the
-               median of steps 2-5, peak memory.
+               median of steps 2-5, peak memory;
+ 15. image   - VGG-19, AlexNet and GoogLeNet as benchmark/vgg.py,
+               alexnet.py and googlenet.py build them (224x224, 1000
+               classes, Momentum(0.01, 0.9), weights from the port's startup
+               program on the CPU, seed 0): a float32 train step (TF32 off,
+               dropout on) on 2 images card against CPU (loss rtol 1e-4;
+               each gradient within 1e-3 of its max abs, or, where one is
+               not, every gradient held to 3 x the CPU's own floor under a
+               1e-6 change of the images and weights: these gradients are
+               chaotic at float32's resolution), the pruned, routed
+               inference on 4 images card against CPU (as ResNet-50's);
+               then 5 eager steps in each train arm (VGG-19 amp and float32
+               at bs=64, AlexNet and GoogLeNet amp at bs=128; dropout
+               launches counted) and each inference arm (the three models,
+               amp and float32; conv launches by route against
+               tools/train_profile.py::conv_routes), ms per step, images/s,
+               peak memory;
+ 16. ocr_ctc - the OCR line recognizer at its own widths on 256 synthetic
+               lines, Adam(5e-3), float32, cuDNN deterministic: the train
+               signature warmed, a replay bitwise against an unwarmed eager
+               step and grouped against per-op, card against CPU; 5
+               replays and 3 eager steps; the program pruned to the greedy
+               decode warmed, its two convs on the gather kernel inside the
+               graph (2 launches counted at each replay, no allocation at
+               replay), replays bitwise against eager on two batches, ids
+               against the CPU's where every step's top two are clear;
+ 17. nets    - paddle_tpu_torch.nets card against CPU, one eager step each
+               (the float32 train limit): scaled_dot_product_attention at
+               B 16, T 128, D 512, 8 heads (one launch of each flash
+               kernel), refused at head dim 8 before its first op;
+               multi_head_attention with wider value heads (the einsum
+               path); bidirectional_lstm (the LSTM kernels, 2 + 2),
+               bidirectional_gru, sequence_conv_pool, glu,
+               simple_attention, dot_product_attention; img_conv_group
+               with batch norm (the BN kernels, 2 + 2; the conv biases,
+               which the batch norm cancels, held to 1e-3 of the largest
+               gradient) and its pruned program (2 fused conv launches)
+               card against CPU.
 Each phase prints its seconds.  The line before the card line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -458,6 +500,49 @@ MDLSTM_SHAPE = (32, 8, 32, 32)
 MDLSTM_SIZE = 64
 MDLSTM_FWD_REL = 1e-4
 MDLSTM_GRAD_REL = 1e-3
+# the image phase (VGG-19, AlexNet, GoogLeNet; PERF.md section 4): the
+# float32 train step card against CPU on IMAGE_PARITY_BATCH images
+# (_image_train_parity), the pruned inference on INFER_PARITY_BATCH
+# (_infer_parity), then the eager arms at each config's batch
+IMAGE_PARITY_BATCH = 2
+# the relative change of the images and weights whose CPU spread is the
+# image parity step's floor: at 1e-6 the spread is the size of float32's own
+# effect on these steps (VGG-19's median gradient: the CPU's float32 step
+# lies 1.6e-3 from its float64 step, the spread reads 2.0e-3), where ResNet's
+# 1e-7 change of the images reads 9.8e-7 (tools/image_parity.py on an NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md section 2)
+IMAGE_FLOOR_SCALE = 1e-6
+IMAGE_TRAIN_ARMS = (("vgg19", True), ("vgg19", False), ("alexnet", True),
+                    ("googlenet", True))
+IMAGE_INFER_ARMS = tuple((m, amp) for m in ("vgg19", "alexnet", "googlenet")
+                         for amp in (True, False))
+# the conv kernels at the slice's new shapes, the routed convs of the image
+# and ocr_ctc inference programs at their batches: (label, N, H, W, C, O,
+# {dtype: the route conv_route gives}); the plain kernel only (none of
+# these programs has a batch norm to fuse), timed as the other cases
+CONV_MODEL_CASES = [
+    ("vgg19 c224 stem", 64, 224, 224, 3, 64,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("vgg19 c224", 64, 224, 224, 64, 64,
+     {torch.bfloat16: "halo", torch.float32: "gather"}),
+    ("vgg19 c112", 64, 112, 112, 128, 128,
+     {torch.bfloat16: "halo", torch.float32: "halo_f32"}),
+    ("alexnet c12", 128, 12, 12, 384, 384,
+     {torch.bfloat16: "halo", torch.float32: "halo_f32"}),
+    ("googlenet c28 96", 128, 28, 28, 96, 128,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("googlenet c14 144", 128, 14, 14, 144, 288,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("googlenet c7 160", 128, 7, 7, 160, 320,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("ocr_ctc c1", 256, 8, 32, 1, 16, {torch.float32: "gather"}),
+    ("ocr_ctc c16", 256, 4, 16, 16, 32, {torch.float32: "gather"}),
+]
+# the ocr_ctc phase: OCR_BATCH lines (tools/train_profile.py); the nets
+# phase's programs: NETS_BATCH rows, and scaled_dot_product_attention at T
+# NETS_T, width NETS_D, NETS_HEADS heads (head dim 64)
+NETS_BATCH = 16
+NETS_T, NETS_D, NETS_HEADS = 128, 512, 8
 
 
 def fail(msg: str) -> None:
@@ -501,10 +586,13 @@ def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     carried over moves the sum by at most its own share, and a stray
     record of another window's kernel counts for nothing.  A window that
     reads no device time at all is measured again in a new window, up to
-    EMPTY_WINDOW_RETRIES times, each one printed and counted in
-    ``empty_windows`` (ROADMAP C.2: a whole run once lost one window's
-    records, late in the conv phase).  Fails when the profiler shows no
-    device time in any of them: there is no fallback to the events."""
+    EMPTY_WINDOW_RETRIES times, each one printed (with the kernel records
+    it did hold) and counted in ``empty_windows`` (ROADMAP C.2: a whole
+    run once lost one window's records, late in the conv phase; late in a
+    run each window loses the first 7 records of a kernel launched from
+    the kernel libraries, so ``iters`` stays at 30 for them, where the
+    rounding still counts each call once).  Fails when the profiler shows
+    no device time in any of them: there is no fallback to the events."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.tools.decode_profile import _kernel_us
@@ -529,8 +617,11 @@ def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
         if us > 0:
             return us / 1e3
         empty_windows.append(attempt)
+        held = {evt.key[:40]: evt.count for evt in prof.key_averages()
+                if _kernel_us(evt) > 0}
         print(f"device_ms: a profiler window read no device time (attempt "
-              f"{attempt + 1}; {len(empty_windows)} in this run so far)",
+              f"{attempt + 1}; {len(empty_windows)} in this run so far; "
+              f"kernel records it held, of {iters} calls: {held})",
               flush=True)
     fail("torch.profiler shows no device time for a timed call")
 
@@ -2959,11 +3050,15 @@ def _small_train(build, n=16, d=16, seed=13):
     return loss, main, startup, startup_params(main, startup, 0), feed
 
 
-def _step_card_cpu(label, loss, main, startup, params, feed, zero=()):
+def _step_card_cpu(label, loss, main, startup, params, feed, zero=(),
+                   cancelled=()):
     """One eager step on the card and on the CPU from the same weights:
-    the gradients named in ``zero`` exact zeros on both; the rest under
-    the float32 train limit (``_card_cpu_grads``).  Returns the card
-    Executor and scope."""
+    the gradients named in ``zero`` exact zeros on both; those named in
+    ``cancelled``, zero in exact arithmetic but not in float32 (a conv
+    bias before a batch norm, which subtracts it again with the batch
+    mean), within 1e-3 of the step's largest max |g|; the rest under the
+    float32 train limit (``_card_cpu_grads``).  Returns the card Executor
+    and scope."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.tools.train_profile import train_scope
 
@@ -2981,7 +3076,18 @@ def _step_card_cpu(label, loss, main, startup, params, feed, zero=()):
         for g, v in zip(grads, vals[1:]):
             check((not v.any()) == (g[:-len("@GRAD")] in zero),
                   f"{label}: {g} on {dev} {'not ' if v.any() else ''}zero")
-    keep = [i for i, g in enumerate(grads) if g[:-len("@GRAD")] not in zero]
+    top = max(float(np.abs(v).max()) for v in out["cpu"][1:])
+    for i, g in enumerate(grads):
+        if g[:-len("@GRAD")] in cancelled:
+            d = float(np.abs(out["cuda"][1 + i] - out["cpu"][1 + i]).max())
+            print(f"{label}: {g}, cancelled by a batch norm: max |g| "
+                  f"{float(np.abs(out['cpu'][1 + i]).max()):.3e}, card vs "
+                  f"CPU max|d| {d:.3e} = {d / top:.3e} of the largest max "
+                  f"|g| (limit 1e-3)")
+            check(d <= 1e-3 * top, f"{label}: {g} differs by {d / top} of "
+                                   f"the largest gradient")
+    keep = [i for i, g in enumerate(grads)
+            if g[:-len("@GRAD")] not in set(zero) | set(cancelled)]
     _card_cpu_grads(label, [out["cuda"][0]] + [out["cuda"][1 + i]
                                                for i in keep],
                     [out["cpu"][0]] + [out["cpu"][1 + i] for i in keep],
@@ -3451,12 +3557,14 @@ def _conv_bound(kernel: str, n, h, w, c, o, dtype, ffma=False) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
-    """Both kernels against their plain versions on the same inputs, each
-    on its route (the route counts must show the route conv_route gives;
-    ResNet shapes must take the halo kernel in bfloat16 and the halo_f32
-    kernel in float32, the ragged ones the gather kernel); at the
-    CONV_TIMED shapes also the times.  Returns the records by kernel."""
+def _conv_case(label, n, h, w, c, o, dtype, dev, card, want_route: str,
+               timed: bool, kernels=CONV_KERNELS) -> dict:
+    """``kernels`` against their plain versions on the same inputs, each
+    on its route (conv_route must give ``want_route``, and the route
+    counts must show it: ResNet shapes take the halo kernel in bfloat16
+    and the halo_f32 kernel in float32, the ragged ones the gather
+    kernel); when ``timed`` also the times.  Returns the records by
+    kernel."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import conv as TC
@@ -3475,11 +3583,10 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
     plain = {"igemm": lambda i: TC.igemm_conv_reference(x, wt),
              "fused": lambda i: TC.igemm_conv_fused_reference(x, wt, a, b)}
     route = TC.conv_route(dtype, n, h, w, c, o, True)
-    check(route == (CONV_ROUTE[dtype] if label in CONV_RESNET
-                    else "gather"),
-          f"{name}: conv_route gives the {route} route")
+    check(route == want_route, f"{name}: conv_route gives the {route} "
+                               f"route, not {want_route}")
     errs = {}
-    for k in CONV_KERNELS:
+    for k in kernels:
         before = dict(TC.route_launches)
         got = kern[k](0)
         torch.cuda.synchronize()
@@ -3508,7 +3615,7 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
         check(worst <= 1.0, f"{name}: {k} kernel disagrees with its plain "
                             f"version ({worst} of its limit)")
         del got, want
-    if label not in CONV_TIMED[dtype]:
+    if not timed:
         return {}
 
     # the yardstick: cuDNN on the same NHWC tensor, seen as a channels_last
@@ -3528,7 +3635,7 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
         ("fused", "nchw"): lambda i: torch.relu(
             F.conv2d(x_nchw, w_oihw, padding=1) * a_r + b_r)}
     recs = {}
-    for k in CONV_KERNELS:
+    for k in kernels:
         ms, dev_ms = both_ms(kern[k])
         pl_ms, pl_dev = both_ms(plain[k], iters=5, warmup=1)
         lib_t = {lay: both_ms(lib[(k, lay)]) for lay in ("channels_last",
@@ -3568,19 +3675,29 @@ def _conv_case(label, n, h, w, c, o, dtype, dev, card) -> dict:
 
 
 def phase_conv_kernels(card: str) -> dict:
-    """Every conv case in float32 and bfloat16; returns the timed records
+    """Every conv case in float32 and bfloat16, and the CONV_MODEL_CASES
+    in their dtypes (the plain kernel, timed); returns the timed records
     by dtype, shape and kernel for the JSON line."""
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
     torch.backends.cudnn.allow_tf32 = False         # the yardstick
     dev = torch.device("cuda")
     records = {}
-    for label, n, h, w, c, o in CONV_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            recs = _conv_case(label, n, h, w, c, o, dtype, dev, card)
-            if recs:
-                records.setdefault("float32" if dtype == torch.float32
-                                   else "bfloat16", {})[label] = recs
-            torch.cuda.empty_cache()
+    cases = [(label, n, h, w, c, o, dtype,
+              dict(want_route=(CONV_ROUTE[dtype] if label in CONV_RESNET
+                               else "gather"),
+                   timed=label in CONV_TIMED[dtype]))
+             for label, n, h, w, c, o in CONV_CASES
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(label, n, h, w, c, o, dtype,
+               dict(want_route=route, timed=True, kernels=("igemm",)))
+              for label, n, h, w, c, o, routes in CONV_MODEL_CASES
+              for dtype, route in routes.items()]
+    for label, n, h, w, c, o, dtype, kw in cases:
+        recs = _conv_case(label, n, h, w, c, o, dtype, dev, card, **kw)
+        if recs:
+            records.setdefault("float32" if dtype == torch.float32
+                               else "bfloat16", {})[label] = recs
+        torch.cuda.empty_cache()
     return records
 
 
@@ -3590,10 +3707,12 @@ def _softmax_input(program, pred_name: str) -> str:
     return sm.inputs["X"][0]
 
 
-def _infer_parity(card: str) -> None:
-    """ResNet-50's pruned, routed program on INFER_PARITY_BATCH images on
-    the card and on the CPU (the plain versions) from the same weights and
-    running statistics.  float32 (TF32 off): the fc's pre-softmax logits
+def _infer_parity(card: str, label: str, build, arrays: dict,
+                  feed: dict) -> None:
+    """A pruned, routed inference program (``build(amp)`` -> (prediction,
+    program, startup)) on the images of ``feed`` on the card and on the
+    CPU (the plain versions) from the same ``arrays`` (weights and any
+    running statistics).  float32 (TF32 off): the fc's pre-softmax logits
     within INFER_F32_REL of max |.|, and the same top-1 class wherever the
     top two are further apart than twice the largest difference (the
     margins are printed).  The card's running statistics are left bitwise
@@ -3603,27 +3722,23 @@ def _infer_parity(card: str) -> None:
     max |.|) does not hold through 50 bfloat16 layers even for the CPU
     against itself: float32 sums in another order, or images times (1 +
     1e-7 N(0, 1)), flip a bfloat16 rounding here and there, and the flips
-    compound (on the CPU alone, such a draw moved the logits by 32, one
-    bfloat16 ulp at their largest values and 0.7% of their max, as far as
-    the card is from the CPU).  So the bfloat16 logits are held,
+    compound (on the CPU alone, such a draw moved ResNet-50's logits by
+    32, one bfloat16 ulp at their largest values and 0.7% of their max,
+    as far as the card is from the CPU).  So the bfloat16 logits are held,
     like the ResNet-50 training gradients (_resnet_parity), to the CPU's
     own spread under that change of the images, measured in this run: in
     max |.| and in relative L2 within RESNET_FLOOR_FACTOR x the larger
     spread of two draws (noise seeds 5 and 6), unless they are within the
     element-wise bound anyway."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.tools.train_profile import (build_infer_program,
-                                                      infer_arrays,
-                                                      infer_batch,
-                                                      train_scope)
+    from paddle_tpu_torch.tools.train_profile import train_scope
 
-    arrays = infer_arrays(50)
-    feed = infer_batch(INFER_PARITY_BATCH, "cpu")
+    n_img = int(feed["img"].shape[0])
     stats = sorted(n for n in arrays if n.endswith((".w_mean", ".w_var")))
     ref32 = None   # the CPU's float32 logits, from the first arm
     for amp in (False, True):
         arm = "amp" if amp else "float32"
-        pred, program, startup = build_infer_program(50, amp)
+        pred, program, startup = build(amp)
         logits = _softmax_input(program, pred.name)
         out, secs = {}, {}
         for dev in ("cuda", "cpu"):
@@ -3638,8 +3753,7 @@ def _infer_parity(card: str) -> None:
                 for n in stats:
                     check(np.array_equal(scope.find_var(n).cpu().numpy(),
                                          arrays[n]),
-                          f"resnet infer {arm}: running statistic {n} "
-                          f"changed")
+                          f"{label} {arm}: running statistic {n} changed")
         floor_max = floor_l2 = 0.0
         if amp:   # the CPU's own spread (see above); exe, scope: the CPU's
             for seed in (5, 6):
@@ -3653,9 +3767,8 @@ def _infer_parity(card: str) -> None:
                                 float(np.abs(moved - out["cpu"]).max()))
                 floor_l2 = max(floor_l2, _rel_l2(moved, out["cpu"]))
         got, want = out["cuda"], out["cpu"]
-        check(got.shape == (INFER_PARITY_BATCH, 1000)
-              and np.isfinite(got).all(),
-              f"resnet infer parity {arm}: logits {got.shape}, finite "
+        check(got.shape == (n_img, 1000) and np.isfinite(got).all(),
+              f"{label} parity {arm}: logits {got.shape}, finite "
               f"{np.isfinite(got).all()}")
         top = float(np.abs(want).max())
         err = float(np.abs(got - want).max())
@@ -3682,40 +3795,37 @@ def _infer_parity(card: str) -> None:
         margins = srt[:, -1] - srt[:, -2]
         clear = margins > 2 * err
         same = got.argmax(1) == want.argmax(1)
-        print(f"resnet infer parity ({arm}{', TF32 off' if not amp else ''}, "
-              f"{INFER_PARITY_BATCH} images): logits max|d| {err:.3e} "
+        print(f"{label} parity ({arm}{', TF32 off' if not amp else ''}, "
+              f"{n_img} images): logits max|d| {err:.3e} "
               f"({err / top:.3e} of max), worst |d|/limit {worst:.3f} (limit "
               f"{lim}); top-1 equal {same.tolist()}, top-two margins "
               f"{', '.join(f'{m:.3e}' for m in margins)}; step "
               f"{secs['cuda']:.2f} s card (first), {secs['cpu']:.2f} s CPU")
-        check(ok, f"resnet infer parity {arm}: logits differ beyond their "
+        check(ok, f"{label} parity {arm}: logits differ beyond their "
                   f"limit ({worst} of the element-wise bound)")
         if not amp:
             check(bool(same[clear].all()),
-                  f"resnet infer parity float32: top-1 differs where the "
+                  f"{label} parity float32: top-1 differs where the "
                   f"margin exceeds twice the difference: {same}, {margins}")
 
 
-def _infer_arm(model: str, depth: int, amp: bool, card: str) -> dict:
-    """TRAIN_STEPS inference steps of one arm on a batch that stays on the
-    card, fetch included; the conv counts are this pass's own."""
+def _infer_arm(arm: str, pred, program, startup, arrays: dict, feed: dict,
+               launches_a_step: dict, routes_a_step: dict,
+               card: str) -> dict:
+    """TRAIN_STEPS inference steps of one arm (the pruned ``program``, its
+    prediction fetched) on ``feed``, which stays on the card; the conv
+    counts are this pass's own and must be ``launches_a_step`` and
+    ``routes_a_step`` times the steps."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import conv
-    from paddle_tpu_torch.tools.train_profile import (
-        INFER_BATCH, TRAIN_STEPS, build_infer_program, infer_arrays,
-        infer_batch, train_scope)
+    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS, train_scope
 
-    arm = f"{model} {'amp' if amp else 'float32'}"
-    pred, program, startup = build_infer_program(depth, amp)
+    n = int(feed["img"].shape[0])
     exe = fluid.Executor()
-    scope = train_scope(exe, startup, program, infer_arrays(depth))
-    feed = infer_batch(INFER_BATCH, "cuda")
+    scope = train_scope(exe, startup, program, arrays)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in CONV_KERNELS:
-        conv.launches[k] = 0
-    for r in conv.route_launches:
-        conv.route_launches[r] = 0
+    _zero_counters()
     outs, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -3729,45 +3839,588 @@ def _infer_arm(model: str, depth: int, amp: bool, card: str) -> dict:
     launches = dict(conv.launches)
     routes = dict(conv.route_launches)
     peak = torch.cuda.max_memory_allocated()
-    want = {k: v * TRAIN_STEPS for k, v in INFER_LAUNCHES[depth].items()}
-    check(launches == want, f"resnet infer {arm}: conv launches {launches}, "
-                            f"expected {want}")
-    # every bfloat16 ResNet conv on the halo kernel, every float32 one on
-    # the halo_f32 kernel
-    total = sum(want.values())
-    want_routes = {"halo": total if amp else 0,
-                   "halo_f32": 0 if amp else total, "gather": 0}
-    check(routes == want_routes, f"resnet infer {arm}: route launches "
-                                 f"{routes}, expected {want_routes}")
+    want = {k: v * TRAIN_STEPS for k, v in launches_a_step.items()}
+    check(launches == want, f"{arm}: conv launches {launches}, expected "
+                            f"{want}")
+    want_routes = {k: v * TRAIN_STEPS for k, v in routes_a_step.items()}
+    check(routes == want_routes, f"{arm}: route launches {routes}, expected "
+                                 f"{want_routes}")
     last = outs[-1]
-    check(last.shape == (INFER_BATCH, 1000) and np.isfinite(last).all()
+    check(last.shape == (n, 1000) and np.isfinite(last).all()
           and np.allclose(last.sum(1), 1.0, atol=1e-2),
-          f"resnet infer {arm}: predictions {last.shape}, finite "
+          f"{arm}: predictions {last.shape}, finite "
           f"{np.isfinite(last).all()}, row sums {last.sum(1)[:4]}")
     med = float(np.median(step_ms[1:]))
-    print(f"resnet infer {arm}: {TRAIN_STEPS} steps on {INFER_BATCH} images, "
-          f"step ms {', '.join(f'{x:.2f}' for x in step_ms)}; median of "
-          f"steps 2-{TRAIN_STEPS} {med:.3f} ms = {INFER_BATCH / med * 1e3:.1f}"
-          f" images/s; peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(max_memory_allocated); conv launches {launches}, by route "
-          f"{routes}; steps agree "
+    print(f"{arm}: {TRAIN_STEPS} steps on {n} images, step ms "
+          f"{', '.join(f'{x:.2f}' for x in step_ms)}; median of steps "
+          f"2-{TRAIN_STEPS} {med:.3f} ms = {n / med * 1e3:.1f} images/s; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
+          f"conv launches {launches}, by route {routes}; steps agree "
           f"bitwise: {all(np.array_equal(o, last) for o in outs)}; top-1 of "
           f"the first images {last.argmax(1)[:4].tolist()}; on {card}")
     return {"launches": launches, "route_launches": routes,
-            "median_ms": med, "images_per_s": INFER_BATCH / med * 1e3,
-            "batch": INFER_BATCH, "peak_memory_bytes": peak}
+            "median_ms": med, "images_per_s": n / med * 1e3,
+            "batch": n, "peak_memory_bytes": peak}
 
 
 def phase_resnet_infer(card: str) -> dict:
+    from paddle_tpu_torch.tools.train_profile import (INFER_BATCH,
+                                                      build_infer_program,
+                                                      infer_arrays,
+                                                      infer_batch)
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    _infer_parity(card)
+    _infer_parity(card, "resnet infer",
+                  lambda amp: build_infer_program(50, amp), infer_arrays(50),
+                  infer_batch(INFER_PARITY_BATCH, "cpu"))
     arms = {}
     for model, depth, amp in INFER_ARMS:
-        arms[f"{model} {'amp' if amp else 'float32'}"] = _infer_arm(
-            model, depth, amp, card)
+        arm = f"{model} {'amp' if amp else 'float32'}"
+        pred, program, startup = build_infer_program(depth, amp)
+        want = INFER_LAUNCHES[depth]
+        # every bfloat16 ResNet conv on the halo kernel, every float32 one
+        # on the halo_f32 kernel
+        total = sum(want.values())
+        routes = {"halo": total if amp else 0,
+                  "halo_f32": 0 if amp else total, "gather": 0}
+        arms[arm] = _infer_arm(arm, pred, program, startup,
+                               infer_arrays(depth),
+                               infer_batch(INFER_BATCH, "cuda"), want,
+                               routes, card)
         torch.cuda.empty_cache()
     return arms
+
+
+def _zero_counters() -> None:
+    """Set every kernel launch counter to 0 (``ops/_counters.py``)."""
+    from paddle_tpu_torch.ops import _counters
+
+    snap = _counters.snapshot()
+    _counters.restore(_counters.delta(snap, snap))
+
+
+def _counts() -> dict:
+    """Every kernel launch counter, copied."""
+    from paddle_tpu_torch.ops import _counters
+
+    return _counters.snapshot()
+
+
+def _image_train_parity(model: str, params: dict, card: str) -> None:
+    """One float32 Momentum step (TF32 off) of ``model`` on
+    IMAGE_PARITY_BATCH images on the card and on the CPU from the same
+    weights and dropout masks: the loss within rtol 1e-4 and each gradient
+    within 1e-3 of its max abs (the float32 train limit).
+
+    Where a gradient fails that, the step's gradients are held as
+    ResNet-50's are (_resnet_parity, ROADMAP C.5) to the CPU's own floor
+    measured in this run, in relative L2: each within max(1e-3,
+    RESNET_FLOOR_FACTOR x its floor), and all together within
+    RESNET_FLOOR_FACTOR x theirs; the floor is the larger spread of two
+    CPU steps (noise seeds 5 and 6) with the images and every weight times
+    (1 + IMAGE_FLOOR_SCALE N(0, 1)) from the unmoved one.  These gradients
+    are chaotic at float32's resolution: a rounding flips a ReLU whose
+    input lies within it of 0, and one flip moves a layer's weight or bias
+    gradient by one element's product, up to about 1e-2 of its max where
+    the layer sums few positions (tools/image_parity.py, PERF.md section
+    6, PR 19)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (build_image_program,
+                                                      image_batch,
+                                                      train_scope)
+
+    loss, main, startup = build_image_program(model, amp=False)
+    grad_names = [f"{n}@GRAD" for n in params]
+    feed = image_batch(IMAGE_PARITY_BATCH, "cpu", seed=1)
+
+    def step(dev, weights=params, images=feed["img"]):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        check(dev == "cpu" or not torch.backends.cudnn.allow_tf32,
+              "cuDNN TF32 is on: the float32 contract needs it off")
+        scope = train_scope(exe, startup, main, weights,
+                            None if dev == "cuda" else "cpu")
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=dict(feed, img=images),
+                      fetch_list=[loss] + grad_names, scope=scope)
+        return float(out[0]), out[1:], time.perf_counter() - t0
+
+    l_gpu, g_gpu, t_gpu = step("cuda")
+    l_cpu, g_cpu, t_cpu = step("cpu")
+    check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"{model} train parity: loss {l_gpu} on the card, {l_cpu} on the "
+          f"CPU")
+    for name, a in zip(grad_names, g_gpu):
+        check(np.isfinite(a).all(), f"{model} train parity: non-finite "
+                                    f"{name}")
+    rel = np.array([_rel(a, b) for a, b in zip(g_gpu, g_cpu)])
+    line = (f"{model} train parity (float32, TF32 off, {IMAGE_PARITY_BATCH} "
+            f"images, dropout on): loss {l_gpu:.6f} card, {l_cpu:.6f} CPU "
+            f"(rtol 1e-4); {len(rel)} gradients, max|d|/max|g| worst "
+            f"{rel.max():.3e} ({grad_names[int(rel.argmax())]}), median "
+            f"{np.median(rel):.3e}")
+    if rel.max() <= 1e-3:
+        print(f"{line}, all within 1e-3; step {t_gpu:.2f} s card (first, "
+              f"eager), {t_cpu:.2f} s CPU; on {card}")
+        return
+    flat = lambda gs: np.concatenate([g.ravel() for g in gs])  # noqa: E731
+    floor, floor_all = np.zeros(len(rel)), 0.0
+    for seed in (5, 6):
+        rng = np.random.RandomState(seed)
+        noise = torch.from_numpy(rng.standard_normal(tuple(
+            feed["img"].shape)).astype(np.float32))
+        moved = {n: (a * (1 + IMAGE_FLOOR_SCALE * rng.standard_normal(
+            a.shape))).astype(np.float32) for n, a in params.items()}
+        _, g_p, _ = step("cpu", moved,
+                         feed["img"] * (1 + IMAGE_FLOOR_SCALE * noise))
+        floor = np.maximum(floor, [_rel_l2(a, b)
+                                   for a, b in zip(g_p, g_cpu)])
+        floor_all = max(floor_all, _rel_l2(flat(g_p), flat(g_cpu)))
+    d_l2 = np.array([_rel_l2(a, b) for a, b in zip(g_gpu, g_cpu)])
+    ratio = d_l2 / np.maximum(1e-3, RESNET_FLOOR_FACTOR * floor)
+    all_l2 = _rel_l2(flat(g_gpu), flat(g_cpu))
+    i = int(ratio.argmax())
+    print(f"{line}; over 1e-3, so held to the CPU's floor under a "
+          f"{IMAGE_FLOOR_SCALE:g} change of the images and weights, in "
+          f"relative L2: floor median {np.median(floor):.3e} (max "
+          f"{floor.max():.3e}), card vs CPU median {np.median(d_l2):.3e} "
+          f"(max {d_l2.max():.3e}), worst {ratio[i]:.3f} of its limit "
+          f"({grad_names[i]}; max(1e-3, {RESNET_FLOOR_FACTOR} x floor)); "
+          f"all together {all_l2:.3e}, floor {floor_all:.3e} (limit "
+          f"{RESNET_FLOOR_FACTOR} x); step {t_gpu:.2f} s card (first, "
+          f"eager), {t_cpu:.2f} s CPU; on {card}")
+    check(ratio.max() <= 1.0, f"{model} train parity: {grad_names[i]} "
+                              f"differs by {d_l2[i]} in L2, its floor "
+                              f"{floor[i]}")
+    check(all_l2 <= RESNET_FLOOR_FACTOR * floor_all,
+          f"{model} train parity: the gradients differ by {all_l2} in L2, "
+          f"limit {RESNET_FLOOR_FACTOR * floor_all}")
+
+
+def _image_train_arm(model: str, amp: bool, params: dict,
+                     card: str) -> dict:
+    """TRAIN_STEPS eager Momentum steps of one arm on the config's batch,
+    which stays on the card; every kernel counter set to 0 just before and
+    read just after (the threefry dropout kernels: each dropout op once
+    forward and once backward a step)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (
+        IMAGE_MODELS, TRAIN_STEPS, build_image_program, image_batch,
+        train_scope)
+
+    arm = f"{model} train {'amp' if amp else 'float32'}"
+    n = IMAGE_MODELS[model][2]
+    loss, main, startup = build_image_program(model, amp)
+    n_drop = sum(op.type == "dropout" for op in main.list_ops())
+    exe = fluid.Executor()
+    scope = train_scope(exe, startup, main, params)
+    feed = image_batch(n, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        e1.record()
+        torch.cuda.synchronize()
+        losses.append(float(out))
+        step_ms.append(e0.elapsed_time(e1))
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    drop = counts["threefry_dropout.launches"]
+    check(all(np.isfinite(losses)), f"{arm}: non-finite losses {losses}")
+    want = {"fwd": n_drop * TRAIN_STEPS, "bwd": n_drop * TRAIN_STEPS}
+    check(drop == want, f"{arm}: dropout launches {drop}, expected {want}")
+    if amp:
+        dtypes = {str(v.dtype) for _, v in scope.items()}
+        check(dtypes <= {"torch.float32", "torch.int32"},
+              f"{arm}: master state not float32: {dtypes}")
+    med = float(np.median(step_ms[1:]))
+    print(f"{arm}: {TRAIN_STEPS} Momentum steps on {n} images (224x224, "
+          f"1000 classes), losses {', '.join(f'{x:.5f}' for x in losses)}; "
+          f"step ms {', '.join(f'{x:.1f}' for x in step_ms)}; median of "
+          f"steps 2-{TRAIN_STEPS} {med:.2f} ms = {n / med * 1e3:.1f} "
+          f"images/s; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated); dropout launches {drop} = {n_drop} ops "
+          f"x {TRAIN_STEPS} steps; convolutions on cuDNN (a training "
+          f"program is not routed); on {card}")
+    return {"losses": losses, "median_ms": med,
+            "images_per_s": n / med * 1e3, "batch": n,
+            "peak_memory_bytes": peak, "dropout_launches": drop}
+
+
+def phase_image(card: str) -> dict:
+    """VGG-19, AlexNet and GoogLeNet (benchmark/vgg.py, alexnet.py,
+    googlenet.py; weights from the port's startup program on the CPU, seed
+    0): the float32 train step and the pruned, routed inference card
+    against CPU, then the train and inference arms."""
+    from paddle_tpu_torch.tools.train_profile import (
+        IMAGE_MODELS, build_image_program, conv_routes, image_batch,
+        startup_params)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = {}
+    for model in IMAGE_MODELS:
+        _, main, startup = build_image_program(model, amp=False)
+        params[model] = startup_params(main, startup, 0)
+        _image_train_parity(model, params[model], card)
+        _infer_parity(card, f"{model} infer",
+                      lambda amp, m=model: build_image_program(m, amp, True),
+                      params[model],
+                      image_batch(INFER_PARITY_BATCH, "cpu", seed=2,
+                                  train=False))
+        _release()
+    train, infer = {}, {}
+    for model, amp in IMAGE_TRAIN_ARMS:
+        train[f"{model} {'amp' if amp else 'float32'}"] = _image_train_arm(
+            model, amp, params[model], card)
+        _release()
+    for model, amp in IMAGE_INFER_ARMS:
+        n = IMAGE_MODELS[model][2]
+        pred, program, startup = build_image_program(model, amp, True)
+        routes = conv_routes(program, [pred.name], n)
+        infer[f"{model}-infer {'amp' if amp else 'float32'}"] = _infer_arm(
+            f"{model}-infer {'amp' if amp else 'float32'}", pred, program,
+            startup, params[model], image_batch(n, "cuda", train=False),
+            {"igemm": sum(routes.values()), "fused": 0}, routes, card)
+        _release()
+    return {"train": train, "infer": infer}
+
+
+def phase_ocr(card: str) -> dict:
+    """_ocr_phase with cuDNN's deterministic algorithms: a replay equals an
+    eager step bitwise only where every kernel adds in one fixed order,
+    and cuDNN's default weight-gradient algorithms for the two convs add
+    with atomics (so two eager steps differ in their last bits too)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _ocr_phase(card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _ocr_phase(card: str) -> dict:
+    """ocr_ctc at its own widths (8x32 lines, hidden 48, 4 classes) on
+    OCR_BATCH lines of synthetic_lines(seed 0), Adam(5e-3), float32: the
+    train signature warmed, a replay bitwise against an unwarmed eager
+    step and the card against the CPU; TRAIN_STEPS replays and 3 eager
+    steps; then the program pruned to the decode (ids and lengths), warmed
+    (the first routed program that is warmed: its two convs on the gather
+    kernel inside the graph), replays bitwise against eager on two
+    batches, nothing allocated at replay, and the ids against the CPU's
+    where the top two logits are clear."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (
+        OCR_BATCH, TRAIN_STEPS, build_ocr_program, feed_sig, ocr_batch,
+        startup_params, train_scope)
+
+    (loss, ids, lens, logits), main, startup = build_ocr_program()
+    params = startup_params(main, startup, 0)
+    grad_names = [f"{n}@GRAD" for n in params]
+    exe = fluid.Executor()
+    exe_cpu = fluid.Executor(fluid.CPUPlace())
+    feed = ocr_batch()
+    fetch = [loss] + grad_names
+    got, t_warm, _ = _replay_against_eager("ocr_ctc train", exe, main,
+                                           startup, params, feed, fetch)
+    want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
+                       scope=train_scope(exe_cpu, startup, main, params,
+                                         "cpu"))
+    _card_cpu_grads("ocr_ctc train", got, want, grad_names)
+    del got, want
+
+    scope = train_scope(exe, startup, main, params)
+    run = _lm_train_pass(exe, main, loss, scope, feed)
+    losses = run["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"ocr_ctc train: losses {losses}, expected finite and falling")
+    med = float(np.median(run["step_ms"][1:]))
+    eager = fluid.Executor()
+    eager_scope = train_scope(eager, startup, main, params)
+    eager_ms = _event_ms(lambda: eager.run(main, feed=feed,
+                                           fetch_list=[loss],
+                                           scope=eager_scope), 3)
+    check(eager.replays == 0, "ocr_ctc train: the eager Executor replayed")
+    e_med = float(np.median(eager_ms[1:]))
+    print(f"ocr_ctc train: {TRAIN_STEPS} Adam steps on {OCR_BATCH} lines, "
+          f"losses {', '.join(f'{x:.5f}' for x in losses)}; step ms "
+          f"{', '.join(f'{x:.2f}' for x in run['step_ms'])}; median of "
+          f"steps 2-{TRAIN_STEPS} {med:.3f} ms = {OCR_BATCH / med * 1e3:.0f}"
+          f" lines/s; eager {', '.join(f'{x:.2f}' for x in eager_ms)} ms, "
+          f"median of 2-3 {e_med:.3f} ms ({OCR_BATCH / e_med * 1e3:.0f} "
+          f"lines/s); {_pass_line(run)}; on {card}")
+    trained = {n: scope.find_var(n).cpu().numpy() for n in params}
+    _release()
+
+    # decode: the program pruned to the ids and lengths, warmed, from the
+    # trained weights
+    smain = main.prune([ids, lens])
+    sfetch = [ids, lens]
+    sfeeds = [ocr_batch(seed=s, train=False) for s in (1, 2)]
+    sscope = train_scope(exe, startup, smain, trained)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    how = exe.warm(smain, feed_sig(sfeeds[0]), sfetch, scope=sscope)
+    torch.cuda.synchronize()
+    s_warm = time.perf_counter() - t0
+    check(how == "compiled", f"ocr_ctc decode: warm gave {how!r}")
+    s_eager = fluid.Executor()
+    s_eager_scope = train_scope(s_eager, startup, smain, trained)
+    for i, sfeed in enumerate(sfeeds):
+        _zero_counters()
+        replays = exe.replays
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated()
+        got = exe.run(smain, feed=sfeed, fetch_list=sfetch, scope=sscope)
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - mem
+        routes = _counts()["conv.route_launches"]
+        conv_launches = _counts()["conv.launches"]
+        want = s_eager.run(smain, feed=sfeed, fetch_list=sfetch,
+                           scope=s_eager_scope)
+        same = all(a.tobytes() == b.tobytes() for a, b in zip(got, want))
+        print(f"ocr_ctc decode batch {i + 1}: replays "
+              f"{exe.replays - replays}, conv launches at replay {routes}, "
+              f"memory allocated at "
+              f"replay {grew} bytes; ids and lengths bitwise equal to the "
+              f"eager run {same}")
+        check(exe.replays == replays + 1, "ocr_ctc decode: no replay")
+        check(routes == {"halo": 0, "halo_f32": 0, "gather": 2},
+              f"ocr_ctc decode: conv launches at replay {routes}, expected "
+              f"2 on the gather route")
+        check(grew == 0, f"ocr_ctc decode: a replay allocated {grew} bytes")
+        check(same, "ocr_ctc decode: the replay differs from the eager run")
+
+    # the card's ids against the CPU's where every step is clear
+    sfeed = sfeeds[0]
+    card_out = s_eager.run(smain, feed=sfeed, fetch_list=sfetch + [logits],
+                           scope=s_eager_scope)
+    cpu_out = exe_cpu.run(smain, feed=sfeed, fetch_list=sfetch + [logits],
+                          scope=train_scope(exe_cpu, startup, smain, trained,
+                                            "cpu"))
+    err = float(np.abs(card_out[2] - cpu_out[2]).max())
+    top2 = np.sort(cpu_out[2], axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    clear = margin > 2 * err
+    steps_eq = card_out[2].argmax(-1) == cpu_out[2].argmax(-1)
+    rows = clear.all(axis=1)
+    ids_eq = (card_out[0] == cpu_out[0]).all(axis=1) & (card_out[1]
+                                                        == cpu_out[1])
+    print(f"ocr_ctc decode card vs CPU ({OCR_BATCH} lines, trained "
+          f"weights): logits max|d| {err:.3e} "
+          f"({err / float(np.abs(cpu_out[2]).max()):.3e} of max); step "
+          f"argmax equal {int(steps_eq.sum())} of {steps_eq.size}, "
+          f"{int(clear.sum())} with a top-two margin over twice the "
+          f"difference (smallest margin {margin.min():.3e}); lines decoded "
+          f"alike {int(ids_eq.sum())} of {OCR_BATCH}, {int(rows.sum())} "
+          f"with every step clear")
+    check(bool(steps_eq[clear].all()), "ocr_ctc decode: an argmax differs "
+                                       "where the margin is clear")
+    check(bool(ids_eq[rows].all()), "ocr_ctc decode: a line whose every "
+                                    "step is clear decodes otherwise")
+    w_ms = _event_ms(lambda: exe.run(smain, feed=sfeed, fetch_list=sfetch,
+                                     scope=sscope), TRAIN_STEPS)
+    se_ms = _event_ms(lambda: s_eager.run(smain, feed=sfeed,
+                                          fetch_list=sfetch,
+                                          scope=s_eager_scope), 3)
+    w_med, se_med = float(np.median(w_ms[1:])), float(np.median(se_ms[1:]))
+    print(f"ocr_ctc decode: {OCR_BATCH} lines, warmed in {s_warm:.2f} s; ms "
+          f"{', '.join(f'{x:.2f}' for x in w_ms)}, median of 2-{TRAIN_STEPS} "
+          f"{w_med:.3f} ms = {OCR_BATCH / w_med * 1e3:.0f} lines/s; eager "
+          f"{', '.join(f'{x:.2f}' for x in se_ms)}, median of 2-3 "
+          f"{se_med:.3f} ms = {OCR_BATCH / se_med * 1e3:.0f} lines/s; on "
+          f"{card}")
+    return {"median_ms": med, "eager_median_ms": e_med,
+            "lines_per_s": OCR_BATCH / med * 1e3, "warm_s": run["warm_s"],
+            "parity_warm_s": t_warm, "decode_median_ms": w_med,
+            "decode_eager_median_ms": se_med, "decode_warm_s": s_warm,
+            "decode_conv_route_launches": routes,
+            "decode_conv_launches": conv_launches}
+
+
+def _nets_program(build, shapes: dict, lengths: int = 0, seed: int = 3):
+    """A small program: float data of ``shapes`` (name -> shape without
+    the batch dim), and with ``lengths`` a ``len`` vector in [1,
+    lengths], into ``build(fluid, vars) -> Variable``, then
+    mean(square(.)) and Adam(1e-3), in new programs.  Returns (loss, the
+    build's output, main, startup, params as the port's startup draws
+    them, a feed of NETS_BATCH rows from ``seed``)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import startup_params
+
+    rng = np.random.RandomState(seed)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        vs = {n: L.data(n, list(s)) for n, s in shapes.items()}
+        feed = {n: rng.standard_normal((NETS_BATCH,) + tuple(s)).astype(
+            np.float32) for n, s in shapes.items()}
+        if lengths:
+            vs["len"] = L.data("len", [-1], dtype="int32",
+                               append_batch_size=False)
+            feed["len"] = rng.randint(1, lengths + 1, (NETS_BATCH,)).astype(
+                np.int32)
+        y = build(fluid, vs)
+        loss = L.mean(L.square(y))
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    return loss, y, main, startup, startup_params(main, startup, 0), feed
+
+
+def phase_nets(card: str) -> dict:
+    """paddle_tpu_torch.nets on the card against the CPU, each in a small
+    Adam-trained program, one eager step (the float32 train limit):
+    scaled_dot_product_attention at B 16, T 128, D 512, 8 heads (the flash
+    kernels, one launch each a step) and refused at head dim 8 before its
+    first op; multi_head_attention with value heads wider than key heads
+    (the einsum path, no flash launch); bidirectional_lstm (the LSTM
+    kernels) and bidirectional_gru; sequence_conv_pool, glu,
+    simple_attention and dot_product_attention; img_conv_group with batch
+    norm (the batch-norm backward kernels), and its pruned program's
+    fused conv2d_bn_relu ops card against CPU."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import train_scope
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    B, T, D, H = NETS_BATCH, NETS_T, NETS_D, NETS_HEADS
+
+    def sdpa(fl, v):
+        L = fl.layers
+        q, k, vv = (L.fc(v["x"], D, num_flatten_dims=2, bias_attr=False)
+                    for _ in range(3))
+        return fl.nets.scaled_dot_product_attention(q, k, vv, num_heads=H)
+
+    loss, _, main, startup, params, feed = _nets_program(sdpa,
+                                                         {"x": (T, D)})
+    _zero_counters()
+    _step_card_cpu(f"nets sdpa (B {B}, T {T}, D {D}, {H} heads)", loss, main,
+                   startup, params, feed)
+    flash = _counts()["flash_attention.launches"]
+    print(f"nets sdpa: flash launches in the card step {flash}")
+    check(flash == {"fwd": 1, "bwd_dkdv": 1, "bwd_dq": 1},
+          f"nets sdpa: flash launches {flash}, expected one each")
+    out["sdpa"] = flash
+
+    # head dim 8: refused by check_kernel_shapes before the first op
+    loss, _, main, startup, params, feed = _nets_program(
+        lambda fl, v: fl.nets.scaled_dot_product_attention(
+            fl.layers.fc(v["x"], 16, num_flatten_dims=2), v["x"], v["x"],
+            num_heads=2), {"x": (8, 16)})
+    exe = fluid.Executor()
+    scope = train_scope(exe, startup, main, params)
+    before = {n: v.clone() for n, v in scope.items()}
+    counter = scope.step_counter
+    refused = None
+    try:
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    except ValueError as err:
+        refused = str(err)
+    check(refused is not None and "head dims" in refused,
+          f"nets sdpa at head dim 8: not refused ({refused})")
+    check(all(torch.equal(before[n], v) for n, v in scope.items())
+          and scope.step_counter == counter,
+          "nets sdpa at head dim 8: the refused run changed state")
+    print(f"nets sdpa at head dim 8 refused before its first op: "
+          f"{refused}")
+
+    # multi_head_attention, value heads wider than key heads: the einsum path
+    loss, _, main, startup, params, feed = _nets_program(
+        lambda fl, v: fl.nets.multi_head_attention(
+            v["q"], v["kv"], v["kv"], key_proj_size=64, value_proj_size=128,
+            head_num=4, out_size=32), {"q": (24, 48), "kv": (40, 56)})
+    _zero_counters()
+    _step_card_cpu("nets multi_head_attention (hv 32, hd 16)", loss, main,
+                   startup, params, feed)
+    flash = _counts()["flash_attention.launches"]
+    check(sum(flash.values()) == 0, f"nets multi_head_attention: the "
+                                    f"einsum path launched flash {flash}")
+
+    # the recurrent helpers, on lengths in [1, 32]
+    seq, st = {"x": (32, 48)}, {"x": (32, 48), "st": (32,)}
+    loss, _, main, startup, params, feed = _nets_program(
+        lambda fl, v: fl.nets.bidirectional_lstm(v["x"], v["len"], 64), seq,
+        lengths=32)
+    _zero_counters()
+    _step_card_cpu("nets bidirectional_lstm (H 64)", loss, main, startup,
+                   params, feed)
+    lstm = _counts()["fused_lstm.launches"]
+    check(lstm == {"fwd": 2, "bwd": 2}, f"nets bidirectional_lstm: LSTM "
+                                        f"launches {lstm}, expected 2 each")
+    out["bidirectional_lstm"] = lstm
+    for label, build, shapes in (
+            ("bidirectional_gru (H 64)",
+             lambda fl, v: fl.nets.bidirectional_gru(v["x"], v["len"], 64),
+             seq),
+            ("sequence_conv_pool",
+             lambda fl, v: fl.nets.sequence_conv_pool(v["x"], v["len"], 64,
+                                                      3), seq),
+            ("glu", lambda fl, v: fl.nets.glu(
+                fl.layers.fc(v["x"], 128, num_flatten_dims=2)), seq),
+            ("simple_attention",
+             lambda fl, v: fl.nets.simple_attention(v["x"], v["len"],
+                                                    v["st"]),
+             st),
+            ("dot_product_attention",
+             lambda fl, v: fl.nets.dot_product_attention(
+                 v["x"], v["len"], fl.layers.fc(v["st"], 48))[0],
+             st)):
+        loss, _, main, startup, params, feed = _nets_program(
+            build, shapes, lengths=32)
+        _step_card_cpu(f"nets {label}", loss, main, startup, params, feed)
+
+    # img_conv_group with batch norm: trained, then pruned and fused
+    loss, y, main, startup, params, feed = _nets_program(
+        lambda fl, v: fl.nets.img_conv_group(v["img"], [64, 64], 2,
+                                             pool_stride=2, conv_act="relu",
+                                             conv_with_batchnorm=True),
+        {"img": (64, 32, 32)})
+    _zero_counters()
+    _step_card_cpu("nets img_conv_group (batch norm)", loss, main, startup,
+                   params, feed,
+                   cancelled=[n for n in params if n.startswith("conv2d_b")])
+    bn = _counts()["batch_norm_train.launches"]
+    check(bn == {"reduce": 2, "dx": 2}, f"nets img_conv_group: batch-norm "
+                                        f"launches {bn}, expected 2 each")
+    out["img_conv_group_train"] = bn
+    # the pruned program, each conv -> bias -> batch norm -> relu fused,
+    # with running statistics away from the startup's zeros and ones
+    infer = main.prune([y])
+    rng = np.random.RandomState(4)
+    arrays = dict(params)
+    for v in infer.persistable_vars():
+        if v.name.endswith(".w_mean"):
+            arrays[v.name] = (rng.standard_normal(64) * 0.1).astype(
+                np.float32)
+        elif v.name.endswith(".w_var"):
+            arrays[v.name] = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        _zero_counters()
+        res[dev] = exe.run(infer, feed={"img": feed["img"]}, fetch_list=[y],
+                           scope=train_scope(exe, startup, infer, arrays,
+                                             None if dev == "cuda"
+                                             else "cpu"))[0]
+        if dev == "cuda":
+            fused = _counts()["conv.launches"]
+            routes = _counts()["conv.route_launches"]
+    err = _rel(res["cuda"], res["cpu"])
+    print(f"nets img_conv_group pruned: conv launches {fused}, by route "
+          f"{routes}; card vs CPU max|d|/max {err:.3e} (limit "
+          f"{INFER_F32_REL}); on {card}")
+    check(fused == {"igemm": 0, "fused": 2}, f"nets img_conv_group pruned: "
+                                             f"conv launches {fused}")
+    check(err <= INFER_F32_REL, f"nets img_conv_group pruned: differs by "
+                                f"{err} of max")
+    out["img_conv_group_infer"] = fused
+    out["img_conv_group_infer_routes"] = routes
+    return out
 
 
 def _timed(name: str, fn, *args):
@@ -3813,6 +4466,13 @@ def main() -> int:
     resnet = _timed("resnet train", phase_resnet_train, card)
     convk = _timed("conv kernels", phase_conv_kernels, card)
     infer = _timed("resnet infer", phase_resnet_infer, card)
+    _release()
+    image = _timed("image", phase_image, card)
+    _release()
+    ocr = _timed("ocr_ctc", phase_ocr, card)
+    _release()
+    nets = _timed("nets", phase_nets, card)
+    _release()
     probe_end = paged_probe()
     print(f"C.2 probe: paged_attention float32 W=1 device "
           f"{rec['c2_probe_start_device_ms']:.4f} ms at the start of the "
@@ -3841,8 +4501,12 @@ def main() -> int:
             "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces[kern],
             "case": "float32, N=B*H=64, T=1024, D=64, causal",
-            # launches: the training pass's own count (5 steps x 6 layers)
+            # launches: the training pass's own count (5 steps x 6 layers);
+            # the nets phase's scaled_dot_product_attention step in
+            # launches_by_path
             "launches": train["launches"][kern], **flash["float32"][kern],
+            "launches_by_path": {"train": train["launches"][kern],
+                                 "nets sdpa step": nets["sdpa"][kern]},
         })
     for kern in FLASH_KERNELS:
         kernels.append({
@@ -3875,7 +4539,9 @@ def main() -> int:
                 "lstm train": lstm_train["launches"][kern],
                 "lstm train warmed": lstm_train["warmed_launches"][kern],
                 "srl train warmed": srl["launches"][kern],
-                "srl decode warmed": srl["decode_launches"][kern]},
+                "srl decode warmed": srl["decode_launches"][kern],
+                "nets bidirectional_lstm step":
+                    nets["bidirectional_lstm"][kern]},
             # the SRL layer shape: T=32, B=64, H=128, peepholes, lengths
             # 1-32, persistent route (PERF.md section 6 rows 5 and 5b)
             "srl_h128": lstm_srl[kern],
@@ -3892,8 +4558,10 @@ def main() -> int:
             # batch norms x 5 steps); each arm's in launches_by_path
             "launches": resnet["amp"]["launches"][kern],
             **bn["bfloat16"][kern],
-            "launches_by_path": {a: r["launches"][kern]
-                                 for a, r in resnet.items()},
+            "launches_by_path": dict(
+                {a: r["launches"][kern] for a, r in resnet.items()},
+                **{"nets img_conv_group step":
+                   nets["img_conv_group_train"][kern]}),
             "float32": bn["float32"][kern],
         })
     replaces = {"igemm": "benchmark/conv_probe.py:62",
@@ -3911,10 +4579,20 @@ def main() -> int:
             # arm's in launches_by_path
             "launches": infer[main_arm[kern]]["launches"][kern],
             **convk["bfloat16"]["c56"][kern],
-            "launches_by_path": {a: r["launches"][kern]
-                                 for a, r in infer.items()},
-            "route_launches_by_path": {a: r["route_launches"]
-                                       for a, r in infer.items()},
+            "launches_by_path": dict(
+                {a: r["launches"][kern]
+                 for a, r in {**infer, **image["infer"]}.items()},
+                **{"ocr_ctc decode replay":
+                   ocr["decode_conv_launches"][kern],
+                   "nets img_conv_group pruned":
+                   nets["img_conv_group_infer"][kern]}),
+            "route_launches_by_path": dict(
+                {a: r["route_launches"]
+                 for a, r in {**infer, **image["infer"]}.items()},
+                **{"ocr_ctc decode replay":
+                   ocr["decode_conv_route_launches"],
+                   "nets img_conv_group pruned":
+                   nets["img_conv_group_infer_routes"]}),
             "c28": convk["bfloat16"]["c28"][kern],
             "c14": convk["bfloat16"]["c14"][kern],
             "c7": convk["bfloat16"]["c7"][kern],
@@ -3923,6 +4601,13 @@ def main() -> int:
             "float32_c28": convk["float32"]["c28"][kern],
             "float32_c14": convk["float32"]["c14"][kern],
             "float32_c7": convk["float32"]["c7"][kern],
+            # the slice's new shapes (the plain kernel on the image and
+            # ocr_ctc inference paths), by dtype and label
+            **({"model_shapes": {f"{dt} {label}": recs["igemm"]
+                                 for dt, by in convk.items()
+                                 for label, recs in by.items()
+                                 if label not in CONV_RESNET}}
+               if kern == "igemm" else {}),
         })
     # the float32 fused kernel, on the main path of ResNet-50 float32
     # inference
@@ -3952,8 +4637,10 @@ def main() -> int:
             # launches_by_path
             "launches": lm_drop["float32 remat"]["launches"][kern],
             **drop["float32"][kern],
-            "launches_by_path": {a: r["launches"][kern]
-                                 for a, r in lm_drop.items()},
+            "launches_by_path": dict(
+                {a: r["launches"][kern] for a, r in lm_drop.items()},
+                **{f"image {a}": r["dropout_launches"][kern]
+                   for a, r in image["train"].items()}),
             "bfloat16": drop["bfloat16"][kern],
         })
     print(json.dumps({"kernels": kernels}))

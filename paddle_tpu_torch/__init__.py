@@ -44,13 +44,21 @@ These paths run here (seq2seq among them, ``models.seq2seq``):
   ``layers.cond``, ``while_loop``, ``IfElse``, the ``layers.nested``
   functions and ``layers.md_lstm``.
 
+* the image classifiers beyond ResNet (``models.lenet``, ``smallnet``,
+  ``vgg``, ``alexnet``, ``googlenet``) trained, and served from the pruned
+  program with their 3x3 stride-1 convolutions on the conv kernels; the
+  OCR line recognizer (``models.ocr_ctc``: convs, ``im2sequence``, a
+  bidirectional GRU, CTC) trained and greedy-decoded; and ``nets``, the
+  composite networks (``scaled_dot_product_attention`` on the flash
+  kernels).
+
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``CPUPlace()``, ``device="cpu"``); with no card and no device given they
 raise.  The package imports torch and numpy, never jax and nothing of
 ``paddle_tpu``.
 """
 from . import (amp, backward, clip, datasets, hooks, initializer, layers,
-               learning_rate_decay, models, optimizer, regularizer)
+               learning_rate_decay, models, nets, optimizer, regularizer)
 from ._device import card_info, resolve_device
 from .core import (CPUPlace, Executor, Place, Program, Scope,
                    Variable, default_main_program, default_startup_program,
@@ -70,6 +78,6 @@ __all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
            "backward", "card_info", "clip", "datasets", "default_main_program",
            "default_startup_program", "from_jax_params", "global_scope",
            "hooks", "init_lm_params", "initializer", "layers",
-           "learning_rate_decay", "load_scope", "models", "optimizer",
+           "learning_rate_decay", "load_scope", "models", "nets", "optimizer",
            "program_guard", "regularizer", "reset_default_programs",
            "reset_global_scope", "resolve_device"]

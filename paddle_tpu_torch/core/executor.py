@@ -557,7 +557,9 @@ def check_kernel_shapes(program: Program, device: torch.device) -> None:
     * the flash attention op (``attention``, from
       ``models.attention_core``) with a head dim outside the kernels'
       ``FLASH_HEAD_DIMS``, or a compute dtype other than float32 or
-      bfloat16;
+      bfloat16; so too ``scaled_dot_product_attention`` (``nets``) where
+      its value heads are as wide as its key heads (it then runs the flash
+      kernels; with other widths it runs plain torch ops);
     * a training ``batch_norm`` (not ``is_test``) in a program with a
       backward op, whose backward runs the batch-norm kernels, in anything
       but float32 or bfloat16;
@@ -594,6 +596,12 @@ def check_kernel_shapes(program: Program, device: torch.device) -> None:
             hd = var_of("Q").shape[-1]
             check_flash_head_dim(hd // op.attrs["n_heads"])
             check_flash_dtype(dtype_of("Q"))
+        elif op.type == "scaled_dot_product_attention":
+            heads = op.attrs["num_heads"]
+            hd = var_of("Q").shape[-1] // heads
+            if var_of("V").shape[-1] // heads == hd:
+                check_flash_head_dim(hd)
+                check_flash_dtype(dtype_of("Q"))
         elif (op.type == "batch_norm" and has_backward
               and not op.attrs.get("is_test")):
             check_bn_dtype(dtype_of("X"))

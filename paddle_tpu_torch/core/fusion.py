@@ -14,9 +14,13 @@ every device (the CPU runs the same routed ops on the plain versions):
   fetched, becomes one ``conv2d_bn_relu`` op at the relu's place: the
   batch norm folded to ``a = scale * rsqrt(var + eps)``, ``b = bias - mean
   * a`` in float32 (``layers/nn.py``'s ``is_test`` formula) and
-  ``igemm_conv_fused``.  Under amp its inputs are cast as the three ops
-  would cast them (``Op.amp_types``): x and the filter as a conv2d's, the
-  statistics as a batch_norm's (left as they are); a policy under which
+  ``igemm_conv_fused``.  The conv's own bias (``conv2d``'s
+  ``elementwise_add`` op on slot ``B``, as ``nets.img_conv_group`` builds
+  it) may stand between the conv and the batch norm, read by it alone and
+  not fetched: it folds into ``b`` as ``b + a * conv_bias``.  Under amp
+  the inputs are cast as the three ops would cast them (``Op.amp_types``):
+  x and the filter as a conv2d's, the statistics and the conv's bias as a
+  batch_norm's (left as they are); a policy under which
   the chain's output would not come out in the conv's compute dtype keeps
   the chain unfused;
 * **plain conv**: any other conv2d of that geometry keeps its type and
@@ -47,6 +51,7 @@ from .program import Op, Program
 
 FUSED_OP_TYPE = "conv2d_bn_relu"
 _BN_SLOTS = ("Scale", "Bias", "Mean", "Variance")
+_CONV_BIAS = "ConvBias"
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -68,6 +73,8 @@ def _fused_fn(ins, attrs, ctx):
     sc, bs, mu, var = (ins[k][0].to(torch.float32) for k in _BN_SLOTS)
     a = sc * torch.rsqrt(var + attrs["epsilon"])
     b = bs - mu * a
+    if _CONV_BIAS in ins:
+        b = b + a * ins[_CONV_BIAS][0].to(torch.float32)
     y = igemm_conv_fused(_nhwc(x), _hwio(w), a, b)
     return {"Out": [y.permute(0, 3, 1, 2)]}
 
@@ -101,39 +108,72 @@ def is_igemm_conv(op: Op, program: Program, amp=None) -> bool:
     return tuple(program.global_block.vars[w].shape[2:]) == (3, 3)
 
 
-def _fused_chain(i, ops, readers, fetched, amp) -> Optional[tuple]:
-    """(j, k): the positions of the batch_norm and relu that fuse with the
-    conv at ``i``, or None."""
+def _sole_reader(name, readers, fetched) -> Optional[int]:
+    """The position of the one op that reads ``name``, when ``name`` is not
+    fetched and has that one reader; else None."""
+    if name in fetched or len(readers[name]) != 1:
+        return None
+    return readers[name][0]
+
+
+def _is_conv_bias(op: Op, c: str, o: int, program: Program) -> bool:
+    """Whether ``op`` is a conv2d's bias add on ``c``: an elementwise_add
+    of ``c`` (slot X) and a [o] vector (slot B), as ``layers.conv2d``
+    appends it."""
+    if op.type != "elementwise_add" or op.inputs.get("X") != [c]:
+        return False
+    bias = op.inputs.get("B") or []
+    return (len(bias) == 1 and tuple(program.global_block.vars[bias[0]]
+                                     .shape) == (o,))
+
+
+def _fused_chain(i, ops, readers, fetched, amp, program) -> Optional[tuple]:
+    """(h, j, k): the positions of the conv bias add (or None), the
+    batch_norm and the relu that fuse with the conv at ``i``, or None."""
     conv = ops[i]
     (c,) = conv.outputs["Out"]
-    if c in fetched or len(readers[c]) != 1:
+    j = _sole_reader(c, readers, fetched)
+    if j is None:
         return None
-    j = readers[c][0]
+    h = None
+    o = program.global_block.vars[conv.inputs["Filter"][0]].shape[0]
+    if _is_conv_bias(ops[j], c, o, program):
+        h, c = j, ops[j].outputs["Out"][0]
+        j = _sole_reader(c, readers, fetched)
+        if j is None:
+            return None
     bn = ops[j]
     if (bn.type != "batch_norm" or not bn.attrs.get("is_test")
             or bn.attrs.get("ch_axis") != 1 or bn.inputs["X"] != [c]):
         return None
     y = bn.outputs["Out"][0]
-    if y in fetched or len(readers[y]) != 1:
+    k = _sole_reader(y, readers, fetched)
+    if k is None:
         return None
-    k = readers[y][0]
     relu = ops[k]
     if relu.type != "relu" or relu.inputs["X"] != [y]:
         return None
     if amp is not None and (
             amp.compute_dtype("conv2d", conv.attrs)
             != amp.compute_dtype("relu", relu.attrs)
+            or (h is not None and amp.compute_dtype(
+                "elementwise_add", ops[h].attrs)
+                != amp.compute_dtype("conv2d", conv.attrs))
             or amp.compute_dtype("batch_norm", bn.attrs) is not None):
         return None
-    return j, k
+    return h, j, k
 
 
-def _fused_op(conv: Op, bn: Op, relu: Op) -> Op:
+def _fused_op(conv: Op, bias: Optional[Op], bn: Op, relu: Op) -> Op:
     ins = {"Input": list(conv.inputs["Input"]),
            "Filter": list(conv.inputs["Filter"])}
     ins.update({s: list(bn.inputs[s]) for s in _BN_SLOTS})
     amp_types = {"Input": "conv2d", "Filter": "conv2d"}
     amp_types.update({s: "batch_norm" for s in _BN_SLOTS})
+    if bias is not None:
+        # left as it is, as the statistics: the fold is float32
+        ins[_CONV_BIAS] = list(bias.inputs["B"])
+        amp_types[_CONV_BIAS] = "batch_norm"
     return Op(FUSED_OP_TYPE, ins, {"Out": list(relu.outputs["Out"])},
               {"epsilon": bn.attrs["epsilon"]}, _fused_fn,
               amp_types=amp_types)
@@ -156,14 +196,17 @@ def route_inference(program: Program, fetch_names: Sequence[str],
         if not is_igemm_conv(op, program, amp):
             continue
         changed = True
-        chain = _fused_chain(i, ops, readers, fetched, amp)
+        chain = _fused_chain(i, ops, readers, fetched, amp, program)
         if chain is None:
             routed[i] = Op(op.type, op.inputs, op.outputs, op.attrs,
                            _igemm_fn)
             continue
-        j, k = chain
-        routed[k] = _fused_op(op, ops[j], ops[k])
+        h, j, k = chain
+        routed[k] = _fused_op(op, None if h is None else ops[h], ops[j],
+                              ops[k])
         routed[i] = routed[j] = None
+        if h is not None:
+            routed[h] = None
     if not changed:
         return None
     return [op for op in routed if op is not None]

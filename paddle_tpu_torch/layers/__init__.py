@@ -1,13 +1,18 @@
-"""Layer library (PyTorch port of the ``paddle_tpu/layers`` subset the
-training slices use).  ``sequence``, ``beam``, ``control_flow``
-(``StaticRNN``, ``DynamicRNN``, ``cond``, ``while_loop``, ``IfElse``,
-``recompute``), ``nested`` and ``mdlstm`` are ported whole; of ``tensor``
-the elementwise add, ``mean``, ``sums``, ``reshape``, ``concat``,
-``assign``, the five reductions, ``cast``, ``scale``, ``fill_constant``
-and ``fill_constant_batch_size_like``.  Not ported yet: the image layers
-beyond ``conv2d``, ``pool2d`` and ``batch_norm`` (ROADMAP A.11), and the
-JAX package's other layers (detection, misc), the rest of ``tensor`` and
-``nn`` and the Variable operator sugar (A.12)."""
+"""Layer library (PyTorch port of ``paddle_tpu/layers``).  ``sequence``,
+``beam``, ``control_flow`` (``StaticRNN``, ``DynamicRNN``, ``cond``,
+``while_loop``, ``IfElse``, ``recompute``), ``nested`` and ``mdlstm`` are
+ported whole; of ``tensor`` the seven elementwise ops, ``matmul``, ``mul``,
+``mean``, ``sums``, ``reshape``, ``transpose``, ``concat``, ``split``,
+``stack``, ``squeeze``, ``unsqueeze``, ``assign``, the five reductions,
+``cast``, ``scale``, ``fill_constant`` and
+``fill_constant_batch_size_like``; of ``nn`` the layers of the LM, the
+RNN models and the image classifiers (``fc``, ``embedding``, ``conv2d``,
+``pool2d``, ``batch_norm``, ``layer_norm``, ``lrn``, ``dropout``, the
+losses and ``accuracy``).  Not ported yet: the image layers beyond those
+(``conv2d_transpose``, ``conv3d``, ``pool3d``, ``pool_with_index``,
+``unpool``, ``spp``: ROADMAP A.11), ``hsigmoid`` and the rest of
+``tensor`` and ``nn`` (A.12 part 1), and the detection and misc layers
+and the Variable operator sugar (A.12)."""
 from . import (beam, control_flow, io, mdlstm, nested, nn, ops, sequence,
                tensor)
 from .beam import beam_search, beam_search_decode  # noqa: F401

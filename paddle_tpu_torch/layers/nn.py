@@ -1,7 +1,7 @@
 """Neural-network layers (PyTorch port of the ``paddle_tpu/layers/nn.py``
 subset the training slices use): fc, embedding, conv2d, pool2d,
-batch_norm, layer_norm, dropout, softmax_with_cross_entropy,
-cross_entropy and accuracy.
+batch_norm, layer_norm, lrn, dropout, softmax_with_cross_entropy,
+cross_entropy, square_error_cost and accuracy.
 
 Numerics follow the JAX package: layer_norm and batch_norm take float32
 statistics with ``var = max(E[x^2] - mu^2, 0)`` (not the serving layer
@@ -369,6 +369,31 @@ def layer_norm(
     return helper.append_activation(out, act)
 
 
+# --------------------------------------------------------------------------- lrn
+
+
+def lrn(input: Variable, n: int = 5, k: float = 1.0, alpha: float = 1e-4,
+        beta: float = 0.75, name=None):
+    """Local response normalisation across the channels of NCHW ``input``:
+    ``x / (k + alpha * acc) ** beta``, ``acc`` the sum of x^2 over a
+    zero-padded window of ``n`` channels centred on each one, all in
+    float32, the result cast back to x's dtype (ref:
+    paddle/operators/lrn_op.cc; ``paddle_tpu/layers/nn.py:432``).  Not
+    ``F.local_response_norm``, which divides ``alpha`` by ``n``."""
+    helper = LayerHelper("lrn", name=name)
+
+    def fn(ctx, a, n, k, alpha, beta):
+        x32 = a.to(torch.float32)
+        half = n // 2
+        padded = F.pad(torch.square(x32), (0, 0, 0, 0, half, half))
+        acc = sum(padded[:, i:i + a.shape[1]] for i in range(n))
+        return (x32 / torch.pow(k + alpha * acc, beta)).to(a.dtype)
+
+    return helper.append_op(fn, {"X": [input]},
+                            attrs={"n": n, "k": k, "alpha": alpha,
+                                   "beta": beta})
+
+
 # --------------------------------------------------------------------------- losses
 
 
@@ -471,5 +496,5 @@ def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
 
 
 __all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy", "dropout",
-           "embedding", "fc", "layer_norm", "pool2d",
+           "embedding", "fc", "layer_norm", "lrn", "pool2d",
            "softmax_with_cross_entropy", "square_error_cost"]

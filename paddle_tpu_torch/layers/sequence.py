@@ -634,7 +634,9 @@ def warpctc(input: Variable, label: Variable, logit_length: Variable,
     sequence's T; the value stays unnormalised.  ``F.ctc_loss`` is not
     used: on the card it copies the lengths to the host, which a CUDA
     graph capture forbids, and it differentiates by a formula of its
-    own."""
+    own.  Each step's emission is read by a product with the extended
+    labels' one-hot, not a gather, so that the backward is deterministic
+    on the card."""
     helper = LayerHelper("warpctc", name=name)
 
     def fn(ctx, logits, lab, loglen, lablen, blank, norm_by_times):
@@ -652,7 +654,15 @@ def warpctc(input: Variable, label: Variable, logit_length: Variable,
         skip_ok = torch.cat(
             [torch.zeros((B, 2), dtype=torch.bool, device=dev),
              (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])], dim=1)
-        emit = torch.gather(logp, 2, ext[:, None, :].expand(B, T, S))
+        # emit[b, t, s] = logp[b, t, ext[b, s]], as the product with ext's
+        # one-hot: a gather's backward adds a repeated id's gradients (the
+        # blank's, a repeated label's) with atomics on the card, in another
+        # order each run; the product's backward is a batched matmul, one
+        # fixed order.  Each sum has one nonzero term, so the values are
+        # the gather's
+        onehot = (ext[:, :, None] == torch.arange(C, device=dev)).to(
+            logp.dtype)                                     # [B, S, C]
+        emit = torch.bmm(logp, onehot.transpose(1, 2))      # [B, T, S]
         emit_t = emit.transpose(0, 1)                      # [T, B, S]
         lab_on = (lablen > 0)[:, None]
         alpha = torch.cat(

@@ -1,9 +1,13 @@
 """Dense-math layers (PyTorch port of the ``paddle_tpu/layers/tensor.py``
-subset the training slices use): ``elementwise_add`` with Fluid's ``axis``
-mid-broadcast, ``mean``, ``sums``, ``reshape``, ``concat``, ``assign``,
-the reductions ``reduce_sum`` / ``mean`` / ``max`` / ``min`` / ``prod``,
-``cast``, ``scale``, ``fill_constant`` and
-``fill_constant_batch_size_like``."""
+subset the training slices use): ``elementwise_add`` / ``sub`` / ``mul`` /
+``div`` / ``pow`` / ``max`` / ``min`` with Fluid's ``axis``
+mid-broadcast, ``matmul``, ``mul``, ``mean``, ``sums``, ``reshape``,
+``transpose``, ``concat``, ``split``, ``stack``, ``squeeze``,
+``unsqueeze``, ``assign``, the reductions ``reduce_sum`` / ``mean`` /
+``max`` / ``min`` / ``prod``, ``cast``, ``scale``, ``fill_constant`` and
+``fill_constant_batch_size_like``.  ``matmul`` and ``mul`` are
+``torch.matmul``: the JAX package computes them outside any Pallas
+kernel."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -49,6 +53,52 @@ def _elementwise(name, tfn):
 
 
 elementwise_add = _elementwise("elementwise_add", torch.add)
+elementwise_sub = _elementwise("elementwise_sub", torch.sub)
+elementwise_mul = _elementwise("elementwise_mul", torch.mul)
+elementwise_div = _elementwise("elementwise_div", torch.div)
+elementwise_pow = _elementwise("elementwise_pow", torch.pow)
+# a tie's gradient splits in half between x and y, as jnp.maximum's does
+elementwise_max = _elementwise("elementwise_max", torch.maximum)
+elementwise_min = _elementwise("elementwise_min", torch.minimum)
+
+
+def matmul(x: Variable, y: Variable, transpose_x: bool = False,
+           transpose_y: bool = False, alpha: float = 1.0, name=None):
+    """Batched matmul with the last two dims of x and y swapped first when
+    asked (a 1-D operand is left as it is), then scaled by ``alpha``."""
+    helper = LayerHelper("matmul", name=name)
+
+    def fn(ctx, a, b, transpose_x, transpose_y, alpha):
+        if transpose_x and a.dim() >= 2:
+            a = a.transpose(-1, -2)
+        if transpose_y and b.dim() >= 2:
+            b = b.transpose(-1, -2)
+        out = torch.matmul(a, b)
+        return out * alpha if alpha != 1.0 else out
+
+    return helper.append_op(
+        fn, {"X": [x], "Y": [y]},
+        attrs={"transpose_x": transpose_x, "transpose_y": transpose_y,
+               "alpha": alpha})
+
+
+def mul(x: Variable, y: Variable, x_num_col_dims: int = 1,
+        y_num_col_dims: int = 1, name=None):
+    """x flattened to 2-D at ``x_num_col_dims`` times y flattened at
+    ``y_num_col_dims``, the result shaped x's leading dims + y's trailing
+    ones (ref: paddle/operators/mul_op.cc)."""
+    helper = LayerHelper("mul", name=name)
+
+    def fn(ctx, a, b, x_num_col_dims, y_num_col_dims):
+        am = a.reshape(int(np.prod(a.shape[:x_num_col_dims])), -1)
+        bm = b.reshape(int(np.prod(b.shape[:y_num_col_dims])), -1)
+        return (am @ bm).reshape(tuple(a.shape[:x_num_col_dims])
+                                 + tuple(b.shape[y_num_col_dims:]))
+
+    return helper.append_op(
+        fn, {"X": [x], "Y": [y]},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims})
 
 
 def _prod(a, axis, keep_dim):
@@ -128,11 +178,78 @@ def reshape(x: Variable, shape: Sequence[int], name=None, **_ignored):
         {"X": [x]}, attrs={"shape": tuple(shape)})
 
 
+def transpose(x: Variable, perm: Sequence[int], name=None):
+    helper = LayerHelper("transpose", name=name)
+    return helper.append_op(lambda ctx, a, perm: a.permute(perm), {"X": [x]},
+                            attrs={"perm": tuple(perm)})
+
+
 def concat(inputs: Sequence[Variable], axis: int = 0, name=None):
     helper = LayerHelper("concat", name=name)
     return helper.append_op(
         lambda ctx, *arrs, axis: torch.cat(arrs, dim=axis),
         {"X": list(inputs)}, attrs={"axis": axis})
+
+
+def split(x: Variable, num_or_sections, dim: int = -1, name=None):
+    """Split along ``dim`` into ``num_or_sections`` equal parts (an int,
+    which must divide the dim) or parts of the given sizes (a list); always
+    a list of Variables.  The sizes become the JAX package's cumulative
+    split points, which ``torch.tensor_split`` takes (``torch.split`` takes
+    sizes)."""
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+
+        def fn(ctx, a, dim):
+            if a.shape[dim] % n:
+                raise ValueError(f"split: dim {dim} of size {a.shape[dim]} "
+                                 f"does not split into {n} equal parts")
+            return tuple(torch.tensor_split(a, n, dim))
+    else:
+        secs = list(num_or_sections)
+        n = len(secs)
+        idxs = np.cumsum(secs)[:-1].tolist()
+
+        def fn(ctx, a, dim):
+            return tuple(torch.tensor_split(a, idxs, dim))
+
+    outs = helper.append_op(fn, {"X": [x]}, attrs={"dim": dim}, n_outputs=n)
+    return outs if isinstance(outs, list) else [outs]
+
+
+def stack(inputs: Sequence[Variable], axis: int = 0):
+    helper = LayerHelper("stack")
+    return helper.append_op(
+        lambda ctx, *arrs, axis: torch.stack(arrs, dim=axis),
+        {"X": list(inputs)}, attrs={"axis": axis})
+
+
+def squeeze(x: Variable, axes: Sequence[int]):
+    """Drop the size-1 ``axes``; an axis of another size raises, as
+    ``jnp.squeeze`` does."""
+    helper = LayerHelper("squeeze")
+
+    def fn(ctx, a, axes):
+        bad = [d for d in axes if a.shape[d] != 1]
+        if bad:
+            raise ValueError(f"squeeze: axes {bad} of shape "
+                             f"{tuple(a.shape)} are not of size 1")
+        return a.squeeze(tuple(axes))
+
+    return helper.append_op(fn, {"X": [x]}, attrs={"axes": tuple(axes)})
+
+
+def unsqueeze(x: Variable, axes: Sequence[int]):
+    """Insert a size-1 dim at each of ``axes``, in sorted order."""
+    helper = LayerHelper("unsqueeze")
+
+    def fn(ctx, a, axes):
+        for ax in sorted(axes):
+            a = a.unsqueeze(ax)
+        return a
+
+    return helper.append_op(fn, {"X": [x]}, attrs={"axes": tuple(axes)})
 
 
 def assign(x):
@@ -215,7 +332,10 @@ def fill_constant_batch_size_like(input: Variable, shape, dtype, value,
                "output_dim_idx": output_dim_idx})
 
 
-__all__ = ["assign", "cast", "concat", "elementwise_add",
-           "fill_constant", "fill_constant_batch_size_like", "mean",
+__all__ = ["assign", "cast", "concat", "elementwise_add", "elementwise_div",
+           "elementwise_max", "elementwise_min", "elementwise_mul",
+           "elementwise_pow", "elementwise_sub", "fill_constant",
+           "fill_constant_batch_size_like", "matmul", "mean", "mul",
            "reduce_max", "reduce_mean", "reduce_min", "reduce_prod",
-           "reduce_sum", "reshape", "scale", "sums"]
+           "reduce_sum", "reshape", "scale", "split", "squeeze", "stack",
+           "sums", "transpose", "unsqueeze"]

@@ -159,6 +159,22 @@ HIER_CFG = dict(vocab_size=5147, emb_dim=64, word_hidden=64, sent_hidden=64,
                 class_dim=2)
 HIER_S, HIER_W = 8, 32
 HIER_BATCH = 64
+# the image classifiers beyond ResNet as the repo's benchmark configs build
+# them (benchmark/vgg.py, alexnet.py, googlenet.py on
+# benchmark/_common.py::image_spec): 224x224x3 synthetic NCHW float32
+# images and labels from numpy seed 0, 1000 classes, Momentum(0.01, 0.9),
+# each config's default batch; model name -> (models module, build
+# arguments, batch)
+IMAGE_MODELS = {"vgg19": ("vgg", dict(depth=19), 64),
+                "alexnet": ("alexnet", {}, 128),
+                "googlenet": ("googlenet", {}, 128)}
+IMAGE_INFER = {f"{m}-infer": m for m in IMAGE_MODELS}
+IMAGE_CLASS_DIM = 1000
+# the OCR line recognizer (paddle_tpu/models/ocr_ctc.py) at its own widths
+# (8x32 lines, 4 glyphs of 3 classes and the blank, hidden 48) on
+# synthetic_lines(OCR_BATCH, seed=0), Adam(5e-3), as the JAX test trains it
+OCR_CFG = dict(num_classes=4, hidden=48)
+OCR_BATCH = 256
 # Transformer-base's optimizer (Vaswani et al. 2017, section 5.3), for
 # the programs with dropout: Adam(0.9, 0.98, 1e-9) on noam_decay(d_model,
 # BASE_WARMUP), resumed at the optimizer step BASE_WARMUP (the peak of
@@ -437,6 +453,100 @@ def infer_batch(n: int, device, seed: int = 0) -> dict:
     return {"img": torch.from_numpy(img).to(device)}
 
 
+def build_image_program(model: str, amp: bool, infer: bool = False,
+                        dtype: str = "float32"):
+    """``models.<vgg | alexnet | googlenet>.build`` for ``model`` (a key of
+    IMAGE_MODELS) at 1000 classes over NCHW 224x224 images, as
+    ``benchmark/_common.py::image_spec`` builds it: with Momentum(0.01,
+    0.9), then ``amp.enable()`` when ``amp``; with ``infer`` no optimizer
+    and the program pruned to the prediction.  ``dtype`` is the images'
+    and so every parameter's (``"float64"``: a reference step).  Fresh
+    default programs; returns (loss, main, startup), or with ``infer``
+    (prediction, pruned program, startup)."""
+    import paddle_tpu_torch as fluid
+
+    module, kw, _ = IMAGE_MODELS[model]
+    fluid.reset_default_programs()
+    img = fluid.layers.data("img", list(RESNET_IMAGE), dtype=dtype)
+    label = fluid.layers.data("label", [1], dtype="int32")
+    loss, _, pred = getattr(fluid.models, module).build(
+        img, label, class_dim=IMAGE_CLASS_DIM, **kw)
+    if not infer:
+        fluid.optimizer.Momentum(0.01, momentum=0.9).minimize(loss)
+    if amp:
+        fluid.amp.enable()
+    main = fluid.default_main_program()
+    if infer:
+        return pred, main.prune([pred]), fluid.default_startup_program()
+    return loss, main, fluid.default_startup_program()
+
+
+def image_batch(n: int, device, seed: int = 0, train: bool = True) -> dict:
+    """``n`` images and labels as ``image_spec``'s ``synthetic_feed``
+    draws them from ``RandomState(seed)`` (``rand`` images, then labels in
+    [0, 1000)), as tensors on ``device``; ``train=False``: images only."""
+    rng = np.random.RandomState(seed)
+    img = rng.rand(n, *RESNET_IMAGE).astype(np.float32)
+    feed = {"img": torch.from_numpy(img).to(device)}
+    if train:
+        label = rng.randint(0, IMAGE_CLASS_DIM, (n, 1)).astype(np.int32)
+        feed["label"] = torch.from_numpy(label).to(device)
+    return feed
+
+
+def conv_routes(program, fetch_names, n: int) -> dict:
+    """The conv kernels' launches by route (``ops/conv.py::conv_route``)
+    that one inference step of ``program`` on ``n`` images makes: each
+    3x3 stride-1 conv ``core/fusion.py`` routes, at its input's declared
+    shape and its compute dtype under the program's amp policy, with
+    aligned pointers (the routed ops' NHWC copies are fresh
+    allocations)."""
+    from ..core.fusion import compute_dtype, route_inference
+    from ..ops.conv import conv_route
+
+    amp = getattr(program, "amp_policy", None)
+    out = {"halo": 0, "halo_f32": 0, "gather": 0}
+    for op in route_inference(program, fetch_names, amp) or []:
+        if op.type not in ("conv2d", "conv2d_bn_relu") or \
+                op.fn.__name__ not in ("_igemm_fn", "_fused_fn"):
+            continue
+        (x,), (w,) = op.inputs["Input"], op.inputs["Filter"]
+        _, c, h, wd = program.global_block.vars[x].shape
+        o = program.global_block.vars[w].shape[0]
+        dtype = compute_dtype(program, x, "conv2d", op.attrs, amp)
+        out[conv_route(dtype, n, h, wd, c, o, True)] += 1
+    return out
+
+
+def build_ocr_program():
+    """``models.ocr_ctc.build`` at OCR_CFG over 8x32 lines with Adam(5e-3),
+    in fresh default programs; returns ((loss, decoded ids, decoded
+    lengths, logits), main, startup)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    L = fluid.layers
+    img = L.data("img", [1, 8, 32])
+    lab = L.data("lab", [4], dtype="int32")
+    ll = L.data("ll", [-1], dtype="int32", append_batch_size=False)
+    loss, (ids, lens), logits = fluid.models.ocr_ctc.build(img, lab, ll,
+                                                           **OCR_CFG)
+    fluid.optimizer.Adam(5e-3).minimize(loss)
+    return ((loss, ids, lens, logits), fluid.default_main_program(),
+            fluid.default_startup_program())
+
+
+def ocr_batch(n: int = OCR_BATCH, seed: int = 0, train: bool = True) -> dict:
+    """``n`` lines of ``models.ocr_ctc.synthetic_lines(n, seed=seed)``;
+    ``train=False``: the images only."""
+    from ..models.ocr_ctc import synthetic_lines
+
+    imgs, labels, lens = synthetic_lines(n, seed=seed)
+    if not train:
+        return {"img": imgs}
+    return {"img": imgs, "lab": labels, "ll": lens}
+
+
 def resnet_params(seed: int = 0) -> dict:
     """ResNet-50's parameters as numpy arrays, from ``seed``."""
     from ..models import init_resnet_params
@@ -563,6 +673,44 @@ def _resnet_class(kernel: str, ancestors) -> str:
                 return "bn_bwd_other"
             if "Pool" in node:
                 return "pool"
+            return "other"
+    return "other"
+
+
+# the other image classifiers' training step: as ResNet's (no batch norm),
+# and the fc layers (the mul op, its matmul backward), dropout, lrn and the
+# inception blocks' concat; the bias adds and ReLUs as bias_relu
+IMAGE_CLASSES = ("conv_fwd", "conv_dgrad", "conv_wgrad", "conv_bwd_other",
+                 "fc", "bias_relu", "dropout", "lrn", "concat", "pool",
+                 "optimizer", "other")
+_IMAGE_OP = {"conv2d": "conv_fwd", "pool2d": "pool", "momentum": "optimizer",
+             "increment": "optimizer", "mul": "fc", "dropout": "dropout",
+             "lrn": "lrn", "concat": "concat", "relu": "bias_relu",
+             "elementwise_add": "bias_relu"}
+_IMAGE_NODE = (("Convolution", None), ("Mm", "fc"), ("Pool", "pool"),
+               ("Relu", "bias_relu"), ("Threshold", "bias_relu"),
+               ("AddBackward", "bias_relu"), ("Cat", "concat"),
+               ("Dropout", "dropout"))
+
+
+def _image_class(kernel: str, ancestors) -> str:
+    """The class of a kernel of an image training step, by the op or the
+    autograd node that launched it."""
+    low = kernel.lower()
+    if "dropout_mask_kernel" in low:
+        return "dropout"
+    for a in ancestors:
+        if a.startswith("op::"):
+            return _IMAGE_OP.get(a[4:], "other")
+        if a.startswith(_NODE):
+            node = a[len(_NODE):]
+            for key, cls in _IMAGE_NODE:
+                if key in node:
+                    if cls is None:
+                        return ("conv_wgrad" if "wgrad" in low else
+                                "conv_dgrad" if "dgrad" in low
+                                else "conv_bwd_other")
+                    return cls
             return "other"
     return "other"
 
@@ -874,12 +1022,13 @@ def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
 
 # the models whose profiled steps are replays of a warmed signature
 WARMED = ("lm", "text_lstm", "seq2seq", "seq2seq-beam", "srl", "srl-decode",
-          "hier_text", "hier_text-infer")
+          "hier_text", "hier_text-infer", "ocr_ctc", "ocr_ctc-decode")
 SEQ2SEQ = ("seq2seq", "seq2seq-beam")
 SRL = ("srl", "srl-decode")
 HIER = ("hier_text", "hier_text-infer")
+OCR = ("ocr_ctc", "ocr_ctc-decode")
 # the models with only a float32 arm
-FLOAT32_ONLY = ("text_lstm",) + SEQ2SEQ + SRL + HIER
+FLOAT32_ONLY = ("text_lstm",) + SEQ2SEQ + SRL + HIER + OCR
 
 
 def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
@@ -924,6 +1073,21 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
                     int(feed["sub_len"].sum()), "tokens")
         return ([pred], main.prune([pred]), startup, params, feed,
                 HIER_BATCH, "documents")
+    if model in OCR:
+        (loss, ids, lens, _), main, startup = build_ocr_program()
+        params = startup_params(main, startup)
+        feed = ocr_batch(train=model == "ocr_ctc")
+        if model == "ocr_ctc":
+            return ([loss], main, startup, params, feed, OCR_BATCH, "lines")
+        return ([ids, lens], main.prune([ids, lens]), startup, params, feed,
+                OCR_BATCH, "lines")
+    if model in IMAGE_MODELS or model in IMAGE_INFER:
+        infer = model in IMAGE_INFER
+        name = IMAGE_INFER.get(model, model)
+        n = IMAGE_MODELS[name][2]
+        fetch, main, startup = build_image_program(name, amp, infer)
+        return ([fetch], main, startup, startup_params(main, startup),
+                image_batch(n, "cuda", train=not infer), n, "images")
     if model == "resnet50":
         loss, main, startup = build_resnet_program(amp)
         n = RESNET_BATCH if amp else RESNET_FP32_BATCH
@@ -936,8 +1100,10 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
                 infer_batch(INFER_BATCH, "cuda"), INFER_BATCH, "images")
     raise ValueError(f"unknown model {model!r}: lm | text_lstm | seq2seq | "
                      f"seq2seq-beam | srl | srl-decode | hier_text | "
-                     f"hier_text-infer | resnet50 | "
-                     f"{' | '.join(INFER_DEPTH)}")
+                     f"hier_text-infer | ocr_ctc | ocr_ctc-decode | "
+                     f"resnet50 | {' | '.join(INFER_DEPTH)} | "
+                     f"{' | '.join(IMAGE_MODELS)} | "
+                     f"{' | '.join(IMAGE_INFER)}")
 
 
 def emitted_tokens(lens) -> int:
@@ -967,7 +1133,9 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
     scope = train_scope(exe, startup, main, weights)
     if dropout > 0:
         resume_at_warmup(scope, main)
-    resnet = model == "resnet50" or model in INFER_DEPTH
+    infer = model in INFER_DEPTH or model in IMAGE_INFER
+    image = model in IMAGE_MODELS
+    resnet = model == "resnet50" or infer or image
     warm_s = None
     if model in WARMED and not eager:
         t0 = time.perf_counter()
@@ -1010,10 +1178,11 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
         kernels.sort(reverse=True)
         busy_us = sum(by_class.values())
         if resnet:
-            infer = model in INFER_DEPTH
             by_class = _classes_by_origin(
-                prof, INFER_CLASSES if infer else RESNET_CLASSES,
-                _infer_class if infer else _resnet_class)
+                prof, INFER_CLASSES if infer else IMAGE_CLASSES if image
+                else RESNET_CLASSES,
+                _infer_class if infer else _image_class if image
+                else _resnet_class)
             if infer:
                 # a ctypes launch has no host event above its kernel: the
                 # conv kernels are counted by name, and so is the halo
@@ -1074,13 +1243,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="lm",
                     choices=("lm", "text_lstm", *SEQ2SEQ, *SRL, *HIER,
-                             "resnet50", *INFER_DEPTH),
+                             *OCR, "resnet50", *INFER_DEPTH, *IMAGE_MODELS,
+                             *IMAGE_INFER),
                     help="the training step to profile (lm: both arms, "
                          "float32 then amp; resnet50: both arms, amp then "
                          "float32), the seq2seq beam or SRL Viterbi "
-                         "decode, the hier_text inference step, or the "
-                         "ResNet inference step (resnet50-infer: both "
-                         "arms; resnet18-infer: amp)")
+                         "decode, the hier_text inference step, the "
+                         "ocr_ctc train step or greedy decode, the ResNet "
+                         "inference step (resnet50-infer: both arms; "
+                         "resnet18-infer: amp), or the VGG-19, AlexNet or "
+                         "GoogLeNet train or inference step (both arms, "
+                         "amp then float32)")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="lm: build_lm's dropout (with Transformer-base's "
                          "optimizer, resumed at the peak of warm-up)")
@@ -1109,8 +1282,10 @@ def main(argv=None) -> int:
         if args.dropout or args.remat:
             arm += (f" (dropout {args.dropout:g}"
                     f"{', remat' if args.remat else ''})")
-        what = ("inference" if args.model in (*INFER_DEPTH, "hier_text-infer")
-                else "decode" if args.model in ("seq2seq-beam", "srl-decode")
+        what = ("inference" if args.model in (*INFER_DEPTH, *IMAGE_INFER,
+                                              "hier_text-infer")
+                else "decode" if args.model in ("seq2seq-beam", "srl-decode",
+                                                "ocr_ctc-decode")
                 else "train")
         print(f"{res['model']}{arm} {what} step on {res['card']}: "
               f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "

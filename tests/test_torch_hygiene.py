@@ -32,6 +32,11 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.seq2seq\n"
         "import paddle_tpu_torch.layers.nested, paddle_tpu_torch.layers.mdlstm\n"
         "import paddle_tpu_torch.models.hier_text\n"
+        "import paddle_tpu_torch.nets, paddle_tpu_torch.models.ocr_ctc\n"
+        "import paddle_tpu_torch.models.lenet, paddle_tpu_torch.models.vgg\n"
+        "import paddle_tpu_torch.models.smallnet\n"
+        "import paddle_tpu_torch.models.alexnet\n"
+        "import paddle_tpu_torch.models.googlenet\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -94,6 +99,64 @@ def test_entry_points_default_to_cuda():
     assert exe.device.type == "cpu"
     fluid.load_scope(weights, main, scope, device="cpu")
     assert {t.device.type for _, t in scope.items()} == {"cpu"}
+
+
+@pytest.mark.parametrize("model", ["lenet", "smallnet", "vgg", "alexnet",
+                                   "googlenet", "ocr_ctc", "nets"])
+def test_new_models_default_to_cuda(model):
+    """The image classifiers, ocr_ctc and a ``nets`` program run where the
+    other programs do: ``Executor()`` and ``load_scope`` take the card
+    unless told otherwise, and raise without one; the CPU runs them when
+    asked.  ``train_profile`` needs the card for the new recipes."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        if model == "ocr_ctc":
+            img = L.data("img", [1, 8, 32])
+            lab = L.data("lab", [4], dtype="int32")
+            ll = L.data("ll", [-1], dtype="int32", append_batch_size=False)
+            loss = fluid.models.ocr_ctc.build(img, lab, ll, num_classes=4)[0]
+            feed = dict(zip(("img", "lab", "ll"),
+                            fluid.models.ocr_ctc.synthetic_lines(2)))
+        elif model == "nets":
+            x = L.fc(L.data("x", [6, 32]), 32, num_flatten_dims=2)
+            loss = L.mean(fluid.nets.scaled_dot_product_attention(
+                x, x, x, num_heads=2))
+            feed = {"x": np.ones((2, 6, 32), np.float32)}
+        else:
+            c, size = {"lenet": (1, 28), "alexnet": (3, 96)}.get(model,
+                                                                 (3, 32))
+            img = L.data("img", [c, size, size])
+            label = L.data("label", [1], dtype="int32")
+            kw = {} if model == "lenet" else {"class_dim": 4}
+            loss = getattr(fluid.models, model).build(img, label, **kw)[0]
+            feed = {"img": np.ones((2, c, size, size), np.float32),
+                    "label": np.zeros((2, 1), np.int32)}
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    if torch.cuda.is_available():
+        assert fluid.Executor().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.Executor()
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    weights = {p.name: scope.find_var(p.name).numpy()
+               for p in main.parameters()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.load_scope(weights, main, fluid.Scope())
+    fluid.load_scope(weights, main, scope, device="cpu")
+    out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert np.isfinite(out)
+    for name in {"vgg": ("vgg19", "vgg19-infer"),
+                 "alexnet": ("alexnet", "alexnet-infer"),
+                 "googlenet": ("googlenet", "googlenet-infer"),
+                 "ocr_ctc": tp.OCR}.get(model, ()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tp.profile(name)
 
 
 def test_kernel_library_is_keyed_by_source():
