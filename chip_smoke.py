@@ -219,7 +219,8 @@ Phases (any failure exits non-zero, before the final line):
                ocr_ctc inference programs (CONV_MODEL_CASES: VGG-19's 224
                stem and 64 -> 64 convs and its 112 conv, AlexNet's 12 x 12,
                GoogLeNet's ragged inception widths, ocr_ctc's C = 1 and 16,
-               each in its dtypes, timed beside cuDNN), each
+               FCN's three convs and SSD's four heads, each in its dtypes,
+               timed beside cuDNN), each
                case on the route ops/conv.py::conv_route gives it (ResNet
                shapes on the halo kernel in bfloat16 and on the halo_f32
                kernel, three TF32 passes, in float32; the ragged ones on the
@@ -258,9 +259,12 @@ Phases (any failure exits non-zero, before the final line):
                tools/train_profile.py::conv_routes), ms per step, images/s,
                peak memory;
  16. ocr_ctc - the OCR line recognizer at its own widths on 256 synthetic
-               lines, Adam(5e-3), float32, cuDNN deterministic: the train
-               signature warmed, a replay bitwise against an unwarmed eager
-               step and grouped against per-op, card against CPU; 5
+               lines, Adam(5e-3), float32: the train signature warmed, a
+               replay bitwise against an unwarmed eager step and grouped
+               against per-op (these and every other replay-against-eager
+               check of the fcn and ssd phases with cuDNN deterministic,
+               the timed runs on its default algorithms), card against
+               CPU; 5
                replays and 3 eager steps; the program pruned to the greedy
                decode warmed, its two convs on the gather kernel inside the
                graph (2 launches counted at each replay, no allocation at
@@ -277,12 +281,47 @@ Phases (any failure exits non-zero, before the final line):
                with batch norm (the BN kernels, 2 + 2; the conv biases,
                which the batch norm cancels, held to 1e-3 of the largest
                gradient) and its pruned program (2 fused conv launches)
-               card against CPU.
+               card against CPU;
+ 18. fcn     - the FCN segmenter (base 16, 21 classes, Adam(5e-3), weights
+               from the port's startup program on the CPU, seed 0): a
+               float32 train step (TF32 off) on 2 images at 64 px card
+               against CPU (loss rtol 1e-4, each gradient
+               within 1e-3 of its max abs, or 3 x the CPU's own floor if
+               one is not) and the pruned inference (logits within 1e-4 of
+               max, pixel classes equal where the top two are clear); then
+               32 of voc2012's synthetic masks at 256 px: the train arms
+               float32 and amp, 5 eager steps, then warmed (a replay
+               bitwise against eager, grouped against per-op, 5 replays);
+               the inference arms float32 and amp, 5 eager steps, 3 gather
+               launches a step (conv_routes); ms per step, images/s, peak
+               memory;
+ 19. ssd     - the SSD detector (21 classes, 300 px, 16 gt slots, one-box
+               synthetic images, Adam(1e-3)): ssd_loss's positive and
+               mined negative masks card against CPU on 4 images, then
+               the float32 train step (held to the
+               CPU's floor where a mask differs); the train arms float32
+               and amp at 32 images, 5 eager steps (the BN kernels 3 + 3 a
+               step), then warmed (a replay bitwise against eager, grouped
+               against per-op, 5 replays counted at replay), the float32
+               scope trained 300 more replays on 8 batches; from its
+               weights the detect program (ssd.infer, keep 20) in both
+               arms, 5 eager steps (4 gather launches a step, no fusion),
+               warmed (replays bitwise against eager on two batches,
+               launches counted at replay, nothing allocated); the
+               detections card against CPU where each score lies over
+               twice the largest probability difference from every other
+               candidate; DetectionMAP fed 4 batches of 32 images' card
+               detections on the card and on the CPU (histograms bitwise
+               equal), on bin-centred scores against detection_map_np and
+               on the raw scores with the default 100 bins (at most
+               detection_map_np's mAP), with a fifth or more of the gts
+               matched.
 Each phase prints its seconds.  The line before the card line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -516,8 +555,9 @@ IMAGE_TRAIN_ARMS = (("vgg19", True), ("vgg19", False), ("alexnet", True),
                     ("googlenet", True))
 IMAGE_INFER_ARMS = tuple((m, amp) for m in ("vgg19", "alexnet", "googlenet")
                          for amp in (True, False))
-# the conv kernels at the slice's new shapes, the routed convs of the image
-# and ocr_ctc inference programs at their batches: (label, N, H, W, C, O,
+# the conv kernels at the shapes of later slices, the routed convs of the
+# image, ocr_ctc, FCN and SSD inference programs at their batches (SSD's
+# heads: 2 boxes a cell x 4 coordinates or 21 classes): (label, N, H, W, C, O,
 # {dtype: the route conv_route gives}); the plain kernel only (none of
 # these programs has a batch norm to fuse), timed as the other cases
 CONV_MODEL_CASES = [
@@ -537,7 +577,46 @@ CONV_MODEL_CASES = [
      {torch.bfloat16: "gather", torch.float32: "gather"}),
     ("ocr_ctc c1", 256, 8, 32, 1, 16, {torch.float32: "gather"}),
     ("ocr_ctc c16", 256, 4, 16, 16, 32, {torch.float32: "gather"}),
+    ("fcn c256", 32, 256, 256, 3, 16,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("fcn c128", 32, 128, 128, 16, 32,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("fcn c64", 32, 64, 64, 32, 64,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("ssd loc75", 32, 75, 75, 32, 8,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("ssd conf75", 32, 75, 75, 32, 42,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("ssd loc38", 32, 38, 38, 64, 8,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
+    ("ssd conf38", 32, 38, 38, 64, 42,
+     {torch.bfloat16: "gather", torch.float32: "gather"}),
 ]
+# the fcn and ssd phases (PERF.md section 4; the configurations are
+# tools/train_profile.py's): FCN's float32 train step and pruned inference
+# card against CPU on FCN_PARITY_BATCH images at FCN_PARITY_SIZE px, SSD's
+# on SSD_PARITY_BATCH images at 300 px; the routed launches an inference
+# step by route (conv_routes gives them: no channel count of either model
+# a multiple of 64); SSD's three training batch norms; SSD_TRAIN_STEPS
+# replays over SSD_TRAIN_BATCHES batches that train the float32 scope
+# whose weights the detect arms, the detections' card-against-CPU check
+# and DetectionMAP read (the loss levels off by then: only class 1 looks
+# unlike the others, so a box of another class gets its label by chance);
+# DetectionMAP fed SSD_MAP_BATCHES new batches of SSD_BATCH images, once
+# with their scores moved to the centres of SSD_MAP_BINS bins, so that
+# detection_map_np sees the evaluator's own quantisation, and once as they
+# are on the default 100 bins; its true positives at least SSD_MAP_MIN_TP
+# of the gts
+FCN_PARITY_BATCH, FCN_PARITY_SIZE = 2, 64
+SSD_PARITY_BATCH = 4
+FCN_ROUTES = {"halo": 0, "halo_f32": 0, "gather": 3}
+SSD_ROUTES = {"halo": 0, "halo_f32": 0, "gather": 4}
+SSD_BN_LAYERS = 3
+SSD_TRAIN_STEPS = 300
+SSD_TRAIN_BATCHES = 8
+SSD_MAP_BATCHES = 4
+SSD_MAP_BINS = 100000
+SSD_MAP_MIN_TP = 0.2
 # the ocr_ctc phase: OCR_BATCH lines (tools/train_profile.py); the nets
 # phase's programs: NETS_BATCH rows, and scaled_dot_product_attention at T
 # NETS_T, width NETS_D, NETS_HEADS heads (head dim 64)
@@ -1790,8 +1869,9 @@ def _replay_against_eager(label, exe, main, startup, params, feed,
 
 def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
     """Warm the training signature (``feed``) on ``scope``, then
-    TRAIN_STEPS replays, with every flash, dropout and LSTM launch count
-    set to 0 just before and read just after (counted at replay): losses,
+    TRAIN_STEPS replays, with every kernel launch count set to 0 just
+    before and the flash, dropout and LSTM ones read just after (counted
+    at replay): losses,
     CUDA-event ms per step (fetch included), the counts (all, and by
     dtype), warm seconds,
     replays and compiles, peak memory (allocated, and reserved: a graph's
@@ -1807,17 +1887,7 @@ def _lm_train_pass(exe, main, loss, scope, feed) -> dict:
     warm_s = time.perf_counter() - t0
     check(how == "compiled", f"training signature: warm gave {how!r}")
     compiles, replays = exe.compiles, exe.replays
-    for kern in FLASH_KERNELS:
-        flash_attention.launches[kern] = 0
-        for counts in flash_attention.dtype_launches.values():
-            counts[kern] = 0
-    for kern in DROPOUT_KERNELS:
-        threefry_dropout.launches[kern] = 0
-        for counts in threefry_dropout.dtype_launches.values():
-            counts[kern] = 0
-    for counts in (fused_lstm.launches, fused_lstm.route_launches):
-        for k in counts:
-            counts[k] = 0
+    _zero_counters()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
@@ -3809,58 +3879,49 @@ def _infer_parity(card: str, label: str, build, arrays: dict,
                   f"margin exceeds twice the difference: {same}, {margins}")
 
 
-def _infer_arm(arm: str, pred, program, startup, arrays: dict, feed: dict,
-               launches_a_step: dict, routes_a_step: dict,
+def _infer_arm(arm: str, fetch: list, program, startup, arrays: dict,
+               feed: dict, launches_a_step: dict, routes_a_step: dict,
                card: str) -> dict:
-    """TRAIN_STEPS inference steps of one arm (the pruned ``program``, its
-    prediction fetched) on ``feed``, which stays on the card; the conv
-    counts are this pass's own and must be ``launches_a_step`` and
-    ``routes_a_step`` times the steps."""
-    import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import conv
-    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS, train_scope
+    """TRAIN_STEPS inference steps of one arm (the pruned ``program``,
+    ``fetch`` fetched) on ``feed``, which stays on the card (_eager_arm);
+    the conv counts are this pass's own and must be ``launches_a_step``
+    and ``routes_a_step`` times the steps.  Returns the arm's numbers and,
+    under "last", the last step's fetches."""
+    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS
 
     n = int(feed["img"].shape[0])
-    exe = fluid.Executor()
-    scope = train_scope(exe, startup, program, arrays)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counters()
-    outs, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out, = exe.run(program, feed=feed, fetch_list=[pred], scope=scope)
-        e1.record()
-        torch.cuda.synchronize()
-        outs.append(out)
-        step_ms.append(e0.elapsed_time(e1))
-    launches = dict(conv.launches)
-    routes = dict(conv.route_launches)
-    peak = torch.cuda.max_memory_allocated()
+    r = _eager_arm(arm, fetch, program, startup, arrays, feed, n, card)
+    launches = r["counts"]["conv.launches"]
+    routes = r["counts"]["conv.route_launches"]
     want = {k: v * TRAIN_STEPS for k, v in launches_a_step.items()}
     check(launches == want, f"{arm}: conv launches {launches}, expected "
                             f"{want}")
     want_routes = {k: v * TRAIN_STEPS for k, v in routes_a_step.items()}
     check(routes == want_routes, f"{arm}: route launches {routes}, expected "
                                  f"{want_routes}")
-    last = outs[-1]
-    check(last.shape == (n, 1000) and np.isfinite(last).all()
-          and np.allclose(last.sum(1), 1.0, atol=1e-2),
-          f"{arm}: predictions {last.shape}, finite "
-          f"{np.isfinite(last).all()}, row sums {last.sum(1)[:4]}")
-    med = float(np.median(step_ms[1:]))
-    print(f"{arm}: {TRAIN_STEPS} steps on {n} images, step ms "
-          f"{', '.join(f'{x:.2f}' for x in step_ms)}; median of steps "
-          f"2-{TRAIN_STEPS} {med:.3f} ms = {n / med * 1e3:.1f} images/s; "
-          f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
-          f"conv launches {launches}, by route {routes}; steps agree "
-          f"bitwise: {all(np.array_equal(o, last) for o in outs)}; top-1 of "
-          f"the first images {last.argmax(1)[:4].tolist()}; on {card}")
+    last = r["outs"][-1]
+    alike = all(all(np.array_equal(a, b) for a, b in zip(o, last))
+                for o in r["outs"])
+    print(f"{_arm_line(arm, r, ', pruned and routed')}; conv launches "
+          f"{launches}, by route {routes}; steps agree bitwise: {alike}; on "
+          f"{card}")
     return {"launches": launches, "route_launches": routes,
-            "median_ms": med, "images_per_s": n / med * 1e3,
-            "batch": n, "peak_memory_bytes": peak}
+            "median_ms": r["median_ms"], "images_per_s": r["images_per_s"],
+            "batch": n, "peak_memory_bytes": r["peak_memory_bytes"],
+            "last": last}
+
+
+def _class_probs(arm: str, rec: dict) -> dict:
+    """An image classifier's inference arm (_infer_arm): the last step's
+    predictions [batch, 1000] with rows summing to 1; prints the top-1 of
+    the first images and returns the arm's numbers without its fetches."""
+    last = rec.pop("last")[0]
+    n = rec["batch"]
+    check(last.shape == (n, 1000) and np.allclose(last.sum(1), 1.0,
+                                                  atol=1e-2),
+          f"{arm}: predictions {last.shape}, row sums {last.sum(1)[:4]}")
+    print(f"{arm}: top-1 of the first images {last.argmax(1)[:4].tolist()}")
+    return rec
 
 
 def phase_resnet_infer(card: str) -> dict:
@@ -3884,10 +3945,9 @@ def phase_resnet_infer(card: str) -> dict:
         total = sum(want.values())
         routes = {"halo": total if amp else 0,
                   "halo_f32": 0 if amp else total, "gather": 0}
-        arms[arm] = _infer_arm(arm, pred, program, startup,
-                               infer_arrays(depth),
-                               infer_batch(INFER_BATCH, "cuda"), want,
-                               routes, card)
+        arms[arm] = _class_probs(arm, _infer_arm(
+            arm, [pred], program, startup, infer_arrays(depth),
+            infer_batch(INFER_BATCH, "cuda"), want, routes, card))
         torch.cuda.empty_cache()
     return arms
 
@@ -3910,29 +3970,40 @@ def _counts() -> dict:
 def _image_train_parity(model: str, params: dict, card: str) -> None:
     """One float32 Momentum step (TF32 off) of ``model`` on
     IMAGE_PARITY_BATCH images on the card and on the CPU from the same
-    weights and dropout masks: the loss within rtol 1e-4 and each gradient
-    within 1e-3 of its max abs (the float32 train limit).
-
-    Where a gradient fails that, the step's gradients are held as
-    ResNet-50's are (_resnet_parity, ROADMAP C.5) to the CPU's own floor
-    measured in this run, in relative L2: each within max(1e-3,
-    RESNET_FLOOR_FACTOR x its floor), and all together within
-    RESNET_FLOOR_FACTOR x theirs; the floor is the larger spread of two
-    CPU steps (noise seeds 5 and 6) with the images and every weight times
-    (1 + IMAGE_FLOOR_SCALE N(0, 1)) from the unmoved one.  These gradients
-    are chaotic at float32's resolution: a rounding flips a ReLU whose
-    input lies within it of 0, and one flip moves a layer's weight or bias
-    gradient by one element's product, up to about 1e-2 of its max where
-    the layer sums few positions (tools/image_parity.py, PERF.md section
-    6, PR 19)."""
-    import paddle_tpu_torch as fluid
+    weights and dropout masks (_train_parity)."""
     from paddle_tpu_torch.tools.train_profile import (build_image_program,
-                                                      image_batch,
-                                                      train_scope)
+                                                      image_batch)
 
     loss, main, startup = build_image_program(model, amp=False)
+    _train_parity(model, loss, main, startup, params,
+                  image_batch(IMAGE_PARITY_BATCH, "cpu", seed=1), card,
+                  f"{IMAGE_PARITY_BATCH} images, dropout on")
+
+
+def _train_parity(label: str, loss, main, startup, params: dict, feed: dict,
+                  card: str, what: str, floor: bool = False) -> dict:
+    """One float32 step (TF32 off) of ``main`` on ``feed`` (its images
+    under "img") on the card and on the CPU from the same weights: the
+    loss within rtol 1e-4 and each gradient within 1e-3 of its max abs
+    (the float32 train limit).
+
+    Where a gradient fails that, or ``floor`` asks for it, the step's
+    gradients are held as ResNet-50's are (_resnet_parity, ROADMAP C.5) to
+    the CPU's own floor measured in this run, in relative L2: each within
+    max(1e-3, RESNET_FLOOR_FACTOR x its floor), and all together within
+    RESNET_FLOOR_FACTOR x theirs; the floor is the larger spread of two
+    CPU steps (noise seeds 5 and 6) with the images and every weight times
+    (1 + IMAGE_FLOOR_SCALE N(0, 1)) from the unmoved one.  The image
+    classifiers' gradients are chaotic at float32's resolution: a rounding
+    flips a ReLU whose input lies within it of 0, and one flip moves a
+    layer's weight or bias gradient by one element's product, up to about
+    1e-2 of its max where the layer sums few positions
+    (tools/image_parity.py, PERF.md section 6).  Returns the card's
+    and the CPU's fetches (loss, gradients) by device."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import train_scope
+
     grad_names = [f"{n}@GRAD" for n in params]
-    feed = image_batch(IMAGE_PARITY_BATCH, "cpu", seed=1)
 
     def step(dev, weights=params, images=feed["img"]):
         exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
@@ -3943,113 +4014,94 @@ def _image_train_parity(model: str, params: dict, card: str) -> None:
         t0 = time.perf_counter()
         out = exe.run(main, feed=dict(feed, img=images),
                       fetch_list=[loss] + grad_names, scope=scope)
-        return float(out[0]), out[1:], time.perf_counter() - t0
+        return out, time.perf_counter() - t0
 
-    l_gpu, g_gpu, t_gpu = step("cuda")
-    l_cpu, g_cpu, t_cpu = step("cpu")
+    (l_gpu, *g_gpu), t_gpu = step("cuda")
+    (l_cpu, *g_cpu), t_cpu = step("cpu")
+    l_gpu, l_cpu = float(l_gpu), float(l_cpu)
     check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
-          f"{model} train parity: loss {l_gpu} on the card, {l_cpu} on the "
+          f"{label} train parity: loss {l_gpu} on the card, {l_cpu} on the "
           f"CPU")
     for name, a in zip(grad_names, g_gpu):
-        check(np.isfinite(a).all(), f"{model} train parity: non-finite "
+        check(np.isfinite(a).all(), f"{label} train parity: non-finite "
                                     f"{name}")
     rel = np.array([_rel(a, b) for a, b in zip(g_gpu, g_cpu)])
-    line = (f"{model} train parity (float32, TF32 off, {IMAGE_PARITY_BATCH} "
-            f"images, dropout on): loss {l_gpu:.6f} card, {l_cpu:.6f} CPU "
-            f"(rtol 1e-4); {len(rel)} gradients, max|d|/max|g| worst "
-            f"{rel.max():.3e} ({grad_names[int(rel.argmax())]}), median "
+    out = {"cuda": [l_gpu] + g_gpu, "cpu": [l_cpu] + g_cpu}
+    line = (f"{label} train parity (float32, TF32 off, {what}): loss "
+            f"{l_gpu:.6f} card, {l_cpu:.6f} CPU (rtol 1e-4); {len(rel)} "
+            f"gradients, max|d|/max|g| worst {rel.max():.3e} "
+            f"({grad_names[int(rel.argmax())]}), median "
             f"{np.median(rel):.3e}")
-    if rel.max() <= 1e-3:
+    if rel.max() <= 1e-3 and not floor:
         print(f"{line}, all within 1e-3; step {t_gpu:.2f} s card (first, "
               f"eager), {t_cpu:.2f} s CPU; on {card}")
-        return
+        return out
     flat = lambda gs: np.concatenate([g.ravel() for g in gs])  # noqa: E731
-    floor, floor_all = np.zeros(len(rel)), 0.0
+    floors, floor_all = np.zeros(len(rel)), 0.0
     for seed in (5, 6):
         rng = np.random.RandomState(seed)
-        noise = torch.from_numpy(rng.standard_normal(tuple(
-            feed["img"].shape)).astype(np.float32))
+        img = np.asarray(feed["img"])
+        noise = rng.standard_normal(img.shape).astype(np.float32)
         moved = {n: (a * (1 + IMAGE_FLOOR_SCALE * rng.standard_normal(
             a.shape))).astype(np.float32) for n, a in params.items()}
-        _, g_p, _ = step("cpu", moved,
-                         feed["img"] * (1 + IMAGE_FLOOR_SCALE * noise))
-        floor = np.maximum(floor, [_rel_l2(a, b)
-                                   for a, b in zip(g_p, g_cpu)])
+        (_, *g_p), _ = step("cpu", moved,
+                            img * (1 + IMAGE_FLOOR_SCALE * noise))
+        floors = np.maximum(floors, [_rel_l2(a, b)
+                                     for a, b in zip(g_p, g_cpu)])
         floor_all = max(floor_all, _rel_l2(flat(g_p), flat(g_cpu)))
     d_l2 = np.array([_rel_l2(a, b) for a, b in zip(g_gpu, g_cpu)])
-    ratio = d_l2 / np.maximum(1e-3, RESNET_FLOOR_FACTOR * floor)
+    ratio = d_l2 / np.maximum(1e-3, RESNET_FLOOR_FACTOR * floors)
     all_l2 = _rel_l2(flat(g_gpu), flat(g_cpu))
     i = int(ratio.argmax())
-    print(f"{line}; over 1e-3, so held to the CPU's floor under a "
+    why = "asked" if floor and rel.max() <= 1e-3 else "over 1e-3"
+    print(f"{line}; {why}, so held to the CPU's floor under a "
           f"{IMAGE_FLOOR_SCALE:g} change of the images and weights, in "
-          f"relative L2: floor median {np.median(floor):.3e} (max "
-          f"{floor.max():.3e}), card vs CPU median {np.median(d_l2):.3e} "
+          f"relative L2: floor median {np.median(floors):.3e} (max "
+          f"{floors.max():.3e}), card vs CPU median {np.median(d_l2):.3e} "
           f"(max {d_l2.max():.3e}), worst {ratio[i]:.3f} of its limit "
           f"({grad_names[i]}; max(1e-3, {RESNET_FLOOR_FACTOR} x floor)); "
           f"all together {all_l2:.3e}, floor {floor_all:.3e} (limit "
           f"{RESNET_FLOOR_FACTOR} x); step {t_gpu:.2f} s card (first, "
           f"eager), {t_cpu:.2f} s CPU; on {card}")
-    check(ratio.max() <= 1.0, f"{model} train parity: {grad_names[i]} "
+    check(ratio.max() <= 1.0, f"{label} train parity: {grad_names[i]} "
                               f"differs by {d_l2[i]} in L2, its floor "
-                              f"{floor[i]}")
+                              f"{floors[i]}")
     check(all_l2 <= RESNET_FLOOR_FACTOR * floor_all,
-          f"{model} train parity: the gradients differ by {all_l2} in L2, "
+          f"{label} train parity: the gradients differ by {all_l2} in L2, "
           f"limit {RESNET_FLOOR_FACTOR * floor_all}")
+    return out
 
 
 def _image_train_arm(model: str, amp: bool, params: dict,
                      card: str) -> dict:
     """TRAIN_STEPS eager Momentum steps of one arm on the config's batch,
-    which stays on the card; every kernel counter set to 0 just before and
-    read just after (the threefry dropout kernels: each dropout op once
-    forward and once backward a step)."""
-    import paddle_tpu_torch as fluid
+    which stays on the card (_eager_arm; the threefry dropout kernels:
+    each dropout op once forward and once backward a step)."""
     from paddle_tpu_torch.tools.train_profile import (
-        IMAGE_MODELS, TRAIN_STEPS, build_image_program, image_batch,
-        train_scope)
+        IMAGE_MODELS, TRAIN_STEPS, build_image_program, image_batch)
 
     arm = f"{model} train {'amp' if amp else 'float32'}"
     n = IMAGE_MODELS[model][2]
     loss, main, startup = build_image_program(model, amp)
     n_drop = sum(op.type == "dropout" for op in main.list_ops())
-    exe = fluid.Executor()
-    scope = train_scope(exe, startup, main, params)
-    feed = image_batch(n, "cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counters()
-    losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        e1.record()
-        torch.cuda.synchronize()
-        losses.append(float(out))
-        step_ms.append(e0.elapsed_time(e1))
-    counts = _counts()
-    peak = torch.cuda.max_memory_allocated()
-    drop = counts["threefry_dropout.launches"]
-    check(all(np.isfinite(losses)), f"{arm}: non-finite losses {losses}")
+    r = _eager_arm(arm, [loss], main, startup, params,
+                   image_batch(n, "cuda"), n, card)
+    losses = [float(o[0]) for o in r["outs"]]
+    drop = r["counts"]["threefry_dropout.launches"]
     want = {"fwd": n_drop * TRAIN_STEPS, "bwd": n_drop * TRAIN_STEPS}
     check(drop == want, f"{arm}: dropout launches {drop}, expected {want}")
     if amp:
-        dtypes = {str(v.dtype) for _, v in scope.items()}
+        dtypes = {str(v.dtype) for _, v in r["scope"].items()}
         check(dtypes <= {"torch.float32", "torch.int32"},
               f"{arm}: master state not float32: {dtypes}")
-    med = float(np.median(step_ms[1:]))
-    print(f"{arm}: {TRAIN_STEPS} Momentum steps on {n} images (224x224, "
-          f"1000 classes), losses {', '.join(f'{x:.5f}' for x in losses)}; "
-          f"step ms {', '.join(f'{x:.1f}' for x in step_ms)}; median of "
-          f"steps 2-{TRAIN_STEPS} {med:.2f} ms = {n / med * 1e3:.1f} "
-          f"images/s; peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(max_memory_allocated); dropout launches {drop} = {n_drop} ops "
-          f"x {TRAIN_STEPS} steps; convolutions on cuDNN (a training "
-          f"program is not routed); on {card}")
-    return {"losses": losses, "median_ms": med,
-            "images_per_s": n / med * 1e3, "batch": n,
-            "peak_memory_bytes": peak, "dropout_launches": drop}
+    print(f"{_arm_line(arm, r, ' (224x224, 1000 classes)')}; losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; dropout launches "
+          f"{drop} = {n_drop} ops x {TRAIN_STEPS} steps; convolutions on "
+          f"cuDNN (a training program is not routed); on {card}")
+    return {"losses": losses, "median_ms": r["median_ms"],
+            "images_per_s": r["images_per_s"], "batch": n,
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "dropout_launches": drop}
 
 
 def phase_image(card: str) -> dict:
@@ -4083,40 +4135,28 @@ def phase_image(card: str) -> dict:
         n = IMAGE_MODELS[model][2]
         pred, program, startup = build_image_program(model, amp, True)
         routes = conv_routes(program, [pred.name], n)
-        infer[f"{model}-infer {'amp' if amp else 'float32'}"] = _infer_arm(
-            f"{model}-infer {'amp' if amp else 'float32'}", pred, program,
-            startup, params[model], image_batch(n, "cuda", train=False),
-            {"igemm": sum(routes.values()), "fused": 0}, routes, card)
+        arm = f"{model}-infer {'amp' if amp else 'float32'}"
+        infer[arm] = _class_probs(arm, _infer_arm(
+            arm, [pred], program, startup, params[model],
+            image_batch(n, "cuda", train=False),
+            {"igemm": sum(routes.values()), "fused": 0}, routes, card))
         _release()
     return {"train": train, "infer": infer}
 
 
 def phase_ocr(card: str) -> dict:
-    """_ocr_phase with cuDNN's deterministic algorithms: a replay equals an
-    eager step bitwise only where every kernel adds in one fixed order,
-    and cuDNN's default weight-gradient algorithms for the two convs add
-    with atomics (so two eager steps differ in their last bits too)."""
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        return _ocr_phase(card)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-
-
-def _ocr_phase(card: str) -> dict:
     """ocr_ctc at its own widths (8x32 lines, hidden 48, 4 classes) on
     OCR_BATCH lines of synthetic_lines(seed 0), Adam(5e-3), float32: the
     train signature warmed, a replay bitwise against an unwarmed eager
-    step and the card against the CPU; TRAIN_STEPS replays and 3 eager
-    steps; then the program pruned to the decode (ids and lengths), warmed
-    (the first routed program that is warmed: its two convs on the gather
-    kernel inside the graph), replays bitwise against eager on two
-    batches, nothing allocated at replay, and the ids against the CPU's
+    step (cuDNN deterministic) and the card against the CPU; TRAIN_STEPS
+    replays and 3 eager steps; then the program pruned to the decode (ids
+    and lengths), warmed (_warmed_infer: its two convs on the gather
+    kernel inside the graph, replays bitwise against eager on two
+    batches, nothing allocated at replay), and the ids against the CPU's
     where the top two logits are clear."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.tools.train_profile import (
-        OCR_BATCH, TRAIN_STEPS, build_ocr_program, feed_sig, ocr_batch,
+        OCR_BATCH, TRAIN_STEPS, build_ocr_program, ocr_batch,
         startup_params, train_scope)
 
     (loss, ids, lens, logits), main, startup = build_ocr_program()
@@ -4126,8 +4166,9 @@ def _ocr_phase(card: str) -> dict:
     exe_cpu = fluid.Executor(fluid.CPUPlace())
     feed = ocr_batch()
     fetch = [loss] + grad_names
-    got, t_warm, _ = _replay_against_eager("ocr_ctc train", exe, main,
-                                           startup, params, feed, fetch)
+    with _deterministic_cudnn():
+        got, t_warm, _ = _replay_against_eager("ocr_ctc train", exe, main,
+                                               startup, params, feed, fetch)
     want = exe_cpu.run(main, feed=feed, fetch_list=fetch,
                        scope=train_scope(exe_cpu, startup, main, params,
                                          "cpu"))
@@ -4162,39 +4203,12 @@ def _ocr_phase(card: str) -> dict:
     smain = main.prune([ids, lens])
     sfetch = [ids, lens]
     sfeeds = [ocr_batch(seed=s, train=False) for s in (1, 2)]
-    sscope = train_scope(exe, startup, smain, trained)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    how = exe.warm(smain, feed_sig(sfeeds[0]), sfetch, scope=sscope)
-    torch.cuda.synchronize()
-    s_warm = time.perf_counter() - t0
-    check(how == "compiled", f"ocr_ctc decode: warm gave {how!r}")
+    decode = _warmed_infer("ocr_ctc decode", sfetch, smain, startup,
+                           trained, sfeeds,
+                           {"halo": 0, "halo_f32": 0, "gather": 2}, card,
+                           "lines")
     s_eager = fluid.Executor()
     s_eager_scope = train_scope(s_eager, startup, smain, trained)
-    for i, sfeed in enumerate(sfeeds):
-        _zero_counters()
-        replays = exe.replays
-        torch.cuda.synchronize()
-        mem = torch.cuda.memory_allocated()
-        got = exe.run(smain, feed=sfeed, fetch_list=sfetch, scope=sscope)
-        torch.cuda.synchronize()
-        grew = torch.cuda.memory_allocated() - mem
-        routes = _counts()["conv.route_launches"]
-        conv_launches = _counts()["conv.launches"]
-        want = s_eager.run(smain, feed=sfeed, fetch_list=sfetch,
-                           scope=s_eager_scope)
-        same = all(a.tobytes() == b.tobytes() for a, b in zip(got, want))
-        print(f"ocr_ctc decode batch {i + 1}: replays "
-              f"{exe.replays - replays}, conv launches at replay {routes}, "
-              f"memory allocated at "
-              f"replay {grew} bytes; ids and lengths bitwise equal to the "
-              f"eager run {same}")
-        check(exe.replays == replays + 1, "ocr_ctc decode: no replay")
-        check(routes == {"halo": 0, "halo_f32": 0, "gather": 2},
-              f"ocr_ctc decode: conv launches at replay {routes}, expected "
-              f"2 on the gather route")
-        check(grew == 0, f"ocr_ctc decode: a replay allocated {grew} bytes")
-        check(same, "ocr_ctc decode: the replay differs from the eager run")
 
     # the card's ids against the CPU's where every step is clear
     sfeed = sfeeds[0]
@@ -4223,24 +4237,546 @@ def _ocr_phase(card: str) -> dict:
                                        "where the margin is clear")
     check(bool(ids_eq[rows].all()), "ocr_ctc decode: a line whose every "
                                     "step is clear decodes otherwise")
-    w_ms = _event_ms(lambda: exe.run(smain, feed=sfeed, fetch_list=sfetch,
-                                     scope=sscope), TRAIN_STEPS)
-    se_ms = _event_ms(lambda: s_eager.run(smain, feed=sfeed,
-                                          fetch_list=sfetch,
-                                          scope=s_eager_scope), 3)
-    w_med, se_med = float(np.median(w_ms[1:])), float(np.median(se_ms[1:]))
-    print(f"ocr_ctc decode: {OCR_BATCH} lines, warmed in {s_warm:.2f} s; ms "
-          f"{', '.join(f'{x:.2f}' for x in w_ms)}, median of 2-{TRAIN_STEPS} "
-          f"{w_med:.3f} ms = {OCR_BATCH / w_med * 1e3:.0f} lines/s; eager "
-          f"{', '.join(f'{x:.2f}' for x in se_ms)}, median of 2-3 "
-          f"{se_med:.3f} ms = {OCR_BATCH / se_med * 1e3:.0f} lines/s; on "
-          f"{card}")
     return {"median_ms": med, "eager_median_ms": e_med,
             "lines_per_s": OCR_BATCH / med * 1e3, "warm_s": run["warm_s"],
-            "parity_warm_s": t_warm, "decode_median_ms": w_med,
-            "decode_eager_median_ms": se_med, "decode_warm_s": s_warm,
-            "decode_conv_route_launches": routes,
-            "decode_conv_launches": conv_launches}
+            "parity_warm_s": t_warm,
+            "decode_median_ms": decode["warmed_median_ms"],
+            "decode_eager_median_ms": decode["eager_median_ms"],
+            "decode_warm_s": decode["warm_s"],
+            "decode_conv_route_launches": decode["replay_route_launches"],
+            "decode_conv_launches": decode["replay_launches"]}
+
+
+def _eager_arm(arm: str, fetch, program, startup, params: dict, feed: dict,
+               n: int, card: str) -> dict:
+    """TRAIN_STEPS eager steps of one arm of ``program`` on ``feed``, which
+    stays on the card; every kernel counter set to 0 just before and read
+    just after.  Returns every step's fetches, the CUDA-event ms of
+    each step (fetches included), their median over steps 2-TRAIN_STEPS,
+    images/s, peak memory and the counts."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS, train_scope
+
+    exe = fluid.Executor()
+    scope = train_scope(exe, startup, program, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    outs, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+        e1.record()
+        torch.cuda.synchronize()
+        outs.append(out)
+        step_ms.append(e0.elapsed_time(e1))
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(o).all() for out in outs for o in out),
+          f"{arm}: non-finite outputs")
+    med = float(np.median(step_ms[1:]))
+    return {"outs": outs, "step_ms": step_ms, "median_ms": med,
+            "images_per_s": n / med * 1e3, "batch": n,
+            "peak_memory_bytes": peak, "counts": counts, "scope": scope}
+
+
+def _arm_line(arm: str, r: dict, what: str) -> str:
+    return (f"{arm}: {len(r['step_ms'])} eager steps on {r['batch']} "
+            f"images{what}; step ms "
+            f"{', '.join(f'{x:.2f}' for x in r['step_ms'])}; median of steps "
+            f"2-{len(r['step_ms'])} {r['median_ms']:.3f} ms = "
+            f"{r['images_per_s']:.1f} images/s; peak memory "
+            f"{r['peak_memory_bytes'] / 2 ** 30:.2f} GiB "
+            f"(max_memory_allocated)")
+
+
+def _train_arm(arm: str, loss, main, startup, params: dict, feed: dict,
+               bn_layers: int, card: str) -> dict:
+    """A training arm (_eager_arm, convolutions on cuDNN: a training
+    program is not routed): losses finite, no conv kernel launch, and the
+    batch-norm backward kernels ``bn_layers`` x steps each."""
+    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS
+
+    n = int(feed["img"].shape[0])
+    r = _eager_arm(arm, [loss], main, startup, params, feed, n, card)
+    losses = [float(o[0]) for o in r["outs"]]
+    bn = r["counts"]["batch_norm_train.launches"]
+    conv = r["counts"]["conv.launches"]
+    want = {"reduce": bn_layers * TRAIN_STEPS, "dx": bn_layers * TRAIN_STEPS}
+    check(bn == want and conv == {"igemm": 0, "fused": 0},
+          f"{arm}: BN launches {bn} (expected {want}), conv launches {conv}")
+    if "amp" in arm:
+        dtypes = {str(v.dtype) for _, v in r["scope"].items()}
+        check(dtypes <= {"torch.float32", "torch.int32"},
+              f"{arm}: master state not float32: {dtypes}")
+    print(f"{_arm_line(arm, r, '')}; losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; BN kernel launches "
+          f"{bn} = {bn_layers} x {TRAIN_STEPS}; on {card}")
+    return {k: r[k] for k in ("median_ms", "images_per_s", "batch",
+                              "peak_memory_bytes")} | {
+        "losses": losses, "bn_launches": bn}
+
+
+def _warmed_train(label: str, loss, main, startup, params: dict, feed: dict,
+                  bn_layers: int, card: str, arm: dict) -> tuple:
+    """The train step of one arm warmed: a replay against an unwarmed
+    eager step and grouped against per-op updates, bitwise
+    (_replay_against_eager, cuDNN deterministic); then TRAIN_STEPS
+    replays of the loss signature, warmed with cuDNN's default algorithms
+    (_lm_train_pass: the batch-norm counts are the replays' own,
+    bn_layers x steps each).
+    Returns (the warmed numbers, the scope after the replays)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import TRAIN_STEPS, train_scope
+
+    grads = [f"{n}@GRAD" for n in params]
+    exe = fluid.Executor()
+    with _deterministic_cudnn():
+        _replay_against_eager(label, exe, main, startup, params, feed,
+                              [loss] + grads)
+    _release()
+    scope = train_scope(exe, startup, main, params)
+    run = _lm_train_pass(exe, main, loss, scope, feed)
+    bn = _counts()["batch_norm_train.launches"]
+    want = {"reduce": bn_layers * TRAIN_STEPS, "dx": bn_layers * TRAIN_STEPS}
+    check(bn == want, f"{label} warmed: BN launches at replay {bn}, expected "
+                      f"{want}")
+    losses = run["losses"]
+    check(all(np.isfinite(losses)), f"{label} warmed: losses {losses}")
+    med = float(np.median(run["step_ms"][1:]))
+    n = int(feed["img"].shape[0])
+    print(f"{label} warmed: {TRAIN_STEPS} replays on {n} images, losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; step ms "
+          f"{', '.join(f'{x:.2f}' for x in run['step_ms'])}; median of "
+          f"steps 2-{TRAIN_STEPS} {med:.3f} ms = {n / med * 1e3:.1f} "
+          f"images/s (eager {arm['median_ms']:.3f} ms, "
+          f"{arm['median_ms'] / med:.2f} x); BN launches at replay {bn}; "
+          f"{_pass_line(run)}; on {card}")
+    return ({"warmed_median_ms": med, "warmed_images_per_s": n / med * 1e3,
+             "warm_s": run["warm_s"], "warmed_bn_launches": bn,
+             "warmed_peak_reserved": run["peak_reserved"]}, exe, scope)
+
+
+def _warmed_infer(label: str, fetch, program, startup, arrays: dict,
+                  feeds: list, routes: dict, card: str,
+                  unit: str = "images") -> dict:
+    """An inference step warmed, with cuDNN deterministic: per feed a
+    replay (the routed conv launches counted at replay must be
+    ``routes``, nothing allocated) bitwise against an unwarmed Executor's
+    eager run.  Then, with cuDNN's default algorithms, the step warmed
+    anew and TRAIN_STEPS replays timed beside 3 eager runs."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (TRAIN_STEPS, feed_sig,
+                                                      train_scope)
+
+    with _deterministic_cudnn():
+        exe = fluid.Executor()
+        scope = train_scope(exe, startup, program, arrays)
+        how = exe.warm(program, feed_sig(feeds[0]), fetch, scope=scope)
+        check(how == "compiled", f"{label}: warm gave {how!r}")
+        eager = fluid.Executor()
+        eager_scope = train_scope(eager, startup, program, arrays)
+        for i, feed in enumerate(feeds):
+            _zero_counters()
+            replays = exe.replays
+            torch.cuda.synchronize()
+            mem = torch.cuda.memory_allocated()
+            got = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+            torch.cuda.synchronize()
+            grew = torch.cuda.memory_allocated() - mem
+            counted = _counts()
+            want = eager.run(program, feed=feed, fetch_list=fetch,
+                             scope=eager_scope)
+            same = all(a.tobytes() == b.tobytes() for a, b in zip(got, want))
+            print(f"{label} batch {i + 1}: replays {exe.replays - replays}, "
+                  f"conv launches at replay "
+                  f"{counted['conv.route_launches']}, memory allocated at "
+                  f"replay {grew} bytes; bitwise equal to the eager run "
+                  f"{same} (cuDNN deterministic)")
+            check(exe.replays == replays + 1, f"{label}: no replay")
+            check(counted["conv.route_launches"] == routes,
+                  f"{label}: conv launches at replay "
+                  f"{counted['conv.route_launches']}, expected {routes}")
+            check(grew == 0, f"{label}: a replay allocated {grew} bytes")
+            check(same, f"{label}: the replay differs from the eager run")
+    del exe, scope, eager, eager_scope
+    exe = fluid.Executor()
+    scope = train_scope(exe, startup, program, arrays)
+    feed = feeds[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    how = exe.warm(program, feed_sig(feed), fetch, scope=scope)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    check(how == "compiled", f"{label}: warm gave {how!r}")
+    eager = fluid.Executor()
+    eager_scope = train_scope(eager, startup, program, arrays)
+    w_ms = _event_ms(lambda: exe.run(program, feed=feed, fetch_list=fetch,
+                                     scope=scope), TRAIN_STEPS)
+    e_ms = _event_ms(lambda: eager.run(program, feed=feed, fetch_list=fetch,
+                                       scope=eager_scope), 3)
+    w_med, e_med = float(np.median(w_ms[1:])), float(np.median(e_ms[1:]))
+    n = int(next(iter(feed.values())).shape[0])
+    print(f"{label}: {n} {unit}, warmed in {t_warm:.2f} s; ms "
+          f"{', '.join(f'{x:.2f}' for x in w_ms)}, median of 2-{TRAIN_STEPS} "
+          f"{w_med:.3f} ms = {n / w_med * 1e3:.1f} {unit}/s; eager "
+          f"{', '.join(f'{x:.2f}' for x in e_ms)}, median of 2-3 "
+          f"{e_med:.3f} ms = {n / e_med * 1e3:.1f} {unit}/s (cuDNN's "
+          f"default algorithms); on {card}")
+    return {"warmed_median_ms": w_med, f"warmed_{unit}_per_s":
+            n / w_med * 1e3, "eager_median_ms": e_med, "warm_s": t_warm,
+            "replay_launches": counted["conv.launches"],
+            "replay_route_launches": counted["conv.route_launches"]}
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms while a replay is held bitwise
+    against eager runs: they agree only where every kernel adds in one
+    fixed order, and cuDNN's default weight-gradient and transposed-conv
+    algorithms add with atomics (two eager steps differ in their last bits
+    too).  The arms are timed outside it, on the default algorithms that
+    the port's own path (tools/train_profile.py) runs."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def phase_fcn(card: str) -> dict:
+    """The FCN segmenter at tools/train_profile.py's configuration (base
+    16, 21 classes, voc2012's synthetic masks, Adam(5e-3); weights from the
+    port's startup program on the CPU, seed 0): a float32 train step at
+    FCN_PARITY_BATCH x FCN_PARITY_SIZE card against CPU (_train_parity)
+    and the pruned, routed float32 inference (the logits within
+    INFER_F32_REL of their max, the pixel classes equal wherever the top
+    two logits are further apart than twice the largest difference); then
+    at FCN_BATCH x FCN_SIZE the train arms float32 and amp, eager and
+    warmed (a replay bitwise against eager), and the inference arms, the
+    routed launches against conv_routes.  Returns the arms under "train"
+    and "infer"."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.train_profile import (
+        FCN_BATCH, build_fcn_program, conv_routes, fcn_batch, on_card,
+        startup_params, train_scope)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, B = FCN_PARITY_SIZE, FCN_PARITY_BATCH
+    (loss, _, _), main, startup = build_fcn_program(size=S)
+    params = startup_params(main, startup, 0)
+    feed = fcn_batch(B, seed=1, size=S)
+    _train_parity("fcn", loss, main, startup, params, feed, card,
+                  f"{B} images at {S} px")
+
+    logits, prog, istartup = build_fcn_program(infer=True, size=S)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        scope = train_scope(exe, istartup, prog, params,
+                            None if dev == "cuda" else "cpu")
+        out[dev] = exe.run(prog, feed={"img": feed["img"]},
+                           fetch_list=[logits], scope=scope)[0]
+    got, want = out["cuda"], out["cpu"]
+    check(got.shape == (B, 21, S, S) and np.isfinite(got).all(),
+          f"fcn infer parity: logits {got.shape}")
+    err = float(np.abs(got - want).max())
+    top = float(np.abs(want).max())
+    srt = np.sort(want, axis=1)
+    margin = srt[:, -1] - srt[:, -2]
+    clear = margin > 2 * err
+    same = got.argmax(1) == want.argmax(1)
+    print(f"fcn infer parity (float32, TF32 off, {B} images at {S} px, "
+          f"3 routed convs): logits max|d| {err:.3e} ({err / top:.3e} of "
+          f"max; limit {INFER_F32_REL}); pixel classes equal "
+          f"{int(same.sum())} of {same.size}, {int(clear.sum())} with a "
+          f"top-two margin over twice the difference (smallest margin "
+          f"{margin.min():.3e}); on {card}")
+    check(err <= INFER_F32_REL * top, "fcn infer parity: logits differ "
+                                      "beyond their limit")
+    check(bool(same[clear].all()), "fcn infer parity: a pixel class "
+                                   "differs where the margin is clear")
+    _release()
+
+    train_feed = on_card(fcn_batch())
+    train, infer = {}, {}
+    for amp in (False, True):
+        arm = f"fcn train {'amp' if amp else 'float32'}"
+        (loss, _, _), main, startup = build_fcn_program(amp)
+        params = startup_params(main, startup, 0)
+        train[arm] = _train_arm(arm, loss, main, startup, params,
+                                train_feed, 0, card)
+        _release()
+        warmed, _, _ = _warmed_train(arm, loss, main, startup, params,
+                                     train_feed, 0, card, train[arm])
+        train[arm].update(warmed)
+        _release()
+    infer_feed = {"img": train_feed["img"]}
+    for amp in (False, True):
+        arm = f"fcn-infer {'amp' if amp else 'float32'}"
+        logits, prog, startup = build_fcn_program(amp, infer=True)
+        routes = conv_routes(prog, [logits.name], FCN_BATCH)
+        check(routes == FCN_ROUTES, f"{arm}: conv_routes {routes}, "
+                                    f"expected {FCN_ROUTES}")
+        infer[arm] = _infer_arm(arm, [logits], prog, startup, params,
+                                infer_feed,
+                                {"igemm": sum(routes.values()), "fused": 0},
+                                routes, card)
+        del infer[arm]["last"]
+        _release()
+    return {"train": train, "infer": infer}
+
+
+def _ssd_masks(conf, prior, feed, dev):
+    """ssd_loss's positive and mined negative masks (its own helper,
+    ``layers.detection.ssd_match_and_mine``) on ``dev``."""
+    from paddle_tpu_torch.layers.detection import ssd_match_and_mine
+
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    pos, neg, _, _ = ssd_match_and_mine(t(conf), t(feed["gb"]), t(feed["gl"]),
+                                        t(prior), 0.5, 3.0)
+    return pos.cpu().numpy(), neg.cpu().numpy()
+
+
+def phase_ssd(card: str) -> dict:
+    """The SSD detector at tools/train_profile.py's configuration (21
+    classes, SSD300's 300 px, 16 gt slots, one-box images, Adam(1e-3);
+    weights from the port's startup program on the CPU, seed 0):
+    ssd_loss's masks card against CPU on SSD_PARITY_BATCH images, then the
+    float32 train step card against CPU (_train_parity; held to the CPU's
+    floor where a mask differs); the train arms float32 and amp at
+    SSD_BATCH, eager (the batch-norm kernels 3 + 3 a step) and warmed (a
+    replay bitwise against eager, grouped against per-op), the float32
+    scope trained on SSD_TRAIN_STEPS more replays; from its weights the
+    detect program (pruned to ssd.infer's detections, its four heads
+    routed on the gather kernel) in both arms, eager and warmed (replays
+    bitwise against eager, launches counted at replay), the detections
+    card against CPU where their scores are clear, and DetectionMAP fed
+    SSD_MAP_BATCHES batches of them on the card and on the CPU (the
+    histograms bitwise equal) against detection_map_np."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.fusion import FUSED_OP_TYPE, route_inference
+    from paddle_tpu_torch.tools.train_profile import (
+        SSD_BATCH, build_ssd_program, conv_routes, on_card, ssd_batch,
+        startup_params, train_scope)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (loss, (_, conf, prior, _)), main, startup = build_ssd_program()
+    params = startup_params(main, startup, 0)
+    feed = ssd_batch(SSD_PARITY_BATCH, seed=1)
+    masks = {}
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        scope = train_scope(exe, startup, main, params,
+                            None if dev == "cuda" else "cpu")
+        c, p = exe.run(main, feed=feed, fetch_list=[conf, prior],
+                       scope=scope)
+        masks[dev] = _ssd_masks(c, p, feed, dev)
+    (pos_g, neg_g), (pos_c, neg_c) = masks["cuda"], masks["cpu"]
+    d_pos = (pos_g != pos_c).sum(1)
+    d_neg = (neg_g != neg_c).sum(1)
+    print(f"ssd masks card vs CPU ({SSD_PARITY_BATCH} images, "
+          f"{pos_c.shape[1]} priors): positives {pos_c.sum(1).tolist()}, "
+          f"mined negatives {neg_c.sum(1).tolist()}; disagreements: "
+          f"positive {d_pos.tolist()}, negative {d_neg.tolist()}")
+    _train_parity("ssd", loss, main, startup, params, feed, card,
+                  f"{SSD_PARITY_BATCH} images at 300 px",
+                  floor=bool(d_pos.sum() + d_neg.sum()))
+    _release()
+
+    train_feed = on_card(ssd_batch())
+    train, detect = {}, {}
+    for amp in (False, True):
+        arm = f"ssd train {'amp' if amp else 'float32'}"
+        (loss, _), main, startup = build_ssd_program(amp)
+        train[arm] = _train_arm(arm, loss, main, startup, params,
+                                train_feed, SSD_BN_LAYERS, card)
+        _release()
+        warmed, exe, scope = _warmed_train(arm, loss, main, startup, params,
+                                           train_feed, SSD_BN_LAYERS, card,
+                                           train[arm])
+        train[arm].update(warmed)
+        if not amp:
+            # train on: SSD_TRAIN_STEPS more replays over SSD_TRAIN_BATCHES
+            # new batches
+            batches = [on_card(ssd_batch(seed=s))
+                       for s in range(2, 2 + SSD_TRAIN_BATCHES)]
+            losses = []
+            t0 = time.perf_counter()
+            for i in range(SSD_TRAIN_STEPS):
+                out, = exe.run(main, feed=batches[i % len(batches)],
+                               fetch_list=[loss], scope=scope)
+                losses.append(float(out))
+            secs = time.perf_counter() - t0
+            check(np.isfinite(losses).all() and
+                  np.mean(losses[-10:]) < np.mean(losses[:10]),
+                  f"ssd train: losses {losses[:3]} ... {losses[-3:]}")
+            print(f"ssd train float32: {SSD_TRAIN_STEPS} more replays on "
+                  f"{SSD_TRAIN_BATCHES} batches in {secs:.1f} s, loss mean "
+                  f"of the first 10 {np.mean(losses[:10]):.4f}, of the "
+                  f"last 10 {np.mean(losses[-10:]):.4f}")
+            trained = {n: scope.find_var(n).cpu().numpy()
+                       for n in params}
+            stats = {v.name: scope.find_var(v.name).cpu().numpy()
+                     for v in main.persistable_vars()
+                     if v.name.endswith((".w_mean", ".w_var"))}
+            del batches
+        del exe, scope
+        _release()
+
+    arrays = {**trained, **stats}
+    detect_feeds = [{"img": on_card(ssd_batch(seed=s, train=False))["img"]}
+                    for s in (6, 7)]
+    for amp in (False, True):
+        arm = f"ssd-detect {'amp' if amp else 'float32'}"
+        dets, prog, startup = build_ssd_program(amp, infer=True)
+        routes = conv_routes(prog, [d.name for d in dets], SSD_BATCH)
+        check(routes == SSD_ROUTES, f"{arm}: conv_routes {routes}, "
+                                    f"expected {SSD_ROUTES}")
+        check(not any(o.type == FUSED_OP_TYPE for o in route_inference(
+            prog, [d.name for d in dets])),
+              f"{arm}: a stride-2 conv -> BN -> ReLU chain was fused")
+        detect[arm] = _infer_arm(arm, list(dets), prog, startup, arrays,
+                                 detect_feeds[0],
+                                 {"igemm": sum(routes.values()), "fused": 0},
+                                 routes, card)
+        del detect[arm]["last"]
+        detect[arm].update(_warmed_infer(arm, list(dets), prog, startup,
+                                         arrays, detect_feeds, routes, card))
+        _release()
+    del detect_feeds
+
+    # the detections card against CPU, from the trained weights
+    dets, prog, startup = build_ssd_program(infer=True)
+    conf_name = [o for o in prog.list_ops() if o.type == "detection_output"
+                 ][0].inputs["Conf"][0]
+    feed = ssd_batch(SSD_PARITY_BATCH, seed=8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        scope = train_scope(exe, startup, prog, arrays,
+                            None if dev == "cuda" else "cpu")
+        out[dev] = exe.run(prog, feed={"img": feed["img"]},
+                           fetch_list=list(dets) + [conf_name], scope=scope)
+    (bg, sg, lg, cg), (bc, sc, lc, cc) = out["cuda"], out["cpu"]
+    probs_g = torch.softmax(torch.from_numpy(cg), -1).numpy()[..., 1:]
+    probs_c = torch.softmax(torch.from_numpy(cc), -1).numpy()[..., 1:]
+    err = float(np.abs(probs_g - probs_c).max())
+    clear = np.zeros(lc.shape, bool)
+    margins = []
+    for i in range(lc.shape[0]):
+        cand = np.sort(probs_c[i][probs_c[i] > 0.01])
+        for j in range(lc.shape[1]):
+            if lc[i, j] < 0:
+                continue
+            k = np.searchsorted(cand, sc[i, j])
+            near = [abs(cand[q] - sc[i, j]) for q in (k - 1, k + 1)
+                    if 0 <= q < len(cand)]
+            m = min(near) if near else np.inf
+            margins.append(m)
+            clear[i, j] = m > 2 * err
+    eq = (lg == lc) & np.all(np.abs(bg - bc) <= 1e-4 * np.abs(bc).max(), -1)
+    d_scores = float(np.abs(sg - sc).max())
+    print(f"ssd detect card vs CPU ({SSD_PARITY_BATCH} images, trained "
+          f"weights, float32): scores max|d| {d_scores:.3e}, NMS input "
+          f"probabilities max|d| {err:.3e}; filled slots "
+          f"{int((lc >= 0).sum())} of {lc.size}, {int(clear.sum())} with "
+          f"their score over twice that from every other candidate "
+          f"(smallest margin {min(margins):.3e}, median "
+          f"{float(np.median(margins)):.3e}); label and box equal in "
+          f"{int(eq.sum())} slots, {int(eq[clear].sum())} of the clear ones")
+    check(bool(eq[clear].all()), "ssd detect: a clear slot differs")
+
+    # DetectionMAP on the card's detections of SSD_MAP_BATCHES new batches
+    stream = []
+    exe = fluid.Executor()
+    scope = train_scope(exe, startup, prog, arrays)
+    for s in range(SSD_MAP_BATCHES):
+        f = ssd_batch(seed=20 + s)
+        b, sco, lab = exe.run(prog, feed={"img": f["img"]},
+                              fetch_list=list(dets), scope=scope)
+        stream.append({"db": b, "ds": sco, "dl": lab.astype(np.int32),
+                       "gb": f["gb"], "gl": f["gl"]})
+    del exe, scope
+    maps = {"exact": _ssd_map(stream, SSD_MAP_BINS, card),
+            "default bins": _ssd_map(stream, None, card)}
+    tp, ngt = maps["exact"]["tp"], maps["exact"]["gts"]
+    check(tp >= SSD_MAP_MIN_TP * ngt,
+          f"ssd DetectionMAP: {tp} true positives for {ngt} gts, fewer "
+          f"than {SSD_MAP_MIN_TP} of them")
+    return {"train": train, "detect": detect, "map": maps}
+
+
+def _ssd_map(stream: list, n_bins, card: str) -> dict:
+    """DetectionMAP fed ``stream``'s detections on the card and on the CPU:
+    the histograms bitwise equal, and the mAP against detection_map_np.
+    With ``n_bins`` the scores are first moved to the centres of its bins,
+    so detection_map_np sees the evaluator's own quantisation: the two
+    agree where no two detections share a class and a bin.  With None the
+    evaluator keeps its default bins and the scores stay as they are:
+    its curve's points are a subset of the exact curve's, so its mAP is
+    at most detection_map_np's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.layers.detection import detection_map_np
+    from paddle_tpu_torch.tools.train_profile import SSD_CLASSES
+
+    if n_bins is not None:
+        stream = [dict(f, ds=np.where(f["ds"] > 0, (np.floor(
+            f["ds"] * n_bins) + 0.5) / n_bins, 0.0).astype(np.float32))
+                  for f in stream]
+    maps, hists = {}, {}
+    for dev in ("cuda", "cpu"):
+        mprog, mstart = fluid.Program(), fluid.Program()
+        with fluid.program_guard(mprog, mstart):
+            L = fluid.layers
+            K, G = stream[0]["ds"].shape[1], stream[0]["gl"].shape[1]
+            ev = fluid.evaluator.DetectionMAP(
+                L.data("db", [K, 4]), L.data("ds", [K]),
+                L.data("dl", [K], dtype="int32"), L.data("gb", [G, 4]),
+                L.data("gl", [G], dtype="int32"), num_classes=SSD_CLASSES,
+                **({} if n_bins is None else {"n_bins": n_bins}))
+        mexe = fluid.Executor(None if dev == "cuda" else fluid.CPUPlace())
+        mscope = fluid.Scope()
+        mexe.run(mstart, scope=mscope)
+        for f in stream:
+            mexe.run(mprog, feed=f, fetch_list=[], scope=mscope)
+        maps[dev] = ev.eval(scope=mscope)
+        hists[dev] = [mscope.find_var(v.name).cpu().numpy()
+                      for v in ev._states]
+    dets_np = [(f["db"][i], f["ds"][i], f["dl"][i]) for f in stream
+               for i in range(len(f["ds"]))]
+    gts_np = [(f["gb"][i], f["gl"][i]) for f in stream
+              for i in range(len(f["gl"]))]
+    m_np = detection_map_np(dets_np, gts_np, SSD_CLASSES)
+    bins = ev.n_bins
+    cells = [(int(lab), min(int(s * bins), bins - 1)) for _, ss, ll in dets_np
+             for s, lab in zip(ss, ll) if s > 0]
+    shared = len(cells) - len(set(cells))
+    tp, fp, ngt = hists["cpu"]
+    same = all(np.array_equal(a, b) for a, b in zip(hists["cuda"],
+                                                    hists["cpu"]))
+    what = ("scores on its bin centres" if n_bins is not None
+            else "the scores as they are, the default bins")
+    print(f"ssd DetectionMAP ({len(stream)} batches of "
+          f"{len(stream[0]['ds'])} images, {len(cells)} detections, "
+          f"{int(tp.sum())} TP, {int(fp.sum())} FP, {int(ngt.sum())} gts, "
+          f"{bins} bins, {what}): mAP card {maps['cuda']:.6f}, CPU "
+          f"{maps['cpu']:.6f}, histograms bitwise equal {same}; "
+          f"detection_map_np {m_np:.6f}; detections sharing a class and a "
+          f"bin with another: {shared}; on {card}")
+    check(same and maps["cuda"] == maps["cpu"],
+          "ssd DetectionMAP: card and CPU differ")
+    check(maps["cpu"] <= m_np + 1e-6 and (
+        n_bins is None or shared or abs(maps["cpu"] - m_np) <= 1e-6),
+          f"ssd DetectionMAP: {maps['cpu']} against detection_map_np {m_np}")
+    return {"card": maps["cuda"], "cpu": maps["cpu"], "np": m_np,
+            "bins": bins, "shared_bins": shared, "tp": int(tp.sum()),
+            "fp": int(fp.sum()), "gts": int(ngt.sum())}
 
 
 def _nets_program(build, shapes: dict, lengths: int = 0, seed: int = 3):
@@ -4473,6 +5009,10 @@ def main() -> int:
     _release()
     nets = _timed("nets", phase_nets, card)
     _release()
+    fcn = _timed("fcn", phase_fcn, card)
+    _release()
+    ssd = _timed("ssd", phase_ssd, card)
+    _release()
     probe_end = paged_probe()
     print(f"C.2 probe: paged_attention float32 W=1 device "
           f"{rec['c2_probe_start_device_ms']:.4f} ms at the start of the "
@@ -4561,11 +5101,16 @@ def main() -> int:
             "launches_by_path": dict(
                 {a: r["launches"][kern] for a, r in resnet.items()},
                 **{"nets img_conv_group step":
-                   nets["img_conv_group_train"][kern]}),
+                   nets["img_conv_group_train"][kern]},
+                **{a: r["bn_launches"][kern]
+                   for a, r in ssd["train"].items()},
+                **{f"{a} warmed": r["warmed_bn_launches"][kern]
+                   for a, r in ssd["train"].items()}),
             "float32": bn["float32"][kern],
         })
     replaces = {"igemm": "benchmark/conv_probe.py:62",
                 "fused": "benchmark/conv_probe.py:68"}
+    routed = {**fcn["infer"], **ssd["detect"]}
     main_arm = {"igemm": "resnet18-infer amp", "fused": "resnet50-infer amp"}
     for kern in CONV_KERNELS:
         kernels.append({
@@ -4581,14 +5126,14 @@ def main() -> int:
             **convk["bfloat16"]["c56"][kern],
             "launches_by_path": dict(
                 {a: r["launches"][kern]
-                 for a, r in {**infer, **image["infer"]}.items()},
+                 for a, r in {**infer, **image["infer"], **routed}.items()},
                 **{"ocr_ctc decode replay":
                    ocr["decode_conv_launches"][kern],
                    "nets img_conv_group pruned":
                    nets["img_conv_group_infer"][kern]}),
             "route_launches_by_path": dict(
                 {a: r["route_launches"]
-                 for a, r in {**infer, **image["infer"]}.items()},
+                 for a, r in {**infer, **image["infer"], **routed}.items()},
                 **{"ocr_ctc decode replay":
                    ocr["decode_conv_route_launches"],
                    "nets img_conv_group pruned":

@@ -52,13 +52,22 @@ These paths run here (seq2seq among them, ``models.seq2seq``):
   composite networks (``scaled_dot_product_attention`` on the flash
   kernels).
 
+* the FCN segmenter (``models.fcn``: ``conv2d_transpose`` upsampling, a
+  per-pixel softmax, on ``datasets.voc2012``'s synthetic masks) and the
+  SSD detector (``models.ssd``: ``layers.detection``'s priors, multibox
+  loss and decode + NMS, ``evaluator.DetectionMAP``), trained, and served
+  from the pruned program with their 3x3 stride-1 convolutions on the conv
+  kernels; with ``conv3d``, ``pool3d``, ``pool_with_index``, ``unpool``
+  and ``spp``.
+
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``CPUPlace()``, ``device="cpu"``); with no card and no device given they
 raise.  The package imports torch and numpy, never jax and nothing of
 ``paddle_tpu``.
 """
-from . import (amp, backward, clip, datasets, hooks, initializer, layers,
-               learning_rate_decay, models, nets, optimizer, regularizer)
+from . import (amp, backward, clip, datasets, evaluator, hooks, initializer,
+               layers, learning_rate_decay, models, nets, optimizer,
+               regularizer)
 from ._device import card_info, resolve_device
 from .core import (CPUPlace, Executor, Place, Program, Scope,
                    Variable, default_main_program, default_startup_program,
@@ -76,7 +85,8 @@ __all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
            "DecodeRequest", "Executor", "PagedKVPool", "ParamAttr", "Place",
            "Program", "SamplingParams", "Scope", "TransformerLM", "Variable",
            "backward", "card_info", "clip", "datasets", "default_main_program",
-           "default_startup_program", "from_jax_params", "global_scope",
+           "default_startup_program", "evaluator", "from_jax_params",
+           "global_scope",
            "hooks", "init_lm_params", "initializer", "layers",
            "learning_rate_decay", "load_scope", "models", "nets", "optimizer",
            "program_guard", "regularizer", "reset_default_programs",

@@ -1,5 +1,6 @@
 """Neural-network layers (PyTorch port of the ``paddle_tpu/layers/nn.py``
-subset the training slices use): fc, embedding, conv2d, pool2d,
+subset the training slices use): fc, embedding, conv2d,
+conv2d_transpose, conv3d, pool2d, pool3d, pool_with_index, unpool, spp,
 batch_norm, layer_norm, lrn, dropout, softmax_with_cross_entropy,
 cross_entropy, square_error_cost and accuracy.
 
@@ -8,9 +9,9 @@ statistics with ``var = max(E[x^2] - mu^2, 0)`` (not the serving layer
 norm's population variance, and not ``torch.nn.BatchNorm2d``'s unbiased
 running variance or its reversed momentum); gathers convert int32 ids to
 int64 at the gather, since feeds keep their declared int32.  Convolutions
-and pooling are NCHW, as in the JAX package, and run as the plain torch
-ops (cuDNN on the card): the JAX package leaves them to XLA, outside any
-Pallas kernel.
+and pooling are NCHW (NCDHW in 3-D), as in the JAX package, and run as the
+plain torch ops (cuDNN on the card): the JAX package leaves them to XLA,
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.program import Op, Variable
-from ..initializer import Constant, Normal
+from ..initializer import Constant, Normal, Xavier
 from ..ops.batch_norm import batch_norm_train
 from ..ops.dropout import threefry_dropout
 from .helper import LayerHelper
@@ -165,31 +166,76 @@ def conv2d(
     return helper.append_activation(out, act)
 
 
+def conv2d_transpose(
+    input: Variable,
+    num_filters: int,
+    filter_size,
+    stride=1,
+    padding=0,
+    param_attr=None,
+    bias_attr=None,
+    act: Optional[str] = None,
+    name: Optional[str] = None,
+):
+    """Transposed 2-D convolution, NCHW input and a ``[in, out, kh, kw]``
+    filter (Xavier), output size ``(in - 1) * stride - 2 * padding + k``
+    (ref: paddle/operators/conv_transpose_op.cc).  The JAX package lowers
+    it to ``jax.lax.conv_transpose`` without ``transpose_kernel``, which
+    does not flip the filter spatially, where ``F.conv_transpose2d`` (the
+    gradient of a convolution) does: so the filter is flipped first.  The
+    lax padding ``k - 1 - padding`` may go negative (a crop), as
+    ``F.conv_transpose2d``'s padding past ``k - 1`` crops."""
+    helper = LayerHelper("conv2d_transpose", name=name)
+    kh, kw = _pair(filter_size)
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    in_channels = input.shape[1]
+    w = helper.create_parameter(param_attr, [in_channels, num_filters, kh, kw],
+                                input.dtype, default_initializer=Xavier())
+
+    def fn(ctx, a, wv, strides, padding):
+        return F.conv_transpose2d(a, wv.flip((2, 3)), None, strides, padding)
+
+    out = helper.append_op(fn, {"Input": [input], "Filter": [w]},
+                           attrs={"strides": (sh, sw), "padding": (ph, pw)})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], out.dtype,
+                                    is_bias=True)
+        out = helper.append_op(
+            lambda ctx, a, bv: a + bv.reshape(1, -1, 1, 1),
+            {"X": [out], "B": [b]}, op_type="elementwise_add")
+    return helper.append_activation(out, act)
+
+
 # --------------------------------------------------------------------------- pooling
 
 
-def _pool2d(a, pool_type, ksize, strides, padding, exclusive):
-    """Max or average pooling of NCHW ``a`` as ``jax.lax.reduce_window``
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pool(a, pool_type, ksize, strides, padding, exclusive):
+    """Max or average pooling of NC(D)HW ``a`` as ``jax.lax.reduce_window``
     computes it: max pads with -inf; average sums with zero padding and
     divides by the window size, or, when ``exclusive`` and there is
     padding, by the count of real cells.  torch's pools take padding of at
     most half the window; past that the padding is applied first."""
-    (kh, kw), (ph, pw) = ksize, padding
-    by_count = bool(exclusive and (ph or pw))
-    if 2 * ph <= kh and 2 * pw <= kw:
+    nd = len(ksize)
+    maxp, avgp = _MAX_POOL[nd], _AVG_POOL[nd]
+    by_count = bool(exclusive and any(padding))
+    if all(2 * p <= k for p, k in zip(padding, ksize)):
         if pool_type == "max":
-            return F.max_pool2d(a, ksize, strides, padding)
-        return F.avg_pool2d(a, ksize, strides, padding,
-                            count_include_pad=not by_count)
-    pads = (pw, pw, ph, ph)
+            return maxp(a, ksize, strides, padding)
+        return avgp(a, ksize, strides, padding,
+                    count_include_pad=not by_count)
+    pads = tuple(q for p in reversed(padding) for q in (p, p))
     if pool_type == "max":
-        return F.max_pool2d(F.pad(a, pads, value=float("-inf")), ksize,
-                            strides)
-    s = F.avg_pool2d(F.pad(a, pads), ksize, strides)
+        return maxp(F.pad(a, pads, value=float("-inf")), ksize, strides)
+    s = avgp(F.pad(a, pads), ksize, strides)
     if not by_count:
         return s
     ones = F.pad(torch.ones_like(a[:1, :1]), pads)
-    return s / F.avg_pool2d(ones, ksize, strides)
+    return s / avgp(ones, ksize, strides)
 
 
 def pool2d(
@@ -218,8 +264,8 @@ def pool2d(
             ksize = (a.shape[2], a.shape[3])
             strides = ksize
             padding = (0, 0)
-        return _pool2d(a, pool_type, tuple(ksize), tuple(strides),
-                       tuple(padding), exclusive)
+        return _pool(a, pool_type, tuple(ksize), tuple(strides),
+                     tuple(padding), exclusive)
 
     return helper.append_op(
         fn, {"X": [input]},
@@ -227,6 +273,155 @@ def pool2d(
                "strides": (sh, sw), "padding": (ph, pw),
                "global_pooling": global_pooling, "exclusive": exclusive},
     )
+
+
+def pool_with_index(input: Variable, pool_size, pool_stride=1,
+                    pool_padding=0, global_pooling: bool = False, name=None):
+    """Max pooling that also returns, for each output, the flat index of
+    its maximum in its H*W input plane, int32 (ref:
+    paddle/operators/pool_with_index_op.cc); a tie goes to the first cell
+    in window order, as in the JAX package.  The JAX package carries the
+    index in the input's dtype, so under amp (``pool_with_index`` is a
+    bfloat16 op) its indices above 256 round; the port's stay exact, the
+    flat argmax indices the op promises.  Padding past half the window,
+    which torch's ``max_pool2d`` refuses, is applied first (-inf) and the
+    indices mapped back to the unpadded plane."""
+    helper = LayerHelper("pool_with_index", name=name)
+    kh, kw = _pair(pool_size)
+    sh, sw = _pair(pool_stride)
+    ph, pw = _pair(pool_padding)
+
+    def fn(ctx, a, ksize, strides, padding, global_pooling):
+        if global_pooling:
+            ksize = strides = (a.shape[2], a.shape[3])
+            padding = (0, 0)
+        (kh, kw), (ph, pw) = ksize, padding
+        if 2 * ph <= kh and 2 * pw <= kw:
+            out, idx = F.max_pool2d(a, ksize, strides, padding,
+                                    return_indices=True)
+            return out, idx.to(torch.int32)
+        out, idx = F.max_pool2d(
+            F.pad(a, (pw, pw, ph, ph), value=float("-inf")), ksize, strides,
+            return_indices=True)
+        wp = a.shape[3] + 2 * pw
+        idx = (idx // wp - ph) * a.shape[3] + idx % wp - pw
+        return out, idx.to(torch.int32)
+
+    out = helper.append_op(
+        fn, {"X": [input]},
+        attrs={"ksize": (kh, kw), "strides": (sh, sw), "padding": (ph, pw),
+               "global_pooling": global_pooling}, n_outputs=2)
+    return out[0], out[1]
+
+
+def unpool(input: Variable, indices: Variable, unpool_size=None, name=None):
+    """Max unpooling: each value added at the flat position
+    ``pool_with_index`` recorded in its (H, W) output plane, ``unpool_size``
+    (default twice the input's); values whose windows overlapped at one
+    position add up, as the JAX package's ``.at[i].add`` does (not
+    ``F.max_unpool2d``, which assigns) (ref: paddle/operators/unpool_op.cc)."""
+    helper = LayerHelper("unpool", name=name)
+
+    def fn(ctx, a, idx, out_hw):
+        n, c, h, w = a.shape
+        oh, ow = out_hw if out_hw is not None else (h * 2, w * 2)
+        flat = torch.zeros((n, c, oh * ow), dtype=a.dtype, device=a.device)
+        out = flat.scatter_add(2, idx.reshape(n, c, h * w).long(),
+                               a.reshape(n, c, h * w))
+        return out.reshape(n, c, oh, ow)
+
+    return helper.append_op(fn, {"X": [input], "Indices": [indices]},
+                            attrs={"out_hw": tuple(unpool_size)
+                                   if unpool_size else None})
+
+
+def spp(input: Variable, pyramid_height: int = 3, pool_type: str = "max",
+        name=None):
+    """Spatial pyramid pooling (ref: paddle/operators/spp_op.cc): level l
+    pools each plane in 2^l x 2^l windows of ceil(H / 2^l) x ceil(W / 2^l)
+    cells, stride equal to the window, zero padding at the end (max pads
+    with -inf, the average divides by the real cells); the levels' outputs
+    flattened and concatenated, [N, C * sum(4^l)].  Not
+    ``F.adaptive_*_pool2d``, whose bin edges differ."""
+    helper = LayerHelper("spp", name=name)
+
+    def fn(ctx, a, levels, pool_type):
+        n, _, h, w = a.shape
+        outs = []
+        for level in range(levels):
+            bins = 2 ** level
+            kh, kw = -(-h // bins), -(-w // bins)
+            pads = (0, kw * bins - w, 0, kh * bins - h)
+            if pool_type == "max":
+                o = F.max_pool2d(F.pad(a, pads, value=float("-inf")),
+                                 (kh, kw))
+            else:
+                o = (F.avg_pool2d(F.pad(a, pads), (kh, kw))
+                     / F.avg_pool2d(F.pad(torch.ones_like(a[:1, :1]), pads),
+                                    (kh, kw)))
+            outs.append(o.reshape(n, -1))
+        return torch.cat(outs, dim=1)
+
+    return helper.append_op(fn, {"X": [input]},
+                            attrs={"levels": pyramid_height,
+                                   "pool_type": pool_type})
+
+
+def _triple(x):
+    return tuple(x) if isinstance(x, (list, tuple)) else (x, x, x)
+
+
+def conv3d(input: Variable, num_filters: int, filter_size, stride=1,
+           padding=0, groups: int = 1, param_attr=None, bias_attr=None,
+           act=None, name=None):
+    """3-D convolution, NCDHW input and OIDHW filter (Normal(0, sqrt(2 /
+    fan_in))), symmetric padding and groups; the bias an
+    ``elementwise_add`` of its own (ref: paddle/operators/conv_op.cc
+    Conv3D)."""
+    helper = LayerHelper("conv3d", name=name)
+    kd, kh, kw = _triple(filter_size)
+    in_channels = input.shape[1]
+    fan_in = (in_channels // groups) * kd * kh * kw
+    w = helper.create_parameter(
+        param_attr, [num_filters, in_channels // groups, kd, kh, kw],
+        input.dtype, default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5))
+
+    def fn(ctx, a, wv, strides, padding, groups):
+        return F.conv3d(a, wv, None, strides, padding, 1, groups)
+
+    out = helper.append_op(fn, {"Input": [input], "Filter": [w]},
+                           attrs={"strides": _triple(stride),
+                                  "padding": _triple(padding),
+                                  "groups": groups})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], out.dtype,
+                                    is_bias=True)
+        out = helper.append_op(
+            lambda ctx, a, bv: a + bv.reshape(1, -1, 1, 1, 1),
+            {"X": [out], "B": [b]}, op_type="elementwise_add")
+    return helper.append_activation(out, act)
+
+
+def pool3d(input: Variable, pool_size, pool_type: str = "max",
+           pool_stride=1, pool_padding=0, global_pooling: bool = False,
+           name=None):
+    """3-D max or average pooling, NCDHW (ref: paddle/operators/pool_op.cc
+    Pool3D); the average always divides by the real cells, as the JAX
+    package's does."""
+    helper = LayerHelper("pool3d", name=name)
+
+    def fn(ctx, a, ksize, strides, padding, pool_type, global_pooling):
+        if global_pooling:
+            ksize = strides = tuple(a.shape[2:])
+            padding = (0, 0, 0)
+        return _pool(a, pool_type, tuple(ksize), tuple(strides),
+                     tuple(padding), True)
+
+    return helper.append_op(
+        fn, {"X": [input]},
+        attrs={"ksize": _triple(pool_size), "strides": _triple(pool_stride),
+               "padding": _triple(pool_padding), "pool_type": pool_type,
+               "global_pooling": global_pooling})
 
 
 # --------------------------------------------------------------------------- batch_norm
@@ -495,6 +690,7 @@ def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
                             attrs={"k": k})
 
 
-__all__ = ["accuracy", "batch_norm", "conv2d", "cross_entropy", "dropout",
-           "embedding", "fc", "layer_norm", "lrn", "pool2d",
-           "softmax_with_cross_entropy", "square_error_cost"]
+__all__ = ["accuracy", "batch_norm", "conv2d", "conv2d_transpose", "conv3d",
+           "cross_entropy", "dropout", "embedding", "fc", "layer_norm", "lrn",
+           "pool2d", "pool3d", "pool_with_index", "softmax_with_cross_entropy",
+           "spp", "square_error_cost", "unpool"]

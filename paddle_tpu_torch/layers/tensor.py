@@ -4,8 +4,10 @@ subset the training slices use): ``elementwise_add`` / ``sub`` / ``mul`` /
 mid-broadcast, ``matmul``, ``mul``, ``mean``, ``sums``, ``reshape``,
 ``transpose``, ``concat``, ``split``, ``stack``, ``squeeze``,
 ``unsqueeze``, ``assign``, the reductions ``reduce_sum`` / ``mean`` /
-``max`` / ``min`` / ``prod``, ``cast``, ``scale``, ``fill_constant`` and
-``fill_constant_batch_size_like``.  ``matmul`` and ``mul`` are
+``max`` / ``min`` / ``prod``, ``cast``, ``scale``, ``fill_constant``,
+``fill_constant_batch_size_like``, ``argmax`` and the compares
+``less_than`` / ``less_equal`` / ``greater_than`` / ``equal`` /
+``not_equal``.  ``matmul`` and ``mul`` are
 ``torch.matmul``: the JAX package computes them outside any Pallas
 kernel."""
 from __future__ import annotations
@@ -332,10 +334,41 @@ def fill_constant_batch_size_like(input: Variable, shape, dtype, value,
                "output_dim_idx": output_dim_idx})
 
 
-__all__ = ["assign", "cast", "concat", "elementwise_add", "elementwise_div",
-           "elementwise_max", "elementwise_min", "elementwise_mul",
-           "elementwise_pow", "elementwise_sub", "fill_constant",
-           "fill_constant_batch_size_like", "matmul", "mean", "mul",
+def argmax(x: Variable, axis: int = -1):
+    """The index of the largest value along ``axis``, int64; the first
+    one among ties, as ``jnp.argmax`` takes it."""
+    helper = LayerHelper("argmax")
+    return helper.append_op(lambda ctx, a, axis: torch.argmax(a, dim=axis),
+                            {"X": [x]}, attrs={"axis": axis})
+
+
+def cond_compare(name, tfn):
+    def layer(x: Variable, y):
+        """Element-wise compare of ``x`` with a Variable or a Python
+        scalar ``y``: a bool tensor."""
+        helper = LayerHelper(name)
+        if isinstance(y, Variable):
+            return helper.append_op(lambda ctx, a, b: tfn(a, b),
+                                    {"X": [x], "Y": [y]}, op_type=name)
+        return helper.append_op(lambda ctx, a: tfn(a, y), {"X": [x]},
+                                op_type=name)
+
+    layer.__name__ = name
+    return layer
+
+
+less_than = cond_compare("less_than", torch.lt)
+less_equal = cond_compare("less_equal", torch.le)
+greater_than = cond_compare("greater_than", torch.gt)
+equal = cond_compare("equal", torch.eq)
+not_equal = cond_compare("not_equal", torch.ne)
+
+
+__all__ = ["argmax", "assign", "cast", "concat", "elementwise_add",
+           "elementwise_div", "elementwise_max", "elementwise_min", "elementwise_mul",
+           "elementwise_pow", "elementwise_sub", "equal", "fill_constant",
+           "fill_constant_batch_size_like", "greater_than", "less_equal",
+           "less_than", "matmul", "mean", "mul", "not_equal",
            "reduce_max", "reduce_mean", "reduce_min", "reduce_prod",
            "reduce_sum", "reshape", "scale", "split", "squeeze", "stack",
            "sums", "transpose", "unsqueeze"]

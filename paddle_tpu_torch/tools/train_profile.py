@@ -1,6 +1,6 @@
 """Where the time of one training step goes, on the CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|srl|srl-decode|hier_text|hier_text-infer|resnet50|resnet50-infer|resnet18-infer] [--dropout P] [--remat] [--eager] [--out F]
+    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|srl|srl-decode|hier_text|hier_text-infer|ocr_ctc|ocr_ctc-decode|fcn|fcn-infer|ssd|ssd-detect|resnet50|resnet50-infer|resnet18-infer|vgg19|alexnet|googlenet|<those>-infer] [--dropout P] [--remat] [--eager] [--out F]
 
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
@@ -55,6 +55,20 @@ counted as the sum of ``sub_len`` (documents for the inference step);
 device ms by class from two more eager steps as for seq2seq: the word GRU
 (``dynamic_gru`` and its input projection), the rest of the sentence
 step, embedding, matmul (the classifier's fc), optimizer and other.
+``--model fcn`` builds the FCN segmenter (``models.fcn.build`` at its
+defaults: base 16, 21 classes) with Adam(5e-3) on 32 masks of
+``datasets.voc2012``'s synthetic reader at 256 px; ``--model fcn-infer``
+the program pruned to the logits, its three 3x3 convs routed onto the
+conv kernel.  ``--model ssd`` builds the SSD detector (``models.ssd.build``,
+21 classes) at SSD300's 300 px with 16 gt slots and Adam(1e-3), on 32
+synthetic one-box images (:func:`ssd_batch`); ``--model ssd-detect`` the
+program pruned to ``ssd.infer``'s detections (keep 20), its four 3x3 heads
+routed.  Weights from the port's startup program on the CPU (seed 0), the
+batch on the card; all four warmed, both arms (amp, then float32), and
+their device ms by class from two more eager steps as for seq2seq: cuDNN
+convs, bias + ReLU, the routed conv kernels, the transposed conv, the BN
+kernels and the BN's plain ops, pooling, layout (transpose, reshape,
+concat), loss, metric, decode + NMS, optimizer and other.
 ``--model resnet50``
 builds ResNet-50 as ``bench.py``
 trains it (``models.resnet.build``, 1000 classes, Momentum(0.1, 0.9),
@@ -175,6 +189,21 @@ IMAGE_CLASS_DIM = 1000
 # synthetic_lines(OCR_BATCH, seed=0), Adam(5e-3), as the JAX test trains it
 OCR_CFG = dict(num_classes=4, hidden=48)
 OCR_BATCH = 256
+# the FCN segmenter (paddle_tpu/models/fcn.py) at its defaults (base 16,
+# the 21 VOC classes) on datasets/voc2012.py's synthetic masks at 256 px,
+# Adam(5e-3), as the JAX package's tests train it; and the SSD detector
+# (paddle_tpu/models/ssd.py) with the 21 VOC classes at SSD300's 300 px
+# input, 16 gt slots an image (voc2012.detection_train's max_boxes), on
+# tests/test_detection.py's synthetic one-box images, Adam(1e-3); the
+# detect step keeps the top 20 (ssd.infer's default)
+FCN_CFG = dict(num_classes=21, base=16)
+FCN_SIZE = 256
+FCN_BATCH = 32
+SSD_CLASSES = 21
+SSD_SIZE = 300
+SSD_GT = 16
+SSD_BATCH = 32
+SSD_KEEP = 20
 # Transformer-base's optimizer (Vaswani et al. 2017, section 5.3), for
 # the programs with dropout: Adam(0.9, 0.98, 1e-9) on noam_decay(d_model,
 # BASE_WARMUP), resumed at the optimizer step BASE_WARMUP (the peak of
@@ -547,6 +576,106 @@ def ocr_batch(n: int = OCR_BATCH, seed: int = 0, train: bool = True) -> dict:
     return {"img": imgs, "lab": labels, "ll": lens}
 
 
+def build_fcn_program(amp: bool = False, infer: bool = False,
+                      size: int = FCN_SIZE):
+    """``models.fcn.build`` at FCN_CFG over ``size`` px images with
+    Adam(5e-3), then ``amp.enable()`` when ``amp``; with ``infer`` no
+    optimizer and the program pruned to the logits.  Fresh default
+    programs; returns ((loss, accuracy, logits), main, startup), or with
+    ``infer`` (logits, pruned program, startup)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    img = fluid.layers.data("img", [3, size, size])
+    lab = fluid.layers.data("lab", [size, size], dtype="int32")
+    loss, acc, logits = fluid.models.fcn.build(img, lab, **FCN_CFG)
+    if not infer:
+        fluid.optimizer.Adam(5e-3).minimize(loss)
+    if amp:
+        fluid.amp.enable()
+    main = fluid.default_main_program()
+    if infer:
+        return logits, main.prune([logits]), fluid.default_startup_program()
+    return (loss, acc, logits), main, fluid.default_startup_program()
+
+
+def fcn_batch(n: int = FCN_BATCH, seed: int = 0, train: bool = True,
+              size: int = FCN_SIZE) -> dict:
+    """``n`` images and int32 masks of ``datasets.voc2012``'s synthetic
+    reader (seed 0 is its ``train()``); ``train=False``: the images
+    only."""
+    from ..datasets import voc2012
+
+    data = list(voc2012._reader(n, seed, size)())
+    feed = {"img": np.stack([d[0] for d in data])}
+    if train:
+        feed["lab"] = np.stack([d[1] for d in data]).astype(np.int32)
+    return feed
+
+
+def on_card(feed: dict) -> dict:
+    """``feed``'s numpy arrays as tensors on the card, where a batch that
+    every step reads stays."""
+    return {k: torch.from_numpy(np.asarray(v)).to("cuda")
+            for k, v in feed.items()}
+
+
+def build_ssd_program(amp: bool = False, infer: bool = False):
+    """``models.ssd.build`` over SSD_SIZE px images with SSD_GT box slots
+    and SSD_CLASSES classes, Adam(1e-3), then ``amp.enable()`` when
+    ``amp``; with ``infer`` no optimizer, ``ssd.infer`` (keep SSD_KEEP)
+    and the program pruned to its detections.  Fresh default programs;
+    returns ((loss, (loc, conf, prior, prior_var)), main, startup), or
+    with ``infer`` ((boxes, scores, labels), pruned program, startup)."""
+    import paddle_tpu_torch as fluid
+
+    fluid.reset_default_programs()
+    L = fluid.layers
+    img = L.data("img", [3, SSD_SIZE, SSD_SIZE])
+    gb = L.data("gb", [SSD_GT, 4])
+    gl = L.data("gl", [SSD_GT], dtype="int32")
+    loss, heads = fluid.models.ssd.build(img, gb, gl, num_classes=SSD_CLASSES)
+    if infer:
+        dets = tuple(fluid.models.ssd.infer(*heads, keep_top_k=SSD_KEEP))
+    else:
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    if amp:
+        fluid.amp.enable()
+    main = fluid.default_main_program()
+    if infer:
+        return dets, main.prune(list(dets)), fluid.default_startup_program()
+    return (loss, heads), main, fluid.default_startup_program()
+
+
+def ssd_batch(n: int = SSD_BATCH, seed: int = 0, train: bool = True,
+              size: int = SSD_SIZE, num_classes: int = SSD_CLASSES,
+              gt: int = SSD_GT) -> dict:
+    """``n`` synthetic one-box images by ``tests/test_detection.py``'s rule
+    (``test_ssd_model_trains_and_detects``): ``rand`` * 0.1 backgrounds,
+    one box a class in [1, num_classes) centred in [0.3, 0.7], half the
+    image wide and brightened by 1 for class 1, a quarter wide and darkened
+    by 0.5 for the others; boxes [n, gt, 4] and labels [n, gt] zero past
+    the first slot.  ``train=False``: the images only."""
+    rng = np.random.RandomState(seed)
+    imgs = rng.rand(n, 3, size, size).astype("float32") * 0.1
+    gb = np.zeros((n, gt, 4), "float32")
+    gl = np.zeros((n, gt), "int32")
+    for b in range(n):
+        cls = rng.randint(1, num_classes)
+        big = cls == 1
+        sz = 0.5 if big else 0.25
+        cx, cy = rng.uniform(0.3, 0.7, 2)
+        x0, y0 = max(cx - sz / 2, 0.0), max(cy - sz / 2, 0.0)
+        x1, y1 = min(cx + sz / 2, 1.0), min(cy + sz / 2, 1.0)
+        gb[b, 0] = [x0, y0, x1, y1]
+        gl[b, 0] = cls
+        imgs[b, :, int(y0 * size):int(y1 * size),
+             int(x0 * size):int(x1 * size)] += 1.0 if big else -0.5
+    if not train:
+        return {"img": imgs}
+    return {"img": imgs, "gb": gb, "gl": gl}
+
+
 def resnet_params(seed: int = 0) -> dict:
     """ResNet-50's parameters as numpy arrays, from ``seed``."""
     from ..models import init_resnet_params
@@ -604,9 +733,12 @@ def resume_at_warmup(scope, main) -> None:
 
 
 def feed_sig(feed: dict) -> list:
-    """The (name, shape, dtype) signature of a numpy feed, for
-    ``Executor.warm``."""
-    return [(n, v.shape, v.dtype.name) for n, v in feed.items()]
+    """The (name, shape, dtype) signature of a feed of numpy arrays or
+    tensors, for ``Executor.warm``."""
+    from ..core.types import dtype_name
+
+    return [(n, tuple(v.shape), v.dtype.name if isinstance(v, np.ndarray)
+             else dtype_name(v.dtype)) for n, v in feed.items()]
 
 
 def train_batch(seed: int, n: int = TRAIN_BATCH) -> dict:
@@ -917,7 +1049,8 @@ SRL_CLASSES = ("lstm", "crf", "viterbi", "matmul", "embedding", "optimizer",
 _SRL_OP = {"dynamic_lstm": "lstm", "linear_chain_crf": "crf",
            "crf_decoding": "viterbi", "mul": "matmul",
            "elementwise_add": "matmul", "embedding": "embedding"}
-_LSTM_BY_NAME = "lstm_by_name"
+# the class of a kernel counted by its name, not by origin
+_BY_NAME = "by_name"
 
 
 def srl_op_classes(program) -> dict:
@@ -934,9 +1067,13 @@ def srl_op_classes(program) -> dict:
     return out
 
 
+def _srl_name_class(kernel: str):
+    return "lstm" if _kernel_class(kernel) == "lstm" else None
+
+
 def _srl_class(kernel: str, ancestors) -> str:
-    if _kernel_class(kernel) == "lstm":
-        return _LSTM_BY_NAME        # counted by name, see _eager_classes
+    if _srl_name_class(kernel) is not None:
+        return _BY_NAME             # counted by name, see _eager_classes
     return _seq2seq_class(kernel, ancestors)
 
 
@@ -974,17 +1111,67 @@ def hier_text_op_classes(program) -> dict:
     return out
 
 
+# FCN and SSD kernel classes, by origin as for seq2seq: cuDNN's convs
+# (forward and backward) and their bias adds and ReLUs, the conv kernels
+# of a routed inference step and the batch-norm backward kernels by name
+# (ctypes launches have no host event above them), the transposed conv,
+# the batch norms' plain ops, pooling, the head's layout ops (transpose,
+# reshape, concat), the losses (FCN's per-pixel softmax CE and mean; SSD's
+# matching, mining and multibox loss), FCN's pixel accuracy, SSD's decode
+# and NMS, the optimizer and the rest
+DETECT_CLASSES = ("conv_cudnn", "bias_relu", "conv_kernel", "deconv",
+                  "bn_kernels", "bn_plain", "pool", "layout", "loss",
+                  "metric", "nms", "optimizer", "other")
+_DETECT_OP = {"conv2d": "conv_cudnn", "elementwise_add": "bias_relu",
+              "relu": "bias_relu", "conv2d_transpose": "deconv",
+              "batch_norm": "bn_plain", "pool2d": "pool",
+              "transpose": "layout", "reshape": "layout",
+              "concat": "layout", "unsqueeze": "layout",
+              "softmax_with_cross_entropy": "loss", "mean": "loss",
+              "ssd_loss": "loss", "argmax": "metric", "equal": "metric",
+              "cast": "metric", "detection_output": "nms"}
+
+
+def detect_op_classes(program) -> dict:
+    """id(op) -> class for every op of an FCN or SSD program: by op type
+    (_DETECT_OP), the ops after the backward ``optimizer``; a routed conv
+    keeps its op type and so its class, but its kernel is counted by
+    name."""
+    out, after_bwd = {}, False
+    for op in program.list_ops():
+        if op.special == "backward":
+            after_bwd = True
+            continue
+        out[id(op)] = ("optimizer" if after_bwd
+                       else _DETECT_OP.get(op.type, "other"))
+    return out
+
+
+def _detect_name_class(kernel: str):
+    if _igemm_class(kernel) is not None:
+        return "conv_kernel"
+    if "bn_bwd_" in kernel:
+        return "bn_kernels"
+    return None
+
+
+def _detect_class(kernel: str, ancestors) -> str:
+    if _detect_name_class(kernel) is not None:
+        return _BY_NAME             # counted by name, see _eager_classes
+    return _seq2seq_class(kernel, ancestors)
+
+
 def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
-    """Device ms by class of ``steps`` eager steps of a seq2seq, SRL or
-    hier_text model (the same kernels a replay runs), each op in its
-    class's range; and the eager step's host wall ms (median of
+    """Device ms by class of ``steps`` eager steps of a seq2seq, SRL,
+    hier_text, FCN or SSD model (the same kernels a replay runs), each op
+    in its class's range; and the eager step's host wall ms (median of
     ``steps``, unprofiled, after one warm-up step)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    srl, hier = model in SRL, model in HIER
+    srl, hier, det = model in SRL, model in HIER, model in DETECT
     classes = (srl_op_classes if srl else hier_text_op_classes if hier
-               else seq2seq_op_classes)(main)
+               else detect_op_classes if det else seq2seq_op_classes)(main)
     exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     walls = []
     for _ in range(steps):
@@ -1001,14 +1188,18 @@ def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
         torch.cuda.synchronize()
     beam = model == "seq2seq-beam"
     names = seq2seq_range_names(prof.events())
-    if srl:
-        out = _classes_by_origin(prof, SRL_CLASSES + (_LSTM_BY_NAME,),
-                                 _srl_class, names)
-        del out[_LSTM_BY_NAME]
+    if srl or det:
+        # the ctypes-launched kernels (no host event above them) by name
+        name_class = _srl_name_class if srl else _detect_name_class
+        out = _classes_by_origin(
+            prof, (SRL_CLASSES if srl else DETECT_CLASSES) + (_BY_NAME,),
+            _srl_class if srl else _detect_class, names)
+        del out[_BY_NAME]
         kernels = [(evt.key, _kernel_us(evt)) for evt in prof.key_averages()
                    if _kernel_us(evt) > 0]
-        out["lstm"] += sum(us for k, us in kernels
-                           if _kernel_class(k) == "lstm")
+        for k, us in kernels:
+            if name_class(k) is not None:
+                out[name_class(k)] += us
         # kernels the event tree did not reach count as other
         out["other"] += sum(us for _, us in kernels) - sum(out.values())
     else:
@@ -1020,9 +1211,11 @@ def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
     return out, float(np.median(walls))
 
 
+# the FCN and SSD train and inference steps
+DETECT = ("fcn", "fcn-infer", "ssd", "ssd-detect")
 # the models whose profiled steps are replays of a warmed signature
 WARMED = ("lm", "text_lstm", "seq2seq", "seq2seq-beam", "srl", "srl-decode",
-          "hier_text", "hier_text-infer", "ocr_ctc", "ocr_ctc-decode")
+          "hier_text", "hier_text-infer", "ocr_ctc", "ocr_ctc-decode") + DETECT
 SEQ2SEQ = ("seq2seq", "seq2seq-beam")
 SRL = ("srl", "srl-decode")
 HIER = ("hier_text", "hier_text-infer")
@@ -1081,6 +1274,18 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
             return ([loss], main, startup, params, feed, OCR_BATCH, "lines")
         return ([ids, lens], main.prune([ids, lens]), startup, params, feed,
                 OCR_BATCH, "lines")
+    if model in DETECT:
+        infer = model in ("fcn-infer", "ssd-detect")
+        if model.startswith("fcn"):
+            fetch, main, startup = build_fcn_program(amp, infer)
+            feed, n = fcn_batch(train=not infer), FCN_BATCH
+            fetch = [fetch] if infer else [fetch[0]]
+        else:
+            fetch, main, startup = build_ssd_program(amp, infer)
+            feed, n = ssd_batch(train=not infer), SSD_BATCH
+            fetch = list(fetch) if infer else [fetch[0]]
+        return (fetch, main, startup, startup_params(main, startup),
+                on_card(feed), n, "images")
     if model in IMAGE_MODELS or model in IMAGE_INFER:
         infer = model in IMAGE_INFER
         name = IMAGE_INFER.get(model, model)
@@ -1101,6 +1306,7 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
     raise ValueError(f"unknown model {model!r}: lm | text_lstm | seq2seq | "
                      f"seq2seq-beam | srl | srl-decode | hier_text | "
                      f"hier_text-infer | ocr_ctc | ocr_ctc-decode | "
+                     f"{' | '.join(DETECT)} | "
                      f"resnet50 | {' | '.join(INFER_DEPTH)} | "
                      f"{' | '.join(IMAGE_MODELS)} | "
                      f"{' | '.join(IMAGE_INFER)}")
@@ -1206,7 +1412,7 @@ def profile(model: str = "lm", amp: bool = True, dropout: float = 0.0,
     peak, peak_reserved = (torch.cuda.max_memory_allocated(),
                            torch.cuda.max_memory_reserved())
     eager_ms, by_name = None, None
-    if model in SEQ2SEQ + SRL + HIER:
+    if model in SEQ2SEQ + SRL + HIER + DETECT:
         by_name = by_class
         # the replayed graph has no op ranges: the classes come from eager
         # steps of the same program on a second scope
@@ -1243,17 +1449,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="lm",
                     choices=("lm", "text_lstm", *SEQ2SEQ, *SRL, *HIER,
-                             *OCR, "resnet50", *INFER_DEPTH, *IMAGE_MODELS,
-                             *IMAGE_INFER),
+                             *OCR, *DETECT, "resnet50", *INFER_DEPTH,
+                             *IMAGE_MODELS, *IMAGE_INFER),
                     help="the training step to profile (lm: both arms, "
                          "float32 then amp; resnet50: both arms, amp then "
                          "float32), the seq2seq beam or SRL Viterbi "
                          "decode, the hier_text inference step, the "
                          "ocr_ctc train step or greedy decode, the ResNet "
                          "inference step (resnet50-infer: both arms; "
-                         "resnet18-infer: amp), or the VGG-19, AlexNet or "
-                         "GoogLeNet train or inference step (both arms, "
-                         "amp then float32)")
+                         "resnet18-infer: amp), or the VGG-19, AlexNet, "
+                         "GoogLeNet, FCN or SSD train or inference step "
+                         "(both arms, amp then float32)")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="lm: build_lm's dropout (with Transformer-base's "
                          "optimizer, resumed at the peak of warm-up)")
@@ -1283,9 +1489,10 @@ def main(argv=None) -> int:
             arm += (f" (dropout {args.dropout:g}"
                     f"{', remat' if args.remat else ''})")
         what = ("inference" if args.model in (*INFER_DEPTH, *IMAGE_INFER,
-                                              "hier_text-infer")
+                                              "hier_text-infer", "fcn-infer")
                 else "decode" if args.model in ("seq2seq-beam", "srl-decode",
-                                                "ocr_ctc-decode")
+                                                "ocr_ctc-decode",
+                                                "ssd-detect")
                 else "train")
         print(f"{res['model']}{arm} {what} step on {res['card']}: "
               f"{res[unit + '_per_step']} {unit}, {res['repeats']} repeats "

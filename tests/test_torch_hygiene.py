@@ -37,6 +37,9 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.smallnet\n"
         "import paddle_tpu_torch.models.alexnet\n"
         "import paddle_tpu_torch.models.googlenet\n"
+        "import paddle_tpu_torch.evaluator, paddle_tpu_torch.datasets.voc2012\n"
+        "import paddle_tpu_torch.models.fcn, paddle_tpu_torch.models.ssd\n"
+        "import paddle_tpu_torch.layers.detection\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -102,12 +105,16 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("model", ["lenet", "smallnet", "vgg", "alexnet",
-                                   "googlenet", "ocr_ctc", "nets"])
+                                   "googlenet", "ocr_ctc", "nets", "fcn",
+                                   "ssd"])
 def test_new_models_default_to_cuda(model):
-    """The image classifiers, ocr_ctc and a ``nets`` program run where the
-    other programs do: ``Executor()`` and ``load_scope`` take the card
-    unless told otherwise, and raise without one; the CPU runs them when
-    asked.  ``train_profile`` needs the card for the new recipes."""
+    """The image classifiers, ocr_ctc, a ``nets`` program, FCN (on
+    ``datasets.voc2012``'s masks) and SSD (with ``evaluator.DetectionMAP``
+    on its detections) run where the other programs do: ``Executor()``
+    and ``load_scope`` take the card unless told otherwise, and raise
+    without one; the CPU runs them when asked, and ``reset`` zeroes the
+    evaluator on the Executor's device.  ``train_profile`` needs the card
+    for the new recipes."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.tools import train_profile as tp
 
@@ -121,6 +128,25 @@ def test_new_models_default_to_cuda(model):
             loss = fluid.models.ocr_ctc.build(img, lab, ll, num_classes=4)[0]
             feed = dict(zip(("img", "lab", "ll"),
                             fluid.models.ocr_ctc.synthetic_lines(2)))
+        elif model == "fcn":
+            img = L.data("img", [3, 16, 16])
+            lab = L.data("lab", [16, 16], dtype="int32")
+            loss = fluid.models.fcn.build(img, lab, num_classes=4, base=4)[0]
+            data = list(fluid.datasets.voc2012.train(2, size=16)())
+            feed = {"img": np.stack([d[0] for d in data]),
+                    "lab": np.minimum(np.stack([d[1] for d in data]),
+                                      3).astype(np.int32)}
+        elif model == "ssd":
+            img = L.data("img", [3, 32, 32])
+            gb = L.data("gb", [2, 4])
+            gl = L.data("gl", [2], dtype="int32")
+            loss, heads = fluid.models.ssd.build(img, gb, gl, num_classes=3)
+            dets = fluid.models.ssd.infer(*heads, keep_top_k=4)
+            ev = fluid.evaluator.DetectionMAP(*dets, gb, gl, num_classes=3)
+            feed = {"img": np.ones((2, 3, 32, 32), np.float32),
+                    "gb": np.array([[[0.1, 0.1, 0.6, 0.6], [0, 0, 0, 0]]] * 2,
+                                   np.float32),
+                    "gl": np.array([[1, 0]] * 2, np.int32)}
         elif model == "nets":
             x = L.fc(L.data("x", [6, 32]), 32, num_flatten_dims=2)
             loss = L.mean(fluid.nets.scaled_dot_product_attention(
@@ -151,10 +177,19 @@ def test_new_models_default_to_cuda(model):
     fluid.load_scope(weights, main, scope, device="cpu")
     out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     assert np.isfinite(out)
+    if model == "ssd":
+        assert {t.device.type for t in (scope.find_var(v.name)
+                                         for v in ev._states)} == {"cpu"}
+        ev.reset(exe, scope)
+        assert ev.eval(scope=scope) == 0.0
+        assert {scope.find_var(v.name).device.type
+                for v in ev._states} == {"cpu"}
     for name in {"vgg": ("vgg19", "vgg19-infer"),
                  "alexnet": ("alexnet", "alexnet-infer"),
                  "googlenet": ("googlenet", "googlenet-infer"),
-                 "ocr_ctc": tp.OCR}.get(model, ()):
+                 "ocr_ctc": tp.OCR,
+                 "fcn": ("fcn", "fcn-infer"),
+                 "ssd": ("ssd", "ssd-detect")}.get(model, ()):
         with pytest.raises(RuntimeError, match="CUDA"):
             tp.profile(name)
 

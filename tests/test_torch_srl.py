@@ -263,7 +263,7 @@ def test_profile_classes_resolve_the_backward_by_forward_op():
                 for e in nodes}
     assert {"lstm", "crf", "matmul", "embedding"} <= backward, backward
     assert tp._srl_class("lstm_bwd_persistent", ["s2s::other"]) \
-        == tp._LSTM_BY_NAME
+        == tp._BY_NAME
     assert tp._srl_class("multi_tensor_apply_kernel", ["s2s::crf"]) \
         == "optimizer"
     assert tp._srl_class("k", ["x", "s2s::viterbi"]) == "viterbi"
