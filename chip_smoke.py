@@ -213,14 +213,18 @@ Phases (any failure exits non-zero, before the final line):
                float32 and bfloat16 at ResNet-50's stride-1 shapes
                ([256,56,56,64]x64 and [256,28,28,128]x128, which are
                benchmark/conv_probe.py's, [256,14,14,256]x256,
-               [256,7,7,512]x512) and two ragged ones ([3,13,9,3]x40 on the
-               element-wise path, [3,13,9,16]x24 on the 16-byte one), and
+               [256,7,7,512]x512) and four ragged ones ([3,13,9,3]x40 with
+               element loads of x, [3,13,9,16]x24 with 16-byte copies,
+               [2,9,11,5]x13 and [2,7,9,20]x13 with element loads of w in
+               bfloat16 and of one or several granules of x), and
                the plain kernel at the routed shapes of the image and
                ocr_ctc inference programs (CONV_MODEL_CASES: VGG-19's 224
                stem and 64 -> 64 convs and its 112 conv, AlexNet's 12 x 12,
                GoogLeNet's ragged inception widths, ocr_ctc's C = 1 and 16,
                FCN's three convs and SSD's four heads, each in its dtypes,
-               timed beside cuDNN), each
+               timed beside cuDNN), the fused kernel too at FCN's C = 3 stem
+               and SSD's O = 42 head (CONV_GATHER_FUSED), and ptxas's
+               registers and spills of each gather instance; each
                case on the route ops/conv.py::conv_route gives it (ResNet
                shapes on the halo kernel in bfloat16 and on the halo_f32
                kernel, three TF32 passes, in float32; the ragged ones on the
@@ -448,11 +452,14 @@ CONV_BF16_SUM_REL = 1e-3
 CONV_KERNELS = ("igemm", "fused")
 # (label, N, H, W, C, O); "c56" and "c28" are benchmark/conv_probe.py's
 # shapes; the ragged ones leave a part-filled last pixel tile and
-# output-channel tile, "ragged" on the element-wise path (C = 3),
-# "ragged16" on the 16-byte one
+# output-channel tile, "ragged" with element loads of x (C = 3),
+# "ragged16" with 16-byte copies, "ragged odd" with element loads of x and
+# (bfloat16) of w (O odd), "ragged c20" with element loads of several
+# granules a point
 CONV_CASES = [("c56", 256, 56, 56, 64, 64), ("c28", 256, 28, 28, 128, 128),
               ("c14", 256, 14, 14, 256, 256), ("c7", 256, 7, 7, 512, 512),
-              ("ragged", 3, 13, 9, 3, 40), ("ragged16", 3, 13, 9, 16, 24)]
+              ("ragged", 3, 13, 9, 3, 40), ("ragged16", 3, 13, 9, 16, 24),
+              ("ragged odd", 2, 9, 11, 5, 13), ("ragged c20", 2, 7, 9, 20, 13)]
 # ResNet's four stride-1 shapes: on the halo route in bfloat16 and the
 # halo_f32 route in float32 (the ragged ones on the gather route), timed in
 # both dtypes
@@ -592,6 +599,9 @@ CONV_MODEL_CASES = [
     ("ssd conf38", 32, 38, 38, 64, 42,
      {torch.bfloat16: "gather", torch.float32: "gather"}),
 ]
+# CONV_MODEL_CASES whose fused form is checked and timed too, on the gather
+# route: a C = 3 stem and an O = 42 head
+CONV_GATHER_FUSED = ("fcn c256", "ssd conf75")
 # the fcn and ssd phases (PERF.md section 4; the configurations are
 # tools/train_profile.py's): FCN's float32 train step and pruned inference
 # card against CPU on FCN_PARITY_BATCH images at FCN_PARITY_SIZE px, SSD's
@@ -774,7 +784,7 @@ def _ptxas_report(log: str) -> list:
                 start = pos + num.end()
                 ident = name[start:start + int(num.group())]
                 if ident.endswith("kernel"):
-                    short = ident + name[start + len(ident):][:12]
+                    short = ident + name[start + len(ident):][:28]
                     break
                 if not ident.startswith("_GLOBAL__N"):
                     short = ident     # a kernel named otherwise (lstm.cu)
@@ -3759,9 +3769,18 @@ def phase_conv_kernels(card: str) -> dict:
              for label, n, h, w, c, o in CONV_CASES
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(label, n, h, w, c, o, dtype,
-               dict(want_route=route, timed=True, kernels=("igemm",)))
+               dict(want_route=route, timed=True,
+                    kernels=(CONV_KERNELS if label in CONV_GATHER_FUSED
+                             else ("igemm",))))
               for label, n, h, w, c, o, routes in CONV_MODEL_CASES
               for dtype, route in routes.items()]
+    from paddle_tpu_torch.ops import _build
+
+    for name, regs, spill in _ptxas_report(_build.build_logs.get("conv.cu",
+                                                                 "")):
+        if name.startswith("igemm_kernel"):
+            print(f"conv gather instance {name}: {regs} registers, {spill} "
+                  f"bytes spilled")
     for label, n, h, w, c, o, dtype, kw in cases:
         recs = _conv_case(label, n, h, w, c, o, dtype, dev, card, **kw)
         if recs:
@@ -4712,6 +4731,54 @@ def phase_ssd(card: str) -> dict:
     return {"train": train, "detect": detect, "map": maps}
 
 
+def _detection_map_f32(detections, ground_truths, num_classes: int,
+                       iou_threshold: float = 0.5) -> float:
+    """detection_map_np (the exact host-side mAP: every detection a point of
+    its class's curve) with its recall and precision taken in float32 from
+    float32 counts, as DetectionMAP.eval takes them from its float32
+    histograms (the JAX package's too).  In float64 a recall of 3 / 10
+    falls below the 11-point threshold 0.3 that its float32 value passes,
+    so detection_map_np can read less than the histogram's subset of its
+    own points; at one precision the subset's mAP is at most this one."""
+    from paddle_tpu_torch.layers.detection import _iou_np
+
+    aps = []
+    for c in range(1, num_classes):
+        records, n_gt = [], 0
+        for (db, ds, dl), (gb, gl) in zip(detections, ground_truths):
+            gtb = np.asarray(gb)[np.asarray(gl) == c]
+            n_gt += len(gtb)
+            used = np.zeros(len(gtb), bool)
+            sel = (np.asarray(dl) == c) & (np.asarray(ds) > 0)
+            for sc, box in sorted(zip(np.asarray(ds)[sel],
+                                      np.asarray(db)[sel]),
+                                  key=lambda t: -t[0]):
+                hit = False
+                if len(gtb):
+                    ious = _iou_np(box[None], gtb)[0]
+                    j = int(np.argmax(ious))
+                    hit = bool(ious[j] >= iou_threshold and not used[j])
+                    used[j] |= hit
+                records.append((sc, hit))
+        if n_gt == 0:
+            continue
+        if not records:
+            aps.append(0.0)
+            continue
+        records.sort(key=lambda t: -t[0])
+        hits = np.array([h for _, h in records])
+        tps = np.cumsum(hits.astype(np.float32), dtype=np.float32)
+        fps = np.cumsum((~hits).astype(np.float32), dtype=np.float32)
+        recall = tps / np.float32(n_gt)
+        precision = tps / np.maximum(tps + fps, np.float32(1e-9))
+        ap = 0.0
+        for t in np.linspace(0, 1, 11):
+            sel = recall >= t
+            ap += (precision[sel].max() if sel.any() else 0.0) / 11
+        aps.append(float(ap))
+    return float(np.mean(aps)) if aps else 0.0
+
+
 def _ssd_map(stream: list, n_bins, card: str) -> dict:
     """DetectionMAP fed ``stream``'s detections on the card and on the CPU:
     the histograms bitwise equal, and the mAP against detection_map_np.
@@ -4720,7 +4787,9 @@ def _ssd_map(stream: list, n_bins, card: str) -> dict:
     agree where no two detections share a class and a bin.  With None the
     evaluator keeps its default bins and the scores stay as they are:
     its curve's points are a subset of the exact curve's, so its mAP is
-    at most detection_map_np's."""
+    at most detection_map_np's.  Both comparisons take the exact curve at
+    the evaluator's float32 precision (_detection_map_f32); the float64
+    detection_map_np is printed beside it."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.layers.detection import detection_map_np
     from paddle_tpu_torch.tools.train_profile import SSD_CLASSES
@@ -4753,6 +4822,7 @@ def _ssd_map(stream: list, n_bins, card: str) -> dict:
     gts_np = [(f["gb"][i], f["gl"][i]) for f in stream
               for i in range(len(f["gl"]))]
     m_np = detection_map_np(dets_np, gts_np, SSD_CLASSES)
+    m_f32 = _detection_map_f32(dets_np, gts_np, SSD_CLASSES)
     bins = ev.n_bins
     cells = [(int(lab), min(int(s * bins), bins - 1)) for _, ss, ll in dets_np
              for s, lab in zip(ss, ll) if s > 0]
@@ -4767,14 +4837,17 @@ def _ssd_map(stream: list, n_bins, card: str) -> dict:
           f"{int(tp.sum())} TP, {int(fp.sum())} FP, {int(ngt.sum())} gts, "
           f"{bins} bins, {what}): mAP card {maps['cuda']:.6f}, CPU "
           f"{maps['cpu']:.6f}, histograms bitwise equal {same}; "
-          f"detection_map_np {m_np:.6f}; detections sharing a class and a "
+          f"detection_map_np {m_np:.6f} (float64), {m_f32:.6f} (float32, "
+          f"the evaluator's precision); detections sharing a class and a "
           f"bin with another: {shared}; on {card}")
     check(same and maps["cuda"] == maps["cpu"],
           "ssd DetectionMAP: card and CPU differ")
-    check(maps["cpu"] <= m_np + 1e-6 and (
-        n_bins is None or shared or abs(maps["cpu"] - m_np) <= 1e-6),
-          f"ssd DetectionMAP: {maps['cpu']} against detection_map_np {m_np}")
+    check(maps["cpu"] <= m_f32 + 1e-6 and (
+        n_bins is None or shared or abs(maps["cpu"] - m_f32) <= 1e-6),
+          f"ssd DetectionMAP: {maps['cpu']} against detection_map_np "
+          f"{m_f32} (float32)")
     return {"card": maps["cuda"], "cpu": maps["cpu"], "np": m_np,
+            "np_f32": m_f32,
             "bins": bins, "shared_bins": shared, "tp": int(tp.sum()),
             "fp": int(fp.sum()), "gts": int(ngt.sum())}
 
@@ -5154,6 +5227,28 @@ def main() -> int:
                                  if label not in CONV_RESNET}}
                if kern == "igemm" else {}),
         })
+    # the gather route's kernel (igemm_kernel) on its own: the main path's
+    # case is FCN inference's stem, float32; launches are the fcn-infer
+    # float32 arm's gather-route calls; each model shape under its dtype and
+    # label, the fused form at CONV_GATHER_FUSED
+    kernels.append({
+        "name": "conv_gather", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/conv.cu",
+        "replaces": replaces["igemm"],
+        "case": "float32, FCN's stem [32,256,256,3]x16, on the gather route "
+                "(igemm_kernel)",
+        "launches": fcn["infer"]["fcn-infer float32"]["route_launches"][
+            "gather"],
+        **convk["float32"]["fcn c256"]["igemm"],
+        "gather_launches_by_path": dict(
+            {a: r["route_launches"]["gather"]
+             for a, r in {**infer, **image["infer"], **routed}.items()},
+            **{"ocr_ctc decode replay":
+               ocr["decode_conv_route_launches"]["gather"]}),
+        "fused": {f"{dt} {label}": by[label]["fused"]
+                  for dt, by in convk.items() for label in CONV_GATHER_FUSED
+                  if label in by},
+    })
     # the float32 fused kernel, on the main path of ResNet-50 float32
     # inference
     kernels.append({

@@ -254,14 +254,18 @@ def unsqueeze(x: Variable, axes: Sequence[int]):
     return helper.append_op(fn, {"X": [x]}, attrs={"axes": tuple(axes)})
 
 
-def assign(x):
+def assign(x, output: Optional[Variable] = None):
     """A copy of a Variable, or a constant from a numpy array (ref:
-    paddle/operators/assign_op.cc).  A constant is moved to a device once,
-    at the first step there, and kept: a step captured into a CUDA graph
-    copies nothing from the host."""
+    paddle/operators/assign_op.cc), written into ``output`` when one is
+    given (the op's output takes its name) and into a new Variable
+    otherwise.  A constant is moved to a device once, at the first step
+    there, and kept: a step captured into a CUDA graph copies nothing from
+    the host."""
     helper = LayerHelper("assign")
+    out_names = [output.name] if output is not None else None
     if isinstance(x, Variable):
-        return helper.append_op(lambda ctx, a: a, {"X": [x]})
+        return helper.append_op(lambda ctx, a: a, {"X": [x]},
+                                out_names=out_names)
     arr = np.array(x)
     # JAX's 32-bit mode: 64-bit constants come in as 32-bit ones
     arr = arr.astype({np.dtype(np.float64): np.float32,
@@ -276,7 +280,7 @@ def assign(x):
             on_device[ctx.device] = const.to(ctx.device)
         return on_device[ctx.device]
 
-    return helper.append_op(fn, {})
+    return helper.append_op(fn, {}, out_names=out_names)
 
 
 def cast(x: Variable, dtype):
@@ -364,8 +368,9 @@ equal = cond_compare("equal", torch.eq)
 not_equal = cond_compare("not_equal", torch.ne)
 
 
-__all__ = ["argmax", "assign", "cast", "concat", "elementwise_add",
-           "elementwise_div", "elementwise_max", "elementwise_min", "elementwise_mul",
+__all__ = ["argmax", "assign", "cast", "concat", "cond_compare",
+           "elementwise_add", "elementwise_div", "elementwise_max",
+           "elementwise_min", "elementwise_mul",
            "elementwise_pow", "elementwise_sub", "equal", "fill_constant",
            "fill_constant_batch_size_like", "greater_than", "less_equal",
            "less_than", "matmul", "mean", "mul", "not_equal",

@@ -18,12 +18,20 @@ vectors of any float dtype, used in float32.
   every ResNet 3x3 stride-1 conv; the halo_f32 route (``halo_f32_kernel``,
   the same halo tile with float32 products as three TF32 wgmma passes) for
   float32 with the same channels and pointers and W + 2 <= 184; the gather
-  route (``igemm_kernel``) for everything else.  All are hand kernels; a
-  launch that fails on any raises.  A halo-route call enqueues two kernels:
-  ``halo_pack_w`` packs w into a scratch tensor in the kernel's stage
-  layout, then ``halo_kernel``; a halo_f32 call likewise
-  ``halo_f32_pack_w`` (w split into its TF32 hi and lo parts, scratch of
-  twice w's size), then ``halo_f32_kernel``.
+  route (``igemm_kernel``) for everything else: a persistent block walks
+  patches of the images' grid (:func:`gather_patch`), staging each patch's
+  halo once, for BN output channels (:func:`gather_bn`) whose w stays in
+  shared memory where it fits; K in chunks of 16-byte granules of channels
+  (:func:`gather_step_granules`), float32 as three TF32 mma.sync passes.
+  All are hand kernels; a launch that fails on any raises.  A halo-route
+  call enqueues two kernels: ``halo_pack_w`` packs w into a scratch tensor
+  in the kernel's stage layout, then ``halo_kernel``; a halo_f32 call
+  likewise ``halo_f32_pack_w`` (w split into its TF32 hi and lo parts,
+  scratch of twice w's size), then ``halo_f32_kernel``; a float32 gather
+  call ``gather_f32_pack_w`` (w split and packed a stage's chunk at a
+  time, scratch of :func:`gather_scratch_numel` values), then
+  ``igemm_kernel``, and a bfloat16 one whose w streams likewise
+  ``gather_bf16_pack_w``.
 * On CPU tensors they run the plain versions,
   :func:`igemm_conv_reference` and :func:`igemm_conv_fused_reference`,
   which transcribe the probe's ``_igemm_accumulate`` and epilogue: nine
@@ -38,6 +46,7 @@ vectors of any float dtype, used in float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -58,8 +67,21 @@ HALO_F32_MAX_PITCH = 184
 # up to the last tile's halo are ints in the kernels
 _HALO_BM = 256
 
+# ``Gather`` of csrc/conv.cu: a gather tile's patch holds at most
+# GATHER_BM pixels, its warps multiply GATHER_WARP_ROWS rows each, a step
+# takes at most GATHER_GRANULES 16-byte granules of channels; w stays in
+# shared memory up to GATHER_W_RES bytes, else streams in stages of at most
+# GATHER_STAGE bytes; the kernel is built for the output-channel tiles
+# GATHER_BNS
+GATHER_BM = 128
+GATHER_WARP_ROWS = 16
+GATHER_GRANULES = 4
+GATHER_W_RES = 80 * 1024
+GATHER_STAGE = 40 * 1024
+GATHER_BNS = (8, 16, 24, 32, 48, 64)
+
 _build.declare("conv.cu", "igemm_conv_launch", ctypes.c_int,
-               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                + [ctypes.c_void_p])
 _build.declare("conv.cu", "conv_halo_launch", ctypes.c_int,
                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
@@ -82,6 +104,78 @@ def conv_route(dtype: torch.dtype, n: int, h: int, w: int, c: int, o: int,
             < 2 ** 31 - 1):
         return "halo" if dtype == torch.bfloat16 else "halo_f32"
     return "gather"
+
+
+def gather_bn(o: int) -> int:
+    """The gather kernel's output-channel tile for O outputs: the least of
+    GATHER_BNS that holds all of O, or the widest for O > 64 (64-wide
+    tiles)."""
+    return next((bn for bn in GATHER_BNS if bn >= o), GATHER_BNS[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def gather_patch(n: int, h: int, w: int) -> tuple:
+    """(TH, TW): the patch of a gather tile, TH TW <= GATHER_BM pixels of
+    the images' grid (the N images' rows one under another, a zero row
+    between two: N (H + 1) - 1 rows of W).  Of the widths that split W into
+    equal parts (the last part no narrower than the rest need be), and for
+    each the rows that split the grid so, the patch that costs the least:
+    a tile's rows in whole warps plus its halo's (TH + 2)(TW + 2) points
+    plus 32 for its fixed work, times the tiles; a tie goes to the wider
+    patch (longer output rows)."""
+    rows_all, bm = n * (h + 1) - 1, GATHER_BM
+    best = None
+    for tw in range(1, min(w, bm) + 1):
+        n_w = -(-w // tw)
+        if -(-w // n_w) != tw:
+            continue
+        n_h = -(-rows_all // (bm // tw))
+        th = -(-rows_all // n_h)
+        rows = -(-th * tw // GATHER_WARP_ROWS) * GATHER_WARP_ROWS
+        cost = n_h * n_w * (rows + (th + 2) * (tw + 2) + 32)
+        if best is None or (cost, -tw) < best[0]:
+            best = ((cost, -tw), (th, tw))
+    return best[1]
+
+
+def _gather_w_bytes(bn: int, cg: int, elt: int) -> int:
+    """``gather_w_bytes``: one chunk's w in shared memory (float32: its hi
+    and lo parts)."""
+    return 16 * cg * 9 * bn * (2 if elt == 4 else 1)
+
+
+def gather_resident(c: int, bn: int, elt: int, cgs: int) -> bool:
+    """``gather_resident``: whether all of w's chunks of ``cgs`` granules
+    for one output tile stay in shared memory."""
+    per = 16 // elt
+    chunks = -(-c // (cgs * per))
+    return chunks * _gather_w_bytes(bn, cgs, elt) <= GATHER_W_RES
+
+
+def gather_step_granules(elt: int, th: int, tw: int, c: int,
+                         bn: int) -> int:
+    """The granules (16 bytes of channels) a gather step takes: the most,
+    up to GATHER_GRANULES and C's, whose stage (the halo, and w where it
+    streams) fits GATHER_STAGE bytes; one at least."""
+    for cgs in range(min(GATHER_GRANULES, -(-c // (16 // elt))), 0, -1):
+        stage = 16 * cgs * (th + 2) * (tw + 2)
+        if not gather_resident(c, bn, elt, cgs):
+            stage += _gather_w_bytes(bn, cgs, elt)
+        if stage <= GATHER_STAGE:
+            return cgs
+    return 1
+
+
+def gather_scratch_numel(c: int, o: int, cgs: int, elt: int) -> int:
+    """Values (of ``elt`` bytes) of a gather launch's scratch: w packed a
+    (output tile, chunk) at a time as its stages hold it, float32's split
+    into TF32 hi and lo parts; none for bfloat16 w that stays resident."""
+    bn = gather_bn(o)
+    if elt == 2 and gather_resident(c, bn, elt, cgs):
+        return 0
+    per = 16 // elt
+    return -(-o // bn) * -(-c // (per * cgs)) * 9 * bn * cgs * per \
+        * (2 if elt == 4 else 1)
 
 
 # ------------------------------------------------------------ plain versions
@@ -172,11 +266,17 @@ def _launch(x, w, a, b, fused: bool) -> torch.Tensor:
                                       _DTYPE_CODE[x.dtype], int(fused),
                                       stream)
         else:
-            per = 16 // x.element_size()
-            vec = int(c % per == 0 and o % per == 0 and aligned)
+            th, tw = gather_patch(n, h, wd)
+            bn = gather_bn(o)
+            cgs = gather_step_granules(x.element_size(), th, tw, c, bn)
+            # scratch for w packed by the launch (float32, streamed bf16)
+            numel = gather_scratch_numel(c, o, cgs, x.element_size())
+            wp = (torch.empty(numel, dtype=x.dtype, device=x.device)
+                  if numel else None)
             name = "igemm_conv_launch"
-            rc = lib.igemm_conv_launch(*ptrs, n, h, wd, c, o,
-                                       _DTYPE_CODE[x.dtype], int(fused), vec,
+            rc = lib.igemm_conv_launch(*ptrs, wp.data_ptr() if wp is not None
+                                       else None, n, h, wd, c, o, th, tw, bn,
+                                       cgs, _DTYPE_CODE[x.dtype], int(fused),
                                        stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc}")

@@ -5,9 +5,9 @@
 // Replaces the two Pallas TPU kernels of benchmark/conv_probe.py, each by
 // three routes (below):
 //   halo_kernel<false>, halo_f32_kernel<false>,  <- _igemm_kernel
-//   igemm_kernel<T, false, V>                       (via igemm_conv)
+//   igemm_kernel<T, false, BN>                      (via igemm_conv)
 //   halo_kernel<true>, halo_f32_kernel<true>,    <- _igemm_fused_kernel
-//   igemm_kernel<T, true, V>                        (via igemm_conv_fused)
+//   igemm_kernel<T, true, BN>                       (via igemm_conv_fused)
 //
 // What they compute, for x [N, H, W, C] (NHWC, un-padded) and w [3, 3, C, O]
 // (HWIO), with x read as zero outside the image (SAME padding of 1):
@@ -19,38 +19,15 @@
 // [O] (the folded batch norm a = scale * rsqrt(var + eps), b = bias - mean *
 // a), the epilogue in float32 (multiply, then add, each rounded: no fused
 // multiply-add, as the plain version computes it), and the output rounded
-// once to the input type.
-//
-// As a GEMM: M = N*H*W output pixels, N_gemm = O, K = 9*C taken tap by tap
-// (k = (dy*3 + dx)*C + c, so w is the row-major [9C, O] matrix as it
-// stands).  The TPU kernel gives one image per grid step and lets the MXU
-// take whole [H*W, C] @ [C, O] products out of VMEM; on the H100 a block
-// owns a BM x BN tile of (pixels, output channels) and walks K in BK-deep
-// slices, each slice one tap and a run of channels:
-//   * the A slice (BM pixels x BK channels of one tap) is gathered straight
-//     from x: a pixel's channels are contiguous in NHWC, so each row is
-//     16-byte cp.async copies, and a pixel whose tap falls outside the
-//     image (or past M, or a channel past C) is a zero-filled copy that
-//     reads nothing: the zero padding costs no padded copy of x (the probe
-//     pads with jnp.pad, one more pass over x).  Each pixel's (h, w) is
-//     decoded once a block into shared memory;
-//   * the B slice (BK x BN of w) comes the same way; w is small (at most
-//     9 x 512 x 512) and stays in L2;
-//   * two stages: slice it + 1 loads while slice it is multiplied;
-//   * bfloat16 runs on the tensor cores, mma.sync.m16n8k16 (bf16 in, f32
-//     accumulate): 128 x 64 tiles, four warps of 64 x 32, operands from
-//     shared memory by ldmatrix (.trans for w), the layout of the bf16
-//     flash forward (flash_attention.cu);
-//   * float32 runs on the CUDA cores (FFMA): 128 x 64 tiles, 256 threads
-//     as 16 x 16, each an 8 x 4 patch fed by 128-bit shared loads (8 rows
-//     of A and 4 of B per 4 k: 128 FMAs per 12 loads);
-//   * a 1-D grid with the output-channel tiles of one pixel tile adjacent,
-//     so the x rows a pixel tile gathers are read from L2 by its siblings.
-// Any N, H, W, C and O: the 16-byte path needs C and O multiples of 16
-// bytes' worth of elements and aligned pointers (V = true); any other shape
-// (the CIFAR stem's C = 3, ragged channels) takes element-by-element loads
-// and stores (V = false).  One writer per output element and no atomics:
+// once to the input type.  One writer per output element and no atomics:
 // results repeat exactly from run to run.
+//
+// As a GEMM: M = N*H*W output pixels, N_gemm = O, K = 9*C (w is the
+// row-major [9C, O] matrix as it stands).  The TPU kernel gives one image
+// per grid step and lets the MXU take whole [H*W, C] @ [C, O] products out
+// of VMEM; on the H100 a block owns a tile of pixels and output channels,
+// stages x's part of it once in shared memory and takes each tap as a
+// shift inside that copy.
 //
 // Three routes, chosen by shape in ops/conv.py::conv_route, each a hand
 // kernel (no fallback: the route is fixed before the launch):
@@ -60,21 +37,23 @@
 //   * the halo_f32 route, halo_f32_kernel<kFused>: float32 with the same
 //     channels and pointers and W + 2 <= 184, every ResNet 3x3 stride-1
 //     conv in float32;
-//   * the gather route, igemm_kernel<T, kFused, V> above: everything else
-//     (the CIFAR stem's C = 3, ragged channels, misaligned pointers).
+//   * the gather route, igemm_kernel<T, kFused, BN>: everything else, any
+//     N, H, W, C, O and pointers: the stems' C = 3, ocr_ctc's C = 1, the
+//     ragged channels of FCN, SSD's heads (O = 8, 42) and GoogLeNet, and
+//     rows too wide for the halo routes (VGG-19's 224-wide float32 conv).
 //
 // What bounds them on the H100 at ResNet-50's shapes (bs = 256): bfloat16
 // is on the line between bytes and operations (56x56x64: 59.2 GFLOP, 0.060
 // ms at 989 TFLOP/s, against 205.5 MB of x and output, 0.061 ms at 3.35
 // TB/s: bytes by a hair; 28x28x128: operations, 0.060 ms); float32 is bound
-// by operations: 0.883 ms at the CUDA cores' 67 TFLOP/s (the gather
-// route's FFMA), 0.359 ms as three TF32 passes at 495 TFLOP/s (the
-// halo_f32 route), against 411 MB of x and output, 0.123 ms.
+// by operations: 0.883 ms at the CUDA cores' 67 TFLOP/s, 0.359 ms as three
+// TF32 passes at 495 TFLOP/s (the halo_f32 route), against 411 MB of x and
+// output, 0.123 ms.
 //
-// The gather route is the first kernel: each tap re-gathers its A slice,
-// so x crosses L2 nine times (925 MB at 56x56x64) and every 128-pixel block
-// reads all of w (462 MB more); mma.sync caps the rate; the short two-stage
-// ring waits on every 32-channel slice.  The halo route answers each:
+// A kernel that gathers each tap's A slice from x afresh crosses L2 nine
+// times for x (925 MB at 56x56x64) and, with 128-pixel blocks, reads all of
+// w once a block (462 MB more).  The halo route answers that at ResNet's
+// shapes:
 //   * x about once: a tile is 256 consecutive points of one grid of pitch
 //     W + 2 over all images (a zero column each side of a row, one zero row
 //     between images), so tap (dy, dx) is one constant shift of a halo
@@ -104,10 +83,10 @@
 // the halo by TMA (a tile of whole image rows, so that a tensor map
 // zero-fills and lays out the halo), which needs a new tiling.
 //
-// The halo_f32 route replaces the gather route's float32 FFMA: the CUDA
-// cores' 67 TFLOP/s bound it at 0.883 ms (56x56x64), and cuDNN's float32
-// (TF32 off) is already past that at 28x28.  It keeps float32's accuracy
-// on the tensor cores by splitting each operand v into two TF32 values,
+// The halo_f32 route keeps float32 on the tensor cores, where the CUDA
+// cores' 67 TFLOP/s bound FFMA products at 0.883 ms (56x56x64) and cuDNN's
+// float32 (TF32 off) is already past that at 28x28.  It keeps float32's
+// accuracy by splitting each operand v into two TF32 values,
 // hi = rna_tf32(v) and lo = rna_tf32(v - hi) (cvt.rna.tf32.f32: 10 stored
 // mantissa bits, unit roundoff u = 2^-11), and summing three products,
 // a_lo b_hi + a_hi b_lo + a_hi b_hi, in that order.  The error: |v - hi|
@@ -143,6 +122,83 @@
 // splits 0.08-0.15 ms.  No better: a three-stage ring of 8 channels,
 // batches of three taps, two batches in flight, products issued pass by
 // pass, m64n128 products, A from shared memory (the same stream).
+//
+// The gather route (igemm_kernel<T, kFused, BN>, at the end of this file)
+// takes the shapes the models other than ResNet route: the C = 3 stems of
+// FCN ([32, 256, 256, 3] x 16) and VGG-19 ([64, 224, 224, 3] x 64),
+// ocr_ctc's C = 1, SSD's heads (O = 8 and 42), FCN's C = 16 and 32, and
+// GoogLeNet's C = 96-160, O = 128-320.  What bounds them: bytes for the
+// stems, ocr_ctc and SSD's heads (the stems' output alone is 67 MB and 411
+// MB in bfloat16, 0.020 and 0.123 ms at 3.35 TB/s, against 1.8 and 11
+// GFLOP of products, 0.002 and 0.011 ms at 989 TFLOP/s); products for
+// GoogLeNet (bfloat16 0.006-0.022 ms, float32 as three TF32 passes
+// 0.035-0.135 ms) and for VGG-19's 224-wide float32 conv (1.43 ms).  What
+// a gather that walks K a tap at a time in 32-channel slices, with 64-wide
+// N tiles and scalar stores, loses there, and what this design does about
+// each:
+//   1. K padded per tap (at C = 3, 91% of the loads and products zeros):
+//      K is walked in 16-byte granules of channels (8 bfloat16 or 4
+//      float32, zero past C), and an mma's k is two granules that may come
+//      from two taps: ldmatrix takes one row address a lane, so the two
+//      halves of A (and of B) can point at two taps.  C = 3 costs 9 + 1
+//      granules, 5 k16 steps in bfloat16 where 32-channel slices a tap
+//      took 18;
+//   2. N padded to 64: BN, the block's output channels, is instantiated at
+//      8, 16, 24, 32, 48 and 64 and picked on the host as the least that
+//      covers O when O <= 64 (ops/conv.py::gather_bn): SSD's 8 and 42 (48),
+//      FCN's 16 and 32 waste at most 7 columns; O > 64 takes 64-wide tiles,
+//      each block keeping one;
+//   3. scalar stores where C or O is not a multiple of 16 bytes: the output
+//      is staged in shared memory (a padded row a pixel, written as pairs)
+//      and goes out as 16-byte streaming stores: where O is a multiple of
+//      16 bytes and out is aligned, a patch row's (or a pixel's) outputs
+//      are whole aligned pieces; else each segment's pieces start at the
+//      shift that aligns them in memory, so every piece inside it is one
+//      16-byte store for any O (42 included) and any pointer, and only the
+//      pieces at a segment's two ends store element by element;
+//   4. x read nine times: a tile is a TH x TW patch of the images' grid
+//      (the images one under another, a zero row between two; picked on
+//      the host from N, H and W, ops/conv.py::gather_patch: 8 x 16 at the
+//      wide images, 18 x 7 at 7x7 so a tile spans images), and its
+//      (TH + 2) x (TW + 2) halo is staged once per chunk of channels, zero
+//      off the grid (a zero-filling cp.async; element loads where C is not
+//      a multiple of a granule, the stems, held in registers across the
+//      step before).  A tap is then a shift of each lane's row address
+//      inside the halo: x crosses L2 (TH + 2)(TW + 2) / (TH TW) times,
+//      1.41x at 8 x 16.  Blocks are persistent, each on one tile of outputs
+//      over many patches: where all of w for it fits 80 KB (every model
+//      shape but GoogLeNet's, and in float32 VGG-19's c224, FCN's c64 and
+//      SSD's conf heads) it is loaded once and stays; else it streams with
+//      the halo, packed first (gather_bf16_pack_w, gather_f32_pack_w) into
+//      the stages' image, so that each chunk of it is one contiguous run of
+//      16-byte copies (gathering w's rows per tap and channel instead was
+//      the larger part of GoogLeNet's bfloat16 time).  A
+//      bfloat16 granule's 8 rows of w are swizzled by their n-block, so
+//      its copies and its ldmatrix reads stay off each other's banks.  A
+//      three-stage ring over (patch, chunk) steps keeps two
+//      steps of copies in flight while the products, epilogue and stores
+//      run; a chunk is the most granules (up to 4) whose stage fits 40 KB
+//      (ops/conv.py::gather_step_granules);
+//   5. float32 on FFMA (whose bound is above cuDNN's time at GoogLeNet's
+//      shapes): float32 runs on the tensor cores as three TF32 passes of
+//      mma.sync.m16n8k8 (the halo_f32 route's split, above, with its error
+//      bound, 7.2e-7 sum |a b|), each chunk's products in a fresh
+//      accumulator added into the float32 sum by a rounded add; w is split
+//      into its hi and lo parts once a launch (gather_f32_pack_w, laid out
+//      as the stages hold it), A in registers; both come by ldmatrix, whose
+//      16-byte rows are a granule's 4 channels, as the TF32 fragments stand.
+//      bfloat16 runs mma.sync.m16n8k16 from ldmatrix.
+// Eight warps, each one m16 tile of the patch's rows by BN; a warp whose
+// rows lie past the patch skips its products.  The TF32 passes are issued
+// pass by pass over a warp's n8 tiles, so consecutive products go to
+// different accumulators.  Tried and dropped (on an NVIDIA H100 80GB
+// HBM3; PERF.md): two m16 tiles a warp (BM 256) for GoogLeNet's bfloat16
+// shapes (no faster), narrower BN there to keep w resident (slower), a
+// per-block order of the streamed chunks (no change), and smaller patches
+// for the small grids of SSD's 38x38 heads and GoogLeNet's 7x7 (slower).  wgmma and TMA
+// are left to later work: these shapes are mostly bound by bytes, a patch
+// of 128 pixels is one wgmma M of 64 twice at most, and a TMA tensor map
+// cannot lay out two taps in one k.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -155,27 +211,12 @@ namespace {
 enum DType { kF32 = 0, kBF16 = 1 };
 
 template <typename T>
-struct Tile;
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int BM = 128, BN = 64, BK = 32, kThreads = 128;
-};
-template <>
-struct Tile<float> {
-  static constexpr int BM = 128, BN = 64, BK = 16, kThreads = 256;
-};
-
-template <typename T>
 __device__ __forceinline__ T zero_of();
 template <>
 __device__ __forceinline__ float zero_of<float>() { return 0.f; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
-}
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
 }
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -195,6 +236,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4 bytes from global to shared memory; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -206,29 +255,6 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-// c += a . b for one 16 x 8 tile, k = 16
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The epilogue of one accumulator: the folded batch norm and the ReLU
 // (fused form), in float32, multiply and add each rounded
 template <bool kFused>
@@ -238,278 +264,6 @@ __device__ __forceinline__ float epilogue(float acc, float a, float b) {
   } else {
     return acc;
   }
-}
-
-// Slice `it` of K (tap it / n_c, channels (it % n_c) * BK on) into one
-// stage: A [BM][LDA] gathered from x, B [BK][LDB] from w.  With V, by
-// 16-byte cp.async copies (committed by the caller); without, element by
-// element, stored directly.  A zero stands wherever the tap leaves the
-// image, the pixel is past M, or the channel past C; B is zero past C and O.
-template <typename T, bool V>
-__device__ __forceinline__ void load_slice(
-    T* a_s, T* b_s, const T* __restrict__ x, const T* __restrict__ w,
-    const int* s_p, const int* s_h, const int* s_w, int it, int n_c, int o0,
-    int H, int W, int C, int O) {
-  using G = Tile<T>;
-  constexpr int BM = G::BM, BN = G::BN, BK = G::BK, NT = G::kThreads;
-  constexpr int kPer = 16 / (int)sizeof(T);
-  constexpr int LDA = BK + kPer, LDB = BN + kPer;
-  const int tap = it / n_c, c0 = (it % n_c) * BK;
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const int shift = dy * W + dx;  // pixel offset of the tap
-  if constexpr (V) {
-    constexpr int kChA = BK / kPer;
-    for (int i = threadIdx.x; i < BM * kChA; i += NT) {
-      const int r = i / kChA, cc = (i % kChA) * kPer;
-      const int ih = s_h[r] + dy, iw = s_w[r] + dx, c = c0 + cc;
-      const bool ok = ih >= 0 && ih < H && iw >= 0 && iw < W && c < C;
-      const T* src = ok ? x + ((int64_t)s_p[r] + shift) * C + c : x;
-      cp_async16(a_s + r * LDA + cc, src, ok);
-    }
-    constexpr int kChB = BN / kPer;
-    for (int i = threadIdx.x; i < BK * kChB; i += NT) {
-      const int r = i / kChB, oc = (i % kChB) * kPer;
-      const int c = c0 + r, o = o0 + oc;
-      const bool ok = c < C && o < O;
-      const T* src = ok ? w + ((int64_t)tap * C + c) * O + o : w;
-      cp_async16(b_s + r * LDB + oc, src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < BM * BK; i += NT) {
-      const int r = i / BK, cc = i % BK;
-      const int ih = s_h[r] + dy, iw = s_w[r] + dx, c = c0 + cc;
-      const bool ok = ih >= 0 && ih < H && iw >= 0 && iw < W && c < C;
-      a_s[r * LDA + cc] =
-          ok ? x[((int64_t)s_p[r] + shift) * C + c] : zero_of<T>();
-    }
-    for (int i = threadIdx.x; i < BK * BN; i += NT) {
-      const int r = i / BN, oc = i % BN;
-      const int c = c0 + r, o = o0 + oc;
-      b_s[r * LDB + oc] = (c < C && o < O)
-                              ? w[((int64_t)tap * C + c) * O + o]
-                              : zero_of<T>();
-    }
-  }
-}
-
-// One block: the BM x BN output tile (pixels m0.., channels o0..).
-template <typename T, bool kFused, bool V>
-__global__ void __launch_bounds__(Tile<T>::kThreads)
-    igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const float* __restrict__ fa, const float* __restrict__ fb,
-                 T* __restrict__ out, int M, int H, int W, int C, int O,
-                 int n_ot) {
-  using G = Tile<T>;
-  constexpr int BM = G::BM, BN = G::BN, BK = G::BK, NT = G::kThreads;
-  constexpr int kPer = 16 / (int)sizeof(T);
-  constexpr int LDA = BK + kPer, LDB = BN + kPer;
-  __shared__ __align__(16) T a_s[2 * BM * LDA];
-  __shared__ __align__(16) T b_s[2 * BK * LDB];
-  __shared__ int s_p[BM], s_h[BM], s_w[BM];
-
-  const int m0 = (int)(blockIdx.x / n_ot) * BM;
-  const int o0 = (int)(blockIdx.x % n_ot) * BN;
-  const int HW = H * W;
-  for (int r = threadIdx.x; r < BM; r += NT) {
-    const int p = m0 + r;
-    if (p < M) {
-      const int hw = p % HW;
-      s_p[r] = p;
-      s_h[r] = hw / W;
-      s_w[r] = hw % W;
-    } else {  // every tap of a pixel past M falls outside the image
-      s_p[r] = 0;
-      s_h[r] = -4;
-      s_w[r] = 0;
-    }
-  }
-  __syncthreads();
-
-  const int n_c = (C + BK - 1) / BK;
-  const int n_it = 9 * n_c;
-  load_slice<T, V>(a_s, b_s, x, w, s_p, s_h, s_w, 0, n_c, o0, H, W, C, O);
-  cp_async_commit();
-
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // four warps as 2 x 2, each 64 pixels x 32 channels: 4 x 4 mma tiles
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-    const int g = lane >> 2, t4 = lane & 3;
-    float acc[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    for (int it = 0; it < n_it; ++it) {
-      if (it + 1 < n_it) {  // the other stage was freed at the end of it - 1
-        const int st = (it + 1) & 1;
-        load_slice<T, V>(a_s + st * BM * LDA, b_s + st * BK * LDB, x, w, s_p,
-                         s_h, s_w, it + 1, n_c, o0, H, W, C, O);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* as = a_s + (it & 1) * BM * LDA;
-      const T* bs = b_s + (it & 1) * BK * LDB;
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        uint32_t af[4][4], bf[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-          ldmatrix_x4(af[mi], as + (wm * 64 + mi * 16 + (lane & 15)) * LDA +
-                                  ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          ldmatrix_x4_trans(bf[np], bs + (ks * 16 + (lane & 15)) * LDB +
-                                        wn * 32 + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            mma_bf16(acc[mi][2 * np], af[mi], bf[np][0], bf[np][1]);
-            mma_bf16(acc[mi][2 * np + 1], af[mi], bf[np][2], bf[np][3]);
-          }
-      }
-      __syncthreads();  // stage it & 1 is free for slice it + 2
-    }
-
-    // lane (g, t4) holds rows g and g + 8, channels 2 t4 and 2 t4 + 1 of
-    // each 16 x 8 tile
-    float ea[4][2], eb[4][2];
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int o = o0 + wn * 32 + nj * 8 + 2 * t4 + e;
-        ea[nj][e] = (kFused && o < O) ? fa[o] : 1.f;
-        eb[nj][e] = (kFused && o < O) ? fb[o] : 0.f;
-      }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 64 + mi * 16 + g + 8 * h;
-        if (m >= M) continue;
-        T* orow = out + (int64_t)m * O;
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          const int o = o0 + wn * 32 + nj * 8 + 2 * t4;
-          const float v0 =
-              epilogue<kFused>(acc[mi][nj][2 * h], ea[nj][0], eb[nj][0]);
-          const float v1 =
-              epilogue<kFused>(acc[mi][nj][2 * h + 1], ea[nj][1], eb[nj][1]);
-          if constexpr (V) {  // O % 8 == 0: o < O means o + 1 < O
-            if (o < O)
-              *reinterpret_cast<__nv_bfloat162*>(orow + o) =
-                  __floats2bfloat162_rn(v0, v1);
-          } else {
-            if (o < O) orow[o] = __float2bfloat16(v0);
-            if (o + 1 < O) orow[o + 1] = __float2bfloat16(v1);
-          }
-        }
-      }
-  } else {
-    // 256 threads as 16 x 16, each rows ty * 8 + i and channels tx * 4 + j
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int it = 0; it < n_it; ++it) {
-      if (it + 1 < n_it) {
-        const int st = (it + 1) & 1;
-        load_slice<T, V>(a_s + st * BM * LDA, b_s + st * BK * LDB, x, w, s_p,
-                         s_h, s_w, it + 1, n_c, o0, H, W, C, O);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* as = reinterpret_cast<const float*>(a_s) + (it & 1) * BM * LDA;
-      const float* bs = reinterpret_cast<const float*>(b_s) + (it & 1) * BK * LDB;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 4) {
-        float4 av[8], bv[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          av[i] = *reinterpret_cast<const float4*>(as + (ty * 8 + i) * LDA + kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bv[j] = *reinterpret_cast<const float4*>(bs + (kk + j) * LDB + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float ak[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][0] = fmaf(ak[j], bv[j].x, acc[i][0]);
-            acc[i][1] = fmaf(ak[j], bv[j].y, acc[i][1]);
-            acc[i][2] = fmaf(ak[j], bv[j].z, acc[i][2]);
-            acc[i][3] = fmaf(ak[j], bv[j].w, acc[i][3]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    const int oc = o0 + tx * 4;
-    float ea[4], eb[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      ea[j] = (kFused && oc + j < O) ? fa[oc + j] : 1.f;
-      eb[j] = (kFused && oc + j < O) ? fb[oc + j] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + ty * 8 + i;
-      if (m >= M) continue;
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = epilogue<kFused>(acc[i][j], ea[j], eb[j]);
-      float* orow = reinterpret_cast<float*>(out) + (int64_t)m * O;
-      if constexpr (V) {  // O % 4 == 0: oc < O means oc + 3 < O
-        if (oc < O)
-          *reinterpret_cast<float4*>(orow + oc) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (oc + j < O) orow[oc + j] = v[j];
-      }
-    }
-  }
-}
-
-template <typename T, bool kFused, bool V>
-int launch(const void* x, const void* w, const float* fa, const float* fb,
-           void* out, int M, int H, int W, int C, int O, cudaStream_t st) {
-  using G = Tile<T>;
-  const int64_t n_mt = ((int64_t)M + G::BM - 1) / G::BM;
-  const int n_ot = (O + G::BN - 1) / G::BN;
-  const int64_t blocks = n_mt * n_ot;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  igemm_kernel<T, kFused, V><<<(unsigned)blocks, G::kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), fa, fb,
-      static_cast<T*>(out), M, H, W, C, O, n_ot);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* x, const void* w, const float* fa, const float* fb,
-             void* out, int M, int H, int W, int C, int O, int fused, int vec,
-             cudaStream_t st) {
-  if (fused) {
-    return vec ? launch<T, true, true>(x, w, fa, fb, out, M, H, W, C, O, st)
-               : launch<T, true, false>(x, w, fa, fb, out, M, H, W, C, O, st);
-  }
-  return vec ? launch<T, false, true>(x, w, fa, fb, out, M, H, W, C, O, st)
-             : launch<T, false, false>(x, w, fa, fb, out, M, H, W, C, O, st);
 }
 
 // ------------------------------------------------------------ halo route
@@ -1176,31 +930,889 @@ int launch_halo_f32(const void* x, const void* w, const float* fa,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ gather route
+//
+// Any N, H, W, C, O and pointers (see the note at the head).  The images
+// lie on one grid of NG = N (H + 1) - 1 rows of W pixels: image n's row h
+// is grid row n (H + 1) + h, and a zero row lies between two images.  A
+// tile is a TH x TW patch of the grid (TH TW <= BM pixels) and BN output
+// channels; halo point p = hr (TW + 2) + hc holds grid pixel (h0 - 1 + hr,
+// w0 - 1 + hc), zero off the grid or on a zero row, so patch pixel r = ph
+// TW + pw reads tap (dy, dx) at point (ph + dy)(TW + 2) + pw + dx.  K is
+// walked in chunks of CGs granules (16 bytes of channels each; CGs picked
+// on the host, at most kGranules); unit u = g * 9 + tap of a chunk is
+// granule g of tap `tap`, and an mma's k takes units 2 ks and 2 ks + 1 (a
+// zero unit past the chunk's 9 CG).  A chunk's halo is [CG][point][16
+// bytes], its w 16-byte rows (gather_load_w, gather_f32_pack_w).
+//
+// The grid is persistent: as many blocks as fit the card, a multiple of
+// the output-channel tiles, so each block keeps one tile of outputs and
+// walks its patches.  When all of w's chunks for those outputs fit
+// kGatherWRes bytes (every model shape but GoogLeNet's, VGG-19's float32
+// c224, and FCN's c64 and SSD's conf heads in float32) they are loaded once
+// and stay, and the ring holds halos only; else w streams through the ring
+// with the halo, in chunks small enough for three stages, each chunk copied
+// whole from the image that a small kernel packed first.  The ring runs
+// over (patch, chunk) steps, kStages - 1 ahead, so copies are in flight
+// while the products, epilogue and stores run; where x is read element by
+// element (C below a granule: the stems) the step's loads go to registers
+// before the products of the step before and to shared memory after them.
+// The output is staged in the stage just used when it fits there, else
+// past the ring.
+struct Gather {
+  static constexpr int BM = 128, kGranules = 4, kStages = 3, kThreads = 256;
+};
+// the patch rows a warp multiplies: one m16 tile
+constexpr int kGatherWarpRows = Gather::BM / (Gather::kThreads / 32);
+// bytes below w and the ring: 16 zero bytes (the zero unit's operands);
+// from byte kGatherSegs the tile's segment table (an int a segment); from
+// byte kGatherUnits the chunk's unit tables (a unit's A and B offsets,
+// kGatherUnitsN ints each)
+constexpr int kGatherSegs = 128;
+constexpr int kGatherUnits = kGatherSegs + 4 * Gather::BM;
+constexpr int kGatherUnitsN = 9 * Gather::kGranules + 4;
+constexpr int kGatherRing = 1024;
+static_assert(kGatherUnits + 8 * kGatherUnitsN <= kGatherRing,
+              "the tables fit below the ring");
+// the most bytes of w that stay in shared memory for a whole launch
+constexpr int kGatherWRes = 80 * 1024;
+// the most bytes of a stage that streams w
+constexpr int kGatherStage = 40 * 1024;
+// elements past BN in a staged pixel's row (rows then start 16 bytes apart
+// across the banks)
+constexpr int kGatherPad = 8;
+// the block's shared memory at most (an H100 block's opt-in limit)
+constexpr int kGatherSmemMax = 232448;
+// halo points a thread takes (at most (BM + 2) 3 in a patch)
+constexpr int kGatherPend = ((Gather::BM + 2) * 3 + Gather::kThreads - 1) /
+                            Gather::kThreads;
+static_assert(kGatherWarpRows == 16,
+              "the fragments are written for one m16 tile a warp");
+// blocks an SM should hold, by BN and the element's bytes: narrow tiles
+// are bound by bytes and want warps in flight; registers are capped to fit
+// them (float32 holds twice the fragments)
+__host__ __device__ constexpr int gather_min_blocks(int BN, int elt) {
+  return BN * elt <= 64 ? 3 : 2;
+}
+
+// granules of C channels, at most `cap`
+__host__ __device__ __forceinline__ int gather_granules(int C, int per,
+                                                        int cap) {
+  const int g = (C + per - 1) / per;
+  return g < cap ? g : cap;
+}
+__host__ __device__ __forceinline__ int gather_chunks(int C, int per,
+                                                      int CGs) {
+  return (C + CGs * per - 1) / (CGs * per);
+}
+// bytes of one chunk's halo ((TH + 2)(TW + 2) points) and of its w (9 BN
+// rows of 8 outputs; float32 twice, its TF32 hi and lo parts), CG granules
+__host__ __device__ __forceinline__ int gather_halo_bytes(int TH, int TW,
+                                                          int CG) {
+  return 16 * CG * (TH + 2) * (TW + 2);
+}
+__host__ __device__ __forceinline__ int gather_w_bytes(int BN, int CG,
+                                                       int elt) {
+  return 16 * CG * 9 * BN * (elt == 4 ? 2 : 1);
+}
+// whether all of w's chunks of CGs granules for one output tile stay
+__host__ __device__ __forceinline__ bool gather_resident(int C, int BN,
+                                                         int elt, int CGs) {
+  return gather_chunks(C, 16 / elt, CGs) * gather_w_bytes(BN, CGs, elt) <=
+         kGatherWRes;
+}
+// one stage of the ring: a halo, and w unless resident
+__host__ __device__ __forceinline__ int gather_stage_bytes(int TH, int TW,
+                                                           int BN, int C,
+                                                           int elt, int CGs) {
+  return gather_halo_bytes(TH, TW, CGs) +
+         (gather_resident(C, BN, elt, CGs) ? 0
+                                           : gather_w_bytes(BN, CGs, elt));
+}
+// bytes of the staged output: a row of BN + kGatherPad elements a pixel
+__host__ __device__ __forceinline__ int gather_staged_bytes(int TH, int TW,
+                                                            int BN, int elt) {
+  return TH * TW * (BN + kGatherPad) * elt;
+}
+// the block's shared memory: the zero bytes, resident w, the ring's stages
+// and, unless it fits a stage, the staged output
+__host__ __device__ __forceinline__ int gather_smem_bytes(int TH, int TW,
+                                                          int BN, int C,
+                                                          int elt, int CGs) {
+  const int stage = gather_stage_bytes(TH, TW, BN, C, elt, CGs);
+  const int staged = gather_staged_bytes(TH, TW, BN, elt);
+  return kGatherRing +
+         (gather_resident(C, BN, elt, CGs)
+              ? gather_chunks(C, 16 / elt, CGs) *
+                    gather_w_bytes(BN, CGs, elt)
+              : 0) +
+         Gather::kStages * stage + (staged <= stage ? 0 : staged);
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
+// c += a . b for one 16 x 8 tile, k = 16 (bfloat16) or k = 8 (TF32),
+// float32 sums; register-only, so the compiler may interleave them
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes of a granule's values, in order
+__device__ __forceinline__ uint4 pack16(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 pack16(const __nv_bfloat16 (&v)[8]) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    u[i] = (uint32_t)__bfloat16_as_ushort(v[2 * i]) |
+           ((uint32_t)__bfloat16_as_ushort(v[2 * i + 1]) << 16);
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// The grid pixel (row R, column col) as an index of x's pixels, or -1 off
+// the grid and on the zero rows between images
+__device__ __forceinline__ int gather_pixel(int R, int col, int H, int W,
+                                            int NG) {
+  if (R < 0 || R >= NG || col < 0 || col >= W) return -1;
+  const int n = R / (H + 1), h = R - n * (H + 1);
+  return h < H ? (n * H + h) * W + col : -1;
+}
+
+// The element-loaded halo points of gather_load_halo (one granule each)
+// into `hs`
+template <typename T, int K>
+__device__ __forceinline__ void gather_store_halo(
+    uint8_t* hs, int NP, const T (&pv)[K][16 / sizeof(T)]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = (int)threadIdx.x + k * Gather::kThreads;
+    if (p < NP) *reinterpret_cast<uint4*>(hs + 16 * p) = pack16(pv[k]);
+  }
+}
+
+// One chunk's halo (channels c0 on, CG granules) into `hs`: granule g of
+// point p at byte 16 (g NP + p), zero off the grid and past C.  A thread
+// takes the points p = threadIdx.x + k NT, whose halo rows and columns
+// (hr[k], hc[k]; hr -1 past NP) are fixed for the launch; grid row h0 - 1
+// is split into image and row once, and each point's row follows from it
+// by carries.  Where C is a multiple of a granule and x is aligned (vec_x),
+// 16-byte cp.async copies (committed by the caller).  Else element loads:
+// with one granule a point (C below a granule: the stems) into `pv`, stored
+// by gather_store_halo at once or, with `defer`, after the products of the
+// step before; with more (no model shape), stored here.
+template <typename T, int K>
+__device__ __forceinline__ void gather_load_halo(
+    uint8_t* hs, const T* __restrict__ x, int h0, int w0, int c0, int CG,
+    int H, int W, int C, int NG, int NP, const int (&hr)[K],
+    const int (&hc)[K], bool vec_x, T (&pv)[K][16 / sizeof(T)], bool defer) {
+  constexpr int per = 16 / (int)sizeof(T);
+  const int n0 = h0 >= 1 ? (h0 - 1) / (H + 1) : -1;
+  const int row0 = h0 - 1 - n0 * (H + 1);   // H: a zero row
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (hr[k] < 0) continue;
+    int n = n0, row = row0 + hr[k];
+    while (row > H) row -= H + 1, ++n;
+    const int col = w0 - 1 + hc[k];
+    const bool in = h0 - 1 + hr[k] >= 0 && h0 - 1 + hr[k] < NG && row < H &&
+                    col >= 0 && col < W;
+    const int64_t off = ((int64_t)(n * H + row) * W + col) * C + c0;
+    const int p = (int)threadIdx.x + k * Gather::kThreads;
+    if (vec_x) {
+      for (int g = 0; g < CG; ++g)
+        cp_async16(hs + 16 * (g * NP + p), in ? x + off + g * per : x, in);
+    } else if (CG == 1) {
+#pragma unroll
+      for (int j = 0; j < per; ++j)
+        pv[k][j] = (in && c0 + j < C) ? x[off + j] : zero_of<T>();
+    } else {
+      for (int g = 0; g < CG; ++g) {
+        T v[per];
+#pragma unroll
+        for (int j = 0; j < per; ++j)
+          v[j] = (in && c0 + g * per + j < C) ? x[off + g * per + j]
+                                              : zero_of<T>();
+        *reinterpret_cast<uint4*>(hs + 16 * (g * NP + p)) = pack16(v);
+      }
+    }
+  }
+  if (!vec_x && CG == 1 && !defer) gather_store_halo<T, K>(hs, NP, pv);
+}
+
+// The row of bfloat16 w that holds channel cl (of a chunk) for the outputs
+// of n-block nb of tap `tap`: rows of 8 outputs of one channel, a granule's
+// 8 channels in 8 rows whose order is swizzled by nb (row cl % 8 at
+// (cl % 8) xor (nb % 8)), so that the copies of one channel into 8 n-blocks
+// fall on 8 different banks and a granule's 8 rows, read by ldmatrix, still
+// do
+__device__ __forceinline__ int gather_w_row(int tap, int nb, int cl, int NB,
+                                            int CGs) {
+  return (tap * NB + nb) * CGs * 8 + (cl & ~7) + ((cl & 7) ^ (nb & 7));
+}
+
+// One bfloat16 chunk's w (channels c0 on, CG granules, outputs o0 .. o0 +
+// BN) into `ws`, zero past C and O: output o0 + ol of channel c0 + cl of
+// tap `tap` at element 8 gather_w_row(tap, ol / 8, cl) + ol % 8 (read
+// transposed); by 16-byte cp.async copies where O is a multiple of a
+// granule and w is aligned (vec_w 2), by 4-byte ones of two outputs where O
+// is even (vec_w 1, SSD's 42), element loads otherwise.
+template <int BN>
+__device__ __forceinline__ void gather_load_w(
+    uint8_t* wsb, const __nv_bfloat16* __restrict__ w, int o0, int c0, int CG,
+    int C, int O, int CGs, int vec_w) {
+  constexpr int NB = BN / 8, NT = Gather::kThreads;
+  const int CKc = CG * 8;
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(wsb);
+  for (int tap = 0; tap < 9; ++tap) {
+    const __nv_bfloat16* wt = w + (int64_t)tap * C * O;
+    if (vec_w == 2) {
+      for (int i = threadIdx.x; i < CKc * NB; i += NT) {
+        const int cl = i / NB, q = i - cl * NB;
+        const int c = c0 + cl, o = o0 + q * 8;
+        const bool ok = c < C && o < O;
+        cp_async16(ws + gather_w_row(tap, q, cl, NB, CGs) * 8,
+                   ok ? wt + ((int64_t)c * O + o) : w, ok);
+      }
+    } else if (vec_w == 1) {
+      for (int i = threadIdx.x; i < CKc * (BN / 2); i += NT) {
+        const int cl = i / (BN / 2), ol = 2 * (i - cl * (BN / 2));
+        const int c = c0 + cl, o = o0 + ol;
+        const bool ok = c < C && o < O;
+        cp_async4(ws + gather_w_row(tap, ol / 8, cl, NB, CGs) * 8 + ol % 8,
+                  ok ? wt + ((int64_t)c * O + o) : w, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < CKc * BN; i += NT) {
+        const int cl = i / BN, ol = i - cl * BN;
+        const int c = c0 + cl, o = o0 + ol;
+        ws[gather_w_row(tap, ol / 8, cl, NB, CGs) * 8 + ol % 8] =
+            (c < C && o < O) ? wt[(int64_t)c * O + o]
+                             : zero_of<__nv_bfloat16>();
+      }
+    }
+  }
+}
+
+// `bytes` contiguous bytes (a multiple of 16) by 16-byte cp.async copies
+__device__ __forceinline__ void gather_copy(uint8_t* dst, const uint8_t* src,
+                                            int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += Gather::kThreads * 16)
+    cp_async16(dst + i, src + i, true);
+}
+
+// w [3, 3, C, O] float32 split into TF32 hi and lo parts and packed for
+// the gather route: each (output tile ot, chunk ch) is the image of its
+// stage's w, 2 gather_w_bytes(BN, CGs, 2) contiguous bytes, hi rows then lo
+// rows, a row the 4 channels of granule gs of one output: float4 unit
+// ((((ot n_ch + ch) 2 + half) 9 + tap) BN / 8 + nb) CGs 8 + gs 8 + n8 holds
+// channels (ch CGs + gs) 4 .. + 4 of output ot BN + nb 8 + n8, zero past C
+// and O.  One thread a unit (the hi and lo halves).
+__global__ void gather_f32_pack_w(const float* __restrict__ w,
+                                  float4* __restrict__ wp, int C, int O,
+                                  int BN, int CGs, int n_ch, int n_ot) {
+  const int NB = BN / 8;
+  const int64_t half = (int64_t)9 * NB * CGs * 8;
+  const int64_t units = (int64_t)n_ot * n_ch * half;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < units;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t r = i;
+    const int n8 = (int)(r % 8);
+    r /= 8;
+    const int gs = (int)(r % CGs);
+    r /= CGs;
+    const int nb = (int)(r % NB);
+    r /= NB;
+    const int tap = (int)(r % 9);
+    r /= 9;
+    const int ch = (int)(r % n_ch);
+    const int ot = (int)(r / n_ch);
+    const int o = ot * BN + nb * 8 + n8, c0 = (ch * CGs + gs) * 4;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float v = (o < O && c0 + k < C)
+                          ? w[((int64_t)tap * C + c0 + k) * O + o]
+                          : 0.f;
+      tf32_split(v, hi[k], lo[k]);
+    }
+    const int64_t dst = ((int64_t)(ot * n_ch + ch) * 2 * 9 + tap) *
+                            (NB * CGs * 8) +
+                        (nb * CGs + gs) * 8 + n8;
+    wp[dst] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                          __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+    wp[dst + half] =
+        make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                    __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+  }
+}
+
+// bfloat16 w [3, 3, C, O] packed for the gather route where it streams:
+// each (output tile ot, chunk ch) is the image of its stage's w,
+// gather_w_bytes(BN, CGs, 2) contiguous bytes, row gather_w_row(tap, nb,
+// cl) of 8 outputs at row (ot n_ch + ch) 9 BN / 8 CGs 8 + that, zero past
+// C and O.  One thread a row.
+__global__ void gather_bf16_pack_w(const __nv_bfloat16* __restrict__ w,
+                                   uint4* __restrict__ wp, int C, int O,
+                                   int BN, int CGs, int n_ch, int n_ot) {
+  const int NB = BN / 8;
+  const int64_t chunk = (int64_t)9 * NB * CGs * 8;   // rows of a chunk
+  const int64_t units = (int64_t)n_ot * n_ch * chunk;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < units;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t r = i;
+    const int cl = (int)(r % (CGs * 8));
+    r /= CGs * 8;
+    const int nb = (int)(r % NB);
+    r /= NB;
+    const int tap = (int)(r % 9);
+    r /= 9;
+    const int ch = (int)(r % n_ch);
+    const int ot = (int)(r / n_ch);
+    const int c = ch * CGs * 8 + cl, o = ot * BN + nb * 8;
+    __nv_bfloat16 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = (c < C && o + k < O) ? w[((int64_t)tap * C + c) * O + o + k]
+                                  : zero_of<__nv_bfloat16>();
+    wp[(int64_t)(ot * n_ch + ch) * chunk + gather_w_row(tap, nb, cl, NB,
+                                                        CGs)] = pack16(v);
+  }
+}
+
+// The products of one chunk, acc += A . B over its nu units.  Both
+// operands come by ldmatrix from 16-byte rows: lane l gives A's row l % 16
+// of the warp's m16 tile (its halo point pa) in unit 2 ks + l / 16, and B's
+// row l % 8 of unit 2 ks + (l / 8) % 2 in n-block j + l / 16; unit u's rows
+// start atab[u] bytes into the halo and btab[u] into w, and the zero unit
+// reads the 16 zero bytes at `zero`.  bfloat16: B's rows are 8 outputs of
+// a channel, read transposed; one m16n8k16 a tile.  float32: A's and B's
+// rows are a granule's 4 channels, so a lane gets the m16n8k8 TF32
+// fragments as they stand (a0-a3; b0-b1 of the hi rows at `ws`, of the lo
+// rows wlo bytes on); A is split into hi and lo in registers, and the
+// three passes go a_lo b_hi, then a_hi b_lo, then a_hi b_hi into each
+// accumulator, pass by pass over the n8 tiles.  Steps go U at a time so
+// that narrow tiles have loads in flight across steps.
+template <typename T, int BN>
+__device__ __forceinline__ void gather_mma(float (&acc)[BN / 8][4],
+                                           uint32_t hs, uint32_t ws,
+                                           uint32_t wlo, uint32_t zero,
+                                           const int* atab, const int* btab,
+                                           int pa, int nu, int CGs,
+                                           int lane) {
+  constexpr int NB = BN / 8, U = NB <= 2 ? 4 : 2;
+  constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
+  const int n_ks = (nu + 1) / 2;
+  const uint32_t wsl = ws + (lane & 7) * 16;
+  const int nbl = (lane >> 4) * CGs * 128;
+  for (int ks0 = 0; ks0 < n_ks; ks0 += U) {
+#pragma unroll
+    for (int uu = 0; uu < U; ++uu) {
+      const int ks = ks0 + uu;
+      if (ks >= n_ks) break;
+      const int ua = 2 * ks + (lane >> 4), ub = 2 * ks + ((lane >> 3) & 1);
+      uint32_t af[4];
+      ldsm_x4(af, ua < nu ? hs + pa * 16 + atab[ua] : zero);
+      const uint32_t brow = wsl + btab[ub];
+      const bool bok = ub < nu;
+      if constexpr (kBF16) {
+        // rows swizzled by n-block (gather_w_row): this lane's row of
+        // n-block nb at ((lane % 8) xor (nb % 8))
+        const uint32_t bsw = ws + btab[ub];
+        uint32_t bf[NB][2];
+#pragma unroll
+        for (int j = 0; j < NB; j += 2) {
+          if (j + 1 < NB) {
+            uint32_t b4[4];
+            const int nb = j + (lane >> 4);
+            ldsm_x4_t(b4, bok ? bsw + (nb * CGs * 8 + ((lane & 7) ^ (nb & 7)))
+                                          * 16
+                              : zero);
+            bf[j][0] = b4[0];
+            bf[j][1] = b4[1];
+            bf[j + 1][0] = b4[2];
+            bf[j + 1][1] = b4[3];
+          } else {
+            ldsm_x2_t(bf[j], bok ? bsw + (j * CGs * 8 + ((lane & 7) ^ (j & 7)))
+                                         * 16
+                                 : zero);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          mma16816(acc[j], af, bf[j][0], bf[j][1]);
+      } else {
+        uint32_t ah[4], al[4], bh[NB][2], bl[NB][2];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tf32_split(__uint_as_float(af[e]), ah[e], al[e]);
+#pragma unroll
+        for (int j = 0; j < NB; j += 2) {
+          if (j + 1 < NB) {
+            uint32_t h4[4], l4[4];
+            const uint32_t at = brow + j * CGs * 128 + nbl;
+            ldsm_x4(h4, bok ? at : zero);
+            ldsm_x4(l4, bok ? at + wlo : zero);
+            bh[j][0] = h4[0];
+            bh[j][1] = h4[1];
+            bh[j + 1][0] = h4[2];
+            bh[j + 1][1] = h4[3];
+            bl[j][0] = l4[0];
+            bl[j][1] = l4[1];
+            bl[j + 1][0] = l4[2];
+            bl[j + 1][1] = l4[3];
+          } else {
+            const uint32_t at = brow + j * CGs * 128;
+            ldsm_x2(bh[j], bok ? at : zero);
+            ldsm_x2(bl[j], bok ? at + wlo : zero);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NB; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
+      }
+    }
+  }
+}
+
+// The image pixel that starts output segment `sg` of the patch at grid
+// (h0, w0) (a patch row of TW pixels x O when the block holds all of O,
+// `covers`; else pixel sg's BN outputs), or -1 where it holds no pixel of
+// an image (off the grid, a zero row)
+__device__ __forceinline__ int gather_segment(bool covers, int sg, int h0,
+                                              int w0, int H, int W, int TW,
+                                              int NG) {
+  const int ph = covers ? sg : sg / TW, pw = covers ? 0 : sg - ph * TW;
+  return gather_pixel(h0 + ph, w0 + pw, H, W, NG);
+}
+
+// One block: output channels o0 .. o0 + BN of the patches t = blockIdx.x,
+// blockIdx.x + gridDim.x, ... of the n_tiles (patch t / n_ot, o0 = (t %
+// n_ot) BN: gridDim.x is a multiple of n_ot, so o0 is the block's own).
+// w is float32's as gather_f32_pack_w packs it; bfloat16's as
+// gather_bf16_pack_w packs it where it streams, w itself where it stays.
+template <typename T, bool kFused, int BN>
+__global__ void __launch_bounds__(Gather::kThreads,
+                                  gather_min_blocks(BN, sizeof(T)))
+    igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const float* __restrict__ fa, const float* __restrict__ fb,
+                 T* __restrict__ out, int N, int H, int W, int C, int O,
+                 int TH, int TW, int nW, int n_ot, int n_tiles, int CGs,
+                 int vec_x, int vec_w, int vec_o) {
+  constexpr int per = 16 / (int)sizeof(T);          // channels a granule
+  constexpr int NB = BN / 8, NT = Gather::kThreads, S = Gather::kStages;
+  constexpr int SX = BN + kGatherPad, elt = (int)sizeof(T);
+  constexpr int K = kGatherPend;
+  constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int NG = N * (H + 1) - 1;
+  const int PW = TW + 2, NP = (TH + 2) * PW, rows = TH * TW;
+  const int CK = CGs * per;                          // channels a chunk
+  const int n_ch = gather_chunks(C, per, CGs);
+  const bool res = gather_resident(C, BN, elt, CGs), covers = n_ot == 1;
+  const int hb = gather_halo_bytes(TH, TW, CGs);
+  const int wb = gather_w_bytes(BN, CGs, elt);
+  const int stage = gather_stage_bytes(TH, TW, BN, C, elt, CGs);
+  const bool in_ring = gather_staged_bytes(TH, TW, BN, elt) <= stage;
+  uint8_t* wres = smem + kGatherRing;
+  uint8_t* ring = wres + (res ? n_ch * wb : 0);
+  int* segs = reinterpret_cast<int*>(smem + kGatherSegs);
+  int* atab = reinterpret_cast<int*>(smem + kGatherUnits);
+  int* btab = atab + kGatherUnitsN;
+  if (threadIdx.x < 4) reinterpret_cast<uint32_t*>(smem)[threadIdx.x] = 0u;
+  // unit u = g * 9 + tap: its A rows at point tap's shift of granule g's
+  // halo, its B rows at tap's and g's rows of w (past the chunk: 0)
+  if (threadIdx.x < kGatherUnitsN) {
+    const int u = threadIdx.x, gu = u / 9, tu = u - 9 * gu;
+    const bool ok = gu < CGs;
+    atab[u] = ok ? (gu * NP + (tu / 3) * PW + tu % 3) * 16 : 0;
+    btab[u] = ok ? ((tu * NB) * CGs + gu) * 128 : 0;
+  }
+  // this thread's halo points threadIdx.x + k NT as (row, column)
+  int hr[K], hc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = (int)threadIdx.x + k * NT;
+    hr[k] = p < NP ? p / PW : -1;
+    hc[k] = p - max(hr[k], 0) * PW;
+  }
+
+  const int ot = (int)blockIdx.x % n_ot, o0 = ot * BN;
+  const int my = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int steps = my * n_ch;
+  // a chunk's w: copied from its packed image, or (resident bfloat16)
+  // loaded from w itself
+  auto load_w = [&](uint8_t* dst, int ch) {
+    if constexpr (kBF16) {
+      if (res) {
+        gather_load_w<BN>(dst, w, o0, ch * CK,
+                          gather_granules(C - ch * CK, per, CGs), C, O, CGs,
+                          vec_w);
+        return;
+      }
+    }
+    gather_copy(dst,
+                reinterpret_cast<const uint8_t*>(w) +
+                    (int64_t)(ot * n_ch + ch) * wb,
+                wb);
+  };
+  T pv[K][per];   // element-loaded halo points in flight
+  // step s: chunk s % n_ch of the block's patch s / n_ch, into stage s % S
+  auto issue = [&](int s, bool defer) {
+    if (s >= steps) return;
+    const int t = (int)blockIdx.x + (s / n_ch) * (int)gridDim.x;
+    const int patch = t / n_ot, ch = s % n_ch;
+    const int h0 = (patch / nW) * TH, w0 = (patch % nW) * TW;
+    uint8_t* st = ring + (s % S) * stage;
+    gather_load_halo<T, K>(st, x, h0, w0, ch * CK,
+                        gather_granules(C - ch * CK, per, CGs), H, W, C, NG,
+                        NP, hr, hc, vec_x, pv, defer);
+    if (!res) load_w(st + hb, ch);
+  };
+  // the ring's first S - 1 steps, one commit group each, resident w's chunk
+  // s in step s's (the rest in the last), so the first patch starts on its
+  // first chunk; every later step commits one group too, empty past the
+  // last
+  for (int s = 0; s < S - 1; ++s) {
+    if (res)
+      for (int ch = s; ch < (s < S - 2 ? s + 1 : n_ch); ++ch)
+        load_w(wres + ch * wb, ch);
+    issue(s, false);
+    cp_async_commit();
+  }
+  // the halo of a step S - 1 on waits in registers (pv) while the step
+  // before it runs
+  const bool held = !vec_x && gather_granules(C, per, CGs) == 1;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * kGatherWarpRows;
+  const bool live = r0 < rows;   // the warp's m16 tile holds patch pixels
+  // this lane's ldmatrix row of the patch as a halo point (tap (0, 0));
+  // rows past the patch read point 0 and are dropped
+  const int ra = r0 + (lane & 15);
+  const int pa = ra < rows ? (ra / TW) * PW + ra % TW : 0;
+  const uint64_t base = (uint64_t)(uintptr_t)out / sizeof(T);
+  float acc[NB][4];
+
+  for (int s = 0; s < steps; ++s) {
+    const int ch = s % n_ch;
+    // step s + S - 1 into the stage step s - 1 freed; step s's copies done
+    issue(s + S - 1, true);
+    cp_async_commit();
+    cp_async_wait<S - 1>();
+    __syncthreads();
+    if (ch == 0) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    }
+    uint8_t* st = ring + (s % S) * stage;
+    const uint32_t wsa = smem_u32(res ? wres + ch * wb : st + hb);
+    const int nu = 9 * gather_granules(C - ch * CK, per, CGs);
+    if (live) {
+      if constexpr (kBF16) {
+        gather_mma<T, BN>(acc, smem_u32(st), wsa, 0, smem_u32(smem), atab,
+                          btab, pa, nu, CGs, lane);
+      } else {
+        float part[NB][4];
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+        gather_mma<T, BN>(part, smem_u32(st), wsa, wb / 2, smem_u32(smem),
+                          atab, btab, pa, nu, CGs, lane);
+        // the chunk's products promoted into the float32 sum
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[j][e] = __fadd_rn(acc[j][e], part[j][e]);
+      }
+    }
+    if (held && s + S - 1 < steps)
+      gather_store_halo<T, K>(ring + ((s + S - 1) % S) * stage, NP, pv);
+    if (ch == n_ch - 1) {
+      const int patch = ((int)blockIdx.x + (s / n_ch) * (int)gridDim.x) /
+                        n_ot;
+      const int h0 = (patch / nW) * TH, w0 = (patch % nW) * TW;
+      // the staged tile: pixel r's outputs in a row of SX elements, in the
+      // stage just used (after every warp's products) or past the ring;
+      // the segments' first pixels in segs
+      T* so = reinterpret_cast<T*>(in_ring ? st : ring + S * stage);
+      const int n_seg = covers ? TH : rows;
+      for (int sg = threadIdx.x; sg < n_seg; sg += NT)
+        segs[sg] = gather_segment(covers, sg, h0, w0, H, W, TW, NG);
+      if (in_ring) __syncthreads();
+      // lane (g, t4) holds rows g and g + 8 of the m16 tile, outputs 2 t4
+      // and 2 t4 + 1 of each n8 tile: one 4- or 8-byte store each pair
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + g + 8 * hh;
+        if (!live || r >= rows) continue;
+        T* d = so + r * SX + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = min(o0 + j * 8 + 2 * t4 + e, O - 1);
+            v[e] = epilogue<kFused>(acc[j][2 * hh + e], kFused ? fa[o] : 1.f,
+                                    kFused ? fb[o] : 0.f);
+          }
+          if constexpr (kBF16) {
+            *reinterpret_cast<__nv_bfloat162*>(d + j * 8) =
+                __floats2bfloat162_rn(v[0], v[1]);
+          } else {
+            *reinterpret_cast<float2*>(d + j * 8) = make_float2(v[0], v[1]);
+          }
+        }
+      }
+      __syncthreads();
+      // the segments out in 16-byte pieces, streamed past the caches
+      const int TWv = min(TW, W - w0), BNv = min(BN, O - o0);
+      if (vec_o && covers) {
+        // every row starts on a 16-byte boundary: warp w takes patch rows
+        // w, w + 8, ..., its lanes the row's pieces in order
+        const int OP = O / per;   // pieces a pixel
+        for (int ph = warp; ph < TH; ph += NT / 32) {
+          const int pix = segs[ph];
+          if (pix < 0) continue;
+          uint4* dst = reinterpret_cast<uint4*>(out + (int64_t)pix * O);
+          for (int q = lane; q < TWv * OP; q += 32) {
+            const int pw = q / OP;
+            __stcs(dst + q, *reinterpret_cast<const uint4*>(
+                                so + (ph * TW + pw) * SX + (q - pw * OP) * per));
+          }
+        }
+      } else if (vec_o) {
+        // every pixel's BN outputs start on a 16-byte boundary
+        constexpr int PS = BN / per;   // pieces a pixel
+        for (int i = threadIdx.x; i < rows * PS; i += NT) {
+          const int r = i / PS, q = i - r * PS;
+          const int pix = segs[r];
+          if (pix < 0 || q * per >= BNv) continue;
+          __stcs(reinterpret_cast<uint4*>(out + (int64_t)pix * O + o0 +
+                                          q * per),
+                 *reinterpret_cast<const uint4*>(so + r * SX + q * per));
+        }
+      } else {
+        // pieces of per elements on per-element boundaries of memory (a
+        // segment's first piece starts sh = its first element's address /
+        // sizeof(T) mod per before it): a whole piece is one 16-byte
+        // store; a piece that the segment cuts stores its elements one by
+        // one
+        const int QS = ((covers ? TW * O : BN) + 2 * per - 2) / per;
+        const int Ov = covers ? O : BN;
+        for (int i = threadIdx.x; i < n_seg * QS; i += NT) {
+          const int sg = i / QS, q = i - sg * QS;
+          const int pix = segs[sg];
+          if (pix < 0) continue;
+          const int64_t first = (int64_t)pix * O + (covers ? 0 : o0);
+          const int len = covers ? TWv * O : BNv;
+          const int px = covers ? sg * TW : sg;
+          const int sh = (int)((base + first) & (per - 1));
+          const int lo = q * per - sh;   // the piece's first element
+          const int vs = max(lo, 0), ve = min(lo + per, len);
+          if (vs >= ve) continue;
+          // element vs: staged pixel pk, output c; then on by carries
+          int pk = px + vs / Ov, c = vs - (vs / Ov) * Ov;
+          if (vs == lo && ve == lo + per) {
+            T e[per];
+#pragma unroll
+            for (int k = 0; k < per; ++k) {
+              e[k] = so[pk * SX + c];
+              if (++c == Ov) c = 0, ++pk;
+            }
+            __stcs(reinterpret_cast<uint4*>(out + (first + lo)), pack16(e));
+          } else {
+            for (int k = vs; k < ve; ++k) {
+              out[first + k] = so[pk * SX + c];
+              if (++c == Ov) c = 0, ++pk;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage s % S is free for step s + S, the staging too
+  }
+  cp_async_wait<0>();   // no copy outlives the block (the empty groups)
+}
+
+template <typename T, bool kFused, int BN>
+int launch_gather(const void* x, const void* w, const float* fa,
+                  const float* fb, void* out, void* wp, int N, int H, int W,
+                  int C, int O, int TH, int TW, int CGs, cudaStream_t st) {
+  constexpr int per = 16 / (int)sizeof(T), elt = (int)sizeof(T);
+  const int64_t NG = (int64_t)N * (H + 1) - 1;
+  const int64_t nH = (NG + TH - 1) / TH, nW = (W + TW - 1) / TW;
+  const int n_ot = (O + BN - 1) / BN;
+  const int64_t n_tiles = nH * nW * n_ot;
+  if (NG + TH + 2 > 0x7fffffff || n_tiles > 0x7fffffff)
+    return (int)cudaErrorInvalidConfiguration;
+  const int smem = gather_smem_bytes(TH, TW, BN, C, elt, CGs);
+  if (smem > kGatherSmemMax) return (int)cudaErrorInvalidValue;
+  // the attribute and the card's SMs once per instantiation; the blocks an
+  // SM holds at this launch's shared memory, kept for the last size asked
+  static bool sized = false;
+  static int occ_smem = -1, occ = 0, sms = 0;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        igemm_kernel<T, kFused, BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kGatherSmemMax);
+    int dev = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  if (smem != occ_smem) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, igemm_kernel<T, kFused, BN>, Gather::kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    occ_smem = smem;
+  }
+  // a multiple of n_ot blocks, at most the tiles and what the card holds
+  int64_t grid = (int64_t)(occ > 0 ? occ : 1) * sms;
+  if (grid > n_tiles) grid = n_tiles;
+  grid = grid / n_ot * n_ot;
+  if (grid < n_ot) grid = n_ot;
+  // w packed first, on the same stream: float32 always (split into hi
+  // and lo), bfloat16 where it streams
+  const void* wk = w;
+  const int n_ch = gather_chunks(C, per, CGs);
+  const int64_t units = (int64_t)n_ot * n_ch * 9 * (BN / 8) * CGs * 8;
+  if (elt == 4 || !gather_resident(C, BN, elt, CGs)) {
+    if (wp == nullptr || (uintptr_t)wp % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (elt == 4)
+      gather_f32_pack_w<<<(unsigned)((units + 255) / 256), 256, 0, st>>>(
+          static_cast<const float*>(w), static_cast<float4*>(wp), C, O, BN,
+          CGs, n_ch, n_ot);
+    else
+      gather_bf16_pack_w<<<(unsigned)((units + 255) / 256), 256, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(w), static_cast<uint4*>(wp), C,
+          O, BN, CGs, n_ch, n_ot);
+    wk = wp;
+  }
+  const int vec_x = C % per == 0 && (uintptr_t)x % 16 == 0;
+  // bfloat16 w: 16-byte copies (2), 4-byte copies of two outputs (1) or
+  // element loads (0)
+  const int vec_w = O % per == 0 && (uintptr_t)w % 16 == 0 ? 2
+                    : O % 2 == 0 && (uintptr_t)w % 4 == 0  ? 1
+                                                            : 0;
+  const int vec_o = O % per == 0 && (uintptr_t)out % 16 == 0;
+  igemm_kernel<T, kFused, BN>
+      <<<(unsigned)grid, Gather::kThreads, smem, st>>>(
+          static_cast<const T*>(x), static_cast<const T*>(wk), fa, fb,
+          static_cast<T*>(out), N, H, W, C, O, TH, TW, (int)nW, n_ot,
+          (int)n_tiles, CGs, vec_x, vec_w, vec_o);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kFused>
+int dispatch_gather(const void* x, const void* w, const float* fa,
+                    const float* fb, void* out, void* wp, int N, int H, int W,
+                    int C, int O, int TH, int TW, int BN, int CGs,
+                    cudaStream_t st) {
+  switch (BN) {
+#define GATHER_CASE(B)                                                     \
+  case B:                                                                  \
+    return launch_gather<T, kFused, B>(x, w, fa, fb, out, wp, N, H, W, C, \
+                                       O, TH, TW, CGs, st);
+    GATHER_CASE(8)
+    GATHER_CASE(16)
+    GATHER_CASE(24)
+    GATHER_CASE(32)
+    GATHER_CASE(48)
+    GATHER_CASE(64)
+#undef GATHER_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 }  // namespace
 
-// One launch of the convolution on `stream`: x [N, H, W, C] and w [3, 3, C,
-// O] of `dtype` (0 float32, 1 bfloat16), out [N, H, W, O] of the same type;
-// with `fused`, a and b are float32 [O] and out = max(acc * a + b, 0).
-// `vec` selects the 16-byte path, which the caller may set only when C and
-// O are multiples of 16 bytes of elements and x, w and out are 16-byte
-// aligned.  Returns the CUDA error of the launch (0 when it was accepted).
+// One launch of the gather route on `stream`: x [N, H, W, C] and w [3, 3,
+// C, O] of `dtype` (0 float32, 1 bfloat16), out [N, H, W, O] of the same
+// type; with `fused`, a and b are float32 [O] and out = max(acc * a + b,
+// 0).  A tile is a TH x TW patch of the images' grid (TH TW <= Gather::BM)
+// and BN outputs, BN one of 8, 16, 24, 32, 48, 64, K walked in chunks of
+// CGs granules, 1 to Gather::kGranules (ops/conv.py::gather_patch,
+// gather_bn and gather_step_granules pick them); any shape, and pointers
+// aligned to their element.  Scratch wp takes ops/conv.py::
+// gather_scratch_numel values of x's type (float32 always, bfloat16 where w
+// streams; else wp may be null), into which a small kernel packs w first,
+// on the same stream.  Returns the CUDA error of the launch (0 when it was
+// accepted).
 extern "C" int igemm_conv_launch(const void* x, const void* w, const float* a,
-                                 const float* b, void* out, int N, int H,
-                                 int W, int C, int O, int dtype, int fused,
-                                 int vec, void* stream) {
+                                 const float* b, void* out, void* wp, int N,
+                                 int H, int W, int C, int O, int TH, int TW,
+                                 int BN, int CGs, int dtype, int fused,
+                                 void* stream) {
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1)
+    return (int)cudaErrorInvalidValue;
+  if (TH < 1 || TW < 1 || TH > Gather::BM || TW > Gather::BM ||
+      TH * TW > Gather::BM || CGs < 1 || CGs > Gather::kGranules)
     return (int)cudaErrorInvalidValue;
   if ((int64_t)N * H * W > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (fused && (a == nullptr || b == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int M = N * H * W;
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  const uintptr_t elt = dtype == kF32 ? 4 : 2;
+  if (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % elt != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return dispatch<float>(x, w, a, b, out, M, H, W, C, O, fused, vec, st);
-  if (dtype == kBF16)
-    return dispatch<__nv_bfloat16>(x, w, a, b, out, M, H, W, C, O, fused, vec,
-                                   st);
-  return (int)cudaErrorInvalidValue;
+    return fused ? dispatch_gather<float, true>(x, w, a, b, out, wp, N, H, W,
+                                                C, O, TH, TW, BN, CGs,
+                                                st)
+                 : dispatch_gather<float, false>(x, w, a, b, out, wp, N, H,
+                                                 W, C, O, TH, TW, BN, CGs,
+                                                 st);
+  return fused ? dispatch_gather<__nv_bfloat16, true>(x, w, a, b, out, wp, N,
+                                                      H, W, C, O, TH, TW, BN,
+                                                      CGs, st)
+               : dispatch_gather<__nv_bfloat16, false>(x, w, a, b, out, wp,
+                                                       N, H, W, C, O, TH, TW,
+                                                       BN, CGs, st);
 }
 
 // One launch of a halo route on `stream`: x [N, H, W, C] and w [3, 3, C,

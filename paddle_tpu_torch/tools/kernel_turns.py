@@ -23,9 +23,12 @@ spills as ptxas reported them when this run built them.  Prints one JSON
 line.  With ``--conv`` the cases are instead ``igemm_conv_kernel`` and
 ``igemm_conv_fused_kernel`` (the signatures every version since the conv
 kernels came has) at ``chip_smoke.py``'s four ResNet stride-1 shapes
-(c56, c28, c14, c7) in bfloat16 and in float32, each with its worst
-error over ``chip_smoke``'s limit against the plain version, the two
-times and the bound, and ptxas's report for ``conv.cu``.  With ``--lstm``
+(c56, c28, c14, c7) in bfloat16 and in float32, and the plain kernel at
+each of its ``CONV_MODEL_CASES`` in the dtypes it lists (the fused one too
+at ``CONV_GATHER_FUSED``), each with the route this checkout's
+``conv_route`` gives it, its worst error over ``chip_smoke``'s limit
+against the plain version, the two times and the bound, and ptxas's
+report for ``conv.cu``.  With ``--lstm``
 they are the LSTM kernels at ``chip_smoke.py``'s text_lstm case (T=100,
 B=128, H=512, float32, no peepholes, lengths 50-100): ``lstm_fwd_kernel``
 with the backward's residuals (as training calls it), ``lstm_bwd_kernel``
@@ -68,11 +71,16 @@ def main(argv=None) -> int:
                     help="check the bf16 backward pair at BF16_CASES instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
-    sys.path.insert(1, str(HERE))
+    import importlib.util
+
     import numpy as np
     import torch
 
-    import chip_smoke as cs
+    # this checkout's chip_smoke (its cases), whichever tree is timed
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     import paddle_tpu_torch
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import attention as TA
@@ -209,43 +217,51 @@ def _conv_turn(cs, dev) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
     shapes = {label: dims for label, *dims in cs.CONV_CASES}
+    cases = [(label, shapes[label], dtype, ("igemm", "fused"))
+             for dtype in (torch.bfloat16, torch.float32)
+             for label in ("c56", "c28", "c14", "c7")]
+    fused_too = getattr(cs, "CONV_GATHER_FUSED", ())
+    cases += [(label, dims, dtype,
+               ("igemm", "fused") if label in fused_too else ("igemm",))
+              for label, *dims, routes in cs.CONV_MODEL_CASES
+              for dtype in routes]
     out = {}
-    for dtype, labels in ((torch.bfloat16, ("c56", "c28", "c14", "c7")),
-                          (torch.float32, ("c56", "c28", "c14", "c7"))):
+    for label, (n, h, w, c, o), dtype, kerns in cases:
         kind = str(dtype).replace("torch.", "")
-        for label in labels:
-            n, h, w, c, o = shapes[label]
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(n + h * w + c + o)
-            x = torch.randn((n, h, w, c), generator=gen,
-                            device=dev).to(dtype)
-            wt = (torch.randn((3, 3, c, o), generator=gen, device=dev)
-                  / (9 * c) ** 0.5).to(dtype)
-            a = torch.rand(o, generator=gen, device=dev) + 0.5
-            b = torch.randn(o, generator=gen, device=dev) * 0.3
-            for kern, fn, plain in (
-                    ("igemm", lambda i: TC.igemm_conv_kernel(x, wt),
-                     lambda: TC.igemm_conv_reference(x, wt)),
-                    ("fused", lambda i: TC.igemm_conv_fused_kernel(
-                        x, wt, a, b),
-                     lambda: TC.igemm_conv_fused_reference(x, wt, a, b))):
-                got, want = fn(0), plain()
-                top = float(want.float().abs().max())
-                if dtype == torch.float32:
-                    worst = cs._abs(got, want) / (cs.CONV_F32_REL * top)
-                else:
-                    worst = cs._worst(got, want,
-                                      2 * cs.BF16_U * want.float().abs()
-                                      + cs.CONV_BF16_SUM_REL * top)
-                del got, want
-                ms, dev_ms = cs.both_ms(fn)
-                out[f"{kern} {label} {kind}"] = {
-                    "worst_over_limit": worst, "ms": ms,
-                    "device_ms": dev_ms,
-                    "bound_ms": cs._conv_bound(kern, n, h, w, c, o,
-                                               dtype)[0]}
-            del x, wt
-            torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(n + h * w + c + o)
+        x = torch.randn((n, h, w, c), generator=gen,
+                        device=dev).to(dtype)
+        wt = (torch.randn((3, 3, c, o), generator=gen, device=dev)
+              / (9 * c) ** 0.5).to(dtype)
+        a = torch.rand(o, generator=gen, device=dev) + 0.5
+        b = torch.randn(o, generator=gen, device=dev) * 0.3
+        for kern, fn, plain in (
+                ("igemm", lambda i: TC.igemm_conv_kernel(x, wt),
+                 lambda: TC.igemm_conv_reference(x, wt)),
+                ("fused", lambda i: TC.igemm_conv_fused_kernel(
+                    x, wt, a, b),
+                 lambda: TC.igemm_conv_fused_reference(x, wt, a, b))):
+            if kern not in kerns:
+                continue
+            got, want = fn(0), plain()
+            top = float(want.float().abs().max())
+            if dtype == torch.float32:
+                worst = cs._abs(got, want) / (cs.CONV_F32_REL * top)
+            else:
+                worst = cs._worst(got, want,
+                                  2 * cs.BF16_U * want.float().abs()
+                                  + cs.CONV_BF16_SUM_REL * top)
+            del got, want
+            ms, dev_ms = cs.both_ms(fn)
+            out[f"{kern} {label} {kind}"] = {
+                "route": TC.conv_route(dtype, n, h, w, c, o, True),
+                "worst_over_limit": worst, "ms": ms,
+                "device_ms": dev_ms,
+                "bound_ms": cs._conv_bound(kern, n, h, w, c, o,
+                                           dtype)[0]}
+        del x, wt
+        torch.cuda.empty_cache()
     return {"conv": out, "ptxas": [
         {"kernel": name, "registers": regs, "spill_bytes": spill}
         for name, regs, spill in cs._ptxas_report(

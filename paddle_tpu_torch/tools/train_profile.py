@@ -857,7 +857,7 @@ INFER_CLASSES = ("fused_kernel", "igemm_kernel", "conv_prep", "conv_cudnn",
 
 def _igemm_class(kernel: str):
     """"fused_kernel" or "igemm_kernel" for an ``igemm_kernel<T, kFused,
-    V>``, ``halo_kernel<kFused>`` or ``halo_f32_kernel<kFused>`` instance
+    BN>``, ``halo_kernel<kFused>`` or ``halo_f32_kernel<kFused>`` instance
     of ``ops/csrc/conv.cu`` (the gather, halo and halo_f32 routes) by its
     name, else None."""
     m = re.search(r"(?:igemm_kernel<[^,<>]+, |halo_kernel<|halo_f32_kernel<)"
@@ -868,9 +868,12 @@ def _igemm_class(kernel: str):
 
 
 def _conv_pack_kernel(kernel: str) -> bool:
-    """Whether ``kernel`` is a halo route's packing of w (``halo_pack_w``,
-    ``halo_f32_pack_w``), counted as conv prep by its name."""
-    return re.search(r"\bhalo(?:_f32)?_pack_w\b", kernel) is not None
+    """Whether ``kernel`` is a conv route's packing of w (``halo_pack_w``,
+    ``halo_f32_pack_w``, the gather route's ``gather_f32_pack_w`` and
+    ``gather_bf16_pack_w``), counted by its name: as conv prep in the
+    inference classes, with the conv kernels in FCN's and SSD's."""
+    return re.search(r"\b(?:halo|halo_f32|gather_f32|gather_bf16)_pack_w\b",
+                     kernel) is not None
 
 
 def _infer_class(kernel: str, ancestors) -> str:
@@ -1148,7 +1151,7 @@ def detect_op_classes(program) -> dict:
 
 
 def _detect_name_class(kernel: str):
-    if _igemm_class(kernel) is not None:
+    if _igemm_class(kernel) is not None or _conv_pack_kernel(kernel):
         return "conv_kernel"
     if "bn_bwd_" in kernel:
         return "bn_kernels"

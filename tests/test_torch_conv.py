@@ -4,16 +4,15 @@ on the CPU.
 The plain versions of the two CUDA kernels (``igemm_conv_reference``,
 ``igemm_conv_fused_reference``) are held against
 ``benchmark/conv_probe.py``'s Pallas kernels (run by the interpreter), its
-XLA forms and ``F.conv2d``.  The kernels' walk over K (``csrc/conv.cu``:
-slices of one tap and BK channels, each pixel's taps gathered from NHWC x
-by a pixel offset, zeros outside the image, w read as the row-major [9C, O]
-matrix) is transcribed with the slice depths read from the source and held
-against the plain version, since the kernels run only on the card, where
-``chip_smoke.py`` holds them against the plain versions.  This walk is
-the gather route's (``igemm_kernel``); ``tests/test_torch_conv_halo.py``
-transcribes the halo route's."""
+XLA forms and ``F.conv2d``.  The gather route's walk (``igemm_kernel`` in
+``csrc/conv.cu``: a patch's halo staged once a chunk, K in 16-byte
+granules, each tap a shift, its stores staged; transcribed in
+``tests/test_torch_conv_gather.py`` with the constants read from the
+source) is held against the plain versions at these shapes too, since the
+kernels run only on the card, where ``chip_smoke.py`` holds them against
+the plain versions; ``tests/test_torch_conv_halo.py`` transcribes the halo
+route's."""
 import importlib.util
-import re
 from pathlib import Path
 
 import numpy as np
@@ -122,74 +121,33 @@ def test_plain_versions_match_conv2d_and_xla(probe, shape):
                   "float32")
 
 
-def _tiles():
-    """{dtype name: (BM, BN, BK, threads)} of ``Tile<T>`` in the source."""
-    src = CU.read_text()
-    out = {}
-    for ctype, kind in (("__nv_bfloat16", "bfloat16"), ("float", "float32")):
-        m = re.search(r"struct Tile<%s> \{\s*static constexpr int BM = (\d+), "
-                      r"BN = (\d+), BK = (\d+), kThreads = (\d+);"
-                      % re.escape(ctype), src)
-        assert m is not None, ctype
-        out[kind] = tuple(int(g) for g in m.groups())
-    return out
-
-
-def _kernel_walk(x, w, bk):
-    """The float32 accumulator ``igemm_kernel`` builds, as its
-    ``load_slice`` addresses it: K in slices of one tap (dy, dx) and ``bk``
-    channels from c0; a row's A values at flat offset (p + dy W + dx) C + c
-    of x, zero where (h + dy, w + dx) leaves the image or c >= C; B at
-    (tap C + c) O + o of w, zero where c >= C."""
-    n, h, wd, c_in = x.shape
-    o = w.shape[-1]
-    m = n * h * wd
-    xf, wf = x.reshape(-1).float(), w.reshape(-1).float()
-    p = torch.arange(m)
-    s_h, s_w = (p % (h * wd)) // wd, (p % (h * wd)) % wd
-    n_c = -(-c_in // bk)
-    acc = torch.zeros(m, o)
-    cols = torch.arange(o)
-    for it in range(9 * n_c):
-        tap, c0 = it // n_c, (it % n_c) * bk
-        dy, dx = tap // 3 - 1, tap % 3 - 1
-        c = c0 + torch.arange(bk)
-        ih, iw = s_h[:, None] + dy, s_w[:, None] + dx
-        ok = (ih >= 0) & (ih < h) & (iw >= 0) & (iw < wd) & (c < c_in)[None]
-        off = (p[:, None] + dy * wd + dx) * c_in + c[None]
-        a_tile = torch.where(ok, xf[off.clamp(0, xf.numel() - 1)], 0.0)
-        offb = (tap * c_in + c)[:, None] * o + cols[None]
-        b_tile = torch.where((c < c_in)[:, None],
-                             wf[offb.clamp(0, wf.numel() - 1)], 0.0)
-        acc += a_tile @ b_tile
-    return acc.reshape(n, h, wd, o)
-
-
 @pytest.mark.parametrize("kind", sorted(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_walk_matches_plain_version(shape, kind):
-    """The transcribed walk, at the source's slice depth for the dtype,
-    then the epilogue (multiply and add each rounded, ReLU, one rounding
-    to the dtype), against the plain versions."""
-    tdt, _ = DTYPES[kind]
-    bk = _tiles()[kind][2]
-    tx, tw, a, b = _inputs(sum(shape) + 2, shape, tdt)
-    acc = _kernel_walk(tx, tw, bk)
-    _assert_close(_np(acc.to(tdt)), _np(TC.igemm_conv_reference(tx, tw)),
-                  kind)
-    fused = torch.clamp_min(acc * a + b, 0.0).to(tdt)
-    _assert_close(_np(fused),
-                  _np(TC.igemm_conv_fused_reference(tx, tw, a, b)), kind)
+    """The gather kernel's transcribed walk, then the epilogue (multiply
+    and add each rounded, ReLU, one rounding to the dtype), against the
+    plain versions; every output written once."""
+    from test_torch_conv_gather import held
+
+    held(shape, kind)
 
 
 def test_tiles_and_dtype_codes_match_source():
-    """The tiles the kernel comments describe: the gather route's 128 x 64
-    (BK 32 in bf16 on four warps, 16 in float32 on 256 threads), the halo
-    route's 256 grid points x 64 channels, 16 channels a stage in a
-    three-stage ring, two warpgroups, rows up to 256 points; and the dtype
-    codes the wrapper sends."""
-    assert _tiles() == {"bfloat16": (128, 64, 32, 128),
-                        "float32": (128, 64, 16, 256)}
+    """The tiles the kernel comments describe: the gather route's patch of
+    at most 128 pixels on eight warps of 16 rows, at most 4 granules a step
+    in a three-stage ring, BN in 8, 16, 24, 32, 48, 64; the halo route's 256
+    grid
+    points x 64 channels, 16 channels a stage in a three-stage ring, two
+    warpgroups, rows up to 256 points; and the dtype codes the wrapper
+    sends."""
+    from test_torch_conv_gather import gather_consts
+
+    k = gather_consts()
+    assert (k["BM"], k["kGranules"], k["kStages"], k["kThreads"],
+            k["warp_rows"], k["BNS"]) == (128, 4, 3, 256, 16,
+                                          (8, 16, 24, 32, 48, 64))
+    assert (TC.GATHER_BM, TC.GATHER_WARP_ROWS, TC.GATHER_BNS) == (
+        k["BM"], k["warp_rows"], k["BNS"])
     src = CU.read_text()
     assert ("struct Halo {\n  static constexpr int BM = 256, BN = 64, "
             "KC = 16, kStages = 3,\n                       kThreads = 256, "

@@ -316,11 +316,22 @@ def test_profile_classes_both_routes_by_name():
         == "igemm_kernel"
     assert _igemm_class(ns + "igemm_kernel<float, false, true>(const int *)") \
         == "igemm_kernel"
+    # the gather route's instances by their output-channel tile
+    assert _igemm_class(ns + "igemm_kernel<float, true, 48>(const float *)") \
+        == "fused_kernel"
+    assert _igemm_class(
+        ns + "igemm_kernel<__nv_bfloat16, false, 8>(const __nv_bfloat16 *)") \
+        == "igemm_kernel"
     assert _igemm_class(ns + "halo_pack_w(const uint4 *, uint4 *)") is None
     assert _igemm_class(ns + "halo_f32_pack_w(const float *, float4 *)") \
         is None
     assert _igemm_class("sm90_xmma_fprop_implicit_gemm") is None
     for name in ("halo_pack_w(const uint4 *, uint4 *)",
-                 "halo_f32_pack_w(const float *, float4 *)"):
+                 "halo_f32_pack_w(const float *, float4 *)",
+                 "gather_f32_pack_w(const float *, float4 *, int, int, int, "
+                 "int, int, int)",
+                 "gather_bf16_pack_w(const __nv_bfloat16 *, uint4 *, int, "
+                 "int, int, int, int, int)"):
         assert _conv_pack_kernel(ns + name)
+        assert _igemm_class(ns + name) is None
     assert not _conv_pack_kernel(ns + "halo_f32_kernel<true>(const float *)")

@@ -457,3 +457,54 @@ def test_detection_map_histograms_match_jax():
         np.testing.assert_array_equal(a, b)
     assert hists[tfluid][0].sum() > 0 and hists[tfluid][1].sum() > 0
     assert maps[tfluid] == maps[jfluid]
+
+
+@pytest.mark.parametrize("n_bins", [20, None])
+def test_detection_map_at_most_exact_curve_at_evaluator_precision(n_bins):
+    """DetectionMAP's histogram curve is a subset of the exact curve's
+    points, so its mAP is at most ``chip_smoke._detection_map_f32``'s, the
+    exact mAP with recall and precision in float32 as the evaluator (and
+    the JAX package's) takes them; over random streams, scores on bin
+    centres or raw on the default bins.  The float64 ``detection_map_np``
+    reads less than the evaluator on some of them (a float64 recall of
+    3 / 10 stays below the 11-point threshold 0.3), so it cannot bound it."""
+    import chip_smoke
+
+    torch.set_num_threads(1)
+    rng = np.random.RandomState(1)
+    C, K, G, B = 5, 12, 4, 4
+    below_f64 = 0
+    for _ in range(16):
+        stream = []
+        for _ in range(3):
+            xy = rng.rand(B, G, 2).astype(np.float32) * 0.7
+            gb = np.concatenate([xy, xy + 0.1 + rng.rand(B, G, 2).astype(
+                np.float32) * 0.2], -1)
+            pick = rng.randint(0, G, (B, K))
+            db = np.clip(np.take_along_axis(gb, pick[..., None], 1)
+                         + rng.randn(B, K, 4).astype(np.float32) * 0.04, 0, 1)
+            ds = rng.rand(B, K).astype(np.float32)
+            if n_bins is not None:
+                ds = ((np.floor(ds * n_bins) + 0.5) / n_bins).astype(
+                    np.float32)
+            stream.append(dict(db=db, ds=ds,
+                               dl=rng.randint(1, C, (B, K)).astype(np.int32),
+                               gb=gb, gl=rng.randint(0, C, (B, G)).astype(
+                                   np.int32)))
+        mprog, mstart = tfluid.Program(), tfluid.Program()
+        with tfluid.program_guard(mprog, mstart):
+            ev = tfluid.evaluator.DetectionMAP(
+                *_det_vars(tfluid, K, G), num_classes=C,
+                **({} if n_bins is None else {"n_bins": n_bins}))
+        exe = tfluid.Executor(tfluid.CPUPlace())
+        scope = tfluid.Scope()
+        exe.run(mstart, scope=scope)
+        for f in stream:
+            exe.run(mprog, feed=f, fetch_list=[], scope=scope)
+        got = ev.eval(scope=scope)
+        dets = [(f["db"][i], f["ds"][i], f["dl"][i]) for f in stream
+                for i in range(B)]
+        gts = [(f["gb"][i], f["gl"][i]) for f in stream for i in range(B)]
+        assert got <= chip_smoke._detection_map_f32(dets, gts, C) + 1e-9
+        below_f64 += got > tdet.detection_map_np(dets, gts, C) + 1e-6
+    assert below_f64 > 0

@@ -154,3 +154,50 @@ def test_split_refuses_unequal_parts_and_squeeze_a_wide_axis():
         tfluid.layers.split(x, 3, dim=2)
     with pytest.raises(ValueError, match="size 1"):
         tfluid.layers.squeeze(x, [1])
+
+
+def test_assign_writes_into_output():
+    """``assign(x, output=v)`` writes into ``v``: the op's output is ``v``
+    itself (its name), holding the copy of an fc's output, and a numpy
+    constant assigned into a second Variable, as in the JAX package; the
+    gradient reaches the fc's weights through ``v``."""
+    feeds = {"x": _x(3, 4, seed=12)}
+    const = _x(3, 2, seed=13)
+
+    def build(fl, v):
+        L = fl.layers
+        h = L.fc(v["x"], 5)
+        into = L.fill_constant([3, 5], "float32", 0.0)
+        got = L.assign(h, output=into)
+        assert got is into or got.name == into.name
+        held = L.fill_constant([3, 2], "float32", 7.0)
+        got_c = L.assign(const, output=held)
+        assert got_c.name == held.name
+        return [L.scale(into, 2.0), held]
+
+    want, got, *rest = run_both(build, feeds, seed=14)
+    np.testing.assert_array_equal(got[1], const)
+    assert_match(want, got, *rest)
+
+
+def test_cond_compare_is_public():
+    """``layers.cond_compare(name, fn)`` makes a compare layer, public in
+    both packages: one built from ``torch.ge`` (``jnp.greater_equal`` in
+    the JAX package) against a Variable and against a scalar matches the
+    reference's."""
+    import jax.numpy as jnp
+
+    assert tfluid.layers.cond_compare is tfluid.layers.tensor.cond_compare
+    feeds = {"x": _x(4, 6, seed=15), "y": _x(4, 6, seed=16)}
+    feeds["y"][:, ::3] = feeds["x"][:, ::3]          # ties count as >=
+
+    def build(fl, v):
+        fn = torch.ge if fl is tfluid else jnp.greater_equal
+        ge = fl.layers.cond_compare("greater_equal", fn)
+        assert ge.__name__ == "greater_equal"
+        return [ge(v["x"], v["y"]), ge(v["x"], 0.25)]
+
+    want, got, *rest = run_both(build, feeds, seed=17)
+    assert got[0].dtype == np.bool_ and got[0][:, ::3].all()
+    assert 0 < got[1].sum() < got[1].size
+    assert_match(want, got, *rest)
