@@ -55,6 +55,40 @@ Phases (any failure exits non-zero, before the final line):
                eagerly on the same buffers (W=1 and W=4, greedy and policy,
                logits, tokens and arenas), and no signature prepared after
                warm;
+  5b. serve extras - the same LM and engine configuration with the prefix
+               cache (prefix_cache=True, warm() first), four passes, each
+               with its counts set to 0 before and read after (paged
+               launches = n_layers x step dispatches, graph replays =
+               dispatches, tokens/s, mean step ms, TTFT p50 / p99, the
+               counters, the card): prefix (16 greedy requests sharing a
+               384-token system prompt, then the same 16 on the serve
+               phase's engine without a cache: blocks mapped, tokens
+               saved, teacher-forced agreement >= 0.98 on both, hit
+               streams against cold at the greedy floor 0.98, each
+               request's digests against a blake2b recomputation here,
+               the block partition clean, a divergent continuation leaving
+               the shared blocks' K/V bytes bitwise unchanged); fork (a
+               K=4 beam on a 64-token prompt, 32 tokens, joining beside 4
+               greedy streams: forks and copy-on-write blocks > 0, the
+               batch-mates bitwise equal to the same requests served
+               alone, the beams against the port's own
+               models.transformer.generate in float32 on the card under
+               the near-tie rule, scores within 1e-4 relative; the beam
+               alone's wall time with no profiler, and its device time
+               from a second, profiled run; a parallel-n request, n=4,
+               served twice identically with distinct branches; the
+               serving.fork fault: private copies, no copy-on-write block,
+               the same beams under the same rule); migration (8 streams
+               drained after 10 steps, every waiter GenerationMigrated,
+               the records resumed on a second scheduler at the greedy
+               floor against the uninterrupted run, migrated_out =
+               resumed_in = 8, no leaked block either side); dense
+               (DecodeEngine warmed, 8 x 64 prompts, 64 generated, at the
+               floor against the continuous engine, a step replay bitwise
+               against its body run eagerly, tokens/s, the dense caches'
+               bytes beside the pool's, then DecodeEngine.measure: prefill,
+               KV-cached and naive full-recompute tokens/s); and no
+               signature prepared after warm();
   6. train   - the same LM built by build_lm through Program / Executor with
                Adam(1e-3) and global-norm clipping (1.0), weights from
                init_lm_params(0), every step a replay of its signature's
@@ -325,6 +359,7 @@ kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import sys
@@ -1624,7 +1659,7 @@ def _check_pass(name, eng, handles, sched, launches, dispatches):
     return sum(eng.replays.values())
 
 
-def phase_serve(card: str) -> dict:
+def phase_serve(card: str) -> tuple:
     from paddle_tpu_torch import (ContinuousDecodeEngine, SamplingParams,
                                   init_lm_params)
 
@@ -1730,6 +1765,466 @@ def phase_serve(card: str) -> dict:
     check(eng.trace_count() == traces,
           f"serving prepared {eng.trace_count() - traces} signatures after "
           f"warm")
+    return paths, eng
+
+
+# the serve extras phase (PERF.md section 2): the prefix pass's system prompt
+# (EXTRAS_SYS tokens, 24 blocks) and requests; the fork pass's beam (K
+# EXTRAS_BEAM on an EXTRAS_BEAM_PROMPT-token prompt, EXTRAS_BEAM_GEN tokens,
+# eos EXTRAS_EOS) beside EXTRAS_MATES greedy streams shorter than a block
+# (never cached), and a parallel-n request (n EXTRAS_N); the migration
+# pass's streams drained after EXTRAS_DRAIN_STEPS steps; the dense pass's
+# batch and lengths
+EXTRAS_SYS, EXTRAS_REQS = 384, 16
+EXTRAS_BEAM, EXTRAS_BEAM_PROMPT, EXTRAS_BEAM_GEN, EXTRAS_EOS = 4, 64, 32, 2
+EXTRAS_MATES, EXTRAS_N = 4, 4
+EXTRAS_MIGRATE, EXTRAS_DRAIN_STEPS = 8, 10
+EXTRAS_DENSE = (8, 64, 64)     # prompts, prompt length, generated
+BEAM_SCORE_RTOL = 1e-4
+
+
+def _match_rate(a, b) -> float:
+    """Greedy token-match rate of streams ``a`` against ``b``."""
+    agree = total = 0
+    for x, y in zip(a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        n = min(x.size, y.size)
+        agree += int((x[:n] == y[:n]).sum())
+        total += int(x.size)
+    return agree / max(total, 1)
+
+
+def _blake2b_chain(tokens, block_size: int) -> list:
+    """The prefix cache's digest recipe, written out here on its own:
+    blake2b of the parent digest (the float32 root first) and each full
+    block's int32 bytes, 16-byte digests."""
+    import hashlib
+
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    prev, out = b"paddle-tpu-prefix-root", []
+    for i in range(toks.size // block_size):
+        h = hashlib.blake2b(prev, digest_size=16)
+        h.update(toks[i * block_size:(i + 1) * block_size].tobytes())
+        prev = h.digest()
+        out.append(prev)
+    return out
+
+
+class _ExtrasPass:
+    """One pass of the serve extras phase: every count the pass is checked
+    by set to 0 on entry (the paged kernel's launches, the engines'
+    dispatches and replays), read on exit; checks launches = n_layers x
+    step dispatches and replays = dispatches; prints the pass's line."""
+
+    def __init__(self, name: str, card: str, *engines):
+        from paddle_tpu_torch.ops.paged_attention import paged_attention
+
+        self.name, self.card, self.engines = name, card, engines
+        self.kernel = paged_attention
+        self.handles, self.scheds = [], []
+        self.tokens = 0   # tokens emitted outside a scheduler (dense)
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.kernel.launches = 0
+        for eng in self.engines:
+            for c in ("step_dispatches", "prefill_dispatches", "replays",
+                      "dispatches"):
+                if hasattr(eng, c):
+                    getattr(eng, c).clear()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, kind, *exc):
+        if kind is not None:
+            return False
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        launches, steps, disp, replays, n_layers = self.kernel.launches, 0, \
+            0, 0, 0
+        by_w = collections.Counter()
+        for eng in self.engines:
+            if hasattr(eng, "step_dispatches"):
+                by_w.update(eng.step_dispatches)
+                steps += sum(eng.step_dispatches.values())
+                disp += sum(eng.step_dispatches.values()) + sum(
+                    eng.prefill_dispatches.values())
+            else:
+                disp += sum(eng.dispatches.values())
+            replays += sum(eng.replays.values())
+            n_layers = eng.model.n_layers
+        check(launches == n_layers * steps,
+              f"serve extras {self.name}: {launches} paged launches for "
+              f"{steps} step dispatches x {n_layers} layers")
+        check(replays == disp and disp > 0,
+              f"serve extras {self.name}: {replays} graph replays for "
+              f"{disp} dispatches")
+        tokens = self.tokens + sum(len(h.tokens) for h in self.handles)
+        n_steps = sum(s.counters["steps"] for s in self.scheds) or disp
+        counters = {}
+        for s in self.scheds:
+            for k, v in s.counters.items():
+                counters[k] = counters.get(k, 0) + v
+        ttft = ""
+        timed = [h for h in self.handles if h.t_first_token is not None]
+        if timed:
+            p50, p99 = _ttft(timed)
+            ttft = f", TTFT p50 {p50:.1f} ms p99 {p99:.1f} ms"
+        step_ms = wall / n_steps * 1e3 if n_steps else float("nan")
+        print(f"serve extras {self.name}: {len(self.handles)} requests, "
+              f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s, "
+              f"{n_steps} steps, mean step {step_ms:.2f} ms{ttft}; "
+              f"paged launches {launches} = {n_layers} x {steps} step "
+              f"dispatches {dict(sorted(by_w.items()))}, {replays} graph "
+              f"replays = {disp} dispatches; "
+              f"counters {counters}; on {self.card}", flush=True)
+        self.record = {"launches": launches, "step_dispatches": steps,
+                       "graph_replays": replays, "wall_s": wall,
+                       "tokens": tokens}
+        if by_w:
+            self.record["dispatches_by_window"] = dict(sorted(by_w.items()))
+        return False
+
+
+def _beams_against_dense(label, beams, scores, d_tok, d_sc,
+                         what: str = "the dense generate") -> None:
+    """The near-tie rule: ranked beams equal to ``what``'s (the dense
+    path's) wherever its competing scores lie further apart than twice
+    the largest score difference; scores within BEAM_SCORE_RTOL
+    relative."""
+    scores, d_sc = np.asarray(scores, np.float64), np.asarray(d_sc,
+                                                              np.float64)
+    diff = float(np.abs(scores - d_sc).max())
+    rel = float((np.abs(scores - d_sc) / np.abs(d_sc)).max())
+    flips = []
+    for k in range(len(beams)):
+        if list(beams[k]) == [int(t) for t in d_tok[k]]:
+            continue
+        gap = min(abs(d_sc[k] - d_sc[j]) for j in range(len(beams)) if j != k)
+        flips.append((k, gap))
+        check(gap <= 2 * diff,
+              f"{label}: beam {k} differs from {what}'s where "
+              f"its competing scores lie {gap:.3e} apart, over twice the "
+              f"largest score difference {diff:.3e}")
+    print(f"{label}: beams against {what}: largest score "
+          f"difference {diff:.3e} ({rel:.3e} relative), beams that differ "
+          f"(rank, gap to the nearest competing score): {flips}")
+    check(rel <= BEAM_SCORE_RTOL,
+          f"{label}: beam scores {rel:.3e} relative from {what}'s, over "
+          f"{BEAM_SCORE_RTOL}")
+
+
+def _dense_generate_beams(params, prompt, card_dtype="float32"):
+    """The port's own ``models.transformer.generate`` program op on the
+    card: (tokens [K, G], scores [K], lens [K]) for one prompt."""
+    import paddle_tpu_torch as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        pv = fluid.layers.data("prompt", [prompt.size], dtype="int32")
+        outs = fluid.models.transformer.generate(
+            pv, LM_CFG["vocab_size"], max_len=LM_CFG["max_len"],
+            eos_id=EXTRAS_EOS, d_model=LM_CFG["d_model"],
+            n_heads=LM_CFG["n_heads"], n_layers=LM_CFG["n_layers"],
+            d_ff=LM_CFG["d_ff"], beam_size=EXTRAS_BEAM,
+            max_gen=EXTRAS_BEAM_GEN, decode_dtype=card_dtype)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    fluid.load_scope(params, main, scope)
+    t, sc, ln = exe.run(main, feed={"prompt": prompt[None]},
+                        fetch_list=list(outs), scope=scope)
+    return t[0], sc[0], ln[0]
+
+
+def phase_serve_extras(card: str, cold_eng) -> dict:
+    """The prefix cache, forks, migration and the dense engine on the
+    serve phase's LM and engine configuration (see the module docstring).
+    ``cold_eng`` is the serve phase's warmed engine, without a prefix
+    cache."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import (ContinuousDecodeEngine, ContinuousScheduler,
+                                  DecodeEngine, GenerationMigrated,
+                                  SamplingParams, init_lm_params)
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.tools.decode_profile import _kernel_us
+
+    V, Bs = LM_CFG["vocab_size"], ENGINE_CFG["block_size"]
+    params = init_lm_params(0, **LM_CFG)
+    eng = ContinuousDecodeEngine(params, prefix_cache=True, **ENGINE_CFG,
+                                 **LM_CFG)
+    t0 = time.perf_counter()
+    n_sig = eng.warm()
+    traces = eng.trace_count()
+    print(f"serve extras warm: {n_sig} signatures in "
+          f"{time.perf_counter() - t0:.1f} s, prefix cache on; pool "
+          f"{eng.pool.arena_bytes} bytes, {eng.slots_resident_per_gib()} "
+          f"full slots per GiB")
+    rng = np.random.RandomState(22)
+    paths = {}
+
+    def serve(sched, reqs, stage=None):
+        hs = [sched.submit(p, g, **kw) for p, g, kw in reqs]
+        sched.run_until_idle()
+        for h in hs:
+            check(h.done.is_set() and h.error is None,
+                  f"serve extras: request {h.id} ended with {h.error!r}")
+        if stage is not None:
+            stage.handles += hs
+            stage.scheds.append(sched)
+        return hs
+
+    def clean(sched, label):
+        acct = sched.check_block_accounting()
+        check(acct["leaked"] == 0 and acct["occupied"] == 0
+              and acct.get("referenced", 0) == 0,
+              f"serve extras {label}: block accounting {acct}")
+        return acct
+
+    # ---- 1. prefix pass: a shared system prompt, then the same requests
+    # on the serve phase's engine without a cache
+    sys_prompt = rng.randint(2, V, EXTRAS_SYS).astype(np.int32)
+    reqs = [(np.concatenate([sys_prompt, rng.randint(
+        2, V, int(rng.randint(16, 129))).astype(np.int32)]),
+        int(rng.randint(32, 65)), {}) for _ in range(EXTRAS_REQS)]
+    with _ExtrasPass("prefix hot", card, eng) as hot:
+        hot_h = serve(ContinuousScheduler(eng), reqs, hot)
+    pc = dict(eng.prefix.counters)
+    acct = clean(hot.scheds[0], "prefix hot")
+    check(pc["hits"] > 0 and pc["hit_tokens"] > 0,
+          f"serve extras prefix hot: no block mapped from the cache: {pc}")
+    with _ExtrasPass("prefix cold", card, cold_eng) as cold:
+        cold_h = serve(ContinuousScheduler(cold_eng), reqs, cold)
+    clean(cold.scheds[0], "prefix cold")
+    print(f"serve extras prefix: {pc['hits']} hits, {pc['misses']} misses, "
+          f"blocks mapped from the cache {pc['hit_tokens'] // Bs}, prefill "
+          f"tokens saved {pc['hit_tokens']} of "
+          f"{sum(p.size for p, _, _ in reqs)}; cached blocks "
+          f"{acct['cached']}, free {acct['free']}")
+    rates = {}
+    for label, hs, e in (("hot", hot_h, eng), ("cold", cold_h, cold_eng)):
+        agree, total = _teacher_forced(e, hs)
+        rates[label] = agree / total
+    hit_cold = _match_rate([h.tokens for h in hot_h],
+                           [h.tokens for h in cold_h])
+    print(f"serve extras prefix: teacher-forced agreement hot "
+          f"{rates['hot']:.4f}, cold {rates['cold']:.4f} (floor 0.98); hit "
+          f"streams against cold streams {hit_cold:.4f} (floor 0.98)")
+    check(min(rates.values()) >= 0.98,
+          f"serve extras prefix: teacher-forced agreement {rates}")
+    check(hit_cold >= 0.98,
+          f"serve extras prefix: hit streams match cold ones at {hit_cold}")
+    for h in hot_h:
+        n, digs = h._digest_memo
+        want = _blake2b_chain(np.concatenate(
+            [h.prompt, np.asarray(h.tokens, np.int32)])[:n], Bs)
+        check(digs == want, f"serve extras prefix: request {h.id}'s "
+              f"digests differ from the blake2b recomputation")
+    sys_digs = _blake2b_chain(sys_prompt, Bs)
+    check(all(d in eng.prefix._by_digest for d in sys_digs),
+          "serve extras prefix: the system prompt's blocks are not cached")
+    # copy-on-write: a request diverging inside the last shared block
+    shared = [eng.prefix._by_digest[d] for d in sys_digs]
+    k0, v0 = eng.pool.k[shared].clone(), eng.pool.v[shared].clone()
+    cows = eng.prefix.counters["cow_copies"]
+    div = np.concatenate([sys_prompt[:EXTRAS_SYS - 8],
+                          rng.randint(2, V, 40).astype(np.int32)])
+    serve(ContinuousScheduler(eng), [(div, 16, {})])
+    same = torch.equal(eng.pool.k[shared], k0) and torch.equal(
+        eng.pool.v[shared], v0)
+    print(f"serve extras prefix: a divergent continuation left the "
+          f"{len(shared)} shared blocks' K/V bytes "
+          f"{'unchanged' if same else 'CHANGED'}; copy-on-write copies "
+          f"{eng.prefix.counters['cow_copies'] - cows}")
+    check(same and eng.prefix.counters["cow_copies"] > cows,
+          "serve extras prefix: a shared block changed under copy-on-write")
+    paths["extras prefix hot"] = hot.record
+    paths["extras prefix cold"] = cold.record
+
+    # ---- 2. fork pass: a beam group joining beside greedy streams
+    mates = [(rng.randint(2, V, int(rng.randint(4, Bs))).astype(np.int32),
+              64, {}) for _ in range(EXTRAS_MATES)]
+    solo = serve(ContinuousScheduler(eng), mates)
+    bp = rng.randint(3, V, EXTRAS_BEAM_PROMPT).astype(np.int32)
+    beam_kw = {"eos_id": EXTRAS_EOS,
+               "sampling": SamplingParams(beam=EXTRAS_BEAM)}
+    with _ExtrasPass("fork", card, eng) as fork:
+        sched = ContinuousScheduler(eng)
+        gs = [sched.submit(p, g) for p, g, _ in mates]
+        for _ in range(3):
+            sched.step()
+        hb = sched.submit(bp, EXTRAS_BEAM_GEN, **beam_kw)
+        sched.run_until_idle()
+        fork.handles += gs + [hb]
+        fork.scheds.append(sched)
+    check(hb.error is None, f"serve extras fork: beam failed {hb.error!r}")
+    c = sched.counters
+    check(c["forks"] > 0 and c["fork_cow_blocks"] > 0
+          and c["beam_groups"] == 1,
+          f"serve extras fork: forks {c['forks']}, copy-on-write blocks "
+          f"{c['fork_cow_blocks']}")
+    same = all(a.tokens == b.tokens for a, b in zip(solo, gs))
+    print(f"serve extras fork: {EXTRAS_MATES} greedy batch-mates "
+          f"{'equal' if same else 'DIFFER from'} the same requests served "
+          f"alone; forks {c['forks']}, copy-on-write blocks "
+          f"{c['fork_cow_blocks']}, private {c['fork_private']}")
+    check(same, "serve extras fork: the beam group changed its batch-mates' "
+                "streams")
+    d_tok, d_sc, d_len = _dense_generate_beams(params, bp)
+    _beams_against_dense("serve extras fork", hb.beams, hb.beam_scores,
+                         d_tok, d_sc)
+    # the beam alone: its wall time on the host clock with no profiler
+    # on, then its device time from a second, profiled run of the same
+    # request (the profiler's own host cost stays out of the wall time)
+    alone = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alone += serve(ContinuousScheduler(eng), [(bp, EXTRAS_BEAM_GEN,
+                                               beam_kw)])
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        alone += serve(ContinuousScheduler(eng), [(bp, EXTRAS_BEAM_GEN,
+                                                   beam_kw)])
+        torch.cuda.synchronize()
+    dev_ms = sum(_kernel_us(e) for e in prof.key_averages()) / 1e3
+    print(f"serve extras beam alone: wall {host_s * 1e3:.1f} ms (host "
+          f"clock, no profiler), device {dev_ms:.1f} ms (torch.profiler, "
+          f"every kernel, a second run), {EXTRAS_BEAM_GEN} iterations; "
+          f"beams equal to the joined run's: "
+          f"{all(h.beams == hb.beams for h in alone)}")
+    # parallel-n: primed once, then served twice from the same cache state
+    npr = rng.randint(2, V, 40).astype(np.int32)
+    n_kw = {"sampling": SamplingParams(temperature=0.8, seed=2207,
+                                       n=EXTRAS_N)}
+    runs = []
+    for _ in range(3):
+        root = serve(ContinuousScheduler(eng), [(npr, 48, n_kw)])[0]
+        runs.append([list(b.result(1)) for b in root.branches])
+    distinct = len({tuple(t) for t in runs[2]})
+    print(f"serve extras parallel-n: n={EXTRAS_N} served twice "
+          f"{'identically' if runs[1] == runs[2] else 'DIFFERENTLY'}, "
+          f"{distinct} distinct branches")
+    check(runs[1] == runs[2] and distinct == EXTRAS_N,
+          "serve extras parallel-n: branches not repeatable or not distinct")
+    # the serving.fork fault: private copies, the same beams
+    faults.inject("serving.fork", RuntimeError("fork path down"))
+    try:
+        fs = ContinuousScheduler(eng)
+        hf = serve(fs, [(bp, EXTRAS_BEAM_GEN, beam_kw)])[0]
+        fired = faults.fired("serving.fork")
+    finally:
+        faults.clear()
+    c = fs.counters
+    print(f"serve extras fork fault: fired {fired}, private forks "
+          f"{c['fork_private']}, copy-on-write blocks {c['fork_cow_blocks']}")
+    check(fired > 0 and c["fork_private"] > 0 and c["fork_cow_blocks"] == 0,
+          f"serve extras fork fault: {c}")
+    _beams_against_dense("serve extras fork fault", hf.beams,
+                         hf.beam_scores, np.asarray(hb.beams),
+                         np.asarray(hb.beam_scores),
+                         what="the copy-on-write run")
+    clean(fs, "fork")
+    paths["extras fork"] = fork.record
+
+    # ---- 3. migration pass: drain after some steps, resume elsewhere
+    mreqs = [(rng.randint(2, V, int(rng.randint(64, 257))).astype(np.int32),
+              64, {}) for _ in range(EXTRAS_MIGRATE)]
+    whole = serve(ContinuousScheduler(eng), mreqs)
+    with _ExtrasPass("migration", card, eng) as mig:
+        src = ContinuousScheduler(eng)
+        hs = [src.submit(p, g) for p, g, _ in mreqs]
+        for _ in range(EXTRAS_DRAIN_STEPS):
+            src.step()
+        recs = src.snapshot_slots(drain=True)
+        dst = ContinuousScheduler(eng)
+        hr = [dst.submit(np.asarray(r["prompt"], np.int32), r["max_gen"],
+                         resume_prefix=r["tokens"],
+                         resume_kv_dtype=r["kv_dtype"]) for r in recs]
+        dst.run_until_idle()
+        mig.handles += hr
+        mig.scheds += [src, dst]
+    for h in hs:
+        check(isinstance(h.error, GenerationMigrated),
+              f"serve extras migration: waiter saw {h.error!r}")
+    clean(src, "migration source")
+    clean(dst, "migration destination")
+    by_prompt = {tuple(r["prompt"]): h for r, h in zip(recs, hr)}
+    rate = _match_rate([by_prompt[tuple(p)].tokens for p, _, _ in mreqs],
+                       [h.tokens for h in whole])
+    print(f"serve extras migration: {len(recs)} records, migrated_out "
+          f"{src.counters['migrated_out']}, resumed_in "
+          f"{dst.counters['resumed_in']}; continued streams against the "
+          f"uninterrupted run {rate:.4f} (floor 0.98)")
+    check(src.counters["migrated_out"] == dst.counters["resumed_in"]
+          == EXTRAS_MIGRATE,
+          f"serve extras migration: out {src.counters['migrated_out']}, "
+          f"in {dst.counters['resumed_in']}")
+    check(rate >= 0.98, f"serve extras migration: match {rate}")
+    paths["extras migration"] = mig.record
+
+    # ---- 4. dense pass: DecodeEngine against the continuous engine
+    n, tp, g = EXTRAS_DENSE
+    dense = DecodeEngine(params, batch_buckets=(n,), prompt_buckets=(tp,),
+                         **LM_CFG)
+    t0 = time.perf_counter()
+    d_sig = dense.warm()
+    print(f"serve extras dense warm: {d_sig} signatures in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompts = rng.randint(2, V, (n, tp)).astype(np.int32)
+    with _ExtrasPass("dense", card, dense) as dp:
+        t0 = time.perf_counter()
+        out = dense.generate(prompts, g)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        dp.tokens = int(out.size)
+    cont = serve(ContinuousScheduler(eng), [(p, g, {}) for p in prompts])
+    rate = _match_rate(out, [h.tokens for h in cont])
+    # a step's replay against its body run eagerly on the same buffers
+    step = dense._signature(("step", n))
+    step.ins.np["token"][...] = out[:, -1]
+    step.ins.np["pos"][0] = tp + g - 1
+    ck, cv = dense.caches[n]
+    k0, v0 = ck.clone(), cv.clone()
+    dense._dispatch(step)
+    torch.cuda.synchronize()
+    replayed = [t.clone() for t in (step.logits, step.res, ck, cv)]
+    ck.copy_(k0)
+    cv.copy_(v0)
+    step.body(step)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(replayed, (step.logits, step.res, ck, cv)))
+    print(f"serve extras dense: {n} x {tp} prompts, {g} generated, "
+          f"{n * g / gen_s:.1f} tok/s ({gen_s * 1e3:.1f} ms); tokens against "
+          f"the continuous engine's greedy streams {rate:.4f} (floor 0.98); "
+          f"a step replay {'bitwise equal to' if bitwise else 'DIFFERS from'}"
+          f" its body run eagerly; dense caches {dense.cache_bytes} bytes "
+          f"beside the paged pool's {eng.pool.arena_bytes}; on {card}")
+    check(rate >= 0.98, f"serve extras dense: match {rate}")
+    check(bitwise, "serve extras dense: the step replay differs from eager")
+    check(dense.trace_count() == d_sig,
+          "serve extras dense: a signature prepared after warm")
+    # the A/B of the KV cache: prefill, cached decode and the naive
+    # full-recompute arm on the same prompts (measure prepares the naive
+    # signature first)
+    m = dense.measure(n, tp, g)
+    print(f"serve extras dense measure: prefill "
+          f"{m['prefill_tokens_per_sec']:.1f} tok/s, KV-cached decode "
+          f"{m['kv_decode_tokens_per_sec']:.1f} tok/s, naive full recompute "
+          f"{m['naive_decode_tokens_per_sec']:.1f} tok/s (x"
+          f"{m['kv_vs_naive_speedup']:.2f}), tokens equal "
+          f"{m['tokens_match']} (a record: another summation order); on "
+          f"{card}")
+    paths["extras dense"] = dict(dp.record, tokens_per_s=n * g / gen_s,
+                                 cache_bytes=dense.cache_bytes, measure=m)
+    check(eng.trace_count() == traces,
+          f"serve extras: {eng.trace_count() - traces} signatures prepared "
+          f"after warm")
+    print(f"serve extras: trace count {eng.trace_count()} unmoved since "
+          f"warm; on {card}")
     return paths
 
 
@@ -5048,7 +5543,10 @@ def main() -> int:
     flash = _timed("flash kernels", phase_flash_kernels, card)
     lstm, lstm_srl = _timed("lstm kernels", phase_lstm_kernels, card)
     drop = _timed("dropout kernels", phase_dropout_kernels, card)
-    paths = _timed("serve", phase_serve, card)
+    paths, serve_eng = _timed("serve", phase_serve, card)
+    paths.update(_timed("serve extras", phase_serve_extras, card, serve_eng))
+    del serve_eng
+    _release()
     train = _timed("train", phase_train, card)
     _release()
     lm_amp = _timed("lm amp train", phase_lm_amp_train, card,

@@ -77,13 +77,17 @@ from .models import TransformerLM, from_jax_params, init_lm_params, load_scope
 from .param_attr import ParamAttr
 from .resilience import Deadline, DeadlineExceeded
 from .serving import (AdmissionShed, ContinuousDecodeEngine,
-                      ContinuousScheduler, DecodeRequest, PagedKVPool,
-                      SamplingParams)
+                      ContinuousScheduler, DecodeAdmissionQueue,
+                      DecodeEngine, DecodeRequest, GenerationMigrated,
+                      PagedKVPool, PrefixCache, SamplingParams, chain_hashes,
+                      root_for_kv_dtype)
 
 __all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
            "ContinuousScheduler", "Deadline", "DeadlineExceeded",
-           "DecodeRequest", "Executor", "PagedKVPool", "ParamAttr", "Place",
-           "Program", "SamplingParams", "Scope", "TransformerLM", "Variable",
+           "DecodeAdmissionQueue", "DecodeEngine", "DecodeRequest",
+           "Executor", "GenerationMigrated", "PagedKVPool", "ParamAttr",
+           "Place", "PrefixCache", "Program", "SamplingParams", "Scope",
+           "TransformerLM", "Variable", "chain_hashes", "root_for_kv_dtype",
            "backward", "card_info", "clip", "datasets", "default_main_program",
            "default_startup_program", "evaluator", "from_jax_params",
            "global_scope",

@@ -1,6 +1,8 @@
 """Decoder-only Transformer LM (PyTorch port of
 ``paddle_tpu/models/transformer.py``): the training graph ``build_lm`` over
-the Program API, and the serving block math (the ``_srv_*`` section).
+the Program API, the serving block math (the ``_srv_*`` section: the
+dense prefill and decode forms, and the paged window), and ``generate``,
+beam generation over the dense caches as one program op.
 
 Parameters keep the JAX names (``tok_emb``, ``blk0.q.w``, ...) and live in a
 plain ``dict[str, Tensor]`` (``nn.ParameterDict`` refuses keys with dots).
@@ -27,7 +29,8 @@ from torch import nn
 
 from .. import layers
 from .. import ops as _ops
-from ..core.program import Variable
+from ..core import unique_name
+from ..core.program import Op, Variable
 from ..initializer import Normal
 from ..layers.helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -306,6 +309,43 @@ def lm_head_logits(prm: Params, x: torch.Tensor,
     return torch.matmul(x.to(torch.float32), head_w.to(torch.float32).t())
 
 
+def _srv_block_decode(prm, nm, i, x, ck, cv, t, n_heads, Dh, scale, cd):
+    """One decode position through layer ``i`` against the dense caches:
+    x [M, D], caches [M, L, H, T_max, Dh]; writes this position's K/V into
+    slot ``t`` (a Python int or a one-element tensor) and attends to slots
+    <= t."""
+    q, k, v = _srv_qkv(prm, nm, x, cd)
+    ck = _ops.cache_set(ck, i, t, k.reshape(-1, n_heads, Dh))
+    cv = _ops.cache_set(cv, i, t, v.reshape(-1, n_heads, Dh))
+    o = _ops.decode_attention(q.reshape(-1, n_heads, Dh), ck[:, i], cv[:, i],
+                              t + 1, scale=scale, out_dtype=cd)
+    x = _srv_attn_out_ffn(prm, nm, x, o.reshape(x.shape), cd)
+    return x, ck, cv
+
+
+def lm_decode_step(prm: Params, token, pos, ck, cv, *, n_heads: int,
+                   n_layers: int, cd=None, tie_embeddings: bool = True):
+    """One KV-cached decode step over the dense caches: ``token`` [N]
+    int32, ``pos`` the cache slot it occupies (a Python int or a
+    one-element tensor on the device), caches [N, L, H, T_max, Dh],
+    written in place.  Returns (logits [N, V] float32, ck, cv)."""
+    cd = cd or prm["tok_emb"].dtype
+    d_model = prm["tok_emb"].shape[1]
+    Dh = d_model // n_heads
+    scale = 1.0 / math.sqrt(Dh)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.reshape(1).long()
+        pe = prm["pos_emb"].index_select(0, pos)
+    else:
+        pe = prm["pos_emb"][int(pos)][None]
+    x = (prm["tok_emb"][token.long()] + pe).to(cd)
+    for i in range(n_layers):
+        x, ck, cv = _srv_block_decode(prm, f"blk{i}", i, x, ck, cv, pos,
+                                      n_heads, Dh, scale, cd)
+    x = _srv_ln(x, prm["lnf.g"], prm["lnf.b"], cd)
+    return lm_head_logits(prm, x, tie_embeddings), ck, cv
+
+
 def _srv_block_decode_paged1(prm, nm, i, x, pk, pv, blk, off, tables,
                              lengths, n_heads, Dh, scale, cd):
     """One decode position per slot through layer ``i`` against the paged
@@ -387,6 +427,97 @@ def lm_paged_decode_window(prm: Params, toks, pos0, tables, limits, pk, pv, *,
             n_heads, Dh, scale, cd)
     x = _srv_ln(x, prm["lnf.g"], prm["lnf.b"], cd)
     return lm_head_logits(prm, x, tie_embeddings), pk, pv
+
+
+def generate(
+    prompt: Variable,
+    vocab_size: int,
+    max_len: int,
+    eos_id: int,
+    d_model: int = 512,
+    n_heads: int = 8,
+    n_layers: int = 6,
+    d_ff: int = 2048,
+    beam_size: int = 4,
+    max_gen: int = 32,
+    tie_embeddings: bool = True,
+    length_penalty: float = 0.0,
+    decode_dtype: str = "bfloat16",
+):
+    """Beam generation with a KV-cached incremental decode, as ONE program
+    op: a prefill over ``prompt`` [N, Tp] (all positions real tokens) fills
+    dense head-major caches [N*K, L, H, Tp + max_gen, Dh], then
+    ``layers.beam.beam_loop`` drives ``lm_decode_step`` one token a step.
+    Shares parameters with ``build_lm`` by name.  Returns (tokens [N, beam,
+    max_gen] int32, scores [N, beam], lens [N, beam] int32), best first.
+
+    ``decode_dtype`` is the compute and cache dtype of the loop (default
+    bfloat16); layernorm statistics, scores, softmax and logits stay
+    float32.  "float32" agrees token for token with the full forward."""
+    from ..layers import beam as beam_lib
+    from .weights import torch_dtype  # weights imports this module
+
+    helper = LayerHelper("transformer_generate")
+    T_total = int(prompt.shape[1]) + max_gen
+    if T_total > max_len:
+        raise ValueError(
+            f"prompt length {int(prompt.shape[1])} + max_gen {max_gen} "
+            f"exceeds the positional-embedding table max_len={max_len}")
+    Dh = d_model // n_heads
+    scale = 1.0 / math.sqrt(Dh)
+    p = {}
+    for n, shape in lm_param_shapes(vocab_size, max_len, d_model, n_heads,
+                                    n_layers, d_ff, tie_embeddings).items():
+        p[n] = helper.create_parameter(ParamAttr(name=n), list(shape),
+                                       is_bias=n.endswith(".b"))
+    pnames = sorted(p)
+
+    def fn(ins, attrs, ctx):
+        cd = torch_dtype(decode_dtype)
+        prm = _srv_cast_params(dict(zip(pnames, ins["Param"])), cd)
+        prompt_v = ins["Prompt"][0].long()
+        N, Tp = prompt_v.shape
+        dev = prompt_v.device
+        # the prefill covers prompt[:, :-1]; its last token is the loop's
+        # first input, at position Tp - 1
+        ck, cv = _ops.init_kv_cache(N, n_layers, n_heads, T_total, Dh, cd,
+                                    device=dev)
+        if Tp > 1:
+            x = (prm["tok_emb"][prompt_v[:, :-1]]
+                 + prm["pos_emb"][None, :Tp - 1]).to(cd)
+            for i in range(n_layers):
+                x, kh, vh = _srv_block_full(prm, f"blk{i}", x, n_heads, Dh,
+                                            scale, cd)
+                _ops.cache_set_prefix(ck, i, kh)
+                _ops.cache_set_prefix(cv, i, vh)
+
+        def step_fn(last, states):
+            pos, ck, cv = states          # every row advances in lockstep
+            logits, ck, cv = lm_decode_step(
+                prm, last, pos[:1], ck, cv, n_heads=n_heads,
+                n_layers=n_layers, cd=cd, tie_embeddings=tie_embeddings)
+            return torch.log_softmax(logits, dim=-1), (pos + 1, ck, cv)
+
+        pos0 = torch.full((N,), Tp - 1, dtype=torch.int32, device=dev)
+        tokens, scores, lens = beam_lib.beam_loop(
+            step_fn, (pos0, ck, cv), N, bos_id=prompt_v[:, -1].int(),
+            eos_id=eos_id, beam_size=beam_size, max_len=max_gen,
+            length_penalty=length_penalty, device=dev)
+        return {"Out": [tokens, scores, lens]}
+
+    block = helper.block
+    out_tok = block.create_var(unique_name.generate("tfgen.tokens"),
+                               (None, beam_size, max_gen), "int32")
+    out_sc = block.create_var(unique_name.generate("tfgen.scores"),
+                              (None, beam_size), "float32")
+    out_len = block.create_var(unique_name.generate("tfgen.lens"),
+                               (None, beam_size), "int32")
+    block.append_op(Op(
+        "transformer_generate",
+        {"Prompt": [prompt.name], "Param": [p[n].name for n in pnames]},
+        {"Out": [out_tok.name, out_sc.name, out_len.name]},
+        {"beam_size": beam_size, "max_gen": max_gen}, fn))
+    return out_tok, out_sc, out_len
 
 
 class TransformerLM(nn.Module):

@@ -1,5 +1,6 @@
-"""Attention (PyTorch port of ``paddle_tpu/ops/attention.py``): the paged KV
-pool and its composed decode-attention forms, and flash attention with its
+"""Attention (PyTorch port of ``paddle_tpu/ops/attention.py``): the dense KV
+caches of the dense decode path, the paged KV pool and its composed
+decode-attention forms, and flash attention with its
 hand-written CUDA kernels (``csrc/flash_attention.cu``).
 
 K/V live in a preallocated arena of fixed-size blocks,
@@ -26,6 +27,68 @@ import torch
 from . import _build
 
 KV_QMAX = 127.0
+
+
+# ------------------------------------------------------- dense KV caches
+#
+# Static-size caches for the dense decode forms (``serving.DecodeEngine``,
+# ``models.transformer.generate``): one [B, L, H, T_max, Dh] slab per batch,
+# allocated once; every step writes one position and attends to a masked
+# prefix.  Plain PyTorch, as the JAX package computes them outside any
+# Pallas kernel.
+
+
+def init_kv_cache(batch: int, n_layers: int, n_heads: int, max_len: int,
+                  head_dim: int, dtype=torch.float32, device=None):
+    """Head-major [B, L, H, T_max, Dh] K and V caches."""
+    shape = (batch, n_layers, n_heads, max_len, head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def cache_set(cache: torch.Tensor, layer: int, pos, new: torch.Tensor):
+    """Write one position's per-head projection ``new`` [B, H, Dh] into
+    slot ``pos`` of ``cache`` [B, L, H, T, Dh], in place.  ``pos`` is a
+    Python int or a one-element integer tensor on the cache's device (a
+    staged input: no host value enters the write)."""
+    lay = cache.select(1, layer)
+    if isinstance(pos, torch.Tensor):
+        lay.index_copy_(2, pos.reshape(1).long(),
+                        new.to(cache.dtype)[:, :, None])
+    else:
+        lay[:, :, int(pos)] = new.to(cache.dtype)
+    return cache
+
+
+def cache_set_prefix(cache: torch.Tensor, layer: int, new: torch.Tensor):
+    """Write a prefill's whole prefix ``new`` [B, H, T_prefix, Dh] into
+    slots [0, T_prefix) of layer ``layer``, in place."""
+    cache.select(1, layer)[:, :, :new.shape[2]] = new.to(cache.dtype)
+    return cache
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length, *,
+                     scale: Optional[float] = None,
+                     out_dtype=None) -> torch.Tensor:
+    """One query position against a static-size cache: q [B, H, Dh],
+    k_cache/v_cache [B, H, T_max, Dh]; attends to slots < ``length`` (a
+    Python int or an integer tensor).  Float32 scores and softmax, the
+    probabilities cast to ``out_dtype`` before the value product (float32
+    accumulation).  Returns [B, H, Dh]."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.einsum("mhd,mhtd->mht", q.to(torch.float32),
+                     k_cache.to(torch.float32)) * scale
+    t = torch.arange(k_cache.shape[2], device=k_cache.device)
+    if isinstance(length, torch.Tensor):
+        length = length.reshape(-1)[:1].to(k_cache.device)
+    valid = (t < length)[None, None, :]
+    return _masked_softmax_attend(s, v_cache, valid, out_dtype, q.dtype,
+                                  "mht,mhtd->mhd")
+
+
+# ------------------------------------------------------------ paged KV pool
 
 
 def init_kv_pool(n_blocks: int, n_layers: int, n_heads: int, block_size: int,

@@ -1,9 +1,13 @@
-"""Request deadlines for the serving loop: the port's own copy of
-``Deadline`` and ``DeadlineExceeded`` (``paddle_tpu/resilience/policy.py``)."""
+"""Request deadlines for the serving loop (the port's own copy of
+``Deadline`` and ``DeadlineExceeded``, ``paddle_tpu/resilience/policy.py``)
+and the fault-injection registry ``faults`` (its copy of
+``paddle_tpu/resilience/faults.py``)."""
 from __future__ import annotations
 
 import time
 from typing import Optional
+
+from . import faults
 
 
 class DeadlineExceeded(TimeoutError):
@@ -31,3 +35,6 @@ class Deadline:
         if self.expired():
             raise DeadlineExceeded(f"{what} exceeded its deadline "
                                    f"(over by {-self.remaining():.3f}s)")
+
+
+__all__ = ["Deadline", "DeadlineExceeded", "faults"]

@@ -48,20 +48,27 @@ class DecodeAdmissionQueue:
         prompt tier (by the bucket ladder) admits first;
       * an AGING GUARD bounds the tiering: once the oldest waiter has waited
         past ``max_wait_ms``, only the oldest is eligible (strict FIFO), so a
-        long prompt is never starved by a stream of short ones.
+        long prompt is never starved by a stream of short ones;
+      * with ``effective_len`` (cache-aware admission) the tiering keys on
+        what a request would cost to prefill now, its unshared tail after
+        the prefix-cache match, so a long prompt whose prefix is cached
+        admits with the short ones.
     """
 
     def __init__(self, prompt_buckets: Sequence[int],
-                 max_wait_ms: float = 200.0):
+                 max_wait_ms: float = 200.0,
+                 effective_len: Optional[Callable] = None):
         self._ladder = sorted(int(b) for b in prompt_buckets)
         self.max_wait_ms = float(max_wait_ms)
+        self.effective_len = effective_len
         self._q: List = []  # DecodeRequest-shaped, arrival order
 
     def __len__(self) -> int:
         return len(self._q)
 
     def _tier(self, req) -> int:
-        n = req.prompt_len
+        n = (req.prompt_len if self.effective_len is None
+             else self.effective_len(req))
         for b in self._ladder:
             if b >= n:
                 return b

@@ -23,6 +23,21 @@ counterpart of the reference's one compiled executable per signature.  The
 arenas are written in place.  A speculative arm (``spec=True``) proposes
 n-gram prompt-lookup drafts and verifies them greedily in one W-window step:
 the token streams are those of the plain loop, in fewer steps.
+
+The scheduler also carries the reference's serving extras:
+  * the prefix cache (``prefix_cache=True``, ``serving/prefix.py``): a
+    joiner maps the cached blocks of its prompt's longest cached run
+    read-only and recomputes only its tail through the warmed step
+    (``prefill_tail``);
+  * beam search (``SamplingParams(beam=K)``) and parallel-n sampling
+    (``n=N``) as forks over copy-on-write blocks: a fork acquires the
+    parent's full blocks and recomputes its partial block privately;
+  * migration: ``snapshot_slots(drain=True)`` hands out resume records and
+    ``submit(resume_prefix=...)`` continues them elsewhere.
+None of them prepares a new signature: a hit, a fork or a resume runs the
+warmed prefill and step graphs.  ``DecodeEngine`` is the dense engine
+(batch-as-unit over static per-batch caches), the greedy oracle and A/B
+baseline of the reference.
 """
 from __future__ import annotations
 
@@ -37,15 +52,319 @@ import torch
 
 from .._device import resolve_device
 from ..core.graphs import Graphs, Staged, WarmError
-from ..models.transformer import TransformerLM
+from ..layers import beam as _beam
+from ..models.transformer import TransformerLM, lm_decode_step
 from ..models.weights import from_jax_params, torch_dtype
 from ..ops import attention as _attn
 from ..ops.paged_attention import check_kernel_shape
 from ..ops.sampling import masked_select_tokens
-from ..resilience import DeadlineExceeded
+from ..resilience import DeadlineExceeded, faults
 from .batcher import (AdmissionShed, DecodeAdmissionQueue,
                       build_bucket_ladder, bucket_for)
+from .prefix import PrefixCache, chain_hashes
 from .sampling import SamplingParams
+
+
+class GenerationMigrated(RuntimeError):
+    """The generation was snapshot off this scheduler for migration
+    (``snapshot_slots(drain=True)``): its resume record (prompt, tokens so
+    far, budget, remaining deadline) continues it elsewhere through
+    ``submit(resume_prefix=...)``.  Local waiters see this error, so
+    nothing blocks on a drained scheduler."""
+
+
+class _ForkFailed(RuntimeError):
+    """A beam branch fork could not seat (the pool exhausted even after
+    preemption).  Internal: the scheduler fails the whole group."""
+
+
+class _Signature:
+    """One call shape of an engine: ``key`` names it (``("prefill", pb)``
+    or ``("step", W, policy)`` for the continuous engine, ``("prefill",
+    nb, pb)``, ``("step", nb)`` or ``("naive", nb, tb)`` for the dense
+    one).  ``ins`` (and ``mask``, policy steps only) hold the static
+    inputs, ``logits`` and ``res`` the static outputs, ``body`` the device
+    function run on them, ``run`` that body prepared
+    (``core.graphs.Prepared``: on the card its CUDA graph)."""
+
+    __slots__ = ("key", "body", "ins", "mask", "logits", "res", "run")
+
+    def __init__(self, key, body, ins, mask, logits, res):
+        self.key, self.body, self.ins, self.mask = key, body, ins, mask
+        self.logits, self.res = logits, res
+        self.run = None
+
+
+class DecodeEngine:
+    """Greedy KV-cached generation over dense per-batch caches (the port of
+    the reference's batch-as-unit ``DecodeEngine``): a batch is admitted as
+    a unit, its prompts padded to a prompt bucket and the batch to a batch
+    bucket.  The greedy oracle and the A/B baseline of the continuous
+    engine.
+
+    Signatures, each a CUDA graph on the card (``warm()``, or at its first
+    call) replayed by every later call, the body run on static buffers on
+    the CPU: ``("prefill", nb, pb)`` (a causal forward over the padded
+    prompts filling the caches' first pb positions; the true length is a
+    staged input), ``("step", nb)`` (``lm_decode_step`` at a staged
+    position) and ``("naive", nb, tb)`` (the full-recompute arm).  Each
+    batch bucket owns one pair of caches [nb, L, H, max_len, Dh], written
+    in place.  A failed capture or replay raises.  Counters:
+    ``dispatches`` and ``replays`` by signature key."""
+
+    def __init__(self, params: Dict, *, vocab_size: int, max_len: int,
+                 d_model: int = 512, n_heads: int = 8, n_layers: int = 6,
+                 d_ff: int = 2048, tie_embeddings: bool = True,
+                 dtype="float32", prompt_buckets=None,
+                 batch_buckets=(1, 8), device=None):
+        self.device = resolve_device(device)
+        self.vocab_size = int(vocab_size)
+        self.max_len = int(max_len)
+        self.n_heads = int(n_heads)
+        self.n_layers = int(n_layers)
+        self.cd = torch_dtype(dtype)
+        self.Dh = d_model // n_heads
+        self.prompt_buckets = build_bucket_ladder(max_len, prompt_buckets,
+                                                  base=8)
+        self.batch_buckets = build_bucket_ladder(max(batch_buckets),
+                                                 batch_buckets)
+        self.model = TransformerLM(
+            from_jax_params(params, vocab_size=vocab_size, max_len=max_len,
+                            d_model=d_model, n_heads=n_heads,
+                            n_layers=n_layers, d_ff=d_ff,
+                            tie_embeddings=tie_embeddings, dtype=self.cd,
+                            device=self.device),
+            n_heads=n_heads, n_layers=n_layers,
+            tie_embeddings=tie_embeddings)
+        self.caches: Dict[int, tuple] = {}   # batch bucket -> (ck, cv)
+        self.dispatches = collections.Counter()
+        self.replays = collections.Counter()
+        self._sigs: Dict[tuple, _Signature] = {}
+        self._traces = 0
+        self._graphs = Graphs(self.device)
+
+    # ---------------------------------------------------------- signatures
+    def trace_count(self) -> int:
+        """Signatures prepared so far."""
+        return self._traces
+
+    @property
+    def cache_bytes(self) -> int:
+        """Device bytes of the dense K and V caches allocated so far."""
+        return sum(2 * ck.numel() * ck.element_size()
+                   for ck, _ in self.caches.values())
+
+    def _cache(self, nb: int) -> tuple:
+        if nb not in self.caches:
+            self.caches[nb] = _attn.init_kv_cache(
+                nb, self.n_layers, self.n_heads, self.max_len, self.Dh,
+                self.cd, device=self.device)
+        return self.caches[nb]
+
+    def _signature(self, key) -> _Signature:
+        sig = self._sigs.get(key)
+        return sig if sig is not None else self._prepare(key)
+
+    def _prepare(self, key) -> _Signature:
+        V, dev = self.vocab_size, self.device
+        nb = key[1]
+        if key[0] == "prefill":
+            ins = Staged([("tokens", (nb, key[2]), np.int32),
+                          ("true_len", (1,), np.int32)], dev)
+            ins.np["true_len"][0] = key[2]
+            body = self._prefill_body
+        elif key[0] == "step":
+            ins = Staged([("token", (nb,), np.int32),
+                          ("pos", (1,), np.int32)], dev)
+            body = self._step_body
+        else:
+            ins = Staged([("tokens", (nb, key[2]), np.int32),
+                          ("cur_len", (1,), np.int32)], dev)
+            ins.np["cur_len"][0] = 1
+            body = self._naive_body
+        self._cache(nb)
+        sig = _Signature(key, body, ins, None,
+                         torch.zeros((nb, V), dtype=torch.float32,
+                                     device=dev),
+                         torch.zeros(nb, dtype=torch.int32, device=dev))
+        try:
+            ins.upload()
+            sig.run = self._graphs.prepare(lambda: sig.body(sig))
+        except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
+            raise WarmError(f"preparing signature {key} failed: "
+                            f"{exc}") from exc
+        self._traces += 1
+        self._sigs[key] = sig
+        return sig
+
+    def _dispatch(self, sig: _Signature) -> None:
+        sig.ins.upload()
+        self.dispatches[sig.key] += 1
+        sig.run.replay()
+        if sig.run.captured:
+            self.replays[sig.key] += 1
+
+    def _finish(self, sig: _Signature, x_last: torch.Tensor) -> None:
+        logits = self.model.logits(x_last)
+        sig.logits.copy_(logits)
+        sig.res.copy_(torch.argmax(logits, dim=-1).to(torch.int32))
+
+    @torch.no_grad()
+    def _prefill_body(self, sig: _Signature) -> None:
+        """Causal forward over the padded prompts; their K/V into the
+        caches' first pb positions; the logits at ``true_len - 1``."""
+        a = sig.ins.t
+        ck, cv = self.caches[sig.key[1]]
+        x, kvs = self.model(a["tokens"], collect_kv=True)
+        for i, (kh, vh) in enumerate(kvs):
+            _attn.cache_set_prefix(ck, i, kh)
+            _attn.cache_set_prefix(cv, i, vh)
+        self._finish(sig, x.index_select(1, (a["true_len"] - 1).long())[:, 0])
+
+    @torch.no_grad()
+    def _step_body(self, sig: _Signature) -> None:
+        """``lm_decode_step`` at the staged position."""
+        a = sig.ins.t
+        ck, cv = self.caches[sig.key[1]]
+        m = self.model
+        logits, _, _ = lm_decode_step(
+            m.prm, a["token"], a["pos"], ck, cv, n_heads=m.n_heads,
+            n_layers=m.n_layers, cd=m.cd, tie_embeddings=m.tie_embeddings)
+        sig.logits.copy_(logits)
+        sig.res.copy_(torch.argmax(logits, dim=-1).to(torch.int32))
+
+    @torch.no_grad()
+    def _naive_body(self, sig: _Signature) -> None:
+        """Full recompute over the whole buffer, logits at cur_len - 1."""
+        a = sig.ins.t
+        x, _ = self.model(a["tokens"])
+        self._finish(sig, x.index_select(1, (a["cur_len"] - 1).long())[:, 0])
+
+    def warm(self, prompt_len: Optional[int] = None) -> int:
+        """Prepare prefill for every (batch bucket, prompt bucket), or only
+        the prompt bucket covering ``prompt_len``, and the step per batch
+        bucket.  Returns the signatures prepared by this call."""
+        before = self._traces
+        pls = ([bucket_for(self.prompt_buckets, prompt_len, what="prompt")]
+               if prompt_len is not None else self.prompt_buckets)
+        for nb in self.batch_buckets:
+            for pb in pls:
+                self._signature(("prefill", nb, pb))
+            self._signature(("step", nb))
+        return self._traces - before
+
+    # -------------------------------------------------------------- generate
+    def _check_len(self, Tp: int, max_gen: int) -> None:
+        if Tp + max_gen > self.max_len:
+            raise ValueError(f"prompt {Tp} + max_gen {max_gen} exceeds the "
+                             f"cache size max_len={self.max_len}")
+
+    def _run_prefill(self, prompts: np.ndarray) -> _Signature:
+        """Stage and dispatch the prefill of ``prompts`` [N, Tp]; returns
+        its signature (``res`` the first greedy tokens)."""
+        N, Tp = prompts.shape
+        nb = bucket_for(self.batch_buckets, N, what="batch")
+        pb = bucket_for(self.prompt_buckets, Tp, what="prompt length")
+        sig = self._signature(("prefill", nb, pb))
+        buf = sig.ins.np["tokens"]
+        buf[...] = 0
+        buf[:N, :Tp] = prompts
+        buf[N:, :Tp] = prompts[:1]  # batch pad rows: real tokens, sliced away
+        sig.ins.np["true_len"][0] = Tp
+        self._dispatch(sig)
+        return sig
+
+    def generate(self, prompts: np.ndarray, max_gen: int,
+                 eos_id: Optional[int] = None) -> np.ndarray:
+        """Greedy decode: prompts [N, Tp] int32 (one length) -> tokens
+        [N, max_gen].  Rows that emitted ``eos_id`` keep their output."""
+        prompts = np.asarray(prompts, np.int32)
+        N, Tp = prompts.shape
+        self._check_len(Tp, max_gen)
+        sig = self._run_prefill(prompts)
+        nb = sig.key[1]
+        out = np.zeros((nb, max_gen), np.int32)
+        done = np.zeros(nb, bool)
+        tok = sig.res.to("cpu", copy=True).numpy()
+        step = self._signature(("step", nb))
+        for i in range(max_gen):
+            out[~done, i] = tok[~done]
+            if eos_id is not None:
+                done |= tok == eos_id
+                if done[:N].all():
+                    break
+            if i == max_gen - 1:
+                break
+            step.ins.np["token"][...] = tok
+            step.ins.np["pos"][0] = Tp + i
+            self._dispatch(step)
+            tok = step.res.to("cpu", copy=True).numpy()
+        return out[:N]
+
+    def generate_naive(self, prompts: np.ndarray, max_gen: int,
+                       eos_id: Optional[int] = None) -> np.ndarray:
+        """Full-recompute greedy decode (the A/B baseline): every token pays
+        a whole forward over the token buffer."""
+        prompts = np.asarray(prompts, np.int32)
+        N, Tp = prompts.shape
+        self._check_len(Tp, max_gen)
+        nb = bucket_for(self.batch_buckets, N, what="batch")
+        tb = bucket_for(self.prompt_buckets + [self.max_len], Tp + max_gen,
+                        what="sequence")
+        sig = self._signature(("naive", nb, tb))
+        buf = sig.ins.np["tokens"]
+        buf[...] = 0
+        buf[:N, :Tp] = prompts
+        buf[N:, :Tp] = prompts[:1]
+        out = np.zeros((nb, max_gen), np.int32)
+        done = np.zeros(nb, bool)
+        for i in range(max_gen):
+            sig.ins.np["cur_len"][0] = Tp + i
+            self._dispatch(sig)
+            tok = sig.res.to("cpu", copy=True).numpy()
+            out[~done, i] = tok[~done]
+            buf[:, Tp + i] = tok
+            if eos_id is not None:
+                done |= tok == eos_id
+                if done[:N].all():
+                    break
+        return out[:N]
+
+    def measure(self, batch: int, prompt_len: int, max_gen: int,
+                repeats: int = 1) -> Dict:
+        """Tokens/s of the prefill, the KV-cached decode and the naive
+        full-recompute arm over the same random prompts (every signature
+        prepared first, so the times hold no capture)."""
+        rng = np.random.RandomState(0)
+        prompts = rng.randint(2, self.vocab_size,
+                              (batch, prompt_len)).astype(np.int32)
+        self.warm(prompt_len)
+        nb = bucket_for(self.batch_buckets, batch, what="batch")
+        self._signature(("naive", nb, bucket_for(
+            self.prompt_buckets + [self.max_len], prompt_len + max_gen,
+            what="sequence")))
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            sig = self._run_prefill(prompts)
+        sig.res.to("cpu")
+        prefill_s = (time.perf_counter() - t0) / repeats
+        t0 = time.perf_counter()
+        kv_tokens = self.generate(prompts, max_gen)
+        kv_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        naive_tokens = self.generate_naive(prompts, max_gen)
+        naive_s = time.perf_counter() - t0
+        return {
+            "batch": batch, "prompt_len": prompt_len, "max_gen": max_gen,
+            "prefill_tokens_per_sec": batch * prompt_len / prefill_s,
+            "kv_decode_tokens_per_sec": batch * max_gen / kv_s,
+            "naive_decode_tokens_per_sec": batch * max_gen / naive_s,
+            "kv_vs_naive_speedup": naive_s / kv_s,
+            "tokens_match": bool((kv_tokens == naive_tokens).all()),
+        }
 
 
 class PagedKVPool:
@@ -109,6 +428,14 @@ class PagedKVPool:
         return self.block_bytes(self.n_layers, self.n_heads, 1,
                                 self.head_dim, self.kv_dtype)
 
+    @property
+    def arena_bytes(self) -> int:
+        """Device bytes of the allocatable arena (the trash block is
+        overhead, not capacity)."""
+        return self.n_blocks * self.block_bytes(
+            self.n_layers, self.n_heads, self.block_size, self.head_dim,
+            self.kv_dtype)
+
     def alloc(self, n: int):
         """``n`` block indices, or None when the pool can't cover them."""
         if n > len(self._free):
@@ -142,9 +469,14 @@ class DecodeRequest:
     """One streaming generation request riding the continuous loop.
 
     Filled in by the scheduler: ``tokens`` (generated so far), ``error``
-    (AdmissionShed / DeadlineExceeded / scheduler closed) and the latency
-    stamps ``t_submit`` / ``t_first_token`` (TTFT) / ``t_done``, all
-    ``time.perf_counter`` seconds."""
+    (AdmissionShed / DeadlineExceeded / GenerationMigrated / scheduler
+    closed) and the latency stamps ``t_submit`` / ``t_first_token`` (TTFT)
+    / ``t_done``, all ``time.perf_counter`` seconds.  ``fork_of`` marks a
+    parallel-n branch (the root's id) and ``branches`` on a parallel-n root
+    lists [root, *children]; a beam request's ranked results land in
+    ``beams`` / ``beam_scores`` / ``beam_lens``.  ``cold_resume`` marks a
+    resume record from a pool of another kv_dtype: its admission maps and
+    registers nothing in the prefix cache."""
 
     _seq = itertools.count(1)  # next() is atomic: concurrent submits are safe
 
@@ -156,6 +488,11 @@ class DecodeRequest:
         self.eos_id = eos_id
         self.deadline = deadline  # resilience.Deadline or None
         self.sampling = sampling if sampling is not None else SamplingParams()
+        self.fork_of: Optional[int] = None
+        self.branches: Optional[list] = None
+        self.beams: Optional[list] = None
+        self.beam_scores: Optional[list] = None
+        self.beam_lens: Optional[list] = None
         self.tokens: list = []
         self.error: Optional[BaseException] = None
         self.done = threading.Event()
@@ -164,6 +501,10 @@ class DecodeRequest:
         self.t_first_token: Optional[float] = None
         self.t_done: Optional[float] = None
         self.preemptions = 0
+        # (prompt_len, digest chain): the history is fixed while the
+        # request waits, so admission hashes it once
+        self._digest_memo = None
+        self.cold_resume = False
 
     @property
     def prompt_len(self) -> int:
@@ -186,36 +527,29 @@ class DecodeRequest:
 
 class _Slot:
     """One occupied decode slot: the request, its block table (numpy row),
-    the blocks it owns, and ``pos`` — the cache position its CURRENT last
+    the blocks it maps, and ``pos`` — the cache position its CURRENT last
     token will occupy on the next step (write-then-attend).  ``seq`` orders
-    slots by insertion: under pool pressure the youngest is preempted."""
+    slots by insertion: under pool pressure the youngest is preempted.
+    ``cached`` is the subset of ``blocks`` the prefix cache tracks
+    (released by refcount, not freed).  ``group`` binds a beam branch to
+    its ``_BeamGroup`` (never retired or preempted alone); a ``parked``
+    branch (done or pruned) holds no blocks and is not stepped, but keeps
+    its slot so that the group always owns K slots."""
 
-    __slots__ = ("req", "table", "blocks", "pos", "limit", "seq")
+    __slots__ = ("req", "table", "blocks", "pos", "limit", "seq", "cached",
+                 "group", "parked")
 
     def __init__(self, req: DecodeRequest, table, blocks, pos: int,
-                 limit: int, seq: int):
+                 limit: int, seq: int, cached=frozenset(), group=None):
         self.req = req
         self.table = table
         self.blocks = blocks
         self.pos = pos
         self.limit = limit  # original prompt + max_gen: the write budget
         self.seq = seq
-
-
-class _Signature:
-    """One call shape of the engine: ``key`` is ``("prefill", pb)`` or
-    ``("step", W, policy)``.  ``ins`` (and ``mask``, policy steps only)
-    hold the static inputs, ``logits`` and ``res`` the static outputs
-    (``res`` [S, W + 1] int32: the argmax of each window row, then the
-    chosen token), ``body`` the device function run on them, ``run`` that
-    body prepared (``core.graphs.Prepared``: on the card its CUDA graph)."""
-
-    __slots__ = ("key", "body", "ins", "mask", "logits", "res", "run")
-
-    def __init__(self, key, body, ins, mask, logits, res):
-        self.key, self.body, self.ins, self.mask = key, body, ins, mask
-        self.logits, self.res = logits, res
-        self.run = None
+        self.cached = set(cached)
+        self.group = group
+        self.parked = False
 
 
 class ContinuousDecodeEngine:
@@ -243,7 +577,12 @@ class ContinuousDecodeEngine:
     ``prefill_dispatches`` (by prompt bucket), and on the card ``replays``
     (graph replays by signature key).  A replay adds its graph's
     paged-kernel calls to ``paged_attention.launches``, so that counter
-    keeps counting the calls that ran the kernel on the device."""
+    keeps counting the calls that ran the kernel on the device.
+
+    ``prefix_cache=True`` gives the engine a ``PrefixCache`` (``prefix``),
+    seeded with the pool's kv_dtype so that an int8 pool never matches a
+    float32 digest; ``alloc_blocks`` then evicts unreferenced cached
+    blocks before it reports a dry pool."""
 
     def __init__(self, params: Dict, *, vocab_size: int, max_len: int,
                  d_model: int = 512, n_heads: int = 8, n_layers: int = 6,
@@ -251,7 +590,7 @@ class ContinuousDecodeEngine:
                  dtype="float32", n_slots: int = 4, block_size: int = 16,
                  n_blocks: Optional[int] = None, prompt_buckets=None,
                  spec_window: int = 0, kv_dtype: Optional[str] = None,
-                 device=None):
+                 prefix_cache: bool = False, device=None):
         self.device = resolve_device(device)
         self.vocab_size = int(vocab_size)
         self.max_len = int(max_len)
@@ -277,6 +616,9 @@ class ContinuousDecodeEngine:
                                 self.Dh, self.cd, kv_dtype=kv_dtype,
                                 device=self.device)
         self.kv_dtype = self.pool.kv_dtype
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(self.block_size, kv_dtype=self.kv_dtype)
+            if prefix_cache else None)
         self.model = TransformerLM(
             from_jax_params(params, vocab_size=vocab_size, max_len=max_len,
                             d_model=d_model, n_heads=n_heads,
@@ -515,13 +857,18 @@ class ContinuousDecodeEngine:
                 sig.res[:, -1].to("cpu", copy=True).numpy())
 
     def step_tokens(self, toks: np.ndarray, pos0: np.ndarray,
-                    tables: np.ndarray, limits: np.ndarray, samp=None):
+                    tables: np.ndarray, limits: np.ndarray, samp=None,
+                    with_logits: bool = False):
         """One windowed decode step returning only what the scheduler reads:
         ``(argmax [S, W] int32, chosen [S] int32)`` in one read back — the
-        logits stay on the device."""
+        logits stay on the device unless ``with_logits`` (then a third
+        item, the logits [S, W, V], for the beam controller)."""
         sig = self._stage_step(toks, pos0, tables, limits, samp)
         self._dispatch(sig)
         res = sig.res.to("cpu", copy=True).numpy()
+        if with_logits:
+            return (res[:, :-1], res[:, -1],
+                    sig.logits.to("cpu", copy=True).numpy())
         return res[:, :-1], res[:, -1]
 
     def step(self, toks: np.ndarray, pos0: np.ndarray, tables: np.ndarray,
@@ -535,42 +882,78 @@ class ContinuousDecodeEngine:
         teacher-forced probe)."""
         return self.step_full(toks, pos0, tables, limits)[0]
 
+    def logp_rows(self, rows: np.ndarray) -> np.ndarray:
+        """log-softmax over logits rows [n, V] on the engine's device (the
+        op the dense ``generate`` applies to its step's logits): the beam
+        controller's scoring."""
+        t = torch.from_numpy(np.ascontiguousarray(rows, np.float32))
+        return torch.log_softmax(t.to(self.device), dim=-1).cpu().numpy()
+
+    def slots_resident_per_gib(self) -> int:
+        """Full slots (max_len tokens of K and V, scales included) one GiB
+        of arena holds at this pool's kv_dtype."""
+        return int((1 << 30) // max(self.pool.bytes_per_token * self.max_len,
+                                    1))
+
     def prefill_tail(self, tail: np.ndarray, pos0: int, table: np.ndarray,
-                     limit: int, samp_row=None) -> int:
-        """Write ``tail``'s K/V at cache positions ``pos0``.. through the W=1
-        decode step, ``n_slots`` tokens per dispatch riding the slot axis:
-        row ``j`` of a chunk carries tail token ``j`` at ``pos0 + j``, every
-        row mapping the same table.  Each layer scatters all rows' K/V
-        before any row attends, so row ``j`` sees rows ``< j`` of the same
-        call.  Returns the token after the last tail position: the argmax,
-        or the policy pick of ``samp_row`` (seed, substep, temperature,
-        top_k, top_p, mask_row) applied to the last row."""
+                     limit: int, samp_row=None, return_logits: bool = False):
+        """Write ``tail``'s K/V at cache positions ``pos0``.. through the
+        decode step, up to ``n_slots`` runs of consecutive tail tokens per
+        dispatch riding the slot axis, every row mapping the same table.
+        A run is W tokens in one row's window: W = ``spec_window`` when the
+        tail outgrows one W=1 dispatch, else 1.  A row's limit ends at its
+        run (or at ``limit``, the slot's write budget, if that is sooner),
+        so a short run's idle window positions write the trash block.
+        Each layer scatters all rows' K/V before any row attends, so a run
+        sees the runs before it in the same call.  Returns the token after
+        the last tail position: the argmax, or the policy pick of
+        ``samp_row`` (seed, substep, temperature, top_k, top_p, mask_row),
+        which reads window column 0, so there the last token is a run of
+        its own.  With ``return_logits`` returns ``(token, logits [V] of
+        the last position)``.  A prefix-cache hit, a fork and a sampled
+        first token run here: the warmed step graphs, no signature of
+        their own."""
         S = self.n_slots
         tail = np.asarray(tail, np.int32).reshape(-1)
+        W = self.spec_window if self.spec_window > 1 and tail.size > S else 1
+        body = tail.size - (1 if samp_row is not None and W > 1 else 0)
+        cuts = list(range(0, body, W)) + [body, tail.size]
+        runs = [(a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
         trash = self._trash_table()
-        out, chosen, n = None, None, 0
-        for base in range(0, tail.size, S):
-            chunk = tail[base:base + S]
-            n = chunk.size
-            toks = np.zeros((S, 1), np.int32)
-            toks[:n, 0] = chunk
+        for g in range(0, len(runs), S):
+            chunk = runs[g:g + S]
+            toks = np.zeros((S, W), np.int32)
             poss = np.zeros(S, np.int32)
-            poss[:n] = int(pos0) + base + np.arange(n)
             lims = np.zeros(S, np.int32)  # idle rows: limit 0 = trash writes
-            lims[:n] = int(limit)
             tables = np.tile(trash, (S, 1))
-            tables[:n] = table
+            for j, (a, b) in enumerate(chunk):
+                toks[j, :b - a] = tail[a:b]
+                poss[j] = int(pos0) + a
+                lims[j] = min(int(limit), int(pos0) + b)
+                tables[j] = table
+            last = g + S >= len(runs)
             samp = None
-            if samp_row is not None and base + n >= tail.size:
+            if samp_row is not None and last:
                 samp = self.make_samp()
-                self.set_samp_row(samp, n - 1, samp_row)
-            out, chosen = self.step_tokens(toks, poss, tables, lims,
-                                           samp=samp)
-        return int(chosen[n - 1]) if samp_row is not None else int(
-            out[n - 1, 0])
+                self.set_samp_row(samp, len(chunk) - 1, samp_row)
+            got = self.step_tokens(toks, poss, tables, lims, samp=samp,
+                                   with_logits=return_logits and last)
+        j, (a, b) = len(chunk) - 1, chunk[-1]
+        tok = int(got[1][j]) if samp_row is not None else int(
+            got[0][j, b - a - 1])
+        return (tok, got[2][j, b - a - 1]) if return_logits else tok
 
     def alloc_blocks(self, n: int):
-        """Pool allocation: ``n`` blocks or None (the caller preempts)."""
+        """Pool allocation: ``n`` blocks or None (the caller preempts).
+        With a prefix cache a dry pool first evicts unreferenced cached
+        blocks (least recently released first); a block a live slot maps
+        is never evicted."""
+        got = self.pool.alloc(n)
+        if got is not None or self.prefix is None:
+            return got
+        evicted = self.prefix.evict(n - self.pool.blocks_free)
+        if evicted:
+            self.pool.free(evicted)
         return self.pool.alloc(n)
 
 
@@ -595,6 +978,90 @@ def _ngram_draft(history: np.ndarray, width: int) -> Optional[np.ndarray]:
     return draft.astype(np.int32)
 
 
+class _BeamGroup:
+    """One beam-search generation riding the continuous batch as K forked
+    branches.  The group owns K slots for its whole life; its host
+    controller replicates ``layers/beam.py``'s loop (the candidates, the
+    eos handling, the first-index tie order, the length-penalty re-sort)
+    over per-branch logits from the W=1 step, which makes the dense
+    ``generate`` its oracle.  Branch k's KV lives in slot ``slots[k]``; a
+    re-gather that moves a branch's ancestry to another slot forks."""
+
+    __slots__ = ("req", "k", "slots", "tokens", "scores", "done", "lens",
+                 "t", "eos", "max_len")
+
+    def __init__(self, req: DecodeRequest, slots, eos_id: int):
+        self.req = req
+        self.k = req.sampling.beam
+        self.slots = list(slots)
+        self.tokens = [[] for _ in range(self.k)]
+        # only beam 0 is live at the first expansion
+        self.scores = np.full(self.k, -1e9, np.float32)
+        self.scores[0] = 0.0
+        self.done = np.zeros(self.k, bool)
+        self.lens = np.zeros(self.k, np.int32)
+        self.t = 0
+        self.eos = int(eos_id)
+        self.max_len = int(req.max_gen)
+
+    def select(self, logp_rows) -> list:
+        """One iteration's selection: ``logp_rows[k]`` is branch k's
+        log-softmax row [V] (None for a done branch, which proposes only
+        eos at its unchanged score).  Returns the plan ``[(parent, token,
+        score, done, len)]`` of length K, ranked; changes no state."""
+        v = next(r.shape[-1] for r in logp_rows if r is not None)
+        neg = np.float32(-1e9)
+        cand = np.empty((self.k, v), np.float32)
+        for k in range(self.k):
+            if self.done[k] or logp_rows[k] is None:
+                cand[k] = self.scores[k] + neg
+                cand[k, self.eos] = self.scores[k]
+            else:
+                cand[k] = self.scores[k] + logp_rows[k]
+        flat = cand.reshape(-1)
+        # the dense loop's top_k order: float32's total order, ties toward
+        # the lower flat index
+        top = _beam.top_k(torch.from_numpy(flat)[None], self.k)[1][0].numpy()
+        plan = []
+        for i in top:
+            parent, tok = int(i) // v, int(i) % v
+            was_done = bool(self.done[parent])
+            emitted = (not was_done) and tok != self.eos
+            plan.append((parent, tok, np.float32(flat[i]),
+                         was_done or tok == self.eos,
+                         int(self.lens[parent]) + (1 if emitted else 0)))
+        return plan
+
+    def apply(self, plan) -> None:
+        """Commit a plan: re-gather buffers, scores, done flags and lengths
+        and append this iteration's token to each branch."""
+        self.tokens = [self.tokens[p] + [tok] for p, tok, *_ in plan]
+        self.scores = np.asarray([s for _, _, s, _, _ in plan], np.float32)
+        self.done = np.asarray([d for *_, d, _ in plan], bool)
+        self.lens = np.asarray([ln for *_, ln in plan], np.int32)
+        self.t += 1
+
+    def finished(self) -> bool:
+        return self.t >= self.max_len or bool(self.done.all())
+
+    def finalize(self):
+        """Eos-pad every buffer to max_len and, under a positive length
+        penalty, rescale and stably re-sort.  Returns (tokens, scores,
+        lens), best first."""
+        toks = [list(b) + [self.eos] * (self.max_len - len(b))
+                for b in self.tokens]
+        scores, lens = self.scores.copy(), self.lens.copy()
+        lp = float(self.req.sampling.length_penalty)
+        if lp > 0:
+            scores = (scores / (((5.0 + lens.astype(np.float32)) / 6.0)
+                                ** np.float32(lp))).astype(np.float32)
+            order = _beam.top_k(torch.from_numpy(scores)[None],
+                                self.k)[1][0].numpy()
+            toks = [toks[i] for i in order]
+            scores, lens = scores[order], lens[order]
+        return toks, scores, lens
+
+
 class ContinuousScheduler:
     """Iteration-level scheduling over the paged pool.
 
@@ -609,6 +1076,15 @@ class ContinuousScheduler:
     one windowed step (greedy verification: the streams are those of the
     plain loop).
 
+    With the engine's prefix cache, admission tiers on the unshared tail
+    (``effective_len``), a joiner maps its longest cached run and
+    registers its own new full blocks (``_seat``), and cached blocks stay
+    out of the free list until evicted.  ``SamplingParams(beam=K)`` seats
+    a beam group of K slots (``eos_id`` required); ``n=N`` queues N
+    sampled branches under ``sampling.branch_seed``, the children mapping
+    the root's registered prompt blocks.  ``snapshot_slots`` hands out
+    resume records; ``submit(resume_prefix=...)`` continues one.
+
     Thread-safe: ``submit`` from any thread; drive the loop synchronously
     (``step``/``run_until_idle``) or with the background thread
     (``start``/``close``)."""
@@ -617,8 +1093,17 @@ class ContinuousScheduler:
                  max_wait_ms: float = 200.0, spec: bool = False):
         self.eng = engine
         self.spec = bool(spec) and engine.spec_window > 1
+        eff = None
+        if engine.prefix is not None:
+            eff = (lambda req:
+                   req.prompt_len if req.cold_resume else
+                   req.prompt_len
+                   - len(engine.prefix.lookup(self._digests_for(req),
+                                              req.prompt_len)[0])
+                   * engine.block_size)
         self.queue = DecodeAdmissionQueue(engine.prompt_buckets,
-                                          max_wait_ms=max_wait_ms)
+                                          max_wait_ms=max_wait_ms,
+                                          effective_len=eff)
         self._slots = [None] * engine.n_slots
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)
@@ -627,22 +1112,64 @@ class ContinuousScheduler:
         self._seq = 0  # insertion order: preemption evicts the youngest
         self.counters = {"prefill_inserts": 0, "retired": 0, "sheds": 0,
                          "preemptions": 0, "spec_proposed": 0,
-                         "spec_accepted": 0, "steps": 0, "sampled": 0}
+                         "spec_accepted": 0, "steps": 0,
+                         "resumed_in": 0, "migrated_out": 0,
+                         "sampled": 0, "forks": 0, "fork_cow_blocks": 0,
+                         "fork_private": 0, "beam_groups": 0}
+        self._groups: list = []  # live _BeamGroups
         self._snapshot: Dict = {}
         self._update_snapshot()
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, max_gen: int, eos_id: Optional[int] = None,
-               deadline=None, sampling=None) -> DecodeRequest:
-        """Queue one streaming generation; returns its request handle."""
+               deadline=None, resume_prefix=None,
+               resume_kv_dtype: Optional[str] = None,
+               sampling=None) -> DecodeRequest:
+        """Queue one streaming generation; returns its request handle.
+
+        ``resume_prefix`` seeds the request with tokens generated elsewhere
+        (a migrated stream): admission re-prefills prompt + prefix, as a
+        preemption re-prefills its history, and generation continues from
+        the prefix's last token.  ``max_gen`` stays the original total
+        budget, and ``result()`` returns prefix + continuation.
+        ``resume_kv_dtype`` is the source pool's kv_dtype: a record from a
+        pool of another kv_dtype re-prefills cold (no prefix-cache mapping
+        for that admission)."""
         sp = sampling if sampling is not None else SamplingParams()
         if not isinstance(sp, SamplingParams):
             sp = SamplingParams.from_record(sp)
-        if sp.beam > 1 or sp.n > 1:
-            raise ValueError("beam search and parallel-n sampling are not "
-                             "ported to paddle_tpu_torch yet")
+        resuming = resume_prefix is not None and len(resume_prefix) > 0
+        if sp.beam > 1:
+            # the whole group seats at once, needs a live eos, and starts
+            # fresh (a migrated beam restarts: beam search is deterministic)
+            if eos_id is None:
+                raise ValueError("beam search requires eos_id")
+            if sp.beam > self.eng.n_slots:
+                raise ValueError(f"beam width {sp.beam} exceeds n_slots="
+                                 f"{self.eng.n_slots}")
+            if sp.beam > self.eng.vocab_size:
+                raise ValueError(f"beam width {sp.beam} exceeds vocab "
+                                 f"{self.eng.vocab_size}")
+            if resuming:
+                raise ValueError(
+                    "beam search does not resume from a prefix; migrated "
+                    "beams restart deterministically")
+        if sp.n > 1 and resuming:
+            raise ValueError(
+                "a parallel-n root cannot resume from a prefix; branches "
+                "migrate as independent sampled streams")
         req = DecodeRequest(prompt, max_gen, eos_id=eos_id, deadline=deadline,
                             sampling=sp)
+        if resuming:
+            prefix = [int(t) for t in resume_prefix]
+            if len(prefix) >= int(max_gen):
+                raise ValueError(
+                    f"resume_prefix of {len(prefix)} tokens already covers "
+                    f"max_gen={max_gen}: nothing left to generate")
+            req.tokens = prefix
+            if (resume_kv_dtype is not None
+                    and str(resume_kv_dtype) != self.eng.pool.kv_dtype):
+                req.cold_resume = True
         if req.prompt.size + req.max_gen > self.eng.max_len:
             raise ValueError(
                 f"prompt {req.prompt.size} + max_gen {req.max_gen} exceeds "
@@ -655,12 +1182,29 @@ class ContinuousScheduler:
             raise ValueError(
                 f"request needs {need} KV blocks (+{growth} growth "
                 f"headroom) but the pool only has {pool.n_blocks}")
-        if not sp.is_default:
-            self.counters["sampled"] += 1
+        subs = [req]
+        if sp.n > 1:
+            # branch b samples under branch_seed(seed, b); branch 0 is the
+            # root.  The children queue behind the root and map its
+            # registered prompt blocks through the prefix cache.
+            req.sampling = sp.branch(0)
+            req.branches = [req]
+            for b in range(1, sp.n):
+                child = DecodeRequest(prompt, max_gen, eos_id=eos_id,
+                                      deadline=deadline,
+                                      sampling=sp.branch(b))
+                child.fork_of = req.id
+                req.branches.append(child)
+                subs.append(child)
         with self._cv:
             if self._closed:
                 raise RuntimeError("continuous scheduler is closed")
-            self.queue.push(req)
+            if resuming:
+                self.counters["resumed_in"] += 1
+            if not sp.is_default:
+                self.counters["sampled"] += 1
+            for r in subs:
+                self.queue.push(r)
             self._update_snapshot()
             self._cv.notify_all()
         return req
@@ -713,27 +1257,100 @@ class ContinuousScheduler:
                     if not self._closed:
                         self._cv.wait(timeout=0.01)
 
+    def snapshot_slots(self, drain: bool = False) -> list:
+        """Resume records of every live generation, seated and waiting:
+        id, prompt, tokens so far, max_gen, eos_id, the deadline's
+        remaining seconds, seated, preemptions, sampling and the pool's
+        kv_dtype.  A beam group is one record of its umbrella request with
+        no tokens (it restarts).  With ``drain=True`` the scheduler closes,
+        every request fails locally with :class:`GenerationMigrated` (slots
+        retire, blocks go back) and the records are handed out, to be
+        re-admitted elsewhere through ``submit(resume_prefix=...)``."""
+
+        def rec(req: DecodeRequest, seated: bool, tokens=None) -> dict:
+            rem = None
+            if req.deadline is not None:
+                r = req.deadline.remaining()
+                rem = None if r == float("inf") else max(float(r), 0.0)
+            return {"id": int(req.id),
+                    "prompt": [int(t) for t in req.prompt],
+                    "tokens": [int(t) for t in
+                               (req.tokens if tokens is None else tokens)],
+                    "max_gen": int(req.max_gen),
+                    "eos_id": (None if req.eos_id is None
+                               else int(req.eos_id)),
+                    "deadline_remaining_s": rem,
+                    "seated": bool(seated),
+                    "preemptions": int(req.preemptions),
+                    "sampling": req.sampling.to_record(),
+                    "kv_dtype": self.eng.pool.kv_dtype}
+
+        with self._cv:
+            records = [rec(s.req, True) for s in self._slots
+                       if s is not None and s.group is None]
+            records += [rec(g.req, True, tokens=[]) for g in self._groups]
+            if not drain:
+                records += [rec(r, False) for r in self.queue._q]
+                return records
+            exc = GenerationMigrated(
+                "generation snapshot off a draining scheduler; its resume "
+                "record re-admits it elsewhere")
+            self._closed = True
+            for req in self.queue.drain():
+                records.append(rec(req, False))
+                req.error = exc
+                req.t_done = time.perf_counter()
+                req.done.set()
+            for g in list(self._groups):
+                self._fail_group(g, exc)
+            for si, slot in enumerate(self._slots):
+                if slot is not None:
+                    self._retire(si, error=exc)
+            self.counters["migrated_out"] += len(records)
+            self._update_snapshot()
+            self._cv.notify_all()
+        return records
+
     def close(self) -> None:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=5)
-        self._abort(RuntimeError("continuous scheduler closed"))
+        with self._cv:
+            # the engine and its prefix cache outlive this scheduler
+            self._fail_all(RuntimeError("continuous scheduler closed"))
+            self._update_snapshot()
+            self._cv.notify_all()
+
+    def _fail_all(self, exc: BaseException) -> None:
+        """Fail every waiter, beam group and live slot with ``exc``
+        (callers hold the lock)."""
+        for req in self.queue.drain():
+            req.error = exc
+            req.t_done = time.perf_counter()
+            req.done.set()
+        for g in list(self._groups):
+            self._fail_group(g, exc)
+        for si, slot in enumerate(self._slots):
+            if slot is not None:
+                self._retire(si, error=exc)
 
     def _abort(self, exc: BaseException) -> None:
         """Close the scheduler and fail every waiter and every live slot with
-        ``exc``: submitters get the error, never a silent stall.  A second
-        call finds nothing left to fail."""
+        ``exc``: submitters get the error, never a silent stall.  The
+        prefix cache drops with it, since a failed step may have half
+        written the arenas; its blocks, all unreferenced once the slots
+        retired, go back to the free list.  A second call finds nothing
+        left to fail."""
         with self._cv:
             self._closed = True
-            for req in self.queue.drain():
-                req.error = exc
-                req.t_done = time.perf_counter()
-                req.done.set()
-            for si, slot in enumerate(self._slots):
-                if slot is not None:
-                    self._retire(si, error=exc)
+            self._fail_all(exc)
+            cache = self.eng.prefix
+            if cache is not None and cache.cached_blocks:
+                blocks = list(cache._entries)
+                cache.drop_all()
+                self.eng.pool.free(blocks)
             self._update_snapshot()
             self._cv.notify_all()
 
@@ -742,6 +1359,7 @@ class ContinuousScheduler:
         """Publish the dict ``stats()`` reads (callers hold the lock)."""
         active = sum(1 for s in self._slots if s is not None)
         pool = self.eng.pool
+        cache = self.eng.prefix
         self._snapshot = {
             "slots": self.eng.n_slots,
             "slots_active": active,
@@ -751,36 +1369,81 @@ class ContinuousScheduler:
             "blocks_free": pool.blocks_free,
             "kv_dtype": pool.kv_dtype,
             "kv_bytes_per_token": pool.bytes_per_token,
+            "prefix": None if cache is None else cache.stats(),
             "spec": self.spec,
             "closed": self._closed,
             **self.counters,
         }
 
     def check_block_accounting(self) -> Dict:
-        """Assert that occupied and free blocks partition the pool (every
-        block in exactly one place) and return the census."""
+        """Assert that occupied, free and cached blocks partition the pool
+        (every block in exactly one place: a slot's private blocks are
+        occupied, blocks the prefix cache tracks are cached whether mapped
+        or not) and that each cached block's refcount equals the number of
+        live slots that map it.  Returns the census: free, occupied and
+        leaked, and with a prefix cache cached and referenced."""
         pool = self.eng.pool
+        cache = self.eng.prefix
         with self._lock:
             free = set(pool._free)
-            private = [b for s in self._slots if s is not None
-                       for b in s.blocks]
+            cached = set() if cache is None else set(cache._entries)
+            private: list = []
+            refs: Dict[int, int] = {}
+            for s in self._slots:
+                if s is None:
+                    continue
+                for b in s.blocks:
+                    if b in s.cached:
+                        refs[b] = refs.get(b, 0) + 1
+                    else:
+                        private.append(b)
             priv_set = set(private)
             assert len(private) == len(priv_set), \
-                f"block owned twice: {sorted(private)}"
+                f"private block owned twice: {sorted(private)}"
             assert len(free) == len(pool._free), "free list holds duplicates"
+            assert not (free & cached), \
+                f"blocks both free and cached: {sorted(free & cached)}"
             assert not (free & priv_set), \
                 f"blocks both free and occupied: {sorted(free & priv_set)}"
-            union = free | priv_set
+            assert not (cached & priv_set), \
+                f"blocks both cached and private: {sorted(cached & priv_set)}"
+            union = free | cached | priv_set
             assert union == set(range(pool.n_blocks)), \
                 f"pool not partitioned: missing " \
                 f"{sorted(set(range(pool.n_blocks)) - union)}"
-            return {"free": len(free), "occupied": len(priv_set),
-                    "leaked": pool.n_blocks - len(union)}
+            for b in cached:
+                want, got = refs.get(b, 0), cache.refcount(b)
+                assert got == want, \
+                    f"refcount drift on block {b}: cache says {got}, " \
+                    f"{want} live slots map it"
+            for b in refs:
+                assert b in cached, \
+                    f"slot maps block {b} as cached but the cache forgot it"
+            census = {"free": len(free), "occupied": len(priv_set),
+                      "leaked": pool.n_blocks - len(union)}
+            if cache is not None:
+                census["cached"] = len(cached)
+                census["referenced"] = sum(1 for b in cached
+                                           if cache.refcount(b) > 0)
+            return census
+
+    def _release_blocks(self, slot: _Slot) -> None:
+        """Give a slot's blocks back: cached ones release their refcount
+        (in reverse table order, so a chain's deep blocks age out first),
+        private ones return to the free list."""
+        if slot.cached:
+            self.eng.prefix.release(
+                [b for b in reversed(slot.blocks) if b in slot.cached])
+            self.eng.pool.free(
+                [b for b in slot.blocks if b not in slot.cached])
+        else:
+            self.eng.pool.free(slot.blocks)
 
     def _retire(self, si: int, error: Optional[BaseException] = None):
         slot = self._slots[si]
         self._slots[si] = None
-        self.eng.pool.free(slot.blocks)
+        if not slot.parked:
+            self._release_blocks(slot)
         slot.req.error = error
         slot.req.t_done = time.perf_counter()
         self.counters["retired"] += 1
@@ -792,16 +1455,67 @@ class ContinuousScheduler:
         re-prefills on re-admission."""
         slot = self._slots[si]
         self._slots[si] = None
-        self.eng.pool.free(slot.blocks)
+        self._release_blocks(slot)
         slot.req.preemptions += 1
         self.counters["preemptions"] += 1
         self.queue.requeue(slot.req)
 
+    def _digests_for(self, req) -> list:
+        """The request's chained block digests (seeded with the pool's
+        kv_dtype), memoized on the request for as long as its history
+        stands."""
+        memo = req._digest_memo
+        if memo is not None and memo[0] == req.prompt_len:
+            return memo[1]
+        digs = chain_hashes(req.history(), self.eng.block_size,
+                            root=self.eng.prefix.root)
+        req._digest_memo = (req.prompt_len, digs)
+        return digs
+
     def _fits(self, req) -> bool:
+        cache = self.eng.prefix
+        sp = req.sampling
+        if sp.beam > 1 and sum(1 for s in self._slots if s is None) < sp.beam:
+            return False  # a beam group seats whole or not at all
+        free_blocks = self.eng.pool.blocks_free
         need = self.eng.pool.blocks_for(req.prompt_len)
+        if cache is not None and req.cold_resume:
+            free_blocks += cache.evictable_blocks
+        elif cache is not None:
+            # matched blocks cost nothing; unreferenced cached blocks are
+            # reclaimable, except the matched ones, which seating acquires
+            m = len(cache.lookup(self._digests_for(req), req.prompt_len)[0])
+            need -= m
+            free_blocks += max(cache.evictable_blocks - m, 0)
+        joiners = 1
+        if sp.beam > 1:
+            # K - 1 forks of the root: with a cache each shares the full
+            # prompt blocks and pays its partial block, without one each
+            # is a private copy
+            n_full = (req.prompt_len // self.eng.block_size
+                      if cache is not None else 0)
+            per_fork = self.eng.pool.blocks_for(req.prompt_len) - n_full
+            need += (sp.beam - 1) * per_fork
+            joiners = sp.beam
         growth = 1 + (1 if self.spec else 0)
         n_active = sum(1 for s in self._slots if s is not None)
-        return self.eng.pool.blocks_free >= need + (n_active + 1) * growth
+        return free_blocks >= need + (n_active + joiners) * growth
+
+    def _match_prefix(self, req, history: np.ndarray):
+        """Longest cached run for admission: ``(hit_blocks, digests,
+        diverged)``, empty on a miss, with no cache, on a cold resume, or
+        when the ``serving.prefix_match`` fault site fires (that admission
+        pays a cold prefill; its stream is unchanged)."""
+        cache = self.eng.prefix
+        if cache is None or req.cold_resume:
+            return [], [], False
+        try:
+            faults.check("serving.prefix_match")
+        except Exception:  # noqa: BLE001 — degrade to a miss, by contract
+            return [], [], False
+        digests = self._digests_for(req)
+        hit, diverged = cache.lookup(digests, history.size)
+        return hit, digests, diverged
 
     def _samp_row_for(self, req: DecodeRequest, history) -> tuple:
         """One slot's (seed, substep, temperature, top_k, top_p, mask_row)
@@ -814,54 +1528,353 @@ class ContinuousScheduler:
         return (sp.seed, len(req.tokens), sp.temperature, sp.top_k,
                 sp.top_p, mask)
 
-    def _insert(self, si: int, req: DecodeRequest):
-        """Seat ``req`` in slot ``si``: prefill its history and emit its
-        first token.  Returns tokens emitted (1, or 0 when the request
-        failed on its own), or None when allocation raced ``_fits``."""
+    def _seat(self, si: int, req: DecodeRequest, group=None,
+              want_logits: bool = False):
+        """Seat ``req`` in slot ``si`` and prefill its history.  With a
+        prefix cache the longest cached run maps into the table read-only
+        (refcounted) and only the tail is computed (``prefill_tail``);
+        the request's own new full blocks are registered after.  The first
+        token is chosen by the request's policy: the argmax, or the policy
+        pass through a one-position tail.
+
+        Returns ``(slot, tok, row)`` (row = the last position's logits [V]
+        when ``want_logits``), 0 after failing the request on its own
+        error, or None when allocation raced ``_fits`` (requeued)."""
         pool = self.eng.pool
+        cache = self.eng.prefix
         history = req.history()
-        blocks = self.eng.alloc_blocks(pool.blocks_for(history.size))
-        if blocks is None:  # _fits raced; retry next step (aging preserved)
+        hit, digests, diverged = self._match_prefix(req, history)
+        m = len(hit)
+        if m:
+            # hold the run before allocating: alloc_blocks may evict
+            # refcount-zero cached blocks, never the ones just matched
+            cache.acquire(hit)
+        priv = self.eng.alloc_blocks(pool.blocks_for(history.size) - m)
+        if priv is None:  # _fits raced; retry next step (aging preserved)
+            if m:
+                cache.release(list(reversed(hit)))
             self.queue.requeue(req)
             return None
+        blocks = list(hit) + list(priv)
         table = self.eng._trash_table()
         table[:len(blocks)] = blocks
         limit = history.size + (req.max_gen - len(req.tokens))
+        shared = m * self.eng.block_size
+        samp_row = (None if req.sampling.is_default
+                    else self._samp_row_for(req, history))
+        row = None
         try:
-            logits = self.eng.prefill(history, table)
-            if req.sampling.is_default:
-                tok = int(logits.argmax())
+            if m:
+                out = self.eng.prefill_tail(
+                    history[shared:], shared, table, limit,
+                    samp_row=samp_row, return_logits=want_logits)
+                tok, row = out if want_logits else (out, None)
             else:
-                # sampled first token: re-run the LAST history position
-                # through the W=1 step (its K/V rewrite is identical) so the
-                # selection runs the same policy pass as every later token
-                tok = self.eng.prefill_tail(
-                    history[-1:], history.size - 1, table, limit,
-                    samp_row=self._samp_row_for(req, history))
+                logits = self.eng.prefill(history, table)
+                if want_logits:
+                    row = logits
+                if samp_row is None:
+                    tok = int(logits.argmax())
+                else:
+                    # sampled first token: re-run the LAST history position
+                    # through the W=1 step (its K/V rewrite is identical) so
+                    # the selection runs the same policy pass as every
+                    # later token
+                    tok = self.eng.prefill_tail(
+                        history[-1:], history.size - 1, table, limit,
+                        samp_row=samp_row)
         except WarmError:
             # the engine cannot run this shape at all: back to the queue,
             # and step() aborts the scheduler, failing every waiter
-            pool.free(blocks)
+            if m:
+                cache.release(list(reversed(hit)))
+            pool.free(priv)
             self.queue.requeue(req)
             raise
         except Exception as exc:  # noqa: BLE001 — this request's problem
-            # a poisoned request costs its owner, never the loop: blocks go
-            # straight back, the submitter sees ITS error
-            pool.free(blocks)
+            if m:
+                cache.release(list(reversed(hit)))
+            pool.free(priv)
             req.error = exc
             req.t_done = time.perf_counter()
             req.done.set()
             return 0
         self.counters["prefill_inserts"] += 1
+        if cache is not None:
+            cache.record(m, diverged)
+        if req.fork_of is not None:
+            # a parallel-n branch: its copy-on-write share is the run it
+            # mapped; a missed or faulted lookup makes it a private copy
+            self.counters["forks"] += 1
+            if m:
+                self.counters["fork_cow_blocks"] += m
+            else:
+                self.counters["fork_private"] += 1
         self._seq += 1
-        self._slots[si] = _Slot(req, table, blocks, pos=int(history.size),
-                                limit=limit, seq=self._seq)
+        slot = _Slot(req, table, blocks, pos=int(history.size), limit=limit,
+                     seq=self._seq, cached=hit, group=group)
+        # register this request's new full blocks (written just now) so the
+        # next request sharing the prefix maps them; a digest already
+        # cached keeps its block and ours stays private
+        for i in range(m, len(digests)):
+            parent = digests[i - 1] if i else cache.root
+            if cache.register(digests[i], parent, blocks[i]):
+                slot.cached.add(blocks[i])
+        self._slots[si] = slot
         if req.t_first_token is None:
             req.t_first_token = time.perf_counter()
+        return slot, tok, row
+
+    def _insert(self, si: int, req: DecodeRequest):
+        """Prefill-insert one plain request and emit its first token.
+        Returns tokens emitted (1, or 0 when the request failed on its
+        own), or None when allocation raced ``_fits``."""
+        got = self._seat(si, req)
+        if got is None or got == 0:
+            return got
         # the prefill-emitted token is the NEXT step's input: not yet in the
         # cache, so it must not advance the write cursor
-        self._emit(si, [tok], advance=False)
+        self._emit(si, [got[1]], advance=False)
         return 1
+
+    # -------------------------------------------------------- beam machinery
+    def _admit_beam(self, req: DecodeRequest, free):
+        """Seat a beam request: prefill the prompt once into a root slot,
+        run the first expansion on its last position's logits, and fork the
+        surviving branches.  Returns tokens emitted, 0 (the request failed
+        on its own) or None (allocation raced ``_fits``; requeued)."""
+        k = req.sampling.beam
+        if len(free) < k:
+            self.queue.requeue(req)
+            return None
+        got = self._seat(free[0], req, want_logits=True)
+        if got is None or got == 0:
+            return got
+        root_slot, _, row = got
+        group = _BeamGroup(req, free[:k], req.eos_id)
+        root_slot.group = group
+        self._groups.append(group)
+        self.counters["beam_groups"] += 1
+        # branch carriers 1..k-1: parked placeholders the first plan forks
+        # into (the umbrella request carries branch 0)
+        for b in range(1, k):
+            self._seq += 1
+            child = DecodeRequest(req.prompt, req.max_gen)
+            child.fork_of = req.id
+            s = _Slot(child, self.eng._trash_table(), [], pos=0,
+                      limit=root_slot.limit, seq=self._seq, group=group)
+            s.parked = True
+            self._slots[free[b]] = s
+        # the dense loop's t=0: every candidate comes from beam 0
+        logp0 = self.eng.logp_rows(np.asarray(row, np.float32)[None])[0]
+        plan = group.select([logp0] * k)
+        return self._apply_beam_plan(group, plan)
+
+    def _fork_alloc(self, n: int):
+        """``n`` blocks for a fork, preempting plain slots (youngest first)
+        until they fit or no victim is left.  Returns the blocks or None."""
+        while True:
+            got = self.eng.alloc_blocks(n)
+            if got is not None:
+                return got
+            victims = [j for j, s in enumerate(self._slots)
+                       if s is not None and s.group is None]
+            if not victims:
+                return None
+            self._preempt(max(victims, key=lambda j: self._slots[j].seq))
+
+    def _fork_state(self, group: _BeamGroup, parent_branch: int) -> dict:
+        """A new slot state holding the parent branch's KV lineage.  With a
+        prefix cache (copy-on-write): register the parent's full blocks
+        under the lineage's digests, acquire them, and recompute only the
+        partial block into a private one.  Without one, or when the
+        ``serving.fork`` fault site fires, a private copy: the whole
+        lineage re-prefilled.  The streams are the same either way.  Reads
+        the parent slot without changing its blocks; raises
+        :class:`_ForkFailed` when the pool cannot seat the fork."""
+        eng = self.eng
+        cache = eng.prefix
+        parent_slot = self._slots[group.slots[parent_branch]]
+        lineage = np.concatenate(
+            [group.req.prompt,
+             np.asarray(group.tokens[parent_branch], np.int32)])
+        bs = eng.block_size
+        n_full = int(lineage.size) // bs
+        cow = cache is not None
+        if cow:
+            try:
+                faults.check("serving.fork")
+            except Exception:  # noqa: BLE001 — degrade, by contract
+                cow = False
+        shared: list = []
+        if cow and n_full:
+            digs = chain_hashes(lineage, bs, root=cache.root)
+            for i in range(n_full):
+                parent = digs[i - 1] if i else cache.root
+                if cache.register(digs[i], parent, parent_slot.blocks[i]):
+                    parent_slot.cached.add(parent_slot.blocks[i])
+            # a history length past the lineage lifts the lookup's cap: a
+            # fork maps every full block (an admission must recompute its
+            # last position, a fork's pending token is not in the lineage)
+            hit, _ = cache.lookup(digs, int(lineage.size) + bs)
+            if len(hit) == n_full:
+                cache.acquire(hit)
+                shared = list(hit)
+        m = len(shared)
+        priv = self._fork_alloc(eng.pool.blocks_for(int(lineage.size)) - m)
+        if priv is None:
+            if m:
+                cache.release(list(reversed(shared)))
+            raise _ForkFailed(
+                f"KV pool exhausted forking a {lineage.size}-token lineage")
+        blocks = shared + list(priv)
+        table = eng._trash_table()
+        table[:len(blocks)] = blocks
+        try:
+            if m:
+                tail = lineage[m * bs:]
+                if tail.size:
+                    eng.prefill_tail(tail, m * bs, table, parent_slot.limit)
+            else:
+                eng.prefill(lineage, table)
+        except BaseException:
+            if m:
+                cache.release(list(reversed(shared)))
+            eng.pool.free(priv)
+            raise
+        self.counters["forks"] += 1
+        if cow:
+            self.counters["fork_cow_blocks"] += m
+        else:
+            self.counters["fork_private"] += 1
+        return {"table": table, "blocks": blocks, "cached": set(shared),
+                "pos": int(lineage.size)}
+
+    def _apply_beam_plan(self, group: _BeamGroup, plan) -> int:
+        """Commit one beam iteration's plan to the slots: keep branches whose
+        ancestry stayed, fork the ones whose parent is another branch, park
+        the done ones.  Every fork is built before any old block set is
+        released, so a swap reads both lineages intact.  Returns tokens
+        emitted (K a live iteration)."""
+        k = group.k
+        keep = set()
+        for b, (p, _tok, _s, d, _ln) in enumerate(plan):
+            slot_b = self._slots[group.slots[b]]
+            if p == b and not slot_b.parked and not d:
+                keep.add(b)
+        states = {}
+        for b, (p, _tok, _s, d, _ln) in enumerate(plan):
+            if d or b in keep:
+                continue
+            try:
+                states[b] = self._fork_state(group, p)
+            except WarmError:
+                raise  # the engine cannot run: step() aborts the scheduler
+            except Exception as exc:  # noqa: BLE001 — the group's problem
+                # hand back the forks built for this plan, then fail the
+                # group: a partial beam would change the search
+                for st in states.values():
+                    cached = st["cached"]
+                    if cached:
+                        self.eng.prefix.release(
+                            [blk for blk in reversed(st["blocks"])
+                             if blk in cached])
+                    self.eng.pool.free(
+                        [blk for blk in st["blocks"] if blk not in cached])
+                self._fail_group(group, RuntimeError(
+                    f"beam group could not fork: {exc}"))
+                return 0
+        # release every block set neither kept nor already parked; the
+        # refcounts the forks acquired keep shared blocks alive
+        for b in range(k):
+            slot = self._slots[group.slots[b]]
+            if b in keep or slot.parked:
+                continue
+            self._release_blocks(slot)
+            slot.blocks = []
+            slot.cached = set()
+            slot.table = self.eng._trash_table()
+            slot.parked = True
+        for b, (_p, _tok, _s, d, _ln) in enumerate(plan):
+            if d or b in keep:
+                continue  # done branches stay parked
+            slot = self._slots[group.slots[b]]
+            st = states[b]
+            slot.table = st["table"]
+            slot.blocks = st["blocks"]
+            slot.cached = st["cached"]
+            slot.pos = st["pos"]
+            slot.parked = False
+        group.apply(plan)
+        for b in range(k):
+            # each carrier's tokens mirror its branch, so the marshal loop
+            # reads tokens[-1] as for any slot
+            self._slots[group.slots[b]].req.tokens = list(group.tokens[b])
+        if group.finished():
+            self._finish_group(group)
+        return k
+
+    def _beam_advance(self, group: _BeamGroup, logits, stepped) -> int:
+        """One beam iteration after a decode step: advance the stepped
+        branches' cursors, log-softmax their last-position logits, select,
+        and commit the plan."""
+        k = group.k
+        rows = [None] * k
+        for b in range(k):
+            si = group.slots[b]
+            slot = self._slots[si]
+            if slot is None or slot.parked or si not in stepped:
+                continue
+            slot.pos += 1
+            rows[b] = logits[si, 0, :]
+        live = [b for b in range(k) if rows[b] is not None]
+        if not live:
+            return 0
+        lp = self.eng.logp_rows(np.stack([rows[b] for b in live]))
+        logp = [None] * k
+        for j, b in enumerate(live):
+            logp[b] = lp[j]
+        return self._apply_beam_plan(group, group.select(logp))
+
+    def _finish_group(self, group: _BeamGroup) -> None:
+        """Beam completion: finalize, publish the ranked beams on the
+        umbrella request, retire all K slots."""
+        toks, scores, lens = group.finalize()
+        req = group.req
+        for si in group.slots:
+            slot = self._slots[si]
+            self._slots[si] = None
+            if slot is not None and not slot.parked:
+                self._release_blocks(slot)
+        self._groups.remove(group)
+        req.beams = [[int(t) for t in b] for b in toks]
+        req.beam_scores = [float(s) for s in scores]
+        req.beam_lens = [int(x) for x in lens]
+        # req.tokens: the winning beam, cut after its eos
+        best = req.beams[0]
+        cut = best.index(group.eos) + 1 if group.eos in best else len(best)
+        req.tokens = best[:cut]
+        req.error = None
+        req.t_done = time.perf_counter()
+        self.counters["retired"] += 1
+        req.done.set()
+
+    def _fail_group(self, group: _BeamGroup, exc: BaseException) -> None:
+        """Fail a whole beam group: release every branch's blocks, clear its
+        K slots, and hand ``exc`` to the umbrella request."""
+        for si in group.slots:
+            slot = self._slots[si]
+            if slot is not None:
+                self._slots[si] = None
+                if not slot.parked:
+                    self._release_blocks(slot)
+        if group in self._groups:
+            self._groups.remove(group)
+        req = group.req
+        req.error = exc
+        req.t_done = time.perf_counter()
+        self.counters["retired"] += 1
+        req.done.set()
 
     def _emit(self, si: int, toks, advance: bool = True) -> int:
         """Append emitted tokens, honoring eos and max_gen; retires the slot
@@ -898,8 +1911,9 @@ class ContinuousScheduler:
 
     def step(self) -> int:
         """ONE iteration of the loop: shed expired waiters, retire expired
-        rows, admit joiners (prefill-insert), then one windowed decode step
-        over every occupied slot.  Returns tokens emitted."""
+        rows and beam groups, admit joiners (prefill-insert), then one
+        windowed decode step over every occupied slot.  Returns tokens
+        emitted."""
         with self._lock:
             if self._closed:
                 return 0
@@ -913,10 +1927,16 @@ class ContinuousScheduler:
                     self.counters["sheds"] += 1
                     req.done.set()
                 for si, slot in enumerate(self._slots):
-                    if (slot is not None and slot.req.deadline is not None
+                    if (slot is not None and slot.group is None
+                            and slot.req.deadline is not None
                             and slot.req.deadline.expired()):
                         self._retire(si, error=DeadlineExceeded(
                             "per-slot deadline expired mid-generation"))
+                for g in list(self._groups):
+                    if (g.req.deadline is not None
+                            and g.req.deadline.expired()):
+                        self._fail_group(g, DeadlineExceeded(
+                            "beam-group deadline expired mid-generation"))
                 while True:  # admit: join between steps, never mid-step
                     free = [i for i, s in enumerate(self._slots)
                             if s is None]
@@ -925,12 +1945,15 @@ class ContinuousScheduler:
                     req = self.queue.pop(self._fits)
                     if req is None:
                         break
-                    got = self._insert(free[0], req)
+                    if req.sampling.beam > 1:
+                        got = self._admit_beam(req, free)
+                    else:
+                        got = self._insert(free[0], req)
                     if got is None:
                         break  # alloc raced _fits; retry next step
                     emitted += got
                 active = [(i, s) for i, s in enumerate(self._slots)
-                          if s is not None]
+                          if s is not None and not s.parked]
                 if active:
                     emitted += self._decode_step(active)
                 self.counters["steps"] += 1
@@ -948,11 +1971,13 @@ class ContinuousScheduler:
         eng = self.eng
         S = eng.n_slots
         drafts = {}
-        if self.spec:
-            # drafts only for greedy slots: a sampled slot's pick is a PRNG
-            # draw, which greedy verification would change
+        if self.spec and not self._groups:
+            # drafts only for plain greedy slots (a sampled slot's pick is a
+            # PRNG draw, which greedy verification would change); while a
+            # beam group is live, drafting pauses so every branch's logits
+            # sit at window column 0
             for si, slot in active:
-                if not slot.req.sampling.is_default:
+                if slot.group is not None or not slot.req.sampling.is_default:
                     continue
                 d = _ngram_draft(slot.req.history(), eng.spec_window - 1)
                 if d is not None:
@@ -965,19 +1990,36 @@ class ContinuousScheduler:
         stepped = []
         for si, slot in active:
             if self._slots[si] is None:
-                continue  # preempted earlier in this marshal loop
+                continue  # preempted or failed earlier in this marshal loop
+            grown = True
             while (self._slots[si] is not None
-                   and not self._grow(si, slot.pos + W)):
-                # pool exhausted: evict the YOUNGEST slot not yet marshalled
-                # into this step (an already-staged row would write through
-                # freed blocks); a row is always its own candidate, so the
-                # pool can never wedge
+                   and not (grown := self._grow(si, slot.pos + W))):
+                # pool exhausted: evict the YOUNGEST plain slot not yet
+                # marshalled into this step (an already-staged row would
+                # write through freed blocks); a plain row is always its
+                # own candidate, so the pool can never wedge on plain load
                 victims = [j for j, s in enumerate(self._slots)
-                           if s is not None and j not in stepped]
+                           if s is not None and j not in stepped
+                           and s.group is None]
+                if not victims:
+                    break
                 self._preempt(max(victims,
                                   key=lambda j: self._slots[j].seq))
             if self._slots[si] is None:
                 continue  # this row was itself the youngest: preempted
+            if not grown:
+                # only beam branches are left to evict: fail THIS row's
+                # group, un-staging its branches already marshalled
+                for sj in list(slot.group.slots):
+                    if sj in stepped:
+                        stepped.remove(sj)
+                        toks[sj, :] = 0
+                        pos0[sj] = 0
+                        limits[sj] = 0
+                        tables[sj] = eng._trash_table()
+                self._fail_group(slot.group, RuntimeError(
+                    "KV pool exhausted growing a beam group"))
+                continue
             toks[si, 0] = slot.req.tokens[-1]
             if si in drafts:
                 toks[si, 1:] = drafts[si]
@@ -991,17 +2033,26 @@ class ContinuousScheduler:
         if not stepped:
             return 0
         samp = None
-        if any(not self._slots[si].req.sampling.is_default for si in stepped):
+        if any(self._slots[si].group is None
+               and not self._slots[si].req.sampling.is_default
+               for si in stepped):
             samp = eng.make_samp()
             for si in stepped:
-                req = self._slots[si].req
-                if not req.sampling.is_default:
-                    eng.set_samp_row(samp, si,
-                                     self._samp_row_for(req, req.history()))
-        out, chosen = eng.step_tokens(toks, pos0, tables, limits, samp=samp)
+                slot = self._slots[si]
+                if slot.group is not None or slot.req.sampling.is_default:
+                    continue
+                eng.set_samp_row(samp, si,
+                                 self._samp_row_for(slot.req,
+                                                    slot.req.history()))
+        beamed = any(self._slots[si].group is not None for si in stepped)
+        got = eng.step_tokens(toks, pos0, tables, limits, samp=samp,
+                              with_logits=beamed)
+        out, chosen = got[0], got[1]
         emitted = 0
         for si in stepped:
             slot = self._slots[si]
+            if slot is None or slot.group is not None:
+                continue  # beam branches advance through their controller
             if not slot.req.sampling.is_default:
                 # the policy pick IS the emission; sampled slots are never
                 # drafted, so no window overhang is accepted
@@ -1018,4 +2069,8 @@ class ContinuousScheduler:
             if si in drafts:
                 self.counters["spec_accepted"] += acc
             emitted += self._emit(si, list(out[si, :acc + 1]))
+        if beamed:
+            sset = set(stepped)
+            for g in list(self._groups):
+                emitted += self._beam_advance(g, got[2], sset)
         return emitted

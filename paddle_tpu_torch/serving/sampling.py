@@ -3,14 +3,14 @@
 
 ``SamplingParams`` says how logits become tokens: greedy (the default),
 temperature / top-k / top-p sampling with a per-stream seed, and a
-constrained-decoding mask hook.  Draw ``i`` of a stream depends on
-(seed, i) only (``ops/sampling.py``), so a preempted stream replays the
-same draws.  The parallel-n and beam fields are carried for record
-compatibility; this port's scheduler refuses them (not yet ported).
+constrained-decoding mask hook, parallel-n (n sampled continuations of
+one prompt, branch ``b`` under ``branch_seed(seed, b)``) and beam search.
+Draw ``i`` of a stream depends on (seed, i) only (``ops/sampling.py``), so
+a preempted or migrated stream replays the same draws.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
 import numpy as np
@@ -73,6 +73,11 @@ class SamplingParams:
         """True for greedy, unforked, unmasked: the plain argmax path."""
         return (self.is_greedy and self.n == 1 and self.beam <= 1
                 and self.mask_fn is None)
+
+    def branch(self, b: int) -> "SamplingParams":
+        """The single-stream policy branch ``b`` of a parallel-n group runs
+        under (n back to 1, the seed mixed per branch)."""
+        return replace(self, n=1, seed=branch_seed(self.seed, b))
 
     def mask_row(self, history, vocab: int):
         """The constrained-decoding hook for one step: additive float32 [V],

@@ -40,6 +40,9 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.evaluator, paddle_tpu_torch.datasets.voc2012\n"
         "import paddle_tpu_torch.models.fcn, paddle_tpu_torch.models.ssd\n"
         "import paddle_tpu_torch.layers.detection\n"
+        "import paddle_tpu_torch.resilience.faults\n"
+        "import paddle_tpu_torch.serving.prefix\n"
+        "from paddle_tpu_torch.ops import decode_attention, cache_set\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -64,6 +67,26 @@ def test_sources_import_neither_jax_nor_paddle_tpu():
     assert offenders == []
 
 
+def test_serving_extras_carry_their_own_copies():
+    """The prefix cache, the fault registry and the dense forms are the
+    port's own code: the cache carries the root bytes itself (equal to
+    the JAX package's, which ``tests/test_torch_prefix_cache.py`` holds)
+    and none of the modules names the JAX package."""
+    prefix = (PKG / "serving" / "prefix.py").read_text()
+    assert 'ROOT_DIGEST = b"paddle-tpu-prefix-root"' in prefix
+    for rel in ("serving/prefix.py", "resilience/faults.py",
+                "resilience/__init__.py", "serving/decode.py",
+                "ops/attention.py", "models/transformer.py"):
+        src = (PKG / rel).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|paddle_tpu)\b(?!_)",
+                             src, re.M), rel
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import prefix
+
+    assert faults.__name__ == "paddle_tpu_torch.resilience.faults"
+    assert prefix.PrefixCache(16).root == prefix.ROOT_DIGEST
+
+
 def test_entry_points_default_to_cuda():
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import ContinuousDecodeEngine, resolve_device
@@ -78,6 +101,12 @@ def test_entry_points_default_to_cuda():
     params = init_lm_params(0, **CFG)
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousDecodeEngine(params, **CFG)
+    from paddle_tpu_torch import DecodeEngine
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(params, **CFG)
+    dense = DecodeEngine(params, device="cpu", batch_buckets=(1,), **CFG)
+    assert dense.generate(np.array([[3, 4, 5]], np.int32), 2).shape == (1, 2)
     eng = ContinuousDecodeEngine(params, device="cpu", **CFG)
     assert eng.pool.k.device.type == "cpu"
     assert eng.model.prm["tok_emb"].device.type == "cpu"

@@ -9,6 +9,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from paddle_tpu.models import transformer as jtf
 from paddle_tpu.serving import ContinuousDecodeEngine as JaxEngine
@@ -106,7 +107,8 @@ def test_engine_teacher_forced_logits_match_jax(params, kv_dtype):
 
 
 def test_prefill_tail_matches_jax(params):
-    """The tail rides the W=1 step n_slots tokens per dispatch: the token
+    """The tail rides the decode step (the JAX engine's the W=1 step
+    n_slots tokens per dispatch, the port's here the W=4 step): the token
     after the tail equals the JAX engine's, greedy and sampled."""
     je, te = _engines(params)
     rng = np.random.RandomState(12)
@@ -120,6 +122,52 @@ def test_prefill_tail_matches_jax(params):
     row = (1234, 0, 0.9, 0, 0.95, None)
     assert (te.prefill_tail(hist[-1:], 10, table, 20, samp_row=row)
             == je.prefill_tail(hist[-1:], 10, table, 20, samp_row=row))
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_long_tail_rides_the_spec_window_step(params, sampled):
+    """A tail longer than one W=1 dispatch runs W=spec_window tokens a row:
+    one dispatch of the warmed W=4 step for 13 tokens (the JAX engine and
+    a port engine without a window: 4 W=1 dispatches).  The token after it
+    equals both (greedy, or a policy pick read from a run of its own), its
+    logits lie within 1e-4 of theirs, the tail's K/V within 1e-5 of the
+    W=1 path's, and every other position of the arena is left bitwise as
+    it was: the window's idle positions write the trash block."""
+    je, te = _engines(params)
+    _, t1 = _engines(params, spec_window=0)
+    rng = np.random.RandomState(13)
+    hist = rng.randint(2, CFG["vocab_size"], 19).astype(np.int32)
+    table = je._trash_table()
+    table[:3] = [3, 5, 6]
+    row = (77, 2, 0.9, 0, 0.95, None) if sampled else None
+    for eng in (je, te, t1):
+        eng.prefill(hist[:6], table)
+    before = te.pool.k.clone(), te.pool.v.clone()
+    te.step_dispatches.clear()
+    t1.step_dispatches.clear()
+    tok, logits = te.prefill_tail(hist[6:], 6, table, 30, samp_row=row,
+                                  return_logits=True)
+    tok1, logits1 = t1.prefill_tail(hist[6:], 6, table, 30, samp_row=row,
+                                    return_logits=True)
+    jtok, jlogits = je.prefill_tail(hist[6:], 6, table, 30, samp_row=row,
+                                    return_logits=True)
+    assert dict(te.step_dispatches) == {4: 1}
+    assert dict(t1.step_dispatches) == {1: 4}
+    assert tok == tok1 == jtok
+    np.testing.assert_allclose(logits, jlogits, atol=LOGIT_ATOL, rtol=0)
+    np.testing.assert_allclose(logits, logits1, atol=LOGIT_ATOL, rtol=0)
+    blk = np.repeat(table[:3], 8)[6:19]
+    off = np.tile(np.arange(8), 3)[6:19]
+    for got, want, was in zip((te.pool.k, te.pool.v), (t1.pool.k, t1.pool.v),
+                              before):
+        tail_kv = got[blk, :, :, off]
+        np.testing.assert_allclose(tail_kv, want[blk, :, :, off],
+                                   atol=1e-5, rtol=0)
+        mask = torch.ones(got.shape[0], got.shape[3], dtype=torch.bool)
+        mask[blk, off] = False
+        mask[te.pool.trash] = False
+        assert torch.equal(got.permute(0, 3, 1, 2, 4)[mask],
+                           was.permute(0, 3, 1, 2, 4)[mask])
 
 
 # -------------------------------------------------------------- scheduler
@@ -183,11 +231,13 @@ def test_sampled_streams_repeat_under_fixed_seed(params):
 def test_submit_validation(params):
     _, te = _engines(params, n_blocks=6)
     sched = ContinuousScheduler(te)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="eos_id"):
         sched.submit([3, 4], 4, sampling=SamplingParams(beam=2))
-    with pytest.raises(ValueError, match="not ported"):
-        sched.submit([3, 4], 4, sampling=SamplingParams(n=2,
-                                                        temperature=1.0))
+    with pytest.raises(ValueError, match="n_slots"):
+        sched.submit([3, 4], 4, eos_id=0, sampling=SamplingParams(beam=5))
+    with pytest.raises(ValueError, match="parallel-n"):
+        sched.submit([3, 4], 4, resume_prefix=[5],
+                     sampling=SamplingParams(n=2, temperature=1.0))
     with pytest.raises(ValueError, match="max_len"):
         sched.submit(np.ones(60, np.int32), 10)
     with pytest.raises(ValueError, match="KV blocks"):
