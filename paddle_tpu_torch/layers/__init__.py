@@ -1,18 +1,12 @@
-"""Layer library (PyTorch port of ``paddle_tpu/layers``).  ``sequence``,
-``beam``, ``control_flow`` (``StaticRNN``, ``DynamicRNN``, ``cond``,
-``while_loop``, ``IfElse``, ``recompute``), ``nested``, ``mdlstm`` and
-``detection`` are ported whole; of ``tensor`` the seven elementwise ops,
-``matmul``, ``mul``, ``mean``, ``sums``, ``reshape``, ``transpose``,
-``concat``, ``split``, ``stack``, ``squeeze``, ``unsqueeze``, ``assign``,
-the five reductions, ``cast``, ``scale``, ``fill_constant``,
-``fill_constant_batch_size_like``, ``argmax`` and the five compares; of
-``nn`` the layers of the LM, the RNN models and the image models (``fc``,
-``embedding``, ``conv2d``, ``conv2d_transpose``, ``conv3d``, ``pool2d``,
-``pool3d``, ``pool_with_index``, ``unpool``, ``spp``, ``batch_norm``,
-``layer_norm``, ``lrn``, ``dropout``, the losses and ``accuracy``).  Not
-ported yet: ``hsigmoid`` and the rest of ``tensor`` and ``nn`` (ROADMAP
-A.12 part 1), and the misc layers and the Variable operator sugar
-(A.12)."""
+"""Layer library (PyTorch port of ``paddle_tpu/layers``).  ``ops``,
+``tensor``, ``nn``, ``sequence``, ``beam``, ``control_flow``
+(``StaticRNN``, ``DynamicRNN``, ``cond``, ``while_loop``, ``IfElse``,
+``recompute``), ``nested``, ``mdlstm`` and ``detection`` are ported whole:
+every function of the reference's ``ops.py``, ``tensor.py`` and
+``nn.py`` has its counterpart here, the random layers
+(``gaussian_random``, ``uniform_random``, ``sampling_id``, ``nce``,
+``dropout``) drawing JAX's numbers from the op's key.  Not ported yet:
+the misc layers and the Variable operator sugar (ROADMAP A.12 part 2)."""
 from . import (beam, control_flow, detection, io, mdlstm, nested, nn, ops,
                sequence, tensor)
 from .beam import beam_search, beam_search_decode  # noqa: F401

@@ -1,8 +1,13 @@
-"""Neural-network layers (PyTorch port of the ``paddle_tpu/layers/nn.py``
-subset the training slices use): fc, embedding, conv2d,
-conv2d_transpose, conv3d, pool2d, pool3d, pool_with_index, unpool, spp,
-batch_norm, layer_norm, lrn, dropout, softmax_with_cross_entropy,
-cross_entropy, square_error_cost and accuracy.
+"""Neural-network layers (PyTorch port of ``paddle_tpu/layers/nn.py``):
+fc, embedding, the convolutions and poolings (conv2d, conv2d_transpose,
+conv3d, pool2d, pool3d, pool_with_index, unpool, spp, maxout), the
+normalisations (batch_norm, layer_norm, lrn), dropout and sampling_id,
+the losses, the metrics-as-ops (accuracy, auc, precision_recall,
+positive_negative_pair), nce and hsigmoid, the v1 parity layers and
+bilinear_interp.  dropout, sampling_id and nce draw JAX's numbers from
+the op's key, ``ctx.rng_key(tag)`` (``ops/dropout.py``,
+``ops/random.py``).  A clip or max against a constant is ``maximum``, as
+JAX's is, so a value on the bound splits its gradient in half.
 
 Numerics follow the JAX package: layer_norm and batch_norm take float32
 statistics with ``var = max(E[x^2] - mu^2, 0)`` (not the serving layer
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from ..core.program import Op, Variable
 from ..initializer import Constant, Normal, Xavier
 from ..ops.batch_norm import batch_norm_train
+from ..ops import random as jrandom
 from ..ops.dropout import threefry_dropout
 from .helper import LayerHelper
 
@@ -690,7 +696,561 @@ def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
                             attrs={"k": k})
 
 
-__all__ = ["accuracy", "batch_norm", "conv2d", "conv2d_transpose", "conv3d",
-           "cross_entropy", "dropout", "embedding", "fc", "layer_norm", "lrn",
-           "pool2d", "pool3d", "pool_with_index", "softmax_with_cross_entropy",
-           "spp", "square_error_cost", "unpool"]
+def maxout(x: Variable, groups: int, name=None):
+    """Max over ``groups`` consecutive channels, NCHW (ref:
+    paddle/operators/maxout_op.cc); ``amax``, so a tie splits its
+    gradient as ``jnp.max``'s does."""
+    helper = LayerHelper("maxout", name=name)
+
+    def fn(ctx, a, groups):
+        n, c, h, w = a.shape
+        return torch.amax(a.reshape(n, c // groups, groups, h, w), dim=2)
+
+    return helper.append_op(fn, {"X": [x]}, attrs={"groups": groups})
+
+
+def _full(v, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d tensor of ``v`` in ``like``'s dtype on its device, filled
+    there (a captured step copies nothing from the host)."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+def sampling_id(x: Variable, name=None):
+    """One id per row drawn from the row's probabilities (ref:
+    gserver/layers/SamplingIdLayer.cpp): ``jax.random.categorical`` of
+    ``log(max(p, 1e-20))`` under the op's key (``ops/random.py``); x [N,
+    C], int32 [N]."""
+    helper = LayerHelper("sampling_id", name=name)
+    tag = helper.main_program.next_rng_tag()
+
+    def fn(ctx, a, _tag):
+        if a.device.type == "meta":
+            return torch.empty(a.shape[:-1], dtype=torch.int32,
+                               device="meta")
+        a = a.to(torch.float32)
+        logp = torch.log(torch.maximum(a, _full(1e-20, a)))
+        return jrandom.categorical(ctx.rng_key(_tag), logp,
+                                   axis=-1).to(torch.int32)
+
+    return helper.append_op(fn, {"X": [x]}, attrs={"_tag": tag})
+
+
+# --------------------------------------------------------------------------- losses
+
+
+def sigmoid_cross_entropy_with_logits(x: Variable, label: Variable,
+                                      name=None):
+    """``max(x, 0) - x * label + log1p(exp(-|x|))`` (ref:
+    paddle/operators/sigmoid_cross_entropy_with_logits_op.cc)."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+
+    def fn(ctx, lg, lab):
+        return (torch.maximum(lg, _full(0.0, lg)) - lg * lab
+                + torch.log1p(torch.exp(-torch.abs(lg))))
+
+    return helper.append_op(fn, {"X": [x], "Label": [label]})
+
+
+def smooth_l1(x: Variable, y: Variable, sigma: float = 1.0):
+    """Smooth L1 of x - y summed over the last dim (ref:
+    paddle/operators/smooth_l1_loss_op.cc)."""
+    helper = LayerHelper("smooth_l1")
+
+    def fn(ctx, a, b, sigma):
+        d = a - b
+        s2 = sigma * sigma
+        absd = torch.abs(d)
+        out = torch.where(absd < 1.0 / s2, 0.5 * s2 * d * d,
+                          absd - 0.5 / s2)
+        return torch.sum(out, dim=-1, keepdim=True)
+
+    return helper.append_op(fn, {"X": [x], "Y": [y]}, attrs={"sigma": sigma})
+
+
+def huber_loss(x, y, delta: float = 1.0):
+    """ref: paddle/operators/huber_loss_op.cc."""
+    helper = LayerHelper("huber_loss")
+
+    def fn(ctx, a, b, delta):
+        d = b - a
+        absd = torch.abs(d)
+        return torch.where(absd <= delta, 0.5 * d * d,
+                           delta * (absd - 0.5 * delta))
+
+    return helper.append_op(fn, {"X": [x], "Y": [y]}, attrs={"delta": delta})
+
+
+def log_loss(input: Variable, label: Variable, epsilon: float = 1e-4):
+    """ref: paddle/operators/log_loss_op.cc."""
+    helper = LayerHelper("log_loss")
+
+    def fn(ctx, p, lab, epsilon):
+        return (-lab * torch.log(p + epsilon)
+                - (1 - lab) * torch.log(1 - p + epsilon))
+
+    return helper.append_op(fn, {"X": [input], "Label": [label]},
+                            attrs={"epsilon": epsilon})
+
+
+def hinge_loss(logits: Variable, label: Variable):
+    """``max(0, 1 - (2 label - 1) logits)``, labels in {0, 1} (ref:
+    paddle/operators/hinge_loss_op.cc)."""
+    helper = LayerHelper("hinge_loss")
+
+    def fn(ctx, lg, lab):
+        y = 2.0 * lab - 1.0
+        return torch.maximum(_full(0.0, lg), 1.0 - y * lg)
+
+    return helper.append_op(fn, {"X": [logits], "Label": [label]})
+
+
+def rank_loss(label: Variable, left: Variable, right: Variable):
+    """RankNet's pairwise loss (ref: paddle/operators/rank_loss_op.cc)."""
+    helper = LayerHelper("rank_loss")
+
+    def fn(ctx, lab, l, r):
+        d = l - r
+        return torch.log1p(torch.exp(d)) - lab * d
+
+    return helper.append_op(fn, {"Label": [label], "Left": [left],
+                                 "Right": [right]})
+
+
+def margin_rank_loss(label: Variable, left: Variable, right: Variable,
+                     margin: float = 0.0):
+    """ref: paddle/operators/margin_rank_loss_op.cc."""
+    helper = LayerHelper("margin_rank_loss")
+
+    def fn(ctx, lab, l, r, margin):
+        return torch.maximum(_full(0.0, l), -lab * (l - r) + margin)
+
+    return helper.append_op(fn, {"Label": [label], "X1": [left],
+                                 "X2": [right]}, attrs={"margin": margin})
+
+
+def cos_sim(x: Variable, y: Variable):
+    """Row cosine similarity ``x.y / (|x| |y| + 1e-12)`` -> [N, 1] (ref:
+    paddle/operators/cos_sim_op.cc)."""
+    helper = LayerHelper("cos_sim")
+
+    def fn(ctx, a, b):
+        xn = torch.sqrt(torch.sum(a * a, dim=-1, keepdim=True))
+        yn = torch.sqrt(torch.sum(b * b, dim=-1, keepdim=True))
+        return torch.sum(a * b, dim=-1, keepdim=True) / (xn * yn + 1e-12)
+
+    return helper.append_op(fn, {"X": [x], "Y": [y]})
+
+
+def squared_l2_norm(x: Variable):
+    """``sum(x^2)`` as a [1] (ref: paddle/operators/squared_l2_norm_op.cc)."""
+    helper = LayerHelper("squared_l2_norm")
+    return helper.append_op(lambda ctx, a: torch.sum(torch.square(a))[None],
+                            {"X": [x]})
+
+
+def squared_l2_distance(x: Variable, y: Variable):
+    """``sum((x - y)^2)`` over the last dim (ref:
+    paddle/operators/squared_l2_distance_op.cc)."""
+    helper = LayerHelper("squared_l2_distance")
+    return helper.append_op(
+        lambda ctx, a, b: torch.sum(torch.square(a - b), dim=-1,
+                                    keepdim=True), {"X": [x], "Y": [y]})
+
+
+def modified_huber_loss(input: Variable, label: Variable, name=None):
+    """Labels {0, 1} mapped to {-1, +1}; quadratic inside the margin,
+    linear outside (ref: paddle/operators/modified_huber_loss_op.cc)."""
+    helper = LayerHelper("modified_huber_loss", name=name)
+
+    def fn(ctx, p, lab):
+        y = 2.0 * lab.to(p.dtype) - 1.0
+        z = p * y
+        return torch.where(z < -1.0, -4.0 * z,
+                           torch.maximum(_full(0.0, z), 1.0 - z) ** 2)
+
+    return helper.append_op(fn, {"X": [input], "Y": [label]})
+
+
+# --------------------------------------------------------------------------- metrics
+
+
+def auc(input: Variable, label: Variable, curve: str = "ROC",
+        num_thresholds: int = 200):
+    """Batch AUC of the ROC or the PR curve, a trapezoid over
+    ``num_thresholds`` thresholds ``arange(n) * float32(1 / (n - 1))``,
+    which are ``jnp.linspace(0, 1, n)``'s values bit for bit (ref:
+    paddle/operators/auc_op.cc); a [1]."""
+    if curve not in ("ROC", "PR"):
+        raise ValueError(f"auc: curve must be 'ROC' or 'PR', got {curve!r}")
+    helper = LayerHelper("auc")
+
+    def fn(ctx, p, lab, num_thresholds, curve):
+        score = (p[:, 1] if p.dim() == 2 and p.shape[1] == 2
+                 else p.reshape(-1))
+        y = lab.reshape(-1).to(torch.float32)
+        th = torch.arange(num_thresholds, dtype=torch.float32,
+                          device=p.device)
+        if num_thresholds > 1:
+            th = th * float(np.float32(1.0 / (num_thresholds - 1)))
+        pred = (score[None, :] >= th[:, None]).to(torch.float32)
+        tp = torch.sum(pred * y[None, :], dim=1)
+        fp = torch.sum(pred * (1 - y)[None, :], dim=1)
+        pos = torch.sum(y) + 1e-8
+        neg = torch.sum(1 - y) + 1e-8
+        recall = tp / pos
+        if curve == "PR":
+            precision = tp / torch.maximum(tp + fp, _full(1e-8, tp))
+            return torch.abs(torch.trapezoid(precision, recall))[None]
+        return torch.abs(torch.trapezoid(recall, fp / neg))[None]
+
+    return helper.append_op(fn, {"Out": [input], "Label": [label]},
+                            attrs={"num_thresholds": num_thresholds,
+                                   "curve": curve})
+
+
+def precision_recall(input: Variable, label: Variable, num_classes: int,
+                     name=None):
+    """The batch's macro precision, recall and F1 over the classes that
+    occur in the labels, a [3] (ref: paddle/operators/
+    precision_recall_op.cc)."""
+    helper = LayerHelper("precision_recall", name=name)
+
+    def fn(ctx, p, lab, num_classes):
+        cls = torch.arange(num_classes, device=p.device)
+        oh_p = (torch.argmax(p, dim=-1).reshape(-1)[:, None] == cls).to(
+            torch.float32)
+        oh_y = (lab.reshape(-1).to(torch.int64)[:, None] == cls).to(
+            torch.float32)
+        tp = torch.sum(oh_p * oh_y, dim=0)
+        fp = torch.sum(oh_p * (1 - oh_y), dim=0)
+        fn_ = torch.sum((1 - oh_p) * oh_y, dim=0)
+        support = torch.sum(oh_y, dim=0) > 0
+        eps = _full(1e-8, tp)
+        prec = torch.where(support, tp / torch.maximum(tp + fp, eps), 0.0)
+        rec = torch.where(support, tp / torch.maximum(tp + fn_, eps), 0.0)
+        nsup = torch.clamp_min(torch.sum(support), 1).to(torch.float32)
+        mp = torch.sum(prec) / nsup
+        mr = torch.sum(rec) / nsup
+        f1 = 2 * mp * mr / torch.maximum(mp + mr, eps)
+        return torch.stack([mp, mr, f1])
+
+    return helper.append_op(fn, {"MaxProbs": [input], "Labels": [label]},
+                            attrs={"num_classes": num_classes})
+
+
+def positive_negative_pair(score: Variable, label: Variable,
+                           query_id: Variable, name=None):
+    """Within each query, the pairs of higher label ordered right and
+    wrong by score, a tie counting half to each: [3] = (negative pairs,
+    positive pairs, positive / (positive + negative)) (ref:
+    paddle/operators/positive_negative_pair_op.cc)."""
+    helper = LayerHelper("positive_negative_pair", name=name)
+
+    def fn(ctx, s, lab, qid):
+        s = s.reshape(-1)
+        y = lab.reshape(-1).to(s.dtype)
+        q = qid.reshape(-1)
+        valid = (q[:, None] == q[None, :]) & (y[:, None] > y[None, :])
+        pos = torch.sum(valid & (s[:, None] > s[None, :])).to(s.dtype)
+        neg = torch.sum(valid & (s[:, None] < s[None, :])).to(s.dtype)
+        ties = torch.sum(valid & (s[:, None] == s[None, :])).to(s.dtype)
+        posf = pos + 0.5 * ties
+        negf = neg + 0.5 * ties
+        ratio = posf / torch.maximum(posf + negf, _full(1e-8, posf))
+        return torch.stack([negf, posf, ratio])
+
+    return helper.append_op(fn, {"Score": [score], "Label": [label],
+                                 "QueryID": [query_id]})
+
+
+# --------------------------------------------------------------------------- misc ops
+
+
+def _param_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of a parameter (2-D, or 1-D as a column) through
+    ``F.embedding``: its backward adds in a fixed order on the card, where
+    advanced indexing's adds with atomics (a warmed step's replay must be
+    bitwise its eager step)."""
+    if table.dim() == 1:
+        return F.embedding(ids, table[:, None])[..., 0]
+    return F.embedding(ids, table)
+
+
+def bilinear_tensor_product(x: Variable, y: Variable, size: int,
+                            param_attr=None, bias_attr=None, act=None,
+                            name=None):
+    """``out[:, k] = x W_k y^T + b`` (ref:
+    paddle/operators/bilinear_tensor_product_op.cc)."""
+    helper = LayerHelper("bilinear_tensor_product", name=name)
+    dx, dy = x.shape[-1], y.shape[-1]
+    w = helper.create_parameter(param_attr, [size, dx, dy], x.dtype)
+    out = helper.append_op(
+        lambda ctx, a, b, wv: torch.einsum("ni,kij,nj->nk", a, wv, b),
+        {"X": [x], "Y": [y], "W": [w]})
+    if bias_attr is not False:
+        bias = helper.create_parameter(bias_attr, [size], out.dtype,
+                                       is_bias=True)
+        out = helper.append_op(lambda ctx, a, bv: a + bv,
+                               {"X": [out], "B": [bias]},
+                               op_type="elementwise_add")
+    return helper.append_activation(out, act)
+
+
+def conv_shift(x: Variable, y: Variable, name=None):
+    """Circular convolution (ref: paddle/operators/conv_shift_op.cc):
+    ``out[i, j] = sum_k x[i, (j + k - M // 2) mod N] * y[i, k]``, y's width
+    M odd and at most N.  The shifted windows are an ``unfold`` of x padded
+    circularly, whose backward is a fixed-order sum."""
+    helper = LayerHelper("conv_shift", name=name)
+
+    def fn(ctx, a, b):
+        big_n, m = a.shape[1], b.shape[1]
+        half = m // 2
+        padded = torch.cat([a[:, big_n - half:], a, a[:, :m - 1 - half]],
+                           dim=1)
+        return torch.einsum("njk,nk->nj", padded.unfold(1, m, 1), b)
+
+    return helper.append_op(fn, {"X": [x], "Y": [y]})
+
+
+def nce(input: Variable, label: Variable, num_total_classes: int,
+        num_neg_samples: int = 10, param_attr=None, bias_attr=None,
+        name=None):
+    """Noise-contrastive estimation with uniform noise, the per-example
+    loss [N, 1] (ref: paddle/operators/nce_op.cc): the negatives are
+    ``jax.random.randint(key, (N, num_neg_samples), 0, num_total_classes)``
+    of the op's key (``ops/random.py``), bitwise, and the noise log
+    probability is ``log(num_neg_samples / num_total_classes)``."""
+    helper = LayerHelper("nce", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_total_classes, dim],
+                                input.dtype)
+    b = helper.create_parameter(bias_attr, [num_total_classes], input.dtype,
+                                is_bias=True)
+    tag = helper.main_program.next_rng_tag()
+
+    def fn(ctx, a, lab, wv, bv, n_neg, n_cls, tag):
+        nrows = a.shape[0]
+        if a.device.type == "meta":
+            neg = torch.zeros((nrows, n_neg), dtype=torch.int64,
+                              device="meta")
+        else:
+            neg = jrandom.randint(ctx.rng_key(tag), (nrows, n_neg), 0,
+                                  n_cls, a.device).to(torch.int64)
+        ids = torch.cat([lab.reshape(-1, 1).to(torch.int64), neg], dim=1)
+        logits = (torch.einsum("nd,nsd->ns", a, _param_rows(wv, ids))
+                  + _param_rows(bv, ids))
+        log_pn = torch.log(_full(n_neg / n_cls, a))
+        delta = logits - log_pn
+        pos = F.logsigmoid(delta[:, 0])
+        negs = torch.sum(F.logsigmoid(-delta[:, 1:]), dim=1)
+        return (-(pos + negs))[:, None]
+
+    return helper.append_op(
+        fn, {"Input": [input], "Label": [label], "W": [w], "B": [b]},
+        attrs={"n_neg": num_neg_samples, "n_cls": num_total_classes,
+               "tag": tag})
+
+
+def hsigmoid(input: Variable, label: Variable, num_classes: int,
+             param_attr=None, bias_attr=None, name=None):
+    """Hierarchical sigmoid over a complete binary tree (ref: v1
+    gserver/layers/HierarchicalSigmoidLayer.cpp): class c is heap node c +
+    num_classes (root 1), the loss the sum of binary cross-entropies along
+    the root-to-leaf path; every path is unrolled to ``bit_length(C)``
+    steps with a validity mask.  The per-example loss [N, 1]."""
+    helper = LayerHelper("hsigmoid", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_classes - 1, dim],
+                                input.dtype)
+    b = helper.create_parameter(bias_attr, [num_classes - 1], input.dtype,
+                                is_bias=True)
+    max_depth = int(num_classes).bit_length()
+
+    def fn(ctx, x, lab, wv, bv, n_cls, max_depth):
+        code = lab.reshape(-1).to(torch.int64) + n_cls      # leaf heap id
+        ks = torch.arange(1, max_depth + 1, device=x.device)
+        # path length = floor(log2(code)), by integer compares
+        length = torch.sum(code[:, None] >= (1 << ks)[None, :], dim=1)
+        s = torch.arange(max_depth, device=x.device)
+        shift = length[:, None] - s[None, :]                # [N, D]
+        valid = shift > 0
+        node = code[:, None] >> shift.clamp(0, 31)          # ancestor at s
+        bit = (code[:, None] >> (shift - 1).clamp(0, 31)) & 1
+        idx = (node - 1).clamp(0, n_cls - 2)                # internal row
+        logits = (torch.einsum("nd,nsd->ns", x, _param_rows(wv, idx))
+                  + _param_rows(bv, idx))
+        # jax.nn.softplus is logaddexp(x, 0)
+        bce = (torch.logaddexp(logits, torch.zeros_like(logits))
+               - bit.to(logits.dtype) * logits)
+        return torch.sum(bce * valid.to(logits.dtype), dim=1)[:, None]
+
+    return helper.append_op(
+        fn, {"X": [input], "Label": [label], "W": [w], "B": [b]},
+        attrs={"n_cls": num_classes, "max_depth": max_depth})
+
+
+# ------------------------------------------------------- v1 misc layer parity
+
+
+def _per_row(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return w.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def scaling(x: Variable, weight: Variable, name=None):
+    """``out[i] = weight[i] * x[i]`` (ref: v1 ScalingLayer.cpp)."""
+    helper = LayerHelper("scaling", name=name)
+    return helper.append_op(lambda ctx, a, w: a * _per_row(w, a),
+                            {"X": [x], "Weight": [weight]})
+
+
+def interpolation(x: Variable, y: Variable, weight: Variable, name=None):
+    """``w * x + (1 - w) * y`` with a per-row w (ref: v1
+    InterpolationLayer.cpp)."""
+    helper = LayerHelper("interpolation", name=name)
+
+    def fn(ctx, a, b, w):
+        w = _per_row(w, a)
+        return w * a + (1.0 - w) * b
+
+    return helper.append_op(fn, {"X": [x], "Y": [y], "Weight": [weight]})
+
+
+def power(x: Variable, weight: Variable, name=None):
+    """``x[i] ** w[i]`` with a per-row exponent (ref: v1 PowerLayer.cpp)."""
+    helper = LayerHelper("power", name=name)
+    return helper.append_op(lambda ctx, a, w: a ** _per_row(w, a),
+                            {"X": [x], "Weight": [weight]})
+
+
+def slope_intercept(x: Variable, slope: float = 1.0, intercept: float = 0.0,
+                    name=None):
+    """``slope * x + intercept`` (ref: v1 SlopeInterceptLayer.cpp)."""
+    helper = LayerHelper("slope_intercept", name=name)
+    return helper.append_op(lambda ctx, a, s, b: a * s + b, {"X": [x]},
+                            attrs={"s": slope, "b": intercept})
+
+
+def sum_to_one_norm(x: Variable, name=None):
+    """Rows divided by their sums; a sum within 1e-12 of 0 reads 1e-12
+    (ref: v1 SumToOneNormLayer.cpp)."""
+    helper = LayerHelper("sum_to_one_norm", name=name)
+
+    def fn(ctx, a):
+        s = torch.sum(a, dim=-1, keepdim=True)
+        return a / torch.where(torch.abs(s) < 1e-12, 1e-12, s)
+
+    return helper.append_op(fn, {"X": [x]})
+
+
+def linear_comb(x: Variable, weight: Variable, size: int, name=None):
+    """x [N, K * size], weight [N, K] -> the weighted sum of the K
+    sub-vectors, [N, size] (ref: v1 LinearCombinationLayer)."""
+    helper = LayerHelper("linear_comb", name=name)
+
+    def fn(ctx, a, w, size):
+        k = a.shape[-1] // size
+        return torch.einsum("nk,nkd->nd", w, a.reshape(a.shape[0], k, size))
+
+    return helper.append_op(fn, {"X": [x], "Weight": [weight]},
+                            attrs={"size": size})
+
+
+def out_prod(x: Variable, y: Variable, name=None):
+    """Row-wise outer product: [N, A], [N, B] -> [N, A * B] (ref: v1
+    OuterProdLayer.cpp)."""
+    helper = LayerHelper("out_prod", name=name)
+    return helper.append_op(
+        lambda ctx, a, b: (a[:, :, None] * b[:, None, :]).reshape(
+            a.shape[0], -1), {"X": [x], "Y": [y]})
+
+
+def repeat(x: Variable, num_repeats: int, as_row_vector: bool = True,
+           name=None):
+    """The features repeated ``num_repeats`` times along dim 1: the whole
+    row tiled (``as_row_vector``, the reference's default) or each element
+    in turn (ref: v1 FeatureMapExpandLayer / RepeatLayer)."""
+    helper = LayerHelper("repeat", name=name)
+
+    def fn(ctx, a, r, row):
+        if row:
+            return torch.tile(a, (1, r) + (1,) * (a.dim() - 2))
+        return torch.repeat_interleave(a, r, dim=1)
+
+    return helper.append_op(fn, {"X": [x]},
+                            attrs={"r": num_repeats, "row": as_row_vector})
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``jax.image``'s triangle weights [n_in, n_out] for one dim
+    (``compute_weight_mat`` with scale n_out / n_in, translation 0 and
+    antialiasing): half-pixel centres, and the kernel widened by n_in /
+    n_out when the dim shrinks.  float32 on ``device``, built there."""
+    scale = float(np.float32(n_out / n_in))
+    inv = float(np.float32(1.0) / np.float32(scale))
+    kernel_scale = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    x = torch.abs(sample[None, :] - src[:, None]) / kernel_scale
+    w = torch.clamp_min(1 - torch.abs(x), 0.0)
+    total = torch.sum(w, dim=0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def bilinear_interp(input: Variable, out_h: int, out_w: int, name=None):
+    """Bilinear resize of NCHW images to ``out_h`` x ``out_w`` as
+    ``jax.image.resize(method="bilinear")`` computes it: half-pixel
+    centres and, where a dim shrinks, the antialiasing triangle filter
+    (``F.interpolate(align_corners=False)`` matches it only where a dim
+    grows); a dim that keeps its size is left alone (ref: v1
+    BilinearInterpLayer.cpp)."""
+    helper = LayerHelper("bilinear_interp", name=name)
+
+    def fn(ctx, a, out_h, out_w):
+        if a.shape[2] != out_h:
+            wh = _resize_weights(a.shape[2], out_h, a.device).to(a.dtype)
+            a = torch.einsum("nchw,ho->ncow", a, wh)
+        if a.shape[3] != out_w:
+            ww = _resize_weights(a.shape[3], out_w, a.device).to(a.dtype)
+            a = torch.einsum("nchw,wp->nchp", a, ww)
+        return a
+
+    return helper.append_op(fn, {"X": [input]},
+                            attrs={"out_h": out_h, "out_w": out_w})
+
+
+def selective_fc(x: Variable, select: Variable, size: int, param_attr=None,
+                 bias_attr=None, act: Optional[str] = None, name=None):
+    """A fully connected layer whose unselected outputs are zero: ``(x W +
+    b) * select``, select [N, size] in {0, 1} (ref: v1
+    SelectiveFullyConnectedLayer)."""
+    helper = LayerHelper("selective_fc", name=name)
+    w = helper.create_parameter(param_attr, [x.shape[-1], size], x.dtype)
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [size], x.dtype, is_bias=True)
+        out = helper.append_op(
+            lambda ctx, a, sel, wv, bv: (a @ wv + bv) * sel.to(a.dtype),
+            {"X": [x], "Select": [select], "W": [w], "B": [b]})
+    else:
+        out = helper.append_op(
+            lambda ctx, a, sel, wv: (a @ wv) * sel.to(a.dtype),
+            {"X": [x], "Select": [select], "W": [w]})
+    return helper.append_activation(out, act)
+
+
+__all__ = ["accuracy", "auc", "batch_norm", "bilinear_interp",
+           "bilinear_tensor_product", "conv2d", "conv2d_transpose", "conv3d",
+           "conv_shift", "cos_sim", "cross_entropy", "dropout", "embedding",
+           "fc", "hinge_loss", "hsigmoid", "huber_loss", "interpolation",
+           "layer_norm", "linear_comb", "log_loss", "lrn", "margin_rank_loss",
+           "maxout", "modified_huber_loss", "nce", "out_prod", "pool2d",
+           "pool3d", "pool_with_index", "positive_negative_pair", "power",
+           "precision_recall", "rank_loss", "repeat", "sampling_id",
+           "scaling", "selective_fc", "sigmoid_cross_entropy_with_logits",
+           "slope_intercept", "smooth_l1", "softmax_with_cross_entropy",
+           "spp", "square_error_cost", "squared_l2_distance",
+           "squared_l2_norm", "sum_to_one_norm", "unpool"]

@@ -1,25 +1,48 @@
-"""Dense-math layers (PyTorch port of the ``paddle_tpu/layers/tensor.py``
-subset the training slices use): ``elementwise_add`` / ``sub`` / ``mul`` /
-``div`` / ``pow`` / ``max`` / ``min`` with Fluid's ``axis``
-mid-broadcast, ``matmul``, ``mul``, ``mean``, ``sums``, ``reshape``,
-``transpose``, ``concat``, ``split``, ``stack``, ``squeeze``,
-``unsqueeze``, ``assign``, the reductions ``reduce_sum`` / ``mean`` /
-``max`` / ``min`` / ``prod``, ``cast``, ``scale``, ``fill_constant``,
-``fill_constant_batch_size_like``, ``argmax`` and the compares
-``less_than`` / ``less_equal`` / ``greater_than`` / ``equal`` /
-``not_equal``.  ``matmul`` and ``mul`` are
-``torch.matmul``: the JAX package computes them outside any Pallas
-kernel."""
+"""Dense-math layers (PyTorch port of ``paddle_tpu/layers/tensor.py``):
+``elementwise_add`` / ``sub`` / ``mul`` / ``div`` / ``pow`` / ``max`` /
+``min`` with Fluid's ``axis`` mid-broadcast, ``matmul``, ``mul``, the
+shape ops (``reshape``, ``transpose``, ``concat``, ``split``, ``stack``,
+``expand``, ``squeeze``, ``unsqueeze``, ``pad``, ``crop``), ``cast``,
+``scale``, ``clip``, ``clip_by_norm``, ``l2_distance``, ``l1_norm``, the
+reductions, ``mean``, ``sums``, the indexing ops (``top_k``, ``argmax``,
+``gather``, ``scatter``, ``one_hot``, ``multiplex``, ``cumsum``), the
+creation ops (``fill_constant``, ``fill_constant_batch_size_like``,
+``zeros``, ``ones``, ``zeros_like``, ``assign``), the random draws
+``gaussian_random`` and ``uniform_random``, ``increment``, the compares,
+``is_empty`` and ``sign``.  ``matmul`` and ``mul`` are ``torch.matmul``:
+the JAX package computes them outside any Pallas kernel.
+
+Where JAX and torch part ways, the port takes JAX's side (ROADMAP C.4):
+``crop`` clamps its offsets so the slice fits, as ``lax.dynamic_slice``
+does; ``gather`` (``jnp.take``) wraps a negative index once and fills the
+rows of an index outside [-n, n) with NaN (the most negative value for an
+integer x), where torch would raise; ``multiplex`` wraps a negative index
+once and clamps the rest, as JAX's indexing does, a clamped row passing
+no gradient back; ``one_hot`` gives a zero row for an id outside [0,
+depth), where ``F.one_hot`` raises; ``top_k`` puts the lower index first
+among ties (a stable sort); ``scatter``
+drops an index outside [-n, n) and, with ``overwrite`` and a repeated
+index, keeps the last update, as JAX does on the CPU, on every device
+(``index_put_`` pins no winner on CUDA); its adds run as a one-hot
+matmul, in one order on every replay (``index_add_``'s atomics have
+none).  Row gathers go through ``F.embedding``, whose backward adds in a
+fixed order on the card.  ``gaussian_random`` and ``uniform_random`` draw
+JAX's numbers (``ops/random.py``) from the op's key,
+``ctx.rng_key(tag)``, so a warmed step's replay at step s draws what an
+eager step at s draws."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..core.program import Variable
+from ..core.program import Variable, default_main_program
 from ..core.types import convert_dtype
+from ..ops import random as jrandom
 from .helper import LayerHelper
+from .ops import _clip
 
 
 def _broadcast_y(x, y, axis: int):
@@ -33,13 +56,30 @@ def _broadcast_y(x, y, axis: int):
     return y.reshape(shape)
 
 
+def _constant(y):
+    """``y`` (a Python scalar or an array) as a function of the op's
+    operand ``a``: a tensor in ``a``'s dtype on its device, a scalar
+    filled there and an array moved once per device and dtype, so that a
+    captured step copies nothing from the host."""
+    if np.ndim(y) == 0:
+        return lambda a: torch.full((), y, dtype=a.dtype, device=a.device)
+    arr, moved = np.asarray(y), {}
+
+    def const(a):
+        key = (a.device, a.dtype)
+        if key not in moved:
+            moved[key] = torch.as_tensor(arr, dtype=a.dtype, device=a.device)
+        return moved[key]
+
+    return const
+
+
 def _elementwise(name, tfn):
     def layer(x: Variable, y, axis: int = -1, act: Optional[str] = None, **kwargs):
         helper = LayerHelper(name, **kwargs)
         if not isinstance(y, Variable):
             out = helper.append_op(
-                lambda ctx, a, yv=y: tfn(a, torch.as_tensor(yv, dtype=a.dtype,
-                                                            device=a.device)),
+                lambda ctx, a, yv=_constant(y): tfn(a, yv(a)),
                 {"X": [x]}, op_type=name)
         else:
             out = helper.append_op(
@@ -254,6 +294,94 @@ def unsqueeze(x: Variable, axes: Sequence[int]):
     return helper.append_op(fn, {"X": [x]}, attrs={"axes": tuple(axes)})
 
 
+def expand(x: Variable, expand_times: Sequence[int], name=None):
+    """Tile x ``expand_times`` along each dim (``jnp.tile``; ref:
+    paddle/operators/expand_op.cc)."""
+    helper = LayerHelper("expand", name=name)
+    return helper.append_op(
+        lambda ctx, a, expand_times: torch.tile(a, expand_times),
+        {"X": [x]}, attrs={"expand_times": tuple(expand_times)})
+
+
+def pad(x: Variable, paddings: Sequence[int], pad_value: float = 0.0,
+        name=None):
+    """Constant padding, ``paddings`` flat as [before0, after0, before1,
+    after1, ...] (ref: paddle/operators/pad_op.cc)."""
+    helper = LayerHelper("pad", name=name)
+
+    def fn(ctx, a, paddings, pad_value):
+        flat = []
+        for i in reversed(range(a.dim())):   # F.pad: the last dim first
+            flat += [paddings[2 * i], paddings[2 * i + 1]]
+        return F.pad(a, flat, value=pad_value)
+
+    return helper.append_op(fn, {"X": [x]},
+                            attrs={"paddings": tuple(paddings),
+                                   "pad_value": pad_value})
+
+
+def crop(x: Variable, shape: Sequence[int],
+         offsets: Optional[Sequence[int]] = None, name=None):
+    """The ``shape`` slice of x at ``offsets`` (0s by default), each
+    offset clamped to [0, dim - size] as ``lax.dynamic_slice`` clamps it
+    (ref: paddle/operators/crop_op.cc)."""
+    helper = LayerHelper("crop", name=name)
+    offsets = tuple(offsets) if offsets is not None else None
+
+    def fn(ctx, a, shape, offsets):
+        off = offsets or (0,) * a.dim()
+        for d, (o, n) in enumerate(zip(off, shape)):
+            if n > a.shape[d]:
+                raise ValueError(f"crop: size {n} exceeds dim {d} of "
+                                 f"{tuple(a.shape)}")
+            a = a.narrow(d, min(max(int(o), 0), a.shape[d] - n), n)
+        return a
+
+    return helper.append_op(fn, {"X": [x]}, attrs={"shape": tuple(shape),
+                                                   "offsets": offsets})
+
+
+def clip(x: Variable, min: float, max: float, name=None):
+    """``jnp.clip(x, min, max)``: a value on a bound splits its gradient
+    in half, as JAX's does."""
+    helper = LayerHelper("clip", name=name)
+    return helper.append_op(lambda ctx, a, min, max: _clip(a, min, max),
+                            {"X": [x]}, attrs={"min": min, "max": max})
+
+
+def clip_by_norm(x: Variable, max_norm: float, name=None):
+    """x scaled to an L2 norm of at most ``max_norm`` (ref:
+    paddle/operators/clip_by_norm_op.cc)."""
+    helper = LayerHelper("clip_by_norm", name=name)
+
+    def fn(ctx, a, max_norm):
+        norm = torch.sqrt(torch.sum(torch.square(a)))
+        cap = torch.full((), max_norm, dtype=norm.dtype, device=norm.device)
+        return a * (max_norm / torch.maximum(norm, cap))
+
+    return helper.append_op(fn, {"X": [x]}, attrs={"max_norm": max_norm})
+
+
+def l2_distance(x: Variable, y: Variable, name=None):
+    """Per-row Euclidean distance ``sqrt(sum((x_i - y_i)^2) + 1e-12)`` ->
+    [N, 1] (ref: gserver/layers/L2DistanceLayer.cpp)."""
+    helper = LayerHelper("l2_distance", name=name)
+
+    def fn(ctx, a, b):
+        d = (a - b).reshape(a.shape[0], -1)
+        return torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True) + 1e-12)
+
+    return helper.append_op(fn, {"X": [x], "Y": [y]})
+
+
+def l1_norm(x: Variable, name=None):
+    """Scalar sum of absolute values; the gradient is sign(x) (ref:
+    paddle/operators/l1_norm_op.cc)."""
+    helper = LayerHelper("l1_norm", name=name)
+    return helper.append_op(lambda ctx, a: torch.sum(torch.abs(a)),
+                            {"X": [x]})
+
+
 def assign(x, output: Optional[Variable] = None):
     """A copy of a Variable, or a constant from a numpy array (ref:
     paddle/operators/assign_op.cc), written into ``output`` when one is
@@ -346,6 +474,202 @@ def argmax(x: Variable, axis: int = -1):
                             {"X": [x]}, attrs={"axis": axis})
 
 
+def top_k(x: Variable, k: int, name=None):
+    """The ``k`` largest values along the last dim and their int64
+    indices, the lower index first among ties (``lax.top_k``; a stable
+    sort; ref: paddle/operators/top_k_op.cc)."""
+    helper = LayerHelper("top_k", name=name)
+
+    def fn(ctx, a, k):
+        v, i = torch.sort(a, dim=-1, descending=True, stable=True)
+        return v[..., :k], i[..., :k]
+
+    return helper.append_op(fn, {"X": [x]}, attrs={"k": k}, n_outputs=2)
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` along dim 0 for in-range int ``idx`` through
+    ``F.embedding`` (its backward adds in a fixed order on the card)."""
+    flat = table.reshape(table.shape[0], -1)
+    out = F.embedding(idx.to(torch.int64), flat)
+    return out.reshape(tuple(idx.shape) + tuple(table.shape[1:]))
+
+
+def _fill_value(dtype: torch.dtype):
+    """``jnp.take``'s fill for an out-of-range row: NaN for floats, the
+    most negative value for signed integers, True for bool."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).min
+
+
+def gather(x: Variable, index: Variable, name=None):
+    """Rows of x by ``index`` (``jnp.take(x, index, axis=0)``; ref:
+    paddle/operators/gather_op.cc): a negative index counts from the end,
+    and an index outside [-n, n) gives a row of the fill value with no
+    gradient."""
+    helper = LayerHelper("gather", name=name)
+
+    def fn(ctx, a, idx):
+        n = a.shape[0]
+        idx = idx.to(torch.int64)
+        ok = (idx >= -n) & (idx < n)
+        safe = torch.where(ok, torch.where(idx < 0, idx + n, idx), 0)
+        rows = _rows(a, safe)
+        ok = ok.reshape(tuple(ok.shape) + (1,) * (a.dim() - 1))
+        return torch.where(ok, rows, torch.full(
+            (), _fill_value(a.dtype), dtype=a.dtype, device=a.device))
+
+    return helper.append_op(fn, {"X": [x], "Index": [index]})
+
+
+def scatter(x: Variable, index: Variable, updates: Variable,
+            overwrite: bool = True, name=None):
+    """x with its rows ``index`` set to (``overwrite``) or added with the
+    rows of ``updates`` (``x.at[index].set`` / ``.add``; ref:
+    paddle/operators/scatter_op.cc): a negative index counts from the end,
+    one outside [-n, n) is dropped, and a repeated index keeps its last
+    update (set) or adds them all (add)."""
+    helper = LayerHelper("scatter", name=name)
+
+    def fn(ctx, a, idx, upd, overwrite):
+        n = a.shape[0]
+        idx = idx.reshape(-1).to(torch.int64)
+        m = idx.shape[0]
+        upd = upd.reshape((m,) + tuple(a.shape[1:]))
+        ok = (idx >= -n) & (idx < n)
+        tgt = torch.where(ok, torch.where(idx < 0, idx + n, idx), n)
+        if not overwrite:
+            hot = (tgt[None, :] == torch.arange(n, device=a.device)[:, None])
+            add = hot.to(a.dtype) @ upd.reshape(m, -1)
+            return a + add.reshape(a.shape)
+        # the winner of each row: its last update (amax of the positions)
+        win = torch.full((n + 1,), -1, dtype=torch.int64, device=a.device)
+        win = win.scatter_reduce(0, tgt, torch.arange(m, device=a.device),
+                                 reduce="amax")[:n]
+        hit = (win >= 0).reshape((n,) + (1,) * (a.dim() - 1))
+        return torch.where(hit, _rows(upd, win.clamp_min(0)), a)
+
+    return helper.append_op(
+        fn, {"X": [x], "Index": [index], "Updates": [updates]},
+        attrs={"overwrite": overwrite})
+
+
+def one_hot(x: Variable, depth: int, dtype="float32"):
+    """One-hot rows of ``depth`` for the ids of x (a trailing dim of 1
+    dropped), a zero row for an id outside [0, depth), as
+    ``jax.nn.one_hot`` gives it."""
+    helper = LayerHelper("one_hot")
+    dt = convert_dtype(dtype)
+
+    def fn(ctx, a, depth):
+        if a.dim() > 1 and a.shape[-1] == 1:
+            a = a.squeeze(-1)
+        cls = torch.arange(depth, device=a.device)
+        return (a.to(torch.int64)[..., None] == cls).to(dt)
+
+    return helper.append_op(fn, {"X": [x]}, attrs={"depth": depth})
+
+
+def multiplex(inputs: Sequence[Variable], index: Variable):
+    """Row i from candidate ``index[i]`` (ref:
+    paddle/operators/multiplex_op.cc); a negative index counts from the end
+    once and the rest is clamped to [0, n), as JAX's indexing does, and a
+    clamped row passes no gradient back, as JAX's does not."""
+    helper = LayerHelper("multiplex")
+
+    def fn(ctx, idx, *cands):
+        stackd = torch.stack(cands, dim=0)          # [n_cand, batch, ...]
+        n, b = stackd.shape[0], stackd.shape[1]
+        idx = idx.reshape(-1).to(torch.int64)
+        idx = torch.where(idx < 0, idx + n, idx)
+        pick = idx.clamp(0, n - 1) * b + torch.arange(b, device=idx.device)
+        out = _rows(stackd.reshape((n * b,) + tuple(stackd.shape[2:])),
+                    pick)
+        # a clamped row reads its value but, as in JAX's gather, passes no
+        # gradient back
+        ok = ((idx >= 0) & (idx < n)).reshape((b,) + (1,) * (out.dim() - 1))
+        return torch.where(ok, out, out.detach())
+
+    return helper.append_op(fn, {"Ids": [index], "X": list(inputs)})
+
+
+def cumsum(x: Variable, axis: int = -1):
+    helper = LayerHelper("cumsum")
+    return helper.append_op(lambda ctx, a, axis: torch.cumsum(a, dim=axis),
+                            {"X": [x]}, attrs={"axis": axis})
+
+
+def zeros(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros_like(x: Variable):
+    helper = LayerHelper("fill_zeros_like")
+    return helper.append_op(lambda ctx, a: torch.zeros_like(a), {"X": [x]})
+
+
+def _empty_on_meta(ctx, shape, dt):
+    return (torch.empty(shape, dtype=dt, device="meta")
+            if ctx.device.type == "meta" else None)
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, dtype="float32"):
+    """``mean + std * jax.random.normal`` of the op's key (ref:
+    paddle/operators/gaussian_random_op.cc), float32, as XLA compiles it
+    in the JAX package's jitted step (``ops/random.py::scaled_normal``)."""
+    helper = LayerHelper("gaussian_random")
+    tag = default_main_program().next_rng_tag()
+    dt = convert_dtype(dtype)
+    if dt != torch.float32:
+        raise ValueError(f"gaussian_random is ported for float32, got {dt}")
+    shape = tuple(shape)
+
+    def fn(ctx):
+        meta = _empty_on_meta(ctx, shape, dt)
+        if meta is not None:
+            return meta
+        return jrandom.scaled_normal(ctx.rng_key(tag), shape, mean, std,
+                                     ctx.device)
+
+    return helper.append_op(fn, {})
+
+
+def uniform_random(shape, min=-1.0, max=1.0, dtype="float32"):
+    """``jax.random.uniform`` of the op's key on [min, max)."""
+    helper = LayerHelper("uniform_random")
+    tag = default_main_program().next_rng_tag()
+    dt = convert_dtype(dtype)
+    shape = tuple(shape)
+
+    def fn(ctx):
+        meta = _empty_on_meta(ctx, shape, dt)
+        if meta is not None:
+            return meta
+        return jrandom.uniform(ctx.rng_key(tag), shape, dt, min, max,
+                               ctx.device)
+
+    return helper.append_op(fn, {})
+
+
+def increment(x: Variable, value: float = 1.0, in_place: bool = True):
+    """x + ``value`` (cast to x's dtype), written back to x when
+    ``in_place``, so a persistable counter advances in the scope (ref:
+    paddle/operators/increment_op.cc)."""
+    helper = LayerHelper("increment")
+    out_names = [x.name] if in_place else None
+    return helper.append_op(
+        lambda ctx, a, value: a + torch.full((), value, dtype=a.dtype,
+                                             device=a.device),
+        {"X": [x]}, attrs={"value": value}, out_names=out_names)
+
+
 def cond_compare(name, tfn):
     def layer(x: Variable, y):
         """Element-wise compare of ``x`` with a Variable or a Python
@@ -368,12 +692,33 @@ equal = cond_compare("equal", torch.eq)
 not_equal = cond_compare("not_equal", torch.ne)
 
 
-__all__ = ["argmax", "assign", "cast", "concat", "cond_compare",
-           "elementwise_add", "elementwise_div", "elementwise_max",
-           "elementwise_min", "elementwise_mul",
-           "elementwise_pow", "elementwise_sub", "equal", "fill_constant",
-           "fill_constant_batch_size_like", "greater_than", "less_equal",
-           "less_than", "matmul", "mean", "mul", "not_equal",
-           "reduce_max", "reduce_mean", "reduce_min", "reduce_prod",
-           "reduce_sum", "reshape", "scale", "split", "squeeze", "stack",
-           "sums", "transpose", "unsqueeze"]
+def is_empty(x: Variable):
+    """A 0-d bool: whether x has no elements (ref:
+    paddle/operators/is_empty_op.cc)."""
+    helper = LayerHelper("is_empty")
+    return helper.append_op(
+        lambda ctx, a: torch.full((), a.numel() == 0, dtype=torch.bool,
+                                  device=a.device), {"X": [x]})
+
+
+def sign(x, name=None):
+    """Elementwise sign (ref: paddle/operators/sign_op.cc), the same values
+    as ``layers.ops.sign``."""
+    helper = LayerHelper("sign", name=name)
+    return helper.append_op(lambda ctx, a: torch.sign(a), {"X": [x]},
+                            op_type="sign")
+
+
+__all__ = ["argmax", "assign", "cast", "clip", "clip_by_norm", "concat",
+           "cond_compare", "crop", "cumsum", "elementwise_add",
+           "elementwise_div", "elementwise_max", "elementwise_min",
+           "elementwise_mul", "elementwise_pow", "elementwise_sub", "equal",
+           "expand", "fill_constant", "fill_constant_batch_size_like",
+           "gather", "gaussian_random", "greater_than", "increment",
+           "is_empty", "l1_norm", "l2_distance", "less_equal", "less_than",
+           "matmul", "mean", "mul", "multiplex", "not_equal", "one_hot",
+           "ones", "pad", "reduce_max", "reduce_mean", "reduce_min",
+           "reduce_prod", "reduce_sum", "reshape", "scale", "scatter",
+           "sign", "split", "squeeze", "stack", "sums", "top_k",
+           "transpose", "uniform_random", "unsqueeze", "zeros",
+           "zeros_like"]

@@ -1,6 +1,6 @@
 """Where the time of one training step goes, on the CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|srl|srl-decode|hier_text|hier_text-infer|ocr_ctc|ocr_ctc-decode|fcn|fcn-infer|ssd|ssd-detect|resnet50|resnet50-infer|resnet18-infer|vgg19|alexnet|googlenet|<those>-infer] [--dropout P] [--remat] [--eager] [--out F]
+    python3 -m paddle_tpu_torch.tools.train_profile [--model lm|text_lstm|seq2seq|seq2seq-beam|srl|srl-decode|hier_text|hier_text-infer|ocr_ctc|ocr_ctc-decode|fcn|fcn-infer|ssd|ssd-detect|word2vec|recommender|traffic|vae|gan-d|gan-g|resnet50|resnet50-infer|resnet18-infer|vgg19|alexnet|googlenet|<those>-infer] [--dropout P] [--remat] [--eager] [--out F]
 
 ``--model lm`` (the default) builds the Transformer-base LM (V=32000,
 T=1024, d=512, 8 heads, 6 layers, d_ff=2048, tied, float32, weights
@@ -69,6 +69,11 @@ their device ms by class from two more eager steps as for seq2seq: cuDNN
 convs, bias + ReLU, the routed conv kernels, the transposed conv, the BN
 kernels and the BN's plain ops, pooling, layout (transpose, reshape,
 concat), loss, metric, decode + NMS, optimizer and other.
+``--model word2vec | recommender | traffic | vae | gan-d | gan-g`` builds
+a book or demo family at its ``build()`` defaults with its optimizer and
+batch (``tools/families.py``; gan-d and gan-g are GAN's D and G programs,
+each on its own scope), weights from the port's startup program on the
+CPU (seed 0), float32, warmed.
 ``--model resnet50``
 builds ResNet-50 as ``bench.py``
 trains it (``models.resnet.build``, 1000 classes, Momentum(0.1, 0.9),
@@ -1216,15 +1221,19 @@ def _eager_classes(model, exe, main, scope, feed, fetch, steps=2) -> tuple:
 
 # the FCN and SSD train and inference steps
 DETECT = ("fcn", "fcn-infer", "ssd", "ssd-detect")
+# the book and demo families' train steps (tools/families.py); gan-d and
+# gan-g are GAN's two programs, each on its own scope
+FAMILIES = ("word2vec", "recommender", "traffic", "vae", "gan-d", "gan-g")
 # the models whose profiled steps are replays of a warmed signature
 WARMED = ("lm", "text_lstm", "seq2seq", "seq2seq-beam", "srl", "srl-decode",
-          "hier_text", "hier_text-infer", "ocr_ctc", "ocr_ctc-decode") + DETECT
+          "hier_text", "hier_text-infer", "ocr_ctc", "ocr_ctc-decode") + DETECT \
+    + FAMILIES
 SEQ2SEQ = ("seq2seq", "seq2seq-beam")
 SRL = ("srl", "srl-decode")
 HIER = ("hier_text", "hier_text-infer")
 OCR = ("ocr_ctc", "ocr_ctc-decode")
 # the models with only a float32 arm
-FLOAT32_ONLY = ("text_lstm",) + SEQ2SEQ + SRL + HIER + OCR
+FLOAT32_ONLY = ("text_lstm",) + SEQ2SEQ + SRL + HIER + OCR + FAMILIES
 
 
 def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
@@ -1289,6 +1298,21 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
             fetch = list(fetch) if infer else [fetch[0]]
         return (fetch, main, startup, startup_params(main, startup),
                 on_card(feed), n, "images")
+    if model in FAMILIES:
+        from .families import FAMILY_BATCH, build_family, family_batch
+
+        name = model.split("-")[0]
+        if name == "gan":
+            spec, side = build_family(name), model[-1]
+            loss, main, startup = (spec[f"{side}_loss"],
+                                   spec[f"{side}_program"],
+                                   spec[f"{side}_startup"])
+            feed = family_batch(name, 0)[side]
+        else:
+            (loss, main, startup), feed = (build_family(name),
+                                           family_batch(name, 0))
+        return ([loss], main, startup, startup_params(main, startup), feed,
+                FAMILY_BATCH[name], "examples")
     if model in IMAGE_MODELS or model in IMAGE_INFER:
         infer = model in IMAGE_INFER
         name = IMAGE_INFER.get(model, model)
@@ -1309,7 +1333,7 @@ def _recipe(model: str, amp: bool = True, dropout: float = 0.0,
     raise ValueError(f"unknown model {model!r}: lm | text_lstm | seq2seq | "
                      f"seq2seq-beam | srl | srl-decode | hier_text | "
                      f"hier_text-infer | ocr_ctc | ocr_ctc-decode | "
-                     f"{' | '.join(DETECT)} | "
+                     f"{' | '.join(DETECT)} | {' | '.join(FAMILIES)} | "
                      f"resnet50 | {' | '.join(INFER_DEPTH)} | "
                      f"{' | '.join(IMAGE_MODELS)} | "
                      f"{' | '.join(IMAGE_INFER)}")
@@ -1452,7 +1476,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="lm",
                     choices=("lm", "text_lstm", *SEQ2SEQ, *SRL, *HIER,
-                             *OCR, *DETECT, "resnet50", *INFER_DEPTH,
+                             *OCR, *DETECT, *FAMILIES, "resnet50",
+                             *INFER_DEPTH,
                              *IMAGE_MODELS, *IMAGE_INFER),
                     help="the training step to profile (lm: both arms, "
                          "float32 then amp; resnet50: both arms, amp then "
@@ -1462,7 +1487,9 @@ def main(argv=None) -> int:
                          "inference step (resnet50-infer: both arms; "
                          "resnet18-infer: amp), or the VGG-19, AlexNet, "
                          "GoogLeNet, FCN or SSD train or inference step "
-                         "(both arms, amp then float32)")
+                         "(both arms, amp then float32), or a book or "
+                         "demo family's train step (gan-d, gan-g: GAN's "
+                         "D and G programs)")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="lm: build_lm's dropout (with Transformer-base's "
                          "optimizer, resumed at the peak of warm-up)")

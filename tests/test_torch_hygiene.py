@@ -42,6 +42,13 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.layers.detection\n"
         "import paddle_tpu_torch.resilience.faults\n"
         "import paddle_tpu_torch.serving.prefix\n"
+        "import paddle_tpu_torch.ops.random\n"
+        "import paddle_tpu_torch.datasets.imikolov\n"
+        "import paddle_tpu_torch.datasets.movielens\n"
+        "import paddle_tpu_torch.models.word2vec\n"
+        "import paddle_tpu_torch.models.recommender\n"
+        "import paddle_tpu_torch.models.traffic\n"
+        "import paddle_tpu_torch.models.gan, paddle_tpu_torch.models.vae\n"
         "from paddle_tpu_torch.ops import decode_attention, cache_set\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
@@ -221,6 +228,77 @@ def test_new_models_default_to_cuda(model):
                  "ssd": ("ssd", "ssd-detect")}.get(model, ()):
         with pytest.raises(RuntimeError, match="CUDA"):
             tp.profile(name)
+
+
+@pytest.mark.parametrize("model", ["word2vec", "recommender", "traffic",
+                                   "gan", "vae"])
+def test_book_families_default_to_cuda(model):
+    """The book and demo families run where the other programs do:
+    ``Executor()`` and ``load_scope`` take the card unless told otherwise
+    and raise without one, and a random op of a step (the VAE's noise)
+    draws on the step's device; the CPU runs them when asked.  Their
+    sources name neither JAX nor the JAX package."""
+    import paddle_tpu_torch as fluid
+
+    for rel in (f"models/{model}.py", "ops/random.py",
+                "datasets/imikolov.py", "datasets/movielens.py"):
+        src = (PKG / rel).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|paddle_tpu)\b(?!_)",
+                             src, re.M), rel
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        if model == "word2vec":
+            ws = [L.data(f"w{i}", [1], dtype="int32") for i in range(5)]
+            loss = fluid.models.word2vec.build(ws[:4], ws[4], 20, 4, 8)[0]
+            feed = {f"w{i}": np.full((2, 1), i, np.int32) for i in range(5)}
+        elif model == "recommender":
+            ids = [L.data(n, [1], dtype="int32") for n in
+                   ("uid", "gender", "age", "job", "mid", "category")]
+            rating = L.data("rating", [1])
+            loss = fluid.models.recommender.build(*ids, rating, emb_dim=4,
+                                                  fc_size=8)[0]
+            feed = {v.name: np.ones((2, 1), np.int32) for v in ids}
+            feed["rating"] = np.full((2, 1), 3.0, np.float32)
+        elif model == "traffic":
+            enc = L.data("enc", [6])
+            lab = L.data("lab", [3], dtype="int32")
+            loss = fluid.models.traffic.build(enc, lab, term_num=6,
+                                              forecasting_num=3)[0]
+            feed = {"enc": np.ones((2, 6), np.float32),
+                    "lab": np.ones((2, 3), np.int32)}
+        elif model == "gan":
+            spec = fluid.models.gan.build(img_dim=8, z_dim=4, hidden=8)
+            main, startup = spec["g_program"], spec["g_startup"]
+            loss = spec["g_loss"]
+            feed = {"z": np.ones((2, 4), np.float32)}
+        else:
+            x = L.data("x", [8])
+            loss = fluid.models.vae.build(x, img_dim=8, hidden=8,
+                                          latent=2)[0]
+            feed = {"x": np.full((2, 8), 0.5, np.float32)}
+        if model != "gan":
+            fluid.optimizer.Adam(1e-3).minimize(loss)
+    if torch.cuda.is_available():
+        assert fluid.Executor().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.Executor()
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    weights = {p.name: scope.find_var(p.name).numpy()
+               for p in main.parameters()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.load_scope(weights, main, fluid.Scope())
+    fluid.load_scope(weights, main, scope, device="cpu")
+    out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert np.isfinite(out)
+    assert {t.device.type for _, t in scope.items()} == {"cpu"}
+    from paddle_tpu_torch.tools import train_profile as tp
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp.profile("gan-d" if model == "gan" else model)
 
 
 def test_kernel_library_is_keyed_by_source():

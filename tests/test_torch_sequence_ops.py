@@ -44,14 +44,17 @@ def _build(fl, build, feeds):
     return outs, prog.list_ops(), prog.parameters()
 
 
-def run_both(build, feeds, seed=0, param_scale=0.5, params=None):
+def run_both(build, feeds, seed=0, param_scale=0.5, params=None,
+             step_key=None):
     """``build(fl, vars) -> Variable or list`` built in both packages and
     run op by op on ``feeds`` (numpy arrays by name) and on parameters
     drawn N(0, param_scale^2) by name from ``seed`` (or given in
     ``params``).  Returns (JAX outputs, port outputs, JAX gradients, port
     gradients, names of the gradients): the gradients are of the sum of
     every float output times a N(0, 1) cotangent, with respect to every
-    float feed and every parameter."""
+    float feed and every parameter.  ``step_key=(program seed, step)``
+    gives both packages the Executor's keys of that step, so that random
+    ops draw alike (by default JAX's ops draw from ``PRNGKey(0)``)."""
     jouts, jops, jparams = _build(jfluid, build, feeds)
     touts, tops, tparams = _build(tfluid, build, feeds)
     assert [p.name for p in tparams] == [p.name for p in jparams]
@@ -67,7 +70,10 @@ def run_both(build, feeds, seed=0, param_scale=0.5, params=None):
     def jax_fn(*vals):
         env = {n: jnp.asarray(a) for n, a in arrays.items()}
         env.update(zip(diff, vals))
-        ctx = JaxOpContext(jax.random.PRNGKey(0))
+        ctx = JaxOpContext(
+            jax.random.PRNGKey(0) if step_key is None else
+            jax.random.fold_in(jax.random.key(step_key[0]),
+                               np.uint32(step_key[1])))
         for op in jops:
             op.apply(env, ctx)
         return tuple(env[o.name] for o in jouts)
@@ -75,7 +81,8 @@ def run_both(build, feeds, seed=0, param_scale=0.5, params=None):
     def torch_fn(*vals):
         env = {n: torch.from_numpy(np.array(a)) for n, a in arrays.items()}
         env.update(zip(diff, vals))
-        ctx = TorchOpContext(device="cpu")
+        ctx = (TorchOpContext(device="cpu") if step_key is None else
+               TorchOpContext(step_key[0], step_key[1], "cpu"))
         for op in tops:
             op.apply(env, ctx)
         return tuple(env[o.name] for o in touts)
@@ -109,10 +116,12 @@ def run_both(build, feeds, seed=0, param_scale=0.5, params=None):
     if floats and diff:
         total = sum((touts_v[i] * torch.from_numpy(c)).sum()
                     for i, c in zip(floats, cots))
+        # outputs that no float input reaches (a metric's counts) have
+        # zero gradients, as jax.vjp gives them
+        grads = (torch.autograd.grad(total, tvals, allow_unused=True)
+                 if total.requires_grad else [None] * len(tvals))
         tgrads = [g.numpy() if g is not None else np.zeros_like(arrays[n])
-                  for g, n in zip(torch.autograd.grad(total, tvals,
-                                                      allow_unused=True),
-                                  diff)]
+                  for g, n in zip(grads, diff)]
     return want, got, jgrads, tgrads, diff
 
 
