@@ -356,10 +356,17 @@ Phases (any failure exits non-zero, before the final line):
                matched;
  20. layers  - every case of tools/layer_cases.py (the 14 activations
                that take attributes and prelu, the 21 new tensor layers,
-               the 30 new nn layers) on the card against the CPU from the
+               the 30 new nn layers, the 16 misc layers and the Variable
+               operator sugar: a scalar / and -, [] out of range) on the
+               card against the CPU from the
                same inputs, weights and cotangent: values within 1e-5 of
                the CPU's max abs, gradients within 1e-4 of theirs, integer
-               outputs equal but at a printed tie; the random transforms
+               outputs equal but at a printed tie; the four streaming
+               evaluators (Accuracy, PrecisionRecall, ChunkEvaluator,
+               CTCError) over 8 batches through a warmed step, each
+               replay's accumulators bitwise an unwarmed eager step's and
+               the CPU's, reset() after the fourth copied in by the next
+               replay; the random transforms
                (ops/random.py) drawn on the card from a staged step word
                and on the CPU at the same (seed, step, tag): uniform
                (float32, float16, bfloat16), randint and split bitwise,
@@ -382,7 +389,32 @@ Phases (any failure exits non-zero, before the final line):
                finite and falling); gan's D and G warmed on one scope, 3
                alternations bitwise eager ones, the bytes each alternation
                copies between the two signatures' buffers, then 60 timed
-               alternations on new batches (D's loss falling).
+               alternations on new batches (D's loss falling);
+ 22. ctr     - wide_deep and deepfm at models/ctr.py's defaults (all 26
+               FIELD_VOCABS, emb 8, hidden (64, 32), batch 256 of
+               datasets.ctr's synthetic clicks, Adam(5e-3), float32, TF32
+               off, weights from the port's startup program on the CPU,
+               seed 0): each train step warmed, a replay bitwise against an
+               unwarmed eager step and grouped updates bitwise per-op, the
+               replay against the CPU's step (loss rtol 1e-4, each gradient
+               within 1e-3 of its max abs); is_sparse=True against False
+               from the same weights and batch (the loss and every
+               gradient bitwise); 5 replays timed beside 3 eager steps;
+ 23. sparse  - benchmark/ctr_sparse.py's A/B at its settings
+               (tools/ctr_sparse.py): the fused [185971, 9] table, hidden
+               (64, 32), Adagrad(0.05), batch 256 x 26 zipf(1.3) ids, the
+               warm-up batches (one per rung), then 100 stream batches
+               through SparseEmbeddingTrainer.train over a SparseFeeder,
+               the guard on "raise"; the dense-apply arm (the whole table
+               the leaf, the full-table Adagrad) on the same sequence:
+               every loss bitwise equal, at the end every touched row and
+               slot bitwise equal and every untouched row bitwise its
+               initial value; captures = distinct rungs;
+               count_dense_materializations 0 for the sparse step and > 0
+               for the dense arm's; the first 10 losses card against CPU
+               (rtol 1e-4); ms per step of each arm, examples/s, the mean
+               bucket and n_unique, V / mean bucket, the producer's dedup
+               ms and the consumer's stall ms per batch, peak memory.
 Each phase prints its seconds.  The line before the card line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -714,6 +746,13 @@ RANDOM_DRAWS = 1 << 20
 # the families phase: GAN's D/G alternations on new batches after the
 # bitwise checks (tests/test_models.py:285 trains 60)
 GAN_ALTERNATIONS = 60
+# the layers phase's evaluators: EV_BATCHES batches through the warmed
+# step, reset() after batch EV_RESET_AT
+EV_BATCHES, EV_RESET_AT = 8, 3
+# the sparse phase: the first SPARSE_CPU_STEPS losses card against CPU
+# within SPARSE_LOSS_RTOL
+SPARSE_CPU_STEPS = 10
+SPARSE_LOSS_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -5765,6 +5804,62 @@ def _sampling_histogram(card: str) -> dict:
     return {"max_sigma": float(z.max()), "chi2": chi2}
 
 
+def _evaluators_warmed(card: str) -> dict:
+    """The four streaming evaluators (tools/layer_cases.py's
+    evaluator_program) over EV_BATCHES batches: warmed on the card (every
+    run a replay), eager on the card by an Executor that did not warm, and
+    on the CPU; after each batch every accumulator bitwise equal across
+    the three (integer counts in float32), reset() after batch
+    EV_RESET_AT zeroing them and the next replay copying the zeros in."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.layer_cases import (evaluator_batch,
+                                                    evaluator_program)
+    from paddle_tpu_torch.tools.train_profile import feed_sig
+
+    rng = np.random.RandomState(11)
+    batches = [evaluator_batch(rng, 64) for _ in range(EV_BATCHES)]
+    runs, evals = {}, {}
+    for arm in ("warmed", "eager", "cpu"):
+        main, startup, evs, fetch = evaluator_program(fluid)
+        exe = (fluid.Executor(fluid.CPUPlace()) if arm == "cpu"
+               else fluid.Executor())
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if arm == "warmed":
+            how = exe.warm(main, feed_sig(batches[0]), fetch, scope=scope)
+            check(how == "compiled", f"evaluators: warm gave {how!r}")
+        states = []
+        for i, b in enumerate(batches):
+            exe.run(main, feed=b, fetch_list=fetch, scope=scope)
+            states.append([scope.find_var(v.name).cpu().clone()
+                           for e in evs for v in e._states])
+            if i == EV_RESET_AT:
+                for e in evs:
+                    e.reset(exe, scope)
+                check(all(not scope.find_var(v.name).any()
+                          for e in evs for v in e._states),
+                      f"evaluators {arm}: reset() left a count")
+        check(exe.replays == (EV_BATCHES if arm == "warmed" else 0),
+              f"evaluators {arm}: {exe.replays} replays")
+        runs[arm] = states
+        evals[arm] = [e.eval(exe, scope) for e in evs]
+    for arm in ("eager", "cpu"):
+        for i, (a, b) in enumerate(zip(runs["warmed"], runs[arm])):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"evaluators: the warmed replay of batch {i} differs from "
+                  f"the {arm} run's accumulators")
+    after = runs["warmed"][EV_RESET_AT + 1][1]
+    check(float(after[0]) == len(batches[0]["p"]),
+          f"evaluators: the replay after reset() counts {float(after[0])}")
+    print(f"evaluators (Accuracy k=2, PrecisionRecall, ChunkEvaluator, "
+          f"CTCError) over {EV_BATCHES} batches of 64: every warmed "
+          f"replay's accumulators bitwise equal to an unwarmed eager "
+          f"step's and to the CPU's; reset() after batch {EV_RESET_AT + 1} "
+          f"copied in by the next replay; eval() at the end "
+          f"{evals['warmed']}; on {card}")
+    return {"evaluators": evals["warmed"]}
+
+
 def phase_layers(card: str) -> dict:
     """Every case of tools/layer_cases.py (the 14 attribute activations
     and prelu, the 21 new tensor layers and the 30 new nn layers, with
@@ -5789,6 +5884,7 @@ def phase_layers(card: str) -> dict:
           + f"; on {card}")
     rec = {"cases": len(CASES), "worst_value": worst_v,
            "worst_grad": worst_g, "ties": ties}
+    rec.update(_evaluators_warmed(card))
     rec.update(_random_draws(card))
     rec.update(_sampling_histogram(card))
     return rec
@@ -6049,6 +6145,233 @@ def phase_families(card: str) -> dict:
     return out
 
 
+def _ctr_sparse_against_dense(name: str, params: dict, feed: dict,
+                              card: str) -> None:
+    """``name`` built with is_sparse=True and with False, one eager step
+    on the card each from the same weights (the dense build's, by name) and
+    batch: the loss and every gradient bitwise equal (no padding id, so
+    both paths gather and add the same values)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.families import build_family
+    from paddle_tpu_torch.tools.train_profile import train_scope
+
+    outs = []
+    for sparse in (False, True):
+        fluid.reset_default_programs()
+        loss, main, startup = build_family(name, is_sparse=sparse)
+        names = [p.name for p in main.parameters()]
+        check(sorted(names) == sorted(params),
+              f"{name} is_sparse={sparse}: parameters {names[:3]}...")
+        exe = fluid.Executor()
+        scope = train_scope(exe, startup, main, params)
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss] + [
+            f"{n}@GRAD" for n in sorted(params)], scope=scope))
+    bad = [n for n, a, b in zip(["loss"] + sorted(params), *outs)
+           if a.tobytes() != b.tobytes()]
+    print(f"{name} is_sparse=True against False on the card, one eager "
+          f"step from the same weights and batch: the loss and "
+          f"{len(params)} gradients, {len(bad)} differ"
+          + (f" ({bad[:4]})" if bad else " (bitwise equal)"))
+    check(not bad, f"{name}: is_sparse=True differs from the dense path: "
+                   f"{bad[:4]}")
+
+
+def phase_ctr(card: str) -> dict:
+    """wide_deep and deepfm at models/ctr.py's defaults (tools/families.py,
+    float32, TF32 off, weights from the port's startup program on the CPU,
+    seed 0): the train step warmed, a replay bitwise against an unwarmed
+    eager step and grouped against per-op, the replay against the CPU's
+    step (loss rtol 1e-4, each gradient within 1e-3 of its max abs);
+    is_sparse=True against False bitwise; then 5 replays beside 3 eager
+    steps."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.families import (CTR_MODELS, FAMILY_BATCH,
+                                                 build_family, family_batch)
+    from paddle_tpu_torch.tools.train_profile import startup_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name in CTR_MODELS:
+        fluid.reset_default_programs()
+        loss, main, startup = build_family(name)
+        params = startup_params(main, startup, 0)
+        feed = family_batch(name, 0)
+        _, t_warm, exe, scope = _family_parity(
+            f"{name} train", loss, main, startup, params, feed, list(params),
+            card)
+        del scope
+        _release()
+        out[name] = _family_timed(f"{name} train", exe, loss, main, startup,
+                                  params, feed, FAMILY_BATCH[name], card,
+                                  falling=True)
+        out[name]["parity_warm_s"] = t_warm
+        del exe
+        _release()
+        _ctr_sparse_against_dense(name, params, feed, card)
+        _release()
+    return out
+
+
+def phase_sparse(card: str) -> dict:
+    """benchmark/ctr_sparse.py's A/B at its settings (tools/ctr_sparse.py):
+    the sparse arm (SparseEmbeddingTrainer.train over a SparseFeeder, the
+    guard on "raise") and the dense-apply arm on the warm-up batches and
+    the 100-batch stream; every loss bitwise, the touched rows and slots
+    bitwise and the untouched rows their initial values at the end,
+    captures = rungs, the materialization probe 0 and > 0, the first
+    SPARSE_CPU_STEPS losses against the CPU's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.datasets import ctr as ctr_data
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.sparse import count_dense_materializations
+    from paddle_tpu_torch.tools import ctr_sparse as cs
+
+    vocabs = list(ctr_data.FIELD_VOCABS)
+    F, dense_dim, cap = len(vocabs), ctr_data.NUM_DENSE, cs.BATCH * len(vocabs)
+    t0 = time.perf_counter()
+    stream = cs.stream(vocabs, dense_dim)
+    probe = ctr.wide_deep_sparse_table(vocabs, cs.EMB_DIM, seed=cs.TABLE_SEED,
+                                       max_ids_per_batch=cap, device="cpu")
+    V, D = probe.vocab, probe.dim
+    dbs = [probe.dedup(f["sparse"]) for f in stream]
+    rungs = sorted({d.bucket for d in dbs})
+    warm = cs.warm_batches(probe, stream, vocabs, dense_dim)
+    seq = warm + stream
+    params = ctr.wide_deep_sparse_params(vocabs, cs.EMB_DIM, dense_dim,
+                                         cs.HIDDEN, seed=cs.PARAM_SEED)
+    setup_s = time.perf_counter() - t0
+
+    def new_trainer(device=None):
+        table = ctr.wide_deep_sparse_table(
+            vocabs, cs.EMB_DIM, seed=cs.TABLE_SEED, max_ids_per_batch=cap,
+            device=device)
+        return fluid.SparseEmbeddingTrainer(
+            table, cs.loss_fn(F), params, fluid.optimizer.Adagrad(cs.LR),
+            recompile_policy="raise")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer = new_trainer()
+    init = trainer.table.value.clone()
+    t0 = time.perf_counter()
+    warm_losses = trainer.train(lambda: iter(warm))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(trainer.traces == len(rungs),
+          f"sparse: {trainer.traces} captures over the warm-up, rungs "
+          f"{rungs}")
+    t0 = time.perf_counter()
+    stream_losses = trainer.train(lambda: iter(stream))
+    torch.cuda.synchronize()
+    sparse_s = time.perf_counter() - t0
+    sparse_peak = torch.cuda.max_memory_allocated() - base
+    check(trainer.traces == len(rungs),
+          f"sparse: {trainer.traces - len(rungs)} captures in the stream")
+    dedup_ms = list(trainer.feeder.dedup_ms)
+    stall_ms = list(trainer.feeder.stall_ms)[:-1]   # the end's wait left out
+    losses = warm_losses + stream_losses
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dense = cs.DenseArm(vocabs, cs.EMB_DIM, params,
+                        fluid.optimizer.Adagrad(cs.LR), cs.TABLE_SEED,
+                        "cuda", max_ids_per_batch=cap)
+    dlosses, dense_ms = [], []
+    for f in seq:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss = dense.step(f)
+        e1.record()
+        torch.cuda.synchronize()
+        dense_ms.append(e0.elapsed_time(e1))
+        dlosses.append(float(loss))
+    dense_peak = torch.cuda.max_memory_allocated() - base
+    differ = [i for i, (a, b) in enumerate(zip(losses, dlosses)) if a != b]
+    touched = np.unique(np.concatenate(
+        [probe.global_ids(f["sparse"]).reshape(-1) for f in seq]))
+    untouched = torch.from_numpy(np.setdiff1d(np.arange(V), touched)).cuda()
+    tt = torch.from_numpy(touched).cuda()
+    rows_eq = torch.equal(trainer.table.value[tt], dense.value[tt])
+    slot_eq = torch.equal(trainer.slots["moment"][tt],
+                          dense.slots["moment"][tt])
+    frozen = torch.equal(trainer.table.value[untouched], init[untouched])
+    towers = [k for k in params
+              if not torch.equal(trainer.params[k], dense.params[k])]
+    print(f"sparse vs dense arm on the card over {len(seq)} steps "
+          f"({len(warm)} warm-up, {len(stream)} stream): losses differing "
+          f"{len(differ)} (first at {differ[:1]}); touched rows "
+          f"{len(touched)} of {V}: rows bitwise {rows_eq}, Adagrad slots "
+          f"bitwise {slot_eq}; untouched rows at their initial values "
+          f"{frozen}; tower parameters differing {towers}")
+    check(not differ, f"sparse: {len(differ)} losses differ from the dense "
+                      f"arm's, first at step {differ[:1]}: "
+                      f"{[(losses[i], dlosses[i]) for i in differ[:3]]}")
+    check(rows_eq and slot_eq and frozen and not towers,
+          "sparse: the trained state differs from the dense arm's")
+
+    # the materialization probe: one step each, on state that may change
+    db = probe.dedup(stream[0]["sparse"])
+    batch = {"dense": torch.from_numpy(stream[0]["dense"]).cuda(),
+             "label": torch.from_numpy(stream[0]["label"]).cuda(),
+             "sparse__inv": torch.from_numpy(db.inv).cuda(),
+             "sparse__mask": torch.from_numpy(db.mask).cuda()}
+    lr = torch.tensor(cs.LR, device="cuda")
+    one = torch.tensor(1.0, device="cuda")
+    n_sparse = count_dense_materializations(
+        trainer.step_body, (V, D), torch.from_numpy(db.uids).cuda(), lr,
+        one, batch)
+    gids, dbatch = dense.batch(stream[0])
+    n_dense = count_dense_materializations(dense.step_body, (V, D), gids,
+                                           dbatch, lr, one)
+    check(n_sparse == 0 and n_dense > 0,
+          f"sparse: fresh [V, D] tensors {n_sparse} in the sparse step, "
+          f"{n_dense} in the dense arm's")
+
+    cpu = new_trainer("cpu")
+    cpu_losses = cpu.train(lambda: iter(seq[:SPARSE_CPU_STEPS]))
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses[:SPARSE_CPU_STEPS], cpu_losses))
+    check(rel <= SPARSE_LOSS_RTOL,
+          f"sparse: the first {SPARSE_CPU_STEPS} losses card against CPU "
+          f"differ by {rel} relative (limit {SPARSE_LOSS_RTOL})")
+
+    nuniq = float(np.mean([d.n_unique for d in dbs]))
+    mean_bucket = float(np.mean([d.bucket for d in dbs]))
+    sparse_ms = sparse_s / len(stream) * 1e3
+    d_med = float(np.median(dense_ms[len(warm):]))
+    print(f"sparse arm: {len(stream)} stream steps of {cs.BATCH} x {F} "
+          f"ids in {sparse_s:.4f} s = {sparse_ms:.4f} ms a step (host wall, "
+          f"the feeder's producer overlapped) = "
+          f"{cs.BATCH / sparse_ms * 1e3:.0f} examples/s; warm-up "
+          f"{len(warm)} steps ({len(rungs)} captures, rungs {rungs}) in "
+          f"{warm_s:.3f} s; dense arm: median {d_med:.4f} ms a step "
+          f"(CUDA events, eager, the feed's upload included) = "
+          f"{cs.BATCH / d_med * 1e3:.0f} examples/s "
+          f"({d_med / sparse_ms:.2f} x the sparse arm's); mean n_unique "
+          f"{nuniq:.1f}, mean bucket {mean_bucket:.1f}, V / mean bucket "
+          f"{V / mean_bucket:.1f}; dedup on the producer thread "
+          f"{np.mean(dedup_ms):.4f} ms a batch (max {max(dedup_ms):.4f}), "
+          f"the consumer's stall {np.mean(stall_ms):.4f} ms a batch (max "
+          f"{max(stall_ms):.4f}); peak memory above the arm's start "
+          f"(the sparse arm's graph pool and table kept through the dense "
+          f"arm) sparse {sparse_peak / 2 ** 20:.1f} MiB, dense "
+          f"{dense_peak / 2 ** 20:.1f} MiB allocated; materialization "
+          f"probe {n_sparse} sparse, {n_dense} dense; the first "
+          f"{SPARSE_CPU_STEPS} losses within {rel:.3e} of the CPU's; "
+          f"losses {losses[0]:.6f} -> {losses[-1]:.6f}; setup "
+          f"{setup_s:.2f} s; on {card}")
+    return {"sparse_ms": sparse_ms, "dense_ms": d_med, "rungs": rungs,
+            "mean_bucket": mean_bucket, "mean_unique": nuniq,
+            "bytes_ratio": V / mean_bucket,
+            "dedup_ms": float(np.mean(dedup_ms)),
+            "stall_ms": float(np.mean(stall_ms)),
+            "sparse_peak": sparse_peak, "dense_peak": dense_peak,
+            "cpu_rel": rel}
+
+
 def _timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6109,6 +6432,10 @@ def main() -> int:
     _timed("layers", phase_layers, card)
     _release()
     _timed("families", phase_families, card)
+    _release()
+    _timed("ctr", phase_ctr, card)
+    _release()
+    _timed("sparse", phase_sparse, card)
     _release()
     probe_end = paged_probe()
     print(f"C.2 probe: paged_attention float32 W=1 device "

@@ -60,15 +60,26 @@ These paths run here (seq2seq among them, ``models.seq2seq``):
   kernels; with ``conv3d``, ``pool3d``, ``pool_with_index``, ``unpool``
   and ``spp``.
 
+* the CTR models (``models.ctr``: wide&deep and DeepFM as programs, on
+  ``datasets.ctr``'s synthetic clicks; ``layers.embedding(is_sparse=True)``
+  through the sparse engine's lookup) and the sparse embedding engine
+  (``sparse``: fused tables with host dedup to a bucket ladder, the
+  row-touched optimizer apply, ``SparseFeeder``), trained by
+  ``SparseEmbeddingTrainer``, one CUDA graph per bucket rung; with the
+  Variable operator sugar, ``layers.misc`` and the evaluators.
+
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``CPUPlace()``, ``device="cpu"``); with no card and no device given they
 raise.  The package imports torch and numpy, never jax and nothing of
 ``paddle_tpu``.
 """
-from . import (amp, backward, clip, datasets, evaluator, hooks, initializer,
-               layers, learning_rate_decay, models, nets, optimizer,
-               regularizer)
+from . import (amp, backward, clip, compile, data_feeder, datasets,
+               evaluator, events, hooks, initializer, layers,
+               learning_rate_decay, models, nets, optimizer, regularizer,
+               sparse, trainer)
 from ._device import card_info, resolve_device
+from .data_feeder import DataFeeder, DeviceFeeder
+from .trainer import SparseEmbeddingTrainer
 from .core import (CPUPlace, Executor, Place, Program, Scope,
                    Variable, default_main_program, default_startup_program,
                    global_scope, program_guard, reset_default_programs,
@@ -83,8 +94,10 @@ from .serving import (AdmissionShed, ContinuousDecodeEngine,
                       root_for_kv_dtype)
 
 __all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
-           "ContinuousScheduler", "Deadline", "DeadlineExceeded",
-           "DecodeAdmissionQueue", "DecodeEngine", "DecodeRequest",
+           "ContinuousScheduler", "DataFeeder", "Deadline",
+           "DeadlineExceeded", "DecodeAdmissionQueue", "DecodeEngine",
+           "DecodeRequest", "DeviceFeeder", "SparseEmbeddingTrainer",
+           "compile", "data_feeder", "events", "sparse", "trainer",
            "Executor", "GenerationMigrated", "PagedKVPool", "ParamAttr",
            "Place", "PrefixCache", "Program", "SamplingParams", "Scope",
            "TransformerLM", "Variable", "chain_hashes", "root_for_kv_dtype",

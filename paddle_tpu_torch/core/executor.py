@@ -529,12 +529,18 @@ def _grouped(ops: Sequence[Op]) -> list:
 
 def check_capturable(program: Program) -> None:
     """Raise ``WarmError`` if an op of ``program`` (sub-blocks included)
-    reads its predicate on the host every run: a ``cond`` op, or a
-    ``while_loop`` without ``max_trip_count``.  A CUDA graph replays one
+    reads a device value on the host every run: a ``Print`` op, a ``cond``
+    op, or a ``while_loop`` without ``max_trip_count``.  A CUDA graph replays one
     fixed path, so such a step cannot be captured; ``run()`` runs it
     eagerly.  ``while_loop(max_trip_count=N)`` and ``IfElse`` compute
     both ways on the device and capture."""
     for _, op in program.all_ops():
+        if op.type == "print":
+            raise WarmError(
+                f"warm: the program holds a Print op (outputs "
+                f"{op.output_names()[:2]}), which reads its values on the "
+                f"host every run, and a CUDA graph cannot call the host; "
+                f"run() runs such a program eagerly")
         if op.type == "cond" or (op.type == "while_loop"
                                  and op.attrs.get("max_trip_count") is None):
             what = ("a cond op" if op.type == "cond"

@@ -59,6 +59,51 @@ class Variable:
         return (f"Variable(name={self.name!r}, shape={self.shape}, "
                 f"dtype={self.dtype})")
 
+    # ---- operator sugar; the layers are installed by paddle_tpu_torch.layers
+    # at import (layers/__init__.py), each operator the reference's layer
+    _math_hook: Dict[str, Callable] = {}
+
+    def _apply_math(self, opname, *args):
+        fn = Variable._math_hook.get(opname)
+        if fn is None:
+            raise TypeError(
+                f"Operator {opname} on Variable requires "
+                f"paddle_tpu_torch.layers to be imported")
+        return fn(self, *args)
+
+    def __add__(self, other):
+        return self._apply_math("add", other)
+
+    def __radd__(self, other):
+        return self._apply_math("add", other)
+
+    def __sub__(self, other):
+        return self._apply_math("sub", other)
+
+    def __rsub__(self, other):
+        return self._apply_math("rsub", other)
+
+    def __mul__(self, other):
+        return self._apply_math("mul", other)
+
+    def __rmul__(self, other):
+        return self._apply_math("mul", other)
+
+    def __truediv__(self, other):
+        return self._apply_math("div", other)
+
+    def __rtruediv__(self, other):
+        return self._apply_math("rdiv", other)
+
+    def __neg__(self):
+        return self._apply_math("neg")
+
+    def __matmul__(self, other):
+        return self._apply_math("matmul", other)
+
+    def __getitem__(self, item):
+        return self._apply_math("getitem", item)
+
 
 # --------------------------------------------------------------------------- Op
 

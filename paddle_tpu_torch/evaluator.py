@@ -1,10 +1,17 @@
 """Streaming metrics as graph state (PyTorch port of
-``paddle_tpu/evaluator.py``: the ``Evaluator`` base and
-``DetectionMAP``).  The accumulators are persistable variables that ops
+``paddle_tpu/evaluator.py``): the ``Evaluator`` base, ``Accuracy``,
+``ChunkEvaluator``, ``PrecisionRecall``, ``CTCError`` and
+``DetectionMAP``.  The accumulators are persistable variables that ops
 appended to the program update each step, so they ride a warmed step's
-state like parameters do, and only ``eval()`` reads them on the host.
-``Accuracy``, ``ChunkEvaluator``, ``PrecisionRecall`` and ``CTCError`` are
-not ported yet (ROADMAP A.12)."""
+state like parameters do (every replay updates them in place), and only
+``eval()`` reads them on the host.  ``reset()`` puts zeros in the scope
+with ``set_var``; the next replay of a warmed step copies them into its
+buffers.  Counts are integers in float32, exact on any device.
+
+``Accuracy`` ranks the top k as ``lax.top_k`` does (a stable descending
+sort, the lower index first among ties); ``PrecisionRecall`` takes the
+first maximum as the prediction and gives a label outside [0, C) a zero
+one-hot row, as ``jax.nn.one_hot`` does."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,11 +19,13 @@ import torch
 
 from .core import unique_name
 from .core.executor import global_scope
-from .core.program import Op, default_main_program, default_startup_program
+from .core.program import (Op, Variable, default_main_program,
+                           default_startup_program)
 from .layers.detection import _iou_matrix
 from .layers.helper import LayerHelper
 
-__all__ = ["DetectionMAP", "Evaluator"]
+__all__ = ["Accuracy", "CTCError", "ChunkEvaluator", "DetectionMAP",
+           "Evaluator", "PrecisionRecall"]
 
 
 class Evaluator:
@@ -49,6 +58,163 @@ class Evaluator:
             scope.set_var(v.name, torch.zeros(tuple(int(s) for s in v.shape),
                                               dtype=v.dtype,
                                               device=executor.device))
+
+
+def _host(scope, v) -> np.ndarray:
+    return scope.find_var(v.name).detach().cpu().numpy()
+
+
+class Accuracy(Evaluator):
+    """Streaming top-k accuracy (ref: fluid evaluator.py Accuracy;
+    accuracy_op.cc): correct and total counts, and the running rate as the
+    op's output ``metric``."""
+
+    def __init__(self, input: Variable, label: Variable, k: int = 1):
+        super().__init__("accuracy_evaluator")
+        self.correct = self._create_state("correct", (1,), "float32")
+        self.total = self._create_state("total", (1,), "float32")
+        block = default_main_program().global_block
+
+        def fn(ins, attrs, ctx):
+            p, lab = ins["Out"][0], ins["Label"][0]
+            topi = torch.sort(p, dim=-1, descending=True,
+                              stable=True).indices[..., :k]
+            ids = lab.squeeze(-1) if lab.dim() == p.dim() else lab
+            corr = torch.any(topi == ids[..., None].long(), dim=-1).to(
+                torch.float32).sum()
+            new_c = ins["Correct"][0] + corr[None]
+            new_t = ins["Total"][0] + float(p.shape[0])
+            return {"Out": [new_c, new_t, new_c / torch.clamp_min(new_t,
+                                                                  1.0)]}
+
+        out = block.create_var(
+            unique_name.generate("accuracy_evaluator.rate"), (1,), "float32")
+        block.append_op(Op("accuracy_accumulate",
+                           {"Out": [input.name], "Label": [label.name],
+                            "Correct": [self.correct.name],
+                            "Total": [self.total.name]},
+                           {"Out": [self.correct.name, self.total.name,
+                                    out.name]}, {}, fn))
+        self.metric = out
+
+    def eval(self, executor=None, scope=None):
+        scope = scope or global_scope()
+        c, t = _host(scope, self.correct), _host(scope, self.total)
+        return float(c[0] / max(t[0], 1.0))
+
+
+class ChunkEvaluator(Evaluator):
+    """Streaming chunk precision / recall / F1 for IOB sequence tagging
+    (ref: fluid evaluator ChunkEvaluator; gserver ChunkEvaluator.cpp): the
+    (correct, inferred, labelled) chunk counts of ``layers.chunk_eval``
+    summed in graph state; ``batch_counts`` is the batch's own."""
+
+    def __init__(self, pred: Variable, label: Variable, lengths: Variable):
+        super().__init__("chunk_evaluator")
+        from .layers.sequence import chunk_eval
+
+        self.counts = self._create_state("counts", (3,), "float32")
+        batch = chunk_eval(pred, label, lengths)
+        block = default_main_program().global_block
+
+        def fn(ins, attrs, ctx):
+            return {"Out": [ins["Acc"][0] + ins["Batch"][0]]}
+
+        block.append_op(Op("chunk_accumulate",
+                           {"Acc": [self.counts.name], "Batch": [batch.name]},
+                           {"Out": [self.counts.name]}, {}, fn))
+        self.batch_counts = batch
+
+    def eval(self, executor=None, scope=None):
+        scope = scope or global_scope()
+        c = _host(scope, self.counts)
+        correct, inferred, labeled = float(c[0]), float(c[1]), float(c[2])
+        prec = correct / max(inferred, 1.0)
+        rec = correct / max(labeled, 1.0)
+        f1 = 2 * prec * rec / max(prec + rec, 1e-8)
+        return prec, rec, f1
+
+
+class PrecisionRecall(Evaluator):
+    """Streaming macro precision / recall / F1 over classes (ref:
+    paddle/operators/precision_recall_op.cc): per-class tp, fp and fn in a
+    [3, C] state."""
+
+    def __init__(self, input: Variable, label: Variable, num_classes: int):
+        super().__init__("precision_recall_evaluator")
+        self.num_classes = num_classes
+        self.stats = self._create_state("stats", (3, num_classes), "float32")
+        block = default_main_program().global_block
+
+        def fn(ins, attrs, ctx):
+            p, lab, acc = ins["P"][0], ins["Label"][0], ins["Acc"][0]
+            classes = torch.arange(num_classes, device=p.device)
+            pred = torch.argmax(p, dim=-1).reshape(-1)
+            y = lab.reshape(-1).long()
+            oh_p = (pred[:, None] == classes).to(torch.float32)
+            oh_y = (y[:, None] == classes).to(torch.float32)
+            tp = torch.sum(oh_p * oh_y, dim=0)
+            fp = torch.sum(oh_p * (1 - oh_y), dim=0)
+            fn_ = torch.sum((1 - oh_p) * oh_y, dim=0)
+            return {"Out": [acc + torch.stack([tp, fp, fn_])]}
+
+        block.append_op(Op("precision_recall_accumulate",
+                           {"P": [input.name], "Label": [label.name],
+                            "Acc": [self.stats.name]},
+                           {"Out": [self.stats.name]}, {}, fn))
+
+    def eval(self, executor=None, scope=None):
+        scope = scope or global_scope()
+        s = _host(scope, self.stats)
+        tp, fp, fn_ = s[0], s[1], s[2]
+        support = (tp + fn_) > 0
+        if not support.any():
+            return 0.0, 0.0, 0.0
+        prec = np.where(support, tp / np.maximum(tp + fp, 1e-8), 0.0)
+        rec = np.where(support, tp / np.maximum(tp + fn_, 1e-8), 0.0)
+        mp = float(prec[support].mean())
+        mr = float(rec[support].mean())
+        f1 = 2 * mp * mr / max(mp + mr, 1e-8)
+        return mp, mr, f1
+
+
+class CTCError(Evaluator):
+    """Streaming sequence error rate (ref:
+    gserver/evaluators/CTCErrorEvaluator.cpp): the summed edit distance
+    between the best-path decodes (``layers.ctc_greedy_decoder``) and the
+    labels (``layers.edit_distance``), over the summed label length."""
+
+    def __init__(self, input: Variable, label: Variable,
+                 logit_length: Variable, label_length: Variable,
+                 blank: int = 0):
+        super().__init__("ctc_error_evaluator")
+        from .layers.sequence import ctc_greedy_decoder, edit_distance
+
+        self.dist = self._create_state("dist", (1,), "float32")
+        self.ref_len = self._create_state("ref_len", (1,), "float32")
+        hyp, hyp_len = ctc_greedy_decoder(input, logit_length, blank=blank)
+        d = edit_distance(hyp, hyp_len, label, label_length)
+        block = default_main_program().global_block
+
+        def fn(ins, attrs, ctx):
+            new_d = ins["DistAcc"][0] + torch.sum(ins["D"][0])[None]
+            new_r = ins["RefAcc"][0] + torch.sum(
+                ins["RefLen"][0].to(torch.float32))[None]
+            return {"Out": [new_d, new_r]}
+
+        block.append_op(Op("ctc_error_accumulate",
+                           {"D": [d.name], "RefLen": [label_length.name],
+                            "DistAcc": [self.dist.name],
+                            "RefAcc": [self.ref_len.name]},
+                           {"Out": [self.dist.name, self.ref_len.name]}, {},
+                           fn))
+        self.batch_distance = d
+
+    def eval(self, executor=None, scope=None):
+        scope = scope or global_scope()
+        d = float(_host(scope, self.dist)[0])
+        r = float(_host(scope, self.ref_len)[0])
+        return d / max(r, 1.0)
 
 
 class DetectionMAP(Evaluator):

@@ -20,6 +20,7 @@ outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -32,6 +33,10 @@ from ..ops.batch_norm import batch_norm_train
 from ..ops import random as jrandom
 from ..ops.dropout import threefry_dropout
 from .helper import LayerHelper
+
+
+# embedding(is_sparse=True) warns once per process that no sharding applies
+_sparse_fallback_warned = False
 
 
 def _pair(v):
@@ -94,21 +99,39 @@ def embedding(
     dtype="float32",
     name: Optional[str] = None,
 ):
-    """Lookup table: the dense gather; rows of ``padding_idx`` read as zeros
-    (and so get no gradient).  ``is_sparse`` routes through the sparse
-    engine in the JAX package, which is not ported yet."""
-    if is_sparse:
-        raise NotImplementedError(
-            "embedding(is_sparse=True) is not ported yet: the sparse engine "
-            "is ROADMAP A.8")
+    """Lookup table: the dense gather; rows of ``padding_idx`` read as zeros.
+
+    ``is_sparse`` routes through the sparse engine's ``sparse_lookup``
+    (``sparse/table.py``): the same gather forward (out-of-range ids
+    clamped, as JAX's clip), and a backward that drops the ``padding_idx``
+    row's cotangent (and out-of-range ids') instead of only masking the
+    output, so the padding row's gradient is exactly zero even under a
+    non-finite cotangent.  Tables are not sharded over a mesh yet (ROADMAP
+    A.9), so, as the reference does for an unsharded table, the first such
+    layer warns once that no sharding applies."""
     helper = LayerHelper("embedding", name=name)
     table = helper.create_parameter(
         param_attr, list(size), dtype, default_initializer=Normal(0.0, 0.02)
     )
+    vocab = int(size[0])
+    if is_sparse:
+        global _sparse_fallback_warned
+        if not _sparse_fallback_warned:
+            _sparse_fallback_warned = True
+            warnings.warn(
+                "embedding(is_sparse=True) on an unsharded table: no mesh "
+                "sharding applies (sharded tables are ROADMAP A.9), so the "
+                "lookup is the dense gather with the sparse engine's "
+                "padding_idx cotangent fix.",
+                stacklevel=2)
 
     def fn(ctx, ids, tab, padding_idx, is_sparse):
         if ids.dim() >= 2 and ids.shape[-1] == 1:
             ids = ids.squeeze(-1)
+        if is_sparse:
+            from ..sparse.table import sparse_lookup
+
+            return sparse_lookup(tab, ids, padding_idx, vocab)
         ids = ids.long()
         out = F.embedding(ids, tab)
         if padding_idx is not None:

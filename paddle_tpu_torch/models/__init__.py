@@ -5,9 +5,10 @@ with attention (training and beam generation), semantic role labelling
 (db_lstm with a CRF, trained and Viterbi-decoded), the nested-sequence
 document classifier (hier_text), the OCR line recognizer (ocr_ctc), the
 FCN segmenter (fcn), the SSD detector (ssd), and the book and demo
-models word2vec, recommender, traffic, gan and vae.  Not ported yet
-(ROADMAP A.8): ctr."""
-from . import (alexnet, fcn, gan, googlenet, hier_text, lenet, ocr_ctc,
+models word2vec, recommender, traffic, gan and vae, and the CTR models
+(ctr: wide&deep and DeepFM as programs, and the sparse engine's fused
+wide&deep arm).  All twenty model families of the JAX package."""
+from . import (alexnet, ctr, fcn, gan, googlenet, hier_text, lenet, ocr_ctc,
                recommender, resnet, seq2seq, smallnet, srl, ssd, text_lstm,
                traffic, transformer, vae, vgg, word2vec)
 from .resnet import (init_resnet_params, init_resnet_stats,
@@ -18,7 +19,8 @@ from .transformer import (TransformerLM, build_lm, init_lm_params, lm_forward,
                           lm_param_shapes)
 from .weights import from_jax_params, load_scope
 
-__all__ = ["TransformerLM", "alexnet", "build_lm", "fcn", "from_jax_params",
+__all__ = ["TransformerLM", "alexnet", "build_lm", "ctr", "fcn",
+           "from_jax_params",
            "gan", "googlenet", "hier_text", "init_lm_params", "lenet",
            "ocr_ctc", "recommender", "smallnet", "traffic", "vae", "vgg",
            "word2vec",

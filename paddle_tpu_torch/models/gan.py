@@ -4,8 +4,8 @@ v1_api_demo/gan/gan_conf.py, trained alternately by gan_trainer.py).
 Two Programs share one scope: the parameters are bound by name
 (``ParamAttr``), and each optimizer updates only its side's
 ``parameter_list``, so D's step treats G as a frozen sampler and the other
-way round.  The reference's Variable ``+`` is ``elementwise_add`` here (the
-operator sugar is ROADMAP A.12 part 2), the same op.
+way round.  The losses are written with the Variable ``+``, as the
+reference's are.
 
 Warmed, each program is its own signature with its own static state
 buffers; a replay of one copies in the state the other's replay left in
@@ -59,9 +59,9 @@ def build(img_dim: int = 784, z_dim: int = 100, hidden: int = 256,
                                                     "float32", 1.0)
         zeros = layers.fill_constant_batch_size_like(logit_fake, [1, 1],
                                                      "float32", 0.0)
-        d_loss = layers.mean(layers.elementwise_add(
-            layers.sigmoid_cross_entropy_with_logits(logit_real, ones),
-            layers.sigmoid_cross_entropy_with_logits(logit_fake, zeros)))
+        d_loss = layers.mean(
+            layers.sigmoid_cross_entropy_with_logits(logit_real, ones)
+            + layers.sigmoid_cross_entropy_with_logits(logit_fake, zeros))
         optimizer.Adam(lr, beta1=0.5).minimize(d_loss,
                                                parameter_list=D_PARAMS)
 

@@ -14,7 +14,8 @@ from ..datasets import movielens
 def build(uid, gender, age, job, mid, category, rating,
           emb_dim: int = 32, fc_size: int = 200, is_sparse: bool = False):
     """Each id: [N, 1] int32; rating: [N, 1] float32.  Returns (avg_cost,
-    predict).  ``is_sparse`` needs the sparse engine (ROADMAP A.8)."""
+    predict).  ``is_sparse`` routes every lookup through the sparse
+    engine's ``sparse_lookup`` (``layers.embedding``)."""
     usr_feats = [
         layers.embedding(uid, [movielens.N_USERS, emb_dim],
                          is_sparse=is_sparse),

@@ -3,9 +3,8 @@
 to (mu, logvar), a reparameterised sample, decoder, the ELBO loss.  The
 noise is drawn inside the step: ``jax.random.normal`` of the op's key,
 ``ctx.rng_key(tag)`` (``ops/random.py``), so a warmed step's replay at
-step s draws the eager step's noise at s.  The reference's Variable ``+``
-and ``-`` are ``elementwise_add`` / ``elementwise_sub`` here (the operator
-sugar is ROADMAP A.12 part 2), the same ops."""
+step s draws the eager step's noise at s.  The ELBO is written with the
+Variable ``+`` and ``-``, as the reference's is."""
 from __future__ import annotations
 
 import torch
@@ -46,12 +45,8 @@ def build(x, img_dim: int = 784, hidden: int = 256, latent: int = 32):
     bce = layers.reduce_sum(
         layers.sigmoid_cross_entropy_with_logits(recon_logits, x), dim=1)
     kl = layers.scale(
-        layers.elementwise_sub(
-            layers.reduce_sum(
-                layers.elementwise_sub(
-                    layers.elementwise_add(layers.exp(logvar),
-                                           layers.square(mu)),
-                    logvar), dim=1),
-            float(latent)), scale=0.5)
-    loss = layers.mean(layers.elementwise_add(bce, kl))
+        layers.reduce_sum(
+            layers.exp(logvar) + layers.square(mu) - logvar, dim=1)
+        - float(latent), scale=0.5)
+    loss = layers.mean(bce + kl)
     return loss, recon, mu, logvar

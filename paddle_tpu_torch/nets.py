@@ -12,8 +12,7 @@ the depthwise conv of ``img_separable_conv`` has groups > 1 and stays on
 calls ``ops.flash_attention`` (the flash kernels on the card) when the
 value head width equals the key head width, and the reference's own einsum
 and softmax otherwise.  ``simple_attention`` adds its two projections with
-``layers.elementwise_add``, where the reference writes Variable ``+``,
-which the port does not have."""
+the Variable ``+``, as the reference does (``elementwise_add``)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
@@ -190,7 +189,7 @@ def simple_attention(encoded_sequence, encoded_lengths, decoder_state,
     enc_proj = layers.fc(encoded_sequence, attention_size,
                          num_flatten_dims=2, bias_attr=False)
     expanded = layers.sequence_expand(dec_proj, encoded_lengths, max_len=T)
-    e = layers.fc(layers.tanh(layers.elementwise_add(enc_proj, expanded)), 1,
+    e = layers.fc(layers.tanh(enc_proj + expanded), 1,
                   num_flatten_dims=2, bias_attr=False)
     e = layers.reshape(e, [-1, T])
     w = layers.sequence_softmax(e, encoded_lengths)

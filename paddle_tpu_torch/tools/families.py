@@ -13,7 +13,11 @@ on the card:
   0.5), D and G alternating, the real images two prototypes plus noise in
   tanh's range (``tests/test_models.py:285``'s rule);
 * ``vae``: 784 / 256 / 32, batch 128, Adam(1e-3), the images four binary
-  prototypes (``tests/test_models.py:268``'s rule).
+  prototypes (``tests/test_models.py:268``'s rule);
+* ``wide_deep`` and ``deepfm`` (``models.ctr`` at its defaults): all 26
+  ``FIELD_VOCABS`` (185,971 rows a table set), emb 8, hidden (64, 32),
+  batch 256 of ``datasets.ctr``'s synthetic clicks, Adam(5e-3);
+  ``is_sparse=True`` routes every lookup through the sparse engine.
 
 Batches are numpy arrays from a seed (the datasets' synthetic readers for
 word2vec and the recommender); programs are built in new Programs."""
@@ -22,7 +26,8 @@ from __future__ import annotations
 import numpy as np
 
 FAMILY_BATCH = {"word2vec": 256, "recommender": 256, "traffic": 1024,
-                "gan": 128, "vae": 128}
+                "gan": 128, "vae": 128, "wide_deep": 256, "deepfm": 256}
+CTR_MODELS = ("wide_deep", "deepfm")
 W2V_WORDS = ["w0", "w1", "w2", "w3"]
 REC_IDS = ["uid", "gender", "age", "job", "mid", "category"]
 TRAFFIC_TERM, TRAFFIC_HORIZONS, TRAFFIC_CLASSES = 24, 24, 4
@@ -30,10 +35,11 @@ GAN_IMG, GAN_Z = 784, 100
 VAE_IMG = 784
 
 
-def build_family(name: str):
+def build_family(name: str, is_sparse: bool = False):
     """``name``'s program at its ``build()`` defaults with its optimizer,
     in new Programs: (loss, main, startup) for word2vec, recommender,
-    traffic and vae; ``models.gan.build()``'s dict for gan."""
+    traffic, vae, wide_deep and deepfm (``is_sparse`` for the last two);
+    ``models.gan.build()``'s dict for gan."""
     import paddle_tpu_torch as fluid
 
     if name == "gan":
@@ -61,6 +67,14 @@ def build_family(name: str):
             x = L.data("x", [VAE_IMG])
             loss = fluid.models.vae.build(x)[0]
             opt = fluid.optimizer.Adam(1e-3)
+        elif name in CTR_MODELS:
+            ctr = fluid.datasets.ctr
+            dense = L.data("dense", [ctr.NUM_DENSE])
+            sparse = L.data("sparse", [ctr.NUM_SPARSE], dtype="int32")
+            label = L.data("label", [1], dtype="int32")
+            loss = getattr(fluid.models.ctr, name)(dense, sparse, label,
+                                                   is_sparse=is_sparse)[0]
+            opt = fluid.optimizer.Adam(5e-3)
         else:
             raise ValueError(f"unknown family {name!r}")
         opt.minimize(loss)
@@ -87,6 +101,11 @@ def family_batch(name: str, seed: int, n: int = None) -> dict:
                 for i, k in enumerate(REC_IDS)}
         feed["rating"] = np.stack([d[6] for d in data])
         return feed
+    if name in CTR_MODELS:
+        data = list(fluid.datasets.ctr.train(n * (seed + 1))())[-n:]
+        return {"dense": np.stack([d[0] for d in data]),
+                "sparse": np.stack([d[1] for d in data]).astype(np.int32),
+                "label": np.array([[d[2]] for d in data], np.int32)}
     if name == "traffic":
         xs = rng.randint(0, TRAFFIC_CLASSES,
                          (n, TRAFFIC_TERM)).astype(np.float32)

@@ -1,7 +1,10 @@
 """The layer cases of the ported layer surface: each of the 14 activations
 of ``layers/ops.py`` that take attributes (and ``prelu``), the 21 names of
 ``layers/tensor.py`` and the 30 of ``layers/nn.py`` that the slice of
-ROADMAP A.12 part 1 ported, as ``name -> (build(fl, vars), feeds)``, where
+ROADMAP A.12 part 1 ported, the 16 layers of ``layers/misc.py``
+(``MISC_CASES``) and the Variable operator sugar (``SUGAR_CASES``: a
+scalar ``/`` and ``-``, ``[]`` out of range, negative, with ``None`` and
+``Ellipsis``), as ``name -> (build(fl, vars), feeds)``, where
 ``fl`` is a package (``paddle_tpu_torch``, or the JAX package in the CPU
 tests) and ``feeds`` numpy arrays made from fixed seeds.
 
@@ -214,7 +217,142 @@ NN_CASES = {
         {**X, "s": _ids(4, 5, hi=2, seed=38)}),
 }
 
-CASES = {**ACT_CASES, **TENSOR_CASES, **NN_CASES}
+SCORES = np.array([[0.1, 0.9, 0.5, 0.9, 0.7, 0.2],
+                   [0.8, 0.2, 0.8, 0.3, 0.95, 0.95],
+                   [0.4, 0.4, 0.4, 0.4, 0.4, 0.4],
+                   [-1.0, 2.0, 0.0, 2.0, 1.0, 3.0]], np.float32)
+BEAM = {"s": _r(4, 3, 5, seed=50),
+        "g": np.array([[1, -1, 4], [0, 2, -1], [-1, -1, 3], [4, 0, 1]],
+                      np.int32),
+        "gs": _r(4, 3, seed=51),
+        "m": np.array([[1, 1, 1], [1, 1, 0], [1, 0, 0], [1, 1, 1]],
+                      np.float32)}
+# the 16 layers of layers/misc.py
+MISC_CASES = {
+    "cos_sim_vec_mat": (lambda fl, v: fl.layers.cos_sim_vec_mat(
+        v["v"], v["m"], cos_scale=2.0),
+        {"v": _r(3, 4, seed=40), "m": _r(3, 8, seed=41)}),
+    "cross_channel_norm": (lambda fl, v: fl.layers.cross_channel_norm(
+        v["x"]), IMG),
+    "data_norm_z_score": (lambda fl, v: fl.layers.data_norm(
+        v["x"], "z-score", mean=[0.5, -1.0, 2.0], std=[1.0, 3.0, 0.5]),
+        {"x": _r(5, 3, seed=42, scale=2.0)}),
+    "data_norm_min_max": (lambda fl, v: fl.layers.data_norm(
+        v["x"], "min-max", min_val=[-3.0, -1.0, 0.0],
+        max_val=[3.0, 2.0, 5.0]), {"x": _r(5, 3, seed=42, scale=2.0)}),
+    "data_norm_decimal": (lambda fl, v: fl.layers.data_norm(
+        v["x"], "decimal-scaling", max_val=[100.0, 37.0, 0.5]),
+        {"x": _r(5, 3, seed=42, scale=20.0)}),
+    "eos_check": (lambda fl, v: fl.layers.eos_check(v["i"], eos_id=1),
+                  {"i": np.array([[1], [7], [1], [0]], np.int32)}),
+    "factorization_machine": (lambda fl, v: fl.layers.factorization_machine(
+        v["x"], 3), {"x": _r(4, 5, seed=43)}),
+    "featuremap_expand": (lambda fl, v: fl.layers.featuremap_expand(
+        v["x"], 3), X),
+    "featuremap_expand_col": (lambda fl, v: fl.layers.featuremap_expand(
+        v["x"], 2, as_row_vector=False), X),
+    "kmax_seq_score": (lambda fl, v: fl.layers.kmax_seq_score(
+        v["s"], v["n"], k=4),
+        {"s": SCORES, "n": np.array([5, 6, 2, 3], np.int32)}),
+    "kmax_seq_score_unmasked": (lambda fl, v: fl.layers.kmax_seq_score(
+        v["s"], None, k=3), {"s": SCORES}),
+    "outer_prod": (lambda fl, v: fl.layers.outer_prod(v["x"], v["y"]),
+                   {**X, "y": _r(4, 3, seed=44)}),
+    "Print": (lambda fl, v: fl.layers.Print(v["x"], message="x{0}}{",
+                                            summarize=4), X),
+    "rotate": (lambda fl, v: fl.layers.rotate(v["x"]), IMG),
+    "l2_normalize": (lambda fl, v: fl.layers.l2_normalize(v["x"]), X),
+    "l2_normalize_axis1": (lambda fl, v: fl.layers.l2_normalize(
+        v["x"], axis=1, epsilon=1e-3), IMG),
+    "scale_shift": (lambda fl, v: fl.layers.scale_shift(v["x"]), X),
+    "scale_sub_region": (lambda fl, v: fl.layers.scale_sub_region(
+        v["x"], v["i"], 2.5),
+        {"x": _r(2, 3, 4, 5, seed=45),
+         "i": np.array([[1, 2, 2, 4, 1, 3], [3, 3, 1, 1, 2, 5]], np.int32)}),
+    "sequence_reshape": (lambda fl, v: fl.layers.sequence_reshape(v["x"], 8),
+                         {"x": _r(2, 4, 6, seed=46)}),
+    "dot_prod": (lambda fl, v: fl.layers.dot_prod(v["x"], v["y"]),
+                 {**X, "y": _r(4, 6, seed=47)}),
+    "cross_entropy_over_beam": (lambda fl, v: fl.layers.cross_entropy_over_beam(
+        v["s"], v["g"], gold_score=v["gs"], step_mask=v["m"]), BEAM),
+    "cross_entropy_over_beam_no_gold": (
+        lambda fl, v: fl.layers.cross_entropy_over_beam(v["s"], v["g"]),
+        {"s": BEAM["s"], "g": BEAM["g"]}),
+}
+
+# the Variable operator sugar; each operator appends the reference's layer
+SUGAR_CASES = {
+    "sugar_arith": (lambda fl, v: (v["x"] + v["y"]) * v["x"] - v["y"] / v["x"],
+                    {**POS, "y": _r(4, 6, seed=48)}),
+    "sugar_scalar": (lambda fl, v: [2.0 + v["x"], v["x"] * 3.0, v["x"] - 1.5,
+                                    v["x"] / 4.0, 1.0 * v["x"]], X),
+    "sugar_rdiv": (lambda fl, v: 7.0 / v["x"], POS),
+    "sugar_rsub": (lambda fl, v: 3.0 - v["x"], X),
+    "sugar_neg": (lambda fl, v: -v["x"], X),
+    "sugar_matmul": (lambda fl, v: v["x"] @ fl.layers.transpose(
+        v["y"], [1, 0]), {**X, "y": _r(4, 6, seed=49)}),
+    "getitem_int": (lambda fl, v: [v["x"][:, 2], v["x"][:, -1],
+                                   v["x"][1]], X),
+    "getitem_out_of_range": (lambda fl, v: [v["x"][:, 10], v["x"][:, -10],
+                                            v["x"][:, -7]], X),
+    "getitem_slices": (lambda fl, v: [v["x"][:, -3:], v["x"][:, -10:2],
+                                      v["x"][:, 4:100], v["x"][1:3, ::-2],
+                                      v["x"][:, 5:1:-3]], X),
+    "getitem_none_ellipsis": (lambda fl, v: [v["x"][None, 1],
+                                             v["x"][..., 2],
+                                             v["x"][:, None, ..., 3]], IMG),
+    "getitem_array": (lambda fl, v: v["x"][:, np.array([0, 9, -1, -9, 2])],
+                      X),
+}
+
+CASES = {**ACT_CASES, **TENSOR_CASES, **NN_CASES, **MISC_CASES,
+         **SUGAR_CASES}
+
+
+# the evaluators' program: Accuracy and PrecisionRecall over one score and
+# label pair, ChunkEvaluator over IOB tags, CTCError over CTC logits
+EV_C, EV_T, EV_N = 4, 8, 6
+
+
+def evaluator_program(fl):
+    """The four streaming evaluators of ``evaluator.py`` (``Accuracy`` at
+    k = 2, ``PrecisionRecall``, ``ChunkEvaluator``, ``CTCError``) in new
+    Programs of package ``fl``: (main, startup, evaluators, fetch), the
+    fetch the accuracy's running rate."""
+    main, startup = fl.Program(), fl.Program()
+    with fl.program_guard(main, startup):
+        L = fl.layers
+        p = L.data("p", [EV_C])
+        lab = L.data("lab", [1], dtype="int32")
+        tags = L.data("tags", [EV_T], dtype="int32")
+        gold = L.data("gold", [EV_T], dtype="int32")
+        ln = L.data("ln", [], dtype="int32")
+        x = L.data("x", [EV_T, EV_C])
+        xl = L.data("xl", [], dtype="int32")
+        y = L.data("y", [5], dtype="int32")
+        yl = L.data("yl", [], dtype="int32")
+        evs = [fl.evaluator.Accuracy(p, lab, k=2),
+               fl.evaluator.PrecisionRecall(p, lab, num_classes=EV_C),
+               fl.evaluator.ChunkEvaluator(tags, gold, ln),
+               fl.evaluator.CTCError(x, y, xl, yl, blank=0)]
+    return main, startup, evs, [evs[0].metric]
+
+
+def evaluator_batch(rng, n: int = EV_N) -> dict:
+    """One batch for ``evaluator_program``: scores on a coarse grid (rows
+    with ties), labels with some outside [0, C) (a zero one-hot row for
+    PrecisionRecall; Accuracy never matches them), IOB tags, CTC logits
+    and labels."""
+    C, T = EV_C, EV_T
+    return {"p": (rng.randint(0, 4, (n, C)) / 4.0).astype(np.float32),
+            "lab": rng.randint(-1, C + 1, (n, 1)).astype(np.int32),
+            "tags": rng.randint(-1, 6, (n, T)).astype(np.int32),
+            "gold": rng.randint(-1, 6, (n, T)).astype(np.int32),
+            "ln": rng.randint(1, T + 1, (n,)).astype(np.int32),
+            "x": rng.randn(n, T, C).astype(np.float32),
+            "xl": rng.randint(1, T + 1, (n,)).astype(np.int32),
+            "y": rng.randint(1, C, (n, 5)).astype(np.int32),
+            "yl": rng.randint(1, 6, (n,)).astype(np.int32)}
 
 
 def _data_vars(fl, feeds):

@@ -49,6 +49,11 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch.models.recommender\n"
         "import paddle_tpu_torch.models.traffic\n"
         "import paddle_tpu_torch.models.gan, paddle_tpu_torch.models.vae\n"
+        "import paddle_tpu_torch.layers.misc, paddle_tpu_torch.sparse\n"
+        "import paddle_tpu_torch.trainer, paddle_tpu_torch.data_feeder\n"
+        "import paddle_tpu_torch.events, paddle_tpu_torch.compile.guard\n"
+        "import paddle_tpu_torch.models.ctr, paddle_tpu_torch.datasets.ctr\n"
+        "import paddle_tpu_torch.tools.ctr_sparse\n"
         "from paddle_tpu_torch.ops import decode_attention, cache_set\n"
         "from paddle_tpu_torch.ops import _build\n"
         "print('LOADED', sorted(_build._loaded))\n"
@@ -311,3 +316,45 @@ def test_kernel_library_is_keyed_by_source():
         assert target.parent == REPO / "build" / "paddle_tpu_torch"
         assert re.fullmatch(stem + r"-[0-9a-f]{16}\.so", target.name)
     assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_sparse_engine_defaults_to_cuda():
+    """The sparse engine's entry points run where the others do: a
+    ``ShardedEmbeddingTable``, its ``SparseEmbeddingTrainer`` and a
+    ``DeviceFeeder`` / ``SparseFeeder`` take the card unless told
+    otherwise and raise without one; the CPU runs them when asked.  The
+    new modules' sources name neither JAX nor the JAX package."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.sparse import ShardedEmbeddingTable, SparseFeeder
+
+    for rel in ("layers/misc.py", "layers/__init__.py", "evaluator.py",
+                "events.py", "data_feeder.py", "compile/guard.py",
+                "compile/__init__.py", "trainer.py", "sparse/__init__.py",
+                "sparse/table.py", "sparse/update.py", "sparse/pipeline.py",
+                "models/ctr.py", "datasets/ctr.py", "tools/ctr_sparse.py"):
+        src = (PKG / rel).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|paddle_tpu)\b(?!_)",
+                             src, re.M), rel
+    feeds = [{"sparse": np.array([[1, 2]], np.int64)}]
+    if torch.cuda.is_available():
+        tab = ShardedEmbeddingTable([5, 4], 2)
+        assert tab.storage.device.type == "cuda"
+        assert fluid.DeviceFeeder(lambda: iter(feeds)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedEmbeddingTable([5, 4], 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ctr.wide_deep_sparse_table([5, 4], 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fluid.DeviceFeeder(lambda: iter(feeds))
+    tab = ShardedEmbeddingTable([5, 4], 2, device="cpu")
+    assert tab.storage.device.type == "cpu"
+    staged, = list(SparseFeeder(lambda: iter(feeds), {"sparse": tab}))
+    assert {v.device.type for v in staged.values()} == {"cpu"}
+    trainer = fluid.SparseEmbeddingTrainer(
+        tab, lambda rows, p, b: (rows.sum() + p["w"].sum()),
+        {"w": np.ones(2, np.float32)}, fluid.optimizer.SGD(0.1))
+    assert trainer.device.type == "cpu"
+    assert trainer.params["w"].device.type == "cpu"
+    assert {v.device.type for v in trainer.slots.values()} <= {"cpu"}

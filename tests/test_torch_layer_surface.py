@@ -117,7 +117,7 @@ def _public(mod):
 
 
 @pytest.mark.parametrize("module,count", [("ops", 38), ("tensor", 56),
-                                          ("nn", 48)])
+                                          ("nn", 48), ("misc", 16)])
 def test_public_layer_names_match_the_reference(module, count):
     """Every function a module of the reference defines (its imports left
     out: the ops module's 40 names count ``LayerHelper`` and
@@ -277,3 +277,18 @@ def test_hsigmoid_gradient_against_finite_differences():
     inputs = [torch.from_numpy(rng.randn(*s)).requires_grad_(True)
               for s in shapes]
     assert torch.autograd.gradcheck(loss, inputs, eps=1e-6, atol=1e-7)
+
+
+def test_evaluator_names_match_the_reference():
+    """``evaluator.py``'s six classes (``Evaluator`` and the five
+    evaluators) equal the reference's, and the module exports them."""
+    import importlib
+
+    def classes(mod):
+        return {n for n, v in vars(mod).items()
+                if isinstance(v, type) and v.__module__ == mod.__name__}
+
+    ref = importlib.import_module("paddle_tpu.evaluator")
+    port = importlib.import_module("paddle_tpu_torch.evaluator")
+    assert classes(ref) == classes(port) and len(classes(port)) == 6
+    assert set(port.__all__) == classes(port)

@@ -120,9 +120,21 @@ def test_embedding_padding_row_gets_no_gradient():
     o, gv = exe.run(feed=feed, fetch_list=[out, g])
     assert np.all(o[0, :2] == 0) and np.all(gv[3] == 0)
     assert np.abs(gv).sum() > 0
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tfluid.layers.embedding(tfluid.layers.data("i2", [1], "int32"),
-                                [9, 6], is_sparse=True)
+    # is_sparse=True (the sparse engine's lookup, ROADMAP A.8): the same
+    # output and gradient from the same table, the padding row's 0 too
+    table = {p.name: tfluid.global_scope().find_var(p.name).numpy()
+             for p in tfluid.default_main_program().parameters()}
+    tfluid.reset_default_programs()
+    ids = tfluid.layers.data("ids", [5, 1], dtype="int32")
+    out_s = tfluid.layers.embedding(ids, [9, 6], padding_idx=3,
+                                    is_sparse=True)
+    (_, g), = tfluid.backward.append_backward(tfluid.layers.mean(out_s))
+    scope = tfluid.Scope()
+    tfluid.load_scope(table, tfluid.default_main_program(), scope,
+                      device="cpu")
+    o2, gv2 = exe.run(feed=feed, fetch_list=[out_s, g], scope=scope)
+    np.testing.assert_array_equal(o2, o)
+    np.testing.assert_array_equal(gv2, gv)
 
 
 # --------------------------------------------------------------- build_lm
