@@ -415,6 +415,26 @@ Phases (any failure exits non-zero, before the final line):
                (rtol 1e-4); ms per step of each arm, examples/s, the mean
                bucket and n_unique, V / mean bucket, the producer's dedup
                ms and the consumer's stall ms per batch, peak memory.
+ 24. parallel - the LM of phase 6 at full width (V=32000, d=512, 8 heads, 6
+               layers, d_ff=2048, tied, float32, TF32 off, weights from
+               init_lm_params(0), 8 x 1024 tokens, Adam(1e-3), clip 1.0)
+               under parallel.Strategy: first the dropout kernel with
+               counter maps (4 row slices of [8, 1024, 512], sp slices
+               contiguous and striped) bitwise the whole tensor's launch;
+               the single-card unsharded step's losses and gradients (and,
+               with dropout 0.1, its first mask) as the reference; then a
+               gang of 4 ranks sharing the card over gloo (the ring's
+               send / recv, which gloo cannot take from device memory,
+               staged through pinned host memory), two steps a leg: {sp 2, tp 2} with ring,
+               ring_striped and Ulysses attention, {tp 4}, and {dp 4} with
+               ZeRO-1 and dropout 0.1: losses within rtol PAR_LOSS_RTOL of
+               the single card's, every step-1 gradient within
+               PAR_GRAD_REL of its max abs, the dropout mask bitwise, the
+               flash and dropout launches per rank equal to the prediction
+               (ring.ring_launches), ms per step and peak memory per rank;
+               then NCCL with one rank on the card ({dp, sp, tp} all 1,
+               use_tp and use_sp: every collective a real NCCL call), one
+               step held to the same limits.
 Each phase prints its seconds.  The line before the card line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -423,6 +443,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import sys
 import time
 
@@ -6372,6 +6393,249 @@ def phase_sparse(card: str) -> dict:
             "cpu_rel": rel}
 
 
+PAR_RANKS = 4
+PAR_BATCH = 8
+PAR_LOSS_RTOL = 1e-4
+PAR_GRAD_REL = 1e-3      # the port's float32 train limit (TOLERANCE)
+PAR_DROPOUT = 0.1
+# (label, mesh, build_lm flags, ZeRO-1)
+PAR_LEGS = (
+    ("sp2 tp2 ring", {"sp": 2, "tp": 2},
+     {"use_tp": True, "use_sp": True, "sp_strategy": "ring"}, False),
+    ("sp2 tp2 ring_striped", {"sp": 2, "tp": 2},
+     {"use_tp": True, "use_sp": True, "sp_strategy": "ring_striped"}, False),
+    ("sp2 tp2 ulysses", {"sp": 2, "tp": 2},
+     {"use_tp": True, "use_sp": True, "sp_strategy": "ulysses"}, False),
+    ("tp4", {"tp": 4}, {"use_tp": True}, False),
+    ("dp4 zero1 dropout", {"dp": 4}, {"dropout": PAR_DROPOUT}, True),
+)
+PAR_STEPS = 2
+
+
+def _par_feed() -> dict:
+    rng = np.random.RandomState(0)
+    V, T = LM_CFG["vocab_size"], LM_CFG["max_len"]
+    return {"toks": rng.randint(0, V, (PAR_BATCH, T)).astype(np.int32),
+            "labs": rng.randint(0, V, (PAR_BATCH, T, 1)).astype(np.int32)}
+
+
+def _par_reference(feed: dict, dropout: float, path: str) -> list:
+    """The single-card unsharded steps from init_lm_params(0): losses, the
+    first step's gradients and first dropout mask, saved at ``path``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import init_lm_params
+    from paddle_tpu_torch.tools import parallel_cases as pc
+
+    fluid.reset_default_programs()
+    fluid.reset_global_scope()
+    loss, _ = pc.build_lm(fluid, None, cfg=LM_CFG, dropout=dropout)
+    main = fluid.default_main_program()
+    exe = fluid.Executor()
+    exe.run(fluid.default_startup_program())
+    fluid.load_scope(init_lm_params(0, **LM_CFG), main,
+                     fluid.global_scope())
+    grads = [p.name + "@GRAD" for p in main.parameters()]
+    drops = [op.outputs["Out"][0] for op in main.list_ops()
+             if op.type == "dropout"]
+    first = exe.run(feed=feed, fetch_list=[loss.name] + grads + drops[:1])
+    losses = [float(first[0])]
+    for _ in range(PAR_STEPS - 1):
+        losses.append(float(exe.run(feed=feed, fetch_list=[loss])[0]))
+    torch.save({"loss": losses,
+                "grads": {n: torch.from_numpy(g)
+                          for n, g in zip(grads, first[1:])},
+                "mask": torch.from_numpy(first[-1] == 0) if drops else None},
+               path)
+    del exe
+    fluid.reset_global_scope()
+    _release()
+    return losses
+
+
+def _par_predicted(kw: dict, coords: dict) -> dict:
+    """Flash launches per kernel and dropout launches per kind of one rank
+    over the leg's steps, from the code: a ring call launches
+    ring.ring_launches pairs (forward, and each backward kernel); every
+    other attention one flash call a layer; dropout 1 + 2 x layers sites a
+    step, forward and backward."""
+    from paddle_tpu_torch.parallel.ring import ring_launches
+
+    layers, steps = LM_CFG["n_layers"], PAR_STEPS
+    per_call = 1
+    if kw.get("use_sp") and kw.get("sp_strategy", "ring") != "ulysses":
+        per_call = ring_launches(2, coords["sp"], True,
+                                 kw["sp_strategy"] == "ring_striped")
+    flash = {k: per_call * layers * steps for k in FLASH_KERNELS}
+    sites = (1 + 2 * layers) * steps if kw.get("dropout") else 0
+    return {"flash": flash, "dropout": {"fwd": sites, "bwd": sites}}
+
+
+def _dropout_offsets_on_card() -> int:
+    """The dropout kernel with counter maps: 4 row slices (dp), and 2 x 2
+    (dp x sp) contiguous and striped sequence slices, of one
+    [8, 1024, 512] tensor, each launch bitwise the whole tensor's launch
+    at its elements and the plain version with the same map.  Returns the
+    number of slice launches checked."""
+    from paddle_tpu_torch.ops import dropout as dmod
+    from paddle_tpu_torch.param_attr import SeqAxis
+    from paddle_tpu_torch.parallel.mesh import Mesh
+    from paddle_tpu_torch.parallel.strategy import StepLayout, seq_index
+
+    B, T, D = 8, 1024, 512
+    x = torch.randn(B, T, D, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
+    key = dmod.ThreefryKey(0, 7, 3)
+    whole = dmod.dropout_fwd_kernel(x, key, PAR_DROPOUT)
+    n = 0
+    for axes, seq, striped in (({"dp": 4}, False, False),
+                               ({"dp": 2, "sp": 2}, True, False),
+                               ({"dp": 2, "sp": 2}, True, True)):
+        grid = np.arange(4).reshape(*axes.values())
+        for r in range(4):
+            mesh = Mesh(grid, tuple(axes), r)
+            sp_ax = SeqAxis("sp", striped) if seq else None
+            lay = StepLayout(mesh, "dp", sp_ax, B)
+            b = B // axes["dp"]
+            rows = slice(mesh.coord("dp") * b, (mesh.coord("dp") + 1) * b)
+            pos = torch.as_tensor(seq_index(T, axes.get("sp", 1),
+                                            mesh.coord("sp"), striped),
+                                  device="cuda")
+            part = x[rows].index_select(1, pos).contiguous()
+            cmap = lay.counter_map(part.shape, sp_ax)
+            got = dmod.dropout_fwd_kernel(part, key, PAR_DROPOUT, cmap)
+            want = whole[rows].index_select(1, pos)
+            check(torch.equal(got, want)
+                  and torch.equal(got, dmod.dropout_reference(
+                      part, key, PAR_DROPOUT, cmap)),
+                  f"parallel: the dropout kernel's slice {r} of {axes} "
+                  f"(seq {seq}, striped {striped}) is not the whole "
+                  f"tensor's mask")
+            n += 1
+    return n
+
+
+def phase_parallel(card: str) -> dict:
+    import tempfile
+
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.tools import parallel_cases as pc
+
+    n_slices = _dropout_offsets_on_card()
+    print(f"parallel: dropout kernel with counter maps, {n_slices} slices "
+          f"bitwise the whole [8, 1024, 512] tensor's launch and the plain "
+          f"version; on {card}")
+    feed = _par_feed()
+    tmp = tempfile.mkdtemp(prefix="par-ref-")
+    refs = {d: os.path.join(tmp, f"ref_{d}.pt") for d in (0.0, PAR_DROPOUT)}
+    ref_losses = {d: _par_reference(feed, d, p) for d, p in refs.items()}
+    print(f"parallel: single-card reference losses {ref_losses[0.0]} "
+          f"(dropout {PAR_DROPOUT}: {ref_losses[PAR_DROPOUT]})")
+
+    def spec(mesh, kw, zero1, steps):
+        return {"kind": "lm_leg", "cfg": LM_CFG, "mesh": mesh, "kw": kw,
+                "zero1": zero1, "seed": 0, "feed": feed, "steps": steps,
+                "ref": refs[kw.get("dropout", 0.0)]}
+
+    specs = {label: spec(mesh, kw, zero1, PAR_STEPS)
+             for label, mesh, kw, zero1 in PAR_LEGS}
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(pc.run_cases, PAR_RANKS, specs, True,
+                              device="cuda:0", timeout_s=540,
+                              group_timeout_s=120)
+    gang_s = time.perf_counter() - t0
+    print(f"parallel: gang of {PAR_RANKS} ranks on one card over "
+          f"{ranks[0][PAR_LEGS[0][0]]['backend']}, "
+          f"{sorted(comm.GLOO_STAGED)} staged through pinned host memory "
+          f"(gloo's send / recv take no device memory); {gang_s:.1f} s "
+          f"with start-up")
+    out = {"legs": {}, "gloo_staged": sorted(comm.GLOO_STAGED)}
+    for label, mesh, kw, zero1 in PAR_LEGS:
+        r0 = ranks[0][label]
+        rec = {"mesh": mesh, "zero1": zero1, "losses": r0["losses"],
+               "ref_losses": r0["ref_losses"],
+               "grad_worst": r0["grad_worst"],
+               "grad_worst_name": r0["grad_worst_name"],
+               "ms": [r[label]["ms"] for r in ranks],
+               "peak_gib": [r[label]["peak_bytes"] / 2 ** 30 for r in ranks],
+               "flash": [r[label]["flash"] for r in ranks],
+               "dropout": [r[label]["dropout"] for r in ranks],
+               "staged": [r[label]["staged"] for r in ranks],
+               "calls": [r[label]["calls"] for r in ranks],
+               "comm_ms": [1e3 * sum(r[label]["comm_s"].values())
+                           for r in ranks]}
+        for r in ranks:
+            check(r[label]["losses"] == r0["losses"],
+                  f"parallel {label}: ranks disagree on the losses")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                   r0["ref_losses"])]
+        check(max(rel) <= PAR_LOSS_RTOL,
+              f"parallel {label}: losses {r0['losses']} vs the single "
+              f"card's {r0['ref_losses']} (rel {rel})")
+        check(r0["grad_worst"] <= PAR_GRAD_REL,
+              f"parallel {label}: gradient {r0['grad_worst_name']} off by "
+              f"{r0['grad_worst']:.3e} of its max abs")
+        if kw.get("dropout"):
+            check(r0["mask_equal"],
+                  f"parallel {label}: the dropout mask differs from the "
+                  f"single card's")
+        for i, r in enumerate(ranks):
+            want = _par_predicted(kw, r[label]["coords"])
+            got = {"flash": {k: r[label]["flash"][k] for k in FLASH_KERNELS},
+                   "dropout": r[label]["dropout"]}
+            check(got == want, f"parallel {label}: rank {i}'s launches "
+                               f"{got}, predicted {want}")
+        rec["max_loss_rel"] = max(rel)
+        out["legs"][label] = rec
+        print(f"parallel {label}: mesh {mesh}{' ZeRO-1' if zero1 else ''}"
+              f"; losses {r0['losses']} vs single card {r0['ref_losses']} "
+              f"(max rel {max(rel):.2e}); worst gradient "
+              f"{r0['grad_worst']:.2e} of max abs "
+              f"({r0['grad_worst_name']})"
+              + (f"; dropout mask bitwise" if kw.get("dropout") else "")
+              + f"; flash launches per rank "
+              f"{[f['fwd'] for f in rec['flash']]} (as predicted); ms per "
+              f"step by rank (step 1 fetches every gradient) "
+              f"{[[round(m, 1) for m in ms] for ms in rec['ms']]}; peak "
+              f"GiB by rank {[round(g, 3) for g in rec['peak_gib']]}; "
+              f"collectives by rank over the steps {rec['calls']}, host ms "
+              f"inside them {[round(m, 1) for m in rec['comm_ms']]}, "
+              f"staged through host {rec['staged']}; on {card}")
+    # NCCL: one rank on the card, every collective a real NCCL call
+    kw = {"use_tp": True, "use_sp": True, "sp_strategy": "ring"}
+    nccl = distributed.spawn(
+        pc.run_cases, 1, {"nccl": spec({"dp": 1, "sp": 1, "tp": 1}, kw,
+                                       False, 1)}, True,
+        device="cuda:0", timeout_s=300, group_timeout_s=120)[0]["nccl"]
+    rel = abs(nccl["losses"][0] - nccl["ref_losses"][0]) / abs(
+        nccl["ref_losses"][0])
+    check(nccl["backend"] == "nccl", f"parallel nccl: backend "
+                                     f"{nccl['backend']}")
+    check(rel <= PAR_LOSS_RTOL and nccl["grad_worst"] <= PAR_GRAD_REL,
+          f"parallel nccl: loss rel {rel:.2e}, worst gradient "
+          f"{nccl['grad_worst']:.2e}")
+    check(sum(nccl["calls"].values()) > 0 and not nccl["staged"],
+          f"parallel nccl: calls {nccl['calls']}, staged {nccl['staged']}")
+    print(f"parallel nccl: one rank, backend nccl, {nccl['calls']} NCCL "
+          f"calls in the step, none staged; loss {nccl['losses'][0]:.6f} vs "
+          f"{nccl['ref_losses'][0]:.6f} (rel {rel:.2e}); worst gradient "
+          f"{nccl['grad_worst']:.2e} of max abs; {nccl['ms'][0]:.1f} ms "
+          f"(fetching every gradient); on {card}")
+    out["nccl"] = {"calls": nccl["calls"], "loss_rel": rel,
+                   "grad_worst": nccl["grad_worst"], "ms": nccl["ms"]}
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _par_launches(par: dict, which: str, kern: str) -> dict:
+    """The parallel phase's launches of one kernel, by leg and rank."""
+    return {f"parallel {label} rank {i}": counts[kern]
+            for label, rec in par["legs"].items()
+            for i, counts in enumerate(rec[which]) if counts[kern]}
+
+
 def _timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6437,6 +6701,8 @@ def main() -> int:
     _release()
     _timed("sparse", phase_sparse, card)
     _release()
+    par = _timed("parallel", phase_parallel, card)
+    _release()
     probe_end = paged_probe()
     print(f"C.2 probe: paged_attention float32 W=1 device "
           f"{rec['c2_probe_start_device_ms']:.4f} ms at the start of the "
@@ -6470,7 +6736,8 @@ def main() -> int:
             # launches_by_path
             "launches": train["launches"][kern], **flash["float32"][kern],
             "launches_by_path": {"train": train["launches"][kern],
-                                 "nets sdpa step": nets["sdpa"][kern]},
+                                 "nets sdpa step": nets["sdpa"][kern],
+                                 **_par_launches(par, "flash", kern)},
         })
     for kern in FLASH_KERNELS:
         kernels.append({
@@ -6631,7 +6898,8 @@ def main() -> int:
             "launches_by_path": dict(
                 {a: r["launches"][kern] for a, r in lm_drop.items()},
                 **{f"image {a}": r["dropout_launches"][kern]
-                   for a, r in image["train"].items()}),
+                   for a, r in image["train"].items()},
+                **_par_launches(par, "dropout", kern)),
             "bfloat16": drop["bfloat16"][kern],
         })
     print(json.dumps({"kernels": kernels}))

@@ -77,6 +77,7 @@ from . import (amp, backward, clip, compile, data_feeder, datasets,
                evaluator, events, hooks, initializer, layers,
                learning_rate_decay, models, nets, optimizer, regularizer,
                sparse, trainer)
+from . import distributed, parallel
 from ._device import card_info, resolve_device
 from .data_feeder import DataFeeder, DeviceFeeder
 from .trainer import SparseEmbeddingTrainer
@@ -84,7 +85,8 @@ from .core import (CPUPlace, Executor, Place, Program, Scope,
                    Variable, default_main_program, default_startup_program,
                    global_scope, program_guard, reset_default_programs,
                    reset_global_scope)
-from .models import TransformerLM, from_jax_params, init_lm_params, load_scope
+from .models import (TransformerLM, from_jax_params, gather_scope,
+                     init_lm_params, load_scope)
 from .param_attr import ParamAttr
 from .resilience import Deadline, DeadlineExceeded
 from .serving import (AdmissionShed, ContinuousDecodeEngine,
@@ -103,6 +105,7 @@ __all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
            "TransformerLM", "Variable", "chain_hashes", "root_for_kv_dtype",
            "backward", "card_info", "clip", "datasets", "default_main_program",
            "default_startup_program", "evaluator", "from_jax_params",
+           "gather_scope",
            "global_scope",
            "hooks", "init_lm_params", "initializer", "layers",
            "learning_rate_decay", "load_scope", "models", "nets", "optimizer",

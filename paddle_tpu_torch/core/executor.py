@@ -48,6 +48,14 @@ pins a scope's state into static buffers: the port captures only when
 asked, as the reference's Trainer asks (``paddle_tpu/trainer.py:179``).
 ``compiles`` counts the signatures prepared.  No persistent compile cache
 (the ``compile/`` store is ROADMAP A.10) and no dispatch sampling.
+
+``Executor(strategy=parallel.Strategy(mesh))`` runs the step on this
+rank's shard (``parallel/strategy.py``): the feeds sliced to the rank's
+rows (and sequence positions), the state sliced to its shards, the ops
+given the mesh and the step's layout in their ``OpContext``, the
+replicated gradients averaged after the backward op, the optimizer ops
+under ZeRO-1 on the rank's slices, the fetches gathered back whole.
+``warm`` under a Strategy raises ``WarmError`` (ROADMAP A.9 part 2).
 """
 from __future__ import annotations
 
@@ -216,12 +224,14 @@ class Executor:
     the CPU)."""
 
     def __init__(self, place: Optional[Place] = None, strategy=None):
-        if strategy is not None:
-            raise NotImplementedError(
-                "Executor(strategy=...) is not ported yet: parallel "
-                "strategies are ROADMAP A.9")
+        self.strategy = strategy  # paddle_tpu_torch.parallel.Strategy or None
         self.place = place or Place("gpu", 0)
         self.device = self.place.torch_device()
+        if strategy is not None and place is None:
+            # one rank per device: the device distributed.init chose
+            from .. import distributed
+
+            self.device = distributed.device()
         self._cache: Dict[tuple, _Warmed] = {}
         self._graphs = Graphs(self.device)
         self.compiles = 0
@@ -257,8 +267,18 @@ class Executor:
         feed_vals = {n: v.to(self.device) for n, v in feed_vals.items()}
         step = self._build_step(program, state_in_names, fetch_names)
         state = {n: scope.find_var(n) for n in state_in_names}
-        fetches, new_state = step(state, feed_vals, scope.step_counter)
+        layout, strategy = None, self.strategy
+        if strategy is not None:
+            feed_vals, layout = strategy.shard_feed(program, feed_vals)
+            state = strategy.local_state(program, state)
+        fetches, new_state = step(state, feed_vals, scope.step_counter,
+                                  layout)
         scope.step_counter += 1
+        if strategy is not None:
+            new_state = strategy.local_state(program, new_state)
+            strategy.report_coverage(program, set(state) | set(new_state))
+            fetches = [strategy.gather_fetch(program, n, v, layout)
+                       for n, v in zip(fetch_names, fetches)]
         for n, v in new_state.items():
             scope.set_var(n, v)
         if return_numpy:
@@ -298,6 +318,11 @@ class Executor:
             raise NotImplementedError(
                 "Executor.warm(store=...) is not ported yet: the compile/ "
                 "store is ROADMAP A.10")
+        if self.strategy is not None:
+            raise WarmError(
+                "warm under a Strategy is not ported yet (ROADMAP A.9 part "
+                "2: NCCL collectives can be captured in a CUDA graph, gloo's "
+                "cannot); run() runs the sharded step eagerly")
         check_capturable(program)
         scope = scope or global_scope()
         check_kernel_shapes(program, self.device)
@@ -459,9 +484,12 @@ class Executor:
         seed = program.random_seed or 0
         head = ops[:bops[0] + 1] if bops else ops
         tail = _grouped(ops[bops[0] + 1:]) if bops else []
+        strategy = self.strategy
+        mesh = strategy.mesh if strategy is not None else None
 
-        def step(state, feed, step_index):
-            ctx = OpContext(seed, step_index, device, amp, warmed)
+        def step(state, feed, step_index, layout=None):
+            ctx = OpContext(seed, step_index, device, amp, warmed, mesh=mesh,
+                            layout=layout)
             if routed is not None:
                 feed = channels_last_feed(feed)
             env: Dict[str, Any] = {}
@@ -475,14 +503,20 @@ class Executor:
                 for op in head:
                     if op.special == "backward":
                         _apply_backward(op, env)
+                        if layout is not None:
+                            strategy.sync_grads(env, op.attrs["params"],
+                                                layout, program)
                     else:
                         op.apply(env, ctx)
             with torch.no_grad():
-                for unit in tail:
-                    if isinstance(unit, Op):
-                        unit.apply(env, ctx)
-                    else:
-                        unit[0].apply_group(unit[1], env, ctx)
+                if strategy is not None:
+                    strategy.run_tail(tail, env, ctx, program)
+                else:
+                    for unit in tail:
+                        if isinstance(unit, Op):
+                            unit.apply(env, ctx)
+                        else:
+                            unit[0].apply_group(unit[1], env, ctx)
             new_state = {n: env[n].detach() for n in out_names if n in env}
             if guard is not None and guard in env \
                     and env[guard].is_floating_point():

@@ -41,6 +41,7 @@ class Variable:
         trainable: bool = False,
         lod_level: int = 0,
         regularizer: Any = None,
+        sharding: Any = None,
     ):
         self.block = block
         self.name = name
@@ -50,6 +51,15 @@ class Variable:
         self.trainable = trainable
         self.lod_level = lod_level
         self.regularizer = regularizer
+        # the layout over a mesh (parallel.PartitionSpec: one mesh axis name
+        # or None per dim), for a parameter from its ParamAttr; for an
+        # activation, set by the layer that makes it sharded (a
+        # column-parallel fc's output, the vocab-parallel logits) or
+        # carried from a sequence-sharded input (param_attr.SeqAxis)
+        self.sharding = sharding
+        # an optimizer accumulator (Strategy(shard_optimizer_state=True)
+        # shards these over dp: ZeRO-1)
+        self.is_opt_state = False
 
     @property
     def program(self) -> "Program":
@@ -121,20 +131,27 @@ def _mix64(x: int) -> int:
 
 class OpContext:
     """Runtime context handed to op closures: the step's device, the seed
-    material for ``rng_key`` and ``rng`` and the program's amp policy
-    (``paddle_tpu_torch.amp.Bf16Policy``, or None).  ``step`` is the step
+    material for ``rng_key`` and ``rng``, the program's amp policy
+    (``paddle_tpu_torch.amp.Bf16Policy``, or None) and, under a Strategy,
+    the mesh and the step's layout.  ``step`` is the step
     counter: an int in an eager step; in a warmed step (``warmed``, the
     body of ``Executor.warm`` that every later call replays) the 0-d
     int32 tensor into which the Executor stages the counter's uint32 bits
     before each replay."""
 
     def __init__(self, seed: int = 0, step=0, device=None, amp=None,
-                 warmed: bool = False):
+                 warmed: bool = False, mesh=None, layout=None):
         self.seed = int(seed)
         self.step = step
         self.device = torch.device(device if device is not None else "cpu")
         self.amp = amp
         self.warmed = warmed
+        # under an Executor(strategy=...): the Strategy's mesh (as the JAX
+        # context has it) and this step's data layout
+        # (parallel.strategy.StepLayout: which ranks hold which rows and
+        # sequence positions); None on one device
+        self.mesh = mesh
+        self.layout = layout
 
     def rng_key(self, tag: int) -> ThreefryKey:
         """The threefry key of the random op ``tag`` in this step, the

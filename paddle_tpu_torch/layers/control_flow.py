@@ -307,6 +307,8 @@ def recompute(fn: Callable, name=None):
     out_vars = [block.create_var(unique_name.generate("recompute.out"),
                                  _tmpl(n).shape, _tmpl(n).dtype)
                 for n in out_names]
+    for v, n in zip(out_vars, out_names):
+        v.sharding = _tmpl(n).sharding   # the block's output layout
     block.append_op(Op("recompute", {"Cap": cap},
                        {"Out": [v.name for v in out_vars]}, {}, op_fn,
                        sub_block=sub.global_block))

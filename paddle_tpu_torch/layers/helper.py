@@ -23,9 +23,27 @@ from ..core.program import (Block, Op, OpContext, Program, Variable,
                             default_main_program, default_startup_program)
 from ..core.types import convert_dtype
 from ..initializer import Constant, Xavier
-from ..param_attr import ParamAttr
+from ..param_attr import ParamAttr, PartitionSpec, seq_axis_of
 
 _BATCH_SENTINEL = 8191  # prime, large enough to never collide with a static dim
+
+
+def _carry_sequence_sharding(in_vars: Sequence[Variable],
+                             out_vars: Sequence[Variable]) -> None:
+    """An op keeps its input's sequence sharding (a ``SeqAxis`` on dim 1,
+    ``build_lm(use_sp=True)``) on each batch-major output whose dim 1 is
+    that input's sequence: the elementwise, normalising, per-position and
+    attention ops of a block.  A layer that moves dim 1 (``transpose``)
+    sets its output's spec itself."""
+    for v in in_vars:
+        seq = seq_axis_of(v)
+        if seq is None:
+            continue
+        for ov in out_vars:
+            if len(ov.shape) > 1 and ov.shape[0] is None \
+                    and ov.shape[1] == v.shape[1]:
+                ov.sharding = PartitionSpec(None, seq)
+        return
 
 
 class LayerHelper:
@@ -56,10 +74,6 @@ class LayerHelper:
         default_initializer=None,
     ) -> Variable:
         attr = ParamAttr.to_attr(attr)
-        if attr.sharding is not None:
-            raise NotImplementedError(
-                "ParamAttr(sharding=...) is not ported yet: parallel layouts "
-                "are ROADMAP A.9")
         name = attr.name or unique_name.generate(f"{self.layer_type}_{'b' if is_bias else 'w'}")
         init = attr.initializer or default_initializer or (Constant(0.0) if is_bias else Xavier())
         shape = tuple(int(s) for s in shape)
@@ -72,12 +86,16 @@ class LayerHelper:
             dtype,
             regularizer=attr.regularizer,
             trainable=attr.trainable,
+            sharding=attr.sharding,
         )
         param.optimize_attr = {"learning_rate": attr.learning_rate}
         # record the init op in the startup program
         sblock = self.startup_program.global_block
+        # the startup program draws the full tensor on every rank (the same
+        # seed); under a Strategy each rank keeps its shard of it
         svar = sblock.create_var(name, shape, dtype, persistable=True,
-                                 trainable=attr.trainable)
+                                 trainable=attr.trainable,
+                                 sharding=attr.sharding)
         self.startup_program._parameters[name] = svar
         tag = self.startup_program.next_rng_tag()
         dt = convert_dtype(dtype)
@@ -152,6 +170,7 @@ class LayerHelper:
                     else unique_name.generate(f"{op_type}.out"))
             ov = self.block.create_var(name, shape, t.dtype, lod_level=lod)
             out_vars.append(ov)
+        _carry_sequence_sharding(in_vars, out_vars)
 
         slot_names = {"Out": [v.name for v in out_vars]}
 

@@ -32,6 +32,7 @@ from ..initializer import Constant, Normal, Xavier
 from ..ops.batch_norm import batch_norm_train
 from ..ops import random as jrandom
 from ..ops.dropout import threefry_dropout
+from ..param_attr import PartitionSpec, seq_axis_of
 from .helper import LayerHelper
 
 
@@ -61,30 +62,51 @@ def fc(
     param_attrs = param_attr if isinstance(param_attr, (list, tuple)) else [param_attr] * len(inputs)
 
     partials = []
+    col_axis = None
     for x, pattr in zip(inputs, param_attrs):
         in_features = int(np.prod([d for d in x.shape[num_flatten_dims:]]))
         w = helper.create_parameter(pattr, [in_features, size], x.dtype)
+        wspec = tuple(w.sharding or ())
+        if len(wspec) > 1 and wspec[1] is not None:
+            col_axis = wspec[1]
 
-        def fn(ctx, a, wv, num_flatten_dims):
+        def fn(ctx, a, wv, num_flatten_dims, _spec=wspec):
             am = a.reshape(tuple(a.shape[:num_flatten_dims]) + (-1,))
             flat = am.reshape((-1, am.shape[-1]))
-            out = flat @ wv
-            return out.reshape(tuple(am.shape[:-1]) + (size,))
+            if ctx.mesh is not None and any(_spec):
+                # a shard of a tensor-parallel W (parallel/tp.py)
+                from ..parallel.tp import sharded_matmul
+
+                out = sharded_matmul(ctx.mesh, flat, wv, _spec)
+            else:
+                out = flat @ wv
+            return out.reshape(tuple(am.shape[:-1]) + (out.shape[-1],))
 
         partials.append(
             helper.append_op(fn, {"Input": [x], "W": [w]},
                              attrs={"num_flatten_dims": num_flatten_dims}, op_type="mul")
         )
+    made = list(partials)
     out = partials[0]
     if len(partials) > 1:
         from .tensor import sums
 
         out = sums(partials)
+        made.append(out)
     if bias_attr is not False:
         b = helper.create_parameter(bias_attr, [size], out.dtype, is_bias=True)
         out = helper.append_op(lambda ctx, a, bv: a + bv, {"X": [out], "B": [b]},
                                op_type="elementwise_add")
-    return helper.append_activation(out, act)
+        made.append(out)
+    out = helper.append_activation(out, act)
+    if col_axis is not None:
+        # a column-parallel output is sharded on its last dim (its other
+        # dims keep the layout they carry: a sequence shard)
+        for v in made + [out]:
+            spec = list(v.sharding or ()) + [None] * len(v.shape)
+            v.sharding = PartitionSpec(*(spec[:len(v.shape) - 1]
+                                         + [col_axis]))
+    return out
 
 
 # --------------------------------------------------------------------------- embedding
@@ -114,6 +136,15 @@ def embedding(
         param_attr, list(size), dtype, default_initializer=Normal(0.0, 0.02)
     )
     vocab = int(size[0])
+    tspec = tuple(table.sharding or ())
+    if any(tspec[1:]):
+        raise NotImplementedError(
+            f"embedding: only the vocab dim of a table may be sharded, got "
+            f"{table.sharding}")
+    if is_sparse and tspec:
+        raise NotImplementedError(
+            "embedding(is_sparse=True) on a sharded table is not ported "
+            "yet: ROADMAP A.9 part 2")
     if is_sparse:
         global _sparse_fallback_warned
         if not _sparse_fallback_warned:
@@ -125,7 +156,7 @@ def embedding(
                 "padding_idx cotangent fix.",
                 stacklevel=2)
 
-    def fn(ctx, ids, tab, padding_idx, is_sparse):
+    def fn(ctx, ids, tab, padding_idx, is_sparse, _axis=tspec[:1]):
         if ids.dim() >= 2 and ids.shape[-1] == 1:
             ids = ids.squeeze(-1)
         if is_sparse:
@@ -133,7 +164,13 @@ def embedding(
 
             return sparse_lookup(tab, ids, padding_idx, vocab)
         ids = ids.long()
-        out = F.embedding(ids, tab)
+        if ctx.mesh is not None and any(_axis):
+            # a vocab-parallel table (parallel/tp.py)
+            from ..parallel.tp import vocab_lookup
+
+            out = vocab_lookup(ctx.mesh, ids, tab, _axis[0], vocab)
+        else:
+            out = F.embedding(ids, tab)
         if padding_idx is not None:
             mask = (ids != padding_idx)[..., None]
             out = out * mask.to(out.dtype)
@@ -626,8 +663,22 @@ def softmax_with_cross_entropy(logits: Variable, label: Variable, soft_label: bo
     """Fused log-softmax and cross entropy; hard labels [..., 1] (or [...])
     are int ids, gathered as int64."""
     helper = LayerHelper("softmax_with_cross_entropy")
+    # logits sharded on the vocab dim (the tensor-parallel LM head) take
+    # the vocab-parallel form (parallel/tp.py)
+    lspec = tuple(logits.sharding or ())
+    vaxis = lspec[-1] if len(lspec) == len(logits.shape) else None
+    if vaxis is not None and (soft_label or return_softmax):
+        raise NotImplementedError(
+            "softmax_with_cross_entropy over vocab-sharded logits takes hard "
+            "labels and returns the loss only")
 
-    def fn(ctx, lg, lab, soft_label, return_softmax):
+    def fn(ctx, lg, lab, soft_label, return_softmax, _axis=vaxis,
+           _vocab=logits.shape[-1]):
+        if ctx.mesh is not None and _axis is not None:
+            from ..parallel.tp import vocab_cross_entropy
+
+            ids = lab.squeeze(-1) if lab.dim() == lg.dim() else lab
+            return vocab_cross_entropy(ctx.mesh, lg, ids, _axis, _vocab)
         logp = torch.log_softmax(lg, dim=-1)
         if soft_label:
             loss = -torch.sum(lab * logp, dim=-1, keepdim=True)
@@ -686,13 +737,26 @@ def dropout(x: Variable, dropout_prob: float, is_test: bool = False,
     JAX's weakly typed scalar is."""
     helper = LayerHelper("dropout", name=name)
     tag = helper.main_program.next_rng_tag()
+    seq = seq_axis_of(x)
+    if any(a is not None and not (i == 1 and seq is not None)
+           for i, a in enumerate(x.sharding or ())):
+        raise NotImplementedError(
+            "dropout on a tensor-parallel shard is not ported; drop out a "
+            "replicated tensor (after the row-parallel sum)")
+    batch_major = bool(x.shape) and x.shape[0] is None
 
-    def fn(ctx, a, dropout_prob, is_test, _tag):
+    def fn(ctx, a, dropout_prob, is_test, _tag, _batch=batch_major,
+           _seq=seq):
         if is_test:
             scale = torch.tensor(1.0 - dropout_prob,
                                  dtype=torch.float64).to(a.dtype).item()
             return a * scale
-        return threefry_dropout(a, ctx.rng_key(_tag), dropout_prob)
+        # under a Strategy a rank draws the global tensor's mask at its
+        # rows and sequence positions (ops/dropout.py CounterMap)
+        lay = ctx.layout
+        cmap = (lay.counter_map(a.shape, _seq)
+                if lay is not None and _batch else None)
+        return threefry_dropout(a, ctx.rng_key(_tag), dropout_prob, cmap)
 
     return helper.append_op(fn, {"X": [x]},
                             attrs={"dropout_prob": dropout_prob,

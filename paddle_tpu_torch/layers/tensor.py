@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from ..core.program import Variable, default_main_program
 from ..core.types import convert_dtype
 from ..ops import random as jrandom
+from ..param_attr import PartitionSpec, seq_axis_of
 from .helper import LayerHelper
 from .ops import _clip
 
@@ -191,9 +192,27 @@ reduce_prod = _reduce("reduce_prod")
 
 
 def mean(x: Variable, name=None):
-    """Full reduction to a scalar (ref: paddle/operators/mean_op.cc)."""
+    """Full reduction to a scalar (ref: paddle/operators/mean_op.cc).  Under
+    a Strategy the mean of a batch-major input is taken over the global
+    batch (and the global sequence, when sharded): the ranks' means
+    averaged over dp and sp, with an identity backward (the Strategy
+    averages the replicated parameters' gradients)."""
     helper = LayerHelper("mean", name=name)
-    return helper.append_op(lambda ctx, a: torch.mean(a), {"X": [x]})
+    batch_major = bool(x.shape) and x.shape[0] is None
+    seq = seq_axis_of(x)
+
+    def fn(ctx, a, _batch=batch_major, _seq=seq):
+        out = torch.mean(a)
+        lay = ctx.layout
+        if lay is not None and _batch:
+            from ..parallel.comm import mean_from
+
+            groups = lay.data_groups(_seq)
+            if groups:
+                out = mean_from(out, groups)
+        return out
+
+    return helper.append_op(fn, {"X": [x]})
 
 
 def sums(inputs: Sequence[Variable], name=None):
@@ -222,8 +241,13 @@ def reshape(x: Variable, shape: Sequence[int], name=None, **_ignored):
 
 def transpose(x: Variable, perm: Sequence[int], name=None):
     helper = LayerHelper("transpose", name=name)
-    return helper.append_op(lambda ctx, a, perm: a.permute(perm), {"X": [x]},
-                            attrs={"perm": tuple(perm)})
+    out = helper.append_op(lambda ctx, a, perm: a.permute(perm), {"X": [x]},
+                           attrs={"perm": tuple(perm)})
+    # the output's dims are the input's permuted, and so is their layout
+    spec = tuple(x.sharding or ())
+    out.sharding = (PartitionSpec(*(spec[p] if p < len(spec) else None
+                                    for p in perm)) if any(spec) else None)
+    return out
 
 
 def concat(inputs: Sequence[Variable], axis: int = 0, name=None):

@@ -17,10 +17,10 @@ from .text_lstm import init_text_lstm_params, text_lstm_param_shapes
 from .transformer import (TransformerLM, build_lm, init_lm_params, lm_forward,
                           lm_head_logits, lm_paged_decode_window,
                           lm_param_shapes)
-from .weights import from_jax_params, load_scope
+from .weights import from_jax_params, gather_scope, load_scope
 
 __all__ = ["TransformerLM", "alexnet", "build_lm", "ctr", "fcn",
-           "from_jax_params",
+           "from_jax_params", "gather_scope",
            "gan", "googlenet", "hier_text", "init_lm_params", "lenet",
            "ocr_ctc", "recommender", "smallnet", "traffic", "vae", "vgg",
            "word2vec",

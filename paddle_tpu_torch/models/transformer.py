@@ -33,7 +33,7 @@ from ..core import unique_name
 from ..core.program import Op, Variable
 from ..initializer import Normal
 from ..layers.helper import LayerHelper
-from ..param_attr import ParamAttr
+from ..param_attr import ParamAttr, PartitionSpec, SeqAxis, seq_axis_of
 
 Params = Dict[str, torch.Tensor]
 
@@ -86,32 +86,76 @@ def init_lm_params(seed: int, vocab_size: int, max_len: int, d_model: int = 512,
 
 def attention_core(q, k, v, causal: bool, n_heads: int, use_sp: bool,
                    sp_strategy: str = "ring"):
-    """[N, T, H*D] q/k/v -> attention output [N, T, H*D], one op that runs
-    ``ops.flash_attention`` (the hand-written kernels on the card).
-    Sequence parallelism (``use_sp``) is ROADMAP A.9 and raises."""
-    if use_sp:
-        raise NotImplementedError(
-            "use_sp (ring / Ulysses sequence parallelism) is not ported yet: "
-            "parallelism is ROADMAP A.9")
+    """[N, T, H*D] q/k/v -> attention output [N, T, H*D], one op.  On one
+    device it runs ``ops.flash_attention`` (the hand-written kernels on
+    the card).  Under a Strategy a rank holds its heads (q/k/v from
+    column-parallel fcs: H / tp of them) and, when q is sequence-sharded
+    (a ``SeqAxis`` on dim 1, which needs ``use_sp``), its sequence chunk:
+    then sequence parallelism runs as ring attention (``ring``, contiguous
+    chunks; ``ring_striped``, the zigzag chunks, which q's layout must
+    be) or Ulysses all-to-all (``ulysses``, n_heads / tp divisible by
+    sp)."""
     if sp_strategy not in ("ring", "ring_striped", "ulysses"):
         raise ValueError(f"unknown sp_strategy {sp_strategy!r}: "
                          f"ring | ring_striped | ulysses")
+    seq = seq_axis_of(q)
+    if seq is not None and not use_sp:
+        raise ValueError(f"q is sequence-sharded over {seq!r}: attention "
+                         f"over the whole sequence needs use_sp=True")
+    if use_sp and seq is not None \
+            and (sp_strategy == "ring_striped") != seq.striped:
+        raise ValueError(
+            f"sp_strategy {sp_strategy!r} needs the "
+            f"{'striped' if sp_strategy == 'ring_striped' else 'contiguous'}"
+            f" sequence layout, and q's is {seq!r}")
     helper = LayerHelper("attention")
+    hd_full = q.shape[-1]
 
-    def fn(ctx, qv, kv, vv, causal, n_heads, use_sp, sp_strategy):
+    def fn(ctx, qv, kv, vv, causal, n_heads, use_sp, sp_strategy,
+           _hd=hd_full, _seq=seq):
         N, T, HD = qv.shape
-        D = HD // n_heads
+        heads_here = n_heads * HD // _hd   # H / tp on a tensor-parallel rank
+        D = HD // heads_here
 
         def heads(z):
-            return z.reshape(N, z.shape[1], n_heads, D).transpose(1, 2)
+            return z.reshape(N, z.shape[1], heads_here, D).transpose(1, 2)
 
-        out = _ops.flash_attention(heads(qv), heads(kv), heads(vv),
-                                   causal=causal)
+        lay = ctx.layout
+        if lay is not None and lay.sharded(_seq):
+            qh, kh, vh = heads(qv), heads(kv), heads(vv)
+            if sp_strategy == "ulysses":
+                from ..parallel.ulysses import ulysses_attention
+
+                out = ulysses_attention(qh, kh, vh, ctx.mesh, axis=_seq,
+                                        causal=causal)
+            else:
+                from ..parallel.ring import ring_attention
+
+                out = ring_attention(qh, kh, vh, ctx.mesh, axis=_seq,
+                                     causal=causal, striped=_seq.striped)
+        else:
+            out = _ops.flash_attention(heads(qv), heads(kv), heads(vv),
+                                       causal=causal)
         return out.transpose(1, 2).reshape(N, T, HD)
 
-    return helper.append_op(fn, {"Q": [q], "K": [k], "V": [v]},
-                            attrs={"causal": causal, "n_heads": n_heads,
-                                   "use_sp": use_sp, "sp_strategy": sp_strategy})
+    out = helper.append_op(fn, {"Q": [q], "K": [k], "V": [v]},
+                           attrs={"causal": causal, "n_heads": n_heads,
+                                  "use_sp": use_sp, "sp_strategy": sp_strategy})
+    out.sharding = q.sharding   # heads sharded as q's (tensor parallel)
+    return out
+
+
+def _maybe(use_tp):
+    """The tensor-parallel or the plain fc builders (column, row)."""
+    if use_tp:
+        from ..parallel import tp as _tp
+
+        return _tp.column_parallel_fc, _tp.row_parallel_fc
+
+    def plain(x, size, **kw):
+        return layers.fc(x, size, **kw)
+
+    return plain, plain
 
 
 def transformer_block(x, d_model: int, n_heads: int, d_ff: int, causal=True,
@@ -120,35 +164,34 @@ def transformer_block(x, d_model: int, n_heads: int, d_ff: int, causal=True,
     """Pre-LN block with deterministic parameter names (``{name}.q.w``,
     ...), the names ``lm_param_shapes`` lists.  With ``dropout > 0``, a
     dropout after the attention's output projection and one after ff2, as
-    in the reference."""
-    if use_tp:
-        raise NotImplementedError(
-            "use_tp (Megatron tensor parallelism) is not ported yet: "
-            "parallelism is ROADMAP A.9")
+    in the reference.  ``use_tp``: Megatron's layout (``parallel/tp.py``):
+    q/k/v and ff1 column-parallel, the attention output and ff2
+    row-parallel, two all-reduces a block forward."""
+    col, row = _maybe(use_tp)
 
     def pa(suffix):
         return ParamAttr(name=f"{name}.{suffix}")
 
     h = layers.layer_norm(x, begin_norm_axis=2, param_attr=pa("ln1.g"),
                           bias_attr=pa("ln1.b"))
-    q = layers.fc(h, d_model, num_flatten_dims=2, bias_attr=False,
-                  name=f"{name}.q", param_attr=pa("q.w"))
-    k = layers.fc(h, d_model, num_flatten_dims=2, bias_attr=False,
-                  name=f"{name}.k", param_attr=pa("k.w"))
-    v = layers.fc(h, d_model, num_flatten_dims=2, bias_attr=False,
-                  name=f"{name}.v", param_attr=pa("v.w"))
+    q = col(h, d_model, num_flatten_dims=2, bias_attr=False,
+            name=f"{name}.q", param_attr=pa("q.w"))
+    k = col(h, d_model, num_flatten_dims=2, bias_attr=False,
+            name=f"{name}.k", param_attr=pa("k.w"))
+    v = col(h, d_model, num_flatten_dims=2, bias_attr=False,
+            name=f"{name}.v", param_attr=pa("v.w"))
     att = attention_core(q, k, v, causal, n_heads, use_sp, sp_strategy)
-    att = layers.fc(att, d_model, num_flatten_dims=2, name=f"{name}.o",
-                    param_attr=pa("o.w"), bias_attr=pa("o.b"))
+    att = row(att, d_model, num_flatten_dims=2, name=f"{name}.o",
+              param_attr=pa("o.w"), bias_attr=pa("o.b"))
     if dropout > 0:
         att = layers.dropout(att, dropout)
     x = layers.elementwise_add(x, att)
     h2 = layers.layer_norm(x, begin_norm_axis=2, param_attr=pa("ln2.g"),
                            bias_attr=pa("ln2.b"))
-    f = layers.fc(h2, d_ff, num_flatten_dims=2, act="gelu", name=f"{name}.ff1",
-                  param_attr=pa("ff1.w"), bias_attr=pa("ff1.b"))
-    f = layers.fc(f, d_model, num_flatten_dims=2, name=f"{name}.ff2",
-                  param_attr=pa("ff2.w"), bias_attr=pa("ff2.b"))
+    f = col(h2, d_ff, num_flatten_dims=2, act="gelu", name=f"{name}.ff1",
+            param_attr=pa("ff1.w"), bias_attr=pa("ff1.b"))
+    f = row(f, d_model, num_flatten_dims=2, name=f"{name}.ff2",
+            param_attr=pa("ff2.w"), bias_attr=pa("ff2.b"))
     if dropout > 0:
         f = layers.dropout(f, dropout)
     return layers.elementwise_add(x, f)
@@ -178,18 +221,34 @@ def build_lm(
     are JAX's, bit for bit.  ``remat=True`` wraps each block in
     ``layers.recompute``: each block's activations are recomputed in the
     backward instead of kept, with the same masks, so the step computes
-    what the plain build computes.  ``use_tp`` and ``use_sp`` are not
-    ported yet and raise (ROADMAP A.9 parallelism)."""
-    if use_tp or use_sp:
-        raise NotImplementedError(
-            "use_tp / use_sp are not ported yet: parallelism is ROADMAP A.9")
-    emb_attr = ParamAttr(name="tok_emb", initializer=Normal(0.0, 0.02))
+    what the plain build computes.
+
+    Under ``Executor(strategy=...)``: ``use_tp`` shards the blocks
+    Megatron's way and the tied embedding over the vocab (``tok_emb``
+    [V/tp, d]; the head's logits are vocab-sharded and the cross entropy
+    takes the vocab-parallel form); ``use_sp`` marks ``tokens`` and
+    ``labels`` sequence-sharded over ``sp`` (``SeqAxis("sp")`` on dim 1,
+    striped for ``ring_striped``), so each rank carries its sequence chunk
+    through every block (its memory scales with T / sp), reads the
+    position embedding at its global positions, and attends by
+    ``sp_strategy``.  On one device both are the plain build."""
+    if use_sp:
+        seq = SeqAxis("sp", striped=sp_strategy == "ring_striped")
+        tokens.sharding = PartitionSpec(None, seq)
+        labels.sharding = PartitionSpec(None, seq)
+    emb_attr = ParamAttr(name="tok_emb", initializer=Normal(0.0, 0.02),
+                         sharding=PartitionSpec("tp", None) if use_tp
+                         else None)
     x = layers.embedding(tokens, [vocab_size, d_model], param_attr=emb_attr)
     pos_attr = ParamAttr(name="pos_emb", initializer=Normal(0.0, 0.02))
     helper = LayerHelper("pos_embed")
     pos_w = helper.create_parameter(pos_attr, [max_len, d_model], x.dtype)
 
-    def add_pos(ctx, h, pw):
+    def add_pos(ctx, h, pw, _seq=seq_axis_of(x)):
+        lay = ctx.layout
+        if lay is not None and lay.sharded(_seq):
+            # this rank's chunk sits at its global positions
+            return h + pw[lay.seq_positions(_seq, h.shape[1], h.device)][None]
         return h + pw[None, : h.shape[1]]
 
     x = helper.append_op(add_pos, {"X": [x], "Pos": [pos_w]})
@@ -198,8 +257,9 @@ def build_lm(
     for i in range(n_layers):
         def blk(x=x, i=i):
             return transformer_block(x, d_model, n_heads, d_ff, causal=True,
-                                     dropout=dropout,
-                                     sp_strategy=sp_strategy, name=f"blk{i}")
+                                     dropout=dropout, use_tp=use_tp,
+                                     use_sp=use_sp, sp_strategy=sp_strategy,
+                                     name=f"blk{i}")
 
         x = layers.recompute(blk) if remat else blk()
     x = layers.layer_norm(x, begin_norm_axis=2, param_attr=ParamAttr(name="lnf.g"),
@@ -208,9 +268,17 @@ def build_lm(
         helper2 = LayerHelper("lm_head")
 
         def head(ctx, h, w):
+            if ctx.mesh is not None and use_tp:
+                # h is replicated over tp, w the rank's vocab rows: the
+                # gradient of h sums over tp
+                from ..parallel import comm
+
+                h = comm.copy_to(h, ctx.mesh.group("tp"))
             return torch.matmul(h, w.t())
 
         logits = helper2.append_op(head, {"X": [x], "W": [helper.block.var("tok_emb")]})
+        if use_tp:
+            logits.sharding = PartitionSpec(None, seq_axis_of(logits), "tp")
     else:
         logits = layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False,
                            param_attr=ParamAttr(name="lm_head.w"))

@@ -1,7 +1,8 @@
 """Carry weights into the port: a numpy dict under the JAX names (from a
 checkpoint, a trained scope, or ``init_lm_params`` of either package) becomes
 the port's cast parameter dict on a device (serving), or the persistable
-state of a program's scope (training)."""
+state of a program's scope (training), sharded over a mesh's ranks under a
+``parallel.Strategy``; ``gather_scope`` reads it back whole."""
 from __future__ import annotations
 
 from typing import Dict
@@ -52,13 +53,16 @@ def from_jax_params(params: Dict[str, np.ndarray], *, vocab_size: int,
 
 
 def load_scope(arrays: Dict[str, np.ndarray], program, scope,
-               device=None) -> None:
+               device=None, strategy=None) -> None:
     """Put numpy arrays into ``scope`` as tensors on ``device`` (the CUDA card
     unless given) under their names, after checking each against the
     program's persistable variables: the name must be one, and its shape
     and dtype must match the declaration.  The JAX package's
     ``init_lm_params`` output, or a JAX scope read back with ``np.asarray``,
-    loads this way into a ``build_lm`` program."""
+    loads this way into a ``build_lm`` program.  With a
+    ``parallel.Strategy``, the arrays are the full values and the scope
+    gets this rank's shards of them (``Strategy.shard_arrays``: the
+    counterpart of ``device_put`` with a ``NamedSharding``)."""
     from ..core.types import numpy_dtype
 
     dev = resolve_device(device)
@@ -76,6 +80,29 @@ def load_scope(arrays: Dict[str, np.ndarray], program, scope,
         if arr.dtype != numpy_dtype(var.dtype):
             raise ValueError(f"{name} has dtype {arr.dtype}, the program "
                              f"declares {var.dtype}")
+    if strategy is not None:
+        for name, t in strategy.shard_arrays(program, arrays, dev).items():
+            scope.set_var(name, t)
+        return
     for name, arr in arrays.items():
         # a copy: the scope's tensors never share memory with the caller's
         scope.set_var(name, torch.from_numpy(np.array(arr)).to(dev))
+
+
+def gather_scope(program, scope, strategy=None,
+                 names=None) -> Dict[str, np.ndarray]:
+    """The scope's persistable state as full numpy arrays (``names``, by
+    default every persistable variable the scope holds).  With a
+    ``parallel.Strategy`` each value is gathered from the ranks' shards
+    (collective: every rank calls it and gets the whole; the counterpart
+    of reading a global ``jax.Array``), otherwise read as it is."""
+    if strategy is not None:
+        return strategy.gather_state(program, scope, names)
+    names = sorted(names if names is not None
+                   else [v.name for v in program.persistable_vars()
+                         if v.name in scope])
+    out = {}
+    for n in names:
+        t = torch.as_tensor(scope.find_var(n)).detach().cpu()
+        out[n] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out

@@ -96,13 +96,26 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, int64_t i,
   p[i] = __float2bfloat16_rn(v);  // exact: v is an input value or +-0
 }
 
-// out[i] = in[i] * keep[i] for i < n.
-template <typename T>
+// Where a rank's slice lies in the global tensor (ops/dropout.py
+// CounterMap): local index i draws the bits of global index
+//   base + i                                        when row == 0,
+//   base + (i / row) * stride + (c < seg ? off0 : off1) + c, c = i % row,
+// so a slice under a mesh draws the global tensor's mask at its elements.
+struct CounterMap {
+  int64_t base, row, stride, seg, off0, off1;
+};
+
+// out[i] = in[i] * keep[global index of i] for i < n.  kMapped (row > 0):
+// a thread divides its first index by row once and then advances the
+// quotient and remainder by the grid stride's, so no element pays for a
+// 64-bit division; without a map the index is base + i, as for a whole
+// tensor.
+template <typename T, bool kMapped>
 __global__ void __launch_bounds__(kThreads)
 dropout_mask_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
                     uint32_t seed_hi, uint32_t seed_lo,
                     const int32_t* __restrict__ step_ptr, uint32_t step_imm,
-                    uint32_t tag, float keep_prob) {
+                    uint32_t tag, float keep_prob, CounterMap cmap) {
   __shared__ uint32_t key[2];
   if (threadIdx.x == 0) {
     const uint32_t step =
@@ -115,15 +128,51 @@ dropout_mask_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
   __syncthreads();
   const uint32_t k0 = key[0], k1 = key[1];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += stride) {
-    const uint2 h = threefry2x32(k0, k1, static_cast<uint32_t>(i >> 32),
-                                 static_cast<uint32_t>(i));
+  int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  // kMapped: i = r * row + c, and the stride = dr * row + dc
+  int64_t r = 0, c = 0, dr = 0, dc = 0;
+  if (kMapped) {
+    r = i / cmap.row;
+    c = i - r * cmap.row;
+    dr = stride / cmap.row;
+    dc = stride - dr * cmap.row;
+  }
+  for (; i < n; i += stride) {
+    int64_t g;
+    if (kMapped) {
+      g = cmap.base + r * cmap.stride + (c < cmap.seg ? cmap.off0 : cmap.off1)
+          + c;
+      r += dr;
+      c += dc;
+      if (c >= cmap.row) {  // c, dc < row: one carry at most
+        c -= cmap.row;
+        ++r;
+      }
+    } else {
+      g = cmap.base + i;
+    }
+    const uint2 h = threefry2x32(k0, k1, static_cast<uint32_t>(g >> 32),
+                                 static_cast<uint32_t>(g));
     const uint32_t bits = h.x ^ h.y;
     const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
     const float m = u < keep_prob ? 1.0f : 0.0f;
     store_f(out, i, load_f(in, i) * m);
   }
+}
+
+template <typename T>
+void launch_mask(const void* in, void* out, long long n, unsigned blocks,
+                 cudaStream_t st, unsigned seed_hi, unsigned seed_lo,
+                 const int* step_ptr, unsigned step_imm, unsigned tag,
+                 float keep_prob, const CounterMap& cmap) {
+  const T* x = static_cast<const T*>(in);
+  T* y = static_cast<T*>(out);
+  if (cmap.row == 0)
+    dropout_mask_kernel<T, false><<<blocks, kThreads, 0, st>>>(
+        x, y, n, seed_hi, seed_lo, step_ptr, step_imm, tag, keep_prob, cmap);
+  else
+    dropout_mask_kernel<T, true><<<blocks, kThreads, 0, st>>>(
+        x, y, n, seed_hi, seed_lo, step_ptr, step_imm, tag, keep_prob, cmap);
 }
 
 int sm_count() {
@@ -146,27 +195,28 @@ extern "C" {
 // forward with in = x, the backward with in = dy (the same mask for the
 // same arguments).  The mask is drawn from (seed_hi, seed_lo), the step
 // (*step_ptr when step_ptr is not null, else step_imm) and tag, keeping
-// where the uniform is below keep_prob.  Returns 0 or the first CUDA
-// error.
+// where the uniform is below keep_prob, at the global indices the counter
+// map (base, row, stride, seg, off0, off1) gives; all zero is the whole
+// tensor.  Returns 0 or the first CUDA error.
 int dropout_launch(const void* in, void* out, long long n, unsigned seed_hi,
                    unsigned seed_lo, const int* step_ptr, unsigned step_imm,
-                   unsigned tag, float keep_prob, int dtype, void* stream) {
-  if (n < 0 || (dtype != kF32 && dtype != kBF16))
+                   unsigned tag, float keep_prob, int dtype, long long base,
+                   long long row, long long stride, long long seg,
+                   long long off0, long long off1, void* stream) {
+  if (n < 0 || row < 0 || (dtype != kF32 && dtype != kBF16))
     return (int)cudaErrorInvalidValue;
+  const CounterMap cmap{base, row, stride, seg, off0, off1};
   if (n == 0) return 0;
   const long long want = (n + kThreads - 1) / kThreads;
   const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
   const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    dropout_mask_kernel<float><<<blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(in), static_cast<float*>(out), n, seed_hi,
-        seed_lo, step_ptr, step_imm, tag, keep_prob);
+    launch_mask<float>(in, out, n, blocks, st, seed_hi, seed_lo, step_ptr,
+                       step_imm, tag, keep_prob, cmap);
   else
-    dropout_mask_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(in),
-        static_cast<__nv_bfloat16*>(out), n, seed_hi, seed_lo, step_ptr,
-        step_imm, tag, keep_prob);
+    launch_mask<__nv_bfloat16>(in, out, n, blocks, st, seed_hi, seed_lo,
+                               step_ptr, step_imm, tag, keep_prob, cmap);
   return (int)cudaGetLastError();
 }
 

@@ -32,11 +32,17 @@ to 32 bits.  A multiply by 0 or 1 is exact, so kernel and plain version
 agree bitwise.  ``threefry_dropout.launches`` counts kernel launches
 (``{"fwd": n, "bwd": n}``) and ``dtype_launches`` the same by the
 operand's dtype; plain-version calls never count.
+
+Under a mesh a rank holds a slice of the tensor the single-device step
+would drop out: a :class:`CounterMap` maps its local element indices to
+the global ones, in the kernel and in the plain version alike, so the
+slice draws the global tensor's bits at its elements (dp rows, sp
+sequence positions, contiguous or striped).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -51,8 +57,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _build.declare("dropout.cu", "dropout_launch", ctypes.c_int,
                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
-                ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p])
+                ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
+               + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
 
 Word = Union[int, torch.Tensor]
 
@@ -109,16 +115,54 @@ class ThreefryKey:
         return threefry2x32(k0, k1, 0, self.tag)
 
 
+class CounterMap(NamedTuple):
+    """Where a rank's slice of a tensor lies in the global tensor, so that
+    its mask draws the bits the global tensor would draw at those
+    elements: local row-major index i maps to the global index
+
+        base + i                                   when row == 0
+        base + (i // row) * stride + f(i % row)    otherwise,
+        f(c) = off0 + c if c < seg else off1 + c
+
+    ``row`` the local row (the elements of one batch row), ``stride`` the
+    global row, and the row made of at most two runs that are contiguous
+    in the global row (the sequence slice of a rank, or the two half-blocks
+    of the striped layout).  ``parallel.strategy.StepLayout.counter_map``
+    builds it."""
+
+    base: int = 0
+    row: int = 0
+    stride: int = 0
+    seg: int = 0
+    off0: int = 0
+    off1: int = 0
+
+
+def global_index(i: torch.Tensor, cmap: Optional[CounterMap]) -> torch.Tensor:
+    """The global element index of local indices ``i`` (int64) under
+    ``cmap`` (the identity for None)."""
+    if cmap is None:
+        return i
+    if cmap.row == 0:
+        return i + cmap.base
+    r = torch.div(i, cmap.row, rounding_mode="floor")
+    c = i - r * cmap.row
+    return cmap.base + r * cmap.stride + torch.where(
+        c < cmap.seg, cmap.off0 + c, cmap.off1 + c)
+
+
 def threefry_bits(key: ThreefryKey, shape: Sequence[int],
-                  device=None) -> torch.Tensor:
+                  device=None, cmap: Optional[CounterMap] = None
+                  ) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) as int64 tensor values in
-    [0, 2^32), on ``device`` (the step's, when it is a tensor)."""
+    [0, 2^32), on ``device`` (the step's, when it is a tensor); with
+    ``cmap``, the bits of a global tensor at this slice's elements."""
     k0, k1 = key.words()
     if device is None:
         device = key.step.device if isinstance(key.step,
                                                torch.Tensor) else "cpu"
     n = int(np.prod(shape, dtype=np.int64))
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    i = global_index(torch.arange(n, dtype=torch.int64, device=device), cmap)
     x0, x1 = threefry2x32(k0, k1, i >> 32, i & M32)
     return (x0 ^ x1).reshape(tuple(shape))
 
@@ -129,18 +173,21 @@ def keep_prob(dropout_prob: float) -> float:
 
 
 def keep_mask(key: ThreefryKey, shape: Sequence[int], dropout_prob: float,
-              device=None) -> torch.Tensor:
-    """``jax.random.bernoulli(key, 1 - p, shape)``: bool."""
-    bits = threefry_bits(key, shape, device)
+              device=None, cmap: Optional[CounterMap] = None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, 1 - p, shape)``: bool (with ``cmap``, a
+    slice of the global tensor's mask)."""
+    bits = threefry_bits(key, shape, device, cmap)
     u = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
          - 1.0)
     return u < keep_prob(dropout_prob)
 
 
 def dropout_reference(x: torch.Tensor, key: ThreefryKey,
-                      dropout_prob: float) -> torch.Tensor:
+                      dropout_prob: float,
+                      cmap: Optional[CounterMap] = None) -> torch.Tensor:
     """Plain version of the kernel: ``x * keep`` in x's dtype."""
-    return x * keep_mask(key, x.shape, dropout_prob, x.device).to(x.dtype)
+    return x * keep_mask(key, x.shape, dropout_prob, x.device,
+                         cmap).to(x.dtype)
 
 
 # ------------------------------------------------------------ the kernel
@@ -155,7 +202,8 @@ def check_dropout_dtype(dtype: torch.dtype) -> None:
 
 
 def _launch(which: str, x: torch.Tensor, key: ThreefryKey,
-            dropout_prob: float) -> torch.Tensor:
+            dropout_prob: float,
+            cmap: Optional[CounterMap] = None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"the dropout kernel runs on CUDA tensors, not "
                          f"{x.device.type}")
@@ -177,7 +225,7 @@ def _launch(which: str, x: torch.Tensor, key: ThreefryKey,
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), s0, s1, ptr, imm,
                 key.tag & M32, keep_prob(dropout_prob),
-                _DTYPE_CODE[x.dtype],
+                _DTYPE_CODE[x.dtype], *(cmap or CounterMap()),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dropout_launch ({which}) failed: CUDA error "
@@ -188,45 +236,51 @@ def _launch(which: str, x: torch.Tensor, key: ThreefryKey,
     return out
 
 
-def dropout_fwd_kernel(x, key: ThreefryKey, dropout_prob: float):
+def dropout_fwd_kernel(x, key: ThreefryKey, dropout_prob: float,
+                       cmap: Optional[CounterMap] = None):
     """One launch of the forward kernel: ``x * keep``."""
-    return _launch("fwd", x, key, dropout_prob)
+    return _launch("fwd", x, key, dropout_prob, cmap)
 
 
-def dropout_bwd_kernel(dy, key: ThreefryKey, dropout_prob: float):
+def dropout_bwd_kernel(dy, key: ThreefryKey, dropout_prob: float,
+                       cmap: Optional[CounterMap] = None):
     """One launch of the backward kernel: ``dy * keep``, the forward's
     mask drawn again."""
-    return _launch("bwd", dy, key, dropout_prob)
+    return _launch("bwd", dy, key, dropout_prob, cmap)
 
 
 class _Dropout(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, key, dropout_prob):
-        ctx.key, ctx.p = key, dropout_prob
+    def forward(ctx, x, key, dropout_prob, cmap):
+        ctx.key, ctx.p, ctx.cmap = key, dropout_prob, cmap
         if x.device.type == "cpu":
-            return dropout_reference(x, key, dropout_prob)
-        return dropout_fwd_kernel(x, key, dropout_prob)
+            return dropout_reference(x, key, dropout_prob, cmap)
+        return dropout_fwd_kernel(x, key, dropout_prob, cmap)
 
     @staticmethod
     def backward(ctx, g):
         if g.device.type == "cpu":
-            return dropout_reference(g, ctx.key, ctx.p), None, None
-        return dropout_bwd_kernel(g, ctx.key, ctx.p), None, None
+            return (dropout_reference(g, ctx.key, ctx.p, ctx.cmap), None,
+                    None, None)
+        return (dropout_bwd_kernel(g, ctx.key, ctx.p, ctx.cmap), None, None,
+                None)
 
 
 def threefry_dropout(x: torch.Tensor, key: ThreefryKey,
-                     dropout_prob: float) -> torch.Tensor:
+                     dropout_prob: float,
+                     cmap: Optional[CounterMap] = None) -> torch.Tensor:
     """``x * keep`` with JAX's bernoulli mask for ``key``, differentiable
-    (the gradient is ``dy * keep``).  CUDA tensors run the kernel or
-    raise; CPU tensors run the plain version; meta tensors give an empty
-    output of the right shape and launch nothing."""
+    (the gradient is ``dy * keep``).  With ``cmap`` (a rank's slice under a
+    mesh), the global tensor's mask at the slice's elements.  CUDA tensors
+    run the kernel or raise; CPU tensors run the plain version; meta
+    tensors give an empty output of the right shape and launch nothing."""
     if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"threefry_dropout runs on cuda or cpu tensors, not "
                          f"{x.device.type}")
     if x.device.type == "meta":
         return torch.empty_like(x)
-    return _Dropout.apply(x, key, float(dropout_prob))
+    return _Dropout.apply(x, key, float(dropout_prob), cmap)
 
 
 threefry_dropout.launches = {"fwd": 0, "bwd": 0}

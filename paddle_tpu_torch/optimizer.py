@@ -72,15 +72,21 @@ class Optimizer:
         self._accumulate = int(accumulate_steps)
 
     # ------------------------------------------------------------------ helpers
-    def _ensure_var(self, name, shape, dtype, fill=0.0):
-        """persistable accumulator in main program + constant init in startup."""
+    def _ensure_var(self, name, shape, dtype, fill=0.0, sharding=None):
+        """persistable accumulator in main program + constant init in
+        startup; marked optimizer state (``is_opt_state``: ZeRO-1 shards
+        it over dp unless it has a sharding of its own, its parameter's)."""
         block = self._main_program.global_block
         if block.has_var(name):
             return block.var(name)
-        v = block.create_var(name, shape, dtype, persistable=True)
+        v = block.create_var(name, shape, dtype, persistable=True,
+                             sharding=sharding)
+        v.is_opt_state = True
         sblock = self._startup_program.global_block
         if not sblock.has_var(name):
-            sblock.create_var(name, shape, dtype, persistable=True)
+            sv = sblock.create_var(name, shape, dtype, persistable=True,
+                                   sharding=sharding)
+            sv.is_opt_state = True
             shape_t = tuple(int(s) for s in shape)
 
             def init_fn(ins, attrs, ctx, _s=shape_t, _d=v.dtype, _f=fill):
@@ -92,8 +98,9 @@ class Optimizer:
     def _accumulators_for(self, param: Variable) -> List[Tuple[str, Variable]]:
         out = []
         for aname, fill in self._accum_defaults.items():
+            # optimizer state shards with its parameter
             v = self._ensure_var(f"{param.name}.{self._name}.{aname}", param.shape,
-                                 param.dtype, fill)
+                                 param.dtype, fill, sharding=param.sharding)
             out.append((aname, v))
         return out
 
@@ -188,7 +195,8 @@ class Optimizer:
             gated = []
             for p, g in params_grads:
                 acc = self._ensure_var(f"{p.name}.{self._name}.grad_acc",
-                                       p.shape, p.dtype, 0.0)
+                                       p.shape, p.dtype, 0.0,
+                                       sharding=p.sharding)
 
                 def acc_fn(ins, attrs, ctx, _N=N):
                     step = ins["Step"][0][0]
@@ -266,10 +274,17 @@ class Optimizer:
         if self._grad_clip is not None:
             gnames = [g.name for _, g in params_grads]
 
+            # the sharded gradients' layouts: under a mesh, a norm adds a
+            # sharded gradient's squares over the axes it is sharded on
+            specs = {g.name: p.sharding for p, g in params_grads
+                     if p.sharding is not None}
+
             def clip_fn(ins, attrs, ctx, _clip=self._grad_clip,
-                        _names=tuple(gnames), _N=N):
+                        _names=tuple(gnames), _N=N, _specs=specs):
                 gs = ins["Grads"]
-                out = _clip.transform(dict(zip(_names, gs)))
+                kw = ({"mesh": ctx.mesh, "specs": _specs}
+                      if ctx.mesh is not None and _specs else {})
+                out = _clip.transform(dict(zip(_names, gs)), **kw)
                 outs = [out[n] for n in _names]
                 if _N > 1:
                     outs = _gate(_applies(ins, _N), outs, gs)
@@ -635,10 +650,14 @@ class ModelAverage:
         startup = default_startup_program()
         self._num_name = unique_name.generate("model_average.num")
 
-        def mk_state(name, shape, dtype):
-            v = block.create_var(name, shape, dtype, persistable=True)
-            startup.global_block.create_var(name, shape, dtype,
-                                            persistable=True)
+        def mk_state(name, shape, dtype, sharding=None):
+            v = block.create_var(name, shape, dtype, persistable=True,
+                                 sharding=sharding)
+            v.is_opt_state = True
+            sv = startup.global_block.create_var(name, shape, dtype,
+                                                 persistable=True,
+                                                 sharding=sharding)
+            sv.is_opt_state = True
             shape_t = tuple(int(s) for s in shape)
 
             def init_fn(ins, attrs, ctx, _s=shape_t, _d=v.dtype):
@@ -650,7 +669,8 @@ class ModelAverage:
 
         num_v = mk_state(self._num_name, (1,), "float32")
         for p in self._params:
-            sv = mk_state(f"{p.name}.avg_sum", p.shape, p.dtype)
+            sv = mk_state(f"{p.name}.avg_sum", p.shape, p.dtype,
+                          sharding=p.sharding)
             self._sums[p.name] = sv
 
             def acc_fn(ins, attrs, ctx, _w=float(max_average_window)):

@@ -44,7 +44,16 @@ each case run twice, with the worst error over ``chip_smoke.py``'s
 element-wise limit against the plain versions and, on the same limit,
 both the kernels' and the plain versions' against the float64 arithmetic
 (``chip_smoke._bwd_f64``), and whether the second run repeats the first
-bit for bit.  Run it for the old and the new checkout in turns,
+bit for bit.  With ``--dropout`` they are the dropout kernels,
+``dropout_fwd_kernel`` and ``dropout_bwd_kernel`` with no counter map (the
+signatures every version since the kernel came has), at the LM's
+[8, 1024, 512] in float32 and bfloat16 (p = 0.1), each bitwise against
+the plain version, its two times and the bound; where the version takes a
+counter map (``ops/dropout.py::CounterMap``), the same kernels again on
+one rank's slice of a {dp 2, sp 2} striped layout ([4, 512, 512], the
+two-run map), and in every version unmapped at that size; and ptxas's
+report for ``dropout.cu``.  Run it for the old
+and the new checkout in turns,
 in one call on one card (old, new, new, old): the card's power limit and
 its neighbours differ between calls.
 """
@@ -69,6 +78,8 @@ def main(argv=None) -> int:
                     help="time the LSTM kernels instead")
     ap.add_argument("--bf16-cases", action="store_true",
                     help="check the bf16 backward pair at BF16_CASES instead")
+    ap.add_argument("--dropout", action="store_true",
+                    help="time the dropout kernels instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import importlib.util
@@ -90,9 +101,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns needs a CUDA card")
     dev = torch.device("cuda")
-    if args.conv or args.lstm or args.bf16_cases:
+    if args.conv or args.lstm or args.bf16_cases or args.dropout:
         turn = (_conv_turn if args.conv else
-                _lstm_turn if args.lstm else _bf16_cases_turn)
+                _lstm_turn if args.lstm else
+                _dropout_turn if args.dropout else _bf16_cases_turn)
         print(json.dumps({"label": args.label or args.tree,
                           "package": str(Path(paddle_tpu_torch.__file__)
                                          .parent),
@@ -315,6 +327,51 @@ def _lstm_turn(cs, dev) -> dict:
         {"kernel": name, "registers": regs, "spill_bytes": spill}
         for name, regs, spill in cs._ptxas_report(
             _build.build_logs.get("lstm.cu", ""))]}
+
+
+def _dropout_turn(cs, dev) -> dict:
+    """The dropout cases (see the module note): {"dropout": {case:
+    record}, "ptxas": [...]}."""
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import dropout as dmod
+
+    shape, p = (8, 1024, 512), 0.1
+    key = dmod.ThreefryKey(cs.DROPOUT_SEED, 3, 5)
+    # the slice's size unmapped too: what its size costs without the map
+    cases = [("whole", shape, ()), ("unmapped slice-size", (4, 512, 512),
+                                    ())]
+    if hasattr(dmod, "CounterMap"):
+        # rank 3 of {dp 2, sp 2} (dp 1, sp 1), striped: rows 4-7, the
+        # half-blocks 1 and 2 of 4
+        B, T, D, n, idx = 8, 1024, 512, 2, 1
+        t, th = T // n, T // (2 * n)
+        cmap = dmod.CounterMap(base=B // 2 * T * D, row=t * D, stride=T * D,
+                               seg=th * D, off0=idx * th * D,
+                               off1=(2 * n - 1 - idx) * th * D - th * D)
+        cases.append(("dp2 sp2 striped slice", (B // 2, t, D), (cmap,)))
+    out = {}
+    for label, shp, extra in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(dev).manual_seed(5)
+            x = torch.randn(shp, device=dev, generator=gen).to(dtype)
+            want = dmod.dropout_reference(x, key, p, *extra)
+            bound_ms, bound_by = cs._dropout_bound(x.numel(), dtype)
+            for kern, fn in (("fwd", dmod.dropout_fwd_kernel),
+                             ("bwd", dmod.dropout_bwd_kernel)):
+                got = fn(x, key, p, *extra)
+                ms, dev_ms = cs.both_ms(lambda i, fn=fn: fn(x, key, p,
+                                                            *extra))
+                out[f"{label} {kern} {str(dtype).replace('torch.', '')}"] = {
+                    "shape": list(shp), "bitwise": bool(torch.equal(got,
+                                                                    want)),
+                    "ms": ms, "device_ms": dev_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+    return {"dropout": out, "ptxas": [
+        {"kernel": name, "registers": regs, "spill_bytes": spill}
+        for name, regs, spill in cs._ptxas_report(
+            _build.build_logs.get("dropout.cu", ""))]}
 
 
 if __name__ == "__main__":

@@ -358,3 +358,106 @@ def test_sparse_engine_defaults_to_cuda():
     assert trainer.device.type == "cpu"
     assert trainer.params["w"].device.type == "cpu"
     assert {v.device.type for v in trainer.slots.values()} <= {"cpu"}
+
+
+def test_parallel_modules_load_no_jax_and_no_paddle_tpu():
+    """parallel/, distributed.py and the dry run import neither JAX nor
+    the JAX package, in their own process, and build nothing."""
+    src = (
+        "import sys\n"
+        "import paddle_tpu_torch.parallel, paddle_tpu_torch.distributed\n"
+        "import paddle_tpu_torch.parallel.comm, paddle_tpu_torch.parallel.ring\n"
+        "import paddle_tpu_torch.parallel.ulysses\n"
+        "import paddle_tpu_torch.parallel.strategy\n"
+        "import paddle_tpu_torch.tools.dryrun_multichip\n"
+        "import paddle_tpu_torch.tools.parallel_cases\n"
+        "from paddle_tpu_torch.ops import _build\n"
+        "print('LOADED', sorted(_build._loaded))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", src], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout and "LOADED []" in proc.stdout, \
+        proc.stdout
+    for rel in ("parallel/__init__.py", "parallel/comm.py",
+                "parallel/mesh.py", "parallel/ring.py", "parallel/tp.py",
+                "parallel/ulysses.py", "parallel/strategy.py",
+                "distributed.py", "tools/dryrun_multichip.py",
+                "tools/parallel_cases.py"):
+        src = (PKG / rel).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|paddle_tpu)\b(?!_)",
+                             src, re.M), rel
+
+
+def _dist_calls():
+    """(file, attribute) of every ``torch.distributed`` call in the port:
+    calls through a name bound to ``torch.distributed``."""
+    import ast
+
+    out = []
+    for f in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(f.read_text())
+        aliases = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                aliases |= {a.asname or a.name for a in node.names
+                            if a.name == "torch.distributed"}
+        if not aliases:
+            continue
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and isinstance(node.func.value, ast.Name)
+                    and node.func.value.id in aliases):
+                out.append((f.relative_to(PKG).as_posix(), node.func.attr,
+                            node))
+    return out
+
+
+def test_collectives_live_in_comm_and_groups_take_a_timeout():
+    """comm.py is the only module of the port that calls torch.distributed
+    collectives, and every init_process_group and new_group call passes a
+    timeout."""
+    calls = _dist_calls()
+    collectives = {"all_reduce", "all_gather", "all_gather_into_tensor",
+                   "all_gather_single", "reduce_scatter",
+                   "reduce_scatter_tensor", "reduce_scatter_single",
+                   "all_to_all", "all_to_all_single", "batch_isend_irecv",
+                   "isend", "irecv", "send", "recv", "broadcast", "barrier",
+                   "reduce", "gather", "scatter"}
+    outside = sorted({(f, a) for f, a, _ in calls
+                      if a in collectives and f != "parallel/comm.py"})
+    assert outside == []
+    for name in ("init_process_group", "new_group"):
+        made = [(f, node) for f, a, node in calls if a == name]
+        assert made, f"the port calls {name} somewhere"
+        for f, node in made:
+            assert any(k.arg == "timeout" for k in node.keywords), (f, name)
+    # the mesh's subgroups are made through comm.new_group, and the default
+    # group's timeout reaches them
+    src = (PKG / "parallel/mesh.py").read_text()
+    assert "comm.new_group(" in src and "dist.new_group" not in src
+
+
+def test_parallel_defaults_to_cuda():
+    """The multi-process entry points run on the card unless told
+    otherwise: ``distributed.init`` with a gang's arguments,
+    ``distributed.spawn`` and ``dryrun_multichip`` take the card by
+    default and raise without one, before any process or group starts."""
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.tools import dryrun_multichip as dry
+
+    if torch.cuda.is_available():
+        assert distributed.spawn.__kwdefaults__["device"] is None
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.init("localhost:29500", 2, 0)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.spawn(print, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dry.dryrun_multichip(2)

@@ -184,19 +184,33 @@ def test_build_lm_program_matches_jax():
     (dict(remat=True), "recompute"), (dict(dropout=0.1), "dropout"),
     (dict(use_tp=True), "A.9"), (dict(use_sp=True), "A.9")])
 def test_build_lm_options_not_ported_raise(kw, match):
-    """``use_tp`` and ``use_sp`` are not ported and raise (A.9).  ``remat``
-    and ``dropout`` are ported (A.6): the build holds their op, and with
-    ``use_tp`` beside them it still raises A.9."""
+    """``remat`` and ``dropout`` are ported (A.6): the build holds their
+    op.  ``use_tp`` and ``use_sp`` are ported too (A.9 part 1): a build
+    with them, alone or beside the others, holds the plain build's ops,
+    with ``tok_emb`` vocab-sharded under ``use_tp`` and the feeds
+    sequence-sharded under ``use_sp`` (the sharded runs are
+    ``tests/test_torch_parallel.py`` and ``test_torch_strategy.py``); none
+    raises any longer."""
+    def op_types():
+        return [op.type for op in tfluid.default_main_program().list_ops()]
+
     if match == "A.9":
-        with pytest.raises(NotImplementedError, match=match):
-            _build_lm(tfluid, **kw)
+        _build_lm(tfluid)
+        plain = op_types()
+        tfluid.reset_default_programs()
+        _build_lm(tfluid, **kw)
+        assert op_types() == plain
+        block = tfluid.default_main_program().global_block
+        if "use_tp" in kw:
+            assert tuple(block.var("tok_emb").sharding) == ("tp", None)
+        else:
+            assert tuple(block.var("toks").sharding) == (None, "sp")
         return
     _build_lm(tfluid, **kw)
-    assert match in {op.type for op in
-                     tfluid.default_main_program().list_ops()}
+    assert match in op_types()
     tfluid.reset_default_programs()
-    with pytest.raises(NotImplementedError, match="A.9"):
-        _build_lm(tfluid, use_tp=True, **kw)
+    _build_lm(tfluid, use_tp=True, use_sp=True, **kw)
+    assert match in op_types()
 
 
 # ------------------------------------------------------------ training steps
@@ -338,9 +352,10 @@ def test_unique_names_match_jax():
 
 
 def test_optimizer_options_not_ported_raise():
-    """Parallel strategies are not ported and raise (A.9).  Accumulation
-    and regularization are ported (A.6): they construct, and a count that
-    is not a positive integer raises as in the reference."""
+    """Accumulation and regularization are ported (A.6): they construct,
+    and a count that is not a positive integer raises as in the
+    reference.  Parallel strategies are ported (A.9 part 1): an Executor
+    takes one; warming a step under it is A.9 part 2 and raises."""
     assert tfluid.optimizer.Adam(1e-3, accumulate_steps=2)._accumulate == 2
     reg = tfluid.regularizer.L2Decay(1e-4)
     assert tfluid.optimizer.Adam(1e-3, regularization=reg)._regularization \
@@ -348,8 +363,15 @@ def test_optimizer_options_not_ported_raise():
     for bad in (0, 1.5):
         with pytest.raises(ValueError, match="positive integer"):
             tfluid.optimizer.Adam(1e-3, accumulate_steps=bad)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tfluid.Executor(CPU, strategy=object())
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.core.graphs import WarmError
+
+    strategy = parallel.Strategy(parallel.make_mesh({"dp": 1}))
+    exe = tfluid.Executor(CPU, strategy=strategy)
+    assert exe.strategy is strategy
+    loss = _build_lm(tfluid)
+    with pytest.raises(WarmError, match="A.9 part 2"):
+        exe.warm(tfluid.default_main_program(), [], [loss])
 
 
 @pytest.mark.parametrize("n_heads,ok", [(2, True), (4, True), (1, False)])
