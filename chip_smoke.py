@@ -802,7 +802,7 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 30, warmup: int = 3, counted=None):
     """Device milliseconds per call of ``fn(i)``, as torch.profiler reads
     the device kernels and copies that ``iters`` calls enqueue, after
     ``warmup`` calls.  These are the calls ``cuda_ms`` times, made again
@@ -823,15 +823,24 @@ def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     run each window loses the first 7 records of a kernel launched from
     the kernel libraries, so ``iters`` stays at 30 for them, where the
     rounding still counts each call once).  Fails when the profiler shows
-    no device time in any of them: there is no fallback to the events."""
+    no device time in any of them: there is no fallback to the events.
+
+    ``counted``: ``(read, name)`` for a hand-written kernel, ``read()``
+    its wrapper's launch counter and ``name`` its device kernel's.  That
+    kernel then counts at its mean duration times the launches the
+    counter saw in the window, over ``iters``; a window that kept fewer of
+    its records than were launched is measured again in the same way, and
+    when every window came short this returns None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.tools.decode_profile import _kernel_us
 
+    short = None
     for attempt in range(EMPTY_WINDOW_RETRIES + 1):
         for i in range(warmup):
             fn(i)
         torch.cuda.synchronize()
+        before = counted[0]() if counted else 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(0.02)
@@ -841,19 +850,33 @@ def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(0.02)
+        launched = counted[0]() - before if counted else 0
+        evts = [evt for evt in prof.key_averages()
+                if _kernel_us(evt) > 0 and "spin_kernel" not in evt.key]
+        mine = [evt for evt in evts if counted and counted[1] in evt.key]
+        kept = sum(evt.count for evt in mine)
+        if kept < launched:
+            short = (kept, launched)
+            empty_windows.append(attempt)
+            print(f"device_ms: a profiler window kept {kept} of the "
+                  f"{launched} {counted[1]} records launched (attempt "
+                  f"{attempt + 1}; {len(empty_windows)} re-measured windows "
+                  f"in this run so far)", flush=True)
+            continue
         # microseconds a call: each kernel's mean times its launches a call
-        us = sum(_kernel_us(evt) / evt.count * round(evt.count / iters)
-                 for evt in prof.key_averages()
-                 if _kernel_us(evt) > 0 and "spin_kernel" not in evt.key)
+        us = sum(_kernel_us(evt) / evt.count * (
+            launched / iters if evt in mine else round(evt.count / iters))
+            for evt in evts)
         if us > 0:
             return us / 1e3
         empty_windows.append(attempt)
-        held = {evt.key[:40]: evt.count for evt in prof.key_averages()
-                if _kernel_us(evt) > 0}
+        held = {evt.key[:40]: evt.count for evt in evts}
         print(f"device_ms: a profiler window read no device time (attempt "
               f"{attempt + 1}; {len(empty_windows)} in this run so far; "
               f"kernel records it held, of {iters} calls: {held})",
               flush=True)
+    if short is not None:
+        return None
     fail("torch.profiler shows no device time for a timed call")
 
 
@@ -993,19 +1016,28 @@ def _bound(kind: str, W: int, q, lengths) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def paged_probe() -> float:
+def _ms_or_none(ms) -> str:
+    return "not measured (every window came short)" if ms is None \
+        else f"{ms:.4f} ms"
+
+
+def paged_probe():
     """Device ms a call of the paged kernel at the float32 W=1 shape (one
-    fixed draw), timed by ``device_ms``: at the start of the kernels phase
-    and again at the end of the script, in one process, to see whether
-    torch.profiler's windows keep their records over a long process
-    (ROADMAP C.2).  A record, not a check."""
+    fixed draw), timed by ``device_ms`` against the wrapper's launch
+    counter: at the start of the kernels phase and again after the
+    parallel phase, in one process, to see whether torch.profiler's
+    windows keep their records over a long process (ROADMAP C.2).  None
+    when every window kept fewer split-kernel records than were launched.
+    A record, not a check."""
     from paddle_tpu_torch.ops.paged_attention import paged_attention
 
     q, kp, vp, tables, lengths = _kernel_inputs(
         "float32", 1, torch.device("cuda"), np.random.RandomState(7))
     qq, ll = q[:, 0], lengths[:, 0]
     return device_ms(lambda i: paged_attention(qq, kp, vp, i % KL, tables,
-                                               ll))
+                                               ll),
+                     counted=(lambda: paged_attention.launches,
+                              "paged_split_kernel"))
 
 
 def phase_kernels(card: str) -> dict:
@@ -1020,7 +1052,7 @@ def phase_kernels(card: str) -> dict:
 
     probe = paged_probe()
     print(f"C.2 probe, start of the kernels phase: paged_attention float32 "
-          f"W=1 device {probe:.4f} ms on {card}")
+          f"W=1 device {_ms_or_none(probe)} on {card}")
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     record = None
@@ -3983,6 +4015,24 @@ def _bn_case(label, n, c, h, w, dtype, dev, card) -> dict:
           f"{'ok' if ok else 'MISMATCH'}")
     check(ok, f"{name}: dx kernel disagrees with its plain version "
               f"({w_dx} of its limit)")
+    # the count argument (a rank's rows of a batch of 2 x N under data
+    # parallelism: M the global count), against the plain version with it
+    m2 = 2 * n * h * w
+    kdx2 = TB.bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, pb, pg, count=m2)
+    torch.cuda.synchronize()
+    pdx2 = TB.bn_bwd_dx_reference(dy, x, mean, rstd, gamma, pb, pg, m2)
+    top2 = float(pdx2.float().abs().max())
+    err2 = _abs(kdx2, pdx2)
+    w2 = (err2 / (BN_DX_REL * top2) if kind == "float32" else
+          _worst(kdx2, pdx2, 2 * BF16_U * pdx2.float().abs()
+                 + BN_BF16_SUM_REL * top2))
+    print(f"kernel {name}: dx with count M = {m2} (twice the batch's) "
+          f"max|d|={err2:.3e}, worst |d|/limit {w2:.3f} "
+          f"{'ok' if w2 <= 1.0 else 'MISMATCH'}")
+    check(w2 <= 1.0 and not torch.equal(kdx2, kdx),
+          f"{name}: dx kernel with a count argument disagrees with its "
+          f"plain version ({w2} of its limit) or ignores it")
+    del kdx2, pdx2
     if label != "probe":
         return {}
 
@@ -6629,6 +6679,278 @@ def phase_parallel(card: str) -> dict:
     return out
 
 
+# the mesh phase (this slice): C.13's batch reductions under {dp 2}, the
+# pipeline + expert leg on {pp 2, ep 2}, the serving mesh; one gang of 4
+# ranks over gloo on one card (ranks 2-3 idle in the {dp 2} leg)
+MESH_RANKS = 4
+C13_LOSS_RTOL = 1e-4
+C13_GRAD_REL = 1e-3
+C13_STAT_REL = 1e-5
+C13_BN_LAYERS = 2
+PPEP_RTOL, PPEP_ATOL = 2e-3, 1e-4
+PPEP_LM = dict(d_ff=2048, experts=4, stages=4, micro=8, cf=1.25, classes=8)
+PPEP_LM_ROWS, PPEP_LM_D = 8192, 512
+SERVE_MESHES = ("data=4", "fsdp=2,tp=2")
+MESH_LOGIT_TOL = 2e-5        # the reference's rtol = atol
+MESH_GREEDY_FLOOR = 0.98     # C.5
+
+
+def _startup_arrays(build: str, kw: dict) -> tuple:
+    """(the startup program's arrays, the parameter names) of a
+    ``parallel_cases`` builder, drawn on the CPU."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.types import Place
+    from paddle_tpu_torch.tools import parallel_cases as pc
+
+    fluid.reset_default_programs()
+    fluid.reset_global_scope()
+    pc.BUILDERS[build](fluid, None, **kw)
+    exe = fluid.Executor(Place("cpu"))
+    exe.run(fluid.default_startup_program())
+    scope = fluid.global_scope()
+    return ({n: np.asarray(scope.find_var(n).numpy())
+             for n in scope.var_names()},
+            sorted(p.name for p in fluid.default_main_program().parameters()))
+
+
+def _c13_specs() -> dict:
+    rng = np.random.RandomState(11)
+    cases = {
+        "mlp_sum": ({"momentum": True},
+                    {"x": rng.rand(8, 8).astype("float32"),
+                     "y": rng.randint(0, 4, (8, 1)).astype("int32")}),
+        "conv_bn": ({}, {"img": rng.randn(8, 16, 32, 32).astype("float32"),
+                         "lab": rng.randint(0, 10, (8, 1)).astype("int32")})}
+    specs = {}
+    for build, (kw, feed) in cases.items():
+        init, params = _startup_arrays(build, kw)
+        stats = sorted(n for n in init if n.endswith((".m", ".v")))
+        specs[f"c13 {build}"] = dict(
+            kind="c13", build=build, kw=kw, init=init, feeds=[feed],
+            fetch=[p + "@GRAD" for p in params], state=params + stats,
+            mesh={"dp": 2}, device="cuda")
+    specs["c13 accuracy"] = dict(kind="refusal", which=["accuracy"],
+                                 mesh={"dp": 2}, device="cuda")
+    return specs
+
+
+def _serve_reqs() -> list:
+    """16 greedy requests: the serve phase's prompt and length draws."""
+    rng = np.random.RandomState(1)
+    V = LM_CFG["vocab_size"]
+    return [(rng.randint(2, V, rng.randint(16, 513)).astype(np.int32),
+             int(rng.randint(32, 65))) for _ in range(16)]
+
+
+def phase_mesh(card: str) -> dict:
+    """ROADMAP C.13's repair and A.9 part 2 on the card, one gang of 4
+    gloo ranks sharing it, each leg held to the single card's run of the
+    same program (see PERF.md section 2)."""
+    import functools
+
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.models import init_lm_params
+    from paddle_tpu_torch.ops.batch_norm import batch_norm_train
+    from paddle_tpu_torch.serving import ContinuousDecodeEngine
+    from paddle_tpu_torch.tools import dryrun_multichip as dry
+    from paddle_tpu_torch.tools import parallel_cases as pc
+
+    specs = _c13_specs()
+    refs = {}
+    for label, sp in specs.items():
+        if sp["kind"] != "c13":
+            continue
+        batch_norm_train.launches.update(reduce=0, dx=0)
+        refs[label] = pc.program_case(dict(sp, mesh=None))
+        refs[label]["bn"] = dict(batch_norm_train.launches)
+    _release()
+    rng = np.random.RandomState(12)
+    ppep_feeds = {"ppep dryrun": dry.ppep_feed(MESH_RANKS),
+                  "ppep lm": {"x": rng.randn(PPEP_LM_ROWS, PPEP_LM_D)
+                              .astype("float32"),
+                              "lab": rng.randint(0, PPEP_LM["classes"],
+                                                 (PPEP_LM_ROWS, 1))
+                              .astype("int32")}}
+    ppep_dims = {"ppep dryrun": {}, "ppep lm": PPEP_LM}
+    for label, feed in ppep_feeds.items():
+        rec = {}
+        torch.cuda.reset_peak_memory_stats()
+        refs[label] = {"losses": dry.ppep_two_steps(
+            MESH_RANKS, feed, record=rec, **ppep_dims[label]),
+            "ms": rec["ms"],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        specs[label] = dict(kind="ppep", n=MESH_RANKS, feed=feed,
+                            dims=ppep_dims[label], device="cuda")
+        _release()
+    reqs = _serve_reqs()
+    cfg = dict(ENGINE_CFG, **LM_CFG)
+    single = ContinuousDecodeEngine(init_lm_params(0, **LM_CFG), **cfg)
+    single.warm()
+    probe = single.step_logits(*pc.probe_inputs(single))
+    streams, _, handles, wall = pc.drive_scheduler(single, 0, 0, reqs=reqs)
+    refs["serve"] = {"probe": probe, "streams": streams, "wall_s": wall,
+                     "ttft_ms": [1e3 * (h.t_first_token - h.t_submit)
+                                 for h in handles],
+                     "steps": sum(single.step_dispatches.values())}
+    del single
+    _release()
+    for m in SERVE_MESHES:
+        specs[f"serve {m}"] = dict(
+            kind="serve", mesh=m, cfg=cfg, reqs=reqs, device="cuda",
+            params=functools.partial(init_lm_params, 0, **LM_CFG))
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(pc.run_cases, MESH_RANKS, specs, True,
+                              device="cuda:0",
+                              timeout_s=900, group_timeout_s=300)
+    gang_s = time.perf_counter() - t0
+    print(f"mesh: gang of {MESH_RANKS} gloo ranks on one card, {gang_s:.1f} "
+          f"s with start-up; on {card}")
+    out = {"gang_s": gang_s}
+
+    # C.13: {dp 2} against the single card, one Momentum step
+    for label in ("c13 mlp_sum", "c13 conv_bn"):
+        ref, sp = refs[label], specs[label]
+        live = [r[label] for r in ranks if not r[label].get("idle")]
+        check(len(live) == 2, f"{label}: {len(live)} ranks ran it")
+        for r in live:
+            lg, lr = (float(np.ravel(x[0])[0]) for x in (r["steps"][0],
+                                                         ref["steps"][0]))
+            check(abs(lg - lr) <= C13_LOSS_RTOL * abs(lr),
+                  f"{label}: loss {lg} vs the single card's {lr}")
+            worst = 0.0
+            for name, g, w in zip(sp["fetch"], r["steps"][0][1:],
+                                  ref["steps"][0][1:]):
+                e = float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
+                                                     1e-30)
+                check(e <= C13_GRAD_REL, f"{label}: {name} off by {e:.3e} "
+                                         f"of its max abs")
+                worst = max(worst, e)
+            stat_worst = 0.0
+            for name in sp["state"]:
+                if name.endswith((".m", ".v")):
+                    w = ref["state"][name]
+                    e = float(np.abs(r["state"][name] - w).max()) / max(
+                        float(np.abs(w).max()), 1e-30)
+                    check(e <= C13_STAT_REL, f"{label}: running statistic "
+                                             f"{name} off by {e:.3e}")
+                    stat_worst = max(stat_worst, e)
+            want_bn = ({"reduce": C13_BN_LAYERS, "dx": C13_BN_LAYERS}
+                       if label.endswith("conv_bn") else {"reduce": 0,
+                                                           "dx": 0})
+            check(r["bn"] == want_bn,
+                  f"{label}: batch-norm launches "
+                                      f"{r['bn']} a rank, want {want_bn}")
+        out[label] = {"loss": lg, "ref_loss": lr, "grad_worst": worst,
+                      "stat_worst": stat_worst,
+                      "bn": [r["bn"] for r in live]}
+        print(f"mesh {label}: dp 2, loss {lg:.6f} vs single card {lr:.6f}; "
+              f"worst gradient {worst:.2e} of max abs; running statistics "
+              f"{stat_worst:.2e}; batch-norm launches by rank "
+              f"{[r['bn'] for r in live]}; on {card}")
+    acc = ranks[0]["c13 accuracy"]["accuracy"]
+    check(acc["error"] is not None and "C.13" in acc["error"]
+          and acc["step_counter"] == 0,
+          f"mesh c13: accuracy under dp 2 was not refused before its first "
+          f"op: {acc}")
+    print(f"mesh c13 accuracy: refused before the first op under dp 2 "
+          f"({acc['error'][:60]}...)")
+
+    # pp + ep against the single card's sequential fold
+    for label in ppep_feeds:
+        ref = refs[label]
+        got = [r[label] for r in ranks]
+        for r in got:
+            check(r["losses"] == got[0]["losses"],
+                  f"{label}: ranks disagree on the losses")
+        l1, l2 = got[0]["losses"]
+        # the reference's contract: the fold's losses; the dry run's
+        # program also learns (the LM-width arm's Adam(1e-2) step on random
+        # rows need not)
+        check(np.allclose([l1, l2], ref["losses"], rtol=PPEP_RTOL,
+                          atol=PPEP_ATOL)
+              and (l2 < l1 or label != "ppep dryrun"),
+              f"{label}: losses {[l1, l2]} vs the fold's {ref['losses']}")
+        out[label] = {"losses": [l1, l2], "ref_losses": ref["losses"],
+                      "ms": [r["ms"] for r in got],
+                      "ref_ms": ref["ms"],
+                      "peak_gib": [r["peak_bytes"] / 2 ** 30 for r in got],
+                      "ref_peak_gib": ref["peak_bytes"] / 2 ** 30}
+        print(f"mesh {label}: pp 2 x ep 2, losses {l1:.6f} -> {l2:.6f} vs "
+              f"the single card's fold {ref['losses'][0]:.6f} -> "
+              f"{ref['losses'][1]:.6f}; ms a step by rank "
+              f"{[[round(m, 1) for m in r['ms']] for r in got]} (fold "
+              f"{[round(m, 1) for m in ref['ms']]}); peak GiB by rank "
+              f"{[round(g, 3) for g in out[label]['peak_gib']]} (fold "
+              f"{out[label]['ref_peak_gib']:.3f}); on {card}")
+
+    # the serving mesh against the single card's engine
+    ref = refs["serve"]
+    n_layers = LM_CFG["n_layers"]
+    for m in SERVE_MESHES:
+        label = f"serve {m}"
+        got = [r[label] for r in ranks]
+        for r in got:
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(r["streams"], got[0]["streams"])),
+                  f"mesh {label}: ranks disagree on the tokens")
+            check(r["blocks"]["leaked"] == 0 and r["blocks"]["occupied"] == 0,
+                  f"mesh {label}: blocks leaked {r['blocks']}")
+            check(r["paged"] == n_layers * r["steps"] and r["steps"] > 0,
+                  f"mesh {label}: {r['paged']} paged launches for "
+                  f"{r['steps']} steps x {n_layers} layers")
+        g = got[0]
+        err = float(np.abs(g["logits"] - ref["probe"]).max())
+        bitwise = bool(np.array_equal(g["logits"], ref["probe"]))
+        check(np.allclose(g["logits"], ref["probe"], rtol=MESH_LOGIT_TOL,
+                          atol=MESH_LOGIT_TOL),
+              f"mesh {label}: step logits off the single card's by {err:.3e}")
+        rate = _match_rate(g["streams"], ref["streams"])
+        exact = sum(np.array_equal(a, b) for a, b in zip(g["streams"],
+                                                         ref["streams"]))
+        check(rate >= MESH_GREEDY_FLOOR,
+              f"mesh {label}: greedy match {rate:.4f}")
+        if m.startswith("data"):
+            check(isinstance(g["warm"], int) and g["warm"] > 0,
+                  f"mesh {label}: warm() {g['warm']!r}")
+            for r in got:
+                check(r["replays"] == r["steps"] + r["prefills"],
+                      f"mesh {label}: replays {r['replays']} != dispatches "
+                      f"{r['steps']} + {r['prefills']}")
+                check(r["pool_heads"] == LM_CFG["n_heads"],
+                      f"mesh {label}: pool heads {r['pool_heads']}")
+        else:
+            check(isinstance(g["warm"], str) and "gloo" in g["warm"],
+                  f"mesh {label}: warm() should raise WarmError, gave "
+                  f"{g['warm']!r}")
+            for r in got:
+                check(r["pool_heads"] == LM_CFG["n_heads"] // 2,
+                      f"mesh {label}: pool heads {r['pool_heads']}")
+        tokens = sum(len(s) for s in g["streams"])
+        rec = {"tokens_s": [tokens / r["wall_s"] for r in got],
+               "mean_step_ms": [1e3 * r["wall_s"] / r["steps"] for r in got],
+               "ttft_p50_ms": [float(np.median(r["ttft_ms"])) for r in got],
+               "paged": [r["paged"] for r in got],
+               "steps": [r["steps"] for r in got],
+               "logit_err": err, "bitwise": bitwise, "match_rate": rate,
+               "exact_streams": int(exact),
+               "warm": g["warm"] if isinstance(g["warm"], int) else
+               "WarmError"}
+        out[label] = rec
+        print(f"mesh {label}: step logits {'bitwise' if bitwise else 'not bitwise'}"
+              f" ({err:.3e} max off the single card's); greedy match "
+              f"{rate:.4f}, {exact} of {len(reqs)} streams exact; warm "
+              f"{rec['warm']}; paged launches by rank {rec['paged']} "
+              f"(= {n_layers} x steps {rec['steps']}); tokens/s by rank "
+              f"{[round(t, 1) for t in rec['tokens_s']]}, mean step ms "
+              f"{[round(t, 2) for t in rec['mean_step_ms']]}, TTFT p50 ms "
+              f"{[round(t, 1) for t in rec['ttft_p50_ms']]} (single card "
+              f"{tokens / ref['wall_s']:.1f} tokens/s, "
+              f"{1e3 * ref['wall_s'] / ref['steps']:.2f} ms a step, TTFT "
+              f"p50 {float(np.median(ref['ttft_ms'])):.1f} ms); no block "
+              f"leaked; on {card}")
+    return out
+
+
 def _par_launches(par: dict, which: str, kern: str) -> dict:
     """The parallel phase's launches of one kernel, by leg and rank."""
     return {f"parallel {label} rank {i}": counts[kern]
@@ -6703,13 +7025,18 @@ def main() -> int:
     _release()
     par = _timed("parallel", phase_parallel, card)
     _release()
+    # the C.2 probe runs where earlier runs took it, after the parallel
+    # phase; the mesh phase after it profiles nothing
     probe_end = paged_probe()
+    mesh = _timed("mesh", phase_mesh, card)
+    _release()
+    start = rec["c2_probe_start_device_ms"]
     print(f"C.2 probe: paged_attention float32 W=1 device "
-          f"{rec['c2_probe_start_device_ms']:.4f} ms at the start of the "
-          f"kernels phase, {probe_end:.4f} ms at the end of the script "
-          f"(end / start {probe_end / rec['c2_probe_start_device_ms']:.4f}; "
-          f"a record, not a check); profiler windows that read no device "
-          f"time and were re-measured: {len(empty_windows)}; on {card}")
+          f"{_ms_or_none(start)} at the start of the kernels phase, "
+          f"{_ms_or_none(probe_end)} after the parallel phase (end / start "
+          f"{probe_end / start if start and probe_end else None}; a record, "
+          f"not a check); profiler windows that read no device time or came "
+          f"short and were re-measured: {len(empty_windows)}; on {card}")
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
@@ -6720,7 +7047,9 @@ def main() -> int:
         "launches": paths["w1_mixed_pass"]["launches"], **rec,
         "c2_probe_end_device_ms": probe_end,
         "c2_empty_profiler_windows": len(empty_windows),
-        "launches_by_path": paths,
+        "launches_by_path": dict(paths, **{
+            f"mesh {m} rank {i}": n for m in SERVE_MESHES
+            for i, n in enumerate(mesh[f"serve {m}"]["paged"])}),
     }]
     replaces = {"fwd": "paddle_tpu/ops/attention.py:39",
                 "bwd_dkdv": "paddle_tpu/ops/attention.py:223",
@@ -6796,7 +7125,9 @@ def main() -> int:
                 **{a: r["bn_launches"][kern]
                    for a, r in ssd["train"].items()},
                 **{f"{a} warmed": r["warmed_bn_launches"][kern]
-                   for a, r in ssd["train"].items()}),
+                   for a, r in ssd["train"].items()},
+                **{f"mesh c13 conv_bn dp 2 rank {i}": b[kern]
+                   for i, b in enumerate(mesh["c13 conv_bn"]["bn"])}),
             "float32": bn["float32"][kern],
         })
     replaces = {"igemm": "benchmark/conv_probe.py:62",

@@ -55,7 +55,7 @@ rows (and sequence positions), the state sliced to its shards, the ops
 given the mesh and the step's layout in their ``OpContext``, the
 replicated gradients averaged after the backward op, the optimizer ops
 under ZeRO-1 on the rank's slices, the fetches gathered back whole.
-``warm`` under a Strategy raises ``WarmError`` (ROADMAP A.9 part 2).
+``warm`` under a Strategy raises ``WarmError`` (ROADMAP A.9 part 3).
 """
 from __future__ import annotations
 
@@ -270,6 +270,7 @@ class Executor:
         layout, strategy = None, self.strategy
         if strategy is not None:
             feed_vals, layout = strategy.shard_feed(program, feed_vals)
+            strategy.check_batch_ops(program, layout)
             state = strategy.local_state(program, state)
         fetches, new_state = step(state, feed_vals, scope.step_counter,
                                   layout)
@@ -321,7 +322,7 @@ class Executor:
         if self.strategy is not None:
             raise WarmError(
                 "warm under a Strategy is not ported yet (ROADMAP A.9 part "
-                "2: NCCL collectives can be captured in a CUDA graph, gloo's "
+                "3: NCCL collectives can be captured in a CUDA graph, gloo's "
                 "cannot); run() runs the sharded step eagerly")
         check_capturable(program)
         scope = scope or global_scope()

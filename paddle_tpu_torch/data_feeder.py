@@ -80,8 +80,8 @@ class DeviceFeeder:
                  device=None):
         if sharding is not None:
             raise NotImplementedError(
-                "DeviceFeeder(sharding=...) is not ported yet: parallel "
-                "layouts are ROADMAP A.9")
+                "DeviceFeeder(sharding=...) is not ported yet: ROADMAP A.9 "
+                "part 3")
         self._reader = feed_reader
         self._depth = depth
         self.device = resolve_device(device)

@@ -128,9 +128,11 @@ def embedding(
     clamped, as JAX's clip), and a backward that drops the ``padding_idx``
     row's cotangent (and out-of-range ids') instead of only masking the
     output, so the padding row's gradient is exactly zero even under a
-    non-finite cotangent.  Tables are not sharded over a mesh yet (ROADMAP
-    A.9), so, as the reference does for an unsharded table, the first such
-    layer warns once that no sharding applies."""
+    non-finite cotangent.  A table sharded on its vocab dim takes the
+    vocab-parallel lookup under a Strategy (``parallel/tp.py``); the sparse
+    engine's lookup on such a table is ROADMAP A.9 part 3.  As the
+    reference does for an unsharded table, the first ``is_sparse`` layer
+    warns once that no sharding applies."""
     helper = LayerHelper("embedding", name=name)
     table = helper.create_parameter(
         param_attr, list(size), dtype, default_initializer=Normal(0.0, 0.02)
@@ -144,16 +146,15 @@ def embedding(
     if is_sparse and tspec:
         raise NotImplementedError(
             "embedding(is_sparse=True) on a sharded table is not ported "
-            "yet: ROADMAP A.9 part 2")
+            "yet: ROADMAP A.9 part 3")
     if is_sparse:
         global _sparse_fallback_warned
         if not _sparse_fallback_warned:
             _sparse_fallback_warned = True
             warnings.warn(
                 "embedding(is_sparse=True) on an unsharded table: no mesh "
-                "sharding applies (sharded tables are ROADMAP A.9), so the "
-                "lookup is the dense gather with the sparse engine's "
-                "padding_idx cotangent fix.",
+                "sharding applies, so the lookup is the dense gather with "
+                "the sparse engine's padding_idx cotangent fix.",
                 stacklevel=2)
 
     def fn(ctx, ids, tab, padding_idx, is_sparse, _axis=tspec[:1]):
@@ -551,7 +552,11 @@ def batch_norm(
         sblock.append_op(Op("init", {}, {"Out": [var_name]}, {},
                             lambda i, a, c: init_fn(i, a, c, 1.0)))
 
-    def fn(ctx, a, sc, bs, mu, var, is_test, momentum, epsilon, ch_axis):
+    batch_major = bool(input.shape) and input.shape[0] is None
+    seq = seq_axis_of(input)
+
+    def fn(ctx, a, sc, bs, mu, var, is_test, momentum, epsilon, ch_axis,
+           _batch=batch_major, _seq=seq):
         axis = ch_axis % a.dim()
         if is_test:
             bshape = [1] * a.dim()
@@ -562,8 +567,12 @@ def batch_norm(
             out = (a * scale_eff.to(a.dtype).reshape(bshape)
                    + bias_eff.to(a.dtype).reshape(bshape))
             return out, mu, var
+        # under a Strategy the statistics are the global batch's (ROADMAP
+        # C.13): the sums over the data groups
+        lay = ctx.layout
+        groups = lay.data_groups(_seq) if lay is not None and _batch else ()
         out, bmean, bvar = batch_norm_train(
-            a if axis == 1 else a.movedim(axis, 1), sc, bs, epsilon)
+            a if axis == 1 else a.movedim(axis, 1), sc, bs, epsilon, groups)
         new_mu = momentum * mu + (1 - momentum) * bmean.to(mu.dtype)
         new_var = momentum * var + (1 - momentum) * bvar.to(var.dtype)
         return (out if axis == 1 else out.movedim(1, axis), new_mu.detach(),

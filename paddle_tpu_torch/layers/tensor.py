@@ -166,18 +166,61 @@ _REDUCE = {
 }
 
 
+def _reduced_dims(x: Variable, dim) -> tuple:
+    """The dims of ``x`` a reduce layer's ``dim`` names, sorted."""
+    nd = len(x.shape or ())
+    axis = (tuple(dim) if isinstance(dim, (list, tuple))
+            else None if dim is None else (dim,))
+    return tuple(sorted({d % nd for d in (range(nd) if axis is None
+                                           else axis)})) if nd else ()
+
+
+def _batch_groups(lay, batch: bool, seq) -> list:
+    """The groups a reduction over the batch (``batch``) and the sequence
+    (``seq``, the input's ``SeqAxis`` where dim 1 is reduced) of a
+    sharded step sums over: dp, and sp for a sharded sequence."""
+    if lay is None:
+        return []
+    axes = ([lay.data_axis] if batch and lay.data_axis else []) + (
+        [seq] if lay.sharded(seq) else [])
+    return [lay.mesh.group(a) for a in axes]
+
+
 def _reduce(op_type):
     tfn = _REDUCE[op_type]
 
     def layer(x: Variable, dim=None, keep_dim: bool = False, name=None):
         """Reduce over ``dim`` (an int, a list of ints, or None for every
-        axis), keeping the reduced axes as size 1 when ``keep_dim``."""
+        axis), keeping the reduced axes as size 1 when ``keep_dim``.  Under
+        a Strategy that shards the batch (or the sequence), a reduction
+        over dim 0 (or dim 1) of a batch-major input is taken over the
+        global tensor, and every rank gets the global value: sum and mean
+        through ``comm.sum_from`` / ``mean_from``, max and min through
+        ``comm.extreme_from`` (a tie's gradient split over every rank's
+        ties); ``reduce_prod`` over the batch is refused before the step
+        (``Strategy.check_batch_ops``, ROADMAP C.13)."""
         helper = LayerHelper(op_type, name=name)
         axis = (tuple(dim) if isinstance(dim, (list, tuple))
                 else None if dim is None else (dim,))
+        dims = _reduced_dims(x, dim)
+        batch = bool(x.shape) and x.shape[0] is None and 0 in dims
+        seq = seq_axis_of(x) if 1 in dims else None
+
+        def fn(ctx, a, axis, keep_dim, _dims=dims, _batch=batch, _seq=seq):
+            groups = _batch_groups(ctx.layout, _batch, _seq)
+            if not groups:
+                return tfn(a, axis, keep_dim)
+            from ..parallel import comm
+
+            if op_type == "reduce_sum":
+                return comm.sum_from(tfn(a, axis, keep_dim), groups)
+            if op_type == "reduce_mean":
+                return comm.mean_from(tfn(a, axis, keep_dim), groups)
+            m = comm.extreme_from(a, _dims, groups, op_type[len("reduce_"):])
+            return m if keep_dim else m.squeeze(_dims)
+
         return helper.append_op(
-            lambda ctx, a, axis, keep_dim: tfn(a, axis, keep_dim),
-            {"X": [x]}, attrs={"axis": axis, "keep_dim": keep_dim},
+            fn, {"X": [x]}, attrs={"axis": axis, "keep_dim": keep_dim},
             op_type=op_type)
 
     layer.__name__ = op_type

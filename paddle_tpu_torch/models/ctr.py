@@ -32,10 +32,6 @@ def _field_embeddings(sparse_ids, vocabs, dim, prefix, shard_spec=None,
     lookups."""
     from ..param_attr import ParamAttr
 
-    if shard_spec is not None:
-        raise NotImplementedError(
-            "ctr's shard_spec (field tables sharded over a mesh) is not "
-            "ported yet: ROADMAP A.9 part 2")
     embs = []
     for f, v in enumerate(vocabs):
         ids_f = layers.reshape(sparse_ids[:, f], [-1, 1])

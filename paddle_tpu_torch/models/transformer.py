@@ -20,7 +20,7 @@ Numerics follow the JAX package:
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -313,21 +313,41 @@ def _srv_cast_params(params: Params, cd) -> Params:
             for n, v in params.items()}
 
 
+class SrvShard(NamedTuple):
+    """A rank's part in the serving forms when tensor parallelism splits
+    them (``serving/mesh.py``); ``shard=None`` in the forms is one device.
+    ``row_reduce(name, y)``: the product ``y`` of row-parallel weight
+    ``name`` summed over the ranks (``y`` itself for a weight held whole);
+    ``vocab_block(w)``: the rank's columns of a head weight [D, V];
+    ``head_gather(y)``: the logits' vocab blocks gathered."""
+    row_reduce: Callable
+    vocab_block: Callable
+    head_gather: Callable
+
+
+def _whole(name, y):
+    return y
+
+
 def _srv_qkv(prm, nm, x, cd):
     h = _srv_ln(x, prm[f"{nm}.ln1.g"], prm[f"{nm}.ln1.b"], cd)
     return tuple(_srv_mmul(h, prm[f"{nm}.{s}.w"], cd) for s in ("q", "k", "v"))
 
 
-def _srv_attn_out_ffn(prm, nm, x, o, cd):
-    """Output projection + residual, then the FFN sublayer."""
-    x = x + _srv_mmul(o, prm[f"{nm}.o.w"], cd) + prm[f"{nm}.o.b"].to(cd)
+def _srv_attn_out_ffn(prm, nm, x, o, cd, shard=None):
+    """Output projection + residual, then the FFN sublayer (the o and ff2
+    products summed over tp by ``shard``)."""
+    red = _whole if shard is None else shard.row_reduce
+    x = x + red(f"{nm}.o.w", _srv_mmul(o, prm[f"{nm}.o.w"], cd)) \
+        + prm[f"{nm}.o.b"].to(cd)
     h2 = _srv_ln(x, prm[f"{nm}.ln2.g"], prm[f"{nm}.ln2.b"], cd)
     f = F.gelu(_srv_mmul(h2, prm[f"{nm}.ff1.w"], cd)
                + prm[f"{nm}.ff1.b"].to(cd), approximate="tanh")
-    return x + _srv_mmul(f, prm[f"{nm}.ff2.w"], cd) + prm[f"{nm}.ff2.b"].to(cd)
+    return x + red(f"{nm}.ff2.w", _srv_mmul(f, prm[f"{nm}.ff2.w"], cd)) \
+        + prm[f"{nm}.ff2.b"].to(cd)
 
 
-def _srv_block_full(prm, nm, x, n_heads, Dh, scale, cd):
+def _srv_block_full(prm, nm, x, n_heads, Dh, scale, cd, shard=None):
     """Prefill block: full causal attention over x [N, T, D]; returns the new
     x and this layer's head-major K/V [N, H, T, Dh]."""
     q, k, v = _srv_qkv(prm, nm, x, cd)
@@ -343,38 +363,53 @@ def _srv_block_full(prm, nm, x, n_heads, Dh, scale, cd):
     s = torch.where(mask, s, torch.full_like(s, -1e9))
     a = torch.softmax(s, dim=-1).to(cd)
     o = torch.matmul(a.to(torch.float32), vh.to(torch.float32)).to(cd)
-    o = o.transpose(-3, -2).reshape(x.shape)
-    x = _srv_attn_out_ffn(prm, nm, x, o, cd)
+    o = o.transpose(-3, -2).reshape(x.shape[:-1] + (-1,))
+    x = _srv_attn_out_ffn(prm, nm, x, o, cd, shard)
     return x, kh, vh
 
 
 def lm_forward(prm: Params, tokens: torch.Tensor, *, n_heads: int,
-               n_layers: int, cd=None, collect_kv: bool = False):
+               n_layers: int, cd=None, collect_kv: bool = False,
+               head_dim=None, shard=None):
     """Full causal forward over tokens [N, T]: returns (final-layernormed
     x [N, T, D], per-layer [(kh, vh)] head-major K/V when ``collect_kv``
-    else None).  ``prm`` must already be cast via ``_srv_cast_params``."""
-    cd = cd or prm["tok_emb"].dtype
-    d_model = prm["tok_emb"].shape[1]
-    Dh = d_model // n_heads
+    else None).  ``prm`` must already be cast via ``_srv_cast_params``, or
+    be a rank's view of its shards (``serving.mesh.ShardedParams``, with
+    ``n_heads`` the rank's heads of width ``head_dim`` and its
+    ``shard``)."""
+    tok = prm["tok_emb"]
+    cd = cd or tok.dtype
+    Dh = head_dim or tok.shape[1] // n_heads
     scale = 1.0 / math.sqrt(Dh)
     tokens = tokens.long()
     T = tokens.shape[1]
-    x = (prm["tok_emb"][tokens] + prm["pos_emb"][None, :T]).to(cd)
+    x = (tok[tokens] + prm["pos_emb"][None, :T]).to(cd)
     kvs = [] if collect_kv else None
     for i in range(n_layers):
-        x, kh, vh = _srv_block_full(prm, f"blk{i}", x, n_heads, Dh, scale, cd)
+        x, kh, vh = _srv_block_full(prm, f"blk{i}", x, n_heads, Dh, scale, cd,
+                                    shard)
         if collect_kv:
             kvs.append((kh, vh))
     x = _srv_ln(x, prm["lnf.g"], prm["lnf.b"], cd)
     return x, kvs
 
 
+def _srv_head(head_w, x, shard=None):
+    """float32 logits of hidden states x [..., D] against ``head_w`` [V, D]
+    (operands upcast: a bfloat16 matmul would return bfloat16); under
+    ``shard`` the rank's vocab block, gathered."""
+    w = head_w.to(torch.float32).t()
+    if shard is None:
+        return torch.matmul(x.to(torch.float32), w)
+    return shard.head_gather(torch.matmul(x.to(torch.float32),
+                                          shard.vocab_block(w)))
+
+
 def lm_head_logits(prm: Params, x: torch.Tensor,
-                   tie_embeddings: bool = True) -> torch.Tensor:
-    """LM head over hidden states x [..., D] -> float32 logits [..., V]
-    (operands upcast: a bfloat16 matmul would return bfloat16)."""
-    head_w = prm["tok_emb"] if tie_embeddings else prm["lm_head.w"].t()
-    return torch.matmul(x.to(torch.float32), head_w.to(torch.float32).t())
+                   tie_embeddings: bool = True, shard=None) -> torch.Tensor:
+    """LM head over hidden states x [..., D] -> float32 logits [..., V]."""
+    return _srv_head(prm["tok_emb"] if tie_embeddings
+                     else prm["lm_head.w"].t(), x, shard)
 
 
 def _srv_block_decode(prm, nm, i, x, ck, cv, t, n_heads, Dh, scale, cd):
@@ -414,43 +449,51 @@ def lm_decode_step(prm: Params, token, pos, ck, cv, *, n_heads: int,
     return lm_head_logits(prm, x, tie_embeddings), ck, cv
 
 
-def _srv_block_decode_paged1(prm, nm, i, x, pk, pv, blk, off, tables,
-                             lengths, n_heads, Dh, scale, cd):
-    """One decode position per slot through layer ``i`` against the paged
-    pool: x [S, D]; write this position's K/V, then attend through the paged
-    attention kernel (its plain version on CPU tensors)."""
+def paged_window_coords(tables, pos0, limits, W: int, block_size: int,
+                        trash: int):
+    """(pos, blk, off) [S, W]: the positions of a decode window of W tokens
+    a slot from ``pos0`` [S] and their arena coordinates through the block
+    ``tables`` [S, n_tbl]; a position at or past its slot's ``limits``
+    maps to the ``trash`` block."""
+    tables, pos0, limits = tables.long(), pos0.long(), limits.long()
+    S, n_tbl = tables.shape
+    rows = torch.arange(S, device=tables.device)
+    pos = pos0[:, None] + torch.arange(W, device=tables.device)[None, :]
+    blk = tables[rows[:, None], torch.clamp(pos // block_size,
+                                            max=n_tbl - 1)]
+    blk = torch.where(pos < limits[:, None], blk, torch.full_like(blk, trash))
+    return pos, blk, pos % block_size
+
+
+def _srv_block_paged(prm, nm, i, x, pk, pv, blk, off, tables, lengths,
+                     hshape, scale, cd, shard=None, kv_out=None):
+    """A decode window through layer ``i`` against the paged pool: x [S, D]
+    with blk/off/lengths [S] (W = 1, the plain step) or x [S, W, D] with
+    them [S, W]; ``hshape`` the head-major form of q, k and v.  Every
+    row's K/V is written before any row attends (write-then-attend), then
+    each row attends causally over its slot's blocks through the paged
+    attention kernel (its plain version on CPU tensors).  ``kv_out`` =
+    (k, v) [L, S, W, H, Dh]: this layer's new rows are copied there too."""
     q, k, v = _srv_qkv(prm, nm, x, cd)
-    pk = _ops.paged_cache_set(pk, i, blk, off, k.reshape(-1, n_heads, Dh))
-    pv = _ops.paged_cache_set(pv, i, blk, off, v.reshape(-1, n_heads, Dh))
-    o = _ops.paged_attention(q.reshape(-1, n_heads, Dh), pk, pv, i, tables,
-                             lengths, scale=scale, out_dtype=cd)
-    x = _srv_attn_out_ffn(prm, nm, x, o.reshape(x.shape), cd)
-    return x, pk, pv
-
-
-def _srv_block_decode_paged(prm, nm, i, x, pk, pv, blk, off, tables, lengths,
-                            n_heads, Dh, scale, cd):
-    """A decode WINDOW through layer ``i``: x [S, W, D]; blk/off [S, W]
-    arena coordinates; lengths [S, W].  Every row's K/V is written before
-    any row attends (write-then-attend), then each window row attends
-    causally over its slot's blocks."""
-    q, k, v = _srv_qkv(prm, nm, x, cd)
-    S, W, _ = x.shape
-
-    def heads(z):
-        return z.reshape(S, W, n_heads, Dh)
-
-    pk = _ops.paged_cache_set_window(pk, i, blk, off, heads(k))
-    pv = _ops.paged_cache_set_window(pv, i, blk, off, heads(v))
-    o = _ops.paged_attention(heads(q), pk, pv, i, tables, lengths,
+    kh, vh = k.reshape(hshape), v.reshape(hshape)
+    if kv_out is not None:
+        kv_out[0][i].copy_(kh.reshape(kv_out[0][i].shape))
+        kv_out[1][i].copy_(vh.reshape(kv_out[1][i].shape))
+    set_kv = (_ops.paged_cache_set if x.dim() == 2
+              else _ops.paged_cache_set_window)
+    pk = set_kv(pk, i, blk, off, kh)
+    pv = set_kv(pv, i, blk, off, vh)
+    o = _ops.paged_attention(q.reshape(hshape), pk, pv, i, tables, lengths,
                              scale=scale, out_dtype=cd)
-    x = _srv_attn_out_ffn(prm, nm, x, o.reshape(S, W, -1), cd)
+    x = _srv_attn_out_ffn(prm, nm, x, o.reshape(x.shape[:-1] + (-1,)), cd,
+                          shard)
     return x, pk, pv
 
 
 def lm_paged_decode_window(prm: Params, toks, pos0, tables, limits, pk, pv, *,
                            n_heads: int, n_layers: int, block_size: int,
-                           cd=None, tie_embeddings: bool = True):
+                           cd=None, tie_embeddings: bool = True,
+                           head_dim=None, shard=None, kv_out=None):
     """A decode window of W tokens per slot against the paged KV pool:
     ``toks`` [S, W] (W = 1 is the plain step, W > 1 the speculative verify
     window), ``pos0`` [S] each slot's first window position, ``tables``
@@ -458,43 +501,32 @@ def lm_paged_decode_window(prm: Params, toks, pos0, tables, limits, pk, pv, *,
     (0 for an empty slot), pk/pv the arenas (written in place).  Window
     position j of slot s lands at pos0[s] + j and attends to positions
     < pos0[s] + j + 1.  Positions at or past the slot's limit write to the
-    trash block.  Returns (logits [S, W, V] float32, pk, pv)."""
-    cd = cd or prm["tok_emb"].dtype
-    d_model = prm["tok_emb"].shape[1]
-    max_len = prm["pos_emb"].shape[0]
-    Dh = d_model // n_heads
+    trash block.  Returns (logits [S, W, V] float32, pk, pv).  ``prm``,
+    ``n_heads``, ``head_dim`` and ``shard`` as ``lm_forward``'s (the
+    arenas then hold the rank's heads); ``kv_out`` as
+    ``_srv_block_paged``'s."""
+    tok, pe = prm["tok_emb"], prm["pos_emb"]
+    cd = cd or tok.dtype
+    Dh = head_dim or tok.shape[1] // n_heads
     scale = 1.0 / math.sqrt(Dh)
-    toks, pos0 = toks.long(), pos0.long()
-    tables, limits = tables.long(), limits.long()
+    toks, tables = toks.long(), tables.long()
     S, W = toks.shape
-    n_tbl = tables.shape[1]
-    trash = _ops.pool_arena(pk).shape[0] - 1
-    rows = torch.arange(S, device=toks.device)
+    pos, blk, off = paged_window_coords(tables, pos0, limits, W, block_size,
+                                        _ops.pool_arena(pk).shape[0] - 1)
+    x = (tok[toks] + pe[torch.clamp(pos, max=pe.shape[0] - 1)]).to(cd)
     if W == 1:
-        pos = pos0
-        blk = tables[rows, torch.clamp(pos // block_size, max=n_tbl - 1)]
-        blk = torch.where(pos < limits, blk, torch.full_like(blk, trash))
-        off = pos % block_size
-        x = (prm["tok_emb"][toks[:, 0]]
-             + prm["pos_emb"][torch.clamp(pos, max=max_len - 1)]).to(cd)
-        for i in range(n_layers):
-            x, pk, pv = _srv_block_decode_paged1(
-                prm, f"blk{i}", i, x, pk, pv, blk, off, tables, pos + 1,
-                n_heads, Dh, scale, cd)
-        x = _srv_ln(x, prm["lnf.g"], prm["lnf.b"], cd)
-        return lm_head_logits(prm, x, tie_embeddings)[:, None, :], pk, pv
-    pos = pos0[:, None] + torch.arange(W, device=toks.device)[None, :]
-    blk = tables[rows[:, None], torch.clamp(pos // block_size, max=n_tbl - 1)]
-    blk = torch.where(pos < limits[:, None], blk, torch.full_like(blk, trash))
-    off = pos % block_size
-    x = (prm["tok_emb"][toks]
-         + prm["pos_emb"][torch.clamp(pos, max=max_len - 1)]).to(cd)
+        # the plain step's forms: rows [S, D]
+        x, pos, blk, off = x[:, 0], pos[:, 0], blk[:, 0], off[:, 0]
+        hshape = (S, n_heads, Dh)
+    else:
+        hshape = (S, W, n_heads, Dh)
     for i in range(n_layers):
-        x, pk, pv = _srv_block_decode_paged(
-            prm, f"blk{i}", i, x, pk, pv, blk, off, tables, pos + 1,
-            n_heads, Dh, scale, cd)
+        x, pk, pv = _srv_block_paged(prm, f"blk{i}", i, x, pk, pv, blk, off,
+                                     tables, pos + 1, hshape, scale, cd,
+                                     shard, kv_out)
     x = _srv_ln(x, prm["lnf.g"], prm["lnf.b"], cd)
-    return lm_head_logits(prm, x, tie_embeddings), pk, pv
+    y = _srv_head(tok if tie_embeddings else prm["lm_head.w"].t(), x, shard)
+    return (y[:, None, :] if W == 1 else y), pk, pv
 
 
 def generate(
@@ -591,35 +623,43 @@ def generate(
 class TransformerLM(nn.Module):
     """The serving LM on one device: the cast parameters (held in a plain
     dict under their JAX names) and the forward forms the engine runs.
+    On a rank of a serving mesh ``params`` is the rank's view of its
+    shards (``serving.mesh.ShardedParams``), ``n_heads`` the rank's heads
+    of width ``head_dim`` and ``shard`` its tensor-parallel hooks.
     Inference only: nothing here tracks gradients."""
 
     def __init__(self, params: Params, *, n_heads: int, n_layers: int,
-                 tie_embeddings: bool = True):
+                 tie_embeddings: bool = True, cd=None, head_dim=None,
+                 shard=None):
         super().__init__()
         self.prm = params
         self.n_heads = int(n_heads)
         self.n_layers = int(n_layers)
         self.tie_embeddings = bool(tie_embeddings)
-        self.cd = params["tok_emb"].dtype
+        self.cd = cd or params["tok_emb"].dtype
+        self.head_dim = head_dim
+        self.shard = shard
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, collect_kv: bool = False):
         """Dense causal forward: (x [N, T, D], per-layer K/V or None)."""
         return lm_forward(self.prm, tokens, n_heads=self.n_heads,
                           n_layers=self.n_layers, cd=self.cd,
-                          collect_kv=collect_kv)
+                          collect_kv=collect_kv, head_dim=self.head_dim,
+                          shard=self.shard)
 
     @torch.no_grad()
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """float32 LM-head logits of hidden states x [..., D]."""
-        return lm_head_logits(self.prm, x, self.tie_embeddings)
+        return lm_head_logits(self.prm, x, self.tie_embeddings, self.shard)
 
     @torch.no_grad()
     def decode_window(self, toks, pos0, tables, limits, pk, pv, *,
-                      block_size: int):
+                      block_size: int, kv_out=None):
         """``lm_paged_decode_window`` on this model's parameters."""
         return lm_paged_decode_window(
             self.prm, toks, pos0, tables, limits, pk, pv,
             n_heads=self.n_heads, n_layers=self.n_layers,
             block_size=block_size, cd=self.cd,
-            tie_embeddings=self.tie_embeddings)
+            tie_embeddings=self.tie_embeddings, head_dim=self.head_dim,
+            shard=self.shard, kv_out=kv_out)

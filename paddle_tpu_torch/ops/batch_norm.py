@@ -16,6 +16,9 @@ over NCHW-like input (channels on dim 1, any trailing dims):
   ``benchmark/bn_probe.py``'s Pallas ``_red_kernel`` and ``_dx_kernel``),
   or raises: there is no fallback.  On CPU tensors it runs their plain
   versions, :func:`bn_bwd_reduce_reference` and :func:`bn_bwd_dx_reference`.
+  The dx kernel takes M as an argument: under a Strategy's data axes the
+  statistics, dbeta and dgamma are the global batch's (see
+  :func:`batch_norm_train`).
 
 JAX differentiates the one-pass forward by autodiff (through mean, E[x^2]
 and the clamp at 0); the closed form is the same function's gradient
@@ -52,7 +55,7 @@ _build.declare("batch_norm.cu", "bn_bwd_reduce_launch", ctypes.c_int,
                + [ctypes.c_void_p])
 _build.declare("batch_norm.cu", "bn_bwd_dx_launch", ctypes.c_int,
                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-               + [ctypes.c_void_p])
+               + [ctypes.c_longlong, ctypes.c_void_p])
 
 
 # ------------------------------------------------------------ plain versions
@@ -78,10 +81,12 @@ def bn_bwd_reduce_reference(dy, x, mean, rstd):
     return dyf.sum(dims), (dyf * xhat).sum(dims)
 
 
-def bn_bwd_dx_reference(dy, x, mean, rstd, gamma, dbeta, dgamma):
+def bn_bwd_dx_reference(dy, x, mean, rstd, gamma, dbeta, dgamma, count=None):
     """Plain version of the dx kernel: gamma * rstd * (dy - dbeta / M -
-    xhat * dgamma / M) in float32, returned in dy's dtype."""
-    m = dy.numel() // max(dy.shape[1], 1)
+    xhat * dgamma / M) in float32, returned in dy's dtype; M is ``count``,
+    the values a channel that dbeta and dgamma sum over (by default this
+    batch's, N x HW)."""
+    m = count or dy.numel() // max(dy.shape[1], 1)
     g = gamma.to(torch.float32) * rstd
     xhat = (x.to(torch.float32) - _per_channel(mean, x)) * _per_channel(rstd,
                                                                         x)
@@ -200,17 +205,19 @@ def bn_bwd_reduce_kernel(dy, x, mean, rstd):
     return dbeta, dgamma
 
 
-def bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta, dgamma):
-    """One call of the dx kernel: dx in dy's dtype and shape."""
+def bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta, dgamma, count=None):
+    """One call of the dx kernel: dx in dy's dtype and shape; ``count`` is
+    M, as in the plain version."""
     dy, x = dy.contiguous(), x.contiguous()
     dx = torch.empty_like(x)
     n, c, hw, splits, vec, code = _geometry(dy, x, (dy, x, dx))
+    count = int(count or n * hw)
     mean, rstd, gamma, dbeta, dgamma = _channel_vectors(
         c, x.device, mean, rstd, gamma, dbeta, dgamma)
     _call("bn_bwd_dx_launch",
           (dy.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
            gamma.data_ptr(), dbeta.data_ptr(), dgamma.data_ptr(),
-           dx.data_ptr(), n, c, hw, splits, vec, code), x.device)
+           dx.data_ptr(), n, c, hw, splits, vec, code, count), x.device)
     batch_norm_train.launches["dx"] += 1
     return dx
 
@@ -223,26 +230,46 @@ def bn_bwd_reduce(dy, x, mean, rstd):
     return bn_bwd_reduce_kernel(dy, x, mean, rstd)
 
 
-def bn_bwd_dx(dy, x, mean, rstd, gamma, dbeta, dgamma):
+def bn_bwd_dx(dy, x, mean, rstd, gamma, dbeta, dgamma, count=None):
     """dx: the kernel on CUDA tensors, the plain version on CPU ones."""
     if x.device.type == "cpu":
-        return bn_bwd_dx_reference(dy, x, mean, rstd, gamma, dbeta, dgamma)
-    return bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta, dgamma)
+        return bn_bwd_dx_reference(dy, x, mean, rstd, gamma, dbeta, dgamma,
+                                   count)
+    return bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta, dgamma, count)
 
 
 # ------------------------------------------------------------------ public
 
 
+def _global_moments(x32, dims, groups):
+    """(mean, E[x^2], count) of each channel over this rank's rows and the
+    ranks of ``groups``: the float32 sums of x and x^2 all-reduced (one
+    call a group), the count the rank's times the ranks (a Strategy cuts
+    the batch into equal shards)."""
+    from ..parallel import comm
+
+    count = x32.numel() // max(x32.shape[1], 1)
+    sums = torch.stack([x32.sum(dims), torch.square(x32).sum(dims)])
+    for g in groups:
+        sums = comm.all_reduce(sums, g)
+        count *= comm.size(g)
+    return sums[0] / count, sums[1] / count, count
+
+
 class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        # the JAX package's training forward, statistics in float32
+    def forward(ctx, x, scale, bias, eps, groups):
+        # the JAX package's training forward, statistics in float32; under
+        # a Strategy over the global batch (the sums over the data groups)
         dims = _reduce_dims(x)
         x32 = x.to(torch.float32)
-        mean = x32.mean(dims)
-        bvar = torch.clamp_min(
-            torch.square(x32).mean(dims) - torch.square(mean), 0.0)
+        if groups:
+            mean, ex2, count = _global_moments(x32, dims, groups)
+        else:
+            mean, ex2, count = x32.mean(dims), torch.square(x32).mean(dims), \
+                None
+        bvar = torch.clamp_min(ex2 - torch.square(mean), 0.0)
         rstd = torch.rsqrt(bvar + eps)
         scale_eff = scale.to(torch.float32) * rstd
         bias_eff = bias.to(torch.float32) - mean * scale_eff
@@ -250,6 +277,7 @@ class _BatchNormTrain(torch.autograd.Function):
                + _per_channel(bias_eff.to(x.dtype), x))
         ctx.save_for_backward(x, mean, rstd, scale)
         ctx.dtypes = (scale.dtype, bias.dtype)
+        ctx.groups, ctx.count = groups, count
         ctx.mark_non_differentiable(mean, bvar)
         return out, mean, bvar
 
@@ -260,21 +288,41 @@ class _BatchNormTrain(torch.autograd.Function):
         dbeta, dgamma = bn_bwd_reduce(dy, x, mean, rstd)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = bn_bwd_dx(dy, x, mean, rstd, scale, dbeta, dgamma)
-        return (dx, dgamma.to(ctx.dtypes[0]), dbeta.to(ctx.dtypes[1]), None)
+            gb, gg = dbeta, dgamma
+            if ctx.groups:
+                # dx takes the global sums and count; the parameters keep
+                # the rank's partials, which the Strategy's gradient
+                # average over dp turns into the single device's
+                from ..parallel import comm
+
+                both = torch.stack([dbeta, dgamma])
+                for g in ctx.groups:
+                    both = comm.all_reduce(both, g)
+                gb, gg = both[0], both[1]
+            dx = bn_bwd_dx(dy, x, mean, rstd, scale, gb, gg, ctx.count)
+        return (dx, dgamma.to(ctx.dtypes[0]), dbeta.to(ctx.dtypes[1]), None,
+                None)
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, eps: float):
+                     bias: torch.Tensor, eps: float, groups=()):
     """Batch normalisation of ``x`` [N, C, ...] over every dim but 1, with
     float32 statistics: returns (out in x's dtype, batch mean [C], batch
     variance [C]), the statistics float32 and without gradient.  The
     backward runs the CUDA kernels on CUDA tensors and their plain versions
-    on CPU tensors; meta tensors give outputs of the right shapes."""
+    on CPU tensors; meta tensors give outputs of the right shapes.
+
+    ``groups``: the process groups the batch is sharded over (a Strategy's
+    data axes; ``x`` is this rank's equal share).  The statistics are then
+    the global batch's, every rank's alike: the sums of x and x^2
+    all-reduced.  In the backward the reduction kernel's per-rank dbeta
+    and dgamma are all-reduced for the dx kernel, which takes the global
+    count M, and returned unreduced as the parameters' gradients (the
+    Strategy averages them over dp)."""
     if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"batch_norm_train runs on cuda or cpu tensors, not "
                          f"{x.device.type}")
-    return _BatchNormTrain.apply(x, scale, bias, float(eps))
+    return _BatchNormTrain.apply(x, scale, bias, float(eps), tuple(groups))
 
 
 batch_norm_train.launches = {"reduce": 0, "dx": 0}

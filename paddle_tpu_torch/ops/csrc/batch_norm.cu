@@ -9,7 +9,10 @@
 //     accumulated in float32;
 //   * _dx_kernel (via pallas_dx_flat) with bn_bwd_dx_kernel:
 //       dx = gamma[c] * rstd[c] * (dy - dbeta[c] / M - xhat * dgamma[c] / M)
-//     computed in float32 and written in dy's type.
+//     computed in float32 and written in dy's type.  M is an argument, the
+//     values a channel of the whole batch: N * HW on one device; under
+//     data parallelism dbeta and dgamma are the sums over every rank and M
+//     the global count, while the rank's dy and x are its own rows.
 // The probe's kernels read a saved xhat; these recompute it from x, mean
 // and rstd, which the batch-norm forward (paddle_tpu/layers/nn.py:339-377)
 // has anyway, so the forward saves x and no activation-sized xhat.
@@ -294,11 +297,11 @@ template <typename T, int V>
 int dx_launch(const void* dy, const void* x, const float* mean,
               const float* rstd, const float* gamma, const float* dbeta,
               const float* dgamma, void* dx, int N, int C, int HW,
-              int splits, cudaStream_t st) {
+              int splits, int64_t count, cudaStream_t st) {
   const int hw_v = HW / V;
   const int64_t total = (int64_t)N * hw_v;
   const int64_t chunk = (total + splits - 1) / splits;
-  const float inv_m = 1.0f / (float)((int64_t)N * HW);
+  const float inv_m = 1.0f / (float)count;
   bn_bwd_dx_kernel<T, V><<<dim3(C, splits), kThreads, 0, st>>>(
       static_cast<const T*>(dy), static_cast<const T*>(x), mean, rstd, gamma,
       dbeta, dgamma, static_cast<T*>(dx), C, N, hw_v, chunk, inv_m);
@@ -365,36 +368,41 @@ int bn_bwd_reduce_launch(const void* dy, const void* x, const float* mean,
 }
 
 // dx [N, C, HW] in dy's type from dy, x, and mean, rstd, gamma, dbeta,
-// dgamma [C]; grid and vec as for the reduction.
+// dgamma [C], with count = M, the values a channel that dbeta and dgamma
+// sum over (N * HW, or the global batch's under data parallelism); grid and
+// vec as for the reduction.
 int bn_bwd_dx_launch(const void* dy, const void* x, const float* mean,
                      const float* rstd, const float* gamma,
                      const float* dbeta, const float* dgamma, void* dx,
                      int N, int C, int HW, int splits, int vec, int dtype,
-                     void* stream) {
-  if (bad_shape(N, C, HW, splits, vec, dtype))
+                     long long count, void* stream) {
+  if (bad_shape(N, C, HW, splits, vec, dtype) || count < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     if (vec == 4)
       return dx_launch<float, 4>(dy, x, mean, rstd, gamma, dbeta, dgamma, dx,
-                                 N, C, HW, splits, st);
+                                 N, C, HW, splits, count, st);
     if (vec == 2)
       return dx_launch<float, 2>(dy, x, mean, rstd, gamma, dbeta, dgamma, dx,
-                                 N, C, HW, splits, st);
+                                 N, C, HW, splits, count, st);
     return dx_launch<float, 1>(dy, x, mean, rstd, gamma, dbeta, dgamma, dx,
-                               N, C, HW, splits, st);
+                               N, C, HW, splits, count, st);
   }
   if (vec == 8)
     return dx_launch<__nv_bfloat16, 8>(dy, x, mean, rstd, gamma, dbeta,
-                                       dgamma, dx, N, C, HW, splits, st);
+                                       dgamma, dx, N, C, HW, splits, count,
+                                       st);
   if (vec == 4)
     return dx_launch<__nv_bfloat16, 4>(dy, x, mean, rstd, gamma, dbeta,
-                                       dgamma, dx, N, C, HW, splits, st);
+                                       dgamma, dx, N, C, HW, splits, count,
+                                       st);
   if (vec == 2)
     return dx_launch<__nv_bfloat16, 2>(dy, x, mean, rstd, gamma, dbeta,
-                                       dgamma, dx, N, C, HW, splits, st);
+                                       dgamma, dx, N, C, HW, splits, count,
+                                       st);
   return dx_launch<__nv_bfloat16, 1>(dy, x, mean, rstd, gamma, dbeta, dgamma,
-                                     dx, N, C, HW, splits, st);
+                                     dx, N, C, HW, splits, count, st);
 }
 
 }  // extern "C"

@@ -8,12 +8,14 @@ processes, one rank per device, every collective explicit in ``comm.py``.
   fetches);
 * ``tp``: Megatron column / row-parallel fc and the vocab-parallel
   embedding;
-* ``ring_attention`` and ``ulysses_attention``: sequence parallelism.
-
-``pipeline`` (GPipe) and ``moe`` (Switch experts) are ROADMAP A.9 part 2.
+* ``ring_attention`` and ``ulysses_attention``: sequence parallelism;
+* ``gpipe`` / ``pipeline_fc_stack`` (GPipe over pp) and ``switch_moe`` /
+  ``switch_moe_apply`` (Switch experts over ep).
 """
 from . import comm, tp
 from .mesh import Mesh, make_mesh, mesh_axis_size
+from .moe import switch_moe, switch_moe_apply
+from .pipeline import gpipe, pipeline_fc_stack
 from .ring import ring_attention
 from .strategy import StepLayout, Strategy
 from .ulysses import ulysses_attention
@@ -22,6 +24,7 @@ from ..param_attr import PartitionSpec, SeqAxis
 P = PartitionSpec
 
 __all__ = ["Mesh", "P", "PartitionSpec", "SeqAxis", "StepLayout",
-           "Strategy", "comm",
-           "make_mesh", "mesh_axis_size", "ring_attention", "tp",
+           "Strategy", "comm", "gpipe",
+           "make_mesh", "mesh_axis_size", "pipeline_fc_stack",
+           "ring_attention", "switch_moe", "switch_moe_apply", "tp",
            "ulysses_attention"]

@@ -7,7 +7,7 @@ collectives.  PyTorch has no such partitioner, so the port is SPMD over
 processes, one rank per device, and every collective is explicit and
 lives here:
 
-* :func:`all_reduce` (sum, max), :func:`all_gather`,
+* :func:`all_reduce` (sum, max, min), :func:`all_gather`,
   :func:`reduce_scatter`, :func:`all_to_all` and :func:`ring_shift` (the
   reference's ``lax.ppermute`` to the next rank of a ring, as
   ``batch_isend_irecv``), each over one process group (a mesh axis's
@@ -16,8 +16,21 @@ lives here:
   all-reduce of the gradient) and :func:`reduce_from` (all-reduce
   forward, identity backward); :func:`mean_from` (the mean over groups
   forward, identity backward: a loss averaged over dp and sp, whose
-  replicated parameters' gradients the Strategy averages) and the
-  differentiable :func:`all_to_all` of Ulysses.
+  replicated parameters' gradients the Strategy averages), :func:`sum_from`
+  (the sum over groups forward, the gradient times the ranks backward,
+  which the Strategy's average divides back), :func:`extreme_from` (the
+  max or min over groups, its gradient split among the global ties), the
+  differentiable :func:`all_to_all` of Ulysses and :func:`shift` (the
+  ring shift whose backward shifts the cotangent back, ``lax.ppermute``'s
+  transpose, for GPipe).
+
+A gradient convention ties these together: an activation sharded over
+the data axes (dp, and sp for a sharded sequence) carries, on each rank,
+n times its true cotangent, n the ranks it is sharded over, so that the
+Strategy's average of the replicated parameters' gradients over those
+ranks is the single device's gradient.  A replicated value (a global
+loss) carries its true cotangent.  Each function that turns shards into
+a replicated value scales its backward to keep this.
 
 The backend is chosen once, when the process group is made
 (``distributed.init``): NCCL where each rank owns its own card, the
@@ -57,7 +70,7 @@ staged: collections.Counter = collections.Counter()
 seconds: collections.Counter = collections.Counter()
 # the collectives staged through host memory on a gloo group with CUDA
 # tensors: gloo's send / recv cannot take device memory (the others can)
-GLOO_STAGED = frozenset({"ring_shift"})
+GLOO_STAGED = frozenset({"ring_shift", "shift"})
 
 # the names this torch has (newer releases deprecate the *_tensor names)
 _gather_single = (getattr(dist, "all_gather_single", None)
@@ -129,10 +142,12 @@ def _run(name: str, group, fn, inputs: Sequence[torch.Tensor],
 
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """The sum (or max) of ``t`` over the group's ranks, as a new tensor."""
+    """The sum (or max, or min) of ``t`` over the group's ranks, as a new
+    tensor."""
     if not active():
         return t.clone()
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}[op]
     out = t.detach().clone().contiguous()
 
     def fn(ins, outs):
@@ -198,10 +213,11 @@ def _all_to_all(t: torch.Tensor, group, split_dim: int,
     return torch.cat(list(out.unbind(0)), dim=concat_dim)
 
 
-def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+def ring_shift(tensors: Sequence[torch.Tensor], group, step: int = 1,
+               name: str = "ring_shift") -> List[torch.Tensor]:
     """Each rank sends ``tensors`` to the next rank of the group's ring and
     returns those of the previous rank (``lax.ppermute`` with the
-    permutation j -> j + 1 mod n)."""
+    permutation j -> j + 1 mod n); ``step=-1`` shifts the other way."""
     n = size(group)
     if not active() or n == 1:
         return [t.clone() for t in tensors]
@@ -210,7 +226,7 @@ def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     def glob(i):
         return i if group is None else dist.get_global_rank(group, i)
 
-    nxt, prv = glob((r + 1) % n), glob((r - 1) % n)
+    nxt, prv = glob((r + step) % n), glob((r - step) % n)
     src = [t.detach().contiguous() for t in tensors]
     dst = [torch.empty_like(t) for t in src]
 
@@ -220,7 +236,7 @@ def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
 
-    _run("ring_shift", group, fn, src, dst)
+    _run(name, group, fn, src, dst)
     return dst
 
 
@@ -267,6 +283,60 @@ class _MeanFrom(torch.autograd.Function):
         return g, None
 
 
+class _SumFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.n = 1
+        for g in groups:
+            x = all_reduce(x, g)
+            ctx.n *= size(g)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None
+
+
+class _ExtremeFrom(torch.autograd.Function):
+    """The max (or min) of ``x`` over ``dims`` and over the ranks of
+    ``groups``, kept dims; the gradient goes to the elements equal to the
+    global extreme, split evenly among the ties of every rank (as
+    ``jnp.max``'s), times the ranks (the convention above)."""
+
+    @staticmethod
+    def forward(ctx, x, dims, groups, op):
+        red = torch.amax if op == "max" else torch.amin
+        m = red(x, dim=dims, keepdim=True)
+        n = 1
+        for g in groups:
+            m = all_reduce(m, g, op)
+            n *= size(g)
+        ctx.save_for_backward(x, m)
+        ctx.args = (dims, groups, n)
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        dims, groups, n = ctx.args
+        hit = (x == m).to(g.dtype)
+        count = hit.sum(dim=dims, keepdim=True)
+        for grp in groups:
+            count = all_reduce(count, grp)
+        return g * n * hit / count, None, None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ring_shift([x], group, 1, "shift")[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift([g], ctx.group, -1, "shift")[0], None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, split_dim, concat_dim):
@@ -296,6 +366,30 @@ def mean_from(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     forward; identity backward: each rank's gradient is its own term's,
     and the Strategy averages the replicated parameters' gradients."""
     return _MeanFrom.apply(x, tuple(groups))
+
+
+def sum_from(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``groups`` forward; backward, the
+    gradient times the number of those ranks: a replicated sum of sharded
+    terms, whose replicated parameters' gradients the Strategy averages
+    (so that average is the single device's gradient)."""
+    return _SumFrom.apply(x, tuple(groups))
+
+
+def extreme_from(x: torch.Tensor, dims: Sequence[int], groups: Sequence,
+                 op: str = "max") -> torch.Tensor:
+    """The max (``op="max"``) or min of ``x`` over ``dims`` (kept as size
+    1) and over the ranks of ``groups``; differentiable, a tie's gradient
+    split among the equal elements of every rank."""
+    return _ExtremeFrom.apply(x, tuple(dims), tuple(groups), op)
+
+
+def shift(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`ring_shift` of one tensor to the next rank, differentiable:
+    the backward shifts the cotangent to the previous rank, as JAX
+    transposes ``lax.ppermute``.  Staged through pinned host memory on a
+    gloo group with CUDA tensors (``GLOO_STAGED``)."""
+    return _Shift.apply(x, group)
 
 
 def all_to_all(x: torch.Tensor, group, split_dim: int,

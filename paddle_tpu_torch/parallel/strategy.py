@@ -34,15 +34,24 @@ GSPMD does implicitly:
   optimizer ops that read a planned tensor whole (the accumulation buffer,
   the step counter) see it gathered, and it is sliced again for the scope;
 * fetches come back global: gathered over dp, sp and tp as their layout
-  says, so a rank returns what the single-device run returns.
+  says, so a rank returns what the single-device run returns;
+* the batch reductions a sharded program needs are carried over the data
+  axes (ROADMAP C.13): ``mean``, ``reduce_sum`` / ``mean`` / ``max`` /
+  ``min`` over dim 0 and ``batch_norm``'s training statistics give every
+  rank the global value (``comm.py``'s gradient convention); an op that
+  mixes batch rows in another way (``BATCH_MIXING``, ``reduce_prod`` over
+  the batch, and any op that runs along, indexes or contracts the batch
+  or moves it out of dim 0: ``_batch_mixing``) is refused before the
+  step's first op (:meth:`Strategy.check_batch_ops`).
 
-``Executor.warm`` under a Strategy is ROADMAP A.9 part 2 (NCCL can be
+``Executor.warm`` under a Strategy is ROADMAP A.9 part 3 (NCCL can be
 captured in a CUDA graph, gloo cannot) and raises ``WarmError``.
 """
 from __future__ import annotations
 
 import json
 import math
+import weakref
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -128,6 +137,65 @@ class StepLayout:
                           off1=(2 * n - 1 - idx) * th * inner - seg)
 
 
+# op types whose output mixes the rows of a batch-major input and which the
+# port does not carry over a sharded batch (ROADMAP C.13): the metrics,
+# the evaluators' batch counts, the beam loss's mean over sequences and
+# roi_pool (its rois name rows of the global batch)
+BATCH_MIXING = frozenset({
+    "accuracy", "auc", "chunk_eval", "accuracy_accumulate",
+    "chunk_accumulate", "precision_recall_accumulate",
+    "ctc_error_accumulate", "detection_map_accumulate",
+    "cross_entropy_over_beam", "roi_pool"})
+
+# op types that carry their reduction over a sharded batch themselves
+BATCH_CARRIED = frozenset({"mean", "reduce_sum", "reduce_mean", "reduce_max",
+                           "reduce_min", "reduce_prod", "batch_norm",
+                           "switch_moe"})
+
+# attributes that name dims of an op's input (``elementwise_*``'s ``axis``
+# aligns a broadcast instead); ``stack`` and ``unsqueeze`` count the dims
+# of their output, one more
+_DIM_ATTRS = ("axis", "dim", "axes")
+_NEW_DIM = frozenset({"stack", "unsqueeze"})
+
+
+def _names_dim0(op, nd: int) -> bool:
+    """Whether ``op``'s dim attributes name dim 0 of an ``nd``-dim input."""
+    if op.type.startswith("elementwise_"):
+        return False
+    n = nd + (op.type in _NEW_DIM)
+    for k in _DIM_ATTRS:
+        v = op.attrs.get(k)
+        vals = v if isinstance(v, (list, tuple)) else (v,)
+        if n and any(isinstance(d, int) and d % n == 0 for d in vals):
+            return True
+    return False
+
+
+def _batch_mixing(op, var) -> Optional[str]:
+    """How ``op``, one of whose inputs is batch-major (``var(name)``: the
+    variable of a name), mixes the rows of a batch sharded over dp, or
+    None when each output row reads only its own input rows."""
+    def batch(v):
+        return v is not None and bool(v.shape) and v.shape[0] is None
+
+    ins = {s: [var(n) for n in ns] for s, ns in op.inputs.items()}
+    first = next(v for vs in ins.values() for v in vs if batch(v))
+    if op.type in BATCH_MIXING:
+        return f"{op.type!r} mixes the rows of its batch"
+    if _names_dim0(op, len(first.shape)):
+        return f"{op.type!r} runs along the batch (dim 0)"
+    if op.type in ("gather", "scatter") and batch(ins["X"][0]):
+        return f"{op.type!r} indexes the rows of a batch-major x"
+    if op.type in ("matmul", "mul") and any(
+            batch(v) and (op.type == "mul" or len(v.shape) <= 2)
+            for v in ins.get("Y", ())):
+        return f"{op.type!r} contracts over the batch of its y"
+    if not all(batch(var(n)) for n in op.output_names()):
+        return f"{op.type!r} takes the batch out of dim 0"
+    return None
+
+
 def _spec_of(var) -> tuple:
     return tuple(getattr(var, "sharding", None) or ())
 
@@ -145,6 +213,8 @@ class Strategy:
         self.shard_optimizer_state = shard_optimizer_state
         self.last_shard_coverage = None
         self._plan_cache = {}
+        # program -> the (version, dp, seq) that refused none
+        self._checked = weakref.WeakKeyDictionary()
 
     # ---------------------------------------------------------- ZeRO-1 plan
     def _zero1_plan(self, program, names):
@@ -434,6 +504,55 @@ class Strategy:
         return out, layout
 
     # ---------------------------------------------------------- the step
+    def check_batch_ops(self, program, layout: StepLayout) -> None:
+        """Refuse, before the step's first op, a program holding a layer
+        whose output mixes batch rows in a way not carried over this
+        step's sharded batch or sequence: ROADMAP C.13.  Under dp that is
+        an op of ``BATCH_MIXING``, ``reduce_prod`` over dim 0 of a
+        batch-major input, and any op not in ``BATCH_CARRIED`` that takes
+        a batch-major input and runs along dim 0 (a dim attribute naming
+        it: ``cumsum``, ``argmax``, ``concat``, ``softmax``, ...), indexes
+        its rows (``gather`` / ``scatter`` of a batch-major x), contracts
+        it (``matmul`` / ``mul`` of a batch-major y) or gives an output
+        whose dim 0 is not the batch (``matmul(transpose_x=True)``, a
+        norm to a scalar, ``pad`` or ``crop`` of the rows, ...); under
+        sp, a reduction over dim 0 but not dim 1 of a sequence-sharded
+        input."""
+        dp = (mesh_axis_size(self.mesh, layout.data_axis)
+              if layout.data_axis else 1)
+        key = (program.version, dp, layout.seq_axis)
+        if (dp == 1 and layout.seq_axis is None) \
+                or key in self._checked.get(program, ()):
+            return
+        from ..layers.tensor import _reduced_dims
+
+        for block, op in program.all_ops():
+            def var(n, _block=block):
+                return _block.vars.get(n) or program.global_block.vars.get(n)
+
+            batch = [v for v in map(var, op.input_names())
+                     if v is not None and v.shape and v.shape[0] is None]
+            if not batch or op.special is not None:
+                continue
+            what = None
+            if op.type.startswith("reduce_"):
+                dims = _reduced_dims(batch[0], op.attrs.get("axis"))
+                seq = seq_axis_of(batch[0])
+                if 0 in dims and op.type == "reduce_prod":
+                    what = "reduce_prod over the batch"
+                elif 0 in dims and 1 not in dims and layout.sharded(seq):
+                    what = (f"{op.type} over the batch of a sequence-"
+                            f"sharded input, keeping the sequence")
+            elif op.type in BATCH_MIXING or (
+                    dp > 1 and op.type not in BATCH_CARRIED):
+                what = _batch_mixing(op, var)
+            if what is not None:
+                raise NotImplementedError(
+                    f"{what}: not carried over a batch or sequence sharded "
+                    f"by the Strategy (mesh {self.mesh.shape}; ROADMAP "
+                    f"C.13); run it unsharded")
+        self._checked.setdefault(program, set()).add(key)
+
     def sync_grads(self, env, params: Sequence[str], layout: StepLayout,
                    program) -> None:
         """Average the gradients of parameters replicated over the data

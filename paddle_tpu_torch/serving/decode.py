@@ -51,9 +51,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..core.graphs import Graphs, Staged, WarmError
+from ..core.graphs import Graphs, Prepared, Staged, WarmError
 from ..layers import beam as _beam
-from ..models.transformer import TransformerLM, lm_decode_step
+from ..models.transformer import (TransformerLM, lm_decode_step,
+                                  paged_window_coords)
 from ..models.weights import from_jax_params, torch_dtype
 from ..ops import attention as _attn
 from ..ops.paged_attention import check_kernel_shape
@@ -87,12 +88,16 @@ class _Signature:
     function run on them, ``run`` that body prepared
     (``core.graphs.Prepared``: on the card its CUDA graph)."""
 
-    __slots__ = ("key", "body", "ins", "mask", "logits", "res", "run")
+    __slots__ = ("key", "body", "ins", "mask", "logits", "res", "run",
+                 "local")
 
     def __init__(self, key, body, ins, mask, logits, res):
         self.key, self.body, self.ins, self.mask = key, body, ins, mask
         self.logits, self.res = logits, res
         self.run = None
+        # a data-sharded step's own rows: logits, res and the new K/V
+        # (ContinuousDecodeEngine with a mesh), gathered after the body
+        self.local = None
 
 
 class DecodeEngine:
@@ -582,7 +587,28 @@ class ContinuousDecodeEngine:
     ``prefix_cache=True`` gives the engine a ``PrefixCache`` (``prefix``),
     seeded with the pool's kv_dtype so that an int8 pool never matches a
     float32 digest; ``alloc_blocks`` then evicts unreferenced cached
-    blocks before it reports a dry pool."""
+    blocks before it reports a dry pool.
+
+    ``mesh``: a ``serving.mesh.ServingMesh`` over the ranks of a process
+    group (SPMD: every rank builds this engine and runs the same scheduler
+    over the same requests, and every rank ends each call with the same
+    tokens).  A one-device ServingMesh (``mesh.mesh is None``) takes the
+    exact single-device path.  Otherwise the model runs on
+    ``serving.mesh.ShardedParams``, the rank's parameter shards (fsdp
+    gathered at use, tp column / row / vocab parallel) and the pool holds
+    the rank's ``H / tp`` heads when ``heads_shardable``.  Over ``data``
+    (when it divides ``n_slots``) a step runs the rank's slots' rows; after
+    the body, outside any graph, the logits, the chosen tokens and each
+    layer's new K/V rows are all-gathered over data and the other ranks'
+    rows scattered into this rank's arena, so every arena holds every
+    slot's blocks (a prefix hit, a fork or a migration reads blocks
+    another slot wrote).  ``prefill_tail`` then puts at most ``n_slots /
+    data`` runs in a call, all on the first data rank's rows, since a run
+    reads the runs before it in the same call.  Prefill runs replicated
+    over data.  ``warm()`` captures a data-only mesh's bodies; with tp or
+    fsdp above 1 the collectives lie inside the body, which gloo cannot
+    capture, so ``warm()`` raises ``WarmError`` before any capture and
+    every call runs its body eagerly (ROADMAP A.9 part 3)."""
 
     def __init__(self, params: Dict, *, vocab_size: int, max_len: int,
                  d_model: int = 512, n_heads: int = 8, n_layers: int = 6,
@@ -590,8 +616,10 @@ class ContinuousDecodeEngine:
                  dtype="float32", n_slots: int = 4, block_size: int = 16,
                  n_blocks: Optional[int] = None, prompt_buckets=None,
                  spec_window: int = 0, kv_dtype: Optional[str] = None,
-                 prefix_cache: bool = False, device=None):
+                 prefix_cache: bool = False, device=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._sharded = mesh is not None and mesh.mesh is not None
         self.vocab_size = int(vocab_size)
         self.max_len = int(max_len)
         self.n_slots = int(n_slots)
@@ -612,21 +640,46 @@ class ContinuousDecodeEngine:
             check_kernel_shape(max(1, self.spec_window), self.Dh)
         if n_blocks is None:
             n_blocks = self.n_slots * self.n_tbl  # dense-equivalent capacity
-        self.pool = PagedKVPool(n_blocks, n_layers, n_heads, self.block_size,
-                                self.Dh, self.cd, kv_dtype=kv_dtype,
-                                device=self.device)
+        pool_heads = n_heads
+        # rows a step runs here (the slots of this data rank), the first of
+        # them, and whether the body holds collectives (tp, fsdp)
+        self._rows, self._row0, self._eager = self.n_slots, 0, False
+        if self._sharded:
+            if kv_dtype is not None and torch_dtype(kv_dtype) != self.cd:
+                raise NotImplementedError(
+                    f"a mesh-sharded engine keeps its arena in the compute "
+                    f"dtype; kv_dtype {kv_dtype!r} over a mesh is not "
+                    f"ported")
+            from .mesh import DATA_AXIS, FSDP_AXIS, TP_AXIS
+
+            data = mesh.axis(DATA_AXIS)
+            if data > 1 and self.n_slots % data == 0:
+                self._rows = self.n_slots // data
+                self._row0 = mesh.coord(DATA_AXIS) * self._rows
+            self._eager = mesh.axis(TP_AXIS) > 1 or mesh.axis(FSDP_AXIS) > 1
+            if mesh.heads_shardable(n_heads):
+                pool_heads = n_heads // mesh.axis(TP_AXIS)
+        self.pool = PagedKVPool(n_blocks, n_layers, pool_heads,
+                                self.block_size, self.Dh, self.cd,
+                                kv_dtype=kv_dtype, device=self.device)
         self.kv_dtype = self.pool.kv_dtype
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(self.block_size, kv_dtype=self.kv_dtype)
             if prefix_cache else None)
-        self.model = TransformerLM(
-            from_jax_params(params, vocab_size=vocab_size, max_len=max_len,
-                            d_model=d_model, n_heads=n_heads,
-                            n_layers=n_layers, d_ff=d_ff,
-                            tie_embeddings=tie_embeddings, dtype=self.cd,
-                            device=self.device),
-            n_heads=n_heads, n_layers=n_layers,
-            tie_embeddings=tie_embeddings)
+        prm = from_jax_params(params, vocab_size=vocab_size, max_len=max_len,
+                              d_model=d_model, n_heads=n_heads,
+                              n_layers=n_layers, d_ff=d_ff,
+                              tie_embeddings=tie_embeddings, dtype=self.cd,
+                              device=self.device)
+        heads, shard = n_heads, None
+        if self._sharded:
+            from .mesh import ShardedParams
+
+            prm = ShardedParams(prm, mesh, n_heads)
+            heads, shard = prm.heads, prm.shard
+        self.model = TransformerLM(prm, n_heads=heads, n_layers=n_layers,
+                                   tie_embeddings=tie_embeddings, cd=self.cd,
+                                   head_dim=self.Dh, shard=shard)
         self.step_dispatches = collections.Counter()
         self.prefill_dispatches = collections.Counter()
         self.replays = collections.Counter()
@@ -656,7 +709,17 @@ class ContinuousDecodeEngine:
         + 2 x len({1, spec_window})``.  The reference returns
         ``len(prompt_buckets) + len({1, spec_window})``: its step always
         runs the policy pass, where this engine keeps a greedy signature
-        (argmax only) beside the policy one for each W."""
+        (argmax only) beside the policy one for each W.
+
+        With a mesh whose tp or fsdp is above 1, raises ``WarmError``
+        before any capture (the body's collectives; see the class
+        docstring)."""
+        if self._eager:
+            raise WarmError(
+                "warm(): this engine's mesh shards tp or fsdp, so its step "
+                "and prefill hold collectives, which a gloo group cannot "
+                "capture in a CUDA graph; every call runs its body eagerly "
+                "(ROADMAP A.9 part 3)")
         before = self._traces
         for pb in self.prompt_buckets:
             self._signature(("prefill", pb))
@@ -711,9 +774,23 @@ class ContinuousDecodeEngine:
                                          device=dev),
                              torch.zeros((S, W + 1), dtype=torch.int32,
                                          device=dev))
+            if self._rows < S:
+                R, pool = self._rows, self.pool
+                kv = (pool.n_layers, R, W, pool.n_heads, pool.head_dim)
+                sig.local = {
+                    "logits": torch.zeros((R, W, V), dtype=torch.float32,
+                                          device=dev),
+                    "res": torch.zeros((R, W + 1), dtype=torch.int32,
+                                       device=dev),
+                    "k": torch.zeros(kv, dtype=self.cd, device=dev),
+                    "v": torch.zeros(kv, dtype=self.cd, device=dev)}
         try:
             ins.upload()
-            sig.run = self._graphs.prepare(lambda: sig.body(sig))
+            if self._eager:
+                # collectives in the body: run eagerly at every call
+                sig.run = Prepared(lambda: sig.body(sig))
+            else:
+                sig.run = self._graphs.prepare(lambda: sig.body(sig))
         except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
             raise WarmError(f"preparing signature {key} failed: "
                             f"{exc}") from exc
@@ -732,6 +809,30 @@ class ContinuousDecodeEngine:
         sig.run.replay()
         if sig.run.captured:
             self.replays[sig.key] += 1
+        if sig.local is not None:
+            self._gather_rows(sig)
+
+    def _gather_rows(self, sig: _Signature) -> None:
+        """After a data-sharded step: gather every data rank's logits,
+        chosen tokens and new K/V rows, and scatter the other ranks' rows
+        into this rank's arena (each layer; this rank's own rows again,
+        the same values), so that every arena holds every slot's blocks."""
+        from ..parallel import comm
+        from .mesh import DATA_AXIS
+
+        group = self.mesh.group(DATA_AXIS)
+        loc = sig.local
+        sig.logits.copy_(comm.all_gather(loc["logits"], group, 0))
+        sig.res.copy_(comm.all_gather(loc["res"], group, 0))
+        k = comm.all_gather(loc["k"], group, 1)
+        v = comm.all_gather(loc["v"], group, 1)
+        a = sig.ins.t
+        _, blk, off = paged_window_coords(a["tables"], a["pos0"],
+                                          a["limits"], k.shape[2],
+                                          self.block_size, self.pool.trash)
+        for i in range(k.shape[0]):
+            _attn.paged_cache_set_window(self.pool.k, i, blk, off, k[i])
+            _attn.paged_cache_set_window(self.pool.v, i, blk, off, v[i])
 
     # ------------------------------------------------------------- bodies
     @torch.no_grad()
@@ -762,19 +863,28 @@ class ContinuousDecodeEngine:
         the logits [S, W, V], their argmax per window row, and the token
         chosen from the first row (the policy pass, or the argmax)."""
         a = sig.ins.t
+        out, res, kw = sig.logits, sig.res, {}
+        mask = None if sig.mask is None else sig.mask.t["mask"]
+        if sig.local is not None:
+            # a data-sharded step: this rank's rows (gathered in _dispatch)
+            rows = slice(self._row0, self._row0 + self._rows)
+            a = {n: t[rows] for n, t in a.items()}
+            mask = None if mask is None else mask[rows]
+            out, res = sig.local["logits"], sig.local["res"]
+            kw["kv_out"] = (sig.local["k"], sig.local["v"])
         logits, _, _ = self.model.decode_window(
             a["toks"], a["pos0"], a["tables"], a["limits"], self.pool.k,
-            self.pool.v, block_size=self.block_size)
+            self.pool.v, block_size=self.block_size, **kw)
         top = torch.argmax(logits, dim=-1).to(torch.int32)
-        if sig.mask is None:
+        if mask is None:
             chosen = top[:, 0]  # all-greedy rows: the policy ladder's argmax
         else:
             chosen = masked_select_tokens(
                 logits[:, 0, :], a["seeds"], a["subs"], a["temps"],
-                a["topks"], a["topps"], sig.mask.t["mask"])
-        sig.logits.copy_(logits)
-        sig.res[:, :-1].copy_(top)
-        sig.res[:, -1].copy_(chosen)
+                a["topks"], a["topps"], mask)
+        out.copy_(logits)
+        res[:, :-1].copy_(top)
+        res[:, -1].copy_(chosen)
 
     # ------------------------------------------------------------- prefill
     def prefill(self, history: np.ndarray, table: np.ndarray) -> np.ndarray:
@@ -914,14 +1024,17 @@ class ContinuousDecodeEngine:
         first token run here: the warmed step graphs, no signature of
         their own."""
         S = self.n_slots
+        # runs a call: on a data-sharded mesh those of the first data
+        # rank's rows (a run reads the runs before it in the same call)
+        per = self._rows
         tail = np.asarray(tail, np.int32).reshape(-1)
         W = self.spec_window if self.spec_window > 1 and tail.size > S else 1
         body = tail.size - (1 if samp_row is not None and W > 1 else 0)
         cuts = list(range(0, body, W)) + [body, tail.size]
         runs = [(a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
         trash = self._trash_table()
-        for g in range(0, len(runs), S):
-            chunk = runs[g:g + S]
+        for g in range(0, len(runs), per):
+            chunk = runs[g:g + per]
             toks = np.zeros((S, W), np.int32)
             poss = np.zeros(S, np.int32)
             lims = np.zeros(S, np.int32)  # idle rows: limit 0 = trash writes
@@ -931,7 +1044,7 @@ class ContinuousDecodeEngine:
                 poss[j] = int(pos0) + a
                 lims[j] = min(int(limit), int(pos0) + b)
                 tables[j] = table
-            last = g + S >= len(runs)
+            last = g + per >= len(runs)
             samp = None
             if samp_row is not None and last:
                 samp = self.make_samp()
@@ -1372,6 +1485,10 @@ class ContinuousScheduler:
             "prefix": None if cache is None else cache.stats(),
             "spec": self.spec,
             "closed": self._closed,
+            # which mesh the engine decodes on (static for its lifetime)
+            "mesh": (self.eng.mesh.summary()
+                     if getattr(self.eng, "mesh", None) is not None
+                     else None),
             **self.counters,
         }
 

@@ -1,7 +1,7 @@
 """Sparse embedding engine (PyTorch port of ``paddle_tpu/sparse``,
 DESIGN.md §26): fused embedding tables with dedup-and-bucket lookups, the
-row-touched optimizer apply, and the streaming id pipeline.  The tables are
-not sharded over a mesh yet (ROADMAP A.9)."""
+row-touched optimizer apply, and the streaming id pipeline.  A table may be
+sharded over a serving mesh (``ShardedEmbeddingTable(mesh=)``)."""
 from .pipeline import SparseFeeder
 from .table import (DedupBatch, ShardedEmbeddingTable, bucket_for,
                     bucket_ladder, sparse_lookup)

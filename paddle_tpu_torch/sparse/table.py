@@ -28,7 +28,14 @@ gradient with ``embedding_dense_backward`` over ids remapped to one
 skipped index, not ``index_add_``, whose atomics on the card would break
 the bitwise equality of a replayed step with an eager one.
 
-No mesh sharding yet (ROADMAP A.9): a table with a mesh raises.
+Over a serving mesh (``mesh=``, a ``serving.mesh.ServingMesh``) the rows
+are laid out over ``fsdp x tp`` as ``SpecLayout.embeddings()`` says,
+fitted to the table's shape: a rank's storage is its block of rows plus
+its own scratch row.  A gather is the owner's rows summed over the mesh
+(the other ranks add exact zeros, so the lookup is bitwise the unsharded
+one), and an update touches only the owner's rows (``local_uids`` maps a
+global uid to the rank's row, or to its scratch row).  The one-device
+mesh keeps the unsharded table.
 """
 from __future__ import annotations
 
@@ -165,7 +172,11 @@ class ShardedEmbeddingTable:
     row the scratch row of the sentinel design (module docstring); ``value``
     is the ``[:vocab]`` view, which the row-touched apply updates in place.
 
-    ``mesh`` must be None: sharding over a mesh is ROADMAP A.9."""
+    ``mesh``: a ``serving.mesh.ServingMesh`` or None (module docstring).
+    Over a real mesh ``storage`` holds this rank's rows; ``row0`` is the
+    first, ``rows`` their count.  Ids at or past ``vocab`` and below 0 go
+    to the scratch row in an update (an update of a negative id, which
+    JAX wraps, is dropped)."""
 
     def __init__(self, vocabs: Union[int, Sequence[int]], dim: int, *,
                  mesh=None, padding_idx: Optional[int] = None,
@@ -173,10 +184,9 @@ class ShardedEmbeddingTable:
                  name: str = "sparse_table",
                  max_ids_per_batch: Optional[int] = None,
                  min_bucket: int = DEFAULT_MIN_BUCKET, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedEmbeddingTable(mesh=...) is not ported yet: sharding "
-                "the table over a mesh is ROADMAP A.9")
+        if mesh is not None and not hasattr(mesh, "axes"):
+            raise TypeError(f"mesh must be a serving.mesh.ServingMesh, got "
+                            f"{type(mesh).__name__}")
         vs = [int(vocabs)] if np.isscalar(vocabs) else [int(v) for v in vocabs]
         if any(v < 1 for v in vs):
             raise ValueError(f"vocab sizes must be >= 1, got {vs}")
@@ -190,24 +200,43 @@ class ShardedEmbeddingTable:
         self.dtype = np.dtype(dtype)
         cap = min(self.vocab, int(max_ids_per_batch or self.vocab))
         self.ladder = bucket_ladder(cap, min_bucket=min_bucket)
-        self.mesh = None
+        self.mesh = mesh
         self.spec = None
+        self.row0, self.rows, self._groups = 0, self.vocab, []
+        if mesh is not None and mesh.mesh is not None:
+            from ..serving.mesh import SpecLayout, _fit_spec, _names
+
+            layout = getattr(mesh, "layout", None) or SpecLayout()
+            spec = _fit_spec(layout.embeddings(), (self.vocab, self.dim),
+                             mesh.axes)
+            axes = _names(spec[0]) if len(spec) else ()
+            self.spec = spec
+            if axes:
+                n, idx = 1, 0
+                for a in axes:
+                    n *= mesh.axis(a)
+                    idx = idx * mesh.axis(a) + mesh.coord(a)
+                self.rows = self.vocab // n
+                self.row0 = idx * self.rows
+                self._groups = [mesh.group(a) for a in axes]
         self.device = resolve_device(device)
         rng = np.random.RandomState(seed)
         host = (rng.standard_normal((self.vocab, self.dim))
                 * init_scale).astype(self.dtype)
-        self.storage = torch.zeros((self.vocab + 1, self.dim),
+        self.storage = torch.zeros((self.rows + 1, self.dim),
                                    dtype=torch.from_numpy(host).dtype,
                                    device=self.device)
-        self.storage[:self.vocab].copy_(torch.from_numpy(host))
+        self.storage[:self.rows].copy_(torch.from_numpy(
+            host[self.row0:self.row0 + self.rows]))
         self._graphs = Graphs(self.device)
         self._lookups = {}
         self._traces = 0
 
     @property
     def value(self) -> torch.Tensor:
-        """The table, ``[vocab, dim]``: a view of ``storage``."""
-        return self.storage[:self.vocab]
+        """The table, ``[vocab, dim]``: a view of ``storage`` (over a mesh,
+        this rank's ``[rows, dim]``)."""
+        return self.storage[:self.rows]
 
     # ------------------------------------------------------------- host side
     def global_ids(self, ids) -> np.ndarray:
@@ -248,8 +277,30 @@ class ShardedEmbeddingTable:
 
     # ----------------------------------------------------------- device side
     def gather(self, uids: torch.Tensor) -> torch.Tensor:
-        """The rows of ``uids`` (JAX's clip), ``[len(uids), dim]``."""
-        return F.embedding(gather_index(uids, self.vocab), self.value)
+        """The rows of ``uids`` (JAX's clip), ``[len(uids), dim]``; over a
+        mesh the owner's rows, summed over the mesh."""
+        gi = gather_index(uids, self.vocab)
+        if not self._groups:
+            return F.embedding(gi, self.value)
+        from ..parallel import comm
+
+        local = gi - self.row0
+        mine = (local >= 0) & (local < self.rows)
+        out = F.embedding(local.clamp(0, self.rows - 1), self.value) \
+            * mine[:, None].to(self.storage.dtype)
+        for g in self._groups:
+            out = comm.all_reduce(out, g)
+        return out
+
+    def local_uids(self, uids: torch.Tensor) -> torch.Tensor:
+        """``uids`` as this rank's storage rows for an update: the rank's own
+        rows, every other id its scratch row ``rows``.  The identity on an
+        unsharded table."""
+        if not self._groups:
+            return uids
+        si = scatter_index(torch.as_tensor(uids), self.vocab) - self.row0
+        return torch.where((si >= 0) & (si < self.rows), si,
+                           torch.full_like(si, self.rows))
 
     def lookup(self, ids) -> torch.Tensor:
         """Whole lookup: host dedup, then the gather and the expand
@@ -294,8 +345,13 @@ class ShardedEmbeddingTable:
     def describe(self) -> str:
         """Canonical JSON descriptor (sorted keys, no device ids), the
         reference's string for a table with no mesh."""
+        from ..serving.mesh import _spec_to_jsonable
+
         d = {"vocab": self.vocab, "dim": self.dim,
              "fields": list(self.field_vocabs),
              "dtype": self.dtype.name, "padding_idx": self.padding_idx,
-             "ladder": list(self.ladder), "spec": None, "axes": {}}
+             "ladder": list(self.ladder),
+             "spec": (_spec_to_jsonable(self.spec) if self.spec is not None
+                      else None),
+             "axes": dict(self.mesh.axes) if self.mesh is not None else {}}
         return json.dumps(d, sort_keys=True)

@@ -115,6 +115,138 @@ def build_dropout(fl, par):
     return loss, d
 
 
+def build_mlp_sum(fl, par, momentum=False):
+    """fc-relu-fc with a ``reduce_sum`` loss over the batch (ROADMAP
+    C.13); SGD(0.1), or Momentum(0.1, 0.9) with ``momentum``."""
+    x = fl.layers.data("x", [8])
+    y = fl.layers.data("y", [1], dtype="int32")
+    h = fl.layers.fc(x, 16, act="relu", param_attr=fl.ParamAttr(name="w1"),
+                     bias_attr=fl.ParamAttr(name="b1"))
+    logits = fl.layers.fc(h, 4, param_attr=fl.ParamAttr(name="w2"),
+                          bias_attr=fl.ParamAttr(name="b2"))
+    loss = fl.layers.reduce_sum(
+        fl.layers.softmax_with_cross_entropy(logits, y))
+    opt = (fl.optimizer.Momentum(0.1, momentum=0.9) if momentum
+           else fl.optimizer.SGD(0.1))
+    opt.minimize(loss)
+    return loss
+
+
+def build_mlp_bn(fl, par):
+    """fc -> batch_norm -> relu -> fc, a mean loss: the training statistics
+    over the global batch (ROADMAP C.13)."""
+    x = fl.layers.data("x", [8])
+    y = fl.layers.data("y", [1], dtype="int32")
+    # no bias before the normalisation (its gradient is zero)
+    h = fl.layers.fc(x, 16, param_attr=fl.ParamAttr(name="w1"),
+                     bias_attr=False)
+    h = fl.layers.batch_norm(h, act="relu",
+                             param_attr=fl.ParamAttr(name="bn.s"),
+                             bias_attr=fl.ParamAttr(name="bn.b"),
+                             moving_mean_name="bn.m",
+                             moving_variance_name="bn.v")
+    logits = fl.layers.fc(h, 4, param_attr=fl.ParamAttr(name="w2"),
+                          bias_attr=fl.ParamAttr(name="b2"))
+    loss = fl.layers.mean(fl.layers.softmax_with_cross_entropy(logits, y))
+    fl.optimizer.SGD(0.1).minimize(loss)
+    return loss
+
+
+def build_reduce_ops(fl, par):
+    """h = x @ rw (no bias); the loss adds reduce_max and reduce_min over
+    the batch, reduce_mean over (batch, features) and the mean of a
+    reduce_sum over the features (local): (loss, max, min, mean)."""
+    x = fl.layers.data("x", [4])
+    h = fl.layers.fc(x, 3, param_attr=fl.ParamAttr(name="rw"),
+                     bias_attr=False)
+    mx = fl.layers.reduce_max(h, dim=0)
+    mn = fl.layers.reduce_min(h, dim=0, keep_dim=True)
+    me = fl.layers.reduce_mean(h, dim=[0, 1])
+    rs = fl.layers.reduce_sum(h, dim=1)
+    loss = fl.layers.sums([fl.layers.reduce_sum(mx),
+                           fl.layers.scale(fl.layers.reduce_sum(mn), 0.5),
+                           me, fl.layers.mean(rs)])
+    fl.optimizer.SGD(0.1).minimize(loss)
+    return loss, mx, mn, me
+
+
+def build_moe(fl, par, capacity_factor=1.0, jitter=0.0):
+    """fc-relu -> switch_moe (4 experts) -> fc, the cross entropy plus the
+    aux loss, Adam: the reference's ``test_switch_moe_layer_trains_on_mesh``
+    at a capacity that drops tokens."""
+    x = fl.layers.data("x", [8])
+    lab = fl.layers.data("lab", [1], dtype="int32")
+    h = fl.layers.fc(x, 16, act="relu", param_attr=fl.ParamAttr(name="m.w"),
+                     bias_attr=fl.ParamAttr(name="m.b"))
+    y, aux = par.switch_moe(h, num_experts=4, d_ff=32,
+                            capacity_factor=capacity_factor, jitter=jitter)
+    logits = fl.layers.fc(y, 4, param_attr=fl.ParamAttr(name="o.w"),
+                          bias_attr=fl.ParamAttr(name="o.b"))
+    loss = fl.layers.mean(fl.layers.softmax_with_cross_entropy(logits, lab)) \
+        + aux
+    fl.optimizer.Adam(1e-2).minimize(loss)
+    return loss, aux
+
+
+def build_moe_jitter(fl, par):
+    return build_moe(fl, par, capacity_factor=1.25, jitter=0.1)
+
+
+def build_pipe(fl, par):
+    """pipeline_fc_stack (4 stages, 4 microbatches) -> fc, a mean cross
+    entropy, SGD(0.05): the reference's
+    ``test_pipeline_fc_stack_trains_on_mesh``."""
+    x = fl.layers.data("x", [16])
+    lab = fl.layers.data("lab", [1], dtype="int32")
+    h = par.pipeline_fc_stack(x, 16, n_stages=4, n_microbatches=4)
+    logits = fl.layers.fc(h, 3, param_attr=fl.ParamAttr(name="p.w"),
+                          bias_attr=fl.ParamAttr(name="p.b"))
+    loss = fl.layers.mean(fl.layers.softmax_with_cross_entropy(logits, lab))
+    fl.optimizer.SGD(0.05).minimize(loss)
+    return loss
+
+
+def build_conv_bn(fl, par):
+    """Two 3x3 convs (16 channels, no bias), each batch_norm + relu, a
+    global average pool, fc 10, a mean cross entropy; Momentum(0.1, 0.9):
+    NCHW [N, 16, 32, 32]."""
+    img = fl.layers.data("img", [16, 32, 32])
+    lab = fl.layers.data("lab", [1], dtype="int32")
+    h = img
+    for i in range(2):
+        h = fl.layers.conv2d(h, 16, 3, padding=1,
+                             param_attr=fl.ParamAttr(name=f"cb{i}.w"),
+                             bias_attr=False)
+        h = fl.layers.batch_norm(h, act="relu",
+                                 param_attr=fl.ParamAttr(name=f"cb{i}.s"),
+                                 bias_attr=fl.ParamAttr(name=f"cb{i}.b"),
+                                 moving_mean_name=f"cb{i}.m",
+                                 moving_variance_name=f"cb{i}.v")
+    h = fl.layers.pool2d(h, 1, pool_type="avg", global_pooling=True)
+    logits = fl.layers.fc(h, 10, param_attr=fl.ParamAttr(name="cb.fc.w"),
+                          bias_attr=fl.ParamAttr(name="cb.fc.b"))
+    loss = fl.layers.mean(fl.layers.softmax_with_cross_entropy(logits, lab))
+    fl.optimizer.Momentum(0.1, momentum=0.9).minimize(loss)
+    return loss
+
+
+CTR_VOCABS = [50, 32, 8, 12]
+
+
+def build_ctr_tp(fl, par, P=None):
+    """wide_deep with every field table vocab-sharded over tp
+    (``shard_spec``), Adam.  ``P``: the package's PartitionSpec (default
+    ``par.P``; the JAX package's is ``jax.sharding.PartitionSpec``)."""
+    dense = fl.layers.data("dense", [13])
+    sparse = fl.layers.data("sparse", [len(CTR_VOCABS)], dtype="int32")
+    label = fl.layers.data("label", [1], dtype="int32")
+    loss, _ = fl.models.ctr.wide_deep(dense, sparse, label, vocabs=CTR_VOCABS,
+                                      emb_dim=4, hidden=(16, 8),
+                                      shard_spec=(P or par.P)("tp", None))
+    fl.optimizer.Adam(1e-2).minimize(loss)
+    return loss
+
+
 TINY_LM = dict(vocab_size=64, max_len=16, d_model=32, n_heads=4, n_layers=2,
                d_ff=64)
 
@@ -137,7 +269,94 @@ BUILDERS = {"mlp": build_mlp, "megatron": build_megatron,
             "megatron_clip": build_megatron_clip, "vocab": build_vocab,
             "zero1": build_zero1, "zero1_packed": build_zero1_packed,
             "accum": build_accum, "accum_1": build_accum_1,
-            "dropout": build_dropout, "lm": build_lm}
+            "dropout": build_dropout, "lm": build_lm,
+            "mlp_sum": build_mlp_sum, "mlp_bn": build_mlp_bn,
+            "reduce_ops": build_reduce_ops, "moe": build_moe,
+            "moe_jitter": build_moe_jitter, "pipe": build_pipe,
+            "ctr_tp": build_ctr_tp, "conv_bn": build_conv_bn}
+
+
+def refusal_program(fl, which: str):
+    """A program holding one layer that mixes batch rows (ROADMAP C.13):
+    (its feeds at 4 rows).  ``which``: a layer (accuracy, auc, chunk_eval,
+    reduce_prod), an op along, into or out of the batch dim (cumsum and
+    argmax over dim 0, matmul with x transposed, matmul of a batch-major
+    y, gather and scatter of a batch-major x), or an evaluator (Accuracy,
+    ChunkEvaluator, PrecisionRecall, CTCError, DetectionMAP)."""
+    L = fl.layers
+    rng = np.random.RandomState(0)
+    n, C, T = 4, 2, 5
+    p = L.data("p", [C])
+    lab = L.data("lab", [1], dtype="int32")
+    feed = {"p": rng.rand(n, C).astype("float32"),
+            "lab": rng.randint(0, C, (n, 1)).astype("int32")}
+    if which in ("chunk_eval", "ChunkEvaluator", "CTCError"):
+        tags = L.data("tags", [T], dtype="int32")
+        gold = L.data("gold", [T], dtype="int32")
+        ln = L.data("ln", [], dtype="int32")
+        feed.update(tags=rng.randint(-1, 4, (n, T)).astype("int32"),
+                    gold=rng.randint(-1, 4, (n, T)).astype("int32"),
+                    ln=np.full((n,), T, "int32"))
+    if which == "accuracy":
+        L.accuracy(p, lab)
+    elif which == "auc":
+        L.auc(p, lab)
+    elif which == "chunk_eval":
+        L.chunk_eval(tags, gold, ln)
+    elif which == "reduce_prod":
+        L.reduce_prod(p)
+    elif which == "cumsum":
+        L.cumsum(p, axis=0)
+    elif which == "argmax":
+        L.argmax(p, axis=0)
+    elif which == "matmul_tx":
+        L.matmul(p, p, transpose_x=True)
+    elif which == "matmul_y":
+        q = L.data("q", [3, -1], append_batch_size=False)
+        feed["q"] = rng.rand(3, n).astype("float32")
+        L.matmul(q, p)
+    elif which in ("gather", "scatter"):
+        idx = L.data("idx", [], dtype="int32")
+        feed["idx"] = np.array([3, 0, 1, 1], "int32")
+        if which == "gather":
+            L.gather(p, idx)
+        else:
+            L.scatter(p, idx, p)
+    elif which == "Accuracy":
+        fl.evaluator.Accuracy(p, lab)
+    elif which == "PrecisionRecall":
+        fl.evaluator.PrecisionRecall(p, lab, num_classes=C)
+    elif which == "ChunkEvaluator":
+        fl.evaluator.ChunkEvaluator(tags, gold, ln)
+    elif which == "CTCError":
+        x = L.data("x", [T, C])
+        y = L.data("y", [2], dtype="int32")
+        feed.update(x=rng.randn(n, T, C).astype("float32"),
+                    y=rng.randint(1, C, (n, 2)).astype("int32"))
+        fl.evaluator.CTCError(x, y, ln, L.data("yl", [], dtype="int32"))
+        feed["yl"] = np.full((n,), 2, "int32")
+    elif which == "DetectionMAP":
+        K, G = 3, 2
+        db = L.data("db", [K, 4])
+        ds = L.data("ds", [K])
+        dl = L.data("dl", [K], dtype="int32")
+        gb = L.data("gb", [G, 4])
+        gl = L.data("gl", [G], dtype="int32")
+        feed.update(db=rng.rand(n, K, 4).astype("float32"),
+                    ds=rng.rand(n, K).astype("float32"),
+                    dl=rng.randint(1, C, (n, K)).astype("int32"),
+                    gb=rng.rand(n, G, 4).astype("float32"),
+                    gl=rng.randint(1, C, (n, G)).astype("int32"))
+        fl.evaluator.DetectionMAP(db, ds, dl, gb, gl, num_classes=C)
+    else:
+        raise ValueError(which)
+    return feed
+
+
+REFUSALS = ("accuracy", "auc", "chunk_eval", "reduce_prod", "cumsum",
+            "argmax", "matmul_tx", "matmul_y", "gather", "scatter",
+            "Accuracy", "PrecisionRecall", "ChunkEvaluator", "CTCError",
+            "DetectionMAP")
 
 
 def fetch_names(built, fetch) -> list:
@@ -176,6 +395,8 @@ def program_case(spec: dict) -> dict:
     strategy = None
     if spec.get("mesh") is not None:
         mesh = parallel.make_mesh(spec["mesh"])
+        if not mesh.in_mesh:
+            return {"idle": True}     # a sub-mesh leaves this rank out
         strategy = parallel.Strategy(
             mesh, data_axis=spec.get("data_axis", "dp"),
             shard_optimizer_state=spec.get("zero1", False))
@@ -379,7 +600,223 @@ def lm_leg_case(spec: dict) -> dict:
     return res
 
 
-KINDS = {"program": program_case, "attention": attention_case,
+def gpipe_case(spec: dict) -> dict:
+    """``gpipe`` of a tanh fc stack on ``spec["mesh"]`` (pp, and dp rows
+    when the mesh has dp): the rank's stages of the full ``spec["w"]`` [S,
+    d, d] and ``spec["b"]`` [S, d], its rows of ``spec["x"]``, ``spec["m"]``
+    microbatches; the output and the gradients of sum(y * g) for w, b and
+    x, gathered to the full arrays (summed over dp)."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.parallel import comm
+
+    mesh = parallel.make_mesh(spec["mesh"])
+    pp, r = mesh.shape["pp"], mesh.coord("pp")
+    dp = mesh.shape.get("dp", 1)
+    d = mesh.coord("dp") if dp > 1 else 0
+    k = spec["w"].shape[0] // pp
+    rows = spec["x"].shape[0] // dp
+    w = torch.from_numpy(spec["w"][r * k:(r + 1) * k]).requires_grad_(True)
+    b = torch.from_numpy(spec["b"][r * k:(r + 1) * k]).requires_grad_(True)
+    x = torch.from_numpy(spec["x"][d * rows:(d + 1) * rows]).requires_grad_(
+        True)
+    g = torch.from_numpy(spec["g"][d * rows:(d + 1) * rows])
+
+    def stage(params, h):
+        pw, pb = params
+        return torch.tanh(h @ pw + pb)
+
+    before = comm.calls["shift"]
+    y = parallel.gpipe(stage, (w, b), x, mesh, n_microbatches=spec["m"])
+    gw, gb, gx = torch.autograd.grad((y * g).sum(), (w, b, x))
+    shifts = comm.calls["shift"] - before
+    if dp > 1:
+        gw, gb = (comm.all_reduce(t, mesh.group("dp")) for t in (gw, gb))
+        y, gx = (comm.all_gather(t, mesh.group("dp"), 0) for t in (y, gx))
+    gw, gb = (comm.all_gather(t, mesh.group("pp"), 0) for t in (gw, gb))
+    return {"y": y.detach().numpy(), "gw": gw.numpy(), "gb": gb.numpy(),
+            "gx": gx.numpy(), "shifts": shifts}
+
+
+def drive_scheduler(eng, n_req: int, max_gen: int, seed: int = 7,
+                    vocab: int = 200, reqs=None) -> list:
+    """The reference's mesh-test drive: ``n_req`` prompts of 3-14 tokens
+    drawn from ``seed`` (or ``reqs``, (prompt, max_gen) pairs) through a
+    ContinuousScheduler until idle, all submitted at once: (the token
+    streams, the scheduler, the handles, the wall seconds)."""
+    import time
+
+    from ..serving import ContinuousScheduler
+
+    if reqs is None:
+        rng = np.random.RandomState(seed)
+        reqs = [(rng.randint(2, vocab, int(rng.randint(3, 15))), max_gen)
+                for _ in range(n_req)]
+    sched = ContinuousScheduler(eng)
+    cuda = eng.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(eng.device)
+    t0 = time.perf_counter()
+    handles = [sched.submit(p, max_gen=g) for p, g in reqs]
+    sched.run_until_idle()
+    if cuda:
+        torch.cuda.synchronize(eng.device)
+    wall = time.perf_counter() - t0
+    out = [np.asarray(r.result(10)) for r in handles]
+    return out, sched, handles, wall
+
+
+def probe_inputs(eng):
+    """The reference's teacher-forced probe: every slot at position 0 with
+    token 5, its own first block, limit 30."""
+    S = eng.n_slots
+    tables = np.tile(np.full(eng.n_tbl, eng.pool.trash, np.int32), (S, 1))
+    for s in range(S):
+        tables[s, 0] = s
+    return (np.full((S, 1), 5, np.int32), np.zeros(S, np.int32), tables,
+            np.full(S, 30, np.int32))
+
+
+def serve_case(spec: dict) -> dict:
+    """The decode engine on a serving mesh (``spec["mesh"]``, e.g.
+    "data=4"): ``spec["params"]`` (numpy, JAX names) at ``spec["cfg"]``;
+    ``warm()`` (its count, or the WarmError's message), the probe's step
+    logits, then the reference's drive (``spec["n_req"]``,
+    ``spec["max_gen"]``, or ``spec["reqs"]``): the streams, the wall and
+    the TTFTs, the scheduler's mesh stats, the block accounting,
+    dispatches, replays and paged launches (counters set to 0 after the
+    probe)."""
+    from ..core.graphs import WarmError
+    from ..ops.paged_attention import paged_attention
+    from ..serving import ContinuousDecodeEngine, make_serving_mesh
+
+    sm = make_serving_mesh(spec["mesh"])
+    params = spec["params"]
+    if callable(params):
+        params = params()
+    eng = ContinuousDecodeEngine(params, mesh=sm,
+                                 device=spec.get("device", "cpu"),
+                                 **spec["cfg"])
+    del params
+    try:
+        warm = eng.warm()
+    except WarmError as exc:
+        warm = str(exc)
+    logits = eng.step_logits(*probe_inputs(eng))
+    _zero_counters()
+    for c in (eng.step_dispatches, eng.prefill_dispatches, eng.replays):
+        c.clear()
+    streams, sched, handles, wall = drive_scheduler(
+        eng, spec.get("n_req", 0), spec.get("max_gen", 0),
+        reqs=spec.get("reqs"))
+    ttft = [1e3 * (h.t_first_token - h.t_submit) for h in handles]
+    return {"warm": warm, "logits": logits, "streams": streams,
+            "wall_s": wall, "ttft_ms": ttft,
+            "prefills": sum(eng.prefill_dispatches.values()),
+            "mesh": sched.stats()["mesh"],
+            "blocks": sched.check_block_accounting(),
+            "steps": sum(eng.step_dispatches.values()),
+            "replays": sum(eng.replays.values()),
+            "paged": paged_attention.launches,
+            "pool_heads": eng.pool.n_heads, "rows": eng._rows}
+
+
+def table_case(spec: dict) -> dict:
+    """``ShardedEmbeddingTable(mesh=)`` on ``spec["mesh"]`` ("fsdp=2", ...):
+    the lookup of ``spec["ids"]``, then one row-touched Adagrad(0.1)
+    apply of ones on the dedup's uids; the lookup, the whole table after
+    the apply (each rank's rows gathered) and the table's spec and rows.
+    A rank a sub-mesh leaves out returns ``{"idle": True}``."""
+    from .. import optimizer as opt_mod
+    from ..parallel import comm
+    from ..serving import make_serving_mesh
+    from ..sparse import RowTouchedOptimizer, ShardedEmbeddingTable
+
+    sm = make_serving_mesh(spec["mesh"])
+    if sm is not None and sm.mesh is not None and not sm.mesh.in_mesh:
+        return {"idle": True}     # a sub-mesh leaves this rank out
+    tab = ShardedEmbeddingTable(spec["vocabs"], 4, mesh=sm, seed=9,
+                                padding_idx=0, max_ids_per_batch=32,
+                                device="cpu")
+    ids = spec["ids"]
+    out = tab.lookup(ids).numpy()
+    db = tab.dedup(ids)
+    row_opt = RowTouchedOptimizer(opt_mod.Adagrad(0.1))
+    slots = row_opt.init_slots(tab)
+    grad = torch.ones((db.uids.shape[0], 4))
+    row_opt.apply_rows(tab.storage, slots, tab.local_uids(
+        torch.from_numpy(db.uids)), grad, 0.1, 1)
+    value = tab.value
+    for g in reversed(tab._groups):
+        value = comm.all_gather(value, g, 0)
+    return {"lookup": out, "value": value.numpy(), "rows": tab.rows,
+            "row0": tab.row0, "describe": tab.describe()}
+
+
+def c13_case(spec: dict) -> dict:
+    """``program_case`` with the batch-norm kernels' launches of its steps
+    (the counters set to 0 before it)."""
+    from ..ops.batch_norm import batch_norm_train
+
+    _zero_counters()
+    res = program_case(spec)
+    res["bn"] = dict(batch_norm_train.launches)
+    return res
+
+
+def ppep_case(spec: dict) -> dict:
+    """The pp + ep program (``dryrun_multichip.ppep_two_steps``) for
+    ``spec["n"]`` ranks' axes on this rank's device, at ``spec["dims"]``
+    (d_ff, experts, stages, micro, cf, classes) on ``spec["feed"]``: the
+    losses, ms a step and the peak memory."""
+    from . import dryrun_multichip as dry
+    from paddle_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(dry.ppep_axes(spec["n"]))
+    dev = torch.device(spec.get("device", "cuda"))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    losses = dry.ppep_two_steps(spec["n"], spec["feed"],
+                                parallel.Strategy(mesh),
+                                "cpu" if not cuda else None, record=rec,
+                                **spec.get("dims", {}))
+    return {"losses": losses, "ms": rec["ms"], "coords": mesh.coords,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+
+
+def refusal_case(spec: dict) -> dict:
+    """Each program of ``refusal_program`` (``spec["which"]``) run under a
+    Strategy on ``spec["mesh"]``: the NotImplementedError's message (None
+    when it ran) and the scope's step counter after the attempt (0: no op
+    of the step ran)."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.core.types import Place
+
+    out = {}
+    for which in spec["which"]:
+        fluid = _fresh()
+        feed = refusal_program(fluid, which)
+        mesh = parallel.make_mesh(spec["mesh"])
+        if not mesh.in_mesh:
+            return {"idle": True}
+        exe = fluid.Executor(Place("cpu") if spec.get("device", "cpu")
+                             == "cpu" else None,
+                             strategy=parallel.Strategy(mesh))
+        exe.run(fluid.default_startup_program())
+        scope = fluid.global_scope()
+        scope.step_counter = 0
+        try:
+            exe.run(feed=feed, fetch_list=[])
+            err = None
+        except NotImplementedError as exc:
+            err = str(exc)
+        out[which] = {"error": err, "step_counter": scope.step_counter}
+    return out
+
+
+KINDS = {"c13": c13_case, "ppep": ppep_case, "table": table_case, "serve": serve_case, "gpipe": gpipe_case, "refusal": refusal_case, "program": program_case, "attention": attention_case,
          "collectives": collectives_case, "lm_leg": lm_leg_case}
 
 

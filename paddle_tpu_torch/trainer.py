@@ -82,7 +82,8 @@ class SparseEmbeddingTrainer:
             loss = self.loss_fn(rows, dict(zip(names, leaves)), batch)
             grads = torch.autograd.grad(loss, [rows] + leaves)
         with torch.no_grad():
-            self.row_opt.apply_rows(self.table.storage, self.slots, uids,
+            self.row_opt.apply_rows(self.table.storage, self.slots,
+                                    self.table.local_uids(uids),
                                     grads[0], lr, t)
             new_p, new_s = apply_dense(self.opt, self.params,
                                        dict(zip(names, grads[1:])),

@@ -238,6 +238,20 @@ def test_shard_spec_raises_and_names_a9():
     dense = tfluid.layers.data("dense", [13])
     sparse = tfluid.layers.data("sparse", [len(VOCABS)], dtype="int32")
     label = tfluid.layers.data("label", [1], dtype="int32")
+    # shard_spec puts the spec on every field table (the vocab-parallel
+    # lookup under a Strategy: tests/test_torch_serving_mesh.py); the
+    # sparse engine's lookup on a sharded table is ROADMAP A.9 part 3
+    tfluid.models.ctr.wide_deep(dense, sparse, label, vocabs=VOCABS,
+                                shard_spec=tfluid.parallel.P("tp", None))
+    tables = [v for v in tfluid.default_main_program().parameters()
+              if "_emb_" in v.name]
+    assert len(tables) == 2 * len(VOCABS)
+    assert all(tuple(v.sharding) == ("tp", None) for v in tables)
+    tfluid.reset_default_programs()
+    dense = tfluid.layers.data("dense", [13])
+    sparse = tfluid.layers.data("sparse", [len(VOCABS)], dtype="int32")
+    label = tfluid.layers.data("label", [1], dtype="int32")
     with pytest.raises(NotImplementedError, match="A.9"):
         tfluid.models.ctr.wide_deep(dense, sparse, label, vocabs=VOCABS,
-                                    shard_spec=("fsdp", None))
+                                    shard_spec=tfluid.parallel.P("tp", None),
+                                    is_sparse=True)

@@ -128,7 +128,7 @@ def test_sharded_attrs_build_without_a_mesh():
     exe.run(startup)
     out, = exe.run(feed=feed, fetch_list=[loss])
     assert np.isfinite(out).all()
-    with pytest.raises(tfluid.core.graphs.WarmError, match="A.9 part 2"):
+    with pytest.raises(tfluid.core.graphs.WarmError, match="A.9 part 3"):
         exe.warm(tfluid.default_main_program(),
                  [("toks", (2, T), "int32"), ("labs", (2, T, 1), "int32")],
                  [loss])

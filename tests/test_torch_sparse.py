@@ -521,8 +521,21 @@ def test_table_describe_is_the_reference_string():
 
     d = json.loads(tab.describe())
     assert d["vocab"] == 18 and tuple(d["ladder"]) == tab.ladder
-    with pytest.raises(NotImplementedError, match="A.9"):
+    # a mesh is a ServingMesh (the sharded table: tests/
+    # test_torch_serving_mesh.py); a one-device mesh describes as the
+    # reference's one-chip degradation
+    with pytest.raises(TypeError, match="ServingMesh"):
         ShardedEmbeddingTable(8, 2, mesh=object(), device="cpu")
+    import jax
+
+    from paddle_tpu.serving import make_serving_mesh as jmake
+    from paddle_tpu.sparse import ShardedEmbeddingTable as JTable
+    from paddle_tpu_torch.serving import make_serving_mesh
+
+    one = ShardedEmbeddingTable(8, 2, mesh=make_serving_mesh("fsdp=2"),
+                                device="cpu")
+    jone = JTable(8, 2, mesh=jmake("fsdp=2", devices=jax.devices()[:1]))
+    assert one.describe() == jone.describe()
 
 
 def test_sparse_exports_the_reference_all():

@@ -354,8 +354,11 @@ def test_dryrun_multichip(n, capsys):
     out = dry.dryrun_multichip(n, device="cpu")
     labels = [label for label, _, _ in out]
     assert labels[0] == "composite" and "tp=4" in labels
+    assert labels[-1] == "pp+ep"
+    assert out[-1][1] == {"dp": n // 4, "pp": 2, "ep": 2}
     if n == 8:
-        assert labels == ["composite", "striped ring", "ulysses", "tp=4"]
+        assert labels == ["composite", "striped ring", "ulysses", "tp=4",
+                          "pp+ep"]
         assert out[0][1] == {"dp": 2, "sp": 2, "tp": 2}
     printed = capsys.readouterr().out
     assert printed.count("dryrun_multichip ok:") == len(out)

@@ -1,0 +1,199 @@
+"""Batch reductions under a Strategy (ROADMAP C.13): a gang of 2 CPU ranks
+over gloo under ``Strategy({"dp": 2})``, held against the JAX package on
+2 virtual CPU devices and on one device, from the same numpy weights and
+feeds, one SGD(0.1) step:
+
+* an fc-relu-fc MLP with a ``reduce_sum`` loss;
+* the same MLP with ``batch_norm`` before the relu (the training
+  statistics, the parameter gradients and the running statistics);
+* ``reduce_max`` / ``reduce_min`` over the batch with ties on both ranks,
+  ``reduce_mean`` over (batch, features) and a ``reduce_sum`` over the
+  features that stays local;
+* every layer that mixes batch rows and is not carried (``accuracy``,
+  ``auc``, ``chunk_eval``, ``reduce_prod`` over the batch, ``cumsum`` and
+  ``argmax`` over dim 0, ``matmul`` with x transposed or a batch-major y,
+  ``gather`` and ``scatter`` of a batch-major x, and the five evaluators)
+  raises NotImplementedError naming C.13 before the step's first op.
+
+One gang runs every case (the ``gang`` fixture).  Limits: losses and
+reduced values within rtol 1e-5; gradients and parameters within 1e-5 of
+their max abs (float32 sums in another order)."""
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jfluid
+from paddle_tpu import parallel as jpar
+from paddle_tpu_torch import distributed
+from paddle_tpu_torch.ops import batch_norm as TB
+from paddle_tpu_torch.tools import parallel_cases as pc
+
+RANKS = 2
+MLP_PARAMS = ["w1", "b1", "w2", "b2"]
+BN_PARAMS = ["w1", "bn.s", "bn.b", "w2", "b2"]
+
+
+def jax_run(build, feeds, fetch=(), dp=None, init=None, state=()):
+    """(init arrays, per-step fetches, final state) of the case in the JAX
+    package, on one device or on ``dp`` virtual devices."""
+    jfluid.reset_default_programs()
+    jfluid.reset_global_scope()
+    out = pc.BUILDERS[build](jfluid, jpar)
+    loss = out[0] if isinstance(out, tuple) else out
+    strategy = None if dp is None else jpar.Strategy(
+        jpar.make_mesh({"dp": dp}, devices=jax.devices()[:dp]))
+    exe = jfluid.Executor(strategy=strategy)
+    exe.run(jfluid.default_startup_program())
+    scope = jfluid.global_scope()
+    if init is None:
+        init = {n: np.asarray(v) for n, v in scope.items()}
+    else:
+        for n, a in init.items():
+            scope.set_var(n, jnp.asarray(a))
+    names = [loss.name] + pc.fetch_names(out, fetch)
+    steps = [[np.asarray(v) for v in exe.run(feed=f, fetch_list=names)]
+             for f in feeds]
+    return init, steps, {n: np.asarray(scope.find_var(n)) for n in state}
+
+
+def _mlp_feed():
+    rng = np.random.RandomState(0)
+    return {"x": rng.rand(8, 8).astype("float32"),
+            "y": rng.randint(0, 4, (8, 1)).astype("int32")}
+
+
+def _reduce_feed_and_weights():
+    """x [8, 4]: a large row three times (twice on rank 0, once on rank 1)
+    and a small one twice (once a rank), the rest in (0, 1); rw > 0, so
+    every column's max and min are ties across the ranks."""
+    rng = np.random.RandomState(3)
+    x = rng.rand(8, 4).astype("float32")
+    x[[0, 1, 5]] = 5.0
+    x[[2, 6]] = -5.0
+    return {"x": x}, {"rw": np.abs(rng.randn(4, 3)).astype("float32") + 0.1}
+
+
+CASES = {
+    "mlp_sum": dict(params=MLP_PARAMS, fetch=[p + "@GRAD" for p in
+                                              MLP_PARAMS]),
+    "mlp_bn": dict(params=BN_PARAMS, fetch=[p + "@GRAD" for p in BN_PARAMS],
+                   extra_state=["bn.m", "bn.v"]),
+    "reduce_ops": dict(params=["rw"], fetch=["$1", "$2", "$3", "rw@GRAD"]),
+}
+
+
+@pytest.fixture(scope="module")
+def gang():
+    specs, refs, jobs = {}, {}, {}
+    for case, c in CASES.items():
+        if case == "reduce_ops":
+            feed, init = _reduce_feed_and_weights()
+        else:
+            feed, init = _mlp_feed(), jax_run(case, [])[0]
+        state = c["params"] + c.get("extra_state", [])
+        specs[case] = dict(kind="program", build=case, init=init,
+                           feeds=[feed], fetch=c["fetch"],
+                           mesh={"dp": RANKS}, state=state)
+
+        def job(case=case, init=init, feed=feed, fetch=c["fetch"],
+                state=state):
+            return {arm: jax_run(case, [feed], fetch, dp, init, state)[1:]
+                    for arm, dp in (("single", None), ("dp2", RANKS))}
+
+        jobs[case] = job
+    specs["refusals"] = dict(kind="refusal", which=list(pc.REFUSALS),
+                             mesh={"dp": RANKS})
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(distributed.spawn, pc.run_cases, RANKS, specs,
+                          device="cpu", timeout_s=300)
+        refs = {case: job() for case, job in jobs.items()}
+        got = fut.result()[0]
+    return refs, got
+
+
+def _close(got, want, tol=1e-5, what=""):
+    got = np.asarray(got, dtype=np.float64).reshape(np.shape(want))
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert np.abs(got - want).max() <= tol * scale, what
+
+
+def _check(refs, got, case, arm):
+    (steps, fin) = refs[case][arm]
+    g = got[case]
+    np.testing.assert_allclose(np.ravel(g["steps"][0][0]),
+                               np.ravel(steps[0][0]), rtol=1e-5)
+    for i, name in enumerate(CASES[case]["fetch"], 1):
+        if name.startswith("$"):
+            np.testing.assert_allclose(np.ravel(g["steps"][0][i]),
+                                       np.ravel(steps[0][i]), rtol=1e-5,
+                                       err_msg=name)
+        else:
+            _close(g["steps"][0][i], steps[0][i], what=name)
+    for n, w in fin.items():
+        _close(g["state"][n], w, what=n)
+
+
+@pytest.mark.parametrize("arm", ["single", "dp2"])
+def test_reduce_sum_loss_matches_jax(gang, arm):
+    """The global sum on every rank, and its update the single device's
+    (the backward undoes the Strategy's 1/n)."""
+    refs, got = gang
+    _check(refs, got, "mlp_sum", arm)
+
+
+@pytest.mark.parametrize("arm", ["single", "dp2"])
+def test_batch_norm_matches_jax(gang, arm):
+    """Statistics over the global batch; dgamma and dbeta (fetched) the
+    single device's; running statistics alike on every rank."""
+    refs, got = gang
+    _check(refs, got, "mlp_bn", arm)
+
+
+@pytest.mark.parametrize("arm", ["single", "dp2"])
+def test_reduce_max_min_mean_over_batch_match_jax(gang, arm):
+    """max and min over the batch with ties across the ranks (the gradient
+    split over every rank's ties, as jnp.max's), a mean over (batch,
+    features), a local sum over the features."""
+    refs, got = gang
+    _check(refs, got, "reduce_ops", arm)
+
+
+@pytest.mark.parametrize("which", pc.REFUSALS)
+def test_batch_mixing_layer_refused_before_first_op(gang, which):
+    _, got = gang
+    r = got["refusals"][which]
+    assert r["error"] is not None and "C.13" in r["error"], r
+    assert r["step_counter"] == 0
+
+
+def test_bn_dx_plain_version_takes_the_global_count():
+    """Two halves of a batch, each with the whole batch's statistics,
+    summed dbeta and dgamma and the global M, give the rows of the whole
+    batch's dx (the dx kernel's ``count`` argument, in its plain
+    version)."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(8, 3, 5).astype("float32"))
+    dy = torch.from_numpy(rng.randn(8, 3, 5).astype("float32"))
+    gamma = torch.from_numpy(rng.rand(3).astype("float32") + 0.5)
+    dims = (0, 2)
+    mean = x.mean(dims)
+    rstd = torch.rsqrt(torch.clamp_min((x * x).mean(dims) - mean * mean,
+                                       0.0) + 1e-5)
+    db, dg = TB.bn_bwd_reduce_reference(dy, x, mean, rstd)
+    whole = TB.bn_bwd_dx_reference(dy, x, mean, rstd, gamma, db, dg)
+    parts = [TB.bn_bwd_reduce_reference(dy[h], x[h], mean, rstd)
+             for h in (slice(0, 4), slice(4, 8))]
+    db2 = parts[0][0] + parts[1][0]
+    dg2 = parts[0][1] + parts[1][1]
+    for h in (slice(0, 4), slice(4, 8)):
+        dx = TB.bn_bwd_dx_reference(dy[h], x[h], mean, rstd, gamma, db2, dg2,
+                                    count=8 * 5)
+        torch.testing.assert_close(dx, whole[h], rtol=1e-5, atol=1e-6)
+    # the local count is the default, and differs
+    local = TB.bn_bwd_dx_reference(dy[:4], x[:4], mean, rstd, gamma, db2,
+                                   dg2)
+    assert not torch.allclose(local, whole[:4], rtol=1e-3, atol=1e-4)

@@ -355,7 +355,7 @@ def test_optimizer_options_not_ported_raise():
     """Accumulation and regularization are ported (A.6): they construct,
     and a count that is not a positive integer raises as in the
     reference.  Parallel strategies are ported (A.9 part 1): an Executor
-    takes one; warming a step under it is A.9 part 2 and raises."""
+    takes one; warming a step under it is A.9 part 3 and raises."""
     assert tfluid.optimizer.Adam(1e-3, accumulate_steps=2)._accumulate == 2
     reg = tfluid.regularizer.L2Decay(1e-4)
     assert tfluid.optimizer.Adam(1e-3, regularization=reg)._regularization \
@@ -370,7 +370,7 @@ def test_optimizer_options_not_ported_raise():
     exe = tfluid.Executor(CPU, strategy=strategy)
     assert exe.strategy is strategy
     loss = _build_lm(tfluid)
-    with pytest.raises(WarmError, match="A.9 part 2"):
+    with pytest.raises(WarmError, match="A.9 part 3"):
         exe.warm(tfluid.default_main_program(), [], [loss])
 
 
