@@ -6520,12 +6520,16 @@ def _par_predicted(kw: dict, coords: dict) -> dict:
     return {"flash": flash, "dropout": {"fwd": sites, "bwd": sites}}
 
 
-def _dropout_offsets_on_card() -> int:
-    """The dropout kernel with counter maps: 4 row slices (dp), and 2 x 2
-    (dp x sp) contiguous and striped sequence slices, of one
-    [8, 1024, 512] tensor, each launch bitwise the whole tensor's launch
-    at its elements and the plain version with the same map.  Returns the
-    number of slice launches checked."""
+def _dropout_offsets_on_card() -> tuple:
+    """The dropout kernel with counter maps: 4 row slices (dp), 2 x 2
+    (dp x sp) contiguous and striped sequence slices, 2 x 2 (dp x tp)
+    row and column slices (the one-level tensor-parallel map) and 2 x 2
+    (sp x tp) contiguous and striped sequence and column slices (the
+    two-level map), of one [8, 1024, 512] tensor, each launch bitwise the
+    whole tensor's launch at its elements and the plain version with the
+    same map.  Then rank 0's slice of the two tp maps timed beside an
+    unmapped launch on the same slice.  Returns (the number of slice
+    launches checked, {map: (mapped ms, unmapped ms, slice shape)})."""
     from paddle_tpu_torch.ops import dropout as dmod
     from paddle_tpu_torch.param_attr import SeqAxis
     from paddle_tpu_torch.parallel.mesh import Mesh
@@ -6536,24 +6540,30 @@ def _dropout_offsets_on_card() -> int:
                     generator=torch.Generator("cuda").manual_seed(5))
     key = dmod.ThreefryKey(0, 7, 3)
     whole = dmod.dropout_fwd_kernel(x, key, PAR_DROPOUT)
-    n = 0
+    n, times = 0, {}
     for axes, seq, striped in (({"dp": 4}, False, False),
                                ({"dp": 2, "sp": 2}, True, False),
-                               ({"dp": 2, "sp": 2}, True, True)):
+                               ({"dp": 2, "sp": 2}, True, True),
+                               ({"dp": 2, "tp": 2}, False, False),
+                               ({"sp": 2, "tp": 2}, True, False),
+                               ({"sp": 2, "tp": 2}, True, True)):
         grid = np.arange(4).reshape(*axes.values())
+        col = "tp" if "tp" in axes else None
         for r in range(4):
             mesh = Mesh(grid, tuple(axes), r)
             sp_ax = SeqAxis("sp", striped) if seq else None
-            lay = StepLayout(mesh, "dp", sp_ax, B)
-            b = B // axes["dp"]
+            lay = StepLayout(mesh, "dp" if "dp" in axes else None, sp_ax, B)
+            b = B // axes.get("dp", 1)
             rows = slice(mesh.coord("dp") * b, (mesh.coord("dp") + 1) * b)
             pos = torch.as_tensor(seq_index(T, axes.get("sp", 1),
                                             mesh.coord("sp"), striped),
                                   device="cuda")
-            part = x[rows].index_select(1, pos).contiguous()
-            cmap = lay.counter_map(part.shape, sp_ax)
+            w = D // axes.get("tp", 1)
+            cols = slice(mesh.coord("tp") * w, (mesh.coord("tp") + 1) * w)
+            part = x[rows].index_select(1, pos)[..., cols].contiguous()
+            cmap = lay.counter_map(part.shape, sp_ax, True, col)
             got = dmod.dropout_fwd_kernel(part, key, PAR_DROPOUT, cmap)
-            want = whole[rows].index_select(1, pos)
+            want = whole[rows].index_select(1, pos)[..., cols]
             check(torch.equal(got, want)
                   and torch.equal(got, dmod.dropout_reference(
                       part, key, PAR_DROPOUT, cmap)),
@@ -6561,7 +6571,14 @@ def _dropout_offsets_on_card() -> int:
                   f"(seq {seq}, striped {striped}) is not the whole "
                   f"tensor's mask")
             n += 1
-    return n
+            if col and r == 0 and not striped:
+                label = ("two-level sp x tp" if seq else "one-level dp x tp")
+                times[label] = (
+                    cuda_ms(lambda i: dmod.dropout_fwd_kernel(
+                        part, key, PAR_DROPOUT, cmap)),
+                    cuda_ms(lambda i: dmod.dropout_fwd_kernel(
+                        part, key, PAR_DROPOUT)), tuple(part.shape))
+    return n, times
 
 
 def phase_parallel(card: str) -> dict:
@@ -6571,10 +6588,14 @@ def phase_parallel(card: str) -> dict:
     from paddle_tpu_torch.parallel import comm
     from paddle_tpu_torch.tools import parallel_cases as pc
 
-    n_slices = _dropout_offsets_on_card()
+    n_slices, map_ms = _dropout_offsets_on_card()
     print(f"parallel: dropout kernel with counter maps, {n_slices} slices "
           f"bitwise the whole [8, 1024, 512] tensor's launch and the plain "
-          f"version; on {card}")
+          f"version (dp, dp x sp contiguous and striped, dp x tp, sp x tp "
+          f"contiguous and striped); float32 fwd ms on rank 0's slice, "
+          f"mapped vs unmapped: "
+          + "; ".join(f"{k} {v[2]} {v[0]:.4f} vs {v[1]:.4f}"
+                      for k, v in map_ms.items()) + f"; on {card}")
     feed = _par_feed()
     tmp = tempfile.mkdtemp(prefix="par-ref-")
     refs = {d: os.path.join(tmp, f"ref_{d}.pt") for d in (0.0, PAR_DROPOUT)}
@@ -6599,7 +6620,8 @@ def phase_parallel(card: str) -> dict:
           f"{sorted(comm.GLOO_STAGED)} staged through pinned host memory "
           f"(gloo's send / recv take no device memory); {gang_s:.1f} s "
           f"with start-up")
-    out = {"legs": {}, "gloo_staged": sorted(comm.GLOO_STAGED)}
+    out = {"legs": {}, "gloo_staged": sorted(comm.GLOO_STAGED),
+           "dropout_map_ms": map_ms}
     for label, mesh, kw, zero1 in PAR_LEGS:
         r0 = ranks[0][label]
         rec = {"mesh": mesh, "zero1": zero1, "losses": r0["losses"],
@@ -6729,9 +6751,253 @@ def _c13_specs() -> dict:
             kind="c13", build=build, kw=kw, init=init, feeds=[feed],
             fetch=[p + "@GRAD" for p in params], state=params + stats,
             mesh={"dp": 2}, device="cuda")
-    specs["c13 accuracy"] = dict(kind="refusal", which=["accuracy"],
-                                 mesh={"dp": 2}, device="cuda")
     return specs
+
+
+# A.9 part 3's legs on the same gang (this slice): (a) the LM at full
+# width on {dp 4} fed by DeviceFeeder(sharding=), fetching accuracy with an
+# Accuracy evaluator; (b) dropout on a column-parallel shard and the
+# soft-label vocab-parallel loss with its softmax on {dp 2, tp 2} at the
+# LM's widths (D 512, d_ff 2048, V 32000; 4 x 128 tokens); (c) ctr
+# wide_deep(is_sparse=True) on vocab-sharded tables over {dp 2, tp 2}
+# (models.ctr's defaults, each field's vocabulary rounded up to even so
+# that tp 2 divides it); (d) switch_moe over a sequence sharded on
+# {sp 2, ep 2} at the pp + ep leg's widths (8 x 1024 tokens); (e) the
+# serving mesh {data 2, tp 2} with kv_dtype int8, 4 of the serve
+# requests.  Each against the single card's run of the same program.
+A9_STEPS = 2
+A9_TP = dict(T=128, d=512, d_ff=2048, vocab=32000, p=PAR_DROPOUT)
+A9_TP_BATCH = 4
+A9_MOE = dict(T=1024, d=512, hidden=512, experts=PPEP_LM["experts"],
+              d_ff=PPEP_LM["d_ff"], cf=PPEP_LM["cf"],
+              classes=PPEP_LM["classes"])
+A9_SERVE_MESH = "data=2,tp=2"
+A9_SERVE_REQS = 4
+A9_SERVE_GEN = 16
+
+
+def _a9_specs() -> dict:
+    """The program legs (a)-(d) of A.9 part 3, as ``program_case`` specs
+    (weights from each program's startup on the card: the same draws on
+    every rank and on the single card)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import families
+
+    rng = np.random.RandomState(13)
+    B, T, V = A9_TP_BATCH, A9_TP["T"], A9_TP["vocab"]
+    tp_feed = {"x": rng.randn(B, T, A9_TP["d"]).astype("float32"),
+               "soft": rng.rand(B, T, V).astype("float32")}
+    ctr_vocabs = [v + v % 2 for v in fluid.datasets.ctr.FIELD_VOCABS]
+    moe_feed = {"x": rng.randn(8, A9_MOE["T"], A9_MOE["d"]).astype("float32"),
+                "lab": rng.randint(0, A9_MOE["classes"], (8, A9_MOE["T"], 1))
+                .astype("int32")}
+    base = dict(kind="c13", device="cuda", step_counter=5)
+    return {
+        "a9 dp4 lm": dict(base, build="lm_metrics", kw={"cfg": LM_CFG},
+                          feeds=[_par_feed()] * A9_STEPS,
+                          fetch=["$1", "$2", "$3", "$4"], mesh={"dp": 4},
+                          feeder=True),
+        "a9 dp2 tp2 extras": dict(
+            base, build="tp_extras", kw=A9_TP, feeds=[tp_feed] * A9_STEPS,
+            fetch=["$1", "$2", "tx.c.w@GRAD", "tx.r.w@GRAD",
+                   "tx.o.w@GRAD"], mesh={"dp": 2, "tp": 2}),
+        "a9 ctr sparse tp": dict(
+            base, build="ctr_tp",
+            kw={"is_sparse": True, "vocabs": ctr_vocabs, "emb_dim": 8,
+                "hidden": (64, 32)},
+            feeds=[families.family_batch("wide_deep", 0)] * A9_STEPS,
+            fetch=[], mesh={"dp": 2, "tp": 2},
+            state=[f"{k}_emb_{f}" for k in ("wide", "deep")
+                   for f in (0, 1, 2)]),
+        "a9 moe sp": dict(
+            base, build="moe_seq", kw=A9_MOE, feeds=[moe_feed] * A9_STEPS,
+            fetch=["$1", "m.w@GRAD", "switch_moe_w_0@GRAD",
+                   "switch_moe_w_1@GRAD"], mesh={"sp": 2, "ep": 2}),
+    }
+
+
+def _a9_refs(specs: dict, reqs: list) -> dict:
+    """The single card's run of each program leg, and the single int8
+    engine's streams for leg (e), with the launches they made."""
+    from paddle_tpu_torch.models import init_lm_params
+    from paddle_tpu_torch.ops import dropout as dmod
+    from paddle_tpu_torch.serving import ContinuousDecodeEngine
+    from paddle_tpu_torch.tools import parallel_cases as pc
+
+    refs = {}
+    for label, sp in specs.items():
+        pc._zero_counters()
+        refs[label] = pc.program_case(dict(sp, mesh=None, feeder=False))
+        refs[label]["dropout"] = dict(dmod.threefry_dropout.launches)
+        _release()
+    cfg = dict(ENGINE_CFG, **LM_CFG, kv_dtype="int8")
+    eng = ContinuousDecodeEngine(init_lm_params(0, **LM_CFG), **cfg)
+    eng.warm()
+    refs["a9 serve int8"] = {
+        "probe": eng.step_logits(*pc.probe_inputs(eng)),
+        "streams": pc.drive_scheduler(eng, 0, 0, reqs=reqs)[0]}
+    del eng
+    _release()
+    return refs
+
+
+def _a9_check(ranks: list, specs: dict, refs: dict, card: str) -> dict:
+    """Hold each leg of A.9 part 3 to the single card's run; print each
+    leg's figures."""
+    out = {}
+    # (a) dp 4: losses within PAR_LOSS_RTOL, accuracy and the evaluator's
+    # rate and counts exactly the single card's
+    label = "a9 dp4 lm"
+    ref, got = refs[label], [r[label] for r in ranks]
+    for g in got:
+        check(all(set(v[0] for v in st.values()) == {"LocalFeed"}
+                  and st["toks"][1] == (PAR_BATCH // 4, LM_CFG["max_len"])
+                  for st in g["staged"]),
+              f"mesh {label}: the feeder staged {g['staged'][0]}")
+        for gs, rs in zip(g["steps"], ref["steps"]):
+            lg, lr = float(np.ravel(gs[0])[0]), float(np.ravel(rs[0])[0])
+            check(abs(lg - lr) <= PAR_LOSS_RTOL * abs(lr),
+                  f"mesh {label}: loss {lg} vs the single card's {lr}")
+            check(all(np.array_equal(a, b) for a, b in zip(gs[1:], rs[1:])),
+                  f"mesh {label}: accuracy / evaluator {gs[1:]} vs the "
+                  f"single card's {rs[1:]}")
+    g0 = got[0]
+    out[label] = {"losses": [float(np.ravel(s[0])[0]) for s in g0["steps"]],
+                  "ref_losses": [float(np.ravel(s[0])[0])
+                                 for s in ref["steps"]],
+                  "accuracy": [float(np.ravel(s[1])[0]) for s in g0["steps"]],
+                  "evaluator": [[float(np.ravel(x)[0]) for x in s[2:]]
+                                for s in g0["steps"]]}
+    print(f"mesh {label}: LM (V {LM_CFG['vocab_size']}, D "
+          f"{LM_CFG['d_model']}, 8 x {LM_CFG['max_len']} tokens) fed by "
+          f"DeviceFeeder(sharding=), {PAR_BATCH // 4} rows staged a rank; "
+          f"losses {out[label]['losses']} vs single card "
+          f"{out[label]['ref_losses']}; accuracy {out[label]['accuracy']} "
+          f"and evaluator [rate, correct, total] {out[label]['evaluator']} "
+          f"exactly the single card's; on {card}")
+    # (b) dp 2 x tp 2: the mask bitwise, the softmax and gradients within
+    # PAR_GRAD_REL of their max abs, the loss within PAR_LOSS_RTOL
+    label = "a9 dp2 tp2 extras"
+    ref, got = refs[label], [r[label] for r in ranks]
+    worst = 0.0
+    for g in got:
+        for gs, rs in zip(g["steps"], ref["steps"]):
+            lg, lr = float(np.ravel(gs[0])[0]), float(np.ravel(rs[0])[0])
+            check(abs(lg - lr) <= PAR_LOSS_RTOL * abs(lr),
+                  f"mesh {label}: loss {lg} vs the single card's {lr}")
+            check(np.array_equal(gs[1] == 0, rs[1] == 0),
+                  f"mesh {label}: the dropout mask differs from the single "
+                  f"card's")
+            for name, a, b in zip(specs[label]["fetch"][1:], gs[2:],
+                                  rs[2:]):
+                e = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-30)
+                check(e <= PAR_GRAD_REL, f"mesh {label}: {name} off by "
+                                         f"{e:.3e} of its max abs")
+                worst = max(worst, e)
+    drops = [g["dropout"] for g in got]
+    check(all(d == {"fwd": A9_STEPS, "bwd": A9_STEPS} for d in drops),
+          f"mesh {label}: dropout launches by rank {drops}, want one fwd "
+          f"and one bwd a step")
+    out[label] = {"losses": [float(np.ravel(s[0])[0])
+                             for s in got[0]["steps"]],
+                  "worst": worst, "dropout_launches": drops,
+                  "nonzero": float((ref["steps"][0][1] != 0).mean())}
+    print(f"mesh {label}: dropout {A9_TP['p']} on the column-parallel "
+          f"[{A9_TP_BATCH}, {A9_TP['T']}, {A9_TP['d_ff']}] output (the "
+          f"one-level tp map), mask bitwise the single card's (non-zero "
+          f"after relu and dropout {out[label]['nonzero']:.4f}); soft-label vocab-parallel loss over "
+          f"V {A9_TP['vocab']} with return_softmax, losses "
+          f"{out[label]['losses']}, softmax and gradients within "
+          f"{worst:.2e} of max abs; dropout launches by rank {drops}; on "
+          f"{card}")
+    # (c) ctr is_sparse on tp-sharded tables
+    label = "a9 ctr sparse tp"
+    ref, got = refs[label], [r[label] for r in ranks]
+    worst = 0.0
+    for g in got:
+        for gs, rs in zip(g["steps"], ref["steps"]):
+            lg, lr = float(np.ravel(gs[0])[0]), float(np.ravel(rs[0])[0])
+            check(abs(lg - lr) <= PAR_LOSS_RTOL * abs(lr),
+                  f"mesh {label}: loss {lg} vs the single card's {lr}")
+        for n, w in ref["state"].items():
+            e = float(np.abs(g["state"][n] - w).max()) / max(
+                float(np.abs(w).max()), 1e-30)
+            check(e <= PAR_GRAD_REL, f"mesh {label}: table {n} off by "
+                                     f"{e:.3e} of its max abs")
+            worst = max(worst, e)
+    out[label] = {"losses": [float(np.ravel(s[0])[0])
+                             for s in got[0]["steps"]], "worst": worst}
+    print(f"mesh {label}: wide_deep(is_sparse=True), 26 vocab-sharded "
+          f"tables over tp 2 (the sparse engine's rule on each rank's rows),"
+          f" losses {out[label]['losses']} vs single card "
+          f"{[float(np.ravel(s[0])[0]) for s in ref['steps']]}; the "
+          f"largest tables after {A9_STEPS} Adam steps within {worst:.2e} "
+          f"of max abs; on {card}")
+    # (d) switch_moe over a sequence sharded on sp: the loss and the aux
+    # loss within PAR_LOSS_RTOL, the gradients within PAR_GRAD_REL of
+    # their max abs, as legs (a)-(c)
+    label = "a9 moe sp"
+    ref, got = refs[label], [r[label] for r in ranks]
+    worst = 0.0
+    for g in got:
+        l_g = [float(np.ravel(s[0])[0]) for s in g["steps"]]
+        l_r = [float(np.ravel(s[0])[0]) for s in ref["steps"]]
+        for gs, rs in zip(g["steps"], ref["steps"]):
+            for name, a, b in zip(["loss"] + specs[label]["fetch"], gs, rs):
+                if name in ("loss", "$1"):
+                    check(np.allclose(a, b, rtol=PAR_LOSS_RTOL, atol=0.0),
+                          f"mesh {label}: {name} {np.ravel(a)} vs the "
+                          f"single card's {np.ravel(b)}")
+                    continue
+                e = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-30)
+                check(e <= PAR_GRAD_REL, f"mesh {label}: {name} off by "
+                                         f"{e:.3e} of its max abs")
+                worst = max(worst, e)
+    out[label] = {"losses": l_g, "ref_losses": l_r, "grad_worst": worst}
+    print(f"mesh {label}: switch_moe ({A9_MOE['experts']} experts, d_ff "
+          f"{A9_MOE['d_ff']}, cf {A9_MOE['cf']}) over 8 x {A9_MOE['T']} "
+          f"tokens, sequence on sp 2, experts on ep 2: losses {l_g} vs the "
+          f"single card's {l_r} (loss and aux loss rtol {PAR_LOSS_RTOL}); "
+          f"gradients within {worst:.2e} of max abs (limit {PAR_GRAD_REL});"
+          f" on {card}")
+    # (e) the int8 serving mesh
+    label = "a9 serve int8"
+    ref, got = refs[label], [r[label] for r in ranks]
+    n_layers = LM_CFG["n_layers"]
+    for r in got:
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(r["streams"], got[0]["streams"])),
+              f"mesh {label}: ranks disagree on the tokens")
+        check(r["blocks"]["leaked"] == 0 and r["blocks"]["occupied"] == 0,
+              f"mesh {label}: blocks leaked {r['blocks']}")
+        check(r["paged"] == n_layers * r["steps"] and r["steps"] > 0,
+              f"mesh {label}: {r['paged']} paged launches for {r['steps']} "
+              f"steps x {n_layers} layers")
+        check(r["pool_heads"] == LM_CFG["n_heads"] // 2,
+              f"mesh {label}: pool heads {r['pool_heads']}")
+    g = got[0]
+    rate = _match_rate(g["streams"], ref["streams"])
+    err = float(np.abs(g["logits"] - ref["probe"]).max())
+    check(np.allclose(g["logits"], ref["probe"], rtol=MESH_LOGIT_TOL,
+                      atol=MESH_LOGIT_TOL),
+          f"mesh {label}: step logits off the single card's by {err:.3e}")
+    check(rate >= MESH_GREEDY_FLOOR, f"mesh {label}: greedy match {rate:.4f}")
+    out[label] = {"match_rate": rate, "logit_err": err,
+                  "paged": [r["paged"] for r in got],
+                  "steps": [r["steps"] for r in got],
+                  "mean_step_ms": [1e3 * r["wall_s"] / r["steps"]
+                                   for r in got]}
+    print(f"mesh {label}: {A9_SERVE_MESH}, int8 pool (payload and scales "
+          f"{LM_CFG['n_heads'] // 2} heads a rank), {A9_SERVE_REQS} "
+          f"requests; greedy match {rate:.4f} against the single card's "
+          f"int8 engine, step logits {err:.3e} max off it (rtol = atol "
+          f"{MESH_LOGIT_TOL}); paged int8 "
+          f"launches by rank {out[label]['paged']} (= {n_layers} x steps "
+          f"{out[label]['steps']}); mean step ms "
+          f"{[round(t, 1) for t in out[label]['mean_step_ms']]}; on {card}")
+    return out
 
 
 def _serve_reqs() -> list:
@@ -6798,6 +7064,14 @@ def phase_mesh(card: str) -> dict:
         specs[f"serve {m}"] = dict(
             kind="serve", mesh=m, cfg=cfg, reqs=reqs, device="cuda",
             params=functools.partial(init_lm_params, 0, **LM_CFG))
+    a9 = _a9_specs()
+    a9_reqs = [(p, min(g, A9_SERVE_GEN)) for p, g in reqs[:A9_SERVE_REQS]]
+    refs.update(_a9_refs(a9, a9_reqs))
+    specs.update(a9)
+    specs["a9 serve int8"] = dict(
+        kind="serve", mesh=A9_SERVE_MESH, cfg=dict(cfg, kv_dtype="int8"),
+        reqs=a9_reqs, device="cuda",
+        params=functools.partial(init_lm_params, 0, **LM_CFG))
     t0 = time.perf_counter()
     ranks = distributed.spawn(pc.run_cases, MESH_RANKS, specs, True,
                               device="cuda:0",
@@ -6847,13 +7121,7 @@ def phase_mesh(card: str) -> dict:
               f"worst gradient {worst:.2e} of max abs; running statistics "
               f"{stat_worst:.2e}; batch-norm launches by rank "
               f"{[r['bn'] for r in live]}; on {card}")
-    acc = ranks[0]["c13 accuracy"]["accuracy"]
-    check(acc["error"] is not None and "C.13" in acc["error"]
-          and acc["step_counter"] == 0,
-          f"mesh c13: accuracy under dp 2 was not refused before its first "
-          f"op: {acc}")
-    print(f"mesh c13 accuracy: refused before the first op under dp 2 "
-          f"({acc['error'][:60]}...)")
+    out.update(_a9_check(ranks, a9, refs, card))
 
     # pp + ep against the single card's sequential fold
     for label in ppep_feeds:
@@ -7049,7 +7317,9 @@ def main() -> int:
         "c2_empty_profiler_windows": len(empty_windows),
         "launches_by_path": dict(paths, **{
             f"mesh {m} rank {i}": n for m in SERVE_MESHES
-            for i, n in enumerate(mesh[f"serve {m}"]["paged"])}),
+            for i, n in enumerate(mesh[f"serve {m}"]["paged"])}, **{
+            f"mesh {A9_SERVE_MESH} int8 rank {i}": n
+            for i, n in enumerate(mesh["a9 serve int8"]["paged"])}),
     }]
     replaces = {"fwd": "paddle_tpu/ops/attention.py:39",
                 "bwd_dkdv": "paddle_tpu/ops/attention.py:223",
@@ -7230,8 +7500,13 @@ def main() -> int:
                 {a: r["launches"][kern] for a, r in lm_drop.items()},
                 **{f"image {a}": r["dropout_launches"][kern]
                    for a, r in image["train"].items()},
-                **_par_launches(par, "dropout", kern)),
+                **_par_launches(par, "dropout", kern),
+                **{f"mesh dp 2 x tp 2 rank {i}": d[kern] for i, d in
+                   enumerate(mesh["a9 dp2 tp2 extras"]["dropout_launches"])}),
             "bfloat16": drop["bfloat16"][kern],
+            "mapped_ms": {k: {"mapped": v[0], "unmapped": v[1],
+                              "slice": list(v[2])}
+                          for k, v in par["dropout_map_ms"].items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -51,11 +51,14 @@ asked, as the reference's Trainer asks (``paddle_tpu/trainer.py:179``).
 
 ``Executor(strategy=parallel.Strategy(mesh))`` runs the step on this
 rank's shard (``parallel/strategy.py``): the feeds sliced to the rank's
-rows (and sequence positions), the state sliced to its shards, the ops
-given the mesh and the step's layout in their ``OpContext``, the
-replicated gradients averaged after the backward op, the optimizer ops
-under ZeRO-1 on the rank's slices, the fetches gathered back whole.
-``warm`` under a Strategy raises ``WarmError`` (ROADMAP A.9 part 3).
+rows (and sequence positions; a ``DeviceFeeder(sharding=strategy)``
+batch is the rank's already), the state sliced to its shards, the ops
+given the mesh and the step's layout in their ``OpContext``, the ops that
+mix batch rows run on the whole batch through the Strategy's plan
+(``Strategy.plan_batch_ops``), the replicated gradients averaged after
+the backward op, the optimizer ops under ZeRO-1 on the rank's slices, the
+fetches gathered back whole.  ``warm`` under a Strategy raises
+``WarmError`` (gloo's collectives cannot be captured).
 """
 from __future__ import annotations
 
@@ -149,16 +152,18 @@ def _check_feed_shape(shape, var: Variable):
                 f"{want} (declared shape {declared}, fed shape {tuple(shape)})")
 
 
-def _as_feed_array(value, var: Optional[Variable]):
+def _as_feed_array(value, var: Optional[Variable], check: bool = True):
     """A feed as a tensor where it lies (the host for numpy), shape-checked
-    and cast to the declared dtype (int32 ids stay int32: ops that gather
-    convert them)."""
+    (unless ``check`` is false: a rank's part of a sharded feed) and cast
+    to the declared dtype (int32 ids stay int32: ops that gather convert
+    them)."""
     if isinstance(value, torch.Tensor):
         t = value
     else:
         t = torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
     if var is not None:
-        _check_feed_shape(tuple(t.shape), var)
+        if check:
+            _check_feed_shape(tuple(t.shape), var)
         if t.dtype != var.dtype:
             t = t.to(var.dtype)
     return t
@@ -252,7 +257,15 @@ class Executor:
         scope = scope or global_scope()
 
         block = program.global_block
-        feed_vals = {name: _as_feed_array(value, block.vars.get(name))
+        # a feed a DeviceFeeder(sharding=strategy) staged is the rank's part
+        # already: its batch and sequence dims are not the variable's
+        local = False
+        if self.strategy is not None:
+            from ..parallel.strategy import LocalFeed
+
+            local = isinstance(feed, LocalFeed)
+        feed_vals = {name: _as_feed_array(value, block.vars.get(name),
+                                          check=not local)
                      for name, value in feed.items()}
         fetch_names = [_fetch_name(f) for f in fetch_list]
         state_in_names = sorted(self._state_in_names(program, scope,
@@ -269,8 +282,10 @@ class Executor:
         state = {n: scope.find_var(n) for n in state_in_names}
         layout, strategy = None, self.strategy
         if strategy is not None:
+            if local:
+                feed_vals = type(feed)(feed_vals, feed.batch, feed.seq_axis)
             feed_vals, layout = strategy.shard_feed(program, feed_vals)
-            strategy.check_batch_ops(program, layout)
+            strategy.plan_batch_ops(program, layout)
             state = strategy.local_state(program, state)
         fetches, new_state = step(state, feed_vals, scope.step_counter,
                                   layout)
@@ -321,9 +336,10 @@ class Executor:
                 "store is ROADMAP A.10")
         if self.strategy is not None:
             raise WarmError(
-                "warm under a Strategy is not ported yet (ROADMAP A.9 part "
-                "3: NCCL collectives can be captured in a CUDA graph, gloo's "
-                "cannot); run() runs the sharded step eagerly")
+                "warm under a Strategy is not ported yet "
+                "(ROADMAP A.9 part 3: NCCL collectives can be captured in a "
+                "CUDA graph, gloo's cannot); run() runs the sharded step "
+                "eagerly")
         check_capturable(program)
         scope = scope or global_scope()
         check_kernel_shapes(program, self.device)

@@ -152,6 +152,9 @@ class OpContext:
         # sequence positions); None on one device
         self.mesh = mesh
         self.layout = layout
+        # the ops the Strategy carries over a sharded batch this step (id ->
+        # (op, carrier)), from the layout's plan; None when there are none
+        self.carry = getattr(layout, "carry", None)
 
     def rng_key(self, tag: int) -> ThreefryKey:
         """The threefry key of the random op ``tag`` in this step, the
@@ -194,7 +197,12 @@ class Op:
     block an op runs inside its closure (``layers.recompute``'s, an RNN's
     body, the true branch of ``cond`` / ``IfElse``) and ``else_block`` the
     false branch of ``cond`` / ``IfElse``, for the checks that walk every
-    op of a program (``Program.all_ops``)."""
+    op of a program (``Program.all_ops``).  ``axes`` are the dims of its
+    inputs the op runs along (reduces, normalises, sorts, contracts, scans
+    or samples) where no dim attribute names them, as the layer that
+    appends it declares them (negative counts from the end); a Strategy
+    reads them to find the ops it runs on whole tensors
+    (``parallel.strategy._mixing``)."""
 
     type: str
     inputs: Dict[str, List[str]]
@@ -206,6 +214,7 @@ class Op:
     group: Any = None
     sub_block: Optional["Block"] = None
     else_block: Optional["Block"] = None
+    axes: Optional[tuple] = None
 
     def input_names(self) -> List[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -214,6 +223,13 @@ class Op:
         return [n for ns in self.outputs.values() for n in ns]
 
     def apply(self, env: Dict[str, Any], ctx: OpContext) -> None:
+        if ctx.carry is not None:
+            entry = ctx.carry.get(id(self))
+            if entry is not None:
+                # an op that mixes the rows of a sharded batch: run on the
+                # whole tensors (parallel.strategy.Carrier)
+                entry[1](env, ctx)
+                return
         self.write(env, self.fn(self.read(env, ctx), self.attrs, ctx))
 
     def read(self, env: Dict[str, Any], ctx: OpContext):
@@ -377,6 +393,7 @@ class Program:
                 group=op.group,
                 sub_block=op.sub_block,
                 else_block=op.else_block,
+                axes=op.axes,
             )
             if for_test and "is_test" in nop.attrs:
                 nop.attrs["is_test"] = True

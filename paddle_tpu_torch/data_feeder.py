@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .core.program import Variable
+from .core.program import Variable, default_main_program
 
 
 class DataFeeder:
@@ -72,16 +72,30 @@ class DeviceFeeder:
     stream is held by a weak reference, so a consumer that drops its
     iterator lets it close and the producer thread stop.  A reader's or
     the staging's error reaches the consumer, raised where the batch would
-    have been."""
+    have been.
+
+    ``sharding``: a ``parallel.Strategy`` (the counterpart of the
+    reference's ``NamedSharding``, ``device_put`` of each feed).  Each rank
+    then uploads only its part of every global batch: the dp rows of the
+    batch-major feeds of the default main program when the feeder is
+    made, and the sequence slice of those with a ``SeqAxis`` on dim 1.
+    A batch comes out as a ``parallel.LocalFeed``, marked as the rank's
+    with the global batch size, which ``Executor.run`` under that
+    Strategy takes without slicing again: fetches, losses and state are
+    those of the same feeds given whole.  The run refuses a
+    ``LocalFeed`` whose rows are not its program's part of the batch (a
+    feeder made for another program)."""
 
     _END = object()
 
     def __init__(self, feed_reader, depth: int = 2, sharding=None,
                  device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DeviceFeeder(sharding=...) is not ported yet: ROADMAP A.9 "
-                "part 3")
+        if sharding is not None and not hasattr(sharding, "local_feed"):
+            raise TypeError(f"DeviceFeeder(sharding=...) takes a "
+                            f"parallel.Strategy, got "
+                            f"{type(sharding).__name__}")
+        self._sharding = sharding
+        self._program = default_main_program()
         self._reader = feed_reader
         self._depth = depth
         self.device = resolve_device(device)
@@ -114,7 +128,19 @@ class DeviceFeeder:
         on the feeder's side stream, which then records the event the
         consumer waits on.  Returns (staged dict, event or None).
         Subclass hook: the sparse pipeline (``sparse/pipeline.py``)
-        deduplicates and buckets the batch's ids here first."""
+        deduplicates and buckets the batch's ids here first.  With
+        ``sharding`` the batch is sliced to this rank's part on the host
+        first."""
+        local = None
+        if self._sharding is not None:
+            local = self._sharding.local_feed(self._program, feed)
+            feed = dict(local)
+        staged, event = self._upload(feed)
+        if local is not None:
+            staged = type(local)(staged, local.batch, local.seq_axis)
+        return staged, event
+
+    def _upload(self, feed):
         if self.device.type != "cuda":
             return {k: torch.as_tensor(np.asarray(v)) for k, v in
                     feed.items()}, None

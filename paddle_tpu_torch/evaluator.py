@@ -23,6 +23,8 @@ from .core.program import (Op, Variable, default_main_program,
                            default_startup_program)
 from .layers.detection import _iou_matrix
 from .layers.helper import LayerHelper
+from .layers.nn import _topk_counts
+from .param_attr import seq_axis_of
 
 __all__ = ["Accuracy", "CTCError", "ChunkEvaluator", "DetectionMAP",
            "Evaluator", "PrecisionRecall"]
@@ -67,7 +69,9 @@ def _host(scope, v) -> np.ndarray:
 class Accuracy(Evaluator):
     """Streaming top-k accuracy (ref: fluid evaluator.py Accuracy;
     accuracy_op.cc): correct and total counts, and the running rate as the
-    op's output ``metric``."""
+    op's output ``metric``.  Under a Strategy that shards the batch the
+    counts are summed over its ranks, so each rank's state is the single
+    device's."""
 
     def __init__(self, input: Variable, label: Variable, k: int = 1):
         super().__init__("accuracy_evaluator")
@@ -75,15 +79,14 @@ class Accuracy(Evaluator):
         self.total = self._create_state("total", (1,), "float32")
         block = default_main_program().global_block
 
-        def fn(ins, attrs, ctx):
-            p, lab = ins["Out"][0], ins["Label"][0]
-            topi = torch.sort(p, dim=-1, descending=True,
-                              stable=True).indices[..., :k]
-            ids = lab.squeeze(-1) if lab.dim() == p.dim() else lab
-            corr = torch.any(topi == ids[..., None].long(), dim=-1).to(
-                torch.float32).sum()
+        seq = seq_axis_of(input)
+        batch = bool(input.shape) and input.shape[0] is None
+
+        def fn(ins, attrs, ctx, _seq=seq, _batch=batch):
+            corr, _, rows = _topk_counts(ins["Out"][0], ins["Label"][0],
+                                         k, ctx, _seq, _batch)
             new_c = ins["Correct"][0] + corr[None]
-            new_t = ins["Total"][0] + float(p.shape[0])
+            new_t = ins["Total"][0] + rows
             return {"Out": [new_c, new_t, new_c / torch.clamp_min(new_t,
                                                                   1.0)]}
 
@@ -94,7 +97,7 @@ class Accuracy(Evaluator):
                             "Correct": [self.correct.name],
                             "Total": [self.total.name]},
                            {"Out": [self.correct.name, self.total.name,
-                                    out.name]}, {}, fn))
+                                    out.name]}, {}, fn, axes=(-1,)))
         self.metric = out
 
     def eval(self, executor=None, scope=None):
@@ -161,7 +164,8 @@ class PrecisionRecall(Evaluator):
         block.append_op(Op("precision_recall_accumulate",
                            {"P": [input.name], "Label": [label.name],
                             "Acc": [self.stats.name]},
-                           {"Out": [self.stats.name]}, {}, fn))
+                           {"Out": [self.stats.name]}, {}, fn,
+                           axes=(0, -1)))
 
     def eval(self, executor=None, scope=None):
         scope = scope or global_scope()
@@ -207,7 +211,7 @@ class CTCError(Evaluator):
                             "DistAcc": [self.dist.name],
                             "RefAcc": [self.ref_len.name]},
                            {"Out": [self.dist.name, self.ref_len.name]}, {},
-                           fn))
+                           fn, axes=(0,)))
         self.batch_distance = d
 
     def eval(self, executor=None, scope=None):
@@ -295,7 +299,7 @@ class DetectionMAP(Evaluator):
              "GL": [gt_labels.name], "TP": [self.tp_hist.name],
              "FP": [self.fp_hist.name], "NGT": [self.n_gt.name]},
             {"Out": [self.tp_hist.name, self.fp_hist.name, self.n_gt.name]},
-            {}, fn))
+            {}, fn, axes=(0,)))
 
     def eval(self, executor=None, scope=None):
         """The mAP so far: per class with ground truth, the 11-point

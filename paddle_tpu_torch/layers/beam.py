@@ -278,7 +278,8 @@ def beam_search_decode(
         return ids, length, score
 
     outs = helper.append_op(fn, {"Tokens": [tokens], "Scores": [scores],
-                                 "Lens": [lens]}, n_outputs=3)
+                                 "Lens": [lens]}, n_outputs=3,
+                            axes=(1,))
     return tuple(outs)
 
 

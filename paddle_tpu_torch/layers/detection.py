@@ -277,7 +277,8 @@ def ssd_loss(
         fn, {"Loc": [location], "Conf": [confidence], "GtBox": [gt_box],
              "GtLab": [gt_label], "Prior": [prior], "PriorVar": [prior_var]},
         attrs={"thr": overlap_threshold, "ratio": neg_pos_ratio,
-               "lw": loc_weight, "cw": conf_weight})
+               "lw": loc_weight, "cw": conf_weight},
+                            axes=(1,))
 
 
 # --------------------------------------------------------------------------- output
@@ -338,7 +339,8 @@ def detection_output(
              "PriorVar": [prior_var]},
         attrs={"nms_thr": nms_threshold, "score_thr": score_threshold,
                "topk": keep_top_k},
-        n_outputs=3)
+        n_outputs=3,
+                           axes=(1,))
     return out[0], out[1], out[2]
 
 
@@ -380,7 +382,8 @@ def roi_pool(input: Variable, rois: Variable, pooled_height: int,
 
     return helper.append_op(fn, {"X": [input], "ROIs": [rois]},
                             attrs={"ph": pooled_height, "pw": pooled_width,
-                                   "scale": spatial_scale})
+                                   "scale": spatial_scale},
+                            axes=(0,))
 
 
 # --------------------------------------------------------------------------- mAP

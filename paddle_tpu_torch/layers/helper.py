@@ -140,11 +140,14 @@ class LayerHelper:
         n_outputs: int = 1,
         op_type: Optional[str] = None,
         out_names: Optional[Sequence[str]] = None,
+        axes: Optional[Sequence[int]] = None,
     ) -> Union[Variable, List[Variable]]:
         """Append an op whose closure maps positional tensors to a tensor or
         a tuple of tensors: ``fn(ctx, *tensors, **attrs)``, plain PyTorch.
         Output shapes and dtypes come from running it on meta tensors.
-        ``out_names`` names the outputs (default: fresh unique names)."""
+        ``out_names`` names the outputs (default: fresh unique names).
+        ``axes``: the dims the body runs along where no attribute names
+        them (``Op.axes``)."""
         attrs = dict(attrs or {})
         op_type = op_type or self.layer_type
         in_vars: List[Variable] = []
@@ -180,7 +183,8 @@ class LayerHelper:
             res = res if isinstance(res, tuple) else (res,)
             return {"Out": list(res)}
 
-        self.block.append_op(Op(op_type, in_slots, slot_names, attrs, op_fn))
+        self.block.append_op(Op(op_type, in_slots, slot_names, attrs, op_fn,
+                                axes=None if axes is None else tuple(axes)))
         return out_vars[0] if n_outputs == 1 and len(out_vars) == 1 else out_vars
 
     # ------------------------------------------------------------- activation

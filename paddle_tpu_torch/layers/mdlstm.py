@@ -76,7 +76,8 @@ def md_lstm(input: Variable, size: int, reverse_h: bool = False,
 
     return helper.append_op(
         fn, {"X": [input], "W": [w], "Ul": [u_l], "Uu": [u_u], "B": [b]},
-        attrs={"size": size, "reverse_h": reverse_h, "reverse_w": reverse_w})
+        attrs={"size": size, "reverse_h": reverse_h, "reverse_w": reverse_w},
+                            axes=(1, 2))
 
 
 __all__ = ["md_lstm"]

@@ -61,7 +61,8 @@ def cos_sim_vec_mat(vec: Variable, mat: Variable, cos_scale: float = 1.0,
         return cos_scale * num / den
 
     return helper.append_op(fn, {"X": [vec], "Y": [mat]},
-                            attrs={"d": d, "cos_scale": cos_scale})
+                            attrs={"d": d, "cos_scale": cos_scale},
+                            axes=(-1,))
 
 
 def cross_channel_norm(x: Variable, param_attr=None, name=None):
@@ -78,7 +79,8 @@ def cross_channel_norm(x: Variable, param_attr=None, name=None):
                                     keepdim=True)) + 1e-12
         return (a / norm.to(a.dtype)) * sc.reshape(1, -1, 1, 1).to(a.dtype)
 
-    return helper.append_op(fn, {"X": [x], "Scale": [scale]})
+    return helper.append_op(fn, {"X": [x], "Scale": [scale]},
+                            axes=(1,))
 
 
 def data_norm(x: Variable, strategy: str = "z-score", mean=None, std=None,
@@ -145,7 +147,8 @@ def factorization_machine(x: Variable, factor_size: int, param_attr=None,
         s2 = torch.square(a) @ torch.square(vv)       # [N, F]
         return 0.5 * torch.sum(s1 - s2, dim=-1, keepdim=True)
 
-    return helper.append_op(fn, {"X": [x], "V": [v]})
+    return helper.append_op(fn, {"X": [x], "V": [v]},
+                            axes=(-1,))
 
 
 def featuremap_expand(x: Variable, num_filters: int,
@@ -183,7 +186,8 @@ def kmax_seq_score(score: Variable, lengths: Optional[Variable], k: int,
         idx = torch.sort(a, dim=-1, descending=True, stable=True).indices
         return idx[:, :k].to(torch.int32)
 
-    return helper.append_op(fn, ins, attrs={"k": k})
+    return helper.append_op(fn, ins, attrs={"k": k},
+                            axes=(-1,))
 
 
 def outer_prod(x: Variable, y: Variable, name=None):
@@ -306,7 +310,8 @@ def dot_prod(x: Variable, y: Variable, name=None):
     def fn(ctx, a, b):
         return torch.sum(a * b, dim=-1, keepdim=True)
 
-    return helper.append_op(fn, {"X": [x], "Y": [y]})
+    return helper.append_op(fn, {"X": [x], "Y": [y]},
+                            axes=(-1,))
 
 
 def cross_entropy_over_beam(scores: Variable, gold: Variable,
@@ -349,7 +354,8 @@ def cross_entropy_over_beam(scores: Variable, gold: Variable,
         ins["Extra"] = extra
     return helper.append_op(fn, ins,
                             attrs={"has_gold": gold_score is not None,
-                                   "has_mask": step_mask is not None})
+                                   "has_mask": step_mask is not None},
+                            axes=(0,))
 
 
 __all__ = ["Print", "cos_sim_vec_mat", "cross_channel_norm",

@@ -76,7 +76,8 @@ def nested_sequence_pool(input: Variable, n_sub: Variable, sub_len: Variable,
 
     return helper.append_op(
         fn, {"X": [input], "NSub": [n_sub], "SubLen": [sub_len]},
-        attrs={"pool_type": pool_type})
+        attrs={"pool_type": pool_type},
+                            axes=(1, 2))
 
 
 def nested_sequence_first_step(input: Variable, n_sub: Variable,
@@ -141,7 +142,8 @@ def nested_to_flat(input: Variable, n_sub: Variable, sub_len: Variable,
 
     outs = helper.append_op(
         fn, {"X": [input], "NSub": [n_sub], "SubLen": [sub_len]},
-        attrs={"T": max_len}, n_outputs=2)
+        attrs={"T": max_len}, n_outputs=2,
+                            axes=(1, 2))
     return outs[0], outs[1]
 
 
@@ -172,7 +174,8 @@ def nested_sequence_select(input: Variable, n_sub: Variable,
 
     outs = helper.append_op(
         fn, {"X": [input], "NSub": [n_sub], "SubLen": [sub_len],
-             "Sel": [selected]}, n_outputs=3)
+             "Sel": [selected]}, n_outputs=3,
+                            axes=(1, 2))
     return outs[0], outs[1], outs[2]
 
 

@@ -129,10 +129,11 @@ def embedding(
     row's cotangent (and out-of-range ids') instead of only masking the
     output, so the padding row's gradient is exactly zero even under a
     non-finite cotangent.  A table sharded on its vocab dim takes the
-    vocab-parallel lookup under a Strategy (``parallel/tp.py``); the sparse
-    engine's lookup on such a table is ROADMAP A.9 part 3.  As the
-    reference does for an unsharded table, the first ``is_sparse`` layer
-    warns once that no sharding applies."""
+    vocab-parallel lookup under a Strategy (``parallel/tp.py``), with
+    ``is_sparse`` the sparse engine's rule on the rank's rows
+    (``vocab_sparse_lookup``).  As the reference does for an unsharded
+    table, the first ``is_sparse`` layer warns once that no sharding
+    applies."""
     helper = LayerHelper("embedding", name=name)
     table = helper.create_parameter(
         param_attr, list(size), dtype, default_initializer=Normal(0.0, 0.02)
@@ -143,11 +144,7 @@ def embedding(
         raise NotImplementedError(
             f"embedding: only the vocab dim of a table may be sharded, got "
             f"{table.sharding}")
-    if is_sparse and tspec:
-        raise NotImplementedError(
-            "embedding(is_sparse=True) on a sharded table is not ported "
-            "yet: ROADMAP A.9 part 3")
-    if is_sparse:
+    if is_sparse and not tspec:
         global _sparse_fallback_warned
         if not _sparse_fallback_warned:
             _sparse_fallback_warned = True
@@ -160,12 +157,18 @@ def embedding(
     def fn(ctx, ids, tab, padding_idx, is_sparse, _axis=tspec[:1]):
         if ids.dim() >= 2 and ids.shape[-1] == 1:
             ids = ids.squeeze(-1)
+        sharded = ctx.mesh is not None and any(_axis)
+        if is_sparse and sharded:
+            from ..parallel.tp import vocab_sparse_lookup
+
+            return vocab_sparse_lookup(ctx.mesh, ids, tab, _axis[0], vocab,
+                                       padding_idx)
         if is_sparse:
             from ..sparse.table import sparse_lookup
 
             return sparse_lookup(tab, ids, padding_idx, vocab)
         ids = ids.long()
-        if ctx.mesh is not None and any(_axis):
+        if sharded:
             # a vocab-parallel table (parallel/tp.py)
             from ..parallel.tp import vocab_lookup
 
@@ -635,7 +638,8 @@ def layer_norm(
     if extras:
         ins["ScaleBias"] = extras
     out = helper.append_op(fn, ins, attrs={"begin_norm_axis": begin_norm_axis,
-                                           "epsilon": epsilon})
+                                           "epsilon": epsilon},
+                           axes=tuple(range(begin_norm_axis, len(input.shape))))
     return helper.append_activation(out, act)
 
 
@@ -661,7 +665,8 @@ def lrn(input: Variable, n: int = 5, k: float = 1.0, alpha: float = 1e-4,
 
     return helper.append_op(fn, {"X": [input]},
                             attrs={"n": n, "k": k, "alpha": alpha,
-                                   "beta": beta})
+                                   "beta": beta},
+                            axes=(1,))
 
 
 # --------------------------------------------------------------------------- losses
@@ -670,24 +675,23 @@ def lrn(input: Variable, n: int = 5, k: float = 1.0, alpha: float = 1e-4,
 def softmax_with_cross_entropy(logits: Variable, label: Variable, soft_label: bool = False,
                                return_softmax: bool = False):
     """Fused log-softmax and cross entropy; hard labels [..., 1] (or [...])
-    are int ids, gathered as int64."""
+    are int ids, gathered as int64.  Logits sharded on the vocab dim (the
+    tensor-parallel LM head) take the vocab-parallel form under a
+    Strategy (``parallel/tp.py``), hard or soft labels, and the softmax
+    ``return_softmax`` gives is sharded as the logits are."""
     helper = LayerHelper("softmax_with_cross_entropy")
-    # logits sharded on the vocab dim (the tensor-parallel LM head) take
-    # the vocab-parallel form (parallel/tp.py)
     lspec = tuple(logits.sharding or ())
     vaxis = lspec[-1] if len(lspec) == len(logits.shape) else None
-    if vaxis is not None and (soft_label or return_softmax):
-        raise NotImplementedError(
-            "softmax_with_cross_entropy over vocab-sharded logits takes hard "
-            "labels and returns the loss only")
 
     def fn(ctx, lg, lab, soft_label, return_softmax, _axis=vaxis,
            _vocab=logits.shape[-1]):
         if ctx.mesh is not None and _axis is not None:
             from ..parallel.tp import vocab_cross_entropy
 
-            ids = lab.squeeze(-1) if lab.dim() == lg.dim() else lab
-            return vocab_cross_entropy(ctx.mesh, lg, ids, _axis, _vocab)
+            if not soft_label and lab.dim() == lg.dim():
+                lab = lab.squeeze(-1)
+            return vocab_cross_entropy(ctx.mesh, lg, lab, _axis, _vocab,
+                                       soft_label, return_softmax)
         logp = torch.log_softmax(lg, dim=-1)
         if soft_label:
             loss = -torch.sum(lab * logp, dim=-1, keepdim=True)
@@ -700,7 +704,10 @@ def softmax_with_cross_entropy(logits: Variable, label: Variable, soft_label: bo
 
     outs = helper.append_op(fn, {"Logits": [logits], "Label": [label]},
                             attrs={"soft_label": soft_label, "return_softmax": return_softmax},
-                            n_outputs=2 if return_softmax else 1)
+                            n_outputs=2 if return_softmax else 1,
+                            axes=(-1,))
+    if return_softmax and vaxis is not None:
+        outs[1].sharding = logits.sharding
     return outs
 
 
@@ -720,7 +727,8 @@ def cross_entropy(input: Variable, label: Variable, soft_label: bool = False,
         return -torch.log(picked + eps)
 
     return helper.append_op(fn, {"X": [input], "Label": [label]},
-                            attrs={"soft_label": soft_label})
+                            attrs={"soft_label": soft_label},
+                            axes=(-1,))
 
 
 def square_error_cost(input: Variable, label: Variable, name=None):
@@ -747,49 +755,90 @@ def dropout(x: Variable, dropout_prob: float, is_test: bool = False,
     helper = LayerHelper("dropout", name=name)
     tag = helper.main_program.next_rng_tag()
     seq = seq_axis_of(x)
+    spec = tuple(x.sharding or ())
+    nd = len(x.shape)
+    col = spec[nd - 1] if len(spec) == nd and nd > 1 \
+        and not (nd - 1 == 1 and seq is not None) else None
     if any(a is not None and not (i == 1 and seq is not None)
-           for i, a in enumerate(x.sharding or ())):
+           and not (i == nd - 1 and a == col)
+           for i, a in enumerate(spec)):
         raise NotImplementedError(
-            "dropout on a tensor-parallel shard is not ported; drop out a "
-            "replicated tensor (after the row-parallel sum)")
+            f"dropout of a tensor sharded as {x.sharding}: a rank's slice "
+            f"may shard the rows, the sequence (dim 1) and the last dim")
     batch_major = bool(x.shape) and x.shape[0] is None
 
     def fn(ctx, a, dropout_prob, is_test, _tag, _batch=batch_major,
-           _seq=seq):
+           _seq=seq, _col=col):
         if is_test:
             scale = torch.tensor(1.0 - dropout_prob,
                                  dtype=torch.float64).to(a.dtype).item()
             return a * scale
         # under a Strategy a rank draws the global tensor's mask at its
-        # rows and sequence positions (ops/dropout.py CounterMap)
+        # rows, sequence positions and tensor-parallel columns
+        # (ops/dropout.py CounterMap)
         lay = ctx.layout
-        cmap = (lay.counter_map(a.shape, _seq)
-                if lay is not None and _batch else None)
+        cmap = (lay.counter_map(a.shape, _seq, _batch, _col)
+                if lay is not None and (_batch or _col is not None)
+                else None)
         return threefry_dropout(a, ctx.rng_key(_tag), dropout_prob, cmap)
 
-    return helper.append_op(fn, {"X": [x]},
-                            attrs={"dropout_prob": dropout_prob,
-                                   "is_test": is_test, "_tag": tag})
+    out = helper.append_op(fn, {"X": [x]},
+                           attrs={"dropout_prob": dropout_prob,
+                                  "is_test": is_test, "_tag": tag})
+    if col is not None:
+        out.sharding = x.sharding   # a tensor-parallel slice stays one
+    return out
 
 
 # --------------------------------------------------------------------------- metrics
 
 
-def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
-    """Top-k accuracy of a batch, a [1] float32.  ``jax.lax.top_k`` puts
-    the lower index first among equal values; ``torch.topk`` leaves the
-    order of ties unspecified, so the top k come from a stable descending
-    sort, which keeps JAX's order."""
-    helper = LayerHelper("accuracy", name=name)
+def _topk_counts(p, lab, k: int, ctx, seq, batch: bool):
+    """(correct, entries, rows) of a top-k test of ``p`` against ``lab``:
+    the entries whose label is among the k largest along the last dim,
+    the entries tested, and the rows of dim 0, as float32 (the rows a
+    Python float).  ``jax.lax.top_k`` puts the lower index first among
+    equal values; ``torch.topk`` leaves the order of ties unspecified, so
+    the top k come from a stable descending sort, which keeps JAX's
+    order.  Under a Strategy that shards a batch-major ``p`` (``batch``)
+    over dp, and its sequence over ``seq``, the counts are those of the
+    global batch: the first two summed over the ranks (exact in float32),
+    the rows the local ones times dp."""
+    topi = torch.sort(p, dim=-1, descending=True, stable=True).indices
+    ids = lab.squeeze(-1) if lab.dim() == p.dim() else lab
+    correct = torch.any(topi[..., :k] == ids[..., None].long(), dim=-1)
+    # the entry count filled on the device: no host copy, so a step that
+    # holds it can be captured in a CUDA graph
+    counts = torch.stack([correct.to(torch.float32).sum(),
+                          torch.full((), float(correct.numel()),
+                                     dtype=torch.float32, device=p.device)])
+    rows = float(p.shape[0])
+    lay = ctx.layout
+    if lay is not None and batch:
+        from ..parallel import comm
 
-    def fn(ctx, p, lab, k):
-        topi = torch.sort(p, dim=-1, descending=True, stable=True).indices
-        ids = lab.squeeze(-1) if lab.dim() == p.dim() else lab
-        correct = torch.any(topi[..., :k] == ids[..., None].long(), dim=-1)
-        return torch.mean(correct.to(torch.float32))[None]
+        for g in lay.data_groups(seq):
+            counts = comm.all_reduce(counts, g)
+        if lay.data_axis is not None:
+            rows *= comm.size(lay.mesh.group(lay.data_axis))
+    return counts[0], counts[1], rows
+
+
+def accuracy(input: Variable, label: Variable, k: int = 1, name=None):
+    """Top-k accuracy of a batch, a [1] float32 (:func:`_topk_counts`: the
+    global batch's rate under a Strategy that shards the batch or the
+    sequence)."""
+    helper = LayerHelper("accuracy", name=name)
+    seq = seq_axis_of(input)
+    batch = bool(input.shape) and input.shape[0] is None
+
+    def fn(ctx, p, lab, k, _seq=seq, _batch=batch):
+        correct, total, _ = _topk_counts(p, lab, k, ctx, _seq, _batch)
+        return (correct / total)[None]
 
     return helper.append_op(fn, {"Out": [input], "Label": [label]},
-                            attrs={"k": k})
+                            attrs={"k": k},
+                            axes=(-1,))
 
 
 def maxout(x: Variable, groups: int, name=None):
@@ -802,7 +851,8 @@ def maxout(x: Variable, groups: int, name=None):
         n, c, h, w = a.shape
         return torch.amax(a.reshape(n, c // groups, groups, h, w), dim=2)
 
-    return helper.append_op(fn, {"X": [x]}, attrs={"groups": groups})
+    return helper.append_op(fn, {"X": [x]}, attrs={"groups": groups},
+                            axes=(1,))
 
 
 def _full(v, like: torch.Tensor) -> torch.Tensor:
@@ -828,7 +878,8 @@ def sampling_id(x: Variable, name=None):
         return jrandom.categorical(ctx.rng_key(_tag), logp,
                                    axis=-1).to(torch.int32)
 
-    return helper.append_op(fn, {"X": [x]}, attrs={"_tag": tag})
+    return helper.append_op(fn, {"X": [x]}, attrs={"_tag": tag},
+                            axes=(-1,))
 
 
 # --------------------------------------------------------------------------- losses
@@ -860,7 +911,8 @@ def smooth_l1(x: Variable, y: Variable, sigma: float = 1.0):
                           absd - 0.5 / s2)
         return torch.sum(out, dim=-1, keepdim=True)
 
-    return helper.append_op(fn, {"X": [x], "Y": [y]}, attrs={"sigma": sigma})
+    return helper.append_op(fn, {"X": [x], "Y": [y]}, attrs={"sigma": sigma},
+                            axes=(-1,))
 
 
 def huber_loss(x, y, delta: float = 1.0):
@@ -934,7 +986,8 @@ def cos_sim(x: Variable, y: Variable):
         yn = torch.sqrt(torch.sum(b * b, dim=-1, keepdim=True))
         return torch.sum(a * b, dim=-1, keepdim=True) / (xn * yn + 1e-12)
 
-    return helper.append_op(fn, {"X": [x], "Y": [y]})
+    return helper.append_op(fn, {"X": [x], "Y": [y]},
+                            axes=(-1,))
 
 
 def squared_l2_norm(x: Variable):
@@ -950,7 +1003,8 @@ def squared_l2_distance(x: Variable, y: Variable):
     helper = LayerHelper("squared_l2_distance")
     return helper.append_op(
         lambda ctx, a, b: torch.sum(torch.square(a - b), dim=-1,
-                                    keepdim=True), {"X": [x], "Y": [y]})
+                                    keepdim=True), {"X": [x], "Y": [y]},
+                            axes=(-1,))
 
 
 def modified_huber_loss(input: Variable, label: Variable, name=None):
@@ -1001,7 +1055,8 @@ def auc(input: Variable, label: Variable, curve: str = "ROC",
 
     return helper.append_op(fn, {"Out": [input], "Label": [label]},
                             attrs={"num_thresholds": num_thresholds,
-                                   "curve": curve})
+                                   "curve": curve},
+                            axes=(0,))
 
 
 def precision_recall(input: Variable, label: Variable, num_classes: int,
@@ -1031,7 +1086,8 @@ def precision_recall(input: Variable, label: Variable, num_classes: int,
         return torch.stack([mp, mr, f1])
 
     return helper.append_op(fn, {"MaxProbs": [input], "Labels": [label]},
-                            attrs={"num_classes": num_classes})
+                            attrs={"num_classes": num_classes},
+                            axes=(0,))
 
 
 def positive_negative_pair(score: Variable, label: Variable,
@@ -1056,7 +1112,8 @@ def positive_negative_pair(score: Variable, label: Variable,
         return torch.stack([negf, posf, ratio])
 
     return helper.append_op(fn, {"Score": [score], "Label": [label],
-                                 "QueryID": [query_id]})
+                                 "QueryID": [query_id]},
+                            axes=(0,))
 
 
 # --------------------------------------------------------------------------- misc ops
@@ -1106,7 +1163,8 @@ def conv_shift(x: Variable, y: Variable, name=None):
                            dim=1)
         return torch.einsum("njk,nk->nj", padded.unfold(1, m, 1), b)
 
-    return helper.append_op(fn, {"X": [x], "Y": [y]})
+    return helper.append_op(fn, {"X": [x], "Y": [y]},
+                            axes=(-1,))
 
 
 def nce(input: Variable, label: Variable, num_total_classes: int,
@@ -1145,7 +1203,8 @@ def nce(input: Variable, label: Variable, num_total_classes: int,
     return helper.append_op(
         fn, {"Input": [input], "Label": [label], "W": [w], "B": [b]},
         attrs={"n_neg": num_neg_samples, "n_cls": num_total_classes,
-               "tag": tag})
+               "tag": tag},
+                            axes=(-1,))
 
 
 def hsigmoid(input: Variable, label: Variable, num_classes: int,
@@ -1183,7 +1242,8 @@ def hsigmoid(input: Variable, label: Variable, num_classes: int,
 
     return helper.append_op(
         fn, {"X": [input], "Label": [label], "W": [w], "B": [b]},
-        attrs={"n_cls": num_classes, "max_depth": max_depth})
+        attrs={"n_cls": num_classes, "max_depth": max_depth},
+                            axes=(-1,))
 
 
 # ------------------------------------------------------- v1 misc layer parity
@@ -1236,7 +1296,8 @@ def sum_to_one_norm(x: Variable, name=None):
         s = torch.sum(a, dim=-1, keepdim=True)
         return a / torch.where(torch.abs(s) < 1e-12, 1e-12, s)
 
-    return helper.append_op(fn, {"X": [x]})
+    return helper.append_op(fn, {"X": [x]},
+                            axes=(-1,))
 
 
 def linear_comb(x: Variable, weight: Variable, size: int, name=None):
@@ -1249,7 +1310,8 @@ def linear_comb(x: Variable, weight: Variable, size: int, name=None):
         return torch.einsum("nk,nkd->nd", w, a.reshape(a.shape[0], k, size))
 
     return helper.append_op(fn, {"X": [x], "Weight": [weight]},
-                            attrs={"size": size})
+                            attrs={"size": size},
+                            axes=(-1,))
 
 
 def out_prod(x: Variable, y: Variable, name=None):
@@ -1274,7 +1336,8 @@ def repeat(x: Variable, num_repeats: int, as_row_vector: bool = True,
         return torch.repeat_interleave(a, r, dim=1)
 
     return helper.append_op(fn, {"X": [x]},
-                            attrs={"r": num_repeats, "row": as_row_vector})
+                            attrs={"r": num_repeats, "row": as_row_vector},
+                            axes=(1,))
 
 
 def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:

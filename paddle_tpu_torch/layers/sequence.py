@@ -77,7 +77,8 @@ def sequence_pool(input: Variable, length: Variable, pool_type: str = "average",
         raise ValueError(f"unknown pool_type {pool_type}")
 
     return helper.append_op(fn, {"X": [input], "Length": [length]},
-                            attrs={"pool_type": pool_type})
+                            attrs={"pool_type": pool_type},
+                            axes=(1,))
 
 
 def sequence_first_step(input: Variable, length: Variable):
@@ -100,7 +101,8 @@ def sequence_softmax(input: Variable, length: Variable, name=None):
         z = torch.where(m > 0, x, torch.finfo(x.dtype).min)
         return torch.softmax(z, dim=1) * m
 
-    return helper.append_op(fn, {"X": [input], "Length": [length]})
+    return helper.append_op(fn, {"X": [input], "Length": [length]},
+                            axes=(1,))
 
 
 def sequence_expand(x: Variable, length: Variable, max_len: int, name=None):
@@ -123,7 +125,8 @@ def sequence_concat(inputs: Sequence[Variable], name=None):
     paddle/operators/sequence_concat_op.cc)."""
     helper = LayerHelper("sequence_concat", name=name)
     return helper.append_op(lambda ctx, *xs: torch.cat(xs, dim=1),
-                            {"X": list(inputs)})
+                            {"X": list(inputs)},
+                            axes=(1,))
 
 
 def sequence_slice(input: Variable, offset: int, length_: int, name=None):
@@ -141,7 +144,8 @@ def sequence_slice(input: Variable, offset: int, length_: int, name=None):
         return x[:, start:start + length_]
 
     return helper.append_op(fn, {"X": [input]},
-                            attrs={"offset": offset, "length_": length_})
+                            attrs={"offset": offset, "length_": length_},
+                            axes=(1,))
 
 
 def sequence_reverse(input: Variable, length: Variable, name=None):
@@ -156,7 +160,8 @@ def sequence_reverse(input: Variable, length: Variable, name=None):
         return torch.take_along_dim(
             x, rev.reshape(rev.shape + (1,) * (x.dim() - 2)), dim=1)
 
-    return helper.append_op(fn, {"X": [input], "Length": [length]})
+    return helper.append_op(fn, {"X": [input], "Length": [length]},
+                            axes=(1,))
 
 
 def im2sequence(input: Variable, filter_size=1, stride=1, padding=0,
@@ -210,7 +215,8 @@ def sequence_conv(input: Variable, length: Variable, num_filters: int,
 
     out = helper.append_op(fn, {"X": [input], "Length": [length],
                                 "Filter": [w]},
-                           attrs={"filter_size": filter_size})
+                           attrs={"filter_size": filter_size},
+                           axes=(1,))
     if bias_attr is not False:
         b = helper.create_parameter(bias_attr, [num_filters], out.dtype,
                                     is_bias=True)
@@ -237,7 +243,8 @@ def row_conv(input: Variable, future_context_size: int, param_attr=None,
         return out
 
     return helper.append_op(fn, {"X": [input], "Filter": [w]},
-                            attrs={"future_context_size": future_context_size})
+                            attrs={"future_context_size": future_context_size},
+                            axes=(1,))
 
 
 # --------------------------------------------------------------------------- LSTM
@@ -303,6 +310,7 @@ def dynamic_lstm(
                "cell_activation": cell_activation,
                "candidate_activation": candidate_activation, "size": size},
         n_outputs=2,
+        axes=(1, -1),
     )
     return outs[0], outs[1]
 
@@ -365,6 +373,7 @@ def dynamic_gru(
         attrs={"is_reverse": is_reverse, "gate_activation": gate_activation,
                "candidate_activation": candidate_activation, "size": size},
         n_outputs=2,
+        axes=(1, -1),
     )
     return outs[0], outs[1]
 
@@ -391,7 +400,8 @@ def lstm_unit(x_t: Variable, hidden_t_prev: Variable, cell_t_prev: Variable,
 
     outs = helper.append_op(fn, {"X": [x_t], "H": [hidden_t_prev],
                                  "C": [cell_t_prev], "W": [w], "B": [b]},
-                            attrs={"forget_bias": forget_bias}, n_outputs=2)
+                            attrs={"forget_bias": forget_bias}, n_outputs=2,
+                            axes=(-1,))
     return outs[0], outs[1]
 
 
@@ -413,7 +423,8 @@ def gru_unit(x_t: Variable, hidden_t_prev: Variable, size: int,
         return u * h + (1 - u) * cand
 
     return helper.append_op(fn, {"X": [x_t], "H": [hidden_t_prev],
-                                 "W": [w], "B": [b]}, attrs={"size": size})
+                                 "W": [w], "B": [b]}, attrs={"size": size},
+                            axes=(-1,))
 
 
 # --------------------------------------------------------------------------- CRF
@@ -484,7 +495,8 @@ def linear_chain_crf(input: Variable, label: Variable, length: Variable,
 
     return helper.append_op(fn, {"Emission": [input], "Label": [label],
                                  "Length": [length],
-                                 "Transition": [transition]})
+                                 "Transition": [transition]},
+                            axes=(1,))
 
 
 def crf_decoding(input: Variable, length: Variable, param_attr=None,
@@ -520,7 +532,8 @@ def crf_decoding(input: Variable, length: Variable, param_attr=None,
         return torch.stack(path[::-1], dim=1).to(torch.int32)
 
     return helper.append_op(fn, {"Emission": [input], "Length": [length],
-                                 "Transition": [transition]})
+                                 "Transition": [transition]},
+                            axes=(1,))
 
 
 # --------------------------------------------------------------------------- metrics
@@ -613,7 +626,8 @@ def chunk_eval(pred: Variable, label: Variable, lengths: Variable,
                             torch.sum(gs)]).to(torch.float32)
 
     return helper.append_op(fn, {"Inference": [pred], "Label": [label],
-                                 "SeqLen": [lengths]})
+                                 "SeqLen": [lengths]},
+                            axes=(0, 1))
 
 
 # --------------------------------------------------------------------------- CTC
@@ -693,7 +707,8 @@ def warpctc(input: Variable, label: Variable, logit_length: Variable,
     return helper.append_op(
         fn, {"Logits": [input], "Label": [label],
              "LogitsLength": [logit_length], "LabelLength": [label_length]},
-        attrs={"blank": blank, "norm_by_times": norm_by_times})
+        attrs={"blank": blank, "norm_by_times": norm_by_times},
+                            axes=(1,))
 
 
 def ctc_greedy_decoder(input: Variable, length: Variable, blank: int = 0,
@@ -718,7 +733,8 @@ def ctc_greedy_decoder(input: Variable, length: Variable, blank: int = 0,
         return out[:, :T], keep.sum(dim=1).to(torch.int32)
 
     outs = helper.append_op(fn, {"Logits": [input], "SeqLen": [length]},
-                            attrs={"blank": blank}, n_outputs=2)
+                            attrs={"blank": blank}, n_outputs=2,
+                            axes=(1,))
     return outs[0], outs[1]
 
 
@@ -755,7 +771,8 @@ def edit_distance(hyp: Variable, hyp_length: Variable, ref: Variable,
 
     return helper.append_op(fn, {"Hyp": [hyp], "HypLength": [hyp_length],
                                  "Ref": [ref], "RefLength": [ref_length]},
-                            attrs={"normalized": normalized})
+                            attrs={"normalized": normalized},
+                            axes=(1,))
 
 
 __all__ = ["chunk_eval", "chunk_eval_np", "crf_decoding",

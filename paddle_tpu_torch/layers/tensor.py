@@ -426,7 +426,8 @@ def clip_by_norm(x: Variable, max_norm: float, name=None):
         cap = torch.full((), max_norm, dtype=norm.dtype, device=norm.device)
         return a * (max_norm / torch.maximum(norm, cap))
 
-    return helper.append_op(fn, {"X": [x]}, attrs={"max_norm": max_norm})
+    return helper.append_op(fn, {"X": [x]}, attrs={"max_norm": max_norm},
+                            axes=tuple(range(len(x.shape))))
 
 
 def l2_distance(x: Variable, y: Variable, name=None):
@@ -438,7 +439,8 @@ def l2_distance(x: Variable, y: Variable, name=None):
         d = (a - b).reshape(a.shape[0], -1)
         return torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True) + 1e-12)
 
-    return helper.append_op(fn, {"X": [x], "Y": [y]})
+    return helper.append_op(fn, {"X": [x], "Y": [y]},
+                            axes=(-1,))
 
 
 def l1_norm(x: Variable, name=None):
@@ -551,7 +553,8 @@ def top_k(x: Variable, k: int, name=None):
         v, i = torch.sort(a, dim=-1, descending=True, stable=True)
         return v[..., :k], i[..., :k]
 
-    return helper.append_op(fn, {"X": [x]}, attrs={"k": k}, n_outputs=2)
+    return helper.append_op(fn, {"X": [x]}, attrs={"k": k}, n_outputs=2,
+                            axes=(-1,))
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -52,7 +52,8 @@ def _attention_step(dec_state, enc_proj, enc_states, att_w_name):
     helper = LayerHelper("attention_score")
     return helper.append_op(lambda ctx, dp, ep, es: _attend(dp, ep, es),
                             {"Dp": [dec_proj], "Ep": [enc_proj],
-                             "Es": [enc_states]})
+                             "Es": [enc_states]},
+                            axes=(1, -1))
 
 
 def train_net(src_ids, src_len, tgt_ids, tgt_len, labels, src_vocab,
@@ -93,7 +94,8 @@ def train_net(src_ids, src_len, tgt_ids, tgt_len, labels, src_vocab,
         return torch.sum(ce_v.squeeze(-1) * m) / torch.clamp_min(
             torch.sum(m), 1.0)
 
-    return helper.append_op(fn, {"CE": [ce], "Len": [tgt_len]})
+    return helper.append_op(fn, {"CE": [ce], "Len": [tgt_len]},
+                            axes=(0, 1))
 
 
 def beam_search_decoder(src_ids, src_len, src_vocab, tgt_vocab, bos_id,

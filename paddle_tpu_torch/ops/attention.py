@@ -168,6 +168,19 @@ def paged_cache_set_window(pool, layer: int, block_idx: torch.Tensor,
     return pool
 
 
+def paged_cache_put_window(pool, layer: int, block_idx: torch.Tensor,
+                           offset: torch.Tensor, q: torch.Tensor,
+                           scale: torch.Tensor):
+    """:func:`paged_cache_set_window` of rows already quantized: ``q`` int8
+    [..., W, H, Dh] and ``scale`` float32 [..., W, H] into an int8
+    ``(payload, scales)`` pool, as :func:`quantize_kv` gave them."""
+    idx = (block_idx.long(), offset.long())
+    arena, scales = pool
+    arena.select(1, layer).transpose(1, 2).index_put_(idx, q)
+    scales.select(1, layer).transpose(1, 2).index_put_(idx, scale)
+    return pool
+
+
 def paged_gather_kv(pool, layer: int, tables: torch.Tensor) -> torch.Tensor:
     """Gather each slot's blocks into a contiguous view: ``tables``
     [S, n_tbl] -> [S, H, n_tbl * block_size, Dh].  Trash entries gather

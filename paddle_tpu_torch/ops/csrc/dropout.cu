@@ -99,18 +99,25 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, int64_t i,
 // Where a rank's slice lies in the global tensor (ops/dropout.py
 // CounterMap): local index i draws the bits of global index
 //   base + i                                        when row == 0,
-//   base + (i / row) * stride + (c < seg ? off0 : off1) + c, c = i % row,
-// so a slice under a mesh draws the global tensor's mask at its elements.
+//   base + (i / row) * stride + f(i % row)          otherwise, where
+//   f(c) = (c < seg ? off0 : off1) + c              when row2 == 0,
+//   f(c) = ((q < seg ? off0 : off1) + q) * stride2 + off2 + c % row2,
+//          q = c / row2                             when row2 > 0,
+// so a slice under a mesh draws the global tensor's mask at its elements:
+// one level for dp rows and an sp slice (contiguous or striped), or a
+// tensor-parallel slice of the last dim (row the local width, stride the
+// global one); two for a tp slice of the last dim inside an sp slice
+// (row2 the local width, stride2 the global one, off2 the rank's column).
 struct CounterMap {
-  int64_t base, row, stride, seg, off0, off1;
+  int64_t base, row, stride, seg, off0, off1, row2, stride2, off2;
 };
 
-// out[i] = in[i] * keep[global index of i] for i < n.  kMapped (row > 0):
-// a thread divides its first index by row once and then advances the
-// quotient and remainder by the grid stride's, so no element pays for a
-// 64-bit division; without a map the index is base + i, as for a whole
-// tensor.
-template <typename T, bool kMapped>
+// out[i] = in[i] * keep[global index of i] for i < n.  kMapped 1 (row >
+// 0, row2 == 0) or 2 (row2 > 0): a thread divides its first index by row
+// (and the remainder by row2) once and then advances the quotients and
+// remainders by the grid stride's, so no element pays for a 64-bit
+// division; kMapped 0: the index is base + i, as for a whole tensor.
+template <typename T, int kMapped>
 __global__ void __launch_bounds__(kThreads)
 dropout_mask_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
                     uint32_t seed_hi, uint32_t seed_lo,
@@ -129,23 +136,46 @@ dropout_mask_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
   const uint32_t k0 = key[0], k1 = key[1];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  // kMapped: i = r * row + c, and the stride = dr * row + dc
-  int64_t r = 0, c = 0, dr = 0, dc = 0;
-  if (kMapped) {
+  // kMapped 1: i = r * row + c, the stride = dr * row + dc;
+  // kMapped 2: c = q * row2 + c2 too, and dc = dq * row2 + dc2
+  int64_t r = 0, c = 0, dr = 0, dc = 0, q = 0, dq = 0, qrow = 0;
+  if (kMapped > 0) {
     r = i / cmap.row;
     c = i - r * cmap.row;
     dr = stride / cmap.row;
     dc = stride - dr * cmap.row;
   }
+  if (kMapped == 2) {
+    qrow = cmap.row / cmap.row2;
+    q = c / cmap.row2;
+    c -= q * cmap.row2;
+    dq = dc / cmap.row2;
+    dc -= dq * cmap.row2;
+  }
   for (; i < n; i += stride) {
     int64_t g;
-    if (kMapped) {
+    if (kMapped == 1) {
       g = cmap.base + r * cmap.stride + (c < cmap.seg ? cmap.off0 : cmap.off1)
           + c;
       r += dr;
       c += dc;
       if (c >= cmap.row) {  // c, dc < row: one carry at most
         c -= cmap.row;
+        ++r;
+      }
+    } else if (kMapped == 2) {
+      g = cmap.base + r * cmap.stride
+          + ((q < cmap.seg ? cmap.off0 : cmap.off1) + q) * cmap.stride2
+          + cmap.off2 + c;
+      r += dr;
+      c += dc;
+      if (c >= cmap.row2) {  // c, dc < row2: one carry at most
+        c -= cmap.row2;
+        ++q;
+      }
+      q += dq;
+      if (q >= qrow) {  // q <= qrow and dq < qrow: one carry at most
+        q -= qrow;
         ++r;
       }
     } else {
@@ -168,10 +198,13 @@ void launch_mask(const void* in, void* out, long long n, unsigned blocks,
   const T* x = static_cast<const T*>(in);
   T* y = static_cast<T*>(out);
   if (cmap.row == 0)
-    dropout_mask_kernel<T, false><<<blocks, kThreads, 0, st>>>(
+    dropout_mask_kernel<T, 0><<<blocks, kThreads, 0, st>>>(
+        x, y, n, seed_hi, seed_lo, step_ptr, step_imm, tag, keep_prob, cmap);
+  else if (cmap.row2 == 0)
+    dropout_mask_kernel<T, 1><<<blocks, kThreads, 0, st>>>(
         x, y, n, seed_hi, seed_lo, step_ptr, step_imm, tag, keep_prob, cmap);
   else
-    dropout_mask_kernel<T, true><<<blocks, kThreads, 0, st>>>(
+    dropout_mask_kernel<T, 2><<<blocks, kThreads, 0, st>>>(
         x, y, n, seed_hi, seed_lo, step_ptr, step_imm, tag, keep_prob, cmap);
 }
 
@@ -196,16 +229,19 @@ extern "C" {
 // same arguments).  The mask is drawn from (seed_hi, seed_lo), the step
 // (*step_ptr when step_ptr is not null, else step_imm) and tag, keeping
 // where the uniform is below keep_prob, at the global indices the counter
-// map (base, row, stride, seg, off0, off1) gives; all zero is the whole
-// tensor.  Returns 0 or the first CUDA error.
+// map (base, row, stride, seg, off0, off1, row2, stride2, off2) gives;
+// all zero is the whole tensor.  Returns 0 or the first CUDA error.
 int dropout_launch(const void* in, void* out, long long n, unsigned seed_hi,
                    unsigned seed_lo, const int* step_ptr, unsigned step_imm,
                    unsigned tag, float keep_prob, int dtype, long long base,
                    long long row, long long stride, long long seg,
-                   long long off0, long long off1, void* stream) {
-  if (n < 0 || row < 0 || (dtype != kF32 && dtype != kBF16))
+                   long long off0, long long off1, long long row2,
+                   long long stride2, long long off2, void* stream) {
+  if (n < 0 || row < 0 || row2 < 0 || (dtype != kF32 && dtype != kBF16) ||
+      (row2 > 0 && (row == 0 || row % row2 != 0)))
     return (int)cudaErrorInvalidValue;
-  const CounterMap cmap{base, row, stride, seg, off0, off1};
+  const CounterMap cmap{base, row, stride, seg, off0, off1, row2, stride2,
+                        off2};
   if (n == 0) return 0;
   const long long want = (n + kThreads - 1) / kThreads;
   const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;

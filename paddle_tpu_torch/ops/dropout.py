@@ -37,7 +37,8 @@ Under a mesh a rank holds a slice of the tensor the single-device step
 would drop out: a :class:`CounterMap` maps its local element indices to
 the global ones, in the kernel and in the plain version alike, so the
 slice draws the global tensor's bits at its elements (dp rows, sp
-sequence positions, contiguous or striped).
+sequence positions, contiguous or striped, and the tp columns of a
+last dim sharded over a model axis).
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ _build.declare("dropout.cu", "dropout_launch", ctypes.c_int,
                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
                 ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
-               + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+               + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
 
 Word = Union[int, torch.Tensor]
 
@@ -122,13 +123,21 @@ class CounterMap(NamedTuple):
 
         base + i                                   when row == 0
         base + (i // row) * stride + f(i % row)    otherwise,
-        f(c) = off0 + c if c < seg else off1 + c
+        f(c) = off0 + c if c < seg else off1 + c   when row2 == 0,
+        f(c) = h(c // row2) * stride2 + off2 + c % row2   otherwise,
+        h(q) = off0 + q if q < seg else off1 + q
 
-    ``row`` the local row (the elements of one batch row), ``stride`` the
-    global row, and the row made of at most two runs that are contiguous
-    in the global row (the sequence slice of a rank, or the two half-blocks
-    of the striped layout).  ``parallel.strategy.StepLayout.counter_map``
-    builds it."""
+    ``row`` the local row, ``stride`` the global row, and the row made of
+    at most two runs that are contiguous in the global row: one level for
+    a batch row with the sequence slice of a rank or the two half-blocks
+    of the striped layout (``row`` the elements of one local batch row),
+    or for a tensor-parallel slice of the last dim (``row`` the local
+    width, ``stride`` the global width, ``off0`` the rank's first
+    column).  With both a sequence slice and a tensor-parallel last dim,
+    a second level: ``row2`` / ``stride2`` the local and global widths,
+    ``off2`` the rank's first column, and ``seg`` / ``off0`` / ``off1``
+    count the sequence slice's inner rows.
+    ``parallel.strategy.StepLayout.counter_map`` builds it."""
 
     base: int = 0
     row: int = 0
@@ -136,6 +145,9 @@ class CounterMap(NamedTuple):
     seg: int = 0
     off0: int = 0
     off1: int = 0
+    row2: int = 0
+    stride2: int = 0
+    off2: int = 0
 
 
 def global_index(i: torch.Tensor, cmap: Optional[CounterMap]) -> torch.Tensor:
@@ -147,8 +159,14 @@ def global_index(i: torch.Tensor, cmap: Optional[CounterMap]) -> torch.Tensor:
         return i + cmap.base
     r = torch.div(i, cmap.row, rounding_mode="floor")
     c = i - r * cmap.row
-    return cmap.base + r * cmap.stride + torch.where(
-        c < cmap.seg, cmap.off0 + c, cmap.off1 + c)
+    if cmap.row2 == 0:
+        return cmap.base + r * cmap.stride + torch.where(
+            c < cmap.seg, cmap.off0 + c, cmap.off1 + c)
+    q = torch.div(c, cmap.row2, rounding_mode="floor")
+    c2 = c - q * cmap.row2
+    return (cmap.base + r * cmap.stride
+            + torch.where(q < cmap.seg, cmap.off0 + q, cmap.off1 + q)
+            * cmap.stride2 + cmap.off2 + c2)
 
 
 def threefry_bits(key: ThreefryKey, shape: Sequence[int],

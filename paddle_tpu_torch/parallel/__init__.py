@@ -17,13 +17,13 @@ from .mesh import Mesh, make_mesh, mesh_axis_size
 from .moe import switch_moe, switch_moe_apply
 from .pipeline import gpipe, pipeline_fc_stack
 from .ring import ring_attention
-from .strategy import StepLayout, Strategy
+from .strategy import LocalFeed, StepLayout, Strategy
 from .ulysses import ulysses_attention
 from ..param_attr import PartitionSpec, SeqAxis
 
 P = PartitionSpec
 
-__all__ = ["Mesh", "P", "PartitionSpec", "SeqAxis", "StepLayout",
+__all__ = ["LocalFeed", "Mesh", "P", "PartitionSpec", "SeqAxis", "StepLayout",
            "Strategy", "comm", "gpipe",
            "make_mesh", "mesh_axis_size", "pipeline_fc_stack",
            "ring_attention", "switch_moe", "switch_moe_apply", "tp",

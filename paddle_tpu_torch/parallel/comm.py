@@ -22,7 +22,9 @@ lives here:
   max or min over groups, its gradient split among the global ties), the
   differentiable :func:`all_to_all` of Ulysses and :func:`shift` (the
   ring shift whose backward shifts the cotangent back, ``lax.ppermute``'s
-  transpose, for GPipe).
+  transpose, for GPipe); :func:`gather_shards`, the whole tensor from the
+  ranks' shards, with which the Strategy carries an op that mixes batch
+  rows (each rank runs it on the whole tensors).
 
 A gradient convention ties these together: an activation sharded over
 the data axes (dp, and sp for a sharded sequence) carries, on each rank,
@@ -347,6 +349,56 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         group, split_dim, concat_dim = ctx.args
         return _all_to_all(g, group, concat_dim, split_dim), None, None, None
+
+
+def _gather_dim(x: torch.Tensor, group, dim: int, order) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` and put in the global
+    order (``order``: the gathered positions' permutation, or None)."""
+    if x.dtype == torch.bool:
+        return _gather_dim(x.to(torch.uint8), group, dim, order).bool()
+    out = all_gather(x, group, dim)
+    return out if order is None else out.index_select(
+        dim, order.to(out.device))
+
+
+class _GatherShards(torch.autograd.Function):
+    """The whole tensor from each rank's shard: one all-gather a sharded
+    dim.  Backward, a dim sharded over a data axis (``summed``) sums the
+    cotangent over that axis's ranks before taking the rank's part, since
+    every rank computed the whole op from the same whole input; a dim
+    sharded over a model axis takes the rank's part only."""
+
+    @staticmethod
+    def forward(ctx, x, steps):
+        ctx.steps = steps
+        for dim, group, order, mine, _ in steps:
+            x = _gather_dim(x, group, dim, order)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for dim, group, _, mine, summed in reversed(ctx.steps):
+            if summed:
+                g = all_reduce(g, group)
+            g = g.index_select(dim, mine.to(g.device))
+        return g, None
+
+
+def gather_shards(x: torch.Tensor, steps) -> torch.Tensor:
+    """``x`` gathered whole over ``steps``, each ``(dim, group, order,
+    mine, summed)``: the dim, the group it is sharded over, the
+    permutation into the global order (None when the ranks' blocks are in
+    order), the rank's global positions along it, and whether the axis is
+    a data axis.  Differentiable under the gradient convention above:
+    the whole tensor is replicated, a data-sharded input gets the sum of
+    the ranks' cotangents at its positions (n times its true cotangent
+    when every rank's is the true one)."""
+    if not x.requires_grad:
+        with torch.no_grad():
+            for dim, group, order, _, _ in steps:
+                x = _gather_dim(x, group, dim, order)
+        return x
+    return _GatherShards.apply(x, tuple(steps))
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:

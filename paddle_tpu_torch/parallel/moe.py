@@ -31,7 +31,14 @@ package lets GSPMD place the collectives; here they are explicit:
   then ends the step with the single device's gradient for ``gate_w``,
   its expert shard and ``x`` (after the Strategy's average over dp);
 * jitter draws the global ``[S, E]`` uniform from ``ctx.rng_key(tag)``
-  (``ops/random.py``, bitwise JAX's) and the rank takes its rows.
+  (``ops/random.py``, bitwise JAX's) and the rank takes its rows;
+* a sequence-sharded input (a ``SeqAxis`` on dim 1 of ``x`` [N, T, d]) is
+  gathered over its sequence axis into the global order first
+  (``comm.gather_shards``), so that the rank routes its dp rows' tokens in
+  the order of the unsharded sequence: routing, capacity and the dropped
+  tokens are those of JAX's ``switch_moe`` on the whole sequence; the
+  output keeps the rank's positions.  The gather's backward sums the
+  cotangents over the sequence ranks (``comm.py``'s convention).
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from ..ops import random as jrandom
 from ..param_attr import ParamAttr, PartitionSpec as P, seq_axis_of
 from . import comm
 from .mesh import mesh_axis_size
+from .strategy import shard_order
 
 
 def _gates(x, gate_w, noise):
@@ -159,13 +167,11 @@ def switch_moe(x, num_experts: int, d_ff: int, capacity_factor: float = 1.25,
     """Program-level Switch-MoE FFN over ``x`` [N, T, d] (or [N, d]).  Expert
     weights are stacked [E, ...] and sharded over ``axis``; returns
     (y, aux_loss [1]).  ``aux_loss`` is already scaled by ``aux_weight`` —
-    add it to the training loss as-is.  A sequence-sharded ``x`` is
-    refused (its tokens' global order is not the rank's)."""
+    add it to the training loss as-is.  A sequence-sharded ``x`` is routed
+    on its whole sequence (module docstring)."""
     helper = LayerHelper("switch_moe", name=name)
     d = x.shape[-1]
-    if seq_axis_of(x) is not None:
-        raise NotImplementedError("switch_moe over a sequence-sharded input "
-                                  "is not ported")
+    seq = seq_axis_of(x)
 
     def eattr(spec):
         a = ParamAttr.to_attr(param_attr)
@@ -183,7 +189,14 @@ def switch_moe(x, num_experts: int, d_ff: int, capacity_factor: float = 1.25,
                                  x.dtype, is_bias=True)
     tag = helper.main_program.next_rng_tag()
 
-    def fn(ctx, xv, gw, w1v, b1v, w2v, b2v, cf, aw, jit_, tag):
+    def fn(ctx, xv, gw, w1v, b1v, w2v, b2v, cf, aw, jit_, tag, _seq=seq):
+        lay = ctx.layout
+        mine = None
+        if lay is not None and lay.sharded(_seq):
+            # route the rank's rows on their whole sequence
+            order, mine = shard_order(ctx.mesh, _seq, xv.shape[1], xv.device)
+            xv = comm.gather_shards(xv, [(1, ctx.mesh.group(_seq), order,
+                                          mine, True)])
         shape = xv.shape
         flat = xv.reshape(-1, shape[-1])
         key = (ctx.rng_key(tag) if jit_ and ctx.device.type != "meta"
@@ -201,7 +214,10 @@ def switch_moe(x, num_experts: int, d_ff: int, capacity_factor: float = 1.25,
 
             y, aux = switch_moe_sharded(flat, gw, w1v, b1v, w2v, b2v, cf,
                                         ctx.mesh, ctx.layout, axis, noise_fn)
-        return y.reshape(shape), (aw * aux)[None]
+        y = y.reshape(shape)
+        if mine is not None:
+            y = y.index_select(1, mine)
+        return y, (aw * aux)[None]
 
     out = helper.append_op(
         fn, {"X": [x], "GateW": [gate_w], "W1": [w1], "B1": [b1],

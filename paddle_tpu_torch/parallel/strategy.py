@@ -37,18 +37,25 @@ GSPMD does implicitly:
   says, so a rank returns what the single-device run returns;
 * the batch reductions a sharded program needs are carried over the data
   axes (ROADMAP C.13): ``mean``, ``reduce_sum`` / ``mean`` / ``max`` /
-  ``min`` over dim 0 and ``batch_norm``'s training statistics give every
-  rank the global value (``comm.py``'s gradient convention); an op that
-  mixes batch rows in another way (``BATCH_MIXING``, ``reduce_prod`` over
-  the batch, and any op that runs along, indexes or contracts the batch
-  or moves it out of dim 0: ``_batch_mixing``) is refused before the
-  step's first op (:meth:`Strategy.check_batch_ops`).
+  ``min`` over dim 0, ``batch_norm``'s training statistics and
+  ``accuracy``'s counts give every rank the global value (``comm.py``'s
+  gradient convention); an op that mixes batch rows, the positions of a
+  sharded sequence or the entries of a dim a model axis shards in
+  another way (``reduce_prod`` over the batch, and any op that runs
+  along, indexes or contracts such a dim or moves the batch out of dim
+  0, by the axes its layer declared (``Op.axes``) or its dim attributes:
+  ``_mixing``) runs through a :class:`Carrier`: its sharded inputs
+  gathered whole, the op's own function on them, the rank's part of its
+  sharded outputs kept (:meth:`Strategy.plan_batch_ops`, planned once
+  per program version).
 
-``Executor.warm`` under a Strategy is ROADMAP A.9 part 3 (NCCL can be
-captured in a CUDA graph, gloo cannot) and raises ``WarmError``.
+``Executor.warm`` under a Strategy raises ``WarmError`` (NCCL can be
+captured in a CUDA graph, gloo cannot; a capture across ranks waits for a
+machine with two or more cards).
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import weakref
@@ -59,7 +66,7 @@ import torch
 
 from ..ops.dropout import CounterMap
 from ..param_attr import PartitionSpec as P
-from ..param_attr import seq_axis_of
+from ..param_attr import SeqAxis, seq_axis_of
 from . import comm
 from .mesh import Mesh, mesh_axis_size
 
@@ -75,6 +82,23 @@ def seq_index(T: int, n: int, idx: int, striped: bool) -> np.ndarray:
                            for b in (idx, 2 * n - 1 - idx)])
 
 
+def shard_order(mesh: Mesh, axis, local: int, device) -> tuple:
+    """(order, mine) of a dim of ``local`` entries on this rank that
+    ``axis`` shards: the permutation that puts the ranks' blocks,
+    all-gathered in rank order, in the global order (None when that is
+    their order; a striped ``SeqAxis``'s is not), and this rank's global
+    positions along the dim (int64 tensors on ``device``)."""
+    n, striped = mesh.shape[axis], getattr(axis, "striped", False)
+    order = None
+    if striped:
+        perm = np.concatenate([seq_index(local * n, n, d, True)
+                               for d in range(n)])
+        order = torch.as_tensor(np.argsort(perm), device=device)
+    mine = torch.as_tensor(seq_index(local * n, n, mesh.coord(axis),
+                                     striped), device=device)
+    return order, mine
+
+
 class StepLayout:
     """One step's data layout on this rank: ``data_axis`` (rows sharded, or
     None), ``seq_axis`` (the ``SeqAxis`` the feeds' sequence is sharded
@@ -88,6 +112,11 @@ class StepLayout:
         self.data_axis = data_axis
         self.seq_axis = seq_axis
         self.batch = batch
+        # the Strategy's plan of the ops carried over this step's sharded
+        # batch (Strategy.plan_batch_ops), and the names of batch-major
+        # outputs a carried op left whole on every rank
+        self.carry = None
+        self.replicated = set()
 
     def sharded(self, seq) -> bool:
         """Whether a variable whose sequence entry is ``seq`` holds a slice
@@ -112,45 +141,59 @@ class StepLayout:
         pos = seq_index(t_local * n, n, self.mesh.coord(seq), seq.striped)
         return torch.as_tensor(pos, dtype=torch.int64, device=device)
 
-    def counter_map(self, shape: Sequence[int], seq) -> CounterMap:
-        """Where this rank's slice of a batch-major tensor of local
-        ``shape``, its sequence (dim 1) sharded over ``seq`` or whole
-        (None), lies in the global one (the dropout counter)."""
+    def counter_map(self, shape: Sequence[int], seq, batch: bool = True,
+                    col=None) -> CounterMap:
+        """Where this rank's slice of a tensor of local ``shape`` lies in
+        the global one (the dropout counter): its rows over dp when
+        ``batch`` (batch-major), its sequence (dim 1) sharded over ``seq``
+        or whole (None), and its last dim sharded over the model axis
+        ``col`` or whole (None)."""
         rows = int(shape[0])
+        base_rows = self.batch_offset(rows) if batch else 0
+        nc = mesh_axis_size(self.mesh, col) if col is not None else 1
+        w = int(shape[-1])
+        W, c0 = w * nc, (self.mesh.coord(col) * w if nc > 1 else 0)
+        # elements of one local row, and of one global row
         per_row = int(np.prod(shape[1:], dtype=np.int64))
-        base_rows = self.batch_offset(rows)
-        if not self.sharded(seq):
-            return CounterMap(base=base_rows * per_row)
+        per_grow = per_row // w * W
+        if not (batch and self.sharded(seq)):
+            if nc == 1:
+                return CounterMap(base=base_rows * per_row)
+            return CounterMap(base=base_rows * per_grow, row=w, stride=W,
+                              seg=w, off0=c0)
         n = self.mesh.shape[seq]
         idx = self.mesh.coord(seq)
         t = int(shape[1])
-        inner = per_row // t
-        stride = t * n * inner
+        # the inner rows of a sequence position, each w (local) wide
+        inner = per_row // t // (w if nc > 1 else 1)
+        stride = per_grow * n
+        two = dict(row2=w, stride2=W, off2=c0) if nc > 1 else {}
         if not seq.striped:
             return CounterMap(base=base_rows * stride, row=per_row,
-                              stride=stride, seg=per_row,
-                              off0=idx * t * inner)
+                              stride=stride, seg=t * inner,
+                              off0=idx * t * inner, **two)
         th = t // 2
         seg = th * inner
         return CounterMap(base=base_rows * stride, row=per_row,
                           stride=stride, seg=seg, off0=idx * th * inner,
-                          off1=(2 * n - 1 - idx) * th * inner - seg)
+                          off1=(2 * n - 1 - idx) * th * inner - seg, **two)
 
-
-# op types whose output mixes the rows of a batch-major input and which the
-# port does not carry over a sharded batch (ROADMAP C.13): the metrics,
-# the evaluators' batch counts, the beam loss's mean over sequences and
-# roi_pool (its rois name rows of the global batch)
-BATCH_MIXING = frozenset({
-    "accuracy", "auc", "chunk_eval", "accuracy_accumulate",
-    "chunk_accumulate", "precision_recall_accumulate",
-    "ctc_error_accumulate", "detection_map_accumulate",
-    "cross_entropy_over_beam", "roi_pool"})
 
 # op types that carry their reduction over a sharded batch themselves
+# (accuracy and its evaluator sum their two counts over the ranks)
 BATCH_CARRIED = frozenset({"mean", "reduce_sum", "reduce_mean", "reduce_max",
                            "reduce_min", "reduce_prod", "batch_norm",
-                           "switch_moe"})
+                           "switch_moe", "accuracy", "accuracy_accumulate"})
+
+# op types that take a sequence-sharded input on its own terms (ring and
+# Ulysses attention, the dropout counter map, positions from the layout)
+SEQ_CARRIED = frozenset({"attention", "dropout", "pos_embed"})
+
+# op types with a tensor-parallel form of their own (parallel/tp.py: the
+# sharded matmul, the vocab-parallel lookup and cross entropy; the LM's
+# head and attention on their shards; the dropout counter map)
+MODEL_CARRIED = frozenset({"mul", "embedding", "softmax_with_cross_entropy",
+                           "lm_head", "attention", "dropout"})
 
 # attributes that name dims of an op's input (``elementwise_*``'s ``axis``
 # aligns a broadcast instead); ``stack`` and ``unsqueeze`` count the dims
@@ -159,45 +202,235 @@ _DIM_ATTRS = ("axis", "dim", "axes")
 _NEW_DIM = frozenset({"stack", "unsqueeze"})
 
 
-def _names_dim0(op, nd: int) -> bool:
-    """Whether ``op``'s dim attributes name dim 0 of an ``nd``-dim input."""
-    if op.type.startswith("elementwise_"):
-        return False
+def _op_axes(op, nd: int) -> tuple:
+    """The dims of an ``nd``-dim input that ``op`` runs along: those its
+    layer declared (``Op.axes``: ``sum_to_one_norm`` and ``top_k`` the
+    last, so a 1-D batch-major input's batch; ``sequence_reverse`` and
+    ``dynamic_lstm`` the sequence; ``auc`` and the evaluators' counts the
+    batch), else those its dim attributes name."""
+    if op.type.startswith("elementwise_") or not nd:
+        return ()
     n = nd + (op.type in _NEW_DIM)
+    if op.axes is not None:
+        return tuple(d % n for d in op.axes if -n <= d < n)
     for k in _DIM_ATTRS:
         v = op.attrs.get(k)
+        if v is None:
+            continue
         vals = v if isinstance(v, (list, tuple)) else (v,)
-        if n and any(isinstance(d, int) and d % n == 0 for d in vals):
-            return True
-    return False
+        return tuple(d % n for d in vals if isinstance(d, int))
+    return ()
+
+
+def _batch(v) -> bool:
+    return v is not None and bool(v.shape) and v.shape[0] is None
 
 
 def _batch_mixing(op, var) -> Optional[str]:
     """How ``op``, one of whose inputs is batch-major (``var(name)``: the
     variable of a name), mixes the rows of a batch sharded over dp, or
     None when each output row reads only its own input rows."""
-    def batch(v):
-        return v is not None and bool(v.shape) and v.shape[0] is None
-
     ins = {s: [var(n) for n in ns] for s, ns in op.inputs.items()}
-    first = next(v for vs in ins.values() for v in vs if batch(v))
-    if op.type in BATCH_MIXING:
-        return f"{op.type!r} mixes the rows of its batch"
-    if _names_dim0(op, len(first.shape)):
+    first = next(v for vs in ins.values() for v in vs if _batch(v))
+    if 0 in _op_axes(op, len(first.shape)):
         return f"{op.type!r} runs along the batch (dim 0)"
-    if op.type in ("gather", "scatter") and batch(ins["X"][0]):
+    if op.type in ("gather", "scatter") and _batch(ins["X"][0]):
         return f"{op.type!r} indexes the rows of a batch-major x"
     if op.type in ("matmul", "mul") and any(
-            batch(v) and (op.type == "mul" or len(v.shape) <= 2)
+            _batch(v) and (op.type == "mul" or len(v.shape) <= 2)
             for v in ins.get("Y", ())):
         return f"{op.type!r} contracts over the batch of its y"
-    if not all(batch(var(n)) for n in op.output_names()):
+    if not all(_batch(var(n)) for n in op.output_names()):
         return f"{op.type!r} takes the batch out of dim 0"
     return None
 
 
+def _seq_mixing(op, var, layout) -> Optional[str]:
+    """How ``op`` mixes the positions of a sequence-sharded input (a
+    ``SeqAxis`` on dim 1 sharded on this step's mesh), or None."""
+    if op.type in SEQ_CARRIED:
+        return None
+    seq = [v for v in map(var, op.input_names())
+           if _batch(v) and layout.sharded(seq_axis_of(v))]
+    if not seq:
+        return None
+    if any(1 in _op_axes(op, len(v.shape)) for v in seq):
+        return f"{op.type!r} runs along the sharded sequence (dim 1)"
+    for n in op.output_names():
+        out = var(n)
+        if not _batch(out) or seq_axis_of(out) != seq_axis_of(seq[0]):
+            return f"{op.type!r} takes the sequence out of dim 1"
+    return None
+
+
+def _model_dims(v, layout) -> set:
+    """The dims of ``v`` its spec shards over a model axis (not the data
+    axis, not a sequence) of more than one rank on this step's mesh."""
+    return {i for i, a in enumerate(_spec_of(v))
+            if a is not None and not isinstance(a, SeqAxis)
+            and a != layout.data_axis and mesh_axis_size(layout.mesh, a) > 1}
+
+
+def _model_mixing(op, var, layout) -> Optional[str]:
+    """How ``op`` runs along a dim that a model axis shards (the last dim
+    of a column-parallel output), with no tensor-parallel form of its
+    own, or None."""
+    from ..layers.tensor import _reduced_dims
+
+    if op.type in MODEL_CARRIED or op.type.startswith("elementwise_"):
+        return None
+    for v in map(var, op.input_names()):
+        if v is None or not v.shape:
+            continue
+        dims = _model_dims(v, layout)
+        if not dims:
+            continue
+        nd = len(v.shape)
+        if op.type.startswith("reduce_"):
+            axes = _reduced_dims(v, op.attrs.get("axis"))
+        elif op.type == "mean":
+            axes = tuple(range(nd))
+        else:
+            axes = _op_axes(op, nd)
+        if dims & set(axes):
+            return f"{op.type!r} runs along a dim sharded over a model axis"
+    return None
+
+
+def _mixing(op, var, layout, dp: int) -> Optional[str]:
+    """Why ``op`` must run on the whole batch (and sequence) of this
+    step's layout, or on the whole of a dim a model axis shards, or None
+    (see :meth:`Strategy.plan_batch_ops`)."""
+    from ..layers.tensor import _reduced_dims
+
+    if op.special is not None:
+        return None
+    what = _model_mixing(op, var, layout)
+    if what is not None:
+        return what
+    batch = [v for v in map(var, op.input_names()) if _batch(v)]
+    if not batch:
+        return None
+    if op.type.startswith("reduce_"):
+        dims = _reduced_dims(batch[0], op.attrs.get("axis"))
+        seq = layout.sharded(seq_axis_of(batch[0]))
+        if op.type == "reduce_prod" and ((0 in dims and dp > 1)
+                                         or (1 in dims and seq)):
+            return "reduce_prod over a sharded dim"
+        if 0 in dims and 1 not in dims and seq:
+            return (f"{op.type} over the batch of a sequence-sharded input, "
+                    f"keeping the sequence")
+        return None
+    if op.type in BATCH_CARRIED:
+        return None
+    what = _batch_mixing(op, var) if dp > 1 else None
+    return what or _seq_mixing(op, var, layout)
+
+
+class Carrier:
+    """Runs one op that mixes batch rows on the whole tensors: each input
+    sharded over the data axes (its rows over dp, its positions over sp,
+    and any dim its spec shards over a model axis) is all-gathered into
+    the global order (``comm.gather_shards``), the op's own function runs
+    on them with no step layout (so the op's body does what it does on
+    one device), and each output keeps the rank's part of the dims its
+    variable is sharded on: the rows of a batch-major output, the
+    positions of a sequence-sharded one.  Every other output is the same
+    whole value on every rank (a metric, a persistable evaluator state,
+    the global ``argmax`` over the batch); so is a batch-major output
+    whose rows do not divide over dp, which the step records in
+    ``StepLayout.replicated`` so that its fetch is not gathered again.
+    Backward, ``comm.py``'s convention holds: the gather of a
+    data-sharded input sums the ranks' cotangents (``gather_shards``)."""
+
+    def __init__(self, op, var, strategy, layout, why: str):
+        self.op, self.why = op, why
+        mesh = strategy.mesh
+        data = layout.data_axis
+        dp = mesh_axis_size(mesh, data) if data else 1
+
+        def dims(n):
+            v = var(n)
+            out = []
+            if v is None or not v.shape:
+                return out
+            if _batch(v):
+                if dp > 1:
+                    out.append((0, data, True))
+                seq = seq_axis_of(v)
+                if layout.sharded(seq):
+                    out.append((1, seq, True))
+            out += [(i, _spec_of(v)[i], False)
+                    for i in sorted(_model_dims(v, layout))]
+            return out
+
+        self.ins = {s: [dims(n) for n in ns] for s, ns in op.inputs.items()}
+        self.outs = {s: [(n, dims(n)) for n in ns]
+                     for s, ns in op.outputs.items()}
+        self.mesh = mesh
+        self._pos = {}
+
+    def _positions(self, axis, local: int, device):
+        """:func:`shard_order` of the dim, kept for later steps."""
+        key = (str(axis), getattr(axis, "striped", False), local, device)
+        got = self._pos.get(key)
+        if got is None:
+            got = self._pos[key] = shard_order(self.mesh, axis, local,
+                                               device)
+        return got
+
+    def __call__(self, env, ctx) -> None:
+        op, mesh = self.op, self.mesh
+        ins = op.read(env, ctx)
+        whole = {}
+        for slot, vals in ins.items():
+            whole[slot] = []
+            for t, steps in zip(vals, self.ins[slot]):
+                if steps and isinstance(t, torch.Tensor):
+                    t = comm.gather_shards(t, [
+                        (d, mesh.group(a), *self._positions(
+                            a, t.shape[d], t.device), summed)
+                        for d, a, summed in steps])
+                whole[slot].append(t)
+        gctx = copy.copy(ctx)
+        gctx.layout = gctx.carry = None
+        outs = op.fn(whole, op.attrs, gctx)
+        mine = {}
+        for slot, entries in self.outs.items():
+            mine[slot] = []
+            for t, (name, steps) in zip(outs.get(slot, []), entries):
+                for d, a, _ in steps:
+                    n = mesh.shape[a]
+                    if t.shape[d] % n:
+                        if d == 0 and len(steps) == 1:
+                            ctx.layout.replicated.add(name)
+                            break
+                        raise ValueError(
+                            f"{op.type}: output {name!r} has {t.shape[d]} "
+                            f"entries on dim {d}, which do not divide over "
+                            f"{a}={n}")
+                    _, pos = self._positions(a, t.shape[d] // n, t.device)
+                    t = t.index_select(d, pos)
+                mine[slot].append(t)
+        op.write(env, mine)
+
+
 def _spec_of(var) -> tuple:
     return tuple(getattr(var, "sharding", None) or ())
+
+
+class LocalFeed(dict):
+    """A feed dict that is already this rank's part of a global batch (its
+    dp rows, and its sequence slice of the sequence-sharded feeds), as
+    ``DeviceFeeder(sharding=strategy)`` stages it: ``batch`` is the global
+    batch size and ``seq_axis`` the ``SeqAxis`` its sequence was sliced
+    over (or None).  ``Executor.run`` under that Strategy takes it without
+    slicing again."""
+
+    def __init__(self, feeds, batch: int, seq_axis=None):
+        super().__init__(feeds)
+        self.batch = int(batch)
+        self.seq_axis = seq_axis
 
 
 class Strategy:
@@ -213,8 +446,8 @@ class Strategy:
         self.shard_optimizer_state = shard_optimizer_state
         self.last_shard_coverage = None
         self._plan_cache = {}
-        # program -> the (version, dp, seq) that refused none
-        self._checked = weakref.WeakKeyDictionary()
+        # program -> {(version, dp, seq): plan_batch_ops's plan}
+        self._plans = weakref.WeakKeyDictionary()
 
     # ---------------------------------------------------------- ZeRO-1 plan
     def _zero1_plan(self, program, names):
@@ -450,11 +683,60 @@ class Strategy:
     def shard_feed(self, program, feeds: Dict[str, torch.Tensor]):
         """(this rank's feeds, the step's StepLayout): dp rows of every
         batch-major feed, the sequence slice of those with a ``SeqAxis`` on
-        dim 1."""
+        dim 1.  A :class:`LocalFeed` (``DeviceFeeder(sharding=strategy)``)
+        is already the rank's and is taken as it is."""
         if not self.mesh.in_mesh:
             raise RuntimeError(f"rank {self.mesh.rank} is not in the mesh "
                                f"{self.mesh.shape} (a sub-mesh leaves it "
                                f"idle): it cannot run a step under it")
+        if isinstance(feeds, LocalFeed):
+            self._check_local(program, feeds)
+            out, seq_axis, batch = dict(feeds), feeds.seq_axis, feeds.batch
+        else:
+            out, seq_axis, batch = self._slice_feeds(program, feeds)
+        return out, StepLayout(self.mesh, self.data_axis, seq_axis, batch)
+
+    def _check_local(self, program, feeds: "LocalFeed") -> None:
+        """Refuse a :class:`LocalFeed` that is not this rank's part of a
+        global batch of ``program`` under this Strategy: its global batch
+        does not divide over dp, or a batch-major feed of ``program`` does
+        not hold batch / dp rows, or a feed ``program`` shards on its
+        sequence was not sliced over that sequence (a feeder made for
+        another program or another Strategy)."""
+        block = program.global_block
+        dp = self._dp()[0] if self.data_axis else 1
+        for n, t in feeds.items():
+            var = block.vars.get(n)
+            if var is None or not var.shape or var.shape[0] is not None:
+                continue
+            if feeds.batch <= 0 or feeds.batch % dp \
+                    or int(t.shape[0]) != feeds.batch // dp:
+                raise ValueError(
+                    f"feed {n!r} holds {int(t.shape[0])} rows of a LocalFeed "
+                    f"whose global batch is {feeds.batch}: under "
+                    f"{self.data_axis}={dp} a rank holds batch / {dp} rows "
+                    f"(was the DeviceFeeder made for another program or "
+                    f"Strategy?)")
+            seq = seq_axis_of(var)
+            if seq is not None and mesh_axis_size(self.mesh, seq) > 1 \
+                    and (feeds.seq_axis != seq or getattr(
+                        feeds.seq_axis, "striped", False) != seq.striped):
+                raise ValueError(
+                    f"feed {n!r} is sharded on its sequence over {seq!r}, "
+                    f"but the LocalFeed's sequence was sliced over "
+                    f"{feeds.seq_axis!r}")
+
+    def local_feed(self, program, feeds) -> "LocalFeed":
+        """This rank's part of a global feed dict (numpy arrays or
+        tensors, where they lie), marked as the rank's: what
+        ``DeviceFeeder(sharding=strategy)`` uploads."""
+        feeds = {n: v if isinstance(v, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+                 for n, v in feeds.items()}
+        out, seq_axis, batch = self._slice_feeds(program, feeds)
+        return LocalFeed(out, batch, seq_axis)
+
+    def _slice_feeds(self, program, feeds):
         block = program.global_block
         seq_axis, batch = None, None
         out = {}
@@ -500,58 +782,52 @@ class Strategy:
                                                 seq.striped), device=t.device)
                 t = t.index_select(1, pos)
             out[n] = t.contiguous()
-        layout = StepLayout(self.mesh, self.data_axis, seq_axis, batch or 0)
-        return out, layout
+        return out, seq_axis, batch or 0
 
     # ---------------------------------------------------------- the step
-    def check_batch_ops(self, program, layout: StepLayout) -> None:
-        """Refuse, before the step's first op, a program holding a layer
-        whose output mixes batch rows in a way not carried over this
-        step's sharded batch or sequence: ROADMAP C.13.  Under dp that is
-        an op of ``BATCH_MIXING``, ``reduce_prod`` over dim 0 of a
-        batch-major input, and any op not in ``BATCH_CARRIED`` that takes
-        a batch-major input and runs along dim 0 (a dim attribute naming
-        it: ``cumsum``, ``argmax``, ``concat``, ``softmax``, ...), indexes
+    def plan_batch_ops(self, program, layout: StepLayout) -> None:
+        """Put on ``layout.carry`` the ops of ``program`` (sub-blocks
+        included) that mix the rows of this step's sharded batch, the
+        positions of its sharded sequence or the entries of a dim a model
+        axis shards, in a way no op carries itself, each with its
+        :class:`Carrier` (``Op.apply`` runs it in the op's place); None
+        when there are none.  Under dp such an op is ``reduce_prod`` over
+        the batch, or any op not in ``BATCH_CARRIED`` that takes a
+        batch-major input and runs along dim 0 (by the axes its layer
+        declared, ``Op.axes``, or a dim attribute: ``auc``, the
+        evaluators' counts, ``cumsum``, ``argmax``, ``concat``,
+        ``softmax``, ``sum_to_one_norm`` of a [None] vector, ...), indexes
         its rows (``gather`` / ``scatter`` of a batch-major x), contracts
         it (``matmul`` / ``mul`` of a batch-major y) or gives an output
-        whose dim 0 is not the batch (``matmul(transpose_x=True)``, a
-        norm to a scalar, ``pad`` or ``crop`` of the rows, ...); under
-        sp, a reduction over dim 0 but not dim 1 of a sequence-sharded
-        input."""
+        whose dim 0 is not the batch (``matmul(transpose_x=True)``, a norm
+        to a scalar, ``pad`` or ``crop`` of the rows, ...); under sp, a
+        reduction over dim 0 but not dim 1 of a sequence-sharded input,
+        and an op not in ``SEQ_CARRIED`` that runs along dim 1 of one
+        (``sequence_reverse``, ``row_conv``, ``dynamic_lstm``, ...) or
+        gives an output that is not sharded on that sequence; under a
+        model axis (tp, and any axis but the data one), an op not in
+        ``MODEL_CARRIED`` that runs along a dim the axis shards
+        (``softmax`` or ``accuracy`` over a column-parallel output).  The
+        plan is kept per (program version, dp, sequence axis): a step adds
+        no Python work but the carried ops' own."""
         dp = (mesh_axis_size(self.mesh, layout.data_axis)
               if layout.data_axis else 1)
-        key = (program.version, dp, layout.seq_axis)
-        if (dp == 1 and layout.seq_axis is None) \
-                or key in self._checked.get(program, ()):
+        if self.mesh.size == 1:
             return
-        from ..layers.tensor import _reduced_dims
+        key = (program.version, dp, layout.seq_axis)
+        plans = self._plans.setdefault(program, {})
+        if key not in plans:
+            plan = {}
+            for block, op in program.all_ops():
+                def var(n, _block=block):
+                    return (_block.vars.get(n)
+                            or program.global_block.vars.get(n))
 
-        for block, op in program.all_ops():
-            def var(n, _block=block):
-                return _block.vars.get(n) or program.global_block.vars.get(n)
-
-            batch = [v for v in map(var, op.input_names())
-                     if v is not None and v.shape and v.shape[0] is None]
-            if not batch or op.special is not None:
-                continue
-            what = None
-            if op.type.startswith("reduce_"):
-                dims = _reduced_dims(batch[0], op.attrs.get("axis"))
-                seq = seq_axis_of(batch[0])
-                if 0 in dims and op.type == "reduce_prod":
-                    what = "reduce_prod over the batch"
-                elif 0 in dims and 1 not in dims and layout.sharded(seq):
-                    what = (f"{op.type} over the batch of a sequence-"
-                            f"sharded input, keeping the sequence")
-            elif op.type in BATCH_MIXING or (
-                    dp > 1 and op.type not in BATCH_CARRIED):
-                what = _batch_mixing(op, var)
-            if what is not None:
-                raise NotImplementedError(
-                    f"{what}: not carried over a batch or sequence sharded "
-                    f"by the Strategy (mesh {self.mesh.shape}; ROADMAP "
-                    f"C.13); run it unsharded")
-        self._checked.setdefault(program, set()).add(key)
+                why = _mixing(op, var, layout, dp)
+                if why is not None:
+                    plan[id(op)] = (op, Carrier(op, var, self, layout, why))
+            plans[key] = plan or None
+        layout.carry = plans[key]
 
     def sync_grads(self, env, params: Sequence[str], layout: StepLayout,
                    program) -> None:
@@ -655,7 +931,8 @@ class Strategy:
         spec = list(_spec_of(base if base is not None else var))
         spec += [None] * (t.dim() - len(spec))
         if not var.persistable and base is None and var.shape \
-                and var.shape[0] is None and layout.data_axis:
+                and var.shape[0] is None and layout.data_axis \
+                and name not in layout.replicated:
             spec[0] = layout.data_axis
         return spec
 
@@ -670,13 +947,10 @@ class Strategy:
                                                    layout)):
             if axis is None or mesh_axis_size(self.mesh, axis) == 1:
                 continue
+            order, _ = shard_order(self.mesh, axis, t.shape[dim], t.device)
             t = comm.all_gather(t, self.mesh.group(axis), dim)
-            if getattr(axis, "striped", False):
-                n = self.mesh.shape[axis]
-                perm = np.concatenate([seq_index(t.shape[dim], n, d, True)
-                                       for d in range(n)])
-                t = t.index_select(dim, torch.as_tensor(
-                    np.argsort(perm), device=t.device))
+            if order is not None:
+                t = t.index_select(dim, order)
         if var is not None and var.shape:
             want = tuple(layout.batch if d is None else d for d in var.shape)
             if tuple(t.shape) != want and not (

@@ -14,10 +14,14 @@ rank's shards, with ``comm.py``'s two Megatron functions:
   after the sum;
 * a vocab-parallel lookup (table [V/tp, D]) masks the ids outside the
   rank's rows, gathers locally and all-reduces; ids are clamped to
-  [0, V-1] first, as JAX's gather clamps them (ROADMAP C.4);
+  [0, V-1] first, as JAX's gather clamps them (ROADMAP C.4); the sparse
+  lookup (``is_sparse``) builds the rank's table cotangent by the sparse
+  engine's padding and drop rule, without atomics;
 * the cross entropy over vocab-sharded logits takes the max, the sum of
-  exponentials and the target logit each over tp (the max without a
-  gradient: the loss does not depend on it).
+  exponentials and the target logit (or, with soft labels, the label
+  mass and the label-weighted logits) each over tp (the max without a
+  gradient: the loss does not depend on it); its softmax stays sharded
+  on the vocab.
 """
 from __future__ import annotations
 
@@ -111,18 +115,89 @@ def vocab_lookup(mesh, ids: torch.Tensor, table: torch.Tensor, axis: str,
     return comm.reduce_from(out, mesh.group(axis))
 
 
-def vocab_cross_entropy(mesh, logits: torch.Tensor, ids: torch.Tensor,
-                        axis: str, vocab: int) -> torch.Tensor:
-    """Softmax cross entropy over logits sharded on the vocab (last) dim:
-    ``log(sum exp(l - m)) + m - l[label]`` with m, the sum and the target
-    logit each over tp; [..., 1] like the unsharded op."""
+class _VocabSparseLookup(torch.autograd.Function):
+    """The rank's part of a sparse lookup on a vocab-sharded table: rows of
+    the ids it holds (ids clamped into [0, V - 1] first, JAX's gather),
+    the others zero, the padding rows' output zero.  Backward, the table
+    cotangent by the sparse engine's rule (``sparse/table.py``:
+    ``scatter_index``, JAX's ``mode="drop"``): the padding occurrences and
+    the ids JAX drops go to a scratch row past the rank's rows, as do the
+    ids another rank holds, so no ``index_add_`` atomics and a padding
+    row's gradient exactly zero."""
+
+    @staticmethod
+    def forward(ctx, tab, ids, padding_idx, vocab, row0):
+        from ..sparse.table import gather_index
+
+        rows = tab.shape[0]
+        ctx.save_for_backward(ids)
+        ctx.args = (padding_idx, vocab, row0, rows)
+        g = gather_index(ids, vocab) - row0
+        inside = (g >= 0) & (g < rows)
+        if padding_idx is not None:
+            inside = inside & (ids != padding_idx)
+        out = F.embedding(g.clamp(0, rows - 1), tab)
+        return out * inside[..., None].to(out.dtype)
+
+    @staticmethod
+    def backward(ctx, cot):
+        from ..sparse.table import scatter_index
+
+        ids, = ctx.saved_tensors
+        padding_idx, vocab, row0, rows = ctx.args
+        rel = scatter_index(ids, vocab) - row0
+        keep = (rel >= 0) & (rel < rows)
+        if padding_idx is not None:
+            keep = keep & (ids != padding_idx)
+        safe = torch.where(keep, rel, torch.full_like(rel, rows))
+        g = torch.ops.aten.embedding_dense_backward(
+            cot.contiguous(), safe, rows + 1, rows, False)
+        return g[:rows], None, None, None, None
+
+
+def vocab_sparse_lookup(mesh, ids: torch.Tensor, table: torch.Tensor,
+                        axis: str, vocab: int, padding_idx=None):
+    """``embedding(is_sparse=True)`` on a table sharded on its vocab dim:
+    each rank looks up the ids it holds with the sparse engine's
+    cotangent rule (``_VocabSparseLookup``), and the sum over tp
+    (``comm.reduce_from``) is the lookup."""
+    row0 = mesh.coord(axis) * table.shape[0]
+    out = _VocabSparseLookup.apply(table, ids, padding_idx, vocab, row0)
+    return comm.reduce_from(out, mesh.group(axis))
+
+
+def vocab_cross_entropy(mesh, logits: torch.Tensor, label: torch.Tensor,
+                        axis: str, vocab: int, soft_label: bool = False,
+                        return_softmax: bool = False):
+    """Softmax cross entropy over logits sharded on the vocab (last) dim,
+    with m (the max), the sum of exponentials and the label term each
+    over tp, so ``lse = log(sum exp(l - m)) + m`` is global: hard labels
+    (``label`` the ids) give ``lse - l[label]``; soft labels (``label``
+    [..., V], the whole row or the rank's slice of it) give
+    ``lse * sum(label) - sum(label * l)``, both sums partial over the
+    rank's vocab and summed over tp.  [..., 1] like the unsharded op;
+    with ``return_softmax`` also the rank's vocab slice of the softmax,
+    ``exp(l - lse)``."""
     group = mesh.group(axis)
     m = comm.all_reduce(logits.detach().amax(dim=-1, keepdim=True), group,
                         "max")
     se = comm.reduce_from(torch.exp(logits - m).sum(dim=-1, keepdim=True),
                           group)
-    rel, inside = _local_ids(mesh, ids, axis, logits.shape[-1], vocab)
-    tgt = torch.gather(logits, -1, rel[..., None]) \
-        * inside[..., None].to(logits.dtype)
-    tgt = comm.reduce_from(tgt, group)
-    return torch.log(se) + m - tgt
+    lse = torch.log(se) + m
+    if soft_label:
+        w = logits.shape[-1]
+        if label.shape[-1] != w:
+            label = label.narrow(-1, mesh.coord(axis) * w, w)
+        label = label.to(logits.dtype)
+        dot = comm.reduce_from((label * logits).sum(dim=-1, keepdim=True),
+                               group)
+        mass = comm.reduce_from(label.sum(dim=-1, keepdim=True), group)
+        loss = lse * mass - dot
+    else:
+        rel, inside = _local_ids(mesh, label, axis, logits.shape[-1], vocab)
+        tgt = torch.gather(logits, -1, rel[..., None]) \
+            * inside[..., None].to(logits.dtype)
+        loss = lse - comm.reduce_from(tgt, group)
+    if return_softmax:
+        return loss, torch.exp(logits - lse)
+    return loss

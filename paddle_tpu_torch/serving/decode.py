@@ -596,19 +596,22 @@ class ContinuousDecodeEngine:
     exact single-device path.  Otherwise the model runs on
     ``serving.mesh.ShardedParams``, the rank's parameter shards (fsdp
     gathered at use, tp column / row / vocab parallel) and the pool holds
-    the rank's ``H / tp`` heads when ``heads_shardable``.  Over ``data``
-    (when it divides ``n_slots``) a step runs the rank's slots' rows; after
-    the body, outside any graph, the logits, the chosen tokens and each
-    layer's new K/V rows are all-gathered over data and the other ranks'
-    rows scattered into this rank's arena, so every arena holds every
-    slot's blocks (a prefix hit, a fork or a migration reads blocks
+    the rank's ``H / tp`` heads when ``heads_shardable`` (an int8 pool:
+    its payload and its float32 scale plane alike, as the reference's
+    ``paddle_tpu/serving/decode.py:336-346``; a ``kv_dtype`` other than
+    the compute dtype is taken as on one device).  Over ``data`` (when it
+    divides ``n_slots``) a step runs the rank's slots' rows; after the
+    body, outside any graph, the logits, the chosen tokens and each
+    layer's new K/V rows (in the pool's dtype; int8 payload and scales)
+    are all-gathered over data and the other ranks' rows scattered into
+    this rank's arena, so every arena holds every slot's blocks (a prefix hit, a fork or a migration reads blocks
     another slot wrote).  ``prefill_tail`` then puts at most ``n_slots /
     data`` runs in a call, all on the first data rank's rows, since a run
     reads the runs before it in the same call.  Prefill runs replicated
     over data.  ``warm()`` captures a data-only mesh's bodies; with tp or
     fsdp above 1 the collectives lie inside the body, which gloo cannot
     capture, so ``warm()`` raises ``WarmError`` before any capture and
-    every call runs its body eagerly (ROADMAP A.9 part 3)."""
+    every call runs its body eagerly."""
 
     def __init__(self, params: Dict, *, vocab_size: int, max_len: int,
                  d_model: int = 512, n_heads: int = 8, n_layers: int = 6,
@@ -645,11 +648,6 @@ class ContinuousDecodeEngine:
         # them, and whether the body holds collectives (tp, fsdp)
         self._rows, self._row0, self._eager = self.n_slots, 0, False
         if self._sharded:
-            if kv_dtype is not None and torch_dtype(kv_dtype) != self.cd:
-                raise NotImplementedError(
-                    f"a mesh-sharded engine keeps its arena in the compute "
-                    f"dtype; kv_dtype {kv_dtype!r} over a mesh is not "
-                    f"ported")
             from .mesh import DATA_AXIS, FSDP_AXIS, TP_AXIS
 
             data = mesh.axis(DATA_AXIS)
@@ -824,15 +822,28 @@ class ContinuousDecodeEngine:
         loc = sig.local
         sig.logits.copy_(comm.all_gather(loc["logits"], group, 0))
         sig.res.copy_(comm.all_gather(loc["res"], group, 0))
-        k = comm.all_gather(loc["k"], group, 1)
-        v = comm.all_gather(loc["v"], group, 1)
         a = sig.ins.t
+        W = loc["k"].shape[2]
         _, blk, off = paged_window_coords(a["tables"], a["pos0"],
-                                          a["limits"], k.shape[2],
-                                          self.block_size, self.pool.trash)
-        for i in range(k.shape[0]):
-            _attn.paged_cache_set_window(self.pool.k, i, blk, off, k[i])
-            _attn.paged_cache_set_window(self.pool.v, i, blk, off, v[i])
+                                          a["limits"], W, self.block_size,
+                                          self.pool.trash)
+        for arena, rows in ((self.pool.k, loc["k"]),
+                            (self.pool.v, loc["v"])):
+            if self.pool.quantized:
+                # the rows as the writer stored them: int8 payload and
+                # float32 scales, both gathered
+                q, sc = _attn.quantize_kv(rows)
+                q = comm.all_gather(q, group, 1)
+                sc = comm.all_gather(sc, group, 1)
+                for i in range(q.shape[0]):
+                    _attn.paged_cache_put_window(arena, i, blk, off, q[i],
+                                                 sc[i])
+            else:
+                rows = comm.all_gather(rows.to(_attn.pool_arena(
+                    arena).dtype), group, 1)
+                for i in range(rows.shape[0]):
+                    _attn.paged_cache_set_window(arena, i, blk, off,
+                                                 rows[i])
 
     # ------------------------------------------------------------- bodies
     @torch.no_grad()

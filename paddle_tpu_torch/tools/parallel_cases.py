@@ -170,6 +170,26 @@ def build_reduce_ops(fl, par):
     return loss, mx, mn, me
 
 
+def build_carry_grads(fl, par):
+    """h = fc(x [N, 6], 4); the loss adds the mean of ``cumsum`` over the
+    batch, 0.01 x the sum of ``matmul(h, h, transpose_x=True)`` and the
+    mean of ``sum_to_one_norm`` of a [None] vector times that vector,
+    SGD(0.1): (loss, cumsum, matmul), every op but fc and the means one
+    that mixes batch rows."""
+    L = fl.layers
+    x = L.data("x", [6])
+    h = L.fc(x, 4, act="sigmoid", param_attr=fl.ParamAttr(name="cg.w"),
+             bias_attr=fl.ParamAttr(name="cg.b"))
+    c = L.cumsum(h, axis=0)
+    m = L.matmul(h, h, transpose_x=True)
+    v = L.reduce_sum(h, dim=1)
+    s = L.sum_to_one_norm(v)
+    loss = L.sums([L.mean(c), L.scale(L.reduce_sum(m), 0.01),
+                   L.mean(L.elementwise_mul(s, v))])
+    fl.optimizer.SGD(0.1).minimize(loss)
+    return loss, c, m
+
+
 def build_moe(fl, par, capacity_factor=1.0, jitter=0.0):
     """fc-relu -> switch_moe (4 experts) -> fc, the cross entropy plus the
     aux loss, Adam: the reference's ``test_switch_moe_layer_trains_on_mesh``
@@ -190,6 +210,120 @@ def build_moe(fl, par, capacity_factor=1.0, jitter=0.0):
 
 def build_moe_jitter(fl, par):
     return build_moe(fl, par, capacity_factor=1.25, jitter=0.1)
+
+
+def _seq_data(fl, par, name, shape, dtype="float32"):
+    """A batch-major feed whose sequence (dim 1) the port shards over
+    ``sp`` (a ``SeqAxis``, as ``build_lm(use_sp=True)`` marks its feeds);
+    the JAX package's feeds carry no such mark."""
+    v = fl.layers.data(name, shape, dtype=dtype)
+    if hasattr(par, "SeqAxis"):
+        v.sharding = par.P(None, par.SeqAxis("sp"))
+    return v
+
+
+def build_moe_seq(fl, par, T=8, d=8, hidden=16, experts=4, d_ff=32,
+                  cf=1.0, classes=4):
+    """fc-relu -> switch_moe (4 experts, capacity 1.0: tokens dropped) ->
+    fc over x [N, T, d] whose sequence the port shards over sp: the cross
+    entropy per position plus the aux loss, Adam."""
+    x = _seq_data(fl, par, "x", [T, d])
+    lab = _seq_data(fl, par, "lab", [T, 1], "int32")
+    h = fl.layers.fc(x, hidden, num_flatten_dims=2, act="relu",
+                     param_attr=fl.ParamAttr(name="m.w"),
+                     bias_attr=fl.ParamAttr(name="m.b"))
+    y, aux = par.switch_moe(h, num_experts=experts, d_ff=d_ff,
+                            capacity_factor=cf)
+    logits = fl.layers.fc(y, classes, num_flatten_dims=2,
+                          param_attr=fl.ParamAttr(name="o.w"),
+                          bias_attr=fl.ParamAttr(name="o.b"))
+    loss = fl.layers.mean(fl.layers.softmax_with_cross_entropy(logits, lab)) \
+        + aux
+    fl.optimizer.Adam(1e-2).minimize(loss)
+    return loss, aux
+
+
+def build_tp_extras(fl, par, T=8, d=12, d_ff=16, vocab=8, p=0.25):
+    """x [N, T, d] (its sequence sharded over sp in the port) -> a
+    column-parallel fc to ``d_ff`` -> dropout ``p`` on the
+    tensor-parallel shard -> a row-parallel fc -> column-parallel logits
+    over ``vocab`` classes -> the soft-label cross entropy with
+    ``return_softmax`` (vocab-parallel under tp), SGD(0.1): (loss, the
+    dropout's output, the softmax)."""
+    L = fl.layers
+    x = _seq_data(fl, par, "x", [T, d])
+    soft = _seq_data(fl, par, "soft", [T, vocab])
+    h = par.tp.column_parallel_fc(x, d_ff, act="relu", num_flatten_dims=2,
+                                  param_attr=fl.ParamAttr(name="tx.c.w"),
+                                  bias_attr=fl.ParamAttr(name="tx.c.b"))
+    dr = L.dropout(h, p)
+    h2 = par.tp.row_parallel_fc(dr, d, num_flatten_dims=2,
+                                param_attr=fl.ParamAttr(name="tx.r.w"),
+                                bias_attr=fl.ParamAttr(name="tx.r.b"))
+    logits = par.tp.column_parallel_fc(
+        h2, vocab, num_flatten_dims=2,
+        param_attr=fl.ParamAttr(name="tx.o.w"),
+        bias_attr=fl.ParamAttr(name="tx.o.b"))
+    ce, sm = L.softmax_with_cross_entropy(logits, soft, soft_label=True,
+                                          return_softmax=True)
+    loss = L.mean(ce)
+    fl.optimizer.SGD(0.1).minimize(loss)
+    return loss, dr, sm
+
+
+def build_tp_mixing(fl, par):
+    """h = column_parallel_fc(x [N, 12], 16) (sharded on its last dim under
+    tp): ``softmax`` along that dim and ``reduce_sum`` over it, which
+    have no tensor-parallel form, SGD(0.1): (loss, the softmax, the
+    sum)."""
+    L = fl.layers
+    x = L.data("x", [12])
+    h = par.tp.column_parallel_fc(x, 16, act="tanh",
+                                  param_attr=fl.ParamAttr(name="tm.w"),
+                                  bias_attr=fl.ParamAttr(name="tm.b"))
+    sm = L.softmax(h)
+    r = L.reduce_sum(h, dim=-1)
+    loss = L.sums([L.mean(L.elementwise_mul(sm, sm)), L.mean(r)])
+    fl.optimizer.SGD(0.1).minimize(loss)
+    return loss, sm, r
+
+
+def build_seq_carry(fl, par):
+    """h = fc(x [N, 8, 4], 3) with x's sequence sharded over sp (the port):
+    reduce_sum over the batch keeping the sequence, cumsum along the
+    sequence, SGD(0.1): (loss, the sum, the cumsum), both carried by the
+    Strategy over a sharded sequence."""
+    L = fl.layers
+    x = _seq_data(fl, par, "x", [8, 4])
+    h = L.fc(x, 3, num_flatten_dims=2, act="tanh",
+             param_attr=fl.ParamAttr(name="sc.w"),
+             bias_attr=fl.ParamAttr(name="sc.b"))
+    r = L.reduce_sum(h, dim=0)
+    c = L.cumsum(h, axis=1)
+    loss = L.sums([L.mean(L.elementwise_mul(r, r)), L.mean(c)])
+    fl.optimizer.SGD(0.1).minimize(loss)
+    return loss, r, c
+
+
+def build_seq_ops(fl, par):
+    """h = fc(x [N, 8, 4], 4) with x's sequence sharded over sp (the port),
+    then three ops along the sequence that a layer declares (``Op.axes``)
+    and no attribute names: ``sequence_reverse`` within each length,
+    ``row_conv`` (2 steps of lookahead) and ``sequence_conv`` (a window of
+    3), SGD(0.1): (loss, the three outputs)."""
+    L = fl.layers
+    x = _seq_data(fl, par, "x", [8, 4])
+    ln = L.data("len", [], dtype="int32")
+    h = L.fc(x, 4, num_flatten_dims=2, act="tanh",
+             param_attr=fl.ParamAttr(name="so.w"),
+             bias_attr=fl.ParamAttr(name="so.b"))
+    r = L.sequence_reverse(h, ln)
+    c = L.row_conv(h, 2, param_attr=fl.ParamAttr(name="so.rc"))
+    v = L.sequence_conv(h, ln, 3, 3, param_attr=fl.ParamAttr(name="so.sc"),
+                        bias_attr=False)
+    loss = L.sums([L.mean(L.elementwise_mul(r, c)), L.mean(v)])
+    fl.optimizer.SGD(0.1).minimize(loss)
+    return loss, r, c, v
 
 
 def build_pipe(fl, par):
@@ -233,16 +367,20 @@ def build_conv_bn(fl, par):
 CTR_VOCABS = [50, 32, 8, 12]
 
 
-def build_ctr_tp(fl, par, P=None):
+def build_ctr_tp(fl, par, P=None, is_sparse=False, vocabs=None, emb_dim=4,
+                 hidden=(16, 8)):
     """wide_deep with every field table vocab-sharded over tp
-    (``shard_spec``), Adam.  ``P``: the package's PartitionSpec (default
+    (``shard_spec``), Adam; ``is_sparse`` routes the lookups through the
+    sparse engine's rule.  ``P``: the package's PartitionSpec (default
     ``par.P``; the JAX package's is ``jax.sharding.PartitionSpec``)."""
+    vocabs = list(vocabs or CTR_VOCABS)
     dense = fl.layers.data("dense", [13])
-    sparse = fl.layers.data("sparse", [len(CTR_VOCABS)], dtype="int32")
+    sparse = fl.layers.data("sparse", [len(vocabs)], dtype="int32")
     label = fl.layers.data("label", [1], dtype="int32")
-    loss, _ = fl.models.ctr.wide_deep(dense, sparse, label, vocabs=CTR_VOCABS,
-                                      emb_dim=4, hidden=(16, 8),
-                                      shard_spec=(P or par.P)("tp", None))
+    loss, _ = fl.models.ctr.wide_deep(dense, sparse, label, vocabs=vocabs,
+                                      emb_dim=emb_dim, hidden=hidden,
+                                      shard_spec=(P or par.P)("tp", None),
+                                      is_sparse=is_sparse)
     fl.optimizer.Adam(1e-2).minimize(loss)
     return loss
 
@@ -265,6 +403,18 @@ def build_lm(fl, par, use_tp=False, use_sp=False, sp_strategy="ring",
     return loss, logits
 
 
+def build_lm_metrics(fl, par, cfg=None, use_tp=False):
+    """The LM of ``build_lm`` fetching next-token ``accuracy`` of its
+    logits, with an ``Accuracy`` evaluator over them: (loss, accuracy,
+    the evaluator's rate, its correct and total counts).  ``use_tp``: the
+    tensor-parallel head, whose logits are sharded on the vocabulary."""
+    loss, logits = build_lm(fl, par, use_tp=use_tp, cfg=cfg)
+    labs = fl.default_main_program().global_block.vars["labs"]
+    acc = fl.layers.accuracy(logits, labs)
+    ev = fl.evaluator.Accuracy(logits, labs)
+    return loss, acc, ev.metric, ev.correct, ev.total
+
+
 BUILDERS = {"mlp": build_mlp, "megatron": build_megatron,
             "megatron_clip": build_megatron_clip, "vocab": build_vocab,
             "zero1": build_zero1, "zero1_packed": build_zero1_packed,
@@ -272,17 +422,24 @@ BUILDERS = {"mlp": build_mlp, "megatron": build_megatron,
             "dropout": build_dropout, "lm": build_lm,
             "mlp_sum": build_mlp_sum, "mlp_bn": build_mlp_bn,
             "reduce_ops": build_reduce_ops, "moe": build_moe,
+            "carry_grads": build_carry_grads, "moe_seq": build_moe_seq,
+            "seq_carry": build_seq_carry, "tp_extras": build_tp_extras,
+            "seq_ops": build_seq_ops,
+            "lm_metrics": build_lm_metrics, "tp_mixing": build_tp_mixing,
             "moe_jitter": build_moe_jitter, "pipe": build_pipe,
             "ctr_tp": build_ctr_tp, "conv_bn": build_conv_bn}
 
 
-def refusal_program(fl, which: str):
-    """A program holding one layer that mixes batch rows (ROADMAP C.13):
-    (its feeds at 4 rows).  ``which``: a layer (accuracy, auc, chunk_eval,
-    reduce_prod), an op along, into or out of the batch dim (cumsum and
-    argmax over dim 0, matmul with x transposed, matmul of a batch-major
-    y, gather and scatter of a batch-major x), or an evaluator (Accuracy,
-    ChunkEvaluator, PrecisionRecall, CTCError, DetectionMAP)."""
+def mixing_program(fl, which: str):
+    """A program holding one layer that mixes batch rows (ROADMAP C.13),
+    which a Strategy carries over a sharded batch: (its feeds at 4 rows,
+    the Variables to fetch).  ``which``: a layer (accuracy, auc,
+    chunk_eval, reduce_prod), an op along, into or out of the batch dim
+    (cumsum and argmax over dim 0, matmul with x transposed, matmul of a
+    batch-major y, gather and scatter of a batch-major x, sum_to_one_norm
+    of a [None] vector), or an evaluator (Accuracy, ChunkEvaluator,
+    PrecisionRecall, CTCError, DetectionMAP: its metric, when it has one,
+    and its states)."""
     L = fl.layers
     rng = np.random.RandomState(0)
     n, C, T = 4, 2, 5
@@ -297,43 +454,48 @@ def refusal_program(fl, which: str):
         feed.update(tags=rng.randint(-1, 4, (n, T)).astype("int32"),
                     gold=rng.randint(-1, 4, (n, T)).astype("int32"),
                     ln=np.full((n,), T, "int32"))
+    ev = out = None
     if which == "accuracy":
-        L.accuracy(p, lab)
+        out = L.accuracy(p, lab)
     elif which == "auc":
-        L.auc(p, lab)
+        out = L.auc(p, lab)
     elif which == "chunk_eval":
-        L.chunk_eval(tags, gold, ln)
+        out = L.chunk_eval(tags, gold, ln)
     elif which == "reduce_prod":
-        L.reduce_prod(p)
+        out = L.reduce_prod(p)
     elif which == "cumsum":
-        L.cumsum(p, axis=0)
+        out = L.cumsum(p, axis=0)
     elif which == "argmax":
-        L.argmax(p, axis=0)
+        out = L.argmax(p, axis=0)
     elif which == "matmul_tx":
-        L.matmul(p, p, transpose_x=True)
+        out = L.matmul(p, p, transpose_x=True)
     elif which == "matmul_y":
         q = L.data("q", [3, -1], append_batch_size=False)
         feed["q"] = rng.rand(3, n).astype("float32")
-        L.matmul(q, p)
+        out = L.matmul(q, p)
     elif which in ("gather", "scatter"):
         idx = L.data("idx", [], dtype="int32")
         feed["idx"] = np.array([3, 0, 1, 1], "int32")
         if which == "gather":
-            L.gather(p, idx)
+            out = L.gather(p, idx)
         else:
-            L.scatter(p, idx, p)
+            out = L.scatter(p, idx, p)
+    elif which == "sum_to_one_norm":
+        v = L.data("v", [])
+        feed["v"] = rng.rand(n).astype("float32") + 0.1
+        out = L.sum_to_one_norm(v)
     elif which == "Accuracy":
-        fl.evaluator.Accuracy(p, lab)
+        ev = fl.evaluator.Accuracy(p, lab)
     elif which == "PrecisionRecall":
-        fl.evaluator.PrecisionRecall(p, lab, num_classes=C)
+        ev = fl.evaluator.PrecisionRecall(p, lab, num_classes=C)
     elif which == "ChunkEvaluator":
-        fl.evaluator.ChunkEvaluator(tags, gold, ln)
+        ev = fl.evaluator.ChunkEvaluator(tags, gold, ln)
     elif which == "CTCError":
         x = L.data("x", [T, C])
         y = L.data("y", [2], dtype="int32")
         feed.update(x=rng.randn(n, T, C).astype("float32"),
                     y=rng.randint(1, C, (n, 2)).astype("int32"))
-        fl.evaluator.CTCError(x, y, ln, L.data("yl", [], dtype="int32"))
+        ev = fl.evaluator.CTCError(x, y, ln, L.data("yl", [], dtype="int32"))
         feed["yl"] = np.full((n,), 2, "int32")
     elif which == "DetectionMAP":
         K, G = 3, 2
@@ -347,16 +509,19 @@ def refusal_program(fl, which: str):
                     dl=rng.randint(1, C, (n, K)).astype("int32"),
                     gb=rng.rand(n, G, 4).astype("float32"),
                     gl=rng.randint(1, C, (n, G)).astype("int32"))
-        fl.evaluator.DetectionMAP(db, ds, dl, gb, gl, num_classes=C)
+        ev = fl.evaluator.DetectionMAP(db, ds, dl, gb, gl, num_classes=C)
     else:
         raise ValueError(which)
-    return feed
+    if ev is not None:
+        out = ([ev.metric] if getattr(ev, "metric", None) is not None
+               else []) + list(ev._states)
+    return feed, list(out) if isinstance(out, (list, tuple)) else [out]
 
 
-REFUSALS = ("accuracy", "auc", "chunk_eval", "reduce_prod", "cumsum",
-            "argmax", "matmul_tx", "matmul_y", "gather", "scatter",
-            "Accuracy", "PrecisionRecall", "ChunkEvaluator", "CTCError",
-            "DetectionMAP")
+MIXING = ("accuracy", "auc", "chunk_eval", "reduce_prod", "cumsum",
+          "argmax", "matmul_tx", "matmul_y", "gather", "scatter",
+          "Accuracy", "PrecisionRecall", "ChunkEvaluator", "CTCError",
+          "DetectionMAP")
 
 
 def fetch_names(built, fetch) -> list:
@@ -383,7 +548,9 @@ def program_case(spec: dict) -> dict:
     ``spec["feeds"]`` (one feed dict per step) under a Strategy on
     ``spec["mesh"]`` (None: unsharded), fetching the loss and
     ``spec["fetch"]`` (names, ``"$i"`` the builder's i-th output) each
-    step.  Returns the fetches, the gathered final state of
+    step (through ``DeviceFeeder(sharding=strategy)`` with
+    ``spec["feeder"]``).  Returns the fetches, each step's feeds as the
+    Executor took them (type and shape), the gathered final state of
     ``spec.get("state", [])`` names and, under ZeRO-1, the coverage dict
     and the local shapes."""
     fluid = _fresh()
@@ -411,11 +578,18 @@ def program_case(spec: dict) -> dict:
                          strategy=strategy)
     scope.step_counter = spec.get("step_counter", 0)
     fetch = [loss.name] + fetch_names(out, spec.get("fetch", []))
-    steps = []
-    for feed in spec["feeds"]:
+    feeds = spec["feeds"]
+    if spec.get("feeder"):
+        # each rank stages only its part of every batch
+        feeds = fluid.DeviceFeeder(lambda: iter(spec["feeds"]),
+                                   sharding=strategy, device=exe.device)
+    steps, staged = [], []
+    for feed in feeds:
+        staged.append({n: (type(feed).__name__, tuple(v.shape))
+                       for n, v in feed.items()})
         steps.append([np.asarray(v) for v in exe.run(feed=feed,
                                                      fetch_list=fetch)])
-    res = {"steps": steps}
+    res = {"steps": steps, "staged": staged}
     names = spec.get("state", [])
     if names:
         res["state"] = fluid.gather_scope(main, scope, strategy, names)
@@ -753,13 +927,15 @@ def table_case(spec: dict) -> dict:
 
 
 def c13_case(spec: dict) -> dict:
-    """``program_case`` with the batch-norm kernels' launches of its steps
-    (the counters set to 0 before it)."""
+    """``program_case`` with the batch-norm and dropout kernels' launches
+    of its steps (the counters set to 0 before it)."""
     from ..ops.batch_norm import batch_norm_train
+    from ..ops.dropout import threefry_dropout
 
     _zero_counters()
     res = program_case(spec)
     res["bn"] = dict(batch_norm_train.launches)
+    res["dropout"] = dict(threefry_dropout.launches)
     return res
 
 
@@ -786,37 +962,42 @@ def ppep_case(spec: dict) -> dict:
             "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
 
 
-def refusal_case(spec: dict) -> dict:
-    """Each program of ``refusal_program`` (``spec["which"]``) run under a
-    Strategy on ``spec["mesh"]``: the NotImplementedError's message (None
-    when it ran) and the scope's step counter after the attempt (0: no op
-    of the step ran)."""
+def mixing_case(spec: dict) -> dict:
+    """Each program of ``mixing_program`` (``spec["which"]``) run two steps
+    on its feed under a Strategy on ``spec["mesh"]`` (None: unsharded):
+    the fetches of each step, or the error raised, and the ops the
+    Strategy's plan carried (their types)."""
     from paddle_tpu_torch import parallel
     from paddle_tpu_torch.core.types import Place
 
     out = {}
     for which in spec["which"]:
         fluid = _fresh()
-        feed = refusal_program(fluid, which)
-        mesh = parallel.make_mesh(spec["mesh"])
-        if not mesh.in_mesh:
-            return {"idle": True}
+        feed, fetch = mixing_program(fluid, which)
+        strategy = None
+        if spec.get("mesh") is not None:
+            mesh = parallel.make_mesh(spec["mesh"])
+            if not mesh.in_mesh:
+                return {"idle": True}
+            strategy = parallel.Strategy(mesh)
         exe = fluid.Executor(Place("cpu") if spec.get("device", "cpu")
-                             == "cpu" else None,
-                             strategy=parallel.Strategy(mesh))
+                             == "cpu" else None, strategy=strategy)
         exe.run(fluid.default_startup_program())
-        scope = fluid.global_scope()
-        scope.step_counter = 0
+        main = fluid.default_main_program()
         try:
-            exe.run(feed=feed, fetch_list=[])
+            steps = [exe.run(feed=feed, fetch_list=fetch) for _ in range(2)]
             err = None
-        except NotImplementedError as exc:
-            err = str(exc)
-        out[which] = {"error": err, "step_counter": scope.step_counter}
+        except (NotImplementedError, ValueError) as exc:
+            steps, err = None, str(exc)
+        carried = []
+        if strategy is not None:
+            for plan in strategy._plans.get(main, {}).values():
+                carried += sorted(op.type for op, _ in (plan or {}).values())
+        out[which] = {"steps": steps, "error": err, "carried": carried}
     return out
 
 
-KINDS = {"c13": c13_case, "ppep": ppep_case, "table": table_case, "serve": serve_case, "gpipe": gpipe_case, "refusal": refusal_case, "program": program_case, "attention": attention_case,
+KINDS = {"c13": c13_case, "ppep": ppep_case, "table": table_case, "serve": serve_case, "gpipe": gpipe_case, "mixing": mixing_case, "program": program_case, "attention": attention_case,
          "collectives": collectives_case, "lm_leg": lm_leg_case}
 
 

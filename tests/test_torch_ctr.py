@@ -235,23 +235,39 @@ def test_models_export_ctr_and_its_names():
 
 
 def test_shard_spec_raises_and_names_a9():
-    dense = tfluid.layers.data("dense", [13])
-    sparse = tfluid.layers.data("sparse", [len(VOCABS)], dtype="int32")
-    label = tfluid.layers.data("label", [1], dtype="int32")
-    # shard_spec puts the spec on every field table (the vocab-parallel
-    # lookup under a Strategy: tests/test_torch_serving_mesh.py); the
-    # sparse engine's lookup on a sharded table is ROADMAP A.9 part 3
-    tfluid.models.ctr.wide_deep(dense, sparse, label, vocabs=VOCABS,
-                                shard_spec=tfluid.parallel.P("tp", None))
-    tables = [v for v in tfluid.default_main_program().parameters()
-              if "_emb_" in v.name]
-    assert len(tables) == 2 * len(VOCABS)
-    assert all(tuple(v.sharding) == ("tp", None) for v in tables)
-    tfluid.reset_default_programs()
-    dense = tfluid.layers.data("dense", [13])
-    sparse = tfluid.layers.data("sparse", [len(VOCABS)], dtype="int32")
-    label = tfluid.layers.data("label", [1], dtype="int32")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tfluid.models.ctr.wide_deep(dense, sparse, label, vocabs=VOCABS,
-                                    shard_spec=tfluid.parallel.P("tp", None),
-                                    is_sparse=True)
+    """``shard_spec`` puts the spec on every field table (the vocab-parallel
+    lookup under a Strategy: tests/test_torch_serving_mesh.py, which holds
+    both lookups on {dp 2, tp 2} against JAX).  ``is_sparse=True`` on
+    such tables, once refused, builds too: without a mesh its step is
+    bitwise the dense step from the same weights (loss and every
+    gradient)."""
+    feed = _batch(24)
+    outs = {}
+    for is_sparse in (False, True):
+        tfluid.reset_default_programs()
+        dense = tfluid.layers.data("dense", [13])
+        sparse = tfluid.layers.data("sparse", [len(VOCABS)], dtype="int32")
+        label = tfluid.layers.data("label", [1], dtype="int32")
+        loss, _ = tfluid.models.ctr.wide_deep(
+            dense, sparse, label, vocabs=VOCABS,
+            shard_spec=tfluid.parallel.P("tp", None), is_sparse=is_sparse)
+        main = tfluid.default_main_program()
+        tables = [v for v in main.parameters() if "_emb_" in v.name]
+        assert len(tables) == 2 * len(VOCABS)
+        assert all(tuple(v.sharding) == ("tp", None) for v in tables)
+        assert all(op.attrs.get("is_sparse") == is_sparse
+                   for op in main.list_ops() if op.type == "embedding")
+        tfluid.optimizer.SGD(0.1).minimize(loss)
+        exe = tfluid.Executor(CPU)
+        scope = tfluid.Scope()
+        exe.run(tfluid.default_startup_program(), scope=scope)
+        if is_sparse:
+            tfluid.load_scope(outs["w"], main, scope, device="cpu")
+        else:
+            outs["w"] = {p.name: scope.find_var(p.name).numpy().copy()
+                         for p in main.parameters()}
+        names = [loss.name] + [p.name + "@GRAD" for p in main.parameters()]
+        outs[is_sparse] = exe.run(main, feed=feed, fetch_list=names,
+                                  scope=scope)
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a, b)

@@ -16,7 +16,16 @@ before the experts, and the final state, within 1e-5 of their max abs);
 rank), the output and the gradients of w, b and x against ``jax.grad`` of
 the sequential fold (rtol 1e-4, atol 1e-5; gradients 1e-5 of max abs);
 ``pipeline_fc_stack`` training on {pp 2, dp 2} (three SGD steps, limits
-as for the MoE)."""
+as for the MoE); ``switch_moe`` over an input whose sequence the port
+shards on {sp 2, ep 2} (routing, capacity and drops those of the whole
+sequence), and a ``reduce_sum`` over the batch keeping a sharded
+sequence beside a ``cumsum`` along it on {dp 2, sp 2} (both run by the
+Strategy's Carrier), and ``sequence_reverse``, ``row_conv`` and
+``sequence_conv`` of a sequence the port shards on {sp 2} (ops along dim
+1 with no attribute naming it; the Carrier gathers the sequence), at the
+MoE's limits (the carried values, float32 sums in another order, within
+1e-5 of their max abs), against JAX on one device and on the same mesh
+(JAX shards no sequence)."""
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -167,6 +176,13 @@ PROGRAMS = {
                 fetch=["$1"] + [n + "@GRAD" for n in MOE_GRADS]),
     "moe_jitter": dict(mesh={"dp": 2, "ep": 2}, feed=("x", 8, 4),
                        fetch=["$1"] + [n + "@GRAD" for n in MOE_GRADS]),
+    "moe_seq": dict(mesh={"sp": 2, "ep": 2}, feed=("x", (8, 8), 4),
+                    fetch=["$1"] + [n + "@GRAD" for n in MOE_GRADS]),
+    "seq_carry": dict(mesh={"dp": 2, "sp": 2}, feed=("x", (8, 4), None),
+                      fetch=["$1", "$2", "sc.w@GRAD", "sc.b@GRAD"]),
+    "seq_ops": dict(mesh={"sp": 2}, feed=("x", (8, 4), None),
+                    fetch=["$1", "$2", "$3", "so.w@GRAD", "so.rc@GRAD",
+                           "so.sc@GRAD"]),
     "pipe": dict(mesh={"pp": 2, "dp": 2}, feed=("x", 16, 3),
                  fetch=["pipeline_fc_stack_w_0@GRAD",
                         "pipeline_fc_stack_b_0@GRAD"]),
@@ -207,10 +223,20 @@ def gang():
     for case, c in PROGRAMS.items():
         name, dim, classes = c["feed"]
         rng = np.random.RandomState(5)
-        feed = {name: rng.randn(16, dim).astype("float32") if case != "pipe"
-                else rng.randn(8, dim).astype("float32"),
-                "lab": rng.randint(0, classes, (16 if case != "pipe" else 8,
-                                                1)).astype("int32")}
+        if isinstance(dim, tuple):
+            # a sequence feed [N, T, d] (with per-position labels)
+            feed = {name: rng.randn(8, *dim).astype("float32")}
+            if classes:
+                feed["lab"] = rng.randint(0, classes, (8, dim[0], 1)
+                                          ).astype("int32")
+            if case == "seq_ops":
+                feed["len"] = rng.randint(1, dim[0] + 1, 8).astype("int32")
+        else:
+            feed = {name: rng.randn(16, dim).astype("float32")
+                    if case != "pipe" else rng.randn(8, dim).astype(
+                        "float32"),
+                    "lab": rng.randint(0, classes, (
+                        16 if case != "pipe" else 8, 1)).astype("int32")}
         init, state = jax_run(case, [], [])[0], None
         state = sorted(init)
         specs[case] = dict(kind="program", build=case, init=init,
@@ -223,6 +249,7 @@ def gang():
                     for arm, mesh in (("single", None), ("mesh", c["mesh"]))}
 
         jobs[case] = job
+    specs["seq_carry_feeder"] = dict(specs["seq_carry"], feeder=True)
     for case in GPIPE:
         specs["gpipe_" + case] = _gpipe_spec(case)
         jobs["gpipe_" + case] = lambda s=specs["gpipe_" + case]: _gpipe_ref(s)
@@ -235,7 +262,8 @@ def gang():
 
 
 @pytest.mark.parametrize("arm", ["single", "mesh"])
-@pytest.mark.parametrize("case", ["moe", "moe_jitter", "pipe"])
+@pytest.mark.parametrize("case", ["moe", "moe_jitter", "moe_seq",
+                                  "seq_carry", "seq_ops", "pipe"])
 def test_program_on_mesh_matches_jax(gang, case, arm):
     refs, got = gang
     steps, fin = refs[case][arm]
@@ -244,7 +272,8 @@ def test_program_on_mesh_matches_jax(gang, case, arm):
         np.testing.assert_allclose(np.ravel(gs[0]), np.ravel(rs[0]),
                                    rtol=1e-5)
         for name, a, b in zip(PROGRAMS[case]["fetch"], gs[1:], rs[1:]):
-            if name.startswith("$"):
+            if name.startswith("$") and case not in ("seq_carry",
+                                                     "seq_ops"):
                 np.testing.assert_allclose(np.ravel(a), np.ravel(b),
                                            rtol=1e-5, err_msg=name)
             else:
@@ -264,3 +293,18 @@ def test_gpipe_on_mesh_matches_jax_grad_of_the_fold(gang, case):
     pp = mesh["pp"]
     # one shift a tick but the last, forward and backward
     assert g["shifts"] == 2 * (m + pp - 2)
+
+
+def test_device_feeder_uploads_the_rank_sequence_slice(gang):
+    """``DeviceFeeder(sharding=strategy)`` on {dp 2, sp 2}: a rank stages
+    its 4 rows and its 4 of the 8 positions of x, and the three steps of
+    ``seq_carry`` are bitwise those of the same feeds given whole."""
+    _, got = gang
+    fed, whole = got["seq_carry_feeder"], got["seq_carry"]
+    for staged in fed["staged"]:
+        assert staged == {"x": ("LocalFeed", (4, 4, 4))}
+    for a, b in zip(fed["steps"], whole["steps"]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for n, v in whole["state"].items():
+        np.testing.assert_array_equal(fed["state"][n], v)

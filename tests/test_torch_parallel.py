@@ -6,9 +6,11 @@ vocab-parallel embedding (against the JAX package's Strategy on the
 conftest's 8-device CPU mesh, from the same numpy weights and feeds),
 and the Transformer LM's tensor-parallel head and vocab-parallel cross
 entropy at tp = 2 and tp = 4 (loss, logits and the ``tok_emb`` gradient
-against the JAX package's single-device step).  Limits: losses and values
-within rtol 1e-5, weights within 1e-5 and gradients within 1e-4 of their
-max abs."""
+against the JAX package's single-device step); ops along a tp-sharded dim
+on {dp 2, tp 2} and on {tp 2} alone, and the LM's next-token accuracy and
+``Accuracy`` evaluator over its vocab-sharded head on {dp 2, tp 2}
+(exactly JAX's).  Limits: losses and values within rtol 1e-5, weights
+within 1e-5 and gradients within 1e-4 of their max abs."""
 import math
 from concurrent.futures import ThreadPoolExecutor
 
@@ -28,7 +30,7 @@ RANKS = 4
 
 
 def jax_run(build, feeds, fetch=(), mesh=None, data_axis="dp", init=None,
-            state=(), kw=None):
+            state=(), kw=None, step_counter=None):
     jfluid.reset_default_programs()
     jfluid.reset_global_scope()
     out = pc.BUILDERS[build](jfluid, jpar, **(kw or {}))
@@ -47,6 +49,8 @@ def jax_run(build, feeds, fetch=(), mesh=None, data_axis="dp", init=None,
     else:
         for n, a in init.items():
             scope.set_var(n, jnp.asarray(a))
+    if step_counter is not None:
+        scope.step_counter = step_counter
     names = [loss.name] + pc.fetch_names(out, fetch)
     steps = [[np.asarray(v) for v in exe.run(feed=f, fetch_list=names)]
              for f in feeds]
@@ -212,6 +216,14 @@ def _lm_feed(seed=3, n=4):
 
 LM_MESHES = {"lm_tp2": {"dp": 2, "tp": 2}, "lm_tp4": {"tp": 4},
              "lm_tp2_untied": {"dp": 2, "tp": 2}}
+# dropout on a tp shard (the one-level counter map under {dp 2, tp 2}, the
+# two-level one inside a sequence slice under {sp 2, tp 2}) and the
+# soft-label vocab-parallel cross entropy with its softmax
+TP_EXTRAS = {"tp_extras_dp2_tp2": {"dp": 2, "tp": 2},
+             "tp_extras_sp2_tp2": {"sp": 2, "tp": 2}}
+TP_FETCH = ["$1", "$2", "tx.c.w@GRAD", "tx.r.w@GRAD", "tx.o.w@GRAD"]
+TM_FETCH = ["$1", "$2", "tm.w@GRAD", "tm.b@GRAD"]
+LM_FETCH = ["$1", "$2", "$3", "$4"]
 
 
 @pytest.fixture(scope="module")
@@ -265,6 +277,37 @@ def gang():
             lambda init=init, kw=kw: {"steps": jax_run(
                 "lm", [feed], fetch=fetch, kw=kw, init=init)[1]}
 
+    rng = np.random.RandomState(4)
+    feeds = [{"x": rng.randn(4, 8, 12).astype("float32"),
+              "soft": rng.rand(4, 8, 8).astype("float32")}] * 2
+    init = jax_run("tp_extras", [])[0]
+    for case, mesh in TP_EXTRAS.items():
+        specs[case] = dict(kind="program", build="tp_extras", init=init,
+                           feeds=feeds, fetch=TP_FETCH, mesh=mesh,
+                           step_counter=5)
+    jobs["tp_extras"] = lambda init=init, feeds=feeds: {"steps": jax_run(
+        "tp_extras", feeds, fetch=TP_FETCH, init=init, step_counter=5)[1]}
+
+    rng = np.random.RandomState(5)
+    feeds = [{"x": rng.randn(8, 12).astype("float32")}] * 2
+    init = jax_run("tp_mixing", [])[0]
+    specs["tp_mixing"] = dict(kind="program", build="tp_mixing", init=init,
+                              feeds=feeds, fetch=TM_FETCH,
+                              mesh={"dp": 2, "tp": 2})
+    specs["tp_mixing_tp2"] = dict(specs["tp_mixing"], mesh={"tp": 2})
+    jobs["tp_mixing"] = lambda init=init, feeds=feeds: {"steps": jax_run(
+        "tp_mixing", feeds, fetch=TM_FETCH, init=init)[1]}
+
+    kw = {"use_tp": True}
+    init = jax_run("lm_metrics", [], kw=kw)[0]
+    feeds = [_lm_feed(6), _lm_feed(7)]
+    specs["lm_metrics_tp"] = dict(kind="program", build="lm_metrics", kw=kw,
+                                  init=init, feeds=feeds, fetch=LM_FETCH,
+                                  mesh={"dp": 2, "tp": 2})
+    jobs["lm_metrics_tp"] = lambda init=init, feeds=feeds: {
+        "steps": jax_run("lm_metrics", feeds, fetch=LM_FETCH, kw=kw,
+                         init=init)[1]}
+
     with ThreadPoolExecutor(1) as pool:
         fut = pool.submit(distributed.spawn, pc.run_cases, RANKS, specs,
                           True, device="cpu", timeout_s=300)
@@ -273,6 +316,8 @@ def gang():
     for case in LM_MESHES:
         refs[case] = refs["lm_untied" if case.endswith("untied")
                           else "lm_tied"]
+    for case in TP_EXTRAS:
+        refs[case] = refs["tp_extras"]
     return refs, got
 
 
@@ -336,3 +381,67 @@ def test_lm_tensor_parallel_head_matches_jax_single_device(gang, case):
         _close(g[1], want[1], 1e-5)          # logits
         for gg, ww in zip(g[2:], want[2:]):  # gradients
             _close(gg, ww, 1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(TP_EXTRAS))
+def test_tp_dropout_and_soft_label_vocab_loss_match_jax(gang, case):
+    """Two SGD steps at step counter 5 on every rank against the JAX
+    package's unsharded steps: the dropout mask on the tensor-parallel
+    shard bitwise (its values within 1e-5 of max abs), the loss (rtol
+    1e-5), the softmax gathered whole (1e-5 of max abs) and the
+    gradients of the three tensor-parallel weights (1e-5 of max abs)."""
+    refs, got = gang
+    for res in got:
+        for g, w in zip(res[case]["steps"], refs[case]["steps"]):
+            np.testing.assert_allclose(g[0], w[0], rtol=1e-5)
+            assert np.array_equal(g[1] == 0, w[1] == 0), "dropout mask"
+            assert 0 < (w[1] == 0).mean() < 1
+            for gg, ww in zip(g[1:], w[1:]):
+                _close(gg, ww, 1e-5)
+
+
+def test_ops_along_a_tp_sharded_dim_match_jax(gang):
+    """``softmax`` along, and ``reduce_sum`` over, the last dim of a
+    column-parallel output on {dp 2, tp 2}: the Strategy's carrier
+    gathers that dim over tp (and the rows over dp), so every rank gets
+    JAX's whole-tensor values; two SGD steps against the JAX package's
+    unsharded ones (loss rtol 1e-5; the softmax, the sum and the
+    gradients of the sharded weight and bias within 1e-5 of max abs)."""
+    refs, got = gang
+    for res in got:
+        for g, w in zip(res["tp_mixing"]["steps"],
+                        refs["tp_mixing"]["steps"]):
+            np.testing.assert_allclose(g[0], w[0], rtol=1e-5)
+            for gg, ww in zip(g[1:], w[1:]):
+                _close(gg, ww, 1e-5)
+
+
+def test_ops_along_a_tp_sharded_dim_on_a_tp_only_mesh_match_jax(gang):
+    """The same program on {tp 2} (no data axis, no sharded sequence: the
+    Strategy plans the carried ops for the model axis alone), at the same
+    limits."""
+    refs, got = gang
+    for res in got[:2]:
+        for g, w in zip(res["tp_mixing_tp2"]["steps"],
+                        refs["tp_mixing"]["steps"]):
+            np.testing.assert_allclose(g[0], w[0], rtol=1e-5)
+            for gg, ww in zip(g[1:], w[1:]):
+                _close(gg, ww, 1e-5)
+
+
+def test_lm_accuracy_over_a_vocab_sharded_head_matches_jax(gang):
+    """The tiny LM with the tensor-parallel head (logits sharded on the
+    vocabulary) fetching next-token ``accuracy`` with an ``Accuracy``
+    evaluator, two Adam steps on {dp 2, tp 2}: the top-1 test runs over
+    the whole vocabulary (the Carrier gathers it over tp and the rows
+    over dp), so the accuracy, the evaluator's rate and its counts are
+    exactly the JAX package's unsharded ones, the losses within rtol
+    1e-5."""
+    refs, got = gang
+    for res in got:
+        for g, w in zip(res["lm_metrics_tp"]["steps"],
+                        refs["lm_metrics_tp"]["steps"]):
+            np.testing.assert_allclose(g[0], w[0], rtol=1e-5)
+            for gg, ww in zip(g[1:], w[1:]):
+                np.testing.assert_array_equal(gg, ww)
+    assert float(got[0]["lm_metrics_tp"]["steps"][1][4][0]) == 2 * 4

@@ -22,9 +22,13 @@ slots, block 8):
 * ``ShardedEmbeddingTable(mesh=)`` over {fsdp 2} and {fsdp 2, tp 2}:
   lookup and row-touched apply bitwise the unsharded table;
 * ctr's wide_deep with every field table vocab-sharded over tp
-  (``shard_spec``) on {dp 2, tp 2}: two Adam steps against the JAX
-  package on one device, losses rtol 1e-5, parameters within 1e-5 of
-  their max abs."""
+  (``shard_spec``) on {dp 2, tp 2}, dense and ``is_sparse=True``: two Adam
+  steps against the JAX package on one device, losses rtol 1e-5,
+  parameters within 1e-5 of their max abs;
+* ``kv_dtype="int8"`` on {data 2, tp 2} (logits against the JAX int8 mesh
+  engine and the single int8 engine at rtol = atol = 2e-5, streams at the
+  0.98 floor) and ``kv_dtype="bfloat16"`` on {data 4} (streams equal to
+  the single bf16 engine's, logits within 2e-5)."""
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -52,6 +56,10 @@ RANKS = 4
 LM_KW = dict(vocab_size=200, max_len=48, d_model=64, n_heads=4, n_layers=2,
              d_ff=128, n_slots=8, block_size=8, prompt_buckets=(16,))
 TABLE_IDS = np.array([[1, 2], [5, 2], [0, 3], [7, 6]], dtype=np.int64)
+# a kv_dtype other than the compute dtype on a serving mesh: the int8 pool
+# (payload and scales) with heads over tp and rows over data, and bf16 K/V
+# under float32 compute over data
+KV_MESHES = {"data=2,tp=2": "int8", "data=4": "bfloat16"}
 
 
 @pytest.fixture(autouse=True)
@@ -168,10 +176,10 @@ def test_one_device_mesh_is_bitwise_the_unsharded_engine():
 # ------------------------------------------------------------ the gang
 
 
-def jax_ctr_run(feeds, init=None, state=()):
+def jax_ctr_run(feeds, init=None, state=(), is_sparse=False):
     jfluid.reset_default_programs()
     jfluid.reset_global_scope()
-    loss = pc.build_ctr_tp(jfluid, jpar, P=JP)
+    loss = pc.build_ctr_tp(jfluid, jpar, P=JP, is_sparse=is_sparse)
     exe = jfluid.Executor()
     exe.run(jfluid.default_startup_program())
     scope = jfluid.global_scope()
@@ -210,6 +218,19 @@ def gang():
     specs["ctr_tp"] = dict(kind="program", build="ctr_tp", init=init,
                            feeds=[feed] * 2, mesh={"dp": 2, "tp": 2},
                            state=sorted(init))
+    # the sparse engine's lookup on the vocab-sharded tables, with ids
+    # past every field's vocabulary and below 0 (clamped forward, dropped
+    # from the table cotangent)
+    sfeed = dict(feed, sparse=feed["sparse"].copy())
+    sfeed["sparse"][0] = [-1, 40, 9, 99]
+    specs["ctr_tp_sparse"] = dict(kind="program", build="ctr_tp",
+                                  kw={"is_sparse": True}, init=init,
+                                  feeds=[sfeed] * 2, mesh={"dp": 2, "tp": 2},
+                                  state=sorted(init))
+    for m, kv in KV_MESHES.items():
+        specs[f"{kv} {m}"] = dict(kind="serve", mesh=m, params=params,
+                                  cfg=dict(LM_KW, kv_dtype=kv), n_req=8,
+                                  max_gen=10)
 
     def refs():
         out = {}
@@ -225,6 +246,18 @@ def gang():
             out["table " + m] = pc.table_case(dict(
                 mesh=None, vocabs=[8, 8], ids=TABLE_IDS))
         out["ctr_tp"] = jax_ctr_run([feed] * 2, init, sorted(init))[1:]
+        out["ctr_tp_sparse"] = jax_ctr_run([sfeed] * 2, init, sorted(init),
+                                           is_sparse=True)[1:]
+        for m, kv in KV_MESHES.items():
+            eng = ContinuousDecodeEngine(params, device="cpu", kv_dtype=kv,
+                                         **LM_KW)
+            out[kv + " probe"] = eng.step_logits(*pc.probe_inputs(eng))
+            out[kv + " streams"] = pc.drive_scheduler(eng, 8, 10)[0]
+        jeng = JEngine(params, mesh=j_make("data=2,tp=2",
+                                           devices=jax.devices()[:4]),
+                       kv_dtype="int8", **LM_KW)
+        out["jax int8 probe"] = np.asarray(jeng.step_logits(
+            *pc.probe_inputs(jeng)))
         return out
 
     with ThreadPoolExecutor(1) as pool:
@@ -278,10 +311,13 @@ def test_sharded_table_is_bitwise_the_unsharded_one(gang, mesh):
     assert '"spec": [' in g["describe"]
 
 
-def test_ctr_shard_spec_on_tp_matches_jax(gang):
+@pytest.mark.parametrize("case", ["ctr_tp", "ctr_tp_sparse"])
+def test_ctr_shard_spec_on_tp_matches_jax(gang, case):
+    """Dense lookups, and ``is_sparse=True`` (the sparse engine's rule on
+    each rank's rows; out-of-range ids in the feed)."""
     want, got = gang
-    steps, fin = want["ctr_tp"]
-    g = got["ctr_tp"]
+    steps, fin = want[case]
+    g = got[case]
     np.testing.assert_allclose([float(np.ravel(s[0])[0]) for s in g["steps"]],
                                [float(np.ravel(s[0])[0]) for s in steps],
                                rtol=1e-5)
@@ -289,3 +325,37 @@ def test_ctr_shard_spec_on_tp_matches_jax(gang):
         a = np.asarray(g["state"][n], np.float64).reshape(np.shape(w))
         assert np.abs(a - w).max() <= 1e-5 * max(float(np.abs(w).max()),
                                                  1e-30), n
+
+
+def test_int8_pool_on_data_tp_mesh_matches_jax_and_the_single_engine(gang):
+    """kv_dtype="int8" on {data 2, tp 2}: 2 heads a rank in payload and
+    scale plane, the step logits within rtol = atol = 2e-5 of the JAX
+    package's int8 mesh engine and of the port's single int8 engine, the
+    greedy streams matching the single int8 engine at the floor of 0.98 of
+    the tokens, no leaked block."""
+    want, got = gang
+    g = got["int8 data=2,tp=2"]
+    assert g["pool_heads"] == 2 and g["rows"] == LM_KW["n_slots"] // 2
+    np.testing.assert_allclose(g["logits"], want["jax int8 probe"],
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(g["logits"], want["int8 probe"], rtol=2e-5,
+                               atol=2e-5)
+    hits = sum(int(np.sum(a == b)) for a, b in zip(g["streams"],
+                                                   want["int8 streams"]))
+    assert hits >= 0.98 * sum(b.size for b in want["int8 streams"])
+    _no_leak(g["blocks"])
+
+
+def test_bf16_kv_on_data_mesh_streams_equal_the_single_engine(gang):
+    """bf16 K/V under float32 compute on {data 4}: the rows gathered in
+    the pool's dtype, the step logits within rtol = atol = 2e-5 of the
+    single bf16 engine's (a rank's matmuls run 2 rows, not 8) and the
+    streams its own, token for token."""
+    want, got = gang
+    g = got["bfloat16 data=4"]
+    assert isinstance(g["warm"], int) and g["warm"] > 0
+    np.testing.assert_allclose(g["logits"], want["bfloat16 probe"],
+                               rtol=2e-5, atol=2e-5)
+    for a, b in zip(g["streams"], want["bfloat16 streams"]):
+        assert np.array_equal(a, b)
+    _no_leak(g["blocks"])

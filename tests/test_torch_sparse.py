@@ -375,12 +375,60 @@ def test_device_feeder_stop_intake_and_close():
     rest = list(it)
     assert 1 <= len(rest) <= 3                   # the staged tail only
     assert iter(feeder) is it
-    with pytest.raises(NotImplementedError, match="A.9"):
+    # sharding takes a Strategy (DeviceFeeder(sharding=strategy): a rank
+    # uploads its part; tests/test_torch_strategy_reductions.py holds it
+    # on {dp 2}); on a one-rank mesh a batch is the whole feed, marked
+    with pytest.raises(TypeError, match="parallel.Strategy"):
         DeviceFeeder(lambda: iter(feeds), sharding="fsdp", device="cpu")
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import parallel
+
+    fluid.reset_default_programs()
+    fluid.layers.data("x", [])
+    strategy = parallel.Strategy(parallel.make_mesh({"dp": 1}))
+    staged = list(DeviceFeeder(lambda: iter(feeds[:3]), sharding=strategy,
+                               device="cpu"))
+    assert [type(b).__name__ for b in staged] == ["LocalFeed"] * 3
+    for b, f in zip(staged, feeds):
+        assert b.batch == 2 and b.seq_axis is None
+        np.testing.assert_array_equal(b["x"].numpy(), f["x"])
     bad = DeviceFeeder(lambda: (1 / 0 for _ in range(1)), device="cpu")
     with pytest.raises(ZeroDivisionError):
         list(bad)
 
+
+
+def test_executor_refuses_a_local_feed_of_another_program():
+    """A ``LocalFeed`` that is not the run program's part of the batch is
+    refused before the step: one staged by a feeder made for another
+    program (its feeds were never sliced: global batch 0), and one whose
+    rows are not batch / dp."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.core.types import Place
+    from paddle_tpu_torch.data_feeder import DeviceFeeder
+
+    feeds = [{"y": np.ones((4, 3), np.float32)}]
+    strategy = parallel.Strategy(parallel.make_mesh({"dp": 1}))
+    fluid.reset_default_programs()
+    fluid.layers.data("x", [3])
+    stale = DeviceFeeder(lambda: iter(feeds), sharding=strategy,
+                         device="cpu")
+    fluid.reset_default_programs()
+    y = fluid.layers.data("y", [3])
+    out = fluid.layers.scale(y, 2.0)
+    exe = fluid.Executor(Place("cpu"), strategy=strategy)
+    staged = list(stale)
+    assert staged[0].batch == 0
+    with pytest.raises(ValueError, match="another program"):
+        exe.run(feed=staged[0], fetch_list=[out])
+    wrong = parallel.LocalFeed({"y": torch.ones(4, 3)}, batch=8)
+    with pytest.raises(ValueError, match="4 rows"):
+        exe.run(feed=wrong, fetch_list=[out])
+    right = list(DeviceFeeder(lambda: iter(feeds), sharding=strategy,
+                              device="cpu"))[0]
+    got, = exe.run(feed=right, fetch_list=[out])
+    np.testing.assert_array_equal(got, 2 * feeds[0]["y"])
 
 def test_zipfian_stream_never_recompiles_past_ladder():
     tab = ShardedEmbeddingTable([997], 4, seed=1, max_ids_per_batch=512,
