@@ -7219,6 +7219,493 @@ def phase_mesh(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- trainer_io
+# The trainer_io phase (ROADMAP A.12 part 3): the LM at LM_CFG's width
+# trained by fluid.Trainer with checkpoints and resumed; inference artifacts
+# of the LM's logits, text_lstm and a conv + BN + ReLU program; the anomaly
+# guard's skip / rollback / budget on the card.  Files go under build/.
+
+TRAINER_IO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "chip_smoke_trainer_io")
+TRAINER_IO_STEPS = 6          # one pass of 6 batches of TRAIN_BATCH x 1024
+TRAINER_IO_EVERY = 2          # checkpoint_every_n_steps
+TRAINER_IO_RESUME = 4         # the step the second Trainer resumes from
+ARTIFACT_LM_BATCHES = (2, 3)  # the symbolic batch at two sizes
+ARTIFACT_LSTM_BATCH = 16
+ARTIFACT_CONV = CONV_CASES[0]  # row 8's c56 [256, 56, 56, 64] x 64
+
+
+class _Cursor:
+    """A task-queue stand-in with the Trainer's ``snapshot`` / ``rewind`` /
+    ``new_epoch``: the batches of the pass trained so far, which the event
+    handler advances, so that a checkpoint's snapshot counts trained
+    batches exactly and a resumed Trainer reads on from there."""
+
+    def __init__(self, path=None):
+        self.done = 0
+        if path is not None:
+            self.rewind(path)
+
+    def snapshot(self, path):
+        with open(path + ".tmp", "w") as f:
+            json.dump({"done": self.done}, f)
+        os.replace(path + ".tmp", path)
+
+    def rewind(self, path):
+        with open(path) as f:
+            self.done = json.load(f)["done"]
+
+    def new_epoch(self):
+        self.done = 0
+
+
+def _lm_trainer(ckpt_dir: str, cursor: _Cursor):
+    """The LM at LM_CFG's width in fresh programs and scope, under a
+    Trainer with train_profile's optimizer (Adam 1e-3, global-norm clip
+    1.0), checkpoints every TRAINER_IO_EVERY steps, ``cursor`` as its task
+    queue; returns (trainer, tokens, labels, loss, logits)."""
+    import paddle_tpu_torch as fluid
+
+    T = LM_CFG["max_len"]
+    fluid.reset_default_programs()
+    fluid.reset_global_scope()
+    toks = fluid.layers.data("toks", [T], dtype="int32")
+    labs = fluid.layers.data("labs", [T, 1], dtype="int32")
+    loss, logits = fluid.models.build_lm(toks, labs, **LM_CFG)
+    tr = fluid.Trainer(
+        loss, fluid.optimizer.Adam(
+            1e-3, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)),
+        [toks, labs], checkpoint_dir=ckpt_dir,
+        checkpoint_every_n_steps=TRAINER_IO_EVERY, task_queue=cursor,
+        queue_snapshot_path=ckpt_dir + ".snap")
+    return tr, toks, labs, loss, logits
+
+
+def _lm_samples(seed: int) -> list:
+    from paddle_tpu_torch.tools.train_profile import train_batch
+
+    f = train_batch(seed)
+    return [(f["toks"][i], f["labs"][i]) for i in range(len(f["toks"]))]
+
+
+def _flash_counts() -> dict:
+    from paddle_tpu_torch.ops import flash_attention
+
+    return dict(flash_attention.launches)
+
+
+def _train_lm(tr, cursor, batches, num_passes=1):
+    """Train ``tr`` over ``batches`` from the cursor on; returns (losses,
+    the scope's tensors cloned at BeginPass 0, its step counter then,
+    seconds)."""
+    import paddle_tpu_torch as fluid
+
+    losses, init = [], {}
+
+    def handler(e):
+        if isinstance(e, fluid.events.BeginPass) and not init:
+            scope = fluid.global_scope()
+            init.update({n: v.clone() for n, v in scope.items()})
+            init["@counter"] = scope.step_counter
+        elif isinstance(e, fluid.events.EndIteration):
+            losses.append(e.cost)
+            cursor.done += 1
+        elif isinstance(e, fluid.events.AnomalyDetected):
+            fail(f"trainer_io: the LM step {e.batch_id} was not finite")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train(lambda: iter(batches[cursor.done:]), num_passes=num_passes,
+             event_handler=handler)
+    torch.cuda.synchronize()
+    return losses, init, time.perf_counter() - t0
+
+
+def _close_f32(label: str, got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want|, failing beyond TOLERANCE["float32"] elementwise
+    (atol + rtol |want|)."""
+    atol, rtol = TOLERANCE["float32"]
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{label}: shape {got.shape} (want {want.shape}) or non-finite")
+    d = np.abs(got - want)
+    check(bool((d <= atol + rtol * np.abs(want)).all()),
+          f"{label}: {float(d.max()):.3e} off the in-process forward")
+    return float(d.max())
+
+
+def _artifact(label: str, dirname: str, exe, feed_names, target, program,
+              feeds: list, kernel: tuple, per_call: int) -> dict:
+    """Export ``target`` of ``program`` (its current weights in the global
+    scope) with ``save_inference_model``, run the pruned program eagerly on
+    each of ``feeds`` (the in-process forward), load the artifact after a
+    reset of programs and scope, and hold its outputs to the forward within
+    the float32 limits; a repeat of the first feed prepares nothing new.
+    ``kernel``: (counter read, its custom op's graph target); each replay
+    must add ``per_call`` launches.  Returns the record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as tio
+
+    read, target_name = kernel
+    t0 = time.perf_counter()
+    tio.save_inference_model(dirname, feed_names, [target], exe,
+                             main_program=program, example_batch=2)
+    export_s = time.perf_counter() - t0
+    pruned = program.prune([target])
+    wants = [exe.run(pruned, feed=f, fetch_list=[target])[0] for f in feeds]
+    fluid.reset_default_programs()
+    fluid.reset_global_scope()
+    infer, _, _ = tio.load_inference_model(dirname)
+    targets = [str(n.target) for n in infer.exported.graph.nodes
+               if n.op == "call_function"]
+    n_ops = targets.count(target_name)
+    check(n_ops > 0, f"{label}: the exported graph holds no {target_name}")
+    worst = []
+    for f, want in zip(feeds, wants):
+        worst.append(_close_f32(label, infer(f)[0], want))
+    traces = infer.trace_count()
+    check(traces == len({tuple(np.shape(v) for v in f.values())
+                         for f in feeds}),
+          f"{label}: {traces} signatures prepared for {len(feeds)} feeds")
+    before = read()
+    again = infer(feeds[0])[0]
+    torch.cuda.synchronize()
+    check(infer.trace_count() == traces,
+          f"{label}: a repeated signature prepared a new one")
+    check(read() - before == per_call,
+          f"{label}: a replay launched {read() - before} kernels, want "
+          f"{per_call}")
+    check(again.tobytes() == infer(feeds[0])[0].tobytes(),
+          f"{label}: two replays of one feed differ")
+    rec = {"symbolic_batch": infer.symbolic_batch, "export_s": export_s,
+           "graph_ops": n_ops, "max_abs_err": max(worst),
+           "signatures": traces, "launches_per_call": per_call}
+    print(f"trainer_io {label}: exported in {export_s:.2f} s (symbolic "
+          f"batch {infer.symbolic_batch}), {n_ops} {target_name} nodes; "
+          f"{len(feeds)} feeds against the in-process forward, max |d| "
+          f"{max(worst):.3e} (limit atol {TOLERANCE['float32'][0]} + rtol "
+          f"{TOLERANCE['float32'][1]}); {traces} signatures, none more on a "
+          f"repeat, {per_call} kernel launch(es) a replay")
+    return rec
+
+
+def _trainer_io_artifacts(tr, toks_var, logits) -> dict:
+    """(c): the LM-logits artifact (batch 2 and 3 under the symbolic
+    batch), text_lstm at TEXT_LSTM_CFG and one conv + BN + ReLU program
+    at row 8's c56 shape."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import conv as conv_ops
+    from paddle_tpu_torch.ops import fused_lstm
+    from paddle_tpu_torch.tools.train_profile import (TEXT_LSTM_CFG,
+                                                      TEXT_LSTM_SEQ,
+                                                      text_lstm_batch,
+                                                      text_lstm_params)
+
+    out = {}
+    rng = np.random.RandomState(11)
+    feeds = [{"toks": rng.randint(0, LM_CFG["vocab_size"],
+                                  (n, LM_CFG["max_len"])).astype(np.int32)}
+             for n in ARTIFACT_LM_BATCHES]
+    out["lm"] = _artifact(
+        "lm logits", os.path.join(TRAINER_IO_DIR, "lm_artifact"), tr.exe,
+        ["toks"], logits, tr.program, feeds,
+        (lambda: _flash_counts()["fwd"], "paddle_tpu_torch.flash_fwd.default"),
+        LM_CFG["n_layers"])
+    check(out["lm"]["symbolic_batch"] and out["lm"]["graph_ops"]
+          == LM_CFG["n_layers"], f"lm logits artifact: {out['lm']}")
+
+    fluid.reset_default_programs()
+    fluid.reset_global_scope()
+    words = fluid.layers.data("words", [TEXT_LSTM_SEQ], dtype="int32")
+    lengths = fluid.layers.data("lengths", [-1], dtype="int32",
+                                append_batch_size=False)
+    label = fluid.layers.data("label", [1], dtype="int32")
+    _, _, pred = fluid.models.text_lstm.build(words, lengths, label,
+                                              **TEXT_LSTM_CFG)
+    exe = fluid.Executor()
+    exe.run(fluid.default_startup_program())
+    fluid.load_scope(text_lstm_params(0), fluid.default_main_program(),
+                     fluid.global_scope())
+    b = text_lstm_batch(3, ARTIFACT_LSTM_BATCH)
+    out["text_lstm"] = _artifact(
+        "text_lstm", os.path.join(TRAINER_IO_DIR, "text_lstm_artifact"), exe,
+        ["words", "lengths"], pred, fluid.default_main_program(),
+        [{"words": b["words"], "lengths": b["lengths"]}],
+        (lambda: fused_lstm.launches["fwd"],
+         "paddle_tpu_torch.lstm_fwd.default"), TEXT_LSTM_CFG["num_layers"])
+
+    _, n, h, w, c, o = ARTIFACT_CONV
+    fluid.reset_default_programs()
+    fluid.reset_global_scope()
+    img = fluid.layers.data("img", [c, h, w])
+    y = fluid.layers.batch_norm(fluid.layers.conv2d(
+        img, o, 3, padding=1, bias_attr=False), act="relu")
+    exe = fluid.Executor()
+    exe.run(fluid.default_startup_program())
+    prog = fluid.default_main_program()
+    prng = np.random.RandomState(5)
+    arrays = {}
+    for v in prog.persistable_vars():
+        shape = tuple(v.shape)
+        if len(shape) == 4:
+            a = prng.standard_normal(shape) * (2.0 / (9 * c)) ** 0.5
+        elif "var" in v.name.split(".")[-1] or v.name.endswith("variance"):
+            a = prng.uniform(0.5, 1.5, shape)
+        else:
+            a = prng.standard_normal(shape) * 0.1 + (
+                1.0 if "scale" in v.name or v.name.endswith("_w_0") else 0.0)
+        arrays[v.name] = a.astype(np.float32)
+    fluid.load_scope(arrays, prog, fluid.global_scope())
+    x = prng.standard_normal((n, c, h, w)).astype(np.float32)
+    before = dict(conv_ops.route_launches)
+    out["conv"] = _artifact(
+        "conv_bn_relu", os.path.join(TRAINER_IO_DIR, "conv_artifact"), exe,
+        ["img"], y, prog, [{"img": x}],
+        (lambda: conv_ops.launches["fused"],
+         "paddle_tpu_torch.conv_igemm_fused.default"), 1)
+    routes = {k: conv_ops.route_launches[k] - before[k] for k in before}
+    check(routes["halo_f32"] > 0 and routes["gather"] == routes["halo"] == 0,
+          f"conv artifact: routes {routes}, want halo_f32 only")
+    out["conv"]["route_launches"] = routes
+    return out
+
+
+def _trainer_io_anomaly(card: str) -> dict:
+    """(d): a uci_housing regression through fluid.Trainer on the card: a
+    NaN batch skipped with the parameters bitwise unchanged over it; a
+    burst of NaN past the budget rolled back to the step-4 checkpoint and
+    the pass replayed; persistent anomalies raising
+    AnomalyBudgetExceeded."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.datasets import uci_housing
+
+    base = list(fluid.reader.batch(uci_housing.train(128), 16)())
+
+    def model():
+        fluid.reset_default_programs()
+        fluid.reset_global_scope()
+        x = fluid.layers.data("x", [13])
+        y = fluid.layers.data("y", [1])
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(
+            fluid.layers.fc(x, 1), y))
+        return loss, [x, y]
+
+    def poisoned(batch):
+        xs, ys = batch[0]
+        return [(np.full_like(xs, np.nan), ys)] + batch[1:]
+
+    loss, feeds = model()
+    tr = fluid.Trainer(loss, fluid.optimizer.SGD(0.01), feeds)
+    seen, snaps = [], {}
+
+    def handler(e):
+        seen.append(type(e).__name__)
+        key = (type(e).__name__, getattr(e, "batch_id", None))
+        if key in (("EndIteration", 2), ("BeginIteration", 4)):
+            snaps[key] = {n: v.clone() for n, v in
+                          fluid.global_scope().items()}
+
+    tr.train(lambda: iter([poisoned(b) if i == 3 else b
+                           for i, b in enumerate(base)]),
+             event_handler=handler)
+    a, b = snaps[("EndIteration", 2)], snaps[("BeginIteration", 4)]
+    check(seen.count("AnomalyDetected") == 1
+          and seen.count("EndIteration") == len(base) - 1
+          and tr.global_step == len(base) - 1
+          and all(torch.equal(a[n], b[n]) for n in a),
+          f"anomaly skip: events {seen}, step {tr.global_step}")
+
+    loss, feeds = model()
+    d = os.path.join(TRAINER_IO_DIR, "anomaly")
+    tr = fluid.Trainer(loss, fluid.optimizer.SGD(0.01), feeds,
+                       checkpoint_dir=d, checkpoint_every_n_steps=2,
+                       anomaly_budget=1, max_rollbacks=2)
+    attempts, seen = [0], []
+
+    def burst():
+        attempts[0] += 1
+        return iter([poisoned(b) if attempts[0] == 1 and i >= 4 else b
+                     for i, b in enumerate(base)])
+
+    tr.train(burst, event_handler=lambda e: seen.append(type(e).__name__))
+    rollback_step = tr.global_step
+    check(attempts[0] == 2 and rollback_step == 4 + len(base)
+          and seen.count("AnomalyDetected") == 2,
+          f"anomaly rollback: {attempts[0]} attempts, step {rollback_step}")
+
+    loss, feeds = model()
+    tr = fluid.Trainer(loss, fluid.optimizer.SGD(0.01), feeds,
+                       anomaly_budget=0, max_rollbacks=1)
+    try:
+        tr.train(lambda: iter([poisoned(b) for b in base[:4]]))
+        fail("anomaly budget: persistent NaN batches did not raise")
+    except fluid.AnomalyBudgetExceeded as e:
+        raised = str(e)
+    print(f"trainer_io anomaly: {len(base)} uci_housing batches of 16 on the "
+          f"card: batch 3 NaN skipped, the parameters bitwise unchanged "
+          f"over it; a NaN burst past a budget of 1 rolled back to step 4 "
+          f"and replayed (step {rollback_step}); persistent NaN raised "
+          f"AnomalyBudgetExceeded ({raised[:60]}...); on {card}")
+    return {"batches": len(base), "rollback_attempts": attempts[0]}
+
+
+def phase_custom_ops(card: str) -> dict:
+    """Rows 2 and 5 through their custom ops (``paddle_tpu_torch::
+    flash_fwd``, ``lstm_fwd``) against the wrappers called directly, in
+    turns (direct, op, op, direct), event-timed and device ms: the flash
+    forward at the kernel phase's float32 case, the LSTM forward without
+    residuals (the inference form) at text_lstm's shape.  Early in the
+    run, beside the kernel phases: late in a run the profiler drops a
+    window's first records of a library-launched kernel (ROADMAP C.2)."""
+    from paddle_tpu_torch.ops import attention as TA
+    from paddle_tpu_torch.ops import lstm as TL
+
+    dev = torch.device("cuda")
+    _, N, Tq, Tk, D, causal = FLASH_CASES[0]
+    q, k, v, _ = _flash_inputs(N, Tq, Tk, D, torch.float32, dev)
+    scale = D ** -0.5
+    T, B, H = LSTM_SHAPE
+    lengths = np.random.RandomState(0).randint(T // 2, T + 1, B)
+    xw, u, peep, mask, _, _ = _lstm_inputs(T, B, H, lengths, dev, 3)
+    arms = {
+        "flash_fwd": (lambda i: TA.flash_fwd_kernel(q, k, v, scale, causal),
+                      lambda i: TA.flash_fwd_op(q, k, v, scale, causal)),
+        "fused_lstm_fwd": (
+            lambda i: TL.lstm_fwd_kernel(xw, u, peep, mask, H, False,
+                                         LSTM_ACTS, False),
+            lambda i: TL.lstm_fwd_op(xw, u, peep, mask, H, False,
+                                     *LSTM_ACTS)),
+    }
+    out = {}
+    for name, (direct, op) in arms.items():
+        check(torch.equal(op(0)[0], direct(0)[0]),
+              f"{name}: the custom op's output differs from the wrapper's")
+        runs = [("direct", direct), ("op", op), ("op", op),
+                ("direct", direct)]
+        times = {"direct": [], "op": []}
+        for arm, fn in runs:
+            times[arm].append(both_ms(fn))
+        out[name] = {arm: {"ms": [t[0] for t in ts],
+                           "device_ms": [t[1] for t in ts]}
+                     for arm, ts in times.items()}
+        print(f"custom op {name}: direct / op ms "
+              f"{[round(t[0], 4) for t in times['direct']]} / "
+              f"{[round(t[0], 4) for t in times['op']]}, device "
+              f"{[t[1] for t in times['direct']]} / "
+              f"{[t[1] for t in times['op']]} (turns: direct, op, op, "
+              f"direct); on {card}")
+    return out
+
+
+def phase_trainer_io(card: str) -> dict:
+    """The LM at LM_CFG's width through fluid.Trainer (a): TRAINER_IO_STEPS
+    Adam steps of TRAIN_BATCH x 1024 tokens with a checkpoint every
+    TRAINER_IO_EVERY, the losses bitwise a bare Executor's warmed on the
+    same program from the same state and batches, every flash kernel
+    launched n_layers x (steps + 1) times (the warm's eager run, then a
+    replay a step); (b) a new Trainer resumed from step TRAINER_IO_RESUME
+    (its checkpoint and queue cursor alone), its steps bitwise the first
+    run's; (c) the three inference artifacts; (d) the anomaly guard."""
+    import shutil
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.tools.train_profile import feed_sig
+
+    shutil.rmtree(TRAINER_IO_DIR, ignore_errors=True)
+    os.makedirs(TRAINER_IO_DIR)
+    n_layers = LM_CFG["n_layers"]
+    rec = {}
+    try:
+        batches = [_lm_samples(100 + s) for s in range(TRAINER_IO_STEPS)]
+        d1 = os.path.join(TRAINER_IO_DIR, "lm")
+        cur = _Cursor()
+        tr, toks, labs, loss, logits = _lm_trainer(d1, cur)
+        _zero_counters()
+        losses, init, secs = _train_lm(tr, cur, batches)
+        launches = _flash_counts()
+        check(len(losses) == TRAINER_IO_STEPS and all(np.isfinite(losses)),
+              f"trainer_io: losses {losses}")
+        want = n_layers * (TRAINER_IO_STEPS + 1)
+        check(all(launches[k] == want for k in FLASH_KERNELS),
+              f"trainer_io: flash launches {launches}, want {want} each "
+              f"(the warm's eager run and {TRAINER_IO_STEPS} replays)")
+        check(tr.exe.compiles == 1 and tr.exe.replays == TRAINER_IO_STEPS,
+              f"trainer_io: compiles {tr.exe.compiles}, replays "
+              f"{tr.exe.replays}")
+        cm = tio.CheckpointManager(d1)
+        steps = sorted(int(n.split("-")[1]) for n in os.listdir(d1)
+                       if n.startswith("ckpt-"))
+        check(cm.latest_step() == TRAINER_IO_STEPS
+              and steps == list(range(TRAINER_IO_EVERY, TRAINER_IO_STEPS + 1,
+                                      TRAINER_IO_EVERY)),
+              f"trainer_io: checkpoints {steps}, latest {cm.latest_step()}")
+
+        # the same steps on a bare Executor warmed on the same program from
+        # the state the Trainer started from
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        for n, v in init.items():
+            if n != "@counter":
+                scope.set_var(n, v)
+        scope.step_counter = init["@counter"]
+        feeder = fluid.DataFeeder([toks, labs])
+        feeds = [feeder.feed(b) for b in batches]
+        exe.warm(tr.program, feed_sig(feeds[0]), [loss], scope=scope)
+        bare = [float(exe.run(tr.program, feed=f, fetch_list=[loss],
+                              scope=scope)[0]) for f in feeds]
+        check(np.array(bare, np.float32).tobytes()
+              == np.array(losses, np.float32).tobytes(),
+              f"trainer_io: Trainer losses {losses} are not the bare "
+              f"Executor's {bare}")
+        print(f"trainer_io lm: {TRAINER_IO_STEPS} Trainer steps on "
+              f"{len(batches[0])} x {LM_CFG['max_len']} tokens in "
+              f"{secs:.2f} s (warm and checkpoints {steps} included), losses "
+              f"{', '.join(f'{x:.6f}' for x in losses)}, bitwise the bare "
+              f"warmed Executor's; flash launches {launches}; on {card}")
+        rec["lm"] = {"losses": losses, "seconds": secs,
+                     "launches": launches, "checkpoints": steps}
+        del exe, scope, init
+        rec["artifacts"] = _trainer_io_artifacts(tr, toks, logits)
+        del tr
+        _release()
+
+        # (b) a new Trainer from step TRAINER_IO_RESUME's checkpoint alone
+        d2 = os.path.join(TRAINER_IO_DIR, "lm_resume")
+        os.makedirs(d2)
+        src = os.path.join(d1, f"ckpt-{TRAINER_IO_RESUME}")
+        shutil.copytree(src, os.path.join(d2, f"ckpt-{TRAINER_IO_RESUME}"))
+        with open(os.path.join(d2, "latest"), "w") as f:
+            f.write(str(TRAINER_IO_RESUME))
+        cur2 = _Cursor(os.path.join(src, "queue.snap"))
+        check(cur2.done == TRAINER_IO_RESUME,
+              f"trainer_io: the cursor paired with step {TRAINER_IO_RESUME} "
+              f"reads {cur2.done}")
+        tr2, _, _, _, _ = _lm_trainer(d2, cur2)
+        _zero_counters()
+        resumed, _, secs2 = _train_lm(tr2, cur2, batches)
+        launches2 = _flash_counts()
+        tail = losses[TRAINER_IO_RESUME:]
+        check(np.array(resumed, np.float32).tobytes()
+              == np.array(tail, np.float32).tobytes()
+              and tr2.global_step == TRAINER_IO_STEPS,
+              f"trainer_io: resumed losses {resumed}, the first run's {tail}")
+        want2 = n_layers * (TRAINER_IO_STEPS - TRAINER_IO_RESUME + 1)
+        check(all(launches2[k] == want2 for k in FLASH_KERNELS),
+              f"trainer_io: resumed flash launches {launches2}, want {want2}")
+        print(f"trainer_io resume: a new Trainer from ckpt-"
+              f"{TRAINER_IO_RESUME} and its queue cursor ran steps "
+              f"{TRAINER_IO_RESUME + 1}-{TRAINER_IO_STEPS} in {secs2:.2f} s, "
+              f"losses bitwise the first run's; flash launches {launches2}")
+        rec["resume"] = {"losses": resumed, "seconds": secs2,
+                         "launches": launches2}
+        del tr2
+        _release()
+        rec["anomaly"] = _trainer_io_anomaly(card)
+    finally:
+        shutil.rmtree(TRAINER_IO_DIR, ignore_errors=True)
+    return rec
+
+
 def _par_launches(par: dict, which: str, kern: str) -> dict:
     """The parallel phase's launches of one kernel, by leg and rank."""
     return {f"parallel {label} rank {i}": counts[kern]
@@ -7241,6 +7728,7 @@ def main() -> int:
     rec = _timed("kernels", phase_kernels, card)
     flash = _timed("flash kernels", phase_flash_kernels, card)
     lstm, lstm_srl = _timed("lstm kernels", phase_lstm_kernels, card)
+    custom_ops = _timed("custom ops", phase_custom_ops, card)
     drop = _timed("dropout kernels", phase_dropout_kernels, card)
     paths, serve_eng = _timed("serve", phase_serve, card)
     paths.update(_timed("serve extras", phase_serve_extras, card, serve_eng))
@@ -7291,6 +7779,8 @@ def main() -> int:
     _release()
     _timed("sparse", phase_sparse, card)
     _release()
+    tio = _timed("trainer_io", phase_trainer_io, card)
+    _release()
     par = _timed("parallel", phase_parallel, card)
     _release()
     # the C.2 probe runs where earlier runs took it, after the parallel
@@ -7336,7 +7826,17 @@ def main() -> int:
             "launches": train["launches"][kern], **flash["float32"][kern],
             "launches_by_path": {"train": train["launches"][kern],
                                  "nets sdpa step": nets["sdpa"][kern],
+                                 "trainer_io lm": tio["lm"]["launches"][kern],
+                                 "trainer_io resume":
+                                     tio["resume"]["launches"][kern],
                                  **_par_launches(par, "flash", kern)},
+            # the forward as the custom op paddle_tpu_torch::flash_fwd
+            # against the wrapper called directly, in turns; an artifact
+            # replay's launches
+            **({"custom_op": custom_ops["flash_fwd"],
+                "artifact_launches_per_call":
+                    tio["artifacts"]["lm"]["launches_per_call"]}
+               if kern == "fwd" else {}),
         })
     for kern in FLASH_KERNELS:
         kernels.append({
@@ -7372,6 +7872,12 @@ def main() -> int:
                 "srl decode warmed": srl["decode_launches"][kern],
                 "nets bidirectional_lstm step":
                     nets["bidirectional_lstm"][kern]},
+            # the inference forward as the custom op
+            # paddle_tpu_torch::lstm_fwd against the wrapper, in turns
+            **({"custom_op": custom_ops["fused_lstm_fwd"],
+                "artifact_launches_per_call":
+                    tio["artifacts"]["text_lstm"]["launches_per_call"]}
+               if kern == "fwd" else {}),
             # the SRL layer shape: T=32, B=64, H=128, peepholes, lengths
             # 1-32, persistent route (PERF.md section 6 rows 5 and 5b)
             "srl_h128": lstm_srl[kern],
@@ -7480,6 +7986,10 @@ def main() -> int:
         "launches": infer["resnet50-infer float32"]["launches"]["fused"],
         **convk["float32"]["c56"]["fused"],
         "route_launches": infer["resnet50-infer float32"]["route_launches"],
+        # the c56 conv + BN + ReLU artifact, through the custom op
+        # paddle_tpu_torch::conv_igemm_fused
+        "trainer_io_artifact_route_launches":
+            tio["artifacts"]["conv"]["route_launches"],
         "c28": convk["float32"]["c28"]["fused"],
         "c14": convk["float32"]["c14"]["fused"],
         "c7": convk["float32"]["c7"]["fused"],

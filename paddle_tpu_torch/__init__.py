@@ -68,19 +68,26 @@ These paths run here (seq2seq among them, ``models.seq2seq``):
   ``SparseEmbeddingTrainer``, one CUDA graph per bucket rung; with the
   Variable operator sugar, ``layers.misc`` and the evaluators.
 
+* the v2 training loop ``Trainer`` (events, checkpoints and resume in the
+  JAX package's layout, ``io.CheckpointManager``; the anomaly guard's skip
+  and rollback; preemption and hang handling, ``resilience.cluster``) over
+  ``reader`` decorators and ``datasets``, and the inference artifact
+  (``io.save_inference_model``: ``torch.export`` of the pruned forward,
+  the kernels as custom ops of the ``paddle_tpu_torch`` namespace).
+
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``CPUPlace()``, ``device="cpu"``); with no card and no device given they
 raise.  The package imports torch and numpy, never jax and nothing of
 ``paddle_tpu``.
 """
 from . import (amp, backward, clip, compile, data_feeder, datasets,
-               evaluator, events, hooks, initializer, layers,
-               learning_rate_decay, models, nets, optimizer, regularizer,
-               sparse, trainer)
+               evaluator, events, flags, hooks, initializer, io, layers,
+               learning_rate_decay, models, nets, optimizer, reader,
+               regularizer, resilience, sparse, trainer)
 from . import distributed, parallel
 from ._device import card_info, resolve_device
 from .data_feeder import DataFeeder, DeviceFeeder
-from .trainer import SparseEmbeddingTrainer
+from .trainer import AnomalyBudgetExceeded, SparseEmbeddingTrainer, Trainer
 from .core import (CPUPlace, Executor, Place, Program, Scope,
                    Variable, default_main_program, default_startup_program,
                    global_scope, program_guard, reset_default_programs,
@@ -95,11 +102,13 @@ from .serving import (AdmissionShed, ContinuousDecodeEngine,
                       PagedKVPool, PrefixCache, SamplingParams, chain_hashes,
                       root_for_kv_dtype)
 
-__all__ = ["AdmissionShed", "amp", "CPUPlace", "ContinuousDecodeEngine",
+__all__ = ["AdmissionShed", "AnomalyBudgetExceeded", "amp", "CPUPlace",
+           "ContinuousDecodeEngine",
            "ContinuousScheduler", "DataFeeder", "Deadline",
            "DeadlineExceeded", "DecodeAdmissionQueue", "DecodeEngine",
            "DecodeRequest", "DeviceFeeder", "SparseEmbeddingTrainer",
-           "compile", "data_feeder", "events", "sparse", "trainer",
+           "Trainer", "compile", "data_feeder", "events", "flags", "io",
+           "reader", "resilience", "sparse", "trainer",
            "Executor", "GenerationMigrated", "PagedKVPool", "ParamAttr",
            "Place", "PrefixCache", "Program", "SamplingParams", "Scope",
            "TransformerLM", "Variable", "chain_hashes", "root_for_kv_dtype",

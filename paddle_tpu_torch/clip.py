@@ -81,5 +81,18 @@ class GradientClipByGlobalNorm(BaseGradientClip):
                 total = total + s
         gn = torch.sqrt(total)
         scale = self.clip_norm / torch.clamp_min(gn, self.clip_norm)
+        from . import flags
+
+        if flags.get("log_clipping") and not (
+                gn.is_cuda and torch.cuda.is_current_stream_capturing()):
+            # the reference's FLAGS_log_clipping line, which it prints from
+            # inside the compiled step; here a host read of the norm, so a
+            # captured step (a CUDA graph cannot call the host) prints it
+            # only in its capture-time run, not at replay (ROADMAP C.4)
+            if float(scale) < 1.0:
+                # the clip as the reference's step holds it, a float32
+                cn = float(torch.tensor(self.clip_norm, dtype=torch.float32))
+                print(f"clipping global grad norm {float(gn):.4} -> {cn}",
+                      flush=True)
         return dict(zip(grads, torch._foreach_mul(list(grads.values()),
                                                   scale)))

@@ -56,6 +56,12 @@ class RecompileGuard:
             self._last_seen = base
         return base
 
+    @property
+    def steady(self) -> bool:
+        """Whether ``mark_steady`` has run."""
+        with self._lock:
+            return self._steady_base is not None
+
     def check(self, shape: str = "?") -> int:
         """Call after an execution, passing the shape signature that ran.
         Returns the steady-state captures so far.  A no-op before

@@ -498,7 +498,10 @@ class Executor:
         if routed is not None:
             ops = routed
         device = self.device
-        seed = program.random_seed or 0
+        from .. import flags as _flags
+
+        # the reference's step seed: the program's, else the seed flag
+        seed = program.random_seed or _flags.get("seed") or 0
         head = ops[:bops[0] + 1] if bops else ops
         tail = _grouped(ops[bops[0] + 1:]) if bops else []
         strategy = self.strategy

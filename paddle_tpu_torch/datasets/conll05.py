@@ -9,7 +9,7 @@ tags.  Sentences are drawn over the reference's vocabulary sizes; a tag is
 a fixed function of the token's distance to the predicate, so a model can
 learn the mapping.  The draws are numpy ``RandomState`` ones, the JAX
 package's sample for sample under the same ``n`` and seed.  The reader of
-the official column files is not ported (ROADMAP A.12)."""
+the official column files is not ported (ROADMAP A.12 part 4)."""
 from __future__ import annotations
 
 import numpy as np

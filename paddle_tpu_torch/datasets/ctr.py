@@ -8,7 +8,7 @@ over the eight small fields' id factors, so FM-family models can fit it.
 The draws are numpy ``RandomState`` ones, the JAX package's sample for
 sample under the same ``n_synthetic`` and seed (0 for train, 1 for test).
 The reader of Criteo's tab-separated files is not ported (ROADMAP A.12
-(rest)): ``real_reader`` raises."""
+part 4): ``real_reader`` raises."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,7 +25,7 @@ FIELD_VOCABS = ([100003, 50021, 10007]
 def real_reader(*_args, **_kwargs):
     raise NotImplementedError(
         "the Criteo file reader of paddle_tpu/datasets/ctr.py is not ported "
-        "yet (ROADMAP A.12 (rest)); the synthetic train() and test() are")
+        "yet (ROADMAP A.12 part 4); the synthetic train() and test() are")
 
 
 def _reader(n, seed):

@@ -8,7 +8,7 @@ uniform in [0, 7), so a model can learn the next word from the context.
 The draws are numpy ``RandomState`` ones, the JAX package's sample for
 sample under the same ``n``, ``n_synthetic`` and seed (0 for train, 1 for
 test).  The reader of the Penn Treebank text files is not ported (ROADMAP
-A.12 (rest)): a word dictionary other than the synthetic one raises."""
+A.12 part 4): a word dictionary other than the synthetic one raises."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,7 +25,7 @@ def _check_dict(word_idx):
     if word_idx is not None and word_idx != word_dict():
         raise NotImplementedError(
             "the Penn Treebank file reader of paddle_tpu/datasets/"
-            "imikolov.py is not ported yet (ROADMAP A.12 (rest)); the "
+            "imikolov.py is not ported yet (ROADMAP A.12 part 4); the "
             "synthetic train() and test() are")
 
 

@@ -8,7 +8,7 @@ N(0, 0.2^2), 1, 5)`` from 8-dimensional latent factors of the user and the
 movie, so a model can learn it.  The draws are numpy ``RandomState``
 ones, the JAX package's sample for sample under the same ``n_synthetic``
 and seed (0 for train, 1 for test).  The reader of ml-1m's ``.dat`` files
-is not ported (ROADMAP A.12 (rest)): ``real_files`` raises."""
+is not ported (ROADMAP A.12 part 4): ``real_files`` raises."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,7 +23,7 @@ N_CATEGORIES = 18
 def real_files(*_args, **_kwargs):
     raise NotImplementedError(
         "the ml-1m file reader of paddle_tpu/datasets/movielens.py is not "
-        "ported yet (ROADMAP A.12 (rest)); the synthetic train() and test() "
+        "ported yet (ROADMAP A.12 part 4); the synthetic train() and test() "
         "are")
 
 

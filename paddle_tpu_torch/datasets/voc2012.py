@@ -7,7 +7,7 @@ to three rectangles of a class on the background, the image brightened in
 a colour of the class where the mask holds it.  The draws are numpy
 ``RandomState`` ones, the JAX package's sample for sample under the same
 ``n``, seed and size.  The readers of the official VOCdevkit layout
-(segmentation and detection) are not ported (ROADMAP A.12)."""
+(segmentation and detection) are not ported (ROADMAP A.12 part 4)."""
 from __future__ import annotations
 
 import numpy as np
@@ -44,7 +44,8 @@ def _reader(n, seed, size=128):
 def _real_files(*_args, **_kwargs):
     raise NotImplementedError(
         "the VOCdevkit file readers of paddle_tpu/datasets/voc2012.py are not "
-        "ported yet (ROADMAP A.12); the synthetic train() and test() are")
+        "ported yet (ROADMAP A.12 part 4); the synthetic train() and test() "
+        "are")
 
 
 detection_train = detection_test = _real_files

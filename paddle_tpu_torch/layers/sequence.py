@@ -71,7 +71,10 @@ def sequence_pool(input: Variable, length: Variable, pool_type: str = "average",
             return torch.amax(torch.where(me > 0, x, neg), dim=1)
         if pool_type == "last":
             idx = torch.clamp_min(ln.long() - 1, 0).reshape((-1, 1) + trail)
-            return torch.take_along_dim(x, idx, dim=1).squeeze(1)
+            # gather of the broadcast index (take_along_dim's broadcast
+            # fixes a symbolic batch dim under torch.export)
+            idx = idx.expand((x.shape[0], 1) + tuple(x.shape[2:]))
+            return torch.gather(x, 1, idx).squeeze(1)
         if pool_type == "first":
             return x[:, 0]
         raise ValueError(f"unknown pool_type {pool_type}")

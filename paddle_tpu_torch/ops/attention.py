@@ -20,7 +20,7 @@ still return the pool so call sites read as in the JAX package.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -489,16 +489,41 @@ def flash_bwd_kernels(q, k, v, o, lse, g, scale: float, causal: bool):
     return dq, dk, dv
 
 
+# The forward as the custom op ``torch.ops.paddle_tpu_torch.flash_fwd``
+# (q, k, v, scale, causal) -> (o, lse): its CPU implementation is the plain
+# version, its CUDA one the kernel, chosen by the tensors' device; a fake
+# implementation gives the shapes (symbolic ones too).  ``_Flash`` and the
+# no-gradient path call it, so an eager step, a captured one and
+# ``torch.export`` of an inference program (``io.save_inference_model``,
+# whose graph then holds this op as one node) launch the same kernel.
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, causal: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _fwd_reference(q, k, v, scale, causal)
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, scale, causal):
+    return flash_fwd_kernel(q, k, v, scale, causal)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, scale, causal):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
 class _Flash(torch.autograd.Function):
     """Flash attention over [N, T, D] with its hand-written gradient; saves
     (q, k, v, o, lse) for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_k):
-        if q.device.type == "cpu":
-            o, lse = _fwd_reference(q, k, v, scale, causal)
-        else:
-            o, lse = flash_fwd_kernel(q, k, v, scale, causal)
+        o, lse = flash_fwd_op(q, k, v, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal, ctx.block_k = scale, causal, block_k
         return o
@@ -524,7 +549,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``block_k`` is the backward's K block (the JAX signature's ``block_q``
     only sized the TPU kernel's grid and has no counterpart here); meta
     tensors give an empty output of the right shape and dtype and launch
-    nothing."""
+    nothing.  Without a gradient to take, the forward is one call of the
+    custom op ``paddle_tpu_torch::flash_fwd``."""
     if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not "
                          f"{q.device.type}")
@@ -539,8 +565,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = v.reshape(b * h, tk, d)
     if q.device.type == "meta":
         out = torch.empty(q.shape, dtype=q.dtype, device="meta")
-    else:
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
         out = _Flash.apply(q, k, v, float(scale), bool(causal), int(block_k))
+    else:
+        out = flash_fwd_op(q, k, v, float(scale), bool(causal))[0]
     if squeeze:
         out = out.reshape(b, h, tq, d)
     return out

@@ -311,20 +311,40 @@ def igemm_conv_fused_kernel(x_nhwc: torch.Tensor, w_hwio: torch.Tensor,
 
 
 # ------------------------------------------------------------------ public
+#
+# The two entry points are the custom ops ``torch.ops.paddle_tpu_torch.
+# conv_igemm`` (x, w) and ``conv_igemm_fused`` (x, w, a, b): their CPU
+# implementations are the plain versions, their CUDA ones the kernels on
+# the route ``conv_route`` gives (gather, halo or halo_f32), chosen by the
+# tensors' device; a fake implementation gives the shape (a symbolic batch
+# too).  So an inference step run eagerly, captured, or exported by
+# ``torch.export`` (``io.save_inference_model``, whose graph holds each
+# routed conv as one node) launches the same kernels.
 
 
+def _conv_fake(x_nhwc, w_hwio, *ab):
+    n, h, w = x_nhwc.shape[:3]
+    return x_nhwc.new_empty((n, h, w, w_hwio.shape[3]))
+
+
+@torch.library.custom_op("paddle_tpu_torch::conv_igemm", mutates_args=(),
+                         device_types="cpu")
 def igemm_conv(x_nhwc: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
     """3x3 SAME conv, ``[N, H, W, C] x [3, 3, C, O] -> [N, H, W, O]``: the
     kernel on CUDA tensors, the plain version on CPU ones."""
-    if x_nhwc.device.type == "cpu":
-        return igemm_conv_reference(x_nhwc, w_hwio)
-    return igemm_conv_kernel(x_nhwc, w_hwio)
+    return igemm_conv_reference(x_nhwc, w_hwio)
 
 
+@torch.library.custom_op("paddle_tpu_torch::conv_igemm_fused",
+                         mutates_args=(), device_types="cpu")
 def igemm_conv_fused(x_nhwc: torch.Tensor, w_hwio: torch.Tensor,
                      a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``max(conv * a + b, 0)``: the kernel on CUDA tensors, the plain
     version on CPU ones."""
-    if x_nhwc.device.type == "cpu":
-        return igemm_conv_fused_reference(x_nhwc, w_hwio, a, b)
-    return igemm_conv_fused_kernel(x_nhwc, w_hwio, a, b)
+    return igemm_conv_fused_reference(x_nhwc, w_hwio, a, b)
+
+
+igemm_conv.register_kernel("cuda")(igemm_conv_kernel)
+igemm_conv_fused.register_kernel("cuda")(igemm_conv_fused_kernel)
+igemm_conv.register_fake(_conv_fake)
+igemm_conv_fused.register_fake(_conv_fake)

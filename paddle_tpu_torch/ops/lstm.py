@@ -25,6 +25,7 @@ never count.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -306,6 +307,45 @@ def lstm_bwd_cuda(g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, size: int,
 
 # ------------------------------------------------------------------ public
 
+# The forward without the backward's residuals as the custom op
+# ``torch.ops.paddle_tpu_torch.lstm_fwd`` (xw, u, peep, mask, size,
+# use_peepholes, gate, cell and candidate activations) -> (hs, c_final):
+# its CPU implementation is the plain version, its CUDA one the forward
+# kernel on the route ``lstm_route`` gives, chosen by the tensors' device;
+# a fake implementation gives the shapes.  ``_LSTM`` calls it on the CPU,
+# and ``fused_lstm`` wherever no gradient is taken, so that ``torch.export``
+# of an inference program (``io.save_inference_model``) holds it as one
+# node.  On the card a forward that keeps residuals for the backward calls
+# ``lstm_fwd_kernel`` itself: the same kernel, with the residual outputs.
+
+
+@torch.library.custom_op("paddle_tpu_torch::lstm_fwd", mutates_args=(),
+                         device_types="cpu")
+def lstm_fwd_op(xw: torch.Tensor, u: torch.Tensor, peep: torch.Tensor,
+                mask: torch.Tensor, size: int, use_peepholes: bool,
+                gate_activation: str, cell_activation: str,
+                candidate_activation: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _lstm_scan(xw, u, peep, mask, size, use_peepholes,
+                      (gate_activation, cell_activation,
+                       candidate_activation))
+
+
+@lstm_fwd_op.register_kernel("cuda")
+def _lstm_fwd_cuda(xw, u, peep, mask, size, use_peepholes, gate_activation,
+                   cell_activation, candidate_activation):
+    hs, _, cc, _, _ = lstm_fwd_kernel(
+        xw, u, peep, mask, size, use_peepholes,
+        (gate_activation, cell_activation, candidate_activation), False)
+    return hs, cc[-1].clone()
+
+
+@lstm_fwd_op.register_fake
+def _lstm_fwd_fake(xw, u, peep, mask, size, use_peepholes, gate_activation,
+                   cell_activation, candidate_activation):
+    T, B = xw.shape[0], xw.shape[1]
+    return xw.new_empty((T, B, size)), xw.new_empty((B, size))
+
 
 class _LSTM(torch.autograd.Function):
     """The recurrence with its gradient; returns (hs, c_final)."""
@@ -317,15 +357,15 @@ class _LSTM(torch.autograd.Function):
         ctx.hs_like = dict(size=(xw.shape[0], xw.shape[1], size),
                            dtype=xw.dtype, device=xw.device)
         if ctx.on_cpu:
-            hs, c_final = _lstm_scan(xw, u, peep, mask, size, use_peepholes,
-                                     acts)
+            hs, c_final = lstm_fwd_op(xw, u, peep, mask, size, use_peepholes,
+                                      *acts)
             ctx.save_for_backward(xw, u, peep, mask)
             return hs, c_final
-        residuals = any(ctx.needs_input_grad[:3])
+        # on the card only when a gradient is taken (``fused_lstm``): the
+        # kernel keeps the residuals for the backward
         hs, hc, cc, gates, cnew = lstm_fwd_kernel(
-            xw, u, peep, mask, size, use_peepholes, acts, residuals)
-        if residuals:
-            ctx.save_for_backward(u, peep, mask, hc, cc, gates, cnew)
+            xw, u, peep, mask, size, use_peepholes, acts, True)
+        ctx.save_for_backward(u, peep, mask, hc, cc, gates, cnew)
         return hs, cc[-1].clone()
 
     @staticmethod
@@ -367,7 +407,9 @@ def fused_lstm(xw: torch.Tensor, u: torch.Tensor, peep: torch.Tensor,
     Returns (hs [T, B, size] zero past each row's length, c_final [B, size]
     frozen at each row's last valid step).  CUDA tensors run the kernels
     (contiguous float32 only) or raise; CPU tensors run the plain versions;
-    meta tensors give empty outputs of the right shapes."""
+    meta tensors give empty outputs of the right shapes.  Without a
+    gradient to take, one call of the custom op
+    ``paddle_tpu_torch::lstm_fwd``."""
     acts = (gate_activation, cell_activation, candidate_activation)
     for a in acts:
         if a not in ACT_CODE:
@@ -381,6 +423,10 @@ def fused_lstm(xw: torch.Tensor, u: torch.Tensor, peep: torch.Tensor,
         T, B = xw.shape[0], xw.shape[1]
         return (torch.empty((T, B, size), dtype=xw.dtype, device="meta"),
                 torch.empty((B, size), dtype=xw.dtype, device="meta"))
+    if not (torch.is_grad_enabled() and (xw.requires_grad or u.requires_grad
+                                         or peep.requires_grad)):
+        return lstm_fwd_op(xw, u, peep, mask, size, bool(use_peepholes),
+                           *acts)
     return _LSTM.apply(xw, u, peep, mask, size, bool(use_peepholes), acts)
 
 

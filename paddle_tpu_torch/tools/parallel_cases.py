@@ -997,7 +997,163 @@ def mixing_case(spec: dict) -> dict:
     return out
 
 
-KINDS = {"c13": c13_case, "ppep": ppep_case, "table": table_case, "serve": serve_case, "gpipe": gpipe_case, "mixing": mixing_case, "program": program_case, "attention": attention_case,
+def _cluster_model(fl):
+    """fc(x [4]) -> sigmoid, the log loss, SGD(0.5): the resilience
+    tests' model."""
+    x = fl.layers.data("x", [4])
+    y = fl.layers.data("y", [1])
+    pred = fl.layers.fc(x, 1, act="sigmoid")
+    loss = fl.layers.mean(fl.layers.log_loss(pred, y))
+    return x, y, loss
+
+
+def cluster_batches(n: int, seed: int = 0) -> list:
+    """``n`` batches of 8 (x, y) samples of the cluster case's model."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        xs = rng.rand(8, 4).astype("float32")
+        ys = (xs.sum(axis=1, keepdims=True) > 2.0).astype("float32")
+        out.append([(xs[j], ys[j]) for j in range(8)])
+    return out
+
+
+def _corrupt_blob(d: str, step: int) -> None:
+    import os
+
+    with open(os.path.join(d, f"ckpt-{step}", "persistables.npz"),
+              "r+b") as f:
+        f.write(b"garbage")
+
+
+def cluster_case(spec: dict) -> dict:
+    """``resilience.cluster`` and the checkpoint paths on a gang (one
+    directory a rank under ``spec["dir"]``): named barriers (a repeated tag
+    and a mismatched one); ``agree_restore_step`` with rank 1's newest
+    checkpoint corrupted (every rank restores the newest common step,
+    the pointers left where they were); a Trainer resuming on every rank
+    (``RestoreAgreed``, the agreed step, the steps that follow); and a
+    ZeRO-1 checkpoint over dp = 2: ``CheckpointStrategyMismatch`` with no
+    strategy and with dp = 1, nothing quarantined, then a restore with the
+    same strategy whose next step is bitwise the step without it."""
+    import os
+
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fl
+    from paddle_tpu_torch import io, parallel
+    from paddle_tpu_torch.resilience import cluster
+
+    rank = dist.get_rank()
+    base = os.path.join(spec["dir"], f"rank{rank}")
+    out: dict = {}
+    cluster.barrier("start")
+    cluster.barrier("start")
+    try:
+        cluster.barrier("odd" if rank else "even", timeout_s=30)
+    except RuntimeError as e:
+        out["barrier_mismatch"] = str(e)
+
+    # agreement: steps 1-3 on every rank, rank 1's step 3 corrupt
+    _fresh()
+    _, _, loss = _cluster_model(fl)
+    fl.optimizer.SGD(0.5).minimize(loss)
+    exe = fl.Executor(fl.CPUPlace())
+    exe.run(fl.default_startup_program())
+    feeder = fl.DataFeeder(fl.default_main_program().global_block.vars[n]
+                           for n in ("x", "y"))
+    cm = io.CheckpointManager(os.path.join(base, "agree"))
+    weights = {}
+    for step, batch in enumerate(cluster_batches(3), 1):
+        exe.run(feed=feeder.feed(batch), fetch_list=[loss])
+        cm.save(step)
+        weights[step] = fl.global_scope().find_var("fc_w_0").clone()
+    if rank == 1:
+        _corrupt_blob(cm.dirname, 3)
+    out["intact"] = cm.intact_steps()
+    out["agreed"] = cluster.agree_restore_step(out["intact"])
+    state = cm.restore(limit_step=out["agreed"])
+    out["restored"] = state["step"]
+    out["restored_bitwise"] = bool(torch.equal(
+        fl.global_scope().find_var("fc_w_0"), weights[state["step"]]))
+    out["latest_after"] = cm.latest_step()
+
+    # the Trainer's resume in a gang: 1 pass of 4 batches, checkpoints at
+    # 2 and 4; rank 1's 4 corrupted; a new Trainer resumes for 2 passes
+    d = os.path.join(base, "trainer")
+    for run in range(2):
+        _fresh()
+        x, y, loss = _cluster_model(fl)
+        events = []
+        tr = fl.Trainer(loss, fl.optimizer.SGD(0.5), [x, y],
+                        checkpoint_dir=d, checkpoint_every_n_steps=2,
+                        place=fl.CPUPlace())
+        tr.train(lambda: iter(cluster_batches(4)), num_passes=run + 1,
+                 event_handler=events.append)
+        if run == 0 and rank == 1:
+            _corrupt_blob(d, 4)
+    out["trainer_events"] = [
+        (type(e).__name__,) + tuple(vars(e).values())
+        for e in events if type(e).__name__ in ("RestoreAgreed", "BeginPass")]
+    out["trainer_step"] = tr.global_step
+
+    # the Trainer under a Strategy over dp = 2 (its steps eager, its
+    # checkpoints gathered whole) against the same Trainer without one
+    out["strategy_costs"] = {}
+    for arm in ("single", "dp2"):
+        _fresh()
+        x, y, loss = _cluster_model(fl)
+        costs = []
+        tr = fl.Trainer(
+            loss, fl.optimizer.SGD(0.5), [x, y],
+            strategy=(parallel.Strategy(parallel.make_mesh({"dp": 2}))
+                      if arm == "dp2" else None),
+            checkpoint_dir=os.path.join(base, f"strategy_{arm}"),
+            checkpoint_every_n_steps=2, place=fl.CPUPlace())
+        tr.train(lambda: iter(cluster_batches(4, seed=1)), num_passes=1,
+                 event_handler=lambda e: costs.append(e.cost)
+                 if type(e).__name__ == "EndIteration" else None)
+        out["strategy_costs"][arm] = costs
+    out["strategy_ckpt_shape"] = tuple(np.load(os.path.join(
+        base, "strategy_dp2", "ckpt-4", "persistables.npz"))["fc_w_0"].shape)
+
+    # ZeRO-1: Adam on fc(x [7], 5), no dim divisible by dp = 2 (packed)
+    _fresh()
+    x = fl.layers.data("x", [7])
+    lab = fl.layers.data("lab", [1], dtype="int32")
+    logits = fl.layers.fc(x, 5)
+    loss = fl.layers.mean(fl.layers.softmax_with_cross_entropy(logits, lab))
+    fl.optimizer.Adam(1e-2).minimize(loss)
+    strategy = parallel.Strategy(parallel.make_mesh({"dp": 2}),
+                                 shard_optimizer_state=True)
+    other = parallel.Strategy(parallel.make_mesh({"dp": 1, "tp": 2}),
+                              shard_optimizer_state=True)
+    exe = fl.Executor(fl.CPUPlace(), strategy=strategy)
+    exe.run(fl.default_startup_program())
+    rng = np.random.RandomState(0)
+    feeds = [{"x": rng.randn(8, 7).astype("float32"),
+              "lab": rng.randint(0, 5, (8, 1)).astype("int32")}
+             for _ in range(2)]
+    exe.run(feed=feeds[0], fetch_list=[loss])
+    cm = io.CheckpointManager(os.path.join(base, "zero1"))
+    cm.save(1, strategy=strategy)
+    want = exe.run(feed=feeds[1], fetch_list=[loss])[0]
+    mismatches = []
+    for st in (None, other):
+        try:
+            cm.restore(strategy=st)
+        except io.CheckpointStrategyMismatch as e:
+            mismatches.append(str(e))
+    out["zero1_mismatches"] = mismatches
+    out["zero1_kept"] = os.path.isdir(os.path.join(cm.dirname, "ckpt-1"))
+    state = cm.restore(strategy=strategy)
+    out["zero1_state"] = (state["zero1_packed"], state["zero1_dp"])
+    got = exe.run(feed=feeds[1], fetch_list=[loss])[0]
+    out["zero1_resumed_bitwise"] = got.tobytes() == want.tobytes()
+    return out
+
+
+KINDS = {"c13": c13_case, "cluster": cluster_case, "ppep": ppep_case, "table": table_case, "serve": serve_case, "gpipe": gpipe_case, "mixing": mixing_case, "program": program_case, "attention": attention_case,
          "collectives": collectives_case, "lm_leg": lm_leg_case}
 
 

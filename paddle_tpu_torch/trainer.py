@@ -1,17 +1,447 @@
-"""Trainers (PyTorch port of the part of ``paddle_tpu/trainer.py`` the
-sparse engine needs): ``SparseEmbeddingTrainer``.  The v2-style
-``Trainer`` (the pass / batch event loop with checkpoints and the anomaly
-guard's rollback) is ROADMAP A.12 (rest)."""
+"""Trainers (PyTorch port of ``paddle_tpu/trainer.py``): the v2-style
+``Trainer``, the pass / batch event loop (ref: python/paddle/v2/trainer.py:24
+``class SGD``; Trainer.cpp:265 ``Trainer::train``), and
+``SparseEmbeddingTrainer``, which trains the sparse embedding engine.
+
+``Trainer`` wraps the Program / Executor machinery: reader -> DataFeeder ->
+``DeviceFeeder`` (asynchronous staging on the device) -> the step, with
+events to a callback, periodic checkpoints (``io.CheckpointManager``),
+resume, the anomaly guard's skip and rollback, preemption and hang
+handling (``resilience.cluster``) and ``test()`` over an eval reader.
+
+The reference compiles each new step signature on its first run.  The
+port warms it instead (``Executor.warm``, before its first batch), so that
+every step of a signature after that replays one CUDA graph; a program
+that ``check_capturable`` refuses (a host read every run: ``cond``, an
+unbounded ``while_loop``, ``Print``), and any step under a Strategy, runs
+eagerly, their documented path.  ``recompile_guard`` watches the captures
+(``Executor.compiles``) past the first synced step.  The reference's
+compile store, warm start and ``prepare()`` (``compile_dir``), its
+profiler counters, metrics, trace spans and flight-recorder dumps are
+ROADMAP A.10.
+"""
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import os
+import shutil
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import events as _events
 from .compile import guard as _guard
-from .core.graphs import Graphs, Staged
+from .core.executor import (Executor, Scope, _to_numpy, check_capturable,
+                            global_scope)
+from .core.graphs import Graphs, Staged, WarmError
+from .core.program import Variable, default_startup_program
+from .core.types import dtype_name
+from .data_feeder import DataFeeder, DeviceFeeder
+from .io import CheckpointCorrupt, CheckpointManager
+from .resilience import cluster as _cluster
+from .resilience import faults
+
+
+class AnomalyBudgetExceeded(RuntimeError):
+    """Anomalous (non-finite) steps persisted past the budget and past
+    ``max_rollbacks`` checkpoint rollbacks: the data or the model is
+    systematically broken; refusing to spin forever."""
+
+
+def _scalar(t) -> float:
+    return float(_to_numpy(torch.as_tensor(t)).ravel()[0])
+
+
+class Trainer:
+    """The pass / batch loop over ``cost``'s program (``optimizer.minimize``
+    runs here).  Arguments as the reference's, plus ``place``: the
+    Executor's (the CUDA card unless given ``CPUPlace()``).
+
+    ``checkpoint_dir`` / ``checkpoint_every_n_steps``: a checkpoint (with
+    ``extra={"pass_id", "batch_id"}``) every N steps and one at the end;
+    ``train(resume=True)`` restores the newest intact one first.
+    ``anomaly_guard``: the program's on-device guard (a step whose loss or
+    any gradient is not finite keeps the old state and fetches a NaN
+    loss); the loop skips such a batch (``AnomalyDetected``), rolls back to
+    the newest intact checkpoint past ``anomaly_budget`` consecutive ones
+    and replays the pass, and raises ``AnomalyBudgetExceeded`` past
+    ``max_rollbacks``.  ``task_queue``: any object with the reference's
+    ``snapshot(path)``, ``rewind(path)`` and ``new_epoch()``; its snapshot
+    (``queue_snapshot_path``) rides with every checkpoint, and a rollback
+    rewinds it to the one paired with the restored checkpoint.
+    ``handle_preemption``: SIGTERM / SIGINT drain (finish the staged
+    batches, checkpoint, exit ``EXIT_PREEMPTED``); ``hang_timeout_s``: the
+    watchdog.  ``compile_dir`` (the reference's compile store) raises, and
+    its ``warm_start`` is not taken: ROADMAP A.10."""
+
+    def __init__(
+        self,
+        cost: Variable,
+        optimizer,
+        feed_list: Sequence[Variable],
+        extra_fetch: Optional[Dict[str, Variable]] = None,
+        strategy=None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every_n_steps: int = 1000,
+        prefetch_depth: int = 2,
+        task_queue=None,
+        queue_snapshot_path: Optional[str] = None,
+        anomaly_guard: bool = True,
+        anomaly_budget: int = 3,
+        max_rollbacks: int = 2,
+        hang_timeout_s: Optional[float] = None,
+        handle_preemption: bool = True,
+        log_every: int = 1,
+        compile_dir: Optional[str] = None,
+        recompile_budget: int = 4,
+        recompile_policy: str = "warn",
+        place=None,
+    ):
+        if compile_dir is not None:
+            raise NotImplementedError(
+                "Trainer(compile_dir=...): the compile store, its manifest "
+                "and the warm start are not ported yet (ROADMAP A.10); each "
+                "new step signature is warmed in process")
+        self.cost = cost
+        self.program = cost.program
+        optimizer.minimize(cost)
+        self.test_program = self.program.clone(for_test=True)
+        self.feed_vars = list(feed_list)
+        self.extra_fetch = dict(extra_fetch or {})
+        self.strategy = strategy
+        self.exe = Executor(place, strategy=strategy)
+        self.feeder = DataFeeder(self.feed_vars)
+        self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+        self.ckpt_every = checkpoint_every_n_steps
+        self.prefetch_depth = prefetch_depth
+        self.global_step = 0
+        # the queue's snapshot rides with every checkpoint, so that a
+        # restart resumes the weights AND the dataset position
+        self.task_queue = task_queue
+        self.queue_snapshot_path = queue_snapshot_path
+        self.anomaly_guard = anomaly_guard
+        self.anomaly_budget = anomaly_budget
+        self.max_rollbacks = max_rollbacks
+        self.hang_timeout_s = hang_timeout_s
+        self.handle_preemption = handle_preemption
+        # fetching the cost to the host every step is a sync: log_every=N
+        # syncs every Nth step (and the pass's last); EndIteration and the
+        # host-side anomaly budget run there, while the on-device guard
+        # still keeps every poisoned update out
+        self.log_every = max(1, int(log_every))
+        self._preempt: Optional[_cluster.PreemptionGuard] = None
+        self._watchdog: Optional[_cluster.Watchdog] = None
+        self._warmed: set = set()
+        self._capturable: Optional[bool] = None
+        self.recompile_guard = _guard.RecompileGuard(
+            lambda: self.exe.compiles, budget=recompile_budget,
+            policy=recompile_policy, name="train")
+        if anomaly_guard:
+            # on the TRAIN program only (after the for_test clone)
+            self.program.anomaly_guard = cost.name
+            self.program._version += 1  # no step warmed before it replays
+        elif getattr(self.program, "anomaly_guard", None) is not None:
+            # guard off must really apply the updates
+            self.program.anomaly_guard = None
+            self.program._version += 1
+
+    def prepare(self, wait: bool = True, timeout: Optional[float] = None):
+        """The reference's manifest-driven warm start (ROADMAP A.10)."""
+        raise NotImplementedError(
+            "Trainer.prepare: the warm start from a compile manifest is not "
+            "ported yet (ROADMAP A.10); train() warms each new step "
+            "signature before its first batch")
+
+    # ------------------------------------------------------------------ step
+    def _run_step(self, feed, fetch):
+        """One training step: a signature seen for the first time is warmed
+        first (when the program and the Executor can capture), then run;
+        returns the fetches as device tensors."""
+        if self._capturable is None:
+            try:
+                check_capturable(self.program)
+                self._capturable = self.strategy is None
+            except WarmError:
+                self._capturable = False
+        if self._capturable:
+            block = self.program.global_block
+            sig = tuple(sorted(
+                (n, tuple(int(d) for d in v.shape), dtype_name(
+                    block.vars[n].dtype if n in block.vars else v.dtype))
+                for n, v in feed.items()))
+            key = (sig, tuple(f.name for f in fetch))
+            if key not in self._warmed:
+                self.exe.warm(self.program, sig, list(key[1]),
+                              scope=global_scope())
+                self._warmed.add(key)
+        return self.exe.run(self.program, feed=feed, fetch_list=fetch,
+                            return_numpy=False)
+
+    # ------------------------------------------------------------------ train
+    def train(self, reader, num_passes: int = 1,
+              event_handler: Optional[Callable] = None,
+              resume: bool = True):
+        handler = event_handler or (lambda e: None)
+        self._preempt = (_cluster.PreemptionGuard().install()
+                         if self.handle_preemption else None)
+        # created unstarted: restore and agreement time is not a hang; each
+        # pass attempt starts it at its first step
+        self._watchdog = (_cluster.Watchdog(self.hang_timeout_s,
+                                            name="train.step")
+                          if self.hang_timeout_s else None)
+        try:
+            self.exe.run(default_startup_program())
+            start_pass = 0
+            if self.ckpt and resume:
+                state = self._restore_agreed(handler)
+                if state:
+                    self.global_step = state["step"]
+                    start_pass = state["extra"].get("pass_id", 0)
+            fetch = [self.cost] + list(self.extra_fetch.values())
+            fetch_keys = list(self.extra_fetch.keys())
+            for pass_id in range(start_pass, num_passes):
+                handler(_events.BeginPass(pass_id))
+                rollbacks = 0
+                while True:
+                    done, last_metrics = self._train_pass(
+                        pass_id, reader, handler, fetch, fetch_keys)
+                    if done:
+                        break
+                    if rollbacks >= self.max_rollbacks:
+                        raise AnomalyBudgetExceeded(
+                            f"pass {pass_id}: non-finite steps persisted "
+                            f"through {rollbacks} checkpoint rollback(s): "
+                            f"data or model is systematically producing "
+                            f"NaN/inf")
+                    rollbacks += 1
+                    if self._watchdog is not None:
+                        # recovery I/O is not step progress
+                        self._watchdog.stop()
+                    self._rollback()
+                handler(_events.EndPass(pass_id, last_metrics))
+                if self.task_queue is not None:
+                    self.task_queue.new_epoch()
+            if self.ckpt:
+                self.ckpt.save(self.global_step, self.program,
+                               extra={"pass_id": num_passes},
+                               strategy=self.strategy)
+            self._snapshot_queue()
+        finally:
+            # no watchdog thread outlives train(), and the signal
+            # disposition is restored, whatever path left the loop
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
+            if self._preempt is not None:
+                self._preempt.uninstall()
+                self._preempt = None
+
+    def _train_pass(self, pass_id, reader, handler, fetch, fetch_keys):
+        """One attempt at a pass: (True, last metrics) when the reader is
+        exhausted; (False, ...) on an anomaly-budget breach, so that
+        train() rolls back and replays the pass.  The feed pipeline is
+        closed before returning: its producer must stop before a rollback
+        rewinds the task queue underneath it."""
+        last_metrics: Dict[str, float] = {}
+        consecutive_anomalies = 0
+        last_batch = -1
+        feed_iter = self._device_feeds(reader)
+        if self._watchdog is not None and not self._watchdog.alive():
+            self._watchdog.start()
+        try:
+            pending = None  # (batch_id, outs) of the newest un-synced step
+            batch_id = -1
+            for feed in feed_iter:
+                batch_id += 1
+                last_batch = batch_id
+                if self._preempt is not None and self._preempt.preempted:
+                    # stop pulling new work, but train the batches already
+                    # staged: a task marked done whose batches never
+                    # trained would be lost on resume
+                    feed_iter.stop_intake()
+                handler(_events.BeginIteration(pass_id, batch_id))
+                faults.check("collective.step")
+                outs = self._run_step(feed, fetch)
+                if self._watchdog is not None:
+                    self._watchdog.beat()
+                if batch_id % self.log_every != 0:
+                    pending = (batch_id, outs)
+                    self.global_step += 1
+                    self._maybe_checkpoint(pass_id, batch_id)
+                    continue
+                pending = None
+                cost = _scalar(outs[0])
+                if self.anomaly_guard and not np.isfinite(cost):
+                    # the on-device guard already kept the old state; with
+                    # the guard off the update WAS applied, and the NaN
+                    # cost reaches the handler like any other
+                    consecutive_anomalies += 1
+                    handler(_events.AnomalyDetected(pass_id, batch_id, cost,
+                                                    consecutive_anomalies))
+                    if consecutive_anomalies > self.anomaly_budget:
+                        return False, last_metrics
+                    continue
+                consecutive_anomalies = 0
+                last_metrics = {k: _scalar(v)
+                                for k, v in zip(fetch_keys, outs[1:])}
+                handler(_events.EndIteration(pass_id, batch_id, cost,
+                                             last_metrics))
+                # the first synced step closes warmup: captures after it
+                # are attributed to the feed shapes that just ran
+                if not self.recompile_guard.steady:
+                    self.recompile_guard.mark_steady()
+                else:
+                    self.recompile_guard.check(
+                        "|".join(f"{n}{list(v.shape)}"
+                                 for n, v in sorted(feed.items())))
+                self.global_step += 1
+                self._maybe_checkpoint(pass_id, batch_id)
+            if pending is not None:
+                # the pass ends with real metrics (and an EndIteration) even
+                # when its last step fell between log points
+                batch_id, outs = pending
+                cost = _scalar(outs[0])
+                if self.anomaly_guard and not np.isfinite(cost):
+                    consecutive_anomalies += 1
+                    handler(_events.AnomalyDetected(pass_id, batch_id, cost,
+                                                    consecutive_anomalies))
+                else:
+                    last_metrics = {k: _scalar(v)
+                                    for k, v in zip(fetch_keys, outs[1:])}
+                    handler(_events.EndIteration(pass_id, batch_id, cost,
+                                                 last_metrics))
+            if self._preempt is not None and self._preempt.preempted:
+                self._drain_preemption(pass_id, last_batch, handler)
+            return True, last_metrics
+        finally:
+            feed_iter.close()
+
+    def _maybe_checkpoint(self, pass_id: int, batch_id: int) -> None:
+        if self.global_step % self.ckpt_every == 0:
+            if self.ckpt:
+                self.ckpt.save(self.global_step, self.program,
+                               extra={"pass_id": pass_id,
+                                      "batch_id": batch_id},
+                               strategy=self.strategy)
+            self._snapshot_queue()
+
+    def _drain_preemption(self, pass_id: int, batch_id: int, handler) -> None:
+        """The grace flag is armed and the staged steps are done: checkpoint
+        at the current step with the queue snapshot, tell the handler, and
+        exit with the resumable code."""
+        if self.ckpt:
+            self.ckpt.save(self.global_step, self.program,
+                           extra={"pass_id": pass_id, "batch_id": batch_id,
+                                  "preempted": True},
+                           strategy=self.strategy)
+        self._snapshot_queue()
+        handler(_events.Preempted(pass_id, batch_id, self.global_step))
+        _cluster.resumable_exit(_cluster.EXIT_PREEMPTED)
+
+    def _restore_agreed(self, handler=None):
+        """Restore for resume or rollback.  One rank: the plain restore, no
+        collective.  A gang: the ranks agree on the newest step every rank
+        holds intact (``agree_restore_step``, a ``RestoreAgreed`` event) and
+        all restore it."""
+        if self.ckpt is None:
+            return None
+        from . import distributed
+
+        if distributed.process_count() <= 1:
+            return self.ckpt.restore(strategy=self.strategy,
+                                     device=self.exe.device)
+        local = self.ckpt.intact_steps()
+        agreed = _cluster.agree_restore_step(local)
+        if handler is not None:
+            handler(_events.RestoreAgreed(local[0] if local else None, agreed))
+        if agreed is None:
+            return None
+        return self.ckpt.restore(strategy=self.strategy, limit_step=agreed,
+                                 device=self.exe.device)
+
+    def _rollback(self):
+        """Past the budget: restore the newest intact checkpoint (agreed in
+        a gang) and rewind the dataset queue to the snapshot paired with
+        it, so that the replayed pass re-reads the batches that poisoned
+        this attempt; with no checkpoint left, the initial parameters."""
+        state = None
+        if self.ckpt:
+            try:
+                state = self._restore_agreed()
+            except CheckpointCorrupt:
+                # every checkpoint is corrupt: replay from scratch rather
+                # than crash mid-recovery (environment errors propagate)
+                state = None
+        if state is not None:
+            self.global_step = state["step"]
+        else:
+            self.exe.run(default_startup_program())
+            self.global_step = 0
+        if self.task_queue is not None:
+            # only the snapshot PAIRED with the restored checkpoint is a
+            # valid cursor; without one, requeue everything
+            snap = None
+            if state is not None and self.ckpt:
+                cand = os.path.join(self.ckpt._ckpt_dir(state["step"]),
+                                    "queue.snap")
+                if os.path.exists(cand):
+                    snap = cand
+            if snap is not None:
+                try:
+                    self.task_queue.rewind(snap)
+                except (OSError, ValueError):
+                    self.task_queue.new_epoch()
+            else:
+                self.task_queue.new_epoch()
+
+    def _snapshot_queue(self):
+        # up to prefetch_depth batches may still be in flight when the
+        # snapshot fires; a crash in that window skips them on resume (the
+        # Go master has the same window)
+        if self.task_queue is not None and self.queue_snapshot_path:
+            self.task_queue.snapshot(self.queue_snapshot_path)
+            # pair the cursor with the checkpoint it rode along with, by
+            # tmp + rename (never a truncated pair)
+            if self.ckpt:
+                d = self.ckpt._ckpt_dir(self.global_step)
+                if os.path.isdir(d):
+                    tmp = os.path.join(d, "queue.snap.tmp")
+                    shutil.copy(self.queue_snapshot_path, tmp)
+                    os.replace(tmp, os.path.join(d, "queue.snap"))
+
+    def _device_feeds(self, reader):
+        def feed_reader():
+            for batch_samples in reader():
+                yield self.feeder.feed(batch_samples)
+
+        # the DeviceFeeder itself: the pass loop needs its stop_intake()
+        return DeviceFeeder(feed_reader, depth=self.prefetch_depth,
+                            device=self.exe.device)
+
+    # ------------------------------------------------------------------ test
+    def test(self, reader,
+             fetch: Optional[Dict[str, Variable]] = None) -> Dict[str, float]:
+        """Run the forward-only clone over an eval reader, averaging the
+        fetches (ref Tester.cpp / v2 SGD.test), eagerly, in a THROWAWAY
+        copy of the scope: the test program keeps its metric-accumulating
+        ops, whose writes must not reach the training state."""
+        fetch = fetch or {"cost": self.cost}
+        keys = list(fetch)
+        train_scope = global_scope()
+        test_scope = Scope()
+        for name, v in train_scope.items():
+            test_scope.set_var(name, v)
+        test_scope.step_counter = train_scope.step_counter
+        sums = {k: 0.0 for k in keys}
+        n = 0
+        for feed in self._device_feeds(reader):
+            outs = self.exe.run(self.test_program, feed=feed,
+                                fetch_list=[fetch[k] for k in keys],
+                                scope=test_scope, return_numpy=False)
+            for k, v in zip(keys, outs):
+                sums[k] += _scalar(v)
+            n += 1
+        return {k: sums[k] / max(n, 1) for k in keys}
 
 
 class SparseEmbeddingTrainer:
