@@ -1798,6 +1798,25 @@ def _check_pass(name, eng, handles, sched, launches, dispatches):
     return sum(eng.replays.values())
 
 
+SERVE_SAMPLED = (1, 5, 9, 13)  # the mixed pass's sampled requests
+
+
+def _mixed_reqs(rng) -> list:
+    """The serve phase's W=1 stream: 16 prompts of 16-512 tokens, 32-64
+    new tokens each, SERVE_SAMPLED of them with a sampling policy."""
+    from paddle_tpu_torch import SamplingParams
+
+    V = LM_CFG["vocab_size"]
+    reqs = []
+    for i in range(16):
+        p = rng.randint(2, V, rng.randint(16, 513)).astype(np.int32)
+        g = int(rng.randint(32, 65))
+        sp = (SamplingParams(temperature=0.8, top_p=0.9, seed=1000 + i)
+              if i in SERVE_SAMPLED else SamplingParams())
+        reqs.append((p, g, sp))
+    return reqs
+
+
 def phase_serve(card: str) -> tuple:
     from paddle_tpu_torch import (ContinuousDecodeEngine, SamplingParams,
                                   init_lm_params)
@@ -1819,14 +1838,8 @@ def phase_serve(card: str) -> tuple:
 
     # the W=1 path: its counts are this pass's alone (see _serve)
     rng = np.random.RandomState(1)
-    sampled_idx = {1, 5, 9, 13}
-    reqs = []
-    for i in range(16):
-        p = rng.randint(2, V, rng.randint(16, 513)).astype(np.int32)
-        g = int(rng.randint(32, 65))
-        sp = (SamplingParams(temperature=0.8, top_p=0.9, seed=1000 + i)
-              if i in sampled_idx else greedy)
-        reqs.append((p, g, sp))
+    sampled_idx = set(SERVE_SAMPLED)
+    reqs = _mixed_reqs(rng)
     handles, sched, wall, launches, dispatches = _serve(eng, reqs, False)
     replays = _check_pass("mixed pass", eng, handles, sched, launches,
                           dispatches)
@@ -7609,10 +7622,14 @@ def phase_trainer_io(card: str) -> dict:
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch import obs
     from paddle_tpu_torch.tools.train_profile import feed_sig
 
     shutil.rmtree(TRAINER_IO_DIR, ignore_errors=True)
     os.makedirs(TRAINER_IO_DIR)
+    # the anomaly leg's rollback postmortems stay in the phase's directory
+    os.environ["PADDLE_TPU_POSTMORTEM_DIR"] = os.path.join(TRAINER_IO_DIR,
+                                                           "postmortem")
     n_layers = LM_CFG["n_layers"]
     rec = {}
     try:
@@ -7621,8 +7638,10 @@ def phase_trainer_io(card: str) -> dict:
         cur = _Cursor()
         tr, toks, labs, loss, logits = _lm_trainer(d1, cur)
         _zero_counters()
+        obs.metrics.reset()
         losses, init, secs = _train_lm(tr, cur, batches)
         launches = _flash_counts()
+        snap = obs.metrics.snapshot()
         check(len(losses) == TRAINER_IO_STEPS and all(np.isfinite(losses)),
               f"trainer_io: losses {losses}")
         want = n_layers * (TRAINER_IO_STEPS + 1)
@@ -7639,6 +7658,24 @@ def phase_trainer_io(card: str) -> dict:
               and steps == list(range(TRAINER_IO_EVERY, TRAINER_IO_STEPS + 1,
                                       TRAINER_IO_EVERY)),
               f"trainer_io: checkpoints {steps}, latest {cm.latest_step()}")
+        # (obs) the Trainer's counters against this phase's own count: the
+        # steps, the periodic saves and the final one, one warmed signature
+        got = {k: snap["counters"].get(k, 0) for k in (
+            "train.steps", "train.epochs", "ckpt.saves",
+            "compile.executor_compiles")}
+        want = {"train.steps": TRAINER_IO_STEPS, "train.epochs": 1,
+                "ckpt.saves": len(steps) + 1,
+                "compile.executor_compiles": 1}
+        hist = snap["histograms"]
+        check(got == want and hist["train.step_ms"]["count"]
+              == TRAINER_IO_STEPS and hist["ckpt.save_ms"]["count"]
+              == len(steps) + 1,
+              f"obs trainer: counters {got}, want {want}; histograms "
+              f"{ {k: v['count'] for k, v in hist.items()} }")
+        print(f"obs trainer: counters {got} equal the phase's own count; "
+              f"train.step_ms mean {hist['train.step_ms']['sum'] / TRAINER_IO_STEPS:.2f} ms "
+              f"over {TRAINER_IO_STEPS} steps (the warm's capture in the "
+              f"first); on {card}")
 
         # the same steps on a bare Executor warmed on the same program from
         # the state the Trainer started from
@@ -7666,6 +7703,10 @@ def phase_trainer_io(card: str) -> dict:
                      "launches": launches, "checkpoints": steps}
         del exe, scope, init
         rec["artifacts"] = _trainer_io_artifacts(tr, toks, logits)
+        # the LM-logits artifact, merged, for the obs phase's Session
+        os.makedirs(OBS_DIR, exist_ok=True)
+        tio.merge_model(os.path.join(TRAINER_IO_DIR, "lm_artifact"),
+                        OBS_LM_ARTIFACT)
         del tr
         _release()
 
@@ -7702,8 +7743,327 @@ def phase_trainer_io(card: str) -> dict:
         _release()
         rec["anomaly"] = _trainer_io_anomaly(card)
     finally:
+        del os.environ["PADDLE_TPU_POSTMORTEM_DIR"]
         shutil.rmtree(TRAINER_IO_DIR, ignore_errors=True)
     return rec
+
+
+# the obs phase (PERF.md section 6): its trace directory, and the
+# merged LM-logits artifact the trainer_io phase leaves for its Session
+OBS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_obs")
+OBS_LM_ARTIFACT = os.path.join(OBS_DIR, "lm_logits.tar")
+OBS_THREADS, OBS_REQUESTS = 8, 32
+OBS_PROFILED_STEPS = 3
+
+
+def _stats_delta(before: dict, after: dict) -> dict:
+    """Per timing key: (samples, summed sampled ms) added between two
+    ``obs.prof.stats_snapshot()`` reads."""
+    out = {}
+    for k, a in after.items():
+        b = before.get(k, {"samples": 0, "mean_ms": 0.0})
+        n = a["samples"] - b["samples"]
+        if n:
+            out[k] = (n, a["mean_ms"] * a["samples"]
+                      - b["mean_ms"] * b["samples"])
+    return out
+
+
+def _obs_pass(label: str, eng, trace: bool, every, card: str) -> dict:
+    """The serve phase's mixed stream once more on its warmed engine, with
+    tracing ``trace`` and sampling every ``every``-th dispatch (None: the
+    default period): the metrics are set to 0 just before and read just
+    after, and must equal the scheduler's own tallies; every dispatch a
+    replay, n_layers paged launches a step dispatch, no capture."""
+    from paddle_tpu_torch import obs
+
+    reqs = _mixed_reqs(np.random.RandomState(1))
+    traces = eng.trace_count()
+    obs.metrics.reset()
+    obs.trace.clear()
+    if trace:
+        obs.trace.enable()
+    else:
+        obs.trace.disable()
+    obs.prof.set_sample_every(every)
+    before = obs.prof.stats_snapshot()
+    handles, sched, wall, launches, dispatches = _serve(eng, reqs, False)
+    stats = _stats_delta(before, obs.prof.stats_snapshot())
+    spans = collections.Counter(e["name"] for e in obs.trace.events())
+    obs.trace.disable()
+    obs.prof.set_sample_every(None)
+    _check_pass(f"obs {label}", eng, handles, sched, launches, dispatches)
+    check(eng.trace_count() == traces,
+          f"obs {label}: {eng.trace_count() - traces} captures")
+    c = obs.metrics.snapshot()["counters"]
+    want = {"serving.decode.prefill_inserts": "prefill_inserts",
+            "serving.decode.retired": "retired",
+            "serving.decode.preemptions": "preemptions",
+            "serving.decode.sheds": "sheds",
+            "serving.sample.requests": "sampled"}
+    got = {k: c.get(k, 0) for k in want}
+    check(got == {k: sched.counters[v] for k, v in want.items()}
+          and got["serving.decode.retired"] == len(reqs)
+          and c.get("serving.decode_traces", 0) == 0,
+          f"obs {label}: counters {got} against the scheduler's "
+          f"{sched.counters}")
+    n_step = sum(dispatches.values())
+    n_prefill = sum(eng.prefill_dispatches.values())
+    sampled = {k: n for k, (n, _) in stats.items()}
+    if every == 1:
+        steps = {k: n for k, n in sampled.items()
+                 if k.startswith("decode_step:")}
+        check(sum(steps.values()) == n_step
+              and sum(sampled.values()) == n_step + n_prefill,
+              f"obs {label}: sampled {sampled}, dispatches {n_step} steps "
+              f"+ {n_prefill} prefills")
+    if every == 0:
+        check(not sampled, f"obs {label}: sampling off timed {sampled}")
+    if trace:
+        check(spans["serving.decode.prefill_insert"]
+              == sched.counters["prefill_inserts"]
+              and 0 < spans["serving.decode.step"] <= sched.counters["steps"],
+              f"obs {label}: spans {dict(spans)}")
+        if every == 1:
+            check(spans["obs.prof.sample"] == n_step + n_prefill,
+                  f"obs {label}: {spans['obs.prof.sample']} sample spans")
+    tokens = sum(len(h.tokens) for h in handles)
+    w1 = stats.get(f"decode_step:{eng._sig_scope}:w1")
+    rec = {"tokens": tokens, "seconds": wall, "tok_s": tokens / wall,
+           "launches": launches, "step_dispatches": n_step,
+           "prefill_dispatches": n_prefill, "samples": sum(sampled.values()),
+           "w1_sampled_mean_ms": w1[1] / w1[0] if w1 else None,
+           "spans": sum(spans.values())}
+    print(f"obs {label}: {tokens} tokens in {wall:.3f} s = "
+          f"{rec['tok_s']:.1f} tok/s; {launches} paged launches = "
+          f"{eng.model.n_layers} x {n_step} step dispatches, every dispatch "
+          f"a replay, no capture; counters {got} equal the scheduler's; "
+          f"{rec['samples']} sampled dispatches"
+          + (f", sampled W=1 step mean {rec['w1_sampled_mean_ms']:.3f} ms"
+             if w1 else "") + f", {rec['spans']} spans; on {card}")
+    return rec
+
+
+def _obs_profiled_steps(eng, card: str) -> dict:
+    """(c): ``profiler.profiler()`` with PADDLE_TPU_TRACE_DIR set around
+    OBS_PROFILED_STEPS decode steps of the warmed engine: the
+    reference-named trace exists, holds the paged kernel's CUDA events,
+    and merges with the host spans."""
+    from paddle_tpu_torch import ContinuousScheduler, obs, profiler
+
+    rng = np.random.RandomState(5)
+    sched = ContinuousScheduler(eng)
+    for _ in range(2):
+        sched.submit(rng.randint(2, LM_CFG["vocab_size"], 40)
+                     .astype(np.int32), 16)
+    sched.step()                       # the joins' prefills
+    os.environ["PADDLE_TPU_TRACE_DIR"] = OBS_DIR
+    obs.trace.enable()
+    try:
+        with profiler.profiler(label="chip_smoke") as info:
+            for _ in range(OBS_PROFILED_STEPS):
+                sched.step()
+            torch.cuda.synchronize()
+        host = obs.trace.export_to_dir(label="chip_smoke")
+    finally:
+        obs.trace.disable()
+        del os.environ["PADDLE_TPU_TRACE_DIR"]
+    sched.run_until_idle()
+    sched.close()
+    want = os.path.join(OBS_DIR, f"trace-xprof-chip_smoke-{os.getpid()}.json")
+    check(info["fleet_trace"] == want and os.path.exists(want),
+          f"obs profiler: no {want} ({info})")
+    with open(want) as f:
+        evs = json.load(f)["traceEvents"]
+    paged = [e for e in evs if e.get("cat") == "kernel"
+             and "paged" in str(e.get("name", ""))]
+    check(len(paged) > 0, f"obs profiler: no paged kernel among "
+          f"{sum(e.get('cat') == 'kernel' for e in evs)} kernel events")
+    merged = obs.trace.merge_chrome_traces([want, host])
+    names = collections.Counter(e.get("name") for e in merged["traceEvents"])
+    check(len(merged["mergedFrom"]) == 2
+          and names["serving.decode.step"] == OBS_PROFILED_STEPS,
+          f"obs profiler: merged {merged['mergedFrom']}, "
+          f"{names['serving.decode.step']} step spans")
+    print(f"obs profiler: {OBS_PROFILED_STEPS} decode steps under "
+          f"profiler.profiler(): {os.path.basename(want)} holds "
+          f"{len(paged)} paged kernel events; merged with the host spans "
+          f"({len(merged['traceEvents'])} events from "
+          f"{merged['mergedFrom']}); on {card}")
+    return {"paged_kernel_events": len(paged),
+            "merged_events": len(merged["traceEvents"])}
+
+
+def phase_obs_serve(card: str, eng) -> dict:
+    """The obs phase's serving half on the serve phase's warmed engine: (a)
+    its mixed stream with tracing on and every dispatch sampled, with
+    tracing and the default sampling, and with everything off; the cost
+    ledger's entry for every prepared signature; the hotspots; (c) the
+    profiler bracket."""
+    import shutil
+
+    from paddle_tpu_torch import obs
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    os.makedirs(OBS_DIR)
+    ledger = obs.prof.ledger().by_sig_key()
+    keys = {s.prof_key for s in eng._sigs.values()}
+    bad = {k: ledger.get(k) for k in keys
+           if not (ledger.get(k, {}).get("flops", 0) > 0
+                   and ledger.get(k, {}).get("bytes_accessed", 0) > 0)}
+    check(not bad and len(keys) == eng.trace_count(),
+          f"obs: prepared signatures without a ledger entry: {bad}")
+    rec = {"traced_sampled": _obs_pass("traced, every dispatch sampled",
+                                       eng, True, 1, card),
+           "traced_default": _obs_pass("traced, default sampling", eng,
+                                       True, None, card),
+           "off": _obs_pass("tracing and sampling off", eng, False, 0,
+                            card)}
+    hot = obs.prof.hotspots(top=3)
+    print(f"obs ledger: {len(keys)} prepared signatures, each with flops "
+          f"and bytes: " + "; ".join(
+              f"{k} {ledger[k]['flops']:.4g} flops {ledger[k]['bytes_accessed']:.4g} B"
+              for k in sorted(keys)))
+    print("obs hotspots: " + obs.prof.render_hotspots(hot).replace(
+        "\n", " | "))
+    print(f"obs cost: traced + default sampling "
+          f"{rec['traced_default']['tok_s']:.1f} tok/s, traced + every "
+          f"dispatch sampled {rec['traced_sampled']['tok_s']:.1f} tok/s, "
+          f"everything off {rec['off']['tok_s']:.1f} tok/s; on {card}")
+    rec["hotspots"] = hot["rows"]
+    rec["profiler"] = _obs_profiled_steps(eng, card)
+    return rec
+
+
+def _run_all(threads, limit_s: float = 300.0) -> None:
+    """Start ``threads`` and join them all within ``limit_s`` together."""
+    for t in threads:
+        t.start()
+    end = time.monotonic() + limit_s
+    for t in threads:
+        t.join(max(end - time.monotonic(), 0.0))
+
+
+def _obs_session(card: str) -> dict:
+    """(b): a batching Session (max_batch_size=8) over the trainer_io
+    phase's LM-logits artifact; OBS_REQUESTS one-row requests from
+    OBS_THREADS threads, each row within the float32 limits of the same
+    request's unbatched call; no capture after warm; healthz carrying
+    metrics, batching stats and hotspots; flash forward launches counted.
+    Then C.15 on the card: OBS_THREADS threads on one InferenceModel, each
+    call bitwise its thread's solo result at one bucket."""
+    import threading
+
+    from paddle_tpu_torch import capi_server, obs
+    from paddle_tpu_torch.ops import flash_attention
+
+    n_layers = LM_CFG["n_layers"]
+    plain = capi_server.Session(OBS_LM_ARTIFACT)
+    rng = np.random.RandomState(29)
+    feeds = [rng.randint(0, LM_CFG["vocab_size"], (1, LM_CFG["max_len"]))
+             .astype(np.int32) for _ in range(OBS_REQUESTS)]
+    wants = []
+    for f in feeds:
+        plain.feed("toks", f.tobytes(), "int32", list(f.shape))
+        plain.run()
+        buf, dt, shape = plain.output(0)
+        wants.append(np.frombuffer(buf, dt).reshape(shape).copy())
+    del plain
+    _release()
+    sess = capi_server.Session(OBS_LM_ARTIFACT)
+    t0 = time.perf_counter()
+    sess.enable_batching(max_batch_size=8, max_queue_delay_ms=5.0)
+    warm_s = time.perf_counter() - t0
+    batcher = sess._state.batcher
+    traces = sess._infer.trace_count()
+    check(traces == len(batcher.buckets),
+          f"obs session: {traces} signatures warmed for {batcher.buckets}")
+    obs.prof.set_sample_every(1)
+    fwd0 = flash_attention.launches["fwd"]
+    errs, worst = [], [0.0]
+    lock = threading.Lock()
+
+    def client(t):
+        c = sess.clone()
+        for i in range(t, OBS_REQUESTS, OBS_THREADS):
+            try:
+                c.feed("toks", feeds[i].tobytes(), "int32",
+                       list(feeds[i].shape))
+                c.run()
+                buf, dt, shape = c.output(0)
+                d = _close_f32(f"obs session request {i}",
+                               np.frombuffer(buf, dt).reshape(shape),
+                               wants[i])
+                with lock:
+                    worst[0] = max(worst[0], d)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errs.append(e)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(t,), daemon=True)
+          for t in range(OBS_THREADS)]
+    _run_all(ts)
+    wall = time.perf_counter() - t0
+    obs.prof.set_sample_every(None)
+    check(not errs and not any(t.is_alive() for t in ts),
+          f"obs session: client errors {errs[:2]}")
+    torch.cuda.synchronize()
+    stats = batcher.stats()
+    launches = flash_attention.launches["fwd"] - fwd0
+    hz = sess.healthz()
+    check(sess._infer.trace_count() == traces,
+          f"obs session: {sess._infer.trace_count() - traces} captures after "
+          f"warm")
+    check(launches == n_layers * stats["batches"],
+          f"obs session: {launches} flash forward launches for "
+          f"{stats['batches']} batches x {n_layers} layers")
+    check(hz["batching"]["batched_requests"] == OBS_REQUESTS
+          and hz["metrics"]["counters"].get("serving.batches", 0)
+          >= stats["batches"] and hz["hotspots"]["rows"]
+          and hz["requests"] == OBS_REQUESTS and hz["errors"] == 0,
+          f"obs session: healthz {dict(hz, metrics='...')}")
+    batcher.close()
+
+    # C.15 on the card: one model, OBS_THREADS threads, one bucket
+    infer = sess._infer
+    xs = [rng.randint(0, LM_CFG["vocab_size"], (2, LM_CFG["max_len"]))
+          .astype(np.int32) for _ in range(OBS_THREADS)]
+    solo = [infer({"toks": x})[0] for x in xs]
+    wrong = [0] * OBS_THREADS
+
+    def caller(t):
+        for _ in range(3):
+            if infer({"toks": xs[t]})[0].tobytes() != solo[t].tobytes():
+                wrong[t] += 1
+
+    ts = [threading.Thread(target=caller, args=(t,), daemon=True)
+          for t in range(OBS_THREADS)]
+    _run_all(ts)
+    check(not any(t.is_alive() for t in ts) and wrong == [0] * OBS_THREADS,
+          f"obs C.15: calls that were not the caller's own: {wrong}")
+    print(f"obs session: {OBS_REQUESTS} one-row requests from {OBS_THREADS} "
+          f"threads in {wall:.2f} s through a batching Session (warm "
+          f"{warm_s:.2f} s, buckets {batcher.buckets}): {stats['batches']} "
+          f"batches, {stats['avg_requests_per_batch']:.2f} requests a batch, "
+          f"max |d| {worst[0]:.3e} against each request's unbatched call; "
+          f"no capture after warm; {launches} flash forward launches = "
+          f"{n_layers} x batches; healthz {sorted(hz)}; C.15: "
+          f"{OBS_THREADS} threads x 3 calls on one model, each bitwise its "
+          f"own solo result; on {card}")
+    return {"batches": stats["batches"], "seconds": wall, "warm_s": warm_s,
+            "max_abs_err": worst[0], "flash_fwd_launches": launches}
+
+
+def phase_obs_session(card: str) -> dict:
+    """The obs phase's Session half, on the artifact trainer_io merged;
+    the obs directory is removed at its end."""
+    import shutil
+
+    try:
+        return _obs_session(card)
+    finally:
+        shutil.rmtree(OBS_DIR, ignore_errors=True)
 
 
 def _par_launches(par: dict, which: str, kern: str) -> dict:
@@ -7732,6 +8092,7 @@ def main() -> int:
     drop = _timed("dropout kernels", phase_dropout_kernels, card)
     paths, serve_eng = _timed("serve", phase_serve, card)
     paths.update(_timed("serve extras", phase_serve_extras, card, serve_eng))
+    obs_serve = _timed("obs serve", phase_obs_serve, card, serve_eng)
     del serve_eng
     _release()
     train = _timed("train", phase_train, card)
@@ -7781,6 +8142,8 @@ def main() -> int:
     _release()
     tio = _timed("trainer_io", phase_trainer_io, card)
     _release()
+    obs_sess = _timed("obs session", phase_obs_session, card)
+    _release()
     par = _timed("parallel", phase_parallel, card)
     _release()
     # the C.2 probe runs where earlier runs took it, after the parallel
@@ -7806,6 +8169,8 @@ def main() -> int:
         "c2_probe_end_device_ms": probe_end,
         "c2_empty_profiler_windows": len(empty_windows),
         "launches_by_path": dict(paths, **{
+            f"obs {k}": r["launches"] for k, r in obs_serve.items()
+            if k in ("traced_sampled", "traced_default", "off")}, **{
             f"mesh {m} rank {i}": n for m in SERVE_MESHES
             for i, n in enumerate(mesh[f"serve {m}"]["paged"])}, **{
             f"mesh {A9_SERVE_MESH} int8 rank {i}": n
@@ -7829,6 +8194,9 @@ def main() -> int:
                                  "trainer_io lm": tio["lm"]["launches"][kern],
                                  "trainer_io resume":
                                      tio["resume"]["launches"][kern],
+                                 **({"obs session": obs_sess[
+                                     "flash_fwd_launches"]}
+                                    if kern == "fwd" else {}),
                                  **_par_launches(par, "flash", kern)},
             # the forward as the custom op paddle_tpu_torch::flash_fwd
             # against the wrapper called directly, in turns; an artifact

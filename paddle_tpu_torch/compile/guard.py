@@ -11,14 +11,19 @@ that just returned) and, past ``budget``, escalated per policy: ``warn``
 Works against any monotonic counter.  In the port that counter is the
 number of CUDA graphs captured (the signatures prepared: on the CPU, the
 bodies prepared), such as ``SparseEmbeddingTrainer.traces`` or
-``Executor.compiles``.  The reference's metrics and flight-recorder hooks
-are ROADMAP A.10.
+``Executor.compiles``.  Each steady-state capture counts
+``compile.retraces`` and each breach ``compile.storms``, and both go to the
+flight recorder as events (``recompile``, ``compile_storm``).
 """
 from __future__ import annotations
 
 import sys
 import threading
+import time
 from typing import Callable, Dict, Optional
+
+from ..obs import metrics as _metrics
+from ..obs import recorder as _recorder
 
 
 class RecompileBudgetExceeded(RuntimeError):
@@ -81,11 +86,34 @@ class RecompileGuard:
             over = total > self.budget and not self._escalated
             if over and self.policy == "raise":
                 self._escalated = True
+        if delta > 0:
+            _metrics.counter("compile.retraces").inc(delta)
+            _recorder.record_event("recompile", guard=self.name, shape=shape,
+                                   retraces=delta, steady_total=total,
+                                   time=time.time())
         if total > self.budget and delta > 0:
+            _metrics.counter("compile.storms").inc()
             msg = (f"compile storm [{self.name}]: {total} steady-state "
                    f"capture(s) exceed budget {self.budget}; last triggered "
                    f"by shape {shape} (per-shape: {self._by_shape})")
+            _recorder.record_event("compile_storm", guard=self.name,
+                                   total=total, budget=self.budget,
+                                   by_shape=dict(self._by_shape))
             if over and self.policy == "raise":
                 raise RecompileBudgetExceeded(msg)
             sys.stderr.write(f"paddle_tpu_torch compile: WARNING {msg}\n")
         return total
+
+    def stats(self) -> Dict:
+        """The healthz view: policy, budget, whether steady, the
+        steady-state captures (the reference's key, ``steady_retraces``)
+        and their per-shape attribution."""
+        with self._lock:
+            base = self._steady_base
+            total = ((self._last_seen - base)
+                     if base is not None and self._last_seen is not None
+                     else 0)
+            return {"name": self.name, "policy": self.policy,
+                    "budget": self.budget, "steady": base is not None,
+                    "steady_retraces": total,
+                    "by_shape": dict(self._by_shape)}

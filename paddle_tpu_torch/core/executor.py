@@ -46,8 +46,14 @@ reference's ``run()``, which compiles every new signature, ``run()`` of a
 signature not warmed runs eagerly and prepares nothing, since a capture
 pins a scope's state into static buffers: the port captures only when
 asked, as the reference's Trainer asks (``paddle_tpu/trainer.py:179``).
-``compiles`` counts the signatures prepared.  No persistent compile cache
-(the ``compile/`` store is ROADMAP A.10) and no dispatch sampling.
+``compiles`` counts the signatures prepared, as do the
+``compile.executor_compiles`` counter and the ``compile.compile_ms``
+histogram; each prepared signature registers its flops and bytes (counted
+at its first run) in the ``obs.prof`` cost ledger under its
+``train_step:<hash>`` key, and every replay ticks that key's sampled
+dispatch timing (a sampled replay synchronises the stream before
+``tock``).  No persistent compile cache (the ``compile/`` store is
+ROADMAP A.10).
 
 ``Executor(strategy=parallel.Strategy(mesh))`` runs the step on this
 rank's shard (``parallel/strategy.py``): the feeds sliced to the rank's
@@ -63,6 +69,9 @@ fetches gathered back whole.  ``warm`` under a Strategy raises
 from __future__ import annotations
 
 import functools
+import hashlib
+import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -72,8 +81,10 @@ from ..ops.attention import check_flash_dtype, check_flash_head_dim
 from ..ops.batch_norm import check_bn_dtype
 from ..ops.dropout import check_dropout_dtype
 from ..ops.lstm import check_lstm_dtype
+from ..obs import metrics as _metrics
+from ..obs import prof as _prof
 from .fusion import channels_last_feed, route_inference
-from .graphs import Graphs, Staged, WarmError
+from .graphs import Graphs, Staged, WarmError, sync
 from .program import (
     Op,
     OpContext,
@@ -191,11 +202,11 @@ class _Warmed:
     object or the Executor, so that dropping an Executor frees its graphs
     and their pool."""
 
-    __slots__ = ("what", "state", "feeds", "outs", "run")
+    __slots__ = ("what", "state", "feeds", "outs", "run", "sig_key")
 
     def __init__(self, what, state, feeds, outs):
         self.what, self.state, self.feeds = what, state, feeds
-        self.outs, self.run = outs, None
+        self.outs, self.run, self.sig_key = outs, None, None
 
 
 # the staged field that carries the step counter's uint32 bits into a
@@ -226,7 +237,10 @@ class Executor:
 
     ``compiles`` counts the signatures ``warm`` prepared and ``replays``
     the runs of warmed signatures (graph replays on the card, body runs on
-    the CPU)."""
+    the CPU).  ``run`` of a warmed signature is safe from many threads: one
+    lock per Executor covers the state copy-in, the staging, the replay and
+    the fetch copies (the signature's buffers are static).  Eager runs,
+    and ``warm``, take no lock: call them from one thread."""
 
     def __init__(self, place: Optional[Place] = None, strategy=None):
         self.strategy = strategy  # paddle_tpu_torch.parallel.Strategy or None
@@ -239,6 +253,7 @@ class Executor:
             self.device = distributed.device()
         self._cache: Dict[tuple, _Warmed] = {}
         self._graphs = Graphs(self.device)
+        self._lock = threading.Lock()
         self.compiles = 0
         self.replays = 0
 
@@ -364,10 +379,33 @@ class Executor:
                               fetch_names)
         if key in self._cache:
             return "cached"
-        self._cache[key] = self._prepare(program, scope, state_names,
-                                         feed_sig, fetch_names)
+        t0 = time.perf_counter()
+        sig = self._prepare(program, scope, state_names, feed_sig,
+                            fetch_names)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._cache[key] = sig
         self.compiles += 1
+        _metrics.counter("compile.executor_compiles").inc()
+        _metrics.histogram("compile.compile_ms").observe(ms)
+        sig.sig_key = self._train_sig_key(program, feed_sig, fetch_names)
+        _prof.register(
+            _prof.fingerprint("train_step", sig.sig_key, sig.what,
+                              sorted(str(v.dtype) for v in
+                                     sig.state.values())),
+            label="train_step", sig_key=sig.sig_key, source="live",
+            compile_ms=ms, cost=sig.run.cost)
         return "compiled"
+
+    @staticmethod
+    def _train_sig_key(program, feed_sig, fetch_names) -> str:
+        """The dispatch-timing key of one warmed step, the reference's
+        recipe (``paddle_tpu/core/executor.py::_train_sig_key``): a hash
+        of the program text and version, the feeds and the fetches, so
+        that two programs never share a timing row."""
+        h = hashlib.sha1(
+            repr((program.to_string(), program.version, tuple(feed_sig),
+                  tuple(fetch_names))).encode()).hexdigest()
+        return f"train_step:{h[:8]}"
 
     def _prepare(self, program, scope, state_names, feed_sig, fetch_names):
         what = (f"signature of program version {program.version}, feeds "
@@ -395,7 +433,7 @@ class Executor:
             state, feeds.t, outs)
         sig = _Warmed(what, state, feeds, outs)
         try:
-            sig.run = self._graphs.prepare(body)
+            sig.run = self._graphs.prepare(body, count=True)
         except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
             raise WarmError(f"warming the {what} failed: {exc}") from exc
         # the first run moved the static buffers: back to the scope's values
@@ -413,7 +451,12 @@ class Executor:
         as a checkpoint load), stage the feeds with the step counter (its
         low 32 bits, the reference's ``np.uint32(step_counter)``; one
         upload), replay (card) or run the body (CPU), and fetch copies,
-        which the next replay leaves alone."""
+        which the next replay leaves alone; all under the lock."""
+        with self._lock:
+            return self._replay_locked(sig, scope, feed_vals, return_numpy)
+
+    def _replay_locked(self, sig: _Warmed, scope: Scope, feed_vals,
+                       return_numpy: bool):
         with torch.no_grad():
             for n, buf in sig.state.items():
                 cur = scope.find_var(n)
@@ -426,10 +469,14 @@ class Executor:
                             f"{tuple(buf.shape)}")
                     buf.copy_(cur)
                     scope.set_var(n, buf)
+        t_prof = _prof.tick(sig.sig_key)
         try:
             sig.feeds.stage({**feed_vals, STEP_FIELD: np.array(
                 scope.step_counter & 0xFFFFFFFF, np.uint32).view(np.int32)})
             sig.run.replay()
+            if t_prof is not None:
+                sync(self.device)
+                _prof.tock(sig.sig_key, t_prof)
         except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
             raise WarmError(f"replaying the {sig.what} failed: "
                             f"{exc}") from exc

@@ -7,7 +7,9 @@ asynchronous upload.  ``Graphs.prepare`` makes a body a ``Prepared``: on
 the card a CUDA graph recorded after one eager run (``capture``), whose
 every replay adds its kernel launches to the counters
 (``ops/_counters.py``); on the CPU the body, run once, and again at every
-replay.
+replay.  ``prepare(body, count=True)`` counts the work of that first run
+(``obs.prof.analyze``: flops and bytes accessed) into ``Prepared.cost``,
+once per signature and never at a replay.
 """
 from __future__ import annotations
 
@@ -19,6 +21,14 @@ import torch
 from ..ops import _counters
 
 _ALIGN = 256  # bytes: every field starts where cudaMalloc would put it
+
+
+def sync(device) -> None:
+    """A sampled dispatch's wait before ``obs.prof.tock``: the current
+    stream's work done (nothing to wait for on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 class WarmError(RuntimeError):
@@ -107,10 +117,12 @@ class Prepared:
     so that the counters count the launches of replays too; on the CPU it
     runs the body."""
 
-    __slots__ = ("body", "graph", "launches")
+    __slots__ = ("body", "graph", "launches", "cost")
 
-    def __init__(self, body: Callable[[], None], graph=None, launches=None):
+    def __init__(self, body: Callable[[], None], graph=None, launches=None,
+                 cost=None):
         self.body, self.graph, self.launches = body, graph, launches
+        self.cost = cost
 
     @property
     def captured(self) -> bool:
@@ -134,19 +146,38 @@ class Graphs:
         self.device = torch.device(device)
         self._pool = None
 
-    def prepare(self, body: Callable[[], None]) -> Prepared:
+    def prepare(self, body: Callable[[], None],
+                count: bool = False) -> Prepared:
         """On the card ``capture`` ``body`` into the pool; on the CPU run
-        it once."""
+        it once.  With ``count`` that first run's work goes to the
+        returned ``cost`` ({} when the count failed)."""
         if self.device.type != "cuda":
-            body()
-            return Prepared(body)
+            cost = _first_run(body, count)
+            return Prepared(body, cost=cost)
         if self._pool is None:
             with torch.cuda.device(self.device):
                 self._pool = torch.cuda.graph_pool_handle()
-        return capture(body, self._pool, self.device)
+        return capture(body, self._pool, self.device, count)
 
 
-def capture(body: Callable[[], None], pool, device) -> Prepared:
+def _first_run(body: Callable[[], None], count: bool):
+    """Run ``body`` once; with ``count`` under ``obs.prof.analyze``, and if
+    the count fails, once more uncounted (the cost is then {}: attribution
+    never breaks a preparation).  Returns the cost, None uncounted."""
+    if not count:
+        body()
+        return None
+    from ..obs import prof
+
+    try:
+        return prof.analyze(body)
+    except Exception:  # noqa: BLE001 — the body's own error re-raises below
+        body()
+        return {}
+
+
+def capture(body: Callable[[], None], pool, device,
+            count: bool = False) -> Prepared:
     """Run ``body()`` once eagerly on a side stream (first-use work, such
     as loading a kernel library, creating cuBLAS handles or starting
     autograd's device thread, may not happen inside a capture), then
@@ -159,7 +190,7 @@ def capture(body: Callable[[], None], pool, device) -> Prepared:
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            body()
+            cost = _first_run(body, count)
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = _counters.snapshot()
@@ -169,4 +200,4 @@ def capture(body: Callable[[], None], pool, device) -> Prepared:
         finally:
             after = _counters.snapshot()
             _counters.restore(before)
-    return Prepared(body, graph, _counters.delta(before, after))
+    return Prepared(body, graph, _counters.delta(before, after), cost)

@@ -165,13 +165,15 @@ class DeviceFeeder:
 
     def _release(self, item):
         """Make a staged batch safe on the consumer's stream: wait on its
-        event and mark each tensor as used there."""
+        event and mark each device tensor as used there (a subclass may
+        keep a field on the host: the sparse pipeline's ``__nuniq``)."""
         staged, event = item
         if event is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(event)
             for v in staged.values():
-                v.record_stream(cur)
+                if v.device.type == "cuda":
+                    v.record_stream(cur)
         return staged
 
     def _stream(self):

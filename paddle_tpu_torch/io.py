@@ -29,12 +29,17 @@ plain version on CPU ones); ``params.npz`` with its meta file; and
 exported first and the fixed ``example_batch`` is the fallback, as in the
 reference.
 
+The checkpoint paths count and time themselves with the reference's names
+(``ckpt.saves``, ``ckpt.save_ms``, ``ckpt.restores``, ``ckpt.restore_ms``,
+``resilience.ckpt_fallbacks``; spans ``ckpt.save``, ``ckpt.restore``), and
+each signature an ``InferenceModel`` prepares counts ``serving.jit_traces``
+and registers its flops and bytes in the ``obs.prof`` cost ledger.
+
 ROADMAP A.10 holds the rest of the reference's surface here:
 ``export_serving_model`` (the native host), the artifact's AOT hooks
 (``install``, ``aot_compile``, ``artifact_hash``, ``installed_count``) and
-mesh hooks (``shard``, ``place_feeds``, ``serving_mesh``), and the metrics,
-trace spans and profiler counters of the checkpoint paths; each hook
-raises naming it.
+mesh hooks (``shard``, ``place_feeds``, ``serving_mesh``); each hook raises
+naming it.
 
 Fault sites (``resilience/faults.py``): ``ckpt.write`` (a checkpoint
 save) and ``ckpt.load`` (every blob load).
@@ -54,12 +59,16 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from . import profiler
 from ._device import resolve_device
 from .core.executor import (Executor, Scope, _to_numpy, check_capturable,
                             global_scope)
 from .core.graphs import Graphs, Staged, WarmError
 from .core.program import Program, Variable, default_main_program
 from .core.types import convert_dtype, dtype_name
+from .obs import metrics as _metrics
+from .obs import prof as _prof
+from .obs import trace as _trace
 from .resilience import faults
 
 
@@ -218,6 +227,7 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self._pending = None  # in-flight background save thread
         self._pending_error = None
+        self._fallbacks_counted: set = set()  # corrupt steps already counted
         os.makedirs(dirname, exist_ok=True)
 
     def _ckpt_dir(self, step: int) -> str:
@@ -253,15 +263,21 @@ class CheckpointManager:
                 zero1_dp = int(strategy.mesh.shape[strategy.data_axis])
 
         def _write():
-            faults.check("ckpt.write")
-            d = self._ckpt_dir(step)
-            _save_blob(d, "persistables", arrays)
-            state = {"step": step, "time": time.time(), "extra": extra or {},
-                     "zero1_packed": zero1_packed, "zero1_dp": zero1_dp}
-            with open(os.path.join(d, "state.json"), "w") as f:
-                json.dump(state, f)
-            self._commit_latest(step)
-            self._gc()
+            t0 = time.perf_counter()
+            with _trace.span("ckpt.save", step=step):
+                faults.check("ckpt.write")
+                d = self._ckpt_dir(step)
+                _save_blob(d, "persistables", arrays)
+                state = {"step": step, "time": time.time(),
+                         "extra": extra or {}, "zero1_packed": zero1_packed,
+                         "zero1_dp": zero1_dp}
+                with open(os.path.join(d, "state.json"), "w") as f:
+                    json.dump(state, f)
+                self._commit_latest(step)
+                self._gc()
+            _metrics.counter("ckpt.saves").inc()
+            _metrics.histogram("ckpt.save_ms").observe(
+                (time.perf_counter() - t0) * 1e3)
 
         if blocking:
             _write()
@@ -337,12 +353,25 @@ class CheckpointManager:
 
     def intact_steps(self) -> list:
         """Committed steps (<= the latest pointer) whose blobs verify,
-        descending: the restore candidates this rank can load."""
+        descending: the restore candidates this rank can load.  Each
+        corrupt candidate found counts once in ``resilience.ckpt_fallbacks``
+        (this rank is about to resume from something older than its newest
+        checkpoint)."""
         latest = self.latest_step()
         if latest is None:
             return []
-        return [s for s in reversed(self._committed_steps())
-                if s <= latest and self._verify_step(s)]
+        out = []
+        for s in reversed(self._committed_steps()):
+            if s > latest:
+                continue
+            if self._verify_step(s):
+                out.append(s)
+            elif s not in self._fallbacks_counted:
+                # once per corrupt dir per manager: every rollback re-runs
+                # the agreement, which must not inflate the count
+                self._fallbacks_counted.add(s)
+                profiler.incr("resilience.ckpt_fallbacks")
+        return out
 
     def newest_intact_step(self) -> Optional[int]:
         """The step restore() would land on, found without loading or
@@ -384,6 +413,7 @@ class CheckpointManager:
         quarantined.  ``device``: where a name the scope lacks goes."""
         from .resilience import RetryPolicy, retry
 
+        t_restore = time.perf_counter()
         latest = self.latest_step()
         if latest is None:
             return None
@@ -426,19 +456,25 @@ class CheckpointManager:
                 # one in-place retry before the destructive quarantine: a
                 # transient I/O blip must not discard the newest good
                 # checkpoint (real corruption fails both attempts)
-                state = retry(RetryPolicy(max_attempts=2, base_delay_s=0.1,
-                                          max_delay_s=1.0))(_attempt)()
+                with _trace.span("ckpt.restore", step=step):
+                    state = retry(RetryPolicy(max_attempts=2,
+                                              base_delay_s=0.1,
+                                              max_delay_s=1.0))(_attempt)()
             except CheckpointStrategyMismatch:
                 raise
             except _CORRUPTION_ERRORS as e:
                 last_err = e
                 self._quarantine(step)
+                profiler.incr("resilience.ckpt_fallbacks")
                 continue
             if i > 0 and limit_step is None:
                 # commit the fallback so that the next boot does not walk
                 # the quarantined steps again; under an agreement cap the
                 # pointer stays, or _gc would destroy the newer intact one
                 self._commit_latest(step)
+            _metrics.counter("ckpt.restores").inc()
+            _metrics.histogram("ckpt.restore_ms").observe(
+                (time.perf_counter() - t_restore) * 1e3)
             return state
         raise CheckpointCorrupt(
             f"no intact checkpoint left under {self.dirname} "
@@ -594,7 +630,19 @@ class InferenceModel:
     exported program over static feed buffers, which every later call of
     that signature stages and replays; on the CPU the program, run on the
     staged buffers.  ``trace_count()`` counts the signatures prepared
-    (unchanged by a repeated signature); ``feed_specs``,
+    (unchanged by a repeated signature), as ``serving.jit_traces`` does;
+    each prepared signature registers its flops and bytes in the
+    ``obs.prof`` cost ledger under ``serving_bucket:<model id>:<rows>``
+    (``sig_prefix`` + rows, the key a ``DynamicBatcher`` times it by).
+
+    A call is safe from many threads: one lock per model covers the
+    staging, the preparation of a new signature, the replay and the copy
+    of the fetches to the host (the static buffers are per signature and
+    the card replays one graph at a time anyway).  A first capture holds
+    the lock too, so another thread's call of any signature of this model
+    waits for it: a CUDA graph capture fails when another thread calls a
+    synchronising CUDA function meanwhile, and every graph of a model
+    shares one memory pool.  ``feed_specs``,
     ``symbolic_batch``, ``example_batch``, ``params``, ``feed_names``,
     ``fetch_names`` and ``exported`` (the ``torch.export`` program)
     describe it.  The reference's AOT and mesh hooks raise, naming ROADMAP
@@ -623,6 +671,13 @@ class InferenceModel:
         self._module = self.exported.module()
         self._graphs = Graphs(self.device)
         self._prepared: Dict[tuple, tuple] = {}
+        self._lock = threading.Lock()
+        h = hashlib.sha1()
+        for name in ("inference.json", "params.meta.json"):
+            with open(os.path.join(dirname, name), "rb") as f:
+                h.update(f.read())
+        self.model_id = h.hexdigest()
+        self.sig_prefix = f"serving_bucket:{self.model_id[:8]}"
 
     def trace_count(self) -> int:
         return len(self._prepared)
@@ -631,31 +686,50 @@ class InferenceModel:
         vals = {}
         for n in self.feed_names:
             v = feed[n]
-            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
-                np.ascontiguousarray(np.asarray(v)))
-            vals[n] = t.to(self._dtypes[n])
+            if not isinstance(v, torch.Tensor):
+                a = np.ascontiguousarray(np.asarray(v))
+                # a read-only buffer (a Session feed is np.frombuffer)
+                v = torch.from_numpy(a if a.flags.writeable else a.copy())
+            vals[n] = v.to(self._dtypes[n])
         sig = tuple((n, tuple(vals[n].shape)) for n in self.feed_names)
-        entry = self._prepared.get(sig)
-        if entry is None:
-            staged = Staged([(n, s, self._dtypes[n]) for n, s in sig],
-                            self.device)
-            staged.stage(vals)
-            outs: dict = {}
-            module, params, feeds = self._module, self.params, staged.t
-
-            def body():
-                with torch.no_grad():
-                    outs["fetches"] = module(params, dict(feeds))
-
-            prepared = self._graphs.prepare(body)
-            if prepared.captured:
+        with self._lock:
+            entry = self._prepared.get(sig)
+            if entry is None:
+                self._prepared[sig] = entry = self._prepare(sig, vals)
+            else:
+                staged, outs, prepared = entry
+                staged.stage(vals)
                 prepared.replay()
-            self._prepared[sig] = (staged, outs, prepared)
-        else:
-            staged, outs, prepared = entry
-            staged.stage(vals)
+            return [_to_numpy(o) for o in entry[1]["fetches"]]
+
+    def _prepare(self, sig, vals) -> tuple:
+        """Stage ``vals`` into a new signature's buffers and prepare it (the
+        caller holds the lock); counts ``serving.jit_traces`` and registers
+        the signature's cost."""
+        staged = Staged([(n, s, self._dtypes[n]) for n, s in sig],
+                        self.device)
+        staged.stage(vals)
+        outs: dict = {}
+        module, params, feeds = self._module, self.params, staged.t
+
+        def body():
+            with torch.no_grad():
+                outs["fetches"] = module(params, dict(feeds))
+
+        t0 = time.perf_counter()
+        prepared = self._graphs.prepare(body, count=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        if prepared.captured:
             prepared.replay()
-        return [_to_numpy(o) for o in outs["fetches"]]
+        profiler.incr("serving.jit_traces")
+        rows = int(sig[0][1][0]) if sig and sig[0][1] else 0
+        sig_key = f"{self.sig_prefix}:{rows}"
+        _prof.register(
+            _prof.fingerprint("serving_bucket", repr(sig), self.model_id,
+                              [self._dtypes[n] for n in self.feed_names]),
+            label=sig_key, sig_key=sig_key, source="live", compile_ms=ms,
+            cost=prepared.cost)
+        return staged, outs, prepared
 
     # ---- the reference's AOT and mesh hooks: ROADMAP A.10
     def _a10(self, what: str):

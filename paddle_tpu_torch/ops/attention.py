@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 KV_QMAX = 127.0
 
@@ -427,8 +427,11 @@ def _count(kernel: str, dtype: torch.dtype) -> None:
         kernel] += 1
 
 
-def _launch(fn, ptrs, q, k, scale, causal) -> None:
+def _launch(fn, ptrs, q, k, scale, causal, kernel: str) -> None:
     N, Tq, D = q.shape
+    if _cost._active:
+        _cost.add(*_cost.flash_work(kernel, N, Tq, k.shape[1], D,
+                                    bool(causal), q.element_size()))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*ptrs, N, Tq, k.shape[1], D, float(scale), int(bool(causal)),
@@ -445,7 +448,7 @@ def flash_fwd_kernel(q, k, v, scale: float, causal: bool):
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _launch(_flash_entry("flash_fwd_launch"),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr()), q, k, scale, causal)
+             lse.data_ptr()), q, k, scale, causal, "fwd")
     _count("fwd", q.dtype)
     return o, lse
 
@@ -460,7 +463,7 @@ def flash_bwd_dkdv_kernel(q, k, v, g, lse, delta, scale: float,
     _launch(_flash_entry("flash_bwd_dkdv_launch"),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            q, k, scale, causal)
+            q, k, scale, causal, "bwd_dkdv")
     _count("bwd_dkdv", q.dtype)
     return dk, dv
 
@@ -473,7 +476,7 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale: float, causal: bool):
     _launch(_flash_entry("flash_bwd_dq_launch"),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-            q, k, scale, causal)
+            q, k, scale, causal, "bwd_dq")
     _count("bwd_dq", q.dtype)
     return dq
 
@@ -508,7 +511,10 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @flash_fwd_op.register_kernel("cuda")
 def _flash_fwd_cuda(q, k, v, scale, causal):
-    return flash_fwd_kernel(q, k, v, scale, causal)
+    # an exported graph hands the op views: at batch 1 the heads' reshape
+    # of a transposed tensor stays a strided view
+    return flash_fwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                            scale, causal)
 
 
 @flash_fwd_op.register_fake
@@ -560,9 +566,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if squeeze:
         b, h, tq, d = q.shape
         tk = k.shape[2]
-        q = q.reshape(b * h, tq, d)
-        k = k.reshape(b * h, tk, d)
-        v = v.reshape(b * h, tk, d)
+        # contiguous: at b = 1 a reshape of transposed heads is a view
+        q = q.reshape(b * h, tq, d).contiguous()
+        k = k.reshape(b * h, tk, d).contiguous()
+        v = v.reshape(b * h, tk, d).contiguous()
     if q.device.type == "meta":
         out = torch.empty(q.shape, dtype=q.dtype, device="meta")
     elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

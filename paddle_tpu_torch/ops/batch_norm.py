@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # constants of csrc/batch_norm.cu (kThreads); a test pins them
@@ -202,6 +202,8 @@ def bn_bwd_reduce_kernel(dy, x, mean, rstd):
            dbeta.data_ptr(), dgamma.data_ptr(), n, c, hw, splits, vec, code),
           x.device)
     batch_norm_train.launches["reduce"] += 1
+    if _cost._active:
+        _cost.add(*_cost.bn_work("reduce", n, c, hw, x.element_size()))
     return dbeta, dgamma
 
 
@@ -219,6 +221,8 @@ def bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta, dgamma, count=None):
            gamma.data_ptr(), dbeta.data_ptr(), dgamma.data_ptr(),
            dx.data_ptr(), n, c, hw, splits, vec, code, count), x.device)
     batch_norm_train.launches["dx"] += 1
+    if _cost._active:
+        _cost.add(*_cost.bn_work("dx", n, c, hw, x.element_size()))
     return dx
 
 

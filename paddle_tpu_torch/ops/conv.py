@@ -51,7 +51,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _cost
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -281,6 +281,8 @@ def _launch(x, w, a, b, fused: bool) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc}")
     route_launches[route] += 1
+    if _cost._active:
+        _cost.add(*_cost.conv_work(fused, n, h, wd, c, o, x.element_size()))
     return out
 
 

@@ -48,7 +48,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _cost
 
 M32 = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
@@ -249,6 +249,8 @@ def _launch(which: str, x: torch.Tensor, key: ThreefryKey,
         raise RuntimeError(f"dropout_launch ({which}) failed: CUDA error "
                            f"{rc}")
     threefry_dropout.launches[which] += 1
+    if _cost._active:
+        _cost.add(*_cost.dropout_work(x.numel(), x.element_size()))
     threefry_dropout.dtype_launches[str(x.dtype).replace("torch.", "")][
         which] += 1
     return out

@@ -29,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 _ACT = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": torch.relu,
         "identity": lambda v: v}
@@ -249,6 +249,8 @@ def lstm_fwd_kernel(xw, u, peep, mask, size: int, use_peepholes: bool, acts,
                 _act_codes(use_peepholes, acts))
     fused_lstm.launches["fwd"] += 1
     fused_lstm.route_launches[route] += 1
+    if _cost._active:
+        _cost.add(*_cost.lstm_work("fwd", T, B, H, int(mask.sum())))
     return hs, hc, cc, gates, cnew
 
 
@@ -282,6 +284,8 @@ def lstm_bwd_kernel(g_hs, g_c, u, peep, mask, gates, cnew, cc, size: int,
                 _act_codes(use_peepholes, acts))
     fused_lstm.launches["bwd"] += 1
     fused_lstm.route_launches[route] += 1
+    if _cost._active:
+        _cost.add(*_cost.lstm_work("bwd", T, B, H, int(mask.sum())))
     return dxw
 
 

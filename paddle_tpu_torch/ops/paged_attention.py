@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _cost
 from .attention import (paged_decode_attention, paged_decode_attention_single,
                         paged_gather_kv, pool_arena)
 
@@ -187,6 +187,9 @@ def _launch_kernel(q, k_pool, v_pool, layer, tables, lengths, scale,
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
     paged_attention.launches += 1
+    if _cost._active:
+        _cost.add(*_cost.paged_work(q, lengths, tables, H, Dh, Bs,
+                                    k_arena.element_size(), quantized))
     return out
 
 

@@ -1,8 +1,9 @@
 """Resilience (PyTorch port of ``paddle_tpu/resilience``): the retry,
-backoff and deadline primitives (``policy.py``), the cluster conventions
-(``cluster.py``: preemption, the hang watchdog, restore agreement, the
-resumable exit codes) and the fault-injection registry ``faults``.  The
-``CircuitBreaker`` and the profiler counters are ROADMAP A.10."""
+backoff, deadline and circuit-breaker primitives (``policy.py``; the
+serving ``Session`` sheds load behind a ``CircuitBreaker``), the cluster
+conventions (``cluster.py``: preemption, the hang watchdog, restore
+agreement, the resumable exit codes) and the fault-injection registry
+``faults``."""
 from __future__ import annotations
 
 from . import cluster, faults
@@ -19,6 +20,8 @@ from .cluster import (
 )
 from .policy import (
     Backoff,
+    CircuitBreaker,
+    CircuitOpenError,
     Deadline,
     DeadlineExceeded,
     RetryPolicy,
@@ -26,7 +29,7 @@ from .policy import (
     retry,
 )
 
-__all__ = ["Backoff", "Deadline", "DeadlineExceeded", "EXIT_HUNG",
+__all__ = ["Backoff", "CircuitBreaker", "CircuitOpenError", "Deadline", "DeadlineExceeded", "EXIT_HUNG",
            "EXIT_PREEMPTED", "PreemptionGuard", "RESUMABLE_EXITS",
            "RetryPolicy", "TransientError", "Watchdog", "agree_restore_step",
            "barrier", "cluster", "faults", "restart_count", "resumable_exit",

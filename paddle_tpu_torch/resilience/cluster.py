@@ -25,8 +25,10 @@ it.  The conventions:
 The reference exchanges the step sets through ``jax.distributed``'s
 key-value store; the port through ``torch.distributed.all_gather_object``
 on the default process group, which ``distributed.init`` makes with
-``comm.group_timeout``.  The reference's profiler counters and the flight
-recorder's postmortem dump are ROADMAP A.10.
+``comm.group_timeout``.  The watchdog counts ``resilience.hang_kills`` and
+writes the flight recorder's postmortem before it force-exits; the
+agreement counts ``resilience.restore_agreements`` and
+``resilience.restore_downgrades``.
 
 Fault site (``resilience/faults.py``):
   cluster.heartbeat   in ``Watchdog.beat``: an armed fault DROPS the
@@ -44,6 +46,7 @@ from datetime import timedelta
 from typing import Callable, Optional
 
 from . import faults
+from .policy import _incr
 
 # Exit codes the supervisor keys on.  EXIT_PREEMPTED is sysexits'
 # EX_TEMPFAIL: the process drained gracefully and the state on disk
@@ -67,6 +70,18 @@ def _world():
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+def _postmortem(reason: str, **extra) -> Optional[str]:
+    """The flight recorder's postmortem (``obs/recorder.py``), the artifact
+    that explains the force-exit about to happen.  Returns the path, or
+    None on any failure: never an exception on the crash path."""
+    try:
+        from ..obs import recorder
+
+        return recorder.dump(reason, extra=extra)
+    except Exception:  # noqa: BLE001
+        return None
 
 
 def restart_count() -> int:
@@ -206,6 +221,12 @@ class Watchdog:
             f"collective or dead peer; force-exiting {EXIT_HUNG} for a gang "
             f"restart\n")
         sys.stderr.flush()
+        # postmortem with every thread's stack (the question on a hang is
+        # where each thread is stuck, and this monitor thread is the only
+        # one still able to say); fail-safe, it cannot block the exit
+        _postmortem("hang", watchdog=self.name,
+                    stalled_s=round(stalled_s, 3),
+                    timeout_s=self.timeout_s)
         os._exit(EXIT_HUNG)
 
     def start(self) -> "Watchdog":
@@ -234,6 +255,7 @@ class Watchdog:
             stalled = self.stalled_s()
             if stalled > self.timeout_s:
                 self.fired = True
+                _incr("resilience.hang_kills")
                 self._on_hang(stalled)
                 return
 
@@ -325,4 +347,11 @@ def agree_restore_step(local_steps) -> Optional[int]:
         return mine[0] if mine else None
     step_sets = [set(s) for s in _allgather(mine[:_AGREE_PAD])]
     common = set.intersection(*step_sets) if step_sets else set()
-    return max(common) if common else None
+    _incr("resilience.restore_agreements")
+    if not common:
+        return None
+    agreed = max(common)
+    if mine and agreed < mine[0]:
+        # this rank gives up newer local state so the gang stays consistent
+        _incr("resilience.restore_downgrades")
+    return agreed

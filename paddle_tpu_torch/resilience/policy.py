@@ -1,23 +1,24 @@
-"""Retry, backoff and deadlines (the port's copy of the retry half of
+"""Retry, backoff, deadlines and the circuit breaker (the port's copy of
 ``paddle_tpu/resilience/policy.py``).
 
 One idiom for every failure loop (the Go generation's bounded retries with
 exponential backoff around every RPC, go/master/client.go): a declarative
 ``RetryPolicy``, a ``Backoff`` schedule with jitter, the ``retry``
-wrapper, and a monotonic ``Deadline``.  ``io.CheckpointManager.restore``
-retries a checkpoint load once in place before it quarantines it, and
-``datasets.common.download`` refetches once.
-
-The reference bumps a profiler counter on every retry; ``profiler.py`` is
-ROADMAP A.10, and so is the ``CircuitBreaker`` with its gauge, which the
-serving ``Session`` calls.  Standard library only.
+wrapper, a monotonic ``Deadline``, and a ``CircuitBreaker`` for
+serving-side load shedding (``capi_server.Session``).
+``io.CheckpointManager.restore`` retries a checkpoint load once in place
+before it quarantines it, and ``datasets.common.download`` refetches once.
+Every retry, open and shed bumps a ``profiler`` counter
+(``resilience.retries``, ``resilience.circuit_open``,
+``resilience.shed``); a named breaker publishes its state as the
+``resilience.breaker_state`` labeled gauge.  Standard library only.
 """
 from __future__ import annotations
 
 import functools
 import random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional, Tuple, Type
 
 
@@ -26,8 +27,18 @@ class TransientError(Exception):
     favourite; the moral equivalent of a retryable RPC status)."""
 
 
+def _incr(name: str) -> None:
+    from ..profiler import incr
+
+    incr(name)
+
+
 class DeadlineExceeded(TimeoutError):
     """A Deadline ran out (request-level timeout, not a transport error)."""
+
+
+class CircuitOpenError(RuntimeError):
+    """The circuit breaker is open: the call was shed without being tried."""
 
 
 @dataclass(frozen=True)
@@ -36,9 +47,8 @@ class RetryPolicy:
 
     ``jitter`` is the +/- fraction applied to each delay (0.5: uniform in
     [0.5d, 1.5d]); delays are always clamped to [0, max_delay_s], so the
-    bound holds for jittered values too.  (The reference's ``counter``,
-    the profiler counter a retry bumps, waits for ``profiler.py``: ROADMAP
-    A.10.)"""
+    bound holds for jittered values too.  ``counter`` is the profiler
+    counter a retry bumps."""
 
     max_attempts: int = 3
     base_delay_s: float = 0.05
@@ -47,6 +57,7 @@ class RetryPolicy:
     jitter: float = 0.5
     retry_on: Tuple[Type[BaseException], ...] = (TransientError, IOError,
                                                  OSError)
+    counter: str = "resilience.retries"
 
     def retryable(self, exc: BaseException) -> bool:
         return isinstance(exc, self.retry_on)
@@ -87,7 +98,8 @@ def retry(policy: Optional[RetryPolicy] = None,
     ``policy.max_attempts`` times, sleeping a jittered exponential backoff
     between retryable failures.  Non-retryable exceptions propagate at
     once; the last retryable one propagates when the attempts (or the
-    optional deadline) run out."""
+    optional deadline) run out.  Each retry increments
+    ``policy.counter``."""
     policy = policy or RetryPolicy()
 
     def deco(fn):
@@ -103,6 +115,7 @@ def retry(policy: Optional[RetryPolicy] = None,
                         raise
                     if deadline is not None and deadline.expired():
                         raise
+                    _incr(policy.counter)
                     sleep(bo.next())
             raise AssertionError("unreachable")  # pragma: no cover
 
@@ -132,3 +145,81 @@ class Deadline:
         if self.expired():
             raise DeadlineExceeded(f"{what} exceeded its deadline "
                                    f"(over by {-self.remaining():.3f}s)")
+
+
+# numeric encoding of breaker state for the resilience.breaker_state gauge
+# (closed < half_open < open, so alert thresholds read naturally)
+BREAKER_STATE_VALUES = {"closed": 0, "half_open": 1, "open": 2}
+
+
+def _breaker_gauge(name: Optional[str], state: str) -> None:
+    """Publish a NAMED breaker's state as the ``resilience.breaker_state``
+    labeled gauge: the Prometheus-visible form of what healthz shows."""
+    if name is None:
+        return
+    from ..obs import metrics as _m
+
+    try:
+        _m.labeled_gauge("resilience.breaker_state").set(
+            BREAKER_STATE_VALUES[state], name=name)
+    except Exception:  # noqa: BLE001
+        pass  # exporting state must never break the breaker itself
+
+
+@dataclass
+class CircuitBreaker:
+    """Closed -> (failure_threshold consecutive failures) -> open -> after
+    ``reset_timeout_s`` -> half-open probe -> success closes / failure
+    re-opens.  While open, ``allow()`` raises CircuitOpenError so callers
+    shed load instead of queueing onto a failing backend.
+    Thread-compatible: the races (two probes in half-open) are benign, state
+    only moves between valid states.
+
+    ``name`` opts the breaker into the ``resilience.breaker_state`` labeled
+    gauge (0=closed, 1=half_open, 2=open): every transition, the lazy
+    open -> half_open flip inside ``state`` included, publishes, so a scrape
+    never shows a breaker stuck open that healthz would call half-open."""
+
+    failure_threshold: int = 5
+    reset_timeout_s: float = 30.0
+    clock: Callable[[], float] = time.monotonic
+    name: Optional[str] = None
+    _failures: int = field(default=0, init=False)
+    _state: str = field(default="closed", init=False)
+    _opened_at: float = field(default=0.0, init=False)
+
+    def __post_init__(self):
+        _breaker_gauge(self.name, self._state)
+
+    def _transition(self, state: str) -> None:
+        if state != self._state:
+            self._state = state
+            _breaker_gauge(self.name, state)
+
+    @property
+    def state(self) -> str:
+        if (self._state == "open"
+                and self.clock() - self._opened_at >= self.reset_timeout_s):
+            self._transition("half_open")
+        return self._state
+
+    def allow(self) -> None:
+        if self.state == "open":
+            _incr("resilience.shed")
+            raise CircuitOpenError(
+                f"circuit open after {self._failures} consecutive failures; "
+                f"retry in {self.reset_timeout_s - (self.clock() - self._opened_at):.1f}s")
+
+    def record_success(self) -> None:
+        self._failures = 0
+        self._transition("closed")
+
+    def record_failure(self) -> None:
+        self._failures += 1
+        # read through the PROPERTY: a failure after the reset window is a
+        # failed half-open probe (re-open, no counter), not a fresh streak
+        if self.state == "half_open" or self._failures >= self.failure_threshold:
+            if self._state != "open":
+                _incr("resilience.circuit_open")
+            self._transition("open")
+            self._opened_at = self.clock()

@@ -50,12 +50,15 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import profiler as _profiler
 from .._device import resolve_device
-from ..core.graphs import Graphs, Prepared, Staged, WarmError
+from ..core.graphs import Graphs, Prepared, Staged, WarmError, sync
 from ..layers import beam as _beam
 from ..models.transformer import (TransformerLM, lm_decode_step,
                                   paged_window_coords)
 from ..models.weights import from_jax_params, torch_dtype
+from ..obs import prof as _prof
+from ..obs import trace as _trace
 from ..ops import attention as _attn
 from ..ops.paged_attention import check_kernel_shape
 from ..ops.sampling import masked_select_tokens
@@ -89,12 +92,13 @@ class _Signature:
     (``core.graphs.Prepared``: on the card its CUDA graph)."""
 
     __slots__ = ("key", "body", "ins", "mask", "logits", "res", "run",
-                 "local")
+                 "local", "prof_key")
 
     def __init__(self, key, body, ins, mask, logits, res):
         self.key, self.body, self.ins, self.mask = key, body, ins, mask
         self.logits, self.res = logits, res
         self.run = None
+        self.prof_key = None  # the continuous engine's timing/ledger key
         # a data-sharded step's own rows: logits, res and the new K/V
         # (ContinuousDecodeEngine with a mesh), gathered after the body
         self.local = None
@@ -115,7 +119,9 @@ class DecodeEngine:
     position) and ``("naive", nb, tb)`` (the full-recompute arm).  Each
     batch bucket owns one pair of caches [nb, L, H, max_len, Dh], written
     in place.  A failed capture or replay raises.  Counters:
-    ``dispatches`` and ``replays`` by signature key."""
+    ``dispatches`` and ``replays`` by signature key.  ``generate`` and
+    ``generate_naive`` hold one lock per engine (the caches and the
+    signatures' buffers are static), so concurrent calls are serialised."""
 
     def __init__(self, params: Dict, *, vocab_size: int, max_len: int,
                  d_model: int = 512, n_heads: int = 8, n_layers: int = 6,
@@ -147,6 +153,7 @@ class DecodeEngine:
         self._sigs: Dict[tuple, _Signature] = {}
         self._traces = 0
         self._graphs = Graphs(self.device)
+        self._lock = threading.RLock()
 
     # ---------------------------------------------------------- signatures
     def trace_count(self) -> int:
@@ -199,6 +206,8 @@ class DecodeEngine:
             raise WarmError(f"preparing signature {key} failed: "
                             f"{exc}") from exc
         self._traces += 1
+        if key[0] != "naive":  # the reference counts prefill and step only
+            _profiler.incr("serving.decode_traces")
         self._sigs[key] = sig
         return sig
 
@@ -283,33 +292,45 @@ class DecodeEngine:
                  eos_id: Optional[int] = None) -> np.ndarray:
         """Greedy decode: prompts [N, Tp] int32 (one length) -> tokens
         [N, max_gen].  Rows that emitted ``eos_id`` keep their output."""
+        with self._lock:
+            return self._generate(prompts, max_gen, eos_id)
+
+    def _generate(self, prompts, max_gen, eos_id):
         prompts = np.asarray(prompts, np.int32)
         N, Tp = prompts.shape
         self._check_len(Tp, max_gen)
-        sig = self._run_prefill(prompts)
-        nb = sig.key[1]
+        nb = bucket_for(self.batch_buckets, N, what="batch")
+        with _trace.span("serving.decode_prefill", batch=nb,
+                         prompt_bucket=bucket_for(self.prompt_buckets, Tp,
+                                                  what="prompt length")):
+            sig = self._run_prefill(prompts)
         out = np.zeros((nb, max_gen), np.int32)
         done = np.zeros(nb, bool)
         tok = sig.res.to("cpu", copy=True).numpy()
         step = self._signature(("step", nb))
-        for i in range(max_gen):
-            out[~done, i] = tok[~done]
-            if eos_id is not None:
-                done |= tok == eos_id
-                if done[:N].all():
+        with _trace.span("serving.decode_loop", batch=nb, max_gen=max_gen):
+            for i in range(max_gen):
+                out[~done, i] = tok[~done]
+                if eos_id is not None:
+                    done |= tok == eos_id
+                    if done[:N].all():
+                        break
+                if i == max_gen - 1:
                     break
-            if i == max_gen - 1:
-                break
-            step.ins.np["token"][...] = tok
-            step.ins.np["pos"][0] = Tp + i
-            self._dispatch(step)
-            tok = step.res.to("cpu", copy=True).numpy()
+                step.ins.np["token"][...] = tok
+                step.ins.np["pos"][0] = Tp + i
+                self._dispatch(step)
+                tok = step.res.to("cpu", copy=True).numpy()
         return out[:N]
 
     def generate_naive(self, prompts: np.ndarray, max_gen: int,
                        eos_id: Optional[int] = None) -> np.ndarray:
         """Full-recompute greedy decode (the A/B baseline): every token pays
         a whole forward over the token buffer."""
+        with self._lock:
+            return self._generate_naive(prompts, max_gen, eos_id)
+
+    def _generate_naive(self, prompts, max_gen, eos_id):
         prompts = np.asarray(prompts, np.int32)
         N, Tp = prompts.shape
         self._check_len(Tp, max_gen)
@@ -462,6 +483,7 @@ class PagedKVPool:
                    else None)
             if bad is not None:
                 self.bad_frees += 1
+                _profiler.incr("serving.decode.bad_frees")
                 raise ValueError(
                     f"refused KV pool free of block {b}: {bad} "
                     f"(free list would be corrupted)")
@@ -661,6 +683,28 @@ class ContinuousDecodeEngine:
                                 self.block_size, self.Dh, self.cd,
                                 kv_dtype=kv_dtype, device=self.device)
         self.kv_dtype = self.pool.kv_dtype
+        if self.pool.quantized:
+            _profiler.gauge("serving.quant.bytes_per_token",
+                            self.pool.bytes_per_token)
+            _profiler.gauge("serving.quant.slots_per_gib",
+                            self.slots_resident_per_gib())
+        # 1: the paged CUDA kernel runs the attention; 0: the CPU's plain
+        # version (there is no fallback: a card that cannot run the kernel
+        # raises, so serving.pallas.fallbacks is never emitted)
+        _profiler.gauge("serving.decode.kernel_impl",
+                        1 if self.device.type == "cuda" else 0)
+        # model identity for the cost-ledger fingerprints and the scope of
+        # this engine's dispatch-timing keys (two engines in one process
+        # must not merge timing rows), the reference's recipe
+        self._model_desc = (f"paged_decode(V={vocab_size},T={self.max_len},"
+                            f"d={d_model},H={n_heads},L={n_layers},"
+                            f"ff={d_ff},S={self.n_slots},"
+                            f"Bs={self.block_size},kv={kv_dtype or dtype},"
+                            f"tie={tie_embeddings})")
+        import hashlib
+
+        self._sig_scope = hashlib.sha1(
+            self._model_desc.encode()).hexdigest()[:8]
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(self.block_size, kv_dtype=self.kv_dtype)
             if prefix_cache else None)
@@ -782,23 +826,49 @@ class ContinuousDecodeEngine:
                                        device=dev),
                     "k": torch.zeros(kv, dtype=self.cd, device=dev),
                     "v": torch.zeros(kv, dtype=self.cd, device=dev)}
+        sig.prof_key = self._prof_key(key)
         try:
             ins.upload()
+            t0 = time.perf_counter()
             if self._eager:
                 # collectives in the body: run eagerly at every call
                 sig.run = Prepared(lambda: sig.body(sig))
             else:
-                sig.run = self._graphs.prepare(lambda: sig.body(sig))
+                sig.run = self._graphs.prepare(lambda: sig.body(sig),
+                                               count=True)
+            ms = (time.perf_counter() - t0) * 1e3
         except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
             raise WarmError(f"preparing signature {key} failed: "
                             f"{exc}") from exc
         self._traces += 1
+        _profiler.incr("serving.decode_traces")
+        if sig.run.cost is not None:
+            kind = "decode_prefill" if key[0] == "prefill" else "decode_step"
+            _prof.register(
+                _prof.fingerprint(kind, sig.prof_key, self._model_desc,
+                                  [self.cd, self.pool.kv_dtype]),
+                label=f"{kind} {key}", sig_key=sig.prof_key, source="live",
+                compile_ms=ms, cost=sig.run.cost)
         self._sigs[key] = sig
         return sig
 
+    def _prof_key(self, key) -> str:
+        """The dispatch-timing and ledger key of a signature: the
+        reference's ``decode_prefill:<scope>:pb<bucket>`` and
+        ``decode_step:<scope>:w<W>``, a policy step's with ``:policy``
+        (the port keeps the greedy and the policy step apart)."""
+        if key[0] == "prefill":
+            return f"decode_prefill:{self._sig_scope}:pb{key[1]}"
+        return (f"decode_step:{self._sig_scope}:w{key[1]}"
+                + (":policy" if key[2] else ""))
+
     def _dispatch(self, sig: _Signature) -> None:
         """Run ``sig`` on its staged inputs: upload them, then replay its
-        graph (card) or run its body (CPU)."""
+        graph (card) or run its body (CPU).  Every call ticks the
+        signature's sampled dispatch timing; a sampled call synchronises
+        the stream after the replay, the arena writes included, before
+        ``tock`` (no capture, no extra replay)."""
+        t_prof = _prof.tick(sig.prof_key)
         sig.ins.upload()
         if sig.key[0] == "prefill":
             self.prefill_dispatches[sig.key[1]] += 1
@@ -807,6 +877,9 @@ class ContinuousDecodeEngine:
         sig.run.replay()
         if sig.run.captured:
             self.replays[sig.key] += 1
+        if t_prof is not None:
+            sync(self.device)
+            _prof.tock(sig.prof_key, t_prof)
         if sig.local is not None:
             self._gather_rows(sig)
 
@@ -1294,6 +1367,7 @@ class ContinuousScheduler:
             if (resume_kv_dtype is not None
                     and str(resume_kv_dtype) != self.eng.pool.kv_dtype):
                 req.cold_resume = True
+                _profiler.incr("serving.quant.resume_dtype_mismatch")
         if req.prompt.size + req.max_gen > self.eng.max_len:
             raise ValueError(
                 f"prompt {req.prompt.size} + max_gen {req.max_gen} exceeds "
@@ -1325,10 +1399,13 @@ class ContinuousScheduler:
                 raise RuntimeError("continuous scheduler is closed")
             if resuming:
                 self.counters["resumed_in"] += 1
+                _profiler.incr("serving.decode.resumed_in")
             if not sp.is_default:
                 self.counters["sampled"] += 1
+                _profiler.incr("serving.sample.requests")
             for r in subs:
                 self.queue.push(r)
+            _profiler.gauge("serving.decode.waiting", len(self.queue))
             self._update_snapshot()
             self._cv.notify_all()
         return req
@@ -1431,7 +1508,9 @@ class ContinuousScheduler:
                 if slot is not None:
                     self._retire(si, error=exc)
             self.counters["migrated_out"] += len(records)
-            self._update_snapshot()
+            if records:
+                _profiler.incr("serving.decode.migrated_out", len(records))
+            self._gauges()
             self._cv.notify_all()
         return records
 
@@ -1459,6 +1538,7 @@ class ContinuousScheduler:
         for si, slot in enumerate(self._slots):
             if slot is not None:
                 self._retire(si, error=exc)
+        self._gauges()
 
     def _abort(self, exc: BaseException) -> None:
         """Close the scheduler and fail every waiter and every live slot with
@@ -1493,6 +1573,9 @@ class ContinuousScheduler:
             "blocks_free": pool.blocks_free,
             "kv_dtype": pool.kv_dtype,
             "kv_bytes_per_token": pool.bytes_per_token,
+            "kv_slots_per_gib": self.eng.slots_resident_per_gib(),
+            "blocks_reclaimable": (0 if cache is None
+                                   else cache.evictable_blocks),
             "prefix": None if cache is None else cache.stats(),
             "spec": self.spec,
             "closed": self._closed,
@@ -1502,6 +1585,16 @@ class ContinuousScheduler:
                      else None),
             **self.counters,
         }
+
+    def _gauges(self):
+        """Publish the snapshot and the reference's load gauges (callers
+        hold the lock)."""
+        self._update_snapshot()
+        snap = self._snapshot
+        _profiler.gauge("serving.decode.slots_active", snap["slots_active"])
+        _profiler.gauge("serving.decode.blocks_free", snap["blocks_free"])
+        _profiler.gauge("serving.decode.waiting", snap["waiting"])
+        _profiler.gauge("serving.fork.groups", len(self._groups))
 
     def check_block_accounting(self) -> Dict:
         """Assert that occupied, free and cached blocks partition the pool
@@ -1575,6 +1668,7 @@ class ContinuousScheduler:
         slot.req.error = error
         slot.req.t_done = time.perf_counter()
         self.counters["retired"] += 1
+        _profiler.incr("serving.decode.retired")
         slot.req.done.set()
 
     def _preempt(self, si: int):
@@ -1586,6 +1680,7 @@ class ContinuousScheduler:
         self._release_blocks(slot)
         slot.req.preemptions += 1
         self.counters["preemptions"] += 1
+        _profiler.incr("serving.decode.preemptions")
         self.queue.requeue(slot.req)
 
     def _digests_for(self, req) -> list:
@@ -1637,12 +1732,14 @@ class ContinuousScheduler:
         cache = self.eng.prefix
         if cache is None or req.cold_resume:
             return [], [], False
-        try:
-            faults.check("serving.prefix_match")
-        except Exception:  # noqa: BLE001 — degrade to a miss, by contract
-            return [], [], False
-        digests = self._digests_for(req)
-        hit, diverged = cache.lookup(digests, history.size)
+        with _trace.span("serving.prefix.match",
+                         prompt_len=int(history.size)):
+            try:
+                faults.check("serving.prefix_match")
+            except Exception:  # noqa: BLE001 — degrade to a miss
+                return [], [], False
+            digests = self._digests_for(req)
+            hit, diverged = cache.lookup(digests, history.size)
         return hit, digests, diverged
 
     def _samp_row_for(self, req: DecodeRequest, history) -> tuple:
@@ -1692,25 +1789,28 @@ class ContinuousScheduler:
                     else self._samp_row_for(req, history))
         row = None
         try:
-            if m:
-                out = self.eng.prefill_tail(
-                    history[shared:], shared, table, limit,
-                    samp_row=samp_row, return_logits=want_logits)
-                tok, row = out if want_logits else (out, None)
-            else:
-                logits = self.eng.prefill(history, table)
-                if want_logits:
-                    row = logits
-                if samp_row is None:
-                    tok = int(logits.argmax())
+            with _trace.span("serving.decode.prefill_insert", slot=si,
+                             prompt_len=int(history.size),
+                             cached_tokens=shared):
+                if m:
+                    out = self.eng.prefill_tail(
+                        history[shared:], shared, table, limit,
+                        samp_row=samp_row, return_logits=want_logits)
+                    tok, row = out if want_logits else (out, None)
                 else:
-                    # sampled first token: re-run the LAST history position
-                    # through the W=1 step (its K/V rewrite is identical) so
-                    # the selection runs the same policy pass as every
-                    # later token
-                    tok = self.eng.prefill_tail(
-                        history[-1:], history.size - 1, table, limit,
-                        samp_row=samp_row)
+                    logits = self.eng.prefill(history, table)
+                    if want_logits:
+                        row = logits
+                    if samp_row is None:
+                        tok = int(logits.argmax())
+                    else:
+                        # sampled first token: re-run the LAST history position
+                        # through the W=1 step (its K/V rewrite is identical) so
+                        # the selection runs the same policy pass as every
+                        # later token
+                        tok = self.eng.prefill_tail(
+                            history[-1:], history.size - 1, table, limit,
+                            samp_row=samp_row)
         except WarmError:
             # the engine cannot run this shape at all: back to the queue,
             # and step() aborts the scheduler, failing every waiter
@@ -1728,16 +1828,20 @@ class ContinuousScheduler:
             req.done.set()
             return 0
         self.counters["prefill_inserts"] += 1
+        _profiler.incr("serving.decode.prefill_inserts")
         if cache is not None:
             cache.record(m, diverged)
         if req.fork_of is not None:
             # a parallel-n branch: its copy-on-write share is the run it
             # mapped; a missed or faulted lookup makes it a private copy
             self.counters["forks"] += 1
+            _profiler.incr("serving.fork.forks")
             if m:
                 self.counters["fork_cow_blocks"] += m
+                _profiler.incr("serving.fork.cow_blocks", m)
             else:
                 self.counters["fork_private"] += 1
+                _profiler.incr("serving.fork.private")
         self._seq += 1
         slot = _Slot(req, table, blocks, pos=int(history.size), limit=limit,
                      seq=self._seq, cached=hit, group=group)
@@ -1820,12 +1924,18 @@ class ContinuousScheduler:
         lineage re-prefilled.  The streams are the same either way.  Reads
         the parent slot without changing its blocks; raises
         :class:`_ForkFailed` when the pool cannot seat the fork."""
-        eng = self.eng
-        cache = eng.prefix
-        parent_slot = self._slots[group.slots[parent_branch]]
         lineage = np.concatenate(
             [group.req.prompt,
              np.asarray(group.tokens[parent_branch], np.int32)])
+        with _trace.span("serving.fork", parent_branch=int(parent_branch),
+                         lineage=int(lineage.size)):
+            return self._fork_lineage(group, parent_branch, lineage)
+
+    def _fork_lineage(self, group: _BeamGroup, parent_branch: int,
+                      lineage: np.ndarray) -> dict:
+        eng = self.eng
+        cache = eng.prefix
+        parent_slot = self._slots[group.slots[parent_branch]]
         bs = eng.block_size
         n_full = int(lineage.size) // bs
         cow = cache is not None
@@ -1871,10 +1981,14 @@ class ContinuousScheduler:
             eng.pool.free(priv)
             raise
         self.counters["forks"] += 1
+        _profiler.incr("serving.fork.forks")
         if cow:
             self.counters["fork_cow_blocks"] += m
+            if m:
+                _profiler.incr("serving.fork.cow_blocks", m)
         else:
             self.counters["fork_private"] += 1
+            _profiler.incr("serving.fork.private")
         return {"table": table, "blocks": blocks, "cached": set(shared),
                 "pos": int(lineage.size)}
 
@@ -1985,6 +2099,7 @@ class ContinuousScheduler:
         req.error = None
         req.t_done = time.perf_counter()
         self.counters["retired"] += 1
+        _profiler.incr("serving.decode.retired")
         req.done.set()
 
     def _fail_group(self, group: _BeamGroup, exc: BaseException) -> None:
@@ -2002,6 +2117,7 @@ class ContinuousScheduler:
         req.error = exc
         req.t_done = time.perf_counter()
         self.counters["retired"] += 1
+        _profiler.incr("serving.decode.retired")
         req.done.set()
 
     def _emit(self, si: int, toks, advance: bool = True) -> int:
@@ -2053,6 +2169,7 @@ class ContinuousScheduler:
                         "a slot")
                     req.t_done = time.perf_counter()
                     self.counters["sheds"] += 1
+                    _profiler.incr("serving.decode.sheds")
                     req.done.set()
                 for si, slot in enumerate(self._slots):
                     if (slot is not None and slot.group is None
@@ -2093,7 +2210,7 @@ class ContinuousScheduler:
                 self._abort(exc)
                 raise
             finally:
-                self._update_snapshot()
+                self._gauges()
 
     def _decode_step(self, active) -> int:
         eng = self.eng
@@ -2152,6 +2269,7 @@ class ContinuousScheduler:
             if si in drafts:
                 toks[si, 1:] = drafts[si]
                 self.counters["spec_proposed"] += W - 1
+                _profiler.incr("serving.decode.spec_proposed", W - 1)
             elif W > 1:
                 toks[si, 1:] = slot.req.tokens[-1]
             pos0[si] = slot.pos
@@ -2173,8 +2291,10 @@ class ContinuousScheduler:
                                  self._samp_row_for(slot.req,
                                                     slot.req.history()))
         beamed = any(self._slots[si].group is not None for si in stepped)
-        got = eng.step_tokens(toks, pos0, tables, limits, samp=samp,
-                              with_logits=beamed)
+        with _trace.span("serving.decode.step", active=len(stepped),
+                         window=W):
+            got = eng.step_tokens(toks, pos0, tables, limits, samp=samp,
+                                  with_logits=beamed)
         out, chosen = got[0], got[1]
         emitted = 0
         for si in stepped:
@@ -2196,6 +2316,8 @@ class ContinuousScheduler:
                 acc += 1
             if si in drafts:
                 self.counters["spec_accepted"] += acc
+                if acc:
+                    _profiler.incr("serving.decode.spec_accepted", acc)
             emitted += self._emit(si, list(out[si, :acc + 1]))
         if beamed:
             sset = set(stepped)

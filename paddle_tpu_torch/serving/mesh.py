@@ -36,8 +36,11 @@ GSPMD place them:
 Numerics: sharding ``data`` leaves per-row math as it is; ``fsdp`` /
 ``tp`` split matmul contractions (partial sums, then a sum over ranks),
 which reassociates float adds, so those steps agree within the stated
-tolerance, not bitwise.  The reference publishes ``serving.mesh.*``
-gauges here; the port's metrics registry is ROADMAP A.10.
+tolerance, not bitwise.  The reference's gauges are published here:
+``serving.mesh.devices`` and the ``serving.mesh.axis_size`` labeled gauge
+when a ServingMesh is made, ``serving.mesh.collapsed_axes`` by
+``make_serving_mesh``, ``serving.mesh.params_sharded`` (and the span
+``serving.mesh.shard_params``) by the placement pass.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ from typing import Dict, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from ..param_attr import PartitionSpec as P
 
 DATA_AXIS = "data"
@@ -226,8 +231,13 @@ class ServingMesh:
         self.mesh = mesh
         self.axes = dict(axes)
         self.layout = layout or SpecLayout()
-        # the reference sets the serving.mesh.* gauges here; the port's
-        # metrics registry is ROADMAP A.10
+        self._publish_gauges()
+
+    def _publish_gauges(self) -> None:
+        _metrics.gauge("serving.mesh.devices").set(float(self.size))
+        for a in SERVING_AXES:
+            _metrics.labeled_gauge("serving.mesh.axis_size").set(
+                float(self.axes.get(a, 1)), axis=a)
 
     @property
     def size(self) -> int:
@@ -285,8 +295,12 @@ class ServingMesh:
             return dict(params)
         shapes = {n: tuple(np.shape(v)) for n, v in params.items()}
         specs = self.param_specs(shapes)
-        return {n: self.shard_of(torch.as_tensor(v), specs[n])
-                for n, v in params.items()}
+        with _trace.span("serving.mesh.shard_params", params=len(params)):
+            out = {n: self.shard_of(torch.as_tensor(v), specs[n])
+                   for n, v in params.items()}
+        _metrics.gauge("serving.mesh.params_sharded").set(
+            float(sum(1 for n in params if tuple(specs[n]))))
+        return out
 
     def describe(self, shapes: Optional[Mapping[str, Sequence[int]]] = None
                  ) -> str:
@@ -325,6 +339,9 @@ def make_serving_mesh(spec: Union[str, Mapping[str, int], None] = None,
 
     devices = list(devices if devices is not None else range(_world()[0]))
     fitted = fit_axes(axes, len(devices))
+    collapsed = sum(1 for a in axes
+                    if int(axes[a]) > 1 and fitted.get(a, 1) < int(axes[a]))
+    _metrics.gauge("serving.mesh.collapsed_axes").set(float(collapsed))
     sizes = {a: fitted[a] for a in SERVING_AXES if fitted[a] > 1}
     if not sizes:
         return ServingMesh(None, {}, layout=layout)
@@ -381,8 +398,7 @@ class ShardedParams(Mapping):
                 self.row.add(n)
         self.specs = mesh.param_specs({n: tuple(v.shape)
                                        for n, v in params.items()})
-        self.shards = {n: mesh.shard_of(v, self.specs[n])
-                       for n, v in params.items()}
+        self.shards = mesh.shard_params(params)
         self.shard = SrvShard(self._row_reduce, self._vocab_block,
                               self._head_gather)
 

@@ -28,6 +28,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import profiler as _profiler
+
 #: the parent digest of block 0 for a float32 pool (the JAX package's bytes)
 ROOT_DIGEST = b"paddle-tpu-prefix-root"
 
@@ -144,10 +146,15 @@ class PrefixCache:
         if matched_blocks > 0:
             self.counters["hits"] += 1
             self.counters["hit_tokens"] += matched_blocks * self.block_size
+            _profiler.incr("serving.prefix.hits")
+            _profiler.incr("serving.prefix.hit_tokens",
+                           matched_blocks * self.block_size)
             if diverged:
                 self.counters["cow_copies"] += 1
+                _profiler.incr("serving.prefix.cow_copies")
         else:
             self.counters["misses"] += 1
+            _profiler.incr("serving.prefix.miss")
 
     # ------------------------------------------------------------ refcounts
     def acquire(self, blocks: Sequence[int]) -> None:
@@ -186,6 +193,7 @@ class PrefixCache:
         self._by_digest[digest] = block
         self._entries[block] = _Entry(digest, parent)
         self._children[parent] = self._children.get(parent, 0) + 1
+        _profiler.gauge("serving.prefix.cached_blocks", len(self._entries))
         return True
 
     # -------------------------------------------------------------- evict
@@ -199,6 +207,10 @@ class PrefixCache:
             self._forget(b)
             out.append(b)
         self.counters["evictions"] += len(out)
+        if out:
+            _profiler.incr("serving.prefix.evictions", len(out))
+            _profiler.gauge("serving.prefix.cached_blocks",
+                            len(self._entries))
         return out
 
     def _forget(self, block: int) -> None:
@@ -219,6 +231,7 @@ class PrefixCache:
         self._entries.clear()
         self._children.clear()
         self._lru.clear()
+        _profiler.gauge("serving.prefix.cached_blocks", 0)
         return n
 
     # --------------------------------------------------------------- stats

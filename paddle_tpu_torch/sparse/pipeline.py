@@ -11,12 +11,14 @@ device only sees ladder-shaped id buffers.  For each registered field
     f__uids   [bucket] int32   deduped ids, the sentinel in dead slots
     f__inv    ids-shaped int32 inverse indices into f__uids
     f__mask   ids-shaped f32   0.0 where the id was padding_idx
-    f__nuniq  [1] int32        live rows this batch
+    f__nuniq  [1] int32        live rows this batch (stays on the host)
 
 ``dedup_ms`` keeps the producer's dedup time per batch and ``stall_ms``
 the consumer's wait on the staging queue per batch (the pipeline's "are we
-host-bound?" reading); the reference's ``sparse.*`` metrics are ROADMAP
-A.10.
+host-bound?" reading), as do the reference's ``sparse.pipeline.dedup_ms``
+and ``sparse.pipeline.stall_ms`` histograms; ``sparse.pipeline.batches``
+counts the staged batches and the ``sparse.bucket.size`` /
+``sparse.bucket.occupancy`` gauges describe the last one.
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ import time
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from ..data_feeder import DeviceFeeder
+from ..obs import metrics as _metrics
 from .table import ShardedEmbeddingTable
 
 
@@ -51,6 +55,7 @@ class SparseFeeder(DeviceFeeder):
     def _stage(self, feed):
         t0 = time.perf_counter()
         feed = dict(feed)
+        host = {}
         for field, table in self._tables.items():
             if field not in feed:
                 raise KeyError(
@@ -60,9 +65,19 @@ class SparseFeeder(DeviceFeeder):
             feed[field + "__uids"] = db.uids
             feed[field + "__inv"] = db.inv
             feed[field + "__mask"] = db.mask
-            feed[field + "__nuniq"] = np.asarray([db.n_unique], np.int32)
-        self.dedup_ms.append((time.perf_counter() - t0) * 1e3)
-        return super()._stage(feed)
+            _metrics.gauge("sparse.bucket.size").set(float(db.bucket))
+            _metrics.gauge("sparse.bucket.occupancy").set(
+                db.n_unique / float(db.bucket))
+            host[field + "__nuniq"] = torch.tensor([db.n_unique],
+                                                   dtype=torch.int32)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.dedup_ms.append(ms)
+        _metrics.histogram("sparse.pipeline.dedup_ms").observe(ms)
+        _metrics.counter("sparse.pipeline.batches").inc()
+        staged, event = super()._stage(feed)
+        staged.update(host)  # read by the step without a device sync
+        return staged, event
 
     def _on_wait(self, seconds: float) -> None:
         self.stall_ms.append(seconds * 1e3)
+        _metrics.histogram("sparse.pipeline.stall_ms").observe(seconds * 1e3)

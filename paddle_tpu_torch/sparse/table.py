@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..core.graphs import Graphs, Staged
+from ..obs import metrics as _metrics
 
 DEFAULT_MIN_BUCKET = 64
 
@@ -311,6 +312,8 @@ class ShardedEmbeddingTable:
         tests; training fuses the gather into its step
         (``trainer.SparseEmbeddingTrainer``)."""
         db = self.dedup(ids)
+        _metrics.gauge("sparse.bucket.occupancy").set(
+            db.n_unique / float(db.bucket))
         key = (db.bucket, db.inv.shape)
         prep = self._lookups.get(key)
         if prep is None:
@@ -330,6 +333,7 @@ class ShardedEmbeddingTable:
                 prep = (staged, self._graphs.prepare(body), outs)
             self._lookups[key] = prep
             self._traces += 1
+            _metrics.counter("sparse.lookup.traces").inc()
         staged, run, outs = prep
         staged.stage({"uids": db.uids, "inv": db.inv, "mask": db.mask})
         with torch.no_grad():

@@ -15,21 +15,28 @@ every step of a signature after that replays one CUDA graph; a program
 that ``check_capturable`` refuses (a host read every run: ``cond``, an
 unbounded ``while_loop``, ``Print``), and any step under a Strategy, runs
 eagerly, their documented path.  ``recompile_guard`` watches the captures
-(``Executor.compiles``) past the first synced step.  The reference's
-compile store, warm start and ``prepare()`` (``compile_dir``), its
-profiler counters, metrics, trace spans and flight-recorder dumps are
-ROADMAP A.10.
+(``Executor.compiles``) past the first synced step.  The loop counts and
+times itself with the reference's names (``train.epochs``,
+``train.steps``, ``train.step_ms``, ``train.data_wait_ms``,
+``train.fetch_ms``, the ``resilience.*`` recovery counters; spans
+``train.data_wait``, ``train.step``, ``train.fetch``,
+``train.checkpoint``), records every step in the flight recorder and dumps
+a postmortem before a rollback and a preemption exit.  The reference's
+compile store, warm start and ``prepare()`` (``compile_dir``) are ROADMAP
+A.10.
 """
 from __future__ import annotations
 
 import os
 import shutil
+import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import events as _events
+from . import profiler as _profiler
 from .compile import guard as _guard
 from .core.executor import (Executor, Scope, _to_numpy, check_capturable,
                             global_scope)
@@ -38,6 +45,9 @@ from .core.program import Variable, default_startup_program
 from .core.types import dtype_name
 from .data_feeder import DataFeeder, DeviceFeeder
 from .io import CheckpointCorrupt, CheckpointManager
+from .obs import metrics as _metrics
+from .obs import recorder as _recorder
+from .obs import trace as _trace
 from .resilience import cluster as _cluster
 from .resilience import faults
 
@@ -219,6 +229,7 @@ class Trainer:
                         self._watchdog.stop()
                     self._rollback()
                 handler(_events.EndPass(pass_id, last_metrics))
+                _profiler.incr("train.epochs")
                 if self.task_queue is not None:
                     self.task_queue.new_epoch()
             if self.ckpt:
@@ -246,12 +257,26 @@ class Trainer:
         consecutive_anomalies = 0
         last_batch = -1
         feed_iter = self._device_feeds(reader)
+        # the wait and step histograms and the flight recorder's step ring
+        # are always on; the spans land in the trace ring only while
+        # tracing is enabled
+        data_wait_h = _metrics.histogram("train.data_wait_ms")
+        step_h = _metrics.histogram("train.step_ms")
+        steps_c = _metrics.counter("train.steps")
         if self._watchdog is not None and not self._watchdog.alive():
             self._watchdog.start()
         try:
             pending = None  # (batch_id, outs) of the newest un-synced step
+            it = iter(feed_iter)
+            end = object()  # a feed is never this object
             batch_id = -1
-            for feed in feed_iter:
+            while True:
+                t_wait = time.perf_counter()
+                with _trace.span("train.data_wait"):
+                    feed = next(it, end)
+                if feed is end:
+                    break
+                data_wait_h.observe((time.perf_counter() - t_wait) * 1e3)
                 batch_id += 1
                 last_batch = batch_id
                 if self._preempt is not None and self._preempt.preempted:
@@ -261,21 +286,34 @@ class Trainer:
                     feed_iter.stop_intake()
                 handler(_events.BeginIteration(pass_id, batch_id))
                 faults.check("collective.step")
-                outs = self._run_step(feed, fetch)
+                t_step = time.perf_counter()
+                with _trace.span("train.step", step=self.global_step):
+                    outs = self._run_step(feed, fetch)
+                step_h.observe((time.perf_counter() - t_step) * 1e3)
+                steps_c.inc()
                 if self._watchdog is not None:
                     self._watchdog.beat()
                 if batch_id % self.log_every != 0:
                     pending = (batch_id, outs)
+                    _recorder.record_step(self.global_step, pass_id, batch_id)
                     self.global_step += 1
                     self._maybe_checkpoint(pass_id, batch_id)
                     continue
                 pending = None
-                cost = _scalar(outs[0])
+                with _trace.span("train.fetch"):
+                    t_fetch = time.perf_counter()
+                    cost = _scalar(outs[0])
+                    _metrics.histogram("train.fetch_ms").observe(
+                        (time.perf_counter() - t_fetch) * 1e3)
                 if self.anomaly_guard and not np.isfinite(cost):
                     # the on-device guard already kept the old state; with
                     # the guard off the update WAS applied, and the NaN
                     # cost reaches the handler like any other
                     consecutive_anomalies += 1
+                    _profiler.incr("resilience.anomalies_skipped")
+                    _recorder.record_event("anomaly", pass_id=pass_id,
+                                           batch_id=batch_id, cost=cost,
+                                           consecutive=consecutive_anomalies)
                     handler(_events.AnomalyDetected(pass_id, batch_id, cost,
                                                     consecutive_anomalies))
                     if consecutive_anomalies > self.anomaly_budget:
@@ -284,6 +322,8 @@ class Trainer:
                 consecutive_anomalies = 0
                 last_metrics = {k: _scalar(v)
                                 for k, v in zip(fetch_keys, outs[1:])}
+                _recorder.record_step(self.global_step, pass_id, batch_id,
+                                      cost=cost, metrics=last_metrics)
                 handler(_events.EndIteration(pass_id, batch_id, cost,
                                              last_metrics))
                 # the first synced step closes warmup: captures after it
@@ -303,6 +343,7 @@ class Trainer:
                 cost = _scalar(outs[0])
                 if self.anomaly_guard and not np.isfinite(cost):
                     consecutive_anomalies += 1
+                    _profiler.incr("resilience.anomalies_skipped")
                     handler(_events.AnomalyDetected(pass_id, batch_id, cost,
                                                     consecutive_anomalies))
                 else:
@@ -318,12 +359,15 @@ class Trainer:
 
     def _maybe_checkpoint(self, pass_id: int, batch_id: int) -> None:
         if self.global_step % self.ckpt_every == 0:
-            if self.ckpt:
-                self.ckpt.save(self.global_step, self.program,
-                               extra={"pass_id": pass_id,
-                                      "batch_id": batch_id},
-                               strategy=self.strategy)
-            self._snapshot_queue()
+            # train.checkpoint is the whole periodic persist; the nested
+            # ckpt.save span times the blob write alone
+            with _trace.span("train.checkpoint", step=self.global_step):
+                if self.ckpt:
+                    self.ckpt.save(self.global_step, self.program,
+                                   extra={"pass_id": pass_id,
+                                          "batch_id": batch_id},
+                                   strategy=self.strategy)
+                self._snapshot_queue()
 
     def _drain_preemption(self, pass_id: int, batch_id: int, handler) -> None:
         """The grace flag is armed and the staged steps are done: checkpoint
@@ -335,6 +379,13 @@ class Trainer:
                                   "preempted": True},
                            strategy=self.strategy)
         self._snapshot_queue()
+        _profiler.incr("resilience.preemptions")
+        # the drain is about to exit: leave the postmortem that says the
+        # state on disk is a deliberate drain, with the steps that led here
+        _recorder.record_event("preemption", pass_id=pass_id,
+                               batch_id=batch_id, step=self.global_step)
+        _recorder.dump("preemption", extra={"step": self.global_step,
+                                            "pass_id": pass_id})
         handler(_events.Preempted(pass_id, batch_id, self.global_step))
         _cluster.resumable_exit(_cluster.EXIT_PREEMPTED)
 
@@ -364,6 +415,11 @@ class Trainer:
         a gang) and rewind the dataset queue to the snapshot paired with
         it, so that the replayed pass re-reads the batches that poisoned
         this attempt; with no checkpoint left, the initial parameters."""
+        _profiler.incr("resilience.rollbacks")
+        # postmortem before the restore changes state: the evidence is the
+        # anomalous run of steps that triggered the rollback
+        _recorder.record_event("rollback", step=self.global_step)
+        _recorder.dump("anomaly_rollback", extra={"step": self.global_step})
         state = None
         if self.ckpt:
             try:
@@ -587,6 +643,10 @@ class SparseEmbeddingTrainer:
                                         self.global_step + 1))
         run.replay()
         loss = outs["loss"].clone()
+        nuniq = feed.get(self.field + "__nuniq")
+        if nuniq is not None:
+            _metrics.counter("sparse.update.rows_touched").inc(
+                int(np.asarray(nuniq).reshape(-1)[0]))
         # the ladder bounds the captures: the first visit to a rung is
         # warmup (the guard re-baselines over it), a revisit that captures
         # is a storm
