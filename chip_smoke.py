@@ -415,6 +415,19 @@ Phases (any failure exits non-zero, before the final line):
                (rtol 1e-4); ms per step of each arm, examples/s, the mean
                bucket and n_unique, V / mean bucket, the producer's dedup
                ms and the consumer's stall ms per batch, peak memory.
+ 23b. supervise - the LM of phase 6 at full width trained by ``python -m
+               paddle_tpu_torch train`` under tools/supervise.py
+               (--max-restarts=2), 8 x 1024 tokens a step from 4 RecordIO
+               shards (recordio.dump) through make_file_dispatcher and the
+               native prefetcher, a checkpoint every 2 steps; generation 0
+               crashes after checkpoint 4, generation 1 resumes it and the
+               queue snapshot (no shard the snapshot marks done re-read);
+               the supervisor exits 0 after one crash restart, the losses
+               finite and falling, each generation's flash launches >= 6 a
+               step; seconds to each generation's first step, prefetch
+               stall ms a batch; then train --job=time on the config and
+               infer on trainer_io's merged LM-logits artifact against a
+               direct call (atol 2e-5 + rtol 1e-5);
  24. parallel - the LM of phase 6 at full width (V=32000, d=512, 8 heads, 6
                layers, d_ff=2048, tied, float32, TF32 off, weights from
                init_lm_params(0), 8 x 1024 tokens, Adam(1e-3), clip 1.0)
@@ -907,13 +920,19 @@ def phase_device() -> str:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
+    from paddle_tpu_torch import native
     from paddle_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    # the host services' native library (g++) builds beside the kernels
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
         for fut in [pool.submit(_build.build_library, src)
-                    for src in KERNEL_SOURCES]:
+                    for src in KERNEL_SOURCES] + [pool.submit(native.lib)]:
             fut.result()
+    print(f"build: native library {native.library_path().name} "
+          + (f"compiled in {native.build_seconds:.2f} s"
+             if native.build_seconds is not None
+             else "loaded from an earlier build"))
     for src in KERNEL_SOURCES:
         _build.load_kernel_library(src)
         secs = _build.build_seconds.get(src)
@@ -8066,6 +8085,376 @@ def phase_obs_session(card: str) -> dict:
         shutil.rmtree(OBS_DIR, ignore_errors=True)
 
 
+# the supervise phase (PERF.md section 6): the LM trained by the command
+# line under the supervisor, from RecordIO shards, with one induced crash
+SUPERVISE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_supervise")
+SUPERVISE_SHARDS, SUPERVISE_PER_SHARD = 4, 16  # sequences of 1024 tokens
+SUPERVISE_BATCH = 8
+SUPERVISE_EVERY = 2           # --saving_period_by_batches
+SUPERVISE_CRASH_AFTER = 4     # generation 0 dies once this step is saved
+SUPERVISE_VOCAB_USED = 1000   # the data's tokens: the loss has room to fall
+SUPERVISE_TIME_STEPS = 10
+SUPERVISE_LIMIT_S = 420.0     # the supervised run, all generations
+
+# The config the CLI loads (a user's file: it imports the port, builds the
+# LM, and reads the shards through make_file_dispatcher and the native
+# prefetcher).  Generation 0 (PADDLE_TPU_RESTARTS 0) exits with code 1 at
+# its reader's next pull once checkpoint CRASH_AFTER is committed; every
+# generation prints the shards it claims and finishes and, at its exit, its
+# flash launches and train.data_wait_ms, each a JSON line.
+SUPERVISE_CONF = '''\
+import atexit, json, os, sys
+
+import numpy as np
+
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import distributed
+from paddle_tpu_torch.reader import recordio
+
+CFG = {cfg!r}
+SHARDS = {shards!r}
+SNAP = {snap!r}
+SAVE_DIR = {save_dir!r}
+CRASH_AFTER = {crash_after}
+VOCAB_USED = {vocab_used}
+GEN = int(os.environ.get("PADDLE_TPU_RESTARTS", "0"))
+
+
+def _say(**rec):
+    print(json.dumps(dict(rec, gen=GEN)), flush=True)
+
+
+def _report(reason):
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.ops import flash_attention
+
+    h = obs.metrics.snapshot()["histograms"].get("train.data_wait_ms", {{}})
+    _say(child=reason, flash=dict(flash_attention.launches),
+         data_wait_ms=h.get("sum"), data_waits=h.get("count"))
+    sys.stdout.flush()
+
+
+def _latest():
+    try:
+        with open(os.path.join(SAVE_DIR, "latest")) as f:
+            return int(f.read())
+    except (OSError, ValueError):
+        return 0
+
+
+class _Logged:
+    """The dispatcher as the reader sees it: each claimed and finished
+    shard printed, the queue snapshotted when a shard is done."""
+
+    def __init__(self, q):
+        self.q = q
+
+    def sweep(self):
+        return self.q.sweep()
+
+    def get(self):
+        t = self.q.get()
+        if t is not None:
+            _say(claim=t[1])
+        return t
+
+    def finish(self, tid):
+        self.q.finish(tid)
+        self.q.snapshot(SNAP)
+        _say(done=dict(self.q.counts()), tid=tid)
+
+    def fail(self, tid):
+        self.q.fail(tid)
+
+
+def build(batch_size={batch}):
+    T = CFG["max_len"]
+    toks = fluid.layers.data("toks", [T], dtype="int32")
+    labs = fluid.layers.data("labs", [T, 1], dtype="int32")
+    loss, _ = fluid.models.build_lm(toks, labs, **CFG)
+    q = distributed.make_file_dispatcher(SHARDS, snapshot_path=SNAP)
+    _say(restored=q.counts(), latest=_latest())
+    samples = recordio.dispatched_reader(_Logged(q), n_threads=1)
+
+    def guarded():
+        it = samples()
+        while True:
+            if GEN == 0 and _latest() >= CRASH_AFTER:
+                _report("crash")
+                os._exit(1)
+            s = next(it, None)
+            if s is None:
+                return
+            yield s
+
+    rng = np.random.RandomState(7)
+
+    def synthetic_feed():
+        t = rng.randint(0, VOCAB_USED, (batch_size, T + 1)).astype("int32")
+        return {{"toks": t[:, :T], "labs": t[:, 1:, None]}}
+
+    atexit.register(_report, "exit")
+    return {{"name": "lm", "loss": loss, "feeds": [toks, labs],
+            "optimizer": fluid.optimizer.Adam(
+                1e-3, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)),
+            "reader": fluid.reader.batch(guarded, batch_size),
+            "synthetic_feed": synthetic_feed}}
+'''
+
+
+def _lm_sequences(n: int, seed: int) -> list:
+    """``n`` (toks, labs) sequences: a walk over the first
+    SUPERVISE_VOCAB_USED ids with small steps, the label the next token."""
+    rng = np.random.RandomState(seed)
+    T = LM_CFG["max_len"]
+    out = []
+    for _ in range(n):
+        walk = (rng.randint(SUPERVISE_VOCAB_USED)
+                + np.cumsum(rng.randint(1, 4, T + 1))) % SUPERVISE_VOCAB_USED
+        walk = walk.astype(np.int32)
+        out.append((walk[:T], walk[1:, None]))
+    return out
+
+
+def _child_records(log: str) -> list:
+    """The JSON lines a child printed, in order."""
+    out = []
+    for line in log.splitlines():
+        if line.startswith("{"):
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+def _child_losses(log: str) -> list:
+    import re
+
+    return [float(m) for m in re.findall(r"^pass \d+ batch \d+ cost=(\S+)",
+                                         log, re.M)]
+
+
+def _run_cli(args: list, env: dict, limit_s: float) -> str:
+    """``python -m paddle_tpu_torch <args>`` from the checkout's root;
+    returns its stdout, failing on a nonzero exit or past ``limit_s``."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        p = subprocess.run([sys.executable, "-m", "paddle_tpu_torch", *args],
+                           capture_output=True, text=True, cwd=root,
+                           env=env, timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        fail(f"supervise: {args[0]} ran past {limit_s} s")
+    check(p.returncode == 0,
+          f"supervise: {args[:2]} exited {p.returncode}:\n"
+          f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    return p.stdout
+
+
+def _supervised_run(conf: str, ckpt: str, logs: str, env: dict) -> tuple:
+    """tools/supervise.py over ``python -m paddle_tpu_torch train``; polls
+    the generations' logs every 20 ms for their first appearance (the
+    supervisor opens each just before it spawns the child) and their first
+    logged step.  Returns (exit code, stderr, {gen: (seconds to first step,
+    log text)}, wall seconds)."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.tools.supervise",
+           "--max-restarts=2", f"--log-dir={logs}", "--",
+           sys.executable, "-m", "paddle_tpu_torch", "train",
+           f"--config={conf}", "--num_passes=1", f"--save_dir={ckpt}",
+           f"--saving_period_by_batches={SUPERVISE_EVERY}",
+           "--log_period=1"]
+    t0 = time.perf_counter()
+    # a session of its own: on a failure here the whole tree (supervisor
+    # and child) is killed as one process group
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    seen, first = {}, {}
+    try:
+        while proc.poll() is None:
+            if time.perf_counter() - t0 > SUPERVISE_LIMIT_S:
+                fail(f"supervise: the supervised run passed "
+                     f"{SUPERVISE_LIMIT_S} s")
+            now = time.perf_counter()
+            for g in (0, 1, 2):
+                path = os.path.join(logs, f"gen{g}-r0.log")
+                if g not in seen and os.path.exists(path):
+                    seen[g] = now
+                if g in seen and g not in first:
+                    with open(path) as f:
+                        if "batch 0 cost=" in f.read():
+                            first[g] = now - seen[g]
+            time.sleep(0.02)
+        out, err = proc.communicate(timeout=30)
+    finally:
+        if proc.poll() is None:
+            import signal
+
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    gens = {}
+    for g in sorted(seen):
+        with open(os.path.join(logs, f"gen{g}-r0.log")) as f:
+            gens[g] = (first.get(g), f.read())
+    return proc.returncode, err, gens, time.perf_counter() - t0
+
+
+def phase_supervise(card: str) -> dict:
+    """The LM at LM_CFG's width trained by ``python -m paddle_tpu_torch
+    train`` under ``tools/supervise.py`` (--max-restarts=2), from
+    SUPERVISE_SHARDS RecordIO shards of SUPERVISE_PER_SHARD sequences
+    (``recordio.dump``) through ``make_file_dispatcher`` (a queue snapshot)
+    and the native prefetcher, SUPERVISE_BATCH x 1024 tokens a step, Adam
+    1e-3, clip 1.0, a checkpoint every SUPERVISE_EVERY steps.  Generation
+    0 crashes once checkpoint SUPERVISE_CRASH_AFTER is committed; the
+    supervisor exits 0 after exactly one crash restart; generation 1
+    resumes the checkpoint (> 0) and the snapshot and claims no shard the
+    snapshot marks done; every loss finite, the last below the first; each
+    generation's flash launches >= n_layers a step.  Then ``train
+    --job=time`` on the config and ``infer`` on trainer_io's merged
+    LM-logits artifact against a direct call (atol 2e-5 + rtol 1e-5)."""
+    import shutil
+
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.reader import recordio
+
+    n_layers = LM_CFG["n_layers"]
+    shutil.rmtree(SUPERVISE_DIR, ignore_errors=True)
+    os.makedirs(SUPERVISE_DIR)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1")
+    for k in ("PADDLE_TPU_RESTARTS", "PADDLE_TPU_SUPERVISED",
+              "PADDLE_TPU_COMPILE_DIR"):
+        env.pop(k, None)
+    rec = {"native_build_s": native.build_seconds}
+    try:
+        seqs = _lm_sequences(SUPERVISE_SHARDS * SUPERVISE_PER_SHARD, 31)
+        t0 = time.perf_counter()
+        shards = recordio.dump(lambda: iter(seqs),
+                               os.path.join(SUPERVISE_DIR, "lm"),
+                               num_shards=SUPERVISE_SHARDS)
+        rec["dump_s"] = time.perf_counter() - t0
+        ckpt = os.path.join(SUPERVISE_DIR, "ckpt")
+        snap = os.path.join(SUPERVISE_DIR, "queue.snap")
+        conf = os.path.join(SUPERVISE_DIR, "lm_conf.py")
+        with open(conf, "w") as f:
+            f.write(SUPERVISE_CONF.format(
+                cfg=LM_CFG, shards=shards, snap=snap, save_dir=ckpt,
+                crash_after=SUPERVISE_CRASH_AFTER,
+                vocab_used=SUPERVISE_VOCAB_USED, batch=SUPERVISE_BATCH))
+        logs = os.path.join(SUPERVISE_DIR, "logs")
+        rc, err, gens, wall = _supervised_run(conf, ckpt, logs, env)
+        check(rc == 0 and sorted(gens) == [0, 1]
+              and err.count("(crash); relaunching generation 1") == 1
+              and "generation 2" not in err,
+              f"supervise: exit {rc}, generations {sorted(gens)}, "
+              f"stderr:\n{err[-3000:]}\n{gens.get(0, (0, ''))[1][-3000:]}")
+        g0, g1 = (_child_records(gens[g][1]) for g in (0, 1))
+        l0, l1 = (_child_losses(gens[g][1]) for g in (0, 1))
+        crash = [r for r in g0 if r.get("child") == "crash"]
+        ends = [r for r in g1 if r.get("child") == "exit"]
+        check(len(crash) == 1 and len(ends) == 1,
+              f"supervise: gen 0 reports {crash}, gen 1 reports {ends}")
+        check(len(l0) >= SUPERVISE_CRASH_AFTER and l1
+              and all(np.isfinite(l0 + l1)) and l1[-1] < l0[0],
+              f"supervise: losses gen 0 {l0}, gen 1 {l1}")
+        # generation 1 resumed the checkpoint and the queue snapshot
+        start = next(r for r in g1 if "restored" in r)
+        done0 = [r["tid"] for r in g0 if "done" in r]
+        claimed0 = [r["claim"] for r in g0 if "claim" in r]
+        claimed1 = [r["claim"] for r in g1 if "claim" in r]
+        done_paths = {shards[int(t.split("-")[1])] for t in done0}
+        check(start["latest"] >= SUPERVISE_CRASH_AFTER
+              and start["restored"]["done"] == len(done0)
+              and not done_paths & set(claimed1)
+              and sorted(done_paths | set(claimed1)) == sorted(shards),
+              f"supervise: gen 1 started from {start}; gen 0 finished "
+              f"{done0}, claimed {claimed0}; gen 1 claimed {claimed1}")
+        final = tio.CheckpointManager(ckpt).latest_step()
+        check(final == start["latest"] + len(l1),
+              f"supervise: final checkpoint {final}, gen 1 resumed step "
+              f"{start['latest']} and ran {len(l1)} steps")
+        # the kernels ran in each child: n_layers per step, plus the warm's
+        # eager run
+        launches = {}
+        for g, r, losses in ((0, crash[0], l0), (1, ends[0], l1)):
+            launches[g] = {k: r["flash"][k] for k in FLASH_KERNELS}
+            check(all(v >= n_layers * len(losses)
+                      for v in launches[g].values()),
+                  f"supervise: gen {g} flash launches {launches[g]} for "
+                  f"{len(losses)} steps x {n_layers} layers")
+        stall = {g: (r["data_wait_ms"] / r["data_waits"]
+                     if r.get("data_waits") else None)
+                 for g, r in ((0, crash[0]), (1, ends[0]))}
+        rec.update({
+            "wall_s": wall, "losses": {0: l0, 1: l1},
+            "first_step_s": {g: gens[g][0] for g in gens},
+            "resumed_step": start["latest"], "final_step": final,
+            "launches": launches, "stall_ms_per_batch": stall,
+            "shards_done_gen0": len(done0), "shards_gen1": len(claimed1)})
+        print(f"supervise: the LM ({LM_CFG}) under tools/supervise.py, "
+              f"{SUPERVISE_SHARDS} RecordIO shards x {SUPERVISE_PER_SHARD} "
+              f"sequences, {SUPERVISE_BATCH} x {LM_CFG['max_len']} tokens a "
+              f"step: gen 0 ran {len(l0)} steps and crashed after "
+              f"checkpoint {SUPERVISE_CRASH_AFTER} ({len(done0)} shards "
+              f"done), gen 1 resumed step {start['latest']} and "
+              f"{start['restored']}, claimed {len(claimed1)} shards, ran "
+              f"{len(l1)} steps to checkpoint {final}; losses "
+              f"{', '.join(f'{x:.4f}' for x in l0 + l1)}; seconds from "
+              f"spawn to the first logged step {rec['first_step_s']}, the "
+              f"run {wall:.1f} s; flash launches {launches}; prefetch "
+              f"stall ms a batch {stall}; native build "
+              f"{rec['native_build_s']} s; on {card}")
+
+        out = _run_cli(["train", f"--config={conf}", "--job=time",
+                        f"--time_steps={SUPERVISE_TIME_STEPS}"], env, 300.0)
+        timing = [r for r in _child_records(out) if "examples_per_sec" in r]
+        report = [r for r in _child_records(out) if r.get("child") == "exit"]
+        check(len(timing) == 1 and timing[0]["examples_per_sec"] > 0
+              and {"config", "config_args", "ms_per_batch",
+                   "examples_per_sec", "compile_s"} <= set(timing[0])
+              and report, f"supervise: --job=time printed {out[-2000:]}")
+        job_launches = {k: report[0]["flash"][k] for k in FLASH_KERNELS}
+        want = n_layers * (SUPERVISE_TIME_STEPS + 3)
+        check(all(v >= want for v in job_launches.values()),
+              f"supervise: --job=time flash launches {job_launches}, want "
+              f">= {want}")
+        rec["job_time"] = dict(timing[0], launches=job_launches)
+        print(f"supervise --job=time: {timing[0]}; flash launches "
+              f"{job_launches}; on {card}")
+
+        rng = np.random.RandomState(41)
+        x = rng.randint(0, LM_CFG["vocab_size"], (2, LM_CFG["max_len"])
+                        ).astype(np.int32)
+        feed = os.path.join(SUPERVISE_DIR, "feed.npz")
+        result = os.path.join(SUPERVISE_DIR, "out.npz")
+        np.savez(feed, toks=x)
+        _run_cli(["infer", f"--model_dir={OBS_LM_ARTIFACT}", f"--feed={feed}",
+                  f"--output={result}"], env, 300.0)
+        infer, _, fetch_names = tio.load_merged_model(OBS_LM_ARTIFACT)
+        want = infer({"toks": x})[0]
+        got = np.load(result)[fetch_names[0]]
+        err_ = _close_f32("supervise infer", got, want)
+        rec["infer"] = {"max_abs_err": err_, "rows": int(got.shape[0])}
+        print(f"supervise infer: the merged LM-logits artifact through "
+              f"python -m paddle_tpu_torch infer on {x.shape} tokens, "
+              f"{got.shape} logits, max |d| {err_:.3e} against a direct "
+              f"call (limit atol {TOLERANCE['float32'][0]} + rtol "
+              f"{TOLERANCE['float32'][1]}); on {card}")
+        del infer
+        _release()
+    finally:
+        shutil.rmtree(SUPERVISE_DIR, ignore_errors=True)
+    return rec
+
+
 def _par_launches(par: dict, which: str, kern: str) -> dict:
     """The parallel phase's launches of one kernel, by leg and rank."""
     return {f"parallel {label} rank {i}": counts[kern]
@@ -8142,6 +8531,8 @@ def main() -> int:
     _release()
     tio = _timed("trainer_io", phase_trainer_io, card)
     _release()
+    sup = _timed("supervise", phase_supervise, card)
+    _release()
     obs_sess = _timed("obs session", phase_obs_session, card)
     _release()
     par = _timed("parallel", phase_parallel, card)
@@ -8194,6 +8585,12 @@ def main() -> int:
                                  "trainer_io lm": tio["lm"]["launches"][kern],
                                  "trainer_io resume":
                                      tio["resume"]["launches"][kern],
+                                 "supervise gen 0":
+                                     sup["launches"][0][kern],
+                                 "supervise gen 1":
+                                     sup["launches"][1][kern],
+                                 "supervise --job=time":
+                                     sup["job_time"]["launches"][kern],
                                  **({"obs session": obs_sess[
                                      "flash_fwd_launches"]}
                                     if kern == "fwd" else {}),

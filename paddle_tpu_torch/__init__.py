@@ -80,10 +80,13 @@ Entry points run on the CUDA card unless the caller asks for the CPU
 raise.  The package imports torch and numpy, never jax and nothing of
 ``paddle_tpu``.
 """
+__version__ = "0.4.0"  # the JAX package's
+
 from . import (amp, backward, clip, compile, data_feeder, datasets,
                evaluator, events, flags, hooks, initializer, io, layers,
-               learning_rate_decay, models, nets, optimizer, reader,
-               regularizer, resilience, sparse, trainer)
+               learning_rate_decay, models, net_drawer, nets, optimizer,
+               plot, reader, regularizer, resilience, sparse, supervisor,
+               trainer)
 from . import distributed, parallel
 from ._device import card_info, resolve_device
 from .data_feeder import DataFeeder, DeviceFeeder
@@ -102,8 +105,8 @@ from .serving import (AdmissionShed, ContinuousDecodeEngine,
                       PagedKVPool, PrefixCache, SamplingParams, chain_hashes,
                       root_for_kv_dtype)
 
-__all__ = ["AdmissionShed", "AnomalyBudgetExceeded", "amp", "CPUPlace",
-           "ContinuousDecodeEngine",
+__all__ = ["__version__", "AdmissionShed", "AnomalyBudgetExceeded", "amp",
+           "CPUPlace", "ContinuousDecodeEngine",
            "ContinuousScheduler", "DataFeeder", "Deadline",
            "DeadlineExceeded", "DecodeAdmissionQueue", "DecodeEngine",
            "DecodeRequest", "DeviceFeeder", "SparseEmbeddingTrainer",
@@ -117,6 +120,7 @@ __all__ = ["AdmissionShed", "AnomalyBudgetExceeded", "amp", "CPUPlace",
            "gather_scope",
            "global_scope",
            "hooks", "init_lm_params", "initializer", "layers",
-           "learning_rate_decay", "load_scope", "models", "nets", "optimizer",
+           "learning_rate_decay", "load_scope", "models", "net_drawer", "nets",
+           "optimizer", "plot", "supervisor",
            "program_guard", "regularizer", "reset_default_programs",
            "reset_global_scope", "resolve_device"]

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from . import flags
 from ._device import resolve_device
 from .parallel import comm
 
@@ -66,10 +67,17 @@ def init(coordinator_address: Optional[str] = None,
     env = os.environ
     if coordinator_address is None and num_processes is None \
             and process_id is None:
-        if "WORLD_SIZE" not in env or "RANK" not in env:
+        addr, n = flags.get("coordinator_address"), flags.get("num_hosts")
+        if "WORLD_SIZE" in env and "RANK" in env:
+            url, n, pid = "env://", int(env["WORLD_SIZE"]), int(env["RANK"])
+        elif addr and n > 1:
+            # the reference's flags (PADDLE_TPU_COORDINATOR_ADDRESS,
+            # _NUM_HOSTS, _TRAINER_ID: what the supervisor gives a gang)
+            url = addr if "://" in addr else f"tcp://{addr}"
+            n, pid = int(n), int(flags.get("trainer_id"))
+        else:
             _device = torch.device(device) if device is not None else None
             return 1, 0
-        url, n, pid = "env://", int(env["WORLD_SIZE"]), int(env["RANK"])
     else:
         if coordinator_address is None or num_processes is None \
                 or process_id is None:
@@ -116,11 +124,44 @@ def device() -> torch.device:
 def make_file_dispatcher(files, timeout_s: float = 300.0, failure_max: int = 3,
                          snapshot_path: Optional[str] = None,
                          partition_by_host: bool = True):
-    """The reference's master-style task dispatcher needs ``native.
-    TaskQueue``, which is ROADMAP A.10; it waits for that port."""
-    raise NotImplementedError(
-        "make_file_dispatcher needs native.TaskQueue, which is not ported "
-        "yet: ROADMAP A.10 (native.py)")
+    """Master-style dataset task dispatcher over RecordIO shards (ref:
+    go/master/service.go — dataset partitioned into chunk tasks, timeout
+    requeue, failureMax discard, snapshot for recovery).
+
+    Returns a ``native.TaskQueue`` whose payloads are file paths.  Scope:
+    the queue is process-local.  With a process group up each rank
+    dispatches over ITS OWN partition of the shard list
+    (``files[rank::world_size]``, the reference's
+    ``files[process_index::process_count]``); without one the whole list.
+    A gang restarts together, so recovery is checkpoint + snapshot per
+    rank; elasticity WITHIN a rank (worker crash, timeout requeue,
+    failureMax) matches the Go master.
+
+    If ``snapshot_path`` holds a snapshot of the SAME file partition, the
+    queue resumes from it; a snapshot of a different dataset, or one that
+    does not restore, is ignored and a fresh queue is built (re-pointing
+    training at new data must not silently replay the old list)."""
+    from . import native
+
+    files = [str(f) for f in files]
+    if partition_by_host and process_count() > 1:
+        files = files[process_index()::process_count()]
+    if snapshot_path and os.path.exists(snapshot_path):
+        try:
+            q = native.TaskQueue.restore(snapshot_path, timeout_s, failure_max)
+            if sorted(q.payloads()) == sorted(files):
+                return q
+        except (OSError, ValueError):
+            # corrupt/partial snapshot: fall through to a fresh queue.  Not
+            # just IOError — a truncated/garbled blob that survives the CRC
+            # layer surfaces as ValueError (e.g. UnicodeDecodeError from
+            # payloads()) and must also mean "fresh queue", never a crash
+            # at startup
+            pass
+    q = native.TaskQueue(timeout_s=timeout_s, failure_max=failure_max)
+    for i, f in enumerate(files):
+        q.add(f"shard-{i:05d}", f)
+    return q
 
 
 def global_batch_array(local_batch, mesh, axis: str = "dp"):

@@ -1,7 +1,7 @@
 """Readers (PyTorch port of ``paddle_tpu/reader``): the decorators of
-``decorator.py``.  ``recordio`` (the sharded record files and the
-dispatched reader) needs ``native``'s RecordIO writer and prefetcher, and
-waits for ROADMAP A.10."""
+``decorator.py`` and ``recordio`` (the sharded record files, the native
+prefetch reader and the dispatched reader over a ``native.TaskQueue``)."""
+from . import recordio
 from .decorator import (
     ComposeNotAligned,
     batch,
@@ -28,6 +28,7 @@ __all__ = [
     "firstn",
     "map_readers",
     "pipe_reader",
+    "recordio",
     "shuffle",
     "xmap_readers",
 ]

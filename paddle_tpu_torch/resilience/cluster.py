@@ -45,8 +45,18 @@ import time
 from datetime import timedelta
 from typing import Callable, Optional
 
-from . import faults
-from .policy import _incr
+try:
+    from . import faults
+    from .policy import _incr
+except ImportError:  # file-loaded standalone (tools/supervise.py): no
+    # package, so no fault registry and no counters; the sites are no-ops
+    class faults:  # noqa: N801 — stands in for the module
+        @staticmethod
+        def check(site):
+            return None
+
+    def _incr(name):
+        return None
 
 # Exit codes the supervisor keys on.  EXIT_PREEMPTED is sysexits'
 # EX_TEMPFAIL: the process drained gracefully and the state on disk

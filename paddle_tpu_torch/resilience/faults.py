@@ -17,6 +17,8 @@ Sites in this package:
                     — a fired fault degrades THAT fork to a private
                     full-lineage recompute instead of sharing the parent's
                     blocks; every branch's stream is unchanged
+  queue.pop         ``native.TaskQueue.get``, before the native pop
+  reader.pipeline   every record that ``reader.recordio`` streams
 """
 from __future__ import annotations
 

@@ -81,7 +81,8 @@ class Trainer:
     rewinds it to the one paired with the restored checkpoint.
     ``handle_preemption``: SIGTERM / SIGINT drain (finish the staged
     batches, checkpoint, exit ``EXIT_PREEMPTED``); ``hang_timeout_s``: the
-    watchdog.  ``compile_dir`` (the reference's compile store) raises, and
+    watchdog.  ``compile_dir`` (the reference's compile store; by default
+    ``PADDLE_TPU_COMPILE_DIR``, which the supervisor forwards) raises, and
     its ``warm_start`` is not taken: ROADMAP A.10."""
 
     def __init__(
@@ -107,11 +108,17 @@ class Trainer:
         recompile_policy: str = "warn",
         place=None,
     ):
+        if compile_dir is None:
+            # the supervisor forwards its --compile-dir in the environment
+            from .compile import default_compile_dir
+
+            compile_dir = default_compile_dir()
         if compile_dir is not None:
             raise NotImplementedError(
-                "Trainer(compile_dir=...): the compile store, its manifest "
-                "and the warm start are not ported yet (ROADMAP A.10); each "
-                "new step signature is warmed in process")
+                f"Trainer(compile_dir={compile_dir!r}, or "
+                f"PADDLE_TPU_COMPILE_DIR): the compile store, its manifest "
+                f"and the warm start are not ported yet (ROADMAP A.10); each "
+                f"new step signature is warmed in process")
         self.cost = cost
         self.program = cost.program
         optimizer.minimize(cost)

@@ -44,7 +44,7 @@ def fresh_state():
     yield
 
 
-def test_ctr_reader_matches_the_reference():
+def test_ctr_reader_matches_the_reference(tmp_path):
     from paddle_tpu.datasets import ctr as jctr
     from paddle_tpu_torch.datasets import ctr
 
@@ -60,8 +60,16 @@ def test_ctr_reader_matches_the_reference():
             np.testing.assert_array_equal(x[0], y[0])
             np.testing.assert_array_equal(x[1], y[1])
             assert x[2] == y[2]
-    with pytest.raises(NotImplementedError, match="A.12"):
-        ctr.real_reader("train.txt")
+    # the Criteo file reader: one labelled row with empty fields, the
+    # same samples in both packages
+    p = tmp_path / "train.txt"
+    p.write_text("1\t" + "\t".join(["5", ""] * 6 + ["-3"]) + "\t"
+                 + "\t".join(["68fd1e64", ""] * 13) + "\n")
+    (x, y), = zip(list(ctr._real_reader(str(p))()),
+                  list(jctr._real_reader(str(p))()))
+    np.testing.assert_array_equal(x[0], y[0])
+    np.testing.assert_array_equal(x[1], y[1])
+    assert x[2] == y[2] == 1
 
 
 def _pack(samples, vocabs=None):

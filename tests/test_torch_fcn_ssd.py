@@ -180,8 +180,8 @@ def test_ssd_pruned_detect_matches_jax():
 
 def test_voc2012_masks_match_the_reference():
     """``datasets.voc2012``'s synthetic readers yield the reference's
-    samples bitwise (train seed 0, test seed 1); the file readers are not
-    ported and say so."""
+    samples bitwise (train seed 0, test seed 1); with no VOCdevkit under
+    the data home the detection readers raise as the reference's do."""
     from paddle_tpu.datasets import voc2012 as jvoc
 
     from paddle_tpu_torch.datasets import voc2012 as tvoc
@@ -194,8 +194,9 @@ def test_voc2012_masks_match_the_reference():
             np.testing.assert_array_equal(gi, wi)
             np.testing.assert_array_equal(gm, wm)
     assert tvoc.NUM_CLASSES == 21 and tvoc.DET_CLASSES == jvoc.DET_CLASSES
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tvoc.detection_train()
+    for mod in (tvoc, jvoc):
+        with pytest.raises(FileNotFoundError, match="VOC detection data"):
+            mod.detection_train()
 
 
 def test_ssd_model_trains_and_detects():

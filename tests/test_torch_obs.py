@@ -59,9 +59,6 @@ WAITING = {
     "compile.aot_write": "A.10 (compile/aot.py)",
     "compile.aot_load": "A.10 (compile/aot.py)",
     "compile.persistent_cache_enabled": "A.10 (compile/aot.py)",
-    "resilience.restarts": "A.10 (supervisor.py)",
-    "resilience.hang_restarts": "A.10 (supervisor.py)",
-    "resilience.crash_restarts": "A.10 (supervisor.py)",
     # the port has no fallback: a card that cannot run the paged kernel
     # raises (serving.decode.kernel_impl reads 1 on the card, 0 on the CPU)
     "serving.pallas.fallbacks": "never",

@@ -200,8 +200,10 @@ def test_distributed_single_process_and_dispatcher():
     mesh = tpar.make_mesh({"dp": 1})
     batch = np.arange(12).reshape(6, 2)
     assert np.array_equal(distributed.global_batch_array(batch, mesh), batch)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        distributed.make_file_dispatcher(["a"])
+    # one process: the dispatcher hands out the whole file list
+    q = distributed.make_file_dispatcher(["a", "b"])
+    assert sorted(q.payloads()) == ["a", "b"]
+    assert q.get() == ("shard-00000", "a")
 
 
 # ------------------------------------------------------------ the gang
