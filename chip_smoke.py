@@ -7581,36 +7581,92 @@ def _trainer_io_anomaly(card: str) -> dict:
 
 
 def phase_custom_ops(card: str) -> dict:
-    """Rows 2 and 5 through their custom ops (``paddle_tpu_torch::
-    flash_fwd``, ``lstm_fwd``) against the wrappers called directly, in
-    turns (direct, op, op, direct), event-timed and device ms: the flash
-    forward at the kernel phase's float32 case, the LSTM forward without
-    residuals (the inference form) at text_lstm's shape.  Early in the
-    run, beside the kernel phases: late in a run the profiler drops a
+    """Every kernel of the main paths through its custom op (``paddle_tpu_
+    torch::flash_fwd``, ``flash_bwd``, ``lstm_fwd``, ``lstm_fwd_train``,
+    ``lstm_bwd``, ``bn_bwd_reduce``, ``bn_bwd_dx``, ``dropout_fwd``,
+    ``dropout_bwd``) against the wrapper called directly on the same
+    inputs: every output bitwise, then timed in turns (direct, op, op,
+    direct), event-timed and device ms.  Flash at the kernel phase's
+    float32 case, the LSTM at text_lstm's shape (forward without and with
+    residuals, the backward), the BN pair at stage 1 in bfloat16, dropout
+    at [8, 1024, 512] float32 with the step an immediate, the staged word,
+    and the staged word with a counter map (the mapped kernel).  Early in
+    the run, beside the kernel phases: late in a run the profiler drops a
     window's first records of a library-launched kernel (ROADMAP C.2)."""
     from paddle_tpu_torch.ops import attention as TA
+    from paddle_tpu_torch.ops import batch_norm as TB
+    from paddle_tpu_torch.ops import dropout as dmod
     from paddle_tpu_torch.ops import lstm as TL
 
     dev = torch.device("cuda")
     _, N, Tq, Tk, D, causal = FLASH_CASES[0]
-    q, k, v, _ = _flash_inputs(N, Tq, Tk, D, torch.float32, dev)
+    q, k, v, g = _flash_inputs(N, Tq, Tk, D, torch.float32, dev)
     scale = D ** -0.5
+    o, lse = TA.flash_fwd_kernel(q, k, v, scale, causal)
     T, B, H = LSTM_SHAPE
     lengths = np.random.RandomState(0).randint(T // 2, T + 1, B)
-    xw, u, peep, mask, _, _ = _lstm_inputs(T, B, H, lengths, dev, 3)
+    xw, u, peep, mask, g_hs, g_c = _lstm_inputs(T, B, H, lengths, dev, 3)
+    _, hc, cc, gates, cnew = TL.lstm_fwd_kernel(xw, u, peep, mask, H, False,
+                                                LSTM_ACTS, True)
+    _, bn_n, bn_c, bn_h, bn_w = BN_CASES[0]
+    dy, x, mean, rstd, gamma = _bn_inputs(bn_n, bn_c, bn_h, bn_w,
+                                          torch.bfloat16, dev, 5)
+    dbeta, dgamma = TB.bn_bwd_reduce_kernel(dy, x, mean, rstd)
+    dx_in = torch.randn(DROPOUT_CASES[0], device=dev)
+    word = torch.tensor([7], dtype=torch.int32, device=dev)
+    cmap = dmod.CounterMap(base=512, row=512, stride=1024, seg=256,
+                           off0=0, off1=256)
+    keys = {"imm": (dmod.ThreefryKey(DROPOUT_SEED, 7, 1), None),
+            "staged": (dmod.ThreefryKey(DROPOUT_SEED, word, 1), None),
+            "mapped": (dmod.ThreefryKey(DROPOUT_SEED, word, 1), cmap)}
     arms = {
         "flash_fwd": (lambda i: TA.flash_fwd_kernel(q, k, v, scale, causal),
                       lambda i: TA.flash_fwd_op(q, k, v, scale, causal)),
+        "flash_bwd": (
+            lambda i: TA.flash_bwd_kernels(q, k, v, o, lse, g, scale,
+                                           causal),
+            lambda i: TA.flash_bwd_op(q, k, v, o, lse, g, scale, causal,
+                                      128)),
         "fused_lstm_fwd": (
             lambda i: TL.lstm_fwd_kernel(xw, u, peep, mask, H, False,
-                                         LSTM_ACTS, False),
+                                         LSTM_ACTS, False)[:1],
             lambda i: TL.lstm_fwd_op(xw, u, peep, mask, H, False,
-                                     *LSTM_ACTS)),
+                                     *LSTM_ACTS)[:1]),
+        "lstm_fwd_train": (
+            lambda i: TL.lstm_fwd_kernel(xw, u, peep, mask, H, False,
+                                         LSTM_ACTS, True),
+            lambda i: TL.lstm_fwd_train_op(xw, u, peep, mask, H, False,
+                                           *LSTM_ACTS)),
+        "lstm_bwd": (
+            lambda i: TL.lstm_bwd_cuda(g_hs, g_c, u, peep, mask, hc, cc,
+                                       gates, cnew, H, False, LSTM_ACTS),
+            lambda i: TL.lstm_bwd_op(g_hs, g_c, u, peep, mask, hc, cc, gates,
+                                     cnew, H, False, *LSTM_ACTS)),
+        "bn_bwd_reduce": (
+            lambda i: TB.bn_bwd_reduce_kernel(dy, x, mean, rstd),
+            lambda i: TB.bn_bwd_reduce(dy, x, mean, rstd)),
+        "bn_bwd_dx": (
+            lambda i: (TB.bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta,
+                                           dgamma),),
+            lambda i: (TB.bn_bwd_dx(dy, x, mean, rstd, gamma, dbeta, dgamma,
+                                    0),)),
     }
+    for how, (key, cm) in keys.items():
+        args = dmod._op_args(key, DROPOUT_PS[0], cm)
+        for which, direct, op in (
+                ("fwd", dmod.dropout_fwd_kernel, dmod.dropout_fwd_op),
+                ("bwd", dmod.dropout_bwd_kernel, dmod.dropout_bwd_op)):
+            arms[f"dropout_{which} {how}"] = (
+                lambda i, d=direct, k_=key, c=cm: (
+                    d(dx_in, k_, DROPOUT_PS[0], c),),
+                lambda i, o_=op, a=args: (o_(dx_in, *a),))
     out = {}
     for name, (direct, op) in arms.items():
-        check(torch.equal(op(0)[0], direct(0)[0]),
-              f"{name}: the custom op's output differs from the wrapper's")
+        got, want = op(0), direct(0)
+        check(len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want)),
+              f"{name}: the custom op's outputs differ from the wrapper's")
         runs = [("direct", direct), ("op", op), ("op", op),
                 ("direct", direct)]
         times = {"direct": [], "op": []}
@@ -7619,13 +7675,22 @@ def phase_custom_ops(card: str) -> dict:
         out[name] = {arm: {"ms": [t[0] for t in ts],
                            "device_ms": [t[1] for t in ts]}
                      for arm, ts in times.items()}
-        print(f"custom op {name}: direct / op ms "
+        print(f"custom op {name}: bitwise the wrapper's; direct / op ms "
               f"{[round(t[0], 4) for t in times['direct']]} / "
               f"{[round(t[0], 4) for t in times['op']]}, device "
               f"{[t[1] for t in times['direct']]} / "
               f"{[t[1] for t in times['op']]} (turns: direct, op, op, "
               f"direct); on {card}")
     return out
+
+
+def _warm_stages(exe) -> str:
+    """The seconds of an Executor's warms (``Executor.timings``)."""
+    return "; ".join(
+        f"warm {t['how']} " + ", ".join(f"{k[:-2]} {v:.3f}"
+                                        for k, v in t.items()
+                                        if k.endswith("_s"))
+        for t in exe.timings.values())
 
 
 def phase_trainer_io(card: str) -> dict:
@@ -7715,7 +7780,8 @@ def phase_trainer_io(card: str) -> dict:
               f"Executor's {bare}")
         print(f"trainer_io lm: {TRAINER_IO_STEPS} Trainer steps on "
               f"{len(batches[0])} x {LM_CFG['max_len']} tokens in "
-              f"{secs:.2f} s (warm and checkpoints {steps} included), losses "
+              f"{secs:.2f} s (warm and checkpoints {steps} included; "
+              f"{_warm_stages(tr.exe)}), losses "
               f"{', '.join(f'{x:.6f}' for x in losses)}, bitwise the bare "
               f"warmed Executor's; flash launches {launches}; on {card}")
         rec["lm"] = {"losses": losses, "seconds": secs,
@@ -7754,8 +7820,9 @@ def phase_trainer_io(card: str) -> dict:
               f"trainer_io: resumed flash launches {launches2}, want {want2}")
         print(f"trainer_io resume: a new Trainer from ckpt-"
               f"{TRAINER_IO_RESUME} and its queue cursor ran steps "
-              f"{TRAINER_IO_RESUME + 1}-{TRAINER_IO_STEPS} in {secs2:.2f} s, "
-              f"losses bitwise the first run's; flash launches {launches2}")
+              f"{TRAINER_IO_RESUME + 1}-{TRAINER_IO_STEPS} in {secs2:.2f} s "
+              f"({_warm_stages(tr2.exe)}), losses bitwise the first run's; "
+              f"flash launches {launches2}")
         rec["resume"] = {"losses": resumed, "seconds": secs2,
                          "launches": launches2}
         del tr2
@@ -8096,6 +8163,10 @@ SUPERVISE_CRASH_AFTER = 4     # generation 0 dies once this step is saved
 SUPERVISE_VOCAB_USED = 1000   # the data's tokens: the loss has room to fall
 SUPERVISE_TIME_STEPS = 10
 SUPERVISE_LIMIT_S = 420.0     # the supervised run, all generations
+# seconds from spawn to the first step of a supervised generation without
+# a compile store, on the H100 (PERF.md section 6), beside which this
+# run's generations are printed
+SUPERVISE_NO_STORE_FIRST_STEP_S = (22.0, 27.5)
 
 # The config the CLI loads (a user's file: it imports the port, builds the
 # LM, and reads the shards through make_file_dispatcher and the native
@@ -8131,7 +8202,8 @@ def _report(reason):
 
     h = obs.metrics.snapshot()["histograms"].get("train.data_wait_ms", {{}})
     _say(child=reason, flash=dict(flash_attention.launches),
-         data_wait_ms=h.get("sum"), data_waits=h.get("count"))
+         data_wait_ms=h.get("sum"), data_waits=h.get("count"),
+         compile=fluid.compile.health())
     sys.stdout.flush()
 
 
@@ -8254,8 +8326,10 @@ def _run_cli(args: list, env: dict, limit_s: float) -> str:
     return p.stdout
 
 
-def _supervised_run(conf: str, ckpt: str, logs: str, env: dict) -> tuple:
-    """tools/supervise.py over ``python -m paddle_tpu_torch train``; polls
+def _supervised_run(conf: str, ckpt: str, logs: str, env: dict,
+                    compile_dir: str) -> tuple:
+    """tools/supervise.py (``--compile-dir``) over ``python -m
+    paddle_tpu_torch train``; polls
     the generations' logs every 20 ms for their first appearance (the
     supervisor opens each just before it spawns the child) and their first
     logged step.  Returns (exit code, stderr, {gen: (seconds to first step,
@@ -8264,7 +8338,8 @@ def _supervised_run(conf: str, ckpt: str, logs: str, env: dict) -> tuple:
 
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "paddle_tpu_torch.tools.supervise",
-           "--max-restarts=2", f"--log-dir={logs}", "--",
+           "--max-restarts=2", f"--log-dir={logs}",
+           f"--compile-dir={compile_dir}", "--",
            sys.executable, "-m", "paddle_tpu_torch", "train",
            f"--config={conf}", "--num_passes=1", f"--save_dir={ckpt}",
            f"--saving_period_by_batches={SUPERVISE_EVERY}",
@@ -8316,7 +8391,10 @@ def phase_supervise(card: str) -> dict:
     supervisor exits 0 after exactly one crash restart; generation 1
     resumes the checkpoint (> 0) and the snapshot and claims no shard the
     snapshot marks done; every loss finite, the last below the first; each
-    generation's flash launches >= n_layers a step.  Then ``train
+    generation's flash launches >= n_layers a step.  The supervisor
+    forwards ``--compile-dir``: generation 0 writes the step to the AOT
+    store, generation 1 warm-starts from it (``compile.warm_start`` 1, an
+    AOT hit, no live preparation).  Then ``train
     --job=time`` on the config and ``infer`` on trainer_io's merged
     LM-logits artifact against a direct call (atol 2e-5 + rtol 1e-5)."""
     import shutil
@@ -8350,7 +8428,8 @@ def phase_supervise(card: str) -> dict:
                 crash_after=SUPERVISE_CRASH_AFTER,
                 vocab_used=SUPERVISE_VOCAB_USED, batch=SUPERVISE_BATCH))
         logs = os.path.join(SUPERVISE_DIR, "logs")
-        rc, err, gens, wall = _supervised_run(conf, ckpt, logs, env)
+        rc, err, gens, wall = _supervised_run(
+            conf, ckpt, logs, env, os.path.join(SUPERVISE_DIR, "compile"))
         check(rc == 0 and sorted(gens) == [0, 1]
               and err.count("(crash); relaunching generation 1") == 1
               and "generation 2" not in err,
@@ -8393,11 +8472,20 @@ def phase_supervise(card: str) -> dict:
         stall = {g: (r["data_wait_ms"] / r["data_waits"]
                      if r.get("data_waits") else None)
                  for g, r in ((0, crash[0]), (1, ends[0]))}
+        # (d) of the compile phase: generation 0 seeded the store through
+        # --compile-dir, generation 1 warm-started from it
+        comp = {g: r["compile"] for g, r in ((0, crash[0]), (1, ends[0]))}
+        check(not comp[0]["warm_start"] and comp[0]["aot"]["writes"] >= 1
+              and comp[1]["warm_start"] and comp[1]["aot"]["hits"] >= 1
+              and comp[1]["executor_compiles"] == 0
+              and comp[1]["persistent_cache"]["enabled"],
+              f"supervise: the compile dir's generations reported {comp}")
         rec.update({
             "wall_s": wall, "losses": {0: l0, 1: l1},
             "first_step_s": {g: gens[g][0] for g in gens},
             "resumed_step": start["latest"], "final_step": final,
             "launches": launches, "stall_ms_per_batch": stall,
+            "compile": comp,
             "shards_done_gen0": len(done0), "shards_gen1": len(claimed1)})
         print(f"supervise: the LM ({LM_CFG}) under tools/supervise.py, "
               f"{SUPERVISE_SHARDS} RecordIO shards x {SUPERVISE_PER_SHARD} "
@@ -8412,6 +8500,15 @@ def phase_supervise(card: str) -> dict:
               f"run {wall:.1f} s; flash launches {launches}; prefetch "
               f"stall ms a batch {stall}; native build "
               f"{rec['native_build_s']} s; on {card}")
+        print(f"supervise --compile-dir: gen 0 compile.warm_start "
+              f"{int(comp[0]['warm_start'])}, aot {comp[0]['aot']}; gen 1 "
+              f"compile.warm_start {int(comp[1]['warm_start'])}, aot "
+              f"{comp[1]['aot']}, live preparations "
+              f"{comp[1]['executor_compiles']}; seconds from spawn to the "
+              f"first logged step gen 0 {rec['first_step_s'].get(0)}, gen "
+              f"1 {rec['first_step_s'].get(1)} (without a store: "
+              f"{SUPERVISE_NO_STORE_FIRST_STEP_S[0]}-"
+              f"{SUPERVISE_NO_STORE_FIRST_STEP_S[1]}); on {card}")
 
         out = _run_cli(["train", f"--config={conf}", "--job=time",
                         f"--time_steps={SUPERVISE_TIME_STEPS}"], env, 300.0)
@@ -8452,6 +8549,294 @@ def phase_supervise(card: str) -> dict:
         _release()
     finally:
         shutil.rmtree(SUPERVISE_DIR, ignore_errors=True)
+    return rec
+
+
+# the compile phase (PERF.md section 6): the LM's train step through the
+# AOT store across processes, the Session's bucket ladder through it, and
+# a corrupt entry
+COMPILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_compile")
+COMPILE_SEED = 17
+COMPILE_STEPS = 3             # train steps a child takes
+COMPILE_CHILD_LIMIT_S = 240.0
+COMPILE_BATCH = 4             # the Session's max_batch_size
+
+
+def _param_hash(scope) -> str:
+    """sha256 over the scope's tensors, by sorted name."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(scope.var_names()):
+        h.update(n.encode())
+        h.update(torch.as_tensor(scope.find_var(n)).detach().float().cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def compile_child(role: str, cdir: str, t_spawn: float) -> int:
+    """One generation of the compile phase (a), run as ``python3
+    chip_smoke.py --compile-child <cold|warm> <dir> <spawn time>``: the LM at
+    LM_CFG's width under a Trainer with ``compile_dir``, its startup drawn
+    from COMPILE_SEED, COMPILE_STEPS steps of train_profile's batches; the
+    warm generation runs ``prepare()`` first.  Prints one JSON line: the
+    stages' seconds, how the step was warmed, the losses, the parameters'
+    hashes at the start and the end, the flash launches of the pass."""
+    t_torch = time.time()
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _build, flash_attention
+    from paddle_tpu_torch.tools.train_profile import train_batch
+
+    t = {"python_and_torch_import_s": t_torch - t_spawn,
+         "port_import_s": time.time() - t_torch}
+    t0 = time.perf_counter()
+    torch.manual_seed(COMPILE_SEED)
+    T = LM_CFG["max_len"]
+    toks = fluid.layers.data("toks", [T], dtype="int32")
+    labs = fluid.layers.data("labs", [T, 1], dtype="int32")
+    loss, _ = fluid.models.build_lm(toks, labs, **LM_CFG)
+    tr = fluid.Trainer(
+        loss, fluid.optimizer.Adam(
+            1e-3, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)),
+        [toks, labs], compile_dir=cdir, handle_preemption=False)
+    tr.exe.run(fluid.default_startup_program())
+    torch.cuda.synchronize()
+    t["lm_init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.load_kernel_library("flash_attention.cu")
+    t["kernel_load_s"] = time.perf_counter() - t0
+    prepared = None
+    # from here on the counters see the warm's eager run, in both children
+    before = dict(flash_attention.launches)
+    if role == "warm":
+        t0 = time.perf_counter()
+        wu = tr.prepare(wait=True)
+        t["prepare_s"] = time.perf_counter() - t0
+        prepared = {k: v["result"] for k, v in wu.status().items()}
+    rows = []
+    for s in range(COMPILE_STEPS):
+        f = train_batch(s)
+        rows += [(f["toks"][i], f["labs"][i]) for i in range(len(f["toks"]))]
+    losses, marks, init = [], {}, {}
+
+    def handler(e):
+        if isinstance(e, fluid.events.BeginPass):
+            init["hash"] = _param_hash(fluid.global_scope())
+        elif isinstance(e, fluid.events.EndIteration):
+            losses.append(e.cost)
+            marks.setdefault("first", time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0, t0_wall = time.perf_counter(), time.time()
+    tr.train(fluid.reader.batch(lambda: iter(rows), len(rows) //
+                                COMPILE_STEPS), event_handler=handler)
+    torch.cuda.synchronize()
+    t["train_s"] = time.perf_counter() - t0
+    t["first_step_s"] = marks["first"] - t0
+    t["spawn_to_first_step_s"] = t0_wall - t_spawn + t["first_step_s"]
+    (timings,) = tr.exe.timings.values()
+    rec = {"compile_child": role, "how": timings["how"],
+           "batch": len(rows) // COMPILE_STEPS,
+           "prepared": prepared, "seconds": t, "warm": timings,
+           "losses": losses, "init_hash": init["hash"],
+           "final_hash": _param_hash(fluid.global_scope()),
+           "flash": {k: v - before[k]
+                     for k, v in flash_attention.launches.items()},
+           "compiles": tr.exe.compiles, "loads": tr.exe.loads,
+           "store": tr.aot_store.stats(),
+           "health": fluid.compile.health()}
+    if role == "warm":
+        # the entry's load alone, at full width
+        (entry,) = [e for e in tr.aot_store.entries() if not e["corrupt"]]
+        fp = entry["fingerprint"]
+        t0 = time.perf_counter()
+        check(tr.aot_store.get_executable(fp) is not None,
+              "compile: the stored step did not load")
+        rec["exec_load_s"] = time.perf_counter() - t0
+        rec["layer_bytes"] = {k: v["bytes"]
+                              for k, v in entry["layers"].items()}
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def _compile_generation(role: str, cdir: str, env: dict) -> dict:
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        p = subprocess.run(
+            [sys.executable, os.path.join(root, "chip_smoke.py"),
+             "--compile-child", role, cdir, repr(time.time())],
+            capture_output=True, text=True, cwd=root, env=env,
+            timeout=COMPILE_CHILD_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"compile: the {role} child ran past {COMPILE_CHILD_LIMIT_S} s")
+    recs = [r for r in _child_records(p.stdout) if "compile_child" in r]
+    check(p.returncode == 0 and len(recs) == 1,
+          f"compile: the {role} child exited {p.returncode}:\n"
+          f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    return recs[0]
+
+
+def _breakdown(r: dict) -> str:
+    s, w = r["seconds"], r["warm"]
+    parts = [f"python + torch import {s['python_and_torch_import_s']:.2f}",
+             f"port import {s['port_import_s']:.2f}",
+             f"LM init {s['lm_init_s']:.2f}",
+             f"kernel-library load {s['kernel_load_s']:.3f}"]
+    if "persist_s" in w:
+        parts.append(
+            f"persist {w['persist_s']:.2f} (trace {w.get('trace_s', 0):.2f}, "
+            f"write {w.get('write_s', 0):.3f})")
+    if "load_s" in w:
+        parts.append(f"store load {w['load_s']:.3f}")
+    parts += [f"eager run {w.get('first_run_s', 0):.3f}",
+              f"capture {w.get('capture_s', 0):.3f}",
+              f"warm total {w['total_s']:.2f}",
+              f"first step {s['first_step_s']:.2f}",
+              f"spawn to first step {s['spawn_to_first_step_s']:.2f}"]
+    return ", ".join(parts)
+
+
+def _session_ladder(cdir: str, feeds: dict) -> tuple:
+    """A batching Session over the LM-logits artifact with ``cdir``: the
+    ladder's warm results, the installed and live signature counts, each
+    bucket's logits on ``feeds`` (rows -> tokens), the warm's seconds."""
+    from paddle_tpu_torch import capi_server
+
+    sess = capi_server.Session(OBS_LM_ARTIFACT)
+    t0 = time.perf_counter()
+    sess.enable_batching(max_batch_size=COMPILE_BATCH, compile_dir=cdir)
+    secs = time.perf_counter() - t0
+    sess._state.batcher.close()
+    results = {k: v["result"] for k, v in
+               sess._state.warmup.status().items()}
+    infer = sess._infer
+    outs = {rows: infer({"toks": f})[0] for rows, f in feeds.items()}
+    rec = (results, infer.installed_count(), infer.trace_count(), outs,
+           secs)
+    del sess, infer
+    _release()
+    return rec
+
+
+def phase_compile(card: str) -> dict:
+    """(a) The LM's train step at LM_CFG's width through the AOT store
+    across processes: a cold child with an empty compile dir trains
+    COMPILE_STEPS steps, warming the step live and writing the store and
+    the manifest; a warm child from the same seed runs ``prepare()``,
+    which loads the stored graph (aot_exec) and captures it,
+    then the same steps: its losses, its parameters' hash and its flash
+    launches equal to the cold child's, its warm no slower than the cold
+    one's; each child's breakdown printed.  (b) The batching Session's
+    bucket ladder over the trainer_io LM-logits artifact, cold then warm:
+    every bucket installed from the store (no live preparation), the
+    logits bitwise the cold ones'.  (c) One byte flipped in every stored
+    bucket: each entry quarantined, a live warm, the same logits, this
+    process alive.  The supervise phase runs with ``--compile-dir`` (d)."""
+    import shutil
+
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.compile import AOTStore
+
+    shutil.rmtree(COMPILE_DIR, ignore_errors=True)
+    os.makedirs(COMPILE_DIR)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1")
+    for k in ("PADDLE_TPU_RESTARTS", "PADDLE_TPU_SUPERVISED",
+              "PADDLE_TPU_COMPILE_DIR"):
+        env.pop(k, None)
+    rec = {}
+    try:
+        cdir = os.path.join(COMPILE_DIR, "lm")
+        cold = _compile_generation("cold", cdir, env)
+        warm = _compile_generation("warm", cdir, env)
+        for r in (cold, warm):
+            print(f"compile {r['compile_child']}: the LM ({LM_CFG}) train "
+                  f"step, {r['batch']} x {LM_CFG['max_len']} tokens a step, "
+                  f"warmed {r['how']}: {_breakdown(r)} (seconds); losses "
+                  f"{r['losses']}; params {r['final_hash'][:16]}; flash "
+                  f"{r['flash']}; on {card}")
+        print(f"compile store: the stored LM step (pickled graph, "
+              f"{warm['layer_bytes']['exec']} bytes) loads in "
+              f"{warm['exec_load_s']:.3f} s; on {card}")
+        check(cold["how"] == "compiled" and cold["compiles"] == 1
+              and cold["store"]["entries"] == 1
+              and cold["store"]["layers"] == {"exec": 1}
+              and "write_s" in cold["warm"],
+              f"compile: the cold child warmed {cold['how']}, store "
+              f"{cold['store']}, stages {cold['warm']}")
+        check(warm["how"] == "aot_exec"
+              and warm["compiles"] == 0 and warm["loads"] == 1
+              and list(warm["prepared"].values()) == [warm["how"]]
+              and warm["health"]["warm_start"],
+              f"compile: the warm child warmed {warm['how']}, prepared "
+              f"{warm['prepared']}, compiles {warm['compiles']}")
+        check(warm["init_hash"] == cold["init_hash"]
+              and warm["losses"] == cold["losses"]
+              and warm["final_hash"] == cold["final_hash"]
+              and warm["flash"] == cold["flash"]
+              and len(cold["losses"]) == COMPILE_STEPS
+              and all(np.isfinite(cold["losses"])),
+              f"compile: cold losses {cold['losses']} hash "
+              f"{cold['final_hash'][:16]} flash {cold['flash']}; warm "
+              f"{warm['losses']} {warm['final_hash'][:16]} {warm['flash']}")
+        check(warm["warm"]["total_s"] <= cold["warm"]["total_s"],
+              f"compile: the warm child's warm took {warm['warm']} against "
+              f"the cold child's {cold['warm']}")
+        rec["lm"] = {"cold": cold, "warm": warm}
+
+        # (b) the Session's ladder
+        sdir = os.path.join(COMPILE_DIR, "serve")
+        rng = np.random.RandomState(43)
+        feeds = {b: rng.randint(0, LM_CFG["vocab_size"],
+                                (b, LM_CFG["max_len"])).astype(np.int32)
+                 for b in (1, COMPILE_BATCH)}
+        sc = _session_ladder(sdir, feeds)
+        sw = _session_ladder(sdir, feeds)
+        ladder = len(sc[0])
+        check(set(sc[0].values()) == {"compiled"} and sc[2] == ladder
+              and sc[1] == 0,
+              f"compile session cold: {sc[0]}, installed {sc[1]}, live "
+              f"{sc[2]}")
+        check(set(sw[0].values()) == {"aot_exec"} and sw[1] == ladder
+              and sw[2] == 0
+              and all(np.array_equal(sc[3][b], sw[3][b]) for b in feeds),
+              f"compile session warm: {sw[0]}, installed {sw[1]}, live "
+              f"{sw[2]}")
+        # (c) one byte flipped in every stored bucket
+        store = AOTStore(os.path.join(sdir, "aot"))
+        for e in store.entries():
+            path = os.path.join(store.dirname, e["fingerprint"], "exec.bin")
+            with open(path, "r+b") as f:
+                f.seek(-1, os.SEEK_END)
+                b = f.read(1)
+                f.seek(-1, os.SEEK_END)
+                f.write(bytes([b[0] ^ 0xFF]))
+        corrupt0 = obs.metrics.default_registry().counter_value(
+            "compile.aot_corrupt")
+        sb = _session_ladder(sdir, feeds)
+        corrupt = obs.metrics.default_registry().counter_value(
+            "compile.aot_corrupt") - corrupt0
+        st = store.stats()
+        check(set(sb[0].values()) == {"compiled"} and sb[2] == ladder
+              and corrupt == ladder and st["quarantined"] == ladder
+              and all(np.array_equal(sc[3][b], sb[3][b]) for b in feeds),
+              f"compile session corrupt: {sb[0]}, live {sb[2]}, corrupt "
+              f"{corrupt}, store {st}")
+        rec["session"] = {"ladder": ladder, "cold_s": sc[4],
+                          "warm_s": sw[4], "corrupt_s": sb[4],
+                          "quarantined": st["quarantined"]}
+        print(f"compile session: the LM-logits artifact's ladder of "
+              f"{ladder} buckets (max_batch_size {COMPILE_BATCH}): cold "
+              f"{sc[4]:.2f} s (all live, stored), warm {sw[4]:.2f} s (all "
+              f"aot_exec, installed {sw[1]}, live 0, logits bitwise), a "
+              f"flipped byte in each entry {sb[4]:.2f} s ({corrupt} "
+              f"quarantined, all live, logits bitwise, the process alive); "
+              f"on {card}")
+    finally:
+        shutil.rmtree(COMPILE_DIR, ignore_errors=True)
     return rec
 
 
@@ -8533,6 +8918,8 @@ def main() -> int:
     _release()
     sup = _timed("supervise", phase_supervise, card)
     _release()
+    compile_ = _timed("compile", phase_compile, card)
+    _release()
     obs_sess = _timed("obs session", phase_obs_session, card)
     _release()
     par = _timed("parallel", phase_parallel, card)
@@ -8597,11 +8984,15 @@ def main() -> int:
                                  **_par_launches(par, "flash", kern)},
             # the forward as the custom op paddle_tpu_torch::flash_fwd
             # against the wrapper called directly, in turns; an artifact
-            # replay's launches
+            # replay's launches; the backward pair as flash_bwd
             **({"custom_op": custom_ops["flash_fwd"],
                 "artifact_launches_per_call":
                     tio["artifacts"]["lm"]["launches_per_call"]}
-               if kern == "fwd" else {}),
+               if kern == "fwd" else
+               {"custom_op": custom_ops["flash_bwd"]}),
+            # the train step's launches, loaded from the AOT store
+            **({"compile_warm_launches": compile_["lm"]["warm"]["flash"][
+                kern]}),
         })
     for kern in FLASH_KERNELS:
         kernels.append({
@@ -8638,11 +9029,13 @@ def main() -> int:
                 "nets bidirectional_lstm step":
                     nets["bidirectional_lstm"][kern]},
             # the inference forward as the custom op
-            # paddle_tpu_torch::lstm_fwd against the wrapper, in turns
+            # paddle_tpu_torch::lstm_fwd against the wrapper, in turns; the
+            # training forward as lstm_fwd_train, the backward as lstm_bwd
             **({"custom_op": custom_ops["fused_lstm_fwd"],
+                "custom_op_train": custom_ops["lstm_fwd_train"],
                 "artifact_launches_per_call":
                     tio["artifacts"]["text_lstm"]["launches_per_call"]}
-               if kern == "fwd" else {}),
+               if kern == "fwd" else {"custom_op": custom_ops["lstm_bwd"]}),
             # the SRL layer shape: T=32, B=64, H=128, peepholes, lengths
             # 1-32, persistent route (PERF.md section 6 rows 5 and 5b)
             "srl_h128": lstm_srl[kern],
@@ -8670,6 +9063,8 @@ def main() -> int:
                 **{f"mesh c13 conv_bn dp 2 rank {i}": b[kern]
                    for i, b in enumerate(mesh["c13 conv_bn"]["bn"])}),
             "float32": bn["float32"][kern],
+            # as the custom op paddle_tpu_torch::bn_bwd_<kern>, in turns
+            "custom_op": custom_ops[f"bn_bwd_{kern}"],
         })
     replaces = {"igemm": "benchmark/conv_probe.py:62",
                 "fused": "benchmark/conv_probe.py:68"}
@@ -8782,6 +9177,10 @@ def main() -> int:
             "mapped_ms": {k: {"mapped": v[0], "unmapped": v[1],
                               "slice": list(v[2])}
                           for k, v in par["dropout_map_ms"].items()},
+            # as the custom op paddle_tpu_torch::dropout_<kern>, in turns:
+            # the step an immediate, the staged word, the mapped kernel
+            "custom_op": {how: custom_ops[f"dropout_{kern} {how}"]
+                          for how in ("imm", "staged", "mapped")},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -8792,4 +9191,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--compile-child"]:
+        sys.exit(compile_child(sys.argv[2], sys.argv[3],
+                               float(sys.argv[4])))
     sys.exit(main())

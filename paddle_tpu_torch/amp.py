@@ -59,6 +59,11 @@ class Bf16Policy:
         self._passthrough = (PASSTHROUGH_OPS - frozenset(extra_f32)
                              - frozenset(extra_bf16))
 
+    def __repr__(self) -> str:
+        # stable across processes: the AOT store's fingerprint holds it
+        return (f"Bf16Policy(bf16={sorted(self._bf16)}, "
+                f"passthrough={sorted(self._passthrough)})")
+
     def compute_dtype(self, op_type: str, attrs) -> Optional[torch.dtype]:
         if attrs.get("is_optimizer_op"):
             return torch.float32

@@ -12,10 +12,12 @@ serves many threads (the model's calls are serialised by its own lock,
 
 The Session runs on the CUDA card unless ``PADDLE_TPU_CAPI_PLATFORM=cpu``
 asks for the CPU (the reference pins JAX's platform the same way, with the
-CPU as its default; the port's entry points default to the card).  Left
-for ROADMAP A.10, each raising with a message naming it: ``compile_dir``
-(the AOT store), ``enable_mesh`` (it needs ``InferenceModel.shard``) and
-the native C shim (``native/capi.cc``, which needs ``native.py``).
+CPU as its default; the port's entry points default to the card).
+``enable_batching(compile_dir=)`` loads or prepares each bucket through
+the AOT store (``compile/aot.py``) in ``serving_manifest.json``'s
+hottest-first order.  Left for ROADMAP A.10, each raising with a message
+naming it: ``enable_mesh`` (it needs ``InferenceModel.shard``) and the
+native C shim (``native/capi.cc``).
 """
 from __future__ import annotations
 
@@ -178,17 +180,18 @@ class Session:
         task grants readiness and the batch's own call captures live (and
         raises if that fails again).  The recompile-storm guard arms when
         warmup completes.  A fixed-shape artifact degrades to its single
-        ``example_batch`` bucket.  ``compile_dir`` (the AOT store) raises:
-        ROADMAP A.10.  Idempotent; returns self."""
+        ``example_batch`` bucket.  ``compile_dir`` (by default
+        ``PADDLE_TPU_COMPILE_DIR``) adds the AOT store: each bucket's
+        program is loaded from the AOT store under ``<compile_dir>/aot``
+        and installed (``InferenceModel.install``; a fingerprint of the
+        artifact's hash, the bucket's feeds and the session's kv_dtype), or
+        prepared live and stored, and the bucket heat persists in
+        ``serving_manifest.json`` for the next generation's order.
+        Idempotent; returns self."""
         from . import compile as _compile
         from .serving import BatchPolicy, DynamicBatcher
 
         cdir = compile_dir or _compile.default_compile_dir()
-        if cdir:
-            raise NotImplementedError(
-                f"Session.enable_batching(compile_dir=...) needs the AOT "
-                f"store, which is not ported yet ({_A10}: compile/aot.py); "
-                f"unset {_compile.COMPILE_DIR_ENV} to warm by capture")
         with self._state.lock:
             if self._state.batcher is not None:
                 return self
@@ -205,7 +208,11 @@ class Session:
                 faults.check("serving.run")
                 return [np.ascontiguousarray(o) for o in infer(feeds)]
 
-            manifest = _compile.ShapeManifest()
+            store = (_compile.AOTStore(os.path.join(cdir, "aot"))
+                     if cdir else None)
+            manifest = (_compile.ShapeManifest.load(
+                os.path.join(cdir, "serving_manifest.json"))
+                if cdir else _compile.ShapeManifest())
             guard = _compile.RecompileGuard(
                 infer.trace_count, budget=recompile_budget,
                 policy=recompile_policy, name="serving")
@@ -222,7 +229,7 @@ class Session:
                 for i, b in enumerate(order):
                     warmup.add(f"bucket:{b}",
                                lambda rows=b: self._warm_bucket(
-                                   self._bucket_feeds(rows)),
+                                   self._bucket_feeds(rows), store),
                                priority=float(i))
                 warmup.start()
             else:
@@ -247,11 +254,46 @@ class Session:
                             specs[n]["dtype"])
                 for n in self.feed_names}
 
-    def _warm_bucket(self, feeds) -> str:
-        """Prepare one bucket's signature: one call of the model at the
-        bucket's rows (its capture on the card).  The reference's AOT load
-        path (``store``) is ROADMAP A.10."""
-        self._infer(feeds)
+    def _warm_bucket(self, feeds, store=None) -> str:
+        """Prepare one bucket's signature (its capture on the card): with
+        ``store``, its stored program installed and checked by one call
+        (``"aot_exec"``), else prepared from the artifact and stored for
+        the next generation (``"compiled"``, best-effort); without, one
+        call of the model at the bucket's rows."""
+        infer = self._infer
+        if store is None:
+            infer(feeds)
+            return "compiled"
+        from . import compile as _compile
+        from .obs import metrics as _obs_metrics
+        from .obs import prof as _prof
+
+        store.activate()
+        _prof.attach_ledger_near_store(store.dirname)
+        t0 = time.perf_counter()
+        sig = tuple((n, tuple(int(d) for d in np.shape(feeds[n])),
+                     str(np.asarray(feeds[n]).dtype))
+                    for n in self.feed_names)
+        fp = _compile.fingerprint(
+            "serving_bucket", infer.artifact_hash, sig,
+            backend=_compile.aot.backend_of(infer.device),
+            kv_dtype=self._state.kv_dtype or "")
+        program = store.get_executable(fp)
+        if program is not None:
+            try:
+                # the install's first run is the check: a program that
+                # fails it is not installed
+                infer.install(feeds, program, fingerprint=fp)
+                _obs_metrics.histogram("compile.aot_load_ms").observe(
+                    (time.perf_counter() - t0) * 1e3)
+                return "aot_exec"
+            except Exception:  # noqa: BLE001 — prepared live instead
+                pass
+        infer(feeds)
+        _obs_metrics.histogram("compile.compile_ms").observe(
+            (time.perf_counter() - t0) * 1e3)
+        store.persist(fp, lambda: infer.aot_compile(feeds, fingerprint=fp),
+                      {"label": f"bucket:{sig[0][1][0] if sig else 0}"})
         return "compiled"
 
     def attach_decode(self, scheduler) -> "Session":

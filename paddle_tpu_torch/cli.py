@@ -14,9 +14,10 @@ Commands: ``train``, ``merge_model``, ``dump_config``, ``infer``, ``obs``
 (``snapshot``, ``export-trace``, ``hotspots``, ``trace``, ``dump``) and
 ``version``, with the reference's flags, exit codes and JSON lines.  They
 run on the CUDA card; ``--use_tpu=0`` (the reference's flag) runs them on
-the CPU.  ``compile``, ``fleet`` and ``obs slo`` (and ``obs hotspots
---port``, which asks a fleet endpoint) raise, naming ROADMAP A.10: the
-compile store and ``fleet/`` are not ported yet."""
+the CPU.  ``compile`` (``stats``, ``ls``, ``warmup``, ``clear``) reads
+and fills the AOT store and the manifests of a compile dir.  ``fleet`` and
+``obs slo`` (and ``obs hotspots --port``, which asks a fleet endpoint)
+raise, naming ROADMAP A.10: ``fleet/`` is not ported yet."""
 from __future__ import annotations
 
 import importlib.util
@@ -708,10 +709,107 @@ def cmd_obs(argv):
 
 
 def cmd_compile(argv):
-    """The reference's compile-subsystem verb (``stats``, ``ls``, ``warmup``,
-    ``clear`` over the AOT store and the shape manifests)."""
-    raise NotImplementedError(
-        f"compile: the AOT store (compile/aot.py) is not ported yet ({_A10})")
+    """The compile-subsystem verb (the reference's, ``paddle_tpu/cli.py``):
+
+      compile stats   [--compile_dir=<dir>]
+                      the AOT store's totals, the manifests' entry counts
+                      and this process's compile health
+      compile ls      [--compile_dir=<dir>]
+                      one line per store entry: fingerprint, layers, sizes,
+                      torch version, label; quarantined entries flagged
+      compile warmup  --config=<conf.py> [--compile_dir=<dir>]
+                      warm every train-step signature of the manifest for
+                      the config through the store (what Trainer.prepare()
+                      does at boot), writing it for the next generation
+      compile clear   [--compile_dir=<dir>] [--keep_quarantined=true]
+                      drop store entries (and the manifests)
+
+    ``--compile_dir`` defaults to $PADDLE_TPU_COMPILE_DIR (the supervisor
+    forwarding); stats, ls and clear need one of the two."""
+    from . import compile as _compile
+
+    if not argv:
+        print(cmd_compile.__doc__)
+        return 2
+    for name, default, help_ in (
+            ("compile_dir", "", "AOT store + manifest dir"),
+            ("keep_quarantined", False, "compile clear: keep *.corrupt dirs")):
+        if name not in flags._registry:
+            flags.define(name, default, help_)
+    sub = argv[0]
+    flags.parse_args(argv[1:])
+    cdir = flags.get("compile_dir") or _compile.default_compile_dir()
+
+    if sub == "warmup":
+        if not flags.get("config"):
+            print("usage: python -m paddle_tpu_torch compile warmup "
+                  "--config=<conf.py> [--compile_dir=<dir>]")
+            return 2
+        import paddle_tpu_torch as fluid
+
+        from .trainer import Trainer
+
+        cfg = _load_config(flags.get("config"))
+        spec = cfg.build(**_parse_config_args(flags.get("config_args")))
+        optimizer = spec.get("optimizer") or fluid.optimizer.Adam(1e-3)
+        trainer = Trainer(spec["loss"], optimizer, spec.get("feeds", []),
+                          extra_fetch=spec.get("metrics"), compile_dir=cdir,
+                          place=_place())
+        trainer.exe.run(fluid.default_startup_program())
+        t0 = time.perf_counter()
+        wu = trainer.prepare(wait=True)
+        print(json.dumps({
+            "compile_dir": trainer.compile_dir,
+            "manifest_entries": len(trainer.manifest),
+            "warmup_s": round(time.perf_counter() - t0, 3),
+            "tasks": wu.status() if wu else {},
+            "store": trainer.aot_store.stats() if trainer.aot_store
+            else None}, indent=1, default=str))
+        return 0
+
+    if not cdir:
+        print(f"compile {sub}: no --compile_dir and $PADDLE_TPU_COMPILE_DIR "
+              f"is unset")
+        return 2
+    store = _compile.AOTStore(os.path.join(cdir, "aot"))
+
+    if sub == "stats":
+        manifests = {}
+        for mname in ("manifest.json", "serving_manifest.json"):
+            p = os.path.join(cdir, mname)
+            if os.path.exists(p):
+                m = _compile.ShapeManifest.load(p)
+                manifests[mname] = {"entries": len(m),
+                                    "buckets": m.buckets() or None}
+        print(json.dumps({"compile_dir": cdir, "store": store.stats(),
+                          "manifests": manifests,
+                          "health": _compile.health()}, indent=1))
+        return 0
+
+    if sub == "ls":
+        for e in store.entries():
+            layers = ", ".join(
+                f"{k}:{v.get('bytes')}B torch={v.get('torch')}"
+                + (f" [{v['label']}]" if v.get("label") else "")
+                for k, v in e["layers"].items()) or "(no layers)"
+            flag = " CORRUPT" if e["corrupt"] else ""
+            print(f"{e['fingerprint'][:16]}…{flag}  {layers}")
+        print(f"# {len(store.entries())} entr(ies) in {store.dirname}")
+        return 0
+
+    if sub == "clear":
+        n = store.clear(include_quarantined=not flags.get("keep_quarantined"))
+        removed = []
+        for mname in ("manifest.json", "serving_manifest.json"):
+            p = os.path.join(cdir, mname)
+            if os.path.exists(p):
+                os.remove(p)
+                removed.append(mname)
+        print(json.dumps({"cleared_entries": n, "removed_manifests": removed}))
+        return 0
+
+    print(f"unknown compile subcommand {sub!r}")
+    return 2
 
 
 def cmd_fleet(argv):

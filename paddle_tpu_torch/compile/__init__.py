@@ -2,6 +2,16 @@
 port's "compile" is a capture (``core/graphs.py``: a CUDA graph on the
 card, the body's first run on the CPU).
 
+  aot       prepared steps as durable artifacts: a content-addressed
+            on-disk store keyed by a canonical fingerprint (program text,
+            argument shapes and dtypes, sharding, torch / CUDA / kernel
+            versions, device).  An entry is the step's traced graph,
+            pickled; sha256-verified atomic writes, quarantine of a
+            corrupt entry, and the live preparation on any miss.  A loaded
+            graph is still captured: a CUDA graph cannot be serialized.
+            Loading unpickles, so a compile dir must be as trusted as the
+            code: the store reads only entries of this user that no one
+            else can write.
   manifest  the shape manifest: every (function, shapes, bucket) actually
             executed, with hit counts, so the next generation knows what
             to warm and in what order.
@@ -10,21 +20,27 @@ card, the body's first run on the CPU).
             gates per bucket.
   guard     the recompile-storm detector over a capture counter.
 
-``health()`` is the compile side of ``Session.healthz``.  The
-content-addressed AOT store (``aot``) and ``warm(store=...)`` are ROADMAP
-A.10.
+Wired through ``Executor.warm(store=)``, ``Trainer`` (``compile_dir``: the
+store and the manifest; ``prepare()`` warm-starts from them),
+``capi_server.Session.enable_batching(compile_dir=)``, the supervisor
+(``--compile-dir`` forwarded as ``PADDLE_TPU_COMPILE_DIR``) and the
+``compile`` verb of the command line.  ``health()`` is the compile side of
+``Session.healthz``.
 """
-from . import guard, manifest, warmup
+from . import aot, guard, manifest, warmup
+from .aot import AOTStore, canonical_sharding, fingerprint
 from .guard import RecompileBudgetExceeded, RecompileGuard
 from .manifest import ShapeManifest
 from .warmup import Warmup
 
-__all__ = ["guard", "manifest", "warmup", "RecompileBudgetExceeded",
+__all__ = ["aot", "guard", "manifest", "warmup", "AOTStore",
+           "canonical_sharding", "fingerprint", "RecompileBudgetExceeded",
            "RecompileGuard", "ShapeManifest", "Warmup", "health",
            "default_compile_dir"]
 
-# the reference's env var for the compile dir a supervisor forwards; the
-# port reads it only to refuse it (the AOT store is ROADMAP A.10)
+# the env var the supervisor forwards, so that the store and the manifests
+# survive its generations (the dirs are plain files; the env is how
+# children find them)
 COMPILE_DIR_ENV = "PADDLE_TPU_COMPILE_DIR"
 
 
@@ -37,16 +53,20 @@ def default_compile_dir():
 
 def health():
     """The compile side of healthz, the reference's keys: the persistent
-    cache (the port has none: its captures live in the process), warm or
-    cold start, the capture and AOT counters (the AOT ones read 0 until
-    ROADMAP A.10), retraces and storms."""
+    store (the AOT store this process warms through: its dir, or disabled
+    when there is none), warm or cold start, the capture and AOT counters,
+    retraces and storms."""
     from ..obs import metrics as _metrics
 
     reg = _metrics.default_registry()
+    store = aot.active_store()
+    cache = ({"dir": store.dirname, "enabled": True, "reason": "aot store"}
+             if store is not None else
+             {"dir": None, "enabled": False,
+              "reason": "disabled: no compile_dir (captures live in the "
+                        "process)"})
     return {
-        "persistent_cache": {"dir": None, "enabled": False,
-                             "reason": "captures live in the process; "
-                                       "the AOT store is ROADMAP A.10"},
+        "persistent_cache": cache,
         "warm_start": bool(reg.gauge_value("compile.warm_start")),
         "executor_compiles": reg.counter_value("compile.executor_compiles"),
         "aot": {

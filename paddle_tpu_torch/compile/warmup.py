@@ -19,8 +19,8 @@ the port's capture: ``Executor.warm`` of one signature, or
 rows, which prepares its signature).  A failed task grants readiness, and
 the consumer's own call then captures live: that call raises if the
 capture fails again, so no failure is hidden.
-``summary()['aot_satisfied']`` counts the tasks an AOT store answered;
-the store is ROADMAP A.10, so here it reads 0.
+``summary()['aot_satisfied']`` counts the tasks an AOT store answered
+(``Executor.warm(store=)`` returned ``aot_exec``).
 """
 from __future__ import annotations
 

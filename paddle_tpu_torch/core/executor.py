@@ -52,8 +52,10 @@ histogram; each prepared signature registers its flops and bytes (counted
 at its first run) in the ``obs.prof`` cost ledger under its
 ``train_step:<hash>`` key, and every replay ticks that key's sampled
 dispatch timing (a sampled replay synchronises the stream before
-``tock``).  No persistent compile cache (the ``compile/`` store is
-ROADMAP A.10).
+``tock``).  ``warm(store=compile.AOTStore(d))`` first looks the signature
+up in the AOT store (``compile/aot.py``): a stored graph of the step is
+loaded and captured in place of the program's step (``loads`` counts
+those), and a live preparation writes its traced graph there.
 
 ``Executor(strategy=parallel.Strategy(mesh))`` runs the step on this
 rank's shard (``parallel/strategy.py``): the feeds sliced to the rank's
@@ -68,6 +70,7 @@ fetches gathered back whole.  ``warm`` under a Strategy raises
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import threading
@@ -202,16 +205,34 @@ class _Warmed:
     object or the Executor, so that dropping an Executor frees its graphs
     and their pool."""
 
-    __slots__ = ("what", "state", "feeds", "outs", "run", "sig_key")
+    __slots__ = ("what", "state", "feeds", "outs", "run", "sig_key",
+                 "load_s")
 
     def __init__(self, what, state, feeds, outs):
         self.what, self.state, self.feeds = what, state, feeds
         self.outs, self.run, self.sig_key = outs, None, None
+        self.load_s = 0.0
 
 
 # the staged field that carries the step counter's uint32 bits into a
 # warmed step (a name no variable can have)
 STEP_FIELD = "@step_counter"
+
+
+def _what(program, feed_sig, fetch_names, state_names) -> str:
+    return (f"signature of program version {program.version}, feeds "
+            f"{list(feed_sig)}, fetches {list(fetch_names)}, "
+            f"{len(state_names)} state tensors")
+
+
+def _graph_step(gm):
+    """A stored graph as a step: ``gm(state, feeds, step word)`` ->
+    (fetches, new state), as the program's warmed step."""
+    def step(state, feed, step_index, layout=None):
+        fetches, new_state = gm(state, feed, step_index)
+        return tuple(fetches), dict(new_state)
+
+    return step
 
 
 def _warmed_body(step, state, feeds, outs) -> None:
@@ -235,7 +256,8 @@ class Executor:
     """Runs Programs on one device: ``Executor()`` is the CUDA card (and
     raises when there is none), ``Executor(CPUPlace())`` the host.
 
-    ``compiles`` counts the signatures ``warm`` prepared and ``replays``
+    ``compiles`` counts the signatures ``warm`` prepared live, ``loads``
+    those it prepared from an AOT store's graph, and ``replays``
     the runs of warmed signatures (graph replays on the card, body runs on
     the CPU).  ``run`` of a warmed signature is safe from many threads: one
     lock per Executor covers the state copy-in, the staging, the replay and
@@ -254,8 +276,17 @@ class Executor:
         self._cache: Dict[tuple, _Warmed] = {}
         self._graphs = Graphs(self.device)
         self._lock = threading.Lock()
+        # held over each preparation (capture) when set: a Trainer shares
+        # it with its checkpoint restore (``Trainer.prepare``)
+        self.capture_lock: Optional[threading.Lock] = None
         self.compiles = 0
+        self.loads = 0
         self.replays = 0
+        # seconds of each warm's stages, by signature key: "how", the
+        # store's "load_s" or the live path's "lookup_s", "first_run_s",
+        # "capture_s" (the card), "persist_s" (of it "trace_s" and
+        # "write_s") and "total_s"
+        self.timings: Dict[str, Dict[str, Any]] = {}
 
     def run(
         self,
@@ -328,9 +359,23 @@ class Executor:
              scope: Optional[Scope] = None, store=None) -> str:
         """Prepare the signature of ``program`` run on ``scope`` with feeds
         ``feed_sig`` (an iterable of (name, shape, dtype)) and fetches
-        ``fetch_names``, before its first batch: ``"cached"`` when this
-        Executor has it already, else ``"compiled"`` (the reference's
-        ``warm``, ``paddle_tpu/core/executor.py:443``, without its store).
+        ``fetch_names``, before its first batch (the reference's ``warm``,
+        ``paddle_tpu/core/executor.py:443``).  Returns how:
+
+          ``"cached"``      this Executor has it already;
+          ``"aot_exec"``    its traced graph unpickled from ``store``,
+                            then captured;
+          ``"compiled"``    the step built from the program and captured
+                            (and, with ``store``, traced and written to it
+                            for the next process, best-effort).
+
+        ``store``: a ``compile.AOTStore``.  Every store problem (a miss,
+        version skew, a quarantined entry, a graph that fails its first
+        run) degrades to the live preparation; a step that cannot be
+        traced whole (a kernel launched outside a custom op, a host read)
+        is not stored.  The ``obs.prof`` ledger's sidecar lives beside the
+        store, so a loaded signature whose costs it knows skips the counted
+        first run.
 
         Allocates static state buffers, clones of the scope's tensors, and
         static feed buffers; on the card runs the step once eagerly on a
@@ -340,15 +385,13 @@ class Executor:
         not ``step_counter``; but from then on the scope's state tensors of
         this signature are its static buffers, and every ``run()`` of it
         writes the new state into them in place (clone a ``find_var``
-        result to keep it).  Raises ``WarmError``, naming the signature,
-        when the first run or the capture fails, and before any of it for
-        a program that reads a device value on the host
-        (:func:`check_capturable`), which the reference's ``warm``
-        compiles and a CUDA graph cannot hold."""
-        if store is not None:
-            raise NotImplementedError(
-                "Executor.warm(store=...) is not ported yet: the compile/ "
-                "store is ROADMAP A.10")
+        result to keep it).  ``capture_lock``, when set, is held over
+        that preparation, so that another thread's device work (a
+        checkpoint restore) cannot break a capture.  Raises
+        ``WarmError``, naming the signature, when the live first run or the
+        capture fails, and before any of it for a program that reads a
+        device value on the host (:func:`check_capturable`), which the
+        reference's ``warm`` compiles and a CUDA graph cannot hold."""
         if self.strategy is not None:
             raise WarmError(
                 "warm under a Strategy is not ported yet "
@@ -380,21 +423,127 @@ class Executor:
         if key in self._cache:
             return "cached"
         t0 = time.perf_counter()
-        sig = self._prepare(program, scope, state_names, feed_sig,
-                            fetch_names)
+        sig_key = self._train_sig_key(program, feed_sig, fetch_names)
+        what = _what(program, feed_sig, fetch_names, state_names)
+        prof_fp = _prof.fingerprint(
+            "train_step", sig_key, what,
+            sorted(str(torch.as_tensor(scope.find_var(n)).dtype)
+                   for n in state_names))
+        sig, how, fp = None, "compiled", None
+        if store is not None:
+            store.activate()
+            _prof.attach_ledger_near_store(store.dirname)
+            fp = self._fingerprint(program, scope, state_names, feed_sig,
+                                   fetch_names)
+            sig = self._load(store, fp, prof_fp, program, scope,
+                             state_names, feed_sig, fetch_names, what)
+            if sig is not None:
+                how = "aot_exec"
+        t_live = time.perf_counter()
+        if sig is None:
+            sig = self._prepare(program, scope, state_names, feed_sig,
+                                fetch_names, what)
         ms = (time.perf_counter() - t0) * 1e3
         self._cache[key] = sig
-        self.compiles += 1
-        _metrics.counter("compile.executor_compiles").inc()
-        _metrics.histogram("compile.compile_ms").observe(ms)
-        sig.sig_key = self._train_sig_key(program, feed_sig, fetch_names)
-        _prof.register(
-            _prof.fingerprint("train_step", sig.sig_key, sig.what,
-                              sorted(str(v.dtype) for v in
-                                     sig.state.values())),
-            label="train_step", sig_key=sig.sig_key, source="live",
-            compile_ms=ms, cost=sig.run.cost)
-        return "compiled"
+        sig.sig_key = sig_key
+        if how == "compiled":
+            self.compiles += 1
+            _metrics.counter("compile.executor_compiles").inc()
+            _metrics.histogram("compile.compile_ms").observe(ms)
+        else:
+            self.loads += 1
+            _metrics.histogram("compile.aot_load_ms").observe(ms)
+        _prof.register(prof_fp, label="train_step", sig_key=sig_key,
+                       source="live" if how == "compiled" else how,
+                       compile_ms=ms, cost=sig.run.cost)
+        timings = {"how": how, **sig.run.timings}
+        if how == "compiled":
+            timings["lookup_s"] = t_live - t0
+        else:
+            timings["load_s"] = sig.load_s
+        if how == "compiled" and store is not None:
+            t1 = time.perf_counter()
+            timings.update(self._persist(store, fp, program, sig,
+                                         state_names, fetch_names))
+            timings["persist_s"] = time.perf_counter() - t1
+        timings["total_s"] = time.perf_counter() - t0
+        self.timings[sig_key] = timings
+        return how
+
+    def _fingerprint(self, program, scope, state_names, feed_sig,
+                     fetch_names) -> str:
+        """The AOT store's key of one signature (the reference's recipe):
+        the program text, its version, amp policy, anomaly guard and step
+        seed, every state tensor's shape and dtype, the feeds, the fetches
+        and the device; ``compile.aot.fingerprint`` adds the torch, CUDA
+        and kernel versions."""
+        from .. import flags as _flags
+        from ..compile import aot
+
+        extra = repr((repr(getattr(program, "amp_policy", None)),
+                      getattr(program, "anomaly_guard", None),
+                      program.version,
+                      program.random_seed or _flags.get("seed") or 0))
+        state = []
+        for n in state_names:
+            v = torch.as_tensor(scope.find_var(n))
+            state.append((n, tuple(v.shape), dtype_name(v.dtype)))
+        return aot.fingerprint(
+            "train_step", program.to_string(),
+            (tuple(state), tuple(feed_sig), tuple(fetch_names)),
+            backend=aot.backend_of(self.device), extra=extra)
+
+    def _load(self, store, fp, prof_fp, program, scope, state_names,
+              feed_sig, fetch_names, what):
+        """The store's graph for ``fp`` prepared as the signature's step.
+        Returns the signature, or None on a miss or when the loaded graph
+        fails."""
+        t0 = time.perf_counter()
+        gm = store.get_executable(fp)
+        if gm is None:
+            return None
+        load_s = time.perf_counter() - t0
+        known = _prof.ledger().costs(prof_fp)
+        count = known is None or known.get("flops") is None
+        try:
+            sig = self._prepare(program, scope, state_names, feed_sig,
+                                fetch_names, what, step=_graph_step(gm),
+                                count=count)
+            sig.load_s = load_s
+            return sig
+        except WarmError as exc:
+            import sys
+
+            sys.stderr.write(f"paddle_tpu_torch compile: the stored step "
+                             f"{fp[:16]} failed ({exc}); preparing it live\n")
+            return None
+
+    def _persist(self, store, fp, program, sig, state_names,
+                 fetch_names) -> Dict[str, float]:
+        """Trace the signature's step and write it to the store
+        (``AOTStore.persist``, best-effort): a step that cannot be traced
+        whole, or whose graph's custom-op nodes disagree with the launches
+        of its live first run, is not stored and this process keeps its
+        live step.  Under ``capture_lock``: pickling may copy a device
+        constant to the host, which would break another thread's
+        capture."""
+        from ..compile import aot
+
+        def graph():
+            step = self._build_step(program, state_names, fetch_names,
+                                    warmed=True)
+            feeds = sig.feeds.t
+            gm = aot.trace_step(lambda st, fd, s: step(st, fd, s),
+                                dict(sig.state),
+                                {n: v for n, v in feeds.items()
+                                 if n != STEP_FIELD},
+                                feeds[STEP_FIELD])
+            aot.check_launches(aot.custom_op_counts(gm), sig.run.launches)
+            return gm
+
+        return store.persist(fp, graph, {"label": "train_step",
+                                         "what": sig.what},
+                             lock=self.capture_lock)
 
     @staticmethod
     def _train_sig_key(program, feed_sig, fetch_names) -> str:
@@ -407,10 +556,17 @@ class Executor:
                   tuple(fetch_names))).encode()).hexdigest()
         return f"train_step:{h[:8]}"
 
-    def _prepare(self, program, scope, state_names, feed_sig, fetch_names):
-        what = (f"signature of program version {program.version}, feeds "
-                f"{list(feed_sig)}, fetches {fetch_names}, "
-                f"{len(state_names)} state tensors")
+    def _prepare(self, program, scope, state_names, feed_sig, fetch_names,
+                 what, step=None, count=True):
+        """Static buffers and the prepared step (``step``: a loaded graph's,
+        else the program's), under ``capture_lock`` when set."""
+        with self.capture_lock or contextlib.nullcontext():
+            return self._prepare_locked(program, scope, state_names,
+                                        feed_sig, fetch_names, what, step,
+                                        count)
+
+    def _prepare_locked(self, program, scope, state_names, feed_sig,
+                        fetch_names, what, step, count):
         missing = sorted(set(state_out_names(program, state_names))
                          - set(state_names))
         if missing:
@@ -427,13 +583,13 @@ class Executor:
                         for n, shape, dt in feed_sig]
                        + [(STEP_FIELD, (), np.uint32)], dev)
         outs: Dict[str, Any] = {}
-        body = functools.partial(
-            _warmed_body,
-            self._build_step(program, state_names, fetch_names, warmed=True),
-            state, feeds.t, outs)
+        if step is None:
+            step = self._build_step(program, state_names, fetch_names,
+                                    warmed=True)
+        body = functools.partial(_warmed_body, step, state, feeds.t, outs)
         sig = _Warmed(what, state, feeds, outs)
         try:
-            sig.run = self._graphs.prepare(body, count=True)
+            sig.run = self._graphs.prepare(body, count=count)
         except Exception as exc:  # noqa: BLE001 — re-raised as WarmError
             raise WarmError(f"warming the {what} failed: {exc}") from exc
         # the first run moved the static buffers: back to the scope's values

@@ -9,10 +9,11 @@ every replay adds its kernel launches to the counters
 (``ops/_counters.py``); on the CPU the body, run once, and again at every
 replay.  ``prepare(body, count=True)`` counts the work of that first run
 (``obs.prof.analyze``: flops and bytes accessed) into ``Prepared.cost``,
-once per signature and never at a replay.
+once per signature and never at a replay.  ``Prepared.timings`` holds the seconds of its stages.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict
 
 import numpy as np
@@ -117,12 +118,15 @@ class Prepared:
     so that the counters count the launches of replays too; on the CPU it
     runs the body."""
 
-    __slots__ = ("body", "graph", "launches", "cost")
+    __slots__ = ("body", "graph", "launches", "cost", "timings")
 
     def __init__(self, body: Callable[[], None], graph=None, launches=None,
-                 cost=None):
+                 cost=None, timings=None):
         self.body, self.graph, self.launches = body, graph, launches
         self.cost = cost
+        # seconds of the preparation's stages: "first_run_s" (the eager
+        # run, on the card synchronised), "capture_s" (the card only)
+        self.timings = timings or {}
 
     @property
     def captured(self) -> bool:
@@ -152,8 +156,10 @@ class Graphs:
         it once.  With ``count`` that first run's work goes to the
         returned ``cost`` ({} when the count failed)."""
         if self.device.type != "cuda":
+            t0 = time.perf_counter()
             cost = _first_run(body, count)
-            return Prepared(body, cost=cost)
+            return Prepared(body, cost=cost, timings={
+                "first_run_s": time.perf_counter() - t0})
         if self._pool is None:
             with torch.cuda.device(self.device):
                 self._pool = torch.cuda.graph_pool_handle()
@@ -189,8 +195,11 @@ def capture(body: Callable[[], None], pool, device,
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
+        t0 = time.perf_counter()
         with torch.cuda.stream(side):
             cost = _first_run(body, count)
+        side.synchronize()
+        t1 = time.perf_counter()
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = _counters.snapshot()
@@ -200,4 +209,6 @@ def capture(body: Callable[[], None], pool, device,
         finally:
             after = _counters.snapshot()
             _counters.restore(before)
-    return Prepared(body, graph, _counters.delta(before, after), cost)
+        t2 = time.perf_counter()
+    return Prepared(body, graph, _counters.delta(before, after), cost,
+                    {"first_run_s": t1 - t0, "capture_s": t2 - t1})

@@ -117,8 +117,9 @@ define("with_cost", True, "build the cost layer (off for pure-inference "
 define("comment", "", "free-form run annotation echoed into logs")
 define("compile_cache_dir", ".cache/xla",
        "the JAX package's persistent XLA compilation cache directory; "
-       "registered for config compat, it has no counterpart in the port, "
-       "whose compile store is ROADMAP A.10")
+       "registered for config compat: the port's persistent store is the "
+       "AOT store of a compile dir (Trainer(compile_dir=), "
+       "PADDLE_TPU_COMPILE_DIR), which compile.health() reports")
 # Eval/decode:
 define("beam_size", 4,
        "beam search width (RecurrentGradientMachine generation flag)")

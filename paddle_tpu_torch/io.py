@@ -35,11 +35,14 @@ The checkpoint paths count and time themselves with the reference's names
 each signature an ``InferenceModel`` prepares counts ``serving.jit_traces``
 and registers its flops and bytes in the ``obs.prof`` cost ledger.
 
-ROADMAP A.10 holds the rest of the reference's surface here:
-``export_serving_model`` (the native host), the artifact's AOT hooks
-(``install``, ``aot_compile``, ``artifact_hash``, ``installed_count``) and
-mesh hooks (``shard``, ``place_feeds``, ``serving_mesh``); each hook raises
-naming it.
+The artifact's AOT hooks are the reference's: ``artifact_hash`` (sha256
+over its files), ``aot_compile`` (prepare a bucket and hand back its
+storable program), ``install`` (prepare a bucket from a stored program)
+and ``installed_count``; ``capi_server.Session.enable_batching(
+compile_dir=)`` drives them through the AOT store.  ROADMAP A.10 holds
+the rest of the reference's surface here: ``export_serving_model`` (the
+native host) and the mesh hooks (``shard``, ``place_feeds``,
+``serving_mesh``); each raises naming it.
 
 Fault sites (``resilience/faults.py``): ``ckpt.write`` (a checkpoint
 save) and ``ckpt.load`` (every blob load).
@@ -496,12 +499,6 @@ class CheckpointManager:
 
 # --------------------------------------------------------------------------- inference
 
-# op types whose kernels an inference step would launch outside a custom
-# op, with the condition: torch.export cannot record such a launch
-_UNEXPORTED_KERNELS = {
-    "dropout": (lambda attrs: not attrs.get("is_test"),
-                "threefry_dropout (ops/csrc/dropout.cu)"),
-}
 _ARTIFACT_FILES = ("model.pt2", "params.npz", "params.meta.json",
                    "inference.json")
 
@@ -523,21 +520,14 @@ class _InferenceModule(torch.nn.Module):
 def _check_exportable(program: Program) -> None:
     """Refuse, naming the op, a program that is not one traced function: a
     host read every run (``check_capturable``: cond, an unbounded
-    while_loop, Print) or a kernel launched outside a custom op."""
+    while_loop, Print).  Every kernel is a custom op (a training dropout's
+    too: it then draws the masks of step 0 at every call)."""
     try:
         check_capturable(program)
     except WarmError as e:
         raise ValueError(
             f"save_inference_model: the artifact is one traced function, "
             f"and {str(e).replace('warm: ', '')}") from None
-    for _, op in program.all_ops():
-        entry = _UNEXPORTED_KERNELS.get(op.type)
-        if entry is not None and entry[0](op.attrs):
-            raise ValueError(
-                f"save_inference_model: the program's {op.type} op (outputs "
-                f"{op.output_names()[:2]}) launches the {entry[1]} kernel, "
-                f"which has no custom op for torch.export; build the "
-                f"program for inference (is_test) first")
 
 
 def _example(var: Variable, batch: int, device) -> torch.Tensor:
@@ -629,8 +619,9 @@ class InferenceModel:
     call through ``core.graphs``: on the card one CUDA graph of the
     exported program over static feed buffers, which every later call of
     that signature stages and replays; on the CPU the program, run on the
-    staged buffers.  ``trace_count()`` counts the signatures prepared
-    (unchanged by a repeated signature), as ``serving.jit_traces`` does;
+    staged buffers.  ``trace_count()`` counts the signatures prepared from
+    the artifact's own program (unchanged by a repeated signature), as
+    ``serving.jit_traces`` does;
     each prepared signature registers its flops and bytes in the
     ``obs.prof`` cost ledger under ``serving_bucket:<model id>:<rows>``
     (``sig_prefix`` + rows, the key a ``DynamicBatcher`` times it by).
@@ -645,8 +636,16 @@ class InferenceModel:
     shares one memory pool.  ``feed_specs``,
     ``symbolic_batch``, ``example_batch``, ``params``, ``feed_names``,
     ``fetch_names`` and ``exported`` (the ``torch.export`` program)
-    describe it.  The reference's AOT and mesh hooks raise, naming ROADMAP
-    A.10."""
+    describe it.
+
+    The AOT hooks: ``artifact_hash`` is a sha256 over the artifact's files;
+    ``aot_compile(feed)`` prepares ``feed``'s signature and returns the
+    program to store for it (the forward traced into one graph);
+    ``install(feed, program)`` prepares ``feed``'s signature from such a
+    stored program in place of the artifact's own, its costs taken from the ``obs.prof`` ledger when it
+    knows them.  ``installed_count()`` counts the signatures installed,
+    ``trace_count()`` the others.  The reference's mesh hooks raise,
+    naming ROADMAP A.10."""
 
     def __init__(self, dirname: str, device=None):
         with open(os.path.join(dirname, "inference.json")) as f:
@@ -672,17 +671,32 @@ class InferenceModel:
         self._graphs = Graphs(self.device)
         self._prepared: Dict[tuple, tuple] = {}
         self._lock = threading.Lock()
+        self._installed: set = set()
         h = hashlib.sha1()
         for name in ("inference.json", "params.meta.json"):
             with open(os.path.join(dirname, name), "rb") as f:
                 h.update(f.read())
         self.model_id = h.hexdigest()
         self.sig_prefix = f"serving_bucket:{self.model_id[:8]}"
+        h = hashlib.sha256()
+        for name in _ARTIFACT_FILES:
+            with open(os.path.join(dirname, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
+        self._artifact_hash = h.hexdigest()
 
     def trace_count(self) -> int:
-        return len(self._prepared)
+        """The signatures prepared from the artifact's own program."""
+        return len(self._prepared) - len(self._installed)
 
-    def __call__(self, feed):
+    def installed_count(self) -> int:
+        """The signatures prepared from a stored program (``install``)."""
+        return len(self._installed)
+
+    @property
+    def artifact_hash(self) -> str:
+        return self._artifact_hash
+
+    def _feed_values(self, feed):
         vals = {}
         for n in self.feed_names:
             v = feed[n]
@@ -691,7 +705,11 @@ class InferenceModel:
                 # a read-only buffer (a Session feed is np.frombuffer)
                 v = torch.from_numpy(a if a.flags.writeable else a.copy())
             vals[n] = v.to(self._dtypes[n])
-        sig = tuple((n, tuple(vals[n].shape)) for n in self.feed_names)
+        return vals, tuple((n, tuple(vals[n].shape))
+                           for n in self.feed_names)
+
+    def __call__(self, feed):
+        vals, sig = self._feed_values(feed)
         with self._lock:
             entry = self._prepared.get(sig)
             if entry is None:
@@ -702,53 +720,77 @@ class InferenceModel:
                 prepared.replay()
             return [_to_numpy(o) for o in entry[1]["fetches"]]
 
-    def _prepare(self, sig, vals) -> tuple:
-        """Stage ``vals`` into a new signature's buffers and prepare it (the
-        caller holds the lock); counts ``serving.jit_traces`` and registers
-        the signature's cost."""
+    def _prepare(self, sig, vals, module=None,
+                 source: str = "live") -> tuple:
+        """Stage ``vals`` into a new signature's buffers and prepare it on
+        ``module`` (the artifact's own by default; the caller holds the
+        lock); a live preparation counts ``serving.jit_traces``; registers
+        the signature's cost, counting the first run unless the ledger
+        knows it."""
         staged = Staged([(n, s, self._dtypes[n]) for n, s in sig],
                         self.device)
         staged.stage(vals)
         outs: dict = {}
-        module, params, feeds = self._module, self.params, staged.t
+        module, params, feeds = (module or self._module), self.params, \
+            staged.t
 
         def body():
             with torch.no_grad():
                 outs["fetches"] = module(params, dict(feeds))
 
+        prof_fp = _prof.fingerprint(
+            "serving_bucket", repr(sig), self.model_id,
+            [self._dtypes[n] for n in self.feed_names])
+        known = _prof.ledger().costs(prof_fp)
         t0 = time.perf_counter()
-        prepared = self._graphs.prepare(body, count=True)
+        prepared = self._graphs.prepare(
+            body, count=known is None or known.get("flops") is None)
         ms = (time.perf_counter() - t0) * 1e3
         if prepared.captured:
             prepared.replay()
-        profiler.incr("serving.jit_traces")
+        if source == "live":
+            profiler.incr("serving.jit_traces")
         rows = int(sig[0][1][0]) if sig and sig[0][1] else 0
         sig_key = f"{self.sig_prefix}:{rows}"
-        _prof.register(
-            _prof.fingerprint("serving_bucket", repr(sig), self.model_id,
-                              [self._dtypes[n] for n in self.feed_names]),
-            label=sig_key, sig_key=sig_key, source="live", compile_ms=ms,
-            cost=prepared.cost)
+        _prof.register(prof_fp, label=sig_key, sig_key=sig_key,
+                       source=source, compile_ms=ms, cost=prepared.cost)
         return staged, outs, prepared
 
-    # ---- the reference's AOT and mesh hooks: ROADMAP A.10
+    # ---- the reference's AOT hooks
+    def aot_compile(self, feed, fingerprint=None):
+        """Prepare ``feed``'s signature (as a first call does) and return
+        the program to store for it: the exported program's forward at
+        that signature traced into one graph (``compile.aot.trace_step``,
+        ``forward(params, feeds)``), which ``install`` takes back."""
+        from .compile import aot
+
+        vals, sig = self._feed_values(feed)
+        with self._lock:
+            if sig not in self._prepared:
+                self._prepared[sig] = self._prepare(sig, vals)
+            module = self._module
+            with torch.no_grad():
+                return aot.trace_step(lambda p, f: module(p, f),
+                                      self.params, self._prepared[sig][0].t)
+
+    def install(self, feed, executable, fingerprint=None) -> None:
+        """Prepare ``feed``'s signature from ``executable``, a stored
+        program (``aot_compile``'s graph), in place of the artifact's own:
+        later calls of that signature replay it.  ``fingerprint``, the
+        store's key, only names it."""
+        vals, sig = self._feed_values(feed)
+        with self._lock:
+            if sig in self._prepared:
+                return
+            self._prepared[sig] = self._prepare(sig, vals, executable,
+                                                source="aot")
+            self._installed.add(sig)
+
+    # ---- the reference's mesh hooks: ROADMAP A.10
     def _a10(self, what: str):
         raise NotImplementedError(
-            f"InferenceModel.{what} is not ported yet ({_A10}: the "
-            f"compile/ store and the serving mesh hooks of the artifact)")
-
-    def install(self, feed, executable, fingerprint=None):
-        self._a10("install")
-
-    def aot_compile(self, feed, fingerprint=None):
-        self._a10("aot_compile")
-
-    @property
-    def artifact_hash(self):
-        self._a10("artifact_hash")
-
-    def installed_count(self):
-        self._a10("installed_count")
+            f"InferenceModel.{what} is not ported yet ({_A10} part 5: the "
+            f"serving mesh hooks of the artifact)")
 
     def shard(self, serving_mesh):
         self._a10("shard")

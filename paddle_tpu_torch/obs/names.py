@@ -145,12 +145,12 @@ METRICS = {
     # compile-latency accounting (DESIGN.md §23): how long acquiring each
     # executable actually took, split by how it was satisfied — the
     # cold-vs-warm claim as a standing metric instead of a one-off bench.
-    # The exact three-way live|aot_exec|aot_export split rides each cost-
-    # ledger entry's ``source``/``compile_ms``; these histograms are the
-    # scrapeable aggregate (live compiles vs warm loads of either layer).
-    "compile.compile_ms": "histogram",   # live trace+XLA-compile wall-ms
-    "compile.aot_load_ms": "histogram",  # store-satisfied wall-ms (exec or
-    #                                      export layer, deserialize incl.)
+    # The exact live|aot_exec split rides each cost-ledger entry's
+    # ``source``/``compile_ms``; these histograms are the scrapeable
+    # aggregate (live preparations vs warm loads).
+    "compile.compile_ms": "histogram",   # live preparation wall-ms
+    "compile.aot_load_ms": "histogram",  # store-satisfied wall-ms
+    #                                      (unpickle and capture incl.)
     "compile.retraces": "counter",           # steady-state retraces (storm fuel)
     "compile.storms": "counter",             # budget breaches observed
     "compile.warm_start": "gauge",           # 1 = manifest had entries at boot

@@ -232,8 +232,8 @@ class CostLedger:
                  compile_ms: Optional[float] = None,
                  cost: Optional[Dict[str, float]] = None) -> Dict:
         """Record (or refresh) one signature's entry.  ``source`` is how
-        THIS process satisfied it (``live``: prepared here; the AOT sources
-        of the reference wait for ROADMAP A.10); ``cost`` is an
+        THIS process satisfied it (``live``: prepared here; ``aot_exec``: a
+        graph loaded from the AOT store); ``cost`` is an
         :func:`analyze` dict.  Merge rule: new non-None values win,
         absent ones keep what the sidecar (or an earlier registration)
         already knew — a warm load without cost data inherits the live
@@ -598,6 +598,15 @@ _default_ledger = CostLedger()
 
 def ledger() -> CostLedger:
     return _default_ledger
+
+
+def attach_ledger_near_store(store_dirname: str) -> CostLedger:
+    """Point the default ledger's sidecar beside the AOT store: the store
+    lives at ``<compile_dir>/aot``, the ledger at
+    ``<compile_dir>/prof_ledger.json``, so that a warm restart knows every
+    stored step's costs without counting a first run again."""
+    parent = os.path.dirname(os.path.abspath(store_dirname))
+    return _default_ledger.attach(parent or store_dirname)
 
 
 def register(fingerprint: str, **kw) -> Dict:

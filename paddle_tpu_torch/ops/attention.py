@@ -506,7 +506,8 @@ def flash_bwd_kernels(q, k, v, o, lse, g, scale: float, causal: bool):
 def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float, causal: bool
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _fwd_reference(q, k, v, scale, causal)
+    o, lse = _fwd_reference(q, k, v, scale, causal)
+    return o.contiguous(), lse.contiguous()
 
 
 @flash_fwd_op.register_kernel("cuda")
@@ -519,13 +520,44 @@ def _flash_fwd_cuda(q, k, v, scale, causal):
 
 @flash_fwd_op.register_fake
 def _flash_fwd_fake(q, k, v, scale, causal):
-    return (torch.empty_like(q),
+    # contiguous, as both implementations return them: a trace decides
+    # its views by these strides
+    return (q.new_empty(q.shape),
             q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+# The backward as the custom op ``torch.ops.paddle_tpu_torch.flash_bwd``
+# (q, k, v, o, lse, g, scale, causal, block_k) -> (dq, dk, dv): on CUDA
+# tensors the dK/dV and dQ kernels (``flash_bwd_kernels``; ``block_k`` sizes
+# only the plain version's K blocks), on CPU ones ``_bwd_blockwise``.  So a
+# trace of a training step (``compile/aot.py``) holds the backward as one
+# node, as it holds the forward.
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd", mutates_args=(),
+                         device_types="cpu")
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                 scale: float, causal: bool, block_k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(t.contiguous() for t in _bwd_blockwise(
+        q, k, v, o, lse, g, scale, causal, block_k))
+
+
+@flash_bwd_op.register_kernel("cuda")
+def _flash_bwd_cuda(q, k, v, o, lse, g, scale, causal, block_k):
+    return flash_bwd_kernels(q.contiguous(), k.contiguous(), v.contiguous(),
+                             o, lse.contiguous(), g, scale, causal)
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, g, scale, causal, block_k):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 class _Flash(torch.autograd.Function):
     """Flash attention over [N, T, D] with its hand-written gradient; saves
-    (q, k, v, o, lse) for the backward."""
+    (q, k, v, o, lse) for the backward.  Both directions are custom ops."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_k):
@@ -537,12 +569,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = _bwd_blockwise(q, k, v, o, lse, g, ctx.scale,
-                                        ctx.causal, ctx.block_k)
-        else:
-            dq, dk, dv = flash_bwd_kernels(q, k, v, o, lse, g, ctx.scale,
-                                           ctx.causal)
+        dq, dk, dv = flash_bwd_op(q, k, v, o, lse, g, ctx.scale, ctx.causal,
+                                  ctx.block_k)
         return dq, dk, dv, None, None, None
 
 

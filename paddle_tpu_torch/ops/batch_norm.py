@@ -32,6 +32,7 @@ launch too): ``{"reduce": n, "dx": n}``.  Plain-version calls never count.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -226,20 +227,52 @@ def bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta, dgamma, count=None):
     return dx
 
 
-def bn_bwd_reduce(dy, x, mean, rstd):
-    """(dbeta, dgamma): the kernel on CUDA tensors, the plain version on CPU
-    ones."""
-    if x.device.type == "cpu":
-        return bn_bwd_reduce_reference(dy, x, mean, rstd)
+# The backward pair as the custom ops ``torch.ops.paddle_tpu_torch.
+# bn_bwd_reduce`` (dy, x, mean, rstd) -> (dbeta, dgamma) and ``bn_bwd_dx``
+# (dy, x, mean, rstd, gamma, dbeta, dgamma, count) -> dx (``count`` M, 0 for
+# this call's N x HW): the kernels on CUDA tensors, the plain versions on
+# CPU ones, a fake implementation for the shapes.  ``_BatchNormTrain``
+# calls them, so that a trace of a training step (``compile/aot.py``)
+# holds each kernel as one node.
+
+
+@torch.library.custom_op("paddle_tpu_torch::bn_bwd_reduce", mutates_args=(),
+                         device_types="cpu")
+def bn_bwd_reduce(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                  rstd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return bn_bwd_reduce_reference(dy, x, mean, rstd)
+
+
+@bn_bwd_reduce.register_kernel("cuda")
+def _bn_bwd_reduce_cuda(dy, x, mean, rstd):
     return bn_bwd_reduce_kernel(dy, x, mean, rstd)
 
 
-def bn_bwd_dx(dy, x, mean, rstd, gamma, dbeta, dgamma, count=None):
-    """dx: the kernel on CUDA tensors, the plain version on CPU ones."""
-    if x.device.type == "cpu":
-        return bn_bwd_dx_reference(dy, x, mean, rstd, gamma, dbeta, dgamma,
-                                   count)
-    return bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta, dgamma, count)
+@bn_bwd_reduce.register_fake
+def _bn_bwd_reduce_fake(dy, x, mean, rstd):
+    c = x.shape[1]
+    return (x.new_empty((c,), dtype=torch.float32),
+            x.new_empty((c,), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::bn_bwd_dx", mutates_args=(),
+                         device_types="cpu")
+def bn_bwd_dx(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+              rstd: torch.Tensor, gamma: torch.Tensor, dbeta: torch.Tensor,
+              dgamma: torch.Tensor, count: int = 0) -> torch.Tensor:
+    return bn_bwd_dx_reference(dy, x, mean, rstd, gamma, dbeta, dgamma,
+                               count or None).contiguous()
+
+
+@bn_bwd_dx.register_kernel("cuda")
+def _bn_bwd_dx_cuda(dy, x, mean, rstd, gamma, dbeta, dgamma, count=0):
+    return bn_bwd_dx_kernel(dy, x, mean, rstd, gamma, dbeta, dgamma,
+                            count or None)
+
+
+@bn_bwd_dx.register_fake
+def _bn_bwd_dx_fake(dy, x, mean, rstd, gamma, dbeta, dgamma, count=0):
+    return x.new_empty(x.shape, dtype=dy.dtype)
 
 
 # ------------------------------------------------------------------ public
@@ -303,7 +336,8 @@ class _BatchNormTrain(torch.autograd.Function):
                 for g in ctx.groups:
                     both = comm.all_reduce(both, g)
                 gb, gg = both[0], both[1]
-            dx = bn_bwd_dx(dy, x, mean, rstd, scale, gb, gg, ctx.count)
+            dx = bn_bwd_dx(dy, x, mean, rstd, scale, gb, gg,
+                           int(ctx.count or 0))
         return (dx, dgamma.to(ctx.dtypes[0]), dbeta.to(ctx.dtypes[1]), None,
                 None)
 

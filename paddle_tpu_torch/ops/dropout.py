@@ -43,7 +43,7 @@ last dim sharded over a model axis).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -269,22 +269,71 @@ def dropout_bwd_kernel(dy, key: ThreefryKey, dropout_prob: float,
     return _launch("bwd", dy, key, dropout_prob, cmap)
 
 
+# The kernel as two custom ops, ``torch.ops.paddle_tpu_torch.dropout_fwd``
+# (on x) and ``dropout_bwd`` (on dy), each (x, step, step_imm, seed, tag,
+# dropout_prob, cmap) -> x * keep: ``step`` the staged step word of a
+# warmed step (one int32 on x's device) or None for the immediate
+# ``step_imm``; ``cmap`` a ``CounterMap``'s nine fields (the mapped kernel)
+# or empty (the plain one).  On CUDA tensors the kernel, on CPU ones
+# ``dropout_reference``, both contiguous; a fake implementation gives the
+# shape.  So a trace
+# of a training step (``compile/aot.py``) holds each launch as one node,
+# with the step word an input of the graph and never a constant.
+
+
+def _key_of(step, step_imm: int, seed: int, tag: int) -> ThreefryKey:
+    return ThreefryKey(seed, step_imm if step is None else step, tag)
+
+
+def _cmap_of(cmap) -> Optional[CounterMap]:
+    return CounterMap(*cmap) if cmap else None
+
+
+def _define_op(which: str):
+    @torch.library.custom_op(f"paddle_tpu_torch::dropout_{which}",
+                             mutates_args=(), device_types="cpu")
+    def op(x: torch.Tensor, step: Optional[torch.Tensor], step_imm: int,
+           seed: int, tag: int, dropout_prob: float, cmap: List[int]
+           ) -> torch.Tensor:
+        return dropout_reference(x, _key_of(step, step_imm, seed, tag),
+                                 dropout_prob, _cmap_of(cmap)).contiguous()
+
+    @op.register_kernel("cuda")
+    def _cuda(x, step, step_imm, seed, tag, dropout_prob, cmap):
+        return _launch(which, x, _key_of(step, step_imm, seed, tag),
+                       dropout_prob, _cmap_of(cmap))
+
+    @op.register_fake
+    def _fake(x, step, step_imm, seed, tag, dropout_prob, cmap):
+        return x.new_empty(x.shape)   # contiguous, as both give it
+
+    return op
+
+
+dropout_fwd_op = _define_op("fwd")
+dropout_bwd_op = _define_op("bwd")
+
+
+def _op_args(key: ThreefryKey, dropout_prob: float,
+             cmap: Optional[CounterMap]) -> tuple:
+    """The ops' arguments after x for ``key``, ``dropout_prob`` and
+    ``cmap``."""
+    step = key.step if isinstance(key.step, torch.Tensor) else None
+    imm = 0 if step is not None else int(key.step) & M32
+    return (step, imm, key.seed, key.tag & M32, float(dropout_prob),
+            list(cmap) if cmap is not None else [])
+
+
 class _Dropout(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, key, dropout_prob, cmap):
-        ctx.key, ctx.p, ctx.cmap = key, dropout_prob, cmap
-        if x.device.type == "cpu":
-            return dropout_reference(x, key, dropout_prob, cmap)
-        return dropout_fwd_kernel(x, key, dropout_prob, cmap)
+        ctx.args = _op_args(key, dropout_prob, cmap)
+        return dropout_fwd_op(x, *ctx.args)
 
     @staticmethod
     def backward(ctx, g):
-        if g.device.type == "cpu":
-            return (dropout_reference(g, ctx.key, ctx.p, ctx.cmap), None,
-                    None, None)
-        return (dropout_bwd_kernel(g, ctx.key, ctx.p, ctx.cmap), None, None,
-                None)
+        return dropout_bwd_op(g, *ctx.args), None, None, None
 
 
 def threefry_dropout(x: torch.Tensor, key: ThreefryKey,

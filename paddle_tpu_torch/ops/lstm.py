@@ -5,9 +5,12 @@ by the caller; what is left per step (``h @ U``, the gates, the masked cell
 update) is the recurrence.  ``fused_lstm`` is a ``torch.autograd.Function``:
 
 * CPU tensors run the plain versions: ``_lstm_scan`` (a Python loop over T
-  of torch ops, the JAX package's scan reference) forward, and
-  ``_lstm_scan_vjp`` (``torch.autograd.grad`` through a recompute of
-  ``_lstm_scan``, the counterpart of ``_fused_bwd``) backward;
+  of torch ops, the JAX package's scan reference) forward, with
+  ``_lstm_scan_residuals`` keeping the kernel's residuals where a gradient
+  is taken, and ``_lstm_reverse_reference`` (the reverse recurrence, the
+  counterpart of ``_fused_bwd``) backward; ``_lstm_scan_vjp``
+  (``torch.autograd.grad`` through a recompute of ``_lstm_scan``) is the
+  tests' witness for both;
 * CUDA tensors run the hand-written kernels of ``csrc/lstm.cu`` (forward,
   and the reverse recurrence for the backward), or raise: there is no
   fallback to the plain versions;
@@ -129,6 +132,82 @@ def _lstm_scan_vjp(xw, u, peep, mask, size: int, use_peepholes: bool, acts,
                                     allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads))
+
+
+_DACT = {"sigmoid": lambda y: y * (1 - y), "tanh": lambda y: 1 - y * y,
+         "relu": lambda y: (y > 0).to(y.dtype), "identity": torch.ones_like}
+
+
+def _lstm_scan_residuals(xw, u, peep, mask, size: int, use_peepholes: bool,
+                         acts):
+    """Plain version of the forward kernel with residuals: (hs, hc, cc,
+    gates, cnew) in the kernel's layout (hc, cc [T + 1, B, H] with the zero
+    state in slot 0, gates the activated i, f, c~, o [T, B, 4H], cnew the
+    unmasked new cell [T, B, H]); hs and cc[T] are ``_lstm_scan``'s, bit
+    for bit."""
+    ga, ca, cda = (_ACT[a] for a in acts)
+    T, B = xw.shape[0], xw.shape[1]
+    h = xw.new_zeros((B, size))
+    c = xw.new_zeros((B, size))
+    hs, hc, cc, gates, cnew = [], [h], [c], [], []
+    for t in range(T):
+        g = xw[t] + h @ u
+        gi, gf, gc, go = torch.split(g, size, dim=-1)
+        if use_peepholes:
+            i, f = ga(gi + c * peep[0]), ga(gf + c * peep[1])
+        else:
+            i, f = ga(gi), ga(gf)
+        cd = cda(gc)
+        c_new = f * c + i * cd
+        o = ga(go + c_new * peep[2]) if use_peepholes else ga(go)
+        h_new = o * ca(c_new)
+        m = mask[t][:, None]
+        h = h_new * m + h * (1 - m)
+        c = c_new * m + c * (1 - m)
+        hs.append(h_new * m)
+        hc.append(h)
+        cc.append(c)
+        gates.append(torch.cat([i, f, cd, o], dim=-1))
+        cnew.append(c_new)
+
+    def stack(ts, width):
+        return torch.stack(ts) if ts else xw.new_zeros((0, B, width))
+
+    return (stack(hs, size), torch.stack(hc), torch.stack(cc),
+            stack(gates, 4 * size), stack(cnew, size))
+
+
+def _lstm_reverse_reference(g_hs, g_c, u, peep, mask, gates, cnew, cc,
+                            size: int, use_peepholes: bool, acts):
+    """Plain version of the reverse-recurrence kernel: dxw [T, B, 4H] from
+    the cotangents and the forward's residuals, t = T-1 .. 0, with dh and
+    dc carried as the kernel carries them."""
+    ga, ca, cda = acts
+    T, B = gates.shape[0], gates.shape[1]
+    H = int(size)
+    p0, p1, p2 = peep if use_peepholes else gates.new_zeros((3, H))
+    dxw = [None] * T
+    dh_buf = gates.new_zeros((B, H))
+    dc = g_c.clone()
+    for t in range(T - 1, -1, -1):
+        if t == T - 1:
+            dh = gates.new_zeros((B, H))
+        else:
+            dh = dxw[t + 1] @ u.t() + dh_buf * (1 - mask[t + 1][:, None])
+        i, f, cd, o = torch.split(gates[t], H, dim=-1)
+        cn, cp, m = cnew[t], cc[t], mask[t][:, None]
+        dhn = (g_hs[t] + dh) * m
+        ch = _ACT[ca](cn)
+        dcn = dc * m + dhn * o * _DACT[ca](ch)
+        dzo = dhn * ch * _DACT[ga](o)
+        dcn = dcn + dzo * p2
+        dzi = dcn * cd * _DACT[ga](i)
+        dzf = dcn * cp * _DACT[ga](f)
+        dzc = dcn * i * _DACT[cda](cd)
+        dc = dcn * f + dc * (1 - m) + dzi * p0 + dzf * p1
+        dxw[t] = torch.cat([dzi, dzf, dzc, dzo], dim=-1)
+        dh_buf = dh
+    return torch.stack(dxw) if T else gates.new_zeros((0, B, 4 * H))
 
 
 # ------------------------------------------------------------------ kernels
@@ -297,7 +376,12 @@ def lstm_bwd_cuda(g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, size: int,
     Returns (dxw, du, dpeep)."""
     dxw = lstm_bwd_kernel(g_hs, g_c, u, peep, mask, gates, cnew, cc, size,
                           use_peepholes, acts)
-    T, B, H = gates.shape[0], gates.shape[1], int(size)
+    return _weight_grads(dxw, peep, hc, cc, cnew, size, use_peepholes)
+
+
+def _weight_grads(dxw, peep, hc, cc, cnew, size: int, use_peepholes: bool):
+    """(dxw, du, dpeep) from the gate gradients dxw and the residuals."""
+    T, B, H = dxw.shape[0], dxw.shape[1], int(size)
     du = hc[:T].reshape(T * B, H).t() @ dxw.reshape(T * B, 4 * H)
     if use_peepholes:
         c_prev = cc[:T]
@@ -311,16 +395,23 @@ def lstm_bwd_cuda(g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, size: int,
 
 # ------------------------------------------------------------------ public
 
-# The forward without the backward's residuals as the custom op
-# ``torch.ops.paddle_tpu_torch.lstm_fwd`` (xw, u, peep, mask, size,
-# use_peepholes, gate, cell and candidate activations) -> (hs, c_final):
-# its CPU implementation is the plain version, its CUDA one the forward
-# kernel on the route ``lstm_route`` gives, chosen by the tensors' device;
-# a fake implementation gives the shapes.  ``_LSTM`` calls it on the CPU,
-# and ``fused_lstm`` wherever no gradient is taken, so that ``torch.export``
-# of an inference program (``io.save_inference_model``) holds it as one
-# node.  On the card a forward that keeps residuals for the backward calls
-# ``lstm_fwd_kernel`` itself: the same kernel, with the residual outputs.
+# The recurrence as custom ops of the ``paddle_tpu_torch`` namespace, each
+# its plain version on CPU tensors and its kernel on CUDA ones (on the
+# route ``lstm_route`` gives), with a fake implementation for the shapes:
+#
+#   lstm_fwd        (xw, u, peep, mask, size, use_peepholes, gate, cell and
+#                   candidate activations) -> (hs, c_final): the forward
+#                   without residuals, where no gradient is taken, so that
+#                   ``torch.export`` of an inference program
+#                   (``io.save_inference_model``) holds it as one node;
+#   lstm_fwd_train  the same arguments -> (hs, hc, cc, gates, cnew): the
+#                   forward keeping the backward's residuals;
+#   lstm_bwd        (g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, size,
+#                   use_peepholes, activations) -> (dxw, du, dpeep): the
+#                   reverse recurrence with du and the peephole sums.
+#
+# ``_LSTM`` calls the last two on both devices, so that a trace of a
+# training step (``compile/aot.py``) holds each kernel as one node.
 
 
 @torch.library.custom_op("paddle_tpu_torch::lstm_fwd", mutates_args=(),
@@ -351,24 +442,80 @@ def _lstm_fwd_fake(xw, u, peep, mask, size, use_peepholes, gate_activation,
     return xw.new_empty((T, B, size)), xw.new_empty((B, size))
 
 
+@torch.library.custom_op("paddle_tpu_torch::lstm_fwd_train", mutates_args=(),
+                         device_types="cpu")
+def lstm_fwd_train_op(xw: torch.Tensor, u: torch.Tensor, peep: torch.Tensor,
+                      mask: torch.Tensor, size: int, use_peepholes: bool,
+                      gate_activation: str, cell_activation: str,
+                      candidate_activation: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor]:
+    return _lstm_scan_residuals(xw, u, peep, mask, size, use_peepholes,
+                                (gate_activation, cell_activation,
+                                 candidate_activation))
+
+
+@lstm_fwd_train_op.register_kernel("cuda")
+def _lstm_fwd_train_cuda(xw, u, peep, mask, size, use_peepholes,
+                         gate_activation, cell_activation,
+                         candidate_activation):
+    return lstm_fwd_kernel(
+        xw, u, peep, mask, size, use_peepholes,
+        (gate_activation, cell_activation, candidate_activation), True)
+
+
+@lstm_fwd_train_op.register_fake
+def _lstm_fwd_train_fake(xw, u, peep, mask, size, use_peepholes,
+                         gate_activation, cell_activation,
+                         candidate_activation):
+    T, B = xw.shape[0], xw.shape[1]
+    return (xw.new_empty((T, B, size)), xw.new_empty((T + 1, B, size)),
+            xw.new_empty((T + 1, B, size)), xw.new_empty(xw.shape),
+            xw.new_empty((T, B, size)))
+
+
+@torch.library.custom_op("paddle_tpu_torch::lstm_bwd", mutates_args=(),
+                         device_types="cpu")
+def lstm_bwd_op(g_hs: torch.Tensor, g_c: torch.Tensor, u: torch.Tensor,
+                peep: torch.Tensor, mask: torch.Tensor, hc: torch.Tensor,
+                cc: torch.Tensor, gates: torch.Tensor, cnew: torch.Tensor,
+                size: int, use_peepholes: bool, gate_activation: str,
+                cell_activation: str, candidate_activation: str
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dxw = _lstm_reverse_reference(
+        g_hs, g_c, u, peep, mask, gates, cnew, cc, size, use_peepholes,
+        (gate_activation, cell_activation, candidate_activation))
+    return _weight_grads(dxw, peep, hc, cc, cnew, size, use_peepholes)
+
+
+@lstm_bwd_op.register_kernel("cuda")
+def _lstm_bwd_cuda(g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, size,
+                   use_peepholes, gate_activation, cell_activation,
+                   candidate_activation):
+    return lstm_bwd_cuda(
+        g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, size, use_peepholes,
+        (gate_activation, cell_activation, candidate_activation))
+
+
+@lstm_bwd_op.register_fake
+def _lstm_bwd_fake(g_hs, g_c, u, peep, mask, hc, cc, gates, cnew, size,
+                   use_peepholes, gate_activation, cell_activation,
+                   candidate_activation):
+    return (gates.new_empty(gates.shape), u.new_empty(u.shape),
+            peep.new_empty(peep.shape))
+
+
 class _LSTM(torch.autograd.Function):
-    """The recurrence with its gradient; returns (hs, c_final)."""
+    """The recurrence with its gradient; returns (hs, c_final).  Both
+    directions are custom ops, on both devices."""
 
     @staticmethod
     def forward(ctx, xw, u, peep, mask, size, use_peepholes, acts):
         ctx.size, ctx.use_peepholes, ctx.acts = size, use_peepholes, acts
-        ctx.on_cpu = xw.device.type == "cpu"
         ctx.hs_like = dict(size=(xw.shape[0], xw.shape[1], size),
                            dtype=xw.dtype, device=xw.device)
-        if ctx.on_cpu:
-            hs, c_final = lstm_fwd_op(xw, u, peep, mask, size, use_peepholes,
-                                      *acts)
-            ctx.save_for_backward(xw, u, peep, mask)
-            return hs, c_final
-        # on the card only when a gradient is taken (``fused_lstm``): the
-        # kernel keeps the residuals for the backward
-        hs, hc, cc, gates, cnew = lstm_fwd_kernel(
-            xw, u, peep, mask, size, use_peepholes, acts, True)
+        hs, hc, cc, gates, cnew = lstm_fwd_train_op(
+            xw, u, peep, mask, size, use_peepholes, *acts)
         ctx.save_for_backward(u, peep, mask, hc, cc, gates, cnew)
         return hs, cc[-1].clone()
 
@@ -381,18 +528,13 @@ class _LSTM(torch.autograd.Function):
         if g_c is None:
             g_c = torch.zeros(**dict(ctx.hs_like,
                                      size=ctx.hs_like["size"][1:]))
-        args = (ctx.size, ctx.use_peepholes, ctx.acts)
         saved = ctx.saved_tensors
-        if ctx.on_cpu:
-            xw, u, peep, mask = saved
-            dxw, du, dpeep = _lstm_scan_vjp(xw, u, peep, mask, *args, g_hs,
-                                            g_c)
-        else:
-            u, peep, mask, hc, cc, gates, cnew = saved
-            dxw, du, dpeep = lstm_bwd_cuda(
-                g_hs.to(torch.float32).contiguous(),
-                g_c.to(torch.float32).contiguous(), u, peep, mask, hc, cc,
-                gates, cnew, *args)
+        # the cotangents in the residuals' dtype (float32 on the card,
+        # whose kernels take nothing else)
+        dt = saved[5].dtype
+        dxw, du, dpeep = lstm_bwd_op(
+            g_hs.to(dt).contiguous(), g_c.to(dt).contiguous(), *saved,
+            ctx.size, ctx.use_peepholes, *ctx.acts)
         return dxw, du, dpeep, None, None, None, None
 
 

@@ -113,10 +113,10 @@ class Supervisor:
     it to deliver a preemption SIGTERM to a specific member.
 
     ``compile_dir``: forwarded to every child (and every generation) as
-    ``PADDLE_TPU_COMPILE_DIR``, as the reference forwards its AOT store's
-    directory.  The port's compile store is not ported yet (ROADMAP A.10):
-    a port child handed the variable raises naming A.10.  None leaves
-    whatever the parent environment says.
+    ``PADDLE_TPU_COMPILE_DIR``: a port child's ``Trainer`` keeps its AOT
+    store and shape manifest there, so that each generation after the
+    first warm-starts from what the last one recorded (``Trainer.prepare``).
+    None leaves whatever the parent environment says.
 
     ``log_dir``: per-generation child stdout/stderr capture files
     (``gen<G>-r<I>.log``); None inherits the parent's streams."""

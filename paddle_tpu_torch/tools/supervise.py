@@ -51,9 +51,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gang-grace-s", type=float, default=15.0,
                     help="SIGTERM→SIGKILL escalation window at gang teardown")
     ap.add_argument("--compile-dir", default="",
-                    help="compile store dir, forwarded to every generation "
-                         "as PADDLE_TPU_COMPILE_DIR (the port's store is "
-                         "ROADMAP A.10: a port child handed it raises)")
+                    help="compile dir (AOT store + manifest), forwarded to "
+                         "every generation as PADDLE_TPU_COMPILE_DIR, from "
+                         "which a port child's Trainer warm-starts")
     ap.add_argument("--log-dir", default="",
                     help="capture per-child stdout to gen<G>-r<I>.log files")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,

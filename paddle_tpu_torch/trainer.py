@@ -21,14 +21,21 @@ times itself with the reference's names (``train.epochs``,
 ``train.fetch_ms``, the ``resilience.*`` recovery counters; spans
 ``train.data_wait``, ``train.step``, ``train.fetch``,
 ``train.checkpoint``), records every step in the flight recorder and dumps
-a postmortem before a rollback and a preemption exit.  The reference's
-compile store, warm start and ``prepare()`` (``compile_dir``) are ROADMAP
-A.10.
+a postmortem before a rollback and a preemption exit.
+
+``compile_dir`` (the reference's compile subsystem) holds the AOT store
+(``<compile_dir>/aot``, ``compile/aot.py``) and the shape manifest
+(``manifest.json``): each new step signature is recorded there and warmed
+through the store (so that even a cold generation seeds it), the
+manifest rides with every checkpoint, and the next generation's
+``prepare()`` warms the manifest's signatures from the store on a
+background thread while the foreground restores its checkpoint.
 """
 from __future__ import annotations
 
 import os
 import shutil
+import threading
 import time
 from typing import Callable, Dict, Optional, Sequence
 
@@ -37,7 +44,10 @@ import torch
 
 from . import events as _events
 from . import profiler as _profiler
+from .compile import aot as _aot
 from .compile import guard as _guard
+from .compile import manifest as _manifest
+from .compile import warmup as _warmup
 from .core.executor import (Executor, Scope, _to_numpy, check_capturable,
                             global_scope)
 from .core.graphs import Graphs, Staged, WarmError
@@ -81,9 +91,11 @@ class Trainer:
     rewinds it to the one paired with the restored checkpoint.
     ``handle_preemption``: SIGTERM / SIGINT drain (finish the staged
     batches, checkpoint, exit ``EXIT_PREEMPTED``); ``hang_timeout_s``: the
-    watchdog.  ``compile_dir`` (the reference's compile store; by default
-    ``PADDLE_TPU_COMPILE_DIR``, which the supervisor forwards) raises, and
-    its ``warm_start`` is not taken: ROADMAP A.10."""
+    watchdog.  ``compile_dir``: the AOT store and the shape manifest (by
+    default ``PADDLE_TPU_COMPILE_DIR``, which the supervisor forwards,
+    else ``<checkpoint_dir>/compile``; None without either), held as
+    ``aot_store`` and ``manifest``; ``warm_start=False`` keeps
+    ``prepare()`` from warming the manifest's signatures."""
 
     def __init__(
         self,
@@ -104,21 +116,13 @@ class Trainer:
         handle_preemption: bool = True,
         log_every: int = 1,
         compile_dir: Optional[str] = None,
+        warm_start: bool = True,
         recompile_budget: int = 4,
         recompile_policy: str = "warn",
         place=None,
     ):
-        if compile_dir is None:
-            # the supervisor forwards its --compile-dir in the environment
-            from .compile import default_compile_dir
+        from .compile import default_compile_dir
 
-            compile_dir = default_compile_dir()
-        if compile_dir is not None:
-            raise NotImplementedError(
-                f"Trainer(compile_dir={compile_dir!r}, or "
-                f"PADDLE_TPU_COMPILE_DIR): the compile store, its manifest "
-                f"and the warm start are not ported yet (ROADMAP A.10); each "
-                f"new step signature is warmed in process")
         self.cost = cost
         self.program = cost.program
         optimizer.minimize(cost)
@@ -150,6 +154,24 @@ class Trainer:
         self._watchdog: Optional[_cluster.Watchdog] = None
         self._warmed: set = set()
         self._capturable: Optional[bool] = None
+        # the compile dir lives beside the checkpoints unless the
+        # supervisor forwards one, so that it survives generations as the
+        # weights do
+        self.compile_dir = (compile_dir or default_compile_dir()
+                            or (os.path.join(checkpoint_dir, "compile")
+                                if checkpoint_dir else None))
+        self.warm_start = warm_start
+        self.aot_store = (_aot.AOTStore(os.path.join(self.compile_dir, "aot"))
+                          if self.compile_dir else None)
+        self.manifest = (_manifest.ShapeManifest.load(
+            os.path.join(self.compile_dir, "manifest.json"))
+            if self.compile_dir else _manifest.ShapeManifest())
+        self._warmup: Optional[_warmup.Warmup] = None
+        # a background warm's capture and the foreground's restore take
+        # turns on the device: a CUDA graph capture fails when another
+        # thread makes a synchronising CUDA call meanwhile
+        self._device_lock = threading.Lock()
+        self.exe.capture_lock = self._device_lock
         self.recompile_guard = _guard.RecompileGuard(
             lambda: self.exe.compiles, budget=recompile_budget,
             policy=recompile_policy, name="train")
@@ -162,25 +184,73 @@ class Trainer:
             self.program.anomaly_guard = None
             self.program._version += 1
 
-    def prepare(self, wait: bool = True, timeout: Optional[float] = None):
-        """The reference's manifest-driven warm start (ROADMAP A.10)."""
-        raise NotImplementedError(
-            "Trainer.prepare: the warm start from a compile manifest is not "
-            "ported yet (ROADMAP A.10); train() warms each new step "
-            "signature before its first batch")
+    def prepare(self, wait: bool = True, timeout: Optional[float] = None
+                ) -> Optional[_warmup.Warmup]:
+        """The manifest-driven warm start: every step signature the last
+        generation recorded is warmed through the AOT store (a stored graph
+        loaded and captured, else the live preparation) on a background
+        ``compile.Warmup`` thread.  ``train()`` calls it, with ``wait=False``,
+        before restoring its checkpoint (the two take turns on the device,
+        ``Executor.capture_lock``); call it earlier to warm before data is
+        ready.  Returns the Warmup, or None on a cold start (an empty
+        manifest), a program that cannot be captured, or
+        ``warm_start=False``; a second call returns the first's Warmup.
+        ``wait`` blocks until its tasks finish (``timeout`` seconds at
+        most)."""
+        if self._warmup is not None:
+            if wait:
+                self._warmup.wait_all(timeout)
+            return self._warmup
+        entries = [e for e in self.manifest.entries()
+                   if e["kind"] == _manifest.TRAIN_STEP]
+        _warmup.mark_start(bool(entries))
+        if not (self.warm_start and entries and self._can_capture()):
+            return None
+        wu = _warmup.Warmup(name="trainer")
+        for i, e in enumerate(entries):
+            sig = e.get("sig") or {}
+            feed_sig = [(n, tuple(d["shape"]), d["dtype"])
+                        for n, d in sorted((sig.get("feeds") or {}).items())]
+            fetches = list(sig.get("fetches") or [])
+            if not feed_sig or not fetches:
+                continue
 
-    # ------------------------------------------------------------------ step
-    def _run_step(self, feed, fetch):
-        """One training step: a signature seen for the first time is warmed
-        first (when the program and the Executor can capture), then run;
-        returns the fetches as device tensors."""
+            def task(feed_sig=feed_sig, fetches=fetches):
+                how = self.exe.warm(self.program, feed_sig, fetches,
+                                    scope=global_scope(),
+                                    store=self.aot_store)
+                self._warmed.add((tuple(sorted(
+                    (n, tuple(int(d) for d in shape), dt)
+                    for n, shape, dt in feed_sig)), tuple(fetches)))
+                return how
+
+            wu.add(f"train_step:{i}", task, priority=float(i))
+        self._warmup = wu.start()
+        if wait:
+            wu.wait_all(timeout)
+        return wu
+
+    def _can_capture(self) -> bool:
+        """Whether this Trainer warms its steps: the program captures
+        (``check_capturable``) and no Strategy shards it."""
         if self._capturable is None:
             try:
                 check_capturable(self.program)
                 self._capturable = self.strategy is None
             except WarmError:
                 self._capturable = False
-        if self._capturable:
+        return self._capturable
+
+    def _save_manifest(self) -> None:
+        if self.compile_dir:
+            self.manifest.save()
+
+    # ------------------------------------------------------------------ step
+    def _run_step(self, feed, fetch):
+        """One training step: a signature seen for the first time is warmed
+        first (when the program and the Executor can capture), then run;
+        returns the fetches as device tensors."""
+        if self._can_capture():
             block = self.program.global_block
             sig = tuple(sorted(
                 (n, tuple(int(d) for d in v.shape), dtype_name(
@@ -188,8 +258,16 @@ class Trainer:
                 for n, v in feed.items()))
             key = (sig, tuple(f.name for f in fetch))
             if key not in self._warmed:
+                # one manifest entry a signature: the next generation's
+                # prepare() warms exactly these; through the store, so that
+                # a cold generation seeds it
+                self.manifest.record(
+                    _manifest.TRAIN_STEP, "trainer",
+                    sig={"feeds": {n: {"shape": list(shape), "dtype": dt}
+                                   for n, shape, dt in sig},
+                         "fetches": list(key[1])})
                 self.exe.warm(self.program, sig, list(key[1]),
-                              scope=global_scope())
+                              scope=global_scope(), store=self.aot_store)
                 self._warmed.add(key)
         return self.exe.run(self.program, feed=feed, fetch_list=fetch,
                             return_numpy=False)
@@ -208,12 +286,18 @@ class Trainer:
                           if self.hang_timeout_s else None)
         try:
             self.exe.run(default_startup_program())
+            # the warm start in the background: the manifest's signatures
+            # load (or prepare) while the foreground restores, so that the
+            # first batch finds its step captured
+            self.prepare(wait=False)
             start_pass = 0
             if self.ckpt and resume:
                 state = self._restore_agreed(handler)
                 if state:
                     self.global_step = state["step"]
                     start_pass = state["extra"].get("pass_id", 0)
+            if self._warmup is not None:
+                self._warmup.wait_all()
             fetch = [self.cost] + list(self.extra_fetch.values())
             fetch_keys = list(self.extra_fetch.keys())
             for pass_id in range(start_pass, num_passes):
@@ -244,7 +328,11 @@ class Trainer:
                                extra={"pass_id": num_passes},
                                strategy=self.strategy)
             self._snapshot_queue()
+            self._save_manifest()
         finally:
+            if self._warmup is not None:
+                # no more warm tasks come: let the worker drain and exit
+                self._warmup.close()
             # no watchdog thread outlives train(), and the signal
             # disposition is restored, whatever path left the loop
             if self._watchdog is not None:
@@ -375,6 +463,8 @@ class Trainer:
                                           "batch_id": batch_id},
                                    strategy=self.strategy)
                 self._snapshot_queue()
+                # the manifest rides with every checkpoint
+                self._save_manifest()
 
     def _drain_preemption(self, pass_id: int, batch_id: int, handler) -> None:
         """The grace flag is armed and the staged steps are done: checkpoint
@@ -386,6 +476,7 @@ class Trainer:
                                   "preempted": True},
                            strategy=self.strategy)
         self._snapshot_queue()
+        self._save_manifest()
         _profiler.incr("resilience.preemptions")
         # the drain is about to exit: leave the postmortem that says the
         # state on disk is a deliberate drain, with the steps that led here
@@ -403,6 +494,10 @@ class Trainer:
         all restore it."""
         if self.ckpt is None:
             return None
+        with self._device_lock:
+            return self._restore_agreed_locked(handler)
+
+    def _restore_agreed_locked(self, handler):
         from . import distributed
 
         if distributed.process_count() <= 1:

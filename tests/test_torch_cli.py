@@ -310,7 +310,7 @@ def test_obs_commands_read_the_port_outputs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["compile", "stats"], ["fleet", "status", "--port=1"],
+    ["fleet", "serve"], ["fleet", "status", "--port=1"],
     ["obs", "slo", "--port=1"], ["obs", "hotspots", "--port=1"]])
 def test_waiting_commands_name_a10(argv):
     with pytest.raises(NotImplementedError, match="A.10"):

@@ -285,21 +285,23 @@ def test_not_warmed_run_prepares_nothing():
     assert scope.find_var("tok_emb") is not old
 
 
-def test_warm_refusals():
-    """``store=`` names ROADMAP A.10; a feed signature whose dtype or shape
-    the variable refuses raises before anything is prepared."""
+def test_warm_refusals(tmp_path):
+    """A feed signature whose dtype or shape the variable refuses raises
+    before anything is prepared or stored (``store=``, the AOT store, is
+    left empty)."""
     loss = _tiny(tfluid)
     exe = tfluid.Executor(CPU)
     exe.run(tfluid.default_startup_program())
     prog = tfluid.default_main_program()
     sig = [("x", (2, 4), "float32"), ("y", (2, 1), "int32")]
-    with pytest.raises(NotImplementedError, match="A.10"):
-        exe.warm(prog, sig, [loss.name], store=object())
+    store = tfluid.compile.AOTStore(str(tmp_path / "aot"))
     with pytest.raises(ValueError, match="declares float32"):
-        exe.warm(prog, [("x", (2, 4), "int32"), sig[1]], [loss.name])
+        exe.warm(prog, [("x", (2, 4), "int32"), sig[1]], [loss.name],
+                 store=store)
     with pytest.raises(ValueError, match="dim 1 is 5"):
-        exe.warm(prog, [("x", (2, 5), "float32"), sig[1]], [loss.name])
-    assert exe.compiles == 0
+        exe.warm(prog, [("x", (2, 5), "float32"), sig[1]], [loss.name],
+                 store=store)
+    assert exe.compiles == 0 and store.entries() == []
     assert exe.warm(prog, sig, [loss.name]) == "compiled"
 
 

@@ -20,8 +20,8 @@ CPU, on the same weights:
   startup weights against JAX's forward (rtol 1e-5 of the largest
   value), their exported graphs naming the port's custom ops and not the
   plain versions' loops; a conv + BN + ReLU program on the fused conv op;
-  ``merge_model`` round trip; the refusals (``cond``, a training
-  dropout), and the hooks left for ROADMAP A.10.
+  ``merge_model`` round trip; the refusal of ``cond``, a training
+  dropout exported, and the hooks left for ROADMAP A.10.
 
 The ZeRO-1 ``CheckpointStrategyMismatch`` needs a mesh of two ranks: it
 is a case of ``tests/test_torch_trainer.py``'s gang."""
@@ -536,9 +536,10 @@ def test_merge_model_round_trip(tmp_path):
 
 def test_refused_exports_and_a10_hooks(tmp_path):
     """A ``cond`` program is refused at export, the message naming the op;
-    so is a dropout that is not is_test (its kernel has no custom op);
-    ``export_serving_model`` and the artifact's AOT and mesh hooks raise
-    naming ROADMAP A.10."""
+    a dropout that is not is_test exports (its kernel is the custom ops
+    ``dropout_fwd`` / ``dropout_bwd``) and draws the masks of step 0 at
+    every call, as the plain version does; ``export_serving_model`` and
+    the artifact's mesh hooks raise naming ROADMAP A.10."""
     x = tfluid.layers.data("x", [4])
     s = tfluid.layers.reduce_sum(x)
     pred = tfluid.layers.greater_than(s, tfluid.layers.fill_constant(
@@ -555,22 +556,30 @@ def test_refused_exports_and_a10_hooks(tmp_path):
     exe.run(tfluid.default_startup_program())
     prog = tfluid.default_main_program()
     for op in prog.global_block.ops:   # a training dropout kept on purpose
-        op.attrs["is_test"] = False
-    with pytest.raises(ValueError, match="threefry_dropout"):
-        tio._check_exportable(prog)
+        if op.type == "dropout":
+            op.attrs["is_test"] = False
+    tio._check_exportable(prog)
+    step, state = exe.build_raw_step(prog, ["x"], [d.name],
+                                     tfluid.global_scope())
+    feeds = {"x": torch.from_numpy(
+        np.random.RandomState(0).rand(3, 4).astype(np.float32))}
+    module = tio._InferenceModule(step)
+    with torch.no_grad():   # as save_inference_model exports
+        exported = torch.export.export(module, (state, feeds), strict=False)
+    assert "paddle_tpu_torch.dropout_fwd" in str(exported.graph)
+    got = exported.module()(state, feeds)[0]
+    want = module(state, feeds)[0]   # the masks of step 0
+    assert torch.equal(got, want) and (got == 0).any() and (got != 0).any()
     with pytest.raises(NotImplementedError, match="A.10"):
         tio.export_serving_model(str(tmp_path / "s"), ["x"], [d], exe)
     pred = _fc_softmax(tfluid)
     exe.run(tfluid.default_startup_program())
     tio.save_inference_model(str(tmp_path / "ok"), ["x"], [pred], exe)
     infer = tio.load_inference_model(str(tmp_path / "ok"), CPU_EXE)[0]
-    for hook, args in (("install", ({}, None)), ("aot_compile", ({},)),
-                       ("installed_count", ()), ("shard", (None,)),
-                       ("place_feeds", ({},)), ("serving_mesh", ())):
+    for hook, args in (("shard", (None,)), ("place_feeds", ({},)),
+                       ("serving_mesh", ())):
         with pytest.raises(NotImplementedError, match="A.10"):
             getattr(infer, hook)(*args)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        infer.artifact_hash
 
 
 def test_new_modules_import_no_jax():

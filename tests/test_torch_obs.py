@@ -51,14 +51,6 @@ CPU = tfluid.CPUPlace()
 WAITING = {
     **{n: "A.10 (fleet/)" for n in jobs.names.METRICS if n.startswith("fleet.")},
     **{n: "A.10 (fleet/)" for n in jobs.names.SPANS if n.startswith("fleet.")},
-    "compile.aot_hits": "A.10 (compile/aot.py)",
-    "compile.aot_misses": "A.10 (compile/aot.py)",
-    "compile.aot_writes": "A.10 (compile/aot.py)",
-    "compile.aot_corrupt": "A.10 (compile/aot.py)",
-    "compile.aot_load_ms": "A.10 (compile/aot.py)",
-    "compile.aot_write": "A.10 (compile/aot.py)",
-    "compile.aot_load": "A.10 (compile/aot.py)",
-    "compile.persistent_cache_enabled": "A.10 (compile/aot.py)",
     # the port has no fallback: a card that cannot run the paged kernel
     # raises (serving.decode.kernel_impl reads 1 on the card, 0 on the CPU)
     "serving.pallas.fallbacks": "never",

@@ -204,7 +204,7 @@ def test_flag_parsing_matches_the_reference(monkeypatch):
     for fl in (tflags, ref):
         assert fl.get("checkgrad_eps") == 0.25
         assert fl.get("save_only_one") is True
-    assert "no counterpart" in tflags._registry["compile_cache_dir"].help
+    assert "AOT store" in tflags._registry["compile_cache_dir"].help
 
 
 def _dropout_program(fl):

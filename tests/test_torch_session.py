@@ -607,11 +607,6 @@ def test_hooks_left_for_a10_name_it(artifacts, monkeypatch):
     sess = capi_server.Session(artifacts["port"])
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         sess.enable_mesh("data=1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        sess.enable_batching(compile_dir=os.getcwd())
-    monkeypatch.setenv("PADDLE_TPU_COMPILE_DIR", os.getcwd())
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        sess.enable_batching()
     assert sess._state.batcher is None
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         sess._infer.shard(None)

@@ -146,13 +146,23 @@ def test_supervisor_exports_env_and_log_dir(tmp_path):
 
 def test_supervisor_gang_identity_env(tmp_path):
     """A gang of two gets the reference's identity env, which the port's
-    ``distributed.init`` reads; one member's crash tears the gang down."""
-    child = ("import os, sys; e = os.environ; "
+    ``distributed.init`` reads; one member's crash tears the gang down.
+    Each member prints its identity and marks it done; rank 0 crashes only
+    once rank 1 has printed (under a loaded host rank 1 could otherwise be
+    torn down before its first line)."""
+    ready = tmp_path / "ready"
+    child = ("import os, sys, time; e = os.environ; "
              "print(e['PADDLE_TPU_COORDINATOR_ADDRESS'], "
-             "e['PADDLE_TPU_NUM_HOSTS'], e['PADDLE_TPU_TRAINER_ID']); "
+             "e['PADDLE_TPU_NUM_HOSTS'], e['PADDLE_TPU_TRAINER_ID'], "
+             "flush=True); "
+             f"m = {str(ready)!r} + e['PADDLE_TPU_RESTARTS']; "
+             "e['PADDLE_TPU_TRAINER_ID'] == '1' and open(m, 'w').close(); "
+             "t = time.time(); "
+             "[time.sleep(0.01) for _ in iter(lambda: os.path.exists(m) "
+             "or time.time() - t > 60, True)]; "
              "sys.exit(0 if e['PADDLE_TPU_RESTARTS'] == '1' else "
              "(3 if e['PADDLE_TPU_TRAINER_ID'] == '0' else "
-             "__import__('time').sleep(60)))")
+             "time.sleep(60)))")
     logs = tmp_path / "logs"
     s = Supervisor([[_PY, "-c", child]] * 2, max_restarts=1,
                    log_dir=str(logs), gang_grace_s=5.0, sleep=lambda d: None)
@@ -326,9 +336,13 @@ def test_supervise_tool_file_loads_without_the_package(tmp_path):
 
 
 def test_forwarded_compile_dir_is_refused_naming_a10(tmp_path, monkeypatch):
+    """The compile dir the supervisor forwards is the Trainer's (its AOT
+    store and manifest), ahead of the checkpoint dir's."""
     monkeypatch.setenv("PADDLE_TPU_COMPILE_DIR", str(tmp_path))
     x = fluid.layers.data("x", [4])
     loss = fluid.layers.mean(fluid.layers.fc(x, 1))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        fluid.Trainer(loss, fluid.optimizer.SGD(0.1), [x],
-                      place=fluid.CPUPlace())
+    tr = fluid.Trainer(loss, fluid.optimizer.SGD(0.1), [x],
+                       checkpoint_dir=str(tmp_path / "ckpt"),
+                       place=fluid.CPUPlace())
+    assert tr.compile_dir == str(tmp_path)
+    assert tr.aot_store.dirname == str(tmp_path / "aot")

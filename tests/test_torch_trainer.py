@@ -481,15 +481,20 @@ def test_watchdog_on_hang_fires_and_trainer_leaves_none():
 
 
 def test_compile_dir_and_prepare_name_a10(tmp_path):
+    """``compile_dir`` holds the AOT store and the manifest, by default
+    beside the checkpoints; ``prepare()`` on a cold start (no manifest
+    entries) warms nothing and returns None."""
     x, y, loss = _sgd_model(tfluid)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tfluid.Trainer(loss, tfluid.optimizer.SGD(0.5), [x, y],
-                       compile_dir=str(tmp_path), place=CPU)
+    tr = tfluid.Trainer(loss, tfluid.optimizer.SGD(0.5), [x, y],
+                        compile_dir=str(tmp_path), place=CPU)
+    assert tr.aot_store.dirname == os.path.join(str(tmp_path), "aot")
+    assert tr.prepare() is None
     tfluid.reset_default_programs()
     x, y, loss = _sgd_model(tfluid)
-    tr = tfluid.Trainer(loss, tfluid.optimizer.SGD(0.5), [x, y], place=CPU)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tr.prepare()
+    tr = tfluid.Trainer(loss, tfluid.optimizer.SGD(0.5), [x, y],
+                        checkpoint_dir=str(tmp_path / "ck"), place=CPU)
+    assert tr.compile_dir == os.path.join(str(tmp_path / "ck"), "compile")
+    assert tr.prepare() is None
     os.environ[cluster.RESTARTS_ENV] = "3"
     try:
         assert cluster.restart_count() == 3
